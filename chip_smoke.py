@@ -15,6 +15,18 @@ Phases (any failure raises and the exit code is non-zero):
    neighbors, trained for 8 Adam steps through train(); both kernels must
    have launched, the loss at w=0 must match the float64 plain path within
    1e-5 relative, and K1/K2 are checked and timed at the slice's shapes.
+4. node    — the online corrector at the JAX bench's node workload
+   (bench.py:build_node_scan: the raw 129,000-point scan of
+   open_box/n_6_size_20_20_5_height_1_density_215, slab engine, float32)
+   through DepthCorrector.process and correct_cloud; X1 must have launched
+   and meet its bars against the float64 plain version on the node's own
+   sorted inputs; the corrected points are held against the port's plain
+   float64 node path; node_ms, node_e2e_ms and node_points are printed.
+5. small   — a scan of the same box below 65,536 padded points
+   (density 100), routed to the brute engine (K = 32): P7 must have
+   launched and meet its bars on the node's own neighbour table; then P7
+   and its plain version are timed at the shapes of
+   scripts/exp_pallas_gather.py's stage 2 and held within 1e-5 relative.
 
 The last two lines of stdout are a JSON object with per-kernel numbers and
 {"ok": true, "device": {...}}. Without a CUDA device the script fails
@@ -32,6 +44,12 @@ import time
 STEPS = 8
 DEVICE = "cuda"
 SCENE = "open_box/n_6_size_20_20_5_height_1_density_400"
+NODE_SCENE = "open_box/n_6_size_20_20_5_height_1_density_215"
+SMALL_SCENE = "open_box/n_6_size_20_20_5_height_1_density_100"
+NODE_REPS = 20  # chained calls per node_ms batch
+E2E_REPS = 10
+POINTS_ABS_BAR = 1e-4  # m, corrected points against the float64 plain node
+PROBE_REL_BAR = 1e-5  # P7 at the probe's shapes, relative to max |output|
 # Bars against the float64 plain version.
 MEAN_ABS_BAR = 1e-5  # m
 COMPS_ABS_BAR = 1e-6  # m^2
@@ -308,13 +326,7 @@ def phase_slice(card: str):
 
 
 def profile_steps(cfg, data, card: str, n: int = 3):
-    """Where a step's time goes: ``n`` training steps under torch.profiler —
-    wall ms per step, device-busy ms per step (sum of kernel times), device
-    kernels per step and the kernels that take the most device time."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Where a step's time goes: ``n`` training steps under torch.profiler."""
     from depth_correction_tpu_torch.models import load_model
     from depth_correction_tpu_torch.train import make_loss_fn, make_optimizer
 
@@ -327,12 +339,23 @@ def profile_steps(cfg, data, card: str, n: int = 3):
         loss_fn(model, data).backward()
         opt.step()
 
-    step()
+    return profile_calls(step, card, "step", n)
+
+
+def profile_calls(fn, card: str, unit: str, n: int = 3):
+    """``n`` calls of ``fn`` under torch.profiler, after one warm call:
+    wall ms per call, device-busy ms per call (sum of kernel times), device
+    kernels per call and the kernels that take the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            step()
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
 
@@ -341,12 +364,222 @@ def profile_steps(cfg, data, card: str, n: int = 3):
     events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
     kernels = sum(e.count for e in events) / n
-    log("profile: %.3f ms/step wall, %.3f ms/step device busy (%.1f%%), %.0f device "
-        "kernels/step (%s)" % (wall_ms, busy_ms, 100.0 * busy_ms / wall_ms, kernels, card))
+    log("profile: %.3f ms/%s wall, %.3f ms/%s device busy (%.1f%%), %.0f device "
+        "kernels/%s (%s)" % (wall_ms, unit, busy_ms, unit, 100.0 * busy_ms / wall_ms,
+                             kernels, unit, card))
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
-        log("  %-60s %9.3f ms/step  x%d" % (e.key[:60], e.self_device_time_total / 1e3 / n,
-                                            e.count // n))
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels_per_step": kernels}
+        log("  %-60s %9.3f ms/%s  x%d" % (e.key[:60], e.self_device_time_total / 1e3 / n,
+                                          unit, e.count // n))
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels_per_call": kernels}
+
+
+def node_config(backend):
+    """bench.py:build_node_scan's configuration: bench_config(True) with
+    the node's engine (None routes by scan size)."""
+    cfg = bench_config()
+    cfg.nn_backend = backend
+    return cfg
+
+
+def node_scan(name: str):
+    """A raw scan as the node receives it (bench.py:build_node_scan)."""
+    from depth_correction_tpu_torch.datasets.synthetic import OpenBoxDataset
+
+    return OpenBoxDataset(name=name).local_cloud(0)
+
+
+def drive_node(scan, cfg, card: str, label: str, batches: int, reps: int, e2e_reps: int):
+    """The node's main path on the card: DepthCorrector.process (structured
+    scan in, numpy out) and correct_cloud on a device-resident cloud; the
+    launch counts of that run; per-scan times; the outputs against the
+    port's plain float64 node path on the same kept points."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from depth_correction_tpu_torch.cloud import Cloud
+    from depth_correction_tpu_torch.models import ScaledPolynomial
+    from depth_correction_tpu_torch.node import DepthCorrector, correct_cloud
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.preproc import pad_size
+
+    model = ScaledPolynomial(w=[-0.002], exponent=[4.0], dtype=torch.float32, device=DEVICE)
+    node = DepthCorrector(cfg, model=model)
+    cloud = Cloud.from_structured_array(scan, dtype=torch.float32, device=DEVICE)
+    cloud = cloud.pad(pad_size(cloud.size))
+
+    # The main path; counts from this run only.
+    _kernels.reset_launch_counts()
+    out = node.process(scan)
+    outs = correct_cloud(model, cloud, cfg)
+    torch.cuda.synchronize()
+    launches = {"slab": _kernels.SLAB_LAUNCHES, "gather": _kernels.GATHER_LAUNCHES}
+    kept = int(outs[4].sum())
+    log("%s: %d raw points, padded %d, %d kept, %d corrected; launches X1 %d, P7 %d"
+        % (label, len(scan), cloud.size, kept, int(outs[3].sum()), launches["slab"],
+           launches["gather"]))
+    if len(out) != kept or not all(np.isfinite(out[f]).all() for f in out.dtype.names):
+        raise RuntimeError("%s: DepthCorrector output malformed (%d rows, %d kept)"
+                           % (label, len(out), kept))
+    for x in outs[:3]:
+        if not bool(torch.isfinite(x[outs[4]]).all()):
+            raise RuntimeError("%s: non-finite corrected output" % label)
+
+    # Float64 plain reference on the same kept points (the voxel filter draws
+    # its ranks in the cloud's float type, so the reference takes the kept
+    # mask of the float32 run and skips the filter).
+    cfg64 = copy.deepcopy(cfg)
+    cfg64.grid_res = 0.0
+    cloud64 = Cloud.from_structured_array(scan, dtype=torch.float64, device=DEVICE)
+    cloud64 = cloud64.pad(cloud.size).replace(valid=outs[4])
+    model64 = ScaledPolynomial(w=[-0.002], exponent=[4.0], dtype=torch.float64, device=DEVICE)
+    ref = correct_cloud(model64, cloud64, cfg64, plain=True)
+    both = outs[3] & ref[3]
+    pts_err = float((outs[0].double() - ref[0])[both].abs().max())
+    log("%s vs float64 plain node: kept %d / %d, corrected %d / %d, mask differs on %d rows, "
+        "points max abs %.3e m on %d rows corrected in both"
+        % (label, kept, int(ref[4].sum()), int(outs[3].sum()), int(ref[3].sum()),
+           int((outs[3] != ref[3]).sum()), pts_err, int(both.sum())))
+    # The plain path in float32 on the same rows: the masks that float32
+    # rounding flips without any kernel.
+    ref32 = correct_cloud(model, cloud.replace(valid=outs[4]), cfg64, plain=True)
+    log("%s: float32 plain node corrects %d; its mask differs from float64 plain on %d rows, "
+        "from the kernels' on %d" % (label, int(ref32[3].sum()), int((ref32[3] != ref[3]).sum()),
+                                    int((ref32[3] != outs[3]).sum())))
+    if not pts_err <= POINTS_ABS_BAR:
+        raise RuntimeError("%s: corrected points miss the %.0e m bar: %.3e"
+                           % (label, POINTS_ABS_BAR, pts_err))
+
+    # node_ms: chained calls on device-resident inputs, ending in a sync.
+    batch_ms = []
+    for _ in range(batches):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            outs = correct_cloud(model, cloud, cfg)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3 / reps)
+    e2e = []
+    for _ in range(e2e_reps):
+        t0 = time.perf_counter()
+        node.process(scan)
+        e2e.append((time.perf_counter() - t0) * 1e3)
+    res = {"launches": launches, "points": kept, "ms": statistics.median(batch_ms),
+           "e2e_ms": statistics.median(e2e), "pts_err": pts_err, "outs": outs}
+    log("%s: node_ms %.3f (median of %d batches of %d chained calls: %s), node_e2e_ms %.3f "
+        "(median of %d, %.3f-%.3f), node_points %d (%s)"
+        % (label, res["ms"], batches, reps, ", ".join("%.3f" % t for t in batch_ms),
+           res["e2e_ms"], e2e_reps, min(e2e), max(e2e), kept, card))
+    res["profile"] = profile_calls(lambda: correct_cloud(model, cloud, cfg), card, "scan")
+    return res
+
+
+def phase_node(card: str):
+    import torch
+
+    from depth_correction_tpu_torch.node import NODE_N_CELLS_PAD, _slab_layout
+    from depth_correction_tpu_torch.ops import slabwin
+
+    cfg = node_config("slab")
+    t0 = time.perf_counter()
+    scan = node_scan(NODE_SCENE)
+    log("node scan %s: %d points (%.1f s)" % (NODE_SCENE, len(scan), time.perf_counter() - t0))
+    res = drive_node(scan, cfg, card, "node", batches=3, reps=NODE_REPS, e2e_reps=E2E_REPS)
+    if res["launches"]["slab"] <= 0:
+        raise RuntimeError("X1 was not launched on the node's main path: %s" % res["launches"])
+
+    # X1 on the node's own sorted inputs, against the float64 plain version.
+    from depth_correction_tpu_torch.cloud import Cloud
+    from depth_correction_tpu_torch.preproc import pad_size
+
+    cloud = Cloud.from_structured_array(scan, dtype=torch.float32, device=DEVICE)
+    cloud = cloud.pad(pad_size(cloud.size))
+    keep = res["outs"][4]
+    pts_T, valid, ids, _, dims = _slab_layout(cloud.to_points(), keep, cfg.nn_r)
+    lo, width, ctr, has = slabwin.slab_tile_spans(pts_T, valid, ids, dims, NODE_N_CELLS_PAD)
+    r2 = float(cfg.nn_r) ** 2
+    out = slabwin.slab_window_kernel(pts_T, valid, lo, width, ctr, r2)
+    torch.cuda.synchronize()
+    ref = slabwin.slab_window_moments_plain(pts_T.double(), valid, lo, width, ctr.double(), r2)
+    d = (out.double() - ref)[:, valid].abs()
+    err = (float(d[0:3].max()), float(d[3:9].max()))
+    log("X1 vs plain float64 (%d slots, %d tiles, %d live, widest span %d): mean max abs "
+        "%.3e m, comps max abs %.3e m^2" % (pts_T.shape[1], lo.shape[0], int(has.sum()),
+                                          int(width.max()), err[0], err[1]))
+    if not (err[0] <= MEAN_ABS_BAR and err[1] <= COMPS_ABS_BAR):
+        raise RuntimeError("X1 misses its bars vs float64: %s" % (err,))
+    res["x1_err"] = max(err)
+    res["x1_ms"] = cuda_ms(lambda: slabwin.slab_window_kernel(pts_T, valid, lo, width, ctr, r2),
+                           reps=50)
+    res["x1_plain_ms"] = cuda_ms(
+        lambda: slabwin.slab_window_moments_plain(pts_T, valid, lo, width, ctr, r2), reps=3)
+    log("X1 timing (float32, node shapes): kernel %.4f ms vs plain %.4f ms (%s)"
+        % (res["x1_ms"], res["x1_plain_ms"], card))
+    return res
+
+
+def phase_small(card: str):
+    import numpy as np
+    import torch
+
+    from depth_correction_tpu_torch.cloud import Cloud
+    from depth_correction_tpu_torch.ops import features
+    from depth_correction_tpu_torch.ops.grid_hash import GRID_NN_MIN_POINTS
+    from depth_correction_tpu_torch.ops.knn import radius_neighbors
+    from depth_correction_tpu_torch.preproc import pad_size
+
+    cfg = node_config(None)  # routed by size
+    scan = node_scan(SMALL_SCENE)
+    if pad_size(len(scan)) >= GRID_NN_MIN_POINTS:
+        raise RuntimeError("the small scan would not route to the brute engine")
+    res = drive_node(scan, cfg, card, "small", batches=1, reps=3, e2e_reps=3)
+    if res["launches"]["gather"] <= 0:
+        raise RuntimeError("P7 was not launched on the brute engine: %s" % res["launches"])
+
+    # P7 on the node's own neighbour table, against the float64 plain version.
+    cloud = Cloud.from_structured_array(scan, dtype=torch.float32, device=DEVICE)
+    cloud = cloud.pad(pad_size(cloud.size))
+    keep = res["outs"][4]
+    points = cloud.to_points()
+    _, nn = radius_neighbors(points, points, r=cfg.nn_r, k=32, valid_points=keep,
+                             valid_query=keep)
+    w = (nn >= 0).float()
+    got = features.gather_moments(points, nn, w)
+    torch.cuda.synchronize()
+    ref = features.gather_moments_plain(points.double(), nn, w.double())
+    err = (float((got[0].double() - ref[0])[:, keep].abs().max()),
+           float((got[1].double() - ref[1])[:, keep].abs().max()))
+    log("P7 vs plain float64 (node table %d x %d, %d kept rows): mean max abs %.3e m, comps "
+        "max abs %.3e m^2" % (nn.shape[0], nn.shape[1], int(keep.sum()), err[0], err[1]))
+    if not (err[0] <= MEAN_ABS_BAR and err[1] <= COMPS_ABS_BAR):
+        raise RuntimeError("P7 misses its bars vs float64 on the node's table: %s" % (err,))
+    res["p7_err"] = max(err)
+    node_ms = cuda_ms(lambda: features.gather_moments(points, nn, w), reps=50)
+    node_plain_ms = cuda_ms(lambda: features.gather_moments_plain(points, nn, w), reps=5)
+    log("P7 timing (float32, node table): kernel %.4f ms vs plain %.4f ms (%s)"
+        % (node_ms, node_plain_ms, card))
+
+    # The probe's stage-2 shapes (scripts/exp_pallas_gather.py:75-81).
+    rng = np.random.default_rng(0)
+    m, mq, k = 390144, 223744, 32
+    pts = torch.as_tensor(rng.normal(size=(3, m)), dtype=torch.float32, device=DEVICE)
+    idx = torch.as_tensor(rng.integers(0, m, (mq, k)), dtype=torch.int32, device=DEVICE)
+    wp = torch.as_tensor(rng.random((mq, k)) > 0.1, dtype=torch.float32, device=DEVICE)
+    got = features.gather_moments(pts, idx, wp)
+    ref = features.gather_moments_plain(pts.T.double(), idx, wp.double())
+    rel = max(float((g.double() - r).abs().max()) / float(r.abs().max())
+              for g, r in zip(got, ref))
+    log("P7 vs plain float64 at the probe's shapes (M %d, MQ %d, K %d): max error %.3e of "
+        "max |output|" % (m, mq, k, rel))
+    if not rel <= PROBE_REL_BAR:
+        raise RuntimeError("P7 misses the %.0e relative bar at the probe's shapes: %.3e"
+                           % (PROBE_REL_BAR, rel))
+    res["p7_ms"] = cuda_ms(lambda: features.gather_moments(pts, idx, wp), reps=20)
+    pts_n3 = pts.T.contiguous()
+    res["p7_plain_ms"] = cuda_ms(lambda: features.gather_moments_plain(pts_n3, idx, wp), reps=3)
+    log("P7 timing (float32, probe shapes): kernel %.4f ms vs plain %.4f ms (%s)"
+        % (res["p7_ms"], res["p7_plain_ms"], card))
+    return res
 
 
 def main() -> int:
@@ -371,6 +604,14 @@ def main() -> int:
     res = phase_slice(card)
     log("median step: %.3f ms over steps 1..%d; prep %.1f s; total %.1f s (%s)"
         % (res["step_ms"], STEPS - 1, res["prep_s"], time.perf_counter() - t0, card))
+    log("[phase 4] node (bench node scan, slab engine)")
+    node = phase_node(card)
+    log("[phase 5] node small scan (brute engine) and P7")
+    small = phase_small(card)
+    log("node_ms %.3f, node_e2e_ms %.3f, node_points %d; small scan (brute): node_ms %.3f, "
+        "node_e2e_ms %.3f, node_points %d; total %.1f s (%s)"
+        % (node["ms"], node["e2e_ms"], node["points"], small["ms"], small["e2e_ms"],
+           small["points"], time.perf_counter() - t0, card))
     k = res["kernels"]
     log(card)
     print(json.dumps({"kernels": [
@@ -384,6 +625,16 @@ def main() -> int:
          "replaces": "depth_correction_tpu/ops/cellwin.py:837",
          "launches": res["launches"]["bwd"], "max_abs_err": k["bwd_err"],
          "ms": k["bwd_ms"], "plain_ms": k["bwd_plain_ms"]},
+        {"name": "slab_window (X1)", "route": "cuda",
+         "source": "depth_correction_tpu_torch/csrc/slabwin.cu",
+         "replaces": "depth_correction_tpu/ops/slabwin.py:53",
+         "launches": node["launches"]["slab"], "max_abs_err": node["x1_err"],
+         "ms": node["x1_ms"], "plain_ms": node["x1_plain_ms"]},
+        {"name": "gather_moments (P7)", "route": "cuda",
+         "source": "depth_correction_tpu_torch/csrc/gather_moments.cu",
+         "replaces": "scripts/exp_pallas_gather.py:83",
+         "launches": small["launches"]["gather"], "max_abs_err": small["p7_err"],
+         "ms": small["p7_ms"], "plain_ms": small["p7_plain_ms"]},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

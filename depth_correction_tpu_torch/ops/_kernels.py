@@ -1,15 +1,18 @@
 """Build and bind the package's CUDA kernels (``csrc/*.cu``).
 
-Route: ``nvcc`` compiles the sources into a shared library with a plain C
-interface, which ``ctypes`` loads; no PyTorch headers are compiled, so a
-build takes seconds. The library is built at first use into
-``depth_correction_tpu_torch/_build/`` under a name keyed by a hash of the
+Route: one ``nvcc`` call compiles every source, in parallel threads
+(``--threads 0``), into one shared library with a plain C interface, which
+``ctypes`` loads; no PyTorch headers are compiled, so a build takes
+seconds. The library is built at first use into
+``depth_correction_tpu_torch/_build/`` under a name keyed by a hash of all
 sources and flags, so an edited source rebuilds and an unchanged one is
 reused. Nothing here runs at import: the CPU tests import every module.
 
 The launchers validate device, dtype, shape and contiguity before passing
 pointers, launch on the current stream, and raise when the C entry returns
-a CUDA error. Launch counts are kept by the callers in ``ops/cellwin.py``.
+a CUDA error. Launch counts of K1/K2 are kept by their callers in
+``ops/cellwin.py``; X1 and P7 count here (:data:`SLAB_LAUNCHES`,
+:data:`GATHER_LAUNCHES`), once per accepted launch.
 """
 from __future__ import annotations
 
@@ -22,22 +25,41 @@ import time
 
 import torch
 
-__all__ = ["build", "launch_cellwin_bwd", "launch_cellwin_fwd", "load"]
+__all__ = [
+    "GATHER_LAUNCHES",
+    "SLAB_LAUNCHES",
+    "build",
+    "launch_cellwin_bwd",
+    "launch_cellwin_fwd",
+    "launch_gather_moments",
+    "launch_slab_window",
+    "load",
+    "reset_launch_counts",
+]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG_DIR, "csrc", "cellwin.cu"),)
+SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
+                for name in ("cellwin.cu", "gather_moments.cu", "slabwin.cu"))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
+    # Compile the sources in parallel threads, one per CPU.
+    "--threads", "0",
     # ptxas reports each kernel's registers, shared memory and spills into
     # the build log; it does not change the binary.
     "-Xptxas", "-v",
 )
 
+# Launches of X1 (slab-window moments) and P7 (gather moments), counted
+# where each kernel is launched and nowhere else.
+SLAB_LAUNCHES = 0
+GATHER_LAUNCHES = 0
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 _lib = None
 
 
@@ -100,6 +122,11 @@ def load():
         lib.dc_cellwin_bwd.argtypes = [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I,
                                        _I, _I, _F, _P, _P]
         lib.dc_cellwin_bwd.restype = _I
+        lib.dc_slab_window.argtypes = [_P, _P, _I, _P, _P, _P, _I, _F, _P, _P]
+        lib.dc_slab_window.restype = _I
+        lib.dc_gather_moments.argtypes = [_P, _L, _L, _I, _P, _P, _I, _I, _P, _P,
+                                          _P, _P]
+        lib.dc_gather_moments.restype = _I
         lib.dc_cuda_error_string.argtypes = [_I]
         lib.dc_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -194,3 +221,85 @@ def launch_cellwin_bwd(pts_sorted, q_est, est_sorted, table9, b_start, b_len,
             out.data_ptr(), stream)
     _check_launch(lib, err, "cellwin_bwd")
     return out
+
+
+def launch_slab_window(pts_T, valid, lo, width, ctr, r2: float) -> torch.Tensor:
+    """X1 on CUDA tensors -> (10, n) moments of every sorted slot.
+
+    :param pts_T: (3, n) float32 sorted positions, n a multiple of 128.
+    :param valid: (n,) bool.
+    :param lo, width: (n / 128, 3) int32 span starts and lengths.
+    :param ctr: (n / 128, 3) float32 tile centres.
+    """
+    global SLAB_LAUNCHES
+    device = pts_T.device
+    if device.type != "cuda":
+        raise ValueError("the slab-window kernel takes CUDA tensors, got %s" % device)
+    n = pts_T.shape[-1]
+    if n % 128:
+        raise ValueError("slab_window: %d slots is not a multiple of 128" % n)
+    t = n // 128
+    _check(pts_T, "pts_T", torch.float32, (3, n), device)
+    _check(valid, "valid", torch.bool, (n,), device)
+    _check(lo, "lo", torch.int32, (t, 3), device)
+    _check(width, "width", torch.int32, (t, 3), device)
+    _check(ctr, "ctr", torch.float32, (t, 3), device)
+    if pts_T.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("slab_window is forward only: pts_T requires grad")
+    out = torch.empty((10, n), dtype=torch.float32, device=device)
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dc_slab_window(pts_T.data_ptr(), valid.data_ptr(), n, lo.data_ptr(),
+                                 width.data_ptr(), ctr.data_ptr(), t, float(r2),
+                                 out.data_ptr(), stream)
+    _check_launch(lib, err, "slab_window")
+    SLAB_LAUNCHES += 1
+    return out
+
+
+def launch_gather_moments(points, neighbors, weights):
+    """P7 on CUDA tensors -> (mean (3, Mq), comps (6, Mq), w_sum (Mq,)).
+
+    :param points: (N, 3) or (3, N) float32 (a (3, 3) table is read as
+        (N, 3)); any strides.
+    :param neighbors: (Mq, K) int32, -1 padded.
+    :param weights: (Mq, K) float32.
+    """
+    global GATHER_LAUNCHES
+    device = points.device
+    if device.type != "cuda":
+        raise ValueError("the gather-moments kernel takes CUDA tensors, got %s" % device)
+    if points.dtype != torch.float32:
+        raise TypeError("points has dtype %s, the kernel takes torch.float32" % points.dtype)
+    if points.dim() != 2 or 3 not in points.shape:
+        raise ValueError("points has shape %s, expected (N, 3) or (3, N)"
+                         % (tuple(points.shape),))
+    if points.shape[1] == 3:
+        n_pts, sp, sc = points.shape[0], points.stride(0), points.stride(1)
+    else:
+        n_pts, sp, sc = points.shape[1], points.stride(1), points.stride(0)
+    if points.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("gather_moments is forward only: points requires grad")
+    mq, k = neighbors.shape
+    _check(neighbors, "neighbors", torch.int32, (mq, k), device)
+    _check(weights, "weights", torch.float32, (mq, k), device)
+    mean = torch.empty((3, mq), dtype=torch.float32, device=device)
+    comps = torch.empty((6, mq), dtype=torch.float32, device=device)
+    wsum = torch.empty((mq,), dtype=torch.float32, device=device)
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dc_gather_moments(points.data_ptr(), sp, sc, n_pts, neighbors.data_ptr(),
+                                    weights.data_ptr(), mq, k, mean.data_ptr(),
+                                    comps.data_ptr(), wsum.data_ptr(), stream)
+    _check_launch(lib, err, "gather_moments")
+    GATHER_LAUNCHES += 1
+    return mean, comps, wsum
+
+
+def reset_launch_counts() -> None:
+    """Zero :data:`SLAB_LAUNCHES` and :data:`GATHER_LAUNCHES`."""
+    global SLAB_LAUNCHES, GATHER_LAUNCHES
+    SLAB_LAUNCHES = 0
+    GATHER_LAUNCHES = 0

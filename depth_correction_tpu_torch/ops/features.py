@@ -12,6 +12,10 @@ angles). Neighborhoods are (M, K) index matrices with -1 padding and
 The gather engine's backward is plain torch autograd (an ``index_add``).
 The JAX package's bucketed transposes exist only because scatters
 serialize on the TPU and are not ported.
+
+Moments that need no gradient (the online corrector, prep features) go
+through :func:`gather_moments`: kernel P7 (``csrc/gather_moments.cu``) on
+CUDA tensors, :func:`gather_moments_plain` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -20,10 +24,13 @@ from typing import Optional
 import torch
 
 from ..cloud import Cloud
+from . import _kernels
 from .eigh3 import eigh3, eigvals3_c
 
 __all__ = [
     "compute_features",
+    "gather_moments",
+    "gather_moments_plain",
     "gather_neighbors",
     "neighborhood_features",
     "neighborhood_moments",
@@ -108,6 +115,36 @@ def _moments_impl_block(points, neighbors, weights):
     return mean.T, comps, w_sum
 
 
+def gather_moments_plain(points, neighbors, weights):
+    """Plain torch version of kernel P7, any device and dtype: the JAX
+    package's ``_moments_impl`` (features.py:761-794) with index -1 and
+    indices outside [0, N) contributing nothing.
+
+    :param points: (N, 3) positions.
+    :param neighbors: (Mq, K) indices, -1 padded.
+    :param weights: (Mq, K) weights.
+    :return: (mean (3, Mq), comps (6, Mq), w_sum (Mq,) = max(sum w, 1e-12)).
+    """
+    n = points.shape[0]
+    ok = (neighbors >= 0) & (neighbors < n)
+    w = torch.where(ok, weights.to(points.dtype), torch.zeros((), dtype=points.dtype,
+                                                              device=points.device))
+    mean, comps, w_sum = _moments_impl(points, torch.where(ok, neighbors, -1), w)
+    return mean, torch.stack(comps), w_sum
+
+
+def gather_moments(points, neighbors, weights):
+    """P7 wrapper: the CUDA kernel for CUDA tensors (float32, forward only;
+    anything else raises), :func:`gather_moments_plain` for CPU tensors.
+    Same arguments and results as :func:`gather_moments_plain`; ``points``
+    may also be (3, N) (a (3, 3) table is read as (N, 3))."""
+    if points.device.type == "cpu":
+        return gather_moments_plain(points if points.shape[1] == 3 else points.T,
+                                    neighbors, weights)
+    return _kernels.launch_gather_moments(points, neighbors.to(torch.int32).contiguous(),
+                                          weights.to(points.dtype).contiguous())
+
+
 def neighborhood_moments(points, neighbors, weights):
     """Weighted mean + covariance components over frozen neighborhoods,
     differentiable in ``points`` by torch autograd.
@@ -140,7 +177,7 @@ def _cotangent_table(mean, w_sum, cotangents):
 
 def neighborhood_features(points, neighbors, weights, dirs=None,
                           scale: Optional[float] = None,
-                          compute_normals: bool = True):
+                          compute_normals: bool = True, plain: bool = False):
     """Weighted neighborhood statistics for each query row.
 
     :param points: (N, 3) cloud positions.
@@ -151,6 +188,8 @@ def neighborhood_features(points, neighbors, weights, dirs=None,
     :param scale: Gaussian re-weighting (``nn_scale``) is not ported yet.
     :param compute_normals: skip the eigenvector path when False (the
         min-eigval / trace losses only need eigenvalues).
+    :param plain: without a gradient, take :func:`gather_moments_plain`
+        on any device and dtype instead of :func:`gather_moments`.
     :return: dict with mean, weights, trace, eigvals and, with normals,
         cov, eigvecs, normals, inc_angles.
     """
@@ -158,7 +197,19 @@ def neighborhood_features(points, neighbors, weights, dirs=None,
         raise NotImplementedError("nn_scale (Gaussian re-weighting) is not ported yet")
     if weights.dim() == 3:
         weights = weights[..., 0]
-    mean, comps = neighborhood_moments(points, neighbors, weights)
+    if torch.is_grad_enabled() and points.requires_grad:
+        mean, comps = neighborhood_moments(points, neighbors, weights)
+    else:
+        fn = gather_moments_plain if plain else gather_moments
+        mean, comps, _ = fn(points, neighbors, weights)
+        comps = tuple(comps)
+    return _finish_features(mean, comps, weights, dirs, compute_normals)
+
+
+def _finish_features(mean, comps, weights, dirs, compute_normals):
+    """Shared feature tail (JAX package, features.py:809-830): trace,
+    eigenvalues and, with ``dirs``, eigenvectors, normals oriented against
+    the view direction and incidence angles."""
     a00, a11, a22, a01, a02, a12 = comps
     out = {"mean": mean.T, "weights": weights, "trace": a00 + a11 + a22}
     if compute_normals and dirs is not None:

@@ -14,9 +14,11 @@ import numpy as np
 import torch
 
 __all__ = [
+    "filter_depth_mask",
     "filter_eigenvalue_ratios_mask",
     "filter_eigenvalues_mask",
     "filter_grid_indices",
+    "filter_grid_mask",
     "filter_valid_neighbors_mask",
     "global_cloud_mask",
     "within_bounds",
@@ -34,6 +36,63 @@ def within_bounds(x: torch.Tensor, lo=None, hi=None, bounds=None) -> torch.Tenso
     if hi is not None and hi == hi and hi < float("inf"):
         keep = keep & (x <= hi)
     return keep
+
+
+def filter_depth_mask(cloud, lo=None, hi=None) -> torch.Tensor:
+    """Depth-bounds mask (reference: filters.py:116-141)."""
+    return within_bounds(cloud.depth, lo, hi) & cloud.valid
+
+
+_INT32_MIN = -(2 ** 31)
+
+
+def _wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values reduced to int32 two's-complement wraparound."""
+    return ((x - _INT32_MIN) & 0xFFFFFFFF) + _INT32_MIN
+
+
+def filter_grid_mask(points: torch.Tensor, valid: torch.Tensor, grid_res: float,
+                     seed: int = 135, table_size: Optional[int] = None) -> torch.Tensor:
+    """Voxel-grid subsample as a mask, on the points' device: one winner
+    per hash slot, the point of lowest seeded random rank (the masked
+    analogue of ``keep='random'``; JAX package, filters.py:89-130).
+
+    The hash is the JAX package's, with int32 wraparound: the products of
+    the voxel coordinates with 73856093, 19349663 and 83492791, XORed,
+    ``abs % table_size`` (``table_size = max(4n, 1024)``). Distinct voxels
+    that collide in a slot share one winner. Ranks are
+    ``jax.random.uniform(PRNGKey(seed), (n,))`` bit for bit
+    (:mod:`.prng`), in float64 for float64 points and float32 otherwise:
+    the JAX package draws them in its default float type, which is float64
+    where x64 is enabled (as for its float64 clouds) and float32 where it is
+    not. Invalid rows rank ``inf`` and never win.
+    """
+    from .prng import uniform
+
+    n = points.shape[0]
+    if table_size is None:
+        table_size = max(4 * n, 1024)
+    # A true division, as in JAX: CUDA divides by a Python scalar as a
+    # multiply by its reciprocal, which can move a point across a voxel face.
+    res = torch.full((), grid_res, dtype=points.dtype, device=points.device)
+    cell = torch.floor(points / res).to(torch.int64)
+    h = _wrap_int32((cell[:, 0] * 73856093) ^ (cell[:, 1] * 19349663)
+                    ^ (cell[:, 2] * 83492791))
+    # abs() of int32 min stays int32 min; the floor modulo makes it positive.
+    slot = torch.where(h == _INT32_MIN, h, h.abs()) % table_size
+    rank_dtype = torch.float64 if points.dtype == torch.float64 else torch.float32
+    rank = uniform(seed, n, rank_dtype, points.device)
+    rank = torch.where(valid, rank, torch.full_like(rank, float("inf")))
+    # Winner = first of each slot's run in (slot, rank, index) order: two
+    # stable sorts, minor key first.
+    by_rank = torch.argsort(rank, stable=True)
+    order = by_rank[torch.argsort(slot[by_rank], stable=True)]
+    s_slot = slot[order]
+    first = torch.ones(n, dtype=torch.bool, device=points.device)
+    first[1:] = s_slot[1:] != s_slot[:-1]
+    win = torch.zeros(n, dtype=torch.bool, device=points.device)
+    win[order] = first & torch.isfinite(rank[order])
+    return valid & win
 
 
 def filter_grid_indices(points: np.ndarray, grid_res: float, keep: str = "random",

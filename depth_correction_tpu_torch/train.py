@@ -306,7 +306,8 @@ def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
                 mask = cw.row_map >= 0
             else:
                 f = neighborhood_features(gcloud.get_points(), data.neighbors[i],
-                                          data.weights[i], compute_normals=False)
+                                          data.weights[i], compute_normals=False,
+                                          plain=plain)
                 mask = data.masks[i]
             seq_masks.append(mask)
             feats.append(FeatureRows(eigvals=f["eigvals"], trace=f["trace"], valid=mask))

@@ -13,7 +13,10 @@ import torch
 
 from depth_correction_tpu_torch.ops import _kernels
 from depth_correction_tpu_torch.ops import cellwin as tcw
+from depth_correction_tpu_torch.ops import features as tfeat
+from depth_correction_tpu_torch.ops import slabwin as tslab
 from depth_correction_tpu_torch.ops.features import _cotangent_table, permute_rows
+from depth_correction_tpu_torch.ops.grid_hash import grid_sort_colpad_traced
 
 # Bars of the float32 kernels against the float64 plain versions (the
 # bars chip_smoke.py holds them to at the slice's shapes).
@@ -156,3 +159,159 @@ def test_cuda_wrappers_refuse_float64(cuda_device):
         tcw.cellwin_fwd(ps, dev.q_est, dev.est_sorted, dev.f_start, dev.f_len,
                         dev.f_ctr, dev.r2)
     assert tcw.FWD_LAUNCHES == before
+
+
+# ---------------------------------------------------------------------------
+# The online corrector's kernels: X1 (slab-window moments) and P7 (gather
+# moments).
+
+N_CELLS = 1 << 21
+
+
+def test_node_wrappers_never_take_the_plain_path(monkeypatch):
+    """Non-CPU tensors go to the X1 / P7 launchers, never to the plain
+    versions; the launchers refuse CPU tensors."""
+    calls = []
+
+    def fake_launch(*args):
+        calls.append(args)
+        raise RuntimeError("launched")
+
+    monkeypatch.setattr(_kernels, "launch_slab_window", fake_launch)
+    monkeypatch.setattr(_kernels, "launch_gather_moments", fake_launch)
+    pts = torch.zeros((3, 256), device="meta")
+    spans = torch.zeros((2, 3), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="launched"):
+        tslab.slab_window_kernel(pts, torch.zeros(256, dtype=torch.bool, device="meta"),
+                                 spans, spans, torch.zeros((2, 3), device="meta"), 0.01)
+    with pytest.raises(RuntimeError, match="launched"):
+        tfeat.gather_moments(pts.T, torch.zeros((4, 8), dtype=torch.int32, device="meta"),
+                             torch.zeros((4, 8), device="meta"))
+    assert len(calls) == 2
+    monkeypatch.undo()
+    before = (_kernels.SLAB_LAUNCHES, _kernels.GATHER_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch_slab_window(torch.zeros((3, 128)), torch.zeros(128, dtype=torch.bool),
+                                    torch.zeros((1, 3), dtype=torch.int32),
+                                    torch.zeros((1, 3), dtype=torch.int32),
+                                    torch.zeros((1, 3)), 0.01)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch_gather_moments(torch.zeros((8, 3)), torch.zeros((4, 2), dtype=torch.int32),
+                                       torch.zeros((4, 2)))
+    assert (_kernels.SLAB_LAUNCHES, _kernels.GATHER_LAUNCHES) == before
+
+
+def _slab_inputs(device, seed=0, n=16384):
+    """A sorted slab layout of half a noisy plane and half a volume."""
+    rng = np.random.default_rng(seed)
+    n1 = n // 2
+    p = np.vstack([np.c_[rng.uniform(-4, 4, (n1, 2)), 0.01 * rng.standard_normal(n1)],
+                   rng.uniform(-4, 4, (n - n1, 3)) * [1.0, 1.0, 0.3]]) + [12.0, -7.0, 1.5]
+    valid = torch.as_tensor(rng.uniform(size=n) > 0.1, device=device)
+    pts = torch.as_tensor(p, dtype=torch.float32, device=device)
+    pts_T, val, ids, _, _, dims, _, _ = grid_sort_colpad_traced(pts, valid, 0.25, N_CELLS,
+                                                                x_cols_pad=64)
+    lo, width, ctr, _ = tslab.slab_tile_spans(pts_T, val, ids, dims, N_CELLS)
+    return pts_T, val, lo, width, ctr
+
+
+@pytest.mark.cuda
+def test_cuda_slab_window_matches_plain(cuda_device):
+    pts_T, val, lo, width, ctr = _slab_inputs(cuda_device)
+    before = _kernels.SLAB_LAUNCHES
+    out = tslab.slab_window_kernel(pts_T, val, lo, width, ctr, 0.0625)
+    torch.cuda.synchronize()
+    assert _kernels.SLAB_LAUNCHES == before + 1
+    # Same f32 membership as the plain version (no fused multiply-add).
+    p32 = tslab.slab_window_moments_plain(pts_T, val, lo, width, ctr, 0.0625)
+    assert torch.equal(out[9], p32[9])
+    p64 = tslab.slab_window_moments_plain(pts_T.double(), val, lo, width, ctr.double(), 0.0625)
+    d = (out.double() - p64)[:, val].abs()
+    assert float(d[0:3].max()) <= MEAN_ABS_BAR and float(d[3:9].max()) <= COMPS_ABS_BAR
+    assert float(p64[9][val].min()) >= 1.0  # every valid row is its own member
+
+
+@pytest.mark.cuda
+def test_cuda_gather_moments_matches_plain(cuda_device):
+    rng = np.random.default_rng(5)
+    pts = torch.as_tensor(rng.normal(size=(20000, 3)) + 20.0, dtype=torch.float32,
+                          device=cuda_device)
+    idx = rng.integers(0, 20000, (5000, 40))
+    idx[rng.uniform(size=idx.shape) < 0.2] = -1
+    idx = torch.as_tensor(idx, dtype=torch.int32, device=cuda_device)
+    w = torch.as_tensor(rng.uniform(size=(5000, 40)) > 0.1, dtype=torch.float32,
+                        device=cuda_device)
+    before = _kernels.GATHER_LAUNCHES
+    mean, comps, wsum = tfeat.gather_moments(pts, idx, w)
+    mean_t, comps_t, wsum_t = tfeat.gather_moments(pts.T, idx, w)  # (3, N) layout
+    torch.cuda.synchronize()
+    assert _kernels.GATHER_LAUNCHES == before + 2
+    assert torch.equal(mean, mean_t) and torch.equal(comps, comps_t)
+    ref = tfeat.gather_moments_plain(pts.double(), idx, w.double())
+    for got, want in zip((mean, comps, wsum), ref):
+        err = float((got.double() - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max())
+
+
+def _node_scan():
+    from depth_correction_tpu_torch.datasets.synthetic import OpenBoxDataset
+
+    scan = OpenBoxDataset(name="open_box/n_6_size_10_10_5_height_1_density_60").local_cloud(0)
+    rng = np.random.default_rng(7)
+    for f in "xyz":
+        scan[f] += 0.005 * rng.standard_normal(len(scan))
+    return scan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["slab", "brute"])
+def test_cuda_correct_cloud_launches_kernels(cuda_device, backend):
+    from depth_correction_tpu_torch.cloud import Cloud
+    from depth_correction_tpu_torch.config import Config
+    from depth_correction_tpu_torch.models import ScaledPolynomial
+    from depth_correction_tpu_torch.node import correct_cloud
+    from depth_correction_tpu_torch.preproc import pad_size
+
+    cfg = Config()
+    cfg.min_depth, cfg.max_depth, cfg.grid_res, cfg.nn_r = 1.0, 25.0, 0.1, 0.25
+    cfg.min_valid_neighbors = 5
+    cfg.eigenvalue_ratio_bounds = [[0, 1, 0, 0.25], [1, 2, 0.25, 1.0]]
+    cfg.nn_backend = backend
+    scan = _node_scan()
+    outs = {}
+    for dtype, plain in ((torch.float32, False), (torch.float64, True)):
+        cloud = Cloud.from_structured_array(scan, dtype=dtype, device=cuda_device)
+        cloud = cloud.pad(pad_size(cloud.size))
+        if plain:
+            # The voxel filter draws its ranks in the cloud's float type:
+            # the float64 reference takes the float32 run's kept points.
+            cloud = cloud.replace(valid=outs[False][4])
+            cfg.grid_res = 0.0
+        model = ScaledPolynomial(w=[-0.002], exponent=[4.0], dtype=dtype, device=cuda_device)
+        before = (_kernels.SLAB_LAUNCHES, _kernels.GATHER_LAUNCHES)
+        outs[plain] = correct_cloud(model, cloud, cfg, plain=plain)
+        after = (_kernels.SLAB_LAUNCHES, _kernels.GATHER_LAUNCHES)
+        launched = after[0] - before[0] if backend == "slab" else after[1] - before[1]
+        assert launched == (0 if plain else 1)
+    got, ref = outs[False], outs[True]
+    assert torch.equal(got[4], ref[4])
+    both = got[3] & ref[3]
+    assert int(both.sum()) > 0.9 * int(ref[3].sum()) > 0
+    assert float((got[0].double() - ref[0])[both].abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_node_wrappers_refuse_float64_and_grad(cuda_device):
+    pts_T, val, lo, width, ctr = _slab_inputs(cuda_device, n=2048)
+    idx = torch.zeros((4, 8), dtype=torch.int32, device=cuda_device)
+    w = torch.ones((4, 8), device=cuda_device)
+    before = (_kernels.SLAB_LAUNCHES, _kernels.GATHER_LAUNCHES)
+    with pytest.raises(TypeError, match="dtype"):
+        tslab.slab_window_kernel(pts_T.double(), val, lo, width, ctr.double(), 0.0625)
+    with pytest.raises(TypeError, match="dtype"):
+        tfeat.gather_moments(pts_T.T.double(), idx, w)
+    with pytest.raises(RuntimeError, match="forward only"):
+        tfeat.gather_moments(pts_T.T.detach().requires_grad_(), idx, w)
+    with pytest.raises(RuntimeError, match="forward only"):
+        tslab.slab_window_kernel(pts_T.detach().requires_grad_(), val, lo, width, ctr, 0.0625)
+    assert (_kernels.SLAB_LAUNCHES, _kernels.GATHER_LAUNCHES) == before

@@ -179,7 +179,10 @@ def test_options_outside_the_slice_raise(option, value):
 
 def test_port_imports_no_jax():
     code = ("import sys; import depth_correction_tpu_torch, "
-            "depth_correction_tpu_torch.train, depth_correction_tpu_torch.ops._kernels; "
+            "depth_correction_tpu_torch.train, depth_correction_tpu_torch.ops._kernels, "
+            "depth_correction_tpu_torch.node, depth_correction_tpu_torch.ops.slabwin, "
+            "depth_correction_tpu_torch.ops.knn, depth_correction_tpu_torch.ops.grid_hash, "
+            "depth_correction_tpu_torch.ops.prng; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'depth_correction_tpu' or m.startswith('depth_correction_tpu.') "
             "for m in sys.modules), 'JAX package imported'")
