@@ -27,9 +27,22 @@ Phases (any failure raises and the exit code is non-zero):
    launched and meet its bars on the node's own neighbour table; then P7
    and its plain version are timed at the shapes of
    scripts/exp_pallas_gather.py's stage 2 and held within 1e-5 relative.
+6. probes  — the port's probe scripts (depth_correction_tpu_torch/scripts),
+   each run with the launch counts zeroed just before and read just after:
+   P1 (exp_cellwin_knockout: K1's knockout modes on the slice's own table
+   from phase 3; `full` must be bit-equal to K1, every mode meet its bars
+   against its float64 plain version), P2 (exp_mosaic_dot_probe: the
+   moment product in fp32 / tf32 / tf32x2 / tf32x3, torch.bmm timed beside
+   it), P3-P5 (exp_mosaic_dot_probe2-4: the product with in-kernel
+   operands and K1's structural pieces), at the TPU scripts' seeds and
+   shapes. Every variant must be within 1e-5 (relative, per output row) of
+   its float32 plain version; fp32 and tf32x3 within 1e-5 of the float64
+   oracle; a table of ms per variant is printed.
 
-The last two lines of stdout are a JSON object with per-kernel numbers and
-{"ok": true, "device": {...}}. Without a CUDA device the script fails
+The last two lines of stdout are a JSON object with per-kernel numbers
+(time, plain time, launches, error, the bound and what sets it, the
+library call's time where one PyTorch call computes the same function)
+and {"ok": true, "device": {...}}. Without a CUDA device the script fails
 before printing any result.
 """
 from __future__ import annotations
@@ -43,7 +56,6 @@ import time
 
 STEPS = 8
 DEVICE = "cuda"
-SCENE = "open_box/n_6_size_20_20_5_height_1_density_400"
 NODE_SCENE = "open_box/n_6_size_20_20_5_height_1_density_215"
 SMALL_SCENE = "open_box/n_6_size_20_20_5_height_1_density_100"
 NODE_REPS = 20  # chained calls per node_ms batch
@@ -71,19 +83,37 @@ def card_line() -> str:
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean device ms per call, by CUDA events around ``reps`` calls."""
-    import torch
+    from depth_correction_tpu_torch.scripts import device_ms
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+    return device_ms(fn, DEVICE, reps, warmup)
+
+
+# Published peaks of one H100 SXM (NVIDIA data sheet; dense): the bounds
+# below are the larger of bytes / HBM rate and the operations of each type
+# over that type's peak rate.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"fp32": 67e12, "tf32": 495e12}
+
+
+def bound(nbytes: float, ops: dict) -> tuple:
+    """(bound_ms, "bytes" or "operations") for ``nbytes`` moved once and
+    ``ops`` {type: count} done at the card's published peaks. fp32 runs on
+    the CUDA cores and tf32 on the tensor cores, pipes that issue side by
+    side, so the operations take the longest type's time, not the sum."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = max(n / PEAK_OPS_PER_S[k] for k, n in ops.items()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def cellwin_fwd_bound(graph, pairs: int, members: int) -> tuple:
+    """K1's bound on ``graph`` (P1's ``full`` does the same work): ``pairs``
+    membership tests (sum of span lengths x rows per tile) of ~8 float ops,
+    ~19 per member, an epilogue per row; positions, establishment positions,
+    span tables and centres read once, (10, mq_pad) written once."""
+    m_pad, mq_pad = graph.est_sorted.shape[1], graph.q_est.shape[1]
+    t1, ns = graph.f_start.shape
+    return bound(m_pad * 24 + mq_pad * 12 + t1 * (ns * 8 + 12) + mq_pad * 40,
+                 {"fp32": 8 * pairs + 19 * members + 30 * mq_pad})
 
 
 def phase_build() -> float:
@@ -209,30 +239,9 @@ def phase_kernels():
 
 def bench_config():
     """bench.py:bench_config(uncapped=True), with scipy establishment."""
-    from depth_correction_tpu_torch.config import Config
+    from depth_correction_tpu_torch.scripts import bench_config as config
 
-    cfg = Config()
-    cfg.nn_backend = "scipy"
-    cfg.device = DEVICE
-    cfg.float_type = "float32"
-    cfg.dataset = "open_box"
-    cfg.train_names = [SCENE]
-    cfg.min_depth, cfg.max_depth = 1.0, 25.0
-    cfg.grid_res = 0.1
-    cfg.nn_r, cfg.nn_k = 0.25, 0
-    cfg.min_valid_neighbors = 5
-    cfg.vp_dispersion_bounds = []
-    cfg.eigenvalue_ratio_bounds = [[0, 1, 0, 0.25], [1, 2, 0.25, 1.0]]
-    cfg.loss = "min_eigval_loss"
-    cfg.loss_kwargs = {"sqrt": False, "normalization": True}
-    cfg.depth_bias_model_kwargs = {"w": [-0.002], "exponent": [4.0]}
-    cfg.model_kwargs = {"w": [0.0], "exponent": [4.0]}
-    cfg.lr = 2e-4
-    cfg.nn_max_neighbors = None
-    cfg.moments_backend = "auto"
-    cfg.n_opt_iters = STEPS
-    cfg.plot_period = 1
-    return cfg
+    return config(DEVICE, STEPS)
 
 
 def phase_slice(card: str):
@@ -243,8 +252,7 @@ def phase_slice(card: str):
     from depth_correction_tpu_torch.datasets import create_dataset
     from depth_correction_tpu_torch.models import ScaledPolynomial
     from depth_correction_tpu_torch.ops import cellwin as cw
-    from depth_correction_tpu_torch.ops.features import permute_rows
-    from depth_correction_tpu_torch.preproc import global_cloud
+    from depth_correction_tpu_torch.scripts.exp_cellwin_knockout import points_at_w0
     from depth_correction_tpu_torch.train import (
         TrainCallbacks, make_loss_fn, make_optimizer, prepare_sequences, train,
     )
@@ -314,14 +322,13 @@ def phase_slice(card: str):
     profile = profile_steps(cfg, data, card)
 
     # Kernels at the slice's own shapes, on the step's inputs at w=0.
+    ps = points_at_w0(data, graph, DEVICE)
     with torch.no_grad():
-        zero = ScaledPolynomial(w=[0.0], exponent=[4.0], dtype=torch.float32, device=DEVICE)
-        ps = permute_rows(global_cloud(data.batches[0], model=zero).get_points(),
-                          graph.perm, graph.inv).contiguous()
         k = compare_kernels(ps, graph, seed=2, label="slice", card=card)
     return {
         "launches": launches, "kernels": k, "step_ms": step_ms, "prep_s": prep_s,
         "loss_rel": loss_rel, "w_rel": w_rel, "w_final": w_final, "profile": profile,
+        "graph": graph, "ps": ps,
     }
 
 
@@ -509,6 +516,15 @@ def phase_node(card: str):
     if not (err[0] <= MEAN_ABS_BAR and err[1] <= COMPS_ABS_BAR):
         raise RuntimeError("X1 misses its bars vs float64: %s" % (err,))
     res["x1_err"] = max(err)
+    # Bound: every row of a live tile tests every slot of its three spans
+    # (~8 float ops) and accumulates each member (~19); bytes: positions,
+    # validity, span tables and centres read once, (10, n) written once.
+    n, t = pts_T.shape[1], lo.shape[0]
+    live = valid.reshape(t, -1).any(1)
+    pairs = int((width.long().sum(1) * live).sum()) * (n // t)
+    members = float(out[9][valid].sum())
+    res["x1_bound"] = bound(n * (12 + 1 + 40) + t * 36,
+                            {"fp32": 8 * pairs + 19 * members + 30 * n})
     res["x1_ms"] = cuda_ms(lambda: slabwin.slab_window_kernel(pts_T, valid, lo, width, ctr, r2),
                            reps=50)
     res["x1_plain_ms"] = cuda_ms(
@@ -575,11 +591,189 @@ def phase_small(card: str):
         raise RuntimeError("P7 misses the %.0e relative bar at the probe's shapes: %.3e"
                            % (PROBE_REL_BAR, rel))
     res["p7_ms"] = cuda_ms(lambda: features.gather_moments(pts, idx, wp), reps=20)
+    # Bound: each index, weight and point byte read once, (10, MQ) written
+    # once; ~22 float ops per (row, neighbour).
+    res["p7_bound"] = bound(mq * k * 8 + m * 12 + mq * 10 * 4, {"fp32": 22 * mq * k})
     pts_n3 = pts.T.contiguous()
     res["p7_plain_ms"] = cuda_ms(lambda: features.gather_moments_plain(pts_n3, idx, wp), reps=3)
     log("P7 timing (float32, probe shapes): kernel %.4f ms vs plain %.4f ms (%s)"
         % (res["p7_ms"], res["p7_plain_ms"], card))
     return res
+
+
+def _window_bound(win, q, kw, passes: int) -> tuple:
+    """Bound of one moment_window call (P3-P5) from its inputs: the span
+    columns the spans need (features, 10 x 128 TF32 products per pass over
+    the non-zero feature rows, and ~8 float ops per membership test), the
+    window columns read once (the union of the spans' columns of a staged
+    table), q, the tables and the (16, 128 T1) output."""
+    import torch
+
+    from depth_correction_tpu_torch.ops.moment_window import span_bounds
+
+    t1, ns, s_len = kw["n_tiles"], kw["ns"], kw["s_len"]
+    lo, hi = span_bounds(kw["lens"], kw.get("leads"), s_len, t1, ns)
+    cols = int((hi - lo).clamp(min=0).sum())
+    if "starts" in kw:
+        col = torch.arange(s_len, device=lo.device)
+        pos = kw["starts"].long()[..., None] + col
+        read = ((col >= lo[..., None]) & (col < hi[..., None]) & (pos >= 0)
+                & (pos < win.shape[1]))
+        cols = int(read.sum())
+        win_bytes = int(torch.unique(pos[read]).numel()) * 6 * 4
+    else:
+        win_bytes = ns * 6 * s_len * 4
+    tables = sum(kw[k].numel() * 4 for k in ("lens", "starts", "leads", "ctr")
+                 if isinstance(kw.get(k), torch.Tensor))
+    nbytes = win_bytes + 3 * q.shape[1] * 4 + tables + 16 * 128 * t1 * 4
+    ops = {"fp32": 8 * 128 * cols + 12 * cols}
+    if passes:
+        ops["tf32"] = passes * 2 * 10 * 128 * cols
+    else:
+        ops["fp32"] += 2 * 10 * 128 * cols
+    return bound(nbytes, ops)
+
+
+def phase_probes(card: str, graph, ps):
+    """The probe scripts P1-P5 on the card; each script's launches are
+    counted alone. Returns the kernels-line entries of P1-P5 and the
+    slice table's pair tests and members (P1's counts)."""
+    import torch
+
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.ops import cellwin as cw
+    from depth_correction_tpu_torch.ops.cellwin_knockout import cellwin_knockout_plain
+    from depth_correction_tpu_torch.ops.moment_dot import moment_dot_plain
+    from depth_correction_tpu_torch.ops.moment_window import moment_window_plain
+    from depth_correction_tpu_torch.scripts import (
+        exp_cellwin_knockout as p1, exp_mosaic_dot_probe as p2, exp_mosaic_dot_probe2 as p3,
+        exp_mosaic_dot_probe3 as p4, exp_mosaic_dot_probe4 as p5,
+    )
+
+    failures = []
+
+    def bar(ok: bool, what: str):
+        if not ok:
+            failures.append(what)
+
+    def counted(fn, attr):
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        n = getattr(_kernels, attr)
+        log("  script: %d launches (%s), %.2f s" % (n, attr, time.perf_counter() - t0))
+        if n <= 0:
+            raise RuntimeError("%s was not launched by its probe script" % attr)
+        return res, n
+
+    # P1 on the slice's own table (the w = 0 positions of phase 3).
+    r1, n1 = counted(lambda: p1.run(ps, graph), "KNOCKOUT_LAUNCHES")
+    args = (graph.q_est, graph.est_sorted, graph.f_start, graph.f_len, graph.f_ctr, graph.r2)
+    k1 = cw.cellwin_fwd(ps, *args)
+    same = bool(torch.equal(k1, r1["modes"]["full"]["out"]))
+    log("P1 on the slice's table: %d row tiles x %d, %d rows held, %d pair tests, %d members; "
+        "full bit-equal to K1: %s" % (r1["t1"], r1["row_cap"], r1["rows"], r1["pairs"],
+                                     r1["members"], same))
+    bar(same, "P1 full is not bit-equal to K1")
+    for mode, e in r1["modes"].items():
+        er = e["errors"]
+        log("  P1 %-9s %9.4f ms  %s" % (mode, e["ms"], ", ".join(
+            "%s %.3e" % kv for kv in sorted(er.items()))))
+        bar(er["count"] == 0, "P1 %s member counts differ" % mode)
+        if mode == "full":
+            bar(er["mean_abs"] <= MEAN_ABS_BAR and er["comps_abs"] <= COMPS_ABS_BAR,
+                "P1 full misses K1's bars: %s" % er)
+        else:
+            bar(er["rel"] <= PROBE_REL_BAR, "P1 %s misses %.0e: %s" % (mode, PROBE_REL_BAR, er))
+    plain1 = cuda_ms(lambda: cellwin_knockout_plain(ps, *args, "full"), reps=1, warmup=1)
+    full = r1["modes"]["full"]["errors"]
+    entries = [{
+        "name": "cellwin_knockout (P1)", "route": "cuda",
+        "source": "depth_correction_tpu_torch/csrc/cellwin_knockout.cu",
+        "replaces": "scripts/exp_cellwin_knockout.py:35", "launches": n1,
+        "max_abs_err": max(full["mean_abs"], full["comps_abs"]),
+        "ms": r1["modes"]["full"]["ms"], "plain_ms": plain1,
+        "bound": cellwin_fwd_bound(graph, r1["pairs"], r1["members"]),
+        "library_ms": None, "variants": {m: e["ms"] for m, e in r1["modes"].items()}}]
+
+    # P2 at the TPU script's shapes, with torch.bmm beside it.
+    dev = torch.device(DEVICE)
+    r2, n2 = counted(lambda: p2.run(dev, library=True), "DOT_LAUNCHES")
+    for v, e in r2["variants"].items():
+        log("  P2 %-7s %9.4f ms  oracle %.3e, plain f32 %.3e, f64 %.3e"
+            % (v, e["ms"], e["oracle"], e["err32"], e["err64"]))
+        bar(e["err32"] <= PROBE_REL_BAR, "P2 %s misses %.0e vs its plain version: %.3e"
+            % (v, PROBE_REL_BAR, e["err32"]))
+        if v in ("fp32", "tf32x3"):
+            bar(e["oracle"] <= PROBE_REL_BAR, "P2 %s misses %.0e vs the oracle: %.3e"
+                % (v, PROBE_REL_BAR, e["oracle"]))
+    lib = r2["library"]
+    log("  P2 torch.bmm (one call, the same %d products): fp32 %.4f ms, TF32 allowed %.4f ms; "
+        "allow_tf32 back to %s" % (p2.T1, lib["fp32"], lib["tf32"],
+                                   torch.backends.cuda.matmul.allow_tf32))
+    a, b, _ = p2.inputs(dev)
+    e = r2["variants"]["tf32x3"]
+    dot_bytes = a.numel() * 4 + b.numel() * 4 + e["out"].numel() * 4
+    entries.append({
+        "name": "moment_dot (P2)", "route": "cuda",
+        "source": "depth_correction_tpu_torch/csrc/moment_dot.cu",
+        "replaces": "scripts/exp_mosaic_dot_probe.py:50", "launches": n2,
+        "max_abs_err": e["abs64"], "ms": e["ms"],
+        "plain_ms": cuda_ms(lambda: moment_dot_plain(a, b, p2.T1, "tf32x3"), reps=3, warmup=1),
+        "bound": bound(dot_bytes, {"tf32": 3 * 2 * 16 * p2.NS * p2.S * p2.R * p2.T1}),
+        "library_ms": lib["fp32"], "variants": {v: x["ms"] for v, x in r2["variants"].items()}})
+
+    # P3-P5: the product with in-kernel operands; headline variants
+    # tf32x3, E_all and J_all.
+    win, q, ln = p3.inputs(dev)
+    p3_kw = dict(n_tiles=p3.T1, ns=p3.NS, s_len=p3.S, lens=ln)
+    cases = {
+        "P3": (p3, "tf32x3", "scripts/exp_mosaic_dot_probe2.py:39",
+               lambda: (win, q, p3_kw)),
+        "P4": (p4, "E_all", "scripts/exp_mosaic_dot_probe3.py:133",
+               lambda: p4.variant_args("E_all", p4.inputs(dev))),
+        "P5": (p5, "J_all", "scripts/exp_mosaic_dot_probe4.py:66",
+               lambda: p5.inputs(dev, ("J_all",))["J_all"]),
+    }
+    for label, (mod, head, replaces, head_args) in cases.items():
+        res, n = counted(lambda: mod.run(dev), "WINDOW_LAUNCHES")
+        for v, e in res["variants"].items():
+            log("  %s %-18s %9.4f ms  %splain f32 %.3e, f64 %.3e"
+                % (label, v, e["ms"], "oracle %.3e, " % e["oracle"] if "oracle" in e else "",
+                   e["err32"], e["err64"]))
+            bar(e["err32"] <= PROBE_REL_BAR, "%s %s misses %.0e vs its plain version: %.3e"
+                % (label, v, PROBE_REL_BAR, e["err32"]))
+            # fp32 and tf32x3 (every P4/P5 variant) are exact products of
+            # float32 features: held against float64 too, except after the
+            # epilogue, whose float32 division by s0 - 1 on few-member
+            # columns measures float32 rounding, not the product.
+            key = "oracle" if "oracle" in e else "err64"
+            exact = v in ("fp32", "tf32x3") if label == "P3" else v in p4.VARIANTS[:3]
+            if exact:
+                bar(e[key] <= PROBE_REL_BAR, "%s %s misses %.0e vs float64: %.3e"
+                    % (label, v, PROBE_REL_BAR, e[key]))
+        hw, hq, hkw = head_args()
+        prec = "tf32x3"
+        e = res["variants"][head]
+        entries.append({
+            "name": "moment_window (%s)" % label, "route": "cuda",
+            "source": "depth_correction_tpu_torch/csrc/moment_window.cu",
+            "replaces": replaces, "launches": n, "max_abs_err": e["abs64"], "ms": e["ms"],
+            "plain_ms": cuda_ms(lambda: moment_window_plain(hw, hq, p3.R2, prec=prec, **hkw),
+                                reps=2, warmup=1),
+            "bound": _window_bound(hw, hq, hkw, passes=3), "library_ms": None,
+            "variants": {v: x["ms"] for v, x in res["variants"].items()}})
+
+    log("probe table (ms per call, %s):" % card)
+    log("  %-26s %10s %10s %10s  %s" % ("kernel", "ms", "plain ms", "bound ms", "variants"))
+    for en in entries:
+        log("  %-26s %10.4f %10.4f %10.4f  %s" % (
+            en["name"], en["ms"], en["plain_ms"], en["bound"][0],
+            ", ".join("%s %.4f" % kv for kv in en["variants"].items())))
+    if failures:
+        raise RuntimeError("probe bars missed: " + "; ".join(failures))
+    return entries, (r1["pairs"], r1["members"])
 
 
 def main() -> int:
@@ -612,30 +806,50 @@ def main() -> int:
         "node_e2e_ms %.3f, node_points %d; total %.1f s (%s)"
         % (node["ms"], node["e2e_ms"], node["points"], small["ms"], small["e2e_ms"],
            small["points"], time.perf_counter() - t0, card))
+    log("[phase 6] probes P1-P5 (depth_correction_tpu_torch/scripts)")
+    probes, (pairs, members) = phase_probes(card, res["graph"], res["ps"])
+    log("build + all phases: %.1f s (%s)" % (time.perf_counter() - t0, card))
     k = res["kernels"]
-    log(card)
-    print(json.dumps({"kernels": [
+    g = res["graph"]
+    m_pad, mq_pad = g.est_sorted.shape[1], g.q_est.shape[1]
+    t2, ns_b = g.b_start.shape
+    # K2: its own pair tests, 9 adds per member (the same member pairs,
+    # counted by K1), 15 per point.
+    pairs_b = int(g.b_len.long().sum()) * (m_pad // t2)
+    k2_bound = bound(m_pad * 24 + mq_pad * 48 + t2 * (ns_b * 8 + 12) + m_pad * 12,
+                     {"fp32": 8 * pairs_b + 9 * members + 15 * m_pad})
+    kernels = [
         {"name": "cellwin_fwd (K1)", "route": "cuda",
          "source": "depth_correction_tpu_torch/csrc/cellwin.cu",
          "replaces": "depth_correction_tpu/ops/cellwin.py:700",
          "launches": res["launches"]["fwd"], "max_abs_err": k["fwd_err"],
-         "ms": k["fwd_ms"], "plain_ms": k["fwd_plain_ms"]},
+         "ms": k["fwd_ms"], "plain_ms": k["fwd_plain_ms"],
+         "bound": cellwin_fwd_bound(g, pairs, members), "library_ms": None},
         {"name": "cellwin_bwd (K2)", "route": "cuda",
          "source": "depth_correction_tpu_torch/csrc/cellwin.cu",
          "replaces": "depth_correction_tpu/ops/cellwin.py:837",
          "launches": res["launches"]["bwd"], "max_abs_err": k["bwd_err"],
-         "ms": k["bwd_ms"], "plain_ms": k["bwd_plain_ms"]},
+         "ms": k["bwd_ms"], "plain_ms": k["bwd_plain_ms"], "bound": k2_bound,
+         "library_ms": None},
         {"name": "slab_window (X1)", "route": "cuda",
          "source": "depth_correction_tpu_torch/csrc/slabwin.cu",
          "replaces": "depth_correction_tpu/ops/slabwin.py:53",
          "launches": node["launches"]["slab"], "max_abs_err": node["x1_err"],
-         "ms": node["x1_ms"], "plain_ms": node["x1_plain_ms"]},
+         "ms": node["x1_ms"], "plain_ms": node["x1_plain_ms"], "bound": node["x1_bound"],
+         "library_ms": None},
         {"name": "gather_moments (P7)", "route": "cuda",
          "source": "depth_correction_tpu_torch/csrc/gather_moments.cu",
          "replaces": "scripts/exp_pallas_gather.py:83",
          "launches": small["launches"]["gather"], "max_abs_err": small["p7_err"],
-         "ms": small["p7_ms"], "plain_ms": small["p7_plain_ms"]},
-    ]}), flush=True)
+         "ms": small["p7_ms"], "plain_ms": small["p7_plain_ms"], "bound": small["p7_bound"],
+         "library_ms": None},
+    ] + probes
+    for en in kernels:
+        en["bound_ms"], en["bound_by"] = en.pop("bound")
+        log("%-26s %10.4f ms, bound %.4f ms (%s), %d launches" % (
+            en["name"], en["ms"], en["bound_ms"], en["bound_by"], en["launches"]))
+    log(card)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -144,9 +144,10 @@ class Config(Configurable):
         # The cell-window kernels are float32; the reference defaults to
         # float64 on CPU (config.py:179). Use float64 for CPU parity runs.
         self.float_type = "float32"
-        # None = "cuda" when a card is present, else "cpu"; otherwise a
-        # torch device string ("cpu", "cuda", "cuda:1") — train() places
-        # data and parameters there (reference: config.py:180).
+        # A torch device string ("cuda", "cuda:1", "cpu"); None means
+        # "cuda". train() places data and parameters there (reference:
+        # config.py:180). Without a card, "cpu" must be asked for: nothing
+        # falls back to the CPU (torch_device raises).
         self.device = None
 
         # Cloud preprocessing (reference: config.py:183-201).
@@ -337,13 +338,20 @@ class Config(Configurable):
         return getattr(torch, self.float_type)
 
     def torch_device(self):
-        """Resolve ``cfg.device`` ("cpu", "cuda", "cuda:1", ...) to a torch
-        device; None picks "cuda" when a card is present, else "cpu"."""
+        """Resolve ``cfg.device`` ("cuda", "cuda:1", "cpu", ...; None means
+        "cuda") to a torch device.
+
+        :raises RuntimeError: a CUDA device is asked for (or left to the
+            default) and no card is present.
+        """
         import torch
 
-        if self.device:
-            return torch.device(str(self.device))
-        return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+        device = torch.device(str(self.device) if self.device else "cuda")
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "cfg.device is %r but no CUDA device is available; set "
+                'cfg.device = "cpu" to run on the CPU' % (self.device,))
+        return device
 
     def sanitize(self):
         """Coerce YAML-string bound fields to lists (reference: config.py:305-336)."""

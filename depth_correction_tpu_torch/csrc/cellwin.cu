@@ -33,104 +33,11 @@
 
 #include <cuda_runtime.h>
 
+// K1's body is the kFull instance of the template in cellwin_fwd.cuh, which
+// the knockout probe (cellwin_knockout.cu) shares.
+#include "cellwin_fwd.cuh"
+
 namespace {
-
-// K1: one block per row tile, one thread per query row.
-// out rows: mean x, y, z (shifted back), cov 00, 11, 22, 01, 02, 12,
-// and w_sum = max(s0, 1e-12) — the epilogue of the TPU kernel. Unlike the
-// TPU kernel, the sums are taken about each row's own establishment
-// position instead of the tile centre: a tile's z-run can span metres,
-// and sums of squares of metre-scale coordinates lose ~1e-5 m^2 of a
-// two-neighbour covariance in f32, where row-centred ones stay below 1e-7.
-__global__ void cellwin_fwd_kernel(
-    const float* __restrict__ pts,    // (m_pad, 3) current positions
-    const float* __restrict__ est,    // rows x, y, z of a (., m_pad) table
-    int m_pad,
-    const float* __restrict__ q_est,  // rows x, y, z of a (., mq_pad) table
-    int mq_pad,
-    const int* __restrict__ f_start,  // (t1, ns) span starts (point axis)
-    const int* __restrict__ f_len,    // (t1, ns) span lengths
-    const float* __restrict__ f_ctr,  // (t1, 3) tile centres
-    int ns, float r2,
-    float* __restrict__ out) {        // (10, mq_pad)
-  extern __shared__ float smem[];
-  const int cap = blockDim.x;
-  float* s_ex = smem;            // tile-centred est x of the staged entries
-  float* s_ey = smem + cap;
-  float* s_ez = smem + 2 * cap;
-  float* s_x0 = smem + 3 * cap;  // tile-centred current x
-  float* s_x1 = smem + 4 * cap;
-  float* s_x2 = smem + 5 * cap;
-
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int row = t * cap + tid;
-  const float cx = f_ctr[3 * t + 0];
-  const float cy = f_ctr[3 * t + 1];
-  const float cz = f_ctr[3 * t + 2];
-  const float qx = q_est[row] - cx;
-  const float qy = q_est[mq_pad + row] - cy;
-  const float qz = q_est[2 * mq_pad + row] - cz;
-
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f, a4 = 0.f;
-  float a5 = 0.f, a6 = 0.f, a7 = 0.f, a8 = 0.f, a9 = 0.f;
-  for (int s = 0; s < ns; ++s) {
-    const int start = f_start[t * ns + s];
-    const int len = f_len[t * ns + s];
-    for (int off = 0; off < len; off += cap) {
-      const int n = min(cap, len - off);
-      __syncthreads();  // the previous chunk has been read by every thread
-      if (tid < n) {
-        const int j = start + off + tid;
-        s_ex[tid] = est[j] - cx;
-        s_ey[tid] = est[m_pad + j] - cy;
-        s_ez[tid] = est[2 * m_pad + j] - cz;
-        s_x0[tid] = pts[3 * j + 0] - cx;
-        s_x1[tid] = pts[3 * j + 1] - cy;
-        s_x2[tid] = pts[3 * j + 2] - cz;
-      }
-      __syncthreads();
-      for (int k = 0; k < n; ++k) {
-        const float dx = s_ex[k] - qx;
-        const float dy = s_ey[k] - qy;
-        const float dz = s_ez[k] - qz;
-        const float d2 = dx * dx + dy * dy + dz * dz;
-        if (d2 <= r2) {
-          // Row-centred current coordinates: every member lies within r of
-          // the row, so |x| <= ~r and the f32 sums of squares stay small.
-          const float x0 = s_x0[k] - qx;
-          const float x1 = s_x1[k] - qy;
-          const float x2 = s_x2[k] - qz;
-          a0 += 1.f;
-          a1 += x0;
-          a2 += x1;
-          a3 += x2;
-          a4 += x0 * x0;
-          a5 += x1 * x1;
-          a6 += x2 * x2;
-          a7 += x0 * x1;
-          a8 += x0 * x2;
-          a9 += x1 * x2;
-        }
-      }
-    }
-  }
-  const float s0c = fmaxf(a0, 1e-12f);
-  const float m0 = a1 / s0c;
-  const float m1 = a2 / s0c;
-  const float m2 = a3 / s0c;
-  const float denom = fmaxf(a0 - 1.f, 1e-6f);
-  out[0 * mq_pad + row] = (m0 + qx) + cx;
-  out[1 * mq_pad + row] = (m1 + qy) + cy;
-  out[2 * mq_pad + row] = (m2 + qz) + cz;
-  out[3 * mq_pad + row] = (a4 - a0 * m0 * m0) / denom;
-  out[4 * mq_pad + row] = (a5 - a0 * m1 * m1) / denom;
-  out[5 * mq_pad + row] = (a6 - a0 * m2 * m2) / denom;
-  out[6 * mq_pad + row] = (a7 - a0 * m0 * m1) / denom;
-  out[7 * mq_pad + row] = (a8 - a0 * m0 * m2) / denom;
-  out[8 * mq_pad + row] = (a9 - a0 * m1 * m2) / denom;
-  out[9 * mq_pad + row] = s0c;
-}
 
 // K2: one block per point tile, one thread per point. Accumulates the
 // referencing rows' cotangent rows (S00, S11, S22, S01, S02, S12, u0, u1,
@@ -213,15 +120,8 @@ int dc_cellwin_fwd(const void* pts, const void* est, int m_pad,
                    const void* q_est, int mq_pad, const void* f_start,
                    const void* f_len, const void* f_ctr, int t1, int ns,
                    int row_cap, float r2, void* out, void* stream) {
-  if (t1 > 0) {
-    const size_t smem = 6 * static_cast<size_t>(row_cap) * sizeof(float);
-    cellwin_fwd_kernel<<<t1, row_cap, smem, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(pts), static_cast<const float*>(est), m_pad,
-        static_cast<const float*>(q_est), mq_pad,
-        static_cast<const int*>(f_start), static_cast<const int*>(f_len),
-        static_cast<const float*>(f_ctr), ns, r2, static_cast<float*>(out));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_cellwin_fwd_mode<kFull>(pts, est, m_pad, q_est, mq_pad, f_start, f_len,
+                                        f_ctr, t1, ns, row_cap, r2, out, stream);
 }
 
 int dc_cellwin_bwd(const void* pts, const void* est, int m_pad,

@@ -11,8 +11,9 @@ reused. Nothing here runs at import: the CPU tests import every module.
 The launchers validate device, dtype, shape and contiguity before passing
 pointers, launch on the current stream, and raise when the C entry returns
 a CUDA error. Launch counts of K1/K2 are kept by their callers in
-``ops/cellwin.py``; X1 and P7 count here (:data:`SLAB_LAUNCHES`,
-:data:`GATHER_LAUNCHES`), once per accepted launch.
+``ops/cellwin.py``; X1, P7 and the probes P1-P5 count here
+(:data:`SLAB_LAUNCHES`, :data:`GATHER_LAUNCHES`, :data:`KNOCKOUT_LAUNCHES`,
+:data:`DOT_LAUNCHES`, :data:`WINDOW_LAUNCHES`), once per accepted launch.
 """
 from __future__ import annotations
 
@@ -26,12 +27,18 @@ import time
 import torch
 
 __all__ = [
+    "DOT_LAUNCHES",
     "GATHER_LAUNCHES",
+    "KNOCKOUT_LAUNCHES",
     "SLAB_LAUNCHES",
+    "WINDOW_LAUNCHES",
     "build",
     "launch_cellwin_bwd",
     "launch_cellwin_fwd",
+    "launch_cellwin_knockout",
     "launch_gather_moments",
+    "launch_moment_dot",
+    "launch_moment_window",
     "launch_slab_window",
     "load",
     "reset_launch_counts",
@@ -39,7 +46,11 @@ __all__ = [
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
-                for name in ("cellwin.cu", "gather_moments.cu", "slabwin.cu"))
+                for name in ("cellwin.cu", "gather_moments.cu", "slabwin.cu",
+                             "cellwin_knockout.cu", "moment_dot.cu", "moment_window.cu"))
+# Headers the sources include; they key the build like the sources.
+HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
+                for name in ("cellwin_fwd.cuh", "tf32_mma.cuh"))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,10 +62,15 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# Launches of X1 (slab-window moments) and P7 (gather moments), counted
-# where each kernel is launched and nowhere else.
+# Launches of X1 (slab-window moments), P7 (gather moments), P1 (the
+# cell-window knockout), P2 (the moment product) and P3-P5 (the moment
+# product with in-kernel operands), counted where each kernel is launched
+# and nowhere else.
 SLAB_LAUNCHES = 0
 GATHER_LAUNCHES = 0
+KNOCKOUT_LAUNCHES = 0
+DOT_LAUNCHES = 0
+WINDOW_LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,7 +95,7 @@ def _nvcc() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, "libdc_kernels_%s.so" % h.hexdigest()[:16])
@@ -127,6 +143,14 @@ def load():
         lib.dc_gather_moments.argtypes = [_P, _L, _L, _I, _P, _P, _I, _I, _P, _P,
                                           _P, _P]
         lib.dc_gather_moments.restype = _I
+        lib.dc_cellwin_knockout.argtypes = [_I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I,
+                                            _I, _F, _P, _P]
+        lib.dc_cellwin_knockout.restype = _I
+        lib.dc_moment_dot.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P]
+        lib.dc_moment_dot.restype = _I
+        lib.dc_moment_window.argtypes = [_I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I,
+                                         _I, _F, _I, _P, _P]
+        lib.dc_moment_window.restype = _I
         lib.dc_cuda_error_string.argtypes = [_I]
         lib.dc_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -157,9 +181,10 @@ def _block_size(cap: int, name: str):
         raise ValueError("%s=%d: one thread per slot needs 1..1024" % (name, cap))
 
 
-def launch_cellwin_fwd(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
-                       r2: float) -> torch.Tensor:
-    """K1 on CUDA float32 tensors -> raw (10, mq_pad) moments."""
+def _launch_fwd(name, lead, pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
+                r2: float) -> torch.Tensor:
+    """K1's template on CUDA float32 tensors through ``dc_<name>`` (K1
+    itself, or a knockout mode of P1 with ``lead`` = (mode,)) -> (10, mq_pad)."""
     device = pts_sorted.device
     if device.type != "cuda":
         raise ValueError("the cellwin kernels take CUDA tensors, got %s" % device)
@@ -173,19 +198,38 @@ def launch_cellwin_fwd(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
     _check(f_len, "f_len", torch.int32, (t1, ns), device)
     _check(f_ctr, "f_ctr", torch.float32, (t1, 3), device)
     if est_sorted.shape[0] < 3 or q_est.shape[0] < 3 or t1 == 0 or mq_pad % t1:
-        raise ValueError("cellwin_fwd: inconsistent tables (est %s, q_est %s, %d tiles)"
-                         % (tuple(est_sorted.shape), tuple(q_est.shape), t1))
+        raise ValueError("%s: inconsistent tables (est %s, q_est %s, %d tiles)"
+                         % (name, tuple(est_sorted.shape), tuple(q_est.shape), t1))
     row_cap = mq_pad // t1
     _block_size(row_cap, "row_cap")
     out = torch.empty((10, mq_pad), dtype=torch.float32, device=device)
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dc_cellwin_fwd(
-            pts_sorted.data_ptr(), est_sorted.data_ptr(), m_pad,
+        err = getattr(lib, "dc_" + name)(
+            *lead, pts_sorted.data_ptr(), est_sorted.data_ptr(), m_pad,
             q_est.data_ptr(), mq_pad, f_start.data_ptr(), f_len.data_ptr(),
             f_ctr.data_ptr(), t1, ns, row_cap, float(r2), out.data_ptr(), stream)
-    _check_launch(lib, err, "cellwin_fwd")
+    _check_launch(lib, err, name)
+    return out
+
+
+def launch_cellwin_fwd(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
+                       r2: float) -> torch.Tensor:
+    """K1 on CUDA float32 tensors -> raw (10, mq_pad) moments."""
+    return _launch_fwd("cellwin_fwd", (), pts_sorted, q_est, est_sorted, f_start, f_len,
+                       f_ctr, r2)
+
+
+def launch_cellwin_knockout(mode_id: int, pts_sorted, q_est, est_sorted, f_start, f_len,
+                            f_ctr, r2: float) -> torch.Tensor:
+    """P1, K1 with knockout ``mode_id`` (the index into
+    ``ops.cellwin_knockout.MODES``), on K1's CUDA float32 inputs ->
+    (10, mq_pad)."""
+    global KNOCKOUT_LAUNCHES
+    out = _launch_fwd("cellwin_knockout", (int(mode_id),), pts_sorted, q_est, est_sorted,
+                      f_start, f_len, f_ctr, r2)
+    KNOCKOUT_LAUNCHES += 1
     return out
 
 
@@ -298,8 +342,100 @@ def launch_gather_moments(points, neighbors, weights):
     return mean, comps, wsum
 
 
+def launch_moment_dot(prec_id: int, a, b, n_tiles: int) -> torch.Tensor:
+    """P2 on CUDA float32 tensors -> (16, 128 n_tiles): block t writes
+    columns [128 t, 128 t + 128) with sum_s a[s] @ b[s].
+
+    :param prec_id: index into ``ops.moment_dot.PRECISIONS``.
+    :param a: (ns, 16, S) float32, S a multiple of 8.
+    :param b: (ns, S, 128) float32.
+    """
+    global DOT_LAUNCHES
+    device = a.device
+    if device.type != "cuda":
+        raise ValueError("the moment-product kernel takes CUDA tensors, got %s" % device)
+    ns, s_len = a.shape[0], a.shape[-1]
+    _check(a, "a", torch.float32, (ns, 16, s_len), device)
+    _check(b, "b", torch.float32, (ns, s_len, 128), device)
+    if s_len % 8 or n_tiles <= 0:
+        raise ValueError("moment_dot: S = %d must be a multiple of 8 and n_tiles = %d > 0"
+                         % (s_len, n_tiles))
+    out = torch.empty((16, 128 * n_tiles), dtype=torch.float32, device=device)
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dc_moment_dot(int(prec_id), a.data_ptr(), b.data_ptr(), ns, s_len,
+                                int(n_tiles), out.data_ptr(), stream)
+    _check_launch(lib, err, "moment_dot")
+    DOT_LAUNCHES += 1
+    return out
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def launch_moment_window(prec_id: int, flags: int, win, q, r2: float, n_tiles: int,
+                         ns: int, s_len: int, lens, starts=None, leads=None,
+                         ctr=None) -> torch.Tensor:
+    """P3-P5 on CUDA float32 tensors -> (16, 128 n_tiles).
+
+    :param flags: the switches of ``ops.moment_window`` (bit values of
+        ``FLAG_BITS``); the tensors each switch needs must be given.
+    :param win: (ns, 8, S) windows, or the (8, ncols) table with starts.
+    :param q: (8, 128), or (8, 128 n_tiles) for per-tile q.
+    :param lens: an int (every span), or an (n_tiles, ns) int32 table.
+    :param starts, leads: (n_tiles, ns) int32; ctr: (n_tiles, 3) float32.
+    """
+    global WINDOW_LAUNCHES
+    from .moment_window import FLAG_BITS
+
+    device = win.device
+    if device.type != "cuda":
+        raise ValueError("the moment-window kernel takes CUDA tensors, got %s" % device)
+    if s_len % 8 or n_tiles <= 0 or ns <= 0:
+        raise ValueError("moment_window: S = %d must be a multiple of 8, n_tiles = %d and "
+                         "ns = %d positive" % (s_len, n_tiles, ns))
+    need = {name: bool(flags & bit) for name, bit in FLAG_BITS.items()}
+    staged = need["staged"]
+    if staged:
+        _check(win, "win", torch.float32, (8, win.shape[1]), device)
+    else:
+        _check(win, "win", torch.float32, (ns, 8, s_len), device)
+    q_cols = 128 * n_tiles if need["per_tile_q"] else 128
+    _check(q, "q", torch.float32, (8, q_cols), device)
+    tables = {"len_table": lens, "staged": starts, "lead": leads}
+    for name, tab in tables.items():
+        if need[name] != isinstance(tab, torch.Tensor):
+            raise ValueError("moment_window: switch %s %s a table" % (
+                name, "needs" if need[name] else "takes no"))
+        if need[name]:
+            _check(tab, name, torch.int32, (n_tiles, ns), device)
+    if need["shift"] != (ctr is not None):
+        raise ValueError("moment_window: ctr goes with the shift switch")
+    if ctr is not None:
+        _check(ctr, "ctr", torch.float32, (n_tiles, 3), device)
+    # The kernel clamps every span to the table's columns: no host check of
+    # the starts (it would synchronise with the card on every launch).
+    out = torch.empty((16, 128 * n_tiles), dtype=torch.float32, device=device)
+    len_const = 0 if need["len_table"] else int(lens)
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dc_moment_window(
+            int(prec_id), int(flags), win.data_ptr(), win.shape[-1], q.data_ptr(), q_cols,
+            _ptr(starts), _ptr(leads), lens.data_ptr() if need["len_table"] else None,
+            len_const, _ptr(ctr), ns, s_len, float(r2), int(n_tiles), out.data_ptr(), stream)
+    _check_launch(lib, err, "moment_window")
+    WINDOW_LAUNCHES += 1
+    return out
+
+
 def reset_launch_counts() -> None:
-    """Zero :data:`SLAB_LAUNCHES` and :data:`GATHER_LAUNCHES`."""
-    global SLAB_LAUNCHES, GATHER_LAUNCHES
+    """Zero the launch counts kept here (X1, P7, P1, P2, P3-P5)."""
+    global SLAB_LAUNCHES, GATHER_LAUNCHES, KNOCKOUT_LAUNCHES, DOT_LAUNCHES, WINDOW_LAUNCHES
     SLAB_LAUNCHES = 0
     GATHER_LAUNCHES = 0
+    KNOCKOUT_LAUNCHES = 0
+    DOT_LAUNCHES = 0
+    WINDOW_LAUNCHES = 0

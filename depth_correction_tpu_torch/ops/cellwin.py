@@ -637,6 +637,40 @@ def _span_index(starts, lens):
     return idx.reshape(t_dim, -1), sel.reshape(t_dim, -1)
 
 
+def _fwd_windows(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr):
+    """K1's per-pair inputs, one chunk of row tiles at a time, in the dtype
+    and on the device of ``pts_sorted``.
+
+    :yield: (d2 (c, R, W) on tile-centred establishment coordinates, the
+        in-span mask (c, 1, W), the row-centred current coordinates (three
+        (c, R, W)), the tile-centred rows (3, c, R), the centres (c, 3)).
+    """
+    dt, dev = pts_sorted.dtype, pts_sorted.device
+    t1 = f_start.shape[0]
+    mq_pad = q_est.shape[1]
+    r_cap = mq_pad // t1
+    idx, sel = _span_index(f_start.to(dev), f_len.to(dev))
+    width = idx.shape[1]
+    est = est_sorted[:3].to(device=dev, dtype=dt)
+    q = q_est[:3].to(device=dev, dtype=dt).reshape(3, t1, r_cap)
+    ctr = f_ctr.to(device=dev, dtype=dt)
+    step = max(1, _PLAIN_CHUNK_ELEMS // (r_cap * width))
+    for a in range(0, t1, step):
+        b = min(t1, a + step)
+        ix, sl = idx[a:b], sel[a:b]
+        c = ctr[a:b].T[:, :, None]  # (3, c, 1)
+        e = est[:, ix] - c  # (3, c, W) tile-centred est window
+        qq = q[:, a:b] - c  # (3, c, R) tile-centred est rows
+        dx = e[0][:, None, :] - qq[0][:, :, None]  # (c, R, W)
+        dy = e[1][:, None, :] - qq[1][:, :, None]
+        dz = e[2][:, None, :] - qq[2][:, :, None]
+        d2 = dx * dx + dy * dy + dz * dz
+        x = pts_sorted[ix] - ctr[a:b][:, None, :]  # (c, W, 3) tile-centred current
+        # Row-centred current coordinates (see the kernel).
+        xr = tuple(x[..., k][:, None, :] - qq[k][:, :, None] for k in range(3))
+        yield d2, sl[:, None, :], xr, qq, ctr[a:b]
+
+
 def cellwin_fwd_plain(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
                       r2: float):
     """Plain torch version of K1, in the dtype and on the device of
@@ -651,40 +685,16 @@ def cellwin_fwd_plain(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
     :param f_ctr: (t1, 3) tile centres.
     :return: raw (10, mq_pad): mean (3), cov 00/11/22/01/02/12, w_sum.
     """
-    dt, dev = pts_sorted.dtype, pts_sorted.device
-    t1 = f_start.shape[0]
-    mq_pad = q_est.shape[1]
-    r_cap = mq_pad // t1
-    idx, sel = _span_index(f_start.to(dev), f_len.to(dev))
-    width = idx.shape[1]
-    est = est_sorted[:3].to(device=dev, dtype=dt)
-    q = q_est[:3].to(device=dev, dtype=dt).reshape(3, t1, r_cap)
-    ctr = f_ctr.to(device=dev, dtype=dt)
-    step = max(1, _PLAIN_CHUNK_ELEMS // (r_cap * width))
+    zero = torch.zeros((), dtype=pts_sorted.dtype, device=pts_sorted.device)
     parts = []
-    for a in range(0, t1, step):
-        b = min(t1, a + step)
-        ix, sl = idx[a:b], sel[a:b]
-        c = ctr[a:b].T[:, :, None]  # (3, c, 1)
-        e = est[:, ix] - c  # (3, c, W) tile-centred est window
-        qq = q[:, a:b] - c  # (3, c, R) tile-centred est rows
-        dx = e[0][:, None, :] - qq[0][:, :, None]  # (c, R, W)
-        dy = e[1][:, None, :] - qq[1][:, :, None]
-        dz = e[2][:, None, :] - qq[2][:, :, None]
-        d2 = dx * dx + dy * dy + dz * dz
-        member = (d2 <= r2) & sl[:, None, :]  # (c, R, W)
-        x = pts_sorted[ix] - ctr[a:b][:, None, :]  # (c, W, 3) tile-centred current
-        # Row-centred current coordinates of the members (see the kernel).
-        x0, x1, x2 = (
-            torch.where(member, x[..., k][:, None, :] - qq[k][:, :, None],
-                        torch.zeros((), dtype=dt, device=dev))
-            for k in range(3)
-        )
-        s0 = member.sum(-1).to(dt)
+    for d2, sl, xr, qq, cb in _fwd_windows(pts_sorted, q_est, est_sorted, f_start,
+                                           f_len, f_ctr):
+        member = (d2 <= r2) & sl  # (c, R, W)
+        x0, x1, x2 = (torch.where(member, xk, zero) for xk in xr)
+        s0 = member.sum(-1).to(pts_sorted.dtype)
         s0c = torch.clamp(s0, min=1e-12)
         m0, m1, m2 = x0.sum(-1) / s0c, x1.sum(-1) / s0c, x2.sum(-1) / s0c
         denom = torch.clamp(s0 - 1.0, min=1e-6)
-        cb = ctr[a:b]
         parts.append(torch.stack([
             (m0 + qq[0]) + cb[:, 0:1], (m1 + qq[1]) + cb[:, 1:2],
             (m2 + qq[2]) + cb[:, 2:3],

@@ -1,0 +1,85 @@
+"""Probe scripts of the port, each the counterpart of the JAX package's
+script of the same name under ``scripts/`` (run them as
+``python -m depth_correction_tpu_torch.scripts.<name>``), and what they
+share: the bench's training configuration, device timing and the error
+measures they report.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["bench_config", "device_ms", "rel_max", "rel_rows", "require_card"]
+
+# bench.py's uncapped training scene.
+SCENE = "open_box/n_6_size_20_20_5_height_1_density_400"
+
+
+def bench_config(device: str = "cuda", steps: int = 8):
+    """bench.py:bench_config(uncapped=True), with scipy establishment: the
+    training slice's configuration (the uncapped r = 0.25 graph of
+    :data:`SCENE`, normalised min-eigenvalue loss, Adam)."""
+    from ..config import Config
+
+    cfg = Config()
+    cfg.nn_backend = "scipy"
+    cfg.device = device
+    cfg.float_type = "float32"
+    cfg.dataset = "open_box"
+    cfg.train_names = [SCENE]
+    cfg.min_depth, cfg.max_depth = 1.0, 25.0
+    cfg.grid_res = 0.1
+    cfg.nn_r, cfg.nn_k = 0.25, 0
+    cfg.min_valid_neighbors = 5
+    cfg.vp_dispersion_bounds = []
+    cfg.eigenvalue_ratio_bounds = [[0, 1, 0, 0.25], [1, 2, 0.25, 1.0]]
+    cfg.loss = "min_eigval_loss"
+    cfg.loss_kwargs = {"sqrt": False, "normalization": True}
+    cfg.depth_bias_model_kwargs = {"w": [-0.002], "exponent": [4.0]}
+    cfg.model_kwargs = {"w": [0.0], "exponent": [4.0]}
+    cfg.lr = 2e-4
+    cfg.nn_max_neighbors = None
+    cfg.moments_backend = "auto"
+    cfg.n_opt_iters = steps
+    cfg.plot_period = 1
+    return cfg
+
+
+def require_card() -> torch.device:
+    """The CUDA device the probes measure on; raises without one."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("the probes time kernels on a CUDA card; none is available")
+    return torch.device("cuda")
+
+
+def device_ms(fn, device, reps: int, warmup: int = 2) -> float:
+    """Mean device ms per call of ``fn`` on the CUDA ``device`` after
+    ``warmup`` calls, by CUDA events around ``reps`` calls."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("device_ms times CUDA devices, got %s" % device)
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def rel_max(got, ref) -> float:
+    """max |got - ref| / max |ref| over the whole output (the measure of
+    scripts/exp_mosaic_dot_probe.py:105)."""
+    ref = ref.double()
+    return float((got.double() - ref).abs().max() / ref.abs().max())
+
+
+def rel_rows(got, ref) -> float:
+    """The largest over output rows of max |got - ref| / max |ref| within
+    the row (absolute on a row whose reference is all zero)."""
+    ref = ref.double()
+    d = (got.double() - ref).abs().amax(-1)
+    s = ref.abs().amax(-1)
+    return float(torch.where(s > 0, d / torch.where(s > 0, s, 1.0), d).max())

@@ -315,3 +315,171 @@ def test_cuda_node_wrappers_refuse_float64_and_grad(cuda_device):
     with pytest.raises(RuntimeError, match="forward only"):
         tslab.slab_window_kernel(pts_T.detach().requires_grad_(), val, lo, width, ctr, 0.0625)
     assert (_kernels.SLAB_LAUNCHES, _kernels.GATHER_LAUNCHES) == before
+
+
+# ---------------------------------------------------------------------------
+# The probes: P1 (cell-window knockout), P2 (moment product), P3-P5 (moment
+# product with in-kernel operands).
+
+
+def test_probe_wrappers_never_take_the_plain_path(monkeypatch):
+    """Non-CPU tensors go to the P1-P5 launchers, never to the plain
+    versions; the launchers refuse CPU tensors and count nothing then."""
+    from depth_correction_tpu_torch.ops.cellwin_knockout import cellwin_knockout
+    from depth_correction_tpu_torch.ops.moment_dot import moment_dot
+    from depth_correction_tpu_torch.ops.moment_window import moment_window
+
+    calls = []
+
+    def fake_launch(*args, **kw):
+        calls.append(args)
+        raise RuntimeError("launched")
+
+    for name in ("launch_cellwin_knockout", "launch_moment_dot", "launch_moment_window"):
+        monkeypatch.setattr(_kernels, name, fake_launch)
+    meta = torch.zeros((256, 3), device="meta")
+    tab = torch.zeros((2, 4), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="launched"):
+        cellwin_knockout(meta, meta.T, meta.T, tab, tab, torch.zeros((2, 3), device="meta"),
+                         0.1, "no_d2")
+    with pytest.raises(RuntimeError, match="launched"):
+        moment_dot(torch.zeros((5, 16, 64), device="meta"),
+                   torch.zeros((5, 64, 128), device="meta"), 2, "tf32x3")
+    with pytest.raises(RuntimeError, match="launched"):
+        moment_window(torch.zeros((5, 8, 64), device="meta"), torch.zeros((8, 128), device="meta"),
+                      0.0625, 2, 5, 64, 27, "tf32")
+    assert len(calls) == 3
+    with pytest.raises(ValueError, match="mode"):
+        cellwin_knockout(meta, meta.T, meta.T, tab, tab, meta, 0.1, "dot1")
+    with pytest.raises(ValueError, match="precision"):
+        moment_dot(meta, meta, 1, "bf16")
+    monkeypatch.undo()
+    before = (_kernels.KNOCKOUT_LAUNCHES, _kernels.DOT_LAUNCHES, _kernels.WINDOW_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch_moment_dot(3, torch.zeros((5, 16, 64)), torch.zeros((5, 64, 128)), 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch_moment_window(3, 0, torch.zeros((5, 8, 64)), torch.zeros((8, 128)),
+                                      0.0625, 2, 5, 64, 27)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch_cellwin_knockout(0, torch.zeros((128, 3)), torch.zeros((3, 128)),
+                                         torch.zeros((3, 128)), torch.zeros((1, 2), dtype=torch.int32),
+                                         torch.zeros((1, 2), dtype=torch.int32),
+                                         torch.zeros((1, 3)), 0.1)
+    assert (_kernels.KNOCKOUT_LAUNCHES, _kernels.DOT_LAUNCHES, _kernels.WINDOW_LAUNCHES) == before
+
+
+def test_device_ms_times_cuda_devices_only():
+    """The probes' timer takes CUDA events only; a CPU device raises before
+    anything is called."""
+    from depth_correction_tpu_torch.scripts import device_ms
+
+    calls = []
+    with pytest.raises(ValueError, match="CUDA"):
+        device_ms(lambda: calls.append(1), "cpu", reps=1)
+    assert not calls
+
+
+@pytest.mark.cuda
+def test_cuda_knockout_matches_plain(cuda_device):
+    """Every P1 mode against its float64 plain version; full bit-equal to
+    K1 (the same template instance)."""
+    from depth_correction_tpu_torch.scripts import exp_cellwin_knockout as p1
+
+    pts, g = _slice_graph(6000, 0.35, 0, 128)
+    dev = tcw.graph_to_device(g, cuda_device)
+    ps = torch.as_tensor(pts, dtype=torch.float32, device=cuda_device)[dev.perm].contiguous()
+    before = _kernels.KNOCKOUT_LAUNCHES
+    res = p1.run(ps, dev, reps=1)
+    assert _kernels.KNOCKOUT_LAUNCHES == before + 4 * len(res["modes"])  # 2 warm, 1 timed, 1
+    k1 = tcw.cellwin_fwd(ps, dev.q_est, dev.est_sorted, dev.f_start, dev.f_len, dev.f_ctr, dev.r2)
+    assert torch.equal(res["modes"]["full"]["out"], k1)
+    for mode, e in res["modes"].items():
+        err = e["errors"]
+        assert err["count"] == 0, (mode, err)
+        if mode == "full":
+            assert err["mean_abs"] <= MEAN_ABS_BAR and err["comps_abs"] <= COMPS_ABS_BAR
+        else:
+            assert err["rel"] <= 1e-5, (mode, err)
+
+
+@pytest.mark.cuda
+def test_cuda_moment_dot_matches_plain(cuda_device, monkeypatch):
+    """P2 at its shapes (8 tiles): every variant within 1e-5 of its float32
+    plain version per row, fp32 and tf32x3 within 1e-5 of the float64
+    oracle, every tile's slot the same."""
+    from depth_correction_tpu_torch.scripts import exp_mosaic_dot_probe as p2
+
+    monkeypatch.setattr(p2, "T1", 8)
+    before = _kernels.DOT_LAUNCHES
+    res = p2.run(cuda_device, reps=1)
+    assert _kernels.DOT_LAUNCHES == before + 4 * len(res["variants"])
+    for v, e in res["variants"].items():
+        assert e["err32"] <= 1e-5, (v, e["err32"])
+        if v in ("fp32", "tf32x3"):
+            assert e["oracle"] <= 1e-5, (v, e["oracle"])
+        out = e["out"].reshape(16, 8, 128)
+        assert torch.equal(out, out[:, :1].expand_as(out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe", ["exp_mosaic_dot_probe2", "exp_mosaic_dot_probe3",
+                                   "exp_mosaic_dot_probe4"])
+def test_cuda_moment_window_matches_plain(cuda_device, monkeypatch, probe):
+    """P3-P5 at their shapes, 16 tiles: every variant within 1e-5 of its
+    float32 plain version per row."""
+    import importlib
+
+    mod = importlib.import_module("depth_correction_tpu_torch.scripts." + probe)
+    monkeypatch.setattr(mod, "T1", 16)
+    before = _kernels.WINDOW_LAUNCHES
+    res = mod.run(cuda_device, reps=1)
+    assert _kernels.WINDOW_LAUNCHES == before + 4 * len(res["variants"])
+    for v, e in res["variants"].items():
+        assert e["err32"] <= 1e-5, (v, e["err32"])
+
+
+@pytest.mark.cuda
+def test_cuda_moment_window_clamps_spans_to_the_table(cuda_device):
+    """Staged spans that start before the table, run past its end or lie
+    wholly outside it: the kernel reads only the table's columns and matches
+    the plain version within 1e-5 per row."""
+    from depth_correction_tpu_torch.ops.moment_window import moment_window
+    from depth_correction_tpu_torch.scripts import rel_rows
+
+    rng = np.random.default_rng(3)
+    ncols = 300
+    big = rng.normal(scale=0.2, size=(8, ncols)).astype(np.float32)
+    q = rng.normal(scale=0.2, size=(8, 128)).astype(np.float32)
+    starts = np.array([[-50, 10, ncols + 10], [ncols - 20, 200, -500]], np.int32)
+    lens = np.full((2, 3), 59, np.int32)
+
+    def call(device):
+        big_t, q_t, lens_t, starts_t = (torch.as_tensor(x, device=device)
+                                        for x in (big, q, lens, starts))
+        return moment_window(big_t, q_t, 0.0625, 2, 3, 64, lens_t, "tf32x3", starts=starts_t)
+
+    got, want = call(cuda_device), call("cpu")
+    assert want[0].abs().max() > 0
+    assert rel_rows(got.cpu(), want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_probe_wrappers_refuse(cuda_device):
+    """float64 CUDA inputs and a switch set that was not instantiated raise;
+    nothing is counted."""
+    from depth_correction_tpu_torch.ops.moment_dot import moment_dot
+    from depth_correction_tpu_torch.ops.moment_window import moment_window
+
+    a = torch.zeros((5, 16, 64), dtype=torch.float64, device=cuda_device)
+    b = torch.zeros((5, 64, 128), dtype=torch.float64, device=cuda_device)
+    win = torch.zeros((5, 8, 64), device=cuda_device)
+    q = torch.zeros((8, 128), device=cuda_device)
+    lens = torch.full((2, 5), 27, dtype=torch.int32, device=cuda_device)
+    before = (_kernels.DOT_LAUNCHES, _kernels.WINDOW_LAUNCHES)
+    with pytest.raises(TypeError, match="dtype"):
+        moment_dot(a, b, 2, "tf32x3")
+    with pytest.raises(TypeError, match="dtype"):
+        moment_window(win.double(), q.double(), 0.0625, 2, 5, 64, 27, "tf32x3")
+    with pytest.raises(RuntimeError, match="launch failed"):
+        moment_window(win, q, 0.0625, 2, 5, 64, lens, "fp32")  # fp32 has no span table
+    assert (_kernels.DOT_LAUNCHES, _kernels.WINDOW_LAUNCHES) == before

@@ -182,7 +182,13 @@ def test_port_imports_no_jax():
             "depth_correction_tpu_torch.train, depth_correction_tpu_torch.ops._kernels, "
             "depth_correction_tpu_torch.node, depth_correction_tpu_torch.ops.slabwin, "
             "depth_correction_tpu_torch.ops.knn, depth_correction_tpu_torch.ops.grid_hash, "
-            "depth_correction_tpu_torch.ops.prng; "
+            "depth_correction_tpu_torch.ops.prng, depth_correction_tpu_torch.ops.cellwin_knockout, "
+            "depth_correction_tpu_torch.ops.moment_dot, depth_correction_tpu_torch.ops.moment_window, "
+            "depth_correction_tpu_torch.scripts.exp_cellwin_knockout, "
+            "depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe, "
+            "depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe2, "
+            "depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe3, "
+            "depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe4; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'depth_correction_tpu' or m.startswith('depth_correction_tpu.') "
             "for m in sys.modules), 'JAX package imported'")
@@ -194,3 +200,16 @@ def test_port_imports_no_jax():
             if name.endswith(".py"):
                 with open(os.path.join(root, name)) as f:
                     assert "import jax" not in f.read(), name
+
+
+def test_config_device_is_explicit(monkeypatch):
+    """Without a card the default device ("cuda") raises and names the
+    setting that asks for the CPU; nothing falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for device in (None, "cuda", "cuda:1"):
+        with pytest.raises(RuntimeError, match='cfg.device = "cpu"'):
+            TConfig(device=device).torch_device()
+    assert TConfig(device="cpu").torch_device() == torch.device("cpu")
+    cfg = TConfig()
+    cfg.device = "cpu"
+    assert cfg.torch_device().type == "cpu"
