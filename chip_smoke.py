@@ -11,10 +11,13 @@ Phases (any failure raises and the exit code is non-zero):
    graph at row_cap = pt_cap = 128.
 3. slice   — the uncapped min-eigenvalue training step at the JAX bench's
    configuration (bench.py:bench_config(uncapped=True)), scene
-   open_box/n_6_size_20_20_5_height_1_density_400, prepared with scipy
-   neighbors, trained for 8 Adam steps through train(); both kernels must
-   have launched, the loss at w=0 must match the float64 plain path within
-   1e-5 relative, and K1/K2 are checked and timed at the slice's shapes.
+   open_box/n_6_size_20_20_5_height_1_density_400, prepared with the
+   bench's grid establishment (X2 for the 6 scans and the global cloud;
+   prep seconds per part are printed beside the 26 s that scipy's cKDTree
+   establishment took on an H100),
+   trained for 8 Adam steps through train(); X2, K1 and K2 must have
+   launched, the loss at w=0 must match the float64 plain path within 1e-5
+   relative, and K1/K2 are checked and timed at the slice's shapes.
 4. node    — the online corrector at the JAX bench's node workload
    (bench.py:build_node_scan: the raw 129,000-point scan of
    open_box/n_6_size_20_20_5_height_1_density_215, slab engine, float32)
@@ -38,6 +41,21 @@ Phases (any failure raises and the exit code is non-zero):
    shapes. Every variant must be within 1e-5 (relative, per output row) of
    its float32 plain version; fp32 and tf32x3 within 1e-5 of the float64
    oracle; a table of ms per variant is printed.
+7. grid    — X2 (the grid radius search) against its plain twin on the
+   card, on phase 3's global cloud and on its first scan: index tables
+   equal, distances within one float32 ulp, counts equal; against scipy's
+   float64 sets on the scan (a pair may differ only within 1e-6 r of the
+   radius); X2 timed at both sizes. X2 at the grid node's shapes (the
+   traced 2^21-cell grid of phase 4's filtered scan; k = 32, the node's,
+   and k = 16, below the scan's largest count, so the top-k cuts) against
+   its plain twin, as above. Then the node's grid
+   engine (X2 + P7, K = 32) on phase 4's scan, held within 1e-4 m of the
+   float64 plain grid node, with node_ms and node_e2e_ms as phase 4
+   measures them.
+8. probes  — P6 (exp_mosaic_probe: the seven layout probes) and P8
+   (exp_pallas_gather2: gather cases A-E, global and staged), each script
+   run with the launch counts zeroed just before and read just after;
+   every form exact against its plain version.
 
 The last two lines of stdout are a JSON object with per-kernel numbers
 (time, plain time, launches, error, the bound and what sets it, the
@@ -61,6 +79,9 @@ SMALL_SCENE = "open_box/n_6_size_20_20_5_height_1_density_100"
 NODE_REPS = 20  # chained calls per node_ms batch
 E2E_REPS = 10
 POINTS_ABS_BAR = 1e-4  # m, corrected points against the float64 plain node
+# X2's cut check at the grid node's shapes: below the node scan's largest
+# within-r count (27), so the top-k drops neighbours.
+GRID_CUT_K = 16
 PROBE_REL_BAR = 1e-5  # P7 at the probe's shapes, relative to max |output|
 # Bars against the float64 plain version.
 MEAN_ABS_BAR = 1e-5  # m
@@ -238,7 +259,7 @@ def phase_kernels():
 
 
 def bench_config():
-    """bench.py:bench_config(uncapped=True), with scipy establishment."""
+    """bench.py:bench_config(uncapped=True), grid establishment."""
     from depth_correction_tpu_torch.scripts import bench_config as config
 
     return config(DEVICE, STEPS)
@@ -251,6 +272,7 @@ def phase_slice(card: str):
 
     from depth_correction_tpu_torch.datasets import create_dataset
     from depth_correction_tpu_torch.models import ScaledPolynomial
+    from depth_correction_tpu_torch.ops import _kernels
     from depth_correction_tpu_torch.ops import cellwin as cw
     from depth_correction_tpu_torch.scripts.exp_cellwin_knockout import points_at_w0
     from depth_correction_tpu_torch.train import (
@@ -269,20 +291,27 @@ def phase_slice(card: str):
 
     # The main path: datasets -> prep -> train(); counts from this run only.
     cw.reset_launch_counts()
+    _kernels.reset_launch_counts()
     t0 = time.perf_counter()
     ds = create_dataset(cfg.train_names[0], cfg)
     data = prepare_sequences([ds], cfg)
     prep_s = time.perf_counter() - t0
+    grid_launches = _kernels.GRID_LAUNCHES
     for part, s in data.prep_seconds.items():
-        log("prep %s: %.3f s" % (part, s))
-    log("prep total: %.3f s" % prep_s)
+        log("prep %s: %.3f s%s" % (part, s, " (scipy's cKDTree on an H100: 26 s)"
+                                   if part == "global_neighbors" else ""))
+    log("prep total: %.3f s (nn_backend %r; X2 launches in prep %d)"
+        % (prep_s, cfg.nn_backend, grid_launches))
+    if grid_launches <= 0:
+        raise RuntimeError("X2 was not launched by the grid establishment of the prep")
     graph = data.cellwin[0]
     if graph is None:
         raise RuntimeError("the cellwin build declined: the slice would not run the kernels")
     rec = Record(cfg)
     model, history = train(cfg, callbacks=rec, train_data=data)
-    launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES}
-    log("main path launches: K1 %d, K2 %d" % (launches["fwd"], launches["bwd"]))
+    launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES, "grid": grid_launches}
+    log("main path launches: K1 %d, K2 %d, X2 %d" % (launches["fwd"], launches["bwd"],
+                                                   launches["grid"]))
     if launches["fwd"] <= 0 or launches["bwd"] <= 0:
         raise RuntimeError("a kernel of the path was not launched: %s" % launches)
     losses = [h[1] for h in history]
@@ -328,7 +357,7 @@ def phase_slice(card: str):
     return {
         "launches": launches, "kernels": k, "step_ms": step_ms, "prep_s": prep_s,
         "loss_rel": loss_rel, "w_rel": w_rel, "w_final": w_final, "profile": profile,
-        "graph": graph, "ps": ps,
+        "graph": graph, "ps": ps, "data": data, "cfg": cfg,
     }
 
 
@@ -421,11 +450,12 @@ def drive_node(scan, cfg, card: str, label: str, batches: int, reps: int, e2e_re
     out = node.process(scan)
     outs = correct_cloud(model, cloud, cfg)
     torch.cuda.synchronize()
-    launches = {"slab": _kernels.SLAB_LAUNCHES, "gather": _kernels.GATHER_LAUNCHES}
+    launches = {"slab": _kernels.SLAB_LAUNCHES, "gather": _kernels.GATHER_LAUNCHES,
+                "grid": _kernels.GRID_LAUNCHES}
     kept = int(outs[4].sum())
-    log("%s: %d raw points, padded %d, %d kept, %d corrected; launches X1 %d, P7 %d"
+    log("%s: %d raw points, padded %d, %d kept, %d corrected; launches X1 %d, P7 %d, X2 %d"
         % (label, len(scan), cloud.size, kept, int(outs[3].sum()), launches["slab"],
-           launches["gather"]))
+           launches["gather"], launches["grid"]))
     if len(out) != kept or not all(np.isfinite(out[f]).all() for f in out.dtype.names):
         raise RuntimeError("%s: DepthCorrector output malformed (%d rows, %d kept)"
                            % (label, len(out), kept))
@@ -531,6 +561,7 @@ def phase_node(card: str):
         lambda: slabwin.slab_window_moments_plain(pts_T, valid, lo, width, ctr, r2), reps=3)
     log("X1 timing (float32, node shapes): kernel %.4f ms vs plain %.4f ms (%s)"
         % (res["x1_ms"], res["x1_plain_ms"], card))
+    res["scan"] = scan
     return res
 
 
@@ -640,7 +671,6 @@ def phase_probes(card: str, graph, ps):
     slice table's pair tests and members (P1's counts)."""
     import torch
 
-    from depth_correction_tpu_torch.ops import _kernels
     from depth_correction_tpu_torch.ops import cellwin as cw
     from depth_correction_tpu_torch.ops.cellwin_knockout import cellwin_knockout_plain
     from depth_correction_tpu_torch.ops.moment_dot import moment_dot_plain
@@ -655,17 +685,6 @@ def phase_probes(card: str, graph, ps):
     def bar(ok: bool, what: str):
         if not ok:
             failures.append(what)
-
-    def counted(fn, attr):
-        _kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        n = getattr(_kernels, attr)
-        log("  script: %d launches (%s), %.2f s" % (n, attr, time.perf_counter() - t0))
-        if n <= 0:
-            raise RuntimeError("%s was not launched by its probe script" % attr)
-        return res, n
 
     # P1 on the slice's own table (the w = 0 positions of phase 3).
     r1, n1 = counted(lambda: p1.run(ps, graph), "KNOCKOUT_LAUNCHES")
@@ -776,6 +795,246 @@ def phase_probes(card: str, graph, ps):
     return entries, (r1["pairs"], r1["members"])
 
 
+def counted(fn, attr: str):
+    """Run ``fn`` with the launch counts zeroed just before and read just
+    after; raises if the counter ``attr`` of ops/_kernels.py stayed 0."""
+    import torch
+
+    from depth_correction_tpu_torch.ops import _kernels
+
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    n = getattr(_kernels, attr)
+    log("  script: %d launches (%s), %.2f s" % (n, attr, time.perf_counter() - t0))
+    if n <= 0:
+        raise RuntimeError("%s was not launched by its probe script" % attr)
+    return res, n
+
+
+def _f32_ulps(a, b) -> int:
+    """Largest distance in float32 ulps between finite a and b."""
+    import torch
+
+    return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
+
+
+def check_grid_query(label: str, points, valid, r: float, card: str) -> dict:
+    """X2 on ``points`` (all rows query) against its plain twin on the card:
+    top-k (k = the prep's suggest_k_max) and counts; timed; its bound from
+    the runs it reads. Raises on a missed bar."""
+    import torch
+
+    from depth_correction_tpu_torch.ops import grid_hash as gh
+    from depth_correction_tpu_torch.ops.knn import suggest_k_max
+
+    k = suggest_k_max(points, r=r, valid_points=valid)
+    grid, _ = gh._build_grid(points, valid, r, None, None)
+    (pts_T, val_s, ids_s, order, mins, dims, cell, _) = grid
+    r2 = torch.full((), r, dtype=torch.float32) ** 2
+    args = (points, valid, pts_T, val_s, ids_s, order, mins, dims, r2)
+    d, idx = gh.grid_query(*args, k, None, cell)
+    counts = gh.grid_query(*args, 0, None, cell)
+    torch.cuda.synchronize()
+    # The plain twin's window: the JAX query's dense table and width.
+    starts, width = gh._query_window(ids_s, int(dims.prod()))
+    pd, pidx = gh._grid_query_plain(*args, k, width, cell, starts)
+    pcounts = gh._grid_query_plain(*args, 0, width, cell, starts)
+    fin = torch.isfinite(pd)
+    same_idx = bool(torch.equal(idx, pidx))
+    same_fin = bool(torch.equal(fin, torch.isfinite(d)))
+    ulps = _f32_ulps(d[fin], pd[fin]) if same_fin and bool(fin.any()) else -1
+    same_counts = bool(torch.equal(counts, pcounts))
+    err = float((d[fin] - pd[fin]).abs().max()) if same_fin else float("inf")
+    # The runs X2 reads: each valid query's 9 columns, [lower_bound(lo),
+    # lower_bound(hi + 1)) in the sorted ids.
+    col_ok, lo, hi, _, _ = gh._query_columns(points, mins, dims, cell)
+    ids64 = ids_s.long()
+    runs = torch.searchsorted(ids64, hi + 1) - torch.searchsorted(ids64, lo)
+    pairs = int((torch.where(col_ok, runs, 0).sum(1) * valid).sum())
+    members = int(counts.sum())
+    log("X2 %s: %d points (%d valid), k %d (largest count %d), window %d; kernel vs plain: "
+        "index tables equal %s, finite pattern equal %s, distances within %d ulp, counts equal "
+        "%s; %d pair tests, %d members"
+        % (label, points.shape[0], int(valid.sum()), k, int(counts.max()), width, same_idx,
+           same_fin, ulps, same_counts, pairs, members))
+    if not (same_idx and same_fin and 0 <= ulps <= 1 and same_counts):
+        raise RuntimeError("X2 %s misses its bars against the plain twin" % label)
+    n, nq = pts_T.shape[1], points.shape[0]
+    res = {"k": k, "pairs": pairs, "members": members, "err": err, "idx": idx, "counts": counts,
+           "ms": cuda_ms(lambda: gh.grid_query(*args, k, None, cell), reps=20),
+           "counts_ms": cuda_ms(lambda: gh.grid_query(*args, 0, None, cell), reps=20),
+           "plain_ms": cuda_ms(lambda: gh._grid_query_plain(*args, k, width, cell, starts),
+                               reps=1, warmup=1),
+           # Bound: 8 float ops per pair test; queries, the sorted table
+           # (positions, ids, order) and the (Q, k) outputs moved once.
+           "bound": bound(nq * 13 + n * 20 + nq * k * 8, {"fp32": 8 * pairs})}
+    log("X2 %s timing (float32): top-%d %.4f ms, counts %.4f ms, plain %.4f ms, bound %.4f ms "
+        "(%s) (%s)" % (label, k, res["ms"], res["counts_ms"], res["plain_ms"], res["bound"][0],
+                       res["bound"][1], card))
+    return res
+
+
+def check_grid_node_neighbors(scan, ks) -> dict:
+    """X2 at the grid node's shapes: the traced grid of 2^21 cells over the
+    node scan's filtered float32 points, for each k of ``ks``, against the
+    plain twin on the same grid, with the launch count zeroed just before
+    each kernel call. Raises on a missed bar or when no row has more than
+    the smallest k neighbours (the kernel's merge then drops keys)."""
+    import numpy as np
+    import torch
+
+    from depth_correction_tpu_torch.cloud import Cloud
+    from depth_correction_tpu_torch.node import _filter_impl, _grid_neighbors
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.preproc import pad_size
+
+    cfg = node_config("grid")
+    r = float(cfg.nn_r)
+    cloud = Cloud.from_structured_array(scan, dtype=torch.float32, device=DEVICE)
+    cloud = cloud.pad(pad_size(cloud.size))
+    keep = _filter_impl(cloud, float(cfg.min_depth or 0.0), float(cfg.max_depth or np.inf),
+                        float(cfg.grid_res or 0.0))
+    points = cloud.replace(valid=keep).to_points()
+    counts = _grid_neighbors(points, keep, r, 0, plain=True)
+    res = {}
+    for k in ks:
+        _kernels.reset_launch_counts()
+        d, idx = _grid_neighbors(points, keep, r, k, plain=False)
+        torch.cuda.synchronize()
+        launches = _kernels.GRID_LAUNCHES
+        pd, pidx = _grid_neighbors(points, keep, r, k, plain=True)
+        fin = torch.isfinite(pd)
+        same_idx = bool(torch.equal(idx, pidx))
+        same_fin = bool(torch.equal(fin, torch.isfinite(d)))
+        ulps = _f32_ulps(d[fin], pd[fin]) if same_fin and bool(fin.any()) else -1
+        res[k] = int((counts > k).sum())
+        log("X2 grid node (traced grid, k %d): %d kept rows, %d with more than %d within r "
+            "(largest count %d); kernel vs plain: index tables equal %s, finite pattern equal "
+            "%s, distances within %d ulp; %d launch"
+            % (k, int(keep.sum()), res[k], k, int(counts.max()), same_idx, same_fin, ulps,
+               launches))
+        if launches != 1 or not (same_idx and same_fin and 0 <= ulps <= 1):
+            raise RuntimeError("X2 misses its bars against the plain twin at the grid node's "
+                               "shapes (k %d)" % k)
+    if res[min(ks)] <= 0:
+        raise RuntimeError("no row of the grid node has more than %d neighbours: the top-k "
+                           "cut was not exercised" % min(ks))
+    return res
+
+
+def phase_grid(card: str, data, cfg, scan):
+    """X2 on the slice's global cloud and first scan, against its plain
+    twin and scipy's float64 sets; X2 at the grid node's shapes; the
+    node's grid engine on the bench node scan."""
+    from depth_correction_tpu_torch.preproc import global_cloud
+    from depth_correction_tpu_torch.scripts.exp_grid_prep_diff import scipy_pairs_differ
+
+    r = float(cfg.nn_r)
+    batch = data.batches[0]
+    g = global_cloud(batch)
+    res = {"global": check_grid_query("global cloud", g.get_points().contiguous(), g.valid, r,
+                                      card)}
+    scan0 = batch.cloud.map(lambda x: x[0])
+    pts, valid = scan0.to_points().contiguous(), scan0.valid
+    res["scan"] = check_grid_query("scan 0", pts, valid, r, card)
+    # Against scipy's float64 sets on the scan's float32 points (the global
+    # cloud's take minutes of host time: scripts/exp_grid_prep_diff.py).
+    t0 = time.perf_counter()
+    differ, worst = scipy_pairs_differ(pts, valid, res["scan"]["idx"], r)
+    log("X2 scan 0 vs scipy float64 sets: %d ordered pairs differ, largest |d - r| %.3e m "
+        "(bar %.1e m; %.1f s)" % (differ, worst, 1e-6 * r, time.perf_counter() - t0))
+    if worst > 1e-6 * r:
+        raise RuntimeError("X2 differs from scipy's sets away from the radius: %.3e" % worst)
+    res["scipy_differ"] = differ
+
+    # The node's own k, and a k below the scan's largest count, so the
+    # kernel's merge drops keys.
+    k_node = int(node_config("grid").nn_max_neighbors or 32)
+    res["node_x2"] = check_grid_node_neighbors(scan, (k_node, GRID_CUT_K))
+    # The node's grid engine on the bench node scan (phase 4's).
+    node = drive_node(scan, node_config("grid"), card, "grid node", batches=3, reps=NODE_REPS,
+                      e2e_reps=E2E_REPS)
+    if node["launches"]["grid"] <= 0 or node["launches"]["gather"] <= 0:
+        raise RuntimeError("X2 / P7 were not launched by the grid node: %s" % node["launches"])
+    res["node"] = node
+    return res
+
+
+def phase_probes_p6_p8(card: str):
+    """The P6 and P8 scripts on the card; each script's launches are counted
+    alone. Returns their kernels-line entries."""
+    import torch
+
+    from depth_correction_tpu_torch.ops.gather_probe import gather_probe, gather_probe_plain
+    from depth_correction_tpu_torch.ops.layout_probe import layout_probe, layout_probe_plain
+    from depth_correction_tpu_torch.scripts import exp_mosaic_probe as p6
+    from depth_correction_tpu_torch.scripts import exp_pallas_gather2 as p8
+
+    dev = torch.device(DEVICE)
+    failures = []
+    r6, n6 = counted(lambda: p6.run(dev), "LAYOUT_LAUNCHES")
+    r6b, n6b = counted(lambda: p6.run(dev, reps=1, first=200.0), "LAYOUT_LAUNCHES")
+    for name, e in r6["probes"].items():
+        e2 = r6b["probes"][name]
+        log("  P6 %-22s %-4s (sum %.3e; x[0,0] = 200: %s, sum %.3e) %9.4f ms"
+            % (name, "OK" if e["err"] == 0 else "FAIL", e["sum"],
+               "OK" if e2["err"] == 0 else "FAIL", e2["sum"], e["ms"]))
+        if e["err"] != 0 or e2["err"] != 0:
+            failures.append("P6 %s differs from its plain version" % name)
+    x = p6.inputs(dev)
+    head = "dot_tlhs"
+    # At these sizes the events time the host's issue rate; the profiler
+    # gives the device time per call.
+    busy6 = profile_calls(lambda: layout_probe(x, head), card, "call", n=20)["busy_ms"]
+    ones = torch.ones((8, 128), device=dev)
+    entries = [{
+        "name": "layout_probe (P6)", "route": "cuda",
+        "source": "depth_correction_tpu_torch/csrc/layout_probe.cu",
+        "replaces": "scripts/exp_mosaic_probe.py:37", "launches": n6 + n6b,
+        "max_abs_err": max(max(e["err"] for e in r["probes"].values()) for r in (r6, r6b)),
+        "ms": r6["probes"][head]["ms"],
+        "plain_ms": cuda_ms(lambda: layout_probe_plain(x, head), reps=20),
+        # Bound: x read once and the (512, 128) output written once; three
+        # TF32 passes of 2 x 512 x 128 x 8.
+        "bound": bound(x.numel() * 4 + 4 * p6.S * 128, {"tf32": 3 * 2 * p6.S * 128 * 8}),
+        "library_ms": cuda_ms(lambda: torch.matmul(x.T, ones), reps=20),
+        "device_busy_ms": busy6,
+        "variants": {n: e["ms"] for n, e in r6["probes"].items()}}]
+
+    r8, n8 = counted(lambda: p8.run(dev), "GATHER_PROBE_LAUNCHES")
+    for case, forms in r8["cases"].items():
+        for form, e in forms.items():
+            if e is None:
+                log("  P8 %s %-7s n/a (the staged row does not fit one block's shared memory)"
+                    % (case, form))
+                continue
+            log("  P8 %s %-7s %-4s err %.1e %9.4f ms"
+                % (case, form, "OK" if e["err"] == 0 else "FAIL", e["err"], e["ms"]))
+            if e["err"] != 0:
+                failures.append("P8 %s %s differs from its plain version" % (case, form))
+    xb, ib, axis = p8.inputs(dev)["B"]
+    plain8 = cuda_ms(lambda: gather_probe_plain(xb, ib, axis), reps=20)
+    busy8 = profile_calls(lambda: gather_probe(xb, ib, axis, "global"), card, "call",
+                          n=20)["busy_ms"]
+    entries.append({
+        "name": "gather_probe (P8)", "route": "cuda",
+        "source": "depth_correction_tpu_torch/csrc/gather_probe.cu",
+        "replaces": "scripts/exp_pallas_gather2.py:35", "launches": n8,
+        "max_abs_err": max(e["err"] for f in r8["cases"].values() for e in f.values() if e),
+        "ms": r8["cases"]["B"]["global"]["ms"], "plain_ms": plain8,
+        # Bound (case B): x, the indices and the output moved once.
+        "bound": bound(xb.numel() * 4 + ib.numel() * 8, {"fp32": 0}),
+        # The plain version is one PyTorch call (torch.gather).
+        "library_ms": plain8, "device_busy_ms": busy8,
+        "variants": {"%s_%s" % (c, f): e["ms"] for c, fs in r8["cases"].items()
+                     for f, e in fs.items() if e}})
+    if failures:
+        raise RuntimeError("probe bars missed: " + "; ".join(failures))
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -808,6 +1067,13 @@ def main() -> int:
            small["points"], time.perf_counter() - t0, card))
     log("[phase 6] probes P1-P5 (depth_correction_tpu_torch/scripts)")
     probes, (pairs, members) = phase_probes(card, res["graph"], res["ps"])
+    log("[phase 7] grid: X2 on the slice's clouds, the node's grid engine")
+    grid = phase_grid(card, res["data"], res["cfg"], node["scan"])
+    gnode = grid["node"]
+    log("grid node: node_ms %.3f, node_e2e_ms %.3f, node_points %d; total %.1f s (%s)"
+        % (gnode["ms"], gnode["e2e_ms"], gnode["points"], time.perf_counter() - t0, card))
+    log("[phase 8] probes P6, P8 (depth_correction_tpu_torch/scripts)")
+    probes += phase_probes_p6_p8(card)
     log("build + all phases: %.1f s (%s)" % (time.perf_counter() - t0, card))
     k = res["kernels"]
     g = res["graph"]
@@ -843,6 +1109,14 @@ def main() -> int:
          "launches": small["launches"]["gather"], "max_abs_err": small["p7_err"],
          "ms": small["p7_ms"], "plain_ms": small["p7_plain_ms"], "bound": small["p7_bound"],
          "library_ms": None},
+        {"name": "grid_query (X2)", "route": "cuda",
+         "source": "depth_correction_tpu_torch/csrc/grid_query.cu",
+         "replaces": "depth_correction_tpu/ops/grid_hash.py:108",
+         "launches": res["launches"]["grid"], "max_abs_err": grid["global"]["err"],
+         "ms": grid["global"]["ms"], "plain_ms": grid["global"]["plain_ms"],
+         "bound": grid["global"]["bound"], "library_ms": None,
+         "variants": {"global_counts": grid["global"]["counts_ms"], "scan": grid["scan"]["ms"],
+                      "scan_counts": grid["scan"]["counts_ms"]}},
     ] + probes
     for en in kernels:
         en["bound_ms"], en["bound_by"] = en.pop("bound")

@@ -172,11 +172,13 @@ class Config(Configurable):
         # whenever any neighborhood exceeds K. Leave None for parity runs;
         # set (e.g. 32) for speed/memory at scale.
         self.nn_max_neighbors = None
-        # Neighbor-search backend for (one-time) neighborhood establishment.
-        # The port has the host cKDTree path only ('scipy', the reference's
-        # index), which None also selects; it gives the same within-r sets
-        # as the JAX package's on-device engines. 'grid' and 'native' are
-        # not ported yet and raise NotImplementedError.
+        # Neighbor-search backend for (one-time) neighborhood establishment,
+        # as in the JAX package: None picks the grid-hash search (kernel X2
+        # on the card) at >= 65,536 points and the tiled scan below; 'grid'
+        # forces the grid; 'scipy' takes the host cKDTree (the reference's
+        # index). All give the same within-r sets. 'native' is not ported
+        # yet and raises NotImplementedError. The online corrector reads
+        # its engine from here too ('slab', 'brute', 'grid'; node.py).
         self.nn_backend = None
         # Hot-loop moments engine. 'gather' recomputes the frozen
         # neighborhoods' moments by indexing with torch autograd. 'cellwin'

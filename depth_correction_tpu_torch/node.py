@@ -16,16 +16,20 @@ Engines (``cfg.nn_backend``), as in the JAX package:
 - ``'brute'``, the default below: the tiled brute-force search
   (``ops/knn.py``, up to K neighbours within r) and the gather moments
   (``ops/features.py``, kernel P7);
-- ``'grid'`` (the gather-window engine) is not ported yet.
+- ``'grid'``, the K-capped gather-window engine: the cell sort sized on
+  the device (``grid_hash.grid_sort_traced``), the up-to-K nearest within
+  r of every row (``grid_hash.grid_query``, kernel X2, which needs no
+  start table) and the gather moments (kernel P7).
 
 With CUDA tensors the kernels launch or raise; ``plain=True`` computes the
-moments with their plain torch versions on any device and dtype (the
-reference runs of the tests and of ``chip_smoke.py``).
+neighbours and moments with their plain torch versions on any device and
+dtype (the reference runs of the tests and of ``chip_smoke.py``).
 
-Left out, with the JAX package's jit: the static slab width ``w_slab``,
-its verify-and-retry loop and ``_WIDTH_CACHE`` (kernel X1 reads each span
-to its own length), and the static column bound's retry: the layout takes
-the scan's own column count, read once per scan.
+Left out, with the JAX package's jit: the static slab width ``w_slab`` and
+the grid engine's static window ``width``, their verify-and-retry loops
+and ``_WIDTH_CACHE`` (kernel X1 reads each span, kernel X2 each column's
+run, to its own length), and the static column bound's retry: the layout
+takes the scan's own column count, read once per scan.
 """
 from __future__ import annotations
 
@@ -50,7 +54,10 @@ from .ops.grid_hash import (
     GRID_NN_MIN_POINTS,
     cell_candidates,
     colpad_dims0_ideal,
+    _grid_query_plain,
+    grid_query,
     grid_sort_colpad_traced,
+    grid_sort_traced,
 )
 from .ops.knn import radius_neighbors
 from .ops.slabwin import slab_window_moments
@@ -58,8 +65,8 @@ from .preproc import pad_size
 
 __all__ = ["CloudFilter", "DepthCorrector", "correct_cloud"]
 
-# Cell-table bound of the slab engine's sort (2^21 cells); scans whose
-# extent needs more cells coarsen, which keeps the moments exact.
+# Cell-table bound of the slab and grid engines' sorts (2^21 cells); scans
+# whose extent needs more cells coarsen, which keeps the results exact.
 NODE_N_CELLS_PAD = 1 << 21
 # Upper bound on the major-axis column count of the slab layout: every
 # column costs up to 127 padding slots.
@@ -142,27 +149,36 @@ def _slab_moments(points, keep, nn_r: float, plain: bool):
     return tuple(packed[0:6]), packed[6]
 
 
+def _grid_neighbors(points, keep, nn_r: float, k: int, plain: bool):
+    """Grid engine: traced cell sort, then the up-to-k nearest within r of
+    every row (JAX package, node.py:178-198) -> (dist (N, k), idx (N, k)
+    int32), inf / -1 padded. The kernel reads every column's run whole and
+    needs no start table; the plain twin builds the dense table and takes
+    the largest 3-cell run as its window (host reads)."""
+    (pts_T, val_s, ids_s, order, mins, dims,
+     cell) = grid_sort_traced(points, keep, nn_r, NODE_N_CELLS_PAD)
+    r2 = torch.full((), nn_r, dtype=points.dtype) ** 2  # a host scalar: no device read
+    query = _grid_query_plain if plain else grid_query
+    return query(points, keep, pts_T, val_s, ids_s, order, mins, dims, r2, k, None, cell)
+
+
 def correct_cloud(model, cloud: Cloud, cfg: Config, k: Optional[int] = None,
                   plain: bool = False):
     """Correct one (padded) cloud on its device.
 
     :param model: correction model (``models``), on the cloud's device.
     :param cloud: raw scan; ``valid`` marks padding.
-    :param k: neighbour cap of the brute engine (default
+    :param k: neighbour cap of the brute and grid engines (default
         ``cfg.nn_max_neighbors`` or 32); the slab engine has none.
-    :param plain: compute the moments with the plain torch versions of the
-        kernels, on any device and dtype.
+    :param plain: compute the neighbours and moments with the plain torch
+        versions of the kernels, on any device and dtype.
     :return: (points (N, 3), depth (N,), normals (N, 3), mask (N,) the
         corrected rows, valid (N,) the rows kept by the filters).
     """
     k = int(k or cfg.nn_max_neighbors or 32)
     backend = getattr(cfg, "nn_backend", None)
-    if backend == "grid":
-        raise NotImplementedError(
-            "nn_backend='grid' (the node's gather-window engine) is not ported yet; "
-            "use 'slab' or 'brute'")
     n = cloud.size
-    if backend not in ("brute", "slab"):
+    if backend not in ("brute", "grid", "slab"):
         backend = "slab" if n >= GRID_NN_MIN_POINTS else "brute"
     min_valid = int(cfg.min_valid_neighbors or 1)
     bounds = (cfg.eigenvalue_bounds or [], cfg.eigenvalue_ratio_bounds or [])
@@ -175,6 +191,9 @@ def correct_cloud(model, cloud: Cloud, cfg: Config, k: Optional[int] = None,
         if backend == "brute":
             _, nn = radius_neighbors(points, points, r=float(cfg.nn_r), k=k,
                                      valid_points=keep, valid_query=keep)
+            return _apply_impl(model, cloud, nn, *bounds, min_valid=min_valid, plain=plain)
+        if backend == "grid":
+            _, nn = _grid_neighbors(points, keep, float(cfg.nn_r), k, plain)
             return _apply_impl(model, cloud, nn, *bounds, min_valid=min_valid, plain=plain)
         comps, w_sum = _slab_moments(points, keep, float(cfg.nn_r), plain)
         return _apply_from_moments(model, cloud, comps, w_sum, *bounds, min_valid=min_valid)

@@ -11,9 +11,11 @@ reused. Nothing here runs at import: the CPU tests import every module.
 The launchers validate device, dtype, shape and contiguity before passing
 pointers, launch on the current stream, and raise when the C entry returns
 a CUDA error. Launch counts of K1/K2 are kept by their callers in
-``ops/cellwin.py``; X1, P7 and the probes P1-P5 count here
-(:data:`SLAB_LAUNCHES`, :data:`GATHER_LAUNCHES`, :data:`KNOCKOUT_LAUNCHES`,
-:data:`DOT_LAUNCHES`, :data:`WINDOW_LAUNCHES`), once per accepted launch.
+``ops/cellwin.py``; X1, X2, P7 and the probes P1-P6, P8 count here
+(:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`, :data:`GATHER_LAUNCHES`,
+:data:`KNOCKOUT_LAUNCHES`, :data:`DOT_LAUNCHES`, :data:`WINDOW_LAUNCHES`,
+:data:`LAYOUT_LAUNCHES`, :data:`GATHER_PROBE_LAUNCHES`), once per accepted
+launch.
 """
 from __future__ import annotations
 
@@ -29,7 +31,10 @@ import torch
 __all__ = [
     "DOT_LAUNCHES",
     "GATHER_LAUNCHES",
+    "GATHER_PROBE_LAUNCHES",
+    "GRID_LAUNCHES",
     "KNOCKOUT_LAUNCHES",
+    "LAYOUT_LAUNCHES",
     "SLAB_LAUNCHES",
     "WINDOW_LAUNCHES",
     "build",
@@ -37,6 +42,9 @@ __all__ = [
     "launch_cellwin_fwd",
     "launch_cellwin_knockout",
     "launch_gather_moments",
+    "launch_gather_probe",
+    "launch_grid_query",
+    "launch_layout_probe",
     "launch_moment_dot",
     "launch_moment_window",
     "launch_slab_window",
@@ -47,7 +55,8 @@ __all__ = [
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin.cu", "gather_moments.cu", "slabwin.cu",
-                             "cellwin_knockout.cu", "moment_dot.cu", "moment_window.cu"))
+                             "cellwin_knockout.cu", "moment_dot.cu", "moment_window.cu",
+                             "grid_query.cu", "layout_probe.cu", "gather_probe.cu"))
 # Headers the sources include; they key the build like the sources.
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin_fwd.cuh", "tf32_mma.cuh"))
@@ -62,15 +71,19 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# Launches of X1 (slab-window moments), P7 (gather moments), P1 (the
-# cell-window knockout), P2 (the moment product) and P3-P5 (the moment
-# product with in-kernel operands), counted where each kernel is launched
+# Launches of X1 (slab-window moments), X2 (the grid radius search), P7
+# (gather moments), P1 (the cell-window knockout), P2 (the moment product),
+# P3-P5 (the moment product with in-kernel operands), P6 (the layout
+# probes) and P8 (the gather probes), counted where each kernel is launched
 # and nowhere else.
 SLAB_LAUNCHES = 0
+GRID_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 KNOCKOUT_LAUNCHES = 0
 DOT_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
+LAYOUT_LAUNCHES = 0
+GATHER_PROBE_LAUNCHES = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -151,6 +164,13 @@ def load():
         lib.dc_moment_window.argtypes = [_I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I,
                                          _I, _F, _I, _P, _P]
         lib.dc_moment_window.restype = _I
+        lib.dc_grid_query.argtypes = [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _F, _I, _L,
+                                      _P, _P, _P]
+        lib.dc_grid_query.restype = _I
+        lib.dc_layout_probe.argtypes = [_I, _P, _P, _P]
+        lib.dc_layout_probe.restype = _I
+        lib.dc_gather_probe.argtypes = [_I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
+        lib.dc_gather_probe.restype = _I
         lib.dc_cuda_error_string.argtypes = [_I]
         lib.dc_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -431,11 +451,111 @@ def launch_moment_window(prec_id: int, flags: int, win, q, r2: float, n_tiles: i
     return out
 
 
+def launch_grid_query(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dims, cell,
+                      r2, k: int, cap=None):
+    """X2 on CUDA tensors: k = 0 -> counts (Q,) int32; k > 0 -> (d (Q, k)
+    float32, idx (Q, k) int32), -1 / inf padded.
+
+    :param q_pts: (Q, 3) float32 queries (any strides; copied contiguous).
+    :param q_valid: (Q,) bool.
+    :param pts_sorted_T: (3, N) float32 positions sorted by cell id.
+    :param ids_sorted: (N,) int32 sorted cell ids; order: (N,) int32.
+    :param mins, dims, cell: the grid's origin (3,), dims (3,) and cell
+        side, as tensors on the card or host numbers (no host read).
+    :param r2: float or 0-d tensor (read once on the host).
+    :param cap: cut each column's run at ``cap`` slots; None reads it whole.
+    """
+    global GRID_LAUNCHES
+    device = pts_sorted_T.device
+    if device.type != "cuda":
+        raise ValueError("the grid query kernel takes CUDA tensors, got %s" % device)
+    n = pts_sorted_T.shape[-1]
+    nq = q_pts.shape[0]
+    q_pts = q_pts.contiguous()
+    _check(q_pts, "q_pts", torch.float32, (nq, 3), device)
+    _check(q_valid, "q_valid", torch.bool, (nq,), device)
+    _check(pts_sorted_T, "pts_sorted_T", torch.float32, (3, n), device)
+    _check(ids_sorted, "ids_sorted", torch.int32, (n,), device)
+    _check(order, "order", torch.int32, (n,), device)
+    if n >= 1 << 28:
+        raise ValueError("grid_query: %d points, the kernel takes fewer than 2^28" % n)
+    if pts_sorted_T.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("grid_query is forward only: pts_sorted_T requires grad")
+    k = int(k)
+    if k < 0:
+        raise ValueError("grid_query: k = %d" % k)
+    mins = torch.as_tensor(mins, dtype=torch.float32, device=device).reshape(3).contiguous()
+    dims = torch.as_tensor(dims, device=device).to(torch.int32).reshape(3).contiguous()
+    cell = torch.as_tensor(cell, dtype=torch.float32, device=device).reshape(1).contiguous()
+    if k == 0:
+        idx = torch.empty((nq,), dtype=torch.int32, device=device)
+        d = None
+    else:
+        idx = torch.empty((nq, k), dtype=torch.int32, device=device)
+        d = torch.empty((nq, k), dtype=torch.float32, device=device)
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dc_grid_query(q_pts.data_ptr(), q_valid.data_ptr(), nq, pts_sorted_T.data_ptr(),
+                                ids_sorted.data_ptr(), order.data_ptr(), n, mins.data_ptr(),
+                                dims.data_ptr(), cell.data_ptr(), float(r2), k,
+                                -1 if cap is None else int(cap), idx.data_ptr(), _ptr(d),
+                                stream)
+    _check_launch(lib, err, "grid_query")
+    GRID_LAUNCHES += 1
+    return idx if k == 0 else (d, idx)
+
+
+def launch_layout_probe(probe: int, x, out_shape) -> torch.Tensor:
+    """P6 probe ``probe`` (the index into ``ops.layout_probe.PROBES``) on a
+    CUDA float32 x (8, 512) -> ``out_shape`` float32."""
+    global LAYOUT_LAUNCHES
+    device = x.device
+    if device.type != "cuda":
+        raise ValueError("the layout probe kernels take CUDA tensors, got %s" % device)
+    _check(x, "x", torch.float32, (8, 512), device)
+    out = torch.empty(tuple(out_shape), dtype=torch.float32, device=device)
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dc_layout_probe(int(probe), x.data_ptr(), out.data_ptr(), stream)
+    _check_launch(lib, err, "layout_probe")
+    LAYOUT_LAUNCHES += 1
+    return out
+
+
+def launch_gather_probe(staged: bool, axis: int, x, idx) -> torch.Tensor:
+    """P8 on CUDA tensors: x (rows, cols) float32, idx (i_rows, i_cols)
+    int32 in range -> take_along_axis(x, idx, axis) (i_rows, i_cols)
+    float32, from device memory or (``staged``) from shared memory."""
+    global GATHER_PROBE_LAUNCHES
+    device = x.device
+    if device.type != "cuda":
+        raise ValueError("the gather probe kernels take CUDA tensors, got %s" % device)
+    x_rows, x_cols = x.shape
+    i_rows, i_cols = idx.shape
+    _check(x, "x", torch.float32, (x_rows, x_cols), device)
+    _check(idx, "idx", torch.int32, (i_rows, i_cols), device)
+    out = torch.empty((i_rows, i_cols), dtype=torch.float32, device=device)
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dc_gather_probe(int(bool(staged)), int(axis), x.data_ptr(), idx.data_ptr(),
+                                  x_rows, x_cols, i_rows, i_cols, out.data_ptr(), stream)
+    _check_launch(lib, err, "gather_probe")
+    GATHER_PROBE_LAUNCHES += 1
+    return out
+
+
 def reset_launch_counts() -> None:
-    """Zero the launch counts kept here (X1, P7, P1, P2, P3-P5)."""
-    global SLAB_LAUNCHES, GATHER_LAUNCHES, KNOCKOUT_LAUNCHES, DOT_LAUNCHES, WINDOW_LAUNCHES
+    """Zero the launch counts kept here (X1, X2, P7, P1-P6, P8)."""
+    global SLAB_LAUNCHES, GRID_LAUNCHES, GATHER_LAUNCHES, KNOCKOUT_LAUNCHES, DOT_LAUNCHES
+    global WINDOW_LAUNCHES, LAYOUT_LAUNCHES, GATHER_PROBE_LAUNCHES
     SLAB_LAUNCHES = 0
+    GRID_LAUNCHES = 0
     GATHER_LAUNCHES = 0
     KNOCKOUT_LAUNCHES = 0
     DOT_LAUNCHES = 0
     WINDOW_LAUNCHES = 0
+    LAYOUT_LAUNCHES = 0
+    GATHER_PROBE_LAUNCHES = 0

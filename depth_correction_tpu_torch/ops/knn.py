@@ -1,6 +1,7 @@
 """Brute-force neighbour search over padded point arrays (counterpart of
 ``depth_correction_tpu/ops/knn.py``): the online corrector's small-scan
-engine.
+engine, establishment below ``GRID_NN_MIN_POINTS`` points, and the sizing
+of K (:func:`suggest_k_max`).
 
 A running top-k over tiles of 2048 points per chunk of 8192 queries, with
 squared distances by direct (query - point) differences: the expansion
@@ -12,9 +13,10 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-__all__ = ["nearest_neighbors", "radius_neighbors"]
+__all__ = ["nearest_neighbors", "neighbor_counts", "radius_neighbors", "suggest_k_max"]
 
 _TILE = 2048  # points per tile of the running top-k
 _QUERY_CHUNK = 8192  # queries per chunk
@@ -101,3 +103,61 @@ def radius_neighbors(points, query=None, r: float = 1.0, k: int = 32,
     ``k`` is at least the largest within-r count."""
     return nearest_neighbors(points, query, k=k, r=r, valid_points=valid_points,
                              valid_query=valid_query, tile=tile)
+
+
+def neighbor_counts(points, query=None, r: float = 1.0, valid_points=None,
+                    tile: int = _TILE) -> torch.Tensor:
+    """Number of valid points within ``r`` of each query (JAX package,
+    knn.py:268-300): tiles of 2048 points per chunk of 8192 queries, int32."""
+    query = points if query is None else query
+    dtype = torch.promote_types(points.dtype, query.dtype)
+    points, query = points.to(dtype), query.to(dtype)
+    if valid_points is None:
+        valid_points = torch.ones(points.shape[0], dtype=torch.bool, device=points.device)
+    r2 = torch.full((), r, dtype=dtype, device=points.device) ** 2
+    parts = []
+    for i in range(0, query.shape[0], _QUERY_CHUNK):
+        q = query[i:i + _QUERY_CHUNK]
+        counts = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
+        for start in range(0, points.shape[0], tile):
+            # Summed x, y, z, as kernel X2 sums them, so the counts size K
+            # by the membership the grid search decides.
+            p = points[start:start + tile]
+            dx = q[:, None, 0] - p[None, :, 0]
+            dy = q[:, None, 1] - p[None, :, 1]
+            dz = q[:, None, 2] - p[None, :, 2]
+            d2 = dx * dx + dy * dy + dz * dz
+            inside = (d2 <= r2) & valid_points[None, start:start + tile]
+            counts += inside.sum(1, dtype=torch.int32)
+        parts.append(counts)
+    if not parts:
+        return torch.zeros(0, dtype=torch.int32, device=points.device)
+    return torch.cat(parts)
+
+
+def suggest_k_max(points, query=None, r: float = 1.0, valid_points=None,
+                  cap: Optional[int] = None, multiple: int = 8,
+                  quantile: float = 1.0) -> int:
+    """Smallest K, rounded up to ``multiple``, that holds every radius
+    neighbourhood, optionally capped or sized by a ``quantile`` of the
+    counts (JAX package, knn.py:303-348). Counts through the grid engine
+    (kernel X2 on the card) at ``GRID_NN_MIN_POINTS`` points and above,
+    the tiled count below, as the JAX package routes them."""
+    from .grid_hash import GRID_NN_MIN_POINTS, grid_neighbor_counts
+
+    if points.shape[0] >= GRID_NN_MIN_POINTS:
+        counts = grid_neighbor_counts(points, query, r=r, valid_points=valid_points)
+    else:
+        counts = neighbor_counts(points, query, r, valid_points)
+    counts = counts.cpu().numpy()
+    if counts.size == 0:
+        k = 1
+    elif quantile >= 1.0:
+        k = int(counts.max())
+    else:
+        k = int(np.quantile(counts, quantile))
+    k = max(k, 1)
+    k = int(-(-k // multiple) * multiple)
+    if cap is not None:
+        k = min(k, cap)
+    return k

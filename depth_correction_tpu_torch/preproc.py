@@ -4,8 +4,17 @@ preproc.py``).
 Reference pipeline helpers: src/depth_correction/preproc.py:14-244.
 
 - host-side: depth + voxel-grid subsampling of raw scans
-  (:func:`filtered_cloud`) and within-r neighbor establishment with
-  scipy's cKDTree (:func:`_host_neighbors`, the reference's index),
+  (:func:`filtered_cloud`);
+- neighbourhood establishment, routed by ``cfg.nn_backend`` as the JAX
+  package routes it: ``'scipy'`` takes scipy's cKDTree on the host (the
+  reference's index, :func:`_host_neighbors`); otherwise kNN configs
+  (``nn_k``) take the tiled scan (``ops/knn.py``), and radius configs take
+  the grid-hash search (``ops/grid_hash.py``, kernel X2 on the card) when
+  ``nn_backend == 'grid'`` or when ``nn_backend`` is None and the cloud
+  has at least ``GRID_NN_MIN_POINTS`` points, the tiled scan otherwise,
+  with K sized by ``knn.suggest_k_max`` unless ``nn_max_neighbors`` caps
+  it (:func:`_device_radius_neighbors`, :func:`establish_scan_neighbors`,
+  :func:`establish_neighborhoods`);
 - tensor-side: per-scan feature clouds (:func:`local_feature_cloud`),
   batched sequences of padded scans (:class:`SequenceBatch`), the corrected
   and posed global cloud (:func:`global_cloud`), and feature recomputation
@@ -25,6 +34,8 @@ import torch
 from .cloud import Cloud
 from .config import Config, NeighborhoodType
 from .ops.features import compute_features
+from .ops.grid_hash import GRID_NN_MIN_POINTS, grid_radius_neighbors
+from .ops.knn import nearest_neighbors, radius_neighbors, suggest_k_max
 from .ops.filters import (
     filter_eigenvalue_ratios_mask,
     filter_eigenvalues_mask,
@@ -99,11 +110,8 @@ def filtered_cloud(cloud, cfg: Config) -> Tuple[np.ndarray, Optional[np.ndarray]
 
 
 def _check_establishment(cfg: Config):
-    backend = cfg.nn_backend
-    if backend not in (None, "scipy"):
-        raise NotImplementedError(
-            "nn_backend=%r is not ported yet (the port establishes "
-            "neighborhoods with scipy)" % backend)
+    if cfg.nn_backend == "native":
+        raise NotImplementedError("nn_backend='native' is not ported yet")
 
 
 def _host_neighbors(points, valid, cfg: Config, k_max: Optional[int] = None):
@@ -147,10 +155,33 @@ def _host_neighbors(points, valid, cfg: Config, k_max: Optional[int] = None):
     return idx, (idx >= 0).to(pts_t.dtype)
 
 
+def _device_radius_neighbors(points, r: float, k: int, valid, backend=None):
+    """The tensor-side radius engine (JAX package, preproc.py:278-289): the
+    grid-hash search when ``backend == 'grid'`` or, with ``backend`` None,
+    at ``GRID_NN_MIN_POINTS`` points and above; the tiled scan otherwise.
+    Both are exact up to ``k``. Returns (dist, idx (N, k) int32)."""
+    if backend == "grid" or (backend is None and points.shape[0] >= GRID_NN_MIN_POINTS):
+        return grid_radius_neighbors(points, r=r, k=int(k), valid_points=valid,
+                                     valid_query=valid)
+    return radius_neighbors(points, r=r, k=int(k), valid_points=valid, valid_query=valid)
+
+
 def establish_scan_neighbors(cloud: Cloud, cfg: Config):
-    """Neighbor graph of a single cloud per config (kNN or ball radius)."""
+    """Neighbor graph of a single cloud per config, kNN or ball radius
+    (JAX package, preproc.py:292-314)."""
     _check_establishment(cfg)
-    return _host_neighbors(cloud.get_points(), cloud.valid, cfg)
+    points = cloud.get_points()
+    if cfg.nn_backend == "scipy":
+        return _host_neighbors(points, cloud.valid, cfg)
+    if cfg.nn_k:
+        _, idx = nearest_neighbors(points, points, k=int(cfg.nn_k), r=cfg.nn_r or None,
+                                   valid_points=cloud.valid, valid_query=cloud.valid)
+    else:
+        k = cfg.nn_max_neighbors or suggest_k_max(points, r=cfg.nn_r,
+                                                  valid_points=cloud.valid)
+        _, idx = _device_radius_neighbors(points, cfg.nn_r, k, cloud.valid,
+                                          backend=cfg.nn_backend)
+    return idx, (idx >= 0).to(points.dtype)
 
 
 def local_feature_cloud(cloud, cfg: Config, pad_to: Optional[int] = None) -> Cloud:
@@ -246,11 +277,13 @@ def global_cloud(batch: SequenceBatch, model=None,
 
 def establish_neighborhoods(gcloud: Cloud, cfg: Config, k_max: Optional[int] = None):
     """Frozen neighborhoods of the global cloud (reference:
-    preproc.py:168-191, ball type), computed once per training run with
-    scipy's cKDTree. Capped graphs (``nn_max_neighbors``) keep the k
-    nearest; their mutual trimming is not ported yet.
+    preproc.py:168-191, ball type; JAX package, preproc.py:513-568 on one
+    device), computed once per training run and routed as the module
+    docstring says. The mutual trimming of capped graphs
+    (``nn_symmetrize``) and plane neighbourhoods are not ported yet.
 
-    :return: (neighbors (M, K) int64, weights (M, K) float).
+    :return: (neighbors (M, K) int32 or, from scipy, int64; weights (M, K)
+        float).
     """
     if cfg.nn_type == NeighborhoodType.plane:
         raise NotImplementedError("plane neighbourhoods are not ported yet")
@@ -258,7 +291,18 @@ def establish_neighborhoods(gcloud: Cloud, cfg: Config, k_max: Optional[int] = N
     capped = bool((k_max or cfg.nn_max_neighbors) and not cfg.nn_k)
     if capped and cfg.nn_symmetrize:
         raise NotImplementedError("nn_symmetrize of capped graphs is not ported yet")
-    return _host_neighbors(gcloud.get_points(), gcloud.valid, cfg, k_max=k_max)
+    points = gcloud.get_points()
+    if cfg.nn_backend == "scipy":
+        return _host_neighbors(points, gcloud.valid, cfg, k_max=k_max)
+    if cfg.nn_k:
+        _, idx = nearest_neighbors(points, points, k=int(cfg.nn_k), r=cfg.nn_r or None,
+                                   valid_points=gcloud.valid, valid_query=gcloud.valid)
+    else:
+        k = k_max or cfg.nn_max_neighbors or suggest_k_max(points, r=cfg.nn_r,
+                                                           valid_points=gcloud.valid)
+        _, idx = _device_radius_neighbors(points, cfg.nn_r, k, gcloud.valid,
+                                          backend=cfg.nn_backend)
+    return idx, (idx >= 0).to(points.dtype)
 
 
 def compute_neighborhood_features(gcloud: Cloud, neighbors, weights, cfg: Config,

@@ -1,6 +1,7 @@
 """Probe scripts of the port, each the counterpart of the JAX package's
-script of the same name under ``scripts/`` (run them as
-``python -m depth_correction_tpu_torch.scripts.<name>``), and what they
+script of the same name under ``scripts/``, and ``exp_grid_prep_diff``,
+which compares grid and scipy establishment of the bench slice (run them
+as ``python -m depth_correction_tpu_torch.scripts.<name>``), and what they
 share: the bench's training configuration, device timing and the error
 measures they report.
 """
@@ -15,13 +16,13 @@ SCENE = "open_box/n_6_size_20_20_5_height_1_density_400"
 
 
 def bench_config(device: str = "cuda", steps: int = 8):
-    """bench.py:bench_config(uncapped=True), with scipy establishment: the
-    training slice's configuration (the uncapped r = 0.25 graph of
-    :data:`SCENE`, normalised min-eigenvalue loss, Adam)."""
+    """bench.py:bench_config(uncapped=True): the training slice's
+    configuration (the uncapped r = 0.25 graph of :data:`SCENE`, established
+    by the grid search, normalised min-eigenvalue loss, Adam)."""
     from ..config import Config
 
     cfg = Config()
-    cfg.nn_backend = "scipy"
+    cfg.nn_backend = "grid"
     cfg.device = device
     cfg.float_type = "float32"
     cfg.dataset = "open_box"

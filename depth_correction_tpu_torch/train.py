@@ -63,6 +63,7 @@ def check_slice(cfg: Config) -> None:
         ("shadow_angle_bounds", bool(cfg.shadow_angle_bounds)),
         ("checkpoint_period", bool(cfg.checkpoint_period)),
         ("optimize_model=False", not cfg.optimize_model),
+        ("nn_backend=native", cfg.nn_backend == "native"),
     ]
     for name, hit in unsupported:
         if hit:
@@ -178,9 +179,11 @@ def prepare_sequences(datasets, cfg: Config, for_grad: bool = True) -> TrainData
     """Build per-sequence batches, frozen neighborhoods, masks and the
     cell-window graphs (reference: train.py:90-216 without the hot loop).
 
-    Neighborhoods are established with scipy's cKDTree (the JAX package's
-    ``nn_backend='scipy'`` path). The seconds of each prep part are printed
-    to stderr and kept in ``TrainData.prep_seconds``.
+    Neighborhoods are established as ``preproc`` routes ``cfg.nn_backend``
+    (None, ``'grid'``, ``'scipy'``, as in the JAX package): the bench's
+    ``'grid'`` runs the grid-hash search, kernel X2 on the card, for every
+    scan and for the global cloud. The seconds of each prep part are
+    printed to stderr and kept in ``TrainData.prep_seconds``.
     """
     check_slice(cfg)
     from .ops.cellwin import build_cellwin_graph, graph_to_device

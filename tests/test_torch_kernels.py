@@ -264,7 +264,7 @@ def _node_scan():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("backend", ["slab", "brute"])
+@pytest.mark.parametrize("backend", ["slab", "brute", "grid"])
 def test_cuda_correct_cloud_launches_kernels(cuda_device, backend):
     from depth_correction_tpu_torch.cloud import Cloud
     from depth_correction_tpu_torch.config import Config
@@ -288,11 +288,12 @@ def test_cuda_correct_cloud_launches_kernels(cuda_device, backend):
             cloud = cloud.replace(valid=outs[False][4])
             cfg.grid_res = 0.0
         model = ScaledPolynomial(w=[-0.002], exponent=[4.0], dtype=dtype, device=cuda_device)
-        before = (_kernels.SLAB_LAUNCHES, _kernels.GATHER_LAUNCHES)
+        before = (_kernels.SLAB_LAUNCHES, _kernels.GATHER_LAUNCHES, _kernels.GRID_LAUNCHES)
         outs[plain] = correct_cloud(model, cloud, cfg, plain=plain)
-        after = (_kernels.SLAB_LAUNCHES, _kernels.GATHER_LAUNCHES)
-        launched = after[0] - before[0] if backend == "slab" else after[1] - before[1]
-        assert launched == (0 if plain else 1)
+        after = (_kernels.SLAB_LAUNCHES, _kernels.GATHER_LAUNCHES, _kernels.GRID_LAUNCHES)
+        launched = [a - b for a, b in zip(after, before)]
+        want = {"slab": [1, 0, 0], "brute": [0, 1, 0], "grid": [0, 1, 1]}[backend]
+        assert launched == ([0, 0, 0] if plain else want)
     got, ref = outs[False], outs[True]
     assert torch.equal(got[4], ref[4])
     both = got[3] & ref[3]
@@ -483,3 +484,206 @@ def test_cuda_probe_wrappers_refuse(cuda_device):
     with pytest.raises(RuntimeError, match="launch failed"):
         moment_window(win, q, 0.0625, 2, 5, 64, lens, "fp32")  # fp32 has no span table
     assert (_kernels.DOT_LAUNCHES, _kernels.WINDOW_LAUNCHES) == before
+
+
+# ---------------------------------------------------------------------------
+# X2 (the grid radius search), P6 (layout probes) and P8 (gather probes).
+
+
+def test_grid_wrappers_never_take_the_plain_path(monkeypatch):
+    """Non-CPU tensors go to the X2 / P6 / P8 launchers, never to the plain
+    versions; the launchers refuse CPU tensors and count nothing then."""
+    from depth_correction_tpu_torch.ops import grid_hash as tgrid
+    from depth_correction_tpu_torch.ops.gather_probe import gather_probe
+    from depth_correction_tpu_torch.ops.layout_probe import layout_probe
+
+    calls = []
+
+    def fake_launch(*args, **kw):
+        calls.append(args)
+        raise RuntimeError("launched")
+
+    for name in ("launch_grid_query", "launch_layout_probe", "launch_gather_probe"):
+        monkeypatch.setattr(_kernels, name, fake_launch)
+    pts = torch.zeros((64, 3), device="meta")
+    i32 = torch.zeros(64, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="launched"):
+        tgrid.grid_query(pts, torch.zeros(64, dtype=torch.bool, device="meta"), pts.T, None,
+                         i32, i32, torch.zeros(3), torch.ones(3, dtype=torch.int64), 0.01, 8,
+                         None, 0.1)
+    with pytest.raises(RuntimeError, match="launched"):
+        layout_probe(torch.zeros((8, 512), device="meta"), "dot_tlhs")
+    with pytest.raises(RuntimeError, match="launched"):
+        gather_probe(torch.zeros((8, 256), device="meta"),
+                     torch.zeros((8, 256), dtype=torch.int32, device="meta"), 1, "global")
+    assert len(calls) == 3
+    with pytest.raises(ValueError, match="layout probe"):
+        layout_probe(torch.zeros((8, 512)), "k_dot")
+    with pytest.raises(ValueError, match="form"):
+        gather_probe(torch.zeros(8), torch.zeros(8, dtype=torch.int32), 1, "vmem")
+    monkeypatch.undo()
+    before = (_kernels.GRID_LAUNCHES, _kernels.LAYOUT_LAUNCHES, _kernels.GATHER_PROBE_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch_grid_query(torch.zeros((4, 3)), torch.ones(4, dtype=torch.bool),
+                                   torch.zeros((3, 8)), torch.zeros(8, dtype=torch.int32),
+                                   torch.zeros(8, dtype=torch.int32), [0.0] * 3, [1, 1, 1],
+                                   1.0, 0.1, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch_layout_probe(0, torch.zeros((8, 512)), (512, 128))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch_gather_probe(False, 1, torch.zeros((8, 256)),
+                                     torch.zeros((8, 256), dtype=torch.int32))
+    assert (_kernels.GRID_LAUNCHES, _kernels.LAYOUT_LAUNCHES,
+            _kernels.GATHER_PROBE_LAUNCHES) == before
+
+
+def _grid_inputs(device, seed=0, n=20000, dup=0):
+    """Half a noisy plane, half a volume, 10% invalid; ``dup`` rows repeat
+    earlier points exactly (ties in d2)."""
+    from depth_correction_tpu_torch.ops.grid_hash import _build_grid
+
+    rng = np.random.default_rng(seed)
+    n1 = n // 2
+    p = np.vstack([np.c_[rng.uniform(-4, 4, (n1, 2)), 0.01 * rng.standard_normal(n1)],
+                   rng.uniform(-4, 4, (n - n1, 3)) * [1.0, 1.0, 0.3]]) + [12.0, -7.0, 1.5]
+    if dup:
+        p[-dup:] = p[rng.integers(0, n - dup, dup)]
+    valid = torch.as_tensor(rng.uniform(size=n) > 0.1, device=device)
+    pts = torch.as_tensor(p, dtype=torch.float32, device=device)
+    grid, width = _build_grid(pts, valid, 0.3, None, None)
+    return pts, valid, grid, width
+
+
+def _f32_ulps(a, b):
+    """Distance in float32 ulps between finite values of a and b."""
+    ia = a.view(torch.int32).long()
+    ib = b.view(torch.int32).long()
+    return (ia - ib).abs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,dup", [(16, 0), (32, 3000), (200, 0), (0, 0)])
+def test_cuda_grid_query_matches_plain(cuda_device, k, dup):
+    """X2 against its plain twin on the same float32 grid: counts equal;
+    for k <= 32, k > 32 and ties (duplicated points) the index tables equal,
+    order included, and distances within one float32 ulp."""
+    from depth_correction_tpu_torch.ops.grid_hash import _grid_query_plain, grid_query
+
+    pts, valid, grid, width = _grid_inputs(cuda_device, dup=dup)
+    (pts_T, val_s, ids_s, order, mins, dims, cell, starts) = grid
+    r2 = torch.full((), 0.3, dtype=torch.float32) ** 2
+    before = _kernels.GRID_LAUNCHES
+    got = grid_query(pts, valid, pts_T, val_s, ids_s, order, mins, dims, r2, k, None, cell,
+                     starts)
+    torch.cuda.synchronize()
+    assert _kernels.GRID_LAUNCHES == before + 1
+    want = _grid_query_plain(pts, valid, pts_T, val_s, ids_s, order, mins, dims, r2, k, width,
+                             cell, starts)
+    if k == 0:
+        assert torch.equal(got, want) and int(want.max()) > 32
+        return
+    assert torch.equal(got[1], want[1])
+    fin = torch.isfinite(want[0])
+    assert torch.equal(fin, torch.isfinite(got[0]))
+    assert int(_f32_ulps(got[0][fin], want[0][fin]).max()) <= 1
+    if k == 200:  # k holds every count: the sets are the uncapped ones
+        counts = grid_query(pts, valid, pts_T, val_s, ids_s, order, mins, dims, r2, 0, None,
+                            cell, starts)
+        assert torch.equal((got[1] >= 0).sum(1).to(torch.int32), counts)
+
+
+@pytest.mark.cuda
+def test_cuda_grid_radius_neighbors_bucket_cap(cuda_device):
+    """An undersized bucket_cap cuts each run where the JAX window cuts it:
+    the kernel equals the twin under the same cap (dense and searched)."""
+    from depth_correction_tpu_torch.ops import grid_hash as tgrid
+
+    pts, valid, _, _ = _grid_inputs(cuda_device, seed=1, n=6000)
+    got = tgrid.grid_radius_neighbors(pts, r=0.3, k=24, valid_points=valid, valid_query=valid,
+                                      bucket_cap=4)
+    want = tgrid.grid_radius_neighbors(pts.cpu(), r=0.3, k=24, valid_points=valid.cpu(),
+                                       valid_query=valid.cpu(), bucket_cap=4)
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def _face_lattice(c: float = 0.3):
+    """Points on the faces i * c (i = 10..18) of cells of side ``c`` (a side
+    whose reciprocal is inexact) and one float32 ulp to either side, 27 to a
+    site, plus one point near the origin, so the grid's origin is 0:
+    neighbours sit at distance ~c, within an ulp of the radius."""
+    ax = torch.arange(10, 19, dtype=torch.float32) * torch.tensor(c)
+    ax = torch.cat([ax, torch.nextafter(ax, ax + 1), torch.nextafter(ax, ax - 1)])
+    lattice = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1).reshape(-1, 3)
+    return torch.cat([torch.full((1, 3), 0.1), lattice])
+
+
+def test_face_lattice_straddles_cell_faces():
+    """The face lattice has coordinates whose cell differs between a true
+    division by the side and a multiply by its float32 reciprocal, which is
+    what the card's scalar division does; the grid divides by a tensor."""
+    x = _face_lattice()[:, 0]
+    c = torch.tensor(0.3, dtype=torch.float32)
+    assert bool((torch.floor(x / c) != torch.floor(x * (1.0 / c))).any())
+    from depth_correction_tpu_torch.ops.grid_hash import _cell_tensor
+
+    assert _cell_tensor(0.3, x).dtype == torch.float32 and _cell_tensor(0.3, x).dim() == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [0, 32])
+def test_cuda_grid_query_on_cell_faces(cuda_device, k):
+    """On points on cell faces with r = 0.3, the card's grid build, X2 and
+    the CPU's plain path put every point in the same cell: counts equal,
+    index tables equal (order included), distances within one ulp."""
+    from depth_correction_tpu_torch.ops import grid_hash as tgrid
+
+    pts = _face_lattice()
+    if k == 0:
+        got = tgrid.grid_neighbor_counts(pts.to(cuda_device), r=0.3)
+        want = tgrid.grid_neighbor_counts(pts, r=0.3)
+        assert torch.equal(got.cpu(), want) and int(want.max()) > 32
+        return
+    got = tgrid.grid_radius_neighbors(pts.to(cuda_device), r=0.3, k=k)
+    want = tgrid.grid_radius_neighbors(pts, r=0.3, k=k)
+    assert torch.equal(got[1].cpu(), want[1])
+    fin = torch.isfinite(want[0])
+    assert torch.equal(fin, torch.isfinite(got[0].cpu()))
+    assert int(_f32_ulps(got[0].cpu()[fin], want[0][fin]).max()) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first", [None, 200.0])
+def test_cuda_layout_probes_match_plain(cuda_device, first):
+    """Every P6 probe equals its plain version on the script's input (and
+    with x[0, 0] = 200, so the masks are not all zero)."""
+    from depth_correction_tpu_torch.ops.layout_probe import PROBES, layout_probe
+
+    x = torch.arange(8 * 512, dtype=torch.float32).reshape(8, 512)
+    if first is not None:
+        x[0, 0] = first
+    before = _kernels.LAYOUT_LAUNCHES
+    for name in PROBES:
+        got = layout_probe(x.to(cuda_device), name)
+        assert torch.equal(got.cpu(), layout_probe(x, name)), name
+    assert _kernels.LAYOUT_LAUNCHES == before + len(PROBES)
+
+
+@pytest.mark.cuda
+def test_cuda_gather_probes_match_plain(cuda_device):
+    """Every P8 case and form equals its plain version (error 0); B has no
+    staged form and the wrapper refuses it."""
+    from depth_correction_tpu_torch.ops.gather_probe import FORMS, gather_probe, staged_fits
+    from depth_correction_tpu_torch.scripts import exp_pallas_gather2 as p8
+
+    ran = 0
+    for case, (x, idx, axis) in p8.inputs(cuda_device).items():
+        want = gather_probe(x.cpu(), idx.cpu(), axis, "global")
+        for form in FORMS:
+            if form == "staged" and not staged_fits(x, axis):
+                assert case == "B"
+                with pytest.raises(ValueError, match="does not fit"):
+                    gather_probe(x, idx, axis, form)
+                continue
+            assert torch.equal(gather_probe(x, idx, axis, form).cpu(), want), (case, form)
+            ran += 1
+    assert ran == 9

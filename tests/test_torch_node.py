@@ -1,6 +1,6 @@
 """The port's online corrector (``node.py``) against the JAX package's, on
-the CPU in float64: ``correct_cloud`` on both engines, ``DepthCorrector``
-and the engines against each other. Scans are small synthetic ones with
+the CPU in float64: ``correct_cloud`` on the three engines,
+``DepthCorrector`` and the engines against each other. Scans are small synthetic ones with
 seeded sensor noise (exact planes would leave the planar mask to the sign
 of rounding)."""
 import numpy as np
@@ -75,7 +75,7 @@ def scene(request):
     return request.param, _scan(request.param)
 
 
-@pytest.mark.parametrize("backend", ["brute", "slab"])
+@pytest.mark.parametrize("backend", ["brute", "slab", "grid"])
 def test_correct_cloud_matches_jax(scene, backend):
     name, scan = scene
     jm, tm = _models()
@@ -136,13 +136,20 @@ def test_slab_matches_brute(scene):
 
 
 def test_routing_and_grid_engine():
+    """'grid' runs the K-capped gather-window engine (the brute engine's
+    sets at the same k, plain twins and wrappers alike on the CPU); None
+    routes by padded size."""
     _, tm = _models()
     scan = _scan("ground_plane")
     _, tc = _clouds(scan)
     cfg = _cfg(TConfig, "small")
     cfg.nn_backend = "grid"
-    with pytest.raises(NotImplementedError, match="nn_backend='grid'"):
-        correct_cloud(tm, tc, cfg)
+    grid = correct_cloud(tm, tc, cfg, k=8)
+    assert torch.equal(grid[3], correct_cloud(tm, tc, cfg, k=8, plain=True)[3])
+    cfg.nn_backend = "brute"
+    brute = correct_cloud(tm, tc, cfg, k=8)
+    np.testing.assert_array_equal(grid[3].numpy(), brute[3].numpy())
+    np.testing.assert_allclose(grid[0].numpy(), brute[0].numpy(), rtol=1e-12, atol=1e-12)
     # Below GRID_NN_MIN_POINTS the default engine is brute, capped at k.
     cfg.nn_backend = None
     capped = correct_cloud(tm, tc, cfg, k=2)

@@ -1,4 +1,5 @@
-"""The port's probes P1-P5 against the JAX package's scripts (float64, CPU).
+"""The port's probes P1-P6 and P8 against the JAX package's scripts
+(float64 unless said otherwise, CPU).
 
 P1: scripts/exp_cellwin_knockout.py's ``make_kernel`` runs in Pallas
 interpret mode with the grid of its ``run_variant`` (the JAX package's
@@ -12,6 +13,13 @@ tile count T1. The restatements compute membership in float32 as the
 scripts do (they are float32 programs) and everything else in float64. The
 scripts' precision variants map to the port's (ops/moment_dot.py): the
 bf16 splits become TF32 splits, written here with jnp bit masks.
+
+P6: scripts/exp_mosaic_probe.py's ``k_*`` bodies run through
+``pl.pallas_call(..., interpret=True)`` on the script's float32 input (and
+with x[0, 0] = 200); their outputs are small integers, so the port's plain
+versions must equal them. P8: scripts/exp_pallas_gather2.py's kernel
+bodies (``jnp.take_along_axis`` / ``jnp.take``) restated in jnp on the
+script's draws; error 0.
 """
 import importlib.util
 import os
@@ -30,12 +38,16 @@ from depth_correction_tpu.ops.features import permute_rows as j_permute_rows
 from depth_correction_tpu_torch.ops import cellwin as tcw
 from depth_correction_tpu_torch.ops.cellwin_knockout import cellwin_knockout
 from depth_correction_tpu_torch.ops.features import permute_rows as t_permute_rows
+from depth_correction_tpu_torch.ops.gather_probe import FORMS, gather_probe
+from depth_correction_tpu_torch.ops.layout_probe import PROBES, layout_probe
 from depth_correction_tpu_torch.ops.moment_dot import TPU_VARIANTS, moment_dot
 from depth_correction_tpu_torch.ops.moment_window import moment_window
 from depth_correction_tpu_torch.scripts import exp_mosaic_dot_probe as p2
 from depth_correction_tpu_torch.scripts import exp_mosaic_dot_probe2 as p3
 from depth_correction_tpu_torch.scripts import exp_mosaic_dot_probe3 as p4
 from depth_correction_tpu_torch.scripts import exp_mosaic_dot_probe4 as p5
+from depth_correction_tpu_torch.scripts import exp_mosaic_probe as p6
+from depth_correction_tpu_torch.scripts import exp_pallas_gather2 as p8
 from test_torch_kernels import scene
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -313,3 +325,39 @@ def test_moment_window_plain_matches_probe4(monkeypatch, name):
                         ctr=kw["ctr"].numpy() if "ctr" in kw else None,
                         leads=kw["leads"].numpy() if "leads" in kw else None, moving=moving)
     np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-9)
+
+
+# ---------------------------------------------------------------------------
+# P6: the layout probes against the script's Pallas bodies (interpret mode).
+
+
+@pytest.mark.parametrize("first", [None, 200.0])
+@pytest.mark.parametrize("name", list(PROBES))
+def test_layout_probe_plain_matches_pallas(name, first):
+    mod = _load_script("exp_mosaic_probe")
+    x = p6.inputs("cpu", first)
+    out_shape = mod.o_s8 if PROBES[name][1] == 8 else mod.o_sr
+    want = pl.pallas_call(getattr(mod, "k_" + name), out_shape=out_shape,
+                          interpret=True)(jnp.asarray(x.numpy()))
+    got = layout_probe(x.double(), name).numpy()
+    assert got.shape == PROBES[name]
+    np.testing.assert_array_equal(got, np.asarray(want))
+    if name == "iota_col" and first:
+        assert got[:, 0].sum() == first
+
+
+# ---------------------------------------------------------------------------
+# P8: the gather probes against the script's bodies restated in jnp.
+
+
+@pytest.mark.parametrize("case", ["A", "B", "C", "D", "E"])
+def test_gather_probe_plain_matches_script(case):
+    """exp_pallas_gather2.py's kA / kC / kE bodies (:35, :61, :86) on its
+    draws: take_along_axis along lanes (A, B, D) or sublanes (C), a 1-D take
+    (E); both forms' wrappers on CPU tensors give the plain result."""
+    x, idx, axis = p8.inputs("cpu")[case]
+    xj, ij = jnp.asarray(x.numpy(), jnp.float64), jnp.asarray(idx.numpy())
+    want = jnp.take(xj, ij) if case == "E" else jnp.take_along_axis(xj, ij, axis=axis)
+    for form in FORMS:
+        got = gather_probe(x.double(), idx, axis, form)
+        assert float(np.abs(got.numpy() - np.asarray(want)).max()) == 0.0

@@ -1,8 +1,8 @@
 """The port's training slice against the JAX package, float64 on the CPU.
 
 Same configuration on both sides (tests/test_cellwin.py:_tiny_cfg, with
-scipy neighbor establishment): datasets -> prepare_sequences ->
-make_loss_fn, then Adam. The JAX side's Pallas kernels run in interpret
+scipy neighbor establishment, and again with the bench's grid
+establishment): datasets -> prepare_sequences -> make_loss_fn, then Adam. The JAX side's Pallas kernels run in interpret
 mode; the port's wrappers take the plain torch kernels on CPU tensors.
 """
 import os
@@ -109,6 +109,39 @@ def test_loss_and_gradient_at_w0_match_jax(prepared, jax_trajectory):
     np.testing.assert_allclose(float(model.w.grad[0]), jg, rtol=1e-9)
 
 
+@pytest.fixture(scope="module")
+def prepared_grid():
+    """Both packages prepared with ``nn_backend = "grid"`` (the bench's
+    establishment: the grid search for every scan and the global cloud)."""
+    jcfg, tcfg = _cfg(JConfig), _cfg(TConfig)
+    jcfg.nn_backend = tcfg.nn_backend = "grid"
+    tcfg.device = "cpu"
+    jdata = j_prepare_sequences([j_create_dataset(jcfg.train_names[0], jcfg)], jcfg)
+    tdata = t_prepare_sequences([t_create_dataset(tcfg.train_names[0], tcfg)], tcfg)
+    return jcfg, jdata, tcfg, tdata
+
+
+def test_grid_prep_matches_jax(prepared_grid):
+    """The grid-established prep: the same neighbour tables and cellwin
+    graph as the JAX prep's, and the loss and gradient at w = 0 within
+    rtol 1e-9."""
+    jcfg, jdata, tcfg, tdata = prepared_grid
+    np.testing.assert_array_equal(tdata.neighbors[0].numpy(), np.asarray(jdata.neighbors[0]))
+    np.testing.assert_array_equal(tdata.query_rows[0].numpy(), np.asarray(jdata.query_rows[0]))
+    jg, tg = jdata.cellwin[0], tdata.cellwin[0]
+    assert jg is not None and tg is not None and tg.n_exc == jg.n_exc
+    for name in ("row_map", "perm", "inv", "q_est", "est_sorted"):
+        np.testing.assert_array_equal(getattr(tg, name).numpy(), np.asarray(getattr(jg, name)))
+    loss_fn, data = bind_cellwin_static(j_make_loss_fn(jcfg), jdata)
+    jv, jgrad = jax.value_and_grad(loss_fn)(_jax_params(0.0), data)
+    model = _port_model(0.0)
+    value = t_make_loss_fn(tcfg)(model, tdata)
+    value.backward()
+    np.testing.assert_allclose(float(value.detach()), float(jv), rtol=1e-9)
+    np.testing.assert_allclose(float(model.w.grad[0]), float(np.asarray(jgrad["model"].w)[0]),
+                               rtol=1e-9)
+
+
 def test_plain_flag_matches_wrappers_on_cpu(prepared):
     _, _, tcfg, tdata = prepared
     model = _port_model(-1e-3)
@@ -188,7 +221,11 @@ def test_port_imports_no_jax():
             "depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe, "
             "depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe2, "
             "depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe3, "
-            "depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe4; "
+            "depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe4, "
+            "depth_correction_tpu_torch.scripts.exp_mosaic_probe, "
+            "depth_correction_tpu_torch.scripts.exp_pallas_gather2, "
+            "depth_correction_tpu_torch.ops.layout_probe, "
+            "depth_correction_tpu_torch.ops.gather_probe; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'depth_correction_tpu' or m.startswith('depth_correction_tpu.') "
             "for m in sys.modules), 'JAX package imported'")
