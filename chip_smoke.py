@@ -7,8 +7,11 @@ Phases (any failure raises and the exit code is non-zero):
 
 1. build   — compile the CUDA kernels of depth_correction_tpu_torch/csrc.
 2. kernels — K1 (cell-window moments forward) and K2 (backward) against
-   their plain torch versions, float32 and float64, on a seeded synthetic
-   graph at row_cap = pt_cap = 128.
+   their plain torch versions, float32 and float64, and against their
+   first versions (csrc/cellwin_v1.cu: bit for bit, K2 also with an
+   all-ones cotangent table), on a seeded synthetic graph at row_cap =
+   pt_cap = 128; the pair tests the warps' box cull keeps, counted on the
+   host, beside all of them.
 3. slice   — the uncapped min-eigenvalue training step at the JAX bench's
    configuration (bench.py:bench_config(uncapped=True)), scene
    open_box/n_6_size_20_20_5_height_1_density_400, prepared with the
@@ -17,7 +20,10 @@ Phases (any failure raises and the exit code is non-zero):
    establishment took on an H100),
    trained for 8 Adam steps through train(); X2, K1 and K2 must have
    launched, the loss at w=0 must match the float64 plain path within 1e-5
-   relative, and K1/K2 are checked and timed at the slice's shapes.
+   relative, and K1/K2 are checked as in phase 2 and timed at the slice's
+   shapes, each in turns with its first version (v1, new, new, v1); the
+   profiled step is taken with the new kernels and with the first
+   versions.
 4. node    — the online corrector at the JAX bench's node workload
    (bench.py:build_node_scan: the raw 129,000-point scan of
    open_box/n_6_size_20_20_5_height_1_density_215, slab engine, float32)
@@ -33,8 +39,8 @@ Phases (any failure raises and the exit code is non-zero):
 6. probes  — the port's probe scripts (depth_correction_tpu_torch/scripts),
    each run with the launch counts zeroed just before and read just after:
    P1 (exp_cellwin_knockout: K1's knockout modes on the slice's own table
-   from phase 3; `full` must be bit-equal to K1, every mode meet its bars
-   against its float64 plain version), P2 (exp_mosaic_dot_probe: the
+   from phase 3; `full` and `no_cull` must be bit-equal to K1, every mode
+   meet its bars against its float64 plain version), P2 (exp_mosaic_dot_probe: the
    moment product in fp32 / tf32 / tf32x2 / tf32x3, torch.bmm timed beside
    it), P3-P5 (exp_mosaic_dot_probe2-4: the product with in-kernel
    operands and K1's structural pieces), at the TPU scripts' seeds and
@@ -59,12 +65,18 @@ Phases (any failure raises and the exit code is non-zero):
 
 The last two lines of stdout are a JSON object with per-kernel numbers
 (time, plain time, launches, error, the bound and what sets it, the
-library call's time where one PyTorch call computes the same function)
-and {"ok": true, "device": {...}}. Without a CUDA device the script fails
-before printing any result.
+library call's time where one PyTorch call computes the same function;
+for K1 and K2 also their first versions' time `v1_ms`, both kernels'
+own durations by the profiler `kernel_ms` / `v1_kernel_ms`, the pair
+tests the box cull keeps `pairs_kept`, counted by the host model of the
+cull (scripts/cellwin_cull.py) and not read from the kernels, and the
+first versions' bound `bound_all_pairs_ms`, which charges every span pair
+test) and {"ok": true, "device": {...}}.
+Without a CUDA device the script fails before printing any result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -102,6 +114,13 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_ms(fn, device, reps: int) -> float:
+    """Mean ms per call of ``fn``'s kernels alone (torch.profiler)."""
+    from depth_correction_tpu_torch.scripts import kernel_ms as timer
+
+    return timer(fn, device, reps)
+
+
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean device ms per call, by CUDA events around ``reps`` calls."""
     from depth_correction_tpu_torch.scripts import device_ms
@@ -126,15 +145,34 @@ def bound(nbytes: float, ops: dict) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def cellwin_fwd_bound(graph, pairs: int, members: int) -> tuple:
+# Float operations of one pair test (3 subtractions, a multiply and two
+# fmas) and of one warp's box test of a window entry (per axis 2
+# subtractions and 2 max, then the same distance).
+PAIR_OPS, BOX_OPS = 8, 17
+
+
+def cellwin_fwd_bound(graph, pairs: int, members: int, box_tests: int = 0) -> tuple:
     """K1's bound on ``graph`` (P1's ``full`` does the same work): ``pairs``
-    membership tests (sum of span lengths x rows per tile) of ~8 float ops,
-    ~19 per member, an epilogue per row; positions, establishment positions,
-    span tables and centres read once, (10, mq_pad) written once."""
+    membership tests and ``box_tests`` warp box tests (the box cull's kept
+    tests and its tests, or every span pair test and none for the first
+    version), ~19 float ops per member, an epilogue per row; positions,
+    establishment positions, span tables and centres read once,
+    (10, mq_pad) written once."""
     m_pad, mq_pad = graph.est_sorted.shape[1], graph.q_est.shape[1]
     t1, ns = graph.f_start.shape
     return bound(m_pad * 24 + mq_pad * 12 + t1 * (ns * 8 + 12) + mq_pad * 40,
-                 {"fp32": 8 * pairs + 19 * members + 30 * mq_pad})
+                 {"fp32": PAIR_OPS * pairs + BOX_OPS * box_tests + 19 * members + 30 * mq_pad})
+
+
+def cellwin_bwd_bound(graph, pairs: int, members: int, box_tests: int = 0) -> tuple:
+    """K2's bound on ``graph``: its own pair tests and box tests as in
+    :func:`cellwin_fwd_bound`, 9 adds per member (the same member pairs as
+    K1's), 15 float ops per point; positions, establishment positions,
+    cotangents, span tables and centres read once, (m_pad, 3) written once."""
+    m_pad, mq_pad = graph.est_sorted.shape[1], graph.q_est.shape[1]
+    t2, ns_b = graph.b_start.shape
+    return bound(m_pad * 24 + mq_pad * 48 + t2 * (ns_b * 8 + 12) + m_pad * 12,
+                 {"fp32": PAIR_OPS * pairs + BOX_OPS * box_tests + 9 * members + 15 * m_pad})
 
 
 def phase_build() -> float:
@@ -186,10 +224,50 @@ def synthetic_graph(seed: int = 0, n: int = 40000, r: float = 0.35):
     return pts, g
 
 
+def bit_equal(a, b) -> bool:
+    """float32 tensors equal bit for bit (-0.0 and 0.0 differ)."""
+    import torch
+
+    return bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+def pairs_kept(dev) -> dict:
+    """(pair tests K1's / K2's warps make after the box cull, all pair tests
+    (span lengths x tile slots), the warps' box tests), from the host model
+    of the cull (scripts/cellwin_cull.py) on the graph in the kernels'
+    float32 form: the kernels count nothing."""
+    from depth_correction_tpu_torch.scripts import cellwin_cull as cull
+
+    t0 = time.perf_counter()
+    res = {"fwd": cull.cull_pair_tests(dev.q_est, cull.ROW_PAD, dev.est_sorted, dev.f_start,
+                                       dev.f_len, dev.f_ctr, dev.r2),
+           "bwd": cull.cull_pair_tests(dev.est_sorted, cull.POINT_PAD, dev.q_est, dev.b_start,
+                                       dev.b_len, dev.b_ctr, dev.r2)}
+    log("  pair tests kept by the box cull (host model): K1 %d of %d (%.4f), %d box tests; "
+        "K2 %d of %d (%.4f), %d box tests (%.1f s)"
+        % (res["fwd"][0], res["fwd"][1], res["fwd"][0] / res["fwd"][1], res["fwd"][2],
+           res["bwd"][0], res["bwd"][1], res["bwd"][0] / res["bwd"][1], res["bwd"][2],
+           time.perf_counter() - t0))
+    return res
+
+
+def in_turns(first, second, reps: int = 50) -> tuple:
+    """(first ms, second ms): CUDA-event means over ``reps`` launches each,
+    timed in turns first, second, second, first; each the mean of its two."""
+    a1 = cuda_ms(first, reps=reps)
+    b1 = cuda_ms(second, reps=reps)
+    b2 = cuda_ms(second, reps=reps)
+    a2 = cuda_ms(first, reps=reps)
+    log("    turns (ms): %.4f, %.4f, %.4f, %.4f" % (a1, b1, b2, a2))
+    return (a1 + a2) / 2, (b1 + b2) / 2
+
+
 def compare_kernels(pts_sorted, dev, seed: int, label: str, card: str = ""):
-    """K1/K2 against the plain versions (float32 and float64) on the same
-    float32 inputs; raises on a missed bar. Returns per-kernel numbers,
-    with times when ``card`` (the nvidia-smi line) is given."""
+    """K1/K2 against the plain versions (float32 and float64) and against
+    their first versions (bit for bit; K2 also with an all-ones cotangent
+    table) on the same float32 inputs; raises on a missed bar. Returns
+    per-kernel numbers, with times when ``card`` (the nvidia-smi line) is
+    given."""
     import numpy as np
     import torch
 
@@ -198,7 +276,14 @@ def compare_kernels(pts_sorted, dev, seed: int, label: str, card: str = ""):
 
     f_args = (dev.q_est, dev.est_sorted, dev.f_start, dev.f_len, dev.f_ctr, dev.r2)
     raw_k = cw.cellwin_fwd(pts_sorted, *f_args)
+    raw_v1 = cw.cellwin_fwd_v1(pts_sorted, *f_args)
     torch.cuda.synchronize()
+    same = bit_equal(raw_k, raw_v1)
+    same9 = bit_equal(raw_k[9], raw_v1[9])
+    log("  %s K1 vs its first version: bit-equal %s (max %d ulp), member counts (row 9) equal %s"
+        % (label, same, _f32_ulps(raw_k, raw_v1), same9))
+    if not (same and same9):
+        raise RuntimeError("%s K1 differs from its first version" % label)
     raw_32 = cw.cellwin_fwd_plain(pts_sorted, *f_args)
     raw_64 = cw.cellwin_fwd_plain(pts_sorted.double(), *f_args)
     rows = (dev.row_map >= 0).clone()
@@ -220,7 +305,16 @@ def compare_kernels(pts_sorted, dev, seed: int, label: str, card: str = ""):
     table_32 = table_64.float().contiguous()
     b_args = (dev.b_start, dev.b_len, dev.b_ctr, dev.r2)
     grad_k = cw.cellwin_bwd(pts_sorted, dev.q_est, dev.est_sorted, table_32, *b_args)
+    grad_v1 = cw.cellwin_bwd_v1(pts_sorted, dev.q_est, dev.est_sorted, table_32, *b_args)
+    ones = torch.ones_like(table_32)
+    ones_k = cw.cellwin_bwd(pts_sorted, dev.q_est, dev.est_sorted, ones, *b_args)
+    ones_v1 = cw.cellwin_bwd_v1(pts_sorted, dev.q_est, dev.est_sorted, ones, *b_args)
     torch.cuda.synchronize()
+    same, same1 = bit_equal(grad_k, grad_v1), bit_equal(ones_k, ones_v1)
+    log("  %s K2 vs its first version: bit-equal %s (max %d ulp); all-ones table bit-equal %s"
+        % (label, same, _f32_ulps(grad_k, grad_v1), same1))
+    if not (same and same1):
+        raise RuntimeError("%s K2 differs from its first version" % label)
     grad_32 = cw.cellwin_bwd_plain(pts_sorted, dev.q_est, dev.est_sorted, table_32, *b_args)
     grad_64 = cw.cellwin_bwd_plain(pts_sorted.double(), dev.q_est, dev.est_sorted,
                                    table_32.double(), *b_args)
@@ -233,15 +327,31 @@ def compare_kernels(pts_sorted, dev, seed: int, label: str, card: str = ""):
             % (label, name, gres[name][0], gres[name][1]))
     if not np.isfinite(gres["f64"][1]) or gres["f64"][1] > GRAD_REL_BAR:
         raise RuntimeError("%s K2 misses its bar vs float64: %s" % (label, gres["f64"]))
-    out = {"fwd_err": max(res["f64"]), "bwd_err": gres["f64"][0]}
+    out = {"fwd_err": max(res["f64"]), "bwd_err": gres["f64"][0], "kept": pairs_kept(dev)}
     if card:
-        out["fwd_ms"] = cuda_ms(lambda: cw.cellwin_fwd(pts_sorted, *f_args), reps=50)
+        log("  %s K1 first version, new:" % label)
+        out["fwd_v1_ms"], out["fwd_ms"] = in_turns(
+            lambda: cw.cellwin_fwd_v1(pts_sorted, *f_args),
+            lambda: cw.cellwin_fwd(pts_sorted, *f_args))
         out["fwd_plain_ms"] = cuda_ms(lambda: cw.cellwin_fwd_plain(pts_sorted, *f_args), reps=5)
         bargs = (pts_sorted, dev.q_est, dev.est_sorted, table_32) + b_args
-        out["bwd_ms"] = cuda_ms(lambda: cw.cellwin_bwd(*bargs), reps=50)
+        log("  %s K2 first version, new:" % label)
+        out["bwd_v1_ms"], out["bwd_ms"] = in_turns(lambda: cw.cellwin_bwd_v1(*bargs),
+                                                   lambda: cw.cellwin_bwd(*bargs))
         out["bwd_plain_ms"] = cuda_ms(lambda: cw.cellwin_bwd_plain(*bargs), reps=5)
-        log("  %s timing (float32): K1 %.4f ms vs plain %.4f ms; K2 %.4f ms vs plain %.4f ms (%s)"
-            % (label, out["fwd_ms"], out["fwd_plain_ms"], out["bwd_ms"], out["bwd_plain_ms"], card))
+        # The kernels' own durations (profiler), in the same turns.
+        calls = {"fwd_v1": lambda: cw.cellwin_fwd_v1(pts_sorted, *f_args),
+                 "fwd": lambda: cw.cellwin_fwd(pts_sorted, *f_args),
+                 "bwd_v1": lambda: cw.cellwin_bwd_v1(*bargs), "bwd": lambda: cw.cellwin_bwd(*bargs)}
+        for name in ("fwd_v1", "fwd", "bwd", "bwd_v1"):
+            out[name + "_kernel_ms"] = kernel_ms(calls[name], DEVICE, reps=20)
+        log("  %s timing (float32): K1 %.4f ms (first version %.4f, %.2fx; kernel alone %.4f vs "
+            "%.4f) vs plain %.4f ms; K2 %.4f ms (first version %.4f, %.2fx; kernel alone %.4f vs "
+            "%.4f) vs plain %.4f ms (%s)"
+            % (label, out["fwd_ms"], out["fwd_v1_ms"], out["fwd_v1_ms"] / out["fwd_ms"],
+               out["fwd_kernel_ms"], out["fwd_v1_kernel_ms"], out["fwd_plain_ms"], out["bwd_ms"],
+               out["bwd_v1_ms"], out["bwd_v1_ms"] / out["bwd_ms"], out["bwd_kernel_ms"],
+               out["bwd_v1_kernel_ms"], out["bwd_plain_ms"], card))
     return out
 
 
@@ -349,6 +459,9 @@ def phase_slice(card: str):
         raise RuntimeError("loss at w=0 misses the 1e-5 bar: %.3e" % loss_rel)
 
     profile = profile_steps(cfg, data, card)
+    log("the same step with the first versions of K1 and K2 (csrc/cellwin_v1.cu):")
+    with first_versions():
+        profile_v1 = profile_steps(cfg, data, card)
 
     # Kernels at the slice's own shapes, on the step's inputs at w=0.
     ps = points_at_w0(data, graph, DEVICE)
@@ -357,8 +470,22 @@ def phase_slice(card: str):
     return {
         "launches": launches, "kernels": k, "step_ms": step_ms, "prep_s": prep_s,
         "loss_rel": loss_rel, "w_rel": w_rel, "w_final": w_final, "profile": profile,
-        "graph": graph, "ps": ps, "data": data, "cfg": cfg,
+        "profile_v1": profile_v1, "graph": graph, "ps": ps, "data": data, "cfg": cfg,
     }
+
+
+@contextlib.contextmanager
+def first_versions():
+    """The training step's K1 and K2 swapped for their first versions (the
+    step calls the wrappers through ops/cellwin.py's module names)."""
+    from depth_correction_tpu_torch.ops import cellwin as cw
+
+    saved = cw.cellwin_fwd, cw.cellwin_bwd
+    cw.cellwin_fwd, cw.cellwin_bwd = cw.cellwin_fwd_v1, cw.cellwin_bwd_v1
+    try:
+        yield
+    finally:
+        cw.cellwin_fwd, cw.cellwin_bwd = saved
 
 
 def profile_steps(cfg, data, card: str, n: int = 3):
@@ -665,10 +792,12 @@ def _window_bound(win, q, kw, passes: int) -> tuple:
     return bound(nbytes, ops)
 
 
-def phase_probes(card: str, graph, ps):
+def phase_probes(card: str, graph, ps, kept: tuple):
     """The probe scripts P1-P5 on the card; each script's launches are
-    counted alone. Returns the kernels-line entries of P1-P5 and the
-    slice table's pair tests and members (P1's counts)."""
+    counted alone. ``kept`` is K1's (kept pair tests, all pair tests, box
+    tests) on ``graph`` (:func:`pairs_kept`), for P1's bound. Returns the
+    kernels-line entries of P1-P5 and the slice table's pair tests and
+    members (P1's counts)."""
     import torch
 
     from depth_correction_tpu_torch.ops import cellwin as cw
@@ -690,17 +819,22 @@ def phase_probes(card: str, graph, ps):
     r1, n1 = counted(lambda: p1.run(ps, graph), "KNOCKOUT_LAUNCHES")
     args = (graph.q_est, graph.est_sorted, graph.f_start, graph.f_len, graph.f_ctr, graph.r2)
     k1 = cw.cellwin_fwd(ps, *args)
-    same = bool(torch.equal(k1, r1["modes"]["full"]["out"]))
+    same = bit_equal(k1, r1["modes"]["full"]["out"])
+    same_nc = bit_equal(k1, r1["modes"]["no_cull"]["out"])
     log("P1 on the slice's table: %d row tiles x %d, %d rows held, %d pair tests, %d members; "
-        "full bit-equal to K1: %s" % (r1["t1"], r1["row_cap"], r1["rows"], r1["pairs"],
-                                     r1["members"], same))
+        "full bit-equal to K1: %s, no_cull bit-equal to K1: %s"
+        % (r1["t1"], r1["row_cap"], r1["rows"], r1["pairs"], r1["members"], same, same_nc))
     bar(same, "P1 full is not bit-equal to K1")
+    bar(same_nc, "P1 no_cull is not bit-equal to K1")
+    full_ms = r1["modes"]["full"]["ms"]
     for mode, e in r1["modes"].items():
         er = e["errors"]
-        log("  P1 %-9s %9.4f ms  %s" % (mode, e["ms"], ", ".join(
-            "%s %.3e" % kv for kv in sorted(er.items()))))
+        log("  P1 %-9s %9.4f ms  %5.0f%% of full; kernel alone %9.4f ms  %5.0f%%  %s"
+            % (mode, e["ms"], 100.0 * e["ms"] / full_ms, e["kernel_ms"],
+               100.0 * e["kernel_ms"] / r1["modes"]["full"]["kernel_ms"],
+               ", ".join("%s %.3e" % kv for kv in sorted(er.items()))))
         bar(er["count"] == 0, "P1 %s member counts differ" % mode)
-        if mode == "full":
+        if mode in ("full", "no_cull"):
             bar(er["mean_abs"] <= MEAN_ABS_BAR and er["comps_abs"] <= COMPS_ABS_BAR,
                 "P1 full misses K1's bars: %s" % er)
         else:
@@ -713,7 +847,8 @@ def phase_probes(card: str, graph, ps):
         "replaces": "scripts/exp_cellwin_knockout.py:35", "launches": n1,
         "max_abs_err": max(full["mean_abs"], full["comps_abs"]),
         "ms": r1["modes"]["full"]["ms"], "plain_ms": plain1,
-        "bound": cellwin_fwd_bound(graph, r1["pairs"], r1["members"]),
+        "bound": cellwin_fwd_bound(graph, kept[0], r1["members"], kept[2]),
+        "bound_all_pairs_ms": cellwin_fwd_bound(graph, r1["pairs"], r1["members"])[0],
         "library_ms": None, "variants": {m: e["ms"] for m, e in r1["modes"].items()}}]
 
     # P2 at the TPU script's shapes, with torch.bmm beside it.
@@ -1055,8 +1190,10 @@ def main() -> int:
     phase_kernels()
     log("[phase 3] slice (bench configuration, %d Adam steps)" % STEPS)
     res = phase_slice(card)
-    log("median step: %.3f ms over steps 1..%d; prep %.1f s; total %.1f s (%s)"
-        % (res["step_ms"], STEPS - 1, res["prep_s"], time.perf_counter() - t0, card))
+    log("median step: %.3f ms over steps 1..%d; prep %.1f s; device busy %.3f ms/step (first "
+        "versions of K1, K2: %.3f); total %.1f s (%s)"
+        % (res["step_ms"], STEPS - 1, res["prep_s"], res["profile"]["busy_ms"],
+           res["profile_v1"]["busy_ms"], time.perf_counter() - t0, card))
     log("[phase 4] node (bench node scan, slab engine)")
     node = phase_node(card)
     log("[phase 5] node small scan (brute engine) and P7")
@@ -1066,7 +1203,8 @@ def main() -> int:
         % (node["ms"], node["e2e_ms"], node["points"], small["ms"], small["e2e_ms"],
            small["points"], time.perf_counter() - t0, card))
     log("[phase 6] probes P1-P5 (depth_correction_tpu_torch/scripts)")
-    probes, (pairs, members) = phase_probes(card, res["graph"], res["ps"])
+    probes, (pairs, members) = phase_probes(card, res["graph"], res["ps"],
+                                            res["kernels"]["kept"]["fwd"])
     log("[phase 7] grid: X2 on the slice's clouds, the node's grid engine")
     grid = phase_grid(card, res["data"], res["cfg"], node["scan"])
     gnode = grid["node"]
@@ -1077,26 +1215,26 @@ def main() -> int:
     log("build + all phases: %.1f s (%s)" % (time.perf_counter() - t0, card))
     k = res["kernels"]
     g = res["graph"]
-    m_pad, mq_pad = g.est_sorted.shape[1], g.q_est.shape[1]
-    t2, ns_b = g.b_start.shape
-    # K2: its own pair tests, 9 adds per member (the same member pairs,
-    # counted by K1), 15 per point.
-    pairs_b = int(g.b_len.long().sum()) * (m_pad // t2)
-    k2_bound = bound(m_pad * 24 + mq_pad * 48 + t2 * (ns_b * 8 + 12) + m_pad * 12,
-                     {"fp32": 8 * pairs_b + 9 * members + 15 * m_pad})
+    kept_f, kept_b = k["kept"]["fwd"], k["kept"]["bwd"]
     kernels = [
         {"name": "cellwin_fwd (K1)", "route": "cuda",
          "source": "depth_correction_tpu_torch/csrc/cellwin.cu",
          "replaces": "depth_correction_tpu/ops/cellwin.py:700",
          "launches": res["launches"]["fwd"], "max_abs_err": k["fwd_err"],
-         "ms": k["fwd_ms"], "plain_ms": k["fwd_plain_ms"],
-         "bound": cellwin_fwd_bound(g, pairs, members), "library_ms": None},
+         "ms": k["fwd_ms"], "v1_ms": k["fwd_v1_ms"], "kernel_ms": k["fwd_kernel_ms"],
+         "v1_kernel_ms": k["fwd_v1_kernel_ms"], "plain_ms": k["fwd_plain_ms"],
+         "bound": cellwin_fwd_bound(g, kept_f[0], members, kept_f[2]),
+         "bound_all_pairs_ms": cellwin_fwd_bound(g, pairs, members)[0],
+         "pairs_kept": kept_f[0], "library_ms": None},
         {"name": "cellwin_bwd (K2)", "route": "cuda",
          "source": "depth_correction_tpu_torch/csrc/cellwin.cu",
          "replaces": "depth_correction_tpu/ops/cellwin.py:837",
          "launches": res["launches"]["bwd"], "max_abs_err": k["bwd_err"],
-         "ms": k["bwd_ms"], "plain_ms": k["bwd_plain_ms"], "bound": k2_bound,
-         "library_ms": None},
+         "ms": k["bwd_ms"], "v1_ms": k["bwd_v1_ms"], "kernel_ms": k["bwd_kernel_ms"],
+         "v1_kernel_ms": k["bwd_v1_kernel_ms"], "plain_ms": k["bwd_plain_ms"],
+         "bound": cellwin_bwd_bound(g, kept_b[0], members, kept_b[2]),
+         "bound_all_pairs_ms": cellwin_bwd_bound(g, kept_b[1], members)[0],
+         "pairs_kept": kept_b[0], "library_ms": None},
         {"name": "slab_window (X1)", "route": "cuda",
          "source": "depth_correction_tpu_torch/csrc/slabwin.cu",
          "replaces": "depth_correction_tpu/ops/slabwin.py:53",

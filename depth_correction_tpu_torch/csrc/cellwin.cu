@@ -5,44 +5,39 @@
 // K1 replaces the Pallas kernel depth_correction_tpu/ops/cellwin.py:
 // _fwd_kernel; K2 replaces depth_correction_tpu/ops/cellwin.py:_bwd_kernel.
 // Their plain torch versions are cellwin_fwd_plain / cellwin_bwd_plain in
-// depth_correction_tpu_torch/ops/cellwin.py.
+// depth_correction_tpu_torch/ops/cellwin.py; their first Hopper versions
+// stay in csrc/cellwin_v1.cu for an A/B on the card.
 //
-// What bounds them on this card: per tile the work is (tile rows) x (window
-// entries) membership tests, ~10 float ops each plus 10 (K1) or 9 (K2)
-// accumulations for members, while the bytes read are only the window's
-// 24 (K1) or 48 (K2) bytes per entry. So both kernels are bound by
-// instruction issue and shared-memory reads, not by device memory. The
-// design therefore gives each row (K1) or point (K2) its own thread with
-// its sums in registers, stages each span of the window once per block in
-// shared memory, and lets all threads of the block read the same staged
-// entry at once (a broadcast: no bank conflicts). There are no atomics: each
-// output element is written by exactly one thread, so the result is
-// deterministic, like the TPU kernels'.
-//
-// Numerics (kept from the TPU kernels):
-// - Membership is tested in the difference form d = (x_est - ctr) -
-//   (q_est - ctr) on tile-centred coordinates. The host builder's exactness
-//   audit (build_cellwin_graph, eps_rel 2e-5 of r^2) covers the rounding of
-//   this form, FMA contraction included; it does not cover the expansion
-//   |q|^2 + |x|^2 - 2 q.x, which must not be used here.
-// - Non-members are SELECTED out (a branch), never multiplied by a zero
-//   weight: padding entries carry far sentinels (+-1e15) and 0 * inf = NaN.
-// - Every read is bounded by the span's length: starts are raw (no 128-lane
-//   alignment), so no window over-read and no sentinel columns are needed.
+// What bounds them on this card: per tile the work is (tile rows) x
+// (window entries) membership tests, ~10 float ops each plus 10 (K1) or 9
+// (K2) accumulations for members, while the bytes read are only the
+// window's 24 (K1) or 48 (K2) bytes per entry. So both kernels are bound
+// by instruction issue, not by device memory. The design gives each row
+// (K1) or point (K2) its own lane with its sums in registers; each warp
+// reads its tile's window, buffers in shared memory, packed, the entries
+// that survive a conservative test against the box of its real rows or
+// points, and walks only those (csrc/cellwin_fwd.cuh states the design,
+// why the test loses no member, and the numerics kept from the first
+// versions). There are no atomics: each output element is written by
+// exactly one thread, so the result is deterministic, like the TPU
+// kernels', and equal bit for bit to csrc/cellwin_v1.cu's.
 // No kernel allocates memory; the Python wrapper allocates the outputs.
 
 #include <cuda_runtime.h>
 
 // K1's body is the kFull instance of the template in cellwin_fwd.cuh, which
-// the knockout probe (cellwin_knockout.cu) shares.
+// the knockout probe (cellwin_knockout.cu) shares; K2 shares its staging,
+// distance and box test.
 #include "cellwin_fwd.cuh"
 
 namespace {
 
-// K2: one block per point tile, one thread per point. Accumulates the
-// referencing rows' cotangent rows (S00, S11, S22, S01, S02, S12, u0, u1,
-// u2) and writes grad = S x + u on the UNCENTRED current coordinates.
-__global__ void cellwin_bwd_kernel(
+// K2: one warp per 32 points of a point tile (a tile of pt_cap points
+// takes ceil(pt_cap / 32) warps), one lane per point; the warp reads its
+// tile's window of rows as K1 reads its window. Accumulates
+// the referencing rows' cotangent rows (S00, S11, S22, S01, S02, S12, u0,
+// u1, u2) and writes grad = S x + u on the UNCENTRED current coordinates.
+__global__ void __launch_bounds__(kWarp * kWarpsPerBlock) cellwin_bwd_kernel(
     const float* __restrict__ pts,    // (m_pad, 3) current positions
     const float* __restrict__ est,    // rows x, y, z of a (., m_pad) table
     int m_pad,
@@ -52,55 +47,102 @@ __global__ void cellwin_bwd_kernel(
     const int* __restrict__ b_start,  // (t2, ns) span starts (row axis)
     const int* __restrict__ b_len,    // (t2, ns) span lengths
     const float* __restrict__ b_ctr,  // (t2, 3) tile centres
-    int ns, float r2,
+    int t2, int ns, int pt_cap, float r2,
     float* __restrict__ out) {        // (m_pad, 3)
-  extern __shared__ float smem[];
-  const int cap = blockDim.x;
-  float* s_qx = smem;            // centred row est x of the staged rows
-  float* s_qy = smem + cap;
-  float* s_qz = smem + 2 * cap;
-  float* s_tab = smem + 3 * cap;  // 9 rows of cap cotangents
+  extern __shared__ float4 smem4[];
+  const WarpTask task = warp_task(t2, pt_cap);
+  if (task.t < 0) return;  // past the last tile: no barrier follows
+  // The warp's shared memory: the kept rows (centred est x, y, z and S00;
+  // S11, S22, S01, S02; S12, u0, u1, u2), then the span table.
+  float4* s_a = reinterpret_cast<float4*>(
+      reinterpret_cast<char*>(smem4) +
+      threadIdx.x / kWarp * warp_smem(kBwdBuf, 3 * sizeof(float4), ns));
+  float4* s_b = s_a + kBwdBuf;
+  float4* s_c = s_a + 2 * kBwdBuf;
+  int* s_start = reinterpret_cast<int*>(s_a + 3 * kBwdBuf);
+  int* s_pre = s_start + ns;
 
-  const int t = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int p = t * cap + tid;
+  const int lane = threadIdx.x % kWarp;
+  const int t = task.t;
+  const int slot = task.slot;
+  const bool has_point = slot < pt_cap;  // the tile's last warp may be partial
+  const int p = t * pt_cap + slot;
   const float cx = b_ctr[3 * t + 0];
   const float cy = b_ctr[3 * t + 1];
   const float cz = b_ctr[3 * t + 2];
-  const float ex = est[p] - cx;
-  const float ey = est[m_pad + p] - cy;
-  const float ez = est[2 * m_pad + p] - cz;
+  // A lane without a point sits at the padding sentinel: it has no member.
+  const float e0 = has_point ? est[p] : kPointPad;
+  const float ex = e0 - cx;
+  const float ey = (has_point ? est[m_pad + p] : kPointPad) - cy;
+  const float ez = (has_point ? est[2 * m_pad + p] : kPointPad) - cz;
+  warp_spans(b_start + t * ns, b_len + t * ns, ns, s_start, s_pre);
+  const float e[3] = {ex, ey, ez};
+  const bool real = e0 != kPointPad;
+  const WarpBox box = warp_box(e, real);
 
   float acc[9];
 #pragma unroll
   for (int c = 0; c < 9; ++c) acc[c] = 0.f;
-  for (int s = 0; s < ns; ++s) {
-    const int start = b_start[t * ns + s];
-    const int len = b_len[t * ns + s];
-    for (int off = 0; off < len; off += cap) {
-      const int n = min(cap, len - off);
-      __syncthreads();
-      if (tid < n) {
-        const int i = start + off + tid;
-        s_qx[tid] = q_est[i] - cx;
-        s_qy[tid] = q_est[mq_pad + i] - cy;
-        s_qz[tid] = q_est[2 * mq_pad + i] - cz;
-#pragma unroll
-        for (int c = 0; c < 9; ++c) s_tab[c * cap + tid] = table[c * mq_pad + i];
-      }
-      __syncthreads();
-      for (int k = 0; k < n; ++k) {
-        const float dx = s_qx[k] - ex;
-        const float dy = s_qy[k] - ey;
-        const float dz = s_qz[k] - ez;
-        const float d2 = dx * dx + dy * dy + dz * dz;
-        if (d2 <= r2) {
-#pragma unroll
-          for (int c = 0; c < 9; ++c) acc[c] += s_tab[c * cap + k];
+  // A warp with no real point reads nothing.
+  const int total = __any_sync(kAll, real) ? s_pre[ns] : 0;
+  const unsigned below = (1u << lane) - 1u;
+  int s = 0;  // the span of the next round's first row
+  for (int b = 0; b < total;) {
+    // Fill the buffer while a round of 32 still fits, then walk it.
+    int cnt = 0;
+    for (; b < total && cnt <= kBwdBuf - kWarp; b += kWarp) {
+      const int idx = b + lane;
+      bool keep = false;
+      float4 qa, qb, qc;
+      int sl = s;
+      if (idx < total) {
+        sl = span_of(s_pre, s, idx);
+        const int i = s_start[sl] + (idx - s_pre[sl]);
+        qa.x = q_est[i] - cx;
+        qa.y = q_est[mq_pad + i] - cy;
+        qa.z = q_est[2 * mq_pad + i] - cz;
+        keep = box_keeps(box, qa.x, qa.y, qa.z, r2);
+        if (keep) {
+          qa.w = table[i];
+          qb = make_float4(table[mq_pad + i], table[2 * mq_pad + i], table[3 * mq_pad + i],
+                           table[4 * mq_pad + i]);
+          qc = make_float4(table[5 * mq_pad + i], table[6 * mq_pad + i],
+                           table[7 * mq_pad + i], table[8 * mq_pad + i]);
         }
       }
+      s = __shfl_sync(kAll, sl, kWarp - 1);
+      const unsigned m = __ballot_sync(kAll, keep);
+      if (keep) {
+        const int pos = cnt + __popc(m & below);
+        s_a[pos] = qa;
+        s_b[pos] = qb;
+        s_c[pos] = qc;
+      }
+      cnt += __popc(m);
     }
+    __syncwarp();
+#pragma unroll 4
+    for (int k = 0; k < cnt; ++k) {  // the buffered rows, ascending
+      const float4 q = s_a[k];
+      const float d2 = d2_form(__fsub_rn(q.x, ex), __fsub_rn(q.y, ey), __fsub_rn(q.z, ez));
+      if (d2 <= r2) {
+        const float4 tb = s_b[k];
+        const float4 tc = s_c[k];
+        acc[0] += q.w;
+        acc[1] += tb.x;
+        acc[2] += tb.y;
+        acc[3] += tb.z;
+        acc[4] += tb.w;
+        acc[5] += tc.x;
+        acc[6] += tc.y;
+        acc[7] += tc.z;
+        acc[8] += tc.w;
+      }
+    }
+    __syncwarp();  // the buffer is read before the next fill
   }
+
+  if (!has_point) return;
   const float x0 = pts[3 * p + 0];
   const float x1 = pts[3 * p + 1];
   const float x2 = pts[3 * p + 2];
@@ -130,13 +172,16 @@ int dc_cellwin_bwd(const void* pts, const void* est, int m_pad,
                    int t2, int ns, int pt_cap, float r2, void* out,
                    void* stream) {
   if (t2 > 0) {
-    const size_t smem = 12 * static_cast<size_t>(pt_cap) * sizeof(float);
-    cellwin_bwd_kernel<<<t2, pt_cap, smem, static_cast<cudaStream_t>(stream)>>>(
+    const size_t smem = kWarpsPerBlock * warp_smem(kBwdBuf, 3 * sizeof(float4), ns);
+    const cudaError_t err = allow_smem(cellwin_bwd_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cellwin_bwd_kernel<<<warp_blocks(t2, pt_cap), kWarp * kWarpsPerBlock, smem,
+                         static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(pts), static_cast<const float*>(est), m_pad,
         static_cast<const float*>(q_est), static_cast<const float*>(table),
         mq_pad, static_cast<const int*>(b_start),
-        static_cast<const int*>(b_len), static_cast<const float*>(b_ctr), ns,
-        r2, static_cast<float*>(out));
+        static_cast<const int*>(b_len), static_cast<const float*>(b_ctr), t2, ns,
+        pt_cap, r2, static_cast<float*>(out));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -6,12 +6,13 @@
 // which re-times the TPU forward kernel with parts knocked out. Here the
 // parts are those of K1 on this card (csrc/cellwin_fwd.cuh, the modes and
 // what each one means): the membership test, the feature arithmetic, the
-// accumulation, the per-slot select, and the staging floor. Its plain
+// accumulation, the per-slot select, the staging floor, and the warp's box
+// cull that the Hopper body adds. Its plain
 // torch version is cellwin_knockout_plain in
 // depth_correction_tpu_torch/ops/cellwin_knockout.py.
 //
-// What bounds it on this card: K1's bound (csrc/cellwin.cu), instructions and
-// shared-memory reads of the membership tests; each mode removes one part
+// What bounds it on this card: K1's bound (csrc/cellwin.cu), instruction
+// issue per remaining membership test and member; each mode removes one part
 // of that work, so the time each mode saves attributes K1's time. The
 // design is K1's own code, instantiated once per mode at compile time:
 // `full` is the same template instance as K1 and is bit-equal to it.
@@ -25,7 +26,7 @@
 
 extern "C" {
 
-// mode: 0 full, 1 no_d2, 2 no_feats, 3 no_dot, 4 no_mask, 5 empty. Launches
+// mode: 0 full, 1 no_d2, 2 no_feats, 3 no_dot, 4 no_mask, 5 empty, 6 no_cull. Launches
 // on the caller's stream, does not synchronise, and returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unknown mode).
 int dc_cellwin_knockout(int mode, const void* pts, const void* est, int m_pad,
@@ -52,6 +53,9 @@ int dc_cellwin_knockout(int mode, const void* pts, const void* est, int m_pad,
     case kEmpty:
       return launch_cellwin_fwd_mode<kEmpty>(pts, est, m_pad, q_est, mq_pad, f_start, f_len,
                                              f_ctr, t1, ns, row_cap, r2, out, stream);
+    case kNoCull:
+      return launch_cellwin_fwd_mode<kNoCull>(pts, est, m_pad, q_est, mq_pad, f_start, f_len,
+                                              f_ctr, t1, ns, row_cap, r2, out, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

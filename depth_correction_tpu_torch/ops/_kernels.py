@@ -10,12 +10,12 @@ reused. Nothing here runs at import: the CPU tests import every module.
 
 The launchers validate device, dtype, shape and contiguity before passing
 pointers, launch on the current stream, and raise when the C entry returns
-a CUDA error. Launch counts of K1/K2 are kept by their callers in
-``ops/cellwin.py``; X1, X2, P7 and the probes P1-P6, P8 count here
-(:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`, :data:`GATHER_LAUNCHES`,
-:data:`KNOCKOUT_LAUNCHES`, :data:`DOT_LAUNCHES`, :data:`WINDOW_LAUNCHES`,
-:data:`LAYOUT_LAUNCHES`, :data:`GATHER_PROBE_LAUNCHES`), once per accepted
-launch.
+a CUDA error. Launch counts of K1/K2 (and of their first versions, kept
+for an A/B on the card) are kept by their callers in ``ops/cellwin.py``;
+X1, X2, P7 and the probes P1-P6, P8 count here (:data:`SLAB_LAUNCHES`,
+:data:`GRID_LAUNCHES`, :data:`GATHER_LAUNCHES`, :data:`KNOCKOUT_LAUNCHES`,
+:data:`DOT_LAUNCHES`, :data:`WINDOW_LAUNCHES`, :data:`LAYOUT_LAUNCHES`,
+:data:`GATHER_PROBE_LAUNCHES`), once per accepted launch.
 """
 from __future__ import annotations
 
@@ -39,7 +39,9 @@ __all__ = [
     "WINDOW_LAUNCHES",
     "build",
     "launch_cellwin_bwd",
+    "launch_cellwin_bwd_v1",
     "launch_cellwin_fwd",
+    "launch_cellwin_fwd_v1",
     "launch_cellwin_knockout",
     "launch_gather_moments",
     "launch_gather_probe",
@@ -54,7 +56,7 @@ __all__ = [
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
-                for name in ("cellwin.cu", "gather_moments.cu", "slabwin.cu",
+                for name in ("cellwin.cu", "cellwin_v1.cu", "gather_moments.cu", "slabwin.cu",
                              "cellwin_knockout.cu", "moment_dot.cu", "moment_window.cu",
                              "grid_query.cu", "layout_probe.cu", "gather_probe.cu"))
 # Headers the sources include; they key the build like the sources.
@@ -145,12 +147,13 @@ def load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build()["path"])
-        lib.dc_cellwin_fwd.argtypes = [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I,
-                                       _I, _F, _P, _P]
-        lib.dc_cellwin_fwd.restype = _I
-        lib.dc_cellwin_bwd.argtypes = [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I,
-                                       _I, _I, _F, _P, _P]
-        lib.dc_cellwin_bwd.restype = _I
+        for suffix in ("", "_v1"):
+            fwd = getattr(lib, "dc_cellwin_fwd" + suffix)
+            fwd.argtypes = [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P]
+            fwd.restype = _I
+            bwd = getattr(lib, "dc_cellwin_bwd" + suffix)
+            bwd.argtypes = [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P]
+            bwd.restype = _I
         lib.dc_slab_window.argtypes = [_P, _P, _I, _P, _P, _P, _I, _F, _P, _P]
         lib.dc_slab_window.restype = _I
         lib.dc_gather_moments.argtypes = [_P, _L, _L, _I, _P, _P, _I, _I, _P, _P,
@@ -203,8 +206,8 @@ def _block_size(cap: int, name: str):
 
 def _launch_fwd(name, lead, pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
                 r2: float) -> torch.Tensor:
-    """K1's template on CUDA float32 tensors through ``dc_<name>`` (K1
-    itself, or a knockout mode of P1 with ``lead`` = (mode,)) -> (10, mq_pad)."""
+    """K1 on CUDA float32 tensors through ``dc_<name>`` (K1 itself, its first
+    version, or a knockout mode of P1 with ``lead`` = (mode,)) -> (10, mq_pad)."""
     device = pts_sorted.device
     if device.type != "cuda":
         raise ValueError("the cellwin kernels take CUDA tensors, got %s" % device)
@@ -230,7 +233,9 @@ def _launch_fwd(name, lead, pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr
             *lead, pts_sorted.data_ptr(), est_sorted.data_ptr(), m_pad,
             q_est.data_ptr(), mq_pad, f_start.data_ptr(), f_len.data_ptr(),
             f_ctr.data_ptr(), t1, ns, row_cap, float(r2), out.data_ptr(), stream)
-    _check_launch(lib, err, name)
+    # A table past the shared-memory limit (csrc/cellwin_fwd.cuh allow_smem)
+    # fails here with CUDA's invalid-argument error.
+    _check_launch(lib, err, "%s (%d tiles, %d mini-spans a tile)" % (name, t1, ns))
     return out
 
 
@@ -238,6 +243,13 @@ def launch_cellwin_fwd(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
                        r2: float) -> torch.Tensor:
     """K1 on CUDA float32 tensors -> raw (10, mq_pad) moments."""
     return _launch_fwd("cellwin_fwd", (), pts_sorted, q_est, est_sorted, f_start, f_len,
+                       f_ctr, r2)
+
+
+def launch_cellwin_fwd_v1(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
+                          r2: float) -> torch.Tensor:
+    """K1's first version (``csrc/cellwin_v1.cu``), same inputs and output."""
+    return _launch_fwd("cellwin_fwd_v1", (), pts_sorted, q_est, est_sorted, f_start, f_len,
                        f_ctr, r2)
 
 
@@ -253,9 +265,10 @@ def launch_cellwin_knockout(mode_id: int, pts_sorted, q_est, est_sorted, f_start
     return out
 
 
-def launch_cellwin_bwd(pts_sorted, q_est, est_sorted, table9, b_start, b_len,
-                       b_ctr, r2: float) -> torch.Tensor:
-    """K2 on CUDA float32 tensors -> (m_pad, 3) gradient wrt pts_sorted."""
+def _launch_bwd(name, pts_sorted, q_est, est_sorted, table9, b_start, b_len, b_ctr,
+                r2: float) -> torch.Tensor:
+    """K2 on CUDA float32 tensors through ``dc_<name>`` (K2 itself or its
+    first version) -> (m_pad, 3) gradient wrt pts_sorted."""
     device = pts_sorted.device
     if device.type != "cuda":
         raise ValueError("the cellwin kernels take CUDA tensors, got %s" % device)
@@ -270,21 +283,37 @@ def launch_cellwin_bwd(pts_sorted, q_est, est_sorted, table9, b_start, b_len,
     _check(b_len, "b_len", torch.int32, (t2, ns), device)
     _check(b_ctr, "b_ctr", torch.float32, (t2, 3), device)
     if est_sorted.shape[0] < 3 or q_est.shape[0] < 3 or t2 == 0 or m_pad % t2:
-        raise ValueError("cellwin_bwd: inconsistent tables (est %s, q_est %s, %d tiles)"
-                         % (tuple(est_sorted.shape), tuple(q_est.shape), t2))
+        raise ValueError("%s: inconsistent tables (est %s, q_est %s, %d tiles)"
+                         % (name, tuple(est_sorted.shape), tuple(q_est.shape), t2))
     pt_cap = m_pad // t2
     _block_size(pt_cap, "pt_cap")
     out = torch.empty((m_pad, 3), dtype=torch.float32, device=device)
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dc_cellwin_bwd(
+        err = getattr(lib, "dc_" + name)(
             pts_sorted.data_ptr(), est_sorted.data_ptr(), m_pad,
             q_est.data_ptr(), table9.data_ptr(), mq_pad, b_start.data_ptr(),
             b_len.data_ptr(), b_ctr.data_ptr(), t2, ns, pt_cap, float(r2),
             out.data_ptr(), stream)
-    _check_launch(lib, err, "cellwin_bwd")
+    # A table past the shared-memory limit (csrc/cellwin_fwd.cuh allow_smem)
+    # fails here with CUDA's invalid-argument error.
+    _check_launch(lib, err, "%s (%d tiles, %d mini-spans a tile)" % (name, t2, ns))
     return out
+
+
+def launch_cellwin_bwd(pts_sorted, q_est, est_sorted, table9, b_start, b_len,
+                       b_ctr, r2: float) -> torch.Tensor:
+    """K2 on CUDA float32 tensors -> (m_pad, 3) gradient wrt pts_sorted."""
+    return _launch_bwd("cellwin_bwd", pts_sorted, q_est, est_sorted, table9, b_start, b_len,
+                       b_ctr, r2)
+
+
+def launch_cellwin_bwd_v1(pts_sorted, q_est, est_sorted, table9, b_start, b_len,
+                          b_ctr, r2: float) -> torch.Tensor:
+    """K2's first version (``csrc/cellwin_v1.cu``), same inputs and output."""
+    return _launch_bwd("cellwin_bwd_v1", pts_sorted, q_est, est_sorted, table9, b_start, b_len,
+                       b_ctr, r2)
 
 
 def launch_slab_window(pts_T, valid, lo, width, ctr, r2: float) -> torch.Tensor:

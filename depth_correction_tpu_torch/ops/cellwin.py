@@ -27,7 +27,9 @@ cell-sorted ROW table, accumulating each referencing row's cotangent row
 Forward and backward are the hand-written CUDA kernels of
 ``csrc/cellwin.cu`` (built and bound by ``ops/_kernels.py``) on CUDA
 tensors, and their plain torch versions ``cellwin_fwd_plain`` /
-``cellwin_bwd_plain`` on CPU tensors.
+``cellwin_bwd_plain`` on CPU tensors. The kernels' first versions
+(``csrc/cellwin_v1.cu``, ``cellwin_fwd_v1`` / ``cellwin_bwd_v1``) compute
+the same function and stay for an A/B on the card; no path calls them.
 """
 from __future__ import annotations
 
@@ -43,15 +45,19 @@ from .features import _cotangent_table, neighborhood_moments
 
 __all__ = [
     "BWD_LAUNCHES",
+    "BWD_V1_LAUNCHES",
     "CellWinDevice",
     "CellWinGraph",
     "FWD_LAUNCHES",
+    "FWD_V1_LAUNCHES",
     "build_cellwin_graph",
     "cellwin_bwd",
     "cellwin_bwd_plain",
+    "cellwin_bwd_v1",
     "cellwin_features",
     "cellwin_fwd",
     "cellwin_fwd_plain",
+    "cellwin_fwd_v1",
     "cellwin_moments",
     "graph_to_device",
 ]
@@ -605,11 +611,13 @@ def build_cellwin_graph(
 #
 # K1 (cellwin_fwd) replaces depth_correction_tpu/ops/cellwin.py:_fwd_kernel
 # and K2 (cellwin_bwd) replaces :_bwd_kernel; both are in csrc/cellwin.cu.
-# What bounds them on an H100: membership tests and per-member accumulations
-# (instruction issue and shared-memory reads) — the window's bytes are few.
-# Design: one thread per row (K1) / point (K2) with register accumulators,
-# each window span staged once per block in shared memory and read by all
-# threads as a broadcast; raw span starts bound every read; no atomics.
+# What bounds them on an H100: instruction issue per membership test and
+# per member accumulation — the window's bytes are few. Design: one lane
+# per row (K1) / point (K2) with register accumulators; each warp reads its
+# tile's window, buffers in shared memory the entries that a conservative
+# test against the box of its real rows (points) keeps, and walks only
+# those (csrc/cellwin_fwd.cuh; scripts/cellwin_cull.py counts them on the
+# host); raw span starts bound every read; no atomics.
 # The TPU kernels' workarounds are left out: the bf16 mantissa-split
 # _moment_dot and its DC_CELLWIN_PREC / DC_CELLWIN_KCAT knobs (f32 FMAs in
 # registers are exact-class on this card), the 128-lane start/lead
@@ -620,6 +628,8 @@ def build_cellwin_graph(
 # its kernel and nowhere else (the plain versions never count).
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+FWD_V1_LAUNCHES = 0
+BWD_V1_LAUNCHES = 0
 
 # Elements of the largest (tiles, slots, window) intermediate the plain
 # versions materialize at once.
@@ -779,10 +789,42 @@ def cellwin_bwd(pts_sorted, q_est, est_sorted, table9, b_start, b_len,
     return out
 
 
+def cellwin_fwd_v1(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
+                   r2: float):
+    """K1's first version (``csrc/cellwin_v1.cu``), for an A/B against
+    :func:`cellwin_fwd` on the card; the same function, so CPU tensors take
+    :func:`cellwin_fwd_plain` too."""
+    global FWD_V1_LAUNCHES
+    if pts_sorted.device.type == "cpu":
+        return cellwin_fwd_plain(pts_sorted, q_est, est_sorted, f_start,
+                                 f_len, f_ctr, r2)
+    out = _kernels.launch_cellwin_fwd_v1(pts_sorted, q_est, est_sorted, f_start,
+                                         f_len, f_ctr, r2)
+    FWD_V1_LAUNCHES += 1
+    return out
+
+
+def cellwin_bwd_v1(pts_sorted, q_est, est_sorted, table9, b_start, b_len,
+                   b_ctr, r2: float):
+    """K2's first version (``csrc/cellwin_v1.cu``), for an A/B against
+    :func:`cellwin_bwd` on the card; CPU tensors take
+    :func:`cellwin_bwd_plain`."""
+    global BWD_V1_LAUNCHES
+    if pts_sorted.device.type == "cpu":
+        return cellwin_bwd_plain(pts_sorted, q_est, est_sorted, table9,
+                                 b_start, b_len, b_ctr, r2)
+    out = _kernels.launch_cellwin_bwd_v1(pts_sorted, q_est, est_sorted, table9,
+                                         b_start, b_len, b_ctr, r2)
+    BWD_V1_LAUNCHES += 1
+    return out
+
+
 def reset_launch_counts() -> None:
-    global FWD_LAUNCHES, BWD_LAUNCHES
+    global FWD_LAUNCHES, BWD_LAUNCHES, FWD_V1_LAUNCHES, BWD_V1_LAUNCHES
     FWD_LAUNCHES = 0
     BWD_LAUNCHES = 0
+    FWD_V1_LAUNCHES = 0
+    BWD_V1_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------

@@ -15,8 +15,11 @@ Modes (what each one means on this card is in ``csrc/cellwin_fwd.cuh``):
 - ``no_dot``: the member count alone, without the multiply-adds.
 - ``no_mask``: no per-slot select; a {0, 1} weight multiplies each term.
 - ``empty``: stage the spans, write q, nothing else.
+- ``no_cull``: K1 with its warps' box cull switched off (every staged entry
+  is tested): ``full``'s output bit for bit, so its extra time is what the
+  cull buys.
 
-Every mode but ``full`` returns the raw row-centred sums (10, mq_pad)
+Every mode but ``full`` and ``no_cull`` returns the raw row-centred sums (10, mq_pad)
 [s0, Sx, Sy, Sz, Sxx, Syy, Szz, Sxy, Sxz, Syz] without the epilogue;
 ``empty`` returns q_est's x, y, z and zeros. The TPU probe's ``dot1``,
 ``kcat1`` and ``kcat3`` arrange the matrix unit's dot, which K1 on this card
@@ -32,7 +35,7 @@ from .cellwin import _fwd_windows, cellwin_fwd_plain
 
 __all__ = ["MODES", "NOT_CARRIED", "cellwin_knockout", "cellwin_knockout_plain"]
 
-MODES = ("full", "no_d2", "no_feats", "no_dot", "no_mask", "empty")
+MODES = ("full", "no_d2", "no_feats", "no_dot", "no_mask", "empty", "no_cull")
 NOT_CARRIED = ("dot1", "kcat1", "kcat3")
 
 
@@ -42,7 +45,7 @@ def cellwin_knockout_plain(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
     dtype and on the device of ``pts_sorted`` -> (10, mq_pad)."""
     if mode not in MODES:
         raise ValueError("unknown knockout mode %r (modes: %s)" % (mode, ", ".join(MODES)))
-    if mode == "full":
+    if mode in ("full", "no_cull"):
         return cellwin_fwd_plain(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr, r2)
     dt, dev = pts_sorted.dtype, pts_sorted.device
     if mode == "empty":

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["bench_config", "device_ms", "rel_max", "rel_rows", "require_card"]
+__all__ = ["bench_config", "device_ms", "kernel_ms", "rel_max", "rel_rows", "require_card"]
 
 # bench.py's uncapped training scene.
 SCENE = "open_box/n_6_size_20_20_5_height_1_density_400"
@@ -68,6 +68,28 @@ def device_ms(fn, device, reps: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_ms(fn, device, reps: int, warmup: int = 2) -> float:
+    """Mean device time per call of ``fn``'s kernels on the CUDA ``device``:
+    the kernels' own durations under torch.profiler over ``reps`` calls,
+    after ``warmup`` calls. Unlike :func:`device_ms` it leaves out the gaps
+    between kernels, so a kernel that ends before the host has issued the
+    next call reads its own time, not the host's issue rate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if torch.device(device).type != "cuda":
+        raise ValueError("kernel_ms times CUDA devices, got %s" % device)
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / reps
 
 
 def rel_max(got, ref) -> float:

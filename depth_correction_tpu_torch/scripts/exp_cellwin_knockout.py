@@ -11,6 +11,8 @@ a separate compile-time instance of K1's template, csrc/cellwin_fwd.cuh):
   no_dot    the member count alone, no multiply-adds
   no_mask   no per-slot select: a {0, 1} weight multiplies every term
   empty     stage the spans and write q: the grid and staging floor
+  no_cull   K1 with the warps' box cull off: full's output, and the time
+            the cull saves
 
 The TPU probe's dot1, kcat1 and kcat3 (arrangements of the matrix unit's
 dot) have no counterpart in K1, which has no dot on this card; the
@@ -29,7 +31,7 @@ import sys
 import torch
 
 from ..ops.cellwin_knockout import MODES, cellwin_knockout, cellwin_knockout_plain
-from . import bench_config, device_ms, rel_rows, require_card
+from . import bench_config, device_ms, kernel_ms, rel_rows, require_card
 
 REPS = 20
 
@@ -62,15 +64,17 @@ def slice_table(cfg):
 
 def knockout_errors(mode: str, got, ref, rows) -> dict:
     """``got`` against its float64 plain version ``ref`` on ``rows``:
-    ``count`` (max abs difference of the member counts: row 9 of full,
-    rows 0..9 of no_feats, row 0 otherwise), ``rel`` (rel_rows over the
-    ten rows); full also ``mean_abs`` (m) and ``comps_abs`` (m^2)."""
+    ``count`` (max abs difference of the member counts: row 9 of full and
+    no_cull, rows 0..9 of no_feats, row 0 otherwise), ``rel`` (rel_rows
+    over the ten rows); full and no_cull also ``mean_abs`` (m) and
+    ``comps_abs`` (m^2)."""
     g, r = got.double()[:, rows], ref.double()[:, rows]
-    count_rows = {"full": [9], "no_feats": list(range(10)), "empty": []}.get(mode, [0])
+    count_rows = {"full": [9], "no_cull": [9], "no_feats": list(range(10)),
+                  "empty": []}.get(mode, [0])
     d = (g - r).abs()
     out = {"rel": rel_rows(g, r),
            "count": float(d[count_rows].max()) if count_rows else 0.0}
-    if mode == "full":
+    if mode in ("full", "no_cull"):
         out["mean_abs"] = float(d[0:3].max())
         out["comps_abs"] = float(d[3:9].max())
     return out
@@ -82,7 +86,8 @@ def run(pts_sorted, dev, modes=MODES, reps: int = REPS) -> dict:
 
     :param pts_sorted: (m_pad, 3) float32 positions in the graph's layout.
     :param dev: ``ops.cellwin.CellWinDevice`` on the same device.
-    :return: {"modes": {mode: {"ms", "out", "errors"}},
+    :return: {"modes": {mode: {"ms" (CUDA events), "kernel_ms" (the kernel's
+        own time, torch.profiler), "out", "errors"}},
         "pairs" (membership tests: sum of span lengths x rows per tile),
         "members" (from full's counts), "rows" (real rows, exception rows
         excluded), "row_cap", "t1"}.
@@ -98,8 +103,9 @@ def run(pts_sorted, dev, modes=MODES, reps: int = REPS) -> dict:
             return cellwin_knockout(pts_sorted, *args, mode)
 
         ms = device_ms(call, device, reps)
+        k_ms = kernel_ms(call, device, reps, warmup=0)
         out = call()
-        res[mode] = {"ms": ms, "out": out, "errors": knockout_errors(
+        res[mode] = {"ms": ms, "kernel_ms": k_ms, "out": out, "errors": knockout_errors(
             mode, out, cellwin_knockout_plain(p64, *args, mode), rows)}
     t1 = dev.f_start.shape[0]
     row_cap = dev.q_est.shape[1] // t1
@@ -120,9 +126,9 @@ def main(argv=None) -> int:
     res = run(ps, graph, modes)
     print("table: %d row tiles x %d rows, %d real rows, %d pair tests, %s members"
           % (res["t1"], res["row_cap"], res["rows"], res["pairs"], res.get("members", "-")))
-    print("%-10s %10s  %s" % ("mode", "ms", "vs float64 plain"))
+    print("%-10s %10s %10s  %s" % ("mode", "ms", "kernel ms", "vs float64 plain"))
     for mode, e in res["modes"].items():
-        print("%-10s %10.4f  %s" % (mode, e["ms"], ", ".join(
+        print("%-10s %10.4f %10.4f  %s" % (mode, e["ms"], e["kernel_ms"], ", ".join(
             "%s %.3e" % kv for kv in sorted(e["errors"].items()))))
     print(torch.cuda.get_device_name(device))
     return 0
