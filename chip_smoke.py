@@ -17,7 +17,8 @@ Phases (any failure raises and the exit code is non-zero):
    open_box/n_6_size_20_20_5_height_1_density_400, prepared with the
    bench's grid establishment (X2 for the 6 scans and the global cloud;
    prep seconds per part are printed beside the 26 s that scipy's cKDTree
-   establishment took on an H100),
+   establishment took on an H100, and local_features beside the 1.274 s it
+   took with the eager brute count; X3 sizes each scan's K),
    trained for 8 Adam steps through train(); X2, K1 and K2 must have
    launched, the loss at w=0 must match the float64 plain path within 1e-5
    relative, and K1/K2 are checked as in phase 2 and timed at the slice's
@@ -32,9 +33,13 @@ Phases (any failure raises and the exit code is non-zero):
    sorted inputs; the corrected points are held against the port's plain
    float64 node path; node_ms, node_e2e_ms and node_points are printed.
 5. small   — a scan of the same box below 65,536 padded points
-   (density 100), routed to the brute engine (K = 32): P7 must have
-   launched and meet its bars on the node's own neighbour table; then P7
-   and its plain version are timed at the shapes of
+   (density 100), routed to the brute engine (K = 32): X3 and P7 must have
+   launched; node_ms is printed beside the 358.307 ms of the eager
+   sort-based search that preceded X3; X3 is held against its plain twin
+   on the node's own points (top-k: index tables equal and d2 bit for bit;
+   counts equal) and both
+   are timed; P7 must meet its bars on the node's own neighbour table;
+   then P7 and its plain version are timed at the shapes of
    scripts/exp_pallas_gather.py's stage 2 and held within 1e-5 relative.
 6. probes  — the port's probe scripts (depth_correction_tpu_torch/scripts),
    each run with the launch counts zeroed just before and read just after:
@@ -58,10 +63,27 @@ Phases (any failure raises and the exit code is non-zero):
    engine (X2 + P7, K = 32) on phase 4's scan, held within 1e-4 m of the
    float64 plain grid node, with node_ms and node_e2e_ms as phase 4
    measures them.
-8. probes  — P6 (exp_mosaic_probe: the seven layout probes) and P8
-   (exp_pallas_gather2: gather cases A-E, global and staged), each script
-   run with the launch counts zeroed just before and read just after;
-   every form exact against its plain version.
+8. probes  — P6 (exp_mosaic_probe: the seven layout probes), P8
+   (exp_pallas_gather2: gather cases A-E, global and staged) and P7's two
+   stages (exp_pallas_gather: P7a, the gather-sum probe, bit-equal to its
+   plain version; P7 at stage 2 within 1e-5), each script run with the
+   launch counts zeroed just before and read just after; every P6 and P8
+   form exact against its plain version.
+9. capped  — the bench's capped row (bench.py:bench_config(uncapped=False):
+   K = 32 with mutual trimming, the gather moments by torch autograd) on
+   the slice's scene, 8 Adam steps through train(): capped32_ms, and the
+   loss at w=0 within 1e-5 relative of the float64 plain path.
+10. default — a default Config() (only log_dir, train_names, n_opt_iters,
+   float_type, the data directory and shadow_angle_bounds set) on an open
+   box written as ASL-laser CSV files into a temporary directory. X3 and
+   P7 must have launched in prep. On one scan, X3's counts (which size
+   k_dir) and top-k over the view directions equal their plain twins, the
+   shadow mask drops some points and keeps others, and local_feature_cloud
+   keeps as many. On the global cloud, vp_dispersion (P7 on the viewpoints)
+   agrees with the float64 plain moments to 1e-5 of its largest value,
+   its mask equals the float64 one and keeps the rows prep kept, and the
+   bound drops some rows. The loss at w=0 must be within 1e-5 of the
+   float64 plain path.
 
 The last two lines of stdout are a JSON object with per-kernel numbers
 (time, plain time, launches, error, the bound and what sets it, the
@@ -71,7 +93,9 @@ own durations by the profiler `kernel_ms` / `v1_kernel_ms`, the pair
 tests the box cull keeps `pairs_kept`, counted by the host model of the
 cull (scripts/cellwin_cull.py) and not read from the kernels, and the
 first versions' bound `bound_all_pairs_ms`, which charges every span pair
-test) and {"ok": true, "device": {...}}.
+test) and {"ok": true, "device": {...}}. Before them, one line carries the
+end-to-end numbers of the bench's keys (train_step_ms, capped32_ms,
+node_ms, ...).
 Without a CUDA device the script fails before printing any result.
 """
 from __future__ import annotations
@@ -90,6 +114,13 @@ NODE_SCENE = "open_box/n_6_size_20_20_5_height_1_density_215"
 SMALL_SCENE = "open_box/n_6_size_20_20_5_height_1_density_100"
 NODE_REPS = 20  # chained calls per node_ms batch
 E2E_REPS = 10
+# The brute engine's node_ms and prep's local_features seconds with the
+# eager sort-based brute search that preceded kernel X3 (measured by this
+# script on an NVIDIA H100 80GB HBM3, 700 W).
+EAGER_BRUTE_NODE_MS = 358.307
+EAGER_LOCAL_FEATURES_S = 1.274
+# The default-config phase's open box (ASL-laser CSV files).
+DEFAULT_SCENE = "open_box/n_6_size_20_20_5_height_1_density_50"
 POINTS_ABS_BAR = 1e-4  # m, corrected points against the float64 plain node
 # X2's cut check at the grid node's shapes: below the node scan's largest
 # within-r count (27), so the top-k drops neighbours.
@@ -406,20 +437,25 @@ def phase_slice(card: str):
     ds = create_dataset(cfg.train_names[0], cfg)
     data = prepare_sequences([ds], cfg)
     prep_s = time.perf_counter() - t0
-    grid_launches = _kernels.GRID_LAUNCHES
+    grid_launches, knn_launches = _kernels.GRID_LAUNCHES, _kernels.KNN_LAUNCHES
+    notes = {"global_neighbors": " (scipy's cKDTree on an H100: 26 s)",
+             "local_features": " (with the eager brute count before X3: %.3f s)"
+                               % EAGER_LOCAL_FEATURES_S}
     for part, s in data.prep_seconds.items():
-        log("prep %s: %.3f s%s" % (part, s, " (scipy's cKDTree on an H100: 26 s)"
-                                   if part == "global_neighbors" else ""))
-    log("prep total: %.3f s (nn_backend %r; X2 launches in prep %d)"
-        % (prep_s, cfg.nn_backend, grid_launches))
+        log("prep %s: %.3f s%s" % (part, s, notes.get(part, "")))
+    log("prep total: %.3f s (nn_backend %r; X2 launches in prep %d, X3 %d)"
+        % (prep_s, cfg.nn_backend, grid_launches, knn_launches))
     if grid_launches <= 0:
         raise RuntimeError("X2 was not launched by the grid establishment of the prep")
+    if knn_launches <= 0:
+        raise RuntimeError("X3 was not launched by the per-scan K sizing of the prep")
     graph = data.cellwin[0]
     if graph is None:
         raise RuntimeError("the cellwin build declined: the slice would not run the kernels")
     rec = Record(cfg)
     model, history = train(cfg, callbacks=rec, train_data=data)
-    launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES, "grid": grid_launches}
+    launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES, "grid": grid_launches,
+                "knn": knn_launches}
     log("main path launches: K1 %d, K2 %d, X2 %d" % (launches["fwd"], launches["bwd"],
                                                    launches["grid"]))
     if launches["fwd"] <= 0 or launches["bwd"] <= 0:
@@ -578,11 +614,11 @@ def drive_node(scan, cfg, card: str, label: str, batches: int, reps: int, e2e_re
     outs = correct_cloud(model, cloud, cfg)
     torch.cuda.synchronize()
     launches = {"slab": _kernels.SLAB_LAUNCHES, "gather": _kernels.GATHER_LAUNCHES,
-                "grid": _kernels.GRID_LAUNCHES}
+                "grid": _kernels.GRID_LAUNCHES, "knn": _kernels.KNN_LAUNCHES}
     kept = int(outs[4].sum())
-    log("%s: %d raw points, padded %d, %d kept, %d corrected; launches X1 %d, P7 %d, X2 %d"
-        % (label, len(scan), cloud.size, kept, int(outs[3].sum()), launches["slab"],
-           launches["gather"], launches["grid"]))
+    log("%s: %d raw points, padded %d, %d kept, %d corrected; launches X1 %d, P7 %d, X2 %d, "
+        "X3 %d" % (label, len(scan), cloud.size, kept, int(outs[3].sum()), launches["slab"],
+                   launches["gather"], launches["grid"], launches["knn"]))
     if len(out) != kept or not all(np.isfinite(out[f]).all() for f in out.dtype.names):
         raise RuntimeError("%s: DepthCorrector output malformed (%d rows, %d kept)"
                            % (label, len(out), kept))
@@ -706,15 +742,20 @@ def phase_small(card: str):
     scan = node_scan(SMALL_SCENE)
     if pad_size(len(scan)) >= GRID_NN_MIN_POINTS:
         raise RuntimeError("the small scan would not route to the brute engine")
-    res = drive_node(scan, cfg, card, "small", batches=1, reps=3, e2e_reps=3)
-    if res["launches"]["gather"] <= 0:
-        raise RuntimeError("P7 was not launched on the brute engine: %s" % res["launches"])
+    res = drive_node(scan, cfg, card, "small", batches=3, reps=NODE_REPS, e2e_reps=E2E_REPS)
+    if res["launches"]["gather"] <= 0 or res["launches"]["knn"] <= 0:
+        raise RuntimeError("X3 / P7 were not launched on the brute engine: %s"
+                           % res["launches"])
+    log("small scan (brute engine): node_ms %.3f, node_e2e_ms %.3f; with the eager search "
+        "before X3 node_ms was %.3f (%s)" % (res["ms"], res["e2e_ms"], EAGER_BRUTE_NODE_MS,
+                                             card))
 
     # P7 on the node's own neighbour table, against the float64 plain version.
     cloud = Cloud.from_structured_array(scan, dtype=torch.float32, device=DEVICE)
     cloud = cloud.pad(pad_size(cloud.size))
     keep = res["outs"][4]
     points = cloud.to_points()
+    res["x3"] = check_knn("small scan", points, keep, float(cfg.nn_r), 32, card)
     _, nn = radius_neighbors(points, points, r=cfg.nn_r, k=32, valid_points=keep,
                              valid_query=keep)
     w = (nn >= 0).float()
@@ -756,6 +797,50 @@ def phase_small(card: str):
     res["p7_plain_ms"] = cuda_ms(lambda: features.gather_moments_plain(pts_n3, idx, wp), reps=3)
     log("P7 timing (float32, probe shapes): kernel %.4f ms vs plain %.4f ms (%s)"
         % (res["p7_ms"], res["p7_plain_ms"], card))
+    return res
+
+
+def check_knn(label: str, points, valid, r: float, k: int, card: str) -> dict:
+    """X3 on ``points`` (every row queries, ``valid`` marks rows and points)
+    against its plain twin on the card, in both modes: the top-k within r
+    (index tables equal, d2 bit for bit) and the counts (equal); both
+    timed, with the bounds of this run's work. Raises on a missed bar."""
+    import torch
+
+    from depth_correction_tpu_torch.ops import knn
+
+    args = (points, points, k, r, valid, valid)
+    d2, idx = knn.knn_d2(*args)
+    counts = knn.neighbor_counts(points, points, r, valid)
+    torch.cuda.synchronize()
+    pd2, pidx = knn.knn_d2(*args, plain=True)
+    pcounts = knn.neighbor_counts(points, points, r, valid, plain=True)
+    same_idx, same_d2 = bool(torch.equal(idx, pidx)), bit_equal(d2, pd2)
+    same_counts = bool(torch.equal(counts, pcounts))
+    n, nv = points.shape[0], int(valid.sum())
+    held = int((idx >= 0).sum())
+    log("X3 %s: %d points (%d valid), k %d, r %g (largest count %d, %d pairs held); kernel "
+        "vs plain: index tables equal %s, d2 bit-equal %s, counts equal %s"
+        % (label, n, nv, k, r, int(counts.max()), held, same_idx, same_d2, same_counts))
+    if not (same_idx and same_d2 and same_counts):
+        raise RuntimeError("X3 %s misses its bars against the plain twin" % label)
+    res = {"err": 0.0,
+           "ms": cuda_ms(lambda: knn.knn_d2(*args), reps=20),
+           "counts_ms": cuda_ms(lambda: knn.neighbor_counts(points, points, r, valid), reps=20),
+           "plain_ms": cuda_ms(lambda: knn.knn_d2(*args, plain=True), reps=1, warmup=1),
+           "counts_plain_ms": cuda_ms(lambda: knn.neighbor_counts(points, points, r, valid,
+                                                                  plain=True),
+                                      reps=1, warmup=1),
+           # Bound: 8 float ops per pair test; the top-k tests every valid
+           # point for each valid query, the counts for every query. Queries
+           # and points (12 bytes and a validity byte each) read once, the
+           # (Q, k) tables or (Q,) counts written once.
+           "bound": bound(n * 26 + n * k * 8, {"fp32": 8 * nv * nv}),
+           "counts_bound": bound(n * 13 + n * 13 + n * 4, {"fp32": 8 * n * nv})}
+    log("X3 %s timing (float32): top-%d %.4f ms (plain %.4f ms, bound %.4f ms, %s), counts "
+        "%.4f ms (plain %.4f ms, bound %.4f ms) (%s)"
+        % (label, k, res["ms"], res["plain_ms"], res["bound"][0], res["bound"][1],
+           res["counts_ms"], res["counts_plain_ms"], res["counts_bound"][0], card))
     return res
 
 
@@ -1098,13 +1183,15 @@ def phase_grid(card: str, data, cfg, scan):
 
 
 def phase_probes_p6_p8(card: str):
-    """The P6 and P8 scripts on the card; each script's launches are counted
-    alone. Returns their kernels-line entries."""
+    """The P6, P8 and P7 scripts on the card; each script's launches are
+    counted alone. Returns their kernels-line entries."""
     import torch
 
     from depth_correction_tpu_torch.ops.gather_probe import gather_probe, gather_probe_plain
     from depth_correction_tpu_torch.ops.layout_probe import layout_probe, layout_probe_plain
+    from depth_correction_tpu_torch.ops import _kernels
     from depth_correction_tpu_torch.scripts import exp_mosaic_probe as p6
+    from depth_correction_tpu_torch.scripts import exp_pallas_gather as p7
     from depth_correction_tpu_torch.scripts import exp_pallas_gather2 as p8
 
     dev = torch.device(DEVICE)
@@ -1165,9 +1252,307 @@ def phase_probes_p6_p8(card: str):
         "library_ms": plain8, "device_busy_ms": busy8,
         "variants": {"%s_%s" % (c, f): e["ms"] for c, fs in r8["cases"].items()
                      for f, e in fs.items() if e}})
+    # P7's two stages (the TPU script's draws, stage 1 first).
+    r7, n7 = counted(lambda: p7.run(dev), "GATHER_SUM_LAUNCHES")
+    n7_moments = _kernels.GATHER_LAUNCHES
+    pr, mo = r7["probe"], r7["moments"]
+    log("  P7a gather-sum %-4s err vs plain %.1e, vs float64 %.3e %9.4f ms (plain %.4f ms)"
+        % ("OK" if pr["err"] == 0 else "FAIL", pr["err"], pr["rel64"], pr["ms"],
+           pr["plain_ms"]))
+    log("  P7 stage 2 (%d launches) rel err vs plain float32 %.3e, float64 %.3e %9.4f ms "
+        "(plain %.4f ms)" % (n7_moments, mo["err32"], mo["err64"], mo["ms"], mo["plain_ms"]))
+    if pr["err"] != 0:
+        failures.append("P7a is not bit-equal to its plain version")
+    if n7_moments <= 0 or not (mo["err32"] <= PROBE_REL_BAR and mo["err64"] <= PROBE_REL_BAR):
+        failures.append("P7 at stage 2 misses %.0e: %s" % (PROBE_REL_BAR, mo))
+    m7, t7, k7 = p7.PROBE_M, p7.PROBE_T, p7.PROBE_K
+    entries.append({
+        "name": "gather_sum (P7a)", "route": "cuda",
+        "source": "depth_correction_tpu_torch/csrc/gather_sum.cu",
+        "replaces": "scripts/exp_pallas_gather.py:45", "launches": n7,
+        "max_abs_err": pr["err"], "ms": pr["ms"], "plain_ms": pr["plain_ms"],
+        # Bound: the table, the indices and the (3, T) output moved once;
+        # one add per gathered value.
+        "bound": bound(3 * m7 * 4 + t7 * k7 * 4 + 3 * t7 * 4, {"fp32": 3 * t7 * k7}),
+        "library_ms": None, "variants": {"stage2_moments": mo["ms"]}})
     if failures:
         raise RuntimeError("probe bars missed: " + "; ".join(failures))
     return entries
+
+
+def phase_capped(card: str):
+    """The bench's capped row on the slice's scene: prep, 8 Adam steps
+    through train(), capped32_ms, and the loss at w=0 against the float64
+    plain path on the same graph."""
+    import math
+
+    import torch
+
+    from depth_correction_tpu_torch.datasets import create_dataset
+    from depth_correction_tpu_torch.models import ScaledPolynomial
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.scripts import bench_config as config
+    from depth_correction_tpu_torch.train import make_loss_fn, prepare_sequences, train
+
+    cfg = config(DEVICE, STEPS, uncapped=False)
+    _kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    data = prepare_sequences([create_dataset(cfg.train_names[0], cfg)], cfg)
+    prep_s = time.perf_counter() - t0
+    if data.cellwin != (None,):
+        raise RuntimeError("the capped row must run the gather moments")
+    nn = data.neighbors[0]
+    kept = (nn >= 0).sum(1)[data.masks[0]]
+    launches = {"grid": _kernels.GRID_LAUNCHES, "gather": _kernels.GATHER_LAUNCHES}
+    log("capped prep: %.3f s (%s); %d rows, K %d, neighbours per row %d-%d after mutual "
+        "trimming; launches X2 %d, P7 %d"
+        % (prep_s, ", ".join("%s %.3f" % kv for kv in data.prep_seconds.items()),
+           int(data.masks[0].sum()), nn.shape[1], int(kept.min()), int(kept.max()),
+           launches["grid"], launches["gather"]))
+    if launches["grid"] <= 0 or launches["gather"] <= 0 or int(kept.max()) > 32:
+        raise RuntimeError("the capped prep did not run as the bench's: %s" % launches)
+    model, history = train(cfg, train_data=data)
+    losses = [h[1] for h in history]
+    if not all(math.isfinite(v) for v in losses):
+        raise RuntimeError("non-finite capped loss: %s" % losses)
+    step_ms = statistics.median(h[2] for h in history[1:])
+    data64 = data.to(dtype=torch.float64)
+    ref = ScaledPolynomial(w=[0.0], exponent=[4.0], dtype=torch.float64, device=DEVICE)
+    with torch.no_grad():
+        ref_loss = float(make_loss_fn(cfg, plain=True)(ref, data64))
+    loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+    log("capped32_ms %.3f (median of steps 1..%d: %s); loss at w=0 %.9e vs float64 plain "
+        "%.9e (rel %.3e) (%s)" % (step_ms, STEPS - 1, ", ".join("%.3f" % h[2] for h in history),
+                                  losses[0], ref_loss, loss_rel, card))
+    if not loss_rel <= LOSS_REL_BAR:
+        raise RuntimeError("capped loss at w=0 misses the 1e-5 bar: %.3e" % loss_rel)
+    res = {"ms": step_ms, "loss_rel": loss_rel, "prep_s": prep_s}
+    res["profile"] = profile_steps(cfg, data, card)
+    return res
+
+
+def check_shadow_filter(scan, cfg, card: str) -> dict:
+    """The shadow filter on one scan of the default config. X3's counts
+    (which size k_dir) and top-k over the unit view directions, called as
+    local_feature_cloud calls them, held against their plain twins; the
+    mask from those tables must drop some points and keep others, and
+    local_feature_cloud must keep just as many. The direction search's
+    launches are local_feature_cloud's with the filter on less those with
+    it off. Raises on a missed bar."""
+    import torch
+
+    from depth_correction_tpu_torch import preproc
+    from depth_correction_tpu_torch.cloud import Cloud
+    from depth_correction_tpu_torch.ops import _kernels, filters, knn
+
+    cloud = Cloud.from_structured_array(scan, dtype=cfg.torch_dtype(),
+                                        device=cfg.torch_device())
+    r_dir = filters.ball_angle_to_distance(cfg.shadow_neighborhood_angle)
+    _kernels.reset_launch_counts()
+    k_dir = knn.suggest_k_max(cloud.dirs, r=r_dir, valid_points=cloud.valid)
+    _, dir_nn = knn.radius_neighbors(cloud.dirs, r=r_dir, k=k_dir, valid_points=cloud.valid)
+    launches = _kernels.KNN_LAUNCHES
+    _, plain_nn = knn.radius_neighbors(cloud.dirs, r=r_dir, k=k_dir, valid_points=cloud.valid,
+                                       plain=True)
+    if not torch.equal(dir_nn, plain_nn):
+        raise RuntimeError("X3's direction table differs from its plain twin's")
+    res = check_knn("shadow directions", cloud.dirs, cloud.valid, r_dir, k_dir, card)
+    shadow_ok = filters.filter_shadow_mask(cloud, dir_nn, (dir_nn >= 0).to(cloud.depth.dtype),
+                                           cfg.shadow_angle_bounds)
+    n, kept = int(cloud.valid.sum()), int(shadow_ok.sum())
+
+    off = cfg.copy()
+    off.shadow_angle_bounds = []
+    _kernels.reset_launch_counts()
+    fc = preproc.local_feature_cloud(scan, cfg)
+    on_launches = _kernels.KNN_LAUNCHES
+    _kernels.reset_launch_counts()
+    preproc.local_feature_cloud(scan, off)
+    dir_launches = on_launches - _kernels.KNN_LAUNCHES
+    fc_kept = int(fc.valid.sum())
+    log("shadow filter (one scan): r_dir %g, k_dir %d, %d points, %d dropped, %d kept "
+        "(local_feature_cloud keeps %d); X3 launches on the directions %d (direct calls %d)"
+        % (r_dir, k_dir, n, n - kept, kept, fc_kept, dir_launches, launches))
+    if not (launches > 0 and dir_launches == launches):
+        raise RuntimeError("X3 did not run on the view directions as local_feature_cloud "
+                           "runs it: %d direct, %d in local_feature_cloud"
+                           % (launches, dir_launches))
+    if not 0 < kept < n:
+        raise RuntimeError("the shadow mask dropped %d of %d points: none or all" % (n - kept, n))
+    if fc_kept != kept:
+        raise RuntimeError("local_feature_cloud kept %d points, the checked mask %d"
+                           % (fc_kept, kept))
+    res.update(k=k_dir, dropped=n - kept, launches=launches)
+    return res
+
+
+def check_vp_dispersion(data, cfg) -> dict:
+    """The vp_dispersion bound on the default config's global cloud, rebuilt
+    from the prepared batch as prepare_sequences builds it: P7's launches
+    in global_cloud_mask (the bound on less the bound off), vp_dispersion
+    against the float64 plain moments of the same viewpoints, neighbours and
+    weights, equal masks, and the rows kept equal to those prep kept.
+    Raises on a missed bar."""
+    import torch
+
+    from depth_correction_tpu_torch import preproc
+    from depth_correction_tpu_torch.ops import _kernels, features, filters
+    from depth_correction_tpu_torch.train import _use_cellwin
+
+    gcloud = preproc.global_cloud(data.batches[0])
+    est_cfg = cfg
+    if _use_cellwin(cfg, True):
+        est_cfg = cfg.copy()
+        est_cfg.nn_max_neighbors = None
+        est_cfg.nn_symmetrize = False
+    nn, w = preproc.establish_neighborhoods(gcloud, est_cfg)
+    feat = preproc.compute_neighborhood_features(gcloud, nn, w, cfg)
+    off = cfg.copy()
+    off.vp_dispersion_bounds = []
+    _kernels.reset_launch_counts()
+    gmask = filters.global_cloud_mask(feat, nn, w, cfg, mask=feat.mask)
+    launches = _kernels.GATHER_LAUNCHES
+    _kernels.reset_launch_counts()
+    gmask_off = filters.global_cloud_mask(feat, nn, w, off, mask=feat.mask)
+    launches -= _kernels.GATHER_LAUNCHES
+
+    vd = features.vp_dispersion(feat, nn, w)
+    _, comps, _ = features.gather_moments_plain(feat.vps.double(), nn, w.double())
+    vd64 = comps[0] + comps[1] + comps[2]
+    rows = feat.valid
+    err = float((vd.double() - vd64)[rows].abs().max())
+    rel = err / max(float(vd64[rows].abs().max()), 1e-30)
+    lo, hi = cfg.vp_dispersion_bounds[:2]
+    mask32 = gmask_off & filters.within_bounds(vd, lo, hi)
+    mask64 = gmask_off & filters.within_bounds(vd64, lo, hi)
+    flips = int((mask32 != mask64).sum())
+    prep_rows = data.query_rows[0][data.masks[0]]
+    same_rows = bool(torch.equal(torch.nonzero(gmask).reshape(-1), prep_rows))
+    dropped = int((gmask_off & ~gmask).sum())
+    log("vp_dispersion (global cloud, %d points, K %d): P7 launches for the bound %d; vs "
+        "float64 plain moments max abs %.3e (%.3e of max |value|); masks of [%g, %g] differ "
+        "in %d rows; the bound drops %d of %d rows, keeps %d; rows equal prep's %s"
+        % (int(rows.sum()), nn.shape[1], launches, err, rel, lo, hi, flips, dropped,
+           int(gmask_off.sum()), int(gmask.sum()), same_rows))
+    if launches <= 0:
+        raise RuntimeError("P7 did not run for the vp_dispersion bound")
+    if not rel <= PROBE_REL_BAR:
+        raise RuntimeError("vp_dispersion misses the %.0e relative bar: %.3e"
+                           % (PROBE_REL_BAR, rel))
+    if flips or not torch.equal(gmask, mask32):
+        raise RuntimeError("the vp_dispersion mask differs from the float64 plain one in %d "
+                           "rows" % flips)
+    if not (dropped > 0 and int(gmask.sum()) > 0):
+        raise RuntimeError("the vp_dispersion bound dropped %d rows and kept %d: none or all"
+                           % (dropped, int(gmask.sum())))
+    if not same_rows:
+        raise RuntimeError("the checked mask's rows differ from those prep kept")
+    return {"err": err, "launches": launches}
+
+
+def write_asl_sequence(root: str, scene: str, name: str, noise: float = 0.005) -> int:
+    """The synthetic scene's scans as ASL-laser files (the reference
+    loader's layout, datasets/asl_laser.py): csv_local/Hokuyo_<i>.csv with
+    the sensor-frame points, each coordinate with ``noise`` m of seeded
+    Gaussian noise (exact planes would leave the smallest eigenvalues to
+    rounding), and csv_global/pose_scanner_leica.csv. Returns the number of
+    points written."""
+    import numpy as np
+
+    from depth_correction_tpu_torch.datasets.asl_laser import write_poses
+    from depth_correction_tpu_torch.datasets.synthetic import OpenBoxDataset
+
+    ds = OpenBoxDataset(name=scene)
+    seq = os.path.join(root, name)
+    os.makedirs(os.path.join(seq, "csv_local"))
+    os.makedirs(os.path.join(seq, "csv_global"))
+    total = 0
+    rng = np.random.default_rng(0)
+    for i in ds.ids:
+        cloud = ds.local_cloud(i)
+        xyz = np.c_[cloud["x"], cloud["y"], cloud["z"]] + noise * rng.standard_normal(
+            (len(cloud), 3))
+        pts = np.c_[np.full(len(cloud), float(i)), xyz, np.ones(len(cloud))]
+        np.savetxt(os.path.join(seq, "csv_local", "Hokuyo_%d.csv" % i), pts, fmt="%.9f",
+                   delimiter=", ", header="timestamp, x, y, z, intensity", comments="")
+        total += len(cloud)
+    write_poses(ds.ids, [ds.cloud_pose(i) for i in ds.ids],
+                os.path.join(seq, "csv_global", "pose_scanner_leica.csv"))
+    return total
+
+
+def phase_default(card: str):
+    """A default Config() on the open box written as ASL-laser files, with
+    the shadow filter: prep and train() on the card; X3 and P7 must have
+    launched in prep; X3 on the view directions (check_shadow_filter) and P7
+    on the viewpoints (check_vp_dispersion) held against their plain twins
+    at this config's shapes; the loss at w=0 against the float64 plain
+    path."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+
+    from depth_correction_tpu_torch import Config
+    from depth_correction_tpu_torch.datasets import asl_laser, create_dataset
+    from depth_correction_tpu_torch.models import load_model
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.train import make_loss_fn, prepare_sequences, train
+
+    root = tempfile.mkdtemp(prefix="dc_asl_")
+    try:
+        t0 = time.perf_counter()
+        n_raw = write_asl_sequence(os.path.join(root, "asl_laser"), DEFAULT_SCENE, "open_box")
+        # The loader reads DEPTH_CORRECTION_DATA when it is imported.
+        asl_laser.data_dir = os.path.join(root, "asl_laser")
+        log("default config: %s written as ASL-laser CSV files, %d points (%.1f s)"
+            % (DEFAULT_SCENE, n_raw, time.perf_counter() - t0))
+        cfg = Config()
+        cfg.log_dir = os.path.join(root, "log")
+        cfg.train_names = ["asl_laser/open_box"]
+        cfg.n_opt_iters = STEPS
+        cfg.float_type = "float32"
+        cfg.shadow_angle_bounds = [0.1745, 2.967]  # 10 to 170 degrees
+        ds = create_dataset(cfg.train_names[0], cfg)
+        _kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        data = prepare_sequences([ds], cfg)
+        prep_s = time.perf_counter() - t0
+        launches = {"knn": _kernels.KNN_LAUNCHES, "grid": _kernels.GRID_LAUNCHES,
+                    "gather": _kernels.GATHER_LAUNCHES}
+        rows = int(data.masks[0].sum())
+        log("default prep: %.3f s (%s); %d points, %d rows kept by the masks (vp_dispersion "
+            ">= 0.36 among them); launches X3 %d, X2 %d, P7 %d; cellwin graph %s"
+            % (prep_s, ", ".join("%s %.3f" % kv for kv in data.prep_seconds.items()),
+               int(data.batches[0].cloud.valid.sum()), rows, launches["knn"],
+               launches["grid"], launches["gather"],
+               "built" if data.cellwin[0] is not None else "declined"))
+        if launches["knn"] <= 0 or launches["gather"] <= 0:
+            raise RuntimeError("X3 / P7 were not launched in the default prep: %s" % launches)
+        shadow = check_shadow_filter(next(iter(ds))[0], cfg, card)
+        vp = check_vp_dispersion(data, cfg)
+        if rows <= 0:
+            raise RuntimeError("the default masks kept no row")
+        model, history = train(cfg, train_data=data)
+        losses = [h[1] for h in history]
+        if not all(math.isfinite(v) for v in losses):
+            raise RuntimeError("non-finite default-config loss: %s" % losses)
+        ref = load_model(cfg=cfg, dtype=torch.float64)
+        with torch.no_grad():
+            ref_loss = float(make_loss_fn(cfg, plain=True)(ref, data.to(dtype=torch.float64)))
+        loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
+        step_ms = statistics.median(h[2] for h in history[1:])
+        log("default config: %s after %d steps; loss at w=0 %.9e vs float64 plain %.9e (rel "
+            "%.3e); median step %.3f ms (%s)" % (model, STEPS, losses[0], ref_loss, loss_rel,
+                                                 step_ms, card))
+        if not loss_rel <= LOSS_REL_BAR:
+            raise RuntimeError("default-config loss at w=0 misses the 1e-5 bar: %.3e"
+                               % loss_rel)
+        return {"loss_rel": loss_rel, "step_ms": step_ms, "prep_s": prep_s, "rows": rows,
+                "launches": launches, "shadow": shadow, "vp": vp}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -1210,11 +1595,16 @@ def main() -> int:
     gnode = grid["node"]
     log("grid node: node_ms %.3f, node_e2e_ms %.3f, node_points %d; total %.1f s (%s)"
         % (gnode["ms"], gnode["e2e_ms"], gnode["points"], time.perf_counter() - t0, card))
-    log("[phase 8] probes P6, P8 (depth_correction_tpu_torch/scripts)")
+    log("[phase 8] probes P6, P8, P7a and P7 (depth_correction_tpu_torch/scripts)")
     probes += phase_probes_p6_p8(card)
+    log("[phase 9] capped row (bench_config(uncapped=False), %d Adam steps)" % STEPS)
+    capped = phase_capped(card)
+    log("[phase 10] default Config() on ASL-laser files, shadow filter on")
+    default = phase_default(card)
     log("build + all phases: %.1f s (%s)" % (time.perf_counter() - t0, card))
     k = res["kernels"]
     g = res["graph"]
+    shadow = default["shadow"]
     kept_f, kept_b = k["kept"]["fwd"], k["kept"]["bwd"]
     kernels = [
         {"name": "cellwin_fwd (K1)", "route": "cuda",
@@ -1246,7 +1636,8 @@ def main() -> int:
          "replaces": "scripts/exp_pallas_gather.py:83",
          "launches": small["launches"]["gather"], "max_abs_err": small["p7_err"],
          "ms": small["p7_ms"], "plain_ms": small["p7_plain_ms"], "bound": small["p7_bound"],
-         "library_ms": None},
+         "library_ms": None, "launches_default": default["launches"]["gather"],
+         "vp_dispersion_err": default["vp"]["err"]},
         {"name": "grid_query (X2)", "route": "cuda",
          "source": "depth_correction_tpu_torch/csrc/grid_query.cu",
          "replaces": "depth_correction_tpu/ops/grid_hash.py:108",
@@ -1255,11 +1646,36 @@ def main() -> int:
          "bound": grid["global"]["bound"], "library_ms": None,
          "variants": {"global_counts": grid["global"]["counts_ms"], "scan": grid["scan"]["ms"],
                       "scan_counts": grid["scan"]["counts_ms"]}},
+        {"name": "knn_brute (X3)", "route": "cuda",
+         "source": "depth_correction_tpu_torch/csrc/knn_brute.cu",
+         "replaces": "depth_correction_tpu/ops/knn.py:51",
+         "launches": small["launches"]["knn"], "max_abs_err": small["x3"]["err"],
+         "ms": small["x3"]["ms"], "plain_ms": small["x3"]["plain_ms"],
+         "bound": small["x3"]["bound"], "library_ms": None,
+         "counts_bound_ms": small["x3"]["counts_bound"][0],
+         "launches_default": default["launches"]["knn"],
+         "shadow_dirs": {"k": shadow["k"], "dropped": shadow["dropped"],
+                         "max_abs_err": shadow["err"], "ms": shadow["ms"],
+                         "plain_ms": shadow["plain_ms"], "bound_ms": shadow["bound"][0],
+                         "counts_ms": shadow["counts_ms"],
+                         "counts_bound_ms": shadow["counts_bound"][0]},
+         "variants": {"counts": small["x3"]["counts_ms"],
+                      "counts_plain": small["x3"]["counts_plain_ms"]}},
     ] + probes
     for en in kernels:
         en["bound_ms"], en["bound_by"] = en.pop("bound")
         log("%-26s %10.4f ms, bound %.4f ms (%s), %d launches" % (
             en["name"], en["ms"], en["bound_ms"], en["bound_by"], en["launches"]))
+    # The end-to-end numbers under bench.py's keys (bench.py:745-778).
+    print(json.dumps({"bench": {
+        "train_step_ms": res["step_ms"], "loss_rel_err_w0": res["loss_rel"],
+        "w_rel_err_6steps": res["w_rel"], "capped32_ms": capped["ms"],
+        "capped32_loss_rel_err_w0": capped["loss_rel"], "node_ms": node["ms"],
+        "node_e2e_ms": node["e2e_ms"], "node_points": node["points"],
+        "small_node_ms": small["ms"], "small_node_e2e_ms": small["e2e_ms"],
+        "grid_node_ms": gnode["ms"], "prep_s": res["prep_s"],
+        "local_features_s": res["data"].prep_seconds.get("local_features"),
+        "default_loss_rel_err_w0": default["loss_rel"], "card": card}}), flush=True)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
-"""Datasets: synthetic fixtures and corruption wrappers (counterpart of
-``depth_correction_tpu/datasets/__init__.py``; the real-data loaders are not
-ported yet).
+"""Datasets: synthetic fixtures, the ASL-laser loader and corruption
+wrappers (counterpart of ``depth_correction_tpu/datasets/__init__.py``; the
+other real-data loaders are not ported yet).
 
 All datasets share the reference's duck-typed protocol
 (reference: src/depth_correction/dataset.py): ``ds.ids``,
@@ -42,8 +42,8 @@ __all__ = [
 
 
 def dataset_by_name(name: str):
-    """Resolve a synthetic dataset class from a name prefix
-    (reference: dataset.py:912-930)."""
+    """Resolve a dataset class from a name prefix: the synthetic scenes and
+    ``asl_laser`` (reference: dataset.py:912-930)."""
     prefix = name.split("/")[0]
     if prefix == "ground_plane":
         return GroundPlaneDataset
@@ -53,7 +53,12 @@ def dataset_by_name(name: str):
         return PlaneDataset
     if prefix == "angle":
         return AngleDataset
-    raise NotImplementedError("dataset %s is not ported yet (synthetic names only)" % name)
+    if prefix == "asl_laser":
+        from .asl_laser import Dataset
+
+        return Dataset
+    raise NotImplementedError("dataset %s is not ported yet (synthetic and asl_laser names "
+                              "only)" % name)
 
 
 def noisy_dataset(ds, cfg):
@@ -76,7 +81,10 @@ def noisy_dataset(ds, cfg):
             device="cpu",
         )
         w = getattr(gt_model, "w", None)
-        if w is not None and bool(np.any(w.detach().numpy() != 0.0)):
+        p0 = getattr(gt_model, "p0", None)
+        has_bias = ((w is not None and bool(np.any(w.detach().numpy() != 0.0)))
+                    or (p0 is not None and float(p0) != 0.0))
+        if has_bias:
             ds = DepthBiasDataset(ds, gt_model, cfg=cfg)
     if cfg.depth_noise:
         ds = NoisyDepthDataset(ds, noise=cfg.depth_noise)

@@ -13,11 +13,15 @@ Each model (reference: src/depth_correction/model.py:70-354) offers
 Trainable weights are ``nn.Parameter``s; exponents are buffers (frozen, as
 in the reference, model.py:170) unless ``learnable_exponents``. ``apply``
 deliberately shadows ``nn.Module.apply``: these modules have no children.
+A saved state (``model_state_dict``) is the JAX package's npz checkpoint
+(``utils/checkpoint.py:save_pytree``), read by :func:`load_state_file`.
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -25,9 +29,13 @@ from ..cloud import Cloud
 
 __all__ = [
     "BaseModel",
+    "InvCos",
+    "Linear",
     "Polynomial",
+    "ScaledInvCos",
     "ScaledPolynomial",
     "load_model",
+    "load_state_file",
     "model_by_name",
 ]
 
@@ -59,6 +67,31 @@ class BaseModel(nn.Module):
 
     def forward(self, cloud: Cloud) -> Cloud:
         return self.apply(cloud)
+
+
+def _scalar(value, default: float, dtype, device) -> nn.Parameter:
+    v = torch.as_tensor(default if value is None else value, dtype=dtype, device=device)
+    return nn.Parameter(v.reshape(()).clone())
+
+
+class Linear(BaseModel):
+    """depth' = w0 * depth + w1 * inc_angle + b (reference: model.py:113-146;
+    JAX package, models/__init__.py:81-100)."""
+
+    def __init__(self, w0=None, w1=None, b=None, dtype=None, device=None):
+        super().__init__()
+        self.w0 = _scalar(w0, 1.0, dtype, device)
+        self.w1 = _scalar(w1, 0.0, self.w0.dtype, self.w0.device)
+        self.b = _scalar(b, 0.0, self.w0.dtype, self.w0.device)
+
+    def correct_depth(self, depth, inc_angles):
+        return self.w0 * depth + self.w1 * inc_angles + self.b
+
+    def inverse_depth(self, depth, inc_angles):
+        return (depth - self.w1 * inc_angles - self.b) / self.w0
+
+    def __str__(self):
+        return "Linear(%.6g, %.6g, %.6g)" % (float(self.w0), float(self.w1), float(self.b))
 
 
 def _poly_bias(w, exponent, inc_angles, learnable_exponents: bool = False):
@@ -131,18 +164,60 @@ class ScaledPolynomial(_PolyBase):
         return "ScaledPolynomial(%s)" % self._terms()
 
 
+class InvCos(BaseModel):
+    """depth' = depth - p0 / cos(gamma) (reference: model.py:289-313; JAX
+    package, models/__init__.py:192-209)."""
+
+    def __init__(self, p0=None, dtype=None, device=None):
+        super().__init__()
+        self.p0 = _scalar(p0, 0.0, dtype, device)
+
+    def bias(self, inc_angles):
+        return self.p0 / torch.cos(inc_angles)
+
+    def correct_depth(self, depth, inc_angles):
+        return depth - self.bias(inc_angles)
+
+    def inverse_depth(self, depth, inc_angles):
+        return depth + self.bias(inc_angles)
+
+    def __str__(self):
+        return "InvCos(%.6g)" % float(self.p0)
+
+
+class ScaledInvCos(BaseModel):
+    """depth' = depth * (1 - p0 / |cos(gamma)|) (reference: model.py:316-349;
+    JAX package, models/__init__.py:212-229)."""
+
+    def __init__(self, p0=None, dtype=None, device=None):
+        super().__init__()
+        self.p0 = _scalar(p0, 0.0, dtype, device)
+
+    def bias(self, inc_angles):
+        return self.p0 / torch.abs(torch.cos(inc_angles))
+
+    def correct_depth(self, depth, inc_angles):
+        return depth * (1.0 - self.bias(inc_angles))
+
+    def inverse_depth(self, depth, inc_angles):
+        return depth / (1.0 - self.bias(inc_angles))
+
+    def __str__(self):
+        return "ScaledInvCos(%.6g)" % float(self.p0)
+
+
 _MODELS = {
     "BaseModel": BaseModel,
+    "Linear": Linear,
+    "InvCos": InvCos,
     "Polynomial": Polynomial,
+    "ScaledInvCos": ScaledInvCos,
     "ScaledPolynomial": ScaledPolynomial,
 }
-_NOT_PORTED = ("Linear", "InvCos", "ScaledInvCos")
 
 
 def model_by_name(name: str):
     """Whitelisted model lookup (reference: model.py:352-354)."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError("model %s is not ported yet" % name)
     if name not in _MODELS:
         raise ValueError("Unknown model: %s" % name)
     return _MODELS[name]
@@ -166,13 +241,25 @@ def _coerce(cls, kwargs: dict) -> dict:
     return {k: v for k, v in kwargs.items() if v is not None}
 
 
+def load_state_file(path: str) -> dict:
+    """A saved model state as a flat {name: array} dict: the npz file the
+    JAX package writes (utils/checkpoint.py:32-49), keys matched by their
+    trailing name; ``path`` may leave out the ``.npz`` suffix."""
+    if not path.endswith(".npz") and os.path.exists(path + ".npz"):
+        path = path + ".npz"
+    with np.load(path, allow_pickle=False) as data:
+        return {k.split("/")[-1]: data[k] for k in data.files}
+
+
 def load_model(class_name: Optional[str] = None,
                model_args: Optional[Sequence] = None,
                model_kwargs: Optional[dict] = None,
                state_dict=None, cfg=None, dtype=None, device=None):
-    """Construct a model from config and/or a state dict of arrays
-    (reference: model.py:19-67). ``cfg`` supplies the class, arguments,
-    dtype (``cfg.torch_dtype()``) and device (``cfg.torch_device()``)."""
+    """Construct a model from config and/or a saved state: a dict of
+    arrays or the path of an npz file (:func:`load_state_file`)
+    (reference: model.py:19-67; JAX package, models/__init__.py:274-310).
+    ``cfg`` supplies the class, arguments, dtype (``cfg.torch_dtype()``)
+    and device (``cfg.torch_device()``)."""
     if cfg is not None:
         class_name = class_name or cfg.model_class
         if model_args is None:
@@ -184,7 +271,7 @@ def load_model(class_name: Optional[str] = None,
         dtype = dtype or cfg.torch_dtype()
         device = device or cfg.torch_device()
     if isinstance(state_dict, str) and state_dict:
-        raise NotImplementedError("loading model_state_dict files is not ported yet")
+        state_dict = load_state_file(state_dict)
     cls = model_by_name(class_name)
     kw = _coerce(cls, model_kwargs or {})
     if state_dict:

@@ -13,8 +13,8 @@ Engines (``cfg.nn_backend``), as in the JAX package:
   column-aligned cell sort (``ops/grid_hash.py``) and slab-window moments
   (``ops/slabwin.py``, kernel X1), within-r and uncapped (the reference's
   query_ball_point semantics);
-- ``'brute'``, the default below: the tiled brute-force search
-  (``ops/knn.py``, up to K neighbours within r) and the gather moments
+- ``'brute'``, the default below: the brute-force search (``ops/knn.py``,
+  kernel X3: up to K neighbours within r) and the gather moments
   (``ops/features.py``, kernel P7);
 - ``'grid'``, the K-capped gather-window engine: the cell sort sized on
   the device (``grid_hash.grid_sort_traced``), the up-to-K nearest within
@@ -190,7 +190,7 @@ def correct_cloud(model, cloud: Cloud, cfg: Config, k: Optional[int] = None,
         points = cloud.to_points()
         if backend == "brute":
             _, nn = radius_neighbors(points, points, r=float(cfg.nn_r), k=k,
-                                     valid_points=keep, valid_query=keep)
+                                     valid_points=keep, valid_query=keep, plain=plain)
             return _apply_impl(model, cloud, nn, *bounds, min_valid=min_valid, plain=plain)
         if backend == "grid":
             _, nn = _grid_neighbors(points, keep, float(cfg.nn_r), k, plain)

@@ -12,9 +12,10 @@ The launchers validate device, dtype, shape and contiguity before passing
 pointers, launch on the current stream, and raise when the C entry returns
 a CUDA error. Launch counts of K1/K2 (and of their first versions, kept
 for an A/B on the card) are kept by their callers in ``ops/cellwin.py``;
-X1, X2, P7 and the probes P1-P6, P8 count here (:data:`SLAB_LAUNCHES`,
-:data:`GRID_LAUNCHES`, :data:`GATHER_LAUNCHES`, :data:`KNOCKOUT_LAUNCHES`,
-:data:`DOT_LAUNCHES`, :data:`WINDOW_LAUNCHES`, :data:`LAYOUT_LAUNCHES`,
+X1, X2, X3, P7 and the probes P1-P6, P7a, P8 count here
+(:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`, :data:`KNN_LAUNCHES`,
+:data:`GATHER_LAUNCHES`, :data:`KNOCKOUT_LAUNCHES`, :data:`DOT_LAUNCHES`,
+:data:`WINDOW_LAUNCHES`, :data:`LAYOUT_LAUNCHES`, :data:`GATHER_SUM_LAUNCHES`,
 :data:`GATHER_PROBE_LAUNCHES`), once per accepted launch.
 """
 from __future__ import annotations
@@ -32,7 +33,9 @@ __all__ = [
     "DOT_LAUNCHES",
     "GATHER_LAUNCHES",
     "GATHER_PROBE_LAUNCHES",
+    "GATHER_SUM_LAUNCHES",
     "GRID_LAUNCHES",
+    "KNN_LAUNCHES",
     "KNOCKOUT_LAUNCHES",
     "LAYOUT_LAUNCHES",
     "SLAB_LAUNCHES",
@@ -45,7 +48,9 @@ __all__ = [
     "launch_cellwin_knockout",
     "launch_gather_moments",
     "launch_gather_probe",
+    "launch_gather_sum",
     "launch_grid_query",
+    "launch_knn_brute",
     "launch_layout_probe",
     "launch_moment_dot",
     "launch_moment_window",
@@ -58,7 +63,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin.cu", "cellwin_v1.cu", "gather_moments.cu", "slabwin.cu",
                              "cellwin_knockout.cu", "moment_dot.cu", "moment_window.cu",
-                             "grid_query.cu", "layout_probe.cu", "gather_probe.cu"))
+                             "grid_query.cu", "layout_probe.cu", "gather_probe.cu",
+                             "knn_brute.cu", "gather_sum.cu"))
 # Headers the sources include; they key the build like the sources.
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin_fwd.cuh", "tf32_mma.cuh"))
@@ -73,18 +79,21 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-# Launches of X1 (slab-window moments), X2 (the grid radius search), P7
-# (gather moments), P1 (the cell-window knockout), P2 (the moment product),
-# P3-P5 (the moment product with in-kernel operands), P6 (the layout
-# probes) and P8 (the gather probes), counted where each kernel is launched
-# and nowhere else.
+# Launches of X1 (slab-window moments), X2 (the grid radius search), X3
+# (the brute-force search), P7 (gather moments), P1 (the cell-window
+# knockout), P2 (the moment product), P3-P5 (the moment product with
+# in-kernel operands), P6 (the layout probes), P7a (P7's gather-sum probe)
+# and P8 (the gather probes), counted where each kernel is launched and
+# nowhere else.
 SLAB_LAUNCHES = 0
 GRID_LAUNCHES = 0
+KNN_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 KNOCKOUT_LAUNCHES = 0
 DOT_LAUNCHES = 0
 WINDOW_LAUNCHES = 0
 LAYOUT_LAUNCHES = 0
+GATHER_SUM_LAUNCHES = 0
 GATHER_PROBE_LAUNCHES = 0
 
 _P = ctypes.c_void_p
@@ -174,6 +183,10 @@ def load():
         lib.dc_layout_probe.restype = _I
         lib.dc_gather_probe.argtypes = [_I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
         lib.dc_gather_probe.restype = _I
+        lib.dc_gather_sum.argtypes = [_P, _I, _P, _I, _I, _P, _P]
+        lib.dc_gather_sum.restype = _I
+        lib.dc_knn_brute.argtypes = [_P, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P]
+        lib.dc_knn_brute.restype = _I
         lib.dc_cuda_error_string.argtypes = [_I]
         lib.dc_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -576,12 +589,89 @@ def launch_gather_probe(staged: bool, axis: int, x, idx) -> torch.Tensor:
     return out
 
 
+def launch_knn_brute(q_pts, q_valid, pts, p_valid, r2: float, k: int):
+    """X3 on CUDA tensors: k = 0 -> counts (Q,) int32 of the valid points
+    within r2 (every query counts); k > 0 -> (d2 (Q, k) float32, idx (Q, k)
+    int32), the k nearest valid points within r2 by (d2, index), inf / -1
+    padded, and all padding for a query that ``q_valid`` marks invalid.
+
+    :param q_pts: (Q, 3) float32 queries (any strides; copied contiguous).
+    :param q_valid: (Q,) bool, or None (every query is valid).
+    :param pts: (N, 3) float32 points (any strides; copied contiguous).
+    :param p_valid: (N,) bool.
+    :param r2: the squared radius as a float (``inf``: no radius).
+    """
+    global KNN_LAUNCHES
+    device = pts.device
+    if device.type != "cuda":
+        raise ValueError("the brute-force search kernel takes CUDA tensors, got %s" % device)
+    n, nq = pts.shape[0], q_pts.shape[0]
+    q_pts, pts = q_pts.contiguous(), pts.contiguous()
+    _check(q_pts, "q_pts", torch.float32, (nq, 3), device)
+    _check(pts, "pts", torch.float32, (n, 3), device)
+    _check(p_valid, "p_valid", torch.bool, (n,), device)
+    if q_valid is not None:
+        _check(q_valid, "q_valid", torch.bool, (nq,), device)
+    if n >= 1 << 31 or nq >= 1 << 31:
+        raise ValueError("knn_brute: %d points, %d queries; the kernel takes fewer than 2^31"
+                         % (n, nq))
+    if (pts.requires_grad or q_pts.requires_grad) and torch.is_grad_enabled():
+        raise RuntimeError("knn_brute is forward only: its points require grad")
+    k = int(k)
+    if k < 0:
+        raise ValueError("knn_brute: k = %d" % k)
+    if k == 0:
+        idx = torch.empty((nq,), dtype=torch.int32, device=device)
+        d2 = None
+    else:
+        idx = torch.empty((nq, k), dtype=torch.int32, device=device)
+        d2 = torch.empty((nq, k), dtype=torch.float32, device=device)
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dc_knn_brute(q_pts.data_ptr(), _ptr(q_valid), nq, pts.data_ptr(),
+                               p_valid.data_ptr(), n, float(r2), k, idx.data_ptr(), _ptr(d2),
+                               stream)
+    _check_launch(lib, err, "knn_brute (k %d)" % k)
+    KNN_LAUNCHES += 1
+    return idx if k == 0 else (d2, idx)
+
+
+def launch_gather_sum(pts_T, idx) -> torch.Tensor:
+    """P7a on CUDA tensors: pts_T (3, M) float32, idx (T, K) int32 in
+    [0, M) -> (3, T) float32, out[c, t] = sum over k = 0..K-1, in that order,
+    of pts_T[c, idx[t, k]], each block with the table in shared memory. The
+    indices are not checked: one outside [0, M) is undefined input."""
+    global GATHER_SUM_LAUNCHES
+    device = pts_T.device
+    if device.type != "cuda":
+        raise ValueError("the gather-sum probe kernel takes CUDA tensors, got %s" % device)
+    m = pts_T.shape[-1]
+    t, k = idx.shape
+    _check(pts_T, "pts_T", torch.float32, (3, m), device)
+    _check(idx, "idx", torch.int32, (t, k), device)
+    out = torch.empty((3, t), dtype=torch.float32, device=device)
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dc_gather_sum(pts_T.data_ptr(), m, idx.data_ptr(), t, k, out.data_ptr(),
+                                stream)
+    # A table past the opt-in shared-memory limit fails here with CUDA's
+    # invalid-argument error.
+    _check_launch(lib, err, "gather_sum (M %d)" % m)
+    GATHER_SUM_LAUNCHES += 1
+    return out
+
+
 def reset_launch_counts() -> None:
-    """Zero the launch counts kept here (X1, X2, P7, P1-P6, P8)."""
-    global SLAB_LAUNCHES, GRID_LAUNCHES, GATHER_LAUNCHES, KNOCKOUT_LAUNCHES, DOT_LAUNCHES
-    global WINDOW_LAUNCHES, LAYOUT_LAUNCHES, GATHER_PROBE_LAUNCHES
+    """Zero the launch counts kept here (X1, X2, X3, P7, P1-P6, P7a, P8)."""
+    global SLAB_LAUNCHES, GRID_LAUNCHES, KNN_LAUNCHES, GATHER_LAUNCHES, KNOCKOUT_LAUNCHES
+    global DOT_LAUNCHES, WINDOW_LAUNCHES, LAYOUT_LAUNCHES, GATHER_SUM_LAUNCHES
+    global GATHER_PROBE_LAUNCHES
     SLAB_LAUNCHES = 0
     GRID_LAUNCHES = 0
+    KNN_LAUNCHES = 0
+    GATHER_SUM_LAUNCHES = 0
     GATHER_LAUNCHES = 0
     KNOCKOUT_LAUNCHES = 0
     DOT_LAUNCHES = 0

@@ -13,9 +13,10 @@ The gather engine's backward is plain torch autograd (an ``index_add``).
 The JAX package's bucketed transposes exist only because scatters
 serialize on the TPU and are not ported.
 
-Moments that need no gradient (the online corrector, prep features) go
-through :func:`gather_moments`: kernel P7 (``csrc/gather_moments.cu``) on
-CUDA tensors, :func:`gather_moments_plain` on CPU tensors.
+Moments that need no gradient (the online corrector, prep features, the
+viewpoint and direction dispersions of the trainability masks) go through
+:func:`gather_moments`: kernel P7 (``csrc/gather_moments.cu``) on CUDA
+tensors, :func:`gather_moments_plain` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -29,12 +30,16 @@ from .eigh3 import eigh3, eigvals3_c
 
 __all__ = [
     "compute_features",
+    "dir_dispersion",
     "gather_moments",
     "gather_moments_plain",
     "gather_neighbors",
+    "mean_depth",
+    "mean_vp_dist",
     "neighborhood_features",
     "neighborhood_moments",
     "permute_rows",
+    "vp_dispersion",
 ]
 
 
@@ -252,3 +257,46 @@ def compute_features(cloud: Cloud, neighbors, weights,
         inc_angles=feats.get("inc_angles", cloud.inc_angles),
         trace=feats["trace"],
     )
+
+
+def _dispersion(values, neighbors, weights) -> torch.Tensor:
+    """Trace of the weighted, Bessel-corrected covariance of the gathered
+    (N, 3) ``values`` (the JAX package's ``trace3(weighted_cov(...))``,
+    covs.py:38-80, whose normaliser is P7's): the first three components
+    of :func:`gather_moments`, kernel P7 on the card."""
+    _, comps, _ = gather_moments(values, neighbors, weights)
+    return comps[0] + comps[1] + comps[2]
+
+
+def vp_dispersion(cloud: Cloud, neighbors, weights) -> torch.Tensor:
+    """Total variation of the neighbours' viewpoints, a trainability
+    statistic (reference: depth_cloud.py:314-319; JAX package,
+    features.py:870-875)."""
+    return _dispersion(cloud.vps, neighbors, weights)
+
+
+def dir_dispersion(cloud: Cloud, neighbors, weights) -> torch.Tensor:
+    """Total variation of the neighbours' view directions (reference:
+    depth_cloud.py:321-326; JAX package, features.py:878-881)."""
+    return _dispersion(cloud.dirs, neighbors, weights)
+
+
+def mean_depth(cloud: Cloud, neighbors, weights) -> torch.Tensor:
+    """Weighted mean neighbour depth (reference: depth_cloud.py:328-334;
+    JAX package, features.py:884-888)."""
+    d = gather_neighbors(cloud.depth, neighbors)
+    w = weights.to(d.dtype)
+    w_sum = torch.clamp(w.sum(-1), min=1e-12)
+    return (w * d).sum(-1) / w_sum
+
+
+def mean_vp_dist(cloud: Cloud, neighbors, weights) -> torch.Tensor:
+    """Weighted mean distance of the neighbours' viewpoints from their
+    weighted mean (reference: depth_cloud.py:336-346; JAX package,
+    features.py:891-898)."""
+    vps = gather_neighbors(cloud.vps, neighbors)  # (N, K, 3)
+    w = weights.to(vps.dtype)
+    w_sum = torch.clamp(w.sum(-1), min=1e-12)
+    mean_vp = (w[..., None] * vps).sum(-2) / w_sum[..., None]
+    dists = torch.linalg.norm(vps - mean_vp[..., None, :], dim=-1)
+    return (w * dists).sum(-1) / w_sum

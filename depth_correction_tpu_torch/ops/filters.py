@@ -8,17 +8,22 @@ package, so both packages keep the same points.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import numpy as np
 import torch
 
+from .features import dir_dispersion, mean_depth, mean_vp_dist, vp_dispersion
+
 __all__ = [
+    "ball_angle_to_distance",
     "filter_depth_mask",
     "filter_eigenvalue_ratios_mask",
     "filter_eigenvalues_mask",
     "filter_grid_indices",
     "filter_grid_mask",
+    "filter_shadow_mask",
     "filter_valid_neighbors_mask",
     "global_cloud_mask",
     "within_bounds",
@@ -148,23 +153,46 @@ def filter_eigenvalue_ratios_mask(eigvals: torch.Tensor, bounds) -> torch.Tensor
     return keep
 
 
-_NOT_PORTED_BOUNDS = (
-    "dir_dispersion_bounds",
-    "vp_dispersion_bounds",
-    "vp_dispersion_to_depth2_bounds",
-    "vp_dist_to_depth_bounds",
-)
+def ball_angle_to_distance(angle, radius: float = 1.0) -> float:
+    """Chord length subtending ``angle`` on the unit sphere (reference:
+    nearest_neighbors.py:13-19; JAX package, filters.py:178-184): turns an
+    angular neighbourhood of view directions into a Euclidean radius."""
+    angle = min(max(float(angle), 0.0), math.pi)
+    return radius * math.sqrt(2.0 * (1.0 - math.cos(angle)))
+
+
+def filter_shadow_mask(cloud, dir_neighbors, dir_weights, angle_bounds) -> torch.Tensor:
+    """Shadow-point (veiling-point) removal (reference: filters.py:257-309;
+    JAX package, filters.py:187-218): for each point x with viewpoint o and
+    direction-space neighbours n, the angles between (o - x) and (n - x)
+    must lie within ``angle_bounds``; points seen edge-on at depth
+    discontinuities make extreme angles and are dropped."""
+    lo = angle_bounds[0] if angle_bounds and angle_bounds[0] == angle_bounds[0] else 0.0
+    hi = (angle_bounds[1] if len(angle_bounds) > 1 and angle_bounds[1] == angle_bounds[1]
+          else math.pi)
+    lo = max(lo or 0.0, 0.0)
+    hi = min(hi if hi is not None else math.pi, math.pi)
+
+    x = cloud.get_points()
+    ox = cloud.vps - x  # (N, 3)
+    nx = x[dir_neighbors.long().clamp(min=0)] - x[:, None, :]  # (N, K, 3)
+    cos = (ox[:, None, :] * nx).sum(-1)
+    denom = torch.linalg.norm(ox, dim=-1)[:, None] * torch.linalg.norm(nx, dim=-1)
+    cos = cos / torch.clamp(denom, min=1e-20)
+    a = torch.arccos(torch.clamp(cos, -1.0, 1.0))
+    # Invalid neighbour slots sit at mid-bounds (filters.py:292-294).
+    a = torch.where(dir_weights > 0, a, torch.full_like(a, (lo + hi) / 2.0))
+    return (a.amin(-1) >= lo) & (a.amax(-1) <= hi) & cloud.valid
 
 
 def global_cloud_mask(cloud, neighbors, weights, cfg,
                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Composite trainable-region mask of the global cloud
-    (reference: src/depth_correction/preproc.py:122-164): valid-neighbor
-    count and eigenvalue(-ratio) bounds, ANDed with any carried-over local
-    mask. The viewpoint / direction dispersion bounds are not ported yet."""
-    for name in _NOT_PORTED_BOUNDS:
-        if getattr(cfg, name, None):
-            raise NotImplementedError("%s is not ported yet" % name)
+    (reference: src/depth_correction/preproc.py:122-164; JAX package,
+    filters.py:221-260): valid-neighbor count, eigenvalue(-ratio) bounds,
+    and the viewpoint / direction dispersion bounds, ANDed with any
+    carried-over local mask. The two dispersions are kernel P7's moments
+    of the neighbours' viewpoints and directions on the card."""
     if mask is None:
         mask = torch.ones(cloud.size, dtype=torch.bool, device=cloud.valid.device)
     mask = mask & cloud.valid
@@ -176,4 +204,20 @@ def global_cloud_mask(cloud, neighbors, weights, cfg,
     if cfg.eigenvalue_ratio_bounds:
         mask = mask & filter_eigenvalue_ratios_mask(cloud.eigvals,
                                                     cfg.eigenvalue_ratio_bounds)
+    if cfg.dir_dispersion_bounds:
+        dd = dir_dispersion(cloud, neighbors, weights)
+        mask = mask & within_bounds(dd, *cfg.dir_dispersion_bounds[:2])
+    if cfg.vp_dispersion_bounds:
+        vd = vp_dispersion(cloud, neighbors, weights)
+        mask = mask & within_bounds(vd, *cfg.vp_dispersion_bounds[:2])
+    if cfg.vp_dispersion_to_depth2_bounds:
+        vd = vp_dispersion(cloud, neighbors, weights)
+        md = mean_depth(cloud, neighbors, weights)
+        ratio = vd / torch.clamp(md, min=1e-20) ** 2
+        mask = mask & within_bounds(ratio, *cfg.vp_dispersion_to_depth2_bounds[:2])
+    if cfg.vp_dist_to_depth_bounds:
+        vp = mean_vp_dist(cloud, neighbors, weights)
+        md = mean_depth(cloud, neighbors, weights)
+        ratio = vp / torch.clamp(md, min=1e-20)
+        mask = mask & within_bounds(ratio, *cfg.vp_dist_to_depth_bounds[:2])
     return mask

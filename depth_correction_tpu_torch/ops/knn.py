@@ -1,13 +1,22 @@
 """Brute-force neighbour search over padded point arrays (counterpart of
 ``depth_correction_tpu/ops/knn.py``): the online corrector's small-scan
-engine, establishment below ``GRID_NN_MIN_POINTS`` points, and the sizing
-of K (:func:`suggest_k_max`).
+engine, establishment below ``GRID_NN_MIN_POINTS`` points, the shadow
+filter's search over view directions, and the sizing of K
+(:func:`suggest_k_max`).
 
-A running top-k over tiles of 2048 points per chunk of 8192 queries, with
-squared distances by direct (query - point) differences: the expansion
-|q|^2 - 2 q.p + |p|^2 cancels in float32 at the radius boundary. Ties keep
-the lower index, as ``lax.top_k`` does, so both packages return the same
-neighbour sets. Missing neighbours are index -1 at distance ``inf``.
+For each query, the k smallest keys (squared distance, point index) over
+the valid points, with squared distances by direct (query - point)
+differences (the expansion |q|^2 - 2 q.p + |p|^2 cancels in float32 at the
+radius boundary), summed ``dx*dx + dy*dy + dz*dz`` with each operation
+rounded on its own. Ties keep the lower index, as ``lax.top_k`` does, so
+both packages return the same neighbour sets. Missing neighbours are index
+-1 at distance ``inf``.
+
+On CUDA tensors the search is kernel X3 (``csrc/knn_brute.cu``, one launch
+over every query and point); on CPU tensors, or with ``plain=True`` on any
+device and dtype, its plain twins :func:`_knn_plain` and
+:func:`_counts_plain`: a running top-k over tiles of 2048 points per chunk
+of 8192 queries, the JAX package's loop.
 """
 from __future__ import annotations
 
@@ -16,31 +25,44 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-__all__ = ["nearest_neighbors", "neighbor_counts", "radius_neighbors", "suggest_k_max"]
+from . import _kernels
 
-_TILE = 2048  # points per tile of the running top-k
-_QUERY_CHUNK = 8192  # queries per chunk
+__all__ = ["knn_d2", "nearest_neighbors", "neighbor_counts", "radius_neighbors",
+           "suggest_k_max"]
+
+_TILE = 2048  # points per tile of the plain running top-k
+_QUERY_CHUNK = 8192  # queries per chunk of the plain loops
 
 
-def _knn_tiled(points, query, valid_points, k: int, tile: int = _TILE):
-    """Running top-k over point tiles (JAX package, knn.py:51-97).
+def _d2(q, p):
+    """(Q, T) squared distances of (Q, 3) queries to (T, 3) points, summed
+    x, y, z with each operation rounded on its own (the kernels' order)."""
+    dx = q[:, None, 0] - p[None, :, 0]
+    dy = q[:, None, 1] - p[None, :, 1]
+    dz = q[:, None, 2] - p[None, :, 2]
+    return dx * dx + dy * dy + dz * dz
 
-    :param points: (N, 3) reference points, N a multiple of ``tile``.
+
+def _knn_tiled(points, query, valid_points, r2, k: int):
+    """Running top-k over point tiles (JAX package, knn.py:51-97), keeping
+    only points within ``r2``.
+
+    :param points: (N, 3) reference points.
     :param query: (Q, 3) queries.
     :param valid_points: (N,) bool.
+    :param r2: 0-d tensor, the squared radius (``inf``: none).
     :return: (d2 (Q, k) ascending, idx (Q, k) int64, -1 where d2 is inf).
     """
     q = query
     inf = torch.full((), float("inf"), dtype=q.dtype, device=q.device)
     best_d2 = torch.full((q.shape[0], k), float("inf"), dtype=q.dtype, device=q.device)
     best_i = torch.full((q.shape[0], k), -1, dtype=torch.int64, device=q.device)
-    cols = torch.arange(tile, device=q.device)
-    for start in range(0, points.shape[0], tile):
-        diff = q[:, None, :] - points[None, start:start + tile, :]
-        d2 = (diff * diff).sum(-1)
-        d2 = torch.where(valid_points[None, start:start + tile], d2, inf)
+    for start in range(0, points.shape[0], _TILE):
+        d2 = _d2(q, points[start:start + _TILE])
+        d2 = torch.where(valid_points[None, start:start + _TILE] & (d2 <= r2), d2, inf)
+        cols = torch.arange(start, start + d2.shape[1], device=q.device)
         cat_d2 = torch.cat([best_d2, d2], 1)
-        cat_i = torch.cat([best_i, (start + cols).expand(q.shape[0], tile)], 1)
+        cat_i = torch.cat([best_i, cols.expand(q.shape[0], -1)], 1)
         # A stable sort keeps the lower index among equal distances, as
         # lax.top_k does (the running best precedes the tile, and indices
         # grow along both).
@@ -51,8 +73,72 @@ def _knn_tiled(points, query, valid_points, k: int, tile: int = _TILE):
     return best_d2, best_i
 
 
+def _knn_plain(points, query, valid_points, valid_query, r2, k: int):
+    """Plain twin of kernel X3's top-k: (d2 (Q, k), idx (Q, k) int32), the
+    k nearest valid points within ``r2`` by (d2, index), inf / -1 padded,
+    all padding for a query that ``valid_query`` (or None) marks invalid."""
+    parts = [_knn_tiled(points, query[i:i + _QUERY_CHUNK], valid_points, r2, k)
+             for i in range(0, query.shape[0], _QUERY_CHUNK)]
+    if parts:
+        d2 = torch.cat([p[0] for p in parts])
+        idx = torch.cat([p[1] for p in parts]).to(torch.int32)
+    else:
+        d2 = query.new_zeros((0, k))
+        idx = torch.zeros((0, k), dtype=torch.int32, device=query.device)
+    if valid_query is not None:
+        d2 = torch.where(valid_query[:, None], d2, torch.full_like(d2, float("inf")))
+        idx = torch.where(valid_query[:, None], idx, torch.full_like(idx, -1))
+    return d2, idx
+
+
+def _counts_plain(points, query, valid_points, r2):
+    """Plain twin of kernel X3's counts (JAX package, knn.py:268-300):
+    the valid points within ``r2`` of every query, int32."""
+    parts = []
+    for i in range(0, query.shape[0], _QUERY_CHUNK):
+        q = query[i:i + _QUERY_CHUNK]
+        counts = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
+        for start in range(0, points.shape[0], _TILE):
+            inside = (_d2(q, points[start:start + _TILE]) <= r2) & \
+                valid_points[None, start:start + _TILE]
+            counts += inside.sum(1, dtype=torch.int32)
+        parts.append(counts)
+    if not parts:
+        return torch.zeros(0, dtype=torch.int32, device=points.device)
+    return torch.cat(parts)
+
+
+def _prepare(points, query, valid_points, r):
+    query = points if query is None else query
+    dtype = torch.promote_types(points.dtype, query.dtype)
+    points, query = points.to(dtype), query.to(dtype)
+    if valid_points is None:
+        valid_points = torch.ones(points.shape[0], dtype=torch.bool, device=points.device)
+    r2 = (torch.full((), float("inf"), dtype=dtype) if r is None
+          else torch.full((), r, dtype=dtype) ** 2)
+    return points, query, valid_points, r2
+
+
+def knn_d2(points, query=None, k: int = 1, r: Optional[float] = None, valid_points=None,
+           valid_query=None, plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Squared distances and indices of the k nearest valid points within
+    ``r`` (all of them without ``r``): kernel X3 on CUDA tensors (float32,
+    no gradient), its plain twin on CPU tensors or with ``plain``.
+
+    :return: (d2 (Q, k) ascending, idx (Q, k) int32), inf / -1 padded, all
+        padding for an invalid query.
+    """
+    points, query, valid_points, r2 = _prepare(points, query, valid_points, r)
+    if plain or points.device.type == "cpu":
+        return _knn_plain(points, query, valid_points, valid_query,
+                          r2.to(points.device), int(k))
+    return _kernels.launch_knn_brute(query, valid_query, points, valid_points, float(r2),
+                                     int(k))
+
+
 def _finish_knn(d2, idx, r, valid_query):
-    """Radius cut, invalid-query masking, ``inf``-safe sqrt."""
+    """Radius cut, invalid-query masking, ``inf``-safe sqrt (JAX package,
+    knn.py:149-163)."""
     inf = torch.full((), float("inf"), dtype=d2.dtype, device=d2.device)
     minus = torch.full_like(idx, -1)
     if r is not None:
@@ -69,70 +155,40 @@ def _finish_knn(d2, idx, r, valid_query):
 
 def nearest_neighbors(points, query=None, k: int = 1, r: Optional[float] = None,
                       valid_points=None, valid_query=None,
-                      tile: int = _TILE) -> Tuple[torch.Tensor, torch.Tensor]:
+                      plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest neighbours of ``query`` in ``points``; with ``r``, those
     farther than ``r`` are dropped (index -1, distance ``inf``), like
     cKDTree's ``distance_upper_bound`` (reference:
-    nearest_neighbors.py:22-80).
+    nearest_neighbors.py:22-80). Kernel X3 on CUDA tensors; ``plain`` takes
+    the plain twin on any device and dtype.
 
     :return: (dist (Q, k) ascending, idx (Q, k) int32, -1 padded).
     """
-    query = points if query is None else query
-    dtype = torch.promote_types(points.dtype, query.dtype)
-    points, query = points.to(dtype), query.to(dtype)
-    n = points.shape[0]
-    if valid_points is None:
-        valid_points = torch.ones(n, dtype=torch.bool, device=points.device)
-    pad = (-n) % tile
-    if pad:
-        points = torch.cat([points, points.new_zeros((pad, 3))])
-        valid_points = torch.cat([valid_points, valid_points.new_zeros(pad)])
-    parts = [_knn_tiled(points, query[i:i + _QUERY_CHUNK], valid_points, k, tile)
-             for i in range(0, query.shape[0], _QUERY_CHUNK)]
-    d2 = torch.cat([p[0] for p in parts])
-    idx = torch.cat([p[1] for p in parts])
-    d, idx = _finish_knn(d2, idx, r, valid_query)
-    return d, idx.to(torch.int32)
+    d2, idx = knn_d2(points, query, k, r, valid_points, valid_query, plain)
+    return _finish_knn(d2, idx, r, valid_query)
 
 
 def radius_neighbors(points, query=None, r: float = 1.0, k: int = 32,
                      valid_points=None, valid_query=None,
-                     tile: int = _TILE) -> Tuple[torch.Tensor, torch.Tensor]:
+                     plain: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Up to ``k`` nearest neighbours within radius ``r`` (JAX package,
     knn.py:241-268): the reference's ``query_ball_point`` sets whenever
     ``k`` is at least the largest within-r count."""
     return nearest_neighbors(points, query, k=k, r=r, valid_points=valid_points,
-                             valid_query=valid_query, tile=tile)
+                             valid_query=valid_query, plain=plain)
 
 
 def neighbor_counts(points, query=None, r: float = 1.0, valid_points=None,
-                    tile: int = _TILE) -> torch.Tensor:
+                    plain: bool = False) -> torch.Tensor:
     """Number of valid points within ``r`` of each query (JAX package,
-    knn.py:268-300): tiles of 2048 points per chunk of 8192 queries, int32."""
-    query = points if query is None else query
-    dtype = torch.promote_types(points.dtype, query.dtype)
-    points, query = points.to(dtype), query.to(dtype)
-    if valid_points is None:
-        valid_points = torch.ones(points.shape[0], dtype=torch.bool, device=points.device)
-    r2 = torch.full((), r, dtype=dtype, device=points.device) ** 2
-    parts = []
-    for i in range(0, query.shape[0], _QUERY_CHUNK):
-        q = query[i:i + _QUERY_CHUNK]
-        counts = torch.zeros(q.shape[0], dtype=torch.int32, device=q.device)
-        for start in range(0, points.shape[0], tile):
-            # Summed x, y, z, as kernel X2 sums them, so the counts size K
-            # by the membership the grid search decides.
-            p = points[start:start + tile]
-            dx = q[:, None, 0] - p[None, :, 0]
-            dy = q[:, None, 1] - p[None, :, 1]
-            dz = q[:, None, 2] - p[None, :, 2]
-            d2 = dx * dx + dy * dy + dz * dz
-            inside = (d2 <= r2) & valid_points[None, start:start + tile]
-            counts += inside.sum(1, dtype=torch.int32)
-        parts.append(counts)
-    if not parts:
-        return torch.zeros(0, dtype=torch.int32, device=points.device)
-    return torch.cat(parts)
+    knn.py:268-300), int32: kernel X3 in counts mode on CUDA tensors, the
+    plain twin on CPU tensors or with ``plain``. Summed x, y, z, as kernels
+    X2 and X3 sum them, so the counts size K by the membership the searches
+    decide."""
+    points, query, valid_points, r2 = _prepare(points, query, valid_points, r)
+    if plain or points.device.type == "cpu":
+        return _counts_plain(points, query, valid_points, r2.to(points.device))
+    return _kernels.launch_knn_brute(query, None, points, valid_points, float(r2), 0)
 
 
 def suggest_k_max(points, query=None, r: float = 1.0, valid_points=None,
@@ -142,7 +198,8 @@ def suggest_k_max(points, query=None, r: float = 1.0, valid_points=None,
     neighbourhood, optionally capped or sized by a ``quantile`` of the
     counts (JAX package, knn.py:303-348). Counts through the grid engine
     (kernel X2 on the card) at ``GRID_NN_MIN_POINTS`` points and above,
-    the tiled count below, as the JAX package routes them."""
+    the brute count (kernel X3 on the card) below, as the JAX package
+    routes them."""
     from .grid_hash import GRID_NN_MIN_POINTS, grid_neighbor_counts
 
     if points.shape[0] >= GRID_NN_MIN_POINTS:

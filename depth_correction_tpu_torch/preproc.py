@@ -8,14 +8,17 @@ Reference pipeline helpers: src/depth_correction/preproc.py:14-244.
 - neighbourhood establishment, routed by ``cfg.nn_backend`` as the JAX
   package routes it: ``'scipy'`` takes scipy's cKDTree on the host (the
   reference's index, :func:`_host_neighbors`); otherwise kNN configs
-  (``nn_k``) take the tiled scan (``ops/knn.py``), and radius configs take
-  the grid-hash search (``ops/grid_hash.py``, kernel X2 on the card) when
-  ``nn_backend == 'grid'`` or when ``nn_backend`` is None and the cloud
-  has at least ``GRID_NN_MIN_POINTS`` points, the tiled scan otherwise,
+  (``nn_k``) take the brute-force search (``ops/knn.py``, kernel X3 on the
+  card), and radius configs take the grid-hash search (``ops/grid_hash.py``,
+  kernel X2 on the card) when ``nn_backend == 'grid'`` or when
+  ``nn_backend`` is None and the cloud has at least ``GRID_NN_MIN_POINTS``
+  points, the brute search otherwise,
   with K sized by ``knn.suggest_k_max`` unless ``nn_max_neighbors`` caps
   it (:func:`_device_radius_neighbors`, :func:`establish_scan_neighbors`,
-  :func:`establish_neighborhoods`);
-- tensor-side: per-scan feature clouds (:func:`local_feature_cloud`),
+  :func:`establish_neighborhoods`); capped radius graphs keep only their
+  mutual pairs (:func:`symmetrize_neighbors`);
+- tensor-side: per-scan feature clouds (:func:`local_feature_cloud`,
+  with the shadow filter over direction-space neighbourhoods),
   batched sequences of padded scans (:class:`SequenceBatch`), the corrected
   and posed global cloud (:func:`global_cloud`), and feature recomputation
   over frozen neighborhoods (:func:`compute_neighborhood_features`).
@@ -37,9 +40,11 @@ from .ops.features import compute_features
 from .ops.grid_hash import GRID_NN_MIN_POINTS, grid_radius_neighbors
 from .ops.knn import nearest_neighbors, radius_neighbors, suggest_k_max
 from .ops.filters import (
+    ball_angle_to_distance,
     filter_eigenvalue_ratios_mask,
     filter_eigenvalues_mask,
     filter_grid_indices,
+    filter_shadow_mask,
 )
 from .ops.se3 import xyz_axis_angle_to_matrix
 
@@ -56,6 +61,7 @@ __all__ = [
     "local_feature_cloud",
     "pad_size",
     "sequence_batch",
+    "symmetrize_neighbors",
 ]
 
 PAD_MULTIPLE = 512
@@ -158,7 +164,7 @@ def _host_neighbors(points, valid, cfg: Config, k_max: Optional[int] = None):
 def _device_radius_neighbors(points, r: float, k: int, valid, backend=None):
     """The tensor-side radius engine (JAX package, preproc.py:278-289): the
     grid-hash search when ``backend == 'grid'`` or, with ``backend`` None,
-    at ``GRID_NN_MIN_POINTS`` points and above; the tiled scan otherwise.
+    at ``GRID_NN_MIN_POINTS`` points and above; the brute search otherwise.
     Both are exact up to ``k``. Returns (dist, idx (N, k) int32)."""
     if backend == "grid" or (backend is None and points.shape[0] >= GRID_NN_MIN_POINTS):
         return grid_radius_neighbors(points, r=r, k=int(k), valid_points=valid,
@@ -185,12 +191,11 @@ def establish_scan_neighbors(cloud: Cloud, cfg: Config):
 
 
 def local_feature_cloud(cloud, cfg: Config, pad_to: Optional[int] = None) -> Cloud:
-    """Per-scan feature cloud: neighbors + mean/cov/eigh/normals/incidence
-    angles + eigenvalue masks. ``mask`` marks the locally planar,
-    correctable region the model applies to (reference: preproc.py:35-62).
-    Computed in ``cfg.torch_dtype()`` on ``cfg.torch_device()``."""
-    if cfg.shadow_angle_bounds:
-        raise NotImplementedError("shadow_angle_bounds is not ported yet")
+    """Per-scan feature cloud: shadow filter, neighbors + mean/cov/eigh/
+    normals/incidence angles + eigenvalue masks. ``mask`` marks the locally
+    planar, correctable region the model applies to (reference:
+    preproc.py:35-62). Computed in ``cfg.torch_dtype()`` on
+    ``cfg.torch_device()``."""
     dtype, device = cfg.torch_dtype(), cfg.torch_device()
     if isinstance(cloud, np.ndarray) and cloud.dtype.names:
         pts, vps, normals = _split_structured(cloud)
@@ -201,6 +206,16 @@ def local_feature_cloud(cloud, cfg: Config, pad_to: Optional[int] = None) -> Clo
     elif not isinstance(cloud, Cloud):
         cloud = Cloud.from_points(cloud, dtype=dtype, device=device)
     cloud = cloud.to(device=device, dtype=dtype)
+    if cfg.shadow_angle_bounds:
+        # Shadow-point removal over direction-space neighbourhoods (reference:
+        # preproc.py:45-47; JAX package, preproc.py:163-171): the brute
+        # search over the unit view directions, kernel X3 on the card.
+        r_dir = ball_angle_to_distance(cfg.shadow_neighborhood_angle)
+        k_dir = suggest_k_max(cloud.dirs, r=r_dir, valid_points=cloud.valid)
+        _, dir_nn = radius_neighbors(cloud.dirs, r=r_dir, k=k_dir, valid_points=cloud.valid)
+        dir_w = (dir_nn >= 0).to(dtype)
+        shadow_ok = filter_shadow_mask(cloud, dir_nn, dir_w, cfg.shadow_angle_bounds)
+        cloud = cloud.map(lambda x: x[shadow_ok])
     if pad_to is None:
         pad_to = pad_size(cloud.size)
     cloud = cloud.pad(pad_to)
@@ -275,12 +290,37 @@ def global_cloud(batch: SequenceBatch, model=None,
     return flatten_batch(transformed).with_points()
 
 
+def symmetrize_neighbors(neighbors: torch.Tensor, chunk: int = 4096) -> torch.Tensor:
+    """Keep only mutual pairs: (i, j) survives iff row j lists i too (JAX
+    package, preproc.py:405-435). An uncapped radius graph is symmetric
+    already; capping at ``nn_max_neighbors`` truncates one-sidedly, which
+    makes the transpose in-degree up to ~5x the forward width. Each
+    neighbour's own row is gathered back and compared, ``chunk`` rows at a
+    time so the (chunk, K, K) block stays small.
+
+    :param neighbors: (M, K) indices, -1 padded.
+    :return: (M, K) of the same dtype, -1 where a pair is one-sided.
+    """
+    m = neighbors.shape[0]
+    out = []
+    for start in range(0, m, chunk):
+        c = neighbors[start:start + chunk]
+        rows = torch.arange(start, start + c.shape[0], device=c.device, dtype=c.dtype)
+        back = neighbors[c.clamp(min=0).long()]  # (C, K, K)
+        mutual = (back == rows[:, None, None]).any(-1) & (c >= 0)
+        out.append(torch.where(mutual, c, torch.full_like(c, -1)))
+    if not out:
+        return neighbors.clone()
+    return torch.cat(out)
+
+
 def establish_neighborhoods(gcloud: Cloud, cfg: Config, k_max: Optional[int] = None):
     """Frozen neighborhoods of the global cloud (reference:
     preproc.py:168-191, ball type; JAX package, preproc.py:513-568 on one
     device), computed once per training run and routed as the module
-    docstring says. The mutual trimming of capped graphs
-    (``nn_symmetrize``) and plane neighbourhoods are not ported yet.
+    docstring says. A radius graph truncated by a cap keeps its mutual
+    pairs only (``nn_symmetrize``, JAX package, preproc.py:561-564); pure
+    kNN stays one-sided. Plane neighbourhoods are not ported yet.
 
     :return: (neighbors (M, K) int32 or, from scipy, int64; weights (M, K)
         float).
@@ -289,12 +329,10 @@ def establish_neighborhoods(gcloud: Cloud, cfg: Config, k_max: Optional[int] = N
         raise NotImplementedError("plane neighbourhoods are not ported yet")
     _check_establishment(cfg)
     capped = bool((k_max or cfg.nn_max_neighbors) and not cfg.nn_k)
-    if capped and cfg.nn_symmetrize:
-        raise NotImplementedError("nn_symmetrize of capped graphs is not ported yet")
     points = gcloud.get_points()
     if cfg.nn_backend == "scipy":
-        return _host_neighbors(points, gcloud.valid, cfg, k_max=k_max)
-    if cfg.nn_k:
+        idx, _ = _host_neighbors(points, gcloud.valid, cfg, k_max=k_max)
+    elif cfg.nn_k:
         _, idx = nearest_neighbors(points, points, k=int(cfg.nn_k), r=cfg.nn_r or None,
                                    valid_points=gcloud.valid, valid_query=gcloud.valid)
     else:
@@ -302,6 +340,8 @@ def establish_neighborhoods(gcloud: Cloud, cfg: Config, k_max: Optional[int] = N
                                                            valid_points=gcloud.valid)
         _, idx = _device_radius_neighbors(points, cfg.nn_r, k, gcloud.valid,
                                           backend=cfg.nn_backend)
+    if capped and cfg.nn_symmetrize:
+        idx = symmetrize_neighbors(idx)
     return idx, (idx >= 0).to(points.dtype)
 
 

@@ -15,10 +15,12 @@ __all__ = ["bench_config", "device_ms", "kernel_ms", "rel_max", "rel_rows", "req
 SCENE = "open_box/n_6_size_20_20_5_height_1_density_400"
 
 
-def bench_config(device: str = "cuda", steps: int = 8):
-    """bench.py:bench_config(uncapped=True): the training slice's
-    configuration (the uncapped r = 0.25 graph of :data:`SCENE`, established
-    by the grid search, normalised min-eigenvalue loss, Adam)."""
+def bench_config(device: str = "cuda", steps: int = 8, uncapped: bool = True):
+    """bench.py:bench_config(uncapped): the training slice's configuration
+    (the r = 0.25 graph of :data:`SCENE`, established by the grid search,
+    normalised min-eigenvalue loss, Adam); uncapped, the within-r graph
+    and the cell-window kernels; capped (bench.py:143-147), K = 32 with
+    mutual trimming and the gather moments."""
     from ..config import Config
 
     cfg = Config()
@@ -38,8 +40,8 @@ def bench_config(device: str = "cuda", steps: int = 8):
     cfg.depth_bias_model_kwargs = {"w": [-0.002], "exponent": [4.0]}
     cfg.model_kwargs = {"w": [0.0], "exponent": [4.0]}
     cfg.lr = 2e-4
-    cfg.nn_max_neighbors = None
-    cfg.moments_backend = "auto"
+    cfg.nn_max_neighbors = None if uncapped else 32
+    cfg.moments_backend = "auto" if uncapped else "gather"
     cfg.n_opt_iters = steps
     cfg.plot_period = 1
     return cfg

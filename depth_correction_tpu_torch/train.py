@@ -8,9 +8,10 @@ masks, the cell-window graph) happens once; each step then runs
     layout -> cell-window moments (CUDA kernel K1) -> 3x3 eigenvalues ->
     masked loss -> backward (cotangent table -> CUDA kernel K2) -> Adam.
 
-This port covers the uncapped min-eigenvalue / trace training step with
-Adam on one device. Every option outside it raises NotImplementedError
-naming the option (:func:`check_slice`).
+This port covers the min-eigenvalue / trace training step with Adam or
+SGD on one device, over the uncapped graph (the cell-window kernels) or a
+capped one (gather moments by torch autograd). Every option outside it
+raises NotImplementedError naming the option (:func:`check_slice`).
 """
 from __future__ import annotations
 
@@ -59,10 +60,8 @@ def check_slice(cfg: Config) -> None:
         ("mesh_shape", bool(cfg.mesh_shape or cfg.dist_coordinator)),
         ("spatial_sort", bool(cfg.spatial_sort)),
         ("val_names", bool(cfg.val_names)),
-        ("optimizer=%s" % cfg.optimizer, cfg.optimizer.lower() != "adam"),
-        ("shadow_angle_bounds", bool(cfg.shadow_angle_bounds)),
+        ("optimizer=%s" % cfg.optimizer, cfg.optimizer.lower() not in ("adam", "sgd")),
         ("checkpoint_period", bool(cfg.checkpoint_period)),
-        ("optimize_model=False", not cfg.optimize_model),
         ("nn_backend=native", cfg.nn_backend == "native"),
     ]
     for name, hit in unsupported:
@@ -321,24 +320,34 @@ def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
 
 
 def make_optimizer(cfg: Config, params):
-    """Adam per config (reference: train.py:140-148): ``optax.adam(lr)``
-    with betas (0.9, 0.999) and eps 1e-8 becomes ``torch.optim.Adam`` with
-    the same values."""
+    """Adam or SGD per config (reference: train.py:140-148; JAX package,
+    train.py:869-895): ``optax.adam(lr)`` with betas (0.9, 0.999) and eps
+    1e-8 becomes ``torch.optim.Adam`` with the same values;
+    ``optax.sgd(lr, momentum, nesterov)`` becomes ``torch.optim.SGD``, whose
+    momentum buffer starts at the first gradient as optax's trace does."""
     check_slice(cfg)
     kwargs = dict(cfg.optimizer_kwargs or {})
     lr = float(cfg.optimizer_args[0]) if cfg.optimizer_args else cfg.lr
-    betas = tuple(kwargs.pop("betas", (0.9, 0.999)))
-    eps = float(kwargs.pop("eps", 1e-8))
+    if cfg.optimizer.lower() == "sgd":
+        make = torch.optim.SGD
+        opts = {"momentum": float(kwargs.pop("momentum", None) or 0.0),
+                "nesterov": bool(kwargs.pop("nesterov", False))}
+    else:
+        make = torch.optim.Adam
+        opts = {"betas": tuple(kwargs.pop("betas", (0.9, 0.999))),
+                "eps": float(kwargs.pop("eps", 1e-8))}
     if kwargs:
         raise NotImplementedError("optimizer_kwargs %s are not ported yet" % sorted(kwargs))
-    return torch.optim.Adam(params, lr=lr, betas=betas, eps=eps)
+    return make(params, lr=lr, **opts)
 
 
 def train(cfg: Config, callbacks: Optional[TrainCallbacks] = None,
           train_datasets: Optional[Sequence] = None,
           train_data: Optional[TrainData] = None):
-    """Train a depth-correction model with Adam for ``cfg.n_opt_iters``
-    steps on ``cfg.torch_device()``.
+    """Train a depth-correction model with Adam or SGD for
+    ``cfg.n_opt_iters`` steps on ``cfg.torch_device()`` (with
+    ``optimize_model`` False the model's gradients are zeroed, so it stays
+    as loaded).
 
     :param train_datasets: datasets to prepare (default: ``cfg.train_names``).
     :param train_data: already prepared data (skips dataset creation and
@@ -360,7 +369,8 @@ def train(cfg: Config, callbacks: Optional[TrainCallbacks] = None,
     device = cfg.torch_device()
     model = load_model(cfg=cfg)
     loss_fn = make_loss_fn(cfg)
-    opt = make_optimizer(cfg, [p for p in model.parameters() if p.requires_grad])
+    params = [p for p in model.parameters() if p.requires_grad]
+    opt = make_optimizer(cfg, params)
     callbacks.train_inputs(0, train_data)
     history = []
     for it in range(cfg.n_opt_iters):
@@ -369,6 +379,11 @@ def train(cfg: Config, callbacks: Optional[TrainCallbacks] = None,
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(model, train_data)
         loss.backward()
+        if not cfg.optimize_model:
+            # The JAX package masks the model's gradients to zero
+            # (train.py:932-933): Adam and SGD then leave it where it is.
+            for p in params:
+                p.grad.zero_()
         callbacks.train_loss(it, model, None, loss)
         opt.step()
         loss_val = float(loss.detach())  # waits for the step (same stream)

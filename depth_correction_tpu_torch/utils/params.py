@@ -15,7 +15,7 @@ from ..models import model_by_name
 
 __all__ = ["params_from_jax", "params_to_numpy"]
 
-_FIELDS = ("w", "exponent")
+_FIELDS = ("w", "exponent", "w0", "w1", "b", "p0")
 
 
 def params_from_jax(tree, dtype=None, device=None):

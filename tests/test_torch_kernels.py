@@ -912,3 +912,112 @@ def test_cuda_gather_probes_match_plain(cuda_device):
             assert torch.equal(gather_probe(x, idx, axis, form).cpu(), want), (case, form)
             ran += 1
     assert ran == 9
+
+
+# ---------------------------------------------------------------------------
+# X3 (the brute-force search) and P7a (P7's gather-sum probe).
+
+
+def test_knn_and_gather_sum_wrappers_never_take_the_plain_path(monkeypatch):
+    """Non-CPU tensors go to the X3 / P7a launchers, never to the plain
+    twins (``plain=True`` asks for the twin explicitly); the launchers
+    refuse CPU tensors and count nothing then."""
+    from depth_correction_tpu_torch.ops import knn as tknn
+    from depth_correction_tpu_torch.ops.gather_sum import gather_sum
+
+    calls = []
+
+    def fake_launch(*args, **kw):
+        calls.append(args)
+        raise RuntimeError("launched")
+
+    for name in ("launch_knn_brute", "launch_gather_sum"):
+        monkeypatch.setattr(_kernels, name, fake_launch)
+    pts = torch.zeros((64, 3), device="meta")
+    valid = torch.zeros(64, dtype=torch.bool, device="meta")
+    with pytest.raises(RuntimeError, match="launched"):
+        tknn.radius_neighbors(pts, pts, r=0.1, k=8, valid_points=valid, valid_query=valid)
+    with pytest.raises(RuntimeError, match="launched"):
+        tknn.nearest_neighbors(pts, k=4)
+    with pytest.raises(RuntimeError, match="launched"):
+        tknn.neighbor_counts(pts, r=0.1, valid_points=valid)
+    with pytest.raises(RuntimeError, match="launched"):
+        gather_sum(torch.zeros((3, 64), device="meta"),
+                   torch.zeros((4, 8), dtype=torch.int32, device="meta"))
+    assert len(calls) == 4
+    monkeypatch.undo()
+    before = (_kernels.KNN_LAUNCHES, _kernels.GATHER_SUM_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch_knn_brute(torch.zeros((4, 3)), None, torch.zeros((8, 3)),
+                                  torch.ones(8, dtype=torch.bool), 0.01, 4)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch_gather_sum(torch.zeros((3, 8)), torch.zeros((2, 4), dtype=torch.int32))
+    assert (_kernels.KNN_LAUNCHES, _kernels.GATHER_SUM_LAUNCHES) == before
+
+
+def _knn_inputs(device, seed=0, n=20000, dup=0, quantum=0.0):
+    """Half a noisy plane, half a volume, 10% invalid; ``dup`` rows repeat
+    earlier points exactly and ``quantum`` > 0 snaps every point to a grid
+    of that step (ties in d2 either way)."""
+    rng = np.random.default_rng(seed)
+    n1 = n // 2
+    p = np.vstack([np.c_[rng.uniform(-4, 4, (n1, 2)), 0.01 * rng.standard_normal(n1)],
+                   rng.uniform(-4, 4, (n - n1, 3)) * [1.0, 1.0, 0.3]]) + [12.0, -7.0, 1.5]
+    if dup:
+        p[-dup:] = p[rng.integers(0, n - dup, dup)]
+    if quantum:
+        p = np.round(p / quantum) * quantum
+    valid = torch.as_tensor(rng.uniform(size=n) > 0.1, device=device)
+    return torch.as_tensor(p, dtype=torch.float32, device=device), valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,r,dup,quantum", [(16, 0.3, 0, 0.0), (64, 0.3, 3000, 0.0),
+                                             (200, 0.3, 0, 0.05), (8, None, 0, 0.0),
+                                             (40, None, 2000, 0.05)])
+def test_cuda_knn_brute_matches_plain(cuda_device, k, r, dup, quantum):
+    """X3 against its plain twin on the same float32 inputs: index tables
+    equal, order included, d2 bit for bit (0 ulp), with a radius below and
+    above the largest count, without one, and on ties (duplicated and
+    grid-snapped points); then the counts, equal."""
+    from depth_correction_tpu_torch.ops import knn as tknn
+
+    pts, valid = _knn_inputs(cuda_device, dup=dup, quantum=quantum)
+    q, qv = pts[::3].contiguous(), valid[::3].contiguous()
+    before = _kernels.KNN_LAUNCHES
+    d2, idx = tknn.knn_d2(pts, q, k, r, valid, qv)
+    torch.cuda.synchronize()
+    assert _kernels.KNN_LAUNCHES == before + 1
+    pd2, pidx = tknn.knn_d2(pts, q, k, r, valid, qv, plain=True)
+    assert torch.equal(idx, pidx)
+    assert bit_equal(d2, pd2)
+    assert int((idx[~qv] >= 0).sum()) == 0
+    if r is not None:
+        counts = tknn.neighbor_counts(pts, q, r, valid)
+        pcounts = tknn.neighbor_counts(pts, q, r, valid, plain=True)
+        assert _kernels.KNN_LAUNCHES == before + 2
+        assert torch.equal(counts, pcounts)
+        held = torch.minimum(counts, torch.tensor(k, device=cuda_device))
+        assert torch.equal((idx >= 0).sum(1).to(torch.int32), torch.where(qv, held, 0))
+
+
+@pytest.mark.cuda
+def test_cuda_gather_sum_matches_plain(cuda_device):
+    """P7a at the TPU probe's stage-1 shapes and draws: bit-equal to its
+    plain twin (the same order of additions)."""
+    from depth_correction_tpu_torch.ops.gather_sum import gather_sum, gather_sum_plain
+    from depth_correction_tpu_torch.scripts import exp_pallas_gather as p7
+
+    pts, idx = p7.inputs(cuda_device)["probe"]
+    before = _kernels.GATHER_SUM_LAUNCHES
+    got = gather_sum(pts, idx)
+    torch.cuda.synchronize()
+    assert _kernels.GATHER_SUM_LAUNCHES == before + 1
+    assert bit_equal(got, gather_sum_plain(pts, idx))
+    with pytest.raises(TypeError, match="dtype"):
+        gather_sum(pts.double(), idx)
+
+
+def bit_equal(a, b) -> bool:
+    """float32 tensors equal bit for bit (the same infinities included)."""
+    return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))

@@ -19,7 +19,10 @@ P6: scripts/exp_mosaic_probe.py's ``k_*`` bodies run through
 with x[0, 0] = 200); their outputs are small integers, so the port's plain
 versions must equal them. P8: scripts/exp_pallas_gather2.py's kernel
 bodies (``jnp.take_along_axis`` / ``jnp.take``) restated in jnp on the
-script's draws; error 0.
+script's draws; error 0. P7a: scripts/exp_pallas_gather.py's stage-1
+``probe_kernel`` (a closure of its ``main()``, restated with its lines
+cited) through ``pl.pallas_call(..., interpret=True)`` on the script's
+draws, against the port's plain version within 1e-6 relative.
 """
 import importlib.util
 import os
@@ -39,6 +42,7 @@ from depth_correction_tpu_torch.ops import cellwin as tcw
 from depth_correction_tpu_torch.ops.cellwin_knockout import cellwin_knockout
 from depth_correction_tpu_torch.ops.features import permute_rows as t_permute_rows
 from depth_correction_tpu_torch.ops.gather_probe import FORMS, gather_probe
+from depth_correction_tpu_torch.ops.gather_sum import gather_sum, gather_sum_plain
 from depth_correction_tpu_torch.ops.layout_probe import PROBES, layout_probe
 from depth_correction_tpu_torch.ops.moment_dot import TPU_VARIANTS, moment_dot
 from depth_correction_tpu_torch.ops.moment_window import moment_window
@@ -47,6 +51,7 @@ from depth_correction_tpu_torch.scripts import exp_mosaic_dot_probe2 as p3
 from depth_correction_tpu_torch.scripts import exp_mosaic_dot_probe3 as p4
 from depth_correction_tpu_torch.scripts import exp_mosaic_dot_probe4 as p5
 from depth_correction_tpu_torch.scripts import exp_mosaic_probe as p6
+from depth_correction_tpu_torch.scripts import exp_pallas_gather as p7
 from depth_correction_tpu_torch.scripts import exp_pallas_gather2 as p8
 from test_torch_kernels import scene
 
@@ -361,3 +366,39 @@ def test_gather_probe_plain_matches_script(case):
     for form in FORMS:
         got = gather_probe(x.double(), idx, axis, form)
         assert float(np.abs(got.numpy() - np.asarray(want)).max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# P7a: the gather-sum probe against the script's Pallas body (interpret mode).
+
+
+def _probe_kernel(pts_ref, idx_ref, out_ref):
+    """scripts/exp_pallas_gather.py:45-49 (``main.probe_kernel``), as
+    written there with the script's T and K."""
+    t, k = p7.PROBE_T, p7.PROBE_K
+    pts = pts_ref[...]  # (3, M)
+    idx = idx_ref[...].reshape(-1)  # (T*K,)
+    g = jnp.take(pts, idx, axis=1)  # vector gather from VMEM
+    out_ref[...] = jnp.sum(g.reshape(3, t, k), axis=2)
+
+
+def test_gather_sum_plain_matches_pallas_probe():
+    """The script's stage-1 draws (default_rng(0), first): the Pallas body
+    in interpret mode (float32, its own summation order) and the port's
+    plain version (float32, index order; float64) within 1e-6 of max
+    |output|; the wrapper on CPU tensors is the plain version."""
+    pts, idx = p7.inputs("cpu")["probe"]
+    want = pl.pallas_call(
+        _probe_kernel,
+        out_shape=jax.ShapeDtypeStruct((3, p7.PROBE_T), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM), pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True,
+    )(jnp.asarray(pts.numpy()), jnp.asarray(idx.numpy()))
+    want = np.asarray(want, np.float64)
+    scale = np.abs(want).max()
+    for got in (gather_sum_plain(pts, idx), gather_sum_plain(pts.double(), idx),
+                gather_sum(pts, idx)):
+        assert got.shape == (3, p7.PROBE_T)
+        assert np.abs(got.double().numpy() - want).max() <= 1e-6 * scale
+    assert torch.equal(gather_sum(pts, idx), gather_sum_plain(pts, idx))

@@ -200,7 +200,7 @@ def test_three_adam_steps_match_optax(prepared, jax_trajectory):
         ("spatial_sort", True),
         ("val_names", ["ground_plane/2"]),
         ("optimizer", "lbfgs"),
-        ("shadow_angle_bounds", [0.1, 3.0]),
+        ("checkpoint_period", 5),
     ],
 )
 def test_options_outside_the_slice_raise(option, value):
@@ -225,7 +225,12 @@ def test_port_imports_no_jax():
             "depth_correction_tpu_torch.scripts.exp_mosaic_probe, "
             "depth_correction_tpu_torch.scripts.exp_pallas_gather2, "
             "depth_correction_tpu_torch.ops.layout_probe, "
-            "depth_correction_tpu_torch.ops.gather_probe; "
+            "depth_correction_tpu_torch.ops.gather_probe, "
+            "depth_correction_tpu_torch.ops.gather_sum, "
+            "depth_correction_tpu_torch.ops.filters, depth_correction_tpu_torch.preproc, "
+            "depth_correction_tpu_torch.models, depth_correction_tpu_torch.utils.params, "
+            "depth_correction_tpu_torch.datasets, depth_correction_tpu_torch.datasets.asl_laser, "
+            "depth_correction_tpu_torch.scripts.exp_pallas_gather; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'depth_correction_tpu' or m.startswith('depth_correction_tpu.') "
             "for m in sys.modules), 'JAX package imported'")
