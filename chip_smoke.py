@@ -36,9 +36,13 @@ Phases (any failure raises and the exit code is non-zero):
    (density 100), routed to the brute engine (K = 32): X3 and P7 must have
    launched; node_ms is printed beside the 358.307 ms of the eager
    sort-based search that preceded X3; X3 is held against its plain twin
-   on the node's own points (top-k: index tables equal and d2 bit for bit;
-   counts equal) and both
-   are timed; P7 must meet its bars on the node's own neighbour table;
+   and its first version (csrc/knn_brute_v1.cu) on the node's own points
+   (top-k: index tables equal and d2 bit for bit; counts equal), both
+   versions are timed in turns in both modes (first version, redesign,
+   redesign, first version), with the search kernel's own time, the share
+   of pair tests the cull keeps (host model, scripts/knn_cull.py) and the
+   bounds of the kept and of all pair tests; P7 must meet its bars on the
+   node's own neighbour table;
    then P7 and its plain version are timed at the shapes of
    scripts/exp_pallas_gather.py's stage 2 and held within 1e-5 relative.
 6. probes  — the port's probe scripts (depth_correction_tpu_torch/scripts),
@@ -77,13 +81,16 @@ Phases (any failure raises and the exit code is non-zero):
    float_type, the data directory and shadow_angle_bounds set) on an open
    box written as ASL-laser CSV files into a temporary directory. X3 and
    P7 must have launched in prep. On one scan, X3's counts (which size
-   k_dir) and top-k over the view directions equal their plain twins, the
-   shadow mask drops some points and keeps others, and local_feature_cloud
-   keeps as many. On the global cloud, vp_dispersion (P7 on the viewpoints)
-   agrees with the float64 plain moments to 1e-5 of its largest value,
-   its mask equals the float64 one and keeps the rows prep kept, and the
-   bound drops some rows. The loss at w=0 must be within 1e-5 of the
-   float64 plain path.
+   k_dir) and top-k over the view directions equal their plain twins and
+   X3's first version (timed and bounded as in phase 5), the shadow mask
+   drops some points and keeps others, and local_feature_cloud keeps as
+   many. X3 on the global cloud at the establishment's r and a K sized by
+   its counts, held and timed the same way (prep itself routes this cloud
+   to X2: its padded size is above 65,536). On the global cloud,
+   vp_dispersion (P7 on the viewpoints) agrees with the float64 plain
+   moments to 1e-5 of its largest value, its mask equals the float64 one
+   and keeps the rows prep kept, and the bound drops some rows. The loss
+   at w=0 must be within 1e-5 of the float64 plain path.
 
 The last two lines of stdout are a JSON object with per-kernel numbers
 (time, plain time, launches, error, the bound and what sets it, the
@@ -93,9 +100,10 @@ own durations by the profiler `kernel_ms` / `v1_kernel_ms`, the pair
 tests the box cull keeps `pairs_kept`, counted by the host model of the
 cull (scripts/cellwin_cull.py) and not read from the kernels, and the
 first versions' bound `bound_all_pairs_ms`, which charges every span pair
-test) and {"ok": true, "device": {...}}. Before them, one line carries the
-end-to-end numbers of the bench's keys (train_step_ms, capped32_ms,
-node_ms, ...).
+test; for X3 the same two bounds and its first version's time on each of
+its three inputs) and {"ok": true, "device": {...}}. Before them, one line
+carries the end-to-end numbers of the bench's keys (train_step_ms,
+capped32_ms, node_ms, ...).
 Without a CUDA device the script fails before printing any result.
 """
 from __future__ import annotations
@@ -800,48 +808,138 @@ def phase_small(card: str):
     return res
 
 
-def check_knn(label: str, points, valid, r: float, k: int, card: str) -> dict:
-    """X3 on ``points`` (every row queries, ``valid`` marks rows and points)
-    against its plain twin on the card, in both modes: the top-k within r
-    (index tables equal, d2 bit for bit) and the counts (equal); both
-    timed, with the bounds of this run's work. Raises on a missed bar."""
+def kernels_by_name(fn, reps: int = 10) -> dict:
+    """{kernel name: device ms per call} of ``fn``'s kernels (torch.profiler,
+    after one warm call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / reps for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+def check_knn(label: str, points, valid, r: float, k: int, card: str,
+              every_row: bool = False) -> dict:
+    """X3 on ``points`` querying themselves (``valid`` marks the points; the
+    top-k's queries are the valid rows, or every row with ``every_row``, as
+    the shadow filter's radius_neighbors call passes no valid_query; the
+    counts' are every row), called as the path calls it, against its plain
+    twin and its first version (csrc/knn_brute_v1.cu) on the card, in both
+    modes: the top-k within r (index tables equal, d2 bit for bit) and the
+    counts (equal). Both versions timed in turns, the
+    search kernel's own time apart from the ordering's (profiler), and two
+    bounds: every pair test (the first version's work) and the pair and box
+    tests the cull keeps, counted by the host model scripts/knn_cull.py on
+    these inputs (the kernel counts nothing). Raises on a missed bar."""
     import torch
 
     from depth_correction_tpu_torch.ops import knn
+    from depth_correction_tpu_torch.scripts import knn_cull
 
-    args = (points, points, k, r, valid, valid)
+    q_valid = None if every_row else valid
+    args = (points, points, k, r, valid, q_valid)
     d2, idx = knn.knn_d2(*args)
     counts = knn.neighbor_counts(points, points, r, valid)
+    v1_d2, v1_idx = knn.knn_brute_v1(*args)
+    v1_counts = knn.knn_brute_v1(points, points, 0, r, valid)
     torch.cuda.synchronize()
     pd2, pidx = knn.knn_d2(*args, plain=True)
     pcounts = knn.neighbor_counts(points, points, r, valid, plain=True)
-    same_idx, same_d2 = bool(torch.equal(idx, pidx)), bit_equal(d2, pd2)
-    same_counts = bool(torch.equal(counts, pcounts))
+    same = {"plain": (bool(torch.equal(idx, pidx)), bit_equal(d2, pd2),
+                      bool(torch.equal(counts, pcounts))),
+            "v1": (bool(torch.equal(idx, v1_idx)), bit_equal(d2, v1_d2),
+                   bool(torch.equal(counts, v1_counts)))}
     n, nv = points.shape[0], int(valid.sum())
     held = int((idx >= 0).sum())
-    log("X3 %s: %d points (%d valid), k %d, r %g (largest count %d, %d pairs held); kernel "
-        "vs plain: index tables equal %s, d2 bit-equal %s, counts equal %s"
-        % (label, n, nv, k, r, int(counts.max()), held, same_idx, same_d2, same_counts))
-    if not (same_idx and same_d2 and same_counts):
-        raise RuntimeError("X3 %s misses its bars against the plain twin" % label)
-    res = {"err": 0.0,
-           "ms": cuda_ms(lambda: knn.knn_d2(*args), reps=20),
-           "counts_ms": cuda_ms(lambda: knn.neighbor_counts(points, points, r, valid), reps=20),
-           "plain_ms": cuda_ms(lambda: knn.knn_d2(*args, plain=True), reps=1, warmup=1),
-           "counts_plain_ms": cuda_ms(lambda: knn.neighbor_counts(points, points, r, valid,
-                                                                  plain=True),
-                                      reps=1, warmup=1),
-           # Bound: 8 float ops per pair test; the top-k tests every valid
-           # point for each valid query, the counts for every query. Queries
-           # and points (12 bytes and a validity byte each) read once, the
-           # (Q, k) tables or (Q,) counts written once.
-           "bound": bound(n * 26 + n * k * 8, {"fp32": 8 * nv * nv}),
-           "counts_bound": bound(n * 13 + n * 13 + n * 4, {"fp32": 8 * n * nv})}
-    log("X3 %s timing (float32): top-%d %.4f ms (plain %.4f ms, bound %.4f ms, %s), counts "
-        "%.4f ms (plain %.4f ms, bound %.4f ms) (%s)"
-        % (label, k, res["ms"], res["plain_ms"], res["bound"][0], res["bound"][1],
-           res["counts_ms"], res["counts_plain_ms"], res["counts_bound"][0], card))
+    log("X3 %s: %d points (%d valid), k %d, r %g (largest count %d, %d pairs held); against "
+        "the plain twin / the first version: index tables equal %s / %s, d2 bit-equal %s / %s, "
+        "counts equal %s / %s"
+        % (label, n, nv, k, r, int(counts.max()), held, same["plain"][0], same["v1"][0],
+           same["plain"][1], same["v1"][1], same["plain"][2], same["v1"][2]))
+    if not all(same["plain"] + same["v1"]):
+        raise RuntimeError("X3 %s misses its bars against the plain twin or its first version"
+                           % label)
+    t0 = time.perf_counter()
+    cull = {"topk": knn_cull.cull_stats(points, valid, r, k, q_valid=q_valid),
+            "counts": knn_cull.cull_stats(points, valid, r, 0)}
+    for mode, st in cull.items():
+        log("  cull (host model, %s, %.1f s): %d of %d pair tests kept (%.4f), %d of %d tiles "
+            "loaded, %d box tests, the most pair tests of one warp %d, members %d%s"
+            % (mode, time.perf_counter() - t0, st["kept_pairs"], st["all_pairs"],
+               st["pair_share"], st["tiles_loaded"], st["blocks"] * st["tiles"],
+               st["box_tests"], st["max_block_pairs"], st["members"],
+               ", list insertions %d (most %d a query)" % (st["insertions"],
+                                                           st["max_insertions"])
+               if "insertions" in st else ""))
+    members = (int(counts.sum() if every_row else counts[valid].sum()), int(counts.sum()))
+    if (cull["topk"]["members"], cull["counts"]["members"]) != members:
+        raise RuntimeError("X3 %s: the host model's members (%d, %d) differ from the kernel's "
+                           "counts (%d, %d)" % (label, cull["topk"]["members"],
+                                                cull["counts"]["members"], *members))
+    res = {"err": 0.0, "k": k, "largest_count": int(counts.max()), "cull": cull}
+    log("  X3 %s top-%d, first version then the redesign:" % (label, k))
+    res["v1_ms"], res["ms"] = in_turns(lambda: knn.knn_brute_v1(*args),
+                                       lambda: knn.knn_d2(*args), reps=20)
+    log("  X3 %s counts, first version then the redesign:" % label)
+    res["counts_v1_ms"], res["counts_ms"] = in_turns(
+        lambda: knn.knn_brute_v1(points, points, 0, r, valid),
+        lambda: knn.neighbor_counts(points, points, r, valid), reps=20)
+    for mode, fn in (("", lambda: knn.knn_d2(*args)),
+                     ("counts_", lambda: knn.neighbor_counts(points, points, r, valid))):
+        names = kernels_by_name(fn)
+        res[mode + "tiles_ms"] = sum(v for n_, v in names.items() if "knn_tiles_kernel" in n_)
+        res[mode + "order_ms"] = sum(names.values()) - res[mode + "tiles_ms"]
+    res["plain_ms"] = cuda_ms(lambda: knn.knn_d2(*args, plain=True), reps=1, warmup=1)
+    res["counts_plain_ms"] = cuda_ms(lambda: knn.neighbor_counts(points, points, r, valid,
+                                                                 plain=True), reps=1, warmup=1)
+    # Bounds: 8 float ops per pair test (without FMA, 8 instructions); the
+    # top-k's queries are the valid rows (every row with ``every_row``), the
+    # counts' every row. All pairs:
+    # every query against every valid point. Kept: the pair tests and box
+    # tests (BOX_OPS each) the cull leaves, from the host model. Queries
+    # and points (12 bytes and a validity byte each) read once, the (Q, k)
+    # tables or (Q,) counts written once.
+    topk_bytes, counts_bytes = n * 26 + n * k * 8, n * 13 + n * 13 + n * 4
+    res["bound_all_pairs"] = bound(topk_bytes, {"fp32": PAIR_OPS * (n if every_row else nv)
+                                                * nv})
+    res["counts_bound_all_pairs"] = bound(counts_bytes, {"fp32": PAIR_OPS * n * nv})
+    res["bound"] = bound(topk_bytes, {"fp32": PAIR_OPS * cull["topk"]["kept_pairs"]
+                                      + BOX_OPS * cull["topk"]["box_tests"]})
+    res["counts_bound"] = bound(counts_bytes, {"fp32": PAIR_OPS * cull["counts"]["kept_pairs"]
+                                               + BOX_OPS * cull["counts"]["box_tests"]})
+    log("X3 %s timing (float32): top-%d %.4f ms (first version %.4f, %.2fx; search kernel "
+        "%.4f, ordering and packing %.4f; plain %.4f; bound %.4f kept pairs, %.4f all pairs), "
+        "counts %.4f ms (first version %.4f, %.2fx; search kernel %.4f, ordering and packing "
+        "%.4f; plain %.4f; bound %.4f kept pairs, %.4f all pairs) (%s)"
+        % (label, k, res["ms"], res["v1_ms"], res["v1_ms"] / res["ms"], res["tiles_ms"],
+           res["order_ms"], res["plain_ms"], res["bound"][0], res["bound_all_pairs"][0],
+           res["counts_ms"], res["counts_v1_ms"], res["counts_v1_ms"] / res["counts_ms"],
+           res["counts_tiles_ms"], res["counts_order_ms"], res["counts_plain_ms"],
+           res["counts_bound"][0], res["counts_bound_all_pairs"][0], card))
     return res
+
+
+def x3_summary(res: dict) -> dict:
+    """X3's numbers on one input for the kernels line."""
+    return {"k": res["k"], "largest_count": res["largest_count"], "ms": res["ms"],
+            "v1_ms": res["v1_ms"], "search_kernel_ms": res["tiles_ms"],
+            "order_ms": res["order_ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound"][0], "bound_all_pairs_ms": res["bound_all_pairs"][0],
+            "counts_ms": res["counts_ms"], "counts_v1_ms": res["counts_v1_ms"],
+            "counts_search_kernel_ms": res["counts_tiles_ms"],
+            "counts_plain_ms": res["counts_plain_ms"],
+            "counts_bound_ms": res["counts_bound"][0],
+            "counts_bound_all_pairs_ms": res["counts_bound_all_pairs"][0],
+            "pair_share": res["cull"]["topk"]["pair_share"],
+            "counts_pair_share": res["cull"]["counts"]["pair_share"],
+            "insertions": res["cull"]["topk"].get("insertions")}
 
 
 def _window_bound(win, q, kw, passes: int) -> tuple:
@@ -1356,7 +1454,8 @@ def check_shadow_filter(scan, cfg, card: str) -> dict:
                                        plain=True)
     if not torch.equal(dir_nn, plain_nn):
         raise RuntimeError("X3's direction table differs from its plain twin's")
-    res = check_knn("shadow directions", cloud.dirs, cloud.valid, r_dir, k_dir, card)
+    res = check_knn("shadow directions", cloud.dirs, cloud.valid, r_dir, k_dir, card,
+                    every_row=True)
     shadow_ok = filters.filter_shadow_mask(cloud, dir_nn, (dir_nn >= 0).to(cloud.depth.dtype),
                                            cfg.shadow_angle_bounds)
     n, kept = int(cloud.valid.sum()), int(shadow_ok.sum())
@@ -1450,6 +1549,27 @@ def check_vp_dispersion(data, cfg) -> dict:
     return {"err": err, "launches": launches}
 
 
+def check_global_knn(data, cfg, card: str) -> dict:
+    """X3 at the default config's global establishment: the global cloud
+    rebuilt from the prepared batch, r = nn_r, K sized by X3's own counts
+    (rounded up to 8, as suggest_k_max rounds). Prep routes this cloud to
+    the grid search (X2), its padded size being at least
+    GRID_NN_MIN_POINTS; here X3 runs on it directly and is held against its
+    twin and its first version (check_knn)."""
+    from depth_correction_tpu_torch import preproc
+    from depth_correction_tpu_torch.ops import knn
+    from depth_correction_tpu_torch.ops.grid_hash import GRID_NN_MIN_POINTS
+
+    gcloud = preproc.global_cloud(data.batches[0])
+    points, valid = gcloud.get_points(), gcloud.valid
+    counts = knn.neighbor_counts(points, r=float(cfg.nn_r), valid_points=valid)
+    k = max(8, -(-int(counts.max()) // 8) * 8)
+    log("default global cloud: %d points (%d valid; prep routes it to %s), K %d from X3's "
+        "counts" % (points.shape[0], int(valid.sum()),
+                    "X2" if points.shape[0] >= GRID_NN_MIN_POINTS else "X3", k))
+    return check_knn("default global cloud", points, valid, float(cfg.nn_r), k, card)
+
+
 def write_asl_sequence(root: str, scene: str, name: str, noise: float = 0.005) -> int:
     """The synthetic scene's scans as ASL-laser files (the reference
     loader's layout, datasets/asl_laser.py): csv_local/Hokuyo_<i>.csv with
@@ -1532,6 +1652,7 @@ def phase_default(card: str):
             raise RuntimeError("X3 / P7 were not launched in the default prep: %s" % launches)
         shadow = check_shadow_filter(next(iter(ds))[0], cfg, card)
         vp = check_vp_dispersion(data, cfg)
+        glob = check_global_knn(data, cfg, card)
         if rows <= 0:
             raise RuntimeError("the default masks kept no row")
         model, history = train(cfg, train_data=data)
@@ -1550,7 +1671,7 @@ def phase_default(card: str):
             raise RuntimeError("default-config loss at w=0 misses the 1e-5 bar: %.3e"
                                % loss_rel)
         return {"loss_rel": loss_rel, "step_ms": step_ms, "prep_s": prep_s, "rows": rows,
-                "launches": launches, "shadow": shadow, "vp": vp}
+                "launches": launches, "shadow": shadow, "vp": vp, "global": glob}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1650,17 +1771,13 @@ def main() -> int:
          "source": "depth_correction_tpu_torch/csrc/knn_brute.cu",
          "replaces": "depth_correction_tpu/ops/knn.py:51",
          "launches": small["launches"]["knn"], "max_abs_err": small["x3"]["err"],
-         "ms": small["x3"]["ms"], "plain_ms": small["x3"]["plain_ms"],
-         "bound": small["x3"]["bound"], "library_ms": None,
-         "counts_bound_ms": small["x3"]["counts_bound"][0],
+         "ms": small["x3"]["ms"], "v1_ms": small["x3"]["v1_ms"],
+         "plain_ms": small["x3"]["plain_ms"], "bound": small["x3"]["bound"],
+         "bound_all_pairs_ms": small["x3"]["bound_all_pairs"][0], "library_ms": None,
          "launches_default": default["launches"]["knn"],
-         "shadow_dirs": {"k": shadow["k"], "dropped": shadow["dropped"],
-                         "max_abs_err": shadow["err"], "ms": shadow["ms"],
-                         "plain_ms": shadow["plain_ms"], "bound_ms": shadow["bound"][0],
-                         "counts_ms": shadow["counts_ms"],
-                         "counts_bound_ms": shadow["counts_bound"][0]},
-         "variants": {"counts": small["x3"]["counts_ms"],
-                      "counts_plain": small["x3"]["counts_plain_ms"]}},
+         "inputs": {"small_scan": x3_summary(small["x3"]),
+                    "shadow_dirs": dict(x3_summary(shadow), dropped=shadow["dropped"]),
+                    "default_global": x3_summary(default["global"])}},
     ] + probes
     for en in kernels:
         en["bound_ms"], en["bound_by"] = en.pop("bound")

@@ -20,8 +20,10 @@ X1, X2, X3, P7 and the probes P1-P6, P7a, P8 count here
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -36,11 +38,14 @@ __all__ = [
     "GATHER_SUM_LAUNCHES",
     "GRID_LAUNCHES",
     "KNN_LAUNCHES",
+    "KNN_V1_LAUNCHES",
     "KNOCKOUT_LAUNCHES",
     "LAYOUT_LAUNCHES",
     "SLAB_LAUNCHES",
     "WINDOW_LAUNCHES",
     "build",
+    "knn_max_k",
+    "knn_tiles_max_k",
     "launch_cellwin_bwd",
     "launch_cellwin_bwd_v1",
     "launch_cellwin_fwd",
@@ -51,6 +56,7 @@ __all__ = [
     "launch_gather_sum",
     "launch_grid_query",
     "launch_knn_brute",
+    "launch_knn_brute_v1",
     "launch_layout_probe",
     "launch_moment_dot",
     "launch_moment_window",
@@ -64,7 +70,7 @@ SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin.cu", "cellwin_v1.cu", "gather_moments.cu", "slabwin.cu",
                              "cellwin_knockout.cu", "moment_dot.cu", "moment_window.cu",
                              "grid_query.cu", "layout_probe.cu", "gather_probe.cu",
-                             "knn_brute.cu", "gather_sum.cu"))
+                             "knn_brute.cu", "knn_brute_v1.cu", "gather_sum.cu"))
 # Headers the sources include; they key the build like the sources.
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin_fwd.cuh", "tf32_mma.cuh"))
@@ -88,6 +94,8 @@ NVCC_FLAGS = (
 SLAB_LAUNCHES = 0
 GRID_LAUNCHES = 0
 KNN_LAUNCHES = 0
+# X3's first version, for the A/B only (no path launches it).
+KNN_V1_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 KNOCKOUT_LAUNCHES = 0
 DOT_LAUNCHES = 0
@@ -185,8 +193,21 @@ def load():
         lib.dc_gather_probe.restype = _I
         lib.dc_gather_sum.argtypes = [_P, _I, _P, _I, _I, _P, _P]
         lib.dc_gather_sum.restype = _I
-        lib.dc_knn_brute.argtypes = [_P, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P]
+        lib.dc_knn_brute.argtypes = [_P, _P, _I, _P, _P, _I, _F, _F, _I, _I, _I, _P, _P, _P,
+                                     _P]
         lib.dc_knn_brute.restype = _I
+        lib.dc_knn_brute_scratch.argtypes = [_I, _I, _I, _I]
+        lib.dc_knn_brute_scratch.restype = _L
+        lib.dc_knn_order.argtypes = [_P, _P, _I, _F, _P, _P, _P]
+        lib.dc_knn_order.restype = _I
+        lib.dc_knn_order_scratch.argtypes = [_I]
+        lib.dc_knn_order_scratch.restype = _L
+        lib.dc_knn_brute_v1.argtypes = [_P, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P]
+        lib.dc_knn_brute_v1.restype = _I
+        lib.dc_knn_brute_max_k.argtypes = [_P]
+        lib.dc_knn_brute_max_k.restype = _I
+        lib.dc_knn_brute_v1_max_k.argtypes = [_P]
+        lib.dc_knn_brute_v1_max_k.restype = _I
         lib.dc_cuda_error_string.argtypes = [_I]
         lib.dc_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -589,19 +610,71 @@ def launch_gather_probe(staged: bool, axis: int, x, idx) -> torch.Tensor:
     return out
 
 
-def launch_knn_brute(q_pts, q_valid, pts, p_valid, r2: float, k: int):
-    """X3 on CUDA tensors: k = 0 -> counts (Q,) int32 of the valid points
-    within r2 (every query counts); k > 0 -> (d2 (Q, k) float32, idx (Q, k)
-    int32), the k nearest valid points within r2 by (d2, index), inf / -1
-    padded, and all padding for a query that ``q_valid`` marks invalid.
+def _max_k(entry: str, device) -> int:
+    device = torch.cuda.current_device() if device is None else device
+    if (entry, device) not in _KNN_MAX_K:
+        lib = load()
+        out = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            err = getattr(lib, entry)(ctypes.byref(out))
+        _check_launch(lib, err, entry)
+        _KNN_MAX_K[(entry, device)] = out.value
+    return _KNN_MAX_K[(entry, device)]
 
-    :param q_pts: (Q, 3) float32 queries (any strides; copied contiguous).
-    :param q_valid: (Q,) bool, or None (every query is valid).
-    :param pts: (N, 3) float32 points (any strides; copied contiguous).
-    :param p_valid: (N,) bool.
-    :param r2: the squared radius as a float (``inf``: no radius).
-    """
-    global KNN_LAUNCHES
+
+_KNN_MAX_K = {}
+
+
+def knn_tiles_max_k(device=None) -> int:
+    """The largest k of X3's tiled body (``csrc/knn_brute.cu``), whose lists
+    for one warp of 32 queries fit the shared memory per block of
+    ``device`` (the current card by default): about 839 on an H100."""
+    return _max_k("dc_knn_brute_max_k", device)
+
+
+def knn_max_k(device=None) -> int:
+    """The largest k X3 takes on ``device`` (the current card by default):
+    that of the warp-per-query body (``csrc/knn_brute_v1.cu``), which
+    serves every k above :func:`knn_tiles_max_k`; about 13,680 on an H100."""
+    return _max_k("dc_knn_brute_v1_max_k", device)
+
+
+def _knn_cell_order(pts, active, side: float) -> torch.Tensor:
+    """(N,) int32: the rows of ``pts`` (N, 3) float32 by the Morton key of
+    their cell (side max(``side``, extent / 128) over the active rows'
+    box), active rows first (``active`` None: every row), equal keys in
+    index order: X3's order. No path calls it: it exists for the test that
+    holds the host model (scripts/knn_cull.py:cell_order), whose kept
+    shares chip_smoke.py charges, to the card's order."""
+    n = pts.shape[0]
+    lib = load()
+    scratch = torch.empty((lib.dc_knn_order_scratch(n),), dtype=torch.uint8, device=pts.device)
+    order = torch.empty((n,), dtype=torch.int32, device=pts.device)
+    with torch.cuda.device(pts.device):
+        stream = torch.cuda.current_stream(pts.device).cuda_stream
+        err = lib.dc_knn_order(pts.contiguous().data_ptr(), _ptr(active), n, float(side),
+                               scratch.data_ptr(), order.data_ptr(), stream)
+    _check_launch(lib, err, "knn_order")
+    return order
+
+
+def _on_device(device):
+    """``torch.cuda.device(device)``, or no scope when ``device`` is already
+    current: with the raw stream handle it keeps X3's host cost per call
+    (its launches are what a small search waits on) to the launches."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _same_rows(a, b) -> bool:
+    return a is b or (a.data_ptr() == b.data_ptr() and a.shape == b.shape
+                      and a.stride() == b.stride())
+
+
+def _knn_inputs(q_pts, q_valid, pts, p_valid, k: int, name: str):
+    """X3's inputs checked and made contiguous, and its outputs allocated:
+    (q_pts, pts, k, idx, d2), d2 None for the counts (k = 0)."""
     device = pts.device
     if device.type != "cuda":
         raise ValueError("the brute-force search kernel takes CUDA tensors, got %s" % device)
@@ -613,28 +686,99 @@ def launch_knn_brute(q_pts, q_valid, pts, p_valid, r2: float, k: int):
     if q_valid is not None:
         _check(q_valid, "q_valid", torch.bool, (nq,), device)
     if n >= 1 << 31 or nq >= 1 << 31:
-        raise ValueError("knn_brute: %d points, %d queries; the kernel takes fewer than 2^31"
-                         % (n, nq))
+        raise ValueError("%s: %d points, %d queries; the kernel takes fewer than 2^31"
+                         % (name, n, nq))
     if (pts.requires_grad or q_pts.requires_grad) and torch.is_grad_enabled():
-        raise RuntimeError("knn_brute is forward only: its points require grad")
+        raise RuntimeError("%s is forward only: its points require grad" % name)
     k = int(k)
     if k < 0:
-        raise ValueError("knn_brute: k = %d" % k)
+        raise ValueError("%s: k = %d" % (name, k))
     if k == 0:
-        idx = torch.empty((nq,), dtype=torch.int32, device=device)
-        d2 = None
-    else:
-        idx = torch.empty((nq, k), dtype=torch.int32, device=device)
-        d2 = torch.empty((nq, k), dtype=torch.float32, device=device)
+        return q_pts, pts, k, torch.empty((nq,), dtype=torch.int32, device=device), None
+    return (q_pts, pts, k, torch.empty((nq, k), dtype=torch.int32, device=device),
+            torch.empty((nq, k), dtype=torch.float32, device=device))
+
+
+def launch_knn_brute(q_pts, q_valid, pts, p_valid, r2: float, k: int):
+    """X3 on CUDA tensors: k = 0 -> counts (Q,) int32 of the valid points
+    within r2 (every query counts); k > 0 -> (d2 (Q, k) float32, idx (Q, k)
+    int32), the k nearest valid points within r2 by (d2, index), inf / -1
+    padded, and all padding for a query that ``q_valid`` marks invalid.
+
+    With a finite r2 the points and the queries are ordered by cell (side
+    at least sqrt(r2)) first and each warp of queries reads only the tiles
+    and chunks of points within r2 of its queries; the outputs do not
+    depend on the order. A k above :func:`knn_tiles_max_k` takes the
+    warp-per-query body of ``csrc/knn_brute_v1.cu`` (every query against
+    every point), one above :func:`knn_max_k` raises.
+
+    :param q_pts: (Q, 3) float32 queries (any strides; copied contiguous).
+    :param q_valid: (Q,) bool, or None (every query is valid).
+    :param pts: (N, 3) float32 points (any strides; copied contiguous).
+    :param p_valid: (N,) bool.
+    :param r2: the squared radius as a float (``inf``: no radius).
+    """
+    global KNN_LAUNCHES
+    same = _same_rows(q_pts, pts)
+    q_pts, pts, k, idx, d2 = _knn_inputs(q_pts, q_valid, pts, p_valid, k, "knn_brute")
+    device = pts.device
+    n, nq = pts.shape[0], q_pts.shape[0]
+    if k > knn_tiles_max_k(device.index):
+        # Past the tiled body's shared memory: X3's warp-per-query body.
+        k_max = knn_max_k(device.index)
+        if k > k_max:
+            raise ValueError("knn_brute: k = %d does not fit: the lists of one warp hold at "
+                             "most k = %d in the card's shared memory per block" % (k, k_max))
+        out = _knn_v1_body(q_pts, q_valid, pts, p_valid, r2, k, idx, d2, "knn_brute")
+        KNN_LAUNCHES += 1
+        return out
+    q_active = q_valid if k else None  # the counts count every query
+    cull = math.isfinite(r2) and n > 0 and nq > 0
+    # One cell order serves points and queries when they are the same rows
+    # and every row queries (counts, or a top-k without q_valid) or the
+    # active queries are the valid points: the main paths' calls.
+    share = cull and same and (q_active is None or _same_rows(q_active, p_valid))
     lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dc_knn_brute(q_pts.data_ptr(), _ptr(q_valid), nq, pts.data_ptr(),
-                               p_valid.data_ptr(), n, float(r2), k, idx.data_ptr(), _ptr(d2),
-                               stream)
+    scratch = torch.empty((lib.dc_knn_brute_scratch(nq, n, int(cull), int(share)),),
+                          dtype=torch.uint8, device=device)
+    with _on_device(device):
+        # The current stream's raw handle, read without building a Stream
+        # object as torch.cuda.current_stream does: a small search waits on
+        # the host's cost per call.
+        err = lib.dc_knn_brute(q_pts.data_ptr(), _ptr(q_active), nq, pts.data_ptr(),
+                               p_valid.data_ptr(), n, float(r2),
+                               math.sqrt(r2) if cull and r2 > 0 else 1.0, int(cull),
+                               int(share), k, scratch.data_ptr(), idx.data_ptr(), _ptr(d2),
+                               torch._C._cuda_getCurrentRawStream(device.index))
     _check_launch(lib, err, "knn_brute (k %d)" % k)
     KNN_LAUNCHES += 1
     return idx if k == 0 else (d2, idx)
+
+
+def _knn_v1_body(q_pts, q_valid, pts, p_valid, r2: float, k: int, idx, d2, name: str):
+    """One launch of ``csrc/knn_brute_v1.cu`` on inputs checked by
+    :func:`_knn_inputs` (``q_valid`` ignored for the counts)."""
+    device = pts.device
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dc_knn_brute_v1(q_pts.data_ptr(), _ptr(q_valid if k else None),
+                                  q_pts.shape[0], pts.data_ptr(), p_valid.data_ptr(),
+                                  pts.shape[0], float(r2), k, idx.data_ptr(), _ptr(d2), stream)
+    _check_launch(lib, err, "%s (k %d)" % (name, k))
+    return idx if k == 0 else (d2, idx)
+
+
+def launch_knn_brute_v1(q_pts, q_valid, pts, p_valid, r2: float, k: int):
+    """X3's first version (``csrc/knn_brute_v1.cu``: one warp per query,
+    every query against every point), same inputs and outputs as
+    :func:`launch_knn_brute`, at any k up to :func:`knn_max_k`; for the A/B
+    only."""
+    global KNN_V1_LAUNCHES
+    q_pts, pts, k, idx, d2 = _knn_inputs(q_pts, q_valid, pts, p_valid, k, "knn_brute_v1")
+    out = _knn_v1_body(q_pts, q_valid, pts, p_valid, r2, k, idx, d2, "knn_brute_v1")
+    KNN_V1_LAUNCHES += 1
+    return out
 
 
 def launch_gather_sum(pts_T, idx) -> torch.Tensor:
@@ -664,13 +808,15 @@ def launch_gather_sum(pts_T, idx) -> torch.Tensor:
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts kept here (X1, X2, X3, P7, P1-P6, P7a, P8)."""
+    """Zero the launch counts kept here (X1, X2, X3 and its first version,
+    P7, P1-P6, P7a, P8)."""
     global SLAB_LAUNCHES, GRID_LAUNCHES, KNN_LAUNCHES, GATHER_LAUNCHES, KNOCKOUT_LAUNCHES
     global DOT_LAUNCHES, WINDOW_LAUNCHES, LAYOUT_LAUNCHES, GATHER_SUM_LAUNCHES
-    global GATHER_PROBE_LAUNCHES
+    global GATHER_PROBE_LAUNCHES, KNN_V1_LAUNCHES
     SLAB_LAUNCHES = 0
     GRID_LAUNCHES = 0
     KNN_LAUNCHES = 0
+    KNN_V1_LAUNCHES = 0
     GATHER_SUM_LAUNCHES = 0
     GATHER_LAUNCHES = 0
     KNOCKOUT_LAUNCHES = 0

@@ -12,11 +12,15 @@ rounded on its own. Ties keep the lower index, as ``lax.top_k`` does, so
 both packages return the same neighbour sets. Missing neighbours are index
 -1 at distance ``inf``.
 
-On CUDA tensors the search is kernel X3 (``csrc/knn_brute.cu``, one launch
-over every query and point); on CPU tensors, or with ``plain=True`` on any
+On CUDA tensors the search is kernel X3 (``csrc/knn_brute.cu``: with a
+radius, points and queries ordered by cell and each warp of queries
+reading only the tiles of points within r of its box; a top-k past its
+shared memory takes the first version's warp-per-query body,
+``csrc/knn_brute_v1.cu``); on CPU tensors, or with ``plain=True`` on any
 device and dtype, its plain twins :func:`_knn_plain` and
 :func:`_counts_plain`: a running top-k over tiles of 2048 points per chunk
-of 8192 queries, the JAX package's loop.
+of 8192 queries, the JAX package's loop. :func:`knn_brute_v1` runs X3's
+first version at any k for an A/B on the card; no path calls it.
 """
 from __future__ import annotations
 
@@ -27,8 +31,8 @@ import torch
 
 from . import _kernels
 
-__all__ = ["knn_d2", "nearest_neighbors", "neighbor_counts", "radius_neighbors",
-           "suggest_k_max"]
+__all__ = ["knn_brute_v1", "knn_d2", "nearest_neighbors", "neighbor_counts",
+           "radius_neighbors", "suggest_k_max"]
 
 _TILE = 2048  # points per tile of the plain running top-k
 _QUERY_CHUNK = 8192  # queries per chunk of the plain loops
@@ -108,14 +112,25 @@ def _counts_plain(points, query, valid_points, r2):
     return torch.cat(parts)
 
 
+_NP_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
+
+
 def _prepare(points, query, valid_points, r):
+    """(points, query, valid_points, r2): the common float type, every point
+    valid by default, and r2 = r * r rounded in that type as a float (inf
+    without ``r``), computed on the host: a search on the card pays no
+    tensor op for it."""
     query = points if query is None else query
     dtype = torch.promote_types(points.dtype, query.dtype)
     points, query = points.to(dtype), query.to(dtype)
     if valid_points is None:
         valid_points = torch.ones(points.shape[0], dtype=torch.bool, device=points.device)
-    r2 = (torch.full((), float("inf"), dtype=dtype) if r is None
-          else torch.full((), r, dtype=dtype) ** 2)
+    if r is None:
+        r2 = float("inf")
+    elif dtype in _NP_FLOAT:
+        r2 = float(_NP_FLOAT[dtype](r) * _NP_FLOAT[dtype](r))
+    else:
+        r2 = float(torch.full((), r, dtype=dtype) ** 2)
     return points, query, valid_points, r2
 
 
@@ -131,9 +146,18 @@ def knn_d2(points, query=None, k: int = 1, r: Optional[float] = None, valid_poin
     points, query, valid_points, r2 = _prepare(points, query, valid_points, r)
     if plain or points.device.type == "cpu":
         return _knn_plain(points, query, valid_points, valid_query,
-                          r2.to(points.device), int(k))
-    return _kernels.launch_knn_brute(query, valid_query, points, valid_points, float(r2),
-                                     int(k))
+                          torch.tensor(r2, dtype=points.dtype, device=points.device), int(k))
+    return _kernels.launch_knn_brute(query, valid_query, points, valid_points, r2, int(k))
+
+
+def knn_brute_v1(points, query=None, k: int = 1, r: Optional[float] = None,
+                 valid_points=None, valid_query=None):
+    """X3's first version on CUDA float32 tensors, for an A/B against the
+    redesign: k > 0 -> :func:`knn_d2`'s (d2, idx); k = 0 -> the counts of
+    :func:`neighbor_counts` (``valid_query`` is then ignored)."""
+    points, query, valid_points, r2 = _prepare(points, query, valid_points, r)
+    return _kernels.launch_knn_brute_v1(query, valid_query if k else None, points,
+                                        valid_points, r2, int(k))
 
 
 def _finish_knn(d2, idx, r, valid_query):
@@ -187,8 +211,9 @@ def neighbor_counts(points, query=None, r: float = 1.0, valid_points=None,
     decide."""
     points, query, valid_points, r2 = _prepare(points, query, valid_points, r)
     if plain or points.device.type == "cpu":
-        return _counts_plain(points, query, valid_points, r2.to(points.device))
-    return _kernels.launch_knn_brute(query, None, points, valid_points, float(r2), 0)
+        return _counts_plain(points, query, valid_points,
+                             torch.tensor(r2, dtype=points.dtype, device=points.device))
+    return _kernels.launch_knn_brute(query, None, points, valid_points, r2, 0)
 
 
 def suggest_k_max(points, query=None, r: float = 1.0, valid_points=None,

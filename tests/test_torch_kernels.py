@@ -7,6 +7,8 @@ no JAX, so on a machine with a card and PyTorch alone they run as
 
 (``--noconftest``: the suite's conftest pins JAX to the CPU).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -955,6 +957,19 @@ def test_knn_and_gather_sum_wrappers_never_take_the_plain_path(monkeypatch):
     assert (_kernels.KNN_LAUNCHES, _kernels.GATHER_SUM_LAUNCHES) == before
 
 
+def test_knn_first_version_takes_cuda_tensors_only():
+    """X3's first version is reached only through knn_brute_v1 (the A/B):
+    it has no plain route, so a CPU tensor is refused and nothing counts."""
+    from depth_correction_tpu_torch.ops import knn as tknn
+
+    before = (_kernels.KNN_LAUNCHES, _kernels.KNN_V1_LAUNCHES)
+    pts = torch.zeros((8, 3))
+    for k in (4, 0):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tknn.knn_brute_v1(pts, pts, k, 0.1, torch.ones(8, dtype=torch.bool))
+    assert (_kernels.KNN_LAUNCHES, _kernels.KNN_V1_LAUNCHES) == before
+
+
 def _knn_inputs(device, seed=0, n=20000, dup=0, quantum=0.0):
     """Half a noisy plane, half a volume, 10% invalid; ``dup`` rows repeat
     earlier points exactly and ``quantum`` > 0 snaps every point to a grid
@@ -999,6 +1014,123 @@ def test_cuda_knn_brute_matches_plain(cuda_device, k, r, dup, quantum):
         assert torch.equal(counts, pcounts)
         held = torch.minimum(counts, torch.tensor(k, device=cuda_device))
         assert torch.equal((idx >= 0).sum(1).to(torch.int32), torch.where(qv, held, 0))
+
+
+def _x3_three_ways(pts, q, k, r, valid, qv):
+    """The redesigned X3, its first version (knn_brute_v1.cu) and the plain
+    twin on the same float32 inputs: top-k index tables equal, d2 bit for
+    bit, counts equal; each launches once. Returns X3's (d2, idx), counts."""
+    from depth_correction_tpu_torch.ops import knn as tknn
+
+    before = (_kernels.KNN_LAUNCHES, _kernels.KNN_V1_LAUNCHES)
+    d2, idx = tknn.knn_d2(pts, q, k, r, valid, qv)
+    v1_d2, v1_idx = tknn.knn_brute_v1(pts, q, k, r, valid, qv)
+    counts = tknn.neighbor_counts(pts, q, r, valid)
+    v1_counts = tknn.knn_brute_v1(pts, q, 0, r, valid)
+    torch.cuda.synchronize()
+    assert (_kernels.KNN_LAUNCHES, _kernels.KNN_V1_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    pd2, pidx = tknn.knn_d2(pts, q, k, r, valid, qv, plain=True)
+    pcounts = tknn.neighbor_counts(pts, q, r, valid, plain=True)
+    for other_d2, other_idx in ((pd2, pidx), (v1_d2, v1_idx)):
+        assert torch.equal(idx, other_idx)
+        assert bit_equal(d2, other_d2)
+    assert torch.equal(counts, pcounts) and torch.equal(counts, v1_counts)
+    if qv is not None:
+        assert int((idx[~qv] >= 0).sum()) == 0
+    return (d2, idx), counts
+
+
+X3_CASES = {
+    "k1": dict(k=1), "k32": dict(k=32), "k88": dict(k=88), "k168": dict(k=168, n=12000),
+    "no_radius": dict(k=16, r=None, n=6000),
+    "no_radius_k88": dict(k=88, r=None, n=3000),
+    "self": dict(k=32, self_query=True),
+    "self_every_row": dict(k=32, self_query=True, every_row=True, dup=500),
+    "self_no_radius": dict(k=8, r=None, n=4000, self_query=True),
+    "cell_sorted": dict(k=32, cell_sorted=True),
+    "queries_invalid": dict(k=32, no_valid_queries=True),
+    "points_invalid": dict(k=32, no_valid_points=True),
+    "n_below_32": dict(k=8, n=20, self_query=True),
+    "n_tile_plus_one": dict(k=40, n=129, r=2.0, self_query=True),
+    "dup_ties": dict(k=64, dup=3000),
+    "snapped_ties": dict(k=200, quantum=0.05),
+    "dup_snapped_no_radius": dict(k=40, r=None, n=5000, dup=1000, quantum=0.05),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(X3_CASES))
+def test_cuda_knn_redesign_matches_twin_and_first_version(cuda_device, case):
+    """The redesigned X3 (cell order, tile cull, one query per lane)
+    against its plain twin and its first version: k from 1 to 200, no
+    radius, self-search (the main paths' calls, which reuse the points'
+    order for the queries: with the valid points as the queries, and with
+    every row querying as the shadow filter's top-k does), input already in
+    cell order, no valid query, no valid point, fewer points than a warp
+    and than a tile plus one, and the duplicated and grid-snapped ties of
+    :func:`_knn_inputs`."""
+    from depth_correction_tpu_torch.scripts import knn_cull as kc
+
+    c = dict(k=32, r=0.3, n=20000, dup=0, quantum=0.0)
+    c.update(X3_CASES[case])
+    pts, valid = _knn_inputs(cuda_device, seed=3, n=c["n"], dup=c["dup"], quantum=c["quantum"])
+    if c.get("cell_sorted"):
+        order = torch.as_tensor(kc.cell_order(pts.cpu(), valid.cpu(), c["r"]), device=cuda_device)
+        pts, valid = pts[order].contiguous(), valid[order].contiguous()
+    if c.get("no_valid_points"):
+        valid = torch.zeros_like(valid)
+    if c.get("self_query"):
+        q, qv = pts, valid
+    else:
+        q, qv = pts[::3].contiguous(), valid[::3].contiguous()
+    if c.get("no_valid_queries"):
+        qv = torch.zeros_like(qv)
+    if c.get("every_row"):
+        qv = None
+    (_, idx), counts = _x3_three_ways(pts, q, c["k"], c["r"], valid, qv)
+    if c.get("no_valid_points"):
+        assert int(counts.sum()) == 0 and int((idx >= 0).sum()) == 0
+    elif not c.get("no_valid_queries"):
+        assert int((idx >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_cuda_knn_fewest_queries_per_block_and_the_limit(cuda_device):
+    """The largest k whose lists fit one warp of 32 queries (one per lane)
+    in the tiled body runs and equals its twin and first version; one more
+    takes the warp-per-query body, still X3, and equals them too, as does
+    the largest k of that body; one more than that is refused with the k
+    and the limit, before any launch."""
+    from depth_correction_tpu_torch.ops import knn as tknn
+
+    k_tiles, k_max = _kernels.knn_tiles_max_k(), _kernels.knn_max_k()
+    assert 200 < k_tiles < k_max
+    pts, valid = _knn_inputs(cuda_device, seed=4, n=2500)
+    q, qv = pts[::2].contiguous(), valid[::2].contiguous()
+    for k in (k_tiles, k_tiles + 1):
+        _x3_three_ways(pts, q, k, 1.0, valid, qv)
+    _x3_three_ways(pts, q[:64].contiguous(), k_max, None, valid, qv[:64].contiguous())
+    before = _kernels.KNN_LAUNCHES
+    with pytest.raises(ValueError, match="k = %d does not fit.*k = %d" % (k_max + 1, k_max)):
+        tknn.knn_d2(pts, pts, k_max + 1, 1.0, valid, valid)
+    assert _kernels.KNN_LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [30000, 16385, 16384, 12000, 129])
+def test_cuda_knn_order_matches_the_host_model(cuda_device, n):
+    """The launcher's cell order on the card equals the host model's
+    (scripts/knn_cull.py), so the model's kept-tile counts are the
+    kernel's: by CUB's device sort above 16,384 rows, by one block at and
+    below."""
+    from depth_correction_tpu_torch.scripts import knn_cull as kc
+
+    pts, valid = _knn_inputs(cuda_device, seed=5, n=n, dup=n // 15)
+    r2 = float(torch.tensor(0.25, dtype=torch.float32) ** 2)
+    got = _kernels._knn_cell_order(pts, valid, math.sqrt(r2)).cpu().numpy()
+    np.testing.assert_array_equal(got, kc.cell_order(pts.cpu(), valid.cpu(), 0.25))
+    got = _kernels._knn_cell_order(pts, None, math.sqrt(r2)).cpu().numpy()
+    np.testing.assert_array_equal(got, kc.cell_order(pts.cpu(), np.ones(len(pts), bool), 0.25))
 
 
 @pytest.mark.cuda
