@@ -30,8 +30,12 @@ Phases (any failure raises and the exit code is non-zero):
    open_box/n_6_size_20_20_5_height_1_density_215, slab engine, float32)
    through DepthCorrector.process and correct_cloud; X1 must have launched
    and meet its bars against the float64 plain version on the node's own
-   sorted inputs; the corrected points are held against the port's plain
-   float64 node path; node_ms, node_e2e_ms and node_points are printed.
+   sorted inputs, and equal its first version (csrc/slabwin_v1.cu) bit for
+   bit there; both are timed in turns (first version, redesign, redesign,
+   first version), with the share of pair tests the warps' cull keeps
+   (host model, scripts/slab_cull.py); the corrected points are held
+   against the port's plain float64 node path; node_ms, node_e2e_ms and
+   node_points are printed.
 5. small   — a scan of the same box below 65,536 padded points
    (density 100), routed to the brute engine (K = 32): X3 and P7 must have
    launched; node_ms is printed beside the 358.307 ms of the eager
@@ -58,12 +62,15 @@ Phases (any failure raises and the exit code is non-zero):
    oracle; a table of ms per variant is printed.
 7. grid    — X2 (the grid radius search) against its plain twin on the
    card, on phase 3's global cloud and on its first scan: index tables
-   equal, distances within one float32 ulp, counts equal; against scipy's
-   float64 sets on the scan (a pair may differ only within 1e-6 r of the
-   radius); X2 timed at both sizes. X2 at the grid node's shapes (the
+   equal, distances within one float32 ulp, counts equal; against its
+   first version (csrc/grid_query_v1.cu): index tables, distances bit for
+   bit and counts equal; against scipy's float64 sets on the scan (a pair
+   may differ only within 1e-6 r of the radius); both versions timed in
+   turns at both sizes, top-k and counts. X2 at the grid node's shapes (the
    traced 2^21-cell grid of phase 4's filtered scan; k = 32, the node's,
    and k = 16, below the scan's largest count, so the top-k cuts) against
-   its plain twin, as above. Then the node's grid
+   its plain twin and its first version, as above, both timed in turns.
+   Then the node's grid
    engine (X2 + P7, K = 32) on phase 4's scan, held within 1e-4 m of the
    float64 plain grid node, with node_ms and node_e2e_ms as phase 4
    measures them.
@@ -100,8 +107,11 @@ own durations by the profiler `kernel_ms` / `v1_kernel_ms`, the pair
 tests the box cull keeps `pairs_kept`, counted by the host model of the
 cull (scripts/cellwin_cull.py) and not read from the kernels, and the
 first versions' bound `bound_all_pairs_ms`, which charges every span pair
-test; for X3 the same two bounds and its first version's time on each of
-its three inputs) and {"ok": true, "device": {...}}. Before them, one line
+test; for X1 the same, by scripts/slab_cull.py, and its first version's
+time `v1_ms`; for X2 its first version's time at each input; for X3 the
+same two bounds and its first version's time on each of its three inputs;
+for P2, P6 and P8 the library call's device time by the profiler beside
+its events time) and {"ok": true, "device": {...}}. Before them, one line
 carries the end-to-end numbers of the bench's keys (train_step_ms,
 capped32_ms, node_ms, ...).
 Without a CUDA device the script fails before printing any result.
@@ -687,6 +697,7 @@ def phase_node(card: str):
 
     from depth_correction_tpu_torch.node import NODE_N_CELLS_PAD, _slab_layout
     from depth_correction_tpu_torch.ops import slabwin
+    from depth_correction_tpu_torch.scripts import exp_grid_slab_ab as ab
 
     cfg = node_config("slab")
     t0 = time.perf_counter()
@@ -717,21 +728,35 @@ def phase_node(card: str):
     if not (err[0] <= MEAN_ABS_BAR and err[1] <= COMPS_ABS_BAR):
         raise RuntimeError("X1 misses its bars vs float64: %s" % (err,))
     res["x1_err"] = max(err)
-    # Bound: every row of a live tile tests every slot of its three spans
-    # (~8 float ops) and accumulates each member (~19); bytes: positions,
-    # validity, span tables and centres read once, (10, n) written once.
+    # Against its first version (bit for bit), both timed in turns, with the
+    # pair tests the warps' cull keeps (host model, scripts/slab_cull.py).
+    x1 = ab.x1_ab(pts_T, valid, lo, width, ctr, r2)
+    log("X1 vs its first version (csrc/slabwin_v1.cu): bit-equal %s; turns (ms, first version "
+        "first): %s; host model: %d of %d pair tests kept (%.4f), %d box tests"
+        % (x1["equal"], ", ".join("%.4f" % v for v in x1["turns"]), x1["kept"], x1["all"],
+           x1["kept"] / x1["all"], x1["box"]))
+    if not x1["equal"]:
+        raise RuntimeError("X1 differs from its first version")
+    # Bound: the pair tests the cull keeps and its box tests (PAIR_OPS and
+    # BOX_OPS float ops), ~19 per member, an epilogue per row; all pairs:
+    # every row of a live tile tests every slot of its three spans, the
+    # first version's work. Bytes: positions, validity, span tables and
+    # centres read once, (10, n) written once.
     n, t = pts_T.shape[1], lo.shape[0]
-    live = valid.reshape(t, -1).any(1)
-    pairs = int((width.long().sum(1) * live).sum()) * (n // t)
     members = float(out[9][valid].sum())
-    res["x1_bound"] = bound(n * (12 + 1 + 40) + t * 36,
-                            {"fp32": 8 * pairs + 19 * members + 30 * n})
-    res["x1_ms"] = cuda_ms(lambda: slabwin.slab_window_kernel(pts_T, valid, lo, width, ctr, r2),
-                           reps=50)
+    x1_bytes = n * (12 + 1 + 40) + t * 36
+    res["x1_bound"] = bound(x1_bytes, {"fp32": PAIR_OPS * x1["kept"] + BOX_OPS * x1["box"]
+                                       + 19 * members + 30 * n})
+    res["x1_bound_all_pairs"] = bound(x1_bytes, {"fp32": PAIR_OPS * x1["all"] + 19 * members
+                                                 + 30 * n})
+    res["x1_ms"], res["x1_v1_ms"] = x1["ms"], x1["v1_ms"]
+    res["x1_kept"] = (x1["kept"], x1["all"], x1["box"])
     res["x1_plain_ms"] = cuda_ms(
         lambda: slabwin.slab_window_moments_plain(pts_T, valid, lo, width, ctr, r2), reps=3)
-    log("X1 timing (float32, node shapes): kernel %.4f ms vs plain %.4f ms (%s)"
-        % (res["x1_ms"], res["x1_plain_ms"], card))
+    log("X1 timing (float32, node shapes): kernel %.4f ms, first version %.4f ms, plain %.4f "
+        "ms; bound %.4f ms (%s; all pairs %.4f) (%s)"
+        % (res["x1_ms"], res["x1_v1_ms"], res["x1_plain_ms"], res["x1_bound"][0],
+           res["x1_bound"][1], res["x1_bound_all_pairs"][0], card))
     res["scan"] = scan
     return res
 
@@ -985,7 +1010,7 @@ def phase_probes(card: str, graph, ps, kept: tuple):
 
     from depth_correction_tpu_torch.ops import cellwin as cw
     from depth_correction_tpu_torch.ops.cellwin_knockout import cellwin_knockout_plain
-    from depth_correction_tpu_torch.ops.moment_dot import moment_dot_plain
+    from depth_correction_tpu_torch.ops.moment_dot import moment_dot, moment_dot_plain
     from depth_correction_tpu_torch.ops.moment_window import moment_window_plain
     from depth_correction_tpu_torch.scripts import (
         exp_cellwin_knockout as p1, exp_mosaic_dot_probe as p2, exp_mosaic_dot_probe2 as p3,
@@ -1051,6 +1076,11 @@ def phase_probes(card: str, graph, ps, kept: tuple):
                                    torch.backends.cuda.matmul.allow_tf32))
     a, b, _ = p2.inputs(dev)
     e = r2["variants"]["tf32x3"]
+    # Device time by the profiler's kernel durations, the kernel's and the
+    # library call's alike (the events above include the host's issue).
+    p2_device = kernel_ms(lambda: moment_dot(a, b, p2.T1, "tf32x3"), dev, 20)
+    log("  P2 device time (profiler): tf32x3 %.4f ms, torch.bmm fp32 %.4f ms (%s)"
+        % (p2_device, lib["fp32_device"], card))
     dot_bytes = a.numel() * 4 + b.numel() * 4 + e["out"].numel() * 4
     entries.append({
         "name": "moment_dot (P2)", "route": "cuda",
@@ -1059,7 +1089,9 @@ def phase_probes(card: str, graph, ps, kept: tuple):
         "max_abs_err": e["abs64"], "ms": e["ms"],
         "plain_ms": cuda_ms(lambda: moment_dot_plain(a, b, p2.T1, "tf32x3"), reps=3, warmup=1),
         "bound": bound(dot_bytes, {"tf32": 3 * 2 * 16 * p2.NS * p2.S * p2.R * p2.T1}),
-        "library_ms": lib["fp32"], "variants": {v: x["ms"] for v, x in r2["variants"].items()}})
+        "library_ms": lib["fp32"], "kernel_ms": p2_device,
+        "library_device_ms": lib["fp32_device"],
+        "variants": {v: x["ms"] for v, x in r2["variants"].items()}})
 
     # P3-P5: the product with in-kernel operands; headline variants
     # tf32x3, E_all and J_all.
@@ -1138,23 +1170,36 @@ def _f32_ulps(a, b) -> int:
     return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
 
 
+def check_x2_first_version(label: str, x2: dict) -> None:
+    """Logs X2 against its first version (ab.x2_ab's result); raises unless
+    index tables, distances (bit for bit) and counts are equal."""
+    log("X2 %s vs its first version (csrc/grid_query_v1.cu): equal %s; turns (ms, first "
+        "version first): top-%d %s, counts %s"
+        % (label, x2["equal"], x2["k"], ", ".join("%.4f" % v for v in x2["turns"]),
+           ", ".join("%.4f" % v for v in x2["counts_turns"])))
+    if not all(x2["equal"].values()):
+        raise RuntimeError("X2 %s differs from its first version: %s" % (label, x2["equal"]))
+
+
 def check_grid_query(label: str, points, valid, r: float, card: str) -> dict:
-    """X2 on ``points`` (all rows query) against its plain twin on the card:
-    top-k (k = the prep's suggest_k_max) and counts; timed; its bound from
-    the runs it reads. Raises on a missed bar."""
+    """X2 on ``points`` (all rows query) against its plain twin and its first
+    version on the card: top-k (k = the prep's suggest_k_max) and counts;
+    both versions timed in turns; its bound from the runs it reads. Raises
+    on a missed bar."""
     import torch
 
     from depth_correction_tpu_torch.ops import grid_hash as gh
     from depth_correction_tpu_torch.ops.knn import suggest_k_max
+    from depth_correction_tpu_torch.scripts import exp_grid_slab_ab as ab
 
     k = suggest_k_max(points, r=r, valid_points=valid)
     grid, _ = gh._build_grid(points, valid, r, None, None)
     (pts_T, val_s, ids_s, order, mins, dims, cell, _) = grid
     r2 = torch.full((), r, dtype=torch.float32) ** 2
     args = (points, valid, pts_T, val_s, ids_s, order, mins, dims, r2)
-    d, idx = gh.grid_query(*args, k, None, cell)
-    counts = gh.grid_query(*args, 0, None, cell)
-    torch.cuda.synchronize()
+    x2 = ab.x2_ab(points, valid, r, k, grid=grid[:7])
+    check_x2_first_version(label, x2)
+    d, idx, counts = x2["d"], x2["idx"], x2["counts"]
     # The plain twin's window: the JAX query's dense table and width.
     starts, width = gh._query_window(ids_s, int(dims.prod()))
     pd, pidx = gh._grid_query_plain(*args, k, width, cell, starts)
@@ -1181,32 +1226,37 @@ def check_grid_query(label: str, points, valid, r: float, card: str) -> dict:
         raise RuntimeError("X2 %s misses its bars against the plain twin" % label)
     n, nq = pts_T.shape[1], points.shape[0]
     res = {"k": k, "pairs": pairs, "members": members, "err": err, "idx": idx, "counts": counts,
-           "ms": cuda_ms(lambda: gh.grid_query(*args, k, None, cell), reps=20),
-           "counts_ms": cuda_ms(lambda: gh.grid_query(*args, 0, None, cell), reps=20),
+           "ms": x2["ms"], "v1_ms": x2["v1_ms"], "counts_ms": x2["counts_ms"],
+           "v1_counts_ms": x2["v1_counts_ms"],
            "plain_ms": cuda_ms(lambda: gh._grid_query_plain(*args, k, width, cell, starts),
                                reps=1, warmup=1),
            # Bound: 8 float ops per pair test; queries, the sorted table
            # (positions, ids, order) and the (Q, k) outputs moved once.
            "bound": bound(nq * 13 + n * 20 + nq * k * 8, {"fp32": 8 * pairs})}
-    log("X2 %s timing (float32): top-%d %.4f ms, counts %.4f ms, plain %.4f ms, bound %.4f ms "
-        "(%s) (%s)" % (label, k, res["ms"], res["counts_ms"], res["plain_ms"], res["bound"][0],
-                       res["bound"][1], card))
+    log("X2 %s timing (float32): top-%d %.4f ms (first version %.4f), counts %.4f ms (first "
+        "version %.4f), plain %.4f ms, bound %.4f ms (%s) (%s)"
+        % (label, k, res["ms"], res["v1_ms"], res["counts_ms"], res["v1_counts_ms"],
+           res["plain_ms"], res["bound"][0], res["bound"][1], card))
     return res
 
 
-def check_grid_node_neighbors(scan, ks) -> dict:
+def check_grid_node_neighbors(scan, ks, card: str) -> dict:
     """X2 at the grid node's shapes: the traced grid of 2^21 cells over the
     node scan's filtered float32 points, for each k of ``ks``, against the
     plain twin on the same grid, with the launch count zeroed just before
-    each kernel call. Raises on a missed bar or when no row has more than
-    the smallest k neighbours (the kernel's merge then drops keys)."""
+    each kernel call, and against its first version (bit for bit), both
+    timed in turns on the node's grid. Raises on a missed bar or when no row
+    has more than the smallest k neighbours (the kernel's merge then drops
+    keys). Returns {k: {"over": rows with more than k, "ms", "v1_ms"}}."""
     import numpy as np
     import torch
 
     from depth_correction_tpu_torch.cloud import Cloud
-    from depth_correction_tpu_torch.node import _filter_impl, _grid_neighbors
+    from depth_correction_tpu_torch.node import NODE_N_CELLS_PAD, _filter_impl, _grid_neighbors
     from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.ops.grid_hash import grid_sort_traced
     from depth_correction_tpu_torch.preproc import pad_size
+    from depth_correction_tpu_torch.scripts import exp_grid_slab_ab as ab
 
     cfg = node_config("grid")
     r = float(cfg.nn_r)
@@ -1216,6 +1266,7 @@ def check_grid_node_neighbors(scan, ks) -> dict:
                         float(cfg.grid_res or 0.0))
     points = cloud.replace(valid=keep).to_points()
     counts = _grid_neighbors(points, keep, r, 0, plain=True)
+    grid = grid_sort_traced(points, keep, r, NODE_N_CELLS_PAD)  # the node's own sort
     res = {}
     for k in ks:
         _kernels.reset_launch_counts()
@@ -1227,16 +1278,23 @@ def check_grid_node_neighbors(scan, ks) -> dict:
         same_idx = bool(torch.equal(idx, pidx))
         same_fin = bool(torch.equal(fin, torch.isfinite(d)))
         ulps = _f32_ulps(d[fin], pd[fin]) if same_fin and bool(fin.any()) else -1
-        res[k] = int((counts > k).sum())
+        over = int((counts > k).sum())
         log("X2 grid node (traced grid, k %d): %d kept rows, %d with more than %d within r "
             "(largest count %d); kernel vs plain: index tables equal %s, finite pattern equal "
             "%s, distances within %d ulp; %d launch"
-            % (k, int(keep.sum()), res[k], k, int(counts.max()), same_idx, same_fin, ulps,
+            % (k, int(keep.sum()), over, k, int(counts.max()), same_idx, same_fin, ulps,
                launches))
         if launches != 1 or not (same_idx and same_fin and 0 <= ulps <= 1):
             raise RuntimeError("X2 misses its bars against the plain twin at the grid node's "
                                "shapes (k %d)" % k)
-    if res[min(ks)] <= 0:
+        x2 = ab.x2_ab(points, keep, r, k, grid=grid)
+        check_x2_first_version("grid node (k %d)" % k, x2)
+        if not bool(torch.equal(x2["idx"], idx)):
+            raise RuntimeError("X2 on the node's grid differs from the node's own call")
+        res[k] = {"over": over, "ms": x2["ms"], "v1_ms": x2["v1_ms"]}
+        log("X2 grid node timing (k %d): %.4f ms (first version %.4f) (%s)"
+            % (k, x2["ms"], x2["v1_ms"], card))
+    if res[min(ks)]["over"] <= 0:
         raise RuntimeError("no row of the grid node has more than %d neighbours: the top-k "
                            "cut was not exercised" % min(ks))
     return res
@@ -1270,7 +1328,7 @@ def phase_grid(card: str, data, cfg, scan):
     # The node's own k, and a k below the scan's largest count, so the
     # kernel's merge drops keys.
     k_node = int(node_config("grid").nn_max_neighbors or 32)
-    res["node_x2"] = check_grid_node_neighbors(scan, (k_node, GRID_CUT_K))
+    res["node_x2"] = check_grid_node_neighbors(scan, (k_node, GRID_CUT_K), card)
     # The node's grid engine on the bench node scan (phase 4's).
     node = drive_node(scan, node_config("grid"), card, "grid node", batches=3, reps=NODE_REPS,
                       e2e_reps=E2E_REPS)
@@ -1309,6 +1367,9 @@ def phase_probes_p6_p8(card: str):
     # gives the device time per call.
     busy6 = profile_calls(lambda: layout_probe(x, head), card, "call", n=20)["busy_ms"]
     ones = torch.ones((8, 128), device=dev)
+    lib6 = kernel_ms(lambda: torch.matmul(x.T, ones), dev, 20)
+    log("  P6 device time (profiler): %s %.4f ms, torch.matmul %.4f ms (%s)"
+        % (head, busy6, lib6, card))
     entries = [{
         "name": "layout_probe (P6)", "route": "cuda",
         "source": "depth_correction_tpu_torch/csrc/layout_probe.cu",
@@ -1321,6 +1382,7 @@ def phase_probes_p6_p8(card: str):
         "bound": bound(x.numel() * 4 + 4 * p6.S * 128, {"tf32": 3 * 2 * p6.S * 128 * 8}),
         "library_ms": cuda_ms(lambda: torch.matmul(x.T, ones), reps=20),
         "device_busy_ms": busy6,
+        "library_device_ms": lib6,
         "variants": {n: e["ms"] for n, e in r6["probes"].items()}}]
 
     r8, n8 = counted(lambda: p8.run(dev), "GATHER_PROBE_LAUNCHES")
@@ -1338,6 +1400,9 @@ def phase_probes_p6_p8(card: str):
     plain8 = cuda_ms(lambda: gather_probe_plain(xb, ib, axis), reps=20)
     busy8 = profile_calls(lambda: gather_probe(xb, ib, axis, "global"), card, "call",
                           n=20)["busy_ms"]
+    lib8 = kernel_ms(lambda: gather_probe_plain(xb, ib, axis), dev, 20)
+    log("  P8 device time (profiler): B global %.4f ms, torch.gather %.4f ms (%s)"
+        % (busy8, lib8, card))
     entries.append({
         "name": "gather_probe (P8)", "route": "cuda",
         "source": "depth_correction_tpu_torch/csrc/gather_probe.cu",
@@ -1348,6 +1413,7 @@ def phase_probes_p6_p8(card: str):
         "bound": bound(xb.numel() * 4 + ib.numel() * 8, {"fp32": 0}),
         # The plain version is one PyTorch call (torch.gather).
         "library_ms": plain8, "device_busy_ms": busy8,
+        "library_device_ms": lib8,
         "variants": {"%s_%s" % (c, f): e["ms"] for c, fs in r8["cases"].items()
                      for f, e in fs.items() if e}})
     # P7's two stages (the TPU script's draws, stage 1 first).
@@ -1750,8 +1816,10 @@ def main() -> int:
          "source": "depth_correction_tpu_torch/csrc/slabwin.cu",
          "replaces": "depth_correction_tpu/ops/slabwin.py:53",
          "launches": node["launches"]["slab"], "max_abs_err": node["x1_err"],
-         "ms": node["x1_ms"], "plain_ms": node["x1_plain_ms"], "bound": node["x1_bound"],
-         "library_ms": None},
+         "ms": node["x1_ms"], "v1_ms": node["x1_v1_ms"], "plain_ms": node["x1_plain_ms"],
+         "bound": node["x1_bound"], "bound_all_pairs_ms": node["x1_bound_all_pairs"][0],
+         "pairs_kept": node["x1_kept"][0], "box_tests": node["x1_kept"][2],
+         "kept_share": node["x1_kept"][0] / node["x1_kept"][1], "library_ms": None},
         {"name": "gather_moments (P7)", "route": "cuda",
          "source": "depth_correction_tpu_torch/csrc/gather_moments.cu",
          "replaces": "scripts/exp_pallas_gather.py:83",
@@ -1763,10 +1831,17 @@ def main() -> int:
          "source": "depth_correction_tpu_torch/csrc/grid_query.cu",
          "replaces": "depth_correction_tpu/ops/grid_hash.py:108",
          "launches": res["launches"]["grid"], "max_abs_err": grid["global"]["err"],
-         "ms": grid["global"]["ms"], "plain_ms": grid["global"]["plain_ms"],
-         "bound": grid["global"]["bound"], "library_ms": None,
-         "variants": {"global_counts": grid["global"]["counts_ms"], "scan": grid["scan"]["ms"],
-                      "scan_counts": grid["scan"]["counts_ms"]}},
+         "ms": grid["global"]["ms"], "v1_ms": grid["global"]["v1_ms"],
+         "plain_ms": grid["global"]["plain_ms"], "bound": grid["global"]["bound"],
+         "library_ms": None,
+         "variants": dict({"global_counts": grid["global"]["counts_ms"],
+                           "v1_global_counts": grid["global"]["v1_counts_ms"],
+                           "scan": grid["scan"]["ms"], "v1_scan": grid["scan"]["v1_ms"],
+                           "scan_counts": grid["scan"]["counts_ms"],
+                           "v1_scan_counts": grid["scan"]["v1_counts_ms"]},
+                          **{"%snode_k%d" % (v, kk): e[key]
+                             for kk, e in grid["node_x2"].items()
+                             for v, key in (("", "ms"), ("v1_", "v1_ms"))})},
         {"name": "knn_brute (X3)", "route": "cuda",
          "source": "depth_correction_tpu_torch/csrc/knn_brute.cu",
          "replaces": "depth_correction_tpu/ops/knn.py:51",

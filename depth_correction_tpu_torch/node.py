@@ -158,8 +158,10 @@ def _grid_neighbors(points, keep, nn_r: float, k: int, plain: bool):
     (pts_T, val_s, ids_s, order, mins, dims,
      cell) = grid_sort_traced(points, keep, nn_r, NODE_N_CELLS_PAD)
     r2 = torch.full((), nn_r, dtype=points.dtype) ** 2  # a host scalar: no device read
-    query = _grid_query_plain if plain else grid_query
-    return query(points, keep, pts_T, val_s, ids_s, order, mins, dims, r2, k, None, cell)
+    args = (points, keep, pts_T, val_s, ids_s, order, mins, dims, r2, k, None, cell)
+    if plain:
+        return _grid_query_plain(*args)
+    return grid_query(*args, own_points=True)
 
 
 def correct_cloud(model, cloud: Cloud, cfg: Config, k: Optional[int] = None,

@@ -12,8 +12,8 @@ The launchers validate device, dtype, shape and contiguity before passing
 pointers, launch on the current stream, and raise when the C entry returns
 a CUDA error. Launch counts of K1/K2 (and of their first versions, kept
 for an A/B on the card) are kept by their callers in ``ops/cellwin.py``;
-X1, X2, X3, P7 and the probes P1-P6, P7a, P8 count here
-(:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`, :data:`KNN_LAUNCHES`,
+X1, X2, X3 (and their first versions), P7 and the probes P1-P6, P7a, P8
+count here (:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`, :data:`KNN_LAUNCHES`,
 :data:`GATHER_LAUNCHES`, :data:`KNOCKOUT_LAUNCHES`, :data:`DOT_LAUNCHES`,
 :data:`WINDOW_LAUNCHES`, :data:`LAYOUT_LAUNCHES`, :data:`GATHER_SUM_LAUNCHES`,
 :data:`GATHER_PROBE_LAUNCHES`), once per accepted launch.
@@ -37,11 +37,13 @@ __all__ = [
     "GATHER_PROBE_LAUNCHES",
     "GATHER_SUM_LAUNCHES",
     "GRID_LAUNCHES",
+    "GRID_V1_LAUNCHES",
     "KNN_LAUNCHES",
     "KNN_V1_LAUNCHES",
     "KNOCKOUT_LAUNCHES",
     "LAYOUT_LAUNCHES",
     "SLAB_LAUNCHES",
+    "SLAB_V1_LAUNCHES",
     "WINDOW_LAUNCHES",
     "build",
     "knn_max_k",
@@ -55,12 +57,14 @@ __all__ = [
     "launch_gather_probe",
     "launch_gather_sum",
     "launch_grid_query",
+    "launch_grid_query_v1",
     "launch_knn_brute",
     "launch_knn_brute_v1",
     "launch_layout_probe",
     "launch_moment_dot",
     "launch_moment_window",
     "launch_slab_window",
+    "launch_slab_window_v1",
     "load",
     "reset_launch_counts",
 ]
@@ -68,9 +72,10 @@ __all__ = [
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin.cu", "cellwin_v1.cu", "gather_moments.cu", "slabwin.cu",
-                             "cellwin_knockout.cu", "moment_dot.cu", "moment_window.cu",
-                             "grid_query.cu", "layout_probe.cu", "gather_probe.cu",
-                             "knn_brute.cu", "knn_brute_v1.cu", "gather_sum.cu"))
+                             "slabwin_v1.cu", "cellwin_knockout.cu", "moment_dot.cu",
+                             "moment_window.cu", "grid_query.cu", "grid_query_v1.cu",
+                             "layout_probe.cu", "gather_probe.cu", "knn_brute.cu",
+                             "knn_brute_v1.cu", "gather_sum.cu"))
 # Headers the sources include; they key the build like the sources.
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin_fwd.cuh", "tf32_mma.cuh"))
@@ -94,7 +99,10 @@ NVCC_FLAGS = (
 SLAB_LAUNCHES = 0
 GRID_LAUNCHES = 0
 KNN_LAUNCHES = 0
-# X3's first version, for the A/B only (no path launches it).
+# The first versions of X1, X2 and X3, for the A/B only (no path launches
+# them).
+SLAB_V1_LAUNCHES = 0
+GRID_V1_LAUNCHES = 0
 KNN_V1_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 KNOCKOUT_LAUNCHES = 0
@@ -171,8 +179,15 @@ def load():
             bwd = getattr(lib, "dc_cellwin_bwd" + suffix)
             bwd.argtypes = [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P]
             bwd.restype = _I
-        lib.dc_slab_window.argtypes = [_P, _P, _I, _P, _P, _P, _I, _F, _P, _P]
-        lib.dc_slab_window.restype = _I
+        for suffix in ("", "_v1"):
+            slab = getattr(lib, "dc_slab_window" + suffix)
+            slab.argtypes = [_P, _P, _I, _P, _P, _P, _I, _F, _P, _P]
+            slab.restype = _I
+            grid = getattr(lib, "dc_grid_query" + suffix)
+            # The redesign takes the warps' query order before the stream.
+            grid.argtypes = ([_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _F, _I, _L, _P, _P]
+                             + [_P] * (2 if suffix == "" else 1))
+            grid.restype = _I
         lib.dc_gather_moments.argtypes = [_P, _L, _L, _I, _P, _P, _I, _I, _P, _P,
                                           _P, _P]
         lib.dc_gather_moments.restype = _I
@@ -184,9 +199,6 @@ def load():
         lib.dc_moment_window.argtypes = [_I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I,
                                          _I, _F, _I, _P, _P]
         lib.dc_moment_window.restype = _I
-        lib.dc_grid_query.argtypes = [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _F, _I, _L,
-                                      _P, _P, _P]
-        lib.dc_grid_query.restype = _I
         lib.dc_layout_probe.argtypes = [_I, _P, _P, _P]
         lib.dc_layout_probe.restype = _I
         lib.dc_gather_probe.argtypes = [_I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
@@ -350,15 +362,8 @@ def launch_cellwin_bwd_v1(pts_sorted, q_est, est_sorted, table9, b_start, b_len,
                        b_ctr, r2)
 
 
-def launch_slab_window(pts_T, valid, lo, width, ctr, r2: float) -> torch.Tensor:
-    """X1 on CUDA tensors -> (10, n) moments of every sorted slot.
-
-    :param pts_T: (3, n) float32 sorted positions, n a multiple of 128.
-    :param valid: (n,) bool.
-    :param lo, width: (n / 128, 3) int32 span starts and lengths.
-    :param ctr: (n / 128, 3) float32 tile centres.
-    """
-    global SLAB_LAUNCHES
+def _launch_slab(name, pts_T, valid, lo, width, ctr, r2: float) -> torch.Tensor:
+    """One launch of ``dc_<name>`` (X1 or its first version)."""
     device = pts_T.device
     if device.type != "cuda":
         raise ValueError("the slab-window kernel takes CUDA tensors, got %s" % device)
@@ -377,11 +382,33 @@ def launch_slab_window(pts_T, valid, lo, width, ctr, r2: float) -> torch.Tensor:
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dc_slab_window(pts_T.data_ptr(), valid.data_ptr(), n, lo.data_ptr(),
-                                 width.data_ptr(), ctr.data_ptr(), t, float(r2),
-                                 out.data_ptr(), stream)
-    _check_launch(lib, err, "slab_window")
+        err = getattr(lib, "dc_" + name)(pts_T.data_ptr(), valid.data_ptr(), n, lo.data_ptr(),
+                                         width.data_ptr(), ctr.data_ptr(), t, float(r2),
+                                         out.data_ptr(), stream)
+    _check_launch(lib, err, name)
+    return out
+
+
+def launch_slab_window(pts_T, valid, lo, width, ctr, r2: float) -> torch.Tensor:
+    """X1 on CUDA tensors -> (10, n) moments of every sorted slot.
+
+    :param pts_T: (3, n) float32 sorted positions, n a multiple of 128.
+    :param valid: (n,) bool.
+    :param lo, width: (n / 128, 3) int32 span starts and lengths.
+    :param ctr: (n / 128, 3) float32 tile centres.
+    """
+    global SLAB_LAUNCHES
+    out = _launch_slab("slab_window", pts_T, valid, lo, width, ctr, r2)
     SLAB_LAUNCHES += 1
+    return out
+
+
+def launch_slab_window_v1(pts_T, valid, lo, width, ctr, r2: float) -> torch.Tensor:
+    """X1's first version (``csrc/slabwin_v1.cu``), same inputs and output as
+    :func:`launch_slab_window`; for the A/B only."""
+    global SLAB_V1_LAUNCHES
+    out = _launch_slab("slab_window_v1", pts_T, valid, lo, width, ctr, r2)
+    SLAB_V1_LAUNCHES += 1
     return out
 
 
@@ -514,10 +541,11 @@ def launch_moment_window(prec_id: int, flags: int, win, q, r2: float, n_tiles: i
     return out
 
 
-def launch_grid_query(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dims, cell,
-                      r2, k: int, cap=None):
-    """X2 on CUDA tensors: k = 0 -> counts (Q,) int32; k > 0 -> (d (Q, k)
-    float32, idx (Q, k) int32), -1 / inf padded.
+def _launch_grid(name, q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dims, cell,
+                 r2, k: int, cap=None, q_order=()):
+    """One launch of ``dc_<name>`` (X2 or its first version): k = 0 -> counts
+    (Q,) int32; k > 0 -> (d (Q, k) float32, idx (Q, k) int32), -1 / inf
+    padded.
 
     :param q_pts: (Q, 3) float32 queries (any strides; copied contiguous).
     :param q_valid: (Q,) bool.
@@ -527,8 +555,9 @@ def launch_grid_query(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dim
         side, as tensors on the card or host numbers (no host read).
     :param r2: float or 0-d tensor (read once on the host).
     :param cap: cut each column's run at ``cap`` slots; None reads it whole.
+    :param q_order: the redesign's warp order argument, (pointer or None,);
+        the first version takes none.
     """
-    global GRID_LAUNCHES
     device = pts_sorted_T.device
     if device.type != "cuda":
         raise ValueError("the grid query kernel takes CUDA tensors, got %s" % device)
@@ -559,14 +588,44 @@ def launch_grid_query(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dim
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dc_grid_query(q_pts.data_ptr(), q_valid.data_ptr(), nq, pts_sorted_T.data_ptr(),
-                                ids_sorted.data_ptr(), order.data_ptr(), n, mins.data_ptr(),
-                                dims.data_ptr(), cell.data_ptr(), float(r2), k,
-                                -1 if cap is None else int(cap), idx.data_ptr(), _ptr(d),
-                                stream)
-    _check_launch(lib, err, "grid_query")
-    GRID_LAUNCHES += 1
+        err = getattr(lib, "dc_" + name)(
+            q_pts.data_ptr(), q_valid.data_ptr(), nq, pts_sorted_T.data_ptr(),
+            ids_sorted.data_ptr(), order.data_ptr(), n, mins.data_ptr(), dims.data_ptr(),
+            cell.data_ptr(), float(r2), k, -1 if cap is None else int(cap), idx.data_ptr(),
+            _ptr(d), *q_order, stream)
+    _check_launch(lib, err, name)
     return idx if k == 0 else (d, idx)
+
+
+def launch_grid_query(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dims, cell, r2,
+                      k: int, cap=None, own_points: bool = False):
+    """X2 on CUDA tensors (the arguments and results of :func:`_launch_grid`).
+
+    :param own_points: the queries are the grid's own points, q_pts[order]
+        the columns of pts_sorted_T; the warps then take them in the grid's
+        slot order, so that neighbouring warps read the same runs (each
+        result still lands in its query's row).
+    """
+    global GRID_LAUNCHES
+    if own_points and q_pts.shape[0] != pts_sorted_T.shape[-1]:
+        raise ValueError("grid_query: own_points with %d queries and %d points"
+                         % (q_pts.shape[0], pts_sorted_T.shape[-1]))
+    out = _launch_grid("grid_query", q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dims,
+                       cell, r2, k, cap, (order.data_ptr() if own_points else None,))
+    GRID_LAUNCHES += 1
+    return out
+
+
+def launch_grid_query_v1(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dims, cell, r2,
+                         k: int, cap=None):
+    """X2's first version (``csrc/grid_query_v1.cu``: queries in their own
+    order), the arguments and results of :func:`launch_grid_query` without
+    ``own_points``; for the A/B only."""
+    global GRID_V1_LAUNCHES
+    out = _launch_grid("grid_query_v1", q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins,
+                       dims, cell, r2, k, cap)
+    GRID_V1_LAUNCHES += 1
+    return out
 
 
 def launch_layout_probe(probe: int, x, out_shape) -> torch.Tensor:
@@ -808,14 +867,16 @@ def launch_gather_sum(pts_T, idx) -> torch.Tensor:
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts kept here (X1, X2, X3 and its first version,
-    P7, P1-P6, P7a, P8)."""
+    """Zero the launch counts kept here (X1, X2, X3 and their first
+    versions, P7, P1-P6, P7a, P8)."""
     global SLAB_LAUNCHES, GRID_LAUNCHES, KNN_LAUNCHES, GATHER_LAUNCHES, KNOCKOUT_LAUNCHES
     global DOT_LAUNCHES, WINDOW_LAUNCHES, LAYOUT_LAUNCHES, GATHER_SUM_LAUNCHES
-    global GATHER_PROBE_LAUNCHES, KNN_V1_LAUNCHES
+    global GATHER_PROBE_LAUNCHES, KNN_V1_LAUNCHES, SLAB_V1_LAUNCHES, GRID_V1_LAUNCHES
     SLAB_LAUNCHES = 0
     GRID_LAUNCHES = 0
     KNN_LAUNCHES = 0
+    SLAB_V1_LAUNCHES = 0
+    GRID_V1_LAUNCHES = 0
     KNN_V1_LAUNCHES = 0
     GATHER_SUM_LAUNCHES = 0
     GATHER_LAUNCHES = 0

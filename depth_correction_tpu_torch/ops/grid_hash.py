@@ -20,7 +20,9 @@ same tables:
   to its own length; on CPU tensors it runs :func:`_grid_query_chunk_plain`,
   the plain twin of the JAX package's ``_grid_query_chunk_impl``, windows
   and all. :func:`grid_radius_neighbors` and :func:`grid_neighbor_counts`
-  are the entry points;
+  are the entry points; :func:`grid_query_v1` runs X2's first version
+  (``csrc/grid_query_v1.cu``) on CUDA tensors for an A/B, and no path
+  calls it;
 - :func:`grid_sort_colpad_traced`, the column-aligned sort of the online
   corrector's slab engine (``ops/slabwin.py``): the longest grid axis
   major, every major-axis column's run starting at a multiple of 128
@@ -48,6 +50,7 @@ __all__ = [
     "grid_neighbor_counts",
     "grid_occupancy",
     "grid_query",
+    "grid_query_v1",
     "grid_radius_neighbors",
     "grid_sort_colpad_traced",
     "grid_sort_traced",
@@ -487,8 +490,17 @@ def _grid_query_plain(q_pts, q_valid, pts_sorted_T, valid_sorted, ids_sorted, or
     return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
 
 
+def _kernel_cap(bucket_cap: Optional[int], cell_starts):
+    """The run cut of the JAX query's window: ``bucket_cap`` slots with the
+    dense table, ``3 * bucket_cap`` searched; None reads every run whole."""
+    if bucket_cap is None:
+        return None
+    return int(bucket_cap) if cell_starts is not None else 3 * int(bucket_cap)
+
+
 def grid_query(q_pts, q_valid, pts_sorted_T, valid_sorted, ids_sorted, order, mins, dims,
-               r2, k: int, bucket_cap: Optional[int], cell_size, cell_starts=None):
+               r2, k: int, bucket_cap: Optional[int], cell_size, cell_starts=None,
+               own_points: bool = False):
     """Up-to-k nearest within-r neighbours (k > 0) or within-r counts
     (k = 0) of the queries in a sorted grid: kernel X2 on CUDA tensors
     (float32 only; anything else raises), :func:`_grid_query_plain` on CPU
@@ -499,16 +511,26 @@ def grid_query(q_pts, q_valid, pts_sorted_T, valid_sorted, ids_sorted, order, mi
     window width: with it, a run is cut at ``bucket_cap`` slots (dense
     table) or ``3 * bucket_cap`` (searched) as the JAX query cuts it; that
     cut bites only when the caller's ``bucket_cap`` undersized the grid.
-    ``None`` reads every run whole.
+    ``None`` reads every run whole. ``own_points``: the queries are the
+    grid's own points (the kernel then takes them in the grid's slot order;
+    the results do not change).
     """
     if q_pts.device.type == "cpu":
         return _grid_query_plain(q_pts, q_valid, pts_sorted_T, valid_sorted, ids_sorted, order,
                                  mins, dims, r2, k, bucket_cap, cell_size, cell_starts)
-    cap = None
-    if bucket_cap is not None:
-        cap = int(bucket_cap) if cell_starts is not None else 3 * int(bucket_cap)
     return _kernels.launch_grid_query(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins,
-                                      dims, cell_size, r2, k, cap)
+                                      dims, cell_size, r2, k, _kernel_cap(bucket_cap, cell_starts),
+                                      own_points=own_points)
+
+
+def grid_query_v1(q_pts, q_valid, pts_sorted_T, valid_sorted, ids_sorted, order, mins, dims,
+                  r2, k: int, bucket_cap: Optional[int], cell_size, cell_starts=None):
+    """X2's first version on CUDA float32 tensors, for an A/B against the
+    redesign (the arguments and results of :func:`grid_query`, queries in
+    their own order); it has no plain route, so a CPU tensor is refused."""
+    return _kernels.launch_grid_query_v1(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins,
+                                         dims, cell_size, r2, k,
+                                         _kernel_cap(bucket_cap, cell_starts))
 
 
 def _run_chunks(grid, bucket_cap, points, query, valid_query, r: float, k: int):
@@ -521,7 +543,7 @@ def _run_chunks(grid, bucket_cap, points, query, valid_query, r: float, k: int):
         valid_query = torch.ones(q.shape[0], dtype=torch.bool, device=q.device)
     r2 = torch.full((), r, dtype=pts_sorted_T.dtype) ** 2  # a host scalar
     return grid_query(q, valid_query, pts_sorted_T, valid_sorted, ids_sorted, order, mins, dims,
-                      r2, k, bucket_cap, cell, cell_starts)
+                      r2, k, bucket_cap, cell, cell_starts, own_points=query is None)
 
 
 def grid_radius_neighbors(points, query=None, r: float = 1.0, k: int = 32,

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..ops.moment_dot import PRECISIONS, moment_dot, moment_dot_plain
-from . import device_ms, rel_max, rel_rows, require_card
+from . import device_ms, kernel_ms, rel_max, rel_rows, require_card
 
 T1 = 512  # grid size (tiles)
 NS = 5  # dots per tile
@@ -50,7 +50,9 @@ def inputs(device):
 
 def library_ms(a, b, t1: int, reps: int) -> dict:
     """One torch.bmm computing the same T1 products (expanded views, no
-    copies), in float32 and with TF32 allowed; allow_tf32 is restored."""
+    copies), in float32 and with TF32 allowed, by CUDA events, and in
+    float32 by the profiler's kernel durations (``fp32_device``, the device
+    time without the host's issue); allow_tf32 is restored."""
     lhs = a.permute(1, 0, 2).reshape(16, -1).expand(t1, 16, NS * S)
     rhs = b.reshape(NS * S, R).expand(t1, NS * S, R)
     saved = torch.backends.cuda.matmul.allow_tf32
@@ -59,6 +61,8 @@ def library_ms(a, b, t1: int, reps: int) -> dict:
         for name, tf32 in (("fp32", False), ("tf32", True)):
             torch.backends.cuda.matmul.allow_tf32 = tf32
             out[name] = device_ms(lambda: torch.bmm(lhs, rhs), a.device, reps)
+            if not tf32:
+                out["fp32_device"] = kernel_ms(lambda: torch.bmm(lhs, rhs), a.device, reps)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     return out
@@ -69,7 +73,7 @@ def run(device, variants=PRECISIONS, reps: int = STEPS, library: bool = False) -
     tiles).
 
     :return: {"variants": {v: {"ms", "oracle", "err32", "err64", "abs64",
-        "out"}}[, "library": {"fp32", "tf32"}]} where ``oracle`` is rel_max
+        "out"}}[, "library": {"fp32", "tf32", "fp32_device"}]} where ``oracle`` is rel_max
         against the float64 einsum over every tile's slot, ``err32`` /
         ``err64`` rel_rows against the plain version in float32 and float64,
         and ``abs64`` the largest absolute difference from the latter.

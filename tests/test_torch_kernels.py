@@ -426,15 +426,16 @@ def test_node_wrappers_never_take_the_plain_path(monkeypatch):
     assert (_kernels.SLAB_LAUNCHES, _kernels.GATHER_LAUNCHES) == before
 
 
-def _slab_inputs(device, seed=0, n=16384):
-    """A sorted slab layout of half a noisy plane and half a volume."""
+def _slab_inputs(device, seed=0, n=16384, r=0.25):
+    """A sorted slab layout of half a noisy plane and half a volume, with
+    cells of side >= r."""
     rng = np.random.default_rng(seed)
     n1 = n // 2
     p = np.vstack([np.c_[rng.uniform(-4, 4, (n1, 2)), 0.01 * rng.standard_normal(n1)],
                    rng.uniform(-4, 4, (n - n1, 3)) * [1.0, 1.0, 0.3]]) + [12.0, -7.0, 1.5]
     valid = torch.as_tensor(rng.uniform(size=n) > 0.1, device=device)
     pts = torch.as_tensor(p, dtype=torch.float32, device=device)
-    pts_T, val, ids, _, _, dims, _, _ = grid_sort_colpad_traced(pts, valid, 0.25, N_CELLS,
+    pts_T, val, ids, _, _, dims, _, _ = grid_sort_colpad_traced(pts, valid, r, N_CELLS,
                                                                 x_cols_pad=64)
     lo, width, ctr, _ = tslab.slab_tile_spans(pts_T, val, ids, dims, N_CELLS)
     return pts_T, val, lo, width, ctr
@@ -454,6 +455,69 @@ def test_cuda_slab_window_matches_plain(cuda_device):
     d = (out.double() - p64)[:, val].abs()
     assert float(d[0:3].max()) <= MEAN_ABS_BAR and float(d[3:9].max()) <= COMPS_ABS_BAR
     assert float(p64[9][val].min()) >= 1.0  # every valid row is its own member
+
+
+def _straddle_inputs(device, seed=3, n=16000):
+    """A cell sort without column padding (tiles straddle major columns:
+    one whole-slab span), padded to a multiple of 128 with invalid slots."""
+    from depth_correction_tpu_torch.ops.grid_hash import grid_sort_traced
+
+    rng = np.random.default_rng(seed)
+    p = np.c_[rng.uniform(-4, 4, (n, 2)), 0.02 * rng.standard_normal(n)] + [3.0, 1.0, 0.5]
+    pts = torch.as_tensor(p, dtype=torch.float32, device=device)
+    valid = torch.as_tensor(rng.uniform(size=n) > 0.1, device=device)
+    pts_T, val, ids, _, _, dims, _ = grid_sort_traced(pts, valid, 0.25, N_CELLS, sort_axes=True)
+    pad = -n % 128
+    pts_T = torch.cat([pts_T, torch.full((3, pad), 1e15, device=device)], 1).contiguous()
+    val = torch.cat([val, torch.zeros(pad, dtype=torch.bool, device=device)])
+    ids = torch.cat([ids, torch.full((pad,), N_CELLS, dtype=ids.dtype, device=device)])
+    lo, width, ctr, _ = tslab.slab_tile_spans(pts_T, val, ids, dims, N_CELLS)
+    return pts_T, val, lo, width, ctr
+
+
+def _slab_case(case, device):
+    """X1's A/B inputs: the noisy plane and volume (with all-padding tiles at
+    the tail), tiles straddling columns, whole tiles and warps dropped, and
+    wide spans (r = 1: spans of thousands of entries)."""
+    if case == "plane_volume":
+        return _slab_inputs(device) + (0.0625,)
+    if case == "straddle":
+        out = _straddle_inputs(device)
+        assert bool((out[3][:, 1:] == 0).all(1).logical_and(out[3][:, 0] > 0).any())
+        return out + (0.0625,)
+    if case == "dropped_tiles_and_warps":
+        pts_T, val, lo, width, ctr = _slab_inputs(device, seed=4)
+        val = val.clone()
+        live = torch.nonzero(val.reshape(-1, 128).any(1)).squeeze(1)
+        for t in live[::7].tolist():
+            val[t * 128:(t + 1) * 128] = False  # a whole live tile
+        for t in live[3::5].tolist():
+            val[t * 128 + 32:t * 128 + 64] = False  # its second warp
+        return pts_T, val, lo, width, ctr, 0.0625
+    if case == "wide_spans":
+        pts_T, val, lo, width, ctr = _slab_inputs(device, seed=5, r=1.0)
+        return pts_T, val, lo, width, ctr, 1.0
+    raise ValueError(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plane_volume", "straddle", "dropped_tiles_and_warps",
+                                  "wide_spans"])
+def test_cuda_slab_window_matches_first_version(cuda_device, case):
+    """X1 equals its first version (csrc/slabwin_v1.cu) bit for bit, every
+    slot and every output row, and meets the float64 bars."""
+    pts_T, val, lo, width, ctr, r2 = _slab_case(case, cuda_device)
+    before = (_kernels.SLAB_LAUNCHES, _kernels.SLAB_V1_LAUNCHES)
+    out = tslab.slab_window_kernel(pts_T, val, lo, width, ctr, r2)
+    ref = tslab.slab_window_kernel_v1(pts_T, val, lo, width, ctr, r2)
+    torch.cuda.synchronize()
+    assert (_kernels.SLAB_LAUNCHES, _kernels.SLAB_V1_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert bit_equal(out, ref)
+    p64 = tslab.slab_window_moments_plain(pts_T.double(), val, lo, width, ctr.double(), r2)
+    d = (out.double() - p64)[:, val].abs()
+    assert float(d[0:3].max()) <= MEAN_ABS_BAR and float(d[3:9].max()) <= COMPS_ABS_BAR
+    if case == "wide_spans":
+        assert int(width.sum(1).max()) > 1000
 
 
 @pytest.mark.cuda
@@ -878,6 +942,71 @@ def test_cuda_grid_query_on_cell_faces(cuda_device, k):
     assert int(_f32_ulps(got[0].cpu()[fin], want[0][fin]).max()) <= 1
 
 
+def _x2_case(case, device):
+    """X2's A/B inputs -> (queries, their validity, grid, window, k, bucket
+    cap): the noisy plane and volume (largest count ~60) at k below and
+    above every count, duplicated points (ties in d2), the cell-face lattice,
+    an undersized bucket_cap and a separate query set."""
+    from depth_correction_tpu_torch.ops.grid_hash import _build_grid
+
+    name, k = case
+    if name == "faces":
+        pts = _face_lattice().to(device)
+        valid = torch.ones(pts.shape[0], dtype=torch.bool, device=device)
+        grid, width = _build_grid(pts, valid, 0.3, None, None)
+        return pts, valid, grid, width, k, None
+    pts, valid, grid, width = _grid_inputs(device, seed=7, dup=3000 if name == "dup" else 0)
+    if name == "dense":  # the same cloud at a quarter of the scale: counts past 256
+        pts = (pts * 0.25).contiguous()
+        grid, width = _build_grid(pts, valid, 0.3, None, None)
+    if name == "query_set":
+        rng = np.random.default_rng(8)
+        q = pts[:6000] + torch.as_tensor(rng.normal(0, 0.05, (6000, 3)), dtype=torch.float32,
+                                         device=device)
+        qv = torch.as_tensor(rng.uniform(size=6000) > 0.2, device=device)
+        return q, qv, grid, width, k, None
+    return pts, valid, grid, width, k, 4 if name == "cap" else None
+
+
+X2_CASES = ([("plane_volume", k) for k in (0, 1, 16, 32, 33, 168)]
+            + [("dup", 32), ("dup", 168), ("faces", 32), ("faces", 168), ("cap", 32),
+               ("cap", 168), ("query_set", 16), ("query_set", 168), ("dense", 300),
+               ("dense", 1000)])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", X2_CASES)
+def test_cuda_grid_query_matches_first_version(cuda_device, case):
+    """X2 equals its first version (csrc/grid_query_v1.cu) bit for bit
+    (index tables, distances, counts) and its plain twin (index tables,
+    distances within one float32 ulp, counts)."""
+    from depth_correction_tpu_torch.ops import grid_hash as tgrid
+
+    q, qv, grid, width, k, cap = _x2_case(case, cuda_device)
+    (pts_T, val_s, ids_s, order, mins, dims, cell, starts) = grid
+    args = (q, qv, pts_T, val_s, ids_s, order, mins, dims,
+            torch.full((), 0.3, dtype=torch.float32) ** 2, k)
+    before = (_kernels.GRID_LAUNCHES, _kernels.GRID_V1_LAUNCHES)
+    # The queries are the grid's own points except in the query-set cases:
+    # the redesign then takes them in the grid's slot order.
+    got = tgrid.grid_query(*args, cap, cell, starts, own_points=case[0] != "query_set")
+    ref = tgrid.grid_query_v1(*args, cap, cell, starts)
+    torch.cuda.synchronize()
+    assert (_kernels.GRID_LAUNCHES, _kernels.GRID_V1_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want = tgrid._grid_query_plain(*args, width if cap is None else cap, cell, starts)
+    counts = tgrid._grid_query_plain(*args[:-1], 0, width if cap is None else cap, cell, starts)
+    if k == 0:
+        assert torch.equal(got, ref) and torch.equal(got, want)
+        return
+    if cap is None:  # the cases cut (k below the largest count) or do not
+        assert (int(counts.max()) > k) == (k < 168 or case[0] == "dense")
+    assert torch.equal(got[1], ref[1]) and bit_equal(got[0], ref[0])
+    assert torch.equal(got[1], want[1])
+    fin = torch.isfinite(want[0])
+    assert torch.equal(fin, torch.isfinite(got[0]))
+    assert int(_f32_ulps(got[0][fin], want[0][fin]).max()) <= 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("first", [None, 200.0])
 def test_cuda_layout_probes_match_plain(cuda_device, first):
@@ -968,6 +1097,29 @@ def test_knn_first_version_takes_cuda_tensors_only():
         with pytest.raises(ValueError, match="CUDA tensors"):
             tknn.knn_brute_v1(pts, pts, k, 0.1, torch.ones(8, dtype=torch.bool))
     assert (_kernels.KNN_LAUNCHES, _kernels.KNN_V1_LAUNCHES) == before
+
+
+def test_slab_and_grid_first_versions_take_cuda_tensors_only():
+    """X1's and X2's first versions are reached only through
+    slab_window_kernel_v1 / grid_query_v1 (the A/B): they have no plain
+    route, so CPU tensors are refused and nothing counts."""
+    from depth_correction_tpu_torch.ops import grid_hash as tgrid
+
+    before = (_kernels.SLAB_LAUNCHES, _kernels.SLAB_V1_LAUNCHES, _kernels.GRID_LAUNCHES,
+              _kernels.GRID_V1_LAUNCHES)
+    spans = torch.zeros((1, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tslab.slab_window_kernel_v1(torch.zeros((3, 128)), torch.ones(128, dtype=torch.bool),
+                                    spans, spans, torch.zeros((1, 3)), 0.01)
+    pts = torch.zeros((8, 3))
+    i32 = torch.zeros(8, dtype=torch.int32)
+    for k in (4, 0):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tgrid.grid_query_v1(pts, torch.ones(8, dtype=torch.bool), pts.T.contiguous(), None,
+                                i32, i32, torch.zeros(3), torch.ones(3, dtype=torch.int64), 0.01,
+                                k, None, 0.1)
+    assert (_kernels.SLAB_LAUNCHES, _kernels.SLAB_V1_LAUNCHES, _kernels.GRID_LAUNCHES,
+            _kernels.GRID_V1_LAUNCHES) == before
 
 
 def _knn_inputs(device, seed=0, n=20000, dup=0, quantum=0.0):

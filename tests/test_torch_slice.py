@@ -231,7 +231,9 @@ def test_port_imports_no_jax():
             "depth_correction_tpu_torch.models, depth_correction_tpu_torch.utils.params, "
             "depth_correction_tpu_torch.datasets, depth_correction_tpu_torch.datasets.asl_laser, "
             "depth_correction_tpu_torch.scripts.exp_pallas_gather, "
-            "depth_correction_tpu_torch.scripts.knn_cull; "
+            "depth_correction_tpu_torch.scripts.knn_cull, "
+            "depth_correction_tpu_torch.scripts.slab_cull, "
+            "depth_correction_tpu_torch.scripts.exp_grid_slab_ab; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'depth_correction_tpu' or m.startswith('depth_correction_tpu.') "
             "for m in sys.modules), 'JAX package imported'")
