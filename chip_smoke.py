@@ -55,7 +55,9 @@ Phases (any failure raises and the exit code is non-zero):
    from phase 3; `full` and `no_cull` must be bit-equal to K1, every mode
    meet its bars against its float64 plain version), P2 (exp_mosaic_dot_probe: the
    moment product in fp32 / tf32 / tf32x2 / tf32x3, torch.bmm timed beside
-   it), P3-P5 (exp_mosaic_dot_probe2-4: the product with in-kernel
+   it; every variant against its first version, csrc/moment_dot_v1.cu,
+   within 1e-5 per row or bit-equal, both timed in turns by events and by
+   the profiler's kernel durations), P3-P5 (exp_mosaic_dot_probe2-4: the product with in-kernel
    operands and K1's structural pieces), at the TPU scripts' seeds and
    shapes. Every variant must be within 1e-5 (relative, per output row) of
    its float32 plain version; fp32 and tf32x3 within 1e-5 of the float64
@@ -79,7 +81,12 @@ Phases (any failure raises and the exit code is non-zero):
    stages (exp_pallas_gather: P7a, the gather-sum probe, bit-equal to its
    plain version; P7 at stage 2 within 1e-5), each script run with the
    launch counts zeroed just before and read just after; every P6 and P8
-   form exact against its plain version.
+   form exact against its plain version, every P6 probe equal to its first
+   version (csrc/layout_probe_v1.cu) on both inputs and both timed in
+   turns by the profiler's kernel durations, torch.matmul beside dot_tlhs
+   and x.T.contiguous() beside transpose_f32; embedding_bag, one PyTorch
+   call computing P7a's function, timed and held within 1e-6 of its plain
+   version.
 9. capped  — the bench's capped row (bench.py:bench_config(uncapped=False):
    K = 32 with mutual trimming, the gather moments by torch autograd) on
    the slice's scene, 8 Adam steps through train(): capped32_ms, and the
@@ -110,7 +117,9 @@ first versions' bound `bound_all_pairs_ms`, which charges every span pair
 test; for X1 the same, by scripts/slab_cull.py, and its first version's
 time `v1_ms`; for X2 its first version's time at each input; for X3 the
 same two bounds and its first version's time on each of its three inputs;
-for P2, P6 and P8 the library call's device time by the profiler beside
+for P2 and P6 their first versions' times `v1_ms`, both versions' kernel
+durations `kernel_ms` / `v1_kernel_ms` and per-variant times of both; for
+P2, P6, P7a and P8 the library call's device time by the profiler beside
 its events time) and {"ok": true, "device": {...}}. Before them, one line
 carries the end-to-end numbers of the bench's keys (train_step_ms,
 capped32_ms, node_ms, ...).
@@ -1010,7 +1019,7 @@ def phase_probes(card: str, graph, ps, kept: tuple):
 
     from depth_correction_tpu_torch.ops import cellwin as cw
     from depth_correction_tpu_torch.ops.cellwin_knockout import cellwin_knockout_plain
-    from depth_correction_tpu_torch.ops.moment_dot import moment_dot, moment_dot_plain
+    from depth_correction_tpu_torch.ops.moment_dot import moment_dot_plain
     from depth_correction_tpu_torch.ops.moment_window import moment_window_plain
     from depth_correction_tpu_torch.scripts import (
         exp_cellwin_knockout as p1, exp_mosaic_dot_probe as p2, exp_mosaic_dot_probe2 as p3,
@@ -1074,24 +1083,42 @@ def phase_probes(card: str, graph, ps, kept: tuple):
     log("  P2 torch.bmm (one call, the same %d products): fp32 %.4f ms, TF32 allowed %.4f ms; "
         "allow_tf32 back to %s" % (p2.T1, lib["fp32"], lib["tf32"],
                                    torch.backends.cuda.matmul.allow_tf32))
+    # The redesign against its first version (csrc/moment_dot_v1.cu), every
+    # variant, in turns (v1, new, new, v1) by CUDA events and by the
+    # profiler's kernel durations (the device time, as torch.bmm's beside).
+    ab2 = p2.first_version_ab(dev)
+    for v, x in ab2.items():
+        log("  P2 %-7s redesign %9.4f ms (kernel %9.4f), first version %9.4f ms (kernel %9.4f); "
+            "bit-equal to v1 %s, max |new - v1| %.3e, per row %.3e; kernel turns %s"
+            % (v, x["ms"], x["kernel_ms"], x["v1_ms"], x["v1_kernel_ms"], x["equal"],
+               x["max_abs"], x["rel_rows"], ", ".join("%.4f" % t for t in x["kernel_turns"])))
+        bar(x["equal"] or x["rel_rows"] <= PROBE_REL_BAR,
+            "P2 %s misses %.0e per row vs its first version: %.3e"
+            % (v, PROBE_REL_BAR, x["rel_rows"]))
     a, b, _ = p2.inputs(dev)
     e = r2["variants"]["tf32x3"]
-    # Device time by the profiler's kernel durations, the kernel's and the
-    # library call's alike (the events above include the host's issue).
-    p2_device = kernel_ms(lambda: moment_dot(a, b, p2.T1, "tf32x3"), dev, 20)
-    log("  P2 device time (profiler): tf32x3 %.4f ms, torch.bmm fp32 %.4f ms (%s)"
-        % (p2_device, lib["fp32_device"], card))
+    head2 = ab2["tf32x3"]
+    log("  P2 device time (profiler): tf32x3 %.4f ms (first version %.4f), fp32 %.4f ms (first "
+        "version %.4f), torch.bmm fp32 %.4f ms (%s)"
+        % (head2["kernel_ms"], head2["v1_kernel_ms"], ab2["fp32"]["kernel_ms"],
+           ab2["fp32"]["v1_kernel_ms"], lib["fp32_device"], card))
     dot_bytes = a.numel() * 4 + b.numel() * 4 + e["out"].numel() * 4
     entries.append({
         "name": "moment_dot (P2)", "route": "cuda",
         "source": "depth_correction_tpu_torch/csrc/moment_dot.cu",
         "replaces": "scripts/exp_mosaic_dot_probe.py:50", "launches": n2,
-        "max_abs_err": e["abs64"], "ms": e["ms"],
+        "max_abs_err": e["abs64"], "ms": head2["ms"], "v1_ms": head2["v1_ms"],
+        "kernel_ms": head2["kernel_ms"], "v1_kernel_ms": head2["v1_kernel_ms"],
         "plain_ms": cuda_ms(lambda: moment_dot_plain(a, b, p2.T1, "tf32x3"), reps=3, warmup=1),
         "bound": bound(dot_bytes, {"tf32": 3 * 2 * 16 * p2.NS * p2.S * p2.R * p2.T1}),
-        "library_ms": lib["fp32"], "kernel_ms": p2_device,
-        "library_device_ms": lib["fp32_device"],
-        "variants": {v: x["ms"] for v, x in r2["variants"].items()}})
+        "fp32_bound_ms": bound(dot_bytes, {"fp32": 2 * 16 * p2.NS * p2.S * p2.R * p2.T1})[0],
+        "library_ms": lib["fp32"], "library_device_ms": lib["fp32_device"],
+        "variants": {v: x["ms"] for v, x in ab2.items()},
+        "v1_variants": {v: x["v1_ms"] for v, x in ab2.items()},
+        "kernel_variants": {v: x["kernel_ms"] for v, x in ab2.items()},
+        "v1_kernel_variants": {v: x["v1_kernel_ms"] for v, x in ab2.items()},
+        "v1_bit_equal": {v: x["equal"] for v, x in ab2.items()},
+        "v1_max_abs": {v: x["max_abs"] for v, x in ab2.items()}})
 
     # P3-P5: the product with in-kernel operands; headline variants
     # tf32x3, E_all and J_all.
@@ -1344,7 +1371,8 @@ def phase_probes_p6_p8(card: str):
     import torch
 
     from depth_correction_tpu_torch.ops.gather_probe import gather_probe, gather_probe_plain
-    from depth_correction_tpu_torch.ops.layout_probe import layout_probe, layout_probe_plain
+    from depth_correction_tpu_torch.ops.gather_sum import gather_sum
+    from depth_correction_tpu_torch.ops.layout_probe import layout_probe_plain
     from depth_correction_tpu_torch.ops import _kernels
     from depth_correction_tpu_torch.scripts import exp_mosaic_probe as p6
     from depth_correction_tpu_torch.scripts import exp_pallas_gather as p7
@@ -1361,29 +1389,41 @@ def phase_probes_p6_p8(card: str):
                "OK" if e2["err"] == 0 else "FAIL", e2["sum"], e["ms"]))
         if e["err"] != 0 or e2["err"] != 0:
             failures.append("P6 %s differs from its plain version" % name)
+    # The redesign against its first version (csrc/layout_probe_v1.cu):
+    # equal on both inputs, and both timed in turns by the profiler's kernel
+    # durations (the device time; at these sizes the events time the host's
+    # issue rate) and by events, with torch.matmul beside dot_tlhs and
+    # x.T.contiguous() beside transpose_f32.
+    ab6 = p6.first_version_ab(dev)
+    for name, e in ab6.items():
+        lib = (", %s %.4f ms (events %.4f)" % (e["library"], e["library_kernel_ms"],
+                                               e["library_ms"]) if "library" in e else "")
+        log("  P6 %-22s equal to v1 %s; kernel %.4f ms, v1 %.4f ms; events %.4f / %.4f%s"
+            % (name, e["equal"], e["kernel_ms"], e["v1_kernel_ms"], e["ms"], e["v1_ms"], lib))
+        if not e["equal"]:
+            failures.append("P6 %s differs from its first version" % name)
     x = p6.inputs(dev)
     head = "dot_tlhs"
-    # At these sizes the events time the host's issue rate; the profiler
-    # gives the device time per call.
-    busy6 = profile_calls(lambda: layout_probe(x, head), card, "call", n=20)["busy_ms"]
-    ones = torch.ones((8, 128), device=dev)
-    lib6 = kernel_ms(lambda: torch.matmul(x.T, ones), dev, 20)
-    log("  P6 device time (profiler): %s %.4f ms, torch.matmul %.4f ms (%s)"
-        % (head, busy6, lib6, card))
+    h6 = ab6[head]
+    log("  P6 device time (profiler): %s %.4f ms (first version %.4f), torch.matmul %.4f ms (%s)"
+        % (head, h6["kernel_ms"], h6["v1_kernel_ms"], h6["library_kernel_ms"], card))
     entries = [{
         "name": "layout_probe (P6)", "route": "cuda",
         "source": "depth_correction_tpu_torch/csrc/layout_probe.cu",
         "replaces": "scripts/exp_mosaic_probe.py:37", "launches": n6 + n6b,
         "max_abs_err": max(max(e["err"] for e in r["probes"].values()) for r in (r6, r6b)),
-        "ms": r6["probes"][head]["ms"],
+        "ms": h6["ms"], "v1_ms": h6["v1_ms"], "kernel_ms": h6["kernel_ms"],
+        "v1_kernel_ms": h6["v1_kernel_ms"],
         "plain_ms": cuda_ms(lambda: layout_probe_plain(x, head), reps=20),
         # Bound: x read once and the (512, 128) output written once; three
         # TF32 passes of 2 x 512 x 128 x 8.
         "bound": bound(x.numel() * 4 + 4 * p6.S * 128, {"tf32": 3 * 2 * p6.S * 128 * 8}),
-        "library_ms": cuda_ms(lambda: torch.matmul(x.T, ones), reps=20),
-        "device_busy_ms": busy6,
-        "library_device_ms": lib6,
-        "variants": {n: e["ms"] for n, e in r6["probes"].items()}}]
+        "library_ms": h6["library_ms"], "library_device_ms": h6["library_kernel_ms"],
+        "variants": {n: e["ms"] for n, e in ab6.items()},
+        "v1_variants": {n: e["v1_ms"] for n, e in ab6.items()},
+        "kernel_variants": {n: e["kernel_ms"] for n, e in ab6.items()},
+        "v1_kernel_variants": {n: e["v1_kernel_ms"] for n, e in ab6.items()},
+        "transpose_library_device_ms": ab6["transpose_f32"]["library_kernel_ms"]}]
 
     r8, n8 = counted(lambda: p8.run(dev), "GATHER_PROBE_LAUNCHES")
     for case, forms in r8["cases"].items():
@@ -1417,7 +1457,8 @@ def phase_probes_p6_p8(card: str):
         "variants": {"%s_%s" % (c, f): e["ms"] for c, fs in r8["cases"].items()
                      for f, e in fs.items() if e}})
     # P7's two stages (the TPU script's draws, stage 1 first).
-    r7, n7 = counted(lambda: p7.run(dev), "GATHER_SUM_LAUNCHES")
+    d7 = p7.inputs(dev)
+    r7, n7 = counted(lambda: p7.run(dev, data=d7), "GATHER_SUM_LAUNCHES")
     n7_moments = _kernels.GATHER_LAUNCHES
     pr, mo = r7["probe"], r7["moments"]
     log("  P7a gather-sum %-4s err vs plain %.1e, vs float64 %.3e %9.4f ms (plain %.4f ms)"
@@ -1429,6 +1470,13 @@ def phase_probes_p6_p8(card: str):
         failures.append("P7a is not bit-equal to its plain version")
     if n7_moments <= 0 or not (mo["err32"] <= PROBE_REL_BAR and mo["err64"] <= PROBE_REL_BAR):
         failures.append("P7 at stage 2 misses %.0e: %s" % (PROBE_REL_BAR, mo))
+    # One PyTorch call computing P7a's function (a yardstick only).
+    lib7 = p7.probe_library(dev, d7)
+    log("  P7a embedding_bag (sum) %.4f ms, device %.4f ms; rel err vs plain %.3e (%s)"
+        % (lib7["ms"], lib7["kernel_ms"], lib7["rel"], card))
+    if not lib7["rel"] <= 1e-6:
+        failures.append("embedding_bag misses 1e-6 against P7a's plain version: %.3e"
+                        % lib7["rel"])
     m7, t7, k7 = p7.PROBE_M, p7.PROBE_T, p7.PROBE_K
     entries.append({
         "name": "gather_sum (P7a)", "route": "cuda",
@@ -1438,7 +1486,9 @@ def phase_probes_p6_p8(card: str):
         # Bound: the table, the indices and the (3, T) output moved once;
         # one add per gathered value.
         "bound": bound(3 * m7 * 4 + t7 * k7 * 4 + 3 * t7 * 4, {"fp32": 3 * t7 * k7}),
-        "library_ms": None, "variants": {"stage2_moments": mo["ms"]}})
+        "kernel_ms": kernel_ms(lambda: gather_sum(*d7["probe"]), dev, 20),
+        "library_ms": lib7["ms"], "library_device_ms": lib7["kernel_ms"],
+        "variants": {"stage2_moments": mo["ms"]}})
     if failures:
         raise RuntimeError("probe bars missed: " + "; ".join(failures))
     return entries

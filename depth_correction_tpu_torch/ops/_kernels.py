@@ -12,11 +12,12 @@ The launchers validate device, dtype, shape and contiguity before passing
 pointers, launch on the current stream, and raise when the C entry returns
 a CUDA error. Launch counts of K1/K2 (and of their first versions, kept
 for an A/B on the card) are kept by their callers in ``ops/cellwin.py``;
-X1, X2, X3 (and their first versions), P7 and the probes P1-P6, P7a, P8
-count here (:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`, :data:`KNN_LAUNCHES`,
-:data:`GATHER_LAUNCHES`, :data:`KNOCKOUT_LAUNCHES`, :data:`DOT_LAUNCHES`,
-:data:`WINDOW_LAUNCHES`, :data:`LAYOUT_LAUNCHES`, :data:`GATHER_SUM_LAUNCHES`,
-:data:`GATHER_PROBE_LAUNCHES`), once per accepted launch.
+X1, X2, X3, P2, P6 (and their first versions), P7 and the probes P1, P3-P5,
+P7a, P8 count here (:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`,
+:data:`KNN_LAUNCHES`, :data:`GATHER_LAUNCHES`, :data:`KNOCKOUT_LAUNCHES`,
+:data:`DOT_LAUNCHES`, :data:`WINDOW_LAUNCHES`, :data:`LAYOUT_LAUNCHES`,
+:data:`GATHER_SUM_LAUNCHES`, :data:`GATHER_PROBE_LAUNCHES`, and the first
+versions' ``*_V1_LAUNCHES``), once per accepted launch.
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ import torch
 
 __all__ = [
     "DOT_LAUNCHES",
+    "DOT_V1_LAUNCHES",
     "GATHER_LAUNCHES",
     "GATHER_PROBE_LAUNCHES",
     "GATHER_SUM_LAUNCHES",
@@ -42,6 +44,7 @@ __all__ = [
     "KNN_V1_LAUNCHES",
     "KNOCKOUT_LAUNCHES",
     "LAYOUT_LAUNCHES",
+    "LAYOUT_V1_LAUNCHES",
     "SLAB_LAUNCHES",
     "SLAB_V1_LAUNCHES",
     "WINDOW_LAUNCHES",
@@ -61,7 +64,9 @@ __all__ = [
     "launch_knn_brute",
     "launch_knn_brute_v1",
     "launch_layout_probe",
+    "launch_layout_probe_v1",
     "launch_moment_dot",
+    "launch_moment_dot_v1",
     "launch_moment_window",
     "launch_slab_window",
     "launch_slab_window_v1",
@@ -73,9 +78,10 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin.cu", "cellwin_v1.cu", "gather_moments.cu", "slabwin.cu",
                              "slabwin_v1.cu", "cellwin_knockout.cu", "moment_dot.cu",
-                             "moment_window.cu", "grid_query.cu", "grid_query_v1.cu",
-                             "layout_probe.cu", "gather_probe.cu", "knn_brute.cu",
-                             "knn_brute_v1.cu", "gather_sum.cu"))
+                             "moment_dot_v1.cu", "moment_window.cu", "grid_query.cu",
+                             "grid_query_v1.cu", "layout_probe.cu", "layout_probe_v1.cu",
+                             "gather_probe.cu", "knn_brute.cu", "knn_brute_v1.cu",
+                             "gather_sum.cu"))
 # Headers the sources include; they key the build like the sources.
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin_fwd.cuh", "tf32_mma.cuh"))
@@ -99,11 +105,13 @@ NVCC_FLAGS = (
 SLAB_LAUNCHES = 0
 GRID_LAUNCHES = 0
 KNN_LAUNCHES = 0
-# The first versions of X1, X2 and X3, for the A/B only (no path launches
-# them).
+# The first versions of X1, X2, X3, P2 and P6, for the A/B only (no path
+# launches them).
 SLAB_V1_LAUNCHES = 0
 GRID_V1_LAUNCHES = 0
 KNN_V1_LAUNCHES = 0
+DOT_V1_LAUNCHES = 0
+LAYOUT_V1_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 KNOCKOUT_LAUNCHES = 0
 DOT_LAUNCHES = 0
@@ -194,13 +202,16 @@ def load():
         lib.dc_cellwin_knockout.argtypes = [_I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I,
                                             _I, _F, _P, _P]
         lib.dc_cellwin_knockout.restype = _I
-        lib.dc_moment_dot.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P]
-        lib.dc_moment_dot.restype = _I
+        for suffix in ("", "_v1"):
+            dot = getattr(lib, "dc_moment_dot" + suffix)
+            dot.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P]
+            dot.restype = _I
+            layout = getattr(lib, "dc_layout_probe" + suffix)
+            layout.argtypes = [_I, _P, _P, _P]
+            layout.restype = _I
         lib.dc_moment_window.argtypes = [_I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I,
                                          _I, _F, _I, _P, _P]
         lib.dc_moment_window.restype = _I
-        lib.dc_layout_probe.argtypes = [_I, _P, _P, _P]
-        lib.dc_layout_probe.restype = _I
         lib.dc_gather_probe.argtypes = [_I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
         lib.dc_gather_probe.restype = _I
         lib.dc_gather_sum.argtypes = [_P, _I, _P, _I, _I, _P, _P]
@@ -452,15 +463,8 @@ def launch_gather_moments(points, neighbors, weights):
     return mean, comps, wsum
 
 
-def launch_moment_dot(prec_id: int, a, b, n_tiles: int) -> torch.Tensor:
-    """P2 on CUDA float32 tensors -> (16, 128 n_tiles): block t writes
-    columns [128 t, 128 t + 128) with sum_s a[s] @ b[s].
-
-    :param prec_id: index into ``ops.moment_dot.PRECISIONS``.
-    :param a: (ns, 16, S) float32, S a multiple of 8.
-    :param b: (ns, S, 128) float32.
-    """
-    global DOT_LAUNCHES
+def _launch_dot(name: str, prec_id: int, a, b, n_tiles: int) -> torch.Tensor:
+    """One launch of ``dc_<name>`` (P2 or its first version)."""
     device = a.device
     if device.type != "cuda":
         raise ValueError("the moment-product kernel takes CUDA tensors, got %s" % device)
@@ -470,14 +474,38 @@ def launch_moment_dot(prec_id: int, a, b, n_tiles: int) -> torch.Tensor:
     if s_len % 8 or n_tiles <= 0:
         raise ValueError("moment_dot: S = %d must be a multiple of 8 and n_tiles = %d > 0"
                          % (s_len, n_tiles))
+    if (a.data_ptr() | b.data_ptr()) % 16:
+        raise ValueError("moment_dot: a and b must start on 16-byte boundaries")
     out = torch.empty((16, 128 * n_tiles), dtype=torch.float32, device=device)
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dc_moment_dot(int(prec_id), a.data_ptr(), b.data_ptr(), ns, s_len,
-                                int(n_tiles), out.data_ptr(), stream)
-    _check_launch(lib, err, "moment_dot")
+        err = getattr(lib, "dc_" + name)(int(prec_id), a.data_ptr(), b.data_ptr(), ns, s_len,
+                                         int(n_tiles), out.data_ptr(), stream)
+    _check_launch(lib, err, name)
+    return out
+
+
+def launch_moment_dot(prec_id: int, a, b, n_tiles: int) -> torch.Tensor:
+    """P2 on CUDA float32 tensors -> (16, 128 n_tiles): columns
+    [128 t, 128 t + 128) hold sum_s a[s] @ b[s] for every tile t.
+
+    :param prec_id: index into ``ops.moment_dot.PRECISIONS``.
+    :param a: (ns, 16, S) float32, S a multiple of 8.
+    :param b: (ns, S, 128) float32.
+    """
+    global DOT_LAUNCHES
+    out = _launch_dot("moment_dot", prec_id, a, b, n_tiles)
     DOT_LAUNCHES += 1
+    return out
+
+
+def launch_moment_dot_v1(prec_id: int, a, b, n_tiles: int) -> torch.Tensor:
+    """P2's first version (``csrc/moment_dot_v1.cu``), the arguments and
+    result of :func:`launch_moment_dot`; for the A/B only."""
+    global DOT_V1_LAUNCHES
+    out = _launch_dot("moment_dot_v1", prec_id, a, b, n_tiles)
+    DOT_V1_LAUNCHES += 1
     return out
 
 
@@ -628,10 +656,8 @@ def launch_grid_query_v1(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, 
     return out
 
 
-def launch_layout_probe(probe: int, x, out_shape) -> torch.Tensor:
-    """P6 probe ``probe`` (the index into ``ops.layout_probe.PROBES``) on a
-    CUDA float32 x (8, 512) -> ``out_shape`` float32."""
-    global LAYOUT_LAUNCHES
+def _launch_layout(name: str, probe: int, x, out_shape) -> torch.Tensor:
+    """One launch of ``dc_<name>`` (P6 or its first version)."""
     device = x.device
     if device.type != "cuda":
         raise ValueError("the layout probe kernels take CUDA tensors, got %s" % device)
@@ -640,9 +666,26 @@ def launch_layout_probe(probe: int, x, out_shape) -> torch.Tensor:
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dc_layout_probe(int(probe), x.data_ptr(), out.data_ptr(), stream)
-    _check_launch(lib, err, "layout_probe")
+        err = getattr(lib, "dc_" + name)(int(probe), x.data_ptr(), out.data_ptr(), stream)
+    _check_launch(lib, err, name)
+    return out
+
+
+def launch_layout_probe(probe: int, x, out_shape) -> torch.Tensor:
+    """P6 probe ``probe`` (the index into ``ops.layout_probe.PROBES``) on a
+    CUDA float32 x (8, 512) -> ``out_shape`` float32."""
+    global LAYOUT_LAUNCHES
+    out = _launch_layout("layout_probe", probe, x, out_shape)
     LAYOUT_LAUNCHES += 1
+    return out
+
+
+def launch_layout_probe_v1(probe: int, x, out_shape) -> torch.Tensor:
+    """P6's first version (``csrc/layout_probe_v1.cu``), the arguments and
+    result of :func:`launch_layout_probe`; for the A/B only."""
+    global LAYOUT_V1_LAUNCHES
+    out = _launch_layout("layout_probe_v1", probe, x, out_shape)
+    LAYOUT_V1_LAUNCHES += 1
     return out
 
 
@@ -867,17 +910,20 @@ def launch_gather_sum(pts_T, idx) -> torch.Tensor:
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts kept here (X1, X2, X3 and their first
-    versions, P7, P1-P6, P7a, P8)."""
+    """Zero the launch counts kept here (X1, X2, X3, P2, P6 and their first
+    versions, P7, P1, P3-P5, P7a, P8)."""
     global SLAB_LAUNCHES, GRID_LAUNCHES, KNN_LAUNCHES, GATHER_LAUNCHES, KNOCKOUT_LAUNCHES
     global DOT_LAUNCHES, WINDOW_LAUNCHES, LAYOUT_LAUNCHES, GATHER_SUM_LAUNCHES
     global GATHER_PROBE_LAUNCHES, KNN_V1_LAUNCHES, SLAB_V1_LAUNCHES, GRID_V1_LAUNCHES
+    global DOT_V1_LAUNCHES, LAYOUT_V1_LAUNCHES
     SLAB_LAUNCHES = 0
     GRID_LAUNCHES = 0
     KNN_LAUNCHES = 0
     SLAB_V1_LAUNCHES = 0
     GRID_V1_LAUNCHES = 0
     KNN_V1_LAUNCHES = 0
+    DOT_V1_LAUNCHES = 0
+    LAYOUT_V1_LAUNCHES = 0
     GATHER_SUM_LAUNCHES = 0
     GATHER_LAUNCHES = 0
     KNOCKOUT_LAUNCHES = 0

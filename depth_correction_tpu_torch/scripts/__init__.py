@@ -7,9 +7,12 @@ measures they report.
 """
 from __future__ import annotations
 
+import time
+
 import torch
 
-__all__ = ["bench_config", "device_ms", "kernel_ms", "rel_max", "rel_rows", "require_card"]
+__all__ = ["bench_config", "device_ms", "in_turns", "kernel_ms", "rel_max", "rel_rows",
+           "require_card"]
 
 # bench.py's uncapped training scene.
 SCENE = "open_box/n_6_size_20_20_5_height_1_density_400"
@@ -77,7 +80,17 @@ def kernel_ms(fn, device, reps: int, warmup: int = 2) -> float:
     the kernels' own durations under torch.profiler over ``reps`` calls,
     after ``warmup`` calls. Unlike :func:`device_ms` it leaves out the gaps
     between kernels, so a kernel that ends before the host has issued the
-    next call reads its own time, not the host's issue rate."""
+    next call reads its own time, not the host's issue rate.
+
+    In a long process the profiler has missed microsecond kernels near the
+    end of a profile (on an H100: some launches of the layout probes, the
+    one launch of a one-call profile), so the host waits a few milliseconds
+    inside the profile after the calls have finished, and each kernel
+    counts as its mean recorded duration times its launches per call (its
+    recorded launches over ``reps``, at least one). A profile that recorded
+    no kernel at all is taken again, three times in all, and then this
+    raises.
+    """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -86,12 +99,31 @@ def kernel_ms(fn, device, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.005)
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and e.count > 0]
+        if events:
+            return sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
+                       for e in events) / 1e3
+    raise RuntimeError("kernel_ms: 3 profiles of %d calls recorded no kernel" % reps)
+
+
+def in_turns(first, second, device, reps: int = 50, timer=None) -> tuple:
+    """(first ms, second ms, the four readings): ``timer``'s means over
+    ``reps`` calls each (:func:`device_ms`, CUDA events, by default; or
+    :func:`kernel_ms`), timed first, second, second, first; each the mean
+    of its two."""
+    timer = device_ms if timer is None else timer
+    a1 = timer(first, device, reps)
+    b1 = timer(second, device, reps)
+    b2 = timer(second, device, reps)
+    a2 = timer(first, device, reps)
+    return (a1 + a2) / 2, (b1 + b2) / 2, (a1, b1, b2, a2)
 
 
 def rel_max(got, ref) -> float:

@@ -23,24 +23,13 @@ import time
 import numpy as np
 import torch
 
-from . import bench_config, device_ms, require_card
+from . import bench_config, device_ms, in_turns, require_card
 
 __all__ = ["NODE_SCENE", "grid_node_inputs", "in_turns", "node_slab_inputs", "slice_clouds",
            "x1_ab", "x2_ab"]
 
 # bench.py:build_node_scan's scene.
 NODE_SCENE = "open_box/n_6_size_20_20_5_height_1_density_215"
-
-
-def in_turns(first, second, device, reps: int = 50) -> tuple:
-    """(first ms, second ms, the four readings): CUDA-event means over
-    ``reps`` calls each, timed first, second, second, first; each the mean
-    of its two."""
-    a1 = device_ms(first, device, reps)
-    b1 = device_ms(second, device, reps)
-    b2 = device_ms(second, device, reps)
-    a2 = device_ms(first, device, reps)
-    return (a1 + a2) / 2, (b1 + b2) / 2, (a1, b1, b2, a2)
 
 
 def _bit_equal(a, b) -> bool:

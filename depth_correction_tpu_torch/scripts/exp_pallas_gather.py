@@ -16,7 +16,8 @@ its shapes and its default_rng(0) draws in its order:
               csrc/gather_moments.cu) against its plain version
               ``_moments_impl`` in float32 and float64.
 
-For each: ms per call (CUDA events) and the errors.
+For each: ms per call (CUDA events) and the errors. :func:`probe_library`
+times one PyTorch call computing stage 1 (embedding_bag), a yardstick.
 
     python -m depth_correction_tpu_torch.scripts.exp_pallas_gather
 """
@@ -29,7 +30,7 @@ import torch
 
 from ..ops.features import gather_moments, gather_moments_plain
 from ..ops.gather_sum import gather_sum, gather_sum_plain
-from . import device_ms, require_card
+from . import device_ms, kernel_ms, require_card
 
 STEPS = 20
 PROBE_M, PROBE_K, PROBE_T = 16384, 32, 512
@@ -91,6 +92,25 @@ def run(device, reps: int = STEPS, data: dict = None) -> dict:
         "abs64": max(float((g.double() - r).abs().max()) for g, r in zip(got[:2], ref64[:2])),
     }
     return {"probe": probe, "moments": moments}
+
+
+def probe_library(device, data: dict = None, reps: int = STEPS) -> dict:
+    """One PyTorch call computing P7a's function, as a yardstick (the port
+    never calls it): embedding_bag(idx, pts_T.T, mode="sum") gives the (T, 3)
+    sums, the probe's (3, T) read transposed.
+
+    :return: {"ms" (CUDA events), "kernel_ms" (the profiler's kernel
+        durations), "rel" (max |library - plain| / max |plain|)}.
+    """
+    data = data or inputs(device)
+    pts, idx = data["probe"]
+
+    def call():
+        return torch.nn.functional.embedding_bag(idx, pts.T, mode="sum")
+
+    want = gather_sum_plain(pts, idx)
+    return {"ms": device_ms(call, device, reps), "kernel_ms": kernel_ms(call, device, reps),
+            "rel": _rel(call().T, want)}
 
 
 def main(argv=None) -> int:

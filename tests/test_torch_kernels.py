@@ -778,6 +778,144 @@ def test_cuda_probe_wrappers_refuse(cuda_device):
 
 
 # ---------------------------------------------------------------------------
+# P2 and P6 against their first versions (csrc/moment_dot_v1.cu,
+# csrc/layout_probe_v1.cu), which only the A/B launches.
+
+P2_PRECS = ("fp32", "tf32", "tf32x2", "tf32x3")
+P6_PROBES = ("reshape_f32", "iota_col", "iota_col_full", "bool_reshape", "dot_tlhs",
+             "transpose_f32", "broadcast_row_to_col")
+
+
+def _v1_counts():
+    return (_kernels.DOT_LAUNCHES, _kernels.DOT_V1_LAUNCHES, _kernels.LAYOUT_LAUNCHES,
+            _kernels.LAYOUT_V1_LAUNCHES)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("kernel", ["moment_dot", "layout_probe"])
+def test_p2_p6_first_versions_take_cuda_tensors_only(device, kernel):
+    """P2's and P6's first versions have no plain route: their launchers and
+    wrappers refuse CPU and meta tensors, and nothing is counted."""
+    from depth_correction_tpu_torch.ops.layout_probe import layout_probe_v1
+    from depth_correction_tpu_torch.ops.moment_dot import moment_dot_v1
+
+    before = _v1_counts()
+    if kernel == "moment_dot":
+        a = torch.zeros((5, 16, 64), device=device)
+        b = torch.zeros((5, 64, 128), device=device)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            _kernels.launch_moment_dot_v1(3, a, b, 2)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            moment_dot_v1(a, b, 2, "tf32x3")
+    else:
+        x = torch.zeros((8, 512), device=device)
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            _kernels.launch_layout_probe_v1(4, x, (512, 128))
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            layout_probe_v1(x, "dot_tlhs")
+    assert _v1_counts() == before
+
+
+@pytest.mark.parametrize("name", [("moment_dot", p) for p in P2_PRECS]
+                         + [("layout_probe", p) for p in P6_PROBES])
+def test_p2_p6_wrappers_send_cuda_tensors_to_the_redesign(monkeypatch, name):
+    """Non-CPU tensors go from moment_dot / layout_probe to the redesign's
+    launcher with the variant's index, never to the first version's launcher
+    or to the plain twin."""
+    from depth_correction_tpu_torch.ops import layout_probe as tlayout
+    from depth_correction_tpu_torch.ops import moment_dot as tdot
+
+    kernel, variant = name
+    calls = []
+
+    def fake_launch(*args, **kw):
+        calls.append(args)
+        raise RuntimeError("launched")
+
+    def refuse(*args, **kw):
+        raise AssertionError("took another route")
+
+    monkeypatch.setattr(_kernels, "launch_" + kernel, fake_launch)
+    monkeypatch.setattr(_kernels, "launch_%s_v1" % kernel, refuse)
+    monkeypatch.setattr(tdot, "moment_dot_plain", refuse)
+    monkeypatch.setattr(tlayout, "layout_probe_plain", refuse)
+    with pytest.raises(RuntimeError, match="launched"):
+        if kernel == "moment_dot":
+            tdot.moment_dot(torch.zeros((5, 16, 64), device="meta"),
+                            torch.zeros((5, 64, 128), device="meta"), 2, variant)
+        else:
+            tlayout.layout_probe(torch.zeros((8, 512), device="meta"), variant)
+    assert len(calls) == 1
+    want = P2_PRECS.index(variant) if kernel == "moment_dot" else P6_PROBES.index(variant)
+    assert calls[0][0] == want
+    if kernel == "layout_probe":
+        assert tuple(calls[0][2]) == tlayout.PROBES[variant]
+
+
+def _p2_inputs(device, ns, s_len, seed=0):
+    """Seeded P2 inputs at any shape: a (ns, 16, S) normal, b (ns, S, 128)
+    {0, 1} of density 0.3 (the probe's draws)."""
+    rng = np.random.default_rng(seed + 1000 * ns + s_len)
+    a = rng.normal(size=(ns, 16, s_len)).astype(np.float32)
+    b = (rng.random((ns, s_len, 128)) < 0.3).astype(np.float32)
+    return torch.as_tensor(a, device=device), torch.as_tensor(b, device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles", [1, 3, 513])
+@pytest.mark.parametrize("s_len", [8, 72, 640])
+@pytest.mark.parametrize("ns", [1, 5])
+def test_cuda_moment_dot_matches_plain_and_first_version(cuda_device, ns, s_len, n_tiles):
+    """P2's redesign at the edge shapes (one span, a chunk of 8 k, a ragged
+    last chunk, a ragged last block of tiles): every variant within 1e-5 per
+    row of its float32 plain twin and of the first version; fp32 and tf32x3
+    within 1e-5 of the float64 product; fp32 equal to the first version bit
+    for bit (the same FMAs in the same order); every tile's slot the same."""
+    from depth_correction_tpu_torch.ops.moment_dot import (
+        moment_dot, moment_dot_plain, moment_dot_v1,
+    )
+    from depth_correction_tpu_torch.scripts import rel_max, rel_rows
+
+    a, b = _p2_inputs(cuda_device, ns, s_len)
+    oracle = moment_dot_plain(a.double(), b.double(), 1, "fp32")
+    before = _v1_counts()
+    for prec in P2_PRECS:
+        got = moment_dot(a, b, n_tiles, prec)
+        v1 = moment_dot_v1(a, b, n_tiles, prec)
+        torch.cuda.synchronize()
+        assert got.shape == (16, 128 * n_tiles)
+        tiles = got.reshape(16, n_tiles, 128)
+        assert torch.equal(tiles, tiles[:, :1].expand_as(tiles)), prec
+        first = got[:, :128]
+        assert rel_rows(first, moment_dot_plain(a, b, 1, prec)) <= 1e-5, prec
+        assert rel_rows(first, v1[:, :128]) <= 1e-5, prec
+        if prec in ("fp32", "tf32x3"):
+            assert rel_max(first, oracle) <= 1e-5, prec
+        if prec == "fp32":
+            assert torch.equal(got, v1)
+    assert _v1_counts() == (before[0] + 4, before[1] + 4, before[2], before[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("first", [None, 200.0])
+def test_cuda_layout_probes_match_first_version(cuda_device, first):
+    """Every P6 probe of the redesign equals the first version and the plain
+    twin exactly, on the script's input and with x[0, 0] = 200."""
+    from depth_correction_tpu_torch.ops.layout_probe import (
+        layout_probe, layout_probe_plain, layout_probe_v1,
+    )
+    from depth_correction_tpu_torch.scripts.exp_mosaic_probe import inputs
+
+    x = inputs(cuda_device, first)
+    before = _v1_counts()
+    for name in P6_PROBES:
+        got = layout_probe(x, name)
+        assert torch.equal(got, layout_probe_v1(x, name)), name
+        assert torch.equal(got, layout_probe_plain(x, name)), name
+    assert _v1_counts() == (before[0], before[1], before[2] + 7, before[3] + 7)
+
+
+# ---------------------------------------------------------------------------
 # X2 (the grid radius search), P6 (layout probes) and P8 (gather probes).
 
 

@@ -237,6 +237,29 @@ def test_moment_dot_plain_matches_probe(variant):
 
 
 @pytest.mark.parametrize("variant", ["default", "highest", "split2_bits", "split3_bits"])
+@pytest.mark.parametrize("n_tiles", [1, 5])
+@pytest.mark.parametrize("s_len", [8, 72, 640])
+@pytest.mark.parametrize("ns", [1, 5])
+def test_moment_dot_plain_matches_probe_at_edge_shapes(ns, s_len, n_tiles, variant):
+    """exp_mosaic_dot_probe.py:50-82's body (the NS span dots summed into
+    one block) against the port's plain P2 at the shapes whose edges the
+    kernel handles: one span, a single chunk of 8 k, a ragged last chunk
+    (72 = 64 + 8), and one tile or a ragged last block of tiles; the
+    script's draws (a normal, b {0, 1} of density 0.3) from a seed per
+    shape."""
+    rng = np.random.default_rng(1000 * ns + s_len)
+    a = rng.normal(size=(ns, 16, s_len))
+    b = (rng.random((ns, s_len, p2.R)) < 0.3).astype(np.float64)
+    want = np.asarray(sum(_dot(jnp.asarray(a[s]), jnp.asarray(b[s]), variant)
+                          for s in range(ns)))
+    got = moment_dot(torch.as_tensor(a), torch.as_tensor(b), n_tiles,
+                     TPU_VARIANTS[variant]).numpy()
+    assert got.shape == (16, p2.R * n_tiles)
+    for t in range(n_tiles):
+        np.testing.assert_allclose(got[:, t * p2.R:(t + 1) * p2.R], want, rtol=1e-12, atol=1e-10)
+
+
+@pytest.mark.parametrize("variant", ["default", "highest", "split2_bits", "split3_bits"])
 def test_moment_window_plain_matches_probe2(variant):
     """exp_mosaic_dot_probe2.py:39-71 against the port's plain P3."""
     win, q, ln = p3.inputs("cpu")
