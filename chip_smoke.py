@@ -46,7 +46,9 @@ Phases (any failure raises and the exit code is non-zero):
    redesign, first version), with the search kernel's own time, the share
    of pair tests the cull keeps (host model, scripts/knn_cull.py) and the
    bounds of the kept and of all pair tests; P7 must meet its bars on the
-   node's own neighbour table;
+   node's own neighbour table, and is timed there in turns with its first
+   version (csrc/gather_moments_v1.cu; by events and by the profiler's
+   kernel durations; the largest |new - v1| of each output printed);
    then P7 and its plain version are timed at the shapes of
    scripts/exp_pallas_gather.py's stage 2 and held within 1e-5 relative.
 6. probes  — the port's probe scripts (depth_correction_tpu_torch/scripts),
@@ -68,7 +70,9 @@ Phases (any failure raises and the exit code is non-zero):
    first version (csrc/grid_query_v1.cu): index tables, distances bit for
    bit and counts equal; against scipy's float64 sets on the scan (a pair
    may differ only within 1e-6 r of the radius); both versions timed in
-   turns at both sizes, top-k and counts. X2 at the grid node's shapes (the
+   turns at both sizes, top-k and counts. P7 on the global cloud's X2
+   table (prep's largest call) against its float64 plain version (the
+   node's bars) and its first version, in turns. X2 at the grid node's shapes (the
    traced 2^21-cell grid of phase 4's filtered scan; k = 32, the node's,
    and k = 16, below the scan's largest count, so the top-k cuts) against
    its plain twin and its first version, as above, both timed in turns.
@@ -86,7 +90,13 @@ Phases (any failure raises and the exit code is non-zero):
    turns by the profiler's kernel durations, torch.matmul beside dot_tlhs
    and x.T.contiguous() beside transpose_f32; embedding_bag, one PyTorch
    call computing P7a's function, timed and held within 1e-6 of its plain
-   version.
+   version; P7a bit-equal to its first version (csrc/gather_sum_v1.cu) and
+   both timed in turns, its device time printed beside embedding_bag's
+   (slower or not); P7 at stage 2's shapes against its first version in
+   turns.
+
+Every main path (phases 3-5, 7, 9, 10) runs with all launch counts zeroed
+before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
 9. capped  — the bench's capped row (bench.py:bench_config(uncapped=False):
    K = 32 with mutual trimming, the gather moments by torch autograd) on
    the slice's scene, 8 Adam steps through train(): capped32_ms, and the
@@ -119,6 +129,10 @@ time `v1_ms`; for X2 its first version's time at each input; for X3 the
 same two bounds and its first version's time on each of its three inputs;
 for P2 and P6 their first versions' times `v1_ms`, both versions' kernel
 durations `kernel_ms` / `v1_kernel_ms` and per-variant times of both; for
+P7a and P7 the same three times, and for P7 per shape (the probe's, the
+small scan's node table, the global cloud's top-k table) with its bound
+and the largest |new - v1| `max_abs_err_v1`, and its launches in the
+slice's and the default config's prep; for
 P2, P6, P7a and P8 the library call's device time by the profiler beside
 its events time) and {"ok": true, "device": {...}}. Before them, one line
 carries the end-to-end numbers of the bench's keys (train_step_ms,
@@ -458,20 +472,20 @@ def phase_slice(card: str):
             self.w[it] = float(model.w.detach()[0])
 
     # The main path: datasets -> prep -> train(); counts from this run only.
-    cw.reset_launch_counts()
-    _kernels.reset_launch_counts()
+    reset_all_launch_counts()
     t0 = time.perf_counter()
     ds = create_dataset(cfg.train_names[0], cfg)
     data = prepare_sequences([ds], cfg)
     prep_s = time.perf_counter() - t0
     grid_launches, knn_launches = _kernels.GRID_LAUNCHES, _kernels.KNN_LAUNCHES
+    gather_launches = _kernels.GATHER_LAUNCHES
     notes = {"global_neighbors": " (scipy's cKDTree on an H100: 26 s)",
              "local_features": " (with the eager brute count before X3: %.3f s)"
                                % EAGER_LOCAL_FEATURES_S}
     for part, s in data.prep_seconds.items():
         log("prep %s: %.3f s%s" % (part, s, notes.get(part, "")))
-    log("prep total: %.3f s (nn_backend %r; X2 launches in prep %d, X3 %d)"
-        % (prep_s, cfg.nn_backend, grid_launches, knn_launches))
+    log("prep total: %.3f s (nn_backend %r; launches in prep X2 %d, X3 %d, P7 %d)"
+        % (prep_s, cfg.nn_backend, grid_launches, knn_launches, gather_launches))
     if grid_launches <= 0:
         raise RuntimeError("X2 was not launched by the grid establishment of the prep")
     if knn_launches <= 0:
@@ -481,8 +495,9 @@ def phase_slice(card: str):
         raise RuntimeError("the cellwin build declined: the slice would not run the kernels")
     rec = Record(cfg)
     model, history = train(cfg, callbacks=rec, train_data=data)
+    check_no_first_versions("the slice's prep and train()")
     launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES, "grid": grid_launches,
-                "knn": knn_launches}
+                "knn": knn_launches, "gather_prep": gather_launches}
     log("main path launches: K1 %d, K2 %d, X2 %d" % (launches["fwd"], launches["bwd"],
                                                    launches["grid"]))
     if launches["fwd"] <= 0 or launches["bwd"] <= 0:
@@ -636,10 +651,11 @@ def drive_node(scan, cfg, card: str, label: str, batches: int, reps: int, e2e_re
     cloud = cloud.pad(pad_size(cloud.size))
 
     # The main path; counts from this run only.
-    _kernels.reset_launch_counts()
+    reset_all_launch_counts()
     out = node.process(scan)
     outs = correct_cloud(model, cloud, cfg)
     torch.cuda.synchronize()
+    check_no_first_versions(label)
     launches = {"slab": _kernels.SLAB_LAUNCHES, "gather": _kernels.GATHER_LAUNCHES,
                 "grid": _kernels.GRID_LAUNCHES, "knn": _kernels.KNN_LAUNCHES}
     kept = int(outs[4].sum())
@@ -815,6 +831,7 @@ def phase_small(card: str):
     node_plain_ms = cuda_ms(lambda: features.gather_moments_plain(points, nn, w), reps=5)
     log("P7 timing (float32, node table): kernel %.4f ms vs plain %.4f ms (%s)"
         % (node_ms, node_plain_ms, card))
+    res["p7_node"] = p7_ab("small scan's node table", points, nn, w, card, reps=50)
 
     # The probe's stage-2 shapes (scripts/exp_pallas_gather.py:75-81).
     rng = np.random.default_rng(0)
@@ -832,9 +849,7 @@ def phase_small(card: str):
         raise RuntimeError("P7 misses the %.0e relative bar at the probe's shapes: %.3e"
                            % (PROBE_REL_BAR, rel))
     res["p7_ms"] = cuda_ms(lambda: features.gather_moments(pts, idx, wp), reps=20)
-    # Bound: each index, weight and point byte read once, (10, MQ) written
-    # once; ~22 float ops per (row, neighbour).
-    res["p7_bound"] = bound(mq * k * 8 + m * 12 + mq * 10 * 4, {"fp32": 22 * mq * k})
+    res["p7_bound"] = p7_bound(m, mq, k)
     pts_n3 = pts.T.contiguous()
     res["p7_plain_ms"] = cuda_ms(lambda: features.gather_moments_plain(pts_n3, idx, wp), reps=3)
     log("P7 timing (float32, probe shapes): kernel %.4f ms vs plain %.4f ms (%s)"
@@ -1190,6 +1205,65 @@ def counted(fn, attr: str):
     return res, n
 
 
+def reset_all_launch_counts() -> None:
+    """Zero every kernel's launch count (ops/_kernels.py and K1/K2's in
+    ops/cellwin.py), first versions included."""
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.ops import cellwin as cw
+
+    _kernels.reset_launch_counts()
+    cw.reset_launch_counts()
+
+
+def check_no_first_versions(label: str) -> None:
+    """Raises if any first version (the A/B's ``*_V1_LAUNCHES``) launched
+    since the counts were last zeroed: no main path may reach one."""
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.ops import cellwin as cw
+
+    counts = {name: getattr(mod, name) for mod in (_kernels, cw) for name in dir(mod)
+              if name.endswith("_V1_LAUNCHES")}
+    if any(counts.values()):
+        raise RuntimeError("%s launched first versions: %s"
+                           % (label, {k: v for k, v in counts.items() if v}))
+
+
+def p7_bound(n_pts: int, mq: int, k: int) -> tuple:
+    """P7's bound: each index and weight read once (8 bytes a slot), each
+    point once (12 bytes), (10, MQ) written once; ~22 float ops per
+    (row, neighbour)."""
+    return bound(mq * k * 8 + n_pts * 12 + mq * 10 * 4, {"fp32": 22 * mq * k})
+
+
+def p7_ab(label: str, points, nn, w, card: str, reps: int = 20) -> dict:
+    """P7 against its first version (csrc/gather_moments_v1.cu) on the same
+    inputs, both timed in turns (v1, new, new, v1) by the profiler's kernel
+    durations and by events; with this shape's bound. Returns
+    scripts/exp_pallas_gather.moments_ab's dict with "bound"."""
+    import torch
+
+    from depth_correction_tpu_torch.scripts import exp_pallas_gather as p7
+
+    ab = p7.moments_ab(points, nn, w, torch.device(DEVICE), reps)
+    n_pts = points.shape[0] if points.shape[1] == 3 else points.shape[1]
+    ab["bound"] = p7_bound(n_pts, nn.shape[0], nn.shape[1])
+    log("P7 vs its first version (%s: N %d, MQ %d, K %d): largest |new - v1| mean %.3e, comps "
+        "%.3e, w_sum %.3e; device %.4f ms, v1 %.4f (turns %s); events %.4f, v1 %.4f (turns %s); "
+        "bound %.4f ms (%s) (%s)"
+        % (label, n_pts, nn.shape[0], nn.shape[1], ab["diff_v1"]["mean"],
+           ab["diff_v1"]["comps"], ab["diff_v1"]["w_sum"], ab["kernel_ms"], ab["v1_kernel_ms"],
+           ", ".join("%.4f" % v for v in ab["kernel_turns"]), ab["ms"], ab["v1_ms"],
+           ", ".join("%.4f" % v for v in ab["turns"]), ab["bound"][0], ab["bound"][1], card))
+    return ab
+
+
+def p7_shape(ab: dict) -> dict:
+    """A P7 A/B result as the kernels line carries it per shape."""
+    return {"ms": ab["ms"], "v1_ms": ab["v1_ms"], "kernel_ms": ab["kernel_ms"],
+            "v1_kernel_ms": ab["v1_kernel_ms"], "bound_ms": ab["bound"][0],
+            "bound_by": ab["bound"][1], "max_abs_err_v1": max(ab["diff_v1"].values())}
+
+
 def _f32_ulps(a, b) -> int:
     """Largest distance in float32 ulps between finite a and b."""
     import torch
@@ -1327,10 +1401,33 @@ def check_grid_node_neighbors(scan, ks, card: str) -> dict:
     return res
 
 
+def check_p7_global(g, idx, card: str) -> dict:
+    """P7 at the largest call a main path makes: prep's global features on
+    the slice's global cloud ``g`` with X2's top-k table ``idx`` (weight 1
+    on every neighbour), held to the node's bars against the float64 plain
+    version on the valid rows, and against its first version in turns."""
+    from depth_correction_tpu_torch.ops import features
+
+    points = g.get_points().contiguous()
+    w = (idx >= 0).float()
+    got = features.gather_moments(points, idx, w)
+    ref = features.gather_moments_plain(points.double(), idx, w.double())
+    rows = g.valid
+    err = (float((got[0].double() - ref[0])[:, rows].abs().max()),
+           float((got[1].double() - ref[1])[:, rows].abs().max()))
+    log("P7 vs plain float64 (global cloud, %d x %d, %d valid rows): mean max abs %.3e m, "
+        "comps max abs %.3e m^2" % (idx.shape[0], idx.shape[1], int(rows.sum()), err[0], err[1]))
+    if not (err[0] <= MEAN_ABS_BAR and err[1] <= COMPS_ABS_BAR):
+        raise RuntimeError("P7 misses its bars vs float64 on the global cloud: %s" % (err,))
+    return dict(p7_ab("global cloud, X2's top-%d" % idx.shape[1], points, idx, w, card),
+                err=max(err))
+
+
 def phase_grid(card: str, data, cfg, scan):
     """X2 on the slice's global cloud and first scan, against its plain
-    twin and scipy's float64 sets; X2 at the grid node's shapes; the
-    node's grid engine on the bench node scan."""
+    twin and scipy's float64 sets; P7 on the global cloud's X2 table; X2
+    at the grid node's shapes; the node's grid engine on the bench node
+    scan."""
     from depth_correction_tpu_torch.preproc import global_cloud
     from depth_correction_tpu_torch.scripts.exp_grid_prep_diff import scipy_pairs_differ
 
@@ -1339,6 +1436,7 @@ def phase_grid(card: str, data, cfg, scan):
     g = global_cloud(batch)
     res = {"global": check_grid_query("global cloud", g.get_points().contiguous(), g.valid, r,
                                       card)}
+    res["p7_global"] = check_p7_global(g, res["global"]["idx"], card)
     scan0 = batch.cloud.map(lambda x: x[0])
     pts, valid = scan0.to_points().contiguous(), scan0.valid
     res["scan"] = check_grid_query("scan 0", pts, valid, r, card)
@@ -1367,11 +1465,12 @@ def phase_grid(card: str, data, cfg, scan):
 
 def phase_probes_p6_p8(card: str):
     """The P6, P8 and P7 scripts on the card; each script's launches are
-    counted alone. Returns their kernels-line entries."""
+    counted alone; P7a and P7 (at the probe's shapes) against their first
+    versions in turns. Returns their kernels-line entries and P7's A/B at
+    the probe's shapes."""
     import torch
 
     from depth_correction_tpu_torch.ops.gather_probe import gather_probe, gather_probe_plain
-    from depth_correction_tpu_torch.ops.gather_sum import gather_sum
     from depth_correction_tpu_torch.ops.layout_probe import layout_probe_plain
     from depth_correction_tpu_torch.ops import _kernels
     from depth_correction_tpu_torch.scripts import exp_mosaic_probe as p6
@@ -1477,6 +1576,20 @@ def phase_probes_p6_p8(card: str):
     if not lib7["rel"] <= 1e-6:
         failures.append("embedding_bag misses 1e-6 against P7a's plain version: %.3e"
                         % lib7["rel"])
+    # Both stages against their first versions, in turns.
+    ab7a = p7.probe_ab(dev, d7)
+    log("  P7a vs its first version (csrc/gather_sum_v1.cu): bit-equal %s; device %.4f ms, v1 "
+        "%.4f (turns %s); events %.4f, v1 %.4f (turns %s) (%s)"
+        % (ab7a["equal"], ab7a["kernel_ms"], ab7a["v1_kernel_ms"],
+           ", ".join("%.4f" % v for v in ab7a["kernel_turns"]), ab7a["ms"], ab7a["v1_ms"],
+           ", ".join("%.4f" % v for v in ab7a["turns"]), card))
+    log("  P7a device %.4f ms against embedding_bag's %.4f ms: %s (%s)"
+        % (ab7a["kernel_ms"], lib7["kernel_ms"],
+           "at or below it" if ab7a["kernel_ms"] <= lib7["kernel_ms"] else
+           "SLOWER, %.2fx" % (ab7a["kernel_ms"] / lib7["kernel_ms"]), card))
+    if not ab7a["equal"]:
+        failures.append("P7a differs from its first version")
+    ab7 = p7_ab("probe's stage 2", *d7["moments"], card)
     m7, t7, k7 = p7.PROBE_M, p7.PROBE_T, p7.PROBE_K
     entries.append({
         "name": "gather_sum (P7a)", "route": "cuda",
@@ -1486,12 +1599,13 @@ def phase_probes_p6_p8(card: str):
         # Bound: the table, the indices and the (3, T) output moved once;
         # one add per gathered value.
         "bound": bound(3 * m7 * 4 + t7 * k7 * 4 + 3 * t7 * 4, {"fp32": 3 * t7 * k7}),
-        "kernel_ms": kernel_ms(lambda: gather_sum(*d7["probe"]), dev, 20),
+        "kernel_ms": ab7a["kernel_ms"], "v1_ms": ab7a["v1_ms"],
+        "v1_kernel_ms": ab7a["v1_kernel_ms"],
         "library_ms": lib7["ms"], "library_device_ms": lib7["kernel_ms"],
         "variants": {"stage2_moments": mo["ms"]}})
     if failures:
         raise RuntimeError("probe bars missed: " + "; ".join(failures))
-    return entries
+    return entries, ab7
 
 
 def phase_capped(card: str):
@@ -1509,7 +1623,7 @@ def phase_capped(card: str):
     from depth_correction_tpu_torch.train import make_loss_fn, prepare_sequences, train
 
     cfg = config(DEVICE, STEPS, uncapped=False)
-    _kernels.reset_launch_counts()
+    reset_all_launch_counts()
     t0 = time.perf_counter()
     data = prepare_sequences([create_dataset(cfg.train_names[0], cfg)], cfg)
     prep_s = time.perf_counter() - t0
@@ -1526,6 +1640,7 @@ def phase_capped(card: str):
     if launches["grid"] <= 0 or launches["gather"] <= 0 or int(kept.max()) > 32:
         raise RuntimeError("the capped prep did not run as the bench's: %s" % launches)
     model, history = train(cfg, train_data=data)
+    check_no_first_versions("the capped row's prep and train()")
     losses = [h[1] for h in history]
     if not all(math.isfinite(v) for v in losses):
         raise RuntimeError("non-finite capped loss: %s" % losses)
@@ -1751,10 +1866,11 @@ def phase_default(card: str):
         cfg.float_type = "float32"
         cfg.shadow_angle_bounds = [0.1745, 2.967]  # 10 to 170 degrees
         ds = create_dataset(cfg.train_names[0], cfg)
-        _kernels.reset_launch_counts()
+        reset_all_launch_counts()
         t0 = time.perf_counter()
         data = prepare_sequences([ds], cfg)
         prep_s = time.perf_counter() - t0
+        check_no_first_versions("the default config's prep")
         launches = {"knn": _kernels.KNN_LAUNCHES, "grid": _kernels.GRID_LAUNCHES,
                     "gather": _kernels.GATHER_LAUNCHES}
         rows = int(data.masks[0].sum())
@@ -1771,7 +1887,9 @@ def phase_default(card: str):
         glob = check_global_knn(data, cfg, card)
         if rows <= 0:
             raise RuntimeError("the default masks kept no row")
+        reset_all_launch_counts()
         model, history = train(cfg, train_data=data)
+        check_no_first_versions("the default config's train()")
         losses = [h[1] for h in history]
         if not all(math.isfinite(v) for v in losses):
             raise RuntimeError("non-finite default-config loss: %s" % losses)
@@ -1833,7 +1951,8 @@ def main() -> int:
     log("grid node: node_ms %.3f, node_e2e_ms %.3f, node_points %d; total %.1f s (%s)"
         % (gnode["ms"], gnode["e2e_ms"], gnode["points"], time.perf_counter() - t0, card))
     log("[phase 8] probes P6, P8, P7a and P7 (depth_correction_tpu_torch/scripts)")
-    probes += phase_probes_p6_p8(card)
+    probes_p8, p7_probe = phase_probes_p6_p8(card)
+    probes += probes_p8
     log("[phase 9] capped row (bench_config(uncapped=False), %d Adam steps)" % STEPS)
     capped = phase_capped(card)
     log("[phase 10] default Config() on ASL-laser files, shadow filter on")
@@ -1870,12 +1989,22 @@ def main() -> int:
          "bound": node["x1_bound"], "bound_all_pairs_ms": node["x1_bound_all_pairs"][0],
          "pairs_kept": node["x1_kept"][0], "box_tests": node["x1_kept"][2],
          "kept_share": node["x1_kept"][0] / node["x1_kept"][1], "library_ms": None},
+        # Top-level times at the probe's shapes (a), from phase 8's turns;
+        # each shape's own in "shapes".
         {"name": "gather_moments (P7)", "route": "cuda",
          "source": "depth_correction_tpu_torch/csrc/gather_moments.cu",
          "replaces": "scripts/exp_pallas_gather.py:83",
          "launches": small["launches"]["gather"], "max_abs_err": small["p7_err"],
-         "ms": small["p7_ms"], "plain_ms": small["p7_plain_ms"], "bound": small["p7_bound"],
-         "library_ms": None, "launches_default": default["launches"]["gather"],
+         "ms": p7_probe["ms"], "v1_ms": p7_probe["v1_ms"], "kernel_ms": p7_probe["kernel_ms"],
+         "v1_kernel_ms": p7_probe["v1_kernel_ms"], "plain_ms": small["p7_plain_ms"],
+         "bound": small["p7_bound"], "library_ms": None,
+         "max_abs_err_v1": max(p7_shape(ab)["max_abs_err_v1"]
+                               for ab in (p7_probe, small["p7_node"], grid["p7_global"])),
+         "shapes": {"probe": p7_shape(p7_probe), "small_scan": p7_shape(small["p7_node"]),
+                    "global_cloud": p7_shape(grid["p7_global"])},
+         # P7's launches in prep: the slice's and the default config's.
+         "launches_prep_slice": res["launches"]["gather_prep"],
+         "launches_default": default["launches"]["gather"],
          "vp_dispersion_err": default["vp"]["err"]},
         {"name": "grid_query (X2)", "route": "cuda",
          "source": "depth_correction_tpu_torch/csrc/grid_query.cu",

@@ -1,6 +1,8 @@
 // Fused gather + weighted neighbourhood moments (P7) for Hopper (sm_90a),
 // with a plain C interface loaded through ctypes by
-// depth_correction_tpu_torch/ops/_kernels.py.
+// depth_correction_tpu_torch/ops/_kernels.py. Redesigned; the first version
+// (a warp a row, a separate pass for the shift, a 5-step butterfly) stays
+// in csrc/gather_moments_v1.cu for the A/B.
 //
 // Replaces the Pallas kernel scripts/exp_pallas_gather.py: moments_kernel,
 // which computes what depth_correction_tpu/ops/features.py:_moments_impl
@@ -10,30 +12,67 @@
 // version is gather_moments_plain in depth_correction_tpu_torch/ops/features.py.
 //
 // What bounds it on this card: the gather. Per row it reads K indices and
-// K weights (8 bytes each, contiguous) and K points at random addresses
-// (12 bytes each, one 32-byte sector apiece), for ~30 float ops per
-// neighbour: far below the card's operations-per-byte balance, so it is
-// bound by memory transactions. The design therefore gives each row one
-// warp, whose lanes take neighbours j, j + 32, ...: the index and weight
-// reads of a row are coalesced, and the 32 point gathers of a warp are in
-// flight together. Lanes reduce their ten sums by warp shuffles, and lane
-// 0 writes the row. No shared memory, no atomics, deterministic.
+// K weights (8 bytes each, contiguous) and K points at random addresses,
+// for ~30 float ops per neighbour: far below the card's operations-per-byte
+// balance, so it is bound by memory transactions and their latency. The
+// points mostly sit in L2 (a 390,144-point cloud is 4.7 MB), so what
+// counts is the number of L2 sectors a neighbour costs and how many
+// dependent round trips a row waits for. The design:
+// - A group of G lanes takes a row: G = 4 at K <= 32 (a warp holds eight
+//   rows), 8 at K <= 64, 16 above (with a warp a row, K 88 took 26% longer
+//   and K 168 3-22%). Lane g takes the row's neighbours g, g + G, ...,
+//   C = 8 of them a pass (a pass covers 8 G neighbours; K 168 takes two),
+//   so each index and weight load of the group reads G consecutive words.
+//   A lane issues all C index and weight loads, then all C gathers, and
+//   only then sums; the group's ten sums meet in a log2(G)-step butterfly.
+// - The shift (the row's first contributing neighbour, about which the
+//   sums are taken: f32 sums of squares of raw coordinates would cancel)
+//   is found in the pass the lanes load anyway: each lane's first
+//   contributor, the group's smallest by a min-butterfly, its coordinates
+//   shuffled from the lane that gathered them. No separate pass, no second
+//   read of the indices: a row is indices, gathers, store.
+// - Where the wrapper asks for it (a launch of at least
+//   ops/_kernels.GATHER_PACK_MIN_PAIRS index slots), the points are first
+//   packed into (N, 4) float4 rows, so a neighbour is one 16-byte load
+//   from one 32-byte sector; otherwise they are read with their own
+//   strides: (N, 3) rows (the node, prep) touch one sector or two, a
+//   (3, N) table three.
+// Sums differ from the first version's in order only (a lane sums its C
+// neighbours, then the butterfly), and the two layouts give the same bits.
 //
-// Numerics: sums are taken about the row's first neighbour with a nonzero
-// weight (neighbourhoods are small against their distance from the origin,
-// and f32 sums of squares of raw coordinates would cancel). Index -1 and
-// indices outside [0, N) contribute nothing; so does a zero weight.
-// w_sum = max(sum w, 1e-12), the normaliser max(sum w - 1, 1e-6), as in
-// features.py. The kernel allocates nothing; the wrapper allocates outputs.
+// Numerics: index -1 and indices outside [0, N) contribute nothing; so
+// does a zero weight. w_sum = max(sum w, 1e-12), the normaliser
+// max(sum w - 1, 1e-6), as in features.py; a row with no contributor has
+// shift 0, so its mean is 0. The kernel allocates nothing; the wrapper
+// allocates outputs and the packed table.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kThreads = 256;
+constexpr int kNone = 1 << 30;  // no contributor in the pass
 
-__global__ void gather_moments_kernel(
-    const float* __restrict__ pts,   // point i, component c at pts[i * sp + c * sc]
+template <bool kPacked>
+__device__ __forceinline__ void load_point(const float* __restrict__ pts, long long sp,
+                                           long long sc, int i, float& x, float& y, float& z) {
+  if (kPacked) {
+    const float4 v = __ldg(reinterpret_cast<const float4*>(pts) + i);
+    x = v.x;
+    y = v.y;
+    z = v.z;
+  } else {
+    const float* p = pts + i * sp;
+    x = __ldg(p);
+    y = __ldg(p + sc);
+    z = __ldg(p + 2 * sc);
+  }
+}
+
+template <int G, int C, bool kPacked>
+__global__ void __launch_bounds__(kThreads) gather_moments_kernel(
+    const float* __restrict__ pts,   // point i, component c at pts[i * sp + c * sc]; packed: (N, 4)
     long long sp, long long sc, int n_pts,
     const int* __restrict__ idx,     // (mq, k) neighbour indices, -1 padded
     const float* __restrict__ w,     // (mq, k) weights
@@ -41,62 +80,92 @@ __global__ void gather_moments_kernel(
     float* __restrict__ mean,        // (3, mq)
     float* __restrict__ comps,       // (6, mq)
     float* __restrict__ wsum) {      // (mq,)
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= mq) return;  // uniform across the warp
+  const int g = threadIdx.x & (G - 1);
+  const int row = blockIdx.x * (kThreads / G) + threadIdx.x / G;
+  // A lane of a row past mq loads nothing but still takes part in the
+  // group's and the warp's shuffles.
+  const bool live = row < mq;
   const int* ri = idx + static_cast<size_t>(row) * k;
   const float* rw = w + static_cast<size_t>(row) * k;
 
-  // The shift: the row's first neighbour that contributes.
   float sx = 0.f, sy = 0.f, sz = 0.f;
-  for (int base = 0; base < k; base += 32) {
-    const int j = base + lane;
-    int id = -1;
-    bool ok = false;
-    if (j < k) {
-      id = ri[j];
-      ok = id >= 0 && id < n_pts && rw[j] != 0.f;
-    }
-    const unsigned found = __ballot_sync(kFull, ok);
-    if (found) {  // uniform across the warp
-      const long long sid = __shfl_sync(kFull, id, __ffs(found) - 1);
-      sx = pts[sid * sp];
-      sy = pts[sid * sp + sc];
-      sz = pts[sid * sp + 2 * sc];
-      break;
-    }
-  }
-
+  bool found = false;  // uniform across the row's group
   float a[10];
 #pragma unroll
   for (int c = 0; c < 10; ++c) a[c] = 0.f;
-  for (int j = lane; j < k; j += 32) {
-    const int id = ri[j];
-    const float wt = rw[j];
-    if (id >= 0 && id < n_pts && wt != 0.f) {
-      const long long i = id;
-      const float x = pts[i * sp] - sx;
-      const float y = pts[i * sp + sc] - sy;
-      const float z = pts[i * sp + 2 * sc] - sz;
-      const float wx = wt * x, wy = wt * y, wz = wt * z;
-      a[0] += wt;
-      a[1] += wx;
-      a[2] += wy;
-      a[3] += wz;
-      a[4] += wx * x;
-      a[5] += wy * y;
-      a[6] += wz * z;
-      a[7] += wx * y;
-      a[8] += wx * z;
-      a[9] += wy * z;
+  for (int base = 0; base < k; base += G * C) {  // uniform across the warp
+    int id[C];
+    float wt[C];
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      const int j = base + q * G + g;
+      id[q] = -1;
+      wt[q] = 0.f;
+      if (live && j < k) {
+        id[q] = __ldg(ri + j);
+        wt[q] = __ldg(rw + j);
+      }
+    }
+    bool ok[C];
+    float x[C], y[C], z[C];
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      ok[q] = id[q] >= 0 && id[q] < n_pts && wt[q] != 0.f;
+      x[q] = y[q] = z[q] = 0.f;
+      if (ok[q]) load_point<kPacked>(pts, sp, sc, id[q], x[q], y[q], z[q]);
+    }
+    // The shift, in the first pass that has a contributor: the group's
+    // smallest neighbour position q * G + g among the lanes' first
+    // contributors.
+    if (__any_sync(kFull, !found)) {
+      int key = kNone;
+      float fx = 0.f, fy = 0.f, fz = 0.f;
+#pragma unroll
+      for (int q = C - 1; q >= 0; --q) {
+        if (ok[q]) {
+          key = q * G + g;
+          fx = x[q];
+          fy = y[q];
+          fz = z[q];
+        }
+      }
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) key = min(key, __shfl_xor_sync(kFull, key, off));
+      const int src = key & (G - 1);
+      fx = __shfl_sync(kFull, fx, src, G);
+      fy = __shfl_sync(kFull, fy, src, G);
+      fz = __shfl_sync(kFull, fz, src, G);
+      if (!found && key != kNone) {
+        sx = fx;
+        sy = fy;
+        sz = fz;
+        found = true;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < C; ++q) {
+      if (ok[q]) {
+        const float dx = x[q] - sx, dy = y[q] - sy, dz = z[q] - sz;
+        const float wx = wt[q] * dx, wy = wt[q] * dy, wz = wt[q] * dz;
+        a[0] += wt[q];
+        a[1] += wx;
+        a[2] += wy;
+        a[3] += wz;
+        a[4] += wx * dx;
+        a[5] += wy * dy;
+        a[6] += wz * dz;
+        a[7] += wx * dy;
+        a[8] += wx * dz;
+        a[9] += wy * dz;
+      }
     }
   }
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
+  for (int off = G / 2; off > 0; off >>= 1) {
 #pragma unroll
     for (int c = 0; c < 10; ++c) a[c] += __shfl_xor_sync(kFull, a[c], off);
   }
-  if (lane == 0) {
+  if (live && g == 0) {
     const float s0c = fmaxf(a[0], 1e-12f);
     const float m0 = a[1] / s0c;
     const float m1 = a[2] / s0c;
@@ -115,25 +184,63 @@ __global__ void gather_moments_kernel(
   }
 }
 
-constexpr int kRowsPerBlock = 8;  // 8 warps, 256 threads
+// (N, 4) float4 rows (x, y, z, 0) from points with strides (sp, sc).
+__global__ void pack_points_kernel(const float* __restrict__ pts, long long sp, long long sc,
+                                   int n_pts, float4* __restrict__ packed) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_pts) {
+    const float* p = pts + i * sp;
+    packed[i] = make_float4(p[0], p[sc], p[2 * sc], 0.f);
+  }
+}
+
+template <int G, int C>
+void launch(const float* pts, long long sp, long long sc, int n_pts, bool packed,
+            const int* idx, const float* w, int mq, int k, float* mean, float* comps,
+            float* wsum, cudaStream_t stream) {
+  constexpr int kRowsPerBlock = kThreads / G;
+  const int blocks = (mq + kRowsPerBlock - 1) / kRowsPerBlock;
+  if (packed)
+    gather_moments_kernel<G, C, true><<<blocks, kThreads, 0, stream>>>(
+        pts, 4, 1, n_pts, idx, w, mq, k, mean, comps, wsum);
+  else
+    gather_moments_kernel<G, C, false><<<blocks, kThreads, 0, stream>>>(
+        pts, sp, sc, n_pts, idx, w, mq, k, mean, comps, wsum);
+}
 
 }  // namespace
 
 extern "C" {
 
-// Launches on the caller's stream, does not synchronise, and returns
-// cudaGetLastError() (0 = the launch was accepted).
+// packed: null, or an (n_pts, 4) float32 scratch table (16-byte aligned)
+// that is filled first and then read in place of pts. Launches on the
+// caller's stream, does not synchronise, and returns cudaGetLastError()
+// (0 = the launches were accepted).
 int dc_gather_moments(const void* pts, long long sp, long long sc, int n_pts,
                       const void* idx, const void* w, int mq, int k,
-                      void* mean, void* comps, void* wsum, void* stream) {
+                      void* mean, void* comps, void* wsum, void* packed, void* stream) {
   if (mq > 0) {
-    const int blocks = (mq + kRowsPerBlock - 1) / kRowsPerBlock;
-    gather_moments_kernel<<<blocks, 32 * kRowsPerBlock, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(pts), sp, sc, n_pts,
-        static_cast<const int*>(idx), static_cast<const float*>(w), mq, k,
-        static_cast<float*>(mean), static_cast<float*>(comps),
-        static_cast<float*>(wsum));
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const float* src = static_cast<const float*>(pts);
+    const bool pk = packed != nullptr && n_pts > 0;
+    if (pk) {
+      pack_points_kernel<<<(n_pts + 255) / 256, 256, 0, s>>>(src, sp, sc, n_pts,
+                                                             static_cast<float4*>(packed));
+      src = static_cast<const float*>(packed);
+    }
+    const int* ix = static_cast<const int*>(idx);
+    const float* wt = static_cast<const float*>(w);
+    float* m = static_cast<float*>(mean);
+    float* c = static_cast<float*>(comps);
+    float* ws = static_cast<float*>(wsum);
+    // Lanes a row by K: the fastest grouping on an H100 at K 32, 48, 88
+    // and 168 (scripts/exp_gather_variants.py).
+    if (k <= 32)
+      launch<4, 8>(src, sp, sc, n_pts, pk, ix, wt, mq, k, m, c, ws, s);
+    else if (k <= 64)
+      launch<8, 8>(src, sp, sc, n_pts, pk, ix, wt, mq, k, m, c, ws, s);
+    else
+      launch<16, 8>(src, sp, sc, n_pts, pk, ix, wt, mq, k, m, c, ws, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,8 +12,8 @@ The launchers validate device, dtype, shape and contiguity before passing
 pointers, launch on the current stream, and raise when the C entry returns
 a CUDA error. Launch counts of K1/K2 (and of their first versions, kept
 for an A/B on the card) are kept by their callers in ``ops/cellwin.py``;
-X1, X2, X3, P2, P6 (and their first versions), P7 and the probes P1, P3-P5,
-P7a, P8 count here (:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`,
+X1, X2, X3, P2, P6, P7, P7a (and their first versions) and the probes P1,
+P3-P5, P8 count here (:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`,
 :data:`KNN_LAUNCHES`, :data:`GATHER_LAUNCHES`, :data:`KNOCKOUT_LAUNCHES`,
 :data:`DOT_LAUNCHES`, :data:`WINDOW_LAUNCHES`, :data:`LAYOUT_LAUNCHES`,
 :data:`GATHER_SUM_LAUNCHES`, :data:`GATHER_PROBE_LAUNCHES`, and the first
@@ -36,8 +36,11 @@ __all__ = [
     "DOT_LAUNCHES",
     "DOT_V1_LAUNCHES",
     "GATHER_LAUNCHES",
+    "GATHER_PACK_MIN_PAIRS",
     "GATHER_PROBE_LAUNCHES",
     "GATHER_SUM_LAUNCHES",
+    "GATHER_SUM_V1_LAUNCHES",
+    "GATHER_V1_LAUNCHES",
     "GRID_LAUNCHES",
     "GRID_V1_LAUNCHES",
     "KNN_LAUNCHES",
@@ -57,8 +60,10 @@ __all__ = [
     "launch_cellwin_fwd_v1",
     "launch_cellwin_knockout",
     "launch_gather_moments",
+    "launch_gather_moments_v1",
     "launch_gather_probe",
     "launch_gather_sum",
+    "launch_gather_sum_v1",
     "launch_grid_query",
     "launch_grid_query_v1",
     "launch_knn_brute",
@@ -81,7 +86,7 @@ SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
                              "moment_dot_v1.cu", "moment_window.cu", "grid_query.cu",
                              "grid_query_v1.cu", "layout_probe.cu", "layout_probe_v1.cu",
                              "gather_probe.cu", "knn_brute.cu", "knn_brute_v1.cu",
-                             "gather_sum.cu"))
+                             "gather_sum.cu", "gather_sum_v1.cu", "gather_moments_v1.cu"))
 # Headers the sources include; they key the build like the sources.
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin_fwd.cuh", "tf32_mma.cuh"))
@@ -105,13 +110,15 @@ NVCC_FLAGS = (
 SLAB_LAUNCHES = 0
 GRID_LAUNCHES = 0
 KNN_LAUNCHES = 0
-# The first versions of X1, X2, X3, P2 and P6, for the A/B only (no path
-# launches them).
+# The first versions of X1, X2, X3, P2, P6, P7 and P7a, for the A/B only
+# (no path launches them).
 SLAB_V1_LAUNCHES = 0
 GRID_V1_LAUNCHES = 0
 KNN_V1_LAUNCHES = 0
 DOT_V1_LAUNCHES = 0
 LAYOUT_V1_LAUNCHES = 0
+GATHER_V1_LAUNCHES = 0
+GATHER_SUM_V1_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 KNOCKOUT_LAUNCHES = 0
 DOT_LAUNCHES = 0
@@ -196,9 +203,11 @@ def load():
             grid.argtypes = ([_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _F, _I, _L, _P, _P]
                              + [_P] * (2 if suffix == "" else 1))
             grid.restype = _I
-        lib.dc_gather_moments.argtypes = [_P, _L, _L, _I, _P, _P, _I, _I, _P, _P,
-                                          _P, _P]
+        # The redesign takes the packed table's scratch before the stream.
+        lib.dc_gather_moments.argtypes = [_P, _L, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P]
         lib.dc_gather_moments.restype = _I
+        lib.dc_gather_moments_v1.argtypes = [_P, _L, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P]
+        lib.dc_gather_moments_v1.restype = _I
         lib.dc_cellwin_knockout.argtypes = [_I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I,
                                             _I, _F, _P, _P]
         lib.dc_cellwin_knockout.restype = _I
@@ -214,8 +223,10 @@ def load():
         lib.dc_moment_window.restype = _I
         lib.dc_gather_probe.argtypes = [_I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
         lib.dc_gather_probe.restype = _I
-        lib.dc_gather_sum.argtypes = [_P, _I, _P, _I, _I, _P, _P]
-        lib.dc_gather_sum.restype = _I
+        for suffix in ("", "_v1"):
+            gsum = getattr(lib, "dc_gather_sum" + suffix)
+            gsum.argtypes = [_P, _I, _P, _I, _I, _P, _P]
+            gsum.restype = _I
         lib.dc_knn_brute.argtypes = [_P, _P, _I, _P, _P, _I, _F, _F, _I, _I, _I, _P, _P, _P,
                                      _P]
         lib.dc_knn_brute.restype = _I
@@ -423,15 +434,17 @@ def launch_slab_window_v1(pts_T, valid, lo, width, ctr, r2: float) -> torch.Tens
     return out
 
 
-def launch_gather_moments(points, neighbors, weights):
-    """P7 on CUDA tensors -> (mean (3, Mq), comps (6, Mq), w_sum (Mq,)).
+# P7 packs the points into (N, 4) rows first when a launch has at least
+# this many index slots (Mq * K): one 32-byte sector a neighbour instead of
+# up to three, for one more launch, which a host-bound node scan would pay
+# without a gain.
+GATHER_PACK_MIN_PAIRS = 1 << 22
 
-    :param points: (N, 3) or (3, N) float32 (a (3, 3) table is read as
-        (N, 3)); any strides.
-    :param neighbors: (Mq, K) int32, -1 padded.
-    :param weights: (Mq, K) float32.
-    """
-    global GATHER_LAUNCHES
+
+def _launch_gather_moments(name: str, points, neighbors, weights, packed=None):
+    """One launch of ``dc_<name>`` (P7 or its first version). ``packed``,
+    the redesign's only: whether it packs the points into an (N, 4) scratch
+    table first (None: the first version's entry takes no scratch)."""
     device = points.device
     if device.type != "cuda":
         raise ValueError("the gather-moments kernel takes CUDA tensors, got %s" % device)
@@ -452,15 +465,41 @@ def launch_gather_moments(points, neighbors, weights):
     mean = torch.empty((3, mq), dtype=torch.float32, device=device)
     comps = torch.empty((6, mq), dtype=torch.float32, device=device)
     wsum = torch.empty((mq,), dtype=torch.float32, device=device)
+    extra = () if packed is None else (
+        _ptr(torch.empty((n_pts, 4), dtype=torch.float32, device=device) if packed else None),)
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dc_gather_moments(points.data_ptr(), sp, sc, n_pts, neighbors.data_ptr(),
-                                    weights.data_ptr(), mq, k, mean.data_ptr(),
-                                    comps.data_ptr(), wsum.data_ptr(), stream)
-    _check_launch(lib, err, "gather_moments")
-    GATHER_LAUNCHES += 1
+        err = getattr(lib, "dc_" + name)(points.data_ptr(), sp, sc, n_pts, neighbors.data_ptr(),
+                                         weights.data_ptr(), mq, k, mean.data_ptr(),
+                                         comps.data_ptr(), wsum.data_ptr(), *extra, stream)
+    _check_launch(lib, err, name)
     return mean, comps, wsum
+
+
+def launch_gather_moments(points, neighbors, weights):
+    """P7 on CUDA tensors -> (mean (3, Mq), comps (6, Mq), w_sum (Mq,)).
+
+    :param points: (N, 3) or (3, N) float32 (a (3, 3) table is read as
+        (N, 3)); any strides. Packed into (N, 4) rows first when Mq * K is
+        at least :data:`GATHER_PACK_MIN_PAIRS`.
+    :param neighbors: (Mq, K) int32, -1 padded.
+    :param weights: (Mq, K) float32.
+    """
+    global GATHER_LAUNCHES
+    packed = neighbors.numel() >= GATHER_PACK_MIN_PAIRS
+    out = _launch_gather_moments("gather_moments", points, neighbors, weights, packed)
+    GATHER_LAUNCHES += 1
+    return out
+
+
+def launch_gather_moments_v1(points, neighbors, weights):
+    """P7's first version (``csrc/gather_moments_v1.cu``), the arguments and
+    results of :func:`launch_gather_moments`; for the A/B only."""
+    global GATHER_V1_LAUNCHES
+    out = _launch_gather_moments("gather_moments_v1", points, neighbors, weights)
+    GATHER_V1_LAUNCHES += 1
+    return out
 
 
 def _launch_dot(name: str, prec_id: int, a, b, n_tiles: int) -> torch.Tensor:
@@ -883,12 +922,8 @@ def launch_knn_brute_v1(q_pts, q_valid, pts, p_valid, r2: float, k: int):
     return out
 
 
-def launch_gather_sum(pts_T, idx) -> torch.Tensor:
-    """P7a on CUDA tensors: pts_T (3, M) float32, idx (T, K) int32 in
-    [0, M) -> (3, T) float32, out[c, t] = sum over k = 0..K-1, in that order,
-    of pts_T[c, idx[t, k]], each block with the table in shared memory. The
-    indices are not checked: one outside [0, M) is undefined input."""
-    global GATHER_SUM_LAUNCHES
+def _launch_gather_sum(name: str, pts_T, idx) -> torch.Tensor:
+    """One launch of ``dc_<name>`` (P7a or its first version)."""
     device = pts_T.device
     if device.type != "cuda":
         raise ValueError("the gather-sum probe kernel takes CUDA tensors, got %s" % device)
@@ -900,22 +935,41 @@ def launch_gather_sum(pts_T, idx) -> torch.Tensor:
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dc_gather_sum(pts_T.data_ptr(), m, idx.data_ptr(), t, k, out.data_ptr(),
-                                stream)
-    # A table past the opt-in shared-memory limit fails here with CUDA's
-    # invalid-argument error.
-    _check_launch(lib, err, "gather_sum (M %d)" % m)
+        err = getattr(lib, "dc_" + name)(pts_T.data_ptr(), m, idx.data_ptr(), t, k,
+                                         out.data_ptr(), stream)
+    _check_launch(lib, err, "%s (M %d)" % (name, m))
+    return out
+
+
+def launch_gather_sum(pts_T, idx) -> torch.Tensor:
+    """P7a on CUDA tensors: pts_T (3, M) float32, idx (T, K) int32 in
+    [0, M) -> (3, T) float32, out[c, t] = sum over k = 0..K-1, in that order,
+    of pts_T[c, idx[t, k]], gathered from the table where it lies (L2), any
+    M. The indices are not checked: one outside [0, M) is undefined input."""
+    global GATHER_SUM_LAUNCHES
+    out = _launch_gather_sum("gather_sum", pts_T, idx)
     GATHER_SUM_LAUNCHES += 1
     return out
 
 
+def launch_gather_sum_v1(pts_T, idx) -> torch.Tensor:
+    """P7a's first version (``csrc/gather_sum_v1.cu``: each block stages the
+    table in shared memory, so a table past the card's opt-in limit fails
+    with CUDA's invalid-argument error), the arguments and result of
+    :func:`launch_gather_sum`; for the A/B only."""
+    global GATHER_SUM_V1_LAUNCHES
+    out = _launch_gather_sum("gather_sum_v1", pts_T, idx)
+    GATHER_SUM_V1_LAUNCHES += 1
+    return out
+
+
 def reset_launch_counts() -> None:
-    """Zero the launch counts kept here (X1, X2, X3, P2, P6 and their first
-    versions, P7, P1, P3-P5, P7a, P8)."""
+    """Zero the launch counts kept here (X1, X2, X3, P2, P6, P7, P7a and
+    their first versions, P1, P3-P5, P8)."""
     global SLAB_LAUNCHES, GRID_LAUNCHES, KNN_LAUNCHES, GATHER_LAUNCHES, KNOCKOUT_LAUNCHES
     global DOT_LAUNCHES, WINDOW_LAUNCHES, LAYOUT_LAUNCHES, GATHER_SUM_LAUNCHES
     global GATHER_PROBE_LAUNCHES, KNN_V1_LAUNCHES, SLAB_V1_LAUNCHES, GRID_V1_LAUNCHES
-    global DOT_V1_LAUNCHES, LAYOUT_V1_LAUNCHES
+    global DOT_V1_LAUNCHES, LAYOUT_V1_LAUNCHES, GATHER_V1_LAUNCHES, GATHER_SUM_V1_LAUNCHES
     SLAB_LAUNCHES = 0
     GRID_LAUNCHES = 0
     KNN_LAUNCHES = 0
@@ -924,6 +978,8 @@ def reset_launch_counts() -> None:
     KNN_V1_LAUNCHES = 0
     DOT_V1_LAUNCHES = 0
     LAYOUT_V1_LAUNCHES = 0
+    GATHER_V1_LAUNCHES = 0
+    GATHER_SUM_V1_LAUNCHES = 0
     GATHER_SUM_LAUNCHES = 0
     GATHER_LAUNCHES = 0
     KNOCKOUT_LAUNCHES = 0

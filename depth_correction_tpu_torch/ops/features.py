@@ -17,6 +17,8 @@ Moments that need no gradient (the online corrector, prep features, the
 viewpoint and direction dispersions of the trainability masks) go through
 :func:`gather_moments`: kernel P7 (``csrc/gather_moments.cu``) on CUDA
 tensors, :func:`gather_moments_plain` on CPU tensors.
+:func:`gather_moments_v1` launches P7's first version
+(``csrc/gather_moments_v1.cu``), for the A/B on the card only.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ __all__ = [
     "dir_dispersion",
     "gather_moments",
     "gather_moments_plain",
+    "gather_moments_v1",
     "gather_neighbors",
     "mean_depth",
     "mean_vp_dist",
@@ -148,6 +151,13 @@ def gather_moments(points, neighbors, weights):
                                     neighbors, weights)
     return _kernels.launch_gather_moments(points, neighbors.to(torch.int32).contiguous(),
                                           weights.to(points.dtype).contiguous())
+
+
+def gather_moments_v1(points, neighbors, weights):
+    """P7's first version on CUDA tensors, the arguments and results of
+    :func:`gather_moments`; it has no plain route, so a CPU tensor raises."""
+    return _kernels.launch_gather_moments_v1(points, neighbors.to(torch.int32).contiguous(),
+                                             weights.to(points.dtype).contiguous())
 
 
 def neighborhood_moments(points, neighbors, weights):

@@ -8,8 +8,8 @@ its shapes and its default_rng(0) draws in its order:
 
   1  probe    (3, M = 16,384) float32 gathered by (T = 512, K = 32) int32
               indices, each row's K columns summed -> (3, T): kernel P7a
-              (ops/gather_sum.py, csrc/gather_sum.cu, the table in each
-              block's shared memory), bit-equal to its plain version.
+              (ops/gather_sum.py, csrc/gather_sum.cu, the table read from
+              L2), bit-equal to its plain version.
   2  moments  (3, M = 390,144) points, (MQ = 223,744, K = 32) indices and
               0/1 weights (rng.random > 0.1) -> mean (3, MQ) and the six
               covariance components: kernel P7 (ops/features.gather_moments,
@@ -18,8 +18,11 @@ its shapes and its default_rng(0) draws in its order:
 
 For each: ms per call (CUDA events) and the errors. :func:`probe_library`
 times one PyTorch call computing stage 1 (embedding_bag), a yardstick.
+:func:`probe_ab` and :func:`moments_ab` hold each kernel against its first
+version (csrc/gather_sum_v1.cu, csrc/gather_moments_v1.cu) and time both
+in turns (``--ab``).
 
-    python -m depth_correction_tpu_torch.scripts.exp_pallas_gather
+    python -m depth_correction_tpu_torch.scripts.exp_pallas_gather [--ab]
 """
 from __future__ import annotations
 
@@ -28,9 +31,9 @@ import sys
 import numpy as np
 import torch
 
-from ..ops.features import gather_moments, gather_moments_plain
-from ..ops.gather_sum import gather_sum, gather_sum_plain
-from . import device_ms, kernel_ms, require_card
+from ..ops.features import gather_moments, gather_moments_plain, gather_moments_v1
+from ..ops.gather_sum import gather_sum, gather_sum_plain, gather_sum_v1
+from . import device_ms, in_turns, kernel_ms, require_card
 
 STEPS = 20
 PROBE_M, PROBE_K, PROBE_T = 16384, 32, 512
@@ -113,7 +116,48 @@ def probe_library(device, data: dict = None, reps: int = STEPS) -> dict:
             "rel": _rel(call().T, want)}
 
 
+def _turns(old, new, device, reps: int) -> dict:
+    """Both calls timed in turns (old, new, new, old) by the profiler's
+    kernel durations and by CUDA events."""
+    v1_k, k, kturns = in_turns(old, new, device, reps, timer=kernel_ms)
+    v1_ms, ms, turns = in_turns(old, new, device, reps)
+    return {"kernel_ms": k, "v1_kernel_ms": v1_k, "kernel_turns": kturns, "ms": ms,
+            "v1_ms": v1_ms, "turns": turns}
+
+
+def probe_ab(device, data: dict = None, reps: int = STEPS) -> dict:
+    """P7a against its first version on stage 1's inputs: whether the two
+    are equal bit for bit, and both timed in turns.
+
+    :return: {"equal", "kernel_ms", "v1_kernel_ms", "kernel_turns", "ms",
+        "v1_ms", "turns"}.
+    """
+    pts, idx = (data or inputs(device))["probe"]
+    new, old = gather_sum(pts, idx), gather_sum_v1(pts, idx)
+    equal = bool(torch.equal(new.view(torch.int32), old.view(torch.int32)))
+    return dict(_turns(lambda: gather_sum_v1(pts, idx), lambda: gather_sum(pts, idx), device,
+                       reps), equal=equal)
+
+
+def moments_ab(points, neighbors, weights, device, reps: int = STEPS) -> dict:
+    """P7 against its first version on the same inputs (any shape the
+    wrapper takes): the largest |new - v1| of each output, and both timed
+    in turns.
+
+    :return: {"diff_v1": {"mean", "comps", "w_sum"}, "kernel_ms",
+        "v1_kernel_ms", "kernel_turns", "ms", "v1_ms", "turns"}.
+    """
+    new = gather_moments(points, neighbors, weights)
+    old = gather_moments_v1(points, neighbors, weights)
+    diff = {name: float((a - b).abs().max()) if a.numel() else 0.0
+            for name, a, b in zip(("mean", "comps", "w_sum"), new, old)}
+    return dict(_turns(lambda: gather_moments_v1(points, neighbors, weights),
+                       lambda: gather_moments(points, neighbors, weights), device, reps),
+                diff_v1=diff)
+
+
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     device = require_card()
     res = run(device)
     p, m = res["probe"], res["moments"]
@@ -123,6 +167,15 @@ def main(argv=None) -> int:
                             p["ms"], p["plain_ms"]))
     print("stage 2 moments (P7): rel err vs plain float32 %.3e, float64 %.3e  %8.4f ms/call "
           "(plain %.4f)" % (m["err32"], m["err64"], m["ms"], m["plain_ms"]))
+    if "--ab" in argv:
+        data = inputs(device)
+        for name, e in (("P7a", probe_ab(device, data)),
+                        ("P7", moments_ab(*data["moments"], device))):
+            ok = ok and e.get("equal", True)
+            print("%-4s vs its first version: %s; device %8.4f ms, v1 %8.4f ms; events %8.4f / "
+                  "%8.4f" % (name, "bit-equal %s" % e["equal"] if "equal" in e else
+                             "largest |new - v1| %s" % e["diff_v1"], e["kernel_ms"],
+                             e["v1_kernel_ms"], e["ms"], e["v1_ms"]))
     print(torch.cuda.get_device_name(device))
     return 0 if ok else 1
 

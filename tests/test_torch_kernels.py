@@ -1189,8 +1189,10 @@ def test_cuda_gather_probes_match_plain(cuda_device):
 
 def test_knn_and_gather_sum_wrappers_never_take_the_plain_path(monkeypatch):
     """Non-CPU tensors go to the X3 / P7a launchers, never to the plain
-    twins (``plain=True`` asks for the twin explicitly); the launchers
-    refuse CPU tensors and count nothing then."""
+    twins (``plain=True`` asks for the twin explicitly); P7's and P7a's
+    first versions go to their own launchers, never to the plain twins; the
+    launchers refuse CPU tensors and count nothing then."""
+    from depth_correction_tpu_torch.ops import gather_sum as tgsum
     from depth_correction_tpu_torch.ops import knn as tknn
     from depth_correction_tpu_torch.ops.gather_sum import gather_sum
 
@@ -1200,8 +1202,23 @@ def test_knn_and_gather_sum_wrappers_never_take_the_plain_path(monkeypatch):
         calls.append(args)
         raise RuntimeError("launched")
 
-    for name in ("launch_knn_brute", "launch_gather_sum"):
+    def refuse(*args, **kw):
+        raise AssertionError("took the plain twin")
+
+    for name in ("launch_knn_brute", "launch_gather_sum", "launch_gather_sum_v1",
+                 "launch_gather_moments_v1"):
         monkeypatch.setattr(_kernels, name, fake_launch)
+    monkeypatch.setattr(tgsum, "gather_sum_plain", refuse)
+    monkeypatch.setattr(tfeat, "gather_moments_plain", refuse)
+    with pytest.raises(RuntimeError, match="launched"):
+        tgsum.gather_sum_v1(torch.zeros((3, 64), device="meta"),
+                            torch.zeros((4, 8), dtype=torch.int32, device="meta"))
+    with pytest.raises(RuntimeError, match="launched"):
+        tfeat.gather_moments_v1(torch.zeros((64, 3), device="meta"),
+                                torch.zeros((4, 8), dtype=torch.int32, device="meta"),
+                                torch.zeros((4, 8), device="meta"))
+    assert len(calls) == 2
+    calls.clear()
     pts = torch.zeros((64, 3), device="meta")
     valid = torch.zeros(64, dtype=torch.bool, device="meta")
     with pytest.raises(RuntimeError, match="launched"):
@@ -1215,13 +1232,95 @@ def test_knn_and_gather_sum_wrappers_never_take_the_plain_path(monkeypatch):
                    torch.zeros((4, 8), dtype=torch.int32, device="meta"))
     assert len(calls) == 4
     monkeypatch.undo()
-    before = (_kernels.KNN_LAUNCHES, _kernels.GATHER_SUM_LAUNCHES)
+    before = (_kernels.KNN_LAUNCHES, _kernels.GATHER_SUM_LAUNCHES,
+              _kernels.GATHER_SUM_V1_LAUNCHES, _kernels.GATHER_V1_LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors"):
         _kernels.launch_knn_brute(torch.zeros((4, 3)), None, torch.zeros((8, 3)),
                                   torch.ones(8, dtype=torch.bool), 0.01, 4)
+    idx = torch.zeros((2, 4), dtype=torch.int32)
+    for launch in (_kernels.launch_gather_sum, _kernels.launch_gather_sum_v1,
+                   tgsum.gather_sum_v1):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            launch(torch.zeros((3, 8)), idx)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_gather_sum(torch.zeros((3, 8)), torch.zeros((2, 4), dtype=torch.int32))
-    assert (_kernels.KNN_LAUNCHES, _kernels.GATHER_SUM_LAUNCHES) == before
+        tfeat.gather_moments_v1(torch.zeros((8, 3)), idx, torch.ones((2, 4)))
+    assert (_kernels.KNN_LAUNCHES, _kernels.GATHER_SUM_LAUNCHES,
+            _kernels.GATHER_SUM_V1_LAUNCHES, _kernels.GATHER_V1_LAUNCHES) == before
+
+
+# The first versions kept for the A/B, and the C entries each defines.
+V1_ENTRIES = {
+    "cellwin_v1.cu": ("dc_cellwin_fwd_v1", "dc_cellwin_bwd_v1"),
+    "slabwin_v1.cu": ("dc_slab_window_v1",),
+    "grid_query_v1.cu": ("dc_grid_query_v1",),
+    "knn_brute_v1.cu": ("dc_knn_brute_v1", "dc_knn_brute_v1_max_k"),
+    "moment_dot_v1.cu": ("dc_moment_dot_v1",),
+    "layout_probe_v1.cu": ("dc_layout_probe_v1",),
+    "gather_sum_v1.cu": ("dc_gather_sum_v1",),
+    "gather_moments_v1.cu": ("dc_gather_moments_v1",),
+}
+
+
+@pytest.mark.parametrize("name", sorted(V1_ENTRIES))
+def test_sources_build_each_first_version_beside_its_redesign(name):
+    """Every first version is compiled into the library beside its redesign
+    (``_kernels.SOURCES``), defines the renamed C entries that ``load``
+    binds, and leaves the redesign's entries to the redesign's source."""
+    import os
+
+    names = [os.path.basename(p) for p in _kernels.SOURCES]
+    assert name in names and name.replace("_v1.cu", ".cu") in names
+    src = open(os.path.join(os.path.dirname(_kernels.SOURCES[0]), name)).read()
+    for entry in V1_ENTRIES[name]:
+        assert "int %s(" % entry in src
+        assert "int %s(" % entry.replace("_v1", "") not in src
+
+
+def test_gather_variants_apply_to_the_sources():
+    """scripts/exp_gather_variants.py builds its variants by replacing
+    lines of the committed P7 sources: every replacement still finds its
+    line (``_sources`` raises otherwise), and each grouping replaces the
+    whole dispatch by one launch of its (G, C)."""
+    from depth_correction_tpu_torch.scripts import exp_gather_variants as gv
+
+    src = gv._sources()
+    for g, c in {gc for gcs in gv.GROUPINGS.values() for gc in gcs}:
+        code, entry = src["g%dc%d" % (g, c)]
+        assert entry == "dc_gather_moments"
+        assert "launch<%d, %d>(" % (g, c) in code and "if (k <= 32)" not in code
+    for name, (fname, _) in gv.KNOCKOUTS.items():
+        assert src[name][1] == "dc_" + fname[:-3]
+
+
+def test_reset_zeroes_the_gather_first_versions_counts(monkeypatch):
+    """reset_launch_counts zeroes P7's and P7a's first-version counts with
+    the rest."""
+    monkeypatch.setattr(_kernels, "GATHER_V1_LAUNCHES", 3)
+    monkeypatch.setattr(_kernels, "GATHER_SUM_V1_LAUNCHES", 2)
+    _kernels.reset_launch_counts()
+    assert (_kernels.GATHER_V1_LAUNCHES, _kernels.GATHER_SUM_V1_LAUNCHES) == (0, 0)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+@pytest.mark.parametrize("kernel", ["gather_sum", "gather_moments"])
+def test_gather_first_versions_take_cuda_tensors_only(device, kernel):
+    """P7's and P7a's first versions have no plain route: their launchers
+    and wrappers refuse CPU and meta tensors, and nothing is counted."""
+    from depth_correction_tpu_torch.ops.gather_sum import gather_sum_v1
+
+    before = (_kernels.GATHER_SUM_V1_LAUNCHES, _kernels.GATHER_V1_LAUNCHES)
+    idx = torch.zeros((4, 8), dtype=torch.int32, device=device)
+    if kernel == "gather_sum":
+        pts = torch.zeros((3, 64), device=device)
+        for fn in (_kernels.launch_gather_sum_v1, gather_sum_v1):
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                fn(pts, idx)
+    else:
+        pts, w = torch.zeros((64, 3), device=device), torch.ones((4, 8), device=device)
+        for fn in (_kernels.launch_gather_moments_v1, tfeat.gather_moments_v1):
+            with pytest.raises(ValueError, match="CUDA tensors"):
+                fn(pts, idx, w)
+    assert (_kernels.GATHER_SUM_V1_LAUNCHES, _kernels.GATHER_V1_LAUNCHES) == before
 
 
 def test_knn_first_version_takes_cuda_tensors_only():
@@ -1438,6 +1537,118 @@ def test_cuda_gather_sum_matches_plain(cuda_device):
     assert bit_equal(got, gather_sum_plain(pts, idx))
     with pytest.raises(TypeError, match="dtype"):
         gather_sum(pts.double(), idx)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 5, 32, 33, 100])
+def test_cuda_gather_sum_matches_plain_and_first_version(cuda_device, k):
+    """P7a's redesign bit-equal to its plain twin and to its first version
+    at K below, at and past one warp's 32 indices (K 33 and 100 take two
+    and four rounds of 32, the last one partial), with T not a multiple of
+    either block (1000 rows); one launch of each, counted by its own
+    counter."""
+    from depth_correction_tpu_torch.ops.gather_sum import gather_sum, gather_sum_plain, gather_sum_v1
+
+    rng = np.random.default_rng(k)
+    m, t = 16384, 1000
+    pts = torch.as_tensor(rng.normal(size=(3, m)), dtype=torch.float32, device=cuda_device)
+    idx = torch.as_tensor(rng.integers(0, m, (t, k)), dtype=torch.int32, device=cuda_device)
+    before = (_kernels.GATHER_SUM_LAUNCHES, _kernels.GATHER_SUM_V1_LAUNCHES)
+    got, old = gather_sum(pts, idx), gather_sum_v1(pts, idx)
+    torch.cuda.synchronize()
+    assert (_kernels.GATHER_SUM_LAUNCHES, _kernels.GATHER_SUM_V1_LAUNCHES) == (before[0] + 1,
+                                                                              before[1] + 1)
+    assert bit_equal(got, gather_sum_plain(pts, idx))
+    assert bit_equal(got, old)
+
+
+@pytest.mark.cuda
+def test_cuda_gather_sum_takes_a_table_past_shared_memory(cuda_device):
+    """A (3, 100,000) table (1.2 MB) is past any block's shared memory: the
+    first version refuses it and counts nothing; the redesign, which stages
+    nothing, takes it and equals the plain twin bit for bit."""
+    from depth_correction_tpu_torch.ops.gather_sum import gather_sum, gather_sum_plain, gather_sum_v1
+
+    rng = np.random.default_rng(11)
+    m = 100_000
+    pts = torch.as_tensor(rng.normal(size=(3, m)), dtype=torch.float32, device=cuda_device)
+    idx = torch.as_tensor(rng.integers(0, m, (777, 32)), dtype=torch.int32, device=cuda_device)
+    before = _kernels.GATHER_SUM_V1_LAUNCHES
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        gather_sum_v1(pts, idx)
+    assert _kernels.GATHER_SUM_V1_LAUNCHES == before
+    got = gather_sum(pts, idx)
+    torch.cuda.synchronize()
+    assert bit_equal(got, gather_sum_plain(pts, idx))
+
+
+def _p7_cases(k, n=20000, mq=3000, seed=0):
+    """Seeded P7 inputs at K = k: points 20 m from the origin (the shift
+    matters), -1 padding, indices past N and below -1, zero weights on valid
+    indices, rows 0-19 with no contributor, rows 20-39 whose first
+    contributor sits at slot min(40, K - 1) (past slot 31 for K > 32), with
+    one more at slot K - 1 where that is later, and rows 40-59 whose only
+    contributor is the last slot (past the first pass of 128 at K 168)."""
+    rng = np.random.default_rng(seed + k)
+    pts = rng.normal(size=(n, 3)) + 20.0
+    idx = rng.integers(0, n, (mq, k))
+    idx[rng.uniform(size=idx.shape) < 0.2] = -1
+    idx[rng.uniform(size=idx.shape) < 0.03] = n + 5
+    idx[rng.uniform(size=idx.shape) < 0.03] = -7
+    w = rng.uniform(0.5, 1.5, (mq, k)) * (rng.uniform(size=(mq, k)) > 0.1)
+    w[idx == -1] = 0.0
+    w[:10] = 0.0  # no contributor: zero weights
+    idx[10:20] = -1  # no contributor: padding only
+    first = min(40, k - 1)
+    w[20:60] = 0.0
+    for rows, slots in ((slice(20, 40), {first, k - 1}), (slice(40, 60), {k - 1})):
+        for j in slots:
+            w[rows, j] = 1.0
+            idx[rows, j] = rng.integers(0, n, 20)
+    return pts, idx, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pack", [False, True])
+@pytest.mark.parametrize("k", [1, 8, 32, 33, 88, 168])
+def test_cuda_gather_moments_matches_first_version(cuda_device, monkeypatch, k, pack):
+    """P7's redesign at every lane grouping (K 1-32, 33-64, 65-128, > 128),
+    its points read in place or packed into (N, 4) rows first: both layouts
+    bit-equal; within 1e-5 of max |output| of its first version and of the
+    float64 plain twin; rows with no contributor as the first version has
+    them (mean 0, comps 0, w_sum 1e-12); one launch each, counted by its
+    own counter."""
+    monkeypatch.setattr(_kernels, "GATHER_PACK_MIN_PAIRS", 0 if pack else 1 << 62)
+    pts, idx, w = _p7_cases(k)
+    pts = torch.as_tensor(pts, dtype=torch.float32, device=cuda_device)
+    idx = torch.as_tensor(idx, dtype=torch.int32, device=cuda_device)
+    w = torch.as_tensor(w, dtype=torch.float32, device=cuda_device)
+    before = (_kernels.GATHER_LAUNCHES, _kernels.GATHER_V1_LAUNCHES)
+    got = tfeat.gather_moments(pts, idx, w)
+    got_3n = tfeat.gather_moments(pts.T.contiguous(), idx, w)  # (3, N)
+    old = tfeat.gather_moments_v1(pts, idx, w)
+    torch.cuda.synchronize()
+    assert (_kernels.GATHER_LAUNCHES, _kernels.GATHER_V1_LAUNCHES) == (before[0] + 2,
+                                                                      before[1] + 1)
+    for a, b in zip(got, got_3n):
+        assert bit_equal(a, b)
+    ref = tfeat.gather_moments_plain(pts.double(), idx, w.double())
+    for g, o, r in zip(got, old, ref):
+        scale = float(r.abs().max())
+        assert float((g.double() - r).abs().max()) <= 1e-5 * scale
+        assert float((g - o).abs().max()) <= 1e-5 * scale
+    none = slice(0, 20)
+    assert not bool(got[0][:, none].any()) and not bool(got[1][:, none].any())
+    assert bool((got[2][none] == 1e-12).all())
+    for g, o in zip(got, old):
+        assert bit_equal(g[..., none], o[..., none])
+    # Rows with one or two contributors sum the same bits in any order, so
+    # they equal the first version's bit for bit only with the same shift:
+    # the first contributor, past slot 31 for K > 32, in the second pass
+    # at K 168.
+    late = slice(20, 60)
+    for g, o in zip(got, old):
+        assert bit_equal(g[..., late], o[..., late])
 
 
 def bit_equal(a, b) -> bool:

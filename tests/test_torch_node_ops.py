@@ -156,7 +156,9 @@ def test_slab_window_moments_plain_matches_jax():
     assert straddles > 0  # the straddling layout took the whole-slab range
 
 
-@pytest.mark.parametrize("k", [8, 32])
+# K 88 and 168 (the shadow filter's k_dir, prep's global top-168) take
+# the kernel's warp-a-row grouping on the card.
+@pytest.mark.parametrize("k", [8, 32, 88, 168])
 def test_gather_moments_plain_matches_jax(k):
     rng = np.random.default_rng(k)
     pts = rng.normal(size=(3000, 3))
