@@ -19,7 +19,9 @@ Phases (any failure raises and the exit code is non-zero):
    prep seconds per part are printed beside the 26 s that scipy's cKDTree
    establishment took on an H100, and local_features beside the 1.274 s it
    took with the eager brute count; X3 sizes each scan's K),
-   trained for 8 Adam steps through train(); X2, K1 and K2 must have
+   trained for 8 Adam steps through train() (its log_dir in a temporary
+   directory; losses and step times read from the step_ms and train_loss
+   columns of its train_history.csv); X2, K1 and K2 must have
    launched, the loss at w=0 must match the float64 plain path within 1e-5
    relative, and K1/K2 are checked as in phase 2 and timed at the slice's
    shapes, each in turns with its first version (v1, new, new, v1); the
@@ -63,7 +65,10 @@ Phases (any failure raises and the exit code is non-zero):
    operands and K1's structural pieces), at the TPU scripts' seeds and
    shapes. Every variant must be within 1e-5 (relative, per output row) of
    its float32 plain version; fp32 and tf32x3 within 1e-5 of the float64
-   oracle; a table of ms per variant is printed.
+   oracle; every P3-P5 variant against its first version
+   (csrc/moment_window_v1.cu) bit-equal or within 1e-5 per row, both timed
+   in turns by events and by the profiler's kernel durations; a table of
+   ms per variant is printed.
 7. grid    — X2 (the grid radius search) against its plain twin on the
    card, on phase 3's global cloud and on its first scan: index tables
    equal, distances within one float32 ulp, counts equal; against its
@@ -99,7 +104,8 @@ Every main path (phases 3-5, 7, 9, 10) runs with all launch counts zeroed
 before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
 9. capped  — the bench's capped row (bench.py:bench_config(uncapped=False):
    K = 32 with mutual trimming, the gather moments by torch autograd) on
-   the slice's scene, 8 Adam steps through train(): capped32_ms, and the
+   the slice's scene, 8 Adam steps through train() (step times from its
+   step_ms column): capped32_ms, and the
    loss at w=0 within 1e-5 relative of the float64 plain path.
 10. default — a default Config() (only log_dir, train_names, n_opt_iters,
    float_type, the data directory and shadow_angle_bounds set) on an open
@@ -127,7 +133,7 @@ first versions' bound `bound_all_pairs_ms`, which charges every span pair
 test; for X1 the same, by scripts/slab_cull.py, and its first version's
 time `v1_ms`; for X2 its first version's time at each input; for X3 the
 same two bounds and its first version's time on each of its three inputs;
-for P2 and P6 their first versions' times `v1_ms`, both versions' kernel
+for P2, P3-P5 and P6 their first versions' times `v1_ms`, both versions' kernel
 durations `kernel_ms` / `v1_kernel_ms` and per-variant times of both; for
 P7a and P7 the same three times, and for P7 per shape (the probe's, the
 small scan's node table, the global cloud's top-k table) with its bound
@@ -447,6 +453,35 @@ def bench_config():
     return config(DEVICE, STEPS)
 
 
+def train_logged(cfg, callbacks=None, train_data=None):
+    """train() with ``cfg.log_dir`` in a temporary directory.
+
+    :return: (the best model train() saved, the history rows of its
+        train_history.csv as {column: value}; step times from its step_ms
+        column).
+    """
+    import shutil
+    import tempfile
+
+    from depth_correction_tpu_torch.models import load_model
+    from depth_correction_tpu_torch.train import train
+
+    root = tempfile.mkdtemp(prefix="dc_train_")
+    try:
+        cfg.log_dir = os.path.join(root, "log")
+        best = train(cfg, callbacks=callbacks, train_data=train_data)
+        if best is None:
+            raise RuntimeError("train() saved no best model")
+        with open(os.path.join(cfg.log_dir, "train_history.csv")) as f:
+            header = f.readline().split()
+            rows = [dict(zip(header, map(float, line.split()))) for line in f]
+        if header != ["iter", "train_loss", "val_loss", "step_ms"] or len(rows) != cfg.n_opt_iters:
+            raise RuntimeError("train_history.csv has %s and %d rows" % (header, len(rows)))
+        return load_model(cfg=best), rows
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def phase_slice(card: str):
     import math
 
@@ -458,7 +493,7 @@ def phase_slice(card: str):
     from depth_correction_tpu_torch.ops import cellwin as cw
     from depth_correction_tpu_torch.scripts.exp_cellwin_knockout import points_at_w0
     from depth_correction_tpu_torch.train import (
-        TrainCallbacks, make_loss_fn, make_optimizer, prepare_sequences, train,
+        TrainCallbacks, make_loss_fn, make_optimizer, prepare_sequences,
     )
 
     cfg = bench_config()
@@ -494,7 +529,7 @@ def phase_slice(card: str):
     if graph is None:
         raise RuntimeError("the cellwin build declined: the slice would not run the kernels")
     rec = Record(cfg)
-    model, history = train(cfg, callbacks=rec, train_data=data)
+    _, history = train_logged(cfg, callbacks=rec, train_data=data)
     check_no_first_versions("the slice's prep and train()")
     launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES, "grid": grid_launches,
                 "knn": knn_launches, "gather_prep": gather_launches}
@@ -502,11 +537,10 @@ def phase_slice(card: str):
                                                    launches["grid"]))
     if launches["fwd"] <= 0 or launches["bwd"] <= 0:
         raise RuntimeError("a kernel of the path was not launched: %s" % launches)
-    losses = [h[1] for h in history]
+    losses = [h["train_loss"] for h in history]
     if not all(math.isfinite(v) for v in losses):
         raise RuntimeError("non-finite loss: %s" % losses)
-    step_ms = statistics.median(h[2] for h in history[1:])
-    w_final = float(model.w.detach()[0])
+    step_ms = statistics.median(h["step_ms"] for h in history[1:])
     log("slice: %d points, %d rows -> %d row tiles x %d, %d point tiles, %d exception rows"
         % (data.batches[0].cloud.depth.numel(), int((graph.row_map >= 0).sum()),
            graph.f_start.shape[0], graph.q_est.shape[1] // graph.f_start.shape[0],
@@ -547,7 +581,7 @@ def phase_slice(card: str):
         k = compare_kernels(ps, graph, seed=2, label="slice", card=card)
     return {
         "launches": launches, "kernels": k, "step_ms": step_ms, "prep_s": prep_s,
-        "loss_rel": loss_rel, "w_rel": w_rel, "w_final": w_final, "profile": profile,
+        "loss_rel": loss_rel, "w_rel": w_rel, "profile": profile,
         "profile_v1": profile_v1, "graph": graph, "ps": ps, "data": data, "cfg": cfg,
     }
 
@@ -1164,17 +1198,37 @@ def phase_probes(card: str, graph, ps, kept: tuple):
             if exact:
                 bar(e[key] <= PROBE_REL_BAR, "%s %s misses %.0e vs float64: %.3e"
                     % (label, v, PROBE_REL_BAR, e[key]))
+        # The redesign against its first version (csrc/moment_window_v1.cu),
+        # every variant, in turns (v1, new, new, v1) by CUDA events and by
+        # the profiler's kernel durations.
+        ab = mod.first_version_ab(dev)
+        for v, x in ab.items():
+            log("  %s %-18s redesign %9.4f ms (kernel %9.4f), first version %9.4f ms (kernel "
+                "%9.4f); bit-equal to v1 %s, max |new - v1| %.3e, per row %.3e; kernel turns %s"
+                % (label, v, x["ms"], x["kernel_ms"], x["v1_ms"], x["v1_kernel_ms"], x["equal"],
+                   x["max_abs"], x["rel_rows"], ", ".join("%.4f" % t for t in x["kernel_turns"])))
+            bar(x["equal"] or x["rel_rows"] <= PROBE_REL_BAR,
+                "%s %s misses %.0e per row vs its first version: %.3e"
+                % (label, v, PROBE_REL_BAR, x["rel_rows"]))
         hw, hq, hkw = head_args()
         prec = "tf32x3"
-        e = res["variants"][head]
+        e, h = res["variants"][head], ab[head]
+        log("  %s device time (profiler): %s %.4f ms (first version %.4f) (%s)"
+            % (label, head, h["kernel_ms"], h["v1_kernel_ms"], card))
         entries.append({
             "name": "moment_window (%s)" % label, "route": "cuda",
             "source": "depth_correction_tpu_torch/csrc/moment_window.cu",
-            "replaces": replaces, "launches": n, "max_abs_err": e["abs64"], "ms": e["ms"],
+            "replaces": replaces, "launches": n, "max_abs_err": e["abs64"], "ms": h["ms"],
+            "v1_ms": h["v1_ms"], "kernel_ms": h["kernel_ms"], "v1_kernel_ms": h["v1_kernel_ms"],
             "plain_ms": cuda_ms(lambda: moment_window_plain(hw, hq, p3.R2, prec=prec, **hkw),
                                 reps=2, warmup=1),
             "bound": _window_bound(hw, hq, hkw, passes=3), "library_ms": None,
-            "variants": {v: x["ms"] for v, x in res["variants"].items()}})
+            "variants": {v: x["ms"] for v, x in ab.items()},
+            "v1_variants": {v: x["v1_ms"] for v, x in ab.items()},
+            "kernel_variants": {v: x["kernel_ms"] for v, x in ab.items()},
+            "v1_kernel_variants": {v: x["v1_kernel_ms"] for v, x in ab.items()},
+            "v1_bit_equal": {v: x["equal"] for v, x in ab.items()},
+            "v1_max_abs": {v: x["max_abs"] for v, x in ab.items()}})
 
     log("probe table (ms per call, %s):" % card)
     log("  %-26s %10s %10s %10s  %s" % ("kernel", "ms", "plain ms", "bound ms", "variants"))
@@ -1620,7 +1674,7 @@ def phase_capped(card: str):
     from depth_correction_tpu_torch.models import ScaledPolynomial
     from depth_correction_tpu_torch.ops import _kernels
     from depth_correction_tpu_torch.scripts import bench_config as config
-    from depth_correction_tpu_torch.train import make_loss_fn, prepare_sequences, train
+    from depth_correction_tpu_torch.train import make_loss_fn, prepare_sequences
 
     cfg = config(DEVICE, STEPS, uncapped=False)
     reset_all_launch_counts()
@@ -1639,19 +1693,20 @@ def phase_capped(card: str):
            launches["grid"], launches["gather"]))
     if launches["grid"] <= 0 or launches["gather"] <= 0 or int(kept.max()) > 32:
         raise RuntimeError("the capped prep did not run as the bench's: %s" % launches)
-    model, history = train(cfg, train_data=data)
+    _, history = train_logged(cfg, train_data=data)
     check_no_first_versions("the capped row's prep and train()")
-    losses = [h[1] for h in history]
+    losses = [h["train_loss"] for h in history]
     if not all(math.isfinite(v) for v in losses):
         raise RuntimeError("non-finite capped loss: %s" % losses)
-    step_ms = statistics.median(h[2] for h in history[1:])
+    step_ms = statistics.median(h["step_ms"] for h in history[1:])
     data64 = data.to(dtype=torch.float64)
     ref = ScaledPolynomial(w=[0.0], exponent=[4.0], dtype=torch.float64, device=DEVICE)
     with torch.no_grad():
         ref_loss = float(make_loss_fn(cfg, plain=True)(ref, data64))
     loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
     log("capped32_ms %.3f (median of steps 1..%d: %s); loss at w=0 %.9e vs float64 plain "
-        "%.9e (rel %.3e) (%s)" % (step_ms, STEPS - 1, ", ".join("%.3f" % h[2] for h in history),
+        "%.9e (rel %.3e) (%s)" % (step_ms, STEPS - 1,
+                                  ", ".join("%.3f" % h["step_ms"] for h in history),
                                   losses[0], ref_loss, loss_rel, card))
     if not loss_rel <= LOSS_REL_BAR:
         raise RuntimeError("capped loss at w=0 misses the 1e-5 bar: %.3e" % loss_rel)
@@ -1849,7 +1904,7 @@ def phase_default(card: str):
     from depth_correction_tpu_torch.datasets import asl_laser, create_dataset
     from depth_correction_tpu_torch.models import load_model
     from depth_correction_tpu_torch.ops import _kernels
-    from depth_correction_tpu_torch.train import make_loss_fn, prepare_sequences, train
+    from depth_correction_tpu_torch.train import make_loss_fn, prepare_sequences
 
     root = tempfile.mkdtemp(prefix="dc_asl_")
     try:
@@ -1888,17 +1943,17 @@ def phase_default(card: str):
         if rows <= 0:
             raise RuntimeError("the default masks kept no row")
         reset_all_launch_counts()
-        model, history = train(cfg, train_data=data)
+        model, history = train_logged(cfg, train_data=data)
         check_no_first_versions("the default config's train()")
-        losses = [h[1] for h in history]
+        losses = [h["train_loss"] for h in history]
         if not all(math.isfinite(v) for v in losses):
             raise RuntimeError("non-finite default-config loss: %s" % losses)
         ref = load_model(cfg=cfg, dtype=torch.float64)
         with torch.no_grad():
             ref_loss = float(make_loss_fn(cfg, plain=True)(ref, data.to(dtype=torch.float64)))
         loss_rel = abs(losses[0] - ref_loss) / abs(ref_loss)
-        step_ms = statistics.median(h[2] for h in history[1:])
-        log("default config: %s after %d steps; loss at w=0 %.9e vs float64 plain %.9e (rel "
+        step_ms = statistics.median(h["step_ms"] for h in history[1:])
+        log("default config: best %s in %d steps; loss at w=0 %.9e vs float64 plain %.9e (rel "
             "%.3e); median step %.3f ms (%s)" % (model, STEPS, losses[0], ref_loss, loss_rel,
                                                  step_ms, card))
         if not loss_rel <= LOSS_REL_BAR:

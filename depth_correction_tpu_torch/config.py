@@ -312,8 +312,10 @@ class Config(Configurable):
 
         # Parallelism, layout, profiling and checkpointing knobs of the JAX
         # package, kept for config-file parity. The port's train() runs on
-        # one device and rejects mesh_shape, dist_coordinator and
-        # spatial_sort with NotImplementedError.
+        # one device and rejects mesh_shape and dist_coordinator with
+        # NotImplementedError; spatial_sort turns the cell-window engine off,
+        # as in the JAX package, and leaves the rows in their order (the
+        # Morton permutation is a TPU layout workaround).
         self.mesh_shape = None  # e.g. {'data': 8}; None = single device
         self.dist_coordinator = None
         self.dist_num_processes = None

@@ -10,7 +10,9 @@
 // features (16, S) = [1, x, y, z, xx, yy, zz, xy, xz, yz, 0 x 6] and the
 // membership wm (S, 128) = [d2(est_k, q_n) <= r2] inside the span's
 // columns, and accumulates feats @ wm over NS spans. Its plain torch
-// version is moment_window_plain in ops/moment_window.py.
+// version is moment_window_plain in ops/moment_window.py;
+// csrc/moment_window_v1.cu keeps the first version (one block of mma.sync
+// warps a tile, the whole span staged) for the A/B.
 //
 // Precision variants as in csrc/moment_dot.cu (fp32, tf32, tf32x2,
 // tf32x3; the TPU probes' highest, default, split2_bits, split3_bits).
@@ -30,34 +32,70 @@
 // probes run are instantiated (dc_moment_window lists them).
 //
 // What bounds it on this card: per tile and span, 128 x S membership tests
-// of ~8 float32 operations (in FMA-free form) and a 16 x S x 128 product
-// of 1-3 TF32 passes; the inputs are a few MB in L2. So the instructions
-// of the d2 arithmetic bound it, not the tensor cores. The design: one block of 4
-// warps per tile; each span's features and shifted establishment
-// coordinates are staged once in shared memory (out-of-span columns as
-// zero features and an infinite coordinate, so they are never members);
-// each warp owns 32 of the 128 query columns and builds its mma B fragments
-// (the {0, 1} membership) in registers from the staged coordinates, so wm
-// never exists in memory; the A fragments are the staged features, split
-// into TF32 components on the fly (tf32_mma.cuh). Accumulators restart
-// every 64 k as in moment_dot.cu. Every read of the big table is bounded by
-// the span's columns, clamped to the table's (a span column outside the
-// table is not a member), so the launcher checks no starts on the host.
+// of ~9 float32 instructions each (the no-FMA form below) and a
+// 10 x S x 128 product of 1-3 TF32 passes; the inputs are a few MB in L2.
+// The tests, on the float32 pipe, are the floor (P5 J_all: 593 M tests);
+// the product belongs on the tensor cores beside them.
+//
+// The design (TF32 variants): out^T = wm^T feats^T on wgmma (Hopper's
+// warpgroup product, wgmma_tf32.cuh), one block of two warpgroups a tile,
+// each warpgroup 64 of the tile's 128 queries (the M of the product), two
+// blocks an SM.
+// - A, the membership, is built by each thread in registers in wgmma's A
+//   fragment layout: for each k8 step a thread tests its 2 queries (rows g,
+//   g + 8 of its warp's 16, kept in registers) against 2 entries (t, t + 4),
+//   read as two 16-byte loads of staged (x, y, z, -) coordinates. wm never
+//   exists in memory.
+// - B, the features, is staged once per element: each span is cut into
+//   chunks of 64 columns (v1's chunks, at multiples of 64 of the span's
+//   column), and one pass over a chunk's raw columns writes the shifted
+//   coordinates and the TF32 components of the 10 non-zero features,
+//   stacked along N (hi, mid, lo: n16 each), into a two-stage ring in the
+//   128-byte swizzle. The raw columns of chunk c + 1 are loaded into
+//   registers before chunk c's tests and staged while its products run,
+//   with one barrier a chunk.
+// - The k-loop of a span runs from its first to its last 8-column step that
+//   holds a span column, not to S: other columns are never members. A
+//   chunk whose 8 steps all hold span columns (most) is tested and issued
+//   without a branch a step, so the compiler interleaves its 32 tests.
+// - The precision scheme is v1's, so the sums equal v1's bit for bit: per
+//   chunk the accumulators restart (scale-d = 0); each k8 step is one
+//   m64n32k8 over mid and hi (their own columns) and, for tf32x3, one
+//   m64n16k8 of lo into the mid columns (v1's mma.sync order: hi; mid,
+//   then lo, chained in one accumulator); the chunk is added into float32
+//   sums as acc += c_lo + c_hi. The tensor work is v1's (48 columns a
+//   step); the instructions per k8 step are 2, not 12 a warp.
+// - A warpgroup waits for its own products before the next chunk's tests;
+//   the other warpgroup and the other block on the SM fill that time. (A
+//   in shared memory, or two accumulator sets in flight, would overlap a
+//   warpgroup's own chain with its next tests; ptxas serialised every
+//   wgmma of both, and both were slower.)
+// The fp32 variant (P3 only) keeps v1's body: one thread a query column,
+// float32 FMAs in v1's order.
 //
 // Numerics: d2 = (dx dx + dy dy) + dz dz with no fused multiply-add
 // (__fmul_rn / __fadd_rn), so membership is the plain version's float32
-// membership exactly. The TPU probes revisit one output block; here block
-// t writes its own columns [128 t, 128 t + 128) of a (16, 128 T1) output.
+// membership exactly. Every read of the big table is bounded by the span's
+// columns, clamped to the table's (a span column outside the table is not
+// a member), so the launcher checks no starts on the host. The TPU probes
+// revisit one output block; here block t writes its own columns
+// [128 t, 128 t + 128) of a (16, 128 T1) output.
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 #include "tf32_mma.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
-constexpr int kCols = 128;
-constexpr int kFeats = 10;  // the non-zero feature rows
-constexpr int kChunk = 64;
+constexpr int kCols = 128;   // the queries of a tile
+constexpr int kFeats = 10;   // the non-zero feature rows
+constexpr int kChunk = 64;   // k per chunk (and per restarted accumulator)
+constexpr int kSteps = kChunk / 8;
+constexpr int kThreads = 256;
+constexpr int kStages = 2;
 
 enum WindowFlags {
   kLenTable = 1,
@@ -72,81 +110,62 @@ __device__ __forceinline__ float d2_rn(float dx, float dy, float dz) {
   return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
 }
 
-template <int PREC, int FLAGS>
-__global__ void moment_window_kernel(
-    const float* __restrict__ win,   // kStaged: (8, ncols); else (ns, 8, S)
-    int ncols,
-    const float* __restrict__ q,     // (8, q_cols): 128 columns, or 128 T1 with kPerTileQ
-    int q_cols,
-    const int* __restrict__ starts,  // (T1, ns), kStaged
-    const int* __restrict__ leads,   // (T1, ns), kLead
-    const int* __restrict__ lens,    // (T1, ns), kLenTable
-    int len_const,                   // every span's length without kLenTable
-    const float* __restrict__ ctr,   // (T1, 3), kShift
-    int ns, int s_len, float r2,
-    float* __restrict__ out) {       // (16, 128 T1)
+// The span's window columns [lo, hi) of tile t, span s (empty: lo = hi = 0),
+// and its first column's offset in the big table.
+template <int FLAGS>
+__device__ __forceinline__ void span_of(int t, int s, int ns, int s_len, int ncols,
+                                        const int* __restrict__ starts,
+                                        const int* __restrict__ leads,
+                                        const int* __restrict__ lens, int len_const, int& lo,
+                                        int& hi, int& off) {
+  const int ln = (FLAGS & kLenTable) != 0 ? lens[t * ns + s] : len_const;
+  lo = (FLAGS & kLead) != 0 ? leads[t * ns + s] : 0;
+  hi = min(lo + ln, s_len);
+  off = 0;
+  if constexpr ((FLAGS & kStaged) != 0) {
+    // Columns outside the table are outside the span, so every read stays
+    // in the table whatever the starts.
+    off = starts[t * ns + s];
+    lo = max(lo, -off);
+    hi = min(hi, ncols - off);
+  }
+  lo = max(lo, 0);
+  if (hi <= lo) lo = hi = 0;
+}
+
+// ---------------------------------------------------------------------------
+// fp32: v1's body (one thread a query column, float32 FMAs, k ascending).
+
+template <int FLAGS>
+__global__ void moment_window_fp32(
+    const float* __restrict__ win, int ncols, const float* __restrict__ q, int q_cols,
+    const int* __restrict__ starts, const int* __restrict__ leads, const int* __restrict__ lens,
+    int len_const, const float* __restrict__ ctr, int ns, int s_len, float r2,
+    float* __restrict__ out) {
   extern __shared__ float smem[];
-  const int sp = s_len + 4;  // feature row stride: conflict-free A fragments
-  float* s_f = smem;                  // (10, sp) features of the staged span
-  float* s_e = s_f + kFeats * sp;     // (3, S) shifted establishment coords
-  float* s_q = s_e + 3 * s_len;       // (3, 128) shifted query coords
-  float* s_o = s_q + 3 * kCols;       // (16, 128) the tile's sums
+  const int sp = s_len + 4;
+  float* s_f = smem;               // (10, sp) features of the staged span
+  float* s_e = s_f + kFeats * sp;  // (3, S) shifted establishment coords
   const int t = blockIdx.x;
   const int tid = threadIdx.x;
   const int out_cols = kCols * gridDim.x;
   const float inf = __int_as_float(0x7f800000);
-
   float cx = 0.f, cy = 0.f, cz = 0.f;
   if constexpr ((FLAGS & kShift) != 0) {
     cx = ctr[3 * t + 0];
     cy = ctr[3 * t + 1];
     cz = ctr[3 * t + 2];
   }
-  {
-    const int qc = ((FLAGS & kPerTileQ) != 0 ? t * kCols : 0) + tid;
-    s_q[tid] = q[qc] - cx;
-    s_q[kCols + tid] = q[q_cols + qc] - cy;
-    s_q[2 * kCols + tid] = q[2 * q_cols + qc] - cz;
-  }
-
-  // The sums: thread-per-column float32 (fp32) or mma accumulators.
-  float acc[4][4];
+  const int qc = ((FLAGS & kPerTileQ) != 0 ? t * kCols : 0) + tid;
+  const float qx = q[qc] - cx, qy = q[q_cols + qc] - cy, qz = q[2 * q_cols + qc] - cz;
   float facc[kFeats];
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-#pragma unroll
   for (int f = 0; f < kFeats; ++f) facc[f] = 0.f;
-  const int warp = tid >> 5;
-  const int g = (tid & 31) >> 2;
-  const int tq = tid & 3;
-  float qr[4][3];  // the query coordinates of this lane's B-fragment columns
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) qr[j][c] = s_q[c * kCols + warp * 32 + 8 * j + g];
-
   for (int s = 0; s < ns; ++s) {
-    const int ln = (FLAGS & kLenTable) != 0 ? lens[t * ns + s] : len_const;
-    int lo = (FLAGS & kLead) != 0 ? leads[t * ns + s] : 0;
-    int hi = min(lo + ln, s_len);
-    const float* src;
-    int off = 0;  // the window's first column in its source
-    int rs;       // row stride of the window's source
-    if constexpr ((FLAGS & kStaged) != 0) {
-      // Columns outside the table are outside the span, so every read
-      // stays in the table whatever the starts.
-      off = starts[t * ns + s];
-      lo = max(lo, -off);
-      hi = min(hi, ncols - off);
-      src = win;
-      rs = ncols;
-    } else {
-      src = win + static_cast<size_t>(s) * 8 * s_len;
-      rs = s_len;
-    }
+    int lo, hi, off;
+    span_of<FLAGS>(t, s, ns, s_len, ncols, starts, leads, lens, len_const, lo, hi, off);
+    const float* src = (FLAGS & kStaged) != 0 ? win : win + static_cast<size_t>(s) * 8 * s_len;
+    const int rs = (FLAGS & kStaged) != 0 ? ncols : s_len;
     __syncthreads();  // the previous span has been read by every thread
     for (int c = tid; c < s_len; c += kCols) {
       if (c >= lo && c < hi) {
@@ -176,70 +195,311 @@ __global__ void moment_window_kernel(
       }
     }
     __syncthreads();
+    for (int k = 0; k < s_len; ++k) {
+      const float w = d2_rn(s_e[k] - qx, s_e[s_len + k] - qy, s_e[2 * s_len + k] - qz) <= r2
+                          ? 1.f : 0.f;
+#pragma unroll
+      for (int f = 0; f < kFeats; ++f) facc[f] = fmaf(s_f[f * sp + k], w, facc[f]);
+    }
+  }
+#pragma unroll
+  for (int f = 0; f < 16; ++f) out[f * out_cols + t * kCols + tid] = f < kFeats ? facc[f] : 0.f;
+}
 
-    if constexpr (PREC == kFp32) {
-      const float qx = s_q[tid], qy = s_q[kCols + tid], qz = s_q[2 * kCols + tid];
-      for (int k = 0; k < s_len; ++k) {
-        const float w = d2_rn(s_e[k] - qx, s_e[s_len + k] - qy, s_e[2 * s_len + k] - qz) <= r2
-                            ? 1.f : 0.f;
-#pragma unroll
-        for (int f = 0; f < kFeats; ++f) facc[f] = fmaf(s_f[f * sp + k], w, facc[f]);
-      }
+// ---------------------------------------------------------------------------
+// TF32 variants on wgmma.
+
+// One stage of the ring: the B operand, the P TF32 components of the 10
+// features stacked along N, 16 rows each (rows 10-15 of each stay zero),
+// 16 P rows x 64 k in the 128-byte swizzle (comp_offset<2 P>), then the
+// chunk's 64 shifted establishment coordinates as float4 (x, y, z, 0).
+// With two or three passes the mid pass comes first (rows 0-15), then hi
+// (16-31) and lo (32-47): the lo pass then chains into the first half of
+// the n32 accumulator, d[0..7] (a chain into its second half makes ptxas
+// serialise every wgmma).
+template <int P>
+struct Stage {
+  static constexpr int kNB = 2 * P;  // 8-row atoms along N
+  static constexpr int kB = 16 * P * kChunk;
+  static constexpr int kFloats = kB + 4 * kChunk;
+  static_assert(kFloats * sizeof(float) % 1024 == 0, "stages keep the operand's atoms aligned");
+  // The first row of component p (0 hi, 1 mid, 2 lo).
+  __host__ __device__ static constexpr int row(int p) {
+    return P == 1 ? 0 : p == 0 ? 16 : p == 1 ? 0 : 32;
+  }
+};
+
+// The raw column a thread stages: thread tid takes column tid % 64 of the
+// chunk and the feature rows of part tid / 64 (part 0 also the coordinates).
+struct Raw {
+  float x[3], e[3];
+  bool in;
+};
+
+// Load chunk (s, kc)'s raw column of this thread into registers.
+template <int FLAGS>
+__device__ __forceinline__ Raw load_raw(const float* __restrict__ win, int ncols, int s_len,
+                                        int s, int kc, const int* s_lo, const int* s_hi,
+                                        const int* s_off, int tid) {
+  Raw r;
+  const int k = kc + (tid & (kChunk - 1));
+  r.in = k >= s_lo[s] && k < s_hi[s];
+  r.x[0] = r.x[1] = r.x[2] = r.e[0] = r.e[1] = r.e[2] = 0.f;
+  if (r.in) {
+    const float* src;
+    int rs;
+    if constexpr ((FLAGS & kStaged) != 0) {
+      src = win + s_off[s] + k;
+      rs = ncols;
     } else {
-      constexpr int N = PREC;
-      const uint32_t one = __float_as_uint(1.f);
-      for (int kc = 0; kc < s_len; kc += kChunk) {
-        float c_hi[4][4], c_lo[4][4];
+      src = win + static_cast<size_t>(s) * 8 * s_len + k;
+      rs = s_len;
+    }
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+    for (int i = 0; i < 3; ++i) r.x[i] = __ldg(src + i * rs);
+    if (tid < kChunk) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i) c_hi[j][i] = c_lo[j][i] = 0.f;
-        const int k_end = min(kc + kChunk, s_len);
-        for (int k0 = kc; k0 < k_end; k0 += 8) {
-          const int ka = k0 + tq, kb = k0 + tq + 4;
-          uint32_t a0[3], a1[3] = {0u, 0u, 0u}, a2[3], a3[3] = {0u, 0u, 0u};
-          tf32_split<N>(s_f[g * sp + ka], a0);
-          tf32_split<N>(s_f[g * sp + kb], a2);
-          if (g + 8 < kFeats) {  // rows 8, 9; rows 10..15 are zero
-            tf32_split<N>(s_f[(g + 8) * sp + ka], a1);
-            tf32_split<N>(s_f[(g + 8) * sp + kb], a3);
-          }
-          const float eax = s_e[ka], eay = s_e[s_len + ka], eaz = s_e[2 * s_len + ka];
-          const float ebx = s_e[kb], eby = s_e[s_len + kb], ebz = s_e[2 * s_len + kb];
+      for (int i = 0; i < 3; ++i) r.e[i] = __ldg(src + (3 + i) * rs);
+    }
+  }
+  return r;
+}
+
+// Feature f's P TF32 components into row f of each component's rows of the
+// stage's B operand.
+template <int P>
+__device__ __forceinline__ void store_feature(float* st, int f, int col, float v) {
+  uint32_t c[3];
+  tf32_split<P>(v, c);
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const uint32_t b0 =
-                d2_rn(eax - qr[j][0], eay - qr[j][1], eaz - qr[j][2]) <= r2 ? one : 0u;
-            const uint32_t b1 =
-                d2_rn(ebx - qr[j][0], eby - qr[j][1], ebz - qr[j][2]) <= r2 ? one : 0u;
-            mma_tf32_m16n8k8(c_hi[j], a0[0], a1[0], a2[0], a3[0], b0, b1);
-            if constexpr (N >= 2) mma_tf32_m16n8k8(c_lo[j], a0[1], a1[1], a2[1], a3[1], b0, b1);
-            if constexpr (N >= 3) mma_tf32_m16n8k8(c_lo[j], a0[2], a1[2], a2[2], a3[2], b0, b1);
-          }
-        }
+  for (int p = 0; p < P; ++p)
+    st[comp_offset<Stage<P>::kNB>(Stage<P>::row(p) + f, col / 4) + col % 4] =
+        __uint_as_float(c[p]);
+}
+
+// Stage a chunk from this thread's raw column: shifted coordinates (inf
+// outside the span: never a member), the features and their components
+// (zero outside the span).
+template <int P>
+__device__ __forceinline__ void store_stage(float* st, const Raw& r, float cx, float cy,
+                                            float cz, int tid) {
+  const int col = tid & (kChunk - 1), part = tid / kChunk;
+  const float x0 = r.in ? r.x[0] - cx : 0.f;
+  const float x1 = r.in ? r.x[1] - cy : 0.f;
+  const float x2 = r.in ? r.x[2] - cz : 0.f;
+  if (part == 0) {
+    const float inf = __int_as_float(0x7f800000);
+    reinterpret_cast<float4*>(st + Stage<P>::kB)[col] =
+        r.in ? make_float4(r.e[0] - cx, r.e[1] - cy, r.e[2] - cz, 0.f)
+             : make_float4(inf, inf, inf, 0.f);
+    store_feature<P>(st, 0, col, r.in ? 1.f : 0.f);
+    store_feature<P>(st, 1, col, x0);
+    store_feature<P>(st, 2, col, x1);
+  } else if (part == 1) {
+    store_feature<P>(st, 3, col, x2);
+    store_feature<P>(st, 4, col, __fmul_rn(x0, x0));
+    store_feature<P>(st, 5, col, __fmul_rn(x1, x1));
+  } else if (part == 2) {
+    store_feature<P>(st, 6, col, __fmul_rn(x2, x2));
+    store_feature<P>(st, 7, col, __fmul_rn(x0, x1));
+  } else {
+    store_feature<P>(st, 8, col, __fmul_rn(x0, x2));
+    store_feature<P>(st, 9, col, __fmul_rn(x1, x2));
+  }
+}
+
+// 1.0f (TF32 bits) where the entry is within r of the query, else 0.
+__device__ __forceinline__ uint32_t member(float4 e, float qx, float qy, float qz, float r2) {
+  float m;
+  asm("set.le.f32.f32 %0, %1, %2;" : "=f"(m) : "f"(d2_rn(e.x - qx, e.y - qy, e.z - qz)),
+      "f"(r2));
+  return __float_as_uint(m);
+}
+
+// The next chunk (s, kc): the next 64-column block of span s that holds a
+// span column, else the first such block of a later non-empty span.
+__device__ __forceinline__ bool advance(int& s, int& kc, int ns, const int* s_lo,
+                                        const int* s_hi) {
+  if (s >= 0 && kc + kChunk < s_hi[s]) {
+    kc += kChunk;
+    return true;
+  }
+  for (++s; s < ns; ++s) {
+    if (s_hi[s] > s_lo[s]) {
+      kc = s_lo[s] & ~(kChunk - 1);
+      return true;
+    }
+  }
+  return false;
+}
+
+// The descriptor of k8 step ks from step 0's: the step's offset in the
+// operand added to the address field (comp_desc; shared memory addresses
+// stay below 2^18, so the field never carries).
+template <int NB>
+__device__ __forceinline__ uint64_t step_desc(uint64_t desc0, int ks) {
+  return desc0 + static_cast<uint64_t>(((ks / 4) * NB * 1024 + (ks % 4) * 32) >> 4);
+}
+
+// One k8 step of a chunk: mid and hi in one m64n32k8 (their own
+// columns, scale-d = acc_d), then lo into the mid columns: v1's mma.sync
+// order (hi; mid, then lo, chained in one accumulator).
+template <int P>
+__device__ __forceinline__ void issue_step(float (&d)[P == 1 ? 8 : 16], const uint32_t (&a)[4],
+                                           uint64_t desc0, int ks, int acc_d) {
+  constexpr int NB = Stage<P>::kNB;
+  if constexpr (P == 1) {
+    wgmma_m64n16k8(d, a, step_desc<NB>(desc0, ks), acc_d);
+  } else {
+    wgmma_m64n32k8(d, a, step_desc<NB>(desc0, ks), acc_d);
+    if constexpr (P == 3)
+      wgmma_m64n16k8(*reinterpret_cast<float(*)[8]>(d), a,
+                     step_desc<NB>(desc0 + (Stage<P>::row(2) * 128 >> 4), ks), 1);
+  }
+}
+
+// A chunk's membership fragments (queries g, g + 8 against entries t, t + 4
+// of each k8 step) and its products, steps ks0 .. ks1 - 1 (all steps with
+// kFull), committed as one group.
+template <int P, bool kFull>
+__device__ __forceinline__ void test_and_issue(float (&d)[P == 1 ? 8 : 16], const float4* crd,
+                                               const float (&qr)[2][3], float r2, uint64_t desc0,
+                                               int ks0, int ks1, int tq) {
+  uint32_t fr[kSteps][4];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+  for (int ks = 0; ks < kSteps; ++ks) {
+    if (kFull || (ks >= ks0 && ks < ks1)) {
+      const float4 ea = crd[8 * ks + tq], eb = crd[8 * ks + tq + 4];
+      fr[ks][0] = member(ea, qr[0][0], qr[0][1], qr[0][2], r2);
+      fr[ks][1] = member(ea, qr[1][0], qr[1][1], qr[1][2], r2);
+      fr[ks][2] = member(eb, qr[0][0], qr[0][1], qr[0][2], r2);
+      fr[ks][3] = member(eb, qr[1][0], qr[1][1], qr[1][2], r2);
+    }
+  }
+  wgmma_fence();
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[j][i] += c_lo[j][i] + c_hi[j][i];
+  for (int ks = 0; ks < kSteps; ++ks) {
+    if (kFull || (ks >= ks0 && ks < ks1)) issue_step<P>(d, fr[ks], desc0, ks, ks != ks0);
+  }
+  wgmma_commit();
+}
+
+template <int P, int FLAGS>
+__global__ void __launch_bounds__(kThreads, 2)
+    moment_window_tf32(const float* __restrict__ win,   // kStaged: (8, ncols); else (ns, 8, S)
+                       int ncols,
+                       const float* __restrict__ q,     // (8, q_cols)
+                       int q_cols,
+                       const int* __restrict__ starts,  // (T1, ns), kStaged
+                       const int* __restrict__ leads,   // (T1, ns), kLead
+                       const int* __restrict__ lens,    // (T1, ns), kLenTable
+                       int len_const,
+                       const float* __restrict__ ctr,   // (T1, 3), kShift
+                       int ns, int s_len, float r2,
+                       float* __restrict__ out) {       // (16, 128 T1)
+  extern __shared__ __align__(1024) float smem[];
+  constexpr int kRing = kStages * Stage<P>::kFloats;
+  int* s_lo = reinterpret_cast<int*>(smem + kRing);
+  int* s_hi = s_lo + ns;
+  int* s_off = s_hi + ns;
+  const int t = blockIdx.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, g = lane >> 2, tq = lane & 3;
+  const int m0 = 64 * (tid >> 7) + 16 * ((tid >> 5) & 3);  // the warp's first query
+
+  float cx = 0.f, cy = 0.f, cz = 0.f;
+  if constexpr ((FLAGS & kShift) != 0) {
+    cx = ctr[3 * t + 0];
+    cy = ctr[3 * t + 1];
+    cz = ctr[3 * t + 2];
+  }
+  float qr[2][3];  // the thread's queries (rows g, g + 8 of its warp's 16), shifted
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qc = ((FLAGS & kPerTileQ) != 0 ? t * kCols : 0) + m0 + g + 8 * h;
+    qr[h][0] = q[qc] - cx;
+    qr[h][1] = q[q_cols + qc] - cy;
+    qr[h][2] = q[2 * q_cols + qc] - cz;
+  }
+  // The float32 sums, rows g, g + 8 and feature columns 2 t, 2 t + 1,
+  // 8 + 2 t, 9 + 2 t (the accumulator layout of wgmma_tf32.cuh).
+  float acc[8];
+  float d[P == 1 ? 8 : 16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (P == 1 ? 8 : 16); ++i) d[i] = 0.f;
+  // The ring starts zero: rows 10-15 of every 16 stay zero.
+  for (int i = tid; i < kRing; i += kThreads) smem[i] = 0.f;
+  for (int s = tid; s < ns; s += kThreads)
+    span_of<FLAGS>(t, s, ns, s_len, ncols, starts, leads, lens, len_const, s_lo[s], s_hi[s],
+                   s_off[s]);
+  __syncthreads();
+
+  int s = -1, kc = 0;
+  if (advance(s, kc, ns, s_lo, s_hi)) {
+    store_stage<P>(smem, load_raw<FLAGS>(win, ncols, s_len, s, kc, s_lo, s_hi, s_off, tid), cx,
+                   cy, cz, tid);
+    fence_proxy_async();
+    for (int c = 0;; ++c) {
+      // Chunk c + 1's raw column into registers, staged after chunk c's
+      // products are issued.
+      int s1 = s, kc1 = kc;
+      const bool more = advance(s1, kc1, ns, s_lo, s_hi);
+      Raw raw;
+      if (more) raw = load_raw<FLAGS>(win, ncols, s_len, s1, kc1, s_lo, s_hi, s_off, tid);
+      __syncthreads();  // chunk c staged; every product of chunk c - 1 done
+
+      float* st = smem + (c % kStages) * Stage<P>::kFloats;
+      const int lo8 = s_lo[s] & ~7, hi8 = (s_hi[s] + 7) & ~7;
+      const int ks0 = (max(kc, lo8) - kc) / 8, ks1 = (min(kc + kChunk, hi8) - kc) / 8;
+      const float4* crd = reinterpret_cast<const float4*>(st + Stage<P>::kB);
+      const uint64_t desc = comp_desc<Stage<P>::kNB>(smem_u32(st), 0);
+      // A full chunk (most) takes the path without a branch a step, whose
+      // tests the compiler can interleave; the first and last chunk of a
+      // span test and issue only their span's steps.
+      if (ks0 == 0 && ks1 == kSteps) {
+        test_and_issue<P, true>(d, crd, qr, r2, desc, 0, kSteps, tq);
+      } else {
+        test_and_issue<P, false>(d, crd, qr, r2, desc, ks0, ks1, tq);
       }
+      if (more) {
+        store_stage<P>(smem + ((c + 1) % kStages) * Stage<P>::kFloats, raw, cx, cy, cz, tid);
+        fence_proxy_async();
+      }
+      wgmma_wait<0>();
+      // acc += c_lo + c_hi (v1's order; one pass: acc += c_hi).
+      fence_regs(d);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        if constexpr (P == 1) {
+          acc[i] += d[i];
+        } else {
+          acc[i] += d[i] + d[8 + i];
+        }
+      }
+      if (!more) break;
+      s = s1;
+      kc = kc1;
     }
   }
 
-  // The tile's (16, 128) sums into shared memory, then one column a thread.
-  if constexpr (PREC == kFp32) {
+  // The tile's (16, 128) sums into shared memory (over the ring: every
+  // product is done), then one column a thread.
+  __syncthreads();
+  float* s_o = smem;
 #pragma unroll
-    for (int f = 0; f < 16; ++f) s_o[f * kCols + tid] = f < kFeats ? facc[f] : 0.f;
-  } else {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = warp * 32 + 8 * j + 2 * tq;
-      s_o[g * kCols + col] = acc[j][0];
-      s_o[g * kCols + col + 1] = acc[j][1];
-      s_o[(g + 8) * kCols + col] = acc[j][2];
-      s_o[(g + 8) * kCols + col + 1] = acc[j][3];
-    }
+  for (int i = 0; i < 2; ++i) {
+    const int f = 8 * i + 2 * tq;
+    const int m = m0 + g;
+    s_o[f * kCols + m] = acc[4 * i];
+    s_o[(f + 1) * kCols + m] = acc[4 * i + 1];
+    s_o[f * kCols + m + 8] = acc[4 * i + 2];
+    s_o[(f + 1) * kCols + m + 8] = acc[4 * i + 3];
   }
   __syncthreads();
+  if (tid >= kCols) return;
+  const int out_cols = kCols * gridDim.x;
   float v[16];
 #pragma unroll
   for (int f = 0; f < 16; ++f) v[f] = s_o[f * kCols + tid];
@@ -249,14 +509,14 @@ __global__ void moment_window_kernel(
     // v[4] - s0 m0 m0 by 1e6, and only the plain version's rounding of
     // s0 m0 m0 makes that difference the same (zero).
     const float s0 = fmaxf(v[0], 1e-12f);
-    const float m0 = v[1] / s0;
+    const float m0x = v[1] / s0;
     const float m1 = v[2] / s0;
     const float m2 = v[3] / s0;
     const float den = fmaxf(v[0] - 1.f, 1e-6f);
-    const float c00 = __fsub_rn(v[4], __fmul_rn(__fmul_rn(s0, m0), m0)) / den;
+    const float c00 = __fsub_rn(v[4], __fmul_rn(__fmul_rn(s0, m0x), m0x)) / den;
     const float c11 = __fsub_rn(v[5], __fmul_rn(__fmul_rn(s0, m1), m1)) / den;
     const float c22 = __fsub_rn(v[6], __fmul_rn(__fmul_rn(s0, m2), m2)) / den;
-    v[0] = m0; v[1] = m1; v[2] = m2;
+    v[0] = m0x; v[1] = m1; v[2] = m2;
     v[3] = c00; v[4] = c11; v[5] = c22;
     v[6] = v[7]; v[7] = v[8]; v[8] = v[9];
     v[9] = s0;
@@ -267,22 +527,28 @@ __global__ void moment_window_kernel(
   for (int f = 0; f < 16; ++f) out[f * out_cols + t * kCols + tid] = v[f];
 }
 
-template <int PREC, int FLAGS>
-int launch(const float* win, int ncols, const float* q, int q_cols, const int* starts,
-           const int* leads, const int* lens, int len_const, const float* ctr, int ns,
-           int s_len, float r2, int n_tiles, float* out, cudaStream_t stream) {
-  const size_t smem =
-      (static_cast<size_t>(kFeats) * (s_len + 4) + 3 * s_len + 3 * kCols + 16 * kCols) *
-      sizeof(float);
+template <typename Kernel>
+int launch(Kernel kernel, int threads, size_t smem, const float* win, int ncols, const float* q,
+           int q_cols, const int* starts, const int* leads, const int* lens, int len_const,
+           const float* ctr, int ns, int s_len, float r2, int n_tiles, float* out,
+           cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        moment_window_kernel<PREC, FLAGS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  moment_window_kernel<PREC, FLAGS><<<n_tiles, kCols, smem, stream>>>(
-      win, ncols, q, q_cols, starts, leads, lens, len_const, ctr, ns, s_len, r2, out);
+  kernel<<<n_tiles, threads, smem, stream>>>(win, ncols, q, q_cols, starts, leads, lens,
+                                              len_const, ctr, ns, s_len, r2, out);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int P, int FLAGS>
+int launch_tf32(const float* win, int ncols, const float* q, int q_cols, const int* starts,
+                const int* leads, const int* lens, int len_const, const float* ctr, int ns,
+                int s_len, float r2, int n_tiles, float* out, cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(kStages) * Stage<P>::kFloats + 3 * ns) * sizeof(float);
+  return launch(moment_window_tf32<P, FLAGS>, kThreads, smem, win, ncols, q, q_cols, starts,
+                leads, lens, len_const, ctr, ns, s_len, r2, n_tiles, out, stream);
 }
 
 }  // namespace
@@ -308,12 +574,16 @@ int dc_moment_window(int prec, int flags, const void* win, int ncols, const void
   const float* pc = static_cast<const float*>(ctr);
   float* po = static_cast<float*>(out);
   cudaStream_t sm = static_cast<cudaStream_t>(stream);
-#define DC_WINDOW_CASE(P, F)                                                                  \
-  if (prec == (P) && flags == (F))                                                            \
-    return launch<(P), (F)>(w, ncols, pq, q_cols, st, ld, ln, len_const, pc, ns, s_len, r2, \
-                            n_tiles, po, sm);
+  if (prec == kFp32 && flags == 0) {
+    const size_t smem = (static_cast<size_t>(kFeats) * (s_len + 4) + 3 * s_len) * sizeof(float);
+    return launch(moment_window_fp32<0>, kCols, smem, w, ncols, pq, q_cols, st, ld, ln,
+                  len_const, pc, ns, s_len, r2, n_tiles, po, sm);
+  }
+#define DC_WINDOW_CASE(P, F)                                                                   \
+  if (prec == (P) && flags == (F))                                                             \
+    return launch_tf32<(P), (F)>(w, ncols, pq, q_cols, st, ld, ln, len_const, pc, ns, s_len, \
+                                 r2, n_tiles, po, sm);
   constexpr int kE = kLenTable | kStaged | kEpilogue;  // P4-E, P5-E
-  DC_WINDOW_CASE(kFp32, 0)
   DC_WINDOW_CASE(kTf32, 0)
   DC_WINDOW_CASE(kTf32x2, 0)
   DC_WINDOW_CASE(kTf32x3, 0)

@@ -14,7 +14,9 @@ Trainable weights are ``nn.Parameter``s; exponents are buffers (frozen, as
 in the reference, model.py:170) unless ``learnable_exponents``. ``apply``
 deliberately shadows ``nn.Module.apply``: these modules have no children.
 A saved state (``model_state_dict``) is the JAX package's npz checkpoint
-(``utils/checkpoint.py:save_pytree``), read by :func:`load_state_file`.
+(``utils/checkpoint.py:save_pytree``): one array a weight field, keyed by
+the field's name. :func:`save_state_file` writes it, :func:`load_state_file`
+reads it.
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ __all__ = [
     "load_model",
     "load_state_file",
     "model_by_name",
+    "model_state",
+    "save_state_file",
 ]
 
 
@@ -239,6 +243,27 @@ def _coerce(cls, kwargs: dict) -> dict:
         if kwargs.get("exponent") is not None and kwargs.get("w") is None:
             kwargs["w"] = [0.0] * len(list(kwargs["exponent"]))
     return {k: v for k, v in kwargs.items() if v is not None}
+
+
+# The weight fields a model may have, the JAX package's dataclass leaves.
+_STATE_FIELDS = ("w", "exponent", "w0", "w1", "b", "p0")
+
+
+def model_state(model) -> dict:
+    """{field: tensor} of the model's weight fields, detached clones on the
+    model's device (taken without a sync)."""
+    return {k: getattr(model, k).detach().clone() for k in _STATE_FIELDS
+            if isinstance(getattr(model, k, None), torch.Tensor)}
+
+
+def save_state_file(path: str, state: dict) -> str:
+    """Write ``state`` ({field: tensor or array}) as the npz file the JAX
+    package's ``save_pytree`` writes for a model (one array a field);
+    returns ``path``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(path, **{k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                                 else np.asarray(v) for k, v in state.items()})
+    return path
 
 
 def load_state_file(path: str) -> dict:

@@ -12,8 +12,8 @@ The launchers validate device, dtype, shape and contiguity before passing
 pointers, launch on the current stream, and raise when the C entry returns
 a CUDA error. Launch counts of K1/K2 (and of their first versions, kept
 for an A/B on the card) are kept by their callers in ``ops/cellwin.py``;
-X1, X2, X3, P2, P6, P7, P7a (and their first versions) and the probes P1,
-P3-P5, P8 count here (:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`,
+X1, X2, X3, P2-P7, P7a (and their first versions) and the probes P1 and
+P8 count here (:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`,
 :data:`KNN_LAUNCHES`, :data:`GATHER_LAUNCHES`, :data:`KNOCKOUT_LAUNCHES`,
 :data:`DOT_LAUNCHES`, :data:`WINDOW_LAUNCHES`, :data:`LAYOUT_LAUNCHES`,
 :data:`GATHER_SUM_LAUNCHES`, :data:`GATHER_PROBE_LAUNCHES`, and the first
@@ -51,6 +51,7 @@ __all__ = [
     "SLAB_LAUNCHES",
     "SLAB_V1_LAUNCHES",
     "WINDOW_LAUNCHES",
+    "WINDOW_V1_LAUNCHES",
     "build",
     "knn_max_k",
     "knn_tiles_max_k",
@@ -73,6 +74,7 @@ __all__ = [
     "launch_moment_dot",
     "launch_moment_dot_v1",
     "launch_moment_window",
+    "launch_moment_window_v1",
     "launch_slab_window",
     "launch_slab_window_v1",
     "load",
@@ -83,13 +85,14 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin.cu", "cellwin_v1.cu", "gather_moments.cu", "slabwin.cu",
                              "slabwin_v1.cu", "cellwin_knockout.cu", "moment_dot.cu",
-                             "moment_dot_v1.cu", "moment_window.cu", "grid_query.cu",
+                             "moment_dot_v1.cu", "moment_window.cu", "moment_window_v1.cu",
+                             "grid_query.cu",
                              "grid_query_v1.cu", "layout_probe.cu", "layout_probe_v1.cu",
                              "gather_probe.cu", "knn_brute.cu", "knn_brute_v1.cu",
                              "gather_sum.cu", "gather_sum_v1.cu", "gather_moments_v1.cu"))
 # Headers the sources include; they key the build like the sources.
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
-                for name in ("cellwin_fwd.cuh", "tf32_mma.cuh"))
+                for name in ("cellwin_fwd.cuh", "tf32_mma.cuh", "wgmma_tf32.cuh"))
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -110,12 +113,13 @@ NVCC_FLAGS = (
 SLAB_LAUNCHES = 0
 GRID_LAUNCHES = 0
 KNN_LAUNCHES = 0
-# The first versions of X1, X2, X3, P2, P6, P7 and P7a, for the A/B only
+# The first versions of X1, X2, X3, P2, P3-P5, P6, P7 and P7a, for the A/B only
 # (no path launches them).
 SLAB_V1_LAUNCHES = 0
 GRID_V1_LAUNCHES = 0
 KNN_V1_LAUNCHES = 0
 DOT_V1_LAUNCHES = 0
+WINDOW_V1_LAUNCHES = 0
 LAYOUT_V1_LAUNCHES = 0
 GATHER_V1_LAUNCHES = 0
 GATHER_SUM_V1_LAUNCHES = 0
@@ -218,9 +222,11 @@ def load():
             layout = getattr(lib, "dc_layout_probe" + suffix)
             layout.argtypes = [_I, _P, _P, _P]
             layout.restype = _I
-        lib.dc_moment_window.argtypes = [_I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I,
-                                         _I, _F, _I, _P, _P]
-        lib.dc_moment_window.restype = _I
+        for suffix in ("", "_v1"):
+            window = getattr(lib, "dc_moment_window" + suffix)
+            window.argtypes = [_I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _I, _P,
+                               _P]
+            window.restype = _I
         lib.dc_gather_probe.argtypes = [_I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
         lib.dc_gather_probe.restype = _I
         for suffix in ("", "_v1"):
@@ -552,19 +558,11 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def launch_moment_window(prec_id: int, flags: int, win, q, r2: float, n_tiles: int,
-                         ns: int, s_len: int, lens, starts=None, leads=None,
-                         ctr=None) -> torch.Tensor:
-    """P3-P5 on CUDA float32 tensors -> (16, 128 n_tiles).
-
-    :param flags: the switches of ``ops.moment_window`` (bit values of
-        ``FLAG_BITS``); the tensors each switch needs must be given.
-    :param win: (ns, 8, S) windows, or the (8, ncols) table with starts.
-    :param q: (8, 128), or (8, 128 n_tiles) for per-tile q.
-    :param lens: an int (every span), or an (n_tiles, ns) int32 table.
-    :param starts, leads: (n_tiles, ns) int32; ctr: (n_tiles, 3) float32.
-    """
-    global WINDOW_LAUNCHES
+def _launch_window(name, prec_id: int, flags: int, win, q, r2: float, n_tiles: int,
+                   ns: int, s_len: int, lens, starts=None, leads=None, ctr=None, entry=None):
+    """One launch of ``dc_<name>`` (P3-P5 or their first version), or of the
+    C function ``entry`` with its signature; arguments as
+    :func:`launch_moment_window`."""
     from .moment_window import FLAG_BITS
 
     device = win.device
@@ -582,12 +580,12 @@ def launch_moment_window(prec_id: int, flags: int, win, q, r2: float, n_tiles: i
     q_cols = 128 * n_tiles if need["per_tile_q"] else 128
     _check(q, "q", torch.float32, (8, q_cols), device)
     tables = {"len_table": lens, "staged": starts, "lead": leads}
-    for name, tab in tables.items():
-        if need[name] != isinstance(tab, torch.Tensor):
+    for switch, tab in tables.items():
+        if need[switch] != isinstance(tab, torch.Tensor):
             raise ValueError("moment_window: switch %s %s a table" % (
-                name, "needs" if need[name] else "takes no"))
-        if need[name]:
-            _check(tab, name, torch.int32, (n_tiles, ns), device)
+                switch, "needs" if need[switch] else "takes no"))
+        if need[switch]:
+            _check(tab, switch, torch.int32, (n_tiles, ns), device)
     if need["shift"] != (ctr is not None):
         raise ValueError("moment_window: ctr goes with the shift switch")
     if ctr is not None:
@@ -597,14 +595,45 @@ def launch_moment_window(prec_id: int, flags: int, win, q, r2: float, n_tiles: i
     out = torch.empty((16, 128 * n_tiles), dtype=torch.float32, device=device)
     len_const = 0 if need["len_table"] else int(lens)
     lib = load()
+    entry = entry or getattr(lib, "dc_" + name)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dc_moment_window(
+        err = entry(
             int(prec_id), int(flags), win.data_ptr(), win.shape[-1], q.data_ptr(), q_cols,
             _ptr(starts), _ptr(leads), lens.data_ptr() if need["len_table"] else None,
             len_const, _ptr(ctr), ns, s_len, float(r2), int(n_tiles), out.data_ptr(), stream)
-    _check_launch(lib, err, "moment_window")
+    _check_launch(lib, err, name)
+    return out
+
+
+def launch_moment_window(prec_id: int, flags: int, win, q, r2: float, n_tiles: int,
+                         ns: int, s_len: int, lens, starts=None, leads=None,
+                         ctr=None) -> torch.Tensor:
+    """P3-P5 on CUDA float32 tensors -> (16, 128 n_tiles).
+
+    :param flags: the switches of ``ops.moment_window`` (bit values of
+        ``FLAG_BITS``); the tensors each switch needs must be given.
+    :param win: (ns, 8, S) windows, or the (8, ncols) table with starts.
+    :param q: (8, 128), or (8, 128 n_tiles) for per-tile q.
+    :param lens: an int (every span), or an (n_tiles, ns) int32 table.
+    :param starts, leads: (n_tiles, ns) int32; ctr: (n_tiles, 3) float32.
+    """
+    global WINDOW_LAUNCHES
+    out = _launch_window("moment_window", prec_id, flags, win, q, r2, n_tiles, ns, s_len,
+                         lens, starts=starts, leads=leads, ctr=ctr)
     WINDOW_LAUNCHES += 1
+    return out
+
+
+def launch_moment_window_v1(prec_id: int, flags: int, win, q, r2: float, n_tiles: int,
+                            ns: int, s_len: int, lens, starts=None, leads=None,
+                            ctr=None) -> torch.Tensor:
+    """P3-P5's first version (``csrc/moment_window_v1.cu``), the arguments
+    and result of :func:`launch_moment_window`; for the A/B only."""
+    global WINDOW_V1_LAUNCHES
+    out = _launch_window("moment_window_v1", prec_id, flags, win, q, r2, n_tiles, ns, s_len,
+                         lens, starts=starts, leads=leads, ctr=ctr)
+    WINDOW_V1_LAUNCHES += 1
     return out
 
 
@@ -964,12 +993,13 @@ def launch_gather_sum_v1(pts_T, idx) -> torch.Tensor:
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts kept here (X1, X2, X3, P2, P6, P7, P7a and
-    their first versions, P1, P3-P5, P8)."""
+    """Zero the launch counts kept here (X1, X2, X3, P2-P7, P7a and their
+    first versions, P1, P8)."""
     global SLAB_LAUNCHES, GRID_LAUNCHES, KNN_LAUNCHES, GATHER_LAUNCHES, KNOCKOUT_LAUNCHES
     global DOT_LAUNCHES, WINDOW_LAUNCHES, LAYOUT_LAUNCHES, GATHER_SUM_LAUNCHES
     global GATHER_PROBE_LAUNCHES, KNN_V1_LAUNCHES, SLAB_V1_LAUNCHES, GRID_V1_LAUNCHES
     global DOT_V1_LAUNCHES, LAYOUT_V1_LAUNCHES, GATHER_V1_LAUNCHES, GATHER_SUM_V1_LAUNCHES
+    global WINDOW_V1_LAUNCHES
     SLAB_LAUNCHES = 0
     GRID_LAUNCHES = 0
     KNN_LAUNCHES = 0
@@ -977,6 +1007,7 @@ def reset_launch_counts() -> None:
     GRID_V1_LAUNCHES = 0
     KNN_V1_LAUNCHES = 0
     DOT_V1_LAUNCHES = 0
+    WINDOW_V1_LAUNCHES = 0
     LAYOUT_V1_LAUNCHES = 0
     GATHER_V1_LAUNCHES = 0
     GATHER_SUM_V1_LAUNCHES = 0

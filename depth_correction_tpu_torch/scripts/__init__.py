@@ -126,6 +126,16 @@ def in_turns(first, second, device, reps: int = 50, timer=None) -> tuple:
     return (a1 + a2) / 2, (b1 + b2) / 2, (a1, b1, b2, a2)
 
 
+def first_version_turns(old, new, device, reps: int) -> dict:
+    """A first version ``old`` and its redesign ``new`` timed in turns (old,
+    new, new, old) by the profiler's kernel durations and by CUDA events:
+    {"kernel_ms", "v1_kernel_ms", "kernel_turns", "ms", "v1_ms", "turns"}."""
+    v1_k, k, kturns = in_turns(old, new, device, reps, timer=kernel_ms)
+    v1_ms, ms, turns = in_turns(old, new, device, reps)
+    return {"kernel_ms": k, "v1_kernel_ms": v1_k, "kernel_turns": kturns, "ms": ms,
+            "v1_ms": v1_ms, "turns": turns}
+
+
 def rel_max(got, ref) -> float:
     """max |got - ref| / max |ref| over the whole output (the measure of
     scripts/exp_mosaic_dot_probe.py:105)."""

@@ -33,7 +33,7 @@ import torch
 
 from ..ops.features import gather_moments, gather_moments_plain, gather_moments_v1
 from ..ops.gather_sum import gather_sum, gather_sum_plain, gather_sum_v1
-from . import device_ms, in_turns, kernel_ms, require_card
+from . import device_ms, first_version_turns, kernel_ms, require_card
 
 STEPS = 20
 PROBE_M, PROBE_K, PROBE_T = 16384, 32, 512
@@ -116,15 +116,6 @@ def probe_library(device, data: dict = None, reps: int = STEPS) -> dict:
             "rel": _rel(call().T, want)}
 
 
-def _turns(old, new, device, reps: int) -> dict:
-    """Both calls timed in turns (old, new, new, old) by the profiler's
-    kernel durations and by CUDA events."""
-    v1_k, k, kturns = in_turns(old, new, device, reps, timer=kernel_ms)
-    v1_ms, ms, turns = in_turns(old, new, device, reps)
-    return {"kernel_ms": k, "v1_kernel_ms": v1_k, "kernel_turns": kturns, "ms": ms,
-            "v1_ms": v1_ms, "turns": turns}
-
-
 def probe_ab(device, data: dict = None, reps: int = STEPS) -> dict:
     """P7a against its first version on stage 1's inputs: whether the two
     are equal bit for bit, and both timed in turns.
@@ -135,7 +126,7 @@ def probe_ab(device, data: dict = None, reps: int = STEPS) -> dict:
     pts, idx = (data or inputs(device))["probe"]
     new, old = gather_sum(pts, idx), gather_sum_v1(pts, idx)
     equal = bool(torch.equal(new.view(torch.int32), old.view(torch.int32)))
-    return dict(_turns(lambda: gather_sum_v1(pts, idx), lambda: gather_sum(pts, idx), device,
+    return dict(first_version_turns(lambda: gather_sum_v1(pts, idx), lambda: gather_sum(pts, idx), device,
                        reps), equal=equal)
 
 
@@ -151,7 +142,7 @@ def moments_ab(points, neighbors, weights, device, reps: int = STEPS) -> dict:
     old = gather_moments_v1(points, neighbors, weights)
     diff = {name: float((a - b).abs().max()) if a.numel() else 0.0
             for name, a, b in zip(("mean", "comps", "w_sum"), new, old)}
-    return dict(_turns(lambda: gather_moments_v1(points, neighbors, weights),
+    return dict(first_version_turns(lambda: gather_moments_v1(points, neighbors, weights),
                        lambda: gather_moments(points, neighbors, weights), device, reps),
                 diff_v1=diff)
 

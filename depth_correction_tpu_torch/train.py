@@ -10,12 +10,16 @@ masks, the cell-window graph) happens once; each step then runs
 
 This port covers the min-eigenvalue / trace training step with Adam or
 SGD on one device, over the uncapped graph (the cell-window kernels) or a
-capped one (gather moments by torch autograd). Every option outside it
-raises NotImplementedError naming the option (:func:`check_slice`).
+capped one (gather moments by torch autograd), with validation sequences
+and the JAX package's outputs (``train.yaml``, the best model's
+``<tag>_state_dict.npz``, ``best.yaml``, ``train_history.csv``). Every
+option outside it raises NotImplementedError naming the option
+(:func:`check_slice`).
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 import time
 from typing import Optional, Sequence
@@ -25,7 +29,7 @@ import torch
 
 from .config import Config, NeighborhoodType, PoseCorrection
 from .loss import create_loss
-from .models import load_model
+from .models import load_model, model_state, save_state_file
 from .ops.filters import global_cloud_mask
 from .preproc import (
     SequenceBatch,
@@ -42,6 +46,7 @@ __all__ = [
     "TrainCallbacks",
     "TrainData",
     "check_slice",
+    "fit",
     "make_loss_fn",
     "make_optimizer",
     "prepare_sequences",
@@ -58,8 +63,6 @@ def check_slice(cfg: Config) -> None:
         ("nn_type=plane", cfg.nn_type == NeighborhoodType.plane),
         ("icp_loss", cfg.loss == "icp_loss"),
         ("mesh_shape", bool(cfg.mesh_shape or cfg.dist_coordinator)),
-        ("spatial_sort", bool(cfg.spatial_sort)),
-        ("val_names", bool(cfg.val_names)),
         ("optimizer=%s" % cfg.optimizer, cfg.optimizer.lower() not in ("adam", "sgd")),
         ("checkpoint_period", bool(cfg.checkpoint_period)),
         ("nn_backend=native", cfg.nn_backend == "native"),
@@ -84,6 +87,20 @@ class TrainCallbacks:
     def train_loss(self, it, model, pose_deltas, loss):
         """Fired each step with the model the loss was evaluated at (before
         the optimizer updates it in place)."""
+
+    def val_loss(self, it, model, pose_deltas, loss):
+        """Fired each step with the validation loss at the same model."""
+
+
+def _pose_path(paths, i: int, names):
+    """Entry ``i`` of a ``*_poses_path`` list, with a clear error on a
+    length mismatch (JAX package, train.py:48-59)."""
+    if not paths:
+        return None
+    if i >= len(paths):
+        raise ValueError("poses_path list has %d entries for %d sequences (%s)"
+                         % (len(paths), len(names), ", ".join(map(str, names))))
+    return paths[i]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -159,10 +176,14 @@ def _use_cellwin(cfg: Config, for_grad: bool) -> bool:
     # 'auto' promotes the cell-window engine on a CUDA device, only when the
     # requested graph already IS the uncapped within-r graph, so it never
     # changes the objective; explicit 'cellwin' forces an uncapped graph.
+    # spatial_sort turns the engine off, as in the JAX package
+    # (train.py:335-342): the graph is then established with the config as
+    # given and the step gathers.
     auto = (backend == "auto" and cfg.torch_device().type == "cuda"
             and cfg.nn_max_neighbors is None)
     return ((backend == "cellwin" or auto) and for_grad
-            and cfg.nn_scale is None and bool(cfg.nn_r) and not cfg.nn_k)
+            and cfg.nn_scale is None and bool(cfg.nn_r) and not cfg.nn_k
+            and not cfg.spatial_sort)
 
 
 def _tick(seconds: dict, part: str, t0: float, device) -> float:
@@ -341,31 +362,27 @@ def make_optimizer(cfg: Config, params):
     return make(params, lr=lr, **opts)
 
 
-def train(cfg: Config, callbacks: Optional[TrainCallbacks] = None,
-          train_datasets: Optional[Sequence] = None,
-          train_data: Optional[TrainData] = None):
-    """Train a depth-correction model with Adam or SGD for
-    ``cfg.n_opt_iters`` steps on ``cfg.torch_device()`` (with
-    ``optimize_model`` False the model's gradients are zeroed, so it stays
-    as loaded).
+def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] = None,
+        val_data: Optional[TrainData] = None, on_step=None):
+    """The optimisation loop of :func:`train`: ``cfg.n_opt_iters`` steps of
+    Adam or SGD on ``cfg.torch_device()`` (with ``optimize_model`` False
+    the model's gradients are zeroed, so it stays as loaded).
 
-    :param train_datasets: datasets to prepare (default: ``cfg.train_names``).
-    :param train_data: already prepared data (skips dataset creation and
-        prep).
-    :return: (model, history) — the trained ``nn.Module`` and a list of
-        (iteration, loss, step_ms); each loss is evaluated at the model the
-        step started from.
+    Each step evaluates the training loss, and the validation loss on
+    ``val_data`` (forward only) at the model the step starts from, then
+    updates the model; ``step_ms`` covers the step and the validation loss
+    and ends in a sync (JAX package, train.py:1197-1214). The step's
+    weights are cloned on the device before the update, with no sync.
+
+    :param on_step: called after each step's timing as ``on_step(it, model,
+        row, state)`` with the history row and the pre-step weights
+        (:func:`models.model_state`); returns whether they were saved.
+    :return: (model, history) — the trained ``nn.Module`` and the rows
+        (iteration, train loss, val loss, step_ms); without ``val_data``
+        the val loss is the train loss.
     """
-    from .datasets import create_dataset
-
     check_slice(cfg)
     callbacks = callbacks or TrainCallbacks(cfg)
-    if train_data is None:
-        if not train_datasets:
-            train_datasets = [create_dataset(name, cfg) for name in cfg.train_names or []]
-        if not train_datasets:
-            raise ValueError("No training data: set cfg.train_names or pass train_datasets.")
-        train_data = prepare_sequences(train_datasets, cfg)
     device = cfg.torch_device()
     model = load_model(cfg=cfg)
     loss_fn = make_loss_fn(cfg)
@@ -385,12 +402,116 @@ def train(cfg: Config, callbacks: Optional[TrainCallbacks] = None,
             for p in params:
                 p.grad.zero_()
         callbacks.train_loss(it, model, None, loss)
+        val = loss
+        if val_data is not None:
+            with torch.no_grad():
+                val = loss_fn(model, val_data)
+            callbacks.val_loss(it, model, None, val)
+        state = model_state(model)
         opt.step()
-        loss_val = float(loss.detach())  # waits for the step (same stream)
+        train_loss = float(loss.detach())  # waits for the step (same stream)
+        val_loss = float(val.detach())
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        step_ms = (time.perf_counter() - t0) * 1e3
-        history.append((it, loss_val, step_ms))
+        row = (it, train_loss, val_loss, (time.perf_counter() - t0) * 1e3)
+        history.append(row)
+        saved = bool(on_step(it, model, row, state)) if on_step is not None else False
         if cfg.log_filters or it % max(cfg.plot_period, 1) == 0:
-            print("It. %03i: train loss: %.9f (%.3f ms)" % (it, loss_val, step_ms))
+            print("It. %03i: train loss: %.9f, val.: %.9f.%s"
+                  % (it, train_loss, val_loss, " saved" if saved else ""))
     return model, history
+
+
+def _summary_writer(log_dir: str):
+    """TensorBoard's writer where ``torch.utils.tensorboard`` imports, else
+    None (JAX package, train.py:1122-1131)."""
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        return SummaryWriter(log_dir)
+    except Exception:
+        return None
+
+
+def train(cfg: Config, callbacks: Optional[TrainCallbacks] = None,
+          train_datasets: Optional[Sequence] = None,
+          val_datasets: Optional[Sequence] = None,
+          train_data: Optional[TrainData] = None):
+    """Train a depth-correction model; returns the best config (JAX
+    package, train.py:945-1316).
+
+    Writes ``train.yaml`` into ``cfg.log_dir``; whenever a step's train and
+    val losses both improve on every earlier step's, the step's pre-update
+    model as ``"%03i_%.6g_state_dict.npz" % (it, val_loss)`` (readable by
+    both packages' ``load_model``) and ``best.yaml`` (``cfg`` with
+    ``model_state_dict`` pointing at it); at the end
+    ``train_history.csv`` (``iter train_loss val_loss step_ms``), and
+    TensorBoard scalars where ``torch.utils.tensorboard`` imports.
+
+    :param train_datasets: datasets to prepare (default: ``cfg.train_names``).
+    :param val_datasets: validation datasets (default: ``cfg.val_names``),
+        prepared forward-only; their loss is taken at the model each step
+        starts from. Without any, the val loss is the train loss.
+    :param train_data: already prepared data (skips dataset creation and
+        prep of the training sequences).
+    :return: the best config, or None if no step improved.
+    """
+    from .datasets import create_dataset
+
+    check_slice(cfg)
+    os.makedirs(cfg.log_dir, exist_ok=True)
+    cfg.to_yaml(os.path.join(cfg.log_dir, "train.yaml"))
+    if train_data is None and not train_datasets:
+        names = cfg.train_names or []
+        train_datasets = [create_dataset(name, cfg,
+                                         poses_path=_pose_path(cfg.train_poses_path, i, names))
+                          for i, name in enumerate(names)]
+    if not val_datasets:
+        names = cfg.val_names or []
+        val_datasets = [create_dataset(name, cfg,
+                                       poses_path=_pose_path(cfg.val_poses_path, i, names))
+                        for i, name in enumerate(names)]
+    if train_data is None:
+        if not train_datasets:
+            raise ValueError("No training data: set cfg.train_names or pass train_datasets.")
+        train_data = prepare_sequences(train_datasets, cfg)
+    val_data = prepare_sequences(val_datasets, cfg, for_grad=False) if val_datasets else None
+
+    writer = _summary_writer(cfg.log_dir)
+    best = {"cfg": None, "train": np.inf, "val": np.inf}
+
+    def on_step(it, model, row, state):
+        _, train_loss, val_loss, step_ms = row
+        if writer is not None:
+            writer.add_scalar("%s/train" % cfg.loss, train_loss, it)
+            writer.add_scalar("%s/val" % cfg.loss, val_loss, it)
+            writer.add_scalar("time/step_ms", step_ms, it)
+            for field in ("w", "exponent", "p0"):
+                if field not in state:
+                    continue
+                grad = getattr(model, field).grad
+                for i, v in enumerate(state[field].reshape(-1).tolist()):
+                    writer.add_scalar("model/%s_%d" % (field, i), v, it)
+                    if grad is not None:
+                        writer.add_scalar("model/%s_%d/grad" % (field, i),
+                                          float(grad.reshape(-1)[i]), it)
+        if not (train_loss < best["train"] and val_loss < best["val"]):
+            return False
+        best["train"], best["val"] = train_loss, val_loss
+        path = save_state_file(os.path.join(
+            cfg.log_dir, "%03i_%.6g_state_dict.npz" % (it, val_loss)), state)
+        best_cfg = cfg.copy()
+        best_cfg.model_state_dict = path
+        best_cfg.to_yaml(os.path.join(cfg.log_dir, "best.yaml"))
+        best["cfg"] = best_cfg
+        return True
+
+    _, history = fit(cfg, train_data, callbacks, val_data, on_step)
+    if writer is not None:
+        writer.flush()
+        writer.close()
+    with open(os.path.join(cfg.log_dir, "train_history.csv"), "w") as f:
+        f.write("iter train_loss val_loss step_ms\n")
+        for row in history:
+            f.write("%i %.9g %.9g %.6g\n" % row)
+    return best["cfg"]

@@ -11,11 +11,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models import _STATE_FIELDS as _FIELDS
 from ..models import model_by_name
 
 __all__ = ["params_from_jax", "params_to_numpy"]
-
-_FIELDS = ("w", "exponent", "w0", "w1", "b", "p0")
 
 
 def params_from_jax(tree, dtype=None, device=None):

@@ -10,6 +10,8 @@ inf]``), and trains. Also here: the dispersion statistics and their
 masks and the shadow filter, each against its JAX counterpart. Bars
 (ROADMAP §3.6): loss and gradient rtol 1e-9, optimizer trajectories 1e-8.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +44,7 @@ from depth_correction_tpu_torch.preproc import establish_neighborhoods as t_est
 from depth_correction_tpu_torch.preproc import global_cloud as t_global
 from depth_correction_tpu_torch.preproc import local_feature_cloud as t_local_feature_cloud
 from depth_correction_tpu_torch.train import TrainCallbacks
+from depth_correction_tpu_torch.train import fit as t_fit
 from depth_correction_tpu_torch.train import prepare_sequences as t_prepare_sequences
 from depth_correction_tpu_torch.train import train as t_train
 
@@ -232,12 +235,14 @@ def test_default_config_trains_like_jax(asl_root, tmp_path):
     params = {"model": jmodels.load_model(cfg=jcfg)}
     traj = _jax_trajectory(jcfg, jdata, params, optax.adam(jcfg.lr))
     rec = _Record(tcfg, ["w"])
-    model, history = t_train(tcfg, callbacks=rec, train_data=tdata)
+    model, history = t_fit(tcfg, tdata, callbacks=rec)
     assert str(model).startswith("ScaledPolynomial") and model.w.numel() == 2
     _assert_trajectory(history, rec, model, traj, ["w"])
-    # train() reads the ASL files itself, too.
-    model2, history2 = t_train(_default_cfg(TConfig, tmp_path / "again", device="cpu"))
-    assert [h[1] for h in history2] == [h[1] for h in history]
+    # train() reads the ASL files itself, too, and logs the same losses.
+    again = _default_cfg(TConfig, tmp_path / "again", device="cpu")
+    assert t_train(again) is not None
+    logged = np.loadtxt(os.path.join(again.log_dir, "train_history.csv"), skiprows=1, ndmin=2)
+    assert logged[:, 1].tolist() == [float("%.9g" % h[1]) for h in history]
 
 
 def test_dispersion_statistics_and_masks_match_jax(asl_root, tmp_path):

@@ -617,7 +617,7 @@ def test_probe_wrappers_never_take_the_plain_path(monkeypatch):
     versions; the launchers refuse CPU tensors and count nothing then."""
     from depth_correction_tpu_torch.ops.cellwin_knockout import cellwin_knockout
     from depth_correction_tpu_torch.ops.moment_dot import moment_dot
-    from depth_correction_tpu_torch.ops.moment_window import moment_window
+    from depth_correction_tpu_torch.ops.moment_window import moment_window, moment_window_v1
 
     calls = []
 
@@ -644,18 +644,24 @@ def test_probe_wrappers_never_take_the_plain_path(monkeypatch):
     with pytest.raises(ValueError, match="precision"):
         moment_dot(meta, meta, 1, "bf16")
     monkeypatch.undo()
-    before = (_kernels.KNOCKOUT_LAUNCHES, _kernels.DOT_LAUNCHES, _kernels.WINDOW_LAUNCHES)
+    before = (_kernels.KNOCKOUT_LAUNCHES, _kernels.DOT_LAUNCHES, _kernels.WINDOW_LAUNCHES,
+              _kernels.WINDOW_V1_LAUNCHES)
     with pytest.raises(ValueError, match="CUDA tensors"):
         _kernels.launch_moment_dot(3, torch.zeros((5, 16, 64)), torch.zeros((5, 64, 128)), 2)
+    for launch in (_kernels.launch_moment_window, _kernels.launch_moment_window_v1):
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            launch(3, 0, torch.zeros((5, 8, 64)), torch.zeros((8, 128)), 0.0625, 2, 5, 64, 27)
+    # The first version has no plain route: a CPU tensor raises.
     with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_moment_window(3, 0, torch.zeros((5, 8, 64)), torch.zeros((8, 128)),
-                                      0.0625, 2, 5, 64, 27)
+        moment_window_v1(torch.zeros((5, 8, 64)), torch.zeros((8, 128)), 0.0625, 2, 5, 64, 27,
+                         "tf32")
     with pytest.raises(ValueError, match="CUDA tensors"):
         _kernels.launch_cellwin_knockout(0, torch.zeros((128, 3)), torch.zeros((3, 128)),
                                          torch.zeros((3, 128)), torch.zeros((1, 2), dtype=torch.int32),
                                          torch.zeros((1, 2), dtype=torch.int32),
                                          torch.zeros((1, 3)), 0.1)
-    assert (_kernels.KNOCKOUT_LAUNCHES, _kernels.DOT_LAUNCHES, _kernels.WINDOW_LAUNCHES) == before
+    assert (_kernels.KNOCKOUT_LAUNCHES, _kernels.DOT_LAUNCHES, _kernels.WINDOW_LAUNCHES,
+            _kernels.WINDOW_V1_LAUNCHES) == before
 
 
 def test_device_ms_times_cuda_devices_only():
@@ -852,6 +858,36 @@ def test_p2_p6_wrappers_send_cuda_tensors_to_the_redesign(monkeypatch, name):
         assert tuple(calls[0][2]) == tlayout.PROBES[variant]
 
 
+@pytest.mark.parametrize("prec", P2_PRECS)
+def test_window_wrapper_sends_cuda_tensors_to_the_redesign(monkeypatch, prec):
+    """Non-CPU tensors go from moment_window to the redesign's launcher with
+    the precision's index and the switches' bits, never to the first
+    version's launcher or to the plain twin."""
+    from depth_correction_tpu_torch.ops import moment_window as twin
+
+    calls = []
+
+    def fake_launch(*args, **kw):
+        calls.append((args, kw))
+        raise RuntimeError("launched")
+
+    def refuse(*args, **kw):
+        raise AssertionError("took another route")
+
+    monkeypatch.setattr(_kernels, "launch_moment_window", fake_launch)
+    monkeypatch.setattr(_kernels, "launch_moment_window_v1", refuse)
+    monkeypatch.setattr(twin, "moment_window_plain", refuse)
+    lens = torch.zeros((2, 5), dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError, match="launched"):
+        twin.moment_window(torch.zeros((8, 640), device="meta"),
+                           torch.zeros((8, 256), device="meta"), 0.0625, 2, 5, 64, lens, prec,
+                           starts=lens, leads=lens, ctr=torch.zeros((2, 3), device="meta"),
+                           per_tile_q=True, epilogue=True)
+    (args, kw), = calls
+    assert args[0] == P2_PRECS.index(prec) and args[1] == sum(twin.FLAG_BITS.values())
+    assert kw["starts"] is lens and kw["leads"] is lens
+
+
 def _p2_inputs(device, ns, s_len, seed=0):
     """Seeded P2 inputs at any shape: a (ns, 16, S) normal, b (ns, S, 128)
     {0, 1} of density 0.3 (the probe's draws)."""
@@ -894,6 +930,133 @@ def test_cuda_moment_dot_matches_plain_and_first_version(cuda_device, ns, s_len,
         if prec == "fp32":
             assert torch.equal(got, v1)
     assert _v1_counts() == (before[0] + 4, before[1] + 4, before[2], before[3])
+
+
+# P3-P5's redesign against its first version (csrc/moment_window_v1.cu):
+# (probe script, variant) for every variant the probes run.
+WINDOW_VARIANTS = ([("exp_mosaic_dot_probe2", v) for v in P2_PRECS]
+                   + [("exp_mosaic_dot_probe3", v) for v in ("A_baseline", "B_scalar_prefetch",
+                                                             "C_any_dma", "D_epilogue", "E_all")]
+                   + [("exp_mosaic_dot_probe4", v) for v in ("E_base(ns5)", "F_moving_blocks",
+                                                             "G_ctr_broadcast", "H_lead_masks",
+                                                             "I_ns15", "J_all")])
+# Bar of the redesign against the first version when not bit-equal, and of
+# both against the plain versions (chip_smoke.py's PROBE_REL_BAR).
+PROBE_REL_BAR = 1e-5
+
+
+def _window_case(device, probe: str, variant: str, monkeypatch):
+    """(win, q, prec, keyword arguments) of a probe variant at 16 tiles."""
+    import importlib
+
+    mod = importlib.import_module("depth_correction_tpu_torch.scripts." + probe)
+    monkeypatch.setattr(mod, "T1", 16)
+    if probe == "exp_mosaic_dot_probe2":
+        win, q, ln = mod.inputs(device)
+        return win, q, variant, dict(n_tiles=16, ns=mod.NS, s_len=mod.S, lens=ln)
+    if probe == "exp_mosaic_dot_probe3":
+        win, q, kw = mod.variant_args(variant, mod.inputs(device))
+        return win, q, mod.PREC, kw
+    win, q, kw = mod.inputs(device, (variant,))[variant]
+    return win, q, mod.PREC, kw
+
+
+def _check_window(win, q, prec, kw, exact: bool):
+    """The redesign against the first version (bit-equal, or within the bar
+    per row) and against the plain version in float32, and in float64 when
+    ``exact`` (no epilogue); returns (redesign, first version)."""
+    from depth_correction_tpu_torch.ops.moment_window import (
+        moment_window, moment_window_plain, moment_window_v1,
+    )
+    from depth_correction_tpu_torch.scripts import rel_rows
+
+    r2 = 0.0625
+    got = moment_window(win, q, r2, prec=prec, **kw)
+    v1 = moment_window_v1(win, q, r2, prec=prec, **kw)
+    torch.cuda.synchronize()
+    label = (prec, {k: v for k, v in kw.items() if not isinstance(v, torch.Tensor)})
+    assert torch.isfinite(got).all(), label
+    if not torch.equal(got.view(torch.int32), v1.view(torch.int32)):
+        assert rel_rows(got, v1) <= PROBE_REL_BAR, label
+    assert rel_rows(got, moment_window_plain(win, q, r2, prec=prec, **kw)) <= PROBE_REL_BAR, label
+    if exact:
+        wide = dict(kw, ctr=kw["ctr"].double()) if "ctr" in kw else kw
+        ref64 = moment_window_plain(win.double(), q.double(), r2, prec=prec, **wide)
+        assert rel_rows(got, ref64) <= PROBE_REL_BAR, label
+    return got, v1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("probe,variant", WINDOW_VARIANTS)
+def test_cuda_moment_window_matches_first_version(cuda_device, monkeypatch, probe, variant):
+    """Every P3-P5 variant at its probe's draws (16 tiles): the redesign
+    bit-equal to the first version (or within 1e-5 per row), within 1e-5
+    per row of its float32 plain version and, without the epilogue, of its
+    float64 plain version; each launch counted once, on its own counter."""
+    win, q, prec, kw = _window_case(cuda_device, probe, variant, monkeypatch)
+    before = (_kernels.WINDOW_LAUNCHES, _kernels.WINDOW_V1_LAUNCHES)
+    got, v1 = _check_window(win, q, prec, kw, exact=not kw.get("epilogue"))
+    assert (_kernels.WINDOW_LAUNCHES, _kernels.WINDOW_V1_LAUNCHES) == (before[0] + 1,
+                                                                       before[1] + 1)
+    assert torch.equal(got.view(torch.int32), v1.view(torch.int32)), (probe, variant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_tiles", [1, 3, 16])
+@pytest.mark.parametrize("s_len", [64, 72, 640])
+@pytest.mark.parametrize("ns", [1, 5, 15])
+def test_cuda_moment_window_edge_shapes(cuda_device, ns, s_len, n_tiles):
+    """The redesign against the first version and the plain versions at the
+    edge shapes: span lengths that are not a multiple of 8 and empty spans,
+    leads > 0 with lead + len past S, starts before the table and past its
+    end; every switch (J's set), the staged length table without the
+    epilogue (C's set), and every precision on per-span windows with one
+    length."""
+    rng = np.random.default_rng(1000 * ns + 10 * s_len + n_tiles)
+    ncols = 3 * s_len + 40
+    big = torch.as_tensor(rng.normal(scale=0.2, size=(8, ncols)).astype(np.float32),
+                          device=cuda_device)
+    q = torch.as_tensor(rng.normal(scale=0.2, size=(8, 128 * n_tiles)).astype(np.float32),
+                        device=cuda_device)
+    lens = rng.integers(0, s_len + 1, (n_tiles, ns))
+    lens[rng.random((n_tiles, ns)) < 0.2] = 0
+    leads = rng.integers(0, s_len, (n_tiles, ns))
+    starts = rng.integers(-s_len // 2, ncols - s_len // 2, (n_tiles, ns))
+
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=cuda_device)
+
+    ctr = torch.as_tensor(rng.normal(scale=0.1, size=(n_tiles, 3)).astype(np.float32),
+                          device=cuda_device)
+    j_kw = dict(n_tiles=n_tiles, ns=ns, s_len=s_len, lens=t(lens), starts=t(starts),
+                leads=t(leads), ctr=ctr, per_tile_q=True, epilogue=True)
+    got, v1 = _check_window(big, q, "tf32x3", j_kw, exact=False)
+    assert torch.equal(got.view(torch.int32), v1.view(torch.int32))
+    q0 = q[:, :128].contiguous()  # every tile's q without per_tile_q
+    c_kw = dict(n_tiles=n_tiles, ns=ns, s_len=s_len, lens=t(lens), starts=t(starts))
+    _check_window(big, q0, "tf32x3", c_kw, exact=True)
+    win = torch.as_tensor(rng.normal(scale=0.2, size=(ns, 8, s_len)).astype(np.float32),
+                          device=cuda_device)
+    for prec in P2_PRECS:
+        for ln in (s_len - 3, 0):
+            kw = dict(n_tiles=n_tiles, ns=ns, s_len=s_len, lens=ln)
+            _check_window(win, q0, prec, kw, exact=prec in ("fp32", "tf32x3"))
+
+
+@pytest.mark.cuda
+def test_cuda_moment_window_first_version_counts_its_launches(cuda_device):
+    """moment_window_v1 launches the first version on CUDA tensors and
+    counts each launch on WINDOW_V1_LAUNCHES alone."""
+    from depth_correction_tpu_torch.ops.moment_window import moment_window_v1
+
+    win = torch.zeros((5, 8, 64), device=cuda_device)
+    q = torch.zeros((8, 128), device=cuda_device)
+    before = (_kernels.WINDOW_LAUNCHES, _kernels.WINDOW_V1_LAUNCHES)
+    for _ in range(3):
+        out = moment_window_v1(win, q, 0.0625, 2, 5, 64, 27, "tf32")
+    torch.cuda.synchronize()
+    assert out.shape == (16, 256)
+    assert (_kernels.WINDOW_LAUNCHES, _kernels.WINDOW_V1_LAUNCHES) == (before[0], before[1] + 3)
 
 
 @pytest.mark.cuda
@@ -1255,6 +1418,7 @@ V1_ENTRIES = {
     "grid_query_v1.cu": ("dc_grid_query_v1",),
     "knn_brute_v1.cu": ("dc_knn_brute_v1", "dc_knn_brute_v1_max_k"),
     "moment_dot_v1.cu": ("dc_moment_dot_v1",),
+    "moment_window_v1.cu": ("dc_moment_window_v1",),
     "layout_probe_v1.cu": ("dc_layout_probe_v1",),
     "gather_sum_v1.cu": ("dc_gather_sum_v1",),
     "gather_moments_v1.cu": ("dc_gather_moments_v1",),
@@ -1290,6 +1454,35 @@ def test_gather_variants_apply_to_the_sources():
         assert "launch<%d, %d>(" % (g, c) in code and "if (k <= 32)" not in code
     for name, (fname, _) in gv.KNOCKOUTS.items():
         assert src[name][1] == "dc_" + fname[:-3]
+
+
+def test_window_variants_apply_to_the_sources():
+    """scripts/exp_window_variants.py builds its knockouts by replacing
+    lines of the committed P3-P5 sources: every replacement still finds its
+    line (``sources`` raises otherwise), each renames its source's entry,
+    and every knockout of the redesign leaves its wgmma chain or its pair
+    test out as it says."""
+    import os
+
+    from depth_correction_tpu_torch.scripts import exp_window_variants as wv
+
+    src = wv.sources()
+    assert sorted(src) == sorted(wv.KNOCKOUTS)
+    for name, (fname, _) in wv.KNOCKOUTS.items():
+        assert src[name][1] == "dc_" + fname[:-3]
+        assert name.startswith("v1_") == (fname == "moment_window_v1.cu")
+    assert "set.le.f32.f32" not in src["new_no_test"][0]
+    assert "mma_tf32_m16n8k8(c_hi" not in src["v1_no_mma"][0]
+    v1 = open(os.path.join(os.path.dirname(_kernels.SOURCES[0]), "moment_window_v1.cu")).read()
+    assert src["v1_no_barriers"][0].count("__syncthreads") == v1.count("__syncthreads") - 2
+
+
+def test_reset_zeroes_the_window_first_version_count(monkeypatch):
+    """reset_launch_counts zeroes P3-P5's first-version count with the
+    rest."""
+    monkeypatch.setattr(_kernels, "WINDOW_V1_LAUNCHES", 4)
+    _kernels.reset_launch_counts()
+    assert _kernels.WINDOW_V1_LAUNCHES == 0
 
 
 def test_reset_zeroes_the_gather_first_versions_counts(monkeypatch):

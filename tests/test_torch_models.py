@@ -29,7 +29,7 @@ from depth_correction_tpu_torch.config import Config as TConfig
 from depth_correction_tpu_torch.ops import knn as tknn
 from depth_correction_tpu_torch.preproc import global_cloud as t_global
 from depth_correction_tpu_torch.train import make_loss_fn as t_make_loss_fn
-from depth_correction_tpu_torch.train import train as t_train
+from depth_correction_tpu_torch.train import fit as t_fit
 from depth_correction_tpu_torch.utils.params import params_from_jax
 from test_torch_defaults import (  # noqa: F401  (the fixtures are used by name)
     SEQ8,
@@ -104,7 +104,7 @@ def test_models_follow_jax_trajectories(box_data, tmp_path, name):
     params = {"model": jmodels.load_model(cfg=jcfg)}
     traj = _jax_trajectory(jcfg, jdata, params, optax.adam(jcfg.lr))
     rec = _Record(tcfg, names)
-    model, history = t_train(tcfg, callbacks=rec, train_data=tdata)
+    model, history = t_fit(tcfg, tdata, callbacks=rec)
     assert type(model).__name__ == name
     _assert_trajectory(history, rec, model, traj, names)
     # The port's model takes the JAX model's weights as they are.
@@ -150,7 +150,7 @@ def test_sgd_follows_optax(box_data, momentum):
     traj = _jax_trajectory(jcfg, jdata, params,
                            optax.sgd(jcfg.lr, **dict(jcfg.optimizer_kwargs)))
     rec = _Record(tcfg, ["w"])
-    model, history = t_train(tcfg, callbacks=rec, train_data=tdata)
+    model, history = t_fit(tcfg, tdata, callbacks=rec)
     _assert_trajectory(history, rec, model, traj, ["w"])
     assert float(model.w.detach()[0]) != 0.0
 
@@ -169,7 +169,7 @@ def test_optimize_model_false_keeps_the_model(box_data):
     mask = {"model": jax.tree_util.tree_map(jnp.zeros_like, params["model"])}
     traj = _jax_trajectory(jcfg, jdata, params, optax.adam(jcfg.lr), mask=mask)
     rec = _Record(tcfg, ["w"])
-    model, history = t_train(tcfg, callbacks=rec, train_data=tdata)
+    model, history = t_fit(tcfg, tdata, callbacks=rec)
     _assert_trajectory(history, rec, model, traj, ["w"])
     assert float(model.w.detach()[0]) == -0.001
     assert all(float(g["w"].abs().max()) == 0.0 for g in rec.grads)

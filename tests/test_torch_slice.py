@@ -26,6 +26,7 @@ from depth_correction_tpu.train import prepare_sequences as j_prepare_sequences
 from depth_correction_tpu_torch.config import Config as TConfig
 from depth_correction_tpu_torch.datasets import create_dataset as t_create_dataset
 from depth_correction_tpu_torch.train import TrainCallbacks
+from depth_correction_tpu_torch.train import fit as t_fit
 from depth_correction_tpu_torch.train import make_loss_fn as t_make_loss_fn
 from depth_correction_tpu_torch.train import make_optimizer as t_make_optimizer
 from depth_correction_tpu_torch.train import prepare_sequences as t_prepare_sequences
@@ -152,8 +153,8 @@ def test_plain_flag_matches_wrappers_on_cpu(prepared):
 
 
 def test_three_adam_steps_match_optax(prepared, jax_trajectory):
-    """train() with torch.optim.Adam against optax.adam from the same w=0:
-    the loss and gradient of every step and w after it."""
+    """train()'s loop (fit) with torch.optim.Adam against optax.adam from
+    the same w=0: the loss and gradient of every step and w after it."""
     _, _, _, tdata = prepared
     cfg = _cfg(TConfig)
     cfg.device = "cpu"
@@ -168,7 +169,7 @@ def test_three_adam_steps_match_optax(prepared, jax_trajectory):
             self.grads.append(float(model.w.grad[0]))
 
     rec = Record()
-    model, history = t_train(cfg, callbacks=rec, train_data=tdata)
+    model, history = t_fit(cfg, tdata, callbacks=rec)
     assert [h[0] for h in history] == [0, 1, 2]
     np.testing.assert_allclose([h[1] for h in history], [t[0] for t in jax_trajectory],
                                rtol=1e-9)
@@ -197,8 +198,6 @@ def test_three_adam_steps_match_optax(prepared, jax_trajectory):
         ("nn_type", "plane"),
         ("loss", "icp_loss"),
         ("mesh_shape", {"data": 2}),
-        ("spatial_sort", True),
-        ("val_names", ["ground_plane/2"]),
         ("optimizer", "lbfgs"),
         ("checkpoint_period", 5),
     ],
@@ -233,7 +232,8 @@ def test_port_imports_no_jax():
             "depth_correction_tpu_torch.scripts.exp_pallas_gather, "
             "depth_correction_tpu_torch.scripts.knn_cull, "
             "depth_correction_tpu_torch.scripts.slab_cull, "
-            "depth_correction_tpu_torch.scripts.exp_grid_slab_ab; "
+            "depth_correction_tpu_torch.scripts.exp_grid_slab_ab, "
+            "depth_correction_tpu_torch.scripts.exp_window_variants; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'depth_correction_tpu' or m.startswith('depth_correction_tpu.') "
             "for m in sys.modules), 'JAX package imported'")
