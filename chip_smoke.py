@@ -86,7 +86,12 @@ Phases (any failure raises and the exit code is non-zero):
    float64 plain grid node, with node_ms and node_e2e_ms as phase 4
    measures them.
 8. probes  — P6 (exp_mosaic_probe: the seven layout probes), P8
-   (exp_pallas_gather2: gather cases A-E, global and staged) and P7's two
+   (exp_pallas_gather2: gather cases A-E, global and staged, B's staged
+   form on a cluster of 8 blocks; the script must not launch P8's first
+   version; every case and form bit-equal to the first version,
+   csrc/gather_probe_v1.cu, and B's global and cluster forms, the first
+   version, torch.gather and the global form on sorted indices timed in
+   turns by the profiler's kernel durations and by events) and P7's two
    stages (exp_pallas_gather: P7a, the gather-sum probe, bit-equal to its
    plain version; P7 at stage 2 within 1e-5), each script run with the
    launch counts zeroed just before and read just after; every P6 and P8
@@ -100,7 +105,7 @@ Phases (any failure raises and the exit code is non-zero):
    (slower or not); P7 at stage 2's shapes against its first version in
    turns.
 
-Every main path (phases 3-5, 7, 9, 10) runs with all launch counts zeroed
+Every main path (phases 3-5, 7, 9-11) runs with all launch counts zeroed
 before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
 9. capped  — the bench's capped row (bench.py:bench_config(uncapped=False):
    K = 32 with mutual trimming, the gather moments by torch autograd) on
@@ -120,7 +125,25 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    vp_dispersion (P7 on the viewpoints) agrees with the float64 plain
    moments to 1e-5 of its largest value, its mask equals the float64 one
    and keeps the rows prep kept, and the bound drops some rows. The loss
-   at w=0 must be within 1e-5 of the float64 plain path.
+   at w=0 must be within 1e-5 of the float64 plain path. Why the
+   cell-window build declined is printed (the builder's note). Then end
+   to end with pose inputs: the poses perturbed and written as a poses
+   CSV, train() with train_poses_path, pose_correction = sequence and the
+   sequence with its own poses for validation, then eval_loss with
+   test_pose_deltas = the best deltas; the files must exist and the eval
+   loss be finite and no higher than the first step's.
+11. pose   — pose correction at full width on phase 3's prepared slice
+   (390,144 padded points, 6 scans): pose mode with deltas of a few mm and
+   mrad seeded on scans 1-5, 8 Adam steps of train.fit. The loss at the
+   seeded deltas within 1e-5 of the float64 plain path on the same graph;
+   the deltas' gradient against float64 printed; scan 0's delta exactly 0
+   after the steps; K1 and K2 launched once a step each; pose_step_ms
+   (median of steps 1..7) and the profiled step's device-busy share.
+
+Device-busy times (profile_calls) sum kernels, memcpys and memsets; user
+annotations (record_function spans such as Optimizer.step#Adam.step),
+which enclose kernels already counted, are left out, and how much the
+count with them would overstate is printed.
 
 The last two lines of stdout are a JSON object with per-kernel numbers
 (time, plain time, launches, error, the bound and what sets it, the
@@ -617,10 +640,25 @@ def profile_steps(cfg, data, card: str, n: int = 3):
     return profile_calls(step, card, "step", n)
 
 
+def is_annotation(e) -> bool:
+    """Whether a profiler event is a user annotation (a ``record_function``
+    span such as ``Optimizer.step#Adam.step``, recorded on the device's
+    timeline beside the kernels it encloses) rather than a kernel, memcpy
+    or memset: ``is_user_annotation`` where the installed torch has it,
+    else by its key."""
+    flag = getattr(e, "is_user_annotation", None)
+    if flag is not None:
+        return bool(flag)
+    return "#" in e.key or e.key.startswith(("ProfilerStep", "Optimizer."))
+
+
 def profile_calls(fn, card: str, unit: str, n: int = 3):
     """``n`` calls of ``fn`` under torch.profiler, after one warm call:
-    wall ms per call, device-busy ms per call (sum of kernel times), device
-    kernels per call and the kernels that take the most device time."""
+    wall ms per call, device-busy ms per call (sum of the durations of
+    kernels, memcpys and memsets; user annotations, which enclose kernels
+    already counted, left out, and the count with them printed beside),
+    device kernels per call and the kernels that take the most device
+    time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -635,17 +673,25 @@ def profile_calls(fn, card: str, unit: str, n: int = 3):
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
 
     # Kernels (and copies) only: the CPU-side ops that launched them report
-    # the same device time again.
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # the same device time again, and so do the annotations' device spans.
+    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    events = [e for e in device if not is_annotation(e)]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
     kernels = sum(e.count for e in events) / n
+    old_ms = sum(e.self_device_time_total for e in device) / 1e3 / n
     log("profile: %.3f ms/%s wall, %.3f ms/%s device busy (%.1f%%), %.0f device "
         "kernels/%s (%s)" % (wall_ms, unit, busy_ms, unit, 100.0 * busy_ms / wall_ms,
                              kernels, unit, card))
+    log("  annotations left out of the busy time: %s; the count with them %.3f ms/%s and "
+        "%.0f events/%s overstated it by %.3f ms (%.1f%%)"
+        % (", ".join("%s x%d" % (e.key, e.count // n) for e in device if is_annotation(e))
+           or "none", old_ms, unit, sum(e.count for e in device) / n, unit, old_ms - busy_ms,
+           100.0 * (old_ms - busy_ms) / max(busy_ms, 1e-12)))
     for e in sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]:
         log("  %-60s %9.3f ms/%s  x%d" % (e.key[:60], e.self_device_time_total / 1e3 / n,
                                           unit, e.count // n))
-    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels_per_call": kernels}
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels_per_call": kernels,
+            "busy_ms_with_annotations": old_ms}
 
 
 def node_config(backend):
@@ -1524,7 +1570,6 @@ def phase_probes_p6_p8(card: str):
     the probe's shapes."""
     import torch
 
-    from depth_correction_tpu_torch.ops.gather_probe import gather_probe, gather_probe_plain
     from depth_correction_tpu_torch.ops.layout_probe import layout_probe_plain
     from depth_correction_tpu_torch.ops import _kernels
     from depth_correction_tpu_torch.scripts import exp_mosaic_probe as p6
@@ -1579,34 +1624,44 @@ def phase_probes_p6_p8(card: str):
         "transpose_library_device_ms": ab6["transpose_f32"]["library_kernel_ms"]}]
 
     r8, n8 = counted(lambda: p8.run(dev), "GATHER_PROBE_LAUNCHES")
+    if _kernels.GATHER_PROBE_V1_LAUNCHES:
+        failures.append("the P8 script launched P8's first version")
     for case, forms in r8["cases"].items():
         for form, e in forms.items():
             if e is None:
-                log("  P8 %s %-7s n/a (the staged row does not fit one block's shared memory)"
+                log("  P8 %s %-7s n/a (the staged row does not fit a cluster's shared memory)"
                     % (case, form))
                 continue
             log("  P8 %s %-7s %-4s err %.1e %9.4f ms"
                 % (case, form, "OK" if e["err"] == 0 else "FAIL", e["err"], e["ms"]))
             if e["err"] != 0:
                 failures.append("P8 %s %s differs from its plain version" % (case, form))
+    # The redesign against its first version (csrc/gather_probe_v1.cu): bit
+    # for bit on every case and form, and B's forms, v1 and torch.gather
+    # timed in turns by the profiler's kernel durations and by events.
+    ab8 = p8.first_version_ab(dev)
+    for name in ab8["ms"]:
+        log("  P8 B %-13s device %.4f ms (turns %s), events %.4f ms (%s)"
+            % (name, ab8["kernel_ms"][name],
+               ", ".join("%.4f" % v for v in ab8["kernel_turns"][name]), ab8["ms"][name], card))
+    log("  P8 bit-equal to its first version: %s"
+        % ", ".join("%s %s" % kv for kv in ab8["equal"].items()))
+    if not all(ab8["equal"].values()):
+        failures.append("P8 differs from its first version: %s" % ab8["equal"])
     xb, ib, axis = p8.inputs(dev)["B"]
-    plain8 = cuda_ms(lambda: gather_probe_plain(xb, ib, axis), reps=20)
-    busy8 = profile_calls(lambda: gather_probe(xb, ib, axis, "global"), card, "call",
-                          n=20)["busy_ms"]
-    lib8 = kernel_ms(lambda: gather_probe_plain(xb, ib, axis), dev, 20)
-    log("  P8 device time (profiler): B global %.4f ms, torch.gather %.4f ms (%s)"
-        % (busy8, lib8, card))
+    k8 = ab8["kernel_ms"]
     entries.append({
         "name": "gather_probe (P8)", "route": "cuda",
         "source": "depth_correction_tpu_torch/csrc/gather_probe.cu",
         "replaces": "scripts/exp_pallas_gather2.py:35", "launches": n8,
         "max_abs_err": max(e["err"] for f in r8["cases"].values() for e in f.values() if e),
-        "ms": r8["cases"]["B"]["global"]["ms"], "plain_ms": plain8,
+        "ms": ab8["ms"]["global"], "kernel_ms": k8["global"], "v1_ms": ab8["ms"]["v1"],
+        "v1_kernel_ms": k8["v1"], "plain_ms": ab8["ms"]["torch_gather"],
         # Bound (case B): x, the indices and the output moved once.
         "bound": bound(xb.numel() * 4 + ib.numel() * 8, {"fp32": 0}),
         # The plain version is one PyTorch call (torch.gather).
-        "library_ms": plain8, "device_busy_ms": busy8,
-        "library_device_ms": lib8,
+        "library_ms": ab8["ms"]["torch_gather"], "library_device_ms": k8["torch_gather"],
+        "cluster_kernel_ms": k8["cluster"], "sorted_kernel_ms": k8["global_sorted"],
         "variants": {"%s_%s" % (c, f): e["ms"] for c, fs in r8["cases"].items()
                      for f, e in fs.items() if e}})
     # P7's two stages (the TPU script's draws, stage 1 first).
@@ -1887,6 +1942,77 @@ def write_asl_sequence(root: str, scene: str, name: str, noise: float = 0.005) -
     return total
 
 
+def default_pose_pass(root: str, cfg, card: str) -> dict:
+    """End to end with pose inputs on the default config's ASL-laser files:
+    the poses perturbed (a few cm and mrad a scan) and written as a poses
+    CSV, train() with train_poses_path, pose_correction = sequence and the
+    same sequence and poses for validation (which trains deltas of its
+    own), then eval_loss on the perturbed sequence with test_pose_deltas =
+    best.train_pose_deltas. The files must exist and the eval loss must be
+    finite and no higher than the first step's training loss."""
+    import math
+
+    import numpy as np
+
+    from depth_correction_tpu_torch.datasets import asl_laser
+    from depth_correction_tpu_torch.datasets.synthetic import euler_matrix
+    from depth_correction_tpu_torch.eval import eval_loss
+    from depth_correction_tpu_torch.train import TrainCallbacks, train
+
+    class First(TrainCallbacks):
+        def train_loss(self, it, model, pose_deltas, loss):
+            if it == 0:
+                self.loss = float(loss.detach())
+
+    seq = os.path.join(asl_laser.data_dir, "open_box", "csv_global", "pose_scanner_leica.csv")
+    ids, poses = asl_laser.read_poses(seq)
+    rng = np.random.default_rng(10)
+    perturbed = []
+    for pose in poses:
+        T = euler_matrix(*(0.002 * rng.standard_normal(3)))
+        T[:3, 3] = 0.02 * rng.standard_normal(3)
+        perturbed.append(np.asarray(pose) @ T)
+    csv = os.path.join(root, "perturbed_poses.csv")
+    asl_laser.write_poses(ids, perturbed, csv)
+    pcfg = cfg.copy()
+    pcfg.log_dir = os.path.join(root, "pose_log")
+    pcfg.train_poses_path = pcfg.val_poses_path = [csv]
+    pcfg.val_names = list(cfg.train_names)
+    pcfg.pose_correction = "sequence"
+    t0 = time.perf_counter()
+    first_loss = First(pcfg)
+    best = train(pcfg, callbacks=first_loss)
+    train_s = time.perf_counter() - t0
+    with open(os.path.join(pcfg.log_dir, "train_history.csv")) as f:
+        f.readline()
+        history = [list(map(float, line.split())) for line in f]
+    if best is None or not best.train_pose_deltas:
+        raise RuntimeError("the pose pass saved no best model and deltas")
+    files = [best.model_state_dict, best.train_pose_deltas,
+             os.path.join(pcfg.log_dir, "best.yaml"), os.path.join(pcfg.log_dir, "train_history.csv")]
+    best.test_names = list(cfg.train_names)
+    best.test_poses_path = [csv]
+    best.test_pose_deltas = best.train_pose_deltas
+    best.loss_eval_csv = os.path.join(pcfg.log_dir, "loss_eval_pose.csv")
+    t0 = time.perf_counter()
+    value = eval_loss(best)
+    eval_s = time.perf_counter() - t0
+    files.append(best.loss_eval_csv)
+    missing = [f for f in files if not os.path.exists(f)]
+    first = first_loss.loss
+    log("default pose pass: train() %.1f s, %d steps, train losses %s, val %s; best %s; "
+        "eval_loss %.9e (first step %.9e) in %.1f s (%s)"
+        % (train_s, len(history), ", ".join("%.6e" % h[1] for h in history),
+           ", ".join("%.6e" % h[2] for h in history), os.path.basename(best.train_pose_deltas),
+           value, first, eval_s, card))
+    if missing:
+        raise RuntimeError("the pose pass did not write %s" % missing)
+    if not (math.isfinite(value) and value <= first):
+        raise RuntimeError("the pose pass's eval loss %.9e is not finite or above the first "
+                           "step's %.9e" % (value, first))
+    return {"eval_loss": value, "first_loss": first, "train_s": train_s, "eval_s": eval_s}
+
+
 def phase_default(card: str):
     """A default Config() on the open box written as ASL-laser files, with
     the shadow filter: prep and train() on the card; X3 and P7 must have
@@ -1934,7 +2060,8 @@ def phase_default(card: str):
             % (prep_s, ", ".join("%s %.3f" % kv for kv in data.prep_seconds.items()),
                int(data.batches[0].cloud.valid.sum()), rows, launches["knn"],
                launches["grid"], launches["gather"],
-               "built" if data.cellwin[0] is not None else "declined"))
+               "built" if data.cellwin[0] is not None
+               else "not built (%s)" % (data.cellwin_notes[0] or "not tried")))
         if launches["knn"] <= 0 or launches["gather"] <= 0:
             raise RuntimeError("X3 / P7 were not launched in the default prep: %s" % launches)
         shadow = check_shadow_filter(next(iter(ds))[0], cfg, card)
@@ -1959,10 +2086,98 @@ def phase_default(card: str):
         if not loss_rel <= LOSS_REL_BAR:
             raise RuntimeError("default-config loss at w=0 misses the 1e-5 bar: %.3e"
                                % loss_rel)
+        pose = default_pose_pass(root, cfg, card)
         return {"loss_rel": loss_rel, "step_ms": step_ms, "prep_s": prep_s, "rows": rows,
-                "launches": launches, "shadow": shadow, "vp": vp, "global": glob}
+                "launches": launches, "shadow": shadow, "vp": vp, "global": glob,
+                "pose": pose}
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# Phase 11's seeded pose deltas: translations and axis-angle rotations of a
+# few mm and mrad on scans 1-5 (scan 0 stays, as pose mode freezes it).
+POSE_DELTA_M, POSE_DELTA_RAD = 0.003, 0.002
+
+
+def phase_pose(card: str, data, cfg):
+    """Pose correction at full width on phase 3's prepared slice: pose mode,
+    nonzero deltas on scans 1-5, 8 Adam steps of train.fit. The loss at the
+    seeded deltas against the float64 plain path (bar 1e-5), the deltas'
+    gradient against float64 (printed), scan 0's delta exactly 0 after the
+    steps, K1 and K2 launched once a step each, pose_step_ms and the
+    step's device-busy share."""
+    import numpy as np
+    import torch
+
+    from depth_correction_tpu_torch.models import ScaledPolynomial
+    from depth_correction_tpu_torch.ops import cellwin as cw
+    from depth_correction_tpu_torch.train import fit, make_loss_fn, make_optimizer
+
+    cfg = cfg.copy()
+    cfg.pose_correction = "pose"
+    n_scans = data.batches[0].num_scans
+    rng = np.random.default_rng(11)
+    seed = np.c_[POSE_DELTA_M * rng.standard_normal((n_scans, 3)),
+                 POSE_DELTA_RAD * rng.standard_normal((n_scans, 3))]
+    seed[0] = 0.0
+
+    def leaves(dtype):
+        return (torch.tensor(seed, dtype=dtype, device=DEVICE, requires_grad=True),)
+
+    # The loss and the deltas' gradient at the seeded deltas and w = 0:
+    # kernels (float32) against the float64 plain path on the same graph.
+    d32, d64 = leaves(cfg.torch_dtype()), leaves(torch.float64)
+    model = ScaledPolynomial(w=[0.0], exponent=[4.0], dtype=cfg.torch_dtype(), device=DEVICE)
+    ref = ScaledPolynomial(w=[0.0], exponent=[4.0], dtype=torch.float64, device=DEVICE)
+    loss32 = make_loss_fn(cfg)(model, data, d32)
+    loss32.backward()
+    loss64 = make_loss_fn(cfg, plain=True)(ref, data.to(dtype=torch.float64), d64)
+    loss64.backward()
+    g32, g64 = d32[0].grad.double(), d64[0].grad
+    loss_rel = abs(float(loss32.detach()) - float(loss64.detach())) / abs(float(loss64.detach()))
+    grad_rel = float((g32 - g64).abs().max() / g64.abs().max())
+    w_rel = abs(float(model.w.grad[0]) - float(ref.w.grad[0])) / abs(float(ref.w.grad[0]))
+    log("pose: loss at the seeded deltas %.9e vs float64 plain %.9e (rel %.3e); deltas' "
+        "gradient rel err %.3e (max |g| %.3e), w's %.3e (%s)"
+        % (float(loss32.detach()), float(loss64.detach()), loss_rel, grad_rel,
+           float(g64.abs().max()), w_rel, card))
+    if not loss_rel <= LOSS_REL_BAR:
+        raise RuntimeError("pose loss at the seeded deltas misses the 1e-5 bar: %.3e" % loss_rel)
+
+    # The main path: train.fit in pose mode; counts from this run only.
+    deltas = leaves(cfg.torch_dtype())
+    reset_all_launch_counts()
+    _, history = fit(cfg, data, pose_deltas=deltas)
+    check_no_first_versions("the pose slice's fit()")
+    launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES}
+    final = deltas[0].detach().cpu().numpy()
+    log("pose: %d steps, K1 %d and K2 %d launches; losses %s; scan 0's delta %s, scans 1-5 "
+        "moved by up to %.3e" % (len(history), launches["fwd"], launches["bwd"],
+                                 ", ".join("%.9e" % h[1] for h in history), final[0].tolist(),
+                                 float(np.abs(final - seed).max())))
+    if launches != {"fwd": STEPS, "bwd": STEPS}:
+        raise RuntimeError("K1 / K2 were not launched once a step: %s" % launches)
+    if final[0].any():
+        raise RuntimeError("scan 0's pose delta moved: %s" % final[0])
+    if not np.abs(final[1:] - seed[1:]).max() > 0:
+        raise RuntimeError("the pose deltas did not move")
+    if not all(np.isfinite(h[1]) for h in history):
+        raise RuntimeError("non-finite pose loss: %s" % history)
+    step_ms = statistics.median(h[3] for h in history[1:])
+
+    def step():
+        opt.zero_grad()
+        make(model, data, deltas).backward()
+        deltas[0].grad[0] = 0.0
+        opt.step()
+
+    make = make_loss_fn(cfg)
+    opt = make_optimizer(cfg, [{"params": [model.w]}, {"params": list(deltas)}])
+    profile = profile_calls(step, card, "step")
+    log("pose_step_ms %.3f (median of steps 1..%d: %s) (%s)"
+        % (step_ms, STEPS - 1, ", ".join("%.3f" % h[3] for h in history), card))
+    return {"step_ms": step_ms, "loss_rel": loss_rel, "grad_rel": grad_rel, "w_grad_rel": w_rel,
+            "launches": launches, "profile": profile}
 
 
 def main() -> int:
@@ -2012,6 +2227,8 @@ def main() -> int:
     capped = phase_capped(card)
     log("[phase 10] default Config() on ASL-laser files, shadow filter on")
     default = phase_default(card)
+    log("[phase 11] pose correction (phase 3's slice, pose mode, %d Adam steps)" % STEPS)
+    pose = phase_pose(card, res["data"], res["cfg"])
     log("build + all phases: %.1f s (%s)" % (time.perf_counter() - t0, card))
     k = res["kernels"]
     g = res["graph"]
@@ -2101,7 +2318,13 @@ def main() -> int:
         "small_node_ms": small["ms"], "small_node_e2e_ms": small["e2e_ms"],
         "grid_node_ms": gnode["ms"], "prep_s": res["prep_s"],
         "local_features_s": res["data"].prep_seconds.get("local_features"),
-        "default_loss_rel_err_w0": default["loss_rel"], "card": card}}), flush=True)
+        "default_loss_rel_err_w0": default["loss_rel"], "pose_step_ms": pose["step_ms"],
+        "pose_loss_rel_err": pose["loss_rel"], "pose_grad_rel_err": pose["grad_rel"],
+        "step_busy_ms": res["profile"]["busy_ms"], "step_wall_ms": res["profile"]["wall_ms"],
+        "capped_busy_ms": capped["profile"]["busy_ms"],
+        "capped_wall_ms": capped["profile"]["wall_ms"],
+        "pose_busy_ms": pose["profile"]["busy_ms"], "pose_wall_ms": pose["profile"]["wall_ms"],
+        "default_pose_eval_loss": default["pose"]["eval_loss"], "card": card}}), flush=True)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

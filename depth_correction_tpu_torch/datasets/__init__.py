@@ -20,6 +20,8 @@ from .wrappers import (
     DepthBiasDataset,
     FilteredDataset,
     NoisyDepthDataset,
+    NoisyPoseDataset,
+    OverridePosesDataset,
     Subscriptable,
 )
 
@@ -30,7 +32,9 @@ __all__ = [
     "FilteredDataset",
     "GroundPlaneDataset",
     "NoisyDepthDataset",
+    "NoisyPoseDataset",
     "OpenBoxDataset",
+    "OverridePosesDataset",
     "PlaneDataset",
     "Subscriptable",
     "box_point_cloud",
@@ -64,12 +68,11 @@ def dataset_by_name(name: str):
 def noisy_dataset(ds, cfg):
     """Wrap with synthetic corruption per config (reference:
     dataset.py:933-950): a known depth bias (the self-supervision ground
-    truth, a float64 model) and depth noise."""
+    truth, a float64 model), depth noise, then pose noise (the JAX
+    package's order, datasets/__init__.py:106-124)."""
     import numpy as np
     import torch
 
-    if cfg.pose_noise_mode is not None and cfg.pose_noise:
-        raise NotImplementedError("pose_noise is not ported yet")
     if cfg.depth_bias_model_class:
         from ..models import load_model
 
@@ -88,16 +91,19 @@ def noisy_dataset(ds, cfg):
             ds = DepthBiasDataset(ds, gt_model, cfg=cfg)
     if cfg.depth_noise:
         ds = NoisyDepthDataset(ds, noise=cfg.depth_noise)
+    if cfg.pose_noise_mode is not None and cfg.pose_noise:
+        ds = NoisyPoseDataset(ds, noise=cfg.pose_noise, mode=cfg.pose_noise_mode)
     return ds
 
 
 def create_dataset(name: str, cfg, noisy: bool = True, poses_path=None, **kwargs):
-    """Dataset factory: base -> filtered -> corrupted -> sliced
-    (reference: dataset.py:953-962)."""
-    if poses_path:
-        raise NotImplementedError("poses_path overrides are not ported yet")
+    """Dataset factory: base -> poses override -> filtered -> corrupted ->
+    sliced (reference: dataset.py:953-962; ``poses_path`` replaces the
+    poses with a CSV file's, JAX package datasets/__init__.py:116-125)."""
     cls = dataset_by_name(name)
     ds = cls(name, *list(cfg.dataset_args or []), **dict(cfg.dataset_kwargs or {}), **kwargs)
+    if poses_path:
+        ds = OverridePosesDataset(ds, poses_path)
     ds = FilteredDataset(ds, cfg)
     if noisy:
         ds = noisy_dataset(ds, cfg)

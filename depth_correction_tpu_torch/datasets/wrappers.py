@@ -20,6 +20,8 @@ __all__ = [
     "FilteredDataset",
     "Forwarding",
     "NoisyDepthDataset",
+    "NoisyPoseDataset",
+    "OverridePosesDataset",
     "Subscriptable",
     "TransformingDataset",
 ]
@@ -82,6 +84,46 @@ class TransformingDataset(Forwarding):
         return self.transform_pose(self.target.cloud_pose(id))
 
 
+class OverridePosesDataset(TransformingDataset):
+    """Replace the dataset's poses with ones read from a CSV file: training
+    from SLAM-estimated rather than ground-truth poses (reference:
+    main.py:288-293, dataset.py:533-571; JAX package,
+    datasets/wrappers.py:85-133).
+
+    The CSV uses the robot_data schema (``poseId, timestamp, T00..T33``),
+    read by ``asl_laser.read_poses``. Poses align to the scans by id when
+    every scan id is a pose id (a full-sequence file reused with a narrower
+    or reordered slice); otherwise by position, which needs one pose a scan.
+    """
+
+    def __init__(self, dataset, poses_path: str):
+        from .asl_laser import read_poses
+
+        super().__init__(dataset)
+        self.poses_path = poses_path
+        ids, poses = read_poses(poses_path)
+        n = len(dataset)
+        by_id = {str(i): p for i, p in zip(ids, poses)}
+        ds_ids = [str(i) for i in getattr(dataset, "ids", range(n))]
+        alignable = (len(ds_ids) == n and len(set(ds_ids)) == n
+                     and all(i in by_id for i in ds_ids))
+        if alignable:
+            poses = [by_id[i] for i in ds_ids]
+        elif len(poses) != n:
+            raise ValueError("poses file %s holds %d poses for %d scans and the scan ids do "
+                             "not match the pose ids" % (poses_path, len(poses), n))
+        self.poses = [np.asarray(p, np.float64) for p in poses]
+
+    def transform_pose(self, pose, item=None):
+        if item is None:
+            return pose
+        return self.poses[int(item)]
+
+    def cloud_pose(self, id):
+        ids = list(self.target.ids)
+        return self.poses[ids.index(id)]
+
+
 class FilteredDataset(TransformingDataset):
     """Depth + grid filtering on access (reference: dataset.py:765-773)."""
 
@@ -95,6 +137,53 @@ class FilteredDataset(TransformingDataset):
 
         pts, vps, normals = filtered_cloud(cloud, self.cfg)
         return make_structured(pts, normals=normals, vps=vps)
+
+
+class NoisyPoseDataset(TransformingDataset):
+    """SE(3) pose noise, per pose or common to all (reference:
+    dataset.py:776-817; JAX package, datasets/wrappers.py:151-193).
+
+    ``pose`` mode draws each pose's noise from a seed of the pose itself
+    and leaves the first pose as it is unless ``first_noisy``; ``common``
+    draws one transform from seed 135 for every pose.
+    """
+
+    MODES = ("pose", "common")
+
+    def __init__(self, dataset, noise=0.0, mode="common", first_noisy=False):
+        assert mode in self.MODES
+        super().__init__(dataset)
+        noise = np.asarray(noise, np.float64)
+        assert noise.ndim == 0 or noise.shape == (6,)
+        self.noise = noise
+        self.mode = mode
+        self.first_noisy = first_noisy
+
+    def random_transform(self, seed):
+        from .synthetic import euler_matrix
+
+        rng = np.random.default_rng(seed)
+        vec = self.noise * rng.normal(size=6)
+        T = euler_matrix(*vec[:3])
+        T[:3, 3] = vec[3:]
+        return T
+
+    def transform_pose(self, pose, item=None):
+        if self.mode == "pose":
+            if not self.first_noisy and item == 0:
+                return pose
+            seed = _stable_seed(pose)
+        else:
+            seed = 135
+        if np.any(self.noise != 0.0):
+            pose = pose @ self.random_transform(seed)
+        return pose
+
+    def cloud_pose(self, id):
+        # The positional index, so that the first-pose exemption holds
+        # through both access paths (ds[0] and cloud_pose(id)).
+        ids = list(self.target.ids)
+        return self.transform_pose(self.target.cloud_pose(id), item=ids.index(id))
 
 
 class NoisyDepthDataset(TransformingDataset):

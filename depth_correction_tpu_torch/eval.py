@@ -1,0 +1,128 @@
+"""Loss evaluation (counterpart of ``depth_correction_tpu/eval.py``).
+
+Evaluate a trained model's map-consistency loss on test sequences and
+append the result to a CSV in the reference's schema
+(``loss_eval_<loss>[_<subset>].csv``, rows ``"<names> <loss>"``;
+reference: eval.py:115-211). Pose corrections come from
+``cfg.test_pose_deltas`` (an npz file that either package's ``train()``
+wrote) or start at zero. The ICP loss and SLAM evaluation are not ported:
+:func:`eval_loss_all` with ``icp_loss`` among ``cfg.eval_losses``,
+:func:`eval_icp` and :func:`eval_slam_all` raise NotImplementedError naming
+them.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from .config import Config, PoseCorrection, loss_eval_csv
+from .loss import create_loss
+from .models import load_model
+from .train import TrainData, _pose_path, init_pose_deltas, make_loss_fn, prepare_sequences
+from .utils.io import append
+
+__all__ = ["eval_icp", "eval_loss", "eval_loss_all", "eval_slam_all",
+           "initialize_pose_corrections"]
+
+
+def initialize_pose_corrections(data: TrainData, cfg: Config):
+    """Zero pose deltas for ``cfg.pose_correction`` (reference:
+    eval.py:31-65): :func:`train.init_pose_deltas`."""
+    return init_pose_deltas(data, cfg)
+
+
+def _test_pose_deltas(cfg: Config, data: TrainData):
+    """The deltas of ``cfg.test_pose_deltas`` (keys sorted as integers,
+    so that ``10`` follows ``9``), or zeros; None without pose correction."""
+    if cfg.pose_correction == PoseCorrection.none:
+        return None
+    if not cfg.test_pose_deltas:
+        return init_pose_deltas(data, cfg)
+    from .utils.checkpoint import load_pytree
+
+    loaded = load_pytree(cfg.test_pose_deltas)
+    try:
+        keys = sorted(loaded, key=int)
+    except ValueError:
+        keys = sorted(loaded)
+    return tuple(torch.as_tensor(loaded[k], device=cfg.torch_device()) for k in keys)
+
+
+def eval_loss(cfg: Config, test_datasets: Optional[Sequence] = None, model=None,
+              loss_fun=None, test_data: Optional[TrainData] = None,
+              return_data: bool = False):
+    """The configured loss on test sequences, forward only (reference:
+    eval.py:115-191; JAX package, eval.py:40-141), on ``cfg.torch_device()``.
+
+    The sequences are ``test_datasets`` or ``cfg.test_names`` (with
+    ``cfg.test_poses_path``); the model ``model`` or ``load_model(cfg=cfg)``.
+    Prints the loss and, with ``cfg.loss_eval_csv`` set, appends
+    ``"<names> <loss>"`` to it.
+
+    :return: the loss as a float (and the prepared TrainData when
+        ``return_data``).
+    """
+    from .datasets import create_dataset
+
+    if test_datasets:
+        test_names = [str(ds) for ds in test_datasets]
+    else:
+        test_names = list(cfg.test_names or [])
+        test_datasets = [create_dataset(name, cfg,
+                                        poses_path=_pose_path(cfg.test_poses_path, i, test_names))
+                         for i, name in enumerate(test_names)]
+    if not test_datasets:
+        raise ValueError("No test data: set cfg.test_names or pass test_datasets.")
+    if model is None:
+        model = load_model(cfg=cfg)
+    if test_data is None:
+        test_data = prepare_sequences(test_datasets, cfg, for_grad=False)
+    deltas = _test_pose_deltas(cfg, test_data)
+    with torch.no_grad():
+        value = float(make_loss_fn(cfg, loss_fun=loss_fun or create_loss(cfg))(
+            model, test_data, deltas))
+    print("Test loss on %s: %.9f" % (", ".join(test_names), value))
+    if cfg.loss_eval_csv:
+        append(cfg.loss_eval_csv, "%s %.9f\n" % (",".join(test_names), value))
+    if return_data:
+        return value, test_data
+    return value
+
+
+def eval_loss_all(cfg: Config):
+    """Every loss of ``cfg.eval_losses`` on the train, val and test
+    sequences with ground-truth poses (reference: eval.py:194-211), each
+    appended to ``loss_eval_<loss>_<subset>.csv`` in ``cfg.log_dir``.
+
+    :return: {(subset, loss): value}.
+    """
+    if "icp_loss" in list(cfg.eval_losses or []):
+        raise NotImplementedError("icp_loss is not ported yet (eval_losses holds it)")
+    results = {}
+    for names, suffix in zip([cfg.train_names, cfg.val_names, cfg.test_names],
+                             ["train", "val", "test"]):
+        if not names:
+            continue
+        for loss in cfg.eval_losses:
+            eval_cfg = cfg.copy()
+            eval_cfg.test_names = list(names)
+            eval_cfg.train_poses_path = []
+            eval_cfg.val_poses_path = []
+            eval_cfg.test_poses_path = []
+            eval_cfg.loss = loss
+            eval_cfg.loss_eval_csv = loss_eval_csv(cfg.log_dir, loss, suffix)
+            results[(suffix, loss)] = eval_loss(eval_cfg)
+    return results
+
+
+def eval_slam_all(cfg: Config):
+    """SLAM evaluation (reference: eval.py:266-290) is not ported yet."""
+    raise NotImplementedError("eval_slam_all (SLAM evaluation, eval_slams %s) is not ported yet"
+                              % list(cfg.eval_slams or []))
+
+
+def eval_icp(cfg: Config, test_datasets: Optional[Sequence] = None):
+    """The ICP loss on test sequences (reference: eval.py:100-104) is not
+    ported yet."""
+    raise NotImplementedError("eval_icp (icp_loss) is not ported yet")

@@ -38,6 +38,7 @@ __all__ = [
     "GATHER_LAUNCHES",
     "GATHER_PACK_MIN_PAIRS",
     "GATHER_PROBE_LAUNCHES",
+    "GATHER_PROBE_V1_LAUNCHES",
     "GATHER_SUM_LAUNCHES",
     "GATHER_SUM_V1_LAUNCHES",
     "GATHER_V1_LAUNCHES",
@@ -63,6 +64,7 @@ __all__ = [
     "launch_gather_moments",
     "launch_gather_moments_v1",
     "launch_gather_probe",
+    "launch_gather_probe_v1",
     "launch_gather_sum",
     "launch_gather_sum_v1",
     "launch_grid_query",
@@ -88,7 +90,7 @@ SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
                              "moment_dot_v1.cu", "moment_window.cu", "moment_window_v1.cu",
                              "grid_query.cu",
                              "grid_query_v1.cu", "layout_probe.cu", "layout_probe_v1.cu",
-                             "gather_probe.cu", "knn_brute.cu", "knn_brute_v1.cu",
+                             "gather_probe.cu", "gather_probe_v1.cu", "knn_brute.cu", "knn_brute_v1.cu",
                              "gather_sum.cu", "gather_sum_v1.cu", "gather_moments_v1.cu"))
 # Headers the sources include; they key the build like the sources.
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
@@ -113,7 +115,7 @@ NVCC_FLAGS = (
 SLAB_LAUNCHES = 0
 GRID_LAUNCHES = 0
 KNN_LAUNCHES = 0
-# The first versions of X1, X2, X3, P2, P3-P5, P6, P7 and P7a, for the A/B only
+# The first versions of X1, X2, X3, P2, P3-P5, P6, P7, P7a and P8, for the A/B only
 # (no path launches them).
 SLAB_V1_LAUNCHES = 0
 GRID_V1_LAUNCHES = 0
@@ -123,6 +125,7 @@ WINDOW_V1_LAUNCHES = 0
 LAYOUT_V1_LAUNCHES = 0
 GATHER_V1_LAUNCHES = 0
 GATHER_SUM_V1_LAUNCHES = 0
+GATHER_PROBE_V1_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 KNOCKOUT_LAUNCHES = 0
 DOT_LAUNCHES = 0
@@ -227,8 +230,10 @@ def load():
             window.argtypes = [_I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _I, _P,
                                _P]
             window.restype = _I
-        lib.dc_gather_probe.argtypes = [_I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
-        lib.dc_gather_probe.restype = _I
+        for suffix in ("", "_v1"):
+            probe = getattr(lib, "dc_gather_probe" + suffix)
+            probe.argtypes = [_I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
+            probe.restype = _I
         for suffix in ("", "_v1"):
             gsum = getattr(lib, "dc_gather_sum" + suffix)
             gsum.argtypes = [_P, _I, _P, _I, _I, _P, _P]
@@ -757,11 +762,8 @@ def launch_layout_probe_v1(probe: int, x, out_shape) -> torch.Tensor:
     return out
 
 
-def launch_gather_probe(staged: bool, axis: int, x, idx) -> torch.Tensor:
-    """P8 on CUDA tensors: x (rows, cols) float32, idx (i_rows, i_cols)
-    int32 in range -> take_along_axis(x, idx, axis) (i_rows, i_cols)
-    float32, from device memory or (``staged``) from shared memory."""
-    global GATHER_PROBE_LAUNCHES
+def _launch_gather_probe(name: str, staged: bool, axis: int, x, idx) -> torch.Tensor:
+    """One launch of ``dc_<name>`` (P8 or its first version)."""
     device = x.device
     if device.type != "cuda":
         raise ValueError("the gather probe kernels take CUDA tensors, got %s" % device)
@@ -773,10 +775,32 @@ def launch_gather_probe(staged: bool, axis: int, x, idx) -> torch.Tensor:
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dc_gather_probe(int(bool(staged)), int(axis), x.data_ptr(), idx.data_ptr(),
-                                  x_rows, x_cols, i_rows, i_cols, out.data_ptr(), stream)
-    _check_launch(lib, err, "gather_probe")
+        err = getattr(lib, "dc_" + name)(int(bool(staged)), int(axis), x.data_ptr(),
+                                         idx.data_ptr(), x_rows, x_cols, i_rows, i_cols,
+                                         out.data_ptr(), stream)
+    _check_launch(lib, err, name)
+    return out
+
+
+def launch_gather_probe(staged: bool, axis: int, x, idx) -> torch.Tensor:
+    """P8 on CUDA tensors: x (rows, cols) float32, idx (i_rows, i_cols)
+    int32 in range -> take_along_axis(x, idx, axis) (i_rows, i_cols)
+    float32, from device memory or (``staged``) from shared memory: one
+    block's, or a cluster's of 8 blocks where an axis-1 row does not fit
+    one block."""
+    global GATHER_PROBE_LAUNCHES
+    out = _launch_gather_probe("gather_probe", staged, axis, x, idx)
     GATHER_PROBE_LAUNCHES += 1
+    return out
+
+
+def launch_gather_probe_v1(staged: bool, axis: int, x, idx) -> torch.Tensor:
+    """P8's first version (``csrc/gather_probe_v1.cu``: one output a
+    thread; no staged form past one block), the arguments and result of
+    :func:`launch_gather_probe`; for the A/B only."""
+    global GATHER_PROBE_V1_LAUNCHES
+    out = _launch_gather_probe("gather_probe_v1", staged, axis, x, idx)
+    GATHER_PROBE_V1_LAUNCHES += 1
     return out
 
 
@@ -993,13 +1017,13 @@ def launch_gather_sum_v1(pts_T, idx) -> torch.Tensor:
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts kept here (X1, X2, X3, P2-P7, P7a and their
-    first versions, P1, P8)."""
+    """Zero the launch counts kept here (X1, X2, X3, P2-P8, P7a and their
+    first versions, P1)."""
     global SLAB_LAUNCHES, GRID_LAUNCHES, KNN_LAUNCHES, GATHER_LAUNCHES, KNOCKOUT_LAUNCHES
     global DOT_LAUNCHES, WINDOW_LAUNCHES, LAYOUT_LAUNCHES, GATHER_SUM_LAUNCHES
     global GATHER_PROBE_LAUNCHES, KNN_V1_LAUNCHES, SLAB_V1_LAUNCHES, GRID_V1_LAUNCHES
     global DOT_V1_LAUNCHES, LAYOUT_V1_LAUNCHES, GATHER_V1_LAUNCHES, GATHER_SUM_V1_LAUNCHES
-    global WINDOW_V1_LAUNCHES
+    global WINDOW_V1_LAUNCHES, GATHER_PROBE_V1_LAUNCHES
     SLAB_LAUNCHES = 0
     GRID_LAUNCHES = 0
     KNN_LAUNCHES = 0
@@ -1018,3 +1042,4 @@ def reset_launch_counts() -> None:
     WINDOW_LAUNCHES = 0
     LAYOUT_LAUNCHES = 0
     GATHER_PROBE_LAUNCHES = 0
+    GATHER_PROBE_V1_LAUNCHES = 0

@@ -287,11 +287,19 @@ def _decompose_minispans(st: np.ndarray, ln: np.ndarray,
     return starts, lens, nb, n_over
 
 
+# Why the last build_cellwin_graph call declined (the text of the check
+# that fired), or None after a build.
+LAST_NOTE = None
+
+
 def _note(msg: str) -> None:
-    """Build-time diagnostic (stderr) under DC_CELLWIN_DEBUG=1."""
+    """Build-time diagnostic: kept in :data:`LAST_NOTE`, and printed to
+    stderr under DC_CELLWIN_DEBUG=1 (as the JAX package prints it)."""
     import os
     import sys
 
+    global LAST_NOTE
+    LAST_NOTE = msg
     if os.environ.get("DC_CELLWIN_DEBUG"):
         print("[cellwin] %s" % msg, file=sys.stderr)
 
@@ -338,6 +346,8 @@ def build_cellwin_graph(
         tiles degrade to the gather exception path (p99 of the bench
         distribution is 16, so the default exceptions ~1% of rows).
     """
+    global LAST_NOTE
+    LAST_NOTE = None
     est_points = np.asarray(est_points, np.float64)
     # The kernels read establishment positions quantized to float32 at
     # GLOBAL magnitude (q_est / est_sorted are f32 tables); the exactness
@@ -414,6 +424,7 @@ def build_cellwin_graph(
     rows = qrows[qrows >= 0]
     mq_real = rows.shape[0]
     if mq_real == 0:
+        _note("declined: no query rows")
         return None
     lin_rows = lin[rows]
     r_order = np.argsort(lin_rows, kind="stable")

@@ -3,11 +3,14 @@
 Counterpart of the Pallas probe ``scripts/exp_pallas_gather2.py``: cases
 A-E, ``take_along_axis`` along a row (axis 1) or a column (axis 0), and a
 1-D ``take`` (E, one row). Each case runs in two forms (:data:`FORMS`):
-``global`` gathers from device memory, ``staged`` from the block's shared
-memory after staging the row (axis 1) or all of x (axis 0), which exists
-only where that fits one block (:func:`staged_fits`). The kernels are
-``csrc/gather_probe.cu``; on CPU tensors the wrapper runs
-:func:`gather_probe_plain`.
+``global`` gathers from device memory, ``staged`` from shared memory after
+staging the row (axis 1) or all of x (axis 0) in one block, or, for an
+axis-1 row too long for one block, spread over the shared memory of a
+cluster of :data:`CLUSTER_BLOCKS` blocks; it exists only where that fits
+(:func:`staged_blocks`). The kernels are ``csrc/gather_probe.cu``; on CPU
+tensors the wrapper runs :func:`gather_probe_plain`. :func:`gather_probe_v1`
+launches the first version (``csrc/gather_probe_v1.cu``, one output a
+thread, no cluster form), for the A/B on the card only.
 """
 from __future__ import annotations
 
@@ -15,18 +18,32 @@ import torch
 
 from . import _kernels
 
-__all__ = ["FORMS", "STAGED_BYTES", "gather_probe", "gather_probe_plain", "staged_fits"]
+__all__ = ["CLUSTER_BLOCKS", "FORMS", "STAGED_BYTES", "gather_probe", "gather_probe_plain",
+           "gather_probe_v1", "staged_blocks", "staged_fits"]
 
 FORMS = ("global", "staged")
 # Shared memory one block may use on an H100 (the opt-in limit, 227 KB).
 STAGED_BYTES = 232448
+# Blocks of the cluster that holds a staged row too long for one block
+# (csrc/gather_probe.cu's kCluster; 8 is the portable cluster size).
+CLUSTER_BLOCKS = 8
+
+
+def staged_blocks(x: torch.Tensor, axis: int) -> int:
+    """The blocks whose shared memory holds the staged form's table: 1
+    where x's row (axis 1) or all of x (axis 0), as float32, fits one
+    block; :data:`CLUSTER_BLOCKS` where an axis-1 row fits a cluster's
+    blocks in slices of a multiple of 4 floats; 0 where it fits neither."""
+    x2 = x.reshape(1, -1) if x.dim() == 1 else x
+    if 4 * (x2.shape[1] if axis == 1 else x2.numel()) <= STAGED_BYTES:
+        return 1
+    slice_cols = 4 * -(-x2.shape[1] // (4 * CLUSTER_BLOCKS))  # ceil(cols / 8) to a multiple of 4
+    return CLUSTER_BLOCKS if axis == 1 and 4 * slice_cols <= STAGED_BYTES else 0
 
 
 def staged_fits(x: torch.Tensor, axis: int) -> bool:
-    """Whether the staged form's table (x's row for axis 1, all of x for
-    axis 0, as float32) fits one block's shared memory."""
-    x2 = x.reshape(1, -1) if x.dim() == 1 else x
-    return 4 * (x2.shape[1] if axis == 1 else x2.numel()) <= STAGED_BYTES
+    """Whether the staged form exists for x (:func:`staged_blocks` > 0)."""
+    return staged_blocks(x, axis) > 0
 
 
 def gather_probe_plain(x: torch.Tensor, idx: torch.Tensor, axis: int) -> torch.Tensor:
@@ -47,8 +64,20 @@ def gather_probe(x: torch.Tensor, idx: torch.Tensor, axis: int, form: str) -> to
     if x.device.type == "cpu":
         return gather_probe_plain(x, idx, axis)
     if form == "staged" and not staged_fits(x, axis):
-        raise ValueError("gather_probe: the staged table of x %s does not fit one block's "
-                         "%d bytes of shared memory" % (tuple(x.shape), STAGED_BYTES))
+        raise ValueError("gather_probe: the staged table of x %s does not fit the %d bytes "
+                         "of shared memory of one block, nor of a cluster of %d"
+                         % (tuple(x.shape), STAGED_BYTES, CLUSTER_BLOCKS))
     if x.dim() == 1:
         return _kernels.launch_gather_probe(form == "staged", 1, x[None], idx[None])[0]
     return _kernels.launch_gather_probe(form == "staged", axis, x, idx)
+
+
+def gather_probe_v1(x: torch.Tensor, idx: torch.Tensor, axis: int, form: str) -> torch.Tensor:
+    """P8's first version on CUDA tensors, the function of :func:`gather_probe`
+    where its staged table fits one block (it has no cluster form); it has
+    no plain route, so a CPU tensor raises."""
+    if form not in FORMS:
+        raise ValueError("unknown gather form %r (forms: %s)" % (form, ", ".join(FORMS)))
+    if x.dim() == 1:
+        return _kernels.launch_gather_probe_v1(form == "staged", 1, x[None], idx[None])[0]
+    return _kernels.launch_gather_probe_v1(form == "staged", axis, x, idx)

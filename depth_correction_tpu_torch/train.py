@@ -10,11 +10,13 @@ masks, the cell-window graph) happens once; each step then runs
 
 This port covers the min-eigenvalue / trace training step with Adam or
 SGD on one device, over the uncapped graph (the cell-window kernels) or a
-capped one (gather moments by torch autograd), with validation sequences
-and the JAX package's outputs (``train.yaml``, the best model's
-``<tag>_state_dict.npz``, ``best.yaml``, ``train_history.csv``). Every
-option outside it raises NotImplementedError naming the option
-(:func:`check_slice`).
+capped one (gather moments by torch autograd), with pose corrections
+(``pose_correction`` none, common, sequence or pose: SE(3) deltas trained
+beside the model, their gradient through K2 and the pose transform), with
+validation sequences and the JAX package's outputs (``train.yaml``, the
+best model's ``<tag>_state_dict.npz`` and ``<tag>_pose_deltas.npz``,
+``best.yaml``, ``train_history.csv``). Every option outside it raises
+NotImplementedError naming the option (:func:`check_slice`).
 """
 from __future__ import annotations
 
@@ -40,6 +42,7 @@ from .preproc import (
     pad_size,
     sequence_batch,
 )
+from .utils.checkpoint import save_pytree
 
 __all__ = [
     "FeatureRows",
@@ -47,6 +50,7 @@ __all__ = [
     "TrainData",
     "check_slice",
     "fit",
+    "init_pose_deltas",
     "make_loss_fn",
     "make_optimizer",
     "prepare_sequences",
@@ -57,7 +61,6 @@ __all__ = [
 def check_slice(cfg: Config) -> None:
     """Raise NotImplementedError for any option outside the ported slice."""
     unsupported = [
-        ("pose_correction", cfg.pose_correction != PoseCorrection.none),
         ("loss_offset", bool(cfg.loss_offset)),
         ("nn_scale", cfg.nn_scale is not None),
         ("nn_type=plane", cfg.nn_type == NeighborhoodType.plane),
@@ -92,6 +95,45 @@ class TrainCallbacks:
         """Fired each step with the validation loss at the same model."""
 
 
+def init_pose_deltas(data: "TrainData", cfg: Config):
+    """Zero pose corrections for ``cfg.pose_correction`` (JAX package,
+    train.py:600-622; reference: eval.py:31-65): None for ``none``; one
+    (1, 6) leaf shared by every sequence for ``common``; a (1, 6) leaf a
+    sequence for ``sequence``; an (S, 6) leaf a sequence, a row a scan, for
+    ``pose``. Each row is [tx ty tz rx ry rz] (translation, axis-angle);
+    the leaves require grad, in ``cfg.torch_dtype()`` on
+    ``cfg.torch_device()``."""
+    mode = cfg.pose_correction
+    if mode == PoseCorrection.none:
+        return None
+    kw = {"dtype": cfg.torch_dtype(), "device": cfg.torch_device(), "requires_grad": True}
+    if mode == PoseCorrection.common:
+        return (torch.zeros((1, 6), **kw),)
+    if mode == PoseCorrection.sequence:
+        return tuple(torch.zeros((1, 6), **kw) for _ in data.batches)
+    if mode == PoseCorrection.pose:
+        return tuple(torch.zeros((b.num_scans, 6), **kw) for b in data.batches)
+    raise ValueError(mode)
+
+
+def _delta_for_seq(pose_deltas, i: int, mode):
+    """Sequence ``i``'s delta: the shared leaf in ``common`` mode."""
+    if pose_deltas is None:
+        return None
+    return pose_deltas[0] if mode == PoseCorrection.common else pose_deltas[i]
+
+
+def _mask_delta_grads(pose_deltas, cfg: Config) -> None:
+    """Freeze the first pose in ``pose`` mode (JAX package, train.py:936-940;
+    reference: train.py:308-311): its gradient is zeroed, so Adam and SGD
+    leave it exactly where it is."""
+    if pose_deltas is None or cfg.pose_correction != PoseCorrection.pose:
+        return
+    for d in pose_deltas:
+        if d.grad is not None:
+            d.grad[0] = 0.0
+
+
 def _pose_path(paths, i: int, names):
     """Entry ``i`` of a ``*_poses_path`` list, with a clear error on a
     length mismatch (JAX package, train.py:48-59)."""
@@ -119,6 +161,9 @@ class TrainData:
     query_rows: tuple  # tuple[(Mq,) int64] row -> global point, -1 padding
     cellwin: tuple  # tuple[ops.cellwin.CellWinDevice or None]
     prep_seconds: dict = dataclasses.field(default_factory=dict)
+    # Why each sequence's cell-window build declined (the builder's note),
+    # None where it built or was not tried.
+    cellwin_notes: tuple = ()
 
     def to(self, device=None, dtype=None) -> "TrainData":
         """Move to ``device`` and cast the floating point clouds and
@@ -148,6 +193,7 @@ class TrainData:
             query_rows=tuple(mv(x) for x in self.query_rows),
             cellwin=tuple(mv_cw(c) for c in self.cellwin),
             prep_seconds=dict(self.prep_seconds),
+            cellwin_notes=self.cellwin_notes,
         )
 
 
@@ -206,11 +252,12 @@ def prepare_sequences(datasets, cfg: Config, for_grad: bool = True) -> TrainData
     printed to stderr and kept in ``TrainData.prep_seconds``.
     """
     check_slice(cfg)
-    from .ops.cellwin import build_cellwin_graph, graph_to_device
+    from .ops import cellwin as cwin
 
     device = cfg.torch_device()
     seconds: dict = {}
     batches, neighbors, weights, masks, query_rows, cellwin = [], [], [], [], [], []
+    notes = []
     use_cellwin = _use_cellwin(cfg, for_grad)
     for ds in datasets:
         t = time.perf_counter()
@@ -259,7 +306,7 @@ def prepare_sequences(datasets, cfg: Config, for_grad: bool = True) -> TrainData
         masks.append(qvalid)
         query_rows.append(qrows)
 
-        cw_dev = None
+        cw_dev = note = None
         if use_cellwin:
             extra = {}
             if cfg.cellwin_eps_rel is not None:
@@ -272,7 +319,7 @@ def prepare_sequences(datasets, cfg: Config, for_grad: bool = True) -> TrainData
             g = None
             # Escalate the span budget once before declining.
             for span_limit in (512, 1024):
-                g = build_cellwin_graph(
+                g = cwin.build_cellwin_graph(
                     pts_np, valid_np, qrows_np, nn_np, float(cfg.nn_r),
                     row_cap=int(cfg.cellwin_row_cap),
                     pt_cap=int(cfg.cellwin_pt_cap),
@@ -283,27 +330,30 @@ def prepare_sequences(datasets, cfg: Config, for_grad: bool = True) -> TrainData
                 if g is not None:
                     break
             if g is not None:
-                cw_dev = graph_to_device(g, device)
+                cw_dev = cwin.graph_to_device(g, device)
                 print("[prep] cellwin graph: %d rows -> %d tiles x %d "
                       "(span cap %d/%d), %d exception rows"
                       % (g.n_rows, g.n_row_tiles, g.row_cap, g.span_cap,
                          g.rspan_cap, g.n_exc), file=sys.stderr)
             else:
-                print("[prep] cellwin build declined; using gather moments",
-                      file=sys.stderr)
+                note = cwin.LAST_NOTE
+                print("[prep] cellwin build %s; using gather moments" % note, file=sys.stderr)
             t = _tick(seconds, "cellwin_build", t, device)
         cellwin.append(cw_dev)
+        notes.append(note)
     for part, s in seconds.items():
         print("[prep] %s: %.3f s" % (part, s), file=sys.stderr)
     return TrainData(
         batches=tuple(batches), neighbors=tuple(neighbors), weights=tuple(weights),
         masks=tuple(masks), query_rows=tuple(query_rows), cellwin=tuple(cellwin),
-        prep_seconds=seconds,
+        prep_seconds=seconds, cellwin_notes=tuple(notes),
     )
 
 
 def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
-    """Loss of the model over all sequences: ``loss_fn(model, data)``.
+    """Loss of the model over all sequences: ``loss_fn(model, data,
+    pose_deltas=None)``, with ``pose_deltas`` as :func:`init_pose_deltas`
+    makes them (each sequence's poses right-multiplied by its delta).
 
     Mirrors ``eval_loss_clouds`` (reference: eval.py:85-112) for the
     map-consistency losses: corrected global clouds -> features over frozen
@@ -312,15 +362,17 @@ def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
     """
     check_slice(cfg)
     loss_fun = loss_fun or create_loss(cfg)
+    mode = cfg.pose_correction
 
-    def loss_fn(model, data: TrainData):
+    def loss_fn(model, data: TrainData, pose_deltas=None):
         from .ops.cellwin import cellwin_features
         from .ops.features import neighborhood_features, permute_rows
 
         feats, seq_masks = [], []
         for i, batch in enumerate(data.batches):
             cw = data.cellwin[i] if data.cellwin else None
-            gcloud = global_cloud(batch, model=model)
+            gcloud = global_cloud(batch, model=model,
+                                  pose_deltas=_delta_for_seq(pose_deltas, i, mode))
             if cw is not None:
                 # The kernels consume the padded cell-sorted point layout;
                 # rows live in the graph's padded tile layout.
@@ -345,7 +397,10 @@ def make_optimizer(cfg: Config, params):
     train.py:869-895): ``optax.adam(lr)`` with betas (0.9, 0.999) and eps
     1e-8 becomes ``torch.optim.Adam`` with the same values;
     ``optax.sgd(lr, momentum, nesterov)`` becomes ``torch.optim.SGD``, whose
-    momentum buffer starts at the first gradient as optax's trace does."""
+    momentum buffer starts at the first gradient as optax's trace does.
+    ``params`` is a list of tensors or of parameter groups (the model's and
+    the pose deltas'); both optimizers update each element on its own, as
+    optax does each leaf."""
     check_slice(cfg)
     kwargs = dict(cfg.optimizer_kwargs or {})
     lr = float(cfg.optimizer_args[0]) if cfg.optimizer_args else cfg.lr
@@ -363,20 +418,32 @@ def make_optimizer(cfg: Config, params):
 
 
 def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] = None,
-        val_data: Optional[TrainData] = None, on_step=None):
+        val_data: Optional[TrainData] = None, on_step=None, pose_deltas=None):
     """The optimisation loop of :func:`train`: ``cfg.n_opt_iters`` steps of
-    Adam or SGD on ``cfg.torch_device()`` (with ``optimize_model`` False
-    the model's gradients are zeroed, so it stays as loaded).
+    Adam or SGD on ``cfg.torch_device()`` over the model and, with
+    ``cfg.pose_correction``, the pose deltas (a second parameter group;
+    with ``optimize_model`` False the model's gradients are zeroed, so it
+    stays as loaded; in ``pose`` mode so is the first pose's).
 
     Each step evaluates the training loss, and the validation loss on
-    ``val_data`` (forward only) at the model the step starts from, then
-    updates the model; ``step_ms`` covers the step and the validation loss
-    and ends in a sync (JAX package, train.py:1197-1214). The step's
-    weights are cloned on the device before the update, with no sync.
+    ``val_data`` at the model the step starts from, then updates the
+    model (JAX package, train.py:1059-1097, 1197-1214): in ``sequence`` and
+    ``pose`` modes validation takes a step of its own optimizer on the
+    validation sequences' own deltas (``val_data`` prepared for gradients),
+    in ``common`` mode it reuses the training delta, otherwise it is
+    forward only. ``step_ms`` covers the step and validation and ends in a
+    sync. The step's weights are cloned on the device before the update,
+    with no sync.
 
     :param on_step: called after each step's timing as ``on_step(it, model,
-        row, state)`` with the history row and the pre-step weights
-        (:func:`models.model_state`); returns whether they were saved.
+        row, state)`` with the history row and the pre-step values:
+        ``state["model"]`` (:func:`models.model_state`), and with pose
+        deltas ``state["pose_deltas"]`` and their masked gradients
+        ``state["pose_grads"]`` (tuples of tensors); returns whether they
+        were saved.
+    :param pose_deltas: the training deltas to start from (leaf tensors
+        that require grad, shaped as :func:`init_pose_deltas` makes them;
+        updated in place); default zeros.
     :return: (model, history) — the trained ``nn.Module`` and the rows
         (iteration, train loss, val loss, step_ms); without ``val_data``
         the val loss is the train loss.
@@ -384,30 +451,54 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
     check_slice(cfg)
     callbacks = callbacks or TrainCallbacks(cfg)
     device = cfg.torch_device()
+    mode = cfg.pose_correction
     model = load_model(cfg=cfg)
     loss_fn = make_loss_fn(cfg)
     params = [p for p in model.parameters() if p.requires_grad]
-    opt = make_optimizer(cfg, params)
+    if pose_deltas is None:
+        pose_deltas = init_pose_deltas(train_data, cfg)
+    groups = [g for g in (params, list(pose_deltas or ())) if g]
+    opt = make_optimizer(cfg, [{"params": g} for g in groups])
+    val_deltas = val_opt = None
+    if val_data is not None and mode in (PoseCorrection.sequence, PoseCorrection.pose):
+        val_deltas = init_pose_deltas(val_data, cfg)
+        val_opt = make_optimizer(cfg, list(val_deltas))
     callbacks.train_inputs(0, train_data)
     history = []
     for it in range(cfg.n_opt_iters):
         callbacks.iteration_started(it)
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model, train_data)
+        loss = loss_fn(model, train_data, pose_deltas)
         loss.backward()
         if not cfg.optimize_model:
             # The JAX package masks the model's gradients to zero
             # (train.py:932-933): Adam and SGD then leave it where it is.
             for p in params:
                 p.grad.zero_()
-        callbacks.train_loss(it, model, None, loss)
+        _mask_delta_grads(pose_deltas, cfg)
+        callbacks.train_loss(it, model, pose_deltas, loss)
         val = loss
-        if val_data is not None:
-            with torch.no_grad():
-                val = loss_fn(model, val_data)
+        if val_opt is not None:
+            val_opt.zero_grad(set_to_none=True)
+            val = loss_fn(model, val_data, val_deltas)
+            # Gradients of the validation deltas alone: the model's stay
+            # the training loss's.
+            for d, g in zip(val_deltas, torch.autograd.grad(val, val_deltas, allow_unused=True)):
+                d.grad = torch.zeros_like(d) if g is None else g
+            _mask_delta_grads(val_deltas, cfg)
+            val_opt.step()
             callbacks.val_loss(it, model, None, val)
-        state = model_state(model)
+        elif val_data is not None:
+            with torch.no_grad():
+                val = loss_fn(model, val_data,
+                              pose_deltas if mode == PoseCorrection.common else None)
+            callbacks.val_loss(it, model, None, val)
+        state = {"model": model_state(model)}
+        if pose_deltas is not None:
+            state["pose_deltas"] = tuple(d.detach().clone() for d in pose_deltas)
+            state["pose_grads"] = tuple(torch.zeros_like(d) if d.grad is None
+                                        else d.grad.detach().clone() for d in pose_deltas)
         opt.step()
         train_loss = float(loss.detach())  # waits for the step (same stream)
         val_loss = float(val.detach())
@@ -420,6 +511,32 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
             print("It. %03i: train loss: %.9f, val.: %.9f.%s"
                   % (it, train_loss, val_loss, " saved" if saved else ""))
     return model, history
+
+
+def _write_summaries(writer, cfg: Config, it: int, row, model, state) -> None:
+    """One step's TensorBoard scalars: the losses, the step time, each model
+    weight and its gradient; with pose deltas their histograms per sequence
+    and component, and their gradients' (JAX package, train.py:1241-1283)."""
+    _, train_loss, val_loss, step_ms = row
+    writer.add_scalar("%s/train" % cfg.loss, train_loss, it)
+    writer.add_scalar("%s/val" % cfg.loss, val_loss, it)
+    writer.add_scalar("time/step_ms", step_ms, it)
+    for field in ("w", "exponent", "p0"):
+        if field not in state["model"]:
+            continue
+        grad = getattr(model, field).grad
+        for i, v in enumerate(state["model"][field].reshape(-1).tolist()):
+            writer.add_scalar("model/%s_%d" % (field, i), v, it)
+            if grad is not None:
+                writer.add_scalar("model/%s_%d/grad" % (field, i),
+                                  float(grad.reshape(-1)[i]), it)
+    names = cfg.train_names or []
+    for i, (d, g) in enumerate(zip(state.get("pose_deltas", ()), state.get("pose_grads", ()))):
+        name = names[i] if i < len(names) else str(i)
+        d, g = d.cpu().numpy(), g.cpu().numpy()
+        for j, key in enumerate(("tx", "ty", "tz", "rx", "ry", "rz")):
+            writer.add_histogram("pose_correction/train/%s/%s" % (name, key), d[:, j], it)
+            writer.add_histogram("pose_correction/train/%s/%s/grad" % (name, key), g[:, j], it)
 
 
 def _summary_writer(log_dir: str):
@@ -443,15 +560,21 @@ def train(cfg: Config, callbacks: Optional[TrainCallbacks] = None,
     Writes ``train.yaml`` into ``cfg.log_dir``; whenever a step's train and
     val losses both improve on every earlier step's, the step's pre-update
     model as ``"%03i_%.6g_state_dict.npz" % (it, val_loss)`` (readable by
-    both packages' ``load_model``) and ``best.yaml`` (``cfg`` with
-    ``model_state_dict`` pointing at it); at the end
-    ``train_history.csv`` (``iter train_loss val_loss step_ms``), and
-    TensorBoard scalars where ``torch.utils.tensorboard`` imports.
+    both packages' ``load_model``), with pose correction its pre-update
+    deltas as ``<tag>_pose_deltas.npz`` (``utils.checkpoint.save_pytree``,
+    keys ``0``, ``1``, ...), and ``best.yaml`` (``cfg`` with
+    ``model_state_dict`` and ``train_pose_deltas`` pointing at them); at
+    the end ``train_history.csv`` (``iter train_loss val_loss step_ms``),
+    and TensorBoard scalars (and the deltas' histograms
+    ``pose_correction/train/<name>/<t|r><xyz>`` with their ``/grad``) where
+    ``torch.utils.tensorboard`` imports.
 
     :param train_datasets: datasets to prepare (default: ``cfg.train_names``).
-    :param val_datasets: validation datasets (default: ``cfg.val_names``),
-        prepared forward-only; their loss is taken at the model each step
-        starts from. Without any, the val loss is the train loss.
+    :param val_datasets: validation datasets (default: ``cfg.val_names``);
+        their loss is taken at the model each step starts from, forward
+        only, or, in ``sequence`` and ``pose`` modes, with a step on their
+        own deltas (prepared for gradients). Without any, the val loss is
+        the train loss.
     :param train_data: already prepared data (skips dataset creation and
         prep of the training sequences).
     :return: the best config, or None if no step improved.
@@ -475,33 +598,29 @@ def train(cfg: Config, callbacks: Optional[TrainCallbacks] = None,
         if not train_datasets:
             raise ValueError("No training data: set cfg.train_names or pass train_datasets.")
         train_data = prepare_sequences(train_datasets, cfg)
-    val_data = prepare_sequences(val_datasets, cfg, for_grad=False) if val_datasets else None
+    # Validation takes gradients only where it trains its own deltas (JAX
+    # package, train.py:1000-1008).
+    val_grad = cfg.pose_correction in (PoseCorrection.sequence, PoseCorrection.pose)
+    val_data = (prepare_sequences(val_datasets, cfg, for_grad=val_grad)
+                if val_datasets else None)
 
     writer = _summary_writer(cfg.log_dir)
     best = {"cfg": None, "train": np.inf, "val": np.inf}
 
     def on_step(it, model, row, state):
-        _, train_loss, val_loss, step_ms = row
+        _, train_loss, val_loss, _ = row
         if writer is not None:
-            writer.add_scalar("%s/train" % cfg.loss, train_loss, it)
-            writer.add_scalar("%s/val" % cfg.loss, val_loss, it)
-            writer.add_scalar("time/step_ms", step_ms, it)
-            for field in ("w", "exponent", "p0"):
-                if field not in state:
-                    continue
-                grad = getattr(model, field).grad
-                for i, v in enumerate(state[field].reshape(-1).tolist()):
-                    writer.add_scalar("model/%s_%d" % (field, i), v, it)
-                    if grad is not None:
-                        writer.add_scalar("model/%s_%d/grad" % (field, i),
-                                          float(grad.reshape(-1)[i]), it)
+            _write_summaries(writer, cfg, it, row, model, state)
         if not (train_loss < best["train"] and val_loss < best["val"]):
             return False
         best["train"], best["val"] = train_loss, val_loss
-        path = save_state_file(os.path.join(
-            cfg.log_dir, "%03i_%.6g_state_dict.npz" % (it, val_loss)), state)
+        tag = "%03i_%.6g" % (it, val_loss)
         best_cfg = cfg.copy()
-        best_cfg.model_state_dict = path
+        best_cfg.model_state_dict = save_state_file(
+            os.path.join(cfg.log_dir, "%s_state_dict.npz" % tag), state["model"])
+        if "pose_deltas" in state:
+            best_cfg.train_pose_deltas = save_pytree(
+                os.path.join(cfg.log_dir, "%s_pose_deltas.npz" % tag), state["pose_deltas"])
         best_cfg.to_yaml(os.path.join(cfg.log_dir, "best.yaml"))
         best["cfg"] = best_cfg
         return True

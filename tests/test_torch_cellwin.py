@@ -160,3 +160,46 @@ def test_builder_declines_like_jax():
     nn = uncapped_graph(pts, 0.4)
     gj, gt = _both_graphs(pts, np.arange(500), nn, 0.4, 32, span_limit=8)
     assert gj is None and gt is None
+
+
+def _decline_inputs(case):
+    """(points, query rows, neighbours, r, builder options) of each case."""
+    if case == "builds":
+        pts, qrows, nn = scene(1500, 0.35, 1)
+        return pts, qrows, nn, 0.35, {}
+    if case == "exception_rows":
+        pts, qrows, nn, r = _exception_setup()
+        return pts, qrows, nn, r, {"max_exc_frac": 0.0}
+    if case == "span_limit":
+        rng = np.random.default_rng(0)
+        pts = rng.uniform(-1, 1, (500, 3))
+        return pts, np.arange(500), uncapped_graph(pts, 0.4), 0.4, {"span_limit": 8}
+    pts, _, nn = scene(800, 0.35, 2)
+    return pts, np.full(len(nn), -1), nn, 0.35, {}
+
+
+@pytest.mark.parametrize("case", ["builds", "exception_rows", "span_limit", "no_rows"])
+def test_builder_decline_reasons_match_jax(case, monkeypatch, capsys):
+    """The port's builder declines, or builds, where the JAX builder does on
+    the same graph, and keeps the text of the check that fired (the JAX
+    builder's debug note) in LAST_NOTE; None after a build."""
+    pts, qrows, nn, r, opts = _decline_inputs(case)
+    kw = dict(row_cap=32, pt_cap=32, span_limit=256)
+    kw.update(opts)
+    valid = np.ones(len(pts), bool)
+    monkeypatch.setenv("DC_CELLWIN_DEBUG", "1")
+    capsys.readouterr()
+    gj = jcw.build_cellwin_graph(pts, valid, qrows, nn, r, **kw)
+    jnote = [line[len("[cellwin] "):] for line in capsys.readouterr().err.splitlines()
+             if line.startswith("[cellwin] ")]
+    gt = tcw.build_cellwin_graph(pts, valid, qrows, nn, r, **kw)
+    tnote = [line for line in capsys.readouterr().err.splitlines() if line.startswith("[cellwin]")]
+    assert (gj is None) == (gt is None) == (case != "builds")
+    if gt is not None:
+        assert tcw.LAST_NOTE is None and not jnote and not tnote
+    elif case == "no_rows":
+        # The JAX builder returns None here without a note.
+        assert not jnote and tcw.LAST_NOTE == "declined: no query rows"
+    else:
+        assert jnote == [tcw.LAST_NOTE] and tnote == ["[cellwin] " + tcw.LAST_NOTE]
+        assert tcw.LAST_NOTE.startswith("declined: ")

@@ -337,3 +337,26 @@ def test_shadow_filter_matches_jax():
     np.testing.assert_array_equal(tf.mask.numpy(), np.asarray(jf.mask))
     np.testing.assert_allclose(tf.get_points().numpy(), np.asarray(jf.get_points()), rtol=0,
                                atol=1e-12)
+
+
+def test_default_cellwin_build_like_jax(asl_root, tmp_path, monkeypatch, capsys):
+    """The default Config()'s graph, as prep hands it to the cell-window
+    builder (the uncapped within-r graph on the card): the port's builder
+    declines, or builds, where the JAX builder does, with the same note."""
+    from depth_correction_tpu.ops import cellwin as jcw
+    from depth_correction_tpu_torch.ops import cellwin as tcw
+
+    _, _, tcfg, tdata = _prepare(asl_root, tmp_path)
+    pts = t_global(tdata.batches[0]).get_points().numpy()
+    valid = tdata.batches[0].cloud.valid.reshape(-1).numpy()
+    qrows, nn = tdata.query_rows[0].numpy(), tdata.neighbors[0].numpy()
+    kw = dict(row_cap=int(tcfg.cellwin_row_cap), pt_cap=int(tcfg.cellwin_pt_cap),
+              span_limit=512, z_max=tcfg.cellwin_z_max)
+    monkeypatch.setenv("DC_CELLWIN_DEBUG", "1")
+    capsys.readouterr()
+    gj = jcw.build_cellwin_graph(pts, valid, qrows, nn, float(tcfg.nn_r), **kw)
+    jnote = [line for line in capsys.readouterr().err.splitlines()
+             if line.startswith("[cellwin] ")]
+    gt = tcw.build_cellwin_graph(pts, valid, qrows, nn, float(tcfg.nn_r), **kw)
+    assert (gj is None) == (gt is None)
+    assert jnote == ([] if gt is not None else ["[cellwin] %s" % tcw.LAST_NOTE])

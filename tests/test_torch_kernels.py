@@ -1327,23 +1327,108 @@ def test_cuda_layout_probes_match_plain(cuda_device, first):
 
 @pytest.mark.cuda
 def test_cuda_gather_probes_match_plain(cuda_device):
-    """Every P8 case and form equals its plain version (error 0); B has no
-    staged form and the wrapper refuses it."""
-    from depth_correction_tpu_torch.ops.gather_probe import FORMS, gather_probe, staged_fits
+    """Every P8 case and form equals its plain version (error 0); B's staged
+    form runs on a cluster of 8 blocks; a row too long for a cluster is
+    refused."""
+    from depth_correction_tpu_torch.ops.gather_probe import (FORMS, gather_probe,
+                                                             staged_blocks)
     from depth_correction_tpu_torch.scripts import exp_pallas_gather2 as p8
 
     ran = 0
     for case, (x, idx, axis) in p8.inputs(cuda_device).items():
         want = gather_probe(x.cpu(), idx.cpu(), axis, "global")
+        assert staged_blocks(x, axis) == (8 if case == "B" else 1)
         for form in FORMS:
-            if form == "staged" and not staged_fits(x, axis):
-                assert case == "B"
-                with pytest.raises(ValueError, match="does not fit"):
-                    gather_probe(x, idx, axis, form)
-                continue
             assert torch.equal(gather_probe(x, idx, axis, form).cpu(), want), (case, form)
             ran += 1
-    assert ran == 9
+    assert ran == 10
+    x = torch.zeros((1, 8 * 58112 + 1), device=cuda_device)
+    with pytest.raises(ValueError, match="does not fit"):
+        gather_probe(x, torch.zeros((1, 4), dtype=torch.int32, device=cuda_device), 1, "staged")
+
+
+def test_gather_probe_v1_refuses_cpu_tensors():
+    """P8's first version has no plain route: CPU tensors raise in its
+    launcher, and nothing is counted."""
+    from depth_correction_tpu_torch.ops.gather_probe import gather_probe_v1
+
+    before = (_kernels.GATHER_PROBE_LAUNCHES, _kernels.GATHER_PROBE_V1_LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gather_probe_v1(torch.zeros((8, 256)), torch.zeros((8, 256), dtype=torch.int32), 1,
+                        "global")
+    with pytest.raises(ValueError, match="form"):
+        gather_probe_v1(torch.zeros(8), torch.zeros(8, dtype=torch.int32), 1, "vmem")
+    assert (_kernels.GATHER_PROBE_LAUNCHES, _kernels.GATHER_PROBE_V1_LAUNCHES) == before
+
+
+def _p8_equal(a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["A", "B", "C", "D", "E"])
+@pytest.mark.parametrize("form", ["global", "staged"])
+def test_cuda_gather_probe_equals_first_version(cuda_device, case, form):
+    """P8's redesign equals its first version (csrc/gather_probe_v1.cu) and
+    the plain version bit for bit on the script's cases; B's staged (cluster)
+    form, which the first version lacks, equals its global form. Each
+    launch counts on its own counter."""
+    from depth_correction_tpu_torch.ops.gather_probe import (gather_probe, gather_probe_plain,
+                                                             gather_probe_v1, staged_blocks)
+    from depth_correction_tpu_torch.scripts import exp_pallas_gather2 as p8
+
+    x, idx, axis = p8.inputs(cuda_device)[case]
+    before = (_kernels.GATHER_PROBE_LAUNCHES, _kernels.GATHER_PROBE_V1_LAUNCHES)
+    got = gather_probe(x, idx, axis, form)
+    old = gather_probe_v1(x, idx, axis, form if staged_blocks(x, axis) == 1 else "global")
+    assert (_kernels.GATHER_PROBE_LAUNCHES, _kernels.GATHER_PROBE_V1_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    assert _p8_equal(got, old)
+    assert _p8_equal(got.cpu(), gather_probe_plain(x.cpu(), idx.cpu(), axis))
+
+
+# (x shape, idx shape, axis): i_cols not a multiple of 4, 8 or 256, a single
+# row, one column, rows past one block's shared memory in one and several
+# rows (the cluster form), odd cluster slices.
+P8_EDGE_SHAPES = [
+    ((8, 256), (8, 253), 1), ((3, 1000), (3, 7), 1), ((1, 5), (1, 3), 1),
+    ((5, 1), (5, 1), 1), ((1, 4097), (1, 4097), 1), ((8, 3), (8, 3), 0),
+    ((17, 301), (5, 301), 0), ((1, 131072), (1, 131072), 1),
+    ((3, 70001), (3, 9999), 1), ((2, 58113), (2, 58113), 1), ((8, 131072), (8, 1001), 1),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_shape,i_shape,axis", P8_EDGE_SHAPES)
+@pytest.mark.parametrize("form", ["global", "staged"])
+def test_cuda_gather_probe_edge_shapes(cuda_device, x_shape, i_shape, axis, form):
+    """Edge shapes with indices at 0 and at the last column (row) of x: the
+    redesign equals the plain version and the first version bit for bit
+    (the first version's global form where it has no staged one), and a
+    view off 16-byte alignment takes the scalar loads to the same bits."""
+    from depth_correction_tpu_torch.ops.gather_probe import (gather_probe, gather_probe_plain,
+                                                             gather_probe_v1, staged_blocks)
+
+    g = torch.Generator().manual_seed(sum(x_shape) + sum(i_shape) + axis)
+    x = torch.randn(x_shape, generator=g)
+    hi = x_shape[axis]
+    idx = torch.randint(0, hi, i_shape, generator=g, dtype=torch.int32)
+    idx.view(-1)[0] = 0
+    idx.view(-1)[-1] = hi - 1
+    if idx.numel() > 2:
+        idx.view(-1)[1] = hi - 1
+    want = gather_probe_plain(x, idx, axis)
+    xd, id_ = x.to(cuda_device), idx.to(cuda_device)
+    got = gather_probe(xd, id_, axis, form)
+    assert _p8_equal(got.cpu(), want)
+    old = gather_probe_v1(xd, id_, axis, form if staged_blocks(xd, axis) == 1 else "global")
+    assert _p8_equal(got, old)
+    # The same values one float past a 16-byte boundary.
+    xs = torch.empty(x.numel() + 1, device=cuda_device)[1:].view(x_shape)
+    xs.copy_(xd)
+    is_ = torch.empty(idx.numel() + 1, dtype=torch.int32, device=cuda_device)[1:].view(i_shape)
+    is_.copy_(id_)
+    assert _p8_equal(gather_probe(xs, is_, axis, form).cpu(), want)
 
 
 # ---------------------------------------------------------------------------

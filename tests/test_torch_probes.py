@@ -391,6 +391,22 @@ def test_gather_probe_plain_matches_script(case):
         assert float(np.abs(got.numpy() - np.asarray(want)).max()) == 0.0
 
 
+@pytest.mark.parametrize("shape,axis,blocks", [
+    ((8, 256), 1, 1), ((8, 131072), 1, 8), ((8, 256), 0, 1), ((2048,), 1, 1),
+    ((8, 1024), 1, 1), ((3, 58112), 1, 1), ((3, 58113), 1, 8), ((1, 464896), 1, 8),
+    ((1, 464897), 1, 0), ((1000, 100), 0, 0)])
+def test_gather_probe_staged_blocks(shape, axis, blocks):
+    """Where the staged form's table lives: one block's 227 KB of shared
+    memory, a cluster of 8 blocks' (an axis-1 row in slices of a multiple
+    of 4 floats), or nowhere (the wrapper then refuses the staged form on a
+    card; on the CPU the plain version runs)."""
+    from depth_correction_tpu_torch.ops.gather_probe import staged_blocks, staged_fits
+
+    x = torch.zeros(shape)
+    assert staged_blocks(x, axis) == blocks
+    assert staged_fits(x, axis) == (blocks > 0)
+
+
 # ---------------------------------------------------------------------------
 # P7a: the gather-sum probe against the script's Pallas body (interpret mode).
 

@@ -192,7 +192,7 @@ def test_three_adam_steps_match_optax(prepared, jax_trajectory):
 @pytest.mark.parametrize(
     "option,value",
     [
-        ("pose_correction", "common"),
+        ("nn_backend", "native"),
         ("loss_offset", True),
         ("nn_scale", 0.1),
         ("nn_type", "plane"),
@@ -233,7 +233,10 @@ def test_port_imports_no_jax():
             "depth_correction_tpu_torch.scripts.knn_cull, "
             "depth_correction_tpu_torch.scripts.slab_cull, "
             "depth_correction_tpu_torch.scripts.exp_grid_slab_ab, "
-            "depth_correction_tpu_torch.scripts.exp_window_variants; "
+            "depth_correction_tpu_torch.scripts.exp_window_variants, "
+            "depth_correction_tpu_torch.eval, depth_correction_tpu_torch.train_and_eval, "
+            "depth_correction_tpu_torch.utils.checkpoint, depth_correction_tpu_torch.utils.io, "
+            "depth_correction_tpu_torch.datasets.wrappers; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m == 'depth_correction_tpu' or m.startswith('depth_correction_tpu.') "
             "for m in sys.modules), 'JAX package imported'")
