@@ -14,7 +14,8 @@ Phases (any failure raises and the exit code is non-zero):
    host, beside all of them.
 3. slice   — the uncapped min-eigenvalue training step at the JAX bench's
    configuration (bench.py:bench_config(uncapped=True)), scene
-   open_box/n_6_size_20_20_5_height_1_density_400, prepared with the
+   open_box/n_6_size_20_20_5_height_1_density_400 (its scans generated
+   once and kept for phases 9 and 12), prepared with the
    bench's grid establishment (X2 for the 6 scans and the global cloud;
    prep seconds per part are printed beside the 26 s that scipy's cKDTree
    establishment took on an H100, and local_features beside the 1.274 s it
@@ -105,11 +106,11 @@ Phases (any failure raises and the exit code is non-zero):
    (slower or not); P7 at stage 2's shapes against its first version in
    turns.
 
-Every main path (phases 3-5, 7, 9-11) runs with all launch counts zeroed
+Every main path (phases 3-5, 7, 9-12) runs with all launch counts zeroed
 before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
 9. capped  — the bench's capped row (bench.py:bench_config(uncapped=False):
    K = 32 with mutual trimming, the gather moments by torch autograd) on
-   the slice's scene, 8 Adam steps through train() (step times from its
+   the slice's scene (phase 3's scans), 8 Adam steps through train() (step times from its
    step_ms column): capped32_ms, and the
    loss at w=0 within 1e-5 relative of the float64 plain path.
 10. default — a default Config() (only log_dir, train_names, n_opt_iters,
@@ -140,6 +141,32 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    after the steps; K1 and K2 launched once a step each; pose_step_ms
    (median of steps 1..7) and the profiled step's device-busy share.
 
+12. new paths (the loss offset, ICP, L-BFGS, nn_scale, resume, the prep
+   cache), each with the launch counts zeroed just before it: (a) the
+   loss offset on phase 3's scene (prep keeps the per-scan neighbours),
+   8 Adam steps of train.fit on K1 and K2 and the offset's gather, the
+   loss at w=0 within 1e-5 of the float64 plain path, offset_step_ms and
+   the profiled step; (f) that prep written to the prep cache and
+   prepared again: a hit, equal bit for bit, its seconds beside the
+   build's; (b) ICP training on the scene (prep through X3, X2 and P7, the
+   correspondences on the host), 8 Adam steps, the loss at w=0 within
+   1e-5 of float64, then eval_icp on the same sequence: each of X3's k = 1
+   calls without a radius launched once, its distances bit-equal to the
+   plain twin's on the same float32 inputs and an index differing only at
+   a tie, the share of correspondences that differ from float64 plain,
+   the eval loss within 1e-5 of float64 plain (the same feature clouds,
+   the model, poses and 1-NN in float64), X3's time a pair against its
+   all-pairs bound; (c) 4 L-BFGS steps with the zoom line search on phase
+   3's prepared slice: the loss falls, K1 and K2 launch at each trial
+   point; (d) (run inside phase 10, while its files exist) nn_scale on the
+   default config's data: P7 exactly once more in prep than without
+   nn_scale, its features (mean, eigenvalues, re-weighted weights; P7
+   twice) within 1e-5 of float64 plain, 4 Adam steps, the loss at w=0
+   within 1e-5 of float64; (e) train() for 4 steps with
+   checkpoint_period 2, interrupted when step 2 starts and resumed, against
+   an uninterrupted run: the largest |dw| and whether the saved states are
+   bit-equal.
+
 Device-busy times (profile_calls) sum kernels, memcpys and memsets; user
 annotations (record_function spans such as Optimizer.step#Adam.step),
 which enclose kernels already counted, are left out, and how much the
@@ -163,7 +190,8 @@ small scan's node table, the global cloud's top-k table) with its bound
 and the largest |new - v1| `max_abs_err_v1`, and its launches in the
 slice's and the default config's prep; for
 P2, P6, P7a and P8 the library call's device time by the profiler beside
-its events time) and {"ok": true, "device": {...}}. Before them, one line
+its events time; for X3 also eval_icp's k = 1 calls, ``inputs.icp_pairs``,
+and their count ``launches_icp_eval``) and {"ok": true, "device": {...}}. Before them, one line
 carries the end-to-end numbers of the bench's keys (train_step_ms,
 capped32_ms, node_ms, ...).
 Without a CUDA device the script fails before printing any result.
@@ -510,7 +538,6 @@ def phase_slice(card: str):
 
     import torch
 
-    from depth_correction_tpu_torch.datasets import create_dataset
     from depth_correction_tpu_torch.models import ScaledPolynomial
     from depth_correction_tpu_torch.ops import _kernels
     from depth_correction_tpu_torch.ops import cellwin as cw
@@ -530,10 +557,12 @@ def phase_slice(card: str):
             self.w[it] = float(model.w.detach()[0])
 
     # The main path: datasets -> prep -> train(); counts from this run only.
+    # The scans are loaded once (load_sequence) and kept for phases 9 and 12,
+    # which train on the same scene; prep_s counts their load.
     reset_all_launch_counts()
     t0 = time.perf_counter()
-    ds = create_dataset(cfg.train_names[0], cfg)
-    data = prepare_sequences([ds], cfg)
+    seq = load_sequence(cfg)
+    data = prepare_sequences([seq], cfg)
     prep_s = time.perf_counter() - t0
     grid_launches, knn_launches = _kernels.GRID_LAUNCHES, _kernels.KNN_LAUNCHES
     gather_launches = _kernels.GATHER_LAUNCHES
@@ -606,6 +635,7 @@ def phase_slice(card: str):
         "launches": launches, "kernels": k, "step_ms": step_ms, "prep_s": prep_s,
         "loss_rel": loss_rel, "w_rel": w_rel, "profile": profile,
         "profile_v1": profile_v1, "graph": graph, "ps": ps, "data": data, "cfg": cfg,
+        "seq": seq,
     }
 
 
@@ -1717,15 +1747,14 @@ def phase_probes_p6_p8(card: str):
     return entries, ab7
 
 
-def phase_capped(card: str):
-    """The bench's capped row on the slice's scene: prep, 8 Adam steps
-    through train(), capped32_ms, and the loss at w=0 against the float64
-    plain path on the same graph."""
+def phase_capped(card: str, seq):
+    """The bench's capped row on the slice's scene (phase 3's loaded scans,
+    ``seq``): prep, 8 Adam steps through train(), capped32_ms, and the loss
+    at w=0 against the float64 plain path on the same graph."""
     import math
 
     import torch
 
-    from depth_correction_tpu_torch.datasets import create_dataset
     from depth_correction_tpu_torch.models import ScaledPolynomial
     from depth_correction_tpu_torch.ops import _kernels
     from depth_correction_tpu_torch.scripts import bench_config as config
@@ -1734,7 +1763,7 @@ def phase_capped(card: str):
     cfg = config(DEVICE, STEPS, uncapped=False)
     reset_all_launch_counts()
     t0 = time.perf_counter()
-    data = prepare_sequences([create_dataset(cfg.train_names[0], cfg)], cfg)
+    data = prepare_sequences([seq], cfg)
     prep_s = time.perf_counter() - t0
     if data.cellwin != (None,):
         raise RuntimeError("the capped row must run the gather moments")
@@ -2087,9 +2116,13 @@ def phase_default(card: str):
             raise RuntimeError("default-config loss at w=0 misses the 1e-5 bar: %.3e"
                                % loss_rel)
         pose = default_pose_pass(root, cfg, card)
+        # Phase 12d runs here, while this phase's files exist.
+        log("[phase 12d] nn_scale on the default config's data (%d Adam steps)"
+            % NN_SCALE_STEPS)
+        nn_scale = phase_nn_scale(card, cfg, ds, launches["gather"])
         return {"loss_rel": loss_rel, "step_ms": step_ms, "prep_s": prep_s, "rows": rows,
                 "launches": launches, "shadow": shadow, "vp": vp, "global": glob,
-                "pose": pose}
+                "pose": pose, "nn_scale": nn_scale}
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2180,6 +2213,468 @@ def phase_pose(card: str, data, cfg):
             "launches": launches, "profile": profile}
 
 
+# Phase 12: the loss offset, ICP, L-BFGS, nn_scale, resume and the prep
+# cache at full width.
+LBFGS_STEPS = 4
+NN_SCALE_STEPS = 4
+# nn_scale's features (mean, eigenvalues, weights) on the card against the
+# float64 plain path, relative to each output's largest magnitude.
+NN_SCALE_REL_BAR = 1e-5
+RESUME_STEPS = 4
+
+
+def tensors_equal(a, b) -> bool:
+    """Whether two prepared structures (dataclasses, tuples, dicts,
+    tensors, numbers) hold the same values, bit for bit, in the same
+    dtypes."""
+    import dataclasses
+
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype and a.shape == b.shape
+                and bool(torch.equal(a, b)))
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and all(
+            tensors_equal(getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a) if f.name != "prep_seconds")
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(tensors_equal(x, y) for x, y in zip(a, b))
+    return type(a) is type(b) and a == b
+
+
+def w0_rel(cfg, data, loss32: float) -> tuple:
+    """(rel, f64 loss): the loss at the config's model (w = 0) on the
+    float64 plain path over the same graph against ``loss32``."""
+    import torch
+
+    from depth_correction_tpu_torch.models import load_model
+    from depth_correction_tpu_torch.train import make_loss_fn
+
+    ref = load_model(cfg=cfg, dtype=torch.float64)
+    with torch.no_grad():
+        loss64 = float(make_loss_fn(cfg, plain=True)(ref, data.to(dtype=torch.float64)))
+    return abs(loss32 - loss64) / abs(loss64), loss64
+
+
+def fit_counted(cfg, data, label: str):
+    """train.fit with the launch counts zeroed just before and read just
+    after: (history, {K1, K2, X2, X3, P7 launches})."""
+    import math
+
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.ops import cellwin as cw
+    from depth_correction_tpu_torch.train import fit
+
+    reset_all_launch_counts()
+    _, history = fit(cfg, data)
+    check_no_first_versions(label)
+    launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES, "grid": _kernels.GRID_LAUNCHES,
+                "knn": _kernels.KNN_LAUNCHES, "gather": _kernels.GATHER_LAUNCHES}
+    if not all(math.isfinite(h[1]) for h in history):
+        raise RuntimeError("%s: non-finite loss %s" % (label, history))
+    return history, launches
+
+
+class LoadedSequence(list):
+    """A dataset's (scan, pose) pairs, loaded once: phase 12's paths take it
+    where they take a dataset (iterated, and named by ``str``), so the
+    bench scene's scans (16-19 s to generate on the card's host) are made
+    once for all of them."""
+
+    def __init__(self, ds, name: str):
+        super().__init__((scan, pose) for scan, pose in ds)
+        self.name = name
+
+    def __str__(self):
+        return self.name
+
+
+def load_sequence(cfg):
+    """The config's training sequence as a :class:`LoadedSequence`, timed."""
+    from depth_correction_tpu_torch.datasets import create_dataset
+
+    t0 = time.perf_counter()
+    seq = LoadedSequence(create_dataset(cfg.train_names[0], cfg), cfg.train_names[0])
+    log("%s: %d scans loaded in %.3f s" % (seq, len(seq), time.perf_counter() - t0))
+    return seq
+
+
+def prep_counted(cfg, seq, label: str):
+    """prepare_sequences of ``seq`` with the launch counts zeroed just
+    before and read just after: (data, seconds, {X2, X3, P7 launches})."""
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.train import prepare_sequences
+
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    data = prepare_sequences([seq], cfg)
+    seconds = time.perf_counter() - t0
+    check_no_first_versions(label)
+    launches = {"grid": _kernels.GRID_LAUNCHES, "knn": _kernels.KNN_LAUNCHES,
+                "gather": _kernels.GATHER_LAUNCHES}
+    log("%s prep: %.3f s (%s); launches X2 %d, X3 %d, P7 %d"
+        % (label, seconds, ", ".join("%s %.3f" % kv for kv in data.prep_seconds.items()),
+           launches["grid"], launches["knn"], launches["gather"]))
+    return data, seconds, launches
+
+
+def adam_step_fn(cfg, data):
+    """One Adam step of the config's loss on ``data`` (the profiled step)."""
+    from depth_correction_tpu_torch.models import load_model
+    from depth_correction_tpu_torch.train import make_loss_fn, make_optimizer
+
+    model = load_model(cfg=cfg)
+    loss_fn = make_loss_fn(cfg)
+    opt = make_optimizer(cfg, [model.w])
+
+    def step():
+        opt.zero_grad()
+        loss_fn(model, data).backward()
+        opt.step()
+
+    return step
+
+
+def phase_offset_cache(card: str, seq):
+    """12a and 12f: the loss offset on the bench slice (prep keeps the
+    per-scan neighbours; 8 Adam steps of train.fit on K1, K2 and the
+    offset's autograd gather; the loss at w = 0 against the float64 plain
+    path), its prep written to the prep cache, then prepared again: a hit,
+    equal bit for bit."""
+    import shutil
+    import tempfile
+
+    from depth_correction_tpu_torch.train import prepare_sequences
+
+    cfg = bench_config()
+    cfg.loss_offset = True
+    root = tempfile.mkdtemp(prefix="dc_prep_cache_")
+    try:
+        cfg.prep_cache_dir = os.path.join(root, "cache")
+        data, build_s, _ = prep_counted(cfg, seq, "offset (prep cache: build)")
+        if data.cellwin[0] is None or data.off_neighbors[0] is None:
+            raise RuntimeError("the offset slice has no cell-window graph or no offset graph")
+        history, launches = fit_counted(cfg, data, "the offset slice's fit()")
+        loss_rel, loss64 = w0_rel(cfg, data, history[0][1])
+        step_ms = statistics.median(h[3] for h in history[1:])
+        log("offset: %d rows, offset graph (%d, %d); losses %s; K1 %d, K2 %d launches; loss at "
+            "w=0 %.9e vs float64 plain %.9e (rel %.3e); offset_step_ms %.3f (%s)"
+            % (int((data.cellwin[0].row_map >= 0).sum()), *data.off_neighbors[0].shape,
+               ", ".join("%.9e" % h[1] for h in history), launches["fwd"], launches["bwd"],
+               history[0][1], loss64, loss_rel, step_ms, card))
+        if launches["fwd"] != STEPS or launches["bwd"] != STEPS:
+            raise RuntimeError("K1 / K2 were not launched once a step: %s" % launches)
+        if not loss_rel <= LOSS_REL_BAR:
+            raise RuntimeError("offset loss at w=0 misses the 1e-5 bar: %.3e" % loss_rel)
+        profile = profile_calls(adam_step_fn(cfg, data), card, "step")
+
+        # 12f: the same prep again, from the cache.
+        t0 = time.perf_counter()
+        again = prepare_sequences([seq], cfg.copy())
+        load_s = time.perf_counter() - t0
+        hit = "cache_load" in again.prep_seconds
+        equal = tensors_equal(again, data)
+        log("prep cache: build %.3f s, load %.3f s (of it cache_load %.3f; the fingerprint "
+            "hashes the scans); hit %s, equal bit for bit %s (%s)"
+            % (build_s, load_s, again.prep_seconds.get("cache_load", 0.0), hit, equal, card))
+        if not (hit and equal):
+            raise RuntimeError("the prep cache missed or gave other tensors")
+        return {"step_ms": step_ms, "loss_rel": loss_rel, "launches": launches,
+                "profile": profile, "build_s": build_s, "load_s": load_s,
+                "cache_load_s": again.prep_seconds["cache_load"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_icp(card: str, seq):
+    """12b: ICP training on the bench slice (prep through X3, X2 and P7;
+    8 Adam steps; the loss at w = 0 against float64), then eval_icp on the
+    same sequence: each X3 k = 1 call (no radius) held against its plain
+    twin and timed, the correspondences against float64 plain, the loss
+    against float64 plain."""
+    import contextlib
+
+    import torch
+
+    from depth_correction_tpu_torch.eval import eval_icp
+    from depth_correction_tpu_torch.loss import icp_loss
+    from depth_correction_tpu_torch.models import load_model
+    from depth_correction_tpu_torch.ops import _kernels, knn
+
+    cfg = bench_config()
+    cfg.loss = "icp_loss"
+    cfg.loss_kwargs = {"icp_point_to_plane": True, "icp_inlier_ratio": 0.5}
+    data, prep_s, prep_launches = prep_counted(cfg, seq, "icp")
+    if min(prep_launches.values()) <= 0:
+        raise RuntimeError("the ICP prep did not launch X2, X3 and P7: %s" % prep_launches)
+    history, launches = fit_counted(cfg, data, "the ICP slice's fit()")
+    loss_rel, loss64 = w0_rel(cfg, data, history[0][1])
+    step_ms = statistics.median(h[3] for h in history[1:])
+    log("icp: %d pairs, %d inliers; losses %s; loss at w=0 %.9e vs float64 %.9e (rel %.3e); "
+        "icp_step_ms %.3f; prep %.3f s (%s)"
+        % (data.icp_idx[0].shape[0], int(data.icp_w[0].sum()),
+           ", ".join("%.9e" % h[1] for h in history), history[0][1], loss64, loss_rel, step_ms,
+           prep_s, card))
+    if not loss_rel <= LOSS_REL_BAR:
+        raise RuntimeError("ICP loss at w=0 misses the 1e-5 bar: %.3e" % loss_rel)
+    if not history[-1][1] < history[0][1]:
+        raise RuntimeError("the ICP loss did not fall: %s" % history)
+
+    # eval_icp: the main path, with X3's k = 1 calls recorded.
+    nearest = knn.nearest_neighbors
+    calls = []
+
+    def recording(points, query=None, k=1, r=None, valid_points=None, valid_query=None,
+                  plain=False):
+        before = _kernels.KNN_LAUNCHES
+        out = nearest(points, query, k, r, valid_points, valid_query, plain)
+        if k == 1 and r is None:
+            calls.append({"points": points, "query": query, "valid": valid_points,
+                          "out": out, "launches": _kernels.KNN_LAUNCHES - before})
+        return out
+
+    @contextlib.contextmanager
+    def patched(fn):
+        knn.nearest_neighbors = fn
+        try:
+            yield
+        finally:
+            knn.nearest_neighbors = nearest
+
+    ecfg = cfg.copy()
+    ecfg.test_names = list(cfg.train_names)
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    with patched(recording):
+        value, (seqs, poses) = eval_icp(ecfg, [seq], return_data=True)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    check_no_first_versions("eval_icp")
+    n_pairs = sum(len(s) - 1 for s in seqs)
+    if len(calls) != n_pairs or any(c["launches"] != 1 for c in calls):
+        raise RuntimeError("eval_icp's %d pairs made %d k = 1 calls, launches %s"
+                           % (n_pairs, len(calls), [c["launches"] for c in calls]))
+
+    # The eval loss against float64 plain: the same feature clouds, the
+    # model, poses and 1-NN in float64 (its correspondences recorded).
+    model64 = load_model(cfg=ecfg, dtype=torch.float64)
+    seqs64 = [[c.to(dtype=torch.float64) for c in s] for s in seqs]
+    poses64 = [p.double() for p in poses]
+    idx64 = []
+
+    def plain64(*a, **kw):
+        out = nearest(*a, **dict(kw, plain=True))
+        idx64.append(out[1])
+        return out
+
+    with patched(plain64), torch.no_grad():
+        value64, _ = icp_loss(seqs64, poses=poses64, model=model64, icp_point_to_plane=True,
+                              icp_inlier_ratio=0.5)
+    eval_rel = abs(value - float(value64)) / abs(float(value64))
+
+    # Each call against the plain twin on the same float32 inputs and
+    # against float64 plain; X3's time per pair and its bound.
+    ties = differ64 = n_queries = 0
+    ms, plain_ms = [], []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    for c, i64 in zip(calls, idx64):
+        dist, idx = c["out"]
+        start.record()
+        pdist, pidx = nearest(c["points"], c["query"], 1, None, c["valid"], plain=True)
+        end.record()
+        end.synchronize()
+        plain_ms.append(start.elapsed_time(end))
+        if not bit_equal(dist, pdist):
+            raise RuntimeError("X3 k = 1: distances differ from the plain twin's")
+        diff = (idx != pidx)[:, 0]
+        if diff.any():
+            q = c["query"][diff]
+            a, b = c["points"][idx[diff, 0].long()], c["points"][pidx[diff, 0].long()]
+            da, db = q - a, q - b
+            d2a = da[:, 0] * da[:, 0] + da[:, 1] * da[:, 1] + da[:, 2] * da[:, 2]
+            d2b = db[:, 0] * db[:, 0] + db[:, 1] * db[:, 1] + db[:, 2] * db[:, 2]
+            if not bit_equal(d2a, d2b):
+                raise RuntimeError("X3 k = 1: an index differs from the twin's off a tie")
+            ties += int(diff.sum())
+        differ64 += int((i64 != idx).sum())
+        n_queries += idx.shape[0]
+        args = (c["points"], c["query"], 1, None, c["valid"])
+        ms.append(cuda_ms(lambda: nearest(*args), reps=3, warmup=1))
+    device_ms = kernel_ms(lambda: nearest(*args), DEVICE, 3)
+    n, q = calls[-1]["points"].shape[0], calls[-1]["query"].shape[0]
+    nv = int(calls[-1]["valid"].sum())
+    x3_bound = bound(n * 13 + q * 12 + q * 8, {"fp32": PAIR_OPS * q * nv})
+    res = {"pairs": n_pairs, "n_points": n, "n_queries": q, "valid_points": nv,
+           "ms": statistics.mean(ms), "ms_pairs": ms, "plain_ms": statistics.mean(plain_ms),
+           "kernel_ms": device_ms, "bound_ms": x3_bound[0], "bound_by": x3_bound[1],
+           "ties": ties, "differ_f64_share": differ64 / n_queries}
+    log("eval_icp: loss %.9e vs float64 plain %.9e (rel %.3e); icp_eval_ms %.1f; X3 k = 1: %d "
+        "calls, one launch each, distances bit-equal to the twin, %d index ties; %.3e of the "
+        "correspondences differ from float64 plain; %.4f ms a pair (%s; the last pair's "
+        "device time %.4f; plain %.4f), bound %.4f ms (%s, all %d x %d pairs) (%s)"
+        % (value, float(value64), eval_rel, eval_ms, len(calls), ties, res["differ_f64_share"],
+           res["ms"], ", ".join("%.4f" % v for v in ms), res["kernel_ms"], res["plain_ms"],
+           res["bound_ms"], res["bound_by"], q, nv, card))
+    if not eval_rel <= LOSS_REL_BAR:
+        raise RuntimeError("the eval_icp loss misses the 1e-5 bar: %.3e" % eval_rel)
+    return {"step_ms": step_ms, "loss_rel": loss_rel, "prep_s": prep_s,
+            "prep_launches": prep_launches, "launches": launches, "eval_ms": eval_ms,
+            "eval_loss": value, "eval_rel": eval_rel, "x3": res, "x3_launches": len(calls)}
+
+
+def phase_lbfgs(card: str, data):
+    """12c: L-BFGS with the zoom line search on phase 3's uncapped slice:
+    the loss must fall; K1 and K2 launch once for each loss evaluation."""
+    cfg = bench_config()
+    cfg.optimizer = "lbfgs"
+    cfg.n_opt_iters = LBFGS_STEPS
+    history, launches = fit_counted(cfg, data, "the L-BFGS slice's fit()")
+    evals = launches["fwd"] / LBFGS_STEPS
+    step_ms = statistics.median(h[3] for h in history[1:])
+    log("lbfgs: losses %s; K1 %d, K2 %d launches in %d steps (%.2f loss evaluations a step); "
+        "lbfgs_step_ms %.3f (%s)"
+        % (", ".join("%.9e" % h[1] for h in history), launches["fwd"], launches["bwd"],
+           LBFGS_STEPS, evals, step_ms, card))
+    if launches["fwd"] != launches["bwd"] or launches["fwd"] < 2 * LBFGS_STEPS:
+        raise RuntimeError("L-BFGS did not evaluate K1 / K2 at its trial points: %s" % launches)
+    if not history[-1][1] < history[0][1]:
+        raise RuntimeError("the L-BFGS loss did not fall: %s" % history)
+    return {"step_ms": step_ms, "evals_per_step": evals, "launches": launches,
+            "losses": [h[1] for h in history]}
+
+
+def check_scaled_features(data, cfg) -> dict:
+    """nn_scale's features on the card against the float64 plain path:
+    neighborhood_features with ``scale`` (P7 for the mean, then P7 under
+    the re-weighted weights) on the prepared global cloud and graph, its
+    mean, eigenvalues and re-weighted weights each within
+    NN_SCALE_REL_BAR of max |float64 value| over the graph's rows. Raises
+    on a missed bar or when P7 did not launch twice."""
+    import torch
+
+    from depth_correction_tpu_torch import preproc
+    from depth_correction_tpu_torch.ops import _kernels, features
+
+    pts = preproc.global_cloud(data.batches[0]).get_points()
+    nn, w, qr = data.neighbors[0], data.weights[0], data.query_rows[0]
+    rows = qr >= 0
+    _kernels.reset_launch_counts()
+    with torch.no_grad():
+        got = features.neighborhood_features(pts, nn, w, scale=cfg.nn_scale,
+                                             compute_normals=False, query_rows=qr)
+    launches = _kernels.GATHER_LAUNCHES
+    with torch.no_grad():
+        ref = features.neighborhood_features(pts.double(), nn, w.double(), scale=cfg.nn_scale,
+                                             compute_normals=False, plain=True, query_rows=qr)
+    rel = {}
+    for key in ("mean", "eigvals", "weights"):
+        g, r = got[key][rows].double(), ref[key][rows]
+        rel[key] = float((g - r).abs().max() / r.abs().max())
+    log("nn_scale features (%d rows, K %d) vs float64 plain, max abs error over max |value|: "
+        "%s; P7 launches %d" % (int(rows.sum()), nn.shape[1],
+                                ", ".join("%s %.3e" % kv for kv in rel.items()), launches))
+    if launches != 2:
+        raise RuntimeError("nn_scale's features launched P7 %d times, not 2" % launches)
+    if not all(v <= NN_SCALE_REL_BAR for v in rel.values()):
+        raise RuntimeError("nn_scale's features miss the %.0e bar: %s" % (NN_SCALE_REL_BAR, rel))
+    return rel
+
+
+def phase_nn_scale(card: str, cfg, ds, base_p7: int):
+    """12d: nn_scale on phase 10's default-config data: prep (one P7 launch
+    more than the same prep without nn_scale, ``base_p7``: the mean before
+    the re-weighting), the scaled features against float64 plain, 4 Adam
+    steps; the loss at w = 0 against the float64 plain path."""
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.train import prepare_sequences
+
+    cfg = cfg.copy()
+    cfg.nn_scale = cfg.nn_r
+    cfg.n_opt_iters = NN_SCALE_STEPS
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    data = prepare_sequences([ds], cfg)
+    prep_s = time.perf_counter() - t0
+    check_no_first_versions("the nn_scale prep")
+    p7, x2, x3 = _kernels.GATHER_LAUNCHES, _kernels.GRID_LAUNCHES, _kernels.KNN_LAUNCHES
+    history, launches = fit_counted(cfg, data, "the nn_scale fit()")
+    loss_rel, loss64 = w0_rel(cfg, data, history[0][1])
+    log("nn_scale %g: prep %.3f s, P7 %d launches in prep (X2 %d, X3 %d); losses %s; loss at "
+        "w=0 %.9e vs float64 plain %.9e (rel %.3e); step %.3f ms (%s)"
+        % (cfg.nn_scale, prep_s, p7, x2, x3, ", ".join("%.9e" % h[1] for h in history),
+           history[0][1], loss64, loss_rel, statistics.median(h[3] for h in history[1:]), card))
+    if p7 != base_p7 + 1:
+        raise RuntimeError("nn_scale's prep launched P7 %d times, not %d (the prep without "
+                           "nn_scale, and the mean before the re-weighting)" % (p7, base_p7 + 1))
+    if not loss_rel <= LOSS_REL_BAR:
+        raise RuntimeError("nn_scale loss at w=0 misses the 1e-5 bar: %.3e" % loss_rel)
+    feats_rel = check_scaled_features(data, cfg)
+    return {"loss_rel": loss_rel, "p7_prep": p7, "prep_s": prep_s, "features_rel": feats_rel,
+            "step_ms": statistics.median(h[3] for h in history[1:])}
+
+
+def phase_resume(card: str, data):
+    """12e: train() for 4 steps with checkpoint_period 2 on phase 3's slice,
+    interrupted when step 2 starts and resumed, against an uninterrupted
+    run: the largest difference of w and whether the saved states are
+    equal bit for bit (K2's atomics and autograd's index_add need not be
+    deterministic)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from depth_correction_tpu_torch.train import TrainCallbacks, train
+
+    class Interrupt(Exception):
+        pass
+
+    class StopAt(TrainCallbacks):
+        def iteration_started(self, it):
+            if it == 2:
+                raise Interrupt(it)
+
+    root = tempfile.mkdtemp(prefix="dc_resume_")
+    try:
+        def cfg_at(name):
+            cfg = bench_config()
+            cfg.n_opt_iters = RESUME_STEPS
+            cfg.checkpoint_period = 2
+            cfg.plot_period = RESUME_STEPS
+            cfg.log_dir = os.path.join(root, name)
+            return cfg
+
+        train(cfg_at("full"), train_data=data)
+        try:
+            train(cfg_at("cut"), callbacks=StopAt(), train_data=data)
+            raise RuntimeError("the interrupted run was not interrupted")
+        except Interrupt:
+            pass
+        train(cfg_at("cut"), train_data=data)
+
+        def state(name):
+            return torch.load(os.path.join(root, name, "train_state", str(RESUME_STEPS - 1)),
+                              map_location="cpu", weights_only=True)
+
+        full, cut = state("full"), state("cut")
+        dw = max(float((a - b).abs().max()) for a, b in zip(full["tensors"], cut["tensors"]))
+        equal = all(torch.equal(a, b) for a, b in zip(full["tensors"], cut["tensors"]))
+        hist = [r[1] for r in full["history"]], [r[1] for r in cut["history"]]
+        log("resume: %d steps, interrupted at step 2 and resumed from the checkpoint of step 1; "
+            "w %s vs uninterrupted %s (max |dw| %.3e, bit-equal %s); losses %s vs %s (%s)"
+            % (RESUME_STEPS, cut["tensors"][0].tolist(), full["tensors"][0].tolist(), dw, equal,
+               hist[1], hist[0], card))
+        if cut["it"] != RESUME_STEPS - 1 or len(cut["history"]) != RESUME_STEPS:
+            raise RuntimeError("the resumed run did not finish from its checkpoint")
+        rel = abs(dw) / max(float(full["tensors"][0].abs().max()), 1e-30)
+        if not rel <= 1e-4:
+            raise RuntimeError("the resumed run's w is %.3e off the uninterrupted one" % rel)
+        return {"max_abs_dw": dw, "bit_equal": equal}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -2224,12 +2719,25 @@ def main() -> int:
     probes_p8, p7_probe = phase_probes_p6_p8(card)
     probes += probes_p8
     log("[phase 9] capped row (bench_config(uncapped=False), %d Adam steps)" % STEPS)
-    capped = phase_capped(card)
+    capped = phase_capped(card, res["seq"])
     log("[phase 10] default Config() on ASL-laser files, shadow filter on")
     default = phase_default(card)
     log("[phase 11] pose correction (phase 3's slice, pose mode, %d Adam steps)" % STEPS)
     pose = phase_pose(card, res["data"], res["cfg"])
+    log("[phase 12a, 12f] loss offset on the slice (%d Adam steps), then the prep cache" % STEPS)
+    seq = res.pop("seq")
+    offset = phase_offset_cache(card, seq)
+    log("[phase 12b] ICP training on the slice (%d Adam steps) and eval_icp" % STEPS)
+    icp = phase_icp(card, seq)
+    del seq
+    log("[phase 12c] L-BFGS with the zoom line search on the slice (%d steps)" % LBFGS_STEPS)
+    lbfgs = phase_lbfgs(card, res["data"])
+    log("[phase 12e] resume (%d steps, checkpoint_period 2)" % RESUME_STEPS)
+    resume = phase_resume(card, res["data"])
     log("build + all phases: %.1f s (%s)" % (time.perf_counter() - t0, card))
+    from depth_correction_tpu_torch import scripts
+
+    log("kernel_ms: %d extra calls for profiles taken again" % scripts.RETAKEN_CALLS)
     k = res["kernels"]
     g = res["graph"]
     shadow = default["shadow"]
@@ -2301,9 +2809,11 @@ def main() -> int:
          "plain_ms": small["x3"]["plain_ms"], "bound": small["x3"]["bound"],
          "bound_all_pairs_ms": small["x3"]["bound_all_pairs"][0], "library_ms": None,
          "launches_default": default["launches"]["knn"],
+         "launches_icp_eval": icp["x3_launches"],
          "inputs": {"small_scan": x3_summary(small["x3"]),
                     "shadow_dirs": dict(x3_summary(shadow), dropped=shadow["dropped"]),
-                    "default_global": x3_summary(default["global"])}},
+                    "default_global": x3_summary(default["global"]),
+                    "icp_pairs": icp["x3"]}},
     ] + probes
     for en in kernels:
         en["bound_ms"], en["bound_by"] = en.pop("bound")
@@ -2324,7 +2834,19 @@ def main() -> int:
         "capped_busy_ms": capped["profile"]["busy_ms"],
         "capped_wall_ms": capped["profile"]["wall_ms"],
         "pose_busy_ms": pose["profile"]["busy_ms"], "pose_wall_ms": pose["profile"]["wall_ms"],
-        "default_pose_eval_loss": default["pose"]["eval_loss"], "card": card}}), flush=True)
+        "default_pose_eval_loss": default["pose"]["eval_loss"],
+        "offset_step_ms": offset["step_ms"], "offset_loss_rel_err_w0": offset["loss_rel"],
+        "offset_busy_ms": offset["profile"]["busy_ms"],
+        "offset_wall_ms": offset["profile"]["wall_ms"],
+        "icp_step_ms": icp["step_ms"], "icp_loss_rel_err_w0": icp["loss_rel"],
+        "icp_prep_s": icp["prep_s"], "icp_eval_ms": icp["eval_ms"],
+        "icp_eval_loss_rel_err": icp["eval_rel"], "lbfgs_step_ms": lbfgs["step_ms"],
+        "lbfgs_evals_per_step": lbfgs["evals_per_step"],
+        "nn_scale_loss_rel_err_w0": default["nn_scale"]["loss_rel"],
+        "nn_scale_features_rel_err": max(default["nn_scale"]["features_rel"].values()),
+        "resume_max_abs_dw": resume["max_abs_dw"], "resume_bit_equal": resume["bit_equal"],
+        "prep_cache_build_s": offset["build_s"], "prep_cache_load_s": offset["load_s"],
+        "kernel_ms_retaken_calls": scripts.RETAKEN_CALLS, "card": card}}), flush=True)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

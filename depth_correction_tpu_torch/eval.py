@@ -5,15 +5,16 @@ append the result to a CSV in the reference's schema
 (``loss_eval_<loss>[_<subset>].csv``, rows ``"<names> <loss>"``;
 reference: eval.py:115-211). Pose corrections come from
 ``cfg.test_pose_deltas`` (an npz file that either package's ``train()``
-wrote) or start at zero. The ICP loss and SLAM evaluation are not ported:
-:func:`eval_loss_all` with ``icp_loss`` among ``cfg.eval_losses``,
-:func:`eval_icp` and :func:`eval_slam_all` raise NotImplementedError naming
-them.
+wrote) or start at zero. :func:`eval_icp` takes the ICP loss of consecutive
+scans at ground-truth poses, its correspondences found by the 1-NN search
+(kernel X3 on the card). SLAM evaluation is not ported: :func:`eval_slam_all`
+raises NotImplementedError naming it.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .config import Config, PoseCorrection, loss_eval_csv
@@ -97,8 +98,6 @@ def eval_loss_all(cfg: Config):
 
     :return: {(subset, loss): value}.
     """
-    if "icp_loss" in list(cfg.eval_losses or []):
-        raise NotImplementedError("icp_loss is not ported yet (eval_losses holds it)")
     results = {}
     for names, suffix in zip([cfg.train_names, cfg.val_names, cfg.test_names],
                              ["train", "val", "test"]):
@@ -112,7 +111,8 @@ def eval_loss_all(cfg: Config):
             eval_cfg.test_poses_path = []
             eval_cfg.loss = loss
             eval_cfg.loss_eval_csv = loss_eval_csv(cfg.log_dir, loss, suffix)
-            results[(suffix, loss)] = eval_loss(eval_cfg)
+            evaluate = eval_icp if loss == "icp_loss" else eval_loss
+            results[(suffix, loss)] = evaluate(eval_cfg)
     return results
 
 
@@ -122,7 +122,49 @@ def eval_slam_all(cfg: Config):
                               % list(cfg.eval_slams or []))
 
 
-def eval_icp(cfg: Config, test_datasets: Optional[Sequence] = None):
-    """The ICP loss on test sequences (reference: eval.py:100-104) is not
-    ported yet."""
-    raise NotImplementedError("eval_icp (icp_loss) is not ported yet")
+def eval_icp(cfg: Config, test_datasets: Optional[Sequence] = None,
+             return_data: bool = False):
+    """The ICP loss on test sequences at ground-truth poses (reference:
+    eval.py:100-104; JAX package, eval.py:201-243), on
+    ``cfg.torch_device()``: each scan's feature cloud (its own padding),
+    corrected by the loaded model, posed, and the point-to-plane (or
+    point-to-point) distance of consecutive scans over 1-NN
+    correspondences gated at the ``icp_inlier_ratio`` quantile (default
+    0.3). Prints the loss and, with ``cfg.loss_eval_csv`` set, appends
+    ``"<names> <loss>"`` to it.
+
+    :return: the loss as a float (and, with ``return_data``, the scans'
+        feature clouds, a list a sequence, and their (S, 4, 4) poses).
+    """
+    from .datasets import create_dataset
+    from .loss import icp_loss
+    from .preproc import local_feature_cloud
+
+    if test_datasets:
+        names = [str(ds) for ds in test_datasets]
+    else:
+        names = list(cfg.test_names or [])
+        test_datasets = [create_dataset(n, cfg, poses_path=_pose_path(cfg.test_poses_path, i, names))
+                         for i, n in enumerate(names)]
+    model = load_model(cfg=cfg)
+    seqs, poses_all = [], []
+    for ds in test_datasets:
+        clouds, poses = [], []
+        for scan, pose in ds:
+            clouds.append(local_feature_cloud(scan, cfg))
+            poses.append(np.asarray(pose))
+        seqs.append(clouds)
+        poses_all.append(torch.as_tensor(np.stack(poses), dtype=cfg.torch_dtype(),
+                                         device=cfg.torch_device()))
+    kwargs = cfg.loss_kwargs or {}
+    with torch.no_grad():
+        value, _ = icp_loss(seqs, poses=poses_all, model=model,
+                            icp_point_to_plane=bool(kwargs.get("icp_point_to_plane", True)),
+                            icp_inlier_ratio=float(kwargs.get("icp_inlier_ratio", 0.3)))
+    value = float(value)
+    print("ICP loss on %s: %.9f" % (", ".join(names), value))
+    if cfg.loss_eval_csv:
+        append(cfg.loss_eval_csv, "%s %.9f\n" % (",".join(names), value))
+    if return_data:
+        return value, (seqs, poses_all)
+    return value

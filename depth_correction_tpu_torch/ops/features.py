@@ -16,7 +16,9 @@ serialize on the TPU and are not ported.
 Moments that need no gradient (the online corrector, prep features, the
 viewpoint and direction dispersions of the trainability masks) go through
 :func:`gather_moments`: kernel P7 (``csrc/gather_moments.cu``) on CUDA
-tensors, :func:`gather_moments_plain` on CPU tensors.
+tensors, :func:`gather_moments_plain` on CPU tensors. The Gaussian
+re-weighting (``nn_scale``) takes two of them without a gradient: the mean,
+then the moments under the re-weighted weights.
 :func:`gather_moments_v1` launches P7's first version
 (``csrc/gather_moments_v1.cu``), for the A/B on the card only.
 """
@@ -190,9 +192,30 @@ def _cotangent_table(mean, w_sum, cotangents):
     return torch.stack([s00, s11, s22, s01, s02, s12, u0, u1, u2], 0)
 
 
+def _query_points(points, neighbors, query_rows):
+    """Each query row's own position: ``points[query_rows]`` (-1 rows read
+    row 0), or ``points`` itself when the rows are the whole table."""
+    if query_rows is not None:
+        return points[query_rows.clamp(min=0).long()]
+    if neighbors.shape[0] == points.shape[0]:
+        return points
+    raise ValueError("nn_scale needs query positions: got %d query rows over a "
+                     "%d-point table; pass query_rows"
+                     % (neighbors.shape[0], points.shape[0]))
+
+
+def _gaussian_weights(weights, qpts, mean, scale: float):
+    """``w * exp(-|q - mean|^2 / scale^2)`` (reference:
+    depth_cloud.py:356-364; JAX package, features.py:764-782), with
+    ``mean`` (3, Mq) the mean under ``weights``."""
+    dist2 = ((qpts - mean.T) ** 2).sum(-1)
+    return weights * torch.exp(-(dist2 / scale ** 2))[:, None]
+
+
 def neighborhood_features(points, neighbors, weights, dirs=None,
                           scale: Optional[float] = None,
-                          compute_normals: bool = True, plain: bool = False):
+                          compute_normals: bool = True, plain: bool = False,
+                          query_rows=None):
     """Weighted neighborhood statistics for each query row.
 
     :param points: (N, 3) cloud positions.
@@ -200,22 +223,37 @@ def neighborhood_features(points, neighbors, weights, dirs=None,
     :param weights: (M, K) neighbor weights (0 on padding slots).
     :param dirs: (M, 3) view directions for normal orientation and
         incidence angles; None skips those outputs.
-    :param scale: Gaussian re-weighting (``nn_scale``) is not ported yet.
+    :param scale: Gaussian re-weighting (``nn_scale``): each weight times
+        ``exp(-|q - mean|^2 / scale^2)``, q the query row's own position
+        and mean the neighbourhood's under the given weights; the mean and
+        moments are then taken again under the new weights. Under autograd
+        the gradient flows through the re-weighting.
     :param compute_normals: skip the eigenvector path when False (the
         min-eigval / trace losses only need eigenvalues).
     :param plain: without a gradient, take :func:`gather_moments_plain`
         on any device and dtype instead of :func:`gather_moments`.
-    :return: dict with mean, weights, trace, eigvals and, with normals,
-        cov, eigvecs, normals, inc_angles.
+    :param query_rows: (M,) each query row's position in ``points`` (-1 on
+        padding rows), needed by ``scale`` when M != N.
+    :return: dict with mean, weights (re-weighted with ``scale``), trace,
+        eigvals and, with normals, cov, eigvecs, normals, inc_angles.
     """
-    if scale is not None:
-        raise NotImplementedError("nn_scale (Gaussian re-weighting) is not ported yet")
     if weights.dim() == 3:
         weights = weights[..., 0]
     if torch.is_grad_enabled() and points.requires_grad:
+        if scale is not None:
+            nbr = gather_neighbors(points, neighbors)
+            w = weights.to(points.dtype)
+            mean = ((nbr * w[..., None]).sum(1) / torch.clamp(w.sum(1), min=1e-12)[:, None]).T
+            weights = _gaussian_weights(w, _query_points(points, neighbors, query_rows),
+                                        mean, scale)
         mean, comps = neighborhood_moments(points, neighbors, weights)
     else:
         fn = gather_moments_plain if plain else gather_moments
+        if scale is not None:
+            mean, _, _ = fn(points, neighbors, weights)
+            weights = _gaussian_weights(weights.to(points.dtype),
+                                        _query_points(points, neighbors, query_rows),
+                                        mean, scale)
         mean, comps, _ = fn(points, neighbors, weights)
         comps = tuple(comps)
     return _finish_features(mean, comps, weights, dirs, compute_normals)

@@ -59,6 +59,7 @@ __all__ = [
     "flatten_batch",
     "global_cloud",
     "local_feature_cloud",
+    "offset_cloud",
     "pad_size",
     "sequence_batch",
     "symmetrize_neighbors",
@@ -190,12 +191,18 @@ def establish_scan_neighbors(cloud: Cloud, cfg: Config):
     return idx, (idx >= 0).to(points.dtype)
 
 
-def local_feature_cloud(cloud, cfg: Config, pad_to: Optional[int] = None) -> Cloud:
+def local_feature_cloud(cloud, cfg: Config, pad_to: Optional[int] = None,
+                        return_neighbors: bool = False):
     """Per-scan feature cloud: shadow filter, neighbors + mean/cov/eigh/
     normals/incidence angles + eigenvalue masks. ``mask`` marks the locally
     planar, correctable region the model applies to (reference:
     preproc.py:35-62). Computed in ``cfg.torch_dtype()`` on
-    ``cfg.torch_device()``."""
+    ``cfg.torch_device()``.
+
+    :param return_neighbors: also return the scan's (neighbors, weights),
+        which the loss offset re-evaluates under the current model
+        (reference: preproc.py:67-77; JAX package, preproc.py:132-200).
+    """
     dtype, device = cfg.torch_dtype(), cfg.torch_device()
     if isinstance(cloud, np.ndarray) and cloud.dtype.names:
         pts, vps, normals = _split_structured(cloud)
@@ -228,7 +235,10 @@ def local_feature_cloud(cloud, cfg: Config, pad_to: Optional[int] = None) -> Clo
         mask = mask & filter_eigenvalues_mask(cloud.eigvals, cfg.eigenvalue_bounds)
     if cfg.eigenvalue_ratio_bounds:
         mask = mask & filter_eigenvalue_ratios_mask(cloud.eigvals, cfg.eigenvalue_ratio_bounds)
-    return cloud.replace(mask=mask)
+    out = cloud.replace(mask=mask)
+    if return_neighbors:
+        return out, neighbors, weights
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -288,6 +298,16 @@ def global_cloud(batch: SequenceBatch, model=None,
         cloud = model.apply(cloud)
     transformed = cloud.transform(corrected_poses(batch.poses, pose_deltas))
     return flatten_batch(transformed).with_points()
+
+
+def offset_cloud(batch: SequenceBatch, model=None) -> Cloud:
+    """The sequence's local clouds, corrected by ``model`` and merged in
+    their scan frames: the clouds of the loss offset (reference:
+    preproc.py:67-77; JAX package, preproc.py:395-403)."""
+    cloud = batch.cloud
+    if model is not None:
+        cloud = model.apply(cloud)
+    return flatten_batch(cloud)
 
 
 def symmetrize_neighbors(neighbors: torch.Tensor, chunk: int = 4096) -> torch.Tensor:

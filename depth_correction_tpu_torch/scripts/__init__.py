@@ -7,12 +7,20 @@ measures they report.
 """
 from __future__ import annotations
 
+import sys
 import time
 
 import torch
 
-__all__ = ["bench_config", "device_ms", "in_turns", "kernel_ms", "rel_max", "rel_rows",
-           "require_card"]
+__all__ = ["PROFILE_ATTEMPTS", "RETAKEN_CALLS", "bench_config", "device_ms", "in_turns",
+           "kernel_ms", "rel_max", "rel_rows", "require_card"]
+
+# Calls of a timed function that kernel_ms made for profiles it took again
+# (each a call more than its caller asked for); a caller that counts the
+# launches of the timed function adds these.
+RETAKEN_CALLS = 0
+# Profiles a kernel_ms call takes before it raises.
+PROFILE_ATTEMPTS = 5
 
 # bench.py's uncapped training scene.
 SCENE = "open_box/n_6_size_20_20_5_height_1_density_400"
@@ -88,9 +96,13 @@ def kernel_ms(fn, device, reps: int, warmup: int = 2) -> float:
     inside the profile after the calls have finished, and each kernel
     counts as its mean recorded duration times its launches per call (its
     recorded launches over ``reps``, at least one). A profile that recorded
-    no kernel at all is taken again, three times in all, and then this
-    raises.
+    no kernel at all (on an H100 the profiler has also missed every kernel
+    of three profiles of 20 calls in a row) is taken again, up to
+    :data:`PROFILE_ATTEMPTS` in all, and then it raises: no other clock
+    stands in for the kernels' own durations. The calls of each profile
+    taken again are added to :data:`RETAKEN_CALLS`.
     """
+    global RETAKEN_CALLS
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -99,7 +111,12 @@ def kernel_ms(fn, device, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for attempt in range(PROFILE_ATTEMPTS):
+        if attempt:
+            RETAKEN_CALLS += reps
+            print("kernel_ms: a profile of %d calls recorded no kernel; taking it again"
+                  % reps, file=sys.stderr)
+            time.sleep(0.05)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -110,7 +127,8 @@ def kernel_ms(fn, device, reps: int, warmup: int = 2) -> float:
         if events:
             return sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
                        for e in events) / 1e3
-    raise RuntimeError("kernel_ms: 3 profiles of %d calls recorded no kernel" % reps)
+    raise RuntimeError("kernel_ms: %d profiles of %d calls recorded no kernel"
+                       % (PROFILE_ATTEMPTS, reps))
 
 
 def in_turns(first, second, device, reps: int = 50, timer=None) -> tuple:

@@ -8,15 +8,24 @@ masks, the cell-window graph) happens once; each step then runs
     layout -> cell-window moments (CUDA kernel K1) -> 3x3 eigenvalues ->
     masked loss -> backward (cotangent table -> CUDA kernel K2) -> Adam.
 
-This port covers the min-eigenvalue / trace training step with Adam or
-SGD on one device, over the uncapped graph (the cell-window kernels) or a
-capped one (gather moments by torch autograd), with pose corrections
-(``pose_correction`` none, common, sequence or pose: SE(3) deltas trained
-beside the model, their gradient through K2 and the pose transform), with
-validation sequences and the JAX package's outputs (``train.yaml``, the
-best model's ``<tag>_state_dict.npz`` and ``<tag>_pose_deltas.npz``,
-``best.yaml``, ``train_history.csv``). Every option outside it raises
+The port trains the min-eigenvalue, trace and ICP objectives with Adam,
+SGD or L-BFGS (``optim.LBFGS``: optax's algorithm with its strong-Wolfe
+zoom line search) on one device, over the uncapped graph (the cell-window
+kernels) or a capped one (gather moments by torch autograd), with the
+dynamic loss offset (``loss_offset``: the local clouds' pointwise loss
+under the current model subtracted), the Gaussian re-weighting
+(``nn_scale``), pose corrections (``pose_correction`` none, common,
+sequence or pose: SE(3) deltas trained beside the model), validation
+sequences, checkpoint and resume (``checkpoint_period``, ``resume``), the
+prep cache (``prep_cache_dir``) and the JAX package's outputs
+(``train.yaml``, the best model's ``<tag>_state_dict.npz`` and
+``<tag>_pose_deltas.npz``, ``best.yaml``, ``train_history.csv``). Plane
+neighbourhoods, a device mesh and the native backend raise
 NotImplementedError naming the option (:func:`check_slice`).
+
+The JAX package's bucketed and pair transposes of the offset and
+``nn_scale`` gathers are TPU workarounds (scatters serialise there); the
+port's gathers take torch autograd's ``index_add`` backward.
 """
 from __future__ import annotations
 
@@ -33,12 +42,15 @@ from .config import Config, NeighborhoodType, PoseCorrection
 from .loss import create_loss
 from .models import load_model, model_state, save_state_file
 from .ops.filters import global_cloud_mask
+from .optim import LBFGS
 from .preproc import (
     SequenceBatch,
     compute_neighborhood_features,
+    corrected_poses,
     establish_neighborhoods,
     global_cloud,
     local_feature_cloud,
+    offset_cloud,
     pad_size,
     sequence_batch,
 )
@@ -61,13 +73,10 @@ __all__ = [
 def check_slice(cfg: Config) -> None:
     """Raise NotImplementedError for any option outside the ported slice."""
     unsupported = [
-        ("loss_offset", bool(cfg.loss_offset)),
-        ("nn_scale", cfg.nn_scale is not None),
         ("nn_type=plane", cfg.nn_type == NeighborhoodType.plane),
-        ("icp_loss", cfg.loss == "icp_loss"),
         ("mesh_shape", bool(cfg.mesh_shape or cfg.dist_coordinator)),
-        ("optimizer=%s" % cfg.optimizer, cfg.optimizer.lower() not in ("adam", "sgd")),
-        ("checkpoint_period", bool(cfg.checkpoint_period)),
+        ("optimizer=%s" % cfg.optimizer,
+         cfg.optimizer.lower() not in ("adam", "sgd", "lbfgs")),
         ("nn_backend=native", cfg.nn_backend == "native"),
     ]
     for name, hit in unsupported:
@@ -164,6 +173,16 @@ class TrainData:
     # Why each sequence's cell-window build declined (the builder's note),
     # None where it built or was not tried.
     cellwin_notes: tuple = ()
+    # The dynamic loss offset (loss_offset): each loss row's frozen LOCAL
+    # (per-scan) neighbourhood in the (S*N,) local-point axis, in the
+    # rows' layout (compacted rows, or the cell-window tile layout), and
+    # its weights; None per sequence without the offset.
+    off_neighbors: tuple = ()  # tuple[(Mq, Kl) int64 or None]
+    off_weights: tuple = ()  # tuple[(Mq, Kl) float or None]
+    # ICP training: frozen correspondences of consecutive scans, rows of
+    # scan i+1 (S-1, N) and their inlier weights (S-1, N) bool.
+    icp_idx: tuple = ()
+    icp_w: tuple = ()
 
     def to(self, device=None, dtype=None) -> "TrainData":
         """Move to ``device`` and cast the floating point clouds and
@@ -194,6 +213,10 @@ class TrainData:
             cellwin=tuple(mv_cw(c) for c in self.cellwin),
             prep_seconds=dict(self.prep_seconds),
             cellwin_notes=self.cellwin_notes,
+            off_neighbors=tuple(mv(x) for x in self.off_neighbors),
+            off_weights=tuple(mv(x) for x in self.off_weights),
+            icp_idx=tuple(mv(x) for x in self.icp_idx),
+            icp_w=tuple(mv(x) for x in self.icp_w),
         )
 
 
@@ -241,113 +264,191 @@ def _tick(seconds: dict, part: str, t0: float, device) -> float:
     return t1
 
 
+def _offset_graph(local_nns, n_dim: int, qrows, qvalid, cw_dev, dtype):
+    """The loss offset's frozen graph (JAX package, train.py:471-524): each
+    scan's local neighbours moved to the (S*N,) local-point axis by
+    ``s * n_dim``, stacked, gathered through the query rows and, on a
+    cell-window graph, re-indexed into its tile layout through
+    ``row_map``. Returns (neighbors (Mq, Kl) int64, weights)."""
+    kl = max(a.shape[1] for a in local_nns)
+    blocks = []
+    for s, a in enumerate(local_nns):
+        a = a.long()
+        block = torch.where(a >= 0, a + s * n_dim, torch.full_like(a, -1))
+        blocks.append(torch.nn.functional.pad(block, (0, kl - a.shape[1]), value=-1))
+    flat = torch.cat(blocks, 0)
+    minus = torch.full((), -1, dtype=torch.int64, device=flat.device)
+    onn = torch.where(qvalid[:, None], flat[qrows.clamp(min=0)], minus)
+    if cw_dev is not None:
+        rm = cw_dev.row_map
+        onn = torch.where((rm >= 0)[:, None], onn[rm.clamp(min=0)], minus)
+    return onn, (onn >= 0).to(dtype)
+
+
+_RECORD_FIELDS = ("batches", "neighbors", "weights", "masks", "query_rows", "cellwin",
+                  "cellwin_notes", "off_neighbors", "off_weights", "icp_idx",
+                  "icp_w")
+
+
 def prepare_sequences(datasets, cfg: Config, for_grad: bool = True) -> TrainData:
     """Build per-sequence batches, frozen neighborhoods, masks and the
-    cell-window graphs (reference: train.py:90-216 without the hot loop).
+    cell-window graphs (reference: train.py:90-216 without the hot loop;
+    JAX package, train.py:132-597).
 
     Neighborhoods are established as ``preproc`` routes ``cfg.nn_backend``
     (None, ``'grid'``, ``'scipy'``, as in the JAX package): the bench's
     ``'grid'`` runs the grid-hash search, kernel X2 on the card, for every
-    scan and for the global cloud. The seconds of each prep part are
-    printed to stderr and kept in ``TrainData.prep_seconds``.
+    scan and for the global cloud. With ``loss = 'icp_loss'`` the scans
+    keep their normals and planar masks, and the frozen correspondences of
+    consecutive scans replace the global graph; with ``loss_offset`` the
+    per-scan neighbourhoods are kept for the offset. With
+    ``cfg.prep_cache_dir`` each sequence is looked up in, or written to,
+    the prep cache (``utils/prep_cache.py``). The seconds of each prep part
+    are printed to stderr and kept in ``TrainData.prep_seconds``.
     """
     check_slice(cfg)
-    from .ops import cellwin as cwin
-
     device = cfg.torch_device()
     seconds: dict = {}
-    batches, neighbors, weights, masks, query_rows, cellwin = [], [], [], [], [], []
-    notes = []
+    out = {f: [] for f in _RECORD_FIELDS}
     use_cellwin = _use_cellwin(cfg, for_grad)
+    icp_mode = cfg.loss == "icp_loss"
+    cache_dir = cfg.prep_cache_dir
     for ds in datasets:
         t = time.perf_counter()
         scans = [(scan, pose) for scan, pose in ds]
         t = _tick(seconds, "load_scans", t, device)
-        common_pad = max((pad_size(len(s)) for s, _ in scans), default=0)
-        clouds, poses = [], []
-        for scan, pose in scans:
-            fc = local_feature_cloud(scan, cfg, pad_to=common_pad)
-            # The hot loop consumes source fields, incidence angles and the
-            # planar mask only.
-            clouds.append(fc.replace(points=None, mean=None, cov=None, eigvals=None,
-                                     eigvecs=None, normals=None, trace=None, loss=None))
-            poses.append(np.asarray(pose))
+        fp = None
+        if cache_dir:
+            from .utils.prep_cache import load_record, sequence_fingerprint
+
+            fp = sequence_fingerprint(scans, cfg, for_grad)
+            rec = load_record(cache_dir, fp, device)
+            if rec is not None:
+                print("[prep] sequence reloaded from prep cache (%s)" % fp, file=sys.stderr)
+                for f in _RECORD_FIELDS:
+                    out[f].append(rec[f])
+                t = _tick(seconds, "cache_load", t, device)
+                continue
+        rec = _prepare_sequence(scans, cfg, use_cellwin, icp_mode, seconds, t, device)
         del scans
-        batch = sequence_batch(clouds, np.stack(poses))
-        batches.append(batch)
-        t = _tick(seconds, "local_features", t, device)
+        if fp is not None:
+            from .utils.prep_cache import save_record
 
-        gcloud = global_cloud(batch)
-        est_cfg = cfg
-        if use_cellwin:
-            # Membership recomputed as d2 <= r2 is exact only for the
-            # UNCAPPED within-r graph, so establishment ignores the cap.
-            est_cfg = cfg.copy()
-            est_cfg.nn_max_neighbors = None
-            est_cfg.nn_symmetrize = False
-        nn, w = establish_neighborhoods(gcloud, est_cfg)
-        t = _tick(seconds, "global_neighbors", t, device)
-        feat = compute_neighborhood_features(gcloud, nn, w, cfg)
-        gmask = global_cloud_mask(feat, nn, w, cfg, mask=feat.mask)
-        t = _tick(seconds, "global_features", t, device)
-
-        # Query-row compaction: only rows that enter the loss keep their
-        # neighborhoods; every point still serves as a neighbor.
-        kept = torch.nonzero(gmask).reshape(-1)
-        mq = pad_size(max(int(kept.numel()), 1))
-        qrows = torch.full((mq,), -1, dtype=torch.int64, device=gmask.device)
-        qrows[: kept.numel()] = kept
-        qvalid = qrows >= 0
-        nn_c = torch.where(qvalid[:, None], nn[qrows.clamp(min=0)],
-                           torch.full_like(nn[:1], -1))
-        w_c = (nn_c >= 0).to(w.dtype)
-        neighbors.append(nn_c)
-        weights.append(w_c)
-        masks.append(qvalid)
-        query_rows.append(qrows)
-
-        cw_dev = note = None
-        if use_cellwin:
-            extra = {}
-            if cfg.cellwin_eps_rel is not None:
-                extra["eps_rel"] = float(cfg.cellwin_eps_rel)
-            if cfg.cellwin_max_exc_frac is not None:
-                extra["max_exc_frac"] = float(cfg.cellwin_max_exc_frac)
-            pts_np = gcloud.get_points().detach().cpu().to(torch.float64).numpy()
-            valid_np = gcloud.valid.cpu().numpy()
-            qrows_np, nn_np = qrows.cpu().numpy(), nn_c.cpu().numpy()
-            g = None
-            # Escalate the span budget once before declining.
-            for span_limit in (512, 1024):
-                g = cwin.build_cellwin_graph(
-                    pts_np, valid_np, qrows_np, nn_np, float(cfg.nn_r),
-                    row_cap=int(cfg.cellwin_row_cap),
-                    pt_cap=int(cfg.cellwin_pt_cap),
-                    span_limit=span_limit,
-                    z_max=cfg.cellwin_z_max,
-                    **extra,
-                )
-                if g is not None:
-                    break
-            if g is not None:
-                cw_dev = cwin.graph_to_device(g, device)
-                print("[prep] cellwin graph: %d rows -> %d tiles x %d "
-                      "(span cap %d/%d), %d exception rows"
-                      % (g.n_rows, g.n_row_tiles, g.row_cap, g.span_cap,
-                         g.rspan_cap, g.n_exc), file=sys.stderr)
-            else:
-                note = cwin.LAST_NOTE
-                print("[prep] cellwin build %s; using gather moments" % note, file=sys.stderr)
-            t = _tick(seconds, "cellwin_build", t, device)
-        cellwin.append(cw_dev)
-        notes.append(note)
+            t = time.perf_counter()
+            save_record(cache_dir, fp, rec)
+            _tick(seconds, "cache_save", t, device)
+        for f in _RECORD_FIELDS:
+            out[f].append(rec[f])
     for part, s in seconds.items():
         print("[prep] %s: %.3f s" % (part, s), file=sys.stderr)
-    return TrainData(
-        batches=tuple(batches), neighbors=tuple(neighbors), weights=tuple(weights),
-        masks=tuple(masks), query_rows=tuple(query_rows), cellwin=tuple(cellwin),
-        prep_seconds=seconds, cellwin_notes=tuple(notes),
-    )
+    return TrainData(prep_seconds=seconds, **{f: tuple(v) for f, v in out.items()})
+
+
+def _prepare_sequence(scans, cfg: Config, use_cellwin: bool, icp_mode: bool, seconds: dict,
+                      t: float, device) -> dict:
+    """One sequence's record of :data:`_RECORD_FIELDS` (the body of
+    :func:`prepare_sequences`)."""
+    from .ops import cellwin as cwin
+
+    rec = dict.fromkeys(_RECORD_FIELDS)
+    common_pad = max((pad_size(len(s)) for s, _ in scans), default=0)
+    clouds, poses, local_nns = [], [], []
+    for scan, pose in scans:
+        if cfg.loss_offset and not icp_mode:
+            fc, lnn, _ = local_feature_cloud(scan, cfg, pad_to=common_pad,
+                                             return_neighbors=True)
+            local_nns.append(lnn)
+        else:
+            fc = local_feature_cloud(scan, cfg, pad_to=common_pad)
+        # The hot loop consumes source fields, incidence angles and the
+        # planar mask only; ICP also the per-scan normals.
+        clouds.append(fc.replace(points=None, mean=None, cov=None, eigvals=None,
+                                 eigvecs=None, trace=None, loss=None,
+                                 normals=fc.normals if icp_mode else None))
+        poses.append(np.asarray(pose))
+    batch = sequence_batch(clouds, np.stack(poses))
+    rec["batches"] = batch
+    t = _tick(seconds, "local_features", t, device)
+
+    if icp_mode:
+        from .loss import icp_pair_correspondences
+
+        # Frozen correspondences of the posed, uncorrected points
+        # (reference: train.py:179-210; JAX package, train.py:266-296).
+        posed = batch.cloud.transform(batch.poses)
+        idx, w = icp_pair_correspondences(
+            posed.to_points().detach().cpu().numpy(), batch.cloud.valid.cpu().numpy(),
+            float((cfg.loss_kwargs or {}).get("icp_inlier_ratio", 0.5)))
+        rec["icp_idx"] = torch.as_tensor(idx, dtype=torch.int64, device=device)
+        rec["icp_w"] = torch.as_tensor(w, device=device)
+        _tick(seconds, "icp_correspondences", t, device)
+        return rec
+
+    gcloud = global_cloud(batch)
+    est_cfg = cfg
+    if use_cellwin:
+        # Membership recomputed as d2 <= r2 is exact only for the
+        # UNCAPPED within-r graph, so establishment ignores the cap.
+        est_cfg = cfg.copy()
+        est_cfg.nn_max_neighbors = None
+        est_cfg.nn_symmetrize = False
+    nn, w = establish_neighborhoods(gcloud, est_cfg)
+    t = _tick(seconds, "global_neighbors", t, device)
+    feat = compute_neighborhood_features(gcloud, nn, w, cfg)
+    gmask = global_cloud_mask(feat, nn, w, cfg, mask=feat.mask)
+    t = _tick(seconds, "global_features", t, device)
+
+    # Query-row compaction: only rows that enter the loss keep their
+    # neighborhoods; every point still serves as a neighbor.
+    kept = torch.nonzero(gmask).reshape(-1)
+    mq = pad_size(max(int(kept.numel()), 1))
+    qrows = torch.full((mq,), -1, dtype=torch.int64, device=gmask.device)
+    qrows[: kept.numel()] = kept
+    qvalid = qrows >= 0
+    nn_c = torch.where(qvalid[:, None], nn[qrows.clamp(min=0)],
+                       torch.full_like(nn[:1], -1))
+    rec.update(neighbors=nn_c, weights=(nn_c >= 0).to(w.dtype), masks=qvalid, query_rows=qrows)
+
+    cw_dev = None
+    if use_cellwin:
+        extra = {}
+        if cfg.cellwin_eps_rel is not None:
+            extra["eps_rel"] = float(cfg.cellwin_eps_rel)
+        if cfg.cellwin_max_exc_frac is not None:
+            extra["max_exc_frac"] = float(cfg.cellwin_max_exc_frac)
+        pts_np = gcloud.get_points().detach().cpu().to(torch.float64).numpy()
+        valid_np = gcloud.valid.cpu().numpy()
+        qrows_np, nn_np = qrows.cpu().numpy(), nn_c.cpu().numpy()
+        g = None
+        # Escalate the span budget once before declining.
+        for span_limit in (512, 1024):
+            g = cwin.build_cellwin_graph(
+                pts_np, valid_np, qrows_np, nn_np, float(cfg.nn_r),
+                row_cap=int(cfg.cellwin_row_cap),
+                pt_cap=int(cfg.cellwin_pt_cap),
+                span_limit=span_limit,
+                z_max=cfg.cellwin_z_max,
+                **extra,
+            )
+            if g is not None:
+                break
+        if g is not None:
+            cw_dev = cwin.graph_to_device(g, device)
+            print("[prep] cellwin graph: %d rows -> %d tiles x %d "
+                  "(span cap %d/%d), %d exception rows"
+                  % (g.n_rows, g.n_row_tiles, g.row_cap, g.span_cap,
+                     g.rspan_cap, g.n_exc), file=sys.stderr)
+        else:
+            rec["cellwin_notes"] = cwin.LAST_NOTE
+            print("[prep] cellwin build %s; using gather moments" % cwin.LAST_NOTE,
+                  file=sys.stderr)
+        t = _tick(seconds, "cellwin_build", t, device)
+    rec["cellwin"] = cw_dev
+    if cfg.loss_offset:
+        rec["off_neighbors"], rec["off_weights"] = _offset_graph(
+            local_nns, batch.cloud.depth.shape[1], qrows, qvalid, cw_dev, w.dtype)
+        _tick(seconds, "offset_graph", t, device)
+    return rec
 
 
 def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
@@ -357,18 +458,58 @@ def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
 
     Mirrors ``eval_loss_clouds`` (reference: eval.py:85-112) for the
     map-consistency losses: corrected global clouds -> features over frozen
-    neighborhoods -> batch loss. ``plain`` computes the cell-window moments
-    with the plain torch kernels on any device and dtype (reference runs).
+    neighborhoods (Gaussian re-weighted with ``nn_scale``) -> batch loss,
+    less the dynamic offset with ``loss_offset``. For ``icp_loss`` (JAX
+    package, train.py:714-742): corrected scans -> corrected poses ->
+    the batched ICP distance over the frozen correspondences, averaged
+    over sequences. ``plain`` computes the moments with the plain torch
+    kernels on any device and dtype (reference runs).
     """
     check_slice(cfg)
-    loss_fun = loss_fun or create_loss(cfg)
     mode = cfg.pose_correction
+
+    if cfg.loss == "icp_loss":
+        from .loss import icp_pair_loss_batched
+
+        p2plane = bool((cfg.loss_kwargs or {}).get("icp_point_to_plane", True))
+
+        def icp_loss_fn(model, data: TrainData, pose_deltas=None):
+            total = 0.0
+            for i, batch in enumerate(data.batches):
+                cloud = model.apply(batch.cloud) if model is not None else batch.cloud
+                tc = cloud.transform(corrected_poses(
+                    batch.poses, _delta_for_seq(pose_deltas, i, mode)))
+                total = total + icp_pair_loss_batched(tc.to_points(), tc.normals,
+                                                      data.icp_idx[i], data.icp_w[i],
+                                                      point_to_plane=p2plane)
+            return total / max(len(data.batches), 1)
+
+        return icp_loss_fn
+
+    loss_fun = loss_fun or create_loss(cfg)
+    normalization = bool((cfg.loss_kwargs or {}).get("normalization"))
+
+    def local_offset(model, batch, onn, ow):
+        """The local clouds' pointwise loss under the current model (JAX
+        package, train.py:744-768; reference: preproc.py:67-77,
+        loss.py:279-281), unscaled even with ``nn_scale`` (the reference
+        re-weights the global cloud only)."""
+        from .ops.features import neighborhood_features
+
+        f = neighborhood_features(offset_cloud(batch, model).get_points(), onn, ow,
+                                  compute_normals=False, plain=plain)
+        if cfg.loss == "trace_loss":
+            return f["trace"]
+        off = f["eigvals"][..., 0]
+        if normalization:
+            off = off / torch.clamp(f["eigvals"].sum(-1), min=1e-6)
+        return off
 
     def loss_fn(model, data: TrainData, pose_deltas=None):
         from .ops.cellwin import cellwin_features
         from .ops.features import neighborhood_features, permute_rows
 
-        feats, seq_masks = [], []
+        feats, seq_masks, offsets = [], [], []
         for i, batch in enumerate(data.batches):
             cw = data.cellwin[i] if data.cellwin else None
             gcloud = global_cloud(batch, model=model,
@@ -381,30 +522,44 @@ def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
                 mask = cw.row_map >= 0
             else:
                 f = neighborhood_features(gcloud.get_points(), data.neighbors[i],
-                                          data.weights[i], compute_normals=False,
-                                          plain=plain)
+                                          data.weights[i], scale=cfg.nn_scale,
+                                          compute_normals=False, plain=plain,
+                                          query_rows=data.query_rows[i])
                 mask = data.masks[i]
             seq_masks.append(mask)
             feats.append(FeatureRows(eigvals=f["eigvals"], trace=f["trace"], valid=mask))
-        value, _ = loss_fun(feats, mask=seq_masks, offset=None)
+            onn = data.off_neighbors[i] if data.off_neighbors else None
+            offsets.append(None if onn is None
+                           else local_offset(model, batch, onn, data.off_weights[i]))
+        value, _ = loss_fun(feats, mask=seq_masks,
+                            offset=offsets if any(o is not None for o in offsets) else None)
         return value
 
     return loss_fn
 
 
 def make_optimizer(cfg: Config, params):
-    """Adam or SGD per config (reference: train.py:140-148; JAX package,
-    train.py:869-895): ``optax.adam(lr)`` with betas (0.9, 0.999) and eps
-    1e-8 becomes ``torch.optim.Adam`` with the same values;
+    """Adam, SGD or L-BFGS per config (reference: train.py:140-156; JAX
+    package, train.py:869-915): ``optax.adam(lr)`` with betas (0.9, 0.999)
+    and eps 1e-8 becomes ``torch.optim.Adam`` with the same values;
     ``optax.sgd(lr, momentum, nesterov)`` becomes ``torch.optim.SGD``, whose
-    momentum buffer starts at the first gradient as optax's trace does.
+    momentum buffer starts at the first gradient as optax's trace does;
+    ``lbfgs`` becomes :class:`optim.LBFGS` (``optimizer_kwargs``
+    ``memory_size`` 10, ``line_search`` True: the strong-Wolfe zoom, which
+    sets the stepsize and ignores ``lr``; ``max_linesearch_steps`` 20).
     ``params`` is a list of tensors or of parameter groups (the model's and
-    the pose deltas'); both optimizers update each element on its own, as
+    the pose deltas'); Adam and SGD update each element on its own, as
     optax does each leaf."""
     check_slice(cfg)
     kwargs = dict(cfg.optimizer_kwargs or {})
     lr = float(cfg.optimizer_args[0]) if cfg.optimizer_args else cfg.lr
-    if cfg.optimizer.lower() == "sgd":
+    name = cfg.optimizer.lower()
+    if name == "lbfgs":
+        opts = {"memory_size": int(kwargs.pop("memory_size", 10)),
+                "line_search": bool(kwargs.pop("line_search", True)),
+                "max_linesearch_steps": int(kwargs.pop("max_linesearch_steps", 20))}
+        make = LBFGS
+    elif name == "sgd":
         make = torch.optim.SGD
         opts = {"momentum": float(kwargs.pop("momentum", None) or 0.0),
                 "nesterov": bool(kwargs.pop("nesterov", False))}
@@ -417,10 +572,53 @@ def make_optimizer(cfg: Config, params):
     return make(params, lr=lr, **opts)
 
 
+def _opt_step(opt, value, loss_at):
+    """One optimizer step from the gradients in ``.grad``. L-BFGS's line
+    search calls ``loss_at()`` at each trial point (the loss, unmasked
+    gradients of the optimizer's tensors, as the JAX package's
+    ``value_fn``); Adam and SGD need neither."""
+    if isinstance(opt, LBFGS):
+        opt.step(value=float(value.detach()), closure=loss_at)
+    else:
+        opt.step()
+
+
+def _grads_of(value, tensors):
+    """d value / d tensors, zeros for tensors it does not reach."""
+    grads = torch.autograd.grad(value, tensors, allow_unused=True)
+    return [torch.zeros_like(t) if g is None else g for t, g in zip(tensors, grads)]
+
+
+def _checkpoint_dir(cfg: Config) -> Optional[str]:
+    return (os.path.join(os.path.abspath(cfg.log_dir), "train_state")
+            if cfg.checkpoint_period else None)
+
+
+def _load_checkpoint(ckpt_dir: str, device) -> Optional[dict]:
+    """The newest ``train_state/<it>`` file, or None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    steps = sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
+    if not steps:
+        return None
+    return torch.load(os.path.join(ckpt_dir, str(steps[-1])), map_location=device,
+                      weights_only=True)
+
+
+def _save_checkpoint(ckpt_dir: str, it: int, state: dict) -> None:
+    """``torch.save`` into ``train_state/<it>`` through a temporary file
+    (a restart that revisits an iteration overwrites it)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, str(it))
+    torch.save(state, path + ".tmp")
+    os.replace(path + ".tmp", path)
+
+
 def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] = None,
-        val_data: Optional[TrainData] = None, on_step=None, pose_deltas=None):
+        val_data: Optional[TrainData] = None, on_step=None, pose_deltas=None,
+        best: Optional[dict] = None):
     """The optimisation loop of :func:`train`: ``cfg.n_opt_iters`` steps of
-    Adam or SGD on ``cfg.torch_device()`` over the model and, with
+    Adam, SGD or L-BFGS on ``cfg.torch_device()`` over the model and, with
     ``cfg.pose_correction``, the pose deltas (a second parameter group;
     with ``optimize_model`` False the model's gradients are zeroed, so it
     stays as loaded; in ``pose`` mode so is the first pose's).
@@ -431,9 +629,18 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
     ``pose`` modes validation takes a step of its own optimizer on the
     validation sequences' own deltas (``val_data`` prepared for gradients),
     in ``common`` mode it reuses the training delta, otherwise it is
-    forward only. ``step_ms`` covers the step and validation and ends in a
+    forward only. L-BFGS's line search evaluates the loss again at each
+    trial point. ``step_ms`` covers the step and validation and ends in a
     sync. The step's weights are cloned on the device before the update,
     with no sync.
+
+    With ``cfg.checkpoint_period`` every ``checkpoint_period``-th step and
+    the last save the train state with ``torch.save`` into
+    ``log_dir/train_state/<it>`` (JAX package, train.py:1139-1180,
+    1284-1302): the model's tensors and the pose deltas, the optimizer's
+    state (L-BFGS's memory too), validation's deltas and optimizer, ``it``,
+    ``best``'s minima and the history. With ``cfg.resume`` the newest is
+    restored and the loop continues after it.
 
     :param on_step: called after each step's timing as ``on_step(it, model,
         row, state)`` with the history row and the pre-step values:
@@ -444,6 +651,9 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
     :param pose_deltas: the training deltas to start from (leaf tensors
         that require grad, shaped as :func:`init_pose_deltas` makes them;
         updated in place); default zeros.
+    :param best: the caller's best-step bookkeeping, ``{"train": loss,
+        "val": loss}``, saved in checkpoints; a resume restores the two
+        and sets ``best["resumed"]`` to the iteration it continues at.
     :return: (model, history) — the trained ``nn.Module`` and the rows
         (iteration, train loss, val loss, step_ms); without ``val_data``
         the val loss is the train loss.
@@ -459,13 +669,41 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
         pose_deltas = init_pose_deltas(train_data, cfg)
     groups = [g for g in (params, list(pose_deltas or ())) if g]
     opt = make_optimizer(cfg, [{"params": g} for g in groups])
+    trained = [t for g in groups for t in g]
     val_deltas = val_opt = None
     if val_data is not None and mode in (PoseCorrection.sequence, PoseCorrection.pose):
         val_deltas = init_pose_deltas(val_data, cfg)
         val_opt = make_optimizer(cfg, list(val_deltas))
-    callbacks.train_inputs(0, train_data)
+    best = {} if best is None else best
     history = []
-    for it in range(cfg.n_opt_iters):
+    it0 = 0
+    ckpt_dir = _checkpoint_dir(cfg)
+    restored = _load_checkpoint(ckpt_dir, device) if ckpt_dir and cfg.resume else None
+    if restored is not None:
+        with torch.no_grad():
+            for t, v in zip(trained, restored["tensors"]):
+                t.copy_(v)
+            for d, v in zip(val_deltas or (), restored["val_deltas"] or ()):
+                d.copy_(v)
+        opt.load_state_dict(restored["opt"])
+        if val_opt is not None:
+            val_opt.load_state_dict(restored["val_opt"])
+        it0 = int(restored["it"]) + 1
+        best["train"], best["val"] = restored["min_train_loss"], restored["min_val_loss"]
+        best["resumed"] = it0
+        history = [tuple(r) for r in restored["history"]]
+        print("Resumed train state at iteration %d." % it0)
+
+    def train_loss_at():
+        value = loss_fn(model, train_data, pose_deltas)
+        return value.detach(), _grads_of(value, trained)
+
+    def val_loss_at():
+        value = loss_fn(model, val_data, val_deltas)
+        return value.detach(), _grads_of(value, list(val_deltas))
+
+    callbacks.train_inputs(it0, train_data)
+    for it in range(it0, cfg.n_opt_iters):
         callbacks.iteration_started(it)
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
@@ -473,7 +711,7 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
         loss.backward()
         if not cfg.optimize_model:
             # The JAX package masks the model's gradients to zero
-            # (train.py:932-933): Adam and SGD then leave it where it is.
+            # (train.py:932-933): the optimizers then leave it where it is.
             for p in params:
                 p.grad.zero_()
         _mask_delta_grads(pose_deltas, cfg)
@@ -484,10 +722,10 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
             val = loss_fn(model, val_data, val_deltas)
             # Gradients of the validation deltas alone: the model's stay
             # the training loss's.
-            for d, g in zip(val_deltas, torch.autograd.grad(val, val_deltas, allow_unused=True)):
-                d.grad = torch.zeros_like(d) if g is None else g
+            for d, g in zip(val_deltas, _grads_of(val, list(val_deltas))):
+                d.grad = g
             _mask_delta_grads(val_deltas, cfg)
-            val_opt.step()
+            _opt_step(val_opt, val, val_loss_at)
             callbacks.val_loss(it, model, None, val)
         elif val_data is not None:
             with torch.no_grad():
@@ -499,7 +737,7 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
             state["pose_deltas"] = tuple(d.detach().clone() for d in pose_deltas)
             state["pose_grads"] = tuple(torch.zeros_like(d) if d.grad is None
                                         else d.grad.detach().clone() for d in pose_deltas)
-        opt.step()
+        _opt_step(opt, loss, train_loss_at)
         train_loss = float(loss.detach())  # waits for the step (same stream)
         val_loss = float(val.detach())
         if device.type == "cuda":
@@ -510,6 +748,18 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
         if cfg.log_filters or it % max(cfg.plot_period, 1) == 0:
             print("It. %03i: train loss: %.9f, val.: %.9f.%s"
                   % (it, train_loss, val_loss, " saved" if saved else ""))
+        if ckpt_dir and ((it + 1) % cfg.checkpoint_period == 0 or it == cfg.n_opt_iters - 1):
+            _save_checkpoint(ckpt_dir, it, {
+                "tensors": [t.detach().clone() for t in trained],
+                "opt": opt.state_dict(),
+                "val_deltas": None if val_deltas is None else [d.detach().clone()
+                                                               for d in val_deltas],
+                "val_opt": None if val_opt is None else val_opt.state_dict(),
+                "it": it,
+                "min_train_loss": float(best.get("train", np.inf)),
+                "min_val_loss": float(best.get("val", np.inf)),
+                "history": list(history),
+            })
     return model, history
 
 
@@ -567,7 +817,10 @@ def train(cfg: Config, callbacks: Optional[TrainCallbacks] = None,
     the end ``train_history.csv`` (``iter train_loss val_loss step_ms``),
     and TensorBoard scalars (and the deltas' histograms
     ``pose_correction/train/<name>/<t|r><xyz>`` with their ``/grad``) where
-    ``torch.utils.tensorboard`` imports.
+    ``torch.utils.tensorboard`` imports. With ``checkpoint_period`` the
+    train state is saved as :func:`fit` says; with ``resume`` the run
+    continues from the newest and, when it does not beat the restored
+    minima, returns ``best.yaml``'s config.
 
     :param train_datasets: datasets to prepare (default: ``cfg.train_names``).
     :param val_datasets: validation datasets (default: ``cfg.val_names``);
@@ -625,7 +878,13 @@ def train(cfg: Config, callbacks: Optional[TrainCallbacks] = None,
         best["cfg"] = best_cfg
         return True
 
-    _, history = fit(cfg, train_data, callbacks, val_data, on_step)
+    _, history = fit(cfg, train_data, callbacks, val_data, on_step, best=best)
+    best_yaml = os.path.join(cfg.log_dir, "best.yaml")
+    if best["cfg"] is None and best.get("resumed") and os.path.exists(best_yaml):
+        # The best step came before the interruption (JAX package,
+        # train.py:1174-1180).
+        best["cfg"] = cfg.copy()
+        best["cfg"].from_yaml(best_yaml)
     if writer is not None:
         writer.flush()
         writer.close()

@@ -19,6 +19,7 @@ from depth_correction_tpu_torch.ops import features as tfeat
 from depth_correction_tpu_torch.ops import slabwin as tslab
 from depth_correction_tpu_torch.ops.features import _cotangent_table, permute_rows
 from depth_correction_tpu_torch.ops.grid_hash import grid_sort_colpad_traced
+from depth_correction_tpu_torch import scripts
 from depth_correction_tpu_torch.scripts import cellwin_cull as cull
 
 # Bars of the float32 kernels against the float64 plain versions (the
@@ -684,10 +685,12 @@ def test_cuda_knockout_matches_plain(cuda_device):
     pts, g = _slice_graph(6000, 0.35, 0, 128)
     dev = tcw.graph_to_device(g, cuda_device)
     ps = torch.as_tensor(pts, dtype=torch.float32, device=cuda_device)[dev.perm].contiguous()
-    before = _kernels.KNOCKOUT_LAUNCHES
+    before, retaken = _kernels.KNOCKOUT_LAUNCHES, scripts.RETAKEN_CALLS
     res = p1.run(ps, dev, reps=1)
-    # per mode: 2 warm and 1 timed by events, 1 under the profiler, 1 checked
-    assert _kernels.KNOCKOUT_LAUNCHES == before + 5 * len(res["modes"])
+    # per mode: 2 warm and 1 timed by events, 1 under the profiler, 1
+    # checked; and one a profile that kernel_ms took again
+    assert _kernels.KNOCKOUT_LAUNCHES == (before + 5 * len(res["modes"])
+                                          + scripts.RETAKEN_CALLS - retaken)
     k1 = tcw.cellwin_fwd(ps, dev.q_est, dev.est_sorted, dev.f_start, dev.f_len, dev.f_ctr, dev.r2)
     assert torch.equal(res["modes"]["full"]["out"], k1)
     assert torch.equal(res["modes"]["no_cull"]["out"].view(torch.int32), k1.view(torch.int32))
@@ -1681,6 +1684,34 @@ def test_cuda_knn_brute_matches_plain(cuda_device, k, r, dup, quantum):
         assert torch.equal(counts, pcounts)
         held = torch.minimum(counts, torch.tensor(k, device=cuda_device))
         assert torch.equal((idx >= 0).sum(1).to(torch.int32), torch.where(qv, held, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dup,quantum", [(0, 0.0), (2000, 0.05)], ids=["distinct", "ties"])
+def test_cuda_knn_k1_no_radius_matches_plain(cuda_device, dup, quantum):
+    """X3 at k = 1 with no radius, as eval_icp's 1-NN correspondences call
+    it (loss._pair_correspondence: every point of the next scan, no query
+    mask): one launch, the nearest distances equal to the plain twin's on
+    the same float32 inputs, and an index that differs only where the two
+    points lie at the same distance (a tie)."""
+    from depth_correction_tpu_torch.ops import knn as tknn
+
+    pts, valid = _knn_inputs(cuda_device, seed=0, n=30000, dup=dup, quantum=quantum)
+    q, _ = _knn_inputs(cuda_device, seed=1, n=30000, dup=dup, quantum=quantum)
+    before = _kernels.KNN_LAUNCHES
+    dist, idx = tknn.nearest_neighbors(pts, q, k=1, valid_points=valid)
+    torch.cuda.synchronize()
+    assert _kernels.KNN_LAUNCHES == before + 1
+    pdist, pidx = tknn.nearest_neighbors(pts, q, k=1, valid_points=valid, plain=True)
+    assert bit_equal(dist, pdist)
+    assert bool((idx >= 0).all()) and bool(valid[idx.long()].all())
+    differ = (idx != pidx)[:, 0]
+
+    def d2_rows(i):
+        d = q[differ] - pts[i[differ, 0].long()]
+        return d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+
+    assert bit_equal(d2_rows(idx), d2_rows(pidx))
 
 
 def _x3_three_ways(pts, q, k, r, valid, qv):

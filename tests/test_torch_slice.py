@@ -190,23 +190,39 @@ def test_three_adam_steps_match_optax(prepared, jax_trajectory):
 
 
 @pytest.mark.parametrize(
+    "option,value,name",
+    [
+        ("nn_backend", "native", "nn_backend=native"),
+        ("nn_type", "plane", "nn_type=plane"),
+        ("mesh_shape", {"data": 2}, "mesh_shape"),
+    ],
+)
+def test_options_outside_the_slice_raise(option, value, name):
+    cfg = _cfg(TConfig)
+    setattr(cfg, option, value)
+    with pytest.raises(NotImplementedError, match=name):
+        t_train(cfg)
+
+
+@pytest.mark.parametrize(
     "option,value",
     [
-        ("nn_backend", "native"),
         ("loss_offset", True),
         ("nn_scale", 0.1),
-        ("nn_type", "plane"),
         ("loss", "icp_loss"),
-        ("mesh_shape", {"data": 2}),
         ("optimizer", "lbfgs"),
         ("checkpoint_period", 5),
     ],
 )
-def test_options_outside_the_slice_raise(option, value):
+def test_ported_options_pass_check_slice(option, value):
+    """Options the port takes since the loss offset, nn_scale, ICP, L-BFGS
+    and checkpoints were ported (tests/test_torch_icp.py,
+    test_torch_offset.py, test_torch_lbfgs.py, test_torch_resume.py)."""
+    from depth_correction_tpu_torch.train import check_slice
+
     cfg = _cfg(TConfig)
     setattr(cfg, option, value)
-    with pytest.raises(NotImplementedError):
-        t_train(cfg)
+    check_slice(cfg)
 
 
 def test_port_imports_no_jax():
@@ -236,8 +252,13 @@ def test_port_imports_no_jax():
             "depth_correction_tpu_torch.scripts.exp_window_variants, "
             "depth_correction_tpu_torch.eval, depth_correction_tpu_torch.train_and_eval, "
             "depth_correction_tpu_torch.utils.checkpoint, depth_correction_tpu_torch.utils.io, "
-            "depth_correction_tpu_torch.datasets.wrappers; "
+            "depth_correction_tpu_torch.datasets.wrappers, "
+            "depth_correction_tpu_torch.loss, depth_correction_tpu_torch.optim, "
+            "depth_correction_tpu_torch.utils.timing, "
+            "depth_correction_tpu_torch.utils.prep_cache; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'optax' not in sys.modules and 'orbax' not in sys.modules, "
+            "'optax or orbax imported'; "
             "assert not any(m == 'depth_correction_tpu' or m.startswith('depth_correction_tpu.') "
             "for m in sys.modules), 'JAX package imported'")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -247,7 +268,9 @@ def test_port_imports_no_jax():
         for name in files:
             if name.endswith(".py"):
                 with open(os.path.join(root, name)) as f:
-                    assert "import jax" not in f.read(), name
+                    text = f.read()
+                for mod in ("jax", "optax", "orbax"):
+                    assert "import %s" % mod not in text, (name, mod)
 
 
 def test_config_device_is_explicit(monkeypatch):
