@@ -106,7 +106,7 @@ Phases (any failure raises and the exit code is non-zero):
    (slower or not); P7 at stage 2's shapes against its first version in
    turns.
 
-Every main path (phases 3-5, 7, 9-12) runs with all launch counts zeroed
+Every main path (phases 3-5, 7, 9-14) runs with all launch counts zeroed
 before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
 9. capped  — the bench's capped row (bench.py:bench_config(uncapped=False):
    K = 32 with mutual trimming, the gather moments by torch autograd) on
@@ -166,6 +166,40 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    checkpoint_period 2, interrupted when step 2 starts and resumed, against
    an uninterrupted run: the largest |dw| and whether the saved states are
    bit-equal.
+
+13. plane  — plane neighbourhoods (nn_type = plane, the RANSAC defaults:
+   distance 0.03, 500 hypotheses, at most 10 planes of at least 5 points,
+   clustered at 2 sqrt(3) grid_res) on phase 3's loaded scans: prep (no
+   kernel launches), the planes fitted again on the card (RANSAC seconds
+   per model, the clustering's seconds, the scoring's peak device memory)
+   and on the CPU from the same float32 cloud: as many planes, params
+   within 1e-6, supports equal but for points within 1e-6 m of the
+   threshold (counted); 8 Adam steps of train.fit (plane_step_ms, the
+   profiled step); the loss at w=0 within 1e-5 of float64 on the same
+   members.
+14. kitti360 — phase 3's six scans written as a KITTI-360 drive (float32
+   velodyne records, cam0_to_world poses through a non-identity
+   cam-to-velo calibration) in a temporary directory and loaded through
+   create_dataset("kitti360/..."): the points equal the written float32
+   ones less the ego filter's, the poses the chain's within 1e-12; then
+   the main path on it (uncapped, grid establishment, no second synthetic
+   bias) twice. First at the default exception-row budget (5%): the
+   build's outcome printed, 8 Adam steps on the path it leaves (declined:
+   the gather path, an eager autograd gather, no K1 or K2), the step
+   time, the loss at w=0 within 1e-5 of float64. Then with exception rows
+   allowed up to 25% (the first pose's frame tilts the scene against the
+   cells): X2, X3 and P7 in prep, K1 and K2 each step, no first version;
+   kitti360_step_ms, prep seconds, the loss at w=0 within 1e-5 of
+   float64. Then nn_backend = native on phase 5's small scan: the
+   library's build timed, its
+   within-r sets equal X3's on the same points but for pairs within
+   1e-6 m of r (counted).
+15. render — a room mesh made in code (walls, floor and ceiling, each a
+   41 x 41 grid of quads: 20,172 triangles) written as an OBJ file and
+   rendered by RenderedMeshDataset at 1,024 x 64 beams from 8 poses on the
+   card; per pose, 512 of its rays cast again on the CPU in float32: t
+   within 1e-5 relative, the same triangle but at near-ties (counted);
+   raycast_ms per pose and the render's device-busy share.
 
 Device-busy times (profile_calls) sum kernels, memcpys and memsets; user
 annotations (record_function spans such as Optimizer.step#Adam.step),
@@ -942,6 +976,7 @@ def phase_small(card: str):
     log("P7 timing (float32, node table): kernel %.4f ms vs plain %.4f ms (%s)"
         % (node_ms, node_plain_ms, card))
     res["p7_node"] = p7_ab("small scan's node table", points, nn, w, card, reps=50)
+    res["native_inputs"] = points, keep, float(cfg.nn_r)  # phase 14's native KD-tree
 
     # The probe's stage-2 shapes (scripts/exp_pallas_gather.py:75-81).
     rng = np.random.default_rng(0)
@@ -2675,6 +2710,409 @@ def phase_resume(card: str, data):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# The plane phase's bars: params of the card's and the CPU's planes, and the
+# margin of the RANSAC threshold within which a point may fall either side.
+PLANE_PARAMS_BAR = 1e-6
+TIE_M = 1e-6
+
+
+def plane_support_ties(a, b, points, thresh: float) -> int:
+    """Planes ``a`` and ``b`` fitted from the same float32 ``points`` (on
+    the card and on the CPU): as many planes, params within
+    PLANE_PARAMS_BAR, and supports equal but for points whose distance to
+    the plane lies within TIE_M of the threshold. Returns how many
+    points differ; raises otherwise."""
+    import numpy as np
+
+    if len(a) != len(b):
+        raise RuntimeError("plane mode: %d planes on the card, %d on the CPU" % (len(a), len(b)))
+    pa, pb = a.params.cpu().double().numpy(), b.params.cpu().double().numpy()
+    perr = float(np.abs(pa - pb).max())
+    if not perr <= PLANE_PARAMS_BAR:
+        raise RuntimeError("plane mode: params differ by %.3e" % perr)
+    pts = points.detach().cpu().double().numpy()
+    ties = 0
+    for i in range(len(a)):
+        sa, sb = (set(m[m >= 0].tolist()) for m in (a.member_idx[i].cpu().numpy(),
+                                                     b.member_idx[i].cpu().numpy()))
+        diff = np.asarray(sorted(sa ^ sb), np.int64)
+        if len(diff):
+            dist = np.abs(pts[diff] @ pa[i, :3] + pa[i, 3])
+            far = np.abs(dist - thresh) > TIE_M
+            if far.any():
+                raise RuntimeError("plane %d: %d support points differ away from the threshold "
+                                   "(distances %s)" % (i, int(far.sum()), dist[far][:5]))
+            ties += len(diff)
+    log("planes card vs CPU: %d planes, params max abs diff %.3e, %d support points differ "
+        "within %.0e m of the threshold" % (len(a), perr, ties, TIE_M))
+    return ties
+
+
+def phase_plane(card: str, seq):
+    """13: plane mode on phase 3's loaded scans."""
+    import math
+
+    import torch
+
+    from depth_correction_tpu_torch import segmentation as seg
+    from depth_correction_tpu_torch.preproc import global_cloud
+
+    cfg = bench_config()
+    cfg.nn_type = "plane"
+    data, prep_s, launches = prep_counted(cfg, seq, "plane mode")
+    if any(launches.values()):
+        raise RuntimeError("plane mode's prep launched a kernel: %s" % launches)
+    planes = data.neighbors[0]
+    gcloud = global_cloud(data.batches[0])
+    kw = dict(min_support=cfg.min_valid_neighbors, max_iterations=cfg.num_ransac_iters,
+              max_models=cfg.max_neighborhoods or 10, eps=2.0 * math.sqrt(3.0) * cfg.grid_res,
+              seed=cfg.random_seed)
+    stats = {}
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    again = seg.fit_planes(gcloud, cfg.ransac_dist_thresh, stats=stats, **kw).orient(gcloud.vps)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    if not (torch.equal(again.params, planes.params)
+            and torch.equal(again.member_idx, planes.member_idx)):
+        raise RuntimeError("plane mode: a second fit on the card differs from prep's planes")
+    members = (planes.member_idx >= 0).sum(1).tolist()
+    log("plane prep %.3f s (%s): %d planes of %s points; fit again on the card %.3f s: RANSAC "
+        "%s ms per model, clustering %.3f s, scoring peak %.1f MiB above the %.1f MiB held"
+        % (prep_s, ", ".join("%s %.3f" % kv for kv in data.prep_seconds.items()), len(planes),
+           members, fit_s, ", ".join("%.1f" % (1e3 * v) for v in stats["ransac_s"]),
+           stats["cluster_s"], peak_mb, base / 2**20))
+    cpu = gcloud.to(device="cpu")
+    t0 = time.perf_counter()
+    cpu_planes = seg.fit_planes(cpu, cfg.ransac_dist_thresh, **kw).orient(cpu.vps)
+    cpu_s = time.perf_counter() - t0
+    log("the same fit on the CPU: %.3f s" % cpu_s)
+    ties = plane_support_ties(planes, cpu_planes, gcloud.get_points(), cfg.ransac_dist_thresh)
+
+    history, launches = fit_counted(cfg, data, "plane mode")
+    if any(launches.values()):
+        raise RuntimeError("plane mode's steps launched a kernel: %s" % launches)
+    step_ms = statistics.median(h[3] for h in history[1:])
+    rel, loss64 = w0_rel(cfg, data, history[0][1])
+    log("plane mode: %d Adam steps, plane_step_ms %.3f (median of steps 1..%d), losses %s; loss "
+        "at w=0 %.9e vs float64 %.9e (rel %.3e) (%s)"
+        % (len(history), step_ms, len(history) - 1, ", ".join("%.6e" % h[1] for h in history),
+           history[0][1], loss64, rel, card))
+    if not rel <= LOSS_REL_BAR:
+        raise RuntimeError("plane mode: the loss at w=0 misses the 1e-5 bar: %.3e" % rel)
+    profile = profile_calls(adam_step_fn(cfg, data), card, "step")
+    return {"prep_s": prep_s, "fit_s": fit_s, "ransac_ms": [1e3 * v for v in stats["ransac_s"]],
+            "cluster_s": stats["cluster_s"], "peak_mb": peak_mb, "cpu_fit_s": cpu_s,
+            "planes": len(planes), "members": members, "ties": ties, "step_ms": step_ms,
+            "loss_rel": rel, "profile": profile}
+
+
+KITTI360_DRIVE = "2013_05_28_drive_0000_sync"
+KITTI360_MAX_EXC_FRAC = 0.25
+
+
+def write_kitti360(root: str, seq):
+    """``seq``'s scans as KITTI-360 drive 0 under ``root``: float32 [x y z
+    intensity] velodyne records, cam0_to_world rows (pose @ T_cam2velo)
+    and a rigid non-identity cam-to-velo calibration, at full precision.
+    Returns (the written float32 records, the poses the loader must give:
+    the chain's, with the first pose as the origin)."""
+    import numpy as np
+    from numpy.lib.recfunctions import structured_to_unstructured as s2u
+
+    scan_dir = os.path.join(root, "data_3d_raw", KITTI360_DRIVE, "velodyne_points", "data")
+    os.makedirs(scan_dir)
+    os.makedirs(os.path.join(root, "data_poses", KITTI360_DRIVE))
+    os.makedirs(os.path.join(root, "calibration"))
+    a, b = 0.4, -1.2
+    rz = np.array([[np.cos(a), -np.sin(a), 0], [np.sin(a), np.cos(a), 0], [0, 0, 1]])
+    rx = np.array([[1, 0, 0], [0, np.cos(b), -np.sin(b)], [0, np.sin(b), np.cos(b)]])
+    calib = np.eye(4)
+    calib[:3, :3] = rz @ rx
+    calib[:3, 3] = [0.27, -0.08, 1.73]
+    fmt = lambda v: " ".join("%.17g" % x for x in v)  # noqa: E731
+    with open(os.path.join(root, "calibration", "calib_cam_to_velo.txt"), "w") as f:
+        f.write(fmt(calib[:3].ravel()) + "\n")
+    records, rows, poses = [], [], []
+    for i, (scan, pose) in enumerate(seq):
+        rec = np.zeros((len(scan), 4), np.float32)
+        rec[:, :3] = s2u(scan[["x", "y", "z"]])
+        rec.tofile(os.path.join(scan_dir, "%010d.bin" % i))
+        records.append(rec)
+        rows.append("%d %s" % (i, fmt((np.asarray(pose) @ calib).ravel())))
+        poses.append(np.asarray(pose, np.float64))
+    with open(os.path.join(root, "data_poses", KITTI360_DRIVE, "cam0_to_world.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+    inv0 = np.linalg.inv(poses[0])
+    return records, [inv0 @ p for p in poses]
+
+
+def phase_kitti360(card: str, seq, small):
+    """14: the main path on a KITTI-360 drive made of phase 3's scans, then
+    the native KD-tree on phase 5's small scan."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from depth_correction_tpu_torch.datasets import create_dataset
+    from depth_correction_tpu_torch.datasets import kitti360
+
+    root = tempfile.mkdtemp(prefix="dc_kitti360_")
+    try:
+        t0 = time.perf_counter()
+        records, poses = write_kitti360(root, seq)
+        write_s = time.perf_counter() - t0
+        name = "kitti360/00_start_0_end_%d_step_1" % len(records)
+        raw = kitti360.Dataset(name, path=root)
+        pose_err, dropped = 0.0, 0
+        for (cloud, pose), rec, want in zip(raw, records, poses):
+            x, y = rec[:, 0], rec[:, 1]
+            keep = (x < -1.0) | (x > 1.0) | (y < -1.0) | (y > 1.0)
+            dropped += int((~keep).sum())
+            for c, field in enumerate("xyz"):
+                if not np.array_equal(cloud[field], rec[keep, c]):
+                    raise RuntimeError("kitti360: scan points differ from the written float32 "
+                                       "records")
+            pose_err = max(pose_err, float(np.abs(pose - want).max()))
+        log("kitti360 drive written in %.3f s (%d scans, %d points, %d dropped by the ego "
+            "filter); poses against the calibration chain: max abs diff %.3e"
+            % (write_s, len(records), sum(len(r) for r in records), dropped, pose_err))
+        if not (pose_err <= 1e-12 and dropped > 0):
+            raise RuntimeError("kitti360: poses off by %.3e or no ego point dropped" % pose_err)
+
+        cfg = bench_config()
+        cfg.train_names = [name]
+        cfg.dataset_kwargs = {"path": root}
+        # The scans carry the scene's bias already. A second, synthetic one
+        # would estimate normals on the host (the records have none).
+        cfg.depth_bias_model_kwargs = {"w": [0.0], "exponent": [4.0]}
+        t0 = time.perf_counter()
+        drive = LoadedSequence(create_dataset(name, cfg), name)
+        load_s = time.perf_counter() - t0
+        default = kitti360_default_budget(cfg, drive)
+        # In the first pose's frame (the loader's zero_origin) the scene is
+        # tilted 0.07 rad against the cells: 7-17% of the rows are exception
+        # rows by the span limit, past the 5% at which the build declines.
+        cfg.cellwin_max_exc_frac = KITTI360_MAX_EXC_FRAC
+        data, prep_s, prep_launches = prep_counted(cfg, drive, "kitti360")
+        if min(prep_launches.values()) <= 0:
+            raise RuntimeError("kitti360: X2, X3 or P7 was not launched in prep: %s"
+                               % prep_launches)
+        if data.cellwin[0] is None:
+            raise RuntimeError("kitti360: the cellwin build declined (%s)" % data.cellwin_notes)
+        history, launches = fit_counted(cfg, data, "kitti360")
+        if launches["fwd"] <= 0 or launches["bwd"] <= 0:
+            raise RuntimeError("kitti360: K1 or K2 was not launched: %s" % launches)
+        step_ms = statistics.median(h[3] for h in history[1:])
+        rel, loss64 = w0_rel(cfg, data, history[0][1])
+        g = data.cellwin[0]
+        log("kitti360 (exception rows up to %.0f%%): load %.3f s, prep %.3f s (launches X2 %d, "
+            "X3 %d, P7 %d; cellwin %d rows, %d exception rows), %d Adam steps (K1 %d, K2 %d), "
+            "kitti360_step_ms %.3f; loss at w=0 %.9e vs float64 %.9e (rel %.3e) (%s)"
+            % (100 * KITTI360_MAX_EXC_FRAC, load_s, prep_s, prep_launches["grid"],
+               prep_launches["knn"], prep_launches["gather"], int((g.row_map >= 0).sum()),
+               g.n_exc, len(history), launches["fwd"], launches["bwd"], step_ms, history[0][1],
+               loss64, rel, card))
+        if not rel <= LOSS_REL_BAR:
+            raise RuntimeError("kitti360: the loss at w=0 misses the 1e-5 bar: %.3e" % rel)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    native = check_native(*small["native_inputs"], card)
+    return {"prep_s": prep_s, "step_ms": step_ms, "loss_rel": rel, "write_s": write_s,
+            "load_s": load_s, "prep_launches": prep_launches, "launches": launches,
+            "points": sum(len(r) for r in records), "default": default, "native": native}
+
+
+def kitti360_default_budget(cfg, drive) -> dict:
+    """The drive at the default exception-row budget (``cfg`` as given):
+    prep, then 8 Adam steps on whichever path the build leaves. A declined
+    build must leave the gather path (the eager autograd gather, no K1 or
+    K2); a build that holds, K1 and K2. The loss at w=0 within 1e-5 of
+    float64 either way."""
+    data, prep_s, prep_launches = prep_counted(cfg, drive, "kitti360 (default budget)")
+    built = data.cellwin[0] is not None
+    history, launches = fit_counted(cfg, data, "kitti360 (default budget)")
+    if built and not (launches["fwd"] > 0 and launches["bwd"] > 0):
+        raise RuntimeError("kitti360 (default budget): built, but K1 or K2 was not launched: %s"
+                           % launches)
+    if not built and (launches["fwd"] or launches["bwd"]):
+        raise RuntimeError("kitti360 (default budget): declined, but the steps did not take "
+                           "the gather path: %s" % launches)
+    step_ms = statistics.median(h[3] for h in history[1:])
+    rel, loss64 = w0_rel(cfg, data, history[0][1])
+    log("kitti360 (default exception-row budget): the cellwin build %s; prep %.3f s, %d Adam "
+        "steps on the %s path (K1 %d, K2 %d, P7 %d), step %.3f ms; loss at w=0 %.9e vs float64 "
+        "%.9e (rel %.3e)"
+        % ("holds" if built else "declined (%s)" % (data.cellwin_notes,), prep_s, len(history),
+           "cell-window" if built else "gather", launches["fwd"], launches["bwd"],
+           launches["gather"], step_ms, history[0][1], loss64, rel))
+    if not rel <= LOSS_REL_BAR:
+        raise RuntimeError("kitti360 (default budget): the loss at w=0 misses the 1e-5 bar: %.3e"
+                           % rel)
+    return {"built": built, "notes": str(data.cellwin_notes), "prep_s": prep_s,
+            "step_ms": step_ms, "loss_rel": rel, "launches": launches}
+
+
+def check_native(points, keep, r: float, card: str) -> dict:
+    """nn_backend = native (the port's build of csrc/dc_native.cpp) on the
+    small scan: its within-r sets against X3's on the same float32 points;
+    pairs may differ only within TIE_M of r (the KD-tree tests
+    float64 distances, X3 float32 ones)."""
+    import numpy as np
+
+    from depth_correction_tpu_torch.config import Config
+    from depth_correction_tpu_torch.ops.knn import radius_neighbors
+    from depth_correction_tpu_torch.preproc import _host_neighbors
+    from depth_correction_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    native.load()
+    load_s, build_s = time.perf_counter() - t0, native.BUILD_SECONDS
+    cfg = Config()
+    cfg.device = DEVICE
+    cfg.nn_backend, cfg.nn_r, cfg.nn_k = "native", r, 0
+    t0 = time.perf_counter()
+    idx_n, _ = _host_neighbors(points, keep, cfg)
+    query_s = time.perf_counter() - t0
+    k = idx_n.shape[1]
+    _, idx_x = radius_neighbors(points, points, r=r, k=k, valid_points=keep, valid_query=keep)
+    a, b = idx_n.cpu().numpy(), idx_x.long().cpu().numpy()
+    pts = points.detach().cpu().double().numpy()
+    ties = 0
+    for i in np.flatnonzero(keep.cpu().numpy()):
+        sa, sb = set(a[i][a[i] >= 0].tolist()), set(b[i][b[i] >= 0].tolist())
+        if sa != sb:
+            diff = np.asarray(sorted(sa ^ sb))
+            d = np.linalg.norm(pts[diff] - pts[i], axis=1)
+            if (np.abs(d - r) > TIE_M).any():
+                raise RuntimeError("native: row %d's set differs from X3's away from r" % i)
+            ties += len(diff)
+    log("native KD-tree: build %.3f s (load %.3f s), query %.3f s on %d points (K %d); sets "
+        "equal X3's but %d pairs within %.0e m of r (%s)"
+        % (build_s, load_s, query_s, int(keep.sum()), k, ties, TIE_M, card))
+    return {"build_s": build_s, "load_s": load_s, "query_s": query_s, "k": k, "ties": ties}
+
+
+ROOM_QUADS = 41  # quads per side of each face of the room: 6 * 2 * 41^2 = 20,172 triangles
+RENDER_POSES = 8
+RENDER_CPU_RAYS = 512  # rays per pose cast again on the CPU
+RAY_REL_BAR = 1e-5
+
+
+def write_room_obj(path: str, half: float = 5.0, height: float = 4.0, n: int = None):
+    """A box room (floor z = 0), each of its six sides an n x n grid of
+    quads split into two triangles, as an OBJ file; returns the count of
+    triangles."""
+    import numpy as np
+
+    n = n or ROOM_QUADS
+    ex, ey, ez = np.eye(3)
+    sides = [((-half, -half, 0), 2 * half * ex, 2 * half * ey),
+             ((-half, -half, height), 2 * half * ex, 2 * half * ey),
+             ((-half, -half, 0), 2 * half * ey, height * ez),
+             ((half, -half, 0), 2 * half * ey, height * ez),
+             ((-half, -half, 0), 2 * half * ex, height * ez),
+             ((-half, half, 0), 2 * half * ex, height * ez)]
+    g = np.linspace(0.0, 1.0, n + 1)
+    verts, faces = [], []
+    for origin, du, dv in sides:
+        base = sum(len(v) for v in verts)
+        verts.append((np.asarray(origin) + g[:, None, None] * du + g[None, :, None] * dv)
+                     .reshape(-1, 3))
+        i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+        a = base + i * (n + 1) + j
+        c = a + n + 1
+        faces.append(np.stack([a, c, c + 1], -1).reshape(-1, 3))
+        faces.append(np.stack([a, c + 1, a + 1], -1).reshape(-1, 3))
+    verts, faces = np.concatenate(verts), np.concatenate(faces)
+    with open(path, "w") as f:
+        f.write("".join("v %.9g %.9g %.9g\n" % tuple(v) for v in verts))
+        f.write("".join("f %d %d %d\n" % tuple(t + 1) for t in faces))
+    return len(faces)
+
+
+def phase_render(card: str):
+    """15: RenderedMeshDataset on a generated room at 1,024 x 64 beams."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from numpy.lib.recfunctions import structured_to_unstructured as s2u
+
+    from depth_correction_tpu_torch.datasets.rendered_mesh import RenderedMeshDataset
+    from depth_correction_tpu_torch.ops.raycast import raycast_mesh
+
+    root = tempfile.mkdtemp(prefix="dc_render_")
+    try:
+        path = os.path.join(root, "room.obj")
+        n_faces = write_room_obj(path)
+        ds = RenderedMeshDataset(path, n_poses=RENDER_POSES, h_beams=1024, v_beams=64,
+                                 device=DEVICE)
+        verts, faces = ds.mesh_tensors()
+        t0 = time.perf_counter()
+        clouds = [ds.local_cloud(i) for i in ds.ids]
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        rays = 1024 * 64
+        hits = [len(c) for c in clouds]
+        for c, i in zip(clouds, ds.ids):
+            pose = ds.cloud_pose(i)
+            world = s2u(c[["x", "y", "z"]]) @ pose[:3, :3].T + pose[:3, 3]
+            if not (np.abs(world[:, :2]).max() <= 5.0 + 1e-3
+                    and world[:, 2].min() >= -1e-3 and world[:, 2].max() <= 4.0 + 1e-3):
+                raise RuntimeError("render: a point of pose %d lies outside the room" % i)
+        if min(hits) < 0.9 * rays:
+            raise RuntimeError("render: too few hits %s of %d rays" % (hits, rays))
+        o, d = ds.rays(0)
+        raycast_ms = cuda_ms(lambda: raycast_mesh(o, d, verts, faces, t_max=ds.max_range),
+                             reps=2, warmup=1)
+
+        def render_pose():
+            ds._cache.pop(0, None)
+            ds.local_cloud(0)
+
+        profile = profile_calls(render_pose, card, "pose", n=1)
+        # The CPU twin on a stride of each pose's rays (a ray's result does
+        # not depend on the rays cast beside it).
+        stride = rays // RENDER_CPU_RAYS
+        cpu_mesh = verts.cpu(), faces.cpu()
+        worst, ties, t_cpu = 0.0, 0, 0.0
+        for i in ds.ids:
+            o, d = (x[::stride] for x in ds.rays(i))
+            tc, trc = (x.cpu() for x in raycast_mesh(o, d, verts, faces, t_max=ds.max_range))
+            t1 = time.perf_counter()
+            t_ref, tri_ref = raycast_mesh(o.cpu(), d.cpu(), *cpu_mesh, t_max=ds.max_range)
+            t_cpu += time.perf_counter() - t1
+            if not torch.equal(torch.isinf(tc), torch.isinf(t_ref)):
+                raise RuntimeError("render: hits differ between the card and the CPU")
+            fin = torch.isfinite(t_ref)
+            rel = ((tc[fin].double() - t_ref[fin].double()).abs() / t_ref[fin].double()).max()
+            worst = max(worst, float(rel))
+            ties += int((trc != tri_ref).sum())
+        log("render: %d triangles, %d poses x %d rays in %.3f s (hits per pose %s); raycast_ms "
+            "%.3f per pose (device, pose 0), device busy %.1f%% of a pose's "
+            "render; %d rays a pose on the CPU (%.3f s): t max rel %.3e, %d near-ties on another "
+            "triangle (%s)"
+            % (n_faces, RENDER_POSES, rays, render_s, hits, raycast_ms,
+               100.0 * profile["busy_ms"] / profile["wall_ms"], RENDER_CPU_RAYS, t_cpu, worst,
+               ties, card))
+        if not worst <= RAY_REL_BAR:
+            raise RuntimeError("render: t differs by %.3e relative between the card and the CPU"
+                               % worst)
+        if ties > RENDER_POSES * RENDER_CPU_RAYS // 100:
+            raise RuntimeError("render: %d rays hit another triangle on the CPU" % ties)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"faces": n_faces, "render_s": render_s, "raycast_ms": raycast_ms,
+            "profile": profile, "t_rel": worst, "ties": ties, "cpu_s": t_cpu,
+            "hits": hits}
+
+
 def main() -> int:
     import torch
 
@@ -2729,11 +3167,24 @@ def main() -> int:
     offset = phase_offset_cache(card, seq)
     log("[phase 12b] ICP training on the slice (%d Adam steps) and eval_icp" % STEPS)
     icp = phase_icp(card, seq)
-    del seq
     log("[phase 12c] L-BFGS with the zoom line search on the slice (%d steps)" % LBFGS_STEPS)
     lbfgs = phase_lbfgs(card, res["data"])
     log("[phase 12e] resume (%d steps, checkpoint_period 2)" % RESUME_STEPS)
     resume = phase_resume(card, res["data"])
+    seconds = {}
+    t1 = time.perf_counter()
+    log("[phase 13] plane neighbourhoods on phase 3's scans (%d Adam steps)" % STEPS)
+    plane = phase_plane(card, seq)
+    seconds["13"], t1 = time.perf_counter() - t1, time.perf_counter()
+    log("[phase 14] a KITTI-360 drive of phase 3's scans (%d Adam steps), the native KD-tree"
+        % STEPS)
+    k360 = phase_kitti360(card, seq, small)
+    del seq
+    seconds["14"], t1 = time.perf_counter() - t1, time.perf_counter()
+    log("[phase 15] a rendered room mesh (%d poses, 1,024 x 64 beams)" % RENDER_POSES)
+    render = phase_render(card)
+    seconds["15"] = time.perf_counter() - t1
+    log("phases 13, 14, 15: %s s" % ", ".join("%.1f" % v for v in seconds.values()))
     log("build + all phases: %.1f s (%s)" % (time.perf_counter() - t0, card))
     from depth_correction_tpu_torch import scripts
 
@@ -2815,6 +3266,15 @@ def main() -> int:
                     "default_global": x3_summary(default["global"]),
                     "icp_pairs": icp["x3"]}},
     ] + probes
+    # Phase 14's launches (prep for X2, X3 and P7; the 8 steps for K1, K2).
+    k360_launches = {"cellwin_fwd (K1)": k360["launches"]["fwd"],
+                     "cellwin_bwd (K2)": k360["launches"]["bwd"],
+                     "grid_query (X2)": k360["prep_launches"]["grid"],
+                     "knn_brute (X3)": k360["prep_launches"]["knn"],
+                     "gather_moments (P7)": k360["prep_launches"]["gather"]}
+    for en in kernels:
+        if en["name"] in k360_launches:
+            en["launches_kitti360"] = k360_launches[en["name"]]
     for en in kernels:
         en["bound_ms"], en["bound_by"] = en.pop("bound")
         log("%-26s %10.4f ms, bound %.4f ms (%s), %d launches" % (
@@ -2846,6 +3306,22 @@ def main() -> int:
         "nn_scale_features_rel_err": max(default["nn_scale"]["features_rel"].values()),
         "resume_max_abs_dw": resume["max_abs_dw"], "resume_bit_equal": resume["bit_equal"],
         "prep_cache_build_s": offset["build_s"], "prep_cache_load_s": offset["load_s"],
+        "plane_step_ms": plane["step_ms"], "plane_prep_s": plane["prep_s"],
+        "plane_ransac_ms": plane["ransac_ms"], "plane_cluster_s": plane["cluster_s"],
+        "plane_score_peak_mb": plane["peak_mb"], "plane_loss_rel_err_w0": plane["loss_rel"],
+        "plane_support_ties": plane["ties"], "plane_busy_ms": plane["profile"]["busy_ms"],
+        "plane_wall_ms": plane["profile"]["wall_ms"], "kitti360_step_ms": k360["step_ms"],
+        "kitti360_prep_s": k360["prep_s"], "kitti360_loss_rel_err_w0": k360["loss_rel"],
+        "kitti360_default_built": k360["default"]["built"],
+        "kitti360_default_step_ms": k360["default"]["step_ms"],
+        "kitti360_default_prep_s": k360["default"]["prep_s"],
+        "kitti360_default_loss_rel_err_w0": k360["default"]["loss_rel"],
+        "kitti360_default_step_launches": k360["default"]["launches"],
+        "native_build_s": k360["native"]["build_s"], "native_query_s": k360["native"]["query_s"],
+        "native_ties": k360["native"]["ties"], "raycast_ms": render["raycast_ms"],
+        "render_s": render["render_s"], "render_busy_ms": render["profile"]["busy_ms"],
+        "render_wall_ms": render["profile"]["wall_ms"], "raycast_t_rel_err": render["t_rel"],
+        "raycast_near_ties": render["ties"], "phase_s": seconds,
         "kernel_ms_retaken_calls": scripts.RETAKEN_CALLS, "card": card}}), flush=True)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

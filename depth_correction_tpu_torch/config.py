@@ -176,9 +176,10 @@ class Config(Configurable):
         # as in the JAX package: None picks the grid-hash search (kernel X2
         # on the card) at >= 65,536 points and the tiled scan below; 'grid'
         # forces the grid; 'scipy' takes the host cKDTree (the reference's
-        # index). All give the same within-r sets. 'native' is not ported
-        # yet and raises NotImplementedError. The online corrector reads
-        # its engine from here too ('slab', 'brute', 'grid'; node.py).
+        # index); 'native' the port's build of the C++ KD-tree
+        # (utils/native.py; a failed build raises). All give the same
+        # within-r sets. The online corrector reads its engine from here
+        # too ('slab', 'brute', 'grid'; node.py).
         self.nn_backend = None
         # Hot-loop moments engine. 'gather' recomputes the frozen
         # neighborhoods' moments by indexing with torch autograd. 'cellwin'

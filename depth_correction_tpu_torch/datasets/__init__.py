@@ -1,6 +1,6 @@
-"""Datasets: synthetic fixtures, the ASL-laser loader and corruption
-wrappers (counterpart of ``depth_correction_tpu/datasets/__init__.py``; the
-other real-data loaders are not ported yet).
+"""Datasets: synthetic fixtures, meshes, the real-data loaders (ASL laser,
+SemanticKITTI, Newer College, KITTI-360, FEE Corridor) and corruption
+wrappers (counterpart of ``depth_correction_tpu/datasets/__init__.py``).
 
 All datasets share the reference's duck-typed protocol
 (reference: src/depth_correction/dataset.py): ``ds.ids``,
@@ -46,8 +46,10 @@ __all__ = [
 
 
 def dataset_by_name(name: str):
-    """Resolve a dataset class from a name prefix: the synthetic scenes and
-    ``asl_laser`` (reference: dataset.py:912-930)."""
+    """Resolve a dataset class from a name prefix, in the JAX package's
+    order (datasets/__init__.py:47-80; reference: dataset.py:912-930): the
+    synthetic scenes, a rendered mesh, a mesh file, then the real-data
+    loaders."""
     prefix = name.split("/")[0]
     if prefix == "ground_plane":
         return GroundPlaneDataset
@@ -57,12 +59,19 @@ def dataset_by_name(name: str):
         return PlaneDataset
     if prefix == "angle":
         return AngleDataset
-    if prefix == "asl_laser":
-        from .asl_laser import Dataset
+    if "rendered_mesh" in name:
+        from .rendered_mesh import RenderedMeshDataset
 
-        return Dataset
-    raise NotImplementedError("dataset %s is not ported yet (synthetic and asl_laser names "
-                              "only)" % name)
+        return RenderedMeshDataset
+    if ".obj" in name or ".ply" in name:
+        from .mesh import MeshDataset
+
+        return MeshDataset
+    if prefix in ("asl_laser", "semantic_kitti", "newer_college", "kitti360", "fee_corridor"):
+        import importlib
+
+        return importlib.import_module("%s.%s" % (__name__, prefix)).Dataset
+    raise ValueError("Unknown dataset: %s" % name)
 
 
 def noisy_dataset(ds, cfg):
@@ -101,6 +110,9 @@ def create_dataset(name: str, cfg, noisy: bool = True, poses_path=None, **kwargs
     sliced (reference: dataset.py:953-962; ``poses_path`` replaces the
     poses with a CSV file's, JAX package datasets/__init__.py:116-125)."""
     cls = dataset_by_name(name)
+    if "rendered_mesh" in name and "device" not in (cfg.dataset_kwargs or {}):
+        # The ray casting runs where the config runs.
+        kwargs.setdefault("device", cfg.torch_device())
     ds = cls(name, *list(cfg.dataset_args or []), **dict(cfg.dataset_kwargs or {}), **kwargs)
     if poses_path:
         ds = OverridePosesDataset(ds, poses_path)

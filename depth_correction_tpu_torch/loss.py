@@ -90,7 +90,8 @@ def min_eigval_loss(cloud, mask=None, offset=None, sqrt: bool = False,
                     skip_nans: bool = False, **_unused):
     """Smallest-eigenvalue map-consistency loss (reference: loss.py:216-294):
     pointwise lam_1, optionally over clamp(sum lam, 1e-6), inlier-trimmed,
-    offset, relu'd, sqrt'd, then mask-mean reduced."""
+    offset, relu'd, sqrt'd, then mask-mean reduced. ``cloud`` is a feature
+    cloud, feature rows or :class:`segmentation.Planes` (a value a plane)."""
     if isinstance(cloud, (list, tuple)):
         return batch_loss(
             min_eigval_loss, cloud, masks=mask, offsets=offset,
@@ -112,7 +113,9 @@ def trace_loss(cloud, mask=None, offset=None, sqrt: bool = False,
                reduction: str = "mean", inlier_max_loss=None,
                inlier_ratio: float = 1.0, inlier_loss_mult: float = 1.0,
                only_finite: bool = False, skip_nans: bool = False, **_unused):
-    """Covariance-trace map-consistency loss (reference: loss.py:297-370)."""
+    """Covariance-trace map-consistency loss (reference: loss.py:297-370):
+    the ``trace`` field where the input has one, else the trace of ``cov``
+    (:class:`segmentation.Planes`; JAX package, loss.py:183-188)."""
     if isinstance(cloud, (list, tuple)):
         return batch_loss(
             trace_loss, cloud, masks=mask, offsets=offset,

@@ -7,7 +7,8 @@ Reference pipeline helpers: src/depth_correction/preproc.py:14-244.
   (:func:`filtered_cloud`);
 - neighbourhood establishment, routed by ``cfg.nn_backend`` as the JAX
   package routes it: ``'scipy'`` takes scipy's cKDTree on the host (the
-  reference's index, :func:`_host_neighbors`); otherwise kNN configs
+  reference's index, :func:`_host_neighbors`), ``'native'`` the port's
+  build of the C++ KD-tree (``utils/native.py``); otherwise kNN configs
   (``nn_k``) take the brute-force search (``ops/knn.py``, kernel X3 on the
   card), and radius configs take the grid-hash search (``ops/grid_hash.py``,
   kernel X2 on the card) when ``nn_backend == 'grid'`` or when
@@ -116,22 +117,50 @@ def filtered_cloud(cloud, cfg: Config) -> Tuple[np.ndarray, Optional[np.ndarray]
     )
 
 
-def _check_establishment(cfg: Config):
-    if cfg.nn_backend == "native":
-        raise NotImplementedError("nn_backend='native' is not ported yet")
+def _native_neighbors(pts: np.ndarray, val: np.ndarray, cfg: Config,
+                      k_max: Optional[int] = None) -> np.ndarray:
+    """The native KD-tree's neighbours (JAX package, preproc.py:202-230):
+    kNN with the radius as an upper bound, or the within-r sets nearest
+    first, K from a counting pass rounded up to a multiple of 8 unless
+    capped. Raises when the library does not build."""
+    from .utils.native import KDTree
+
+    idx_valid = np.flatnonzero(val)
+    tree = KDTree(pts[idx_valid])
+    if cfg.nn_k:
+        _, ind = tree.query(pts, k=int(cfg.nn_k), distance_upper_bound=cfg.nn_r or -1.0)
+    else:
+        k = int(k_max or cfg.nn_max_neighbors or 0)
+        if not k:
+            # One counting pass to size K, then the real query.
+            _, counts = tree.query_ball(pts[val], cfg.nn_r, 1)
+            k = max(int(counts.max()), 1)
+            k = -(-k // 8) * 8
+        ind, _ = tree.query_ball(pts, cfg.nn_r, k)
+    miss = ind < 0
+    out = idx_valid[np.where(miss, 0, ind)]
+    out[miss] = -1
+    return out
 
 
 def _host_neighbors(points, valid, cfg: Config, k_max: Optional[int] = None):
-    """Neighbors from scipy's cKDTree (the reference's index,
-    nearest_neighbors.py:22-80): the JAX package's ``nn_backend='scipy'``
-    branch, unchanged. Returns padded (N, K) int64 indices (-1 = none) and
-    0/1 weights in the dtype and on the device of ``points``."""
+    """Neighbors from a host KD-tree: the port's build of the native C++
+    library (``nn_backend='native'``, :func:`_native_neighbors`) or scipy's
+    cKDTree (``'scipy'``, the reference's index, nearest_neighbors.py:22-80),
+    as the JAX package's branch (preproc.py:202-262). Returns padded (N, K)
+    int64 indices (-1 = none) and 0/1 weights in the dtype and on the device
+    of ``points``."""
     from scipy.spatial import cKDTree
 
     pts_t = torch.as_tensor(points)
     pts = pts_t.detach().cpu().to(torch.float64).numpy()
     val = np.asarray(torch.as_tensor(valid).cpu())
     n = len(pts)
+    if cfg.nn_backend == "native":
+        out = _native_neighbors(pts, val, cfg, k_max)
+        out[~val] = -1
+        idx = torch.as_tensor(out, device=pts_t.device)
+        return idx, (idx >= 0).to(pts_t.dtype)
     idx_valid = np.flatnonzero(val)
     tree = cKDTree(pts[idx_valid])
     if cfg.nn_k:
@@ -176,9 +205,8 @@ def _device_radius_neighbors(points, r: float, k: int, valid, backend=None):
 def establish_scan_neighbors(cloud: Cloud, cfg: Config):
     """Neighbor graph of a single cloud per config, kNN or ball radius
     (JAX package, preproc.py:292-314)."""
-    _check_establishment(cfg)
     points = cloud.get_points()
-    if cfg.nn_backend == "scipy":
+    if cfg.nn_backend in ("scipy", "native"):
         return _host_neighbors(points, cloud.valid, cfg)
     if cfg.nn_k:
         _, idx = nearest_neighbors(points, points, k=int(cfg.nn_k), r=cfg.nn_r or None,
@@ -340,17 +368,29 @@ def establish_neighborhoods(gcloud: Cloud, cfg: Config, k_max: Optional[int] = N
     device), computed once per training run and routed as the module
     docstring says. A radius graph truncated by a cap keeps its mutual
     pairs only (``nn_symmetrize``, JAX package, preproc.py:561-564); pure
-    kNN stays one-sided. Plane neighbourhoods are not ported yet.
+    kNN stays one-sided. Plane neighbourhoods (``nn_type = 'plane'``; JAX
+    package, preproc.py:499-512; reference: preproc.py:186-191) are the
+    RANSAC planes of :func:`segmentation.fit_planes` (``min_support =
+    min_valid_neighbors``, at most ``max_neighborhoods`` or 10 models,
+    clustered at ``eps = 2 sqrt(3) grid_res``, seeded by ``random_seed``,
+    its integer draws 64 bits wide for a float64 cloud and 32 otherwise),
+    oriented toward the viewpoints.
 
-    :return: (neighbors (M, K) int32 or, from scipy, int64; weights (M, K)
-        float).
+    :return: (neighbors (M, K) int32 or, from a host KD-tree, int64;
+        weights (M, K) float), or for planes (:class:`segmentation.Planes`,
+        None).
     """
     if cfg.nn_type == NeighborhoodType.plane:
-        raise NotImplementedError("plane neighbourhoods are not ported yet")
-    _check_establishment(cfg)
+        from .segmentation import fit_planes
+
+        planes = fit_planes(
+            gcloud, cfg.ransac_dist_thresh, min_support=cfg.min_valid_neighbors,
+            max_iterations=cfg.num_ransac_iters, max_models=cfg.max_neighborhoods or 10,
+            eps=2.0 * np.sqrt(3.0) * cfg.grid_res, seed=cfg.random_seed)
+        return planes.orient(gcloud.vps), None
     capped = bool((k_max or cfg.nn_max_neighbors) and not cfg.nn_k)
     points = gcloud.get_points()
-    if cfg.nn_backend == "scipy":
+    if cfg.nn_backend in ("scipy", "native"):
         idx, _ = _host_neighbors(points, gcloud.valid, cfg, k_max=k_max)
     elif cfg.nn_k:
         _, idx = nearest_neighbors(points, points, k=int(cfg.nn_k), r=cfg.nn_r or None,

@@ -20,8 +20,11 @@ sequences, checkpoint and resume (``checkpoint_period``, ``resume``), the
 prep cache (``prep_cache_dir``) and the JAX package's outputs
 (``train.yaml``, the best model's ``<tag>_state_dict.npz`` and
 ``<tag>_pose_deltas.npz``, ``best.yaml``, ``train_history.csv``). Plane
-neighbourhoods, a device mesh and the native backend raise
-NotImplementedError naming the option (:func:`check_slice`).
+neighbourhoods (``nn_type = 'plane'``) train on the RANSAC planes of the
+global cloud (``segmentation.py``): the model corrects each member point
+with its plane's normal for the incidence angle, and the loss takes each
+plane's eigenvalues. A device mesh raises NotImplementedError naming the
+option (:func:`check_slice`).
 
 The JAX package's bucketed and pair transposes of the offset and
 ``nn_scale`` gathers are TPU workarounds (scatters serialise there); the
@@ -73,11 +76,9 @@ __all__ = [
 def check_slice(cfg: Config) -> None:
     """Raise NotImplementedError for any option outside the ported slice."""
     unsupported = [
-        ("nn_type=plane", cfg.nn_type == NeighborhoodType.plane),
         ("mesh_shape", bool(cfg.mesh_shape or cfg.dist_coordinator)),
         ("optimizer=%s" % cfg.optimizer,
          cfg.optimizer.lower() not in ("adam", "sgd", "lbfgs")),
-        ("nn_backend=native", cfg.nn_backend == "native"),
     ]
     for name, hit in unsupported:
         if hit:
@@ -160,11 +161,14 @@ class TrainData:
 
     With a cell-window graph (``cellwin[i]`` not None) the feature rows live
     in the graph's padded tile layout and ``neighbors[i]`` only serves
-    prep; otherwise the loss gathers over the compacted rows.
+    prep; otherwise the loss gathers over the compacted rows. In plane mode
+    ``neighbors[i]`` is the sequence's :class:`segmentation.Planes` and
+    ``masks[i]`` its ``valid``; the batches hold the raw padded scans.
     """
 
     batches: tuple  # tuple[SequenceBatch]
-    neighbors: tuple  # tuple[(Mq, K) int64] compacted query rows' neighbors
+    # tuple[(Mq, K) int64 compacted query rows' neighbors, or Planes]
+    neighbors: tuple
     weights: tuple  # tuple[(Mq, K) float]
     masks: tuple  # tuple[(Mq,) bool]
     query_rows: tuple  # tuple[(Mq,) int64] row -> global point, -1 padding
@@ -191,6 +195,8 @@ class TrainData:
         def mv(x):
             if x is None:
                 return None
+            if not isinstance(x, torch.Tensor):  # Planes
+                return x.to(device=device, dtype=dtype)
             if dtype is not None and x.is_floating_point():
                 return x.to(device=device, dtype=dtype)
             return x.to(device=device)
@@ -310,7 +316,9 @@ def prepare_sequences(datasets, cfg: Config, for_grad: bool = True) -> TrainData
     device = cfg.torch_device()
     seconds: dict = {}
     out = {f: [] for f in _RECORD_FIELDS}
-    use_cellwin = _use_cellwin(cfg, for_grad)
+    # Plane mode gathers plane members; the cell-window engine stays off
+    # (JAX package, config.py:184).
+    use_cellwin = _use_cellwin(cfg, for_grad) and cfg.nn_type != NeighborhoodType.plane
     icp_mode = cfg.loss == "icp_loss"
     cache_dir = cfg.prep_cache_dir
     for ds in datasets:
@@ -350,10 +358,21 @@ def _prepare_sequence(scans, cfg: Config, use_cellwin: bool, icp_mode: bool, sec
     :func:`prepare_sequences`)."""
     from .ops import cellwin as cwin
 
+    from .cloud import Cloud
+
     rec = dict.fromkeys(_RECORD_FIELDS)
     common_pad = max((pad_size(len(s)) for s, _ in scans), default=0)
+    plane_mode = cfg.nn_type == NeighborhoodType.plane and not icp_mode
     clouds, poses, local_nns = [], [], []
     for scan, pose in scans:
+        if plane_mode:
+            # Plane mode consumes the raw clouds; the incidence angles come
+            # from the plane normals (JAX package, train.py:235-239;
+            # reference: train.py:98-101).
+            clouds.append(Cloud.from_structured_array(
+                scan, dtype=cfg.torch_dtype(), device=device).pad(common_pad))
+            poses.append(np.asarray(pose))
+            continue
         if cfg.loss_offset and not icp_mode:
             fc, lnn, _ = local_feature_cloud(scan, cfg, pad_to=common_pad,
                                              return_neighbors=True)
@@ -385,6 +404,13 @@ def _prepare_sequence(scans, cfg: Config, use_cellwin: bool, icp_mode: bool, sec
         return rec
 
     gcloud = global_cloud(batch)
+    if plane_mode:
+        # The planes stand in for the neighbours, their valid flags for the
+        # rows' mask (JAX package, train.py:298-310).
+        planes, _ = establish_neighborhoods(gcloud, cfg)
+        rec.update(neighbors=planes, masks=planes.valid)
+        _tick(seconds, "planes", t, device)
+        return rec
     est_cfg = cfg
     if use_cellwin:
         # Membership recomputed as d2 <= r2 is exact only for the
@@ -462,11 +488,16 @@ def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
     less the dynamic offset with ``loss_offset``. For ``icp_loss`` (JAX
     package, train.py:714-742): corrected scans -> corrected poses ->
     the batched ICP distance over the frozen correspondences, averaged
-    over sequences. ``plain`` computes the moments with the plain torch
+    over sequences. In plane mode (JAX package, train.py:788-797) each
+    sequence's global cloud is posed uncorrected and the model applies
+    inside :func:`segmentation.plane_neighborhood_features`, with the plane
+    normals for the incidence angles; the loss takes each plane's
+    eigenvalues. ``plain`` computes the moments with the plain torch
     kernels on any device and dtype (reference runs).
     """
     check_slice(cfg)
     mode = cfg.pose_correction
+    plane_mode = cfg.nn_type == NeighborhoodType.plane
 
     if cfg.loss == "icp_loss":
         from .loss import icp_pair_loss_batched
@@ -511,6 +542,15 @@ def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
 
         feats, seq_masks, offsets = [], [], []
         for i, batch in enumerate(data.batches):
+            if plane_mode:
+                from .segmentation import plane_neighborhood_features
+
+                gcloud = global_cloud(batch, model=None,
+                                      pose_deltas=_delta_for_seq(pose_deltas, i, mode))
+                feats.append(plane_neighborhood_features(gcloud, data.neighbors[i], model, cfg))
+                seq_masks.append(data.masks[i])
+                offsets.append(None)
+                continue
             cw = data.cellwin[i] if data.cellwin else None
             gcloud = global_cloud(batch, model=model,
                                   pose_deltas=_delta_for_seq(pose_deltas, i, mode))

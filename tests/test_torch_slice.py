@@ -192,8 +192,6 @@ def test_three_adam_steps_match_optax(prepared, jax_trajectory):
 @pytest.mark.parametrize(
     "option,value,name",
     [
-        ("nn_backend", "native", "nn_backend=native"),
-        ("nn_type", "plane", "nn_type=plane"),
         ("mesh_shape", {"data": 2}, "mesh_shape"),
     ],
 )
@@ -212,12 +210,16 @@ def test_options_outside_the_slice_raise(option, value, name):
         ("loss", "icp_loss"),
         ("optimizer", "lbfgs"),
         ("checkpoint_period", 5),
+        ("nn_backend", "native"),
+        ("nn_type", "plane"),
     ],
 )
 def test_ported_options_pass_check_slice(option, value):
-    """Options the port takes since the loss offset, nn_scale, ICP, L-BFGS
-    and checkpoints were ported (tests/test_torch_icp.py,
-    test_torch_offset.py, test_torch_lbfgs.py, test_torch_resume.py)."""
+    """Options the port takes since the loss offset, nn_scale, ICP, L-BFGS,
+    checkpoints, the native KD-tree and plane neighbourhoods were ported
+    (tests/test_torch_icp.py, test_torch_offset.py, test_torch_lbfgs.py,
+    test_torch_resume.py, test_torch_native.py,
+    test_torch_segmentation.py)."""
     from depth_correction_tpu_torch.train import check_slice
 
     cfg = _cfg(TConfig)
@@ -255,7 +257,16 @@ def test_port_imports_no_jax():
             "depth_correction_tpu_torch.datasets.wrappers, "
             "depth_correction_tpu_torch.loss, depth_correction_tpu_torch.optim, "
             "depth_correction_tpu_torch.utils.timing, "
-            "depth_correction_tpu_torch.utils.prep_cache; "
+            "depth_correction_tpu_torch.utils.prep_cache, "
+            "depth_correction_tpu_torch.segmentation, depth_correction_tpu_torch.ops.covs, "
+            "depth_correction_tpu_torch.ops.raycast, depth_correction_tpu_torch.utils.native, "
+            "depth_correction_tpu_torch.utils.ply, depth_correction_tpu_torch.utils.pcd, "
+            "depth_correction_tpu_torch.utils.mesh, depth_correction_tpu_torch.datasets.mesh, "
+            "depth_correction_tpu_torch.datasets.rendered_mesh, "
+            "depth_correction_tpu_torch.datasets.semantic_kitti, "
+            "depth_correction_tpu_torch.datasets.kitti360, "
+            "depth_correction_tpu_torch.datasets.newer_college, "
+            "depth_correction_tpu_torch.datasets.fee_corridor; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'optax' not in sys.modules and 'orbax' not in sys.modules, "
             "'optax or orbax imported'; "
