@@ -106,7 +106,7 @@ Phases (any failure raises and the exit code is non-zero):
    (slower or not); P7 at stage 2's shapes against its first version in
    turns.
 
-Every main path (phases 3-5, 7, 9-14) runs with all launch counts zeroed
+Every main path (phases 3-5, 7, 9-14, 16-17) runs with all launch counts zeroed
 before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
 9. capped  — the bench's capped row (bench.py:bench_config(uncapped=False):
    K = 32 with mutual trimming, the gather moments by torch autograd) on
@@ -200,6 +200,30 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    card; per pose, 512 of its rays cast again on the CPU in float32: t
    within 1e-5 relative, the same triangle but at near-ties (counted);
    raycast_ms per pose and the render's device-busy share.
+16. slam   — on phase 3's six scans, corrected by the model phase 3
+   trained (features computed again, P7): the ground-truth poses perturbed
+   (perturb_odometry, seeded, a few mm and mrad); slam_odometry and
+   slam_mapper, 8 ICP iterations a scan, each run with the launch counts
+   zeroed: X3 exactly 8 launches a registered scan and no other kernel;
+   slam_odometry_ms_per_scan and slam_mapper_ms_per_scan, and one profiled
+   registration of each (device-busy share); X3 in the mapper's last
+   (largest) registration timed against its all-pairs bound, with the
+   map's size. Both pipelines again on the same clouds and priors in
+   float64 on the plain path: every pose within 1e-4 m and 1e-5 rad, the
+   share of first-iteration correspondences that differ printed; the
+   mapper's mean translation error below the prior's. Then eval_slam_all
+   with icp_mapper and icp_odometry on the sequence (one 5-field row in
+   each slam_eval_<slam>_test.csv), and the external route
+   (norlab_icp_mapper through scripts/stub_slam_mapper.py): one pose read
+   back a scan.
+17. analysis — on phase 3's prepared slice: sweep_weight over 21 weights
+   (K1 exactly 21 launches, K2 none; the losses against the float64 plain
+   sweep: within 1e-5 at the first, middle and last weight, the same
+   argmin; landscape_ms_per_weight); joint_learning for 4 Adam steps with
+   sequence deltas, metrics every 2 iterations, a synthetic ground-truth
+   map and positions (K1 and K2 once a step; joint_step_ms; the first
+   probe's map accuracy within 1e-5 of float64 plain on the same global
+   cloud; X3 in mapping_accuracy timed against its all-pairs bound).
 
 Device-busy times (profile_calls) sum kernels, memcpys and memsets; user
 annotations (record_function spans such as Optimizer.step#Adam.step),
@@ -615,7 +639,7 @@ def phase_slice(card: str):
     if graph is None:
         raise RuntimeError("the cellwin build declined: the slice would not run the kernels")
     rec = Record(cfg)
-    _, history = train_logged(cfg, callbacks=rec, train_data=data)
+    trained, history = train_logged(cfg, callbacks=rec, train_data=data)
     check_no_first_versions("the slice's prep and train()")
     launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES, "grid": grid_launches,
                 "knn": knn_launches, "gather_prep": gather_launches}
@@ -669,7 +693,7 @@ def phase_slice(card: str):
         "launches": launches, "kernels": k, "step_ms": step_ms, "prep_s": prep_s,
         "loss_rel": loss_rel, "w_rel": w_rel, "profile": profile,
         "profile_v1": profile_v1, "graph": graph, "ps": ps, "data": data, "cfg": cfg,
-        "seq": seq,
+        "seq": seq, "model": trained,
     }
 
 
@@ -3113,6 +3137,340 @@ def phase_render(card: str):
             "hits": hits}
 
 
+# Phases 16-17: SLAM evaluation and the analysis modules.
+SLAM_ITERS = 8
+# Odometry noise of the prior (variances: rx ry rz in rad^2, tx ty tz in m^2):
+# about 2 mrad and 5 mm a scan.
+SLAM_ODOM_COV = [4e-6] * 3 + [2.5e-5] * 3
+SLAM_POSE_M_BAR = 1e-4  # m, float32 on the card against float64 plain
+SLAM_POSE_RAD_BAR = 1e-5  # rad
+LANDSCAPE_WEIGHTS = 21
+JOINT_STEPS = 4
+GT_MAP_DENSITY_MULT = 0.25  # the ground-truth map at a quarter of the scene's density
+
+
+def pose_differences(a, b) -> tuple:
+    """(largest translation difference in m, largest rotation angle in rad)
+    between two (S, 4, 4) trajectories, in float64. The angle is the norm
+    of the relative rotation's axis-angle (by its quaternion): arccos of the
+    trace, the metric's angle, reads a float32 rotation's departure from
+    orthonormality (~1e-7) as ~5e-4 rad."""
+    import torch
+
+    from depth_correction_tpu_torch.ops.se3 import delta_transform, matrix_to_xyz_axis_angle
+
+    d = delta_transform(torch.as_tensor(a, dtype=torch.float64),
+                        torch.as_tensor(b, dtype=torch.float64))
+    return (float(d[:, :3, 3].norm(dim=1).max()),
+            float(matrix_to_xyz_axis_angle(d)[:, 3:].norm(dim=1).max()))
+
+
+def mean_errors(gt, est) -> tuple:
+    """(mean translation error m, mean rotation error rad) of ``est``."""
+    import torch
+
+    from depth_correction_tpu_torch.metrics import localization_errors
+
+    a, t, _, _ = localization_errors(torch.as_tensor(gt, dtype=torch.float64),
+                                     torch.as_tensor(est, dtype=torch.float64))
+    return float(t.mean()), float(a.mean())
+
+
+def x3_k1_entry(points, query, valid, card: str) -> dict:
+    """X3 at k = 1 with no radius on one call's inputs: events and the
+    profiler's kernel time, against the all-pairs bound (every query against
+    every valid point)."""
+    from depth_correction_tpu_torch.ops import knn
+
+    def call():
+        return knn.nearest_neighbors(points, query, 1, None, valid)
+
+    n, q = points.shape[0], query.shape[0]
+    nv = int(valid.sum())
+    b = bound(n * 13 + q * 12 + q * 8, {"fp32": PAIR_OPS * q * nv})
+    return {"points": n, "queries": q, "valid_points": nv, "ms": cuda_ms(call, reps=5, warmup=1),
+            "kernel_ms": kernel_ms(call, DEVICE, 3), "bound_ms": b[0], "bound_by": b[1]}
+
+
+def first_iteration_differ(pairs, plain_pairs) -> float:
+    """Share of the float32 run's first-iteration 1-NN correspondences (X3)
+    whose target point lies more than 1 mm from the float64 plain run's:
+    another point of the map (points, not indices: the two mappers' maps
+    may hold the same voxels in other rows; the same point moves by the
+    runs' pose difference, ~1e-5 m), over the registrations' (source,
+    target, prior) of each."""
+    from depth_correction_tpu_torch.ops import knn
+    from depth_correction_tpu_torch.ops.se3 import transform_points
+
+    differ = total = 0
+    for (src, tgt, T0), (src64, tgt64, T064) in zip(pairs, plain_pairs):
+        q = transform_points(torch_tensor(T0, src.depth), src.get_points())
+        q64 = transform_points(torch_tensor(T064, src64.depth), src64.get_points())
+        _, i32 = knn.nearest_neighbors(tgt.get_points(), q, 1, None, tgt.valid)
+        _, i64 = knn.nearest_neighbors(tgt64.get_points(), q64, 1, None, tgt64.valid, plain=True)
+        p32 = tgt.get_points()[i32[:, 0].long()].double()
+        p64 = tgt64.get_points()[i64[:, 0].long()]
+        differ += int(((p32 - p64).norm(dim=1) > 1e-3).sum())
+        total += i32.shape[0]
+    return differ / max(total, 1)
+
+
+def torch_tensor(T, like):
+    import numpy as np
+    import torch
+
+    return torch.as_tensor(np.asarray(T), dtype=like.dtype, device=like.device)
+
+
+def run_slam(fn, clouds, odom, label: str, plain: bool = False) -> dict:
+    """``fn`` (slam_odometry or slam_mapper) over the clouds with the launch
+    counts zeroed just before and read just after, each registration's
+    (source, target, prior) recorded: (poses, ms a registered scan, X3
+    launches, the registrations)."""
+    import torch
+
+    from depth_correction_tpu_torch import slam_eval
+    from depth_correction_tpu_torch.ops import _kernels
+
+    regs = []
+    align = slam_eval.icp_align
+
+    def recording(source, target, T0=None, **kw):
+        regs.append((source, target, T0))
+        return align(source, target, T0=T0, **kw)
+
+    slam_eval.icp_align = recording
+    try:
+        reset_all_launch_counts()
+        t0 = time.perf_counter()
+        est = fn(clouds, odom, n_iters=SLAM_ITERS, plain=plain)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (len(clouds) - 1)
+    finally:
+        slam_eval.icp_align = align
+    check_no_first_versions(label)
+    launches = {"knn": _kernels.KNN_LAUNCHES, "grid": _kernels.GRID_LAUNCHES,
+                "gather": _kernels.GATHER_LAUNCHES}
+    return {"est": est, "ms": ms, "launches": launches, "regs": regs}
+
+
+def phase_slam(card: str, seq, cfg, model):
+    """16: SLAM evaluation on phase 3's scans, corrected by its model."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from depth_correction_tpu_torch import datasets
+    from depth_correction_tpu_torch.eval import eval_slam_all
+    from depth_correction_tpu_torch.slam_eval import (icp_align, perturb_odometry,
+                                                      run_external_slam, slam_clouds,
+                                                      slam_mapper, slam_odometry)
+
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    clouds, gt = slam_clouds(seq, cfg, model)
+    torch.cuda.synchronize()
+    log("slam: %d corrected feature clouds (%s valid points; model %s) in %.3f s; launches "
+        "X2 %d, X3 %d, P7 %d" % (len(clouds), ", ".join(str(int(c.valid.sum())) for c in clouds),
+                                 model, time.perf_counter() - t0, _kernels_count("GRID_LAUNCHES"),
+                                 _kernels_count("KNN_LAUNCHES"), _kernels_count("GATHER_LAUNCHES")))
+    odom = perturb_odometry(gt, SLAM_ODOM_COV, seed=cfg.random_seed)
+    prior_t, prior_r = mean_errors(gt, odom)
+    log("slam: the prior's drift: mean translation error %.6f m, rotation %.6f rad"
+        % (prior_t, prior_r))
+
+    runs, profiles = {}, {}
+    for name, fn in (("odometry", slam_odometry), ("mapper", slam_mapper)):
+        run = runs[name] = run_slam(fn, clouds, odom, "slam_%s" % name)
+        want = SLAM_ITERS * (len(clouds) - 1)
+        if run["launches"] != {"knn": want, "grid": 0, "gather": 0}:
+            raise RuntimeError("slam_%s launched %s, not X3 %d times alone"
+                               % (name, run["launches"], want))
+        src, tgt, T0 = run["regs"][-1]
+        profiles[name] = profile_calls(
+            lambda: icp_align(src, tgt, T0=T0, n_iters=SLAM_ITERS), card, "scan")
+        t_err, r_err = mean_errors(gt, run["est"])
+        log("slam_%s_ms_per_scan %.3f (%d registrations, X3 %d launches); mean translation "
+            "error %.6f m, rotation %.6f rad (%s)" % (name, run["ms"], len(run["regs"]),
+                                                      run["launches"]["knn"], t_err, r_err, card))
+    src, tgt, T0 = runs["mapper"]["regs"][-1]
+    from depth_correction_tpu_torch.ops.se3 import transform_points
+
+    last = x3_k1_entry(tgt.get_points(), transform_points(torch_tensor(T0, src.depth),
+                                                          src.get_points()), tgt.valid, card)
+    log("slam: the mapper's last registration: map of %d points, %d queries; X3 k = 1 %.4f ms "
+        "(kernel %.4f), all-pairs bound %.4f ms (%s) (%s)"
+        % (last["points"], last["queries"], last["ms"], last["kernel_ms"], last["bound_ms"],
+           last["bound_by"], card))
+
+    # float64 on the plain path: the same clouds and priors.
+    clouds64 = [c.to(dtype=torch.float64) for c in clouds]
+    diffs = {}
+    for name, fn in (("odometry", slam_odometry), ("mapper", slam_mapper)):
+        t1 = time.perf_counter()
+        ref = run_slam(fn, clouds64, odom, "slam_%s float64" % name, plain=True)
+        if ref["launches"]["knn"]:
+            raise RuntimeError("the float64 plain run launched X3")
+        dm, dr = pose_differences(runs[name]["est"], ref["est"])
+        share = first_iteration_differ(runs[name]["regs"], ref["regs"])
+        diffs[name] = {"m": dm, "rad": dr, "first_iter_differ": share,
+                       "seconds": time.perf_counter() - t1}
+        log("slam_%s against float64 plain: largest pose difference %.3e m, %.3e rad; %.3e of "
+            "first-iteration correspondences differ (%.1f s)" % (name, dm, dr, share,
+                                                                 diffs[name]["seconds"]))
+        if not (dm <= SLAM_POSE_M_BAR and dr <= SLAM_POSE_RAD_BAR):
+            raise RuntimeError("slam_%s misses the float64 bars (1e-4 m, 1e-5 rad): %.3e m, "
+                               "%.3e rad" % (name, dm, dr))
+    mapper_t = mean_errors(gt, runs["mapper"]["est"])[0]
+    if not mapper_t < prior_t:
+        raise RuntimeError("the mapper's drift %.6f m is not below the prior's %.6f m"
+                           % (mapper_t, prior_t))
+
+    # End to end: eval_slam_all on the sequence (the loaded scans stand in
+    # for create_dataset of the same name), then the external route.
+    root = tempfile.mkdtemp(prefix="dc_slam_")
+    create = datasets.create_dataset
+    try:
+        ecfg = cfg.copy()
+        ecfg.log_dir = root
+        ecfg.train_names, ecfg.val_names, ecfg.test_names = [], [], [str(seq)]
+        ecfg.eval_slams = ["icp_mapper", "icp_odometry"]
+        ecfg.model_kwargs = {"w": model.w.detach().cpu().tolist(),
+                             "exponent": model.exponent.detach().cpu().tolist()}
+        datasets.create_dataset = (lambda name, c, *a, **kw: seq if name == str(seq)
+                                   else create(name, c, *a, **kw))
+        reset_all_launch_counts()
+        t1 = time.perf_counter()
+        results = eval_slam_all(ecfg)
+        e2e_s = time.perf_counter() - t1
+        check_no_first_versions("eval_slam_all")
+        rows = {}
+        for slam in ecfg.eval_slams:
+            with open(os.path.join(root, "slam_eval_%s_test.csv" % slam)) as f:
+                rows[slam] = [line.split() for line in f]
+            if len(rows[slam]) != 1 or len(rows[slam][0]) != 5:
+                raise RuntimeError("slam_eval_%s_test.csv: %s" % (slam, rows[slam]))
+        log("eval_slam_all: %.3f s; %s (%s)" % (e2e_s, "; ".join(
+            " ".join(r[0]) for r in rows.values()), card))
+
+        ecfg.slam = "norlab_icp_mapper"
+        ecfg.slam_command = "%s %s {input_dir} {poses_csv} --drift 0" % (
+            sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                         "stub_slam_mapper.py"))
+        t1 = time.perf_counter()
+        ext = run_external_slam(ecfg, str(seq), clouds, odom)
+        ext_s = time.perf_counter() - t1
+        if ext.shape != (len(clouds), 4, 4) or not np.allclose(ext, odom, atol=1e-6):
+            raise RuntimeError("the external route read back %s" % (ext.shape,))
+        log("external route (scripts/stub_slam_mapper.py, no drift): %d poses read back, "
+            "%.3f s" % (len(ext), ext_s))
+    finally:
+        datasets.create_dataset = create
+        shutil.rmtree(root, ignore_errors=True)
+    return {"odometry_ms": runs["odometry"]["ms"], "mapper_ms": runs["mapper"]["ms"],
+            "launches": sum(r["launches"]["knn"] for r in runs.values()),
+            "profiles": profiles, "last": last, "diffs": diffs, "prior_t": prior_t,
+            "mapper_t": mapper_t, "odometry_t": mean_errors(gt, runs["odometry"]["est"])[0],
+            "e2e_s": e2e_s}
+
+
+def _kernels_count(attr: str) -> int:
+    from depth_correction_tpu_torch.ops import _kernels
+
+    return getattr(_kernels, attr)
+
+
+def phase_analysis(card: str, data, cfg):
+    """17: the loss landscape and joint learning on phase 3's slice."""
+    import numpy as np
+    import torch
+
+    from depth_correction_tpu_torch.experiments import (joint_learning, synthetic_gt_map,
+                                                        synthetic_gt_positions)
+    from depth_correction_tpu_torch.loss_landscape import sweep_weight
+    from depth_correction_tpu_torch.metrics import mapping_accuracy
+    from depth_correction_tpu_torch.models import load_model
+    from depth_correction_tpu_torch.ops import cellwin as cw
+    from depth_correction_tpu_torch.preproc import global_cloud
+
+    weights = np.linspace(-0.005, 0.005, LANDSCAPE_WEIGHTS)
+    reset_all_launch_counts()
+    t0 = time.perf_counter()
+    _, losses = sweep_weight(cfg, data, weights)
+    landscape_ms = (time.perf_counter() - t0) * 1e3 / LANDSCAPE_WEIGHTS
+    check_no_first_versions("sweep_weight")
+    launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES}
+    if launches != {"fwd": LANDSCAPE_WEIGHTS, "bwd": 0}:
+        raise RuntimeError("sweep_weight launched K1 %d and K2 %d times"
+                           % (launches["fwd"], launches["bwd"]))
+    t1 = time.perf_counter()
+    _, losses64 = sweep_weight(cfg, data.to(dtype=torch.float64), weights, plain=True)
+    plain_s = time.perf_counter() - t1
+    rels = [abs(losses[i] - losses64[i]) / abs(losses64[i])
+            for i in (0, LANDSCAPE_WEIGHTS // 2, LANDSCAPE_WEIGHTS - 1)]
+    log("landscape: %d weights in [%g, %g], K1 %d launches, K2 %d; argmin w = %g (float64 "
+        "plain: %g, %.1f s); loss rel err at the first, middle and last weight %s; "
+        "landscape_ms_per_weight %.3f (%s)"
+        % (LANDSCAPE_WEIGHTS, weights[0], weights[-1], launches["fwd"], launches["bwd"],
+           weights[np.argmin(losses)], weights[np.argmin(losses64)], plain_s,
+           ", ".join("%.3e" % r for r in rels), landscape_ms, card))
+    if not max(rels) <= LOSS_REL_BAR:
+        raise RuntimeError("the landscape misses the 1e-5 bar: %s" % rels)
+    if np.argmin(losses) != np.argmin(losses64):
+        raise RuntimeError("the landscape's argmin differs from float64's")
+
+    # Joint learning: sequence deltas, a synthetic ground-truth map and
+    # positions (the open box's poses do not depend on its density, so the
+    # positions come from a sparse copy of the scene).
+    name = cfg.train_names[0]
+    jcfg = cfg.copy()
+    jcfg.pose_correction = "sequence"
+    jcfg.n_opt_iters = JOINT_STEPS
+    t1 = time.perf_counter()
+    gt_map = synthetic_gt_map(name, jcfg, density_mult=GT_MAP_DENSITY_MULT)
+    sparse = name.rsplit("density_", 1)[0] + "density_10"
+    gt_xyz = synthetic_gt_positions(sparse, jcfg)
+    gt_s = time.perf_counter() - t1
+    batch = data.batches[0]
+    if not np.allclose(gt_xyz, batch.poses[:, :3, 3].double().cpu().numpy(), atol=1e-5):
+        raise RuntimeError("the sparse scene's positions differ from the slice's poses")
+    # The first probe's map accuracy on float64 plain: the same global cloud.
+    with torch.no_grad():
+        g = global_cloud(batch, model=load_model(cfg=jcfg))
+        pts = g.get_points()
+        gt_t = torch.as_tensor(gt_map, dtype=pts.dtype, device=pts.device)
+        acc64 = float(mapping_accuracy(pts.double(), gt_t.double(), 0.8, valid_cloud=g.valid,
+                                       plain=True))
+        x3 = x3_k1_entry(gt_t, pts, torch.ones(len(gt_t), dtype=torch.bool,
+                                               device=pts.device), card)
+    reset_all_launch_counts()
+    t1 = time.perf_counter()
+    hist = joint_learning(jcfg, gt_map=gt_map, gt_positions=gt_xyz, metrics_every=2, data=data)
+    torch.cuda.synchronize()
+    joint_ms = (time.perf_counter() - t1) * 1e3 / JOINT_STEPS
+    check_no_first_versions("joint_learning")
+    launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES}
+    acc_rel = abs(hist.map_accuracy[0] - acc64) / abs(acc64)
+    log("joint: %d steps, K1 %d and K2 %d launches; rows %s; the first probe's map accuracy "
+        "%.9e vs float64 plain %.9e (rel %.3e); joint_step_ms %.3f (wall a step, probes "
+        "included); gt map %d points (%.1f s to make); X3 in mapping_accuracy %.4f ms (kernel "
+        "%.4f), all-pairs bound %.4f ms (%s; %d queries) (%s)"
+        % (JOINT_STEPS, launches["fwd"], launches["bwd"],
+           list(zip(hist.iters, hist.train_loss, hist.pose_l2, hist.map_accuracy)),
+           hist.map_accuracy[0], acc64, acc_rel, joint_ms, len(gt_map), gt_s, x3["ms"],
+           x3["kernel_ms"], x3["bound_ms"], x3["bound_by"], x3["queries"], card))
+    if launches != {"fwd": JOINT_STEPS, "bwd": JOINT_STEPS}:
+        raise RuntimeError("joint_learning: K1 / K2 not once a step: %s" % launches)
+    if hist.iters != [0, 2, 3] or not np.isfinite(hist.map_accuracy).all():
+        raise RuntimeError("joint_learning's history: %s" % hist)
+    if not acc_rel <= LOSS_REL_BAR:
+        raise RuntimeError("map accuracy misses the 1e-5 bar: %.3e" % acc_rel)
+    return {"landscape_ms": landscape_ms, "landscape_rel": max(rels), "joint_ms": joint_ms,
+            "map_acc_rel": acc_rel, "gt_map_points": len(gt_map), "x3_map": x3}
+
+
 def main() -> int:
     import torch
 
@@ -3179,12 +3537,19 @@ def main() -> int:
     log("[phase 14] a KITTI-360 drive of phase 3's scans (%d Adam steps), the native KD-tree"
         % STEPS)
     k360 = phase_kitti360(card, seq, small)
-    del seq
     seconds["14"], t1 = time.perf_counter() - t1, time.perf_counter()
     log("[phase 15] a rendered room mesh (%d poses, 1,024 x 64 beams)" % RENDER_POSES)
     render = phase_render(card)
-    seconds["15"] = time.perf_counter() - t1
-    log("phases 13, 14, 15: %s s" % ", ".join("%.1f" % v for v in seconds.values()))
+    seconds["15"], t1 = time.perf_counter() - t1, time.perf_counter()
+    log("[phase 16] SLAM on phase 3's corrected scans (%d ICP iterations a scan)" % SLAM_ITERS)
+    slam = phase_slam(card, seq, res["cfg"], res["model"])
+    del seq
+    seconds["16"], t1 = time.perf_counter() - t1, time.perf_counter()
+    log("[phase 17] the loss landscape (%d weights) and joint learning (%d steps) on phase 3's "
+        "slice" % (LANDSCAPE_WEIGHTS, JOINT_STEPS))
+    analysis = phase_analysis(card, res["data"], res["cfg"])
+    seconds["17"] = time.perf_counter() - t1
+    log("phases 13-17: %s s" % ", ".join("%s %.1f" % kv for kv in seconds.items()))
     log("build + all phases: %.1f s (%s)" % (time.perf_counter() - t0, card))
     from depth_correction_tpu_torch import scripts
 
@@ -3260,7 +3625,8 @@ def main() -> int:
          "plain_ms": small["x3"]["plain_ms"], "bound": small["x3"]["bound"],
          "bound_all_pairs_ms": small["x3"]["bound_all_pairs"][0], "library_ms": None,
          "launches_default": default["launches"]["knn"],
-         "launches_icp_eval": icp["x3_launches"],
+         "launches_icp_eval": icp["x3_launches"], "launches_slam": slam["launches"],
+         "slam_mapper_last": slam["last"], "mapping_accuracy": analysis["x3_map"],
          "inputs": {"small_scan": x3_summary(small["x3"]),
                     "shadow_dirs": dict(x3_summary(shadow), dropped=shadow["dropped"]),
                     "default_global": x3_summary(default["global"]),
@@ -3321,7 +3687,21 @@ def main() -> int:
         "native_ties": k360["native"]["ties"], "raycast_ms": render["raycast_ms"],
         "render_s": render["render_s"], "render_busy_ms": render["profile"]["busy_ms"],
         "render_wall_ms": render["profile"]["wall_ms"], "raycast_t_rel_err": render["t_rel"],
-        "raycast_near_ties": render["ties"], "phase_s": seconds,
+        "raycast_near_ties": render["ties"],
+        "slam_odometry_ms_per_scan": slam["odometry_ms"],
+        "slam_mapper_ms_per_scan": slam["mapper_ms"],
+        "slam_odometry_busy_ms": slam["profiles"]["odometry"]["busy_ms"],
+        "slam_odometry_wall_ms": slam["profiles"]["odometry"]["wall_ms"],
+        "slam_mapper_busy_ms": slam["profiles"]["mapper"]["busy_ms"],
+        "slam_mapper_wall_ms": slam["profiles"]["mapper"]["wall_ms"],
+        "slam_pose_err_m": max(d["m"] for d in slam["diffs"].values()),
+        "slam_pose_err_rad": max(d["rad"] for d in slam["diffs"].values()),
+        "slam_prior_t_err_m": slam["prior_t"], "slam_mapper_t_err_m": slam["mapper_t"],
+        "slam_odometry_t_err_m": slam["odometry_t"], "eval_slam_all_s": slam["e2e_s"],
+        "landscape_ms_per_weight": analysis["landscape_ms"],
+        "landscape_loss_rel_err": analysis["landscape_rel"], "joint_step_ms": analysis["joint_ms"],
+        "joint_map_acc_rel_err": analysis["map_acc_rel"],
+        "joint_gt_map_points": analysis["gt_map_points"], "phase_s": seconds,
         "kernel_ms_retaken_calls": scripts.RETAKEN_CALLS, "card": card}}), flush=True)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)

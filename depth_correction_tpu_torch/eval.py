@@ -7,8 +7,8 @@ reference: eval.py:115-211). Pose corrections come from
 ``cfg.test_pose_deltas`` (an npz file that either package's ``train()``
 wrote) or start at zero. :func:`eval_icp` takes the ICP loss of consecutive
 scans at ground-truth poses, its correspondences found by the 1-NN search
-(kernel X3 on the card). SLAM evaluation is not ported: :func:`eval_slam_all`
-raises NotImplementedError naming it.
+(kernel X3 on the card). :func:`eval_slam_all` runs
+:func:`slam_eval.eval_slam` for every configured SLAM pipeline.
 """
 from __future__ import annotations
 
@@ -117,9 +117,33 @@ def eval_loss_all(cfg: Config):
 
 
 def eval_slam_all(cfg: Config):
-    """SLAM evaluation (reference: eval.py:266-290) is not ported yet."""
-    raise NotImplementedError("eval_slam_all (SLAM evaluation, eval_slams %s) is not ported yet"
-                              % list(cfg.eval_slams or []))
+    """Every SLAM pipeline of ``cfg.eval_slams`` on the train, val and test
+    sequences with ground-truth pose priors (reference: eval.py:266-290;
+    JAX package, eval.py:174-198): :func:`slam_eval.eval_slam` per
+    (subset, slam), each appending ``slam_eval_<slam>_<subset>.csv`` in
+    ``cfg.log_dir``.
+
+    :return: {(subset, slam): {name: errors}}.
+    """
+    from .config import slam_eval_csv
+    from .slam_eval import eval_slam
+
+    results = {}
+    for names, suffix in zip([cfg.train_names, cfg.val_names, cfg.test_names],
+                             ["train", "val", "test"]):
+        if not names:
+            continue
+        for slam in cfg.eval_slams:
+            eval_cfg = cfg.copy()
+            eval_cfg.test_names = list(names)
+            eval_cfg.train_poses_path = []
+            eval_cfg.val_poses_path = []
+            eval_cfg.test_poses_path = []
+            eval_cfg.slam = slam
+            eval_cfg.slam_eval_csv = slam_eval_csv(cfg.log_dir, slam, suffix)
+            eval_cfg.slam_poses_csv = ""
+            results[(suffix, slam)] = eval_slam(eval_cfg)
+    return results
 
 
 def eval_icp(cfg: Config, test_datasets: Optional[Sequence] = None,

@@ -64,6 +64,15 @@ def _knn_tiled(points, query, valid_points, r2, k: int):
     for start in range(0, points.shape[0], _TILE):
         d2 = _d2(q, points[start:start + _TILE])
         d2 = torch.where(valid_points[None, start:start + _TILE] & (d2 <= r2), d2, inf)
+        if k == 1:
+            # The same keys by a running minimum: min returns the first of
+            # equal distances in the tile, and a tile replaces the running
+            # best only when strictly nearer.
+            tile_d2, tile_i = d2.min(1, keepdim=True)
+            nearer = tile_d2 < best_d2
+            best_d2 = torch.where(nearer, tile_d2, best_d2)
+            best_i = torch.where(nearer, tile_i + start, best_i)
+            continue
         cols = torch.arange(start, start + d2.shape[1], device=q.device)
         cat_d2 = torch.cat([best_d2, d2], 1)
         cat_i = torch.cat([best_i, cols.expand(q.shape[0], -1)], 1)

@@ -17,13 +17,16 @@ from __future__ import annotations
 import torch
 
 __all__ = [
+    "absolute_orientation",
     "axis_angle_to_matrix",
     "delta_transform",
     "matrix_to_quaternion",
     "matrix_to_xyz_axis_angle",
     "quaternion_to_axis_angle",
+    "rotation_angle",
     "transform_inv",
     "transform_points",
+    "translation_norm",
     "xyz_axis_angle_to_matrix",
 ]
 
@@ -133,3 +136,37 @@ def transform_inv(T: torch.Tensor) -> torch.Tensor:
 def delta_transform(T0: torch.Tensor, T1: torch.Tensor) -> torch.Tensor:
     """Delta D such that T1 = T0 @ D (reference: utils.py:192-196)."""
     return transform_inv(T0) @ T1
+
+
+def rotation_angle(T: torch.Tensor) -> torch.Tensor:
+    """Rotation angle of (..., 4, 4) or (..., 3, 3) (reference: utils.py:170-174)."""
+    R = T[..., :3, :3]
+    tr = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    return torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0, 1.0))
+
+
+def translation_norm(T: torch.Tensor) -> torch.Tensor:
+    """Translation magnitude of (..., 4, 4) (reference: utils.py:177-180)."""
+    return torch.linalg.norm(T[..., :3, 3], dim=-1)
+
+
+def absolute_orientation(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Kabsch/Umeyama: rigid T in SE(D) minimizing ||R x_i + t - y_i||^2
+    (reference: utils.py:253-304).
+
+    :param x: D-by-M points to align.
+    :param y: D-by-M reference points.
+    :return: (D+1, D+1) homogeneous transform.
+    """
+    d = x.shape[0]
+    xm = x.mean(1, keepdim=True)
+    ym = y.mean(1, keepdim=True)
+    U, _, Vt = torch.linalg.svd((x - xm) @ (y - ym).T)
+    # Proper rotation: flip the last singular direction if det < 0.
+    S = torch.eye(d, dtype=x.dtype, device=x.device)
+    S[-1, -1] = torch.sign(torch.linalg.det((U @ Vt).T))
+    R = (U @ S @ Vt).T
+    T = torch.eye(d + 1, dtype=x.dtype, device=x.device)
+    T[:d, :d] = R
+    T[:d, d:] = ym - R @ xm
+    return T

@@ -11,13 +11,13 @@ __all__ = ["train_and_eval"]
 
 
 def train_and_eval(cfg: Config):
-    """train -> eval_loss_all(best) (reference: train_and_eval.py:8-11);
-    returns (best_cfg, {(subset, loss): value}). SLAM evaluation is not
-    ported: with ``cfg.eval_slams`` not empty this raises
-    NotImplementedError before any work; set ``cfg.eval_slams = []``."""
-    if cfg.eval_slams:
-        eval_slam_all(cfg)
+    """train -> eval_loss_all(best) -> eval_slam_all(best) (reference:
+    train_and_eval.py:8-11); returns (best_cfg, eval results). Set
+    ``cfg.eval_slams = []`` to skip the SLAM half."""
     best_cfg = train(cfg)
     if best_cfg is None:
         best_cfg = cfg
-    return best_cfg, eval_loss_all(best_cfg)
+    results = eval_loss_all(best_cfg)
+    if cfg.eval_slams:
+        results.update(eval_slam_all(best_cfg))
+    return best_cfg, results

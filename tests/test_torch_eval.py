@@ -4,9 +4,10 @@ float64 on the CPU.
 eval_loss, eval_loss_all and train_and_eval write the JAX package's CSV
 rows (``loss_eval_<loss>[_<subset>].csv``, ``"<names> <loss>"``) with the
 same values; the pose deltas npz that either package writes loads in the
-other and evaluates to the same loss; SLAM evaluation, not ported, raises
+other and evaluates to the same loss; an option outside the port raises
 NotImplementedError naming itself before any work (the ICP loss and
-eval_icp are held against the JAX package in tests/test_torch_icp.py).
+eval_icp are held against the JAX package in tests/test_torch_icp.py,
+SLAM evaluation in tests/test_torch_slam.py).
 """
 import os
 
@@ -137,13 +138,16 @@ def test_pose_deltas_files_cross_packages(tmp_path, mode):
 
 
 def test_unported_options_raise_naming_themselves(tmp_path):
-    """SLAM evaluation raises NotImplementedError naming the SLAM, from
-    eval_slam_all and from train_and_eval before writing anything (with
-    icp_loss among eval_losses, which is ported)."""
+    """An option outside the port (mesh_shape, multi-GPU) raises
+    NotImplementedError naming itself, from train_and_eval and from
+    eval_loss_all, before writing anything (with icp_loss among
+    eval_losses and the default eval_slams, which are ported: SLAM
+    evaluation is held to the JAX package in tests/test_torch_slam.py)."""
     cfg = _cfg(TConfig, tmp_path / "port", eval_losses=["min_eigval_loss", "icp_loss"])
     cfg.eval_slams = ["icp_mapper"]
-    with pytest.raises(NotImplementedError, match="eval_slam_all.*icp_mapper"):
-        teval.eval_slam_all(cfg)
-    with pytest.raises(NotImplementedError, match="icp_mapper"):
+    cfg.mesh_shape = {"data": 2}
+    with pytest.raises(NotImplementedError, match="mesh_shape"):
         t_train_and_eval(cfg)
+    with pytest.raises(NotImplementedError, match="mesh_shape"):
+        teval.eval_loss_all(cfg)
     assert not os.path.exists(cfg.log_dir)

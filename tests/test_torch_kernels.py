@@ -1963,3 +1963,43 @@ def test_cuda_gather_moments_matches_first_version(cuda_device, monkeypatch, k, 
 def bit_equal(a, b) -> bool:
     """float32 tensors equal bit for bit (the same infinities included)."""
     return a.shape == b.shape and bool(torch.equal(a.view(torch.int32), b.view(torch.int32)))
+
+
+@pytest.mark.cuda
+def test_cuda_icp_align_matches_float64_plain(cuda_device):
+    """icp_align on the card in float32 (X3 at k = 1 in each iteration, one
+    launch an iteration, no value read back between them) against the
+    port's float64 plain path on a small open-box scan registered on its
+    neighbour: the poses within 1e-4 m and 1e-5 rad."""
+    from depth_correction_tpu_torch.config import Config
+    from depth_correction_tpu_torch.datasets import create_dataset
+    from depth_correction_tpu_torch.ops.se3 import delta_transform, matrix_to_xyz_axis_angle
+    from depth_correction_tpu_torch.preproc import local_feature_cloud
+    from depth_correction_tpu_torch.slam_eval import icp_align, perturb_odometry
+
+    cfg = Config()
+    cfg.device = "cpu"
+    cfg.min_depth, cfg.max_depth, cfg.grid_res = 0.1, 30.0, 0.3
+    cfg.nn_r, cfg.nn_k, cfg.nn_backend = 0.6, 0, "scipy"
+    cfg.vp_dispersion_bounds, cfg.eigenvalue_ratio_bounds = [], []
+    cfg.min_valid_neighbors, cfg.depth_noise = 3, 0.005
+    cfg.depth_bias_model_kwargs = {"w": [0.0], "exponent": [4.0]}
+    (s0, p0), (s1, p1) = list(create_dataset("open_box/n_2_size_10_10_5_height_1_density_60",
+                                             cfg))
+    clouds = [local_feature_cloud(s, cfg) for s in (s0, s1)]
+    prior = perturb_odometry(np.stack([p0, p1]), [1e-5] * 3 + [4e-3] * 3, seed=3)[1]
+    out = {}
+    for dtype, device, plain in ((torch.float32, cuda_device, False),
+                                 (torch.float64, cuda_device, True)):
+        src, tgt = (c.to(device=device, dtype=dtype) for c in clouds)
+        tgt = tgt.transform(torch.as_tensor(p0, dtype=dtype, device=device)).with_points()
+        before = _kernels.KNN_LAUNCHES
+        T, err = icp_align(src, tgt, T0=prior, n_iters=6, plain=plain)
+        out[plain] = T.double().cpu()
+        assert _kernels.KNN_LAUNCHES - before == (0 if plain else 6)
+        assert math.isfinite(float(err))
+    # The angle by the quaternion: arccos of the trace would read the float32
+    # rotation's departure from orthonormality as ~5e-4 rad.
+    d = delta_transform(out[True], out[False])
+    assert float(d[:3, 3].norm()) < 1e-4
+    assert float(matrix_to_xyz_axis_angle(d)[3:].norm()) < 1e-5

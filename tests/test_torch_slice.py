@@ -266,7 +266,13 @@ def test_port_imports_no_jax():
             "depth_correction_tpu_torch.datasets.semantic_kitti, "
             "depth_correction_tpu_torch.datasets.kitti360, "
             "depth_correction_tpu_torch.datasets.newer_college, "
-            "depth_correction_tpu_torch.datasets.fee_corridor; "
+            "depth_correction_tpu_torch.datasets.fee_corridor, "
+            "depth_correction_tpu_torch.metrics, depth_correction_tpu_torch.slam_eval, "
+            "depth_correction_tpu_torch.slam_norlab, depth_correction_tpu_torch.reconstruction, "
+            "depth_correction_tpu_torch.ops.range_image, depth_correction_tpu_torch.results, "
+            "depth_correction_tpu_torch.main, depth_correction_tpu_torch.sensor, "
+            "depth_correction_tpu_torch.depth_bias, depth_correction_tpu_torch.visualization, "
+            "depth_correction_tpu_torch.loss_landscape, depth_correction_tpu_torch.experiments; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'optax' not in sys.modules and 'orbax' not in sys.modules, "
             "'optax or orbax imported'; "
