@@ -224,6 +224,24 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    map and positions (K1 and K2 once a step; joint_step_ms; the first
    probe's map accuracy within 1e-5 of float64 plain on the same global
    cloud; X3 in mapping_accuracy timed against its all-pairs bound).
+18. multi-GPU — (a) phase 3's slice through train() over a one-rank NCCL
+   group (dist_coordinator at a free localhost port, dist_num_processes 1,
+   dist_process_id 0; prep under the mesh, X2 through
+   grid_radius_neighbors_sharded): its losses and w against phase 3's
+   (bit-equal expected, else the largest relative difference, at most
+   1e-6), K1 and K2 once a step, dist1_step_ms beside train_step_ms, three
+   profiled sharded steps on the rank's tables (wall, device busy,
+   kernels) beside phase 3's profiled step, the ungrouped and the sharded
+   step in turns (CUDA events over 10 steps each), the rank's resident
+   bytes of its point and row tables, the whole tables prep holds on every
+   rank before the split and the rank's peak device bytes over train();
+   the group is destroyed at the end. (b) 4 ranks rehearsed in one
+   process on phase 3's graph (parallel.cellwin_shard.rehearse: K1 on each rank's row tiles
+   with the empty padding tiles, K2 on each rank's point tiles against the
+   joined cotangent table; X2 on each rank's query slice of the global
+   cloud): bit for bit the single launches. (c) with two cards or more,
+   one NCCL rank a card (``chip_smoke.py --dist-rank``), within 1e-5 of
+   phase 3; with one card it says so and claims no scaling.
 
 Device-busy times (profile_calls) sum kernels, memcpys and memsets; user
 annotations (record_function spans such as Optimizer.step#Adam.step),
@@ -562,7 +580,7 @@ def bench_config():
     return config(DEVICE, STEPS)
 
 
-def train_logged(cfg, callbacks=None, train_data=None):
+def train_logged(cfg, callbacks=None, train_data=None, train_datasets=None):
     """train() with ``cfg.log_dir`` in a temporary directory.
 
     :return: (the best model train() saved, the history rows of its
@@ -578,7 +596,8 @@ def train_logged(cfg, callbacks=None, train_data=None):
     root = tempfile.mkdtemp(prefix="dc_train_")
     try:
         cfg.log_dir = os.path.join(root, "log")
-        best = train(cfg, callbacks=callbacks, train_data=train_data)
+        best = train(cfg, callbacks=callbacks, train_data=train_data,
+                     train_datasets=train_datasets)
         if best is None:
             raise RuntimeError("train() saved no best model")
         with open(os.path.join(cfg.log_dir, "train_history.csv")) as f:
@@ -609,10 +628,11 @@ def phase_slice(card: str):
     class Record(TrainCallbacks):
         def __init__(self, cfg):
             super().__init__(cfg)
-            self.w = {}
+            self.w, self.loss = {}, {}
 
         def train_loss(self, it, model, pose_deltas, loss):
             self.w[it] = float(model.w.detach()[0])
+            self.loss[it] = float(loss.detach())
 
     # The main path: datasets -> prep -> train(); counts from this run only.
     # The scans are loaded once (load_sequence) and kept for phases 9 and 12,
@@ -693,7 +713,8 @@ def phase_slice(card: str):
         "launches": launches, "kernels": k, "step_ms": step_ms, "prep_s": prep_s,
         "loss_rel": loss_rel, "w_rel": w_rel, "profile": profile,
         "profile_v1": profile_v1, "graph": graph, "ps": ps, "data": data, "cfg": cfg,
-        "seq": seq, "model": trained,
+        "seq": seq, "model": trained, "losses": [rec.loss[i] for i in sorted(rec.loss)],
+        "w": [rec.w[i] for i in sorted(rec.w)],
     }
 
 
@@ -3471,6 +3492,330 @@ def phase_analysis(card: str, data, cfg):
             "map_acc_rel": acc_rel, "gt_map_points": len(gt_map), "x3_map": x3}
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: multi-GPU (depth_correction_tpu_torch/parallel)
+
+REHEARSAL_RANKS = 4
+DIST_REL_BAR = 1e-6  # a one-rank group against phase 3's ungrouped run
+MULTI_REL_BAR = 1e-5  # ranks on several cards (sums in another order)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def max_rel_diff(a, b) -> float:
+    """Largest |a - b| over the largest |b|, 0.0 for equal sequences."""
+    import numpy as np
+
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.max(np.abs(a - b)) / max(float(np.max(np.abs(b))), 1e-300))
+
+
+def sharded_step_fn(cfg, data):
+    """One Adam step of the sharded loss on the rank's ``data``, the
+    gradient all-reduced (what train.fit does under a mesh)."""
+    from depth_correction_tpu_torch.models import load_model
+    from depth_correction_tpu_torch.parallel import make_sharded_loss_fn
+    from depth_correction_tpu_torch.parallel.collectives import all_reduce_grads
+    from depth_correction_tpu_torch.train import make_optimizer
+
+    model = load_model(cfg=cfg)
+    loss_fn = make_sharded_loss_fn(cfg, data.mesh)
+    opt = make_optimizer(cfg, [model.w])
+
+    def step():
+        opt.zero_grad()
+        loss_fn(model, data).backward()
+        all_reduce_grads([model.w], data.mesh)
+        opt.step()
+
+    return step
+
+
+def dist_train(cfg, seq, n: int, rank: int, port: int, log_dir: str, card: str = None,
+               single=None):
+    """train() over a group of ``n`` NCCL ranks at tcp://127.0.0.1:<port>
+    through the dist_* options (prep under the mesh), every rank with
+    ``log_dir`` (rank 0 writes there); with ``card``, then three profiled
+    sharded steps on the rank's data, and the sharded step timed in turns
+    with the ungrouped step on ``single`` (the same slice prepared without
+    a group); destroys the group.
+
+    :return: (losses, w each step starts from, the median step_ms of steps
+        1.. from rank 0's train_history.csv (None on other ranks),
+        launches, the rank's resident bytes, the rank's table sizes,
+        {"profile", "turns": (ungrouped ms, sharded ms)} or None, the
+        rank's peak device bytes over train(), prep under the mesh
+        included).
+    """
+    import torch
+    import torch.distributed as dist
+
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.ops import cellwin as cw
+    from depth_correction_tpu_torch.parallel import resident_bytes
+    from depth_correction_tpu_torch.train import TrainCallbacks, train
+
+    cfg.dist_coordinator = "127.0.0.1:%d" % port
+    cfg.dist_num_processes, cfg.dist_process_id = n, rank
+    cfg.log_dir = log_dir
+
+    class Record(TrainCallbacks):
+        def __init__(self, cfg):
+            super().__init__(cfg)
+            self.w, self.losses, self.bytes, self.sizes, self.data = {}, {}, None, None, None
+
+        def train_inputs(self, it, data):
+            self.data = data
+            g = data.cellwin[0]
+            self.bytes = resident_bytes(data)
+            self.sizes = {"points_a_scan": data.batches[0].cloud.depth.shape[1],
+                          "row_tiles": g.f_start.shape[0] if g is not None else 0,
+                          "point_tiles": g.b_start.shape[0] if g is not None else 0,
+                          "ranks": data.mesh.size}
+
+        def train_loss(self, it, model, pose_deltas, loss):
+            self.w[it] = float(model.w.detach()[0])
+            self.losses[it] = float(loss.detach())
+
+    reset_all_launch_counts()
+    rec = Record(cfg)
+    extra = step_ms = None
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        if train(cfg, callbacks=rec, train_datasets=[seq]) is None:
+            raise RuntimeError("rank %d: train() saved no best model" % rank)
+        peak = torch.cuda.max_memory_allocated()
+        if rank == 0:
+            with open(os.path.join(log_dir, "train_history.csv")) as f:
+                f.readline()
+                rows = [line.split() for line in f]
+            step_ms = statistics.median(float(r[3]) for r in rows[1:])
+        launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES,
+                    "grid": _kernels.GRID_LAUNCHES}
+        if card is not None:
+            log("the sharded step on the rank's tables, profiled:")
+            sharded = sharded_step_fn(cfg, rec.data)
+            extra = {"profile": profile_calls(sharded, card, "step")}
+            log("the ungrouped step and the sharded step, in turns (CUDA events, 10 steps):")
+            extra["turns"] = in_turns(adam_step_fn(cfg, single), sharded, reps=10)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return ([rec.losses[i] for i in sorted(rec.losses)], [rec.w[i] for i in sorted(rec.w)],
+            step_ms, launches, rec.bytes, rec.sizes, extra, peak)
+
+
+def rehearse_x2(g, r: float, k: int, size: int):
+    """X2 on each of ``size`` ranks' query slices of the global cloud
+    (``parallel.collectives.query_slice``, as grid_radius_neighbors_sharded
+    splits them), joined, against one launch over every query."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.ops.grid_hash import grid_radius_neighbors
+    from depth_correction_tpu_torch.parallel.collectives import query_slice
+
+    pts, valid = g.get_points().contiguous(), g.valid
+    d1, i1 = grid_radius_neighbors(pts, r=r, k=k, valid_points=valid, valid_query=valid)
+    before = _kernels.GRID_LAUNCHES
+    parts = []
+    for rank in range(size):
+        lo, hi, _ = query_slice(pts.shape[0], SimpleNamespace(rank=rank, size=size))
+        parts.append(grid_radius_neighbors(pts, pts[lo:hi].contiguous(), r=r, k=k,
+                                           valid_points=valid, valid_query=valid[lo:hi]))
+    launches = _kernels.GRID_LAUNCHES - before
+    d4, i4 = torch.cat([x[0] for x in parts]), torch.cat([x[1] for x in parts])
+    idx_equal = bool((d4.shape == d1.shape) and (i4 == i1).all())
+    d_diff = float((d4 - d1).abs().nan_to_num(0.0).max()) if d4.numel() else 0.0
+    return {"launches": launches, "idx_equal": idx_equal,
+            "d_equal": bool(idx_equal and ((d4 == d1) | (d4.isinf() & d1.isinf())).all()),
+            "d_max_abs_diff": d_diff, "queries": int(pts.shape[0]), "k": k}
+
+
+def phase_multi_gpu(card: str, res: dict, seq):
+    """18: (a) phase 3's slice trained through train() over a one-rank
+    NCCL group (the dist_* options; prep under the mesh), held to phase
+    3's run; (b) the sharded step's per-rank launches for 4 ranks rehearsed
+    in one process on phase 3's graph (K1 on each rank's row tiles with
+    the padding tiles, K2 on each rank's point tiles against the joined
+    cotangent table, X2 on each rank's query slice), held to the single
+    launches bit for bit; (c) with two cards or more, one NCCL rank a card
+    through the same route, held to phase 3 within 1e-5."""
+    import torch
+
+    from depth_correction_tpu_torch.ops import cellwin as cw
+    from depth_correction_tpu_torch.ops.features import _cotangent_table
+    from depth_correction_tpu_torch.ops.knn import suggest_k_max
+    from depth_correction_tpu_torch.parallel import resident_bytes
+    from depth_correction_tpu_torch.parallel.cellwin_shard import rehearse
+    from depth_correction_tpu_torch.preproc import global_cloud
+
+    import shutil
+    import tempfile
+
+    out = {}
+    # (a) One rank of NCCL at the slice's full width.
+    log_dir = tempfile.mkdtemp(prefix="dc_dist1_")
+    try:
+        losses, ws, step_ms, launches, nbytes, sizes, extra, peak = dist_train(
+            bench_config(), seq, 1, 0, free_port(), log_dir, card, res["data"])
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    profile, turns = extra["profile"], extra["turns"]
+    check_no_first_versions("phase 18(a)")
+    loss_rel, w_rel = max_rel_diff(losses, res["losses"]), max_rel_diff(ws, res["w"])
+    log("18(a) one-rank NCCL group, %d Adam steps: losses %s (%s)" % (
+        len(losses), ", ".join("%.9e" % v for v in losses), card))
+    log("18(a) w: %s (%s)" % (", ".join("%.6e" % v for v in ws), card))
+    log("18(a) against phase 3: losses %s (largest rel diff %.3e), w %s (%.3e); bar %.0e (%s)"
+        % ("bit-equal" if losses == res["losses"] else "differ", loss_rel,
+           "bit-equal" if ws == res["w"] else "differ", w_rel, DIST_REL_BAR, card))
+    per_step = (launches["fwd"] / len(losses), launches["bwd"] / len(losses))
+    log("18(a) launches: K1 %d, K2 %d (%.0f and %.0f a step), X2 %d in prep; dist1_step_ms "
+        "%.3f beside train_step_ms %.3f (%s)" % (launches["fwd"], launches["bwd"],
+                                                 per_step[0], per_step[1], launches["grid"],
+                                                 step_ms, res["step_ms"], card))
+    log("18(a) profiled step: %.3f ms wall, %.3f ms device busy, %.0f kernels, against phase "
+        "3's %.3f / %.3f / %.0f (%s)" % (profile["wall_ms"], profile["busy_ms"],
+                                         profile["kernels_per_call"], res["profile"]["wall_ms"],
+                                         res["profile"]["busy_ms"],
+                                         res["profile"]["kernels_per_call"], card))
+    log("18(a) in turns: the ungrouped step %.3f ms, the one-rank sharded step %.3f ms (%s)"
+        % (turns[0], turns[1], card))
+    log("18(a) the rank holds %s: %d points a scan, %d row tiles, %d point tiles; resident "
+        "bytes: points %d, rows %d, whole on every rank %d (%s)"
+        % ("1/%d" % sizes["ranks"], sizes["points_a_scan"], sizes["row_tiles"],
+           sizes["point_tiles"], nbytes["points"], nbytes["rows"], nbytes["whole"], card))
+    whole = resident_bytes(res["data"])
+    log("18(a) prep holds the whole tables on every rank before the split: points %d, rows %d "
+        "bytes (phase 3's tables); the rank's peak device bytes over train(), prep included: "
+        "%d (%s)" % (whole["points"], whole["rows"], peak, card))
+    if per_step != (1.0, 1.0) or launches["grid"] <= 0:
+        raise RuntimeError("18(a): K1, K2 not once a step or X2 not in prep: %s" % launches)
+    if loss_rel > DIST_REL_BAR or w_rel > DIST_REL_BAR:
+        raise RuntimeError("18(a) misses phase 3: loss %.3e, w %.3e" % (loss_rel, w_rel))
+    out.update(dist1_step_ms=step_ms, dist1_profile=profile, dist1_turns_ms=turns,
+               dist1_loss_rel=loss_rel,
+               dist1_w_rel=w_rel,
+               dist1_bit_equal=losses == res["losses"] and ws == res["w"],
+               dist1_resident_bytes=nbytes, dist1_sizes=sizes, dist1_prep_whole_bytes=whole,
+               dist1_peak_bytes=peak)
+
+    # (b) Four ranks' launches in one process.
+    g, ps = res["graph"], res["ps"]
+    with torch.no_grad():
+        raw = cw.cellwin_fwd(ps, g.q_est, g.est_sorted, g.f_start, g.f_len, g.f_ctr, g.r2)
+        gen = torch.Generator().manual_seed(18)
+        gr = torch.randn((10, raw.shape[1]), generator=gen).to(ps.device)
+        gr = torch.where((g.row_map >= 0)[None], gr, torch.zeros_like(gr))
+        table = _cotangent_table(raw[0:3], raw[9], (gr[0:3], tuple(gr[3:9]))).contiguous()
+        grad = cw.cellwin_bwd(ps, g.q_est, g.est_sorted, table, g.b_start, g.b_len, g.b_ctr,
+                              g.r2)
+        f0, b0 = cw.FWD_LAUNCHES, cw.BWD_LAUNCHES
+        raw4, grad4 = rehearse(ps, g, REHEARSAL_RANKS, gr)
+        shard_launches = (cw.FWD_LAUNCHES - f0, cw.BWD_LAUNCHES - b0)
+    t1, t2 = g.f_start.shape[0], g.b_start.shape[0]
+    pad_tiles = (-t1 % REHEARSAL_RANKS, -t2 % REHEARSAL_RANKS)
+    moments_diff = float((raw4 - raw).abs().max())
+    grad_diff = float((grad4 - grad).abs().max())
+    log("18(b) %d ranks in one process on phase 3's graph (%d row tiles + %d padding, %d point "
+        "tiles + %d padding; K1 %d and K2 %d launches): moments %s (max |diff| %.3e), "
+        "gradient %s (max |diff| %.3e) (%s)"
+        % (REHEARSAL_RANKS, t1, pad_tiles[0], t2, pad_tiles[1], shard_launches[0],
+           shard_launches[1], "bit-equal" if torch.equal(raw4, raw) else "DIFFER", moments_diff,
+           "bit-equal" if torch.equal(grad4, grad) else "DIFFER", grad_diff, card))
+    gcloud = global_cloud(res["data"].batches[0])
+    r = float(res["cfg"].nn_r)
+    k = suggest_k_max(gcloud.get_points(), r=r, valid_points=gcloud.valid)
+    x2 = rehearse_x2(gcloud, r, k, REHEARSAL_RANKS)
+    log("18(b) X2 on %d query slices of the global cloud (%d queries, k %d, %d launches): "
+        "index tables %s, distances %s (max |diff| %.3e) (%s)"
+        % (REHEARSAL_RANKS, x2["queries"], k, x2["launches"],
+           "equal" if x2["idx_equal"] else "DIFFER", "bit-equal" if x2["d_equal"] else "DIFFER",
+           x2["d_max_abs_diff"], card))
+    if not (torch.equal(raw4, raw) and torch.equal(grad4, grad) and x2["idx_equal"]
+            and x2["d_equal"]):
+        raise RuntimeError("18(b): the shards differ from the single launches")
+    if shard_launches != (REHEARSAL_RANKS, REHEARSAL_RANKS):
+        raise RuntimeError("18(b): the shards launched K1, K2 %s times" % (shard_launches,))
+    out.update(rehearsal_ranks=REHEARSAL_RANKS, rehearsal_moments_diff=moments_diff,
+               rehearsal_grad_diff=grad_diff, rehearsal_x2_equal=x2["idx_equal"] and x2["d_equal"],
+               rehearsal_pad_tiles=pad_tiles)
+
+    # (c) One rank a card.
+    n = torch.cuda.device_count()
+    if n < 2:
+        log("18(c) one card seen (%s): no group of several cards was run, and no scaling is "
+            "claimed" % card)
+        out["cards"] = n
+        return out
+    out.update(multi_gpu(card, res, n))
+    return out
+
+
+def multi_gpu(card: str, res: dict, n: int) -> dict:
+    """18(c): ``n`` NCCL ranks, one a card, each a process running
+    ``chip_smoke.py --dist-rank``: rank 0's losses against phase 3's,
+    every rank's losses and w the same bits."""
+    import tempfile
+
+    from depth_correction_tpu_torch.parallel.dryrun import start, wait_all
+
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        # The ranks share one log_dir, as ranks on one host do; rank 0 writes.
+        procs = [start([sys.executable, os.path.abspath(__file__), "--dist-rank", str(rank),
+                        str(n), str(port), tmp]) for rank in range(n)]
+        wait_all(procs, timeout=900)
+        reports = []
+        for rank in range(n):
+            with open(os.path.join(tmp, "rank%d.json" % rank)) as f:
+                reports.append(json.load(f))
+    got, ranks = reports[0], reports[1:]
+    rel = max_rel_diff(got["losses"], res["losses"])
+    same = all(r["losses"] == got["losses"] and r["w"] == got["w"] for r in ranks)
+    log("18(c) %d NCCL ranks, one a card: losses %s (largest rel diff to phase 3 %.3e, bar "
+        "%.0e); every rank's losses and w the same bits: %s; dist%d_step_ms %.3f beside "
+        "train_step_ms %.3f; %.1f s (%s)"
+        % (n, ", ".join("%.9e" % v for v in got["losses"]), rel, MULTI_REL_BAR, same, n,
+           got["step_ms"], res["step_ms"], time.perf_counter() - t0, card))
+    for r, d in enumerate([got] + ranks):
+        log("18(c) rank %d holds 1/%d: %d points a scan, %d row tiles, %d point tiles; "
+            "resident bytes: points %d, rows %d, whole %d; peak device bytes over train() %d "
+            "(%s)" % (r, n, d["sizes"]["points_a_scan"], d["sizes"]["row_tiles"],
+                      d["sizes"]["point_tiles"], d["bytes"]["points"], d["bytes"]["rows"],
+                      d["bytes"]["whole"], d["peak"], card))
+    if rel > MULTI_REL_BAR or not same:
+        raise RuntimeError("18(c) misses phase 3 by %.3e, or the ranks differ (%s)"
+                           % (rel, same))
+    return {"cards": n, "distn_step_ms": got["step_ms"], "distn_loss_rel": rel,
+            "distn_resident_bytes": got["bytes"]}
+
+
+def dist_rank_main(rank: int, n: int, port: int, out_dir: str) -> int:
+    """One rank of 18(c): phase 3's slice through train() on card ``rank``."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    cfg = bench_config()
+    seq = load_sequence(cfg)
+    losses, ws, step_ms, launches, nbytes, sizes, _, peak = dist_train(
+        cfg, seq, n, rank, port, os.path.join(out_dir, "log"))
+    if launches["fwd"] != len(losses) or launches["bwd"] != len(losses):
+        raise RuntimeError("rank %d: K1 / K2 launches %s" % (rank, launches))
+    with open(os.path.join(out_dir, "rank%d.json" % rank), "w") as f:
+        json.dump({"losses": losses, "w": ws, "bytes": nbytes, "sizes": sizes,
+                   "step_ms": step_ms, "peak": peak}, f)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -3543,13 +3888,17 @@ def main() -> int:
     seconds["15"], t1 = time.perf_counter() - t1, time.perf_counter()
     log("[phase 16] SLAM on phase 3's corrected scans (%d ICP iterations a scan)" % SLAM_ITERS)
     slam = phase_slam(card, seq, res["cfg"], res["model"])
-    del seq
     seconds["16"], t1 = time.perf_counter() - t1, time.perf_counter()
     log("[phase 17] the loss landscape (%d weights) and joint learning (%d steps) on phase 3's "
         "slice" % (LANDSCAPE_WEIGHTS, JOINT_STEPS))
     analysis = phase_analysis(card, res["data"], res["cfg"])
-    seconds["17"] = time.perf_counter() - t1
-    log("phases 13-17: %s s" % ", ".join("%s %.1f" % kv for kv in seconds.items()))
+    seconds["17"], t1 = time.perf_counter() - t1, time.perf_counter()
+    log("[phase 18] multi-GPU: a one-rank NCCL group, %d ranks rehearsed in one process"
+        % REHEARSAL_RANKS)
+    multi = phase_multi_gpu(card, res, seq)
+    seconds["18"] = time.perf_counter() - t1
+    del seq
+    log("phases 13-18: %s s" % ", ".join("%s %.1f" % kv for kv in seconds.items()))
     log("build + all phases: %.1f s (%s)" % (time.perf_counter() - t0, card))
     from depth_correction_tpu_torch import scripts
 
@@ -3701,7 +4050,22 @@ def main() -> int:
         "landscape_ms_per_weight": analysis["landscape_ms"],
         "landscape_loss_rel_err": analysis["landscape_rel"], "joint_step_ms": analysis["joint_ms"],
         "joint_map_acc_rel_err": analysis["map_acc_rel"],
-        "joint_gt_map_points": analysis["gt_map_points"], "phase_s": seconds,
+        "joint_gt_map_points": analysis["gt_map_points"],
+        "dist1_step_ms": multi["dist1_step_ms"],
+        "dist1_busy_ms": multi["dist1_profile"]["busy_ms"],
+        "dist1_turns_single_ms": multi["dist1_turns_ms"][0],
+        "dist1_turns_sharded_ms": multi["dist1_turns_ms"][1],
+        "dist1_profiled_wall_ms": multi["dist1_profile"]["wall_ms"],
+        "dist1_loss_rel_diff": multi["dist1_loss_rel"],
+        "dist1_w_rel_diff": multi["dist1_w_rel"], "dist1_bit_equal": multi["dist1_bit_equal"],
+        "dist1_resident_bytes": multi["dist1_resident_bytes"],
+        "dist1_prep_whole_bytes": multi["dist1_prep_whole_bytes"],
+        "dist1_peak_bytes": multi["dist1_peak_bytes"],
+        "rehearsal_ranks": multi["rehearsal_ranks"],
+        "rehearsal_moments_max_abs_diff": multi["rehearsal_moments_diff"],
+        "rehearsal_grad_max_abs_diff": multi["rehearsal_grad_diff"],
+        "rehearsal_x2_equal": multi["rehearsal_x2_equal"], "cards": multi["cards"],
+        "phase_s": seconds,
         "kernel_ms_retaken_calls": scripts.RETAKEN_CALLS, "card": card}}), flush=True)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -3712,4 +4076,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-rank"]:
+        sys.exit(dist_rank_main(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]),
+                                sys.argv[5]))
     sys.exit(main())

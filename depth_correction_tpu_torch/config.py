@@ -312,11 +312,12 @@ class Config(Configurable):
         self.plot_period = 10
 
         # Parallelism, layout, profiling and checkpointing knobs of the JAX
-        # package, kept for config-file parity. The port's train() runs on
-        # one device and rejects mesh_shape and dist_coordinator with
-        # NotImplementedError; spatial_sort turns the cell-window engine off,
+        # package. mesh_shape and the dist_* options run train() and
+        # eval_loss() over a torch.distributed group (parallel/sharding.py,
+        # mesh_from_config); spatial_sort turns the cell-window engine off,
         # as in the JAX package, and leaves the rows in their order (the
-        # Morton permutation is a TPU layout workaround).
+        # Morton permutation is a TPU layout workaround); profile_dir takes
+        # a torch.profiler trace of iterations 2 to 6 (train.fit).
         self.mesh_shape = None  # e.g. {'data': 8}; None = single device
         self.dist_coordinator = None
         self.dist_num_processes = None

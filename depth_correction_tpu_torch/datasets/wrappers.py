@@ -3,8 +3,10 @@
 
 Mirrors the reference wrapper stack (reference: src/depth_correction/
 dataset.py:718-909). The corruption wrappers inject a known depth bias /
-noise so training can be validated against ground truth. Pose noise and
-pose overrides are not ported yet.
+noise (:class:`DepthBiasDataset`, :class:`NoisyDepthDataset`) or pose noise
+(:class:`NoisyPoseDataset`) so training can be validated against ground
+truth; :class:`OverridePosesDataset` replaces the poses with those of a
+CSV file (``*_poses_path``).
 """
 from __future__ import annotations
 

@@ -61,10 +61,18 @@ def eval_loss(cfg: Config, test_datasets: Optional[Sequence] = None, model=None,
     Prints the loss and, with ``cfg.loss_eval_csv`` set, appends
     ``"<names> <loss>"`` to it.
 
+    With ``cfg.mesh_shape`` or ``cfg.dist_coordinator`` and no
+    ``test_data`` (JAX package, eval.py:72-130) every rank calls it alike:
+    prep runs under the mesh, the tables split over the ranks and the loss
+    is ``parallel.make_sharded_loss_fn``'s; every rank returns the same
+    value and rank 0 prints it and appends the CSV row. A custom
+    ``loss_fun`` cannot be sharded and raises NotImplementedError.
+
     :return: the loss as a float (and the prepared TrainData when
         ``return_data``).
     """
     from .datasets import create_dataset
+    from .parallel.sharding import is_writer
 
     if test_datasets:
         test_names = [str(ds) for ds in test_datasets]
@@ -77,15 +85,28 @@ def eval_loss(cfg: Config, test_datasets: Optional[Sequence] = None, model=None,
         raise ValueError("No test data: set cfg.test_names or pass test_datasets.")
     if model is None:
         model = load_model(cfg=cfg)
+    mesh = None
+    if (cfg.mesh_shape or cfg.dist_coordinator) and test_data is None:
+        from .parallel import make_sharded_loss_fn, mesh_from_config, shard_train_data
+
+        mesh = mesh_from_config(cfg)
+    if mesh is not None and loss_fun is not None:
+        raise NotImplementedError("a custom loss_fun cannot be sharded; unset cfg.mesh_shape "
+                                  "or configure the loss by cfg.loss and cfg.loss_kwargs")
     if test_data is None:
-        test_data = prepare_sequences(test_datasets, cfg, for_grad=False)
+        test_data = prepare_sequences(test_datasets, cfg, for_grad=False, mesh=mesh)
+    if mesh is not None:
+        test_data = shard_train_data(test_data, mesh)
+        loss_fn = make_sharded_loss_fn(cfg, mesh)
+    else:
+        loss_fn = make_loss_fn(cfg, loss_fun=loss_fun or create_loss(cfg))
     deltas = _test_pose_deltas(cfg, test_data)
     with torch.no_grad():
-        value = float(make_loss_fn(cfg, loss_fun=loss_fun or create_loss(cfg))(
-            model, test_data, deltas))
-    print("Test loss on %s: %.9f" % (", ".join(test_names), value))
-    if cfg.loss_eval_csv:
-        append(cfg.loss_eval_csv, "%s %.9f\n" % (",".join(test_names), value))
+        value = float(loss_fn(model, test_data, deltas))
+    if is_writer(mesh):
+        print("Test loss on %s: %.9f" % (", ".join(test_names), value))
+        if cfg.loss_eval_csv:
+            append(cfg.loss_eval_csv, "%s %.9f\n" % (",".join(test_names), value))
     if return_data:
         return value, test_data
     return value
@@ -155,13 +176,16 @@ def eval_icp(cfg: Config, test_datasets: Optional[Sequence] = None,
     point-to-point) distance of consecutive scans over 1-NN
     correspondences gated at the ``icp_inlier_ratio`` quantile (default
     0.3). Prints the loss and, with ``cfg.loss_eval_csv`` set, appends
-    ``"<names> <loss>"`` to it.
+    ``"<names> <loss>"`` to it. Under ``mesh_shape`` or
+    ``dist_coordinator`` every rank computes it whole and rank 0 alone
+    prints and writes.
 
     :return: the loss as a float (and, with ``return_data``, the scans'
         feature clouds, a list a sequence, and their (S, 4, 4) poses).
     """
     from .datasets import create_dataset
     from .loss import icp_loss
+    from .parallel.sharding import writes_for
     from .preproc import local_feature_cloud
 
     if test_datasets:
@@ -186,9 +210,10 @@ def eval_icp(cfg: Config, test_datasets: Optional[Sequence] = None,
                             icp_point_to_plane=bool(kwargs.get("icp_point_to_plane", True)),
                             icp_inlier_ratio=float(kwargs.get("icp_inlier_ratio", 0.3)))
     value = float(value)
-    print("ICP loss on %s: %.9f" % (", ".join(names), value))
-    if cfg.loss_eval_csv:
-        append(cfg.loss_eval_csv, "%s %.9f\n" % (",".join(names), value))
+    if writes_for(cfg):
+        print("ICP loss on %s: %.9f" % (", ".join(names), value))
+        if cfg.loss_eval_csv:
+            append(cfg.loss_eval_csv, "%s %.9f\n" % (",".join(names), value))
     if return_data:
         return value, (seqs, poses_all)
     return value

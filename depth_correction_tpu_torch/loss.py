@@ -22,6 +22,7 @@ from .ops.reduce import masked_mean, masked_quantile, masked_sum, reduce_loss
 
 __all__ = [
     "batch_loss",
+    "batch_sums",
     "create_loss",
     "icp_loss",
     "icp_pair_correspondences",
@@ -30,6 +31,7 @@ __all__ = [
     "min_eigval_loss",
     "point_to_plane_dist",
     "point_to_point_dist",
+    "pointwise_loss",
     "trace_loss",
 ]
 
@@ -42,10 +44,10 @@ def _base_mask(cloud, mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
 
 
 def _inlier_trim(loss, mask, inlier_max_loss, inlier_ratio: float,
-                 inlier_loss_mult: float):
+                 inlier_loss_mult: float, quantile=masked_quantile):
     """Quantile-based inlier masking (reference: loss.py:256-273)."""
     if inlier_ratio < 1.0:
-        thr = masked_quantile(loss, mask, inlier_ratio)
+        thr = quantile(loss, mask, inlier_ratio)
         if inlier_loss_mult != 1.0:
             thr = inlier_loss_mult * thr
         if inlier_max_loss is None:
@@ -63,10 +65,10 @@ def _inlier_trim(loss, mask, inlier_max_loss, inlier_ratio: float,
 def _consistency_loss(pointwise, cloud, mask, offset, sqrt: bool,
                       reduction: str, inlier_max_loss, inlier_ratio: float,
                       inlier_loss_mult: float, only_finite: bool,
-                      skip_nans: bool):
+                      skip_nans: bool, quantile=masked_quantile):
     mask = _base_mask(cloud, mask)
     mask = _inlier_trim(pointwise, mask, inlier_max_loss, inlier_ratio,
-                        inlier_loss_mult)
+                        inlier_loss_mult, quantile)
     # Offset by a per-point baseline loss, then clamp to positive
     # (reference: loss.py:279-284).
     if offset is not None:
@@ -83,63 +85,73 @@ def _consistency_loss(pointwise, cloud, mask, offset, sqrt: bool,
     return value, out_cloud
 
 
+def pointwise_loss(cloud, trace: bool, normalization: bool = False):
+    """The pointwise loss before trim and offset: the covariance trace
+    (``trace_loss``; the ``trace`` field where the input has one, else the
+    trace of ``cov``, as :class:`segmentation.Planes` has; JAX package,
+    loss.py:183-188) or the smallest eigenvalue (``min_eigval_loss``),
+    with ``normalization`` over clamp(sum lam, 1e-6)."""
+    if trace:
+        tr = getattr(cloud, "trace", None)
+        if tr is not None:
+            return tr
+        cov = cloud.cov
+        return cov[..., 0, 0] + cov[..., 1, 1] + cov[..., 2, 2]
+    pointwise = cloud.eigvals[..., 0]
+    if normalization:
+        pointwise = pointwise / torch.clamp(cloud.eigvals.sum(-1), min=1e-6)
+    return pointwise
+
+
 def min_eigval_loss(cloud, mask=None, offset=None, sqrt: bool = False,
                     normalization: bool = False, reduction: str = "mean",
                     inlier_max_loss=None, inlier_ratio: float = 1.0,
                     inlier_loss_mult: float = 1.0, only_finite: bool = False,
-                    skip_nans: bool = False, **_unused):
+                    skip_nans: bool = False, inlier_quantile=masked_quantile, **_unused):
     """Smallest-eigenvalue map-consistency loss (reference: loss.py:216-294):
     pointwise lam_1, optionally over clamp(sum lam, 1e-6), inlier-trimmed,
     offset, relu'd, sqrt'd, then mask-mean reduced. ``cloud`` is a feature
-    cloud, feature rows or :class:`segmentation.Planes` (a value a plane)."""
+    cloud, feature rows or :class:`segmentation.Planes` (a value a plane).
+    ``inlier_quantile(loss, mask, q)`` takes the trim's quantile (a
+    sharded loss passes one over every rank's rows)."""
     if isinstance(cloud, (list, tuple)):
         return batch_loss(
             min_eigval_loss, cloud, masks=mask, offsets=offset,
             reduction=reduction, only_finite=only_finite, skip_nans=skip_nans,
             sqrt=sqrt, normalization=normalization,
             inlier_max_loss=inlier_max_loss, inlier_ratio=inlier_ratio,
-            inlier_loss_mult=inlier_loss_mult,
+            inlier_loss_mult=inlier_loss_mult, inlier_quantile=inlier_quantile,
         )
-    pointwise = cloud.eigvals[..., 0]
-    if normalization:
-        total = torch.clamp(cloud.eigvals.sum(-1), min=1e-6)
-        pointwise = pointwise / total
-    return _consistency_loss(pointwise, cloud, mask, offset, sqrt, reduction,
-                             inlier_max_loss, inlier_ratio, inlier_loss_mult,
-                             only_finite, skip_nans)
+    return _consistency_loss(pointwise_loss(cloud, False, normalization), cloud, mask, offset,
+                             sqrt, reduction, inlier_max_loss, inlier_ratio, inlier_loss_mult,
+                             only_finite, skip_nans, inlier_quantile)
 
 
 def trace_loss(cloud, mask=None, offset=None, sqrt: bool = False,
                reduction: str = "mean", inlier_max_loss=None,
                inlier_ratio: float = 1.0, inlier_loss_mult: float = 1.0,
-               only_finite: bool = False, skip_nans: bool = False, **_unused):
-    """Covariance-trace map-consistency loss (reference: loss.py:297-370):
-    the ``trace`` field where the input has one, else the trace of ``cov``
-    (:class:`segmentation.Planes`; JAX package, loss.py:183-188)."""
+               only_finite: bool = False, skip_nans: bool = False,
+               inlier_quantile=masked_quantile, **_unused):
+    """Covariance-trace map-consistency loss (reference: loss.py:297-370)
+    over :func:`pointwise_loss`'s trace."""
     if isinstance(cloud, (list, tuple)):
         return batch_loss(
             trace_loss, cloud, masks=mask, offsets=offset,
             reduction=reduction, only_finite=only_finite, skip_nans=skip_nans,
             sqrt=sqrt, inlier_max_loss=inlier_max_loss,
             inlier_ratio=inlier_ratio, inlier_loss_mult=inlier_loss_mult,
+            inlier_quantile=inlier_quantile,
         )
-    trace = getattr(cloud, "trace", None)
-    if trace is not None:
-        pointwise = trace
-    else:
-        cov = cloud.cov
-        pointwise = cov[..., 0, 0] + cov[..., 1, 1] + cov[..., 2, 2]
-    return _consistency_loss(pointwise, cloud, mask, offset, sqrt, reduction,
+    return _consistency_loss(pointwise_loss(cloud, True), cloud, mask, offset, sqrt, reduction,
                              inlier_max_loss, inlier_ratio, inlier_loss_mult,
-                             only_finite, skip_nans)
+                             only_finite, skip_nans, inlier_quantile)
 
 
-def batch_loss(loss_fun, clouds: Sequence, masks=None, offsets=None,
-               reduction: str = "mean", only_finite: bool = False,
-               skip_nans: bool = False, **kwargs):
-    """Joint loss of several clouds (one per sequence): pointwise losses
-    are pooled and reduced once, so every point weighs equally across
-    sequences (reference: loss.py:181-213)."""
+def batch_sums(loss_fun, clouds: Sequence, masks=None, offsets=None,
+               only_finite: bool = False, skip_nans: bool = False, **kwargs):
+    """(sum, count, loss clouds) of the pooled pointwise losses of several
+    clouds: :func:`batch_loss` before its reduction (a sharded loss
+    all-reduces the pair)."""
     if masks is None:
         masks = [None] * len(clouds)
     if offsets is None:
@@ -157,6 +169,17 @@ def batch_loss(loss_fun, clouds: Sequence, masks=None, offsets=None,
         total = total + masked_sum(pointwise, eff)
         count = count + (eff.sum() if eff is not None else pointwise.numel())
         loss_clouds.append(lc)
+    return total, count, loss_clouds
+
+
+def batch_loss(loss_fun, clouds: Sequence, masks=None, offsets=None,
+               reduction: str = "mean", only_finite: bool = False,
+               skip_nans: bool = False, **kwargs):
+    """Joint loss of several clouds (one per sequence): pointwise losses
+    are pooled and reduced once, so every point weighs equally across
+    sequences (reference: loss.py:181-213)."""
+    total, count, loss_clouds = batch_sums(loss_fun, clouds, masks, offsets, only_finite,
+                                           skip_nans, **kwargs)
     if reduction == "mean":
         value = total / torch.clamp(torch.as_tensor(count), min=1)
     elif reduction == "sum":

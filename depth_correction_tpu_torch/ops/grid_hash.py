@@ -29,8 +29,8 @@ same tables:
   slots, so that every 128-query tile of the slab engine lies in one
   column.
 
-The sharded search (``grid_radius_neighbors_sharded``) waits for the
-multi-GPU port.
+:func:`grid_radius_neighbors_sharded` splits the queries over the ranks of
+a process group: each rank builds the whole grid and queries its slice.
 """
 from __future__ import annotations
 
@@ -52,6 +52,7 @@ __all__ = [
     "grid_query",
     "grid_query_v1",
     "grid_radius_neighbors",
+    "grid_radius_neighbors_sharded",
     "grid_sort_colpad_traced",
     "grid_sort_traced",
 ]
@@ -564,6 +565,28 @@ def grid_radius_neighbors(points, query=None, r: float = 1.0, k: int = 32,
     grid, width = _build_grid(points, valid_points, r, cell_size, bucket_cap,
                               static_shapes=static_shapes)
     return _run_chunks(grid, width, points, query, valid_query, r, k)
+
+
+def grid_radius_neighbors_sharded(points, query=None, r: float = 1.0, k: int = 32,
+                                  valid_points=None, valid_query=None, mesh=None,
+                                  bucket_cap: Optional[int] = None,
+                                  cell_size: Optional[float] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`grid_radius_neighbors` with the queries split over the ranks
+    of ``mesh`` (a ``parallel.DataMesh``; JAX package, grid_hash.py:
+    502-575): every rank builds the whole grid (O(N) positions and ids),
+    queries its slice (kernel X2 on the card), and the (Q, k) tables are
+    all-gathered in query order, bit for bit those of the single search."""
+    from ..parallel.collectives import gather_query_slices, query_slice
+
+    grid, width = _build_grid(points, valid_points, r, cell_size, bucket_cap)
+    q = points if query is None else query
+    nq = q.shape[0]
+    lo, hi, per = query_slice(nq, mesh)
+    vq = (torch.ones(nq, dtype=torch.bool, device=q.device)
+          if valid_query is None else valid_query)[lo:hi]
+    d, idx = _run_chunks(grid, width, points, q[lo:hi], vq, r, k)
+    return gather_query_slices((d, idx), nq, per, mesh, (float("inf"), -1))
 
 
 def grid_neighbor_counts(points, query=None, r: float = 1.0, valid_points=None,

@@ -31,8 +31,8 @@ import torch
 
 from . import _kernels
 
-__all__ = ["knn_brute_v1", "knn_d2", "nearest_neighbors", "neighbor_counts",
-           "radius_neighbors", "suggest_k_max"]
+__all__ = ["knn_brute_v1", "knn_d2", "nearest_neighbors", "nearest_neighbors_sharded",
+           "neighbor_counts", "radius_neighbors", "suggest_k_max"]
 
 _TILE = 2048  # points per tile of the plain running top-k
 _QUERY_CHUNK = 8192  # queries per chunk of the plain loops
@@ -199,6 +199,25 @@ def nearest_neighbors(points, query=None, k: int = 1, r: Optional[float] = None,
     """
     d2, idx = knn_d2(points, query, k, r, valid_points, valid_query, plain)
     return _finish_knn(d2, idx, r, valid_query)
+
+
+def nearest_neighbors_sharded(points, query=None, k: int = 1, r: Optional[float] = None,
+                              valid_points=None, valid_query=None, mesh=None
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`nearest_neighbors` with the queries split over the ranks of
+    ``mesh`` (a ``parallel.DataMesh``; JAX package, knn.py:177-240): each
+    rank searches its slice against the whole point table (kernel X3 on
+    the card) and the (Q, k) tables are all-gathered in query order, bit
+    for bit those of the single search (a query's k nearest do not depend
+    on the other queries)."""
+    from ..parallel.collectives import gather_query_slices, query_slice
+
+    q = points if query is None else query
+    nq = q.shape[0]
+    lo, hi, per = query_slice(nq, mesh)
+    vq = None if valid_query is None else valid_query[lo:hi]
+    d, idx = nearest_neighbors(points, q[lo:hi], k, r, valid_points, vq)
+    return gather_query_slices((d, idx), nq, per, mesh, (float("inf"), -1))
 
 
 def radius_neighbors(points, query=None, r: float = 1.0, k: int = 32,

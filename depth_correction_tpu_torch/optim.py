@@ -1,6 +1,11 @@
-"""L-BFGS as the JAX package trains with it (counterpart of
-``depth_correction_tpu/train.py:896-912``, which chains optax 0.2.6's
+"""L-BFGS and Adam as the JAX package trains with them (counterpart of
+``depth_correction_tpu/train.py:891-912``, which chains optax 0.2.6's
 transforms).
+
+:class:`Adam` is optax's ``adam`` with the two options ``torch.optim.Adam``
+lacks: ``eps_root`` (under the square root of the second moment) and
+``nesterov`` (optax's Nesterov form; ``torch.optim.NAdam`` decays its
+momentum on a schedule of its own and is another algorithm).
 
 :class:`LBFGS` carries its own copy of optax's algorithm:
 
@@ -33,7 +38,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-__all__ = ["LBFGS"]
+__all__ = ["Adam", "LBFGS"]
 
 
 def _vdot(xs, ys) -> torch.Tensor:
@@ -199,6 +204,52 @@ class _ZoomLinesearch:
                 if s["safe_stepsize"] > 0.0 or np.isinf(s["decrease_error"]):
                     s["stepsize"], s["value"] = s["safe_stepsize"], s["safe_value"]
         return s["stepsize"]
+
+
+class Adam(torch.optim.Optimizer):
+    """optax 0.2.6's ``adam(lr, b1, b2, eps, eps_root, nesterov=...)``
+    (``scale_by_adam`` then ``scale_by_learning_rate``), as a torch
+    optimizer over parameter groups. At step t, with g the gradient::
+
+        mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
+        mu_hat = mu / (1 - b1^t), or with nesterov
+                 b1 mu / (1 - b1^(t+1)) + (1 - b1) g / (1 - b1^t)
+        p -= lr * mu_hat / (sqrt(nu / (1 - b2^t) + eps_root) + eps)
+
+    A parameter without a gradient is skipped, as ``torch.optim.Adam``
+    skips it.
+    """
+
+    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999), eps: float = 1e-8,
+                 eps_root: float = 0.0, nesterov: bool = False):
+        super().__init__(params, {"lr": float(lr), "betas": tuple(float(b) for b in betas),
+                                  "eps": float(eps), "eps_root": float(eps_root),
+                                  "nesterov": bool(nesterov)})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                st = self.state[p]
+                if not st:
+                    st["count"] = 0
+                    st["mu"] = torch.zeros_like(p)
+                    st["nu"] = torch.zeros_like(p)
+                st["mu"] = (1.0 - b1) * g + b1 * st["mu"]
+                st["nu"] = (1.0 - b2) * (g * g) + b2 * st["nu"]
+                t = st["count"] = st["count"] + 1
+                if group["nesterov"]:
+                    mu_hat = (b1 * (st["mu"] / (1.0 - b1 ** (t + 1)))
+                              + (1.0 - b1) * (g / (1.0 - b1 ** t)))
+                else:
+                    mu_hat = st["mu"] / (1.0 - b1 ** t)
+                nu_hat = st["nu"] / (1.0 - b2 ** t)
+                update = mu_hat / (torch.sqrt(nu_hat + group["eps_root"]) + group["eps"])
+                p.add_((-group["lr"]) * update)
 
 
 class LBFGS:

@@ -362,7 +362,8 @@ def symmetrize_neighbors(neighbors: torch.Tensor, chunk: int = 4096) -> torch.Te
     return torch.cat(out)
 
 
-def establish_neighborhoods(gcloud: Cloud, cfg: Config, k_max: Optional[int] = None):
+def establish_neighborhoods(gcloud: Cloud, cfg: Config, k_max: Optional[int] = None,
+                            mesh=None):
     """Frozen neighborhoods of the global cloud (reference:
     preproc.py:168-191, ball type; JAX package, preproc.py:513-568 on one
     device), computed once per training run and routed as the module
@@ -375,6 +376,13 @@ def establish_neighborhoods(gcloud: Cloud, cfg: Config, k_max: Optional[int] = N
     clustered at ``eps = 2 sqrt(3) grid_res``, seeded by ``random_seed``,
     its integer draws 64 bits wide for a float64 cloud and 32 otherwise),
     oriented toward the viewpoints.
+
+    With ``mesh`` (a ``parallel.DataMesh``; JAX package, preproc.py:
+    533-560) the device searches split the queries over the ranks and
+    gather the tables back: kNN through ``knn.nearest_neighbors_sharded``,
+    radius graphs through ``grid_hash.grid_radius_neighbors_sharded``
+    whatever the cloud's size; the host searches and the planes run whole
+    on every rank.
 
     :return: (neighbors (M, K) int32 or, from a host KD-tree, int64;
         weights (M, K) float), or for planes (:class:`segmentation.Planes`,
@@ -393,13 +401,26 @@ def establish_neighborhoods(gcloud: Cloud, cfg: Config, k_max: Optional[int] = N
     if cfg.nn_backend in ("scipy", "native"):
         idx, _ = _host_neighbors(points, gcloud.valid, cfg, k_max=k_max)
     elif cfg.nn_k:
-        _, idx = nearest_neighbors(points, points, k=int(cfg.nn_k), r=cfg.nn_r or None,
-                                   valid_points=gcloud.valid, valid_query=gcloud.valid)
+        kw = dict(k=int(cfg.nn_k), r=cfg.nn_r or None, valid_points=gcloud.valid,
+                  valid_query=gcloud.valid)
+        if mesh is not None:
+            from .ops.knn import nearest_neighbors_sharded
+
+            _, idx = nearest_neighbors_sharded(points, points, mesh=mesh, **kw)
+        else:
+            _, idx = nearest_neighbors(points, points, **kw)
     else:
         k = k_max or cfg.nn_max_neighbors or suggest_k_max(points, r=cfg.nn_r,
                                                            valid_points=gcloud.valid)
-        _, idx = _device_radius_neighbors(points, cfg.nn_r, k, gcloud.valid,
-                                          backend=cfg.nn_backend)
+        if mesh is not None:
+            from .ops.grid_hash import grid_radius_neighbors_sharded
+
+            _, idx = grid_radius_neighbors_sharded(points, r=cfg.nn_r, k=int(k),
+                                                   valid_points=gcloud.valid,
+                                                   valid_query=gcloud.valid, mesh=mesh)
+        else:
+            _, idx = _device_radius_neighbors(points, cfg.nn_r, k, gcloud.valid,
+                                              backend=cfg.nn_backend)
     if capped and cfg.nn_symmetrize:
         idx = symmetrize_neighbors(idx)
     return idx, (idx >= 0).to(points.dtype)

@@ -241,12 +241,15 @@ def eval_slam(cfg: Config, test_datasets: Optional[Sequence] = None,
     reference: eval.py:214-263; JAX package, slam_eval.py:242-345) on
     ``cfg.torch_device()``: scans replayed with noisy odometry, ICP over
     (corrected) clouds, errors against ground truth, the reference-schema
-    CSVs appended; the clouds are :func:`slam_clouds`'.
+    CSVs appended; the clouds are :func:`slam_clouds`'. Under
+    ``mesh_shape`` or ``dist_coordinator`` every rank computes it whole and
+    rank 0 alone writes the CSVs.
 
     :return: dict name -> (mean_r_angle, mean_t_norm, mean_rel_angle,
         mean_rel_offset).
     """
     from .datasets import create_dataset
+    from .parallel.sharding import writes_for
     from .train import _pose_path
 
     if not test_datasets:
@@ -254,6 +257,7 @@ def eval_slam(cfg: Config, test_datasets: Optional[Sequence] = None,
                                                                       cfg.test_names or []))
                          for i, n in enumerate(cfg.test_names or [])]
     model = load_model(cfg=cfg) if apply_correction else None
+    writes = writes_for(cfg)
 
     results = {}
     for ds in test_datasets:
@@ -273,9 +277,9 @@ def eval_slam(cfg: Config, test_datasets: Optional[Sequence] = None,
                                      torch.as_tensor(est, dtype=torch.float64))
         stats = tuple(float(e.mean()) for e in errors)
         results[name] = stats
-        if cfg.slam_eval_csv:
+        if writes and cfg.slam_eval_csv:
             append(cfg.slam_eval_csv, "%s %.9f %.9f %.9f %.9f\n" % ((name,) + stats))
-        if cfg.slam_poses_csv:
+        if writes and cfg.slam_poses_csv:
             # The robot_data schema (poseId, timestamp, T00..T33;
             # scripts/robot_data:196-204), so the file reads back through
             # read_poses (the PoseProvider axis).

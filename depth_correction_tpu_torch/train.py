@@ -23,8 +23,11 @@ prep cache (``prep_cache_dir``) and the JAX package's outputs
 neighbourhoods (``nn_type = 'plane'``) train on the RANSAC planes of the
 global cloud (``segmentation.py``): the model corrects each member point
 with its plane's normal for the incidence angle, and the loss takes each
-plane's eigenvalues. A device mesh raises NotImplementedError naming the
-option (:func:`check_slice`).
+plane's eigenvalues. With ``mesh_shape`` or ``dist_coordinator`` the step
+runs over a ``torch.distributed`` group, one process a rank, each rank
+holding 1/D of every per-point table (``parallel/``); rank 0 writes the
+run's files. With ``profile_dir`` the loop writes a ``torch.profiler``
+trace of iterations 2 to 6.
 
 The JAX package's bucketed and pair transposes of the offset and
 ``nn_scale`` gathers are TPU workarounds (scatters serialise there); the
@@ -33,6 +36,7 @@ port's gathers take torch autograd's ``index_add`` backward.
 from __future__ import annotations
 
 import dataclasses
+import io
 import os
 import sys
 import time
@@ -42,10 +46,10 @@ import numpy as np
 import torch
 
 from .config import Config, NeighborhoodType, PoseCorrection
-from .loss import create_loss
+from .loss import create_loss, pointwise_loss
 from .models import load_model, model_state, save_state_file
 from .ops.filters import global_cloud_mask
-from .optim import LBFGS
+from .optim import LBFGS, Adam
 from .preproc import (
     SequenceBatch,
     compute_neighborhood_features,
@@ -74,15 +78,9 @@ __all__ = [
 
 
 def check_slice(cfg: Config) -> None:
-    """Raise NotImplementedError for any option outside the ported slice."""
-    unsupported = [
-        ("mesh_shape", bool(cfg.mesh_shape or cfg.dist_coordinator)),
-        ("optimizer=%s" % cfg.optimizer,
-         cfg.optimizer.lower() not in ("adam", "sgd", "lbfgs")),
-    ]
-    for name, hit in unsupported:
-        if hit:
-            raise NotImplementedError("%s is not ported yet" % name)
+    """Raise NotImplementedError for an optimizer the port does not have."""
+    if cfg.optimizer.lower() not in ("adam", "sgd", "lbfgs"):
+        raise NotImplementedError("optimizer=%s is not ported" % cfg.optimizer)
 
 
 class TrainCallbacks:
@@ -187,6 +185,9 @@ class TrainData:
     # scan i+1 (S-1, N) and their inlier weights (S-1, N) bool.
     icp_idx: tuple = ()
     icp_w: tuple = ()
+    # The rank's data mesh (parallel.sharding.DataMesh) once
+    # parallel.shard_train_data has split the tables; None on one device.
+    mesh: object = None
 
     def to(self, device=None, dtype=None) -> "TrainData":
         """Move to ``device`` and cast the floating point clouds and
@@ -223,6 +224,7 @@ class TrainData:
             off_weights=tuple(mv(x) for x in self.off_weights),
             icp_idx=tuple(mv(x) for x in self.icp_idx),
             icp_w=tuple(mv(x) for x in self.icp_w),
+            mesh=self.mesh,
         )
 
 
@@ -296,7 +298,7 @@ _RECORD_FIELDS = ("batches", "neighbors", "weights", "masks", "query_rows", "cel
                   "icp_w")
 
 
-def prepare_sequences(datasets, cfg: Config, for_grad: bool = True) -> TrainData:
+def prepare_sequences(datasets, cfg: Config, for_grad: bool = True, mesh=None) -> TrainData:
     """Build per-sequence batches, frozen neighborhoods, masks and the
     cell-window graphs (reference: train.py:90-216 without the hot loop;
     JAX package, train.py:132-597).
@@ -311,6 +313,13 @@ def prepare_sequences(datasets, cfg: Config, for_grad: bool = True) -> TrainData
     ``cfg.prep_cache_dir`` each sequence is looked up in, or written to,
     the prep cache (``utils/prep_cache.py``). The seconds of each prep part
     are printed to stderr and kept in ``TrainData.prep_seconds``.
+
+    :param mesh: a ``parallel.DataMesh``: the global establishment then
+        queries each rank's slice of the rows and gathers the tables
+        (``preproc.establish_neighborhoods(mesh=)``), so every rank holds
+        the same whole tables and the same cell-window graph, built on the
+        host; ``parallel.shard_train_data`` splits them afterwards. The
+        prep cache keys the mesh flag.
     """
     check_slice(cfg)
     device = cfg.torch_device()
@@ -329,7 +338,7 @@ def prepare_sequences(datasets, cfg: Config, for_grad: bool = True) -> TrainData
         if cache_dir:
             from .utils.prep_cache import load_record, sequence_fingerprint
 
-            fp = sequence_fingerprint(scans, cfg, for_grad)
+            fp = sequence_fingerprint(scans, cfg, for_grad, mesh=mesh is not None)
             rec = load_record(cache_dir, fp, device)
             if rec is not None:
                 print("[prep] sequence reloaded from prep cache (%s)" % fp, file=sys.stderr)
@@ -337,7 +346,7 @@ def prepare_sequences(datasets, cfg: Config, for_grad: bool = True) -> TrainData
                     out[f].append(rec[f])
                 t = _tick(seconds, "cache_load", t, device)
                 continue
-        rec = _prepare_sequence(scans, cfg, use_cellwin, icp_mode, seconds, t, device)
+        rec = _prepare_sequence(scans, cfg, use_cellwin, icp_mode, seconds, t, device, mesh)
         del scans
         if fp is not None:
             from .utils.prep_cache import save_record
@@ -353,7 +362,7 @@ def prepare_sequences(datasets, cfg: Config, for_grad: bool = True) -> TrainData
 
 
 def _prepare_sequence(scans, cfg: Config, use_cellwin: bool, icp_mode: bool, seconds: dict,
-                      t: float, device) -> dict:
+                      t: float, device, mesh=None) -> dict:
     """One sequence's record of :data:`_RECORD_FIELDS` (the body of
     :func:`prepare_sequences`)."""
     from .ops import cellwin as cwin
@@ -407,7 +416,7 @@ def _prepare_sequence(scans, cfg: Config, use_cellwin: bool, icp_mode: bool, sec
     if plane_mode:
         # The planes stand in for the neighbours, their valid flags for the
         # rows' mask (JAX package, train.py:298-310).
-        planes, _ = establish_neighborhoods(gcloud, cfg)
+        planes, _ = establish_neighborhoods(gcloud, cfg, mesh=mesh)
         rec.update(neighbors=planes, masks=planes.valid)
         _tick(seconds, "planes", t, device)
         return rec
@@ -418,7 +427,7 @@ def _prepare_sequence(scans, cfg: Config, use_cellwin: bool, icp_mode: bool, sec
         est_cfg = cfg.copy()
         est_cfg.nn_max_neighbors = None
         est_cfg.nn_symmetrize = False
-    nn, w = establish_neighborhoods(gcloud, est_cfg)
+    nn, w = establish_neighborhoods(gcloud, est_cfg, mesh=mesh)
     t = _tick(seconds, "global_neighbors", t, device)
     feat = compute_neighborhood_features(gcloud, nn, w, cfg)
     gmask = global_cloud_mask(feat, nn, w, cfg, mask=feat.mask)
@@ -519,6 +528,7 @@ def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
 
     loss_fun = loss_fun or create_loss(cfg)
     normalization = bool((cfg.loss_kwargs or {}).get("normalization"))
+    trace = cfg.loss == "trace_loss"
 
     def local_offset(model, batch, onn, ow):
         """The local clouds' pointwise loss under the current model (JAX
@@ -529,12 +539,8 @@ def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
 
         f = neighborhood_features(offset_cloud(batch, model).get_points(), onn, ow,
                                   compute_normals=False, plain=plain)
-        if cfg.loss == "trace_loss":
-            return f["trace"]
-        off = f["eigvals"][..., 0]
-        if normalization:
-            off = off / torch.clamp(f["eigvals"].sum(-1), min=1e-6)
-        return off
+        return pointwise_loss(FeatureRows(eigvals=f["eigvals"], trace=f["trace"]), trace,
+                              normalization)
 
     def loss_fn(model, data: TrainData, pose_deltas=None):
         from .ops.cellwin import cellwin_features
@@ -581,7 +587,9 @@ def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
 def make_optimizer(cfg: Config, params):
     """Adam, SGD or L-BFGS per config (reference: train.py:140-156; JAX
     package, train.py:869-915): ``optax.adam(lr)`` with betas (0.9, 0.999)
-    and eps 1e-8 becomes ``torch.optim.Adam`` with the same values;
+    and eps 1e-8 becomes ``torch.optim.Adam`` with the same values, and
+    with a non-zero ``eps_root`` or ``nesterov`` the port's
+    :class:`optim.Adam` (optax's update; ``mu_dtype`` raises);
     ``optax.sgd(lr, momentum, nesterov)`` becomes ``torch.optim.SGD``, whose
     momentum buffer starts at the first gradient as optax's trace does;
     ``lbfgs`` becomes :class:`optim.LBFGS` (``optimizer_kwargs``
@@ -607,8 +615,15 @@ def make_optimizer(cfg: Config, params):
         make = torch.optim.Adam
         opts = {"betas": tuple(kwargs.pop("betas", (0.9, 0.999))),
                 "eps": float(kwargs.pop("eps", 1e-8))}
+        extra = {"eps_root": float(kwargs.pop("eps_root", 0.0)),
+                 "nesterov": bool(kwargs.pop("nesterov", False))}
+        if extra["eps_root"] or extra["nesterov"]:
+            make = Adam
+            opts.update(extra)
     if kwargs:
-        raise NotImplementedError("optimizer_kwargs %s are not ported yet" % sorted(kwargs))
+        # mu_dtype (Adam) and accumulator_dtype (SGD): the port keeps every
+        # optimizer state in its parameter's dtype.
+        raise NotImplementedError("optimizer_kwargs %s are not ported" % sorted(kwargs))
     return make(params, lr=lr, **opts)
 
 
@@ -623,10 +638,36 @@ def _opt_step(opt, value, loss_at):
         opt.step()
 
 
-def _grads_of(value, tensors):
-    """d value / d tensors, zeros for tensors it does not reach."""
+def _grads_of(value, tensors, mesh=None):
+    """d value / d tensors, zeros for tensors it does not reach; under a
+    mesh summed over the ranks (``value`` back-propagates the rank's
+    share)."""
     grads = torch.autograd.grad(value, tensors, allow_unused=True)
-    return [torch.zeros_like(t) if g is None else g for t, g in zip(tensors, grads)]
+    grads = [torch.zeros_like(t) if g is None else g for t, g in zip(tensors, grads)]
+    if mesh is not None:
+        from .parallel.collectives import all_reduce_grads
+
+        grads = all_reduce_grads(tensors, mesh, grads=grads)
+    return grads
+
+
+def _start_profile(device):
+    """A running ``torch.profiler`` session (CPU, and CUDA on a card)."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, profile_dir: str, first: int, last: int) -> str:
+    """Stop ``prof`` and write its Chrome trace into ``profile_dir``."""
+    prof.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, "trace_it%03d-%03d.json" % (first, last))
+    prof.export_chrome_trace(path)
+    return path
 
 
 def _checkpoint_dir(cfg: Config) -> Optional[str]:
@@ -634,15 +675,39 @@ def _checkpoint_dir(cfg: Config) -> Optional[str]:
             if cfg.checkpoint_period else None)
 
 
-def _load_checkpoint(ckpt_dir: str, device) -> Optional[dict]:
-    """The newest ``train_state/<it>`` file, or None."""
-    if not os.path.isdir(ckpt_dir):
+def _read_on_writer(path_of, mesh) -> Optional[bytes]:
+    """The bytes of the file ``path_of()`` names (None: no file), read on
+    the writer; under a mesh rank 0 reads it and broadcasts the bytes, so
+    every rank sees rank 0's file whether or not the ranks share a
+    ``log_dir``."""
+    from .parallel.sharding import is_writer
+
+    blob = None
+    if is_writer(mesh):
+        path = path_of()
+        if path is not None and os.path.exists(path):
+            with open(path, "rb") as f:
+                blob = f.read()
+    if mesh is not None:
+        from .parallel.collectives import broadcast_object
+
+        blob = broadcast_object(blob, mesh)
+    return blob
+
+
+def _load_checkpoint(ckpt_dir: str, device, mesh=None) -> Optional[dict]:
+    """The newest ``train_state/<it>`` file, or None; under a mesh rank
+    0's (:func:`_read_on_writer`)."""
+    def newest():
+        if not os.path.isdir(ckpt_dir):
+            return None
+        steps = sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
+        return os.path.join(ckpt_dir, str(steps[-1])) if steps else None
+
+    blob = _read_on_writer(newest, mesh)
+    if blob is None:
         return None
-    steps = sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
-    if not steps:
-        return None
-    return torch.load(os.path.join(ckpt_dir, str(steps[-1])), map_location=device,
-                      weights_only=True)
+    return torch.load(io.BytesIO(blob), map_location=device, weights_only=True)
 
 
 def _save_checkpoint(ckpt_dir: str, it: int, state: dict) -> None:
@@ -674,6 +739,15 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
     sync. The step's weights are cloned on the device before the update,
     with no sync.
 
+    Under a mesh (``train_data.mesh``, from ``parallel.shard_train_data``)
+    the loss is :func:`parallel.make_sharded_loss_fn`'s and the gradients
+    are all-reduced once a step, so every rank takes the same step; rank 0
+    alone prints, checkpoints and traces, and with ``resume`` every rank
+    restores rank 0's checkpoint, broadcast. With ``cfg.profile_dir`` a
+    ``torch.profiler`` trace of iterations 2 to ``min(6, n_opt_iters - 1)``
+    (the JAX package's window, train.py:1193-1217) is written there as
+    ``trace_it002-006.json``.
+
     With ``cfg.checkpoint_period`` every ``checkpoint_period``-th step and
     the last save the train state with ``torch.save`` into
     ``log_dir/train_state/<it>`` (JAX package, train.py:1139-1180,
@@ -698,12 +772,24 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
         (iteration, train loss, val loss, step_ms); without ``val_data``
         the val loss is the train loss.
     """
+    from .parallel.sharding import is_writer
+
     check_slice(cfg)
     callbacks = callbacks or TrainCallbacks(cfg)
     device = cfg.torch_device()
     mode = cfg.pose_correction
+    mesh = train_data.mesh
+    writes = is_writer(mesh)
     model = load_model(cfg=cfg)
-    loss_fn = make_loss_fn(cfg)
+    if mesh is None:
+        loss_fn = make_loss_fn(cfg)
+    else:
+        from .parallel import make_sharded_loss_fn, shard_train_data
+        from .parallel.collectives import all_reduce_grads
+
+        loss_fn = make_sharded_loss_fn(cfg, mesh)
+        if val_data is not None:
+            val_data = shard_train_data(val_data, mesh)
     params = [p for p in model.parameters() if p.requires_grad]
     if pose_deltas is None:
         pose_deltas = init_pose_deltas(train_data, cfg)
@@ -718,7 +804,7 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
     history = []
     it0 = 0
     ckpt_dir = _checkpoint_dir(cfg)
-    restored = _load_checkpoint(ckpt_dir, device) if ckpt_dir and cfg.resume else None
+    restored = _load_checkpoint(ckpt_dir, device, mesh) if ckpt_dir and cfg.resume else None
     if restored is not None:
         with torch.no_grad():
             for t, v in zip(trained, restored["tensors"]):
@@ -732,23 +818,29 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
         best["train"], best["val"] = restored["min_train_loss"], restored["min_val_loss"]
         best["resumed"] = it0
         history = [tuple(r) for r in restored["history"]]
-        print("Resumed train state at iteration %d." % it0)
+        if writes:
+            print("Resumed train state at iteration %d." % it0)
 
     def train_loss_at():
         value = loss_fn(model, train_data, pose_deltas)
-        return value.detach(), _grads_of(value, trained)
+        return value.detach(), _grads_of(value, trained, mesh)
 
     def val_loss_at():
         value = loss_fn(model, val_data, val_deltas)
-        return value.detach(), _grads_of(value, list(val_deltas))
+        return value.detach(), _grads_of(value, list(val_deltas), mesh)
 
+    prof = None
     callbacks.train_inputs(it0, train_data)
     for it in range(it0, cfg.n_opt_iters):
         callbacks.iteration_started(it)
+        if cfg.profile_dir and it == 2 and writes:
+            prof = _start_profile(device)
         t0 = time.perf_counter()
         opt.zero_grad(set_to_none=True)
         loss = loss_fn(model, train_data, pose_deltas)
         loss.backward()
+        if mesh is not None:
+            all_reduce_grads(trained, mesh)
         if not cfg.optimize_model:
             # The JAX package masks the model's gradients to zero
             # (train.py:932-933): the optimizers then leave it where it is.
@@ -762,7 +854,7 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
             val = loss_fn(model, val_data, val_deltas)
             # Gradients of the validation deltas alone: the model's stay
             # the training loss's.
-            for d, g in zip(val_deltas, _grads_of(val, list(val_deltas))):
+            for d, g in zip(val_deltas, _grads_of(val, list(val_deltas), mesh)):
                 d.grad = g
             _mask_delta_grads(val_deltas, cfg)
             _opt_step(val_opt, val, val_loss_at)
@@ -784,11 +876,15 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
             torch.cuda.synchronize(device)
         row = (it, train_loss, val_loss, (time.perf_counter() - t0) * 1e3)
         history.append(row)
+        if prof is not None and it >= min(6, cfg.n_opt_iters - 1):
+            _stop_profile(prof, cfg.profile_dir, 2, it)
+            prof = None
         saved = bool(on_step(it, model, row, state)) if on_step is not None else False
-        if cfg.log_filters or it % max(cfg.plot_period, 1) == 0:
+        if writes and (cfg.log_filters or it % max(cfg.plot_period, 1) == 0):
             print("It. %03i: train loss: %.9f, val.: %.9f.%s"
                   % (it, train_loss, val_loss, " saved" if saved else ""))
-        if ckpt_dir and ((it + 1) % cfg.checkpoint_period == 0 or it == cfg.n_opt_iters - 1):
+        if writes and ckpt_dir and ((it + 1) % cfg.checkpoint_period == 0
+                                    or it == cfg.n_opt_iters - 1):
             _save_checkpoint(ckpt_dir, it, {
                 "tensors": [t.detach().clone() for t in trained],
                 "opt": opt.state_dict(),
@@ -871,12 +967,30 @@ def train(cfg: Config, callbacks: Optional[TrainCallbacks] = None,
     :param train_data: already prepared data (skips dataset creation and
         prep of the training sequences).
     :return: the best config, or None if no step improved.
+
+    With ``cfg.mesh_shape`` or ``cfg.dist_coordinator`` every rank calls
+    ``train`` alike (JAX package, train.py:988-1064): the mesh comes from
+    ``parallel.mesh_from_config``, prep runs under it, the tables are
+    split over the ranks and :func:`fit` steps them together. Rank 0
+    alone writes ``train.yaml``, the state and delta files, ``best.yaml``,
+    the history, the summaries and the trace; with ``resume`` every rank
+    reads rank 0's checkpoint and ``best.yaml``, broadcast, so every rank
+    returns the same best config whether or not the ranks share a
+    ``log_dir``.
     """
     from .datasets import create_dataset
+    from .parallel.sharding import is_writer
 
     check_slice(cfg)
-    os.makedirs(cfg.log_dir, exist_ok=True)
-    cfg.to_yaml(os.path.join(cfg.log_dir, "train.yaml"))
+    mesh = None
+    if cfg.mesh_shape or cfg.dist_coordinator:
+        from .parallel import mesh_from_config
+
+        mesh = mesh_from_config(cfg)
+    writes = is_writer(mesh)
+    if writes:
+        os.makedirs(cfg.log_dir, exist_ok=True)
+        cfg.to_yaml(os.path.join(cfg.log_dir, "train.yaml"))
     if train_data is None and not train_datasets:
         names = cfg.train_names or []
         train_datasets = [create_dataset(name, cfg,
@@ -890,15 +1004,27 @@ def train(cfg: Config, callbacks: Optional[TrainCallbacks] = None,
     if train_data is None:
         if not train_datasets:
             raise ValueError("No training data: set cfg.train_names or pass train_datasets.")
-        train_data = prepare_sequences(train_datasets, cfg)
+        train_data = prepare_sequences(train_datasets, cfg, mesh=mesh)
     # Validation takes gradients only where it trains its own deltas (JAX
     # package, train.py:1000-1008).
     val_grad = cfg.pose_correction in (PoseCorrection.sequence, PoseCorrection.pose)
-    val_data = (prepare_sequences(val_datasets, cfg, for_grad=val_grad)
+    val_data = (prepare_sequences(val_datasets, cfg, for_grad=val_grad, mesh=mesh)
                 if val_datasets else None)
+    if mesh is not None:
+        from .parallel import shard_train_data
 
-    writer = _summary_writer(cfg.log_dir)
+        train_data = shard_train_data(train_data, mesh)
+        val_data = shard_train_data(val_data, mesh) if val_data is not None else None
+
+    writer = _summary_writer(cfg.log_dir) if writes else None
     best = {"cfg": None, "train": np.inf, "val": np.inf}
+    # The best config names the files where rank 0 writes them, on every
+    # rank alike, whether or not the ranks share a log_dir.
+    files_dir = cfg.log_dir
+    if mesh is not None:
+        from .parallel.collectives import broadcast_object
+
+        files_dir = broadcast_object(cfg.log_dir, mesh)
 
     def on_step(it, model, row, state):
         _, train_loss, val_loss, _ = row
@@ -909,27 +1035,34 @@ def train(cfg: Config, callbacks: Optional[TrainCallbacks] = None,
         best["train"], best["val"] = train_loss, val_loss
         tag = "%03i_%.6g" % (it, val_loss)
         best_cfg = cfg.copy()
-        best_cfg.model_state_dict = save_state_file(
-            os.path.join(cfg.log_dir, "%s_state_dict.npz" % tag), state["model"])
+        # Every rank holds the same losses, so every rank's bookkeeping
+        # names the same files; rank 0 writes them.
+        best_cfg.model_state_dict = os.path.join(files_dir, "%s_state_dict.npz" % tag)
+        if writes:
+            save_state_file(best_cfg.model_state_dict, state["model"])
         if "pose_deltas" in state:
-            best_cfg.train_pose_deltas = save_pytree(
-                os.path.join(cfg.log_dir, "%s_pose_deltas.npz" % tag), state["pose_deltas"])
-        best_cfg.to_yaml(os.path.join(cfg.log_dir, "best.yaml"))
+            best_cfg.train_pose_deltas = os.path.join(files_dir, "%s_pose_deltas.npz" % tag)
+            if writes:
+                save_pytree(best_cfg.train_pose_deltas, state["pose_deltas"])
+        if writes:
+            best_cfg.to_yaml(os.path.join(cfg.log_dir, "best.yaml"))
         best["cfg"] = best_cfg
         return True
 
     _, history = fit(cfg, train_data, callbacks, val_data, on_step, best=best)
-    best_yaml = os.path.join(cfg.log_dir, "best.yaml")
-    if best["cfg"] is None and best.get("resumed") and os.path.exists(best_yaml):
+    if best["cfg"] is None and best.get("resumed"):
         # The best step came before the interruption (JAX package,
-        # train.py:1174-1180).
-        best["cfg"] = cfg.copy()
-        best["cfg"].from_yaml(best_yaml)
+        # train.py:1174-1180); under a mesh, rank 0's best.yaml.
+        text = _read_on_writer(lambda: os.path.join(cfg.log_dir, "best.yaml"), mesh)
+        if text is not None:
+            best["cfg"] = cfg.copy()
+            best["cfg"].from_yaml(text.decode())
     if writer is not None:
         writer.flush()
         writer.close()
-    with open(os.path.join(cfg.log_dir, "train_history.csv"), "w") as f:
-        f.write("iter train_loss val_loss step_ms\n")
-        for row in history:
-            f.write("%i %.9g %.9g %.6g\n" % row)
+    if writes:
+        with open(os.path.join(cfg.log_dir, "train_history.csv"), "w") as f:
+            f.write("iter train_loss val_loss step_ms\n")
+            for row in history:
+                f.write("%i %.9g %.9g %.6g\n" % row)
     return best["cfg"]

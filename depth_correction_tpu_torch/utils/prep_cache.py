@@ -73,10 +73,12 @@ def _hash_update_array(h, a) -> None:
     h.update(np.ascontiguousarray(a).tobytes())
 
 
-def sequence_fingerprint(scans, cfg, for_grad: bool) -> str:
+def sequence_fingerprint(scans, cfg, for_grad: bool, mesh: bool = False) -> str:
     """Content fingerprint of one sequence's prep inputs.
 
     :param scans: the ``(structured scan, 4x4 pose)`` pairs prep consumes.
+    :param mesh: prep runs under a data mesh (the JAX package keys the
+        flag, train.py:186: a mesh routes the establishment).
     """
     h = hashlib.sha256()
     h.update(b"dctpu-torch-prep-v%d" % CACHE_VERSION)
@@ -89,6 +91,8 @@ def sequence_fingerprint(scans, cfg, for_grad: bool) -> str:
         knobs["__icp_inlier_ratio"] = float((cfg.loss_kwargs or {}).get("icp_inlier_ratio", 0.5))
     knobs["__device_type"] = cfg.torch_device().type
     knobs["__for_grad"] = bool(for_grad)
+    if mesh:
+        knobs["__mesh"] = True
     h.update(repr(knobs).encode())
     return h.hexdigest()[:32]
 

@@ -138,16 +138,18 @@ def test_pose_deltas_files_cross_packages(tmp_path, mode):
 
 
 def test_unported_options_raise_naming_themselves(tmp_path):
-    """An option outside the port (mesh_shape, multi-GPU) raises
-    NotImplementedError naming itself, from train_and_eval and from
-    eval_loss_all, before writing anything (with icp_loss among
-    eval_losses and the default eval_slams, which are ported: SLAM
-    evaluation is held to the JAX package in tests/test_torch_slam.py)."""
+    """An option the run cannot take raises naming itself, from
+    train_and_eval and from eval_loss_all, before writing anything (with
+    icp_loss among eval_losses and the default eval_slams, which are
+    ported: SLAM evaluation is held to the JAX package in
+    tests/test_torch_slam.py). Multi-GPU is ported (tests/
+    test_torch_parallel.py), so mesh_shape without a process group raises
+    ValueError naming mesh_shape and the two ways to start one."""
     cfg = _cfg(TConfig, tmp_path / "port", eval_losses=["min_eigval_loss", "icp_loss"])
     cfg.eval_slams = ["icp_mapper"]
     cfg.mesh_shape = {"data": 2}
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        t_train_and_eval(cfg)
-    with pytest.raises(NotImplementedError, match="mesh_shape"):
-        teval.eval_loss_all(cfg)
+    for run in (t_train_and_eval, teval.eval_loss_all):
+        with pytest.raises(ValueError, match="mesh_shape") as err:
+            run(cfg)
+        assert "torchrun" in str(err.value) and "dist_coordinator" in str(err.value)
     assert not os.path.exists(cfg.log_dir)

@@ -2003,3 +2003,45 @@ def test_cuda_icp_align_matches_float64_plain(cuda_device):
     d = delta_transform(out[True], out[False])
     assert float(d[:3, 3].norm()) < 1e-4
     assert float(matrix_to_xyz_axis_angle(d)[3:].norm()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [4, 3])
+def test_cuda_sharded_cellwin_matches_single(cuda_device, size):
+    """The sharded step's per-rank launches, rehearsed in one process
+    (``parallel.cellwin_shard.rehearse``: K1 on each rank's row tiles with
+    the empty padding tiles, K2 on each rank's point tiles against the
+    joined 12-row blocks), equal the single launches bit for bit; and X2
+    on each rank's query slice equals the single search."""
+    from types import SimpleNamespace
+
+    from depth_correction_tpu_torch.ops.grid_hash import grid_radius_neighbors
+    from depth_correction_tpu_torch.parallel.collectives import query_slice
+    from depth_correction_tpu_torch.parallel.cellwin_shard import rehearse
+
+    pts, g = _slice_graph(3000, 0.4, 2, 64)  # 89 row tiles: padding at 3 and 4
+    dev = tcw.graph_to_device(g, cuda_device)
+    ps = torch.as_tensor(pts, dtype=torch.float32, device=cuda_device)[dev.perm].contiguous()
+    args = (dev.q_est, dev.est_sorted, dev.f_start, dev.f_len, dev.f_ctr, dev.r2)
+    raw = tcw.cellwin_fwd(ps, *args)
+    gen = torch.Generator().manual_seed(size)
+    gr = torch.randn((10, raw.shape[1]), generator=gen).to(cuda_device)
+    gr = torch.where((dev.row_map >= 0)[None], gr, torch.zeros_like(gr))
+    table = _cotangent_table(raw[0:3], raw[9], (gr[0:3], tuple(gr[3:9]))).contiguous()
+    grad = tcw.cellwin_bwd(ps, dev.q_est, dev.est_sorted, table, dev.b_start, dev.b_len,
+                           dev.b_ctr, dev.r2)
+    f0, b0 = tcw.FWD_LAUNCHES, tcw.BWD_LAUNCHES
+    raw_s, grad_s = rehearse(ps, dev, size, gr)
+    assert (tcw.FWD_LAUNCHES - f0, tcw.BWD_LAUNCHES - b0) == (size, size)
+    assert torch.equal(raw_s, raw) and torch.equal(grad_s, grad)
+
+    p, valid = ps, torch.ones(ps.shape[0], dtype=torch.bool, device=cuda_device)
+    valid[::13] = False
+    d1, i1 = grid_radius_neighbors(p, r=0.4, k=64, valid_points=valid, valid_query=valid)
+    parts = []
+    for rank in range(size):
+        lo, hi, _ = query_slice(p.shape[0], SimpleNamespace(rank=rank, size=size))
+        parts.append(grid_radius_neighbors(p, p[lo:hi], r=0.4, k=64, valid_points=valid,
+                                           valid_query=valid[lo:hi]))
+    assert torch.equal(torch.cat([x[0] for x in parts]), d1)
+    assert torch.equal(torch.cat([x[1] for x in parts]), i1)

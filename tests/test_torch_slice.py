@@ -193,12 +193,18 @@ def test_three_adam_steps_match_optax(prepared, jax_trajectory):
     "option,value,name",
     [
         ("mesh_shape", {"data": 2}, "mesh_shape"),
+        ("optimizer", "rmsprop", "optimizer"),
     ],
 )
 def test_options_outside_the_slice_raise(option, value, name):
+    """An option the run cannot take raises naming itself: an optimizer
+    the port does not have (NotImplementedError), and mesh_shape without a
+    process group to run it on (ValueError; multi-GPU is ported,
+    tests/test_torch_parallel.py)."""
     cfg = _cfg(TConfig)
     setattr(cfg, option, value)
-    with pytest.raises(NotImplementedError, match=name):
+    expected = ValueError if option == "mesh_shape" else NotImplementedError
+    with pytest.raises(expected, match=name):
         t_train(cfg)
 
 
@@ -253,6 +259,10 @@ def test_port_imports_no_jax():
             "depth_correction_tpu_torch.scripts.exp_grid_slab_ab, "
             "depth_correction_tpu_torch.scripts.exp_window_variants, "
             "depth_correction_tpu_torch.eval, depth_correction_tpu_torch.train_and_eval, "
+            "depth_correction_tpu_torch.parallel, depth_correction_tpu_torch.parallel.sharding, "
+            "depth_correction_tpu_torch.parallel.cellwin_shard, "
+            "depth_correction_tpu_torch.parallel.collectives, "
+            "depth_correction_tpu_torch.parallel.dryrun, "
             "depth_correction_tpu_torch.utils.checkpoint, depth_correction_tpu_torch.utils.io, "
             "depth_correction_tpu_torch.datasets.wrappers, "
             "depth_correction_tpu_torch.loss, depth_correction_tpu_torch.optim, "
