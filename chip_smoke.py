@@ -106,7 +106,7 @@ Phases (any failure raises and the exit code is non-zero):
    (slower or not); P7 at stage 2's shapes against its first version in
    turns.
 
-Every main path (phases 3-5, 7, 9-14, 16-17) runs with all launch counts zeroed
+Every main path (phases 3-5, 7, 9-14, 16-17, 19) runs with all launch counts zeroed
 before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
 9. capped  — the bench's capped row (bench.py:bench_config(uncapped=False):
    K = 32 with mutual trimming, the gather moments by torch autograd) on
@@ -242,6 +242,28 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    cloud): bit for bit the single launches. (c) with two cards or more,
    one NCCL rank a card (``chip_smoke.py --dist-rank``), within 1e-5 of
    phase 3; with one card it says so and claims no scaling.
+19. studies — depth_correction_tpu_torch/studies on the card. (a)
+   train_at_scale at its defaults (open_box 32_32_6 at density 300, about
+   843k global points, grid establishment, 3 warm-up and 10 timed Adam
+   steps), the scans loaded once and prepared for each engine
+   (DC_MOMENTS_BACKEND gather, K = 32; cellwin, uncapped), each with the
+   launch counts zeroed before its prep and read after its steps (X2 and
+   P7 in prep; K1 and K2 once a step on the cell-window engine, none on
+   the gather engine): global points, query rows, K, prep seconds by
+   part, scale_step_ms (median, spread), the f32 kernels' loss at w = 0
+   within 1e-5 of the float64 plain path on the same graph, w against the
+   injected -0.002, the peak device bytes, one profiled step; K1 and K2 on
+   the scale graph against their plain twins and first versions, timed
+   there. If the cell-window build declines at density 300 the run is the
+   gather path (the JAX package's fallback) and K1 / K2 run on the
+   largest neighbouring density whose build the builder accepts. (b)
+   bench_knn at 131,072, 524,288 and 1,048,576 points: X2 and X3 (r 0.25,
+   k 48), scipy's cKDTree, the mean and largest ball; at 131,072 X2's sets
+   equal X3's and scipy's but for radius ties. (c) every other study's
+   main() once on the card (iterations cut where a study takes them, the
+   joint-learning studies on a 10 x 10 x 5 m box; the KITTI-360 filter on
+   two of phase 3's scans written as a drive with one dynamic window):
+   its device, seconds and result line.
 
 Device-busy times (profile_calls) sum kernels, memcpys and memsets; user
 annotations (record_function spans such as Optimizer.step#Adam.step),
@@ -3816,6 +3838,277 @@ def dist_rank_main(rank: int, n: int, port: int, out_dir: str) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the studies on the card (depth_correction_tpu_torch/studies)
+
+SCALE_TIMED_STEPS = 10  # train_at_scale's default --steps
+W_INJECTED = -0.002  # the scale scene's injected bias weight
+# Neighbouring densities of the 32x32x6 box tried, largest first, when the
+# cell-window build declines at the study's density 300.
+SCALE_FALLBACK_DENSITIES = (250, 200, 150, 100)
+KNN_SIZES = (131072, 524288, 1048576)
+# The joint-learning studies' stand-in box in 19(c), smaller than their
+# default (20 x 20 x 5 m at density 100: ~25 s each, most of it making the
+# scene and its ground-truth map on the host).
+STUDY_SCENE = "open_box/n_4_size_10_10_5_height_1_density_50"
+
+
+def scale_run(card: str, scans, backend: str, density: float = 300.0) -> dict:
+    """19(a) for one moments engine: train_at_scale's prep and steps with
+    every launch count zeroed before the prep and read after the steps,
+    the f32 kernels' loss at w = 0 against the float64 plain path on the
+    same graph, one profiled step and the peak device bytes."""
+    import torch
+
+    from depth_correction_tpu_torch.models import ScaledPolynomial
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.ops import cellwin as cw
+    from depth_correction_tpu_torch.studies import train_at_scale as tas
+    from depth_correction_tpu_torch.train import make_loss_fn
+
+    cfg = tas.scale_config(density=density, backend=backend, device=DEVICE)
+    base_bytes = torch.cuda.memory_allocated()
+    reset_all_launch_counts()
+    data, prep_s = tas.prepare(cfg, scans)
+    c, eng = tas.counts(data), tas.engine(data)
+    tas.report_prep(c, eng, prep_s, dict(data.prep_seconds))
+    run = tas.run_steps(cfg, data, SCALE_TIMED_STEPS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    check_no_first_versions("train_at_scale (%s)" % backend)
+    launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES, "grid": _kernels.GRID_LAUNCHES,
+                "gather": _kernels.GATHER_LAUNCHES, "knn": _kernels.KNN_LAUNCHES}
+    tas.report_run(c, run, torch.device(DEVICE))
+    steps = tas.WARMUP_STEPS + SCALE_TIMED_STEPS
+    if launches["grid"] <= 0 or launches["gather"] <= 0:
+        raise RuntimeError("train_at_scale's prep did not launch X2 and P7: %s" % launches)
+    want = steps if eng["engine"] == "cellwin" else 0
+    if launches["fwd"] != want or launches["bwd"] != want:
+        raise RuntimeError("train_at_scale (%s, engine %s): K1 %d, K2 %d launches for %d steps"
+                           % (backend, eng["engine"], launches["fwd"], launches["bwd"], steps))
+    with torch.no_grad():
+        ref = ScaledPolynomial(w=[0.0], exponent=[4.0], dtype=torch.float64, device=DEVICE)
+        loss64 = float(make_loss_fn(cfg, plain=True)(ref, data.to(dtype=torch.float64)))
+    loss_rel = abs(run["losses"][0] - loss64) / abs(loss64)
+    w_rel = abs(run["w"] - W_INJECTED) / abs(W_INJECTED)
+    step_ms = statistics.median(run["step_ms"])
+    log("scale %s (engine %s): %d global points, %d query rows, K %d; scale_step_ms median "
+        "%.3f, spread %.3f-%.3f over %d steps; loss at w=0 %.9e vs float64 plain %.9e "
+        "(scale_loss_rel_err_w0 %.3e); w after %d steps %.6e (rel err to %g: %.3e); "
+        "launches K1 %d, K2 %d, X2 %d, P7 %d, X3 %d; peak device bytes %d (%d allocated "
+        "before the prep) (%s)"
+        % (backend, eng["engine"], c["global"], c["query"], c["k"], step_ms,
+           min(run["step_ms"]), max(run["step_ms"]), SCALE_TIMED_STEPS, run["losses"][0], loss64,
+           loss_rel, steps, run["w"], W_INJECTED, w_rel, launches["fwd"], launches["bwd"],
+           launches["grid"], launches["gather"], launches["knn"], peak, base_bytes, card))
+    if not loss_rel <= LOSS_REL_BAR:
+        raise RuntimeError("train_at_scale (%s): loss at w=0 misses the 1e-5 bar: %.3e"
+                           % (backend, loss_rel))
+    profile = profile_calls(adam_step_fn(cfg, data), card, "step", n=1)
+    return {"counts": c, "engine": eng, "prep_s": prep_s, "prep_seconds": dict(data.prep_seconds),
+            "step_ms": step_ms, "step_ms_all": run["step_ms"], "loss_rel": loss_rel,
+            "w": run["w"], "w_rel": w_rel, "launches": launches, "peak_bytes": peak,
+            "base_bytes": base_bytes, "profile": profile, "data": data, "cfg": cfg}
+
+
+def scale_kernels(card: str, run: dict) -> dict:
+    """K1 and K2 on the scale graph against their plain twins (float32 and
+    float64) and their first versions, timed there."""
+    import torch
+
+    from depth_correction_tpu_torch.scripts.exp_cellwin_knockout import points_at_w0
+
+    graph = run["data"].cellwin[0]
+    ps = points_at_w0(run["data"], graph, DEVICE)
+    with torch.no_grad():
+        k = compare_kernels(ps, graph, seed=19, label="scale", card=card)
+    members = int((run["data"].neighbors[0] >= 0).sum())
+    kept_f, kept_b = k["kept"]["fwd"], k["kept"]["bwd"]
+    k["fwd_bound"] = cellwin_fwd_bound(graph, kept_f[0], members, kept_f[2])
+    k["bwd_bound"] = cellwin_bwd_bound(graph, kept_b[0], members, kept_b[2])
+    log("scale graph: %d rows -> %d row tiles x %d, %d point tiles, %d exception rows, %d "
+        "member pairs; K1 bound %.4f ms (%s), K2 bound %.4f ms (%s) (%s)"
+        % (int((graph.row_map >= 0).sum()), graph.f_start.shape[0],
+           graph.q_est.shape[1] // graph.f_start.shape[0], graph.b_start.shape[0], graph.n_exc,
+           members, k["fwd_bound"][0], k["fwd_bound"][1], k["bwd_bound"][0], k["bwd_bound"][1],
+           card))
+    return k
+
+
+def scale_declined(card: str) -> dict:
+    """When the study's cell-window build declines: the largest
+    neighbouring density of the same box whose build the builder accepts,
+    its main path (K1, K2 once a step) and its K1 / K2 against their
+    plain twins."""
+    from depth_correction_tpu_torch.studies import train_at_scale as tas
+
+    for density in SCALE_FALLBACK_DENSITIES:
+        cfg = tas.scale_config(density=density, backend="cellwin", device=DEVICE)
+        scans = tas.load_scans(cfg)
+        run = scale_run(card, scans, "cellwin", density)
+        if run["engine"]["engine"] == "cellwin":
+            log("scale: the cell-window build accepts density %g (%d global points)"
+                % (density, run["counts"]["global"]))
+            run["density"] = density
+            run["kernels"] = scale_kernels(card, run)
+            return run
+    raise RuntimeError("the cell-window build declines at every density in %s"
+                       % (SCALE_FALLBACK_DENSITIES,))
+
+
+def phase_scale(card: str) -> dict:
+    """19(a): train_at_scale at its defaults (open_box 32_32_6 at density
+    300, 10 timed steps), the scans loaded once, on both engines."""
+    from depth_correction_tpu_torch.studies import train_at_scale as tas
+
+    t0 = time.perf_counter()
+    scans = tas.load_scans(tas.scale_config(device=DEVICE))
+    load_s = time.perf_counter() - t0
+    log("scale scene %s: %d scans, %d raw points, loaded in %.3f s"
+        % (tas.scale_config(device=DEVICE).train_names[0], len(scans),
+           sum(len(s) for s, _ in scans), load_s))
+    out = {"load_s": load_s}
+    for backend in ("gather", "cellwin"):
+        log("[19a] train_at_scale, DC_MOMENTS_BACKEND=%s" % backend)
+        out[backend] = scale_run(card, scans, backend)
+    del scans
+    cw_run = out["cellwin"]
+    if cw_run["engine"]["engine"] == "cellwin":
+        out["kernels"] = scale_kernels(card, cw_run)
+        out["kernels_graph"] = "density 300 (the study's default)"
+    else:
+        log("scale: the cell-window build declined at density 300 (%s; exception rows %s); "
+            "the run fell back to gather, as the JAX package does"
+            % (cw_run["engine"]["note"], cw_run["engine"]["exc_share"]))
+        alt = scale_declined(card)
+        out["declined"] = alt
+        out["kernels"] = alt["kernels"]
+        out["kernels_graph"] = "density %g" % alt["density"]
+        alt.pop("data")
+    for backend in ("gather", "cellwin"):
+        out[backend].pop("data")
+    return out
+
+
+def phase_bench_knn(card: str) -> dict:
+    """19(b): bench_knn at 131,072, 524,288 and 1,048,576 points: X2 and X3
+    (each launch counted), cKDTree; set equality at the smallest size."""
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.studies import bench_knn
+
+    reset_all_launch_counts()
+    rows = bench_knn.main(["--sizes", ",".join(str(n) for n in KNN_SIZES),
+                           "--device", DEVICE])
+    check_no_first_versions("bench_knn")
+    launches = {"grid": _kernels.GRID_LAUNCHES, "knn": _kernels.KNN_LAUNCHES}
+    for r in rows:
+        log("bench_knn N=%d: X2 %.3f ms, X3 %.3f ms, cKDTree %.1f ms, mean ball %.2f, largest %d%s "
+            "(%s)" % (r["n"], r["grid_ms"], r["scan_ms"], r["scipy_ms"], r["ball_mean"],
+                      r["ball_max"], "" if "sets_equal" not in r else
+                      "; X2 = X3 sets %s; against scipy: %d rows differ (radius ties only: %s)"
+                      % (r["sets_equal"], r["scipy"]["rows"], r["scipy"]["ties_only"]), card))
+    log("bench_knn launches: X2 %d, X3 %d" % (launches["grid"], launches["knn"]))
+    first = rows[0]
+    if first["n"] != KNN_SIZES[0] or not first.get("sets_equal"):
+        raise RuntimeError("bench_knn: X2's sets differ from X3's at %d points" % first["n"])
+    if not first["scipy"]["ties_only"]:
+        raise RuntimeError("bench_knn: X2 differs from scipy's balls beyond radius ties")
+    if launches["grid"] <= 0 or launches["knn"] <= 0:
+        raise RuntimeError("bench_knn did not launch X2 and X3: %s" % launches)
+    return {"rows": rows, "launches": launches}
+
+
+def write_kitti360_dynamic(root: str, seq) -> None:
+    """Two of ``seq``'s scans as a KITTI-360 drive (:func:`write_kitti360`)
+    and one dynamic-object window over them: 200 of the first scan's
+    points in the loader's map frame, so the filter drops some."""
+    import numpy as np
+    from numpy.lib.recfunctions import unstructured_to_structured as u2s
+
+    from depth_correction_tpu_torch.utils.ply import write_ply_points
+
+    _, poses = write_kitti360(root, seq[:2])  # the loader's poses: the first is the origin
+    scan = seq[0][0]
+    local = np.stack([scan["x"], scan["y"], scan["z"]], 1)[::max(len(scan) // 200, 1)][:200]
+    world = local @ poses[0][:3, :3].T + poses[0][:3, 3]
+    base = os.path.join(root, "data_3d_semantics", "train", KITTI360_DRIVE, "dynamic")
+    os.makedirs(base)
+    write_ply_points(os.path.join(base, "%010d_%010d.ply" % (0, 2)),
+                     u2s(world.astype(np.float32), names=["x", "y", "z"]))
+
+
+def phase_studies(card: str, seq) -> dict:
+    """19(c): every other study's main() once on the card, at its smallest
+    documented setting (iterations cut where a study takes them, the
+    joint-learning studies on :data:`STUDY_SCENE`): the device it ran on,
+    its seconds and its result line."""
+    import contextlib
+    import importlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+
+    from depth_correction_tpu_torch.datasets import kitti360
+
+    root = tempfile.mkdtemp(prefix="dc_studies_")
+    out = lambda name: os.path.join(root, name)  # noqa: E731
+    runs = [
+        ("weights_search", []),
+        ("bias_estimation", ["--out", out("bias")]),
+        ("paths_alignment", []),
+        ("map_bias_removal", ["--out", out("map")]),
+        ("depth_denoising", ["--out", out("denoise")]),
+        ("depth_denoising", ["--out", out("denoise_ext"), "--denoiser-command",
+                             "%s %s --input {input_npz} --output {output_npz}"
+                             % (sys.executable, os.path.join(os.path.dirname(
+                                 os.path.abspath(__file__)), "scripts", "stub_denoiser.py"))]),
+        ("mapping_accuracy", []),
+        ("reconstruction_eval", ["--out", out("recon")]),
+        ("localization_accuracy", ["--out", out("loc")]),
+        ("model_learning", ["--iters", "10", "--scene", STUDY_SCENE, "--out", out("ml")]),
+        ("model_poses_learning", ["--iters", "10", "--scene", STUDY_SCENE, "--out", out("mpl")]),
+        ("model_poses_learning_icp", ["--iters", "10", "--scene", STUDY_SCENE,
+                                      "--out", out("mpli")]),
+        ("optimization_pair_of_scans", ["--iters", "20", "--out", out("pair")]),
+        ("train_demo", ["--iters", "20", "--log-dir", out("demo")]),
+        ("create_dataset_npz", ["--source", "ground_plane/4", "--out", out("npz")]),
+        ("generate_scans_wo_dynamic_objects_kitti360", ["kitti360/00", "--out-dir",
+                                                        out("k360_filtered")]),
+        ("optimization", ["--iters", "10"]),
+        ("optimization_icp", ["--iters", "10"]),
+    ]
+    saved_dir = kitti360.data_dir
+    results = {}
+    try:
+        write_kitti360_dynamic(out("kitti360"), seq)
+        kitti360.data_dir = out("kitti360")
+        for name, argv in runs:
+            mod = importlib.import_module("depth_correction_tpu_torch.studies." + name)
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                mod.main(argv + ["--device", DEVICE])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            lines = [ln for ln in buf.getvalue().splitlines()
+                     if ln.strip() and not ln.startswith(("plot", "dashboard"))]
+            key = lines[-1] if lines else ""
+            label = name if name not in results else name + " (external denoiser)"
+            log("[19c] %s: device %s, %.1f s: %s (%s)"
+                % (label, torch.cuda.get_device_name(0), seconds, key.strip()[:200], card))
+            results[label] = {"seconds": seconds, "result": key.strip()}
+    finally:
+        kitti360.data_dir = saved_dir
+        shutil.rmtree(root, ignore_errors=True)
+    filtered = results["generate_scans_wo_dynamic_objects_kitti360"]["result"]
+    if "Load them with" not in filtered:
+        raise RuntimeError("generate_scans_wo_dynamic_objects_kitti360: %s" % filtered)
+    return results
+
+
 def main() -> int:
     import torch
 
@@ -3896,9 +4189,19 @@ def main() -> int:
     log("[phase 18] multi-GPU: a one-rank NCCL group, %d ranks rehearsed in one process"
         % REHEARSAL_RANKS)
     multi = phase_multi_gpu(card, res, seq)
-    seconds["18"] = time.perf_counter() - t1
+    seconds["18"], t1 = time.perf_counter() - t1, time.perf_counter()
+    log("[phase 19a] the studies: train_at_scale at its defaults (%d timed steps), both engines"
+        % SCALE_TIMED_STEPS)
+    scale = phase_scale(card)
+    seconds["19a"], t1 = time.perf_counter() - t1, time.perf_counter()
+    log("[phase 19b] the studies: bench_knn at %s points" % ", ".join(str(n) for n in KNN_SIZES))
+    knn = phase_bench_knn(card)
+    seconds["19b"], t1 = time.perf_counter() - t1, time.perf_counter()
+    log("[phase 19c] the studies: every other study's main() once")
+    studies = phase_studies(card, seq)
+    seconds["19c"] = time.perf_counter() - t1
     del seq
-    log("phases 13-18: %s s" % ", ".join("%s %.1f" % kv for kv in seconds.items()))
+    log("phases 13-19: %s s" % ", ".join("%s %.1f" % kv for kv in seconds.items()))
     log("build + all phases: %.1f s (%s)" % (time.perf_counter() - t0, card))
     from depth_correction_tpu_torch import scripts
 
@@ -3990,6 +4293,24 @@ def main() -> int:
     for en in kernels:
         if en["name"] in k360_launches:
             en["launches_kitti360"] = k360_launches[en["name"]]
+    # Phase 19: the scale run's launches (prep and 13 steps) on each engine,
+    # K1 / K2 on the scale graph, X2 / X3 in bench_knn.
+    scale_keys = {"cellwin_fwd (K1)": "fwd", "cellwin_bwd (K2)": "bwd", "grid_query (X2)": "grid",
+                  "gather_moments (P7)": "gather", "knn_brute (X3)": "knn"}
+    sk = scale["kernels"]
+    for en in kernels:
+        key = scale_keys.get(en["name"])
+        if key:
+            en["launches_scale"] = {b: scale[b]["launches"][key] for b in ("gather", "cellwin")}
+        if key in ("fwd", "bwd"):
+            en["scale"] = {"graph": scale["kernels_graph"], "ms": sk[key + "_ms"],
+                           "v1_ms": sk[key + "_v1_ms"], "kernel_ms": sk[key + "_kernel_ms"],
+                           "plain_ms": sk[key + "_plain_ms"], "max_abs_err": sk[key + "_err"],
+                           "bound_ms": sk[key + "_bound"][0], "bound_by": sk[key + "_bound"][1]}
+        if key in ("grid", "knn"):
+            en["launches_bench_knn"] = knn["launches"][key]
+            en["bench_knn_ms"] = {str(r["n"]): r["grid_ms" if key == "grid" else "scan_ms"]
+                                  for r in knn["rows"]}
     for en in kernels:
         en["bound_ms"], en["bound_by"] = en.pop("bound")
         log("%-26s %10.4f ms, bound %.4f ms (%s), %d launches" % (
@@ -4065,6 +4386,23 @@ def main() -> int:
         "rehearsal_moments_max_abs_diff": multi["rehearsal_moments_diff"],
         "rehearsal_grad_max_abs_diff": multi["rehearsal_grad_diff"],
         "rehearsal_x2_equal": multi["rehearsal_x2_equal"], "cards": multi["cards"],
+        "scale_load_s": scale["load_s"], "scale_points": scale["gather"]["counts"]["global"],
+        "scale_kernels_graph": scale["kernels_graph"],
+        **{"scale_%s_%s" % (k, b): v for b in ("gather", "cellwin") for k, v in (
+            ("query_rows", scale[b]["counts"]["query"]), ("k", scale[b]["counts"]["k"]),
+            ("engine", scale[b]["engine"]["engine"]), ("exc_share", scale[b]["engine"]["exc_share"]),
+            ("step_ms", scale[b]["step_ms"]), ("step_ms_min", min(scale[b]["step_ms_all"])),
+            ("step_ms_max", max(scale[b]["step_ms_all"])), ("prep_s", scale[b]["prep_s"]),
+            ("loss_rel_err_w0", scale[b]["loss_rel"]), ("w", scale[b]["w"]),
+            ("w_rel_err", scale[b]["w_rel"]), ("peak_bytes", scale[b]["peak_bytes"]),
+            ("busy_ms", scale[b]["profile"]["busy_ms"]),
+            ("wall_ms", scale[b]["profile"]["wall_ms"]),
+            ("kernels_per_step", scale[b]["profile"]["kernels_per_call"]))},
+        "bench_knn": {str(r["n"]): {k: r[k] for k in ("grid_ms", "scan_ms", "scipy_ms",
+                                                       "ball_mean", "ball_max")}
+                      for r in knn["rows"]},
+        "bench_knn_sets_equal": knn["rows"][0]["sets_equal"],
+        "studies_s": {name: r["seconds"] for name, r in studies.items()},
         "phase_s": seconds,
         "kernel_ms_retaken_calls": scripts.RETAKEN_CALLS, "card": card}}), flush=True)
     log(card)

@@ -108,7 +108,7 @@ class CellWinGraph:
     # padded point layout
     perm: np.ndarray  # (m_pad,) int32 -> original point index (0 on pad)
     perm_valid: np.ndarray  # (m_pad,) bool
-    inv: np.ndarray  # (n_orig,) int32 original -> padded slot
+    inv: np.ndarray  # (n_orig,) int32 original -> padded slot (-1 invalid)
     est_sorted: np.ndarray  # (8, m_pad) float32 rows [est x,y,z, 0...]
     # exception rows (recomputed via the gather path)
     exc_slots: np.ndarray  # (E,) int32 padded-row slots; possibly empty
@@ -406,7 +406,9 @@ def build_cellwin_graph(
         lin_padded[t * pt_cap + k : (t + 1) * pt_cap] = lin_padded[
             t * pt_cap + max(k - 1, 0)
         ]
-    inv = np.zeros(m0, np.int64)
+    # Invalid points have no slot: -1, so permute_rows' backward gives
+    # them a zero gradient.
+    inv = np.full(m0, -1, np.int64)
     inv[perm[perm_valid]] = np.flatnonzero(perm_valid)
 
     est_sorted = np.zeros((8, m_pad), np.float32)
@@ -529,7 +531,8 @@ def build_cellwin_graph(
     # fail either test fall back to the gather path.
     exc = np.zeros(mq_real, bool)  # indexed by sorted-row position
     eps = eps_rel * r2
-    # frozen pair sets in padded point indices, grouped by sorted row
+    # frozen pair sets in padded point indices, grouped by sorted row (an
+    # invalid neighbour, which establishment never lists, maps to -1)
     nn_sorted = nn[r_order]  # (Mq_real, K)
     nn_padded = np.where(nn_sorted >= 0, inv[np.maximum(nn_sorted, 0)], -1)
     k_dim = nn_padded.shape[1]
@@ -851,7 +854,8 @@ class CellWinDevice:
     ``perm``/``inv`` map the ORIGINAL merged point table into the padded
     cell-sorted layout the kernels consume (use with
     ``ops.features.permute_rows``; padding slots read row 0 and their
-    gradients are dropped by the inverse gather).
+    gradients are dropped by the inverse gather; invalid points have
+    ``inv`` -1 and receive a zero gradient).
     """
 
     q_est: torch.Tensor  # (8, mq_pad) float32
@@ -863,7 +867,7 @@ class CellWinDevice:
     b_len: torch.Tensor
     b_ctr: torch.Tensor  # (t2, 3) float32
     perm: torch.Tensor  # (m_pad,) int64
-    inv: torch.Tensor  # (n_orig,) int64
+    inv: torch.Tensor  # (n_orig,) int64, -1 for invalid points
     row_map: torch.Tensor  # (mq_pad,) int64 -> original compacted row / -1
     exc_slots: torch.Tensor  # (E,) int64
     exc_nn: torch.Tensor  # (E, K) int64 neighbors in padded point indices

@@ -52,7 +52,9 @@ class PermuteRows(torch.autograd.Function):
     """``x[perm]`` whose backward is the gather ``g[inv]`` through the
     inverse permutation. Autograd's generic backward of an index would
     ``index_add`` the gradients of padding slots (which all read row 0)
-    into row 0; the inverse gather drops them, as in the JAX package."""
+    into row 0; the inverse gather drops them. Rows outside the layout
+    (``inv`` -1, the invalid points) read an appended zero row, so they
+    receive no gradient."""
 
     @staticmethod
     def forward(ctx, x, perm, inv):
@@ -62,12 +64,14 @@ class PermuteRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (inv,) = ctx.saved_tensors
-        return g.index_select(0, inv), None, None
+        gz = torch.cat([g, g.new_zeros((1,) + tuple(g.shape[1:]))])
+        return gz.index_select(0, torch.where(inv >= 0, inv, g.shape[0])), None, None
 
 
 def permute_rows(x: torch.Tensor, perm: torch.Tensor, inv: torch.Tensor):
     """Row permutation ``x[perm]`` with an exact gather backward
-    (``inv[perm[i]] = i`` on the permuted rows)."""
+    (``inv[perm[i]] = i`` on the permuted rows; a row with ``inv`` -1 gets
+    a zero gradient)."""
     return PermuteRows.apply(x, perm, inv)
 
 

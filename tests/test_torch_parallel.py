@@ -170,12 +170,8 @@ def _jax_refs():
                       "grad_deltas": [np.asarray(g) for g in gd or ()]}
         if name == "cellwin":
             base, base_f = vg, f
-    # The cell-window path gives the scans' padding points the gradient of
-    # the graph's first point slot (its inverse permutation maps them
-    # there, in both packages), which moves the pose deltas' translation
-    # gradient ~1e-3 off the gather path's (ROADMAP, queue 3); its deltas
-    # are held to the one-rank run only.
-    del refs["pose_cellwin"]["grad_deltas"]
+    # The cell-window path's deltas too are held to the gather path's: its
+    # invalid (padding) points take no gradient.
     refs["eval"] = {"loss": refs["cellwin"]["loss"]}
 
     def steps(optimizer, n):

@@ -194,21 +194,25 @@ def _thinned(name, cfg):
 
 
 GRAPHS = {"cellwin": {},
-          "capped": {"nn_max_neighbors": 16, "moments_backend": "gather"}}
+          "capped": {"nn_max_neighbors": 16, "moments_backend": "gather"},
+          # The uncapped within-r graph through the gather moments: the
+          # reference semantics the cell-window path computes.
+          "uncapped": {"moments_backend": "gather"}}
 
 
-def prepare_both(graph):
-    """Both packages' prepared sequences for one graph kind, from the same
-    thinned scans: (graph, its config options, JAX data, port data)."""
+def prepare_both(graph, ref=None):
+    """Both packages' prepared sequences from the same thinned scans: the
+    port's on ``graph``, the JAX package's on ``ref`` (default the same).
+    Returns (ref, the port's config options, JAX data, port data)."""
+    ref = ref or graph
     kw = GRAPHS[graph]
-    jcfg, tcfg = _cfg(JConfig, **kw), _cfg(TConfig, **kw)
+    jcfg, tcfg = _cfg(JConfig, **GRAPHS[ref]), _cfg(TConfig, **kw)
     seqs = [_thinned(n, tcfg) for n in SEQS]
     jdata = j_prepare_sequences(seqs, jcfg)
     tdata = t_prepare_sequences(seqs, tcfg)
-    uses = [c is not None for c in tdata.cellwin]
-    assert uses == [c is not None for c in jdata.cellwin]
-    assert all(uses) == (graph == "cellwin")
-    return graph, kw, jdata, tdata
+    assert all(c is not None for c in tdata.cellwin) == (graph == "cellwin")
+    assert all(c is not None for c in jdata.cellwin) == (ref == "cellwin")
+    return ref, kw, jdata, tdata
 
 
 # The capped gather graph here; tests/test_torch_pose_cellwin.py runs the
@@ -238,11 +242,12 @@ def _seed_deltas(mode, data, scale=1e-3, seed=0):
 _JAX_GRAD = {}
 
 
-def _jax_run(graph, mode, kw, jdata, deltas, steps=STEPS, **cfg_kw):
+def _jax_run(graph, mode, jdata, deltas, steps=STEPS, **cfg_kw):
     """(value, grads) at the start (the gradient unmasked, as the loss
     gives it) and the (w, deltas) after each of ``steps`` Adam steps of the
-    JAX package's step (train.py:1099-1115: masked by _grad_mask)."""
-    jcfg = _cfg(JConfig, pose_correction=mode, **kw, **cfg_kw)
+    JAX package's step (train.py:1099-1115: masked by _grad_mask) on
+    ``graph``'s options."""
+    jcfg = _cfg(JConfig, pose_correction=mode, **GRAPHS[graph], **cfg_kw)
     if (graph, mode) not in _JAX_GRAD:
         loss_fn, data = bind_cellwin_static(j_make_loss_fn(jcfg), jdata)
         _JAX_GRAD[graph, mode] = jax.jit(jax.value_and_grad(loss_fn)), data
@@ -318,7 +323,7 @@ def check_pose_modes_match_jax(prepared, mode):
     exactly 0 throughout in pose mode."""
     graph, kw, jdata, tdata = prepared
     deltas = _seed_deltas(mode, tdata)
-    jfirst, jtraj = _jax_run(graph, mode, kw, jdata, deltas)
+    jfirst, jtraj = _jax_run(graph, mode, jdata, deltas)
     tfirst, ttraj, leaves = _port_run(mode, kw, tdata, deltas)
     _check_grads(tfirst, jfirst)
     assert len(ttraj) == len(jtraj) == STEPS
@@ -340,7 +345,7 @@ def check_optimize_model_false_freezes_w(prepared):
     move, as in the JAX package."""
     graph, kw, jdata, tdata = prepared
     deltas = _seed_deltas("sequence", tdata)
-    _, jtraj = _jax_run(graph, "sequence", kw, jdata, deltas, steps=3, optimize_model=False)
+    _, jtraj = _jax_run(graph, "sequence", jdata, deltas, steps=3, optimize_model=False)
     _, ttraj, leaves = _port_run("sequence", kw, tdata, deltas, steps=3, optimize_model=False)
     for (tw, td), (jw, jd) in zip(ttraj, jtraj):
         assert not tw.any() and not np.asarray(jw).any()
@@ -355,7 +360,7 @@ def check_deltas_across_r_match_jax(prepared):
     and its gradients still agree."""
     graph, kw, jdata, tdata = prepared
     deltas = _seed_deltas("pose", tdata, scale=0.15, seed=3)
-    jfirst, _ = _jax_run(graph, "pose", kw, jdata, deltas, steps=0)
+    jfirst, _ = _jax_run(graph, "pose", jdata, deltas, steps=0)
     tfirst, _, _ = _port_run("pose", kw, tdata, deltas, steps=0)
     assert max(np.abs(d[:, :3]).max() for d in deltas) > 0.3
     _check_grads(tfirst, jfirst)
@@ -382,7 +387,7 @@ def test_sgd_pose_mode_matches_jax(prepared):
     graph, kw, jdata, tdata = prepared
     deltas = _seed_deltas("pose", tdata)
     opt = dict(optimizer="sgd", optimizer_kwargs={"momentum": 0.9})
-    _, jtraj = _jax_run(graph, "pose", kw, jdata, deltas, steps=3, **opt)
+    _, jtraj = _jax_run(graph, "pose", jdata, deltas, steps=3, **opt)
     _, ttraj, leaves = _port_run("pose", kw, tdata, deltas, steps=3, **opt)
     assert len(ttraj) == len(jtraj) == 3
     for (tw, td), (jw, jd) in zip(ttraj, jtraj):

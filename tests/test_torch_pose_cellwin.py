@@ -1,7 +1,11 @@
 """The pose-mode checks of tests/test_torch_pose.py on the cell-window
-graph (float64, CPU): the JAX package's Pallas kernels in interpret mode,
-the port's plain twins of K1 and K2; a pose delta's gradient reaches it
-through K2's twin, the inverse permutation and the pose transform."""
+graph (float64, CPU): the port's plain twins of K1 and K2 against the JAX
+package's gather moments on the same uncapped within-r graph, the
+reference semantics. A pose delta's gradient reaches the port through K2's
+twin, the inverse permutation and the pose transform; the scans' invalid
+(padding) points get none. (The JAX package's own cell-window path hands
+them the gradient of the first point slot, which moves a delta's
+translation gradient; the port does not follow it there.)"""
 import pytest
 
 from test_torch_pose import (MODES, check_deltas_across_r_match_jax,
@@ -12,7 +16,7 @@ from test_torch_pose import (MODES, check_deltas_across_r_match_jax,
 
 @pytest.fixture(scope="module")
 def prepared():
-    return prepare_both("cellwin")
+    return prepare_both("cellwin", ref="uncapped")
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -131,8 +131,15 @@ def test_grid_prep_matches_jax(prepared_grid):
     np.testing.assert_array_equal(tdata.query_rows[0].numpy(), np.asarray(jdata.query_rows[0]))
     jg, tg = jdata.cellwin[0], tdata.cellwin[0]
     assert jg is not None and tg is not None and tg.n_exc == jg.n_exc
-    for name in ("row_map", "perm", "inv", "q_est", "est_sorted"):
+    for name in ("row_map", "perm", "q_est", "est_sorted"):
         np.testing.assert_array_equal(getattr(tg, name).numpy(), np.asarray(getattr(jg, name)))
+    # inv: equal on the valid points; the port gives the invalid (padding)
+    # points -1, a zero gradient, where the JAX package leaves 0.
+    t_inv, j_inv = tg.inv.numpy(), np.asarray(jg.inv)
+    placed = t_inv >= 0
+    np.testing.assert_array_equal(placed, tdata.batches[0].cloud.valid.reshape(-1).numpy())
+    np.testing.assert_array_equal(t_inv[placed], j_inv[placed])
+    assert (t_inv[~placed] == -1).all() and (j_inv[~placed] == 0).all() and (~placed).any()
     loss_fn, data = bind_cellwin_static(j_make_loss_fn(jcfg), jdata)
     jv, jgrad = jax.value_and_grad(loss_fn)(_jax_params(0.0), data)
     model = _port_model(0.0)
@@ -234,6 +241,8 @@ def test_ported_options_pass_check_slice(option, value):
 
 
 def test_port_imports_no_jax():
+    from depth_correction_tpu_torch.studies import STUDIES
+
     code = ("import sys; import depth_correction_tpu_torch, "
             "depth_correction_tpu_torch.train, depth_correction_tpu_torch.ops._kernels, "
             "depth_correction_tpu_torch.node, depth_correction_tpu_torch.ops.slabwin, "
@@ -282,7 +291,10 @@ def test_port_imports_no_jax():
             "depth_correction_tpu_torch.ops.range_image, depth_correction_tpu_torch.results, "
             "depth_correction_tpu_torch.main, depth_correction_tpu_torch.sensor, "
             "depth_correction_tpu_torch.depth_bias, depth_correction_tpu_torch.visualization, "
-            "depth_correction_tpu_torch.loss_landscape, depth_correction_tpu_torch.experiments; "
+            "depth_correction_tpu_torch.loss_landscape, depth_correction_tpu_torch.experiments, "
+            "depth_correction_tpu_torch.studies, "
+            + "".join("depth_correction_tpu_torch.studies.%s, " % m for m in STUDIES)[:-2]
+            + "; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'optax' not in sys.modules and 'orbax' not in sys.modules, "
             "'optax or orbax imported'; "
