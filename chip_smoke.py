@@ -109,10 +109,12 @@ Phases (any failure raises and the exit code is non-zero):
 Every main path (phases 3-5, 7, 9-14, 16-17, 19) runs with all launch counts zeroed
 before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
 9. capped  — the bench's capped row (bench.py:bench_config(uncapped=False):
-   K = 32 with mutual trimming, the gather moments by torch autograd) on
+   K = 32 with mutual trimming, the gather moments: P7 forward, X4
+   backward over the transpose prep builds) on
    the slice's scene (phase 3's scans), 8 Adam steps through train() (step times from its
-   step_ms column): capped32_ms, and the
-   loss at w=0 within 1e-5 relative of the float64 plain path.
+   step_ms column): capped32_ms, X4 once a step, the
+   loss at w=0 within 1e-5 relative of the float64 plain path, and a
+   profiled step without autograd's indexing_backward_kernel.
 10. default — a default Config() (only log_dir, train_names, n_opt_iters,
    float_type, the data directory and shadow_angle_bounds set) on an open
    box written as ASL-laser CSV files into a temporary directory. X3 and
@@ -144,9 +146,10 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
 12. new paths (the loss offset, ICP, L-BFGS, nn_scale, resume, the prep
    cache), each with the launch counts zeroed just before it: (a) the
    loss offset on phase 3's scene (prep keeps the per-scan neighbours),
-   8 Adam steps of train.fit on K1 and K2 and the offset's gather, the
+   8 Adam steps of train.fit on K1 and K2 and the offset's gather (X4
+   once a step for the offset graph, once for the exception rows), the
    loss at w=0 within 1e-5 of the float64 plain path, offset_step_ms and
-   the profiled step; (f) that prep written to the prep cache and
+   the profiled step (no indexing_backward_kernel); (f) that prep written to the prep cache and
    prepared again: a hit, equal bit for bit, its seconds beside the
    build's; (b) ICP training on the scene (prep through X3, X2 and P7, the
    correspondences on the host), 8 Adam steps, the loss at w=0 within
@@ -161,7 +164,8 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    point; (d) (run inside phase 10, while its files exist) nn_scale on the
    default config's data: P7 exactly once more in prep than without
    nn_scale, its features (mean, eigenvalues, re-weighted weights; P7
-   twice) within 1e-5 of float64 plain, 4 Adam steps, the loss at w=0
+   twice) within 1e-5 of float64 plain, 4 Adam steps (X5 once a step, the
+   scaled gather's backward), the loss at w=0
    within 1e-5 of float64; (e) train() for 4 steps with
    checkpoint_period 2, interrupted when step 2 starts and resumed, against
    an uninterrupted run: the largest |dw| and whether the saved states are
@@ -185,7 +189,7 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    the main path on it (uncapped, grid establishment, no second synthetic
    bias) twice. First at the default exception-row budget (5%): the
    build's outcome printed, 8 Adam steps on the path it leaves (declined:
-   the gather path, an eager autograd gather, no K1 or K2), the step
+   the gather path, P7 and X4 once a step, no K1 or K2), the step
    time, the loss at w=0 within 1e-5 of float64. Then with exception rows
    allowed up to 25% (the first pose's frame tilts the scene against the
    cells): X2, X3 and P7 in prep, K1 and K2 each step, no first version;
@@ -264,6 +268,24 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    joint-learning studies on a 10 x 10 x 5 m box; the KITTI-360 filter on
    two of phase 3's scans written as a drive with one dynamic window):
    its device, seconds and result line.
+
+20. transpose — X4 (the gather moments' backward) and X5 (the pair
+   gather's backward under nn_scale), csrc/transpose_gather.cu, on the
+   capped row's graph (phase 9's prepared data and transpose) and on the
+   scale run's gather graph (phase 19(a)'s), at w = 0 with seeded
+   cotangents: each within 1e-4 of max |output| of its float64 plain
+   version and two launches bit-equal; timed by CUDA events and by the
+   profiler's kernel durations beside its plain version, its bound, and,
+   for X5, index_add_ (one PyTorch call computing its function); the
+   step's gradient in w within 1e-4 of the float64 plain path's, and in
+   the points X4 within 1e-4 of its float64 plain version inside the
+   float32 step (the float32 step against the float64 plain path
+   printed).
+
+Every gather-engine path counts X4 and X5 (check_transposes): one X4 a
+loss evaluation for a gather sequence (X5 under nn_scale), one for an
+offset graph and one for a cell-window graph with exception rows (phases
+3, 9-12, 14, 18, 19(a)).
 
 Device-busy times (profile_calls) sum kernels, memcpys and memsets; user
 annotations (record_function spans such as Optimizer.step#Adam.step),
@@ -683,6 +705,7 @@ def phase_slice(card: str):
     rec = Record(cfg)
     trained, history = train_logged(cfg, callbacks=rec, train_data=data)
     check_no_first_versions("the slice's prep and train()")
+    check_transposes("slice (exception rows)", cfg, data, STEPS)
     launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES, "grid": grid_launches,
                 "knn": knn_launches, "gather_prep": gather_launches}
     log("main path launches: K1 %d, K2 %d, X2 %d" % (launches["fwd"], launches["bwd"],
@@ -822,7 +845,7 @@ def profile_calls(fn, card: str, unit: str, n: int = 3):
         log("  %-60s %9.3f ms/%s  x%d" % (e.key[:60], e.self_device_time_total / 1e3 / n,
                                           unit, e.count // n))
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "kernels_per_call": kernels,
-            "busy_ms_with_annotations": old_ms}
+            "busy_ms_with_annotations": old_ms, "names": sorted(e.key for e in events)}
 
 
 def node_config(backend):
@@ -1460,6 +1483,58 @@ def check_no_first_versions(label: str) -> None:
                            % (label, {k: v for k, v in counts.items() if v}))
 
 
+def transpose_launches() -> dict:
+    """X4's and X5's launch counts since they were last zeroed."""
+    from depth_correction_tpu_torch.ops import _kernels
+
+    return {"x4": _kernels.TRANSPOSE_MOMENTS_LAUNCHES, "x5": _kernels.TRANSPOSE_GATHER_LAUNCHES}
+
+
+def transposes_per_eval(cfg, data) -> dict:
+    """X4 and X5 launches one loss evaluation (forward and backward) makes
+    on ``data``: one X4 a gather sequence (one X5 under nn_scale), one X4
+    a sequence's offset graph and one X4 a cell-window graph with
+    exception rows (any rank's, under a mesh)."""
+    x4 = x5 = 0
+    for i in range(len(data.batches)):
+        cw = data.cellwin[i] if data.cellwin else None
+        if cw is None and data.transposes and data.transposes[i] is not None:
+            if cfg.nn_scale is None:
+                x4 += 1
+            else:
+                x5 += 1
+        elif cw is not None and cw.n_exc:
+            x4 += 1
+        if data.off_transposes and data.off_transposes[i] is not None:
+            x4 += 1
+    return {"x4": x4, "x5": x5}
+
+
+def check_transposes(label: str, cfg, data, evals: int, got: dict = None) -> dict:
+    """Raises unless X4 and X5 launched ``evals`` times
+    :func:`transposes_per_eval` since the counts were last zeroed (``got``:
+    counts read earlier)."""
+    got = transpose_launches() if got is None else {k: got[k] for k in ("x4", "x5")}
+    per = transposes_per_eval(cfg, data)
+    want = {k: v * evals for k, v in per.items()}
+    log("%s: X4 %d, X5 %d launches (%d loss evaluations, %d X4 and %d X5 each)"
+        % (label, got["x4"], got["x5"], evals, per["x4"], per["x5"]))
+    if got != want:
+        raise RuntimeError("%s: X4 / X5 launched %s, expected %s" % (label, got, want))
+    return got
+
+
+def check_no_index_backward(profile: dict, label: str) -> None:
+    """Raises if a profiled step ran autograd's index backward
+    (``indexing_backward_kernel``): the gather engine's backward is X4 /
+    X5."""
+    hits = [n for n in profile["names"] if "indexing_backward" in n]
+    log("%s: profiled step %s indexing_backward_kernel" % (label, "shows" if hits else
+                                                           "has no"))
+    if hits:
+        raise RuntimeError("%s: the profiled step ran %s" % (label, hits))
+
+
 def p7_bound(n_pts: int, mq: int, k: int) -> tuple:
     """P7's bound: each index and weight read once (8 bytes a slot), each
     point once (12 bytes), (10, MQ) written once; ~22 float ops per
@@ -1879,8 +1954,10 @@ def phase_capped(card: str, seq):
            launches["grid"], launches["gather"]))
     if launches["grid"] <= 0 or launches["gather"] <= 0 or int(kept.max()) > 32:
         raise RuntimeError("the capped prep did not run as the bench's: %s" % launches)
+    _kernels.reset_launch_counts()
     _, history = train_logged(cfg, train_data=data)
     check_no_first_versions("the capped row's prep and train()")
+    x45 = check_transposes("capped", cfg, data, STEPS)
     losses = [h["train_loss"] for h in history]
     if not all(math.isfinite(v) for v in losses):
         raise RuntimeError("non-finite capped loss: %s" % losses)
@@ -1896,8 +1973,10 @@ def phase_capped(card: str, seq):
                                   losses[0], ref_loss, loss_rel, card))
     if not loss_rel <= LOSS_REL_BAR:
         raise RuntimeError("capped loss at w=0 misses the 1e-5 bar: %.3e" % loss_rel)
-    res = {"ms": step_ms, "loss_rel": loss_rel, "prep_s": prep_s}
+    res = {"ms": step_ms, "loss_rel": loss_rel, "prep_s": prep_s, "launches": x45,
+           "cfg": cfg, "data": data}
     res["profile"] = profile_steps(cfg, data, card)
+    check_no_index_backward(res["profile"], "capped")
     return res
 
 
@@ -2203,6 +2282,7 @@ def phase_default(card: str):
         reset_all_launch_counts()
         model, history = train_logged(cfg, train_data=data)
         check_no_first_versions("the default config's train()")
+        launches.update(check_transposes("default", cfg, data, STEPS))
         losses = [h["train_loss"] for h in history]
         if not all(math.isfinite(v) for v in losses):
             raise RuntimeError("non-finite default-config loss: %s" % losses)
@@ -2285,6 +2365,7 @@ def phase_pose(card: str, data, cfg):
     _, history = fit(cfg, data, pose_deltas=deltas)
     check_no_first_versions("the pose slice's fit()")
     launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES}
+    check_transposes("pose (exception rows)", cfg, data, STEPS)
     final = deltas[0].detach().cpu().numpy()
     log("pose: %d steps, K1 %d and K2 %d launches; losses %s; scan 0's delta %s, scans 1-5 "
         "moved by up to %.3e" % (len(history), launches["fwd"], launches["bwd"],
@@ -2361,7 +2442,7 @@ def w0_rel(cfg, data, loss32: float) -> tuple:
 
 def fit_counted(cfg, data, label: str):
     """train.fit with the launch counts zeroed just before and read just
-    after: (history, {K1, K2, X2, X3, P7 launches})."""
+    after: (history, {K1, K2, X2, X3, P7, X4, X5 launches})."""
     import math
 
     from depth_correction_tpu_torch.ops import _kernels
@@ -2372,7 +2453,8 @@ def fit_counted(cfg, data, label: str):
     _, history = fit(cfg, data)
     check_no_first_versions(label)
     launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES, "grid": _kernels.GRID_LAUNCHES,
-                "knn": _kernels.KNN_LAUNCHES, "gather": _kernels.GATHER_LAUNCHES}
+                "knn": _kernels.KNN_LAUNCHES, "gather": _kernels.GATHER_LAUNCHES,
+                **transpose_launches()}
     if not all(math.isfinite(h[1]) for h in history):
         raise RuntimeError("%s: non-finite loss %s" % (label, history))
     return history, launches
@@ -2441,7 +2523,7 @@ def adam_step_fn(cfg, data):
 def phase_offset_cache(card: str, seq):
     """12a and 12f: the loss offset on the bench slice (prep keeps the
     per-scan neighbours; 8 Adam steps of train.fit on K1, K2 and the
-    offset's autograd gather; the loss at w = 0 against the float64 plain
+    offset's gather moments, P7 and X4; the loss at w = 0 against the float64 plain
     path), its prep written to the prep cache, then prepared again: a hit,
     equal bit for bit."""
     import shutil
@@ -2467,9 +2549,11 @@ def phase_offset_cache(card: str, seq):
                history[0][1], loss64, loss_rel, step_ms, card))
         if launches["fwd"] != STEPS or launches["bwd"] != STEPS:
             raise RuntimeError("K1 / K2 were not launched once a step: %s" % launches)
+        check_transposes("offset", cfg, data, STEPS, launches)
         if not loss_rel <= LOSS_REL_BAR:
             raise RuntimeError("offset loss at w=0 misses the 1e-5 bar: %.3e" % loss_rel)
         profile = profile_calls(adam_step_fn(cfg, data), card, "step")
+        check_no_index_backward(profile, "offset")
 
         # 12f: the same prep again, from the cache.
         t0 = time.perf_counter()
@@ -2640,6 +2724,7 @@ def phase_lbfgs(card: str, data):
            LBFGS_STEPS, evals, step_ms, card))
     if launches["fwd"] != launches["bwd"] or launches["fwd"] < 2 * LBFGS_STEPS:
         raise RuntimeError("L-BFGS did not evaluate K1 / K2 at its trial points: %s" % launches)
+    check_transposes("lbfgs (exception rows)", cfg, data, launches["fwd"], launches)
     if not history[-1][1] < history[0][1]:
         raise RuntimeError("the L-BFGS loss did not fall: %s" % history)
     return {"step_ms": step_ms, "evals_per_step": evals, "launches": launches,
@@ -2711,17 +2796,18 @@ def phase_nn_scale(card: str, cfg, ds, base_p7: int):
                            "nn_scale, and the mean before the re-weighting)" % (p7, base_p7 + 1))
     if not loss_rel <= LOSS_REL_BAR:
         raise RuntimeError("nn_scale loss at w=0 misses the 1e-5 bar: %.3e" % loss_rel)
+    x45 = check_transposes("nn_scale", cfg, data, NN_SCALE_STEPS, launches)
     feats_rel = check_scaled_features(data, cfg)
     return {"loss_rel": loss_rel, "p7_prep": p7, "prep_s": prep_s, "features_rel": feats_rel,
-            "step_ms": statistics.median(h[3] for h in history[1:])}
+            "step_ms": statistics.median(h[3] for h in history[1:]), "launches": x45}
 
 
 def phase_resume(card: str, data):
     """12e: train() for 4 steps with checkpoint_period 2 on phase 3's slice,
     interrupted when step 2 starts and resumed, against an uninterrupted
     run: the largest difference of w and whether the saved states are
-    equal bit for bit (K2's atomics and autograd's index_add need not be
-    deterministic)."""
+    equal bit for bit (K2's atomics need not be deterministic; the
+    exception rows' X4 is)."""
     import shutil
     import tempfile
 
@@ -2974,6 +3060,7 @@ def phase_kitti360(card: str, seq, small):
         history, launches = fit_counted(cfg, data, "kitti360")
         if launches["fwd"] <= 0 or launches["bwd"] <= 0:
             raise RuntimeError("kitti360: K1 or K2 was not launched: %s" % launches)
+        check_transposes("kitti360", cfg, data, STEPS, launches)
         step_ms = statistics.median(h[3] for h in history[1:])
         rel, loss64 = w0_rel(cfg, data, history[0][1])
         g = data.cellwin[0]
@@ -2997,9 +3084,9 @@ def phase_kitti360(card: str, seq, small):
 def kitti360_default_budget(cfg, drive) -> dict:
     """The drive at the default exception-row budget (``cfg`` as given):
     prep, then 8 Adam steps on whichever path the build leaves. A declined
-    build must leave the gather path (the eager autograd gather, no K1 or
-    K2); a build that holds, K1 and K2. The loss at w=0 within 1e-5 of
-    float64 either way."""
+    build must leave the gather path (P7 forward, X4 backward, no K1 or
+    K2); a build that holds, K1 and K2 (and X4 for its exception rows).
+    The loss at w=0 within 1e-5 of float64 either way."""
     data, prep_s, prep_launches = prep_counted(cfg, drive, "kitti360 (default budget)")
     built = data.cellwin[0] is not None
     history, launches = fit_counted(cfg, data, "kitti360 (default budget)")
@@ -3009,14 +3096,15 @@ def kitti360_default_budget(cfg, drive) -> dict:
     if not built and (launches["fwd"] or launches["bwd"]):
         raise RuntimeError("kitti360 (default budget): declined, but the steps did not take "
                            "the gather path: %s" % launches)
+    check_transposes("kitti360 (default budget)", cfg, data, STEPS, launches)
     step_ms = statistics.median(h[3] for h in history[1:])
     rel, loss64 = w0_rel(cfg, data, history[0][1])
     log("kitti360 (default exception-row budget): the cellwin build %s; prep %.3f s, %d Adam "
-        "steps on the %s path (K1 %d, K2 %d, P7 %d), step %.3f ms; loss at w=0 %.9e vs float64 "
-        "%.9e (rel %.3e)"
+        "steps on the %s path (K1 %d, K2 %d, P7 %d, X4 %d), step %.3f ms; loss at w=0 %.9e vs "
+        "float64 %.9e (rel %.3e)"
         % ("holds" if built else "declined (%s)" % (data.cellwin_notes,), prep_s, len(history),
            "cell-window" if built else "gather", launches["fwd"], launches["bwd"],
-           launches["gather"], step_ms, history[0][1], loss64, rel))
+           launches["gather"], launches["x4"], step_ms, history[0][1], loss64, rel))
     if not rel <= LOSS_REL_BAR:
         raise RuntimeError("kitti360 (default budget): the loss at w=0 misses the 1e-5 bar: %.3e"
                            % rel)
@@ -3619,7 +3707,8 @@ def dist_train(cfg, seq, n: int, rank: int, port: int, log_dir: str, card: str =
                 rows = [line.split() for line in f]
             step_ms = statistics.median(float(r[3]) for r in rows[1:])
         launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES,
-                    "grid": _kernels.GRID_LAUNCHES}
+                    "grid": _kernels.GRID_LAUNCHES, **transpose_launches()}
+        check_transposes("rank %d of %d" % (rank, n), cfg, rec.data, len(rec.losses), launches)
         if card is not None:
             log("the sharded step on the rank's tables, profiled:")
             sharded = sharded_step_fn(cfg, rec.data)
@@ -3886,6 +3975,7 @@ def scale_run(card: str, scans, backend: str, density: float = 300.0) -> dict:
     if launches["fwd"] != want or launches["bwd"] != want:
         raise RuntimeError("train_at_scale (%s, engine %s): K1 %d, K2 %d launches for %d steps"
                            % (backend, eng["engine"], launches["fwd"], launches["bwd"], steps))
+    launches.update(check_transposes("train_at_scale (%s)" % backend, cfg, data, steps))
     with torch.no_grad():
         ref = ScaledPolynomial(w=[0.0], exponent=[4.0], dtype=torch.float64, device=DEVICE)
         loss64 = float(make_loss_fn(cfg, plain=True)(ref, data.to(dtype=torch.float64)))
@@ -3905,6 +3995,8 @@ def scale_run(card: str, scans, backend: str, density: float = 300.0) -> dict:
         raise RuntimeError("train_at_scale (%s): loss at w=0 misses the 1e-5 bar: %.3e"
                            % (backend, loss_rel))
     profile = profile_calls(adam_step_fn(cfg, data), card, "step", n=1)
+    if eng["engine"] != "cellwin":
+        check_no_index_backward(profile, "train_at_scale (%s)" % backend)
     return {"counts": c, "engine": eng, "prep_s": prep_s, "prep_seconds": dict(data.prep_seconds),
             "step_ms": step_ms, "step_ms_all": run["step_ms"], "loss_rel": loss_rel,
             "w": run["w"], "w_rel": w_rel, "launches": launches, "peak_bytes": peak,
@@ -3985,8 +4077,9 @@ def phase_scale(card: str) -> dict:
         out["kernels"] = alt["kernels"]
         out["kernels_graph"] = "density %g" % alt["density"]
         alt.pop("data")
-    for backend in ("gather", "cellwin"):
-        out[backend].pop("data")
+    # Phase 20 takes the gather engine's prepared graph.
+    out["gather_graph"] = (out["gather"].pop("cfg"), out["gather"].pop("data"))
+    out["cellwin"].pop("data")
     return out
 
 
@@ -4109,6 +4202,205 @@ def phase_studies(card: str, seq) -> dict:
     return results
 
 
+TRANSPOSE_REPS = 20
+# X4's float operations a pair: x_j - mu (3), S (x_j - mu) + h (9 fmas),
+# times w added to the sum (3 fmas); X5's: D = 3 adds a pair.
+X4_PAIR_OPS, X5_PAIR_OPS = 27, 3
+
+
+def transpose_bounds(tg, mq: int) -> dict:
+    """X4's and X5's bounds over the transpose ``tg`` of an (mq, K) table:
+    the CSR (run starts, one int32 pair index a pair) read once; X4 also
+    each pair's weight, the (mq, 12) row table, the (M, 3) points, and
+    writes (M, 3); X5 each pair's 3 cotangent floats, and writes (M, 3)."""
+    m, p = tg.num_points, int(tg.pair.shape[0])
+    csr = (m + 1) * 4 + p * 4
+    return {"pairs": p,
+            "x4": bound(csr + p * 4 + mq * 48 + m * 24, {"fp32": X4_PAIR_OPS * p}),
+            "x5": bound(csr + p * 12 + m * 12, {"fp32": X5_PAIR_OPS * p})}
+
+
+def step_gradients(cfg, data) -> dict:
+    """The step's gradient on ``data``'s gather graph at w = 0. In w
+    (make_loss_fn): float32 kernels against the float64 plain path. In the
+    global points (the features' loss over the masked rows, X4's output):
+    the float32 step through X4 against the same float32 step whose X4 is
+    replaced by its plain version in float64 (the kernel inside the step),
+    and against the float64 plain path (printed: the float32 eigenvalue
+    backward upstream of X4 sets that difference). Each relative to the
+    largest reference magnitude."""
+    import torch
+
+    from depth_correction_tpu_torch import preproc
+    from depth_correction_tpu_torch.loss import create_loss
+    from depth_correction_tpu_torch.models import ScaledPolynomial
+    from depth_correction_tpu_torch.ops import features
+    from depth_correction_tpu_torch.train import FeatureRows, make_loss_fn
+
+    mask = data.masks[0]
+
+    def grads(d, plain):
+        model = ScaledPolynomial(w=[0.0], exponent=[4.0], dtype=d.weights[0].dtype,
+                                 device=DEVICE)
+        make_loss_fn(cfg, plain=plain)(model, d).backward()
+        with torch.no_grad():
+            pts = preproc.global_cloud(d.batches[0], model=model).get_points()
+        p = pts.detach().clone().requires_grad_()
+        f = features.neighborhood_features(p, d.neighbors[0], d.weights[0],
+                                           compute_normals=False, plain=plain,
+                                           tg=d.transposes[0])
+        value, _ = create_loss(cfg)([FeatureRows(eigvals=f["eigvals"], trace=f["trace"],
+                                                 valid=mask)], mask=[mask])
+        value.backward()
+        return float(model.w.grad[0]), p.grad.double()
+
+    w32, p32 = grads(data, False)
+    w64, p64 = grads(data.to(dtype=torch.float64), True)
+    x4 = features.transpose_moments
+    features.transpose_moments = lambda p, tg, t: features.transpose_moments_plain(
+        p.double(), tg.to(dtype=torch.float64), t.double()).to(p.dtype)
+    try:
+        _, p_twin = grads(data, False)
+    finally:
+        features.transpose_moments = x4
+    return {"w_rel": abs(w32 - w64) / abs(w64), "w_grad": w64,
+            "points_rel": float((p32 - p_twin).abs().max() / p_twin.abs().max()),
+            "points_rel_f64": float((p32 - p64).abs().max() / p64.abs().max()),
+            "points_max": float(p64.abs().max())}
+
+
+def transpose_kernels(card: str, cfg, data, label: str) -> dict:
+    """X4 and X5 on ``data``'s gather graph and its prep-built transpose, at
+    w = 0: each against its plain version in float64 (GRAD_REL_BAR of max
+    |output|) and launched twice, bit-equal; timed by CUDA events and by
+    the profiler's kernel durations beside the plain version (float32) and,
+    for X5, ``index_add_`` (one PyTorch call computing its function), with
+    P7's two-pass form beside its single pass; the step's gradient against
+    the float64 plain path."""
+    import torch
+
+    from depth_correction_tpu_torch import preproc
+    from depth_correction_tpu_torch.models import ScaledPolynomial
+    from depth_correction_tpu_torch.ops import features
+
+    nn, w, tg = data.neighbors[0], data.weights[0], data.transposes[0]
+    if tg is None or data.cellwin[0] is not None:
+        raise RuntimeError("%s: no gather graph with a transpose" % label)
+    model = ScaledPolynomial(w=[0.0], exponent=[4.0], dtype=torch.float32, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(20)
+    with torch.no_grad():
+        pts = preproc.global_cloud(data.batches[0], model=model).get_points().contiguous()
+        mean, comps, w_sum = features.gather_moments(pts, nn, w, centred=True)
+        table = features._cotangent_rows(
+            mean, w_sum, (torch.randn(mean.shape, generator=gen, device=DEVICE),
+                          torch.randn(comps.shape, generator=gen, device=DEVICE)))
+        g = torch.randn(tuple(nn.shape) + (3,), generator=gen, device=DEVICE)
+        x4 = features.transpose_moments(pts, tg, table)
+        x4_again = features.transpose_moments(pts, tg, table)
+        x4_ref = features.transpose_moments_plain(pts.double(), tg.to(dtype=torch.float64),
+                                                  table.double())
+        x5 = features.transpose_gather(g, tg)
+        x5_again = features.transpose_gather(g, tg)
+        x5_ref = features.transpose_gather_plain(g.double(), tg)
+        flat = nn.reshape(-1)
+        real = (flat >= 0) & (flat < tg.num_points)
+        idx, g_real = flat[real], g.reshape(-1, 3)[real]
+
+        def library():
+            return torch.zeros((tg.num_points, 3), device=DEVICE).index_add_(0, idx, g_real)
+
+        lib_out = library()
+        torch.cuda.synchronize()
+        res = {"graph": {"rows": nn.shape[0], "k": nn.shape[1], "points": tg.num_points},
+               **transpose_bounds(tg, nn.shape[0])}
+        for key, got, again, ref in (("x4", x4, x4_again, x4_ref), ("x5", x5, x5_again, x5_ref)):
+            scale = float(ref.abs().max())
+            res[key + "_err"] = float((got.double() - ref).abs().max())
+            res[key + "_rel"] = res[key + "_err"] / scale
+            res[key + "_repeat_equal"] = bool(torch.equal(got, again))
+        res["library_rel"] = float((lib_out.double() - x5_ref).abs().max()
+                                   / x5_ref.abs().max())
+        timed = {"x4": lambda: features.transpose_moments(pts, tg, table),
+                 "x5": lambda: features.transpose_gather(g, tg), "library": library,
+                 "p7_centred": lambda: features.gather_moments(pts, nn, w, centred=True),
+                 "p7": lambda: features.gather_moments(pts, nn, w)}
+        for key, fn in timed.items():
+            res[key + "_ms"] = cuda_ms(fn, TRANSPOSE_REPS)
+            res[key + "_kernel_ms"] = kernel_ms(fn, DEVICE, TRANSPOSE_REPS)
+        res["x4_plain_ms"] = cuda_ms(lambda: features.transpose_moments_plain(pts, tg, table), 3,
+                                     warmup=1)
+        res["x5_plain_ms"] = cuda_ms(lambda: features.transpose_gather_plain(g, tg), 3, warmup=1)
+    deg = (tg.start[1:] - tg.start[:-1])
+    res["max_in_degree"] = int(deg.max())
+    res["step"] = step_gradients(cfg, data)
+    log("[20] %s graph: %d rows x K %d over %d points, %d transpose pairs (largest in-degree %d)"
+        % (label, nn.shape[0], nn.shape[1], tg.num_points, res["pairs"], res["max_in_degree"]))
+    for key, name in (("x4", "X4 transpose_moments"), ("x5", "X5 transpose_gather")):
+        b = res[key]
+        log("[20] %s %s: %.4f ms (events), %.4f ms (device); bound %.4f ms (%s); plain %.3f ms; "
+            "max abs err %.3e (%.3e of max |output|); two launches bit-equal %s (%s)"
+            % (label, name, res[key + "_ms"], res[key + "_kernel_ms"], b[0], b[1],
+               res[key + "_plain_ms"], res[key + "_err"], res[key + "_rel"],
+               res[key + "_repeat_equal"], card))
+    log("[20] %s index_add_ (X5's function): %.4f ms (events), %.4f ms (device); %.3e of max "
+        "|output| (%s)" % (label, res["library_ms"], res["library_kernel_ms"], res["library_rel"],
+                           card))
+    log("[20] %s P7's two-pass form (the gather steps' forward) %.4f ms (events), %.4f ms "
+        "(device); its single pass %.4f, %.4f (%s)"
+        % (label, res["p7_centred_ms"], res["p7_centred_kernel_ms"], res["p7_ms"],
+           res["p7_kernel_ms"], card))
+    st = res["step"]
+    log("[20] %s step gradient: w %.3e of the float64 plain path's (%.6e); in the points, X4 "
+        "against its float64 plain version inside the float32 step %.3e of max |grad|, the "
+        "float32 step against the float64 plain path %.3e (max |grad| %.3e) (%s)"
+        % (label, st["w_rel"], st["w_grad"], st["points_rel"], st["points_rel_f64"],
+           st["points_max"], card))
+    for key in ("x4", "x5"):
+        if not (res[key + "_rel"] <= GRAD_REL_BAR and res[key + "_repeat_equal"]):
+            raise RuntimeError("%s: %s misses its bar or differs between launches: %s"
+                               % (label, key, res))
+    if not (st["points_rel"] <= GRAD_REL_BAR and st["w_rel"] <= GRAD_REL_BAR):
+        raise RuntimeError("%s: the step's gradient misses the %.0e bar: %s"
+                           % (label, GRAD_REL_BAR, st))
+    return res
+
+
+def transpose_entry(tr: dict, key: str, launches: dict) -> dict:
+    """The kernels line's entry of X4 or X5: phase 20's numbers on the capped
+    graph (top level) and the scale graph (``scale``); ``launches`` from
+    the capped row's 8 steps (X4) or phase 12d's nn_scale run (X5), each
+    main path's in ``launches_by_phase``."""
+    names = {"x4": ("transpose_moments (X4)", "depth_correction_tpu/ops/features.py:604",
+                    "capped"),
+             "x5": ("transpose_gather (X5)", "depth_correction_tpu/ops/features.py:423",
+                    "nn_scale")}
+    name, replaces, main_path = names[key]
+    c = tr["capped"]
+
+    def numbers(r):
+        return {"ms": r[key + "_ms"], "kernel_ms": r[key + "_kernel_ms"],
+                "plain_ms": r[key + "_plain_ms"], "max_abs_err": r[key + "_err"],
+                "bound_ms": r[key][0], "bound_by": r[key][1],
+                "library_ms": r["library_ms"] if key == "x5" else None,
+                "library_kernel_ms": r["library_kernel_ms"] if key == "x5" else None,
+                "pairs": r["pairs"], "graph": r["graph"]}
+
+    return dict({"name": name, "route": "cuda",
+                 "source": "depth_correction_tpu_torch/csrc/transpose_gather.cu",
+                 "replaces": replaces, "launches": launches[main_path],
+                 "bound": c[key]}, **{k: v for k, v in numbers(c).items()
+                                      if k not in ("bound_ms", "bound_by")},
+                scale=numbers(tr["scale"]), launches_by_phase=launches,
+                step_grad_rel={lbl: r["step"] for lbl, r in tr.items()})
+
+
+def phase_transpose(card: str, graphs: dict) -> dict:
+    """20: X4 and X5 on the capped row's graph (phase 9) and the scale run's
+    gather graph (phase 19(a)): :func:`transpose_kernels` on each."""
+    return {label: transpose_kernels(card, cfg, data, label)
+            for label, (cfg, data) in graphs.items()}
+
+
 def main() -> int:
     import torch
 
@@ -4199,9 +4491,13 @@ def main() -> int:
     seconds["19b"], t1 = time.perf_counter() - t1, time.perf_counter()
     log("[phase 19c] the studies: every other study's main() once")
     studies = phase_studies(card, seq)
-    seconds["19c"] = time.perf_counter() - t1
+    seconds["19c"], t1 = time.perf_counter() - t1, time.perf_counter()
     del seq
-    log("phases 13-19: %s s" % ", ".join("%s %.1f" % kv for kv in seconds.items()))
+    log("[phase 20] X4 and X5 on the capped row's graph and the scale run's gather graph")
+    tr = phase_transpose(card, {"capped": (capped.pop("cfg"), capped.pop("data")),
+                                "scale": scale.pop("gather_graph")})
+    seconds["20"] = time.perf_counter() - t1
+    log("phases 13-20: %s s" % ", ".join("%s %.1f" % kv for kv in seconds.items()))
     log("build + all phases: %.1f s (%s)" % (time.perf_counter() - t0, card))
     from depth_correction_tpu_torch import scripts
 
@@ -4252,6 +4548,9 @@ def main() -> int:
                     "global_cloud": p7_shape(grid["p7_global"])},
          # P7's launches in prep: the slice's and the default config's.
          "launches_prep_slice": res["launches"]["gather_prep"],
+         # The two-pass form on the gather steps' graphs (phase 20).
+         "centred": {lbl: {k: r[k] for k in ("p7_centred_ms", "p7_centred_kernel_ms", "p7_ms",
+                                             "p7_kernel_ms")} for lbl, r in tr.items()},
          "launches_default": default["launches"]["gather"],
          "vp_dispersion_err": default["vp"]["err"]},
         {"name": "grid_query (X2)", "route": "cuda",
@@ -4283,7 +4582,14 @@ def main() -> int:
                     "shadow_dirs": dict(x3_summary(shadow), dropped=shadow["dropped"]),
                     "default_global": x3_summary(default["global"]),
                     "icp_pairs": icp["x3"]}},
-    ] + probes
+    ] + [transpose_entry(tr, key, {"capped": capped["launches"][key],
+                                   "default": default["launches"][key],
+                                   "offset": offset["launches"][key],
+                                   "nn_scale": default["nn_scale"]["launches"][key],
+                                   "kitti360_default": k360["default"]["launches"][key],
+                                   "scale_gather": scale["gather"]["launches"][key],
+                                   "scale_cellwin": scale["cellwin"]["launches"][key]})
+         for key in ("x4", "x5")] + probes
     # Phase 14's launches (prep for X2, X3 and P7; the 8 steps for K1, K2).
     k360_launches = {"cellwin_fwd (K1)": k360["launches"]["fwd"],
                      "cellwin_bwd (K2)": k360["launches"]["bwd"],
@@ -4403,6 +4709,11 @@ def main() -> int:
                       for r in knn["rows"]},
         "bench_knn_sets_equal": knn["rows"][0]["sets_equal"],
         "studies_s": {name: r["seconds"] for name, r in studies.items()},
+        **{"transpose_%s_%s" % (lbl, k): r["step"][v] for lbl, r in tr.items()
+           for k, v in (("points_grad_rel_err", "points_rel"), ("w_grad_rel_err", "w_rel"),
+                        ("points_grad_rel_err_f64", "points_rel_f64"))},
+        "offset_busy_share": offset["profile"]["busy_ms"] / offset["profile"]["wall_ms"],
+        "capped_busy_share": capped["profile"]["busy_ms"] / capped["profile"]["wall_ms"],
         "phase_s": seconds,
         "kernel_ms_retaken_calls": scripts.RETAKEN_CALLS, "card": card}}), flush=True)
     log(card)

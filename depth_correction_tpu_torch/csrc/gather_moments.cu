@@ -40,6 +40,17 @@
 // Sums differ from the first version's in order only (a lane sums its C
 // neighbours, then the butterfly), and the two layouts give the same bits.
 //
+// The centred entry (dc_gather_moments_centred, the gather engine's
+// differentiable forward) runs each row twice: the first pass as above,
+// the second about the first pass's mean instead of the first contributor,
+// so that the covariance is summed about the mean as the plain version's
+// two passes sum it. Its float32 rounding then matches the plain
+// version's: on the loss offset's local graph of the bench slice (K 40,
+// neighbours up to 0.14 m from their mean; an H100 80GB HBM3 at 700 W)
+// the single pass moved the loss at w = 0 by 1.21e-5 of float64, the two
+// passes by 6.46e-6, the plain float32 version by 6.29e-6. The second
+// pass reads the row again (from L1 / L2): 1.7x the single pass's time.
+//
 // Numerics: index -1 and indices outside [0, N) contribute nothing; so
 // does a zero weight. w_sum = max(sum w, 1e-12), the normaliser
 // max(sum w - 1, 1e-6), as in features.py; a row with no contributor has
@@ -70,7 +81,7 @@ __device__ __forceinline__ void load_point(const float* __restrict__ pts, long l
   }
 }
 
-template <int G, int C, bool kPacked>
+template <int G, int C, bool kPacked, bool kCentred>
 __global__ void __launch_bounds__(kThreads) gather_moments_kernel(
     const float* __restrict__ pts,   // point i, component c at pts[i * sp + c * sc]; packed: (N, 4)
     long long sp, long long sc, int n_pts,
@@ -91,79 +102,88 @@ __global__ void __launch_bounds__(kThreads) gather_moments_kernel(
   float sx = 0.f, sy = 0.f, sz = 0.f;
   bool found = false;  // uniform across the row's group
   float a[10];
+  // One pass, or two in the centred form: the second about the first's mean.
+  for (int pass = 0; pass < (kCentred ? 2 : 1); ++pass) {
+    if (pass == 1 && found) {
+      const float s0 = fmaxf(a[0], 1e-12f);
+      sx += a[1] / s0;
+      sy += a[2] / s0;
+      sz += a[3] / s0;
+    }
 #pragma unroll
-  for (int c = 0; c < 10; ++c) a[c] = 0.f;
-  for (int base = 0; base < k; base += G * C) {  // uniform across the warp
-    int id[C];
-    float wt[C];
+    for (int c = 0; c < 10; ++c) a[c] = 0.f;
+    for (int base = 0; base < k; base += G * C) {  // uniform across the warp
+      int id[C];
+      float wt[C];
 #pragma unroll
-    for (int q = 0; q < C; ++q) {
-      const int j = base + q * G + g;
-      id[q] = -1;
-      wt[q] = 0.f;
-      if (live && j < k) {
-        id[q] = __ldg(ri + j);
-        wt[q] = __ldg(rw + j);
+      for (int q = 0; q < C; ++q) {
+        const int j = base + q * G + g;
+        id[q] = -1;
+        wt[q] = 0.f;
+        if (live && j < k) {
+          id[q] = __ldg(ri + j);
+          wt[q] = __ldg(rw + j);
+        }
       }
-    }
-    bool ok[C];
-    float x[C], y[C], z[C];
+      bool ok[C];
+      float x[C], y[C], z[C];
 #pragma unroll
-    for (int q = 0; q < C; ++q) {
-      ok[q] = id[q] >= 0 && id[q] < n_pts && wt[q] != 0.f;
-      x[q] = y[q] = z[q] = 0.f;
-      if (ok[q]) load_point<kPacked>(pts, sp, sc, id[q], x[q], y[q], z[q]);
-    }
-    // The shift, in the first pass that has a contributor: the group's
-    // smallest neighbour position q * G + g among the lanes' first
-    // contributors.
-    if (__any_sync(kFull, !found)) {
-      int key = kNone;
-      float fx = 0.f, fy = 0.f, fz = 0.f;
+      for (int q = 0; q < C; ++q) {
+        ok[q] = id[q] >= 0 && id[q] < n_pts && wt[q] != 0.f;
+        x[q] = y[q] = z[q] = 0.f;
+        if (ok[q]) load_point<kPacked>(pts, sp, sc, id[q], x[q], y[q], z[q]);
+      }
+      // The shift, in the first pass that has a contributor: the group's
+      // smallest neighbour position q * G + g among the lanes' first
+      // contributors.
+      if (__any_sync(kFull, !found)) {
+        int key = kNone;
+        float fx = 0.f, fy = 0.f, fz = 0.f;
 #pragma unroll
-      for (int q = C - 1; q >= 0; --q) {
-        if (ok[q]) {
-          key = q * G + g;
-          fx = x[q];
-          fy = y[q];
-          fz = z[q];
+        for (int q = C - 1; q >= 0; --q) {
+          if (ok[q]) {
+            key = q * G + g;
+            fx = x[q];
+            fy = y[q];
+            fz = z[q];
+          }
+        }
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1) key = min(key, __shfl_xor_sync(kFull, key, off));
+        const int src = key & (G - 1);
+        fx = __shfl_sync(kFull, fx, src, G);
+        fy = __shfl_sync(kFull, fy, src, G);
+        fz = __shfl_sync(kFull, fz, src, G);
+        if (!found && key != kNone) {
+          sx = fx;
+          sy = fy;
+          sz = fz;
+          found = true;
         }
       }
 #pragma unroll
-      for (int off = G / 2; off > 0; off >>= 1) key = min(key, __shfl_xor_sync(kFull, key, off));
-      const int src = key & (G - 1);
-      fx = __shfl_sync(kFull, fx, src, G);
-      fy = __shfl_sync(kFull, fy, src, G);
-      fz = __shfl_sync(kFull, fz, src, G);
-      if (!found && key != kNone) {
-        sx = fx;
-        sy = fy;
-        sz = fz;
-        found = true;
+      for (int q = 0; q < C; ++q) {
+        if (ok[q]) {
+          const float dx = x[q] - sx, dy = y[q] - sy, dz = z[q] - sz;
+          const float wx = wt[q] * dx, wy = wt[q] * dy, wz = wt[q] * dz;
+          a[0] += wt[q];
+          a[1] += wx;
+          a[2] += wy;
+          a[3] += wz;
+          a[4] += wx * dx;
+          a[5] += wy * dy;
+          a[6] += wz * dz;
+          a[7] += wx * dy;
+          a[8] += wx * dz;
+          a[9] += wy * dz;
+        }
       }
     }
 #pragma unroll
-    for (int q = 0; q < C; ++q) {
-      if (ok[q]) {
-        const float dx = x[q] - sx, dy = y[q] - sy, dz = z[q] - sz;
-        const float wx = wt[q] * dx, wy = wt[q] * dy, wz = wt[q] * dz;
-        a[0] += wt[q];
-        a[1] += wx;
-        a[2] += wy;
-        a[3] += wz;
-        a[4] += wx * dx;
-        a[5] += wy * dy;
-        a[6] += wz * dz;
-        a[7] += wx * dy;
-        a[8] += wx * dz;
-        a[9] += wy * dz;
-      }
+    for (int off = G / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int c = 0; c < 10; ++c) a[c] += __shfl_xor_sync(kFull, a[c], off);
     }
-  }
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1) {
-#pragma unroll
-    for (int c = 0; c < 10; ++c) a[c] += __shfl_xor_sync(kFull, a[c], off);
   }
   if (live && g == 0) {
     const float s0c = fmaxf(a[0], 1e-12f);
@@ -194,31 +214,23 @@ __global__ void pack_points_kernel(const float* __restrict__ pts, long long sp, 
   }
 }
 
-template <int G, int C>
+template <int G, int C, bool kCentred = false>
 void launch(const float* pts, long long sp, long long sc, int n_pts, bool packed,
             const int* idx, const float* w, int mq, int k, float* mean, float* comps,
             float* wsum, cudaStream_t stream) {
   constexpr int kRowsPerBlock = kThreads / G;
   const int blocks = (mq + kRowsPerBlock - 1) / kRowsPerBlock;
   if (packed)
-    gather_moments_kernel<G, C, true><<<blocks, kThreads, 0, stream>>>(
+    gather_moments_kernel<G, C, true, kCentred><<<blocks, kThreads, 0, stream>>>(
         pts, 4, 1, n_pts, idx, w, mq, k, mean, comps, wsum);
   else
-    gather_moments_kernel<G, C, false><<<blocks, kThreads, 0, stream>>>(
+    gather_moments_kernel<G, C, false, kCentred><<<blocks, kThreads, 0, stream>>>(
         pts, sp, sc, n_pts, idx, w, mq, k, mean, comps, wsum);
 }
 
-}  // namespace
-
-extern "C" {
-
-// packed: null, or an (n_pts, 4) float32 scratch table (16-byte aligned)
-// that is filled first and then read in place of pts. Launches on the
-// caller's stream, does not synchronise, and returns cudaGetLastError()
-// (0 = the launches were accepted).
-int dc_gather_moments(const void* pts, long long sp, long long sc, int n_pts,
-                      const void* idx, const void* w, int mq, int k,
-                      void* mean, void* comps, void* wsum, void* packed, void* stream) {
+template <bool kCentred>
+int run(const void* pts, long long sp, long long sc, int n_pts, const void* idx, const void* w,
+        int mq, int k, void* mean, void* comps, void* wsum, void* packed, void* stream) {
   if (mq > 0) {
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     const float* src = static_cast<const float*>(pts);
@@ -236,13 +248,36 @@ int dc_gather_moments(const void* pts, long long sp, long long sc, int n_pts,
     // Lanes a row by K: the fastest grouping on an H100 at K 32, 48, 88
     // and 168 (scripts/exp_gather_variants.py).
     if (k <= 32)
-      launch<4, 8>(src, sp, sc, n_pts, pk, ix, wt, mq, k, m, c, ws, s);
+      launch<4, 8, kCentred>(src, sp, sc, n_pts, pk, ix, wt, mq, k, m, c, ws, s);
     else if (k <= 64)
-      launch<8, 8>(src, sp, sc, n_pts, pk, ix, wt, mq, k, m, c, ws, s);
+      launch<8, 8, kCentred>(src, sp, sc, n_pts, pk, ix, wt, mq, k, m, c, ws, s);
     else
-      launch<16, 8>(src, sp, sc, n_pts, pk, ix, wt, mq, k, m, c, ws, s);
+      launch<16, 8, kCentred>(src, sp, sc, n_pts, pk, ix, wt, mq, k, m, c, ws, s);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+// packed: null, or an (n_pts, 4) float32 scratch table (16-byte aligned)
+// that is filled first and then read in place of pts. Launches on the
+// caller's stream, does not synchronise, and returns cudaGetLastError()
+// (0 = the launches were accepted).
+int dc_gather_moments(const void* pts, long long sp, long long sc, int n_pts,
+                      const void* idx, const void* w, int mq, int k,
+                      void* mean, void* comps, void* wsum, void* packed, void* stream) {
+  return run<false>(pts, sp, sc, n_pts, idx, w, mq, k, mean, comps, wsum, packed, stream);
+}
+
+// The centred form (two passes a row, the second about the mean); the
+// arguments and contract of dc_gather_moments.
+int dc_gather_moments_centred(const void* pts, long long sp, long long sc, int n_pts,
+                              const void* idx, const void* w, int mq, int k,
+                              void* mean, void* comps, void* wsum, void* packed,
+                              void* stream) {
+  return run<true>(pts, sp, sc, n_pts, idx, w, mq, k, mean, comps, wsum, packed, stream);
 }
 
 }  // extern "C"

@@ -12,8 +12,9 @@ The launchers validate device, dtype, shape and contiguity before passing
 pointers, launch on the current stream, and raise when the C entry returns
 a CUDA error. Launch counts of K1/K2 (and of their first versions, kept
 for an A/B on the card) are kept by their callers in ``ops/cellwin.py``;
-X1, X2, X3, P2-P7, P7a (and their first versions) and the probes P1 and
-P8 count here (:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`,
+X1, X2, X3, X4, X5, P2-P7, P7a (and their first versions) and the probes P1
+and P8 count here (:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`,
+:data:`TRANSPOSE_MOMENTS_LAUNCHES`, :data:`TRANSPOSE_GATHER_LAUNCHES`,
 :data:`KNN_LAUNCHES`, :data:`GATHER_LAUNCHES`, :data:`KNOCKOUT_LAUNCHES`,
 :data:`DOT_LAUNCHES`, :data:`WINDOW_LAUNCHES`, :data:`LAYOUT_LAUNCHES`,
 :data:`GATHER_SUM_LAUNCHES`, :data:`GATHER_PROBE_LAUNCHES`, and the first
@@ -51,6 +52,8 @@ __all__ = [
     "LAYOUT_V1_LAUNCHES",
     "SLAB_LAUNCHES",
     "SLAB_V1_LAUNCHES",
+    "TRANSPOSE_GATHER_LAUNCHES",
+    "TRANSPOSE_MOMENTS_LAUNCHES",
     "WINDOW_LAUNCHES",
     "WINDOW_V1_LAUNCHES",
     "build",
@@ -79,6 +82,8 @@ __all__ = [
     "launch_moment_window_v1",
     "launch_slab_window",
     "launch_slab_window_v1",
+    "launch_transpose_gather",
+    "launch_transpose_moments",
     "load",
     "reset_launch_counts",
 ]
@@ -91,7 +96,8 @@ SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
                              "grid_query.cu",
                              "grid_query_v1.cu", "layout_probe.cu", "layout_probe_v1.cu",
                              "gather_probe.cu", "gather_probe_v1.cu", "knn_brute.cu", "knn_brute_v1.cu",
-                             "gather_sum.cu", "gather_sum_v1.cu", "gather_moments_v1.cu"))
+                             "gather_sum.cu", "gather_sum_v1.cu", "gather_moments_v1.cu",
+                             "transpose_gather.cu"))
 # Headers the sources include; they key the build like the sources.
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin_fwd.cuh", "tf32_mma.cuh", "wgmma_tf32.cuh"))
@@ -107,7 +113,8 @@ NVCC_FLAGS = (
 )
 
 # Launches of X1 (slab-window moments), X2 (the grid radius search), X3
-# (the brute-force search), P7 (gather moments), P1 (the cell-window
+# (the brute-force search), X4 / X5 (the gather engine's backward over a
+# transpose graph), P7 (gather moments), P1 (the cell-window
 # knockout), P2 (the moment product), P3-P5 (the moment product with
 # in-kernel operands), P6 (the layout probes), P7a (P7's gather-sum probe)
 # and P8 (the gather probes), counted where each kernel is launched and
@@ -115,6 +122,8 @@ NVCC_FLAGS = (
 SLAB_LAUNCHES = 0
 GRID_LAUNCHES = 0
 KNN_LAUNCHES = 0
+TRANSPOSE_MOMENTS_LAUNCHES = 0
+TRANSPOSE_GATHER_LAUNCHES = 0
 # The first versions of X1, X2, X3, P2, P3-P5, P6, P7, P7a and P8, for the A/B only
 # (no path launches them).
 SLAB_V1_LAUNCHES = 0
@@ -211,8 +220,9 @@ def load():
                              + [_P] * (2 if suffix == "" else 1))
             grid.restype = _I
         # The redesign takes the packed table's scratch before the stream.
-        lib.dc_gather_moments.argtypes = [_P, _L, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P]
-        lib.dc_gather_moments.restype = _I
+        for entry in (lib.dc_gather_moments, lib.dc_gather_moments_centred):
+            entry.argtypes = [_P, _L, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P]
+            entry.restype = _I
         lib.dc_gather_moments_v1.argtypes = [_P, _L, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P]
         lib.dc_gather_moments_v1.restype = _I
         lib.dc_cellwin_knockout.argtypes = [_I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I,
@@ -253,6 +263,10 @@ def load():
         lib.dc_knn_brute_max_k.restype = _I
         lib.dc_knn_brute_v1_max_k.argtypes = [_P]
         lib.dc_knn_brute_v1_max_k.restype = _I
+        lib.dc_transpose_moments.argtypes = [_P, _I, _P, _P, _P, _P, _I, _P, _P]
+        lib.dc_transpose_moments.restype = _I
+        lib.dc_transpose_gather.argtypes = [_P, _I, _I, _P, _P, _P, _P]
+        lib.dc_transpose_gather.restype = _I
         lib.dc_cuda_error_string.argtypes = [_I]
         lib.dc_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -488,7 +502,7 @@ def _launch_gather_moments(name: str, points, neighbors, weights, packed=None):
     return mean, comps, wsum
 
 
-def launch_gather_moments(points, neighbors, weights):
+def launch_gather_moments(points, neighbors, weights, centred: bool = False):
     """P7 on CUDA tensors -> (mean (3, Mq), comps (6, Mq), w_sum (Mq,)).
 
     :param points: (N, 3) or (3, N) float32 (a (3, 3) table is read as
@@ -496,10 +510,13 @@ def launch_gather_moments(points, neighbors, weights):
         at least :data:`GATHER_PACK_MIN_PAIRS`.
     :param neighbors: (Mq, K) int32, -1 padded.
     :param weights: (Mq, K) float32.
+    :param centred: the two-pass form (``dc_gather_moments_centred``: the
+        covariance summed about the mean, as the plain version sums it).
     """
     global GATHER_LAUNCHES
     packed = neighbors.numel() >= GATHER_PACK_MIN_PAIRS
-    out = _launch_gather_moments("gather_moments", points, neighbors, weights, packed)
+    out = _launch_gather_moments("gather_moments_centred" if centred else "gather_moments",
+                                 points, neighbors, weights, packed)
     GATHER_LAUNCHES += 1
     return out
 
@@ -1016,9 +1033,76 @@ def launch_gather_sum_v1(pts_T, idx) -> torch.Tensor:
     return out
 
 
+def _check_csr(start, pair, device) -> int:
+    """A transpose graph's CSR (int32 ``start`` (M + 1,), ``pair`` (P,))
+    -> M."""
+    m = start.shape[0] - 1
+    _check(start, "start", torch.int32, (m + 1,), device)
+    _check(pair, "pair", torch.int32, (pair.shape[0],), device)
+    return m
+
+
+def launch_transpose_moments(points, start, pair, w, table, k: int) -> torch.Tensor:
+    """X4 on CUDA float32 tensors: the gradient of the neighbourhood moments
+    in the points, gathered through a transpose graph's CSR -> (M, 3).
+
+    :param points: (M, 3) positions the forward read.
+    :param start, pair: the CSR (``ops.features.TransposeGraph``), pair =
+        i * k + slot, P = start[M] pairs.
+    :param w: (P,) the pairs' frozen weights.
+    :param table: (rows, 12) per-row S (6), mean (3), mean cotangent over
+        the weight sum (3), on a 16-byte boundary.
+    """
+    global TRANSPOSE_MOMENTS_LAUNCHES
+    device = points.device
+    if device.type != "cuda":
+        raise ValueError("the transpose kernels take CUDA tensors, got %s" % device)
+    m = _check_csr(start, pair, device)
+    _check(points, "points", torch.float32, (m, 3), device)
+    _check(w, "w", torch.float32, (pair.shape[0],), device)
+    _check(table, "table", torch.float32, (table.shape[0], 12), device)
+    if table.data_ptr() % 16:
+        raise ValueError("transpose_moments: the table must start on a 16-byte boundary")
+    grad = torch.empty((m, 3), dtype=torch.float32, device=device)
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dc_transpose_moments(points.data_ptr(), m, start.data_ptr(), _ptr(pair),
+                                       _ptr(w), table.data_ptr(), int(k), grad.data_ptr(),
+                                       stream)
+    _check_launch(lib, err, "transpose_moments (M %d, P %d)" % (m, pair.shape[0]))
+    TRANSPOSE_MOMENTS_LAUNCHES += 1
+    return grad
+
+
+def launch_transpose_gather(g, start, pair) -> torch.Tensor:
+    """X5 on CUDA float32 tensors: ``g`` (slots, D), D 1 or 3, the cotangent
+    of a neighbour gather by slot ``i * K + k``, summed over each point's
+    CSR run -> (M, D)."""
+    global TRANSPOSE_GATHER_LAUNCHES
+    device = g.device
+    if device.type != "cuda":
+        raise ValueError("the transpose kernels take CUDA tensors, got %s" % device)
+    m = _check_csr(start, pair, device)
+    if g.dim() != 2 or g.shape[1] not in (1, 3):
+        raise ValueError("g has shape %s, expected (slots, 1) or (slots, 3)" % (tuple(g.shape),))
+    _check(g, "g", torch.float32, tuple(g.shape), device)
+    d = g.shape[1]
+    out = torch.empty((m, d), dtype=torch.float32, device=device)
+    lib = load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.dc_transpose_gather(_ptr(g), d, m, start.data_ptr(), _ptr(pair),
+                                      out.data_ptr(), stream)
+    _check_launch(lib, err, "transpose_gather (M %d, P %d, D %d)" % (m, pair.shape[0], d))
+    TRANSPOSE_GATHER_LAUNCHES += 1
+    return out
+
+
 def reset_launch_counts() -> None:
-    """Zero the launch counts kept here (X1, X2, X3, P2-P8, P7a and their
-    first versions, P1)."""
+    """Zero the launch counts kept here (X1-X5, P2-P8, P7a and their first
+    versions, P1)."""
+    global TRANSPOSE_MOMENTS_LAUNCHES, TRANSPOSE_GATHER_LAUNCHES
     global SLAB_LAUNCHES, GRID_LAUNCHES, KNN_LAUNCHES, GATHER_LAUNCHES, KNOCKOUT_LAUNCHES
     global DOT_LAUNCHES, WINDOW_LAUNCHES, LAYOUT_LAUNCHES, GATHER_SUM_LAUNCHES
     global GATHER_PROBE_LAUNCHES, KNN_V1_LAUNCHES, SLAB_V1_LAUNCHES, GRID_V1_LAUNCHES
@@ -1043,3 +1127,5 @@ def reset_launch_counts() -> None:
     LAYOUT_LAUNCHES = 0
     GATHER_PROBE_LAUNCHES = 0
     GATHER_PROBE_V1_LAUNCHES = 0
+    TRANSPOSE_MOMENTS_LAUNCHES = 0
+    TRANSPOSE_GATHER_LAUNCHES = 0

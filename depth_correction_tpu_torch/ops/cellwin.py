@@ -41,7 +41,8 @@ import torch
 
 from . import _kernels
 from .eigh3 import eigvals3_c
-from .features import _cotangent_table, neighborhood_moments
+from .features import TransposeGraph, _cotangent_table, build_transpose_graph, \
+    neighborhood_moments
 
 __all__ = [
     "BWD_LAUNCHES",
@@ -874,15 +875,26 @@ class CellWinDevice:
     exc_w: torch.Tensor  # (E, K) float32
     r2: float
     n_exc: int
+    # The exception rows' transpose over the m_pad padded points, for their
+    # gather moments' backward (X4); rebuilt after a prep-cache load.
+    exc_tg: Optional[TransposeGraph] = None
+
+
+def with_exc_transpose(dev: CellWinDevice) -> CellWinDevice:
+    """``dev`` with the transpose of its exception rows over its m_pad
+    points (JAX package, cellwin.py:1120-1133)."""
+    return dataclasses.replace(dev, exc_tg=build_transpose_graph(
+        dev.exc_nn, dev.perm.shape[0], dev.exc_w))
 
 
 def graph_to_device(g: CellWinGraph, device=None) -> CellWinDevice:
-    """Upload the host graph to ``device``."""
+    """Upload the host graph to ``device``, with the exception rows'
+    transpose."""
 
     def t(a, dtype):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
-    return CellWinDevice(
+    return with_exc_transpose(CellWinDevice(
         q_est=t(g.q_est, torch.float32),
         est_sorted=t(g.est_sorted, torch.float32),
         f_start=t(g.f_span_start, torch.int32),
@@ -899,7 +911,7 @@ def graph_to_device(g: CellWinGraph, device=None) -> CellWinDevice:
         exc_w=t(g.exc_nn >= 0, torch.float32),
         r2=float(g.r2),
         n_exc=int(g.n_exc),
-    )
+    ))
 
 
 class CellWinCore(torch.autograd.Function):
@@ -943,13 +955,14 @@ def cellwin_moments(pts_sorted, dev: CellWinDevice, plain: bool = False):
 
     Exception rows are recomputed by the gather moments and merged
     (JAX package, cellwin.py:1181-1190); ``index_copy`` routes their
-    gradients through the gather branch only.
+    gradients through the gather branch only, whose backward is X4 over
+    ``dev.exc_tg``.
     """
     raw = CellWinCore.apply(pts_sorted, dev, plain)
     mean = raw[0:3]
     comps = tuple(raw[3 + i] for i in range(6))
     if dev.n_exc:
-        em, ec = neighborhood_moments(pts_sorted, dev.exc_nn, dev.exc_w)
+        em, ec = neighborhood_moments(pts_sorted, dev.exc_nn, dev.exc_w, dev.exc_tg, plain)
         mean = mean.index_copy(1, dev.exc_slots, em)
         comps = tuple(c.index_copy(0, dev.exc_slots, e) for c, e in zip(comps, ec))
     return mean, comps

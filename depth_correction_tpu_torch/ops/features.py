@@ -9,9 +9,16 @@ mean/cov -> closed-form 3x3 eigenvalues (-> oriented normals -> incidence
 angles). Neighborhoods are (M, K) index matrices with -1 padding and
 (M, K) weights (0 on padding), frozen across optimization iterations.
 
-The gather engine's backward is plain torch autograd (an ``index_add``).
-The JAX package's bucketed transposes exist only because scatters
-serialize on the TPU and are not ported.
+The gather engine's backward runs over a transpose graph of the frozen
+neighbourhoods (:func:`build_transpose_graph`: a CSR of each point's
+referencing (row, slot) pairs, built once in prep): the moments' analytic
+VJP (:class:`NeighborhoodMoments`) is kernel X4 and the pair-level gather
+of ``nn_scale`` (:class:`GatherNeighborsTransposed`) kernel X5, both in
+``csrc/transpose_gather.cu``, on CUDA tensors; their plain versions
+(:func:`transpose_moments_plain`, :func:`transpose_gather_plain`) on CPU
+tensors. A gradient path without a transpose raises. The JAX package's
+padded (M, Kt) tables and their bucketing by in-degree pad for the TPU's
+lanes and are not ported: the CSR holds the same pairs in the same order.
 
 Moments that need no gradient (the online corrector, prep features, the
 viewpoint and direction dispersions of the trainability masks) go through
@@ -24,6 +31,7 @@ then the moments under the re-weighted weights.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -33,17 +41,26 @@ from . import _kernels
 from .eigh3 import eigh3, eigvals3_c
 
 __all__ = [
+    "GatherNeighborsTransposed",
+    "NeighborhoodMoments",
+    "TransposeGraph",
+    "build_transpose_graph",
     "compute_features",
     "dir_dispersion",
     "gather_moments",
     "gather_moments_plain",
     "gather_moments_v1",
     "gather_neighbors",
+    "gather_neighbors_transposed",
     "mean_depth",
     "mean_vp_dist",
     "neighborhood_features",
     "neighborhood_moments",
     "permute_rows",
+    "transpose_gather",
+    "transpose_gather_plain",
+    "transpose_moments",
+    "transpose_moments_plain",
     "vp_dispersion",
 ]
 
@@ -87,6 +104,149 @@ def gather_neighbors(values: torch.Tensor, neighbors: torch.Tensor):
     return values[torch.where(idx >= 0, idx, spread)]
 
 
+@dataclasses.dataclass(frozen=True)
+class TransposeGraph:
+    """Transpose of a frozen (Mq, K) neighbour graph in CSR form (the JAX
+    package's ``build_transpose_graph`` / ``_transpose_pairs_sized``,
+    features.py:88-143, :280-404): point j's referencing pairs are
+    ``pair[start[j]:start[j + 1]]``, each the linear slot ``i * k + slot``
+    of a row i whose neighbour ``slot`` is j, in ascending slot order (the
+    JAX package's stable argsort). ``w`` holds each pair's frozen weight
+    (None for a pair-level transpose built without weights)."""
+
+    start: torch.Tensor  # (M + 1,) int32
+    pair: torch.Tensor  # (P,) int32
+    w: Optional[torch.Tensor]  # (P,) float or None
+    k: int
+
+    @property
+    def num_points(self) -> int:
+        return self.start.shape[0] - 1
+
+    def targets(self) -> torch.Tensor:
+        """(P,) int64: each pair's target point."""
+        m = self.num_points
+        deg = (self.start[1:] - self.start[:-1]).long()
+        return torch.repeat_interleave(torch.arange(m, device=self.start.device), deg,
+                                       output_size=self.pair.shape[0])
+
+    def to(self, device=None, dtype=None) -> "TransposeGraph":
+        """Moved to ``device``; ``w`` cast to ``dtype`` (the run's float type)."""
+        w = None if self.w is None else self.w.to(device=device, dtype=dtype)
+        return TransposeGraph(start=self.start.to(device=device),
+                              pair=self.pair.to(device=device), w=w, k=self.k)
+
+
+def build_transpose_graph(neighbors: torch.Tensor, num_points: Optional[int] = None,
+                          weights: Optional[torch.Tensor] = None) -> TransposeGraph:
+    """The transpose of ``neighbors`` on its own device: one stable sort of
+    the Mq * K target keys (slots whose index is -1 or outside
+    [0, num_points) keyed past every point, so they are dropped, as
+    :func:`gather_moments_plain` drops them) and a ``searchsorted`` for the
+    runs; one scalar comes to the host (the pair count).
+
+    :param neighbors: (Mq, K) indices, -1 padded.
+    :param num_points: size of the point axis (default Mq).
+    :param weights: (Mq, K) frozen weights; each pair's is kept as ``w``.
+    """
+    mq, k = neighbors.shape
+    m = mq if num_points is None else int(num_points)
+    if m >= 2 ** 31 - 1 or mq * k >= 2 ** 31:
+        raise ValueError("a transpose graph indexes points and slots in int32: %d points, "
+                         "%d slots" % (m, mq * k))
+    j = neighbors.reshape(-1)
+    key = torch.where((j >= 0) & (j < m), j, m).to(torch.int32)
+    key_s, order = torch.sort(key, stable=True)
+    start = torch.searchsorted(key_s, torch.arange(m + 1, dtype=torch.int32,
+                                                   device=key.device)).to(torch.int32)
+    order = order[:int(start[-1])]
+    w = None if weights is None else weights.reshape(-1)[order]
+    return TransposeGraph(start=start, pair=order.to(torch.int32), w=w, k=int(k))
+
+
+# Pairs per chunk of the plain versions' (pairs, 12) intermediates.
+_PLAIN_PAIRS = 1 << 22
+
+
+def transpose_moments_plain(points, tg: TransposeGraph, table):
+    """Plain torch version of kernel X4, any device and dtype: for each
+    point j, grad_j = sum over its pairs (i, k) of w_ik (S_i (x_j - mu_i)
+    + h_i), with ``table`` rows (S00 S11 S22 S01 S02 S12, mu, h) from
+    :func:`_cotangent_rows`; a point with no pairs gets 0.
+
+    :return: (M, 3) in ``table``'s dtype.
+    """
+    dt = table.dtype
+    x = points.to(dt)
+    tgt = tg.targets()
+    rows = tg.pair.long() // tg.k
+    w = tg.w.to(dt)
+    out = torch.zeros((tg.num_points, 3), dtype=dt, device=table.device)
+    for c in range(0, rows.shape[0], _PLAIN_PAIRS):
+        sl = slice(c, c + _PLAIN_PAIRS)
+        t = table[rows[sl]]
+        d = x[tgt[sl]] - t[:, 6:9]
+        s00, s11, s22, s01, s02, s12 = t[:, :6].unbind(1)
+        g = torch.stack([s00 * d[:, 0] + s01 * d[:, 1] + s02 * d[:, 2],
+                         s01 * d[:, 0] + s11 * d[:, 1] + s12 * d[:, 2],
+                         s02 * d[:, 0] + s12 * d[:, 1] + s22 * d[:, 2]], 1) + t[:, 9:12]
+        out.index_add_(0, tgt[sl], w[sl, None] * g)
+    return out
+
+
+def transpose_moments(points, tg: TransposeGraph, table):
+    """X4 wrapper: the CUDA kernel for CUDA tensors (float32; anything else
+    raises), :func:`transpose_moments_plain` for CPU tensors."""
+    if points.device.type == "cpu":
+        return transpose_moments_plain(points, tg, table)
+    return _kernels.launch_transpose_moments(points.contiguous(), tg.start, tg.pair, tg.w,
+                                             table.contiguous(), tg.k)
+
+
+def transpose_gather_plain(g, tg: TransposeGraph):
+    """Plain torch version of kernel X5, any device and dtype: the (Mq, K)
+    or (Mq, K, D) cotangent of a neighbour gather summed over each point's
+    pairs -> (M,) or (M, D)."""
+    flat = g.reshape(-1, 1 if g.dim() == 2 else g.shape[-1])
+    out = flat.new_zeros((tg.num_points, flat.shape[1]))
+    out.index_add_(0, tg.targets(), flat[tg.pair.long()])
+    return out[:, 0] if g.dim() == 2 else out
+
+
+def transpose_gather(g, tg: TransposeGraph):
+    """X5 wrapper: the CUDA kernel for CUDA tensors (float32, D 1 or 3),
+    :func:`transpose_gather_plain` for CPU tensors."""
+    if g.device.type == "cpu":
+        return transpose_gather_plain(g, tg)
+    d = 1 if g.dim() == 2 else g.shape[-1]
+    out = _kernels.launch_transpose_gather(g.reshape(-1, d).contiguous(), tg.start, tg.pair)
+    return out[:, 0] if g.dim() == 2 else out
+
+
+class GatherNeighborsTransposed(torch.autograd.Function):
+    """:func:`gather_neighbors` whose backward sums the cotangent over the
+    transpose graph (the JAX package's ``gather_neighbors_transposed`` /
+    ``_gather_T``, features.py:406-471): X5, or its plain version with
+    ``plain`` or on CPU tensors. Padding slots get no gradient."""
+
+    @staticmethod
+    def forward(ctx, values, neighbors, tg: TransposeGraph, plain: bool):
+        ctx.tg, ctx.plain = tg, plain
+        return gather_neighbors(values, neighbors)
+
+    @staticmethod
+    def backward(ctx, g):
+        fn = transpose_gather_plain if ctx.plain else transpose_gather
+        return fn(g, ctx.tg), None, None, None
+
+
+def gather_neighbors_transposed(values, neighbors, tg: TransposeGraph, plain: bool = False):
+    """Per-neighbour values as :func:`gather_neighbors` gives them, with the
+    backward through ``tg`` (a transpose of ``neighbors`` over the rows of
+    ``values``)."""
+    return GatherNeighborsTransposed.apply(values, neighbors, tg, plain)
+
+
 # Row-chunk the moments past this many (Mq * K) pairs, bounding the
 # (chunk, K, 3) intermediates (the JAX package's _FWD_PAIRS_MAX).
 _FWD_PAIRS_MAX = 16_000_000
@@ -111,10 +271,14 @@ def _moments_impl(points, neighbors, weights):
 
 
 def _moments_impl_block(points, neighbors, weights):
-    """One row block: gather (Mq, K, 3), weighted mean, Bessel-corrected
-    covariance components (normalizer clamped at 1e-6)."""
-    nbr = gather_neighbors(points, neighbors)  # (Mq, K, 3)
-    w = weights.to(points.dtype)
+    """One row block: gather (Mq, K, 3), then :func:`_moments_of`."""
+    return _moments_of(gather_neighbors(points, neighbors), weights)
+
+
+def _moments_of(nbr, weights):
+    """Weighted mean and Bessel-corrected covariance components (normalizer
+    clamped at 1e-6) of gathered (Mq, K, 3) neighbours."""
+    w = weights.to(nbr.dtype)
     w_raw = w.sum(1)
     w_sum = torch.clamp(w_raw, min=1e-12)
     mean = (nbr * w[..., None]).sum(1) / w_sum[:, None]  # (Mq, 3)
@@ -147,16 +311,18 @@ def gather_moments_plain(points, neighbors, weights):
     return mean, torch.stack(comps), w_sum
 
 
-def gather_moments(points, neighbors, weights):
+def gather_moments(points, neighbors, weights, centred: bool = False):
     """P7 wrapper: the CUDA kernel for CUDA tensors (float32, forward only;
     anything else raises), :func:`gather_moments_plain` for CPU tensors.
     Same arguments and results as :func:`gather_moments_plain`; ``points``
-    may also be (3, N) (a (3, 3) table is read as (N, 3))."""
+    may also be (3, N) (a (3, 3) table is read as (N, 3)). ``centred``
+    takes P7's two-pass form, which sums the covariance about the mean as
+    the plain version does (the gather engine's differentiable forward)."""
     if points.device.type == "cpu":
         return gather_moments_plain(points if points.shape[1] == 3 else points.T,
                                     neighbors, weights)
     return _kernels.launch_gather_moments(points, neighbors.to(torch.int32).contiguous(),
-                                          weights.to(points.dtype).contiguous())
+                                          weights.to(points.dtype).contiguous(), centred)
 
 
 def gather_moments_v1(points, neighbors, weights):
@@ -166,17 +332,68 @@ def gather_moments_v1(points, neighbors, weights):
                                              weights.to(points.dtype).contiguous())
 
 
-def neighborhood_moments(points, neighbors, weights):
-    """Weighted mean + covariance components over frozen neighborhoods,
-    differentiable in ``points`` by torch autograd.
+class NeighborhoodMoments(torch.autograd.Function):
+    """Weighted neighbourhood moments with the analytic backward (the JAX
+    package's ``neighborhood_moments`` custom VJP, features.py:537-641).
+
+    Forward: P7 in its two-pass form (:func:`gather_moments` with
+    ``centred``: its float32 rounding is the plain version's, which the
+    eager forward had) on CUDA tensors, or :func:`gather_moments_plain` on
+    CPU tensors or with ``plain``.
+    Backward: the (Mq, 12) row table (:func:`_cotangent_rows`) and X4
+    (:func:`transpose_moments`), or its plain version, over the transpose
+    ``tg``. The weights are frozen: they get no gradient."""
+
+    @staticmethod
+    def forward(ctx, points, neighbors, weights, tg: TransposeGraph, plain: bool):
+        if plain or points.device.type == "cpu":
+            mean, comps, w_sum = gather_moments_plain(points, neighbors, weights)
+        else:
+            mean, comps, w_sum = gather_moments(points, neighbors, weights, centred=True)
+        ctx.save_for_backward(points, mean, w_sum)
+        ctx.tg, ctx.plain = tg, plain
+        return mean, comps
+
+    @staticmethod
+    def backward(ctx, g_mean, g_comps):
+        points, mean, w_sum = ctx.saved_tensors
+        table = _cotangent_rows(mean, w_sum, (g_mean, g_comps))
+        fn = transpose_moments_plain if ctx.plain else transpose_moments
+        return fn(points, ctx.tg, table).to(points.dtype), None, None, None, None
+
+
+def neighborhood_moments(points, neighbors, weights, tg: Optional[TransposeGraph] = None,
+                         plain: bool = False):
+    """Weighted mean + covariance components over frozen neighborhoods.
+
+    With a gradient (``points`` requires grad) through
+    :class:`NeighborhoodMoments` over the transpose ``tg``, which must then
+    be given; without one the moments of :func:`gather_moments` (or its
+    plain version with ``plain``).
 
     :param points: (M, 3) global positions.
     :param neighbors: (Mq, K) indices into points, -1 padded.
     :param weights: (Mq, K) frozen weights (0 on padding).
+    :param tg: :func:`build_transpose_graph` of ``neighbors`` over the M
+        points, with ``weights``.
     :return: (mean (3, Mq), comps (a00, a11, a22, a01, a02, a12) of (Mq,)).
     """
-    mean, comps, _ = _moments_impl(points, neighbors, weights)
-    return mean, comps
+    if torch.is_grad_enabled() and points.requires_grad:
+        if tg is None or tg.w is None:
+            raise ValueError("the moments' gradient needs the neighbour graph's transpose "
+                             "with its weights (build_transpose_graph(neighbors, num_points, "
+                             "weights))")
+        if tg.num_points != points.shape[0] or tg.k != neighbors.shape[1]:
+            raise ValueError("the transpose covers %d points and K %d; the moments have %d "
+                             "points and K %d" % (tg.num_points, tg.k, points.shape[0],
+                                                  neighbors.shape[1]))
+        if weights.requires_grad:
+            raise ValueError("neighborhood_moments takes frozen weights: they require grad")
+        mean, comps = NeighborhoodMoments.apply(points, neighbors, weights, tg, plain)
+        return mean, tuple(comps.unbind(0))
+    fn = gather_moments_plain if plain else gather_moments
+    mean, comps, _ = fn(points, neighbors, weights)
+    return mean, tuple(comps)
 
 
 def _cotangent_table(mean, w_sum, cotangents):
@@ -196,11 +413,36 @@ def _cotangent_table(mean, w_sum, cotangents):
     return torch.stack([s00, s11, s22, s01, s02, s12, u0, u1, u2], 0)
 
 
+def _cotangent_rows(mean, w_sum, cotangents):
+    """(Mq, 12) per-row backward table of X4, row-major: S00 S11 S22 S01
+    S02 S12 (the symmetric cotangent matrix over the Bessel normaliser,
+    diagonal doubled as in :func:`_cotangent_table`), the mean (3) and the
+    mean's cotangent over the weight sum (3). X4 keeps S (x_j - mu) centred
+    where the JAX package folds S mu into u (float32 cancellation far from
+    the origin)."""
+    g_mean, g_comps = cotangents
+    denom = torch.clamp(w_sum - 1.0, min=1e-6)
+    scale = torch.tensor([2.0, 2.0, 2.0, 1.0, 1.0, 1.0], dtype=mean.dtype, device=mean.device)
+    s = g_comps * scale[:, None] / denom
+    return torch.cat([s, mean, g_mean / w_sum], 0).T.contiguous()
+
+
 def _query_points(points, neighbors, query_rows):
     """Each query row's own position: ``points[query_rows]`` (-1 rows read
-    row 0), or ``points`` itself when the rows are the whole table."""
+    row 0), or ``points`` itself when the rows are the whole table. Under
+    autograd the gather is :func:`permute_rows`, whose backward gathers
+    through the inverse (each point is at most one row's query, as prep's
+    compacted rows are; a -1 row's gradient, zero through its zero
+    weights, is dropped) rather than scattering."""
     if query_rows is not None:
-        return points[query_rows.clamp(min=0).long()]
+        rows = query_rows.clamp(min=0).long()
+        if not (torch.is_grad_enabled() and points.requires_grad):
+            return points[rows]
+        n = points.shape[0]
+        inv = torch.full((n + 1,), -1, dtype=torch.long, device=points.device)
+        inv.scatter_(0, torch.where(query_rows >= 0, rows, n),
+                     torch.arange(rows.shape[0], device=points.device))
+        return permute_rows(points, rows, inv[:n])
     if neighbors.shape[0] == points.shape[0]:
         return points
     raise ValueError("nn_scale needs query positions: got %d query rows over a "
@@ -219,7 +461,7 @@ def _gaussian_weights(weights, qpts, mean, scale: float):
 def neighborhood_features(points, neighbors, weights, dirs=None,
                           scale: Optional[float] = None,
                           compute_normals: bool = True, plain: bool = False,
-                          query_rows=None):
+                          query_rows=None, tg: Optional[TransposeGraph] = None):
     """Weighted neighborhood statistics for each query row.
 
     :param points: (N, 3) cloud positions.
@@ -234,10 +476,14 @@ def neighborhood_features(points, neighbors, weights, dirs=None,
         the gradient flows through the re-weighting.
     :param compute_normals: skip the eigenvector path when False (the
         min-eigval / trace losses only need eigenvalues).
-    :param plain: without a gradient, take :func:`gather_moments_plain`
-        on any device and dtype instead of :func:`gather_moments`.
+    :param plain: the plain versions of the kernels (P7, X4, X5) on any
+        device and dtype (reference runs).
     :param query_rows: (M,) each query row's position in ``points`` (-1 on
         padding rows), needed by ``scale`` when M != N.
+    :param tg: the transpose of ``neighbors`` over the N points
+        (:func:`build_transpose_graph`, with ``weights``), needed when
+        ``points`` requires grad: the moments' backward is X4 over it, and
+        with ``scale`` the gather's backward X5.
     :return: dict with mean, weights (re-weighted with ``scale``), trace,
         eigvals and, with normals, cov, eigvecs, normals, inc_angles.
     """
@@ -245,12 +491,19 @@ def neighborhood_features(points, neighbors, weights, dirs=None,
         weights = weights[..., 0]
     if torch.is_grad_enabled() and points.requires_grad:
         if scale is not None:
-            nbr = gather_neighbors(points, neighbors)
+            # The weights move with the points: one gather, differentiated
+            # through the transpose (X5), and the moments by autograd over it.
+            if tg is None:
+                raise ValueError("nn_scale's gradient needs the neighbour graph's transpose "
+                                 "(build_transpose_graph(neighbors, num_points))")
+            nbr = gather_neighbors_transposed(points, neighbors, tg, plain)
             w = weights.to(points.dtype)
             mean = ((nbr * w[..., None]).sum(1) / torch.clamp(w.sum(1), min=1e-12)[:, None]).T
             weights = _gaussian_weights(w, _query_points(points, neighbors, query_rows),
                                         mean, scale)
-        mean, comps = neighborhood_moments(points, neighbors, weights)
+            mean, comps, _ = _moments_of(nbr, weights)
+        else:
+            mean, comps = neighborhood_moments(points, neighbors, weights, tg, plain)
     else:
         fn = gather_moments_plain if plain else gather_moments
         if scale is not None:

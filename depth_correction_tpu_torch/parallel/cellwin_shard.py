@@ -18,10 +18,11 @@ kernels and no new one:
   builder's row sentinel in ``q_est``, the far sentinel in ``est_sorted``,
   ``row_map`` -1;
 - exception rows split by the rank that owns their row slot and go through
-  the gather moments, as ``ops.cellwin.cellwin_moments`` routes them.
-  Each rank keeps its own rows (torch takes tables of any length a rank),
-  and runs the branch even with none, so that every rank's autograd graph
-  has the same collectives.
+  the gather moments, as ``ops.cellwin.cellwin_moments`` routes them, with
+  the transpose of the rank's rows over the padded points for X4. Each
+  rank keeps its own rows (torch takes tables of any length a rank), and
+  runs the branch even with none, so that every rank's autograd graph has
+  the same collectives.
 
 K1 reads the spans' global point slots and K2 the spans' global row slots
 (``ops/_kernels.py``: ``row_cap = mq_pad // t1``, ``pt_cap = m_pad //
@@ -32,12 +33,14 @@ contiguous at sharding time (``est_local`` beside the full
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from ..ops.cellwin import CellWinDevice, cellwin_bwd, cellwin_fwd
 from ..ops.eigh3 import eigvals3_c
-from ..ops.features import _cotangent_table, neighborhood_moments
+from ..ops.features import TransposeGraph, _cotangent_table, build_transpose_graph, \
+    neighborhood_moments
 from .collectives import gather_detached
 
 __all__ = ["CellWinShards", "cellwin_features_sharded", "cellwin_moments_sharded",
@@ -83,6 +86,8 @@ class CellWinShards:
     n_exc: int
     pt_start: int
     mesh: object = None
+    # The rank's exception rows' transpose over the padded points.
+    exc_tg: Optional[TransposeGraph] = None
 
 
 def _pad_rows(x: torch.Tensor, rows: int, fill=0) -> torch.Tensor:
@@ -123,6 +128,7 @@ def shard_cellwin_device(dev: CellWinDevice, mesh, rank: int = None,
     est = _pad_cols(dev.est_sorted[:3], t2p * p_cap, _PT_PAD).contiguous()
     slots = dev.exc_slots
     mine = (slots >= row0) & (slots < row0 + mq_l)
+    exc_nn, exc_w = dev.exc_nn[mine].clone(), dev.exc_w[mine].clone()
     return CellWinShards(
         q_est=q_est[:, row0:row0 + mq_l].contiguous(),
         est_sorted=est,
@@ -137,9 +143,10 @@ def shard_cellwin_device(dev: CellWinDevice, mesh, rank: int = None,
         inv=dev.inv.clone(),
         row_map=rows(dev.row_map, mq_l, mq_l, -1),
         exc_slots=(slots[mine] - row0).clone(),
-        exc_nn=dev.exc_nn[mine].clone(),
-        exc_w=dev.exc_w[mine].clone(),
-        r2=dev.r2, n_exc=int(dev.n_exc), pt_start=pt0, mesh=mesh)
+        exc_nn=exc_nn,
+        exc_w=exc_w,
+        r2=dev.r2, n_exc=int(dev.n_exc), pt_start=pt0, mesh=mesh,
+        exc_tg=build_transpose_graph(exc_nn, t2p * p_cap, exc_w))
 
 
 def sharded_fwd(pts_full, sh: CellWinShards) -> torch.Tensor:
@@ -202,7 +209,7 @@ def cellwin_moments_sharded(pts_full, sh: CellWinShards):
     mean = raw[0:3]
     comps = tuple(raw[3 + i] for i in range(6))
     if sh.n_exc:
-        em, ec = neighborhood_moments(pts_full, sh.exc_nn, sh.exc_w)
+        em, ec = neighborhood_moments(pts_full, sh.exc_nn, sh.exc_w, sh.exc_tg)
         mean = mean.index_copy(1, sh.exc_slots, em)
         comps = tuple(c.index_copy(0, sh.exc_slots, e) for c, e in zip(comps, ec))
     return mean, comps
@@ -241,12 +248,15 @@ def rehearse(pts_sorted, dev: CellWinDevice, size: int, g_raw):
 
 
 def shard_tables_bytes(sh: CellWinShards) -> dict:
-    """Bytes of the rank's row-side and point-side tables, and of the
-    tables every rank holds whole (``est_sorted``, ``perm``, ``inv``)."""
+    """Bytes of the rank's row-side and point-side tables (the exception
+    rows' transpose pairs among the rows), and of the tables every rank
+    holds whole (``est_sorted``, ``perm``, ``inv``, the transpose's run
+    starts)."""
     def nb(*ts):
         return int(sum(t.numel() * t.element_size() for t in ts))
 
+    tg = sh.exc_tg
     return {"rows": nb(sh.q_est, sh.f_start, sh.f_len, sh.f_ctr, sh.row_map, sh.exc_slots,
-                       sh.exc_nn, sh.exc_w),
+                       sh.exc_nn, sh.exc_w, *((tg.pair, tg.w) if tg is not None else ())),
             "points": nb(sh.est_local, sh.b_start, sh.b_len, sh.b_ctr),
-            "whole": nb(sh.est_sorted, sh.perm, sh.inv)}
+            "whole": nb(sh.est_sorted, sh.perm, sh.inv, *((tg.start,) if tg is not None else ()))}

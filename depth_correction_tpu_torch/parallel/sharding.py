@@ -23,10 +23,13 @@ rank, the size and the device, and stands where the JAX package passes its
   optimizers, L-BFGS's line search included, take the same branch on
   every rank.
 
-The JAX package's per-shard transpose graphs (``_stacked_shard_transposes``)
-and the uniform padding of each shard's exception rows exist for XLA's
-scatter and shard_map's uniform operands; the port's gathers take torch
-autograd's ``index_add`` backward and each rank keeps its own tables.
+Each rank builds the transposes of its own rows (the gather path's graph
+and the offset's, over all S * N points, and a cell-window graph's
+exception rows over its padded points) for the backward kernels X4 / X5,
+as the JAX package builds per-shard transposes (sharding.py:221-365). Its
+uniform padding of every shard's transposes and exception rows to one
+length serves shard_map's uniform operands and is not ported: each rank
+keeps tables of its own length.
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import Config, NeighborhoodType, PoseCorrection
+from ..ops.features import build_transpose_graph
 from .cellwin_shard import CellWinShards, cellwin_features_sharded, shard_cellwin_device, \
     shard_tables_bytes
 from .collectives import all_gather_rows, all_reduce_sum, gather_detached, sum_over_ranks, \
@@ -253,7 +257,7 @@ def shard_train_data(data, mesh: DataMesh):
         return tuple(vals) + (None,) * (n_seq - len(vals))
 
     neighbors, weights, masks, qrows = [], [], [], []
-    cellwin, off_nn, off_w = [], [], []
+    cellwin, off_nn, off_w, tgs, otgs = [], [], [], [], []
     for i, (nn, w, m, qr, cw, onn, ow) in enumerate(zip(
             per_seq("neighbors"), per_seq("weights"), per_seq("masks"), per_seq("query_rows"),
             per_seq("cellwin"), per_seq("off_neighbors"), per_seq("off_weights"))):
@@ -266,7 +270,10 @@ def shard_train_data(data, mesh: DataMesh):
             cellwin.append(None)
             off_nn.append(None)
             off_w.append(None)
+            tgs.append(None)
+            otgs.append(None)
             continue
+        n_points = data.batches[i].cloud.depth.numel()
         if cw is not None:
             sh = shard_cellwin_device(cw, mesh)
             # The graph's row_map carries the rows' mask; the compacted
@@ -289,21 +296,30 @@ def shard_train_data(data, mesh: DataMesh):
             cellwin.append(None)
         off_nn.append(_split(onn, mesh, 0, -1))
         off_w.append(_split(ow, mesh, 0, 0))
+        # The rank's rows' transposes over every point (the backward's X4 /
+        # X5 sum each point's pairs among this rank's rows; the position
+        # gather's backward adds the ranks' parts).
+        tgs.append(None if neighbors[-1] is None
+                   else build_transpose_graph(neighbors[-1], n_points, weights[-1]))
+        otgs.append(None if off_nn[-1] is None
+                    else build_transpose_graph(off_nn[-1], n_points, off_w[-1]))
     icp_idx = tuple(_split(x, mesh, 1, 0) for x in (data.icp_idx or ()))
     icp_w = tuple(_split(x, mesh, 1, False) for x in (data.icp_w or ()))
     return dataclasses.replace(
         data, batches=tuple(_split_batch(b, mesh) for b in data.batches),
         neighbors=tuple(neighbors), weights=tuple(weights), masks=tuple(masks),
         query_rows=tuple(qrows), cellwin=tuple(cellwin), off_neighbors=tuple(off_nn),
-        off_weights=tuple(off_w), icp_idx=icp_idx, icp_w=icp_w, mesh=mesh)
+        off_weights=tuple(off_w), icp_idx=icp_idx, icp_w=icp_w, mesh=mesh,
+        transposes=tuple(tgs), off_transposes=tuple(otgs))
 
 
 def resident_bytes(data) -> dict:
     """Bytes of this rank's per-point tables (``points``: the scan
     batches' fields), its row tables (``rows``: neighbours, weights,
     masks, query rows, the offset graph, ICP correspondences, plane
-    members and a cell-window graph's row and point tiles) and the
-    cell-window tables every rank holds whole (``whole``)."""
+    members, a cell-window graph's row and point tiles and the transposes'
+    pairs) and the tables every rank holds whole (``whole``: the
+    cell-window graph's, the transposes' run starts)."""
     def nb(x):
         if x is None:
             return 0
@@ -319,6 +335,10 @@ def resident_bytes(data) -> dict:
     for field in ("neighbors", "weights", "masks", "query_rows", "off_neighbors",
                   "off_weights", "icp_idx", "icp_w"):
         out["rows"] += sum(nb(x) for x in (getattr(data, field, ()) or ()))
+    for tg in (data.transposes or ()) + (data.off_transposes or ()):
+        if tg is not None:
+            out["rows"] += nb(tg.pair) + nb(tg.w)
+            out["whole"] += nb(tg.start)
     for cw in data.cellwin or ():
         if isinstance(cw, CellWinShards):
             t = shard_tables_bytes(cw)
@@ -415,13 +435,14 @@ def make_sharded_loss_fn(cfg: Config, mesh: DataMesh):
         else:
             feats = neighborhood_features(points, data.neighbors[i], data.weights[i],
                                           scale=cfg.nn_scale, compute_normals=False,
-                                          query_rows=data.query_rows[i])
+                                          query_rows=data.query_rows[i],
+                                          tg=data.transposes[i])
             mask = data.masks[i]
         off = None
         if onn is not None:
             # Unscaled, as the single-device offset (train.make_loss_fn).
             f = neighborhood_features(full[:, 3:], onn, data.off_weights[i],
-                                      compute_normals=False)
+                                      compute_normals=False, tg=data.off_transposes[i])
             off = pointwise_loss(FeatureRows(eigvals=f["eigvals"], trace=f["trace"]), trace,
                                  normalization)
         rows = FeatureRows(eigvals=feats["eigvals"], trace=feats["trace"], valid=mask)

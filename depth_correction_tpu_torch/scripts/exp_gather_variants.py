@@ -57,8 +57,8 @@ KNOCKOUTS = {
         ("if (ok[q]) load_point<kPacked>(pts, sp, sc, id[q], x[q], y[q], z[q]);",
          "if (ok[q]) { x[q] = id[q] * 1e-6f; y[q] = id[q] * 2e-6f; z[q] = id[q] * 3e-6f; }")]),
     "new_no_butterfly": ("gather_moments.cu", [
-        ("  for (int off = G / 2; off > 0; off >>= 1) {\n#pragma unroll\n    for (int c",
-         "  for (int off = G / 2; off > G; off >>= 1) {\n#pragma unroll\n    for (int c")]),
+        ("    for (int off = G / 2; off > 0; off >>= 1) {\n#pragma unroll\n      for (int c",
+         "    for (int off = G / 2; off > G; off >>= 1) {\n#pragma unroll\n      for (int c")]),
     "new_no_shift_search": ("gather_moments.cu", [
         ("if (__any_sync(kFull, !found)) {", "if (false) {")]),
 }

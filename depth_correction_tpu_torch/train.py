@@ -11,7 +11,8 @@ masks, the cell-window graph) happens once; each step then runs
 The port trains the min-eigenvalue, trace and ICP objectives with Adam,
 SGD or L-BFGS (``optim.LBFGS``: optax's algorithm with its strong-Wolfe
 zoom line search) on one device, over the uncapped graph (the cell-window
-kernels) or a capped one (gather moments by torch autograd), with the
+kernels) or a capped one (gather moments: P7 forward, X4 backward over the
+graph's transpose), with the
 dynamic loss offset (``loss_offset``: the local clouds' pointwise loss
 under the current model subtracted), the Gaussian re-weighting
 (``nn_scale``), pose corrections (``pose_correction`` none, common,
@@ -29,9 +30,12 @@ holding 1/D of every per-point table (``parallel/``); rank 0 writes the
 run's files. With ``profile_dir`` the loop writes a ``torch.profiler``
 trace of iterations 2 to 6.
 
-The JAX package's bucketed and pair transposes of the offset and
-``nn_scale`` gathers are TPU workarounds (scatters serialise there); the
-port's gathers take torch autograd's ``index_add`` backward.
+Prep builds, for the gather path, the transpose of each sequence's graph
+and of the offset's graph (``ops.features.build_transpose_graph``, a CSR
+on the device): the backward of the gather moments is kernel X4 over it,
+and under ``nn_scale`` the gather's backward kernel X5. The JAX package's
+bucketing of those transposes by in-degree pads for the TPU's lanes and
+is not ported.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ import torch
 from .config import Config, NeighborhoodType, PoseCorrection
 from .loss import create_loss, pointwise_loss
 from .models import load_model, model_state, save_state_file
+from .ops.features import TransposeGraph, build_transpose_graph
 from .ops.filters import global_cloud_mask
 from .optim import LBFGS, Adam
 from .preproc import (
@@ -188,6 +193,13 @@ class TrainData:
     # The rank's data mesh (parallel.sharding.DataMesh) once
     # parallel.shard_train_data has split the tables; None on one device.
     mesh: object = None
+    # The gather path's transposes (ops.features.TransposeGraph) of
+    # ``neighbors[i]`` over the sequence's points and of ``off_neighbors[i]``
+    # over its local points, for the backward; None on the cell-window
+    # path, in plane and ICP mode, without a gradient (for_grad False) and
+    # before parallel.shard_train_data builds each rank's own.
+    transposes: tuple = ()
+    off_transposes: tuple = ()
 
     def to(self, device=None, dtype=None) -> "TrainData":
         """Move to ``device`` and cast the floating point clouds and
@@ -208,7 +220,7 @@ class TrainData:
             return dataclasses.replace(cw, **{
                 f.name: getattr(cw, f.name).to(device=device)
                 for f in dataclasses.fields(cw)
-                if isinstance(getattr(cw, f.name), torch.Tensor)
+                if isinstance(getattr(cw, f.name), (torch.Tensor, TransposeGraph))
             })
 
         return TrainData(
@@ -225,6 +237,8 @@ class TrainData:
             icp_idx=tuple(mv(x) for x in self.icp_idx),
             icp_w=tuple(mv(x) for x in self.icp_w),
             mesh=self.mesh,
+            transposes=tuple(mv(x) for x in self.transposes),
+            off_transposes=tuple(mv(x) for x in self.off_transposes),
         )
 
 
@@ -330,11 +344,12 @@ def prepare_sequences(datasets, cfg: Config, for_grad: bool = True, mesh=None) -
     use_cellwin = _use_cellwin(cfg, for_grad) and cfg.nn_type != NeighborhoodType.plane
     icp_mode = cfg.loss == "icp_loss"
     cache_dir = cfg.prep_cache_dir
+    transposes, off_transposes = [], []
     for ds in datasets:
         t = time.perf_counter()
         scans = [(scan, pose) for scan, pose in ds]
         t = _tick(seconds, "load_scans", t, device)
-        fp = None
+        fp = rec = None
         if cache_dir:
             from .utils.prep_cache import load_record, sequence_fingerprint
 
@@ -342,23 +357,50 @@ def prepare_sequences(datasets, cfg: Config, for_grad: bool = True, mesh=None) -
             rec = load_record(cache_dir, fp, device)
             if rec is not None:
                 print("[prep] sequence reloaded from prep cache (%s)" % fp, file=sys.stderr)
-                for f in _RECORD_FIELDS:
-                    out[f].append(rec[f])
-                t = _tick(seconds, "cache_load", t, device)
-                continue
-        rec = _prepare_sequence(scans, cfg, use_cellwin, icp_mode, seconds, t, device, mesh)
-        del scans
-        if fp is not None:
-            from .utils.prep_cache import save_record
+                _tick(seconds, "cache_load", t, device)
+        if rec is None:
+            rec = _prepare_sequence(scans, cfg, use_cellwin, icp_mode, seconds, t, device, mesh)
+            if fp is not None:
+                from .utils.prep_cache import save_record
 
-            t = time.perf_counter()
-            save_record(cache_dir, fp, rec)
-            _tick(seconds, "cache_save", t, device)
+                t = time.perf_counter()
+                save_record(cache_dir, fp, rec)
+                _tick(seconds, "cache_save", t, device)
+        del scans
+        tg, otg = _sequence_transposes(rec, for_grad and mesh is None, seconds, device)
+        transposes.append(tg)
+        off_transposes.append(otg)
         for f in _RECORD_FIELDS:
             out[f].append(rec[f])
     for part, s in seconds.items():
         print("[prep] %s: %.3f s" % (part, s), file=sys.stderr)
-    return TrainData(prep_seconds=seconds, **{f: tuple(v) for f, v in out.items()})
+    return TrainData(prep_seconds=seconds, transposes=tuple(transposes),
+                     off_transposes=tuple(off_transposes),
+                     **{f: tuple(v) for f, v in out.items()})
+
+
+def _sequence_transposes(rec: dict, for_grad: bool, seconds: dict, device) -> tuple:
+    """The transposes of one sequence's gather graph and offset graph over
+    its S * N points, for the backward (``(None, None)`` where no gather
+    is differentiated, or under a mesh, where parallel.shard_train_data
+    builds each rank's), timed as ``transpose``. A cell-window graph
+    reloaded from the prep cache gets its exception rows' transpose back
+    (the cache does not store transposes)."""
+    from .ops import cellwin as cwin
+
+    t = time.perf_counter()
+    tg = otg = None
+    cw, nn = rec["cellwin"], rec["neighbors"]
+    if cw is not None and cw.exc_tg is None:
+        rec["cellwin"] = cwin.with_exc_transpose(cw)
+    if for_grad and rec["batches"] is not None:
+        m = rec["batches"].cloud.depth.numel()
+        if cw is None and isinstance(nn, torch.Tensor):
+            tg = build_transpose_graph(nn, m, rec["weights"])
+        if rec["off_neighbors"] is not None:
+            otg = build_transpose_graph(rec["off_neighbors"], m, rec["off_weights"])
+    _tick(seconds, "transpose", t, device)
+    return tg, otg
 
 
 def _prepare_sequence(scans, cfg: Config, use_cellwin: bool, icp_mode: bool, seconds: dict,
@@ -530,15 +572,16 @@ def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
     normalization = bool((cfg.loss_kwargs or {}).get("normalization"))
     trace = cfg.loss == "trace_loss"
 
-    def local_offset(model, batch, onn, ow):
+    def local_offset(model, batch, onn, ow, otg):
         """The local clouds' pointwise loss under the current model (JAX
         package, train.py:744-768; reference: preproc.py:67-77,
         loss.py:279-281), unscaled even with ``nn_scale`` (the reference
-        re-weights the global cloud only)."""
+        re-weights the global cloud only); its backward through the offset
+        graph's transpose ``otg``."""
         from .ops.features import neighborhood_features
 
         f = neighborhood_features(offset_cloud(batch, model).get_points(), onn, ow,
-                                  compute_normals=False, plain=plain)
+                                  compute_normals=False, plain=plain, tg=otg)
         return pointwise_loss(FeatureRows(eigvals=f["eigvals"], trace=f["trace"]), trace,
                               normalization)
 
@@ -570,13 +613,15 @@ def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
                 f = neighborhood_features(gcloud.get_points(), data.neighbors[i],
                                           data.weights[i], scale=cfg.nn_scale,
                                           compute_normals=False, plain=plain,
-                                          query_rows=data.query_rows[i])
+                                          query_rows=data.query_rows[i],
+                                          tg=data.transposes[i] if data.transposes else None)
                 mask = data.masks[i]
             seq_masks.append(mask)
             feats.append(FeatureRows(eigvals=f["eigvals"], trace=f["trace"], valid=mask))
             onn = data.off_neighbors[i] if data.off_neighbors else None
-            offsets.append(None if onn is None
-                           else local_offset(model, batch, onn, data.off_weights[i]))
+            offsets.append(None if onn is None else local_offset(
+                model, batch, onn, data.off_weights[i],
+                data.off_transposes[i] if data.off_transposes else None))
         value, _ = loss_fun(feats, mask=seq_masks,
                             offset=offsets if any(o is not None for o in offsets) else None)
         return value

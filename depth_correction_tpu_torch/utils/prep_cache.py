@@ -18,6 +18,11 @@ the cell-window graph) instead of building them again.
   build; an entry that does not unpickle is rebuilt.
 - Entries are keyed by this package's :data:`CACHE_VERSION` and are not
   meant to be read by the JAX package.
+- Transpose graphs (``ops.features.TransposeGraph``) are not stored: a
+  cell-window graph's exception-row transpose is written as None, and
+  ``prepare_sequences`` builds the transposes on the device after a load
+  as after a build, so entries and fingerprints are those of a prep
+  without transposes.
 """
 from __future__ import annotations
 
@@ -31,6 +36,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..ops.features import TransposeGraph
 
 __all__ = ["CACHE_VERSION", "load_record", "save_record", "sequence_fingerprint"]
 
@@ -105,6 +112,8 @@ class _Tensor:
 
 
 def _to_host(x):
+    if isinstance(x, TransposeGraph):
+        return None
     if isinstance(x, torch.Tensor):
         return _Tensor(x.detach().cpu().numpy())
     if dataclasses.is_dataclass(x) and not isinstance(x, type):

@@ -2045,3 +2045,169 @@ def test_cuda_sharded_cellwin_matches_single(cuda_device, size):
                                            valid_query=valid[lo:hi]))
     assert torch.equal(torch.cat([x[0] for x in parts]), d1)
     assert torch.equal(torch.cat([x[1] for x in parts]), i1)
+
+
+# ---------------------------------------------------------------------------
+# The gather engine's backward over a transpose graph: X4 (the moments' VJP)
+# and X5 (the pair gather's VJP).
+
+
+def _transpose_case(case: str, device, seed: int = 0):
+    """(points (M, 3) float32, neighbors, weights float32, M) of one
+    seeded graph: ``empty`` (no pair), ``in_degree_0`` (half the points
+    referenced by no row), ``hub`` (a point in 500 pairs), ``k32`` (32
+    columns, -1 padded) or ``uncapped`` (a within-r table of its widest
+    row)."""
+    rng = np.random.default_rng(seed)
+    m = 6000
+    pts = rng.uniform(-3, 3, (m, 3)) + np.array([400.0, -250.0, 30.0])
+    if case == "empty":
+        nn = np.full((200, 32), -1)
+    elif case == "in_degree_0":
+        nn = rng.integers(0, m // 2, (4000, 32))
+        nn[rng.uniform(size=nn.shape) < 0.2] = -1
+    elif case == "hub":
+        nn = rng.integers(0, m, (4000, 32))
+        nn[:500, 5] = 11
+    elif case == "k32":
+        nn = rng.integers(-1, m, (5000, 32))
+    elif case == "uncapped":
+        nn = uncapped_graph(pts, 0.5)
+    else:
+        raise ValueError(case)
+    w = (nn >= 0) * rng.uniform(0.5, 1.5, nn.shape)
+
+    def t(a, dtype):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    return t(pts, torch.float32), t(nn, torch.int64), t(w, torch.float32), m
+
+
+TRANSPOSE_CASES = ["empty", "in_degree_0", "hub", "k32", "uncapped"]
+
+
+def test_transpose_wrappers_never_take_the_plain_path(monkeypatch):
+    """Non-CPU tensors go to the X4 / X5 launchers, never to the plain
+    versions; the launchers refuse CPU tensors and count nothing then."""
+    calls = []
+
+    def fake_launch(*args, **kw):
+        calls.append(args)
+        raise RuntimeError("launched")
+
+    for name in ("launch_transpose_moments", "launch_transpose_gather"):
+        monkeypatch.setattr(_kernels, name, fake_launch)
+    pts, nn, w, m = _transpose_case("k32", "cpu")
+    tg = tfeat.build_transpose_graph(nn, m, w).to("meta")
+    with pytest.raises(RuntimeError, match="launched"):
+        tfeat.transpose_moments(pts.to("meta"), tg, torch.zeros((nn.shape[0], 12), device="meta"))
+    with pytest.raises(RuntimeError, match="launched"):
+        tfeat.transpose_gather(torch.zeros(tuple(nn.shape) + (3,), device="meta"), tg)
+    assert len(calls) == 2
+    monkeypatch.undo()
+    before = (_kernels.TRANSPOSE_MOMENTS_LAUNCHES, _kernels.TRANSPOSE_GATHER_LAUNCHES)
+    tg = tfeat.build_transpose_graph(nn, m, w)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch_transpose_moments(pts, tg.start, tg.pair, tg.w,
+                                          torch.zeros((nn.shape[0], 12)), tg.k)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch_transpose_gather(torch.zeros((nn.numel(), 3)), tg.start, tg.pair)
+    assert (_kernels.TRANSPOSE_MOMENTS_LAUNCHES, _kernels.TRANSPOSE_GATHER_LAUNCHES) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRANSPOSE_CASES)
+def test_cuda_transpose_moments_matches_plain(cuda_device, case):
+    """X4 against its plain version in float64 on the same inputs, within
+    GRAD_REL_BAR of max |grad|; two launches bit-equal (no atomics); a point
+    with no pairs exactly 0."""
+    pts, nn, w, m = _transpose_case(case, cuda_device)
+    tg = tfeat.build_transpose_graph(nn, m, w)
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    mean, comps, w_sum = tfeat.gather_moments(pts, nn, w)
+    cot = (torch.randn(mean.shape, generator=gen, device=cuda_device),
+           torch.randn(comps.shape, generator=gen, device=cuda_device))
+    table = tfeat._cotangent_rows(mean, w_sum, cot)
+    before = _kernels.TRANSPOSE_MOMENTS_LAUNCHES
+    got = tfeat.transpose_moments(pts, tg, table)
+    again = tfeat.transpose_moments(pts, tg, table)
+    torch.cuda.synchronize()
+    assert _kernels.TRANSPOSE_MOMENTS_LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    ref = tfeat.transpose_moments_plain(pts.double(), tg.to(dtype=torch.float64),
+                                        table.double())
+    deg = tg.start[1:] - tg.start[:-1]
+    assert torch.equal(got[deg == 0], torch.zeros_like(got[deg == 0]))
+    err = float((got.double() - ref).abs().max())
+    assert err <= GRAD_REL_BAR * max(float(ref.abs().max()), 1e-30)
+    if case == "hub":
+        assert int(deg[11]) >= 500
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", TRANSPOSE_CASES)
+@pytest.mark.parametrize("dim", [1, 3])
+def test_cuda_transpose_gather_matches_plain(cuda_device, case, dim):
+    """X5 against its plain version in float64, D = 1 and 3, within
+    GRAD_REL_BAR of max |grad|; two launches bit-equal."""
+    _, nn, _, m = _transpose_case(case, cuda_device)
+    tg = tfeat.build_transpose_graph(nn, m)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    g = torch.randn(tuple(nn.shape) + ((dim,) if dim == 3 else ()), generator=gen,
+                    device=cuda_device)
+    before = _kernels.TRANSPOSE_GATHER_LAUNCHES
+    got, again = tfeat.transpose_gather(g, tg), tfeat.transpose_gather(g, tg)
+    torch.cuda.synchronize()
+    assert _kernels.TRANSPOSE_GATHER_LAUNCHES == before + 2
+    assert torch.equal(got, again)
+    ref = tfeat.transpose_gather_plain(g.double(), tg)
+    assert got.shape == ref.shape
+    err = float((got.double() - ref).abs().max())
+    assert err <= GRAD_REL_BAR * max(float(ref.abs().max()), 1e-30)
+
+
+@pytest.mark.cuda
+def test_cuda_moments_gradient_takes_x4(cuda_device):
+    """neighborhood_moments on the card: P7 forward, X4 backward, once
+    each; the gradient within GRAD_REL_BAR of the float64 plain path;
+    without a transpose the gradient path raises."""
+    pts, nn, w, m = _transpose_case("uncapped", cuda_device)
+    tg = tfeat.build_transpose_graph(nn, m, w)
+    gw = torch.randn(nn.shape[0], generator=torch.Generator(device=cuda_device).manual_seed(6),
+                     device=cuda_device, dtype=torch.float64)
+
+    def objective(p, tg, plain):
+        mean, comps = tfeat.neighborhood_moments(p, nn, w, tg, plain=plain)
+        return (gw * (comps[0] + 0.3 * comps[4] + 0.01 * mean[2])).sum()
+
+    p32 = pts.clone().requires_grad_()
+    before = (_kernels.GATHER_LAUNCHES, _kernels.TRANSPOSE_MOMENTS_LAUNCHES)
+    objective(p32, tg, False).backward()
+    torch.cuda.synchronize()
+    assert (_kernels.GATHER_LAUNCHES, _kernels.TRANSPOSE_MOMENTS_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    p64 = pts.double().requires_grad_()
+    objective(p64, tg.to(dtype=torch.float64), True).backward()
+    err = float((p32.grad.double() - p64.grad).abs().max())
+    assert err <= GRAD_REL_BAR * float(p64.grad.abs().max())
+    with pytest.raises(ValueError, match="transpose"):
+        objective(pts.clone().requires_grad_(), None, False)
+
+
+@pytest.mark.cuda
+def test_cuda_gather_moments_centred_matches_plain(cuda_device):
+    """P7's two-pass form (the gather engine's differentiable forward) on
+    points 500 m from the origin: within 1e-5 of max |output| of the
+    float64 plain version, the mean and w_sum as the single pass's within
+    the same bar; one P7 launch counted."""
+    pts, nn, w, _ = _transpose_case("uncapped", cuda_device)
+    before = _kernels.GATHER_LAUNCHES
+    got = tfeat.gather_moments(pts, nn, w, centred=True)
+    single = tfeat.gather_moments(pts, nn, w)
+    torch.cuda.synchronize()
+    assert _kernels.GATHER_LAUNCHES == before + 2
+    ref = tfeat.gather_moments_plain(pts.double(), nn, w.double())
+    for g, o, r in zip(got, single, ref):
+        scale = float(r.abs().max())
+        assert float((g.double() - r).abs().max()) <= 1e-5 * scale
+        assert float((g - o).abs().max()) <= 1e-5 * scale

@@ -89,10 +89,10 @@ def prepared():
             jcfg, tcfg = _cfg(JConfig, **kw), _cfg(TConfig, **kw)
             jdata = j_prepare_sequences([j_create_dataset(SEQ, jcfg)], jcfg)
             tdata = t_prepare_sequences([t_create_dataset(SEQ, tcfg)], tcfg)
-            # The JAX side's gradient by autodiff: its transpose graphs
-            # are TPU workarounds the port does not port (and jitted, the
-            # offset's bucketed transpose moves the w gradient by ~5e-6
-            # relative from the autodiff one on this graph).
+            # The JAX side's gradient by autodiff, its transpose graphs
+            # removed (jitted, the offset's bucketed transpose moves the w
+            # gradient by ~5e-6 relative from the autodiff one on this
+            # graph); the port's runs through its own CSR transposes.
             none = tuple(None for _ in jdata.batches)
             jdata = dataclasses.replace(jdata, t_neighbors=none, t_slots=none,
                                         off_transpose=none)
@@ -158,18 +158,20 @@ def test_offset_is_unscaled_under_nn_scale(prepared):
     _, _, _, _, tcfg, tdata = prepared("nn_scale_offset")
     model = TScaledPolynomial(w=[W], exponent=[4.0], dtype=torch.float64)
     pts = offset_cloud(tdata.batches[0], model).get_points()
+    otg = tdata.off_transposes[0]
     f = tfeat.neighborhood_features(pts, tdata.off_neighbors[0], tdata.off_weights[0],
-                                    compute_normals=False)
+                                    compute_normals=False, tg=otg)
     scaled = tfeat.neighborhood_features(pts, tdata.off_neighbors[0], tdata.off_weights[0],
                                          scale=0.3, compute_normals=False,
-                                         query_rows=tdata.query_rows[0])
+                                         query_rows=tdata.query_rows[0], tg=otg)
     assert not torch.allclose(f["eigvals"], scaled["eigvals"])
     # The loss with the unscaled offset, by hand.
     from depth_correction_tpu_torch.preproc import global_cloud
 
     g = tfeat.neighborhood_features(global_cloud(tdata.batches[0], model=model).get_points(),
                                     tdata.neighbors[0], tdata.weights[0], scale=0.3,
-                                    compute_normals=False, query_rows=tdata.query_rows[0])
+                                    compute_normals=False, query_rows=tdata.query_rows[0],
+                                    tg=tdata.transposes[0])
     mask = tdata.masks[0]
     manual = torch.relu(g["eigvals"][:, 0] - f["eigvals"][:, 0])[mask].mean()
     got, _ = _port_value_grad(tcfg, tdata, W)
@@ -234,8 +236,9 @@ def test_nn_scale_features_match_jax(query):
     (_, jf), jg = jax.jit(jax.value_and_grad(jfun, has_aux=True))(jnp.asarray(pts))
     tq = None if qr is None else torch.as_tensor(qr)
     tp = torch.tensor(pts, requires_grad=True)
+    tg = tfeat.build_transpose_graph(torch.as_tensor(nn_q), n, torch.as_tensor(w))
     tf = tfeat.neighborhood_features(tp, torch.as_tensor(nn_q), torch.as_tensor(w), scale=0.15,
-                                     compute_normals=False, query_rows=tq)
+                                     compute_normals=False, query_rows=tq, tg=tg)
     tf["eigvals"][:, 0].sum().backward()
     with torch.no_grad():
         tf_ng = tfeat.neighborhood_features(torch.as_tensor(pts), torch.as_tensor(nn_q),
