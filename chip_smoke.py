@@ -276,11 +276,20 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    cotangents: each within 1e-4 of max |output| of its float64 plain
    version and two launches bit-equal; timed by CUDA events and by the
    profiler's kernel durations beside its plain version, its bound, and,
-   for X5, index_add_ (one PyTorch call computing its function); the
-   step's gradient in w within 1e-4 of the float64 plain path's, and in
-   the points X4 within 1e-4 of its float64 plain version inside the
-   float32 step (the float32 step against the float64 plain path
-   printed).
+   for X5, index_add_ (one PyTorch call computing its function); each
+   redesign (the tiles in cell order) against its first version
+   (csrc/transpose_gather_v1.cu, point order) in turns, v1, v2, v2, v1,
+   the first version (over features.point_csr) within the same bar; the
+   tiles' pairs a row in cell order and in point order (the same graph
+   built over features.index_order) and prep's transpose seconds (the
+   variants of scripts/exp_transpose_variants.py run alone); on the
+   capped graph the gather step in turns with
+   X4's first version substituted; the step's gradient in w within 1e-4
+   of the float64 plain path's, and in the points X4 within 1e-4 of its
+   float64 plain version inside the float32 step (the float32 step
+   against the float64 plain path printed). Then the pairs a row of phase
+   3's exception-row transpose in the cell-sorted layout's order and in
+   cell order.
 
 Every gather-engine path counts X4 and X5 (check_transposes): one X4 a
 loss evaluation for a gather sequence (X5 under nn_scale), one for an
@@ -4209,15 +4218,32 @@ X4_PAIR_OPS, X5_PAIR_OPS = 27, 3
 
 
 def transpose_bounds(tg, mq: int) -> dict:
-    """X4's and X5's bounds over the transpose ``tg`` of an (mq, K) table:
-    the CSR (run starts, one int32 pair index a pair) read once; X4 also
-    each pair's weight, the (mq, 12) row table, the (M, 3) points, and
-    writes (M, 3); X5 each pair's 3 cotangent floats, and writes (M, 3)."""
+    """X4's and X5's bounds over the transpose ``tg`` of an (mq, K) table,
+    each input read once and each output written once, in each design's
+    layout. The redesigns (``x4``, ``x5``) read the cell order and its run
+    starts; X4 also the tiles' starts and row lists, each pair's 2-byte
+    local index and weight, a hub tile's pairs' int32 indices, the (mq, 12)
+    row table and the (M, 3) points, and writes (M, 3); X5 each pair's
+    int32 index and 3 cotangent floats, and writes (M, 3). The first
+    versions (``x4_v1``, ``x5_v1``) read the point-order run starts and one
+    int32 pair index a pair; X4 also each pair's weight, the table and the
+    points."""
     m, p = tg.num_points, int(tg.pair.shape[0])
-    csr = (m + 1) * 4 + p * 4
-    return {"pairs": p,
-            "x4": bound(csr + p * 4 + mq * 48 + m * 24, {"fp32": X4_PAIR_OPS * p}),
-            "x5": bound(csr + p * 12 + m * 12, {"fp32": X5_PAIR_OPS * p})}
+    t = tg.tiles
+    start = tg.start.long()
+    hub = (t.row_start[1:] - t.row_start[:-1]) > t.budget
+    tile_pairs = start[t.tile_start[1:].long()] - start[t.tile_start[:-1].long()]
+    hub_pairs = int(tile_pairs[hub].sum())
+    order_runs = m * 4 + (m + 1) * 4
+    tiles = (t.num_tiles + 1) * 8 + int(t.rows.shape[0]) * 4
+    point_runs = (m + 1) * 4 + p * 4
+    x4_fixed = mq * 48 + m * 24
+    ops4, ops5 = {"fp32": X4_PAIR_OPS * p}, {"fp32": X5_PAIR_OPS * p}
+    return {"pairs": p, "hub_pairs": hub_pairs,
+            "x4": bound(order_runs + tiles + p * 6 + hub_pairs * 4 + x4_fixed, ops4),
+            "x4_v1": bound(point_runs + p * 4 + x4_fixed, ops4),
+            "x5": bound(order_runs + p * 16 + m * 12, ops5),
+            "x5_v1": bound(point_runs + p * 12 + m * 12, ops5)}
 
 
 def step_gradients(cfg, data) -> dict:
@@ -4269,19 +4295,71 @@ def step_gradients(cfg, data) -> dict:
             "points_max": float(p64.abs().max())}
 
 
+STEP_TURN_STEPS = 10
+
+
+def step_turns(cfg, data) -> dict:
+    """The gather step (loss, backward through X4, Adam) on ``data`` timed
+    in turns with X4's first version and with the redesign (v1, v2, v2,
+    v1): each turn the host clock over STEP_TURN_STEPS steps ending in a
+    synchronisation, after one warm step. The first version is substituted
+    for the wrapper here, as step_gradients substitutes the plain version,
+    over each graph's point-order CSR (``features.point_csr``, made in the
+    warm step)."""
+    import torch
+
+    from depth_correction_tpu_torch.models import load_model
+    from depth_correction_tpu_torch.ops import features
+    from depth_correction_tpu_torch.train import make_loss_fn, make_optimizer
+
+    model = load_model(cfg=cfg)
+    loss_fn = make_loss_fn(cfg)
+    opt = make_optimizer(cfg, [model.w])
+    x4 = features.transpose_moments
+    csrs = {}
+
+    def x4_v1(points, tg, table):
+        if id(tg) not in csrs:
+            csrs[id(tg)] = (tg, features.point_csr(tg))
+        return features.transpose_moments_v1(points, csrs[id(tg)][1], table)
+
+    def turn(fn) -> float:
+        features.transpose_moments = fn
+        try:
+            for i in range(STEP_TURN_STEPS + 1):
+                if i == 1:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                opt.zero_grad()
+                loss_fn(model, data).backward()
+                opt.step()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / STEP_TURN_STEPS
+        finally:
+            features.transpose_moments = x4
+
+    ms = [turn(x4_v1), turn(x4), turn(x4), turn(x4_v1)]
+    return {"v1_ms": (ms[0] + ms[3]) / 2, "ms": (ms[1] + ms[2]) / 2, "turns": ms}
+
+
 def transpose_kernels(card: str, cfg, data, label: str) -> dict:
     """X4 and X5 on ``data``'s gather graph and its prep-built transpose, at
     w = 0: each against its plain version in float64 (GRAD_REL_BAR of max
     |output|) and launched twice, bit-equal; timed by CUDA events and by
     the profiler's kernel durations beside the plain version (float32) and,
     for X5, ``index_add_`` (one PyTorch call computing its function), with
-    P7's two-pass form beside its single pass; the step's gradient against
-    the float64 plain path."""
+    P7's two-pass form beside its single pass; the redesigns against their
+    first versions (over ``features.point_csr``) in turns; the tiles' pairs
+    a row in cell order and, for the same graph built in point order
+    (``features.index_order``), in point order; on the capped graph the
+    gather step in turns with X4's first version; the step's gradient
+    against the float64 plain path."""
     import torch
 
     from depth_correction_tpu_torch import preproc
     from depth_correction_tpu_torch.models import ScaledPolynomial
     from depth_correction_tpu_torch.ops import features
+    from depth_correction_tpu_torch.scripts import first_version_turns
 
     nn, w, tg = data.neighbors[0], data.weights[0], data.transposes[0]
     if tg is None or data.cellwin[0] is not None:
@@ -4295,12 +4373,15 @@ def transpose_kernels(card: str, cfg, data, label: str) -> dict:
             mean, w_sum, (torch.randn(mean.shape, generator=gen, device=DEVICE),
                           torch.randn(comps.shape, generator=gen, device=DEVICE)))
         g = torch.randn(tuple(nn.shape) + (3,), generator=gen, device=DEVICE)
+        csr = features.point_csr(tg)
         x4 = features.transpose_moments(pts, tg, table)
         x4_again = features.transpose_moments(pts, tg, table)
+        x4_v1 = features.transpose_moments_v1(pts, csr, table)
         x4_ref = features.transpose_moments_plain(pts.double(), tg.to(dtype=torch.float64),
                                                   table.double())
         x5 = features.transpose_gather(g, tg)
         x5_again = features.transpose_gather(g, tg)
+        x5_v1 = features.transpose_gather_v1(g, csr)
         x5_ref = features.transpose_gather_plain(g.double(), tg)
         flat = nn.reshape(-1)
         real = (flat >= 0) & (flat < tg.num_points)
@@ -4313,11 +4394,15 @@ def transpose_kernels(card: str, cfg, data, label: str) -> dict:
         torch.cuda.synchronize()
         res = {"graph": {"rows": nn.shape[0], "k": nn.shape[1], "points": tg.num_points},
                **transpose_bounds(tg, nn.shape[0])}
-        for key, got, again, ref in (("x4", x4, x4_again, x4_ref), ("x5", x5, x5_again, x5_ref)):
+        for key, got, again, v1, ref in (("x4", x4, x4_again, x4_v1, x4_ref),
+                                         ("x5", x5, x5_again, x5_v1, x5_ref)):
             scale = float(ref.abs().max())
             res[key + "_err"] = float((got.double() - ref).abs().max())
             res[key + "_rel"] = res[key + "_err"] / scale
+            res[key + "_v1_err"] = float((v1.double() - ref).abs().max())
+            res[key + "_v1_rel"] = res[key + "_v1_err"] / scale
             res[key + "_repeat_equal"] = bool(torch.equal(got, again))
+            res[key + "_v1_equal"] = bool(torch.equal(got, v1))
         res["library_rel"] = float((lib_out.double() - x5_ref).abs().max()
                                    / x5_ref.abs().max())
         timed = {"x4": lambda: features.transpose_moments(pts, tg, table),
@@ -4330,18 +4415,47 @@ def transpose_kernels(card: str, cfg, data, label: str) -> dict:
         res["x4_plain_ms"] = cuda_ms(lambda: features.transpose_moments_plain(pts, tg, table), 3,
                                      warmup=1)
         res["x5_plain_ms"] = cuda_ms(lambda: features.transpose_gather_plain(g, tg), 3, warmup=1)
-    deg = (tg.start[1:] - tg.start[:-1])
-    res["max_in_degree"] = int(deg.max())
+        res["x4_turns"] = first_version_turns(
+            lambda: features.transpose_moments_v1(pts, csr, table),
+            lambda: features.transpose_moments(pts, tg, table), DEVICE, TRANSPOSE_REPS)
+        res["x5_turns"] = first_version_turns(lambda: features.transpose_gather_v1(g, csr),
+                                              lambda: features.transpose_gather(g, tg), DEVICE,
+                                              TRANSPOSE_REPS)
+        del csr
+        flat_tg = features.transpose_in_order(nn, tg.num_points, w, features.index_order)
+        res["pairs_per_row"] = {"point": flat_tg.pairs_per_row(), "cell": tg.pairs_per_row()}
+        del flat_tg
+    for key in ("x4", "x5"):
+        turns = res[key + "_turns"]
+        res[key + "_v1_ms"], res[key + "_v1_kernel_ms"] = turns["v1_ms"], turns["v1_kernel_ms"]
+        res[key + "_turns_kernel_ms"] = turns["kernel_ms"]
+    res["max_in_degree"] = int(tg.in_degree().max())
+    res["prep_transpose_s"] = data.prep_seconds.get("transpose")
+    if label == "capped":
+        res["step_turns"] = step_turns(cfg, data)
     res["step"] = step_gradients(cfg, data)
-    log("[20] %s graph: %d rows x K %d over %d points, %d transpose pairs (largest in-degree %d)"
-        % (label, nn.shape[0], nn.shape[1], tg.num_points, res["pairs"], res["max_in_degree"]))
+    log("[20] %s graph: %d rows x K %d over %d points, %d transpose pairs (largest in-degree %d); "
+        "%d tiles of at most %d targets, largest within the %d-row budget %d rows, %d pairs in "
+        "hub tiles; prep's transposes %.4f s (%s)"
+        % (label, nn.shape[0], nn.shape[1], tg.num_points, res["pairs"], res["max_in_degree"],
+           tg.tiles.num_tiles, features.TILE_TARGETS, tg.tiles.budget, tg.tiles.rows_max,
+           res["hub_pairs"], res["prep_transpose_s"], card))
+    log("[20] %s pairs a row of the tiles: point order %.3f, cell order (Morton, the build's) "
+        "%.3f (%s)" % (label, res["pairs_per_row"]["point"], res["pairs_per_row"]["cell"], card))
     for key, name in (("x4", "X4 transpose_moments"), ("x5", "X5 transpose_gather")):
-        b = res[key]
-        log("[20] %s %s: %.4f ms (events), %.4f ms (device); bound %.4f ms (%s); plain %.3f ms; "
-            "max abs err %.3e (%.3e of max |output|); two launches bit-equal %s (%s)"
-            % (label, name, res[key + "_ms"], res[key + "_kernel_ms"], b[0], b[1],
+        b, b1 = res[key], res[key + "_v1"]
+        t = res[key + "_turns"]
+        log("[20] %s %s: %.4f ms (events), %.4f ms (device); bound %.4f ms (%s), the first "
+            "version's %.4f ms; plain %.3f ms; max abs err %.3e (%.3e of max |output|), first "
+            "version %.3e; two launches bit-equal %s, bit-equal to the first version %s (%s)"
+            % (label, name, res[key + "_ms"], res[key + "_kernel_ms"], b[0], b[1], b1[0],
                res[key + "_plain_ms"], res[key + "_err"], res[key + "_rel"],
-               res[key + "_repeat_equal"], card))
+               res[key + "_v1_err"], res[key + "_repeat_equal"], res[key + "_v1_equal"], card))
+        log("[20] %s %s in turns (v1, v2, v2, v1): device %s ms, v1 %.4f, v2 %.4f; events %s, "
+            "v1 %.4f, v2 %.4f; index_add_ %.4f device, %.4f events (%s)"
+            % (label, name, ", ".join("%.4f" % v for v in t["kernel_turns"]),
+               t["v1_kernel_ms"], t["kernel_ms"], ", ".join("%.4f" % v for v in t["turns"]),
+               t["v1_ms"], t["ms"], res["library_kernel_ms"], res["library_ms"], card))
     log("[20] %s index_add_ (X5's function): %.4f ms (events), %.4f ms (device); %.3e of max "
         "|output| (%s)" % (label, res["library_ms"], res["library_kernel_ms"], res["library_rel"],
                            card))
@@ -4349,6 +4463,12 @@ def transpose_kernels(card: str, cfg, data, label: str) -> dict:
         "(device); its single pass %.4f, %.4f (%s)"
         % (label, res["p7_centred_ms"], res["p7_centred_kernel_ms"], res["p7_ms"],
            res["p7_kernel_ms"], card))
+    if "step_turns" in res:
+        st = res["step_turns"]
+        log("[20] %s gather step in turns, X4's first version / the redesign: %.3f / %.3f ms "
+            "(%s; %d steps a turn, host clock) (%s)"
+            % (label, st["v1_ms"], st["ms"], ", ".join("%.3f" % v for v in st["turns"]),
+               STEP_TURN_STEPS, card))
     st = res["step"]
     log("[20] %s step gradient: w %.3e of the float64 plain path's (%.6e); in the points, X4 "
         "against its float64 plain version inside the float32 step %.3e of max |grad|, the "
@@ -4356,7 +4476,8 @@ def transpose_kernels(card: str, cfg, data, label: str) -> dict:
         % (label, st["w_rel"], st["w_grad"], st["points_rel"], st["points_rel_f64"],
            st["points_max"], card))
     for key in ("x4", "x5"):
-        if not (res[key + "_rel"] <= GRAD_REL_BAR and res[key + "_repeat_equal"]):
+        if not (res[key + "_rel"] <= GRAD_REL_BAR and res[key + "_repeat_equal"]
+                and res[key + "_v1_rel"] <= GRAD_REL_BAR):
             raise RuntimeError("%s: %s misses its bar or differs between launches: %s"
                                % (label, key, res))
     if not (st["points_rel"] <= GRAD_REL_BAR and st["w_rel"] <= GRAD_REL_BAR):
@@ -4367,9 +4488,10 @@ def transpose_kernels(card: str, cfg, data, label: str) -> dict:
 
 def transpose_entry(tr: dict, key: str, launches: dict) -> dict:
     """The kernels line's entry of X4 or X5: phase 20's numbers on the capped
-    graph (top level) and the scale graph (``scale``); ``launches`` from
-    the capped row's 8 steps (X4) or phase 12d's nn_scale run (X5), each
-    main path's in ``launches_by_phase``."""
+    graph (top level) and the scale graph (``scale``), the redesign's beside
+    its first version's (``v1_*``, in turns, with the first version's own
+    bound); ``launches`` from the capped row's 8 steps (X4) or phase 12d's
+    nn_scale run (X5), each main path's in ``launches_by_phase``."""
     names = {"x4": ("transpose_moments (X4)", "depth_correction_tpu/ops/features.py:604",
                     "capped"),
              "x5": ("transpose_gather (X5)", "depth_correction_tpu/ops/features.py:423",
@@ -4379,11 +4501,14 @@ def transpose_entry(tr: dict, key: str, launches: dict) -> dict:
 
     def numbers(r):
         return {"ms": r[key + "_ms"], "kernel_ms": r[key + "_kernel_ms"],
+                "v1_ms": r[key + "_v1_ms"], "v1_kernel_ms": r[key + "_v1_kernel_ms"],
+                "turns_kernel_ms": r[key + "_turns_kernel_ms"],
                 "plain_ms": r[key + "_plain_ms"], "max_abs_err": r[key + "_err"],
-                "bound_ms": r[key][0], "bound_by": r[key][1],
+                "max_abs_err_v1": r[key + "_v1_err"], "bound_ms": r[key][0],
+                "bound_by": r[key][1], "v1_bound_ms": r[key + "_v1"][0],
                 "library_ms": r["library_ms"] if key == "x5" else None,
                 "library_kernel_ms": r["library_kernel_ms"] if key == "x5" else None,
-                "pairs": r["pairs"], "graph": r["graph"]}
+                "pairs": r["pairs"], "graph": r["graph"], "pairs_per_row": r["pairs_per_row"]}
 
     return dict({"name": name, "route": "cuda",
                  "source": "depth_correction_tpu_torch/csrc/transpose_gather.cu",
@@ -4391,7 +4516,26 @@ def transpose_entry(tr: dict, key: str, launches: dict) -> dict:
                  "bound": c[key]}, **{k: v for k, v in numbers(c).items()
                                       if k not in ("bound_ms", "bound_by")},
                 scale=numbers(tr["scale"]), launches_by_phase=launches,
-                step_grad_rel={lbl: r["step"] for lbl, r in tr.items()})
+                step_grad_rel={lbl: r["step"] for lbl, r in tr.items()},
+                step_turns=c.get("step_turns"))
+
+
+def exception_locality(card: str, data) -> dict:
+    """The pairs a row of a cell-window graph's exception-row transpose
+    (phase 3's) in the cell order of the establishment positions, which
+    prep builds, and over the padded cell-sorted layout's own order."""
+    from depth_correction_tpu_torch.ops import features
+
+    cw = data.cellwin[0]
+    tg = cw.exc_tg
+    layout = features.transpose_in_order(cw.exc_nn, tg.num_points, cw.exc_w,
+                                         features.index_order)
+    out = {"rows": int(cw.n_exc), "pairs": int(tg.pair.shape[0]),
+           "layout": layout.pairs_per_row(), "cell": tg.pairs_per_row()}
+    log("[20] exception rows (phase 3's graph): %d rows, %d transpose pairs; pairs a row of the "
+        "tiles %.3f in the cell-sorted layout's order, %.3f in the cell order prep builds (%s)"
+        % (out["rows"], out["pairs"], out["layout"], out["cell"], card))
+    return out
 
 
 def phase_transpose(card: str, graphs: dict) -> dict:
@@ -4496,12 +4640,15 @@ def main() -> int:
     log("[phase 20] X4 and X5 on the capped row's graph and the scale run's gather graph")
     tr = phase_transpose(card, {"capped": (capped.pop("cfg"), capped.pop("data")),
                                 "scale": scale.pop("gather_graph")})
+    exc_locality = exception_locality(card, res["data"])
     seconds["20"] = time.perf_counter() - t1
     log("phases 13-20: %s s" % ", ".join("%s %.1f" % kv for kv in seconds.items()))
     log("build + all phases: %.1f s (%s)" % (time.perf_counter() - t0, card))
     from depth_correction_tpu_torch import scripts
 
-    log("kernel_ms: %d extra calls for profiles taken again" % scripts.RETAKEN_CALLS)
+    log("kernel_ms: %d extra calls for profiles taken again; %d timings queued behind a spin "
+        "kernel after %d empty profiles" % (scripts.RETAKEN_CALLS, scripts.QUEUED_TIMINGS,
+                                            scripts.PROFILE_ATTEMPTS))
     k = res["kernels"]
     g = res["graph"]
     shadow = default["shadow"]
@@ -4712,10 +4859,13 @@ def main() -> int:
         **{"transpose_%s_%s" % (lbl, k): r["step"][v] for lbl, r in tr.items()
            for k, v in (("points_grad_rel_err", "points_rel"), ("w_grad_rel_err", "w_rel"),
                         ("points_grad_rel_err_f64", "points_rel_f64"))},
+        "transpose_capped_step_turns_ms": tr["capped"]["step_turns"],
+        "transpose_exception_pairs_per_row": exc_locality,
         "offset_busy_share": offset["profile"]["busy_ms"] / offset["profile"]["wall_ms"],
         "capped_busy_share": capped["profile"]["busy_ms"] / capped["profile"]["wall_ms"],
         "phase_s": seconds,
-        "kernel_ms_retaken_calls": scripts.RETAKEN_CALLS, "card": card}}), flush=True)
+        "kernel_ms_retaken_calls": scripts.RETAKEN_CALLS,
+        "kernel_ms_queued_timings": scripts.QUEUED_TIMINGS, "card": card}}), flush=True)
     log(card)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -53,7 +53,9 @@ __all__ = [
     "SLAB_LAUNCHES",
     "SLAB_V1_LAUNCHES",
     "TRANSPOSE_GATHER_LAUNCHES",
+    "TRANSPOSE_GATHER_V1_LAUNCHES",
     "TRANSPOSE_MOMENTS_LAUNCHES",
+    "TRANSPOSE_MOMENTS_V1_LAUNCHES",
     "WINDOW_LAUNCHES",
     "WINDOW_V1_LAUNCHES",
     "build",
@@ -83,7 +85,9 @@ __all__ = [
     "launch_slab_window",
     "launch_slab_window_v1",
     "launch_transpose_gather",
+    "launch_transpose_gather_v1",
     "launch_transpose_moments",
+    "launch_transpose_moments_v1",
     "load",
     "reset_launch_counts",
 ]
@@ -97,7 +101,7 @@ SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
                              "grid_query_v1.cu", "layout_probe.cu", "layout_probe_v1.cu",
                              "gather_probe.cu", "gather_probe_v1.cu", "knn_brute.cu", "knn_brute_v1.cu",
                              "gather_sum.cu", "gather_sum_v1.cu", "gather_moments_v1.cu",
-                             "transpose_gather.cu"))
+                             "transpose_gather.cu", "transpose_gather_v1.cu"))
 # Headers the sources include; they key the build like the sources.
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin_fwd.cuh", "tf32_mma.cuh", "wgmma_tf32.cuh"))
@@ -124,8 +128,10 @@ GRID_LAUNCHES = 0
 KNN_LAUNCHES = 0
 TRANSPOSE_MOMENTS_LAUNCHES = 0
 TRANSPOSE_GATHER_LAUNCHES = 0
-# The first versions of X1, X2, X3, P2, P3-P5, P6, P7, P7a and P8, for the A/B only
+# The first versions of X1-X5, P2, P3-P5, P6, P7, P7a and P8, for the A/B only
 # (no path launches them).
+TRANSPOSE_MOMENTS_V1_LAUNCHES = 0
+TRANSPOSE_GATHER_V1_LAUNCHES = 0
 SLAB_V1_LAUNCHES = 0
 GRID_V1_LAUNCHES = 0
 KNN_V1_LAUNCHES = 0
@@ -263,10 +269,15 @@ def load():
         lib.dc_knn_brute_max_k.restype = _I
         lib.dc_knn_brute_v1_max_k.argtypes = [_P]
         lib.dc_knn_brute_v1_max_k.restype = _I
-        lib.dc_transpose_moments.argtypes = [_P, _I, _P, _P, _P, _P, _I, _P, _P]
+        # The redesigns walk the tiles (the cell order and its CSR).
+        lib.dc_transpose_moments.argtypes = [_P, _I, _I] + [_P] * 9 + [_I, _I, _I, _P, _P]
         lib.dc_transpose_moments.restype = _I
-        lib.dc_transpose_gather.argtypes = [_P, _I, _I, _P, _P, _P, _P]
+        lib.dc_transpose_gather.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P]
         lib.dc_transpose_gather.restype = _I
+        lib.dc_transpose_moments_v1.argtypes = [_P, _I, _P, _P, _P, _P, _I, _P, _P]
+        lib.dc_transpose_moments_v1.restype = _I
+        lib.dc_transpose_gather_v1.argtypes = [_P, _I, _I, _P, _P, _P, _P]
+        lib.dc_transpose_gather_v1.restype = _I
         lib.dc_cuda_error_string.argtypes = [_I]
         lib.dc_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -1042,60 +1053,134 @@ def _check_csr(start, pair, device) -> int:
     return m
 
 
-def launch_transpose_moments(points, start, pair, w, table, k: int) -> torch.Tensor:
+def _check_tiles(tg, device) -> int:
+    """A transpose graph (``ops.features.TransposeGraph``): its cell-order
+    CSR and tiles -> M. A graph without tiles raises."""
+    if tg.tiles is None:
+        raise ValueError("X4 and X5 walk a transpose's tiles, and this one has none: build it "
+                         "with ops.features.build_transpose_graph")
+    t = tg.tiles
+    m = _check_csr(tg.start, tg.pair, device)
+    p, nt = tg.pair.shape[0], t.num_tiles
+    _check(tg.order, "order", torch.int32, (m,), device)
+    _check(t.local, "local", torch.int16, (p,), device)
+    _check(t.tile_start, "tile_start", torch.int32, (nt + 1,), device)
+    _check(t.row_start, "row_start", torch.int32, (nt + 1,), device)
+    _check(t.rows, "rows", torch.int32, (t.rows.shape[0],), device)
+    if not 0 <= t.rows_max <= t.budget:
+        raise ValueError("tiles: rows_max %d outside 0..budget %d" % (t.rows_max, t.budget))
+    return m
+
+
+def _moments_args(points, w, table, p: int, m: int):
+    device = points.device
+    if device.type != "cuda":
+        raise ValueError("the transpose kernels take CUDA tensors, got %s" % device)
+    _check(points, "points", torch.float32, (m, 3), device)
+    _check(w, "w", torch.float32, (p,), device)
+    _check(table, "table", torch.float32, (table.shape[0], 12), device)
+    if table.data_ptr() % 16:
+        raise ValueError("transpose_moments: the table must start on a 16-byte boundary")
+    return torch.empty((m, 3), dtype=torch.float32, device=device)
+
+
+def launch_transpose_moments(points, tg, table) -> torch.Tensor:
     """X4 on CUDA float32 tensors: the gradient of the neighbourhood moments
-    in the points, gathered through a transpose graph's CSR -> (M, 3).
+    in the points, gathered tile by tile through a transpose graph's cell
+    order -> (M, 3).
 
     :param points: (M, 3) positions the forward read.
-    :param start, pair: the CSR (``ops.features.TransposeGraph``), pair =
-        i * k + slot, P = start[M] pairs.
-    :param w: (P,) the pairs' frozen weights.
+    :param tg: ``ops.features.TransposeGraph`` with its tiles and float32
+        weights; pair = i * tg.k + slot.
     :param table: (rows, 12) per-row S (6), mean (3), mean cotangent over
         the weight sum (3), on a 16-byte boundary.
     """
     global TRANSPOSE_MOMENTS_LAUNCHES
-    device = points.device
-    if device.type != "cuda":
-        raise ValueError("the transpose kernels take CUDA tensors, got %s" % device)
-    m = _check_csr(start, pair, device)
-    _check(points, "points", torch.float32, (m, 3), device)
-    _check(w, "w", torch.float32, (pair.shape[0],), device)
-    _check(table, "table", torch.float32, (table.shape[0], 12), device)
-    if table.data_ptr() % 16:
-        raise ValueError("transpose_moments: the table must start on a 16-byte boundary")
-    grad = torch.empty((m, 3), dtype=torch.float32, device=device)
+    m = _check_tiles(tg, points.device)
+    if points.device.type != "cuda":
+        raise ValueError("the transpose kernels take CUDA tensors, got %s" % points.device)
+    t = tg.tiles
+    grad = _moments_args(points, tg.w, table, tg.pair.shape[0], m)
     lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dc_transpose_moments(points.data_ptr(), m, start.data_ptr(), _ptr(pair),
-                                       _ptr(w), table.data_ptr(), int(k), grad.data_ptr(),
-                                       stream)
-    _check_launch(lib, err, "transpose_moments (M %d, P %d)" % (m, pair.shape[0]))
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream(points.device).cuda_stream
+        err = lib.dc_transpose_moments(
+            points.data_ptr(), m, t.num_tiles, tg.order.data_ptr(), tg.start.data_ptr(),
+            _ptr(tg.pair), _ptr(tg.w), _ptr(t.local), t.tile_start.data_ptr(),
+            t.row_start.data_ptr(), _ptr(t.rows), table.data_ptr(), int(tg.k), int(t.budget),
+            int(t.rows_max), grad.data_ptr(), stream)
+    _check_launch(lib, err, "transpose_moments (M %d, P %d, %d tiles)"
+                  % (m, tg.pair.shape[0], t.num_tiles))
     TRANSPOSE_MOMENTS_LAUNCHES += 1
     return grad
 
 
-def launch_transpose_gather(g, start, pair) -> torch.Tensor:
-    """X5 on CUDA float32 tensors: ``g`` (slots, D), D 1 or 3, the cotangent
-    of a neighbour gather by slot ``i * K + k``, summed over each point's
-    CSR run -> (M, D)."""
-    global TRANSPOSE_GATHER_LAUNCHES
-    device = g.device
-    if device.type != "cuda":
-        raise ValueError("the transpose kernels take CUDA tensors, got %s" % device)
-    m = _check_csr(start, pair, device)
+def launch_transpose_moments_v1(points, start, pair, w, table, k: int) -> torch.Tensor:
+    """X4's first version (``csrc/transpose_gather_v1.cu``: the targets in
+    point order over the point-order CSR ``start`` / ``pair`` / ``w`` of
+    ``ops.features.point_csr``), the
+    result of :func:`launch_transpose_moments`; for the A/B only."""
+    global TRANSPOSE_MOMENTS_V1_LAUNCHES
+    if points.device.type != "cuda":
+        raise ValueError("the transpose kernels take CUDA tensors, got %s" % points.device)
+    m = _check_csr(start, pair, points.device)
+    grad = _moments_args(points, w, table, pair.shape[0], m)
+    lib = load()
+    with torch.cuda.device(points.device):
+        stream = torch.cuda.current_stream(points.device).cuda_stream
+        err = lib.dc_transpose_moments_v1(points.data_ptr(), m, start.data_ptr(), _ptr(pair),
+                                          _ptr(w), table.data_ptr(), int(k), grad.data_ptr(),
+                                          stream)
+    _check_launch(lib, err, "transpose_moments_v1 (M %d, P %d)" % (m, pair.shape[0]))
+    TRANSPOSE_MOMENTS_V1_LAUNCHES += 1
+    return grad
+
+
+def _gather_out(g, m: int):
+    if g.device.type != "cuda":
+        raise ValueError("the transpose kernels take CUDA tensors, got %s" % g.device)
     if g.dim() != 2 or g.shape[1] not in (1, 3):
         raise ValueError("g has shape %s, expected (slots, 1) or (slots, 3)" % (tuple(g.shape),))
-    _check(g, "g", torch.float32, tuple(g.shape), device)
-    d = g.shape[1]
-    out = torch.empty((m, d), dtype=torch.float32, device=device)
+    _check(g, "g", torch.float32, tuple(g.shape), g.device)
+    return torch.empty((m, g.shape[1]), dtype=torch.float32, device=g.device)
+
+
+def launch_transpose_gather(g, tg) -> torch.Tensor:
+    """X5 on CUDA float32 tensors: ``g`` (slots, D), D 1 or 3, the cotangent
+    of a neighbour gather by slot ``i * K + k``, summed over each target's
+    run in the cell order of ``tg`` (``ops.features.TransposeGraph`` with
+    its tiles) -> (M, D)."""
+    global TRANSPOSE_GATHER_LAUNCHES
+    m = _check_tiles(tg, g.device)
+    out = _gather_out(g, m)
     lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dc_transpose_gather(_ptr(g), d, m, start.data_ptr(), _ptr(pair),
-                                      out.data_ptr(), stream)
-    _check_launch(lib, err, "transpose_gather (M %d, P %d, D %d)" % (m, pair.shape[0], d))
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.dc_transpose_gather(_ptr(g), g.shape[1], m, tg.order.data_ptr(),
+                                      tg.start.data_ptr(), _ptr(tg.pair), out.data_ptr(), stream)
+    _check_launch(lib, err, "transpose_gather (M %d, P %d, D %d)"
+                  % (m, tg.pair.shape[0], g.shape[1]))
     TRANSPOSE_GATHER_LAUNCHES += 1
+    return out
+
+
+def launch_transpose_gather_v1(g, start, pair) -> torch.Tensor:
+    """X5's first version (``csrc/transpose_gather_v1.cu``: point order over
+    ``ops.features.point_csr``'s CSR), the result of :func:`launch_transpose_gather`;
+    for the A/B only."""
+    global TRANSPOSE_GATHER_V1_LAUNCHES
+    if g.device.type != "cuda":
+        raise ValueError("the transpose kernels take CUDA tensors, got %s" % g.device)
+    m = _check_csr(start, pair, g.device)
+    out = _gather_out(g, m)
+    lib = load()
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        err = lib.dc_transpose_gather_v1(_ptr(g), g.shape[1], m, start.data_ptr(), _ptr(pair),
+                                         out.data_ptr(), stream)
+    _check_launch(lib, err, "transpose_gather_v1 (M %d, P %d, D %d)"
+                  % (m, pair.shape[0], g.shape[1]))
+    TRANSPOSE_GATHER_V1_LAUNCHES += 1
     return out
 
 
@@ -1108,6 +1193,7 @@ def reset_launch_counts() -> None:
     global GATHER_PROBE_LAUNCHES, KNN_V1_LAUNCHES, SLAB_V1_LAUNCHES, GRID_V1_LAUNCHES
     global DOT_V1_LAUNCHES, LAYOUT_V1_LAUNCHES, GATHER_V1_LAUNCHES, GATHER_SUM_V1_LAUNCHES
     global WINDOW_V1_LAUNCHES, GATHER_PROBE_V1_LAUNCHES
+    global TRANSPOSE_MOMENTS_V1_LAUNCHES, TRANSPOSE_GATHER_V1_LAUNCHES
     SLAB_LAUNCHES = 0
     GRID_LAUNCHES = 0
     KNN_LAUNCHES = 0
@@ -1129,3 +1215,5 @@ def reset_launch_counts() -> None:
     GATHER_PROBE_V1_LAUNCHES = 0
     TRANSPOSE_MOMENTS_LAUNCHES = 0
     TRANSPOSE_GATHER_LAUNCHES = 0
+    TRANSPOSE_MOMENTS_V1_LAUNCHES = 0
+    TRANSPOSE_GATHER_V1_LAUNCHES = 0

@@ -882,9 +882,10 @@ class CellWinDevice:
 
 def with_exc_transpose(dev: CellWinDevice) -> CellWinDevice:
     """``dev`` with the transpose of its exception rows over its m_pad
-    points (JAX package, cellwin.py:1120-1133)."""
+    points (JAX package, cellwin.py:1120-1133), its targets in the cell
+    order of their establishment positions."""
     return dataclasses.replace(dev, exc_tg=build_transpose_graph(
-        dev.exc_nn, dev.perm.shape[0], dev.exc_w))
+        dev.exc_nn, dev.est_sorted[:3].T, dev.exc_w))
 
 
 def graph_to_device(g: CellWinGraph, device=None) -> CellWinDevice:

@@ -11,14 +11,18 @@ angles). Neighborhoods are (M, K) index matrices with -1 padding and
 
 The gather engine's backward runs over a transpose graph of the frozen
 neighbourhoods (:func:`build_transpose_graph`: a CSR of each point's
-referencing (row, slot) pairs, built once in prep): the moments' analytic
-VJP (:class:`NeighborhoodMoments`) is kernel X4 and the pair-level gather
-of ``nn_scale`` (:class:`GatherNeighborsTransposed`) kernel X5, both in
+referencing (row, slot) pairs with the points in cell order, cut into
+tiles, built once in prep): the moments' analytic VJP
+(:class:`NeighborhoodMoments`) is kernel X4 and the pair-level gather of
+``nn_scale`` (:class:`GatherNeighborsTransposed`) kernel X5, both in
 ``csrc/transpose_gather.cu``, on CUDA tensors; their plain versions
 (:func:`transpose_moments_plain`, :func:`transpose_gather_plain`) on CPU
-tensors. A gradient path without a transpose raises. The JAX package's
-padded (M, Kt) tables and their bucketing by in-degree pad for the TPU's
-lanes and are not ported: the CSR holds the same pairs in the same order.
+tensors. :func:`transpose_moments_v1` and :func:`transpose_gather_v1`
+launch their first versions (``csrc/transpose_gather_v1.cu``), for the
+A/B on the card only. A gradient path without a transpose raises. The JAX
+package's padded (M, Kt) tables and their bucketing by in-degree pad for
+the TPU's lanes and are not ported: the CSR holds the same pairs in the
+same order.
 
 Moments that need no gradient (the online corrector, prep features, the
 viewpoint and direction dispersions of the trainability masks) go through
@@ -32,7 +36,7 @@ then the moments under the re-weighted weights.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -43,8 +47,13 @@ from .eigh3 import eigh3, eigvals3_c
 __all__ = [
     "GatherNeighborsTransposed",
     "NeighborhoodMoments",
+    "PointCSR",
+    "TILE_ROWS",
+    "TILE_TARGETS",
     "TransposeGraph",
+    "TransposeTiles",
     "build_transpose_graph",
+    "cell_order",
     "compute_features",
     "dir_dispersion",
     "gather_moments",
@@ -52,15 +61,20 @@ __all__ = [
     "gather_moments_v1",
     "gather_neighbors",
     "gather_neighbors_transposed",
+    "index_order",
     "mean_depth",
     "mean_vp_dist",
     "neighborhood_features",
     "neighborhood_moments",
     "permute_rows",
+    "point_csr",
     "transpose_gather",
     "transpose_gather_plain",
+    "transpose_gather_v1",
+    "transpose_in_order",
     "transpose_moments",
     "transpose_moments_plain",
+    "transpose_moments_v1",
     "vp_dispersion",
 ]
 
@@ -104,64 +118,328 @@ def gather_neighbors(values: torch.Tensor, neighbors: torch.Tensor):
     return values[torch.where(idx >= 0, idx, spread)]
 
 
+# A transpose tile holds at most TILE_TARGETS consecutive targets of the
+# cell order and, unless it is one hub target, at most TILE_ROWS distinct
+# rows: X4 stages a tile's rows of the (Mq, 12) cotangent table in shared
+# memory, 48 bytes a row (48 KB at 1,024 rows). 128 targets: on the capped
+# bench graph X4 took 0.072 ms over them against 0.075 over 64 and 0.076
+# over 256 (NVIDIA H100 80GB HBM3, 700.00 W;
+# scripts/exp_transpose_variants.py --sweep).
+TILE_TARGETS = 128
+TILE_ROWS = 1024
+# Morton grid of the cell order: 2^21 cells an axis over the targets'
+# bounding box (a 63-bit key), finer than any neighbourhood radius.
+_MORTON_BITS = 21
+
+
+@dataclasses.dataclass(frozen=True)
+class TransposeTiles:
+    """The tiles X4 stages over a :class:`TransposeGraph`'s positions: tile
+    b holds positions ``tile_start[b]:tile_start[b + 1]`` and the rows
+    ``rows[row_start[b]:row_start[b + 1]]``, ascending, and a pair's row is
+    ``rows[row_start[b] + local]`` (``local`` read as uint16). A tile holds
+    more than ``budget`` rows only when it is one hub target: X4 then reads
+    its rows from global memory through the graph's ``pair``, and its
+    ``local`` indices are kept modulo 2^16."""
+
+    local: torch.Tensor  # (P,) int16, read as uint16
+    tile_start: torch.Tensor  # (T + 1,) int32
+    row_start: torch.Tensor  # (T + 1,) int32
+    rows: torch.Tensor  # (R,) int32
+    rows_max: int  # the most rows of a tile within the budget
+    budget: int
+
+    @property
+    def num_tiles(self) -> int:
+        return self.tile_start.shape[0] - 1
+
+    def to(self, device=None) -> "TransposeTiles":
+        return dataclasses.replace(self, local=self.local.to(device),
+                                   tile_start=self.tile_start.to(device),
+                                   row_start=self.row_start.to(device), rows=self.rows.to(device))
+
+
 @dataclasses.dataclass(frozen=True)
 class TransposeGraph:
     """Transpose of a frozen (Mq, K) neighbour graph in CSR form (the JAX
     package's ``build_transpose_graph`` / ``_transpose_pairs_sized``,
-    features.py:88-143, :280-404): point j's referencing pairs are
-    ``pair[start[j]:start[j + 1]]``, each the linear slot ``i * k + slot``
-    of a row i whose neighbour ``slot`` is j, in ascending slot order (the
-    JAX package's stable argsort). ``w`` holds each pair's frozen weight
-    (None for a pair-level transpose built without weights)."""
+    features.py:88-143, :280-404), its targets in cell order: position t
+    holds point ``order[t]``, whose referencing pairs are
+    ``pair[start[t]:start[t + 1]]``, each the linear slot ``i * k + slot``
+    of a row i whose neighbour ``slot`` is that point, in ascending slot
+    order (the JAX package's stable argsort: each run is the JAX table's
+    row of that point). ``w`` holds each pair's frozen weight (None for a
+    pair-level transpose built without weights). X4 and X5 walk the
+    positions in ``tiles`` (:class:`TransposeTiles`) and raise on a graph
+    without them; the plain versions read the pairs through ``order``, and
+    :func:`point_csr` gives the same pairs in point order."""
+
+    order: torch.Tensor  # (M,) int32 point at each position
+    start: torch.Tensor  # (M + 1,) int32
+    pair: torch.Tensor  # (P,) int32 = i * k + slot
+    w: Optional[torch.Tensor]  # (P,) float or None
+    k: int
+    tiles: Optional[TransposeTiles] = None
+
+    @property
+    def num_points(self) -> int:
+        return self.order.shape[0]
+
+    def in_degree(self) -> torch.Tensor:
+        """(M,) int32: each point's count of pairs."""
+        deg = torch.empty_like(self.order)
+        deg[self.order.long()] = self.start[1:] - self.start[:-1]
+        return deg
+
+    def targets(self) -> torch.Tensor:
+        """(P,) int64: each pair's target point."""
+        deg = (self.start[1:] - self.start[:-1]).long()
+        return torch.repeat_interleave(self.order.long(), deg, output_size=self.pair.shape[0])
+
+    def pairs_per_row(self) -> float:
+        """Pairs over the tiles' distinct rows: how often X4 reads a staged
+        row (1.0 where no two pairs of a tile share a row)."""
+        return self.pair.shape[0] / max(self.tiles.rows.shape[0], 1)
+
+    def nbytes(self) -> dict:
+        """Bytes of the tables that grow with the pairs (``pairs``: pairs,
+        weights and local row indices) and with the points (``points``: the
+        order, run starts and the tiles' row lists)."""
+        def nb(*ts):
+            return int(sum(t.numel() * t.element_size() for t in ts if t is not None))
+
+        t = self.tiles
+        tiles = (t.local, t.tile_start, t.row_start, t.rows) if t is not None else (None,) * 4
+        return {"pairs": nb(self.pair, self.w, tiles[0]),
+                "points": nb(self.order, self.start, *tiles[1:])}
+
+    def to(self, device=None, dtype=None) -> "TransposeGraph":
+        """Moved to ``device``; ``w`` cast to ``dtype`` (the run's float type)."""
+        w = None if self.w is None else self.w.to(device=device, dtype=dtype)
+        return dataclasses.replace(
+            self, order=self.order.to(device), start=self.start.to(device),
+            pair=self.pair.to(device), w=w,
+            tiles=None if self.tiles is None else self.tiles.to(device))
+
+
+class PointCSR(NamedTuple):
+    """A transpose's pairs in point order: point j's run is
+    ``pair[start[j]:start[j + 1]]`` (weights ``w``), the layout of X4's and
+    X5's first versions and of the JAX package's tables."""
 
     start: torch.Tensor  # (M + 1,) int32
     pair: torch.Tensor  # (P,) int32
     w: Optional[torch.Tensor]  # (P,) float or None
     k: int
 
-    @property
-    def num_points(self) -> int:
-        return self.start.shape[0] - 1
 
-    def targets(self) -> torch.Tensor:
-        """(P,) int64: each pair's target point."""
-        m = self.num_points
-        deg = (self.start[1:] - self.start[:-1]).long()
-        return torch.repeat_interleave(torch.arange(m, device=self.start.device), deg,
-                                       output_size=self.pair.shape[0])
+def point_csr(tg: TransposeGraph) -> PointCSR:
+    """``tg``'s runs moved from cell order to point order."""
+    m, p = tg.num_points, tg.pair.shape[0]
+    dev = tg.start.device
+    deg = tg.start[1:] - tg.start[:-1]
+    start = torch.zeros(m + 1, dtype=torch.int32, device=dev)
+    start[1:] = torch.cumsum(tg.in_degree(), 0)
+    at = torch.repeat_interleave(torch.arange(m, device=dev), deg.long(), output_size=p)
+    dest = (torch.arange(p, device=dev) - tg.start.long()[at]
+            + start.long()[tg.order.long()[at]])
+    pair = torch.empty_like(tg.pair)
+    pair[dest] = tg.pair
+    w = None
+    if tg.w is not None:
+        w = torch.empty_like(tg.w)
+        w[dest] = tg.w
+    return PointCSR(start=start, pair=pair, w=w, k=tg.k)
 
-    def to(self, device=None, dtype=None) -> "TransposeGraph":
-        """Moved to ``device``; ``w`` cast to ``dtype`` (the run's float type)."""
-        w = None if self.w is None else self.w.to(device=device, dtype=dtype)
-        return TransposeGraph(start=self.start.to(device=device),
-                              pair=self.pair.to(device=device), w=w, k=self.k)
+
+def _part1by2(x: torch.Tensor) -> torch.Tensor:
+    """The low 21 bits of ``x`` (int64) spread to every third bit."""
+    x = x & 0x1FFFFF
+    x = (x | (x << 32)) & 0x1F00000000FFFF
+    x = (x | (x << 16)) & 0x1F0000FF0000FF
+    x = (x | (x << 8)) & 0x100F00F00F00F00F
+    x = (x | (x << 4)) & 0x10C30C30C30C30C3
+    x = (x | (x << 2)) & 0x1249249249249249
+    return x
 
 
-def build_transpose_graph(neighbors: torch.Tensor, num_points: Optional[int] = None,
+def cell_order(positions: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+    """(M,) int64 order of the targets: the ``active`` ones (those with
+    pairs) by the Morton key of their ``positions`` on a 2^21 grid an axis
+    over their bounding box, ties by index, then the others by index. The
+    JAX package's ``spatial_sort_perm`` (preproc.py:449-486) sorts by the
+    same curve on a coarser grid."""
+    dev = active.device
+    p = torch.nan_to_num(positions.detach().to(device=dev, dtype=torch.float64), 0.0, 0.0, 0.0)
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=dev)
+    lo = torch.where(active[:, None], p, inf).amin(0)
+    hi = torch.where(active[:, None], p, -inf).amax(0)
+    lo = torch.where(torch.isfinite(lo), lo, 0.0)
+    extent = torch.clamp((torch.where(torch.isfinite(hi), hi, lo) - lo).amax(), min=1e-12)
+    top = (1 << _MORTON_BITS) - 1
+    c = torch.clamp((p - lo) / extent * top, 0, top).to(torch.int64)
+    key = (_part1by2(c[:, 0]) << 2) | (_part1by2(c[:, 1]) << 1) | _part1by2(c[:, 2])
+    key = torch.where(active, key, torch.iinfo(torch.int64).max)
+    return torch.sort(key, stable=True).indices
+
+
+def index_order(active: torch.Tensor) -> torch.Tensor:
+    """(M,) int64: the ``active`` targets by index, then the others; the
+    first versions' walk, which :func:`transpose_in_order` takes to measure
+    what the cell order gains."""
+    return torch.sort((~active).to(torch.int8), stable=True).indices
+
+
+def _tile_cuts(tps: torch.Tensor, m: int, budget: int) -> torch.Tensor:
+    """(M,) bool: the positions that start a tile. Tiles are the aligned
+    blocks of TILE_TARGETS positions, each halved while it references more
+    than ``budget`` distinct rows (a one-target block past it is a hub).
+    ``tps``: (Mq, K) int32 each slot's target position, ascending along a
+    row, ``m`` on an empty slot. A slot counts its row for a block when the
+    slot before it in the row lies in another block."""
+    dev = tps.device
+    mq = tps.shape[0]
+    cut = torch.zeros(m, dtype=torch.bool, device=dev)
+    cut[::TILE_TARGETS] = True
+    real = tps < m
+    size = TILE_TARGETS
+    while size > 1:
+        blk = tps // size
+        first = real.clone()
+        first[:, 1:] &= blk[:, 1:] != blk[:, :-1]
+        nb = max(-(-m // size), 1)
+        # The slots that count nothing add their 0 to bins spread by row:
+        # on the card atomics all aimed at one bin serialise.
+        spread = torch.arange(mq, dtype=torch.int32, device=dev)[:, None] % nb
+        index = torch.where(first, blk, spread).reshape(-1).long()
+        del blk, spread
+        rows = torch.zeros(nb, dtype=torch.int32, device=dev).scatter_add_(
+            0, index, first.reshape(-1).to(torch.int32))
+        del index, first
+        size //= 2
+        at = torch.arange(size, max(m, size), 2 * size, device=dev)
+        cut[at] = rows[at // (2 * size)] > budget
+    return cut
+
+
+def build_transpose_graph(neighbors: torch.Tensor, positions: torch.Tensor,
                           weights: Optional[torch.Tensor] = None) -> TransposeGraph:
-    """The transpose of ``neighbors`` on its own device: one stable sort of
-    the Mq * K target keys (slots whose index is -1 or outside
-    [0, num_points) keyed past every point, so they are dropped, as
-    :func:`gather_moments_plain` drops them) and a ``searchsorted`` for the
-    runs; one scalar comes to the host (the pair count).
+    """The transpose of ``neighbors`` over the points at ``positions``, on
+    the neighbours' device, its targets in their cell order
+    (:func:`cell_order`) and cut into tiles (:class:`TransposeTiles`).
+
+    One stable sort of the Mq * K target keys (slots whose index is -1 or
+    outside [0, M) keyed past every point, so they are dropped, as
+    :func:`gather_moments_plain` drops them) and a ``searchsorted`` give
+    the point-order runs; the runs are moved to their targets' positions by
+    a scan of their lengths, the tiles cut by counts of each block's
+    distinct rows (:func:`_tile_cuts`), and the tiles' rows and each pair's
+    local index come from one more sort. All with fixed shapes, in int32
+    where the values fit, freeing each table when it is spent; one read
+    comes to the host (the pair, tile and row counts).
 
     :param neighbors: (Mq, K) indices, -1 padded.
-    :param num_points: size of the point axis (default Mq).
+    :param positions: (M, 3) the points' positions at establishment; M is
+        the size of the point axis.
     :param weights: (Mq, K) frozen weights; each pair's is kept as ``w``.
     """
+    return transpose_in_order(neighbors, positions.shape[0], weights,
+                              lambda active: cell_order(positions, active))
+
+
+def transpose_in_order(neighbors: torch.Tensor, num_points: int,
+                       weights: Optional[torch.Tensor], order_of) -> TransposeGraph:
+    """:func:`build_transpose_graph` with the targets in the order
+    ``order_of(active)`` gives ((M,) int64, the targets with pairs first,
+    ``active`` their (M,) bool mask), to measure another order's tiles
+    (:func:`index_order`)."""
     mq, k = neighbors.shape
-    m = mq if num_points is None else int(num_points)
-    if m >= 2 ** 31 - 1 or mq * k >= 2 ** 31:
+    m = int(num_points)
+    n = mq * k
+    if m >= 2 ** 31 - 1 or n >= 2 ** 31:
         raise ValueError("a transpose graph indexes points and slots in int32: %d points, "
-                         "%d slots" % (m, mq * k))
+                         "%d slots" % (m, n))
+    budget = TILE_ROWS
+    dev = neighbors.device
+    i32 = torch.int32
     j = neighbors.reshape(-1)
-    key = torch.where((j >= 0) & (j < m), j, m).to(torch.int32)
-    key_s, order = torch.sort(key, stable=True)
-    start = torch.searchsorted(key_s, torch.arange(m + 1, dtype=torch.int32,
-                                                   device=key.device)).to(torch.int32)
-    order = order[:int(start[-1])]
-    w = None if weights is None else weights.reshape(-1)[order]
-    return TransposeGraph(start=start, pair=order.to(torch.int32), w=w, k=int(k))
+    key = torch.where((j >= 0) & (j < m), j, m).to(i32)
+    key_s, slots = torch.sort(key, stable=True)
+    slots = slots.to(i32)
+    start = torch.searchsorted(key_s, torch.arange(m + 1, dtype=i32, device=dev)).to(i32)
+    order = order_of(start[1:] > start[:-1])
+    rank = torch.empty(m + 1, dtype=i32, device=dev)
+    rank[order] = torch.arange(m, dtype=i32, device=dev)
+    rank[m] = m
+    tstart = torch.zeros(m + 1, dtype=i32, device=dev)
+    tstart[1:] = torch.cumsum((start[1:] - start[:-1])[order], 0)
+    # Each sorted slot's index in the cell-order CSR: its target's run moved
+    # to the target's position; the empty slots past the pairs keep theirs
+    # (tstart[M] = start[M]).
+    dest = torch.arange(n, dtype=i32, device=dev)
+    dest -= start[key_s]
+    dest += tstart[rank[key_s]]
+    del key_s
+    by_slot = torch.empty(n, dtype=i32, device=dev)
+    by_slot[slots] = dest
+    del dest, slots
+    tpair = torch.empty(n, dtype=i32, device=dev)
+    tpair[by_slot] = torch.arange(n, dtype=i32, device=dev)
+    tw = None
+    if weights is not None:
+        tw = torch.empty(n, dtype=weights.dtype, device=dev)
+        tw[by_slot] = weights.reshape(-1)
+    # Each slot's target position, ascending along its row, and its place
+    # in the cell-order CSR.
+    tps, kperm = torch.sort(rank[key].view(mq, k), dim=1, stable=True)
+    del key
+    dest = by_slot.view(mq, k).gather(1, kperm)
+    del by_slot, kperm
+    cut = _tile_cuts(tps, m, budget)
+    n_tiles = cut.sum()
+    tile_of = torch.cumsum(cut, 0, dtype=i32) - 1
+    del cut
+    # Tile b starts at the first position of tile b (M past the last tile).
+    tile_start = torch.searchsorted(tile_of, torch.arange(m + 1, dtype=i32, device=dev))
+    # The slots sorted by tile, rows ascending within a tile (the slots of
+    # one row and tile are neighbours there); each new (tile, row) pair is
+    # the tile's next row.
+    tl_s, by_tile = torch.sort(torch.cat([tile_of, tile_of.new_full((1,), m)])[tps].view(-1),
+                               stable=True)
+    del tps
+    row_s = (by_tile // k).to(i32)
+    dest = dest.view(-1)[by_tile]
+    del by_tile
+    real = tl_s < m
+    new = real.clone()
+    new[1:] &= (tl_s[1:] != tl_s[:-1]) | (row_s[1:] != row_s[:-1])
+    seen = torch.cumsum(new, 0, dtype=i32)
+    # Tile b's rows start at the count of (tile, row) pairs before its first
+    # slot.
+    row_start = torch.cat([seen - new.to(i32), seen[-1:] if n else seen.new_zeros(1)])[
+        torch.searchsorted(tl_s, torch.arange(m + 1, dtype=i32, device=dev))]
+    del new
+    seen -= 1  # each real slot's (tile, row) among all tiles' rows
+    rows = torch.empty(n, dtype=i32, device=dev)
+    # A row's slots in one tile write the same value; the empty slots write
+    # past the rows.
+    rows[torch.where(real, seen, n - 1)] = row_s
+    del row_s, real
+    seen -= row_start[tl_s]  # the slot's index among its tile's rows
+    del tl_s
+    tlocal = torch.empty(n, dtype=torch.int16, device=dev)
+    tlocal[dest] = ((seen + 32768) % 65536 - 32768).to(torch.int16)
+    del seen, dest
+    per_tile = torch.diff(row_start, prepend=row_start.new_zeros(1))
+    counts = torch.stack([start[m], n_tiles.to(i32), row_start[m],
+                          torch.where(per_tile <= budget, per_tile, 0).max()])
+    p, t, r, rows_max = counts.tolist()
+    tiles = TransposeTiles(
+        local=tlocal[:p].clone(), tile_start=tile_start[:t + 1].to(i32),
+        row_start=row_start[:t + 1], rows=rows[:r].clone(), rows_max=int(rows_max),
+        budget=int(budget))
+    return TransposeGraph(order=order.to(i32), start=tstart, pair=tpair[:p].clone(),
+                          w=None if tw is None else tw[:p].clone(), k=int(k), tiles=tiles)
 
 
 # Pairs per chunk of the plain versions' (pairs, 12) intermediates.
@@ -195,12 +473,20 @@ def transpose_moments_plain(points, tg: TransposeGraph, table):
 
 
 def transpose_moments(points, tg: TransposeGraph, table):
-    """X4 wrapper: the CUDA kernel for CUDA tensors (float32; anything else
-    raises), :func:`transpose_moments_plain` for CPU tensors."""
+    """X4 wrapper: the CUDA kernel over ``tg``'s tiles for CUDA tensors
+    (float32; anything else, or a graph without tiles, raises),
+    :func:`transpose_moments_plain` for CPU tensors."""
     if points.device.type == "cpu":
         return transpose_moments_plain(points, tg, table)
-    return _kernels.launch_transpose_moments(points.contiguous(), tg.start, tg.pair, tg.w,
-                                             table.contiguous(), tg.k)
+    return _kernels.launch_transpose_moments(points.contiguous(), tg, table.contiguous())
+
+
+def transpose_moments_v1(points, csr: PointCSR, table):
+    """X4's first version (point order) on CUDA tensors over
+    :func:`point_csr` of a transpose, the result of
+    :func:`transpose_moments`; for the A/B on the card only."""
+    return _kernels.launch_transpose_moments_v1(points.contiguous(), csr.start, csr.pair, csr.w,
+                                                table.contiguous(), csr.k)
 
 
 def transpose_gather_plain(g, tg: TransposeGraph):
@@ -214,12 +500,22 @@ def transpose_gather_plain(g, tg: TransposeGraph):
 
 
 def transpose_gather(g, tg: TransposeGraph):
-    """X5 wrapper: the CUDA kernel for CUDA tensors (float32, D 1 or 3),
+    """X5 wrapper: the CUDA kernel over ``tg``'s cell order for CUDA tensors
+    (float32, D 1 or 3; a graph without tiles raises),
     :func:`transpose_gather_plain` for CPU tensors."""
     if g.device.type == "cpu":
         return transpose_gather_plain(g, tg)
     d = 1 if g.dim() == 2 else g.shape[-1]
-    out = _kernels.launch_transpose_gather(g.reshape(-1, d).contiguous(), tg.start, tg.pair)
+    out = _kernels.launch_transpose_gather(g.reshape(-1, d).contiguous(), tg)
+    return out[:, 0] if g.dim() == 2 else out
+
+
+def transpose_gather_v1(g, csr: PointCSR):
+    """X5's first version (point order) on CUDA tensors over
+    :func:`point_csr` of a transpose, the result of
+    :func:`transpose_gather`; for the A/B on the card only."""
+    d = 1 if g.dim() == 2 else g.shape[-1]
+    out = _kernels.launch_transpose_gather_v1(g.reshape(-1, d).contiguous(), csr.start, csr.pair)
     return out[:, 0] if g.dim() == 2 else out
 
 

@@ -146,7 +146,7 @@ def shard_cellwin_device(dev: CellWinDevice, mesh, rank: int = None,
         exc_nn=exc_nn,
         exc_w=exc_w,
         r2=dev.r2, n_exc=int(dev.n_exc), pt_start=pt0, mesh=mesh,
-        exc_tg=build_transpose_graph(exc_nn, t2p * p_cap, exc_w))
+        exc_tg=build_transpose_graph(exc_nn, est.T, exc_w))
 
 
 def sharded_fwd(pts_full, sh: CellWinShards) -> torch.Tensor:
@@ -251,12 +251,12 @@ def shard_tables_bytes(sh: CellWinShards) -> dict:
     """Bytes of the rank's row-side and point-side tables (the exception
     rows' transpose pairs among the rows), and of the tables every rank
     holds whole (``est_sorted``, ``perm``, ``inv``, the transpose's run
-    starts)."""
+    starts, cell order and tiles)."""
     def nb(*ts):
         return int(sum(t.numel() * t.element_size() for t in ts))
 
-    tg = sh.exc_tg
+    tg = sh.exc_tg.nbytes() if sh.exc_tg is not None else {"pairs": 0, "points": 0}
     return {"rows": nb(sh.q_est, sh.f_start, sh.f_len, sh.f_ctr, sh.row_map, sh.exc_slots,
-                       sh.exc_nn, sh.exc_w, *((tg.pair, tg.w) if tg is not None else ())),
+                       sh.exc_nn, sh.exc_w) + tg["pairs"],
             "points": nb(sh.est_local, sh.b_start, sh.b_len, sh.b_ctr),
-            "whole": nb(sh.est_sorted, sh.perm, sh.inv, *((tg.start,) if tg is not None else ()))}
+            "whole": nb(sh.est_sorted, sh.perm, sh.inv) + tg["points"]}

@@ -42,6 +42,7 @@ import torch.distributed as dist
 
 from ..config import Config, NeighborhoodType, PoseCorrection
 from ..ops.features import build_transpose_graph
+from ..preproc import global_cloud
 from .cellwin_shard import CellWinShards, cellwin_features_sharded, shard_cellwin_device, \
     shard_tables_bytes
 from .collectives import all_gather_rows, all_reduce_sum, gather_detached, sum_over_ranks, \
@@ -299,10 +300,12 @@ def shard_train_data(data, mesh: DataMesh):
         # The rank's rows' transposes over every point (the backward's X4 /
         # X5 sum each point's pairs among this rank's rows; the position
         # gather's backward adds the ranks' parts).
+        pos = (global_cloud(data.batches[i]).get_points()
+               if neighbors[-1] is not None or off_nn[-1] is not None else None)
         tgs.append(None if neighbors[-1] is None
-                   else build_transpose_graph(neighbors[-1], n_points, weights[-1]))
+                   else build_transpose_graph(neighbors[-1], pos, weights[-1]))
         otgs.append(None if off_nn[-1] is None
-                    else build_transpose_graph(off_nn[-1], n_points, off_w[-1]))
+                    else build_transpose_graph(off_nn[-1], pos, off_w[-1]))
     icp_idx = tuple(_split(x, mesh, 1, 0) for x in (data.icp_idx or ()))
     icp_w = tuple(_split(x, mesh, 1, False) for x in (data.icp_w or ()))
     return dataclasses.replace(
@@ -319,7 +322,8 @@ def resident_bytes(data) -> dict:
     masks, query rows, the offset graph, ICP correspondences, plane
     members, a cell-window graph's row and point tiles and the transposes'
     pairs) and the tables every rank holds whole (``whole``: the
-    cell-window graph's, the transposes' run starts)."""
+    cell-window graph's, the transposes' run starts, cell orders and
+    tiles)."""
     def nb(x):
         if x is None:
             return 0
@@ -337,8 +341,9 @@ def resident_bytes(data) -> dict:
         out["rows"] += sum(nb(x) for x in (getattr(data, field, ()) or ()))
     for tg in (data.transposes or ()) + (data.off_transposes or ()):
         if tg is not None:
-            out["rows"] += nb(tg.pair) + nb(tg.w)
-            out["whole"] += nb(tg.start)
+            t = tg.nbytes()
+            out["rows"] += t["pairs"]
+            out["whole"] += t["points"]
     for cw in data.cellwin or ():
         if isinstance(cw, CellWinShards):
             t = shard_tables_bytes(cw)

@@ -12,15 +12,24 @@ import time
 
 import torch
 
-__all__ = ["PROFILE_ATTEMPTS", "RETAKEN_CALLS", "bench_config", "device_ms", "in_turns",
-           "kernel_ms", "rel_max", "rel_rows", "require_card"]
+__all__ = ["PROFILE_ATTEMPTS", "PROFILE_PAD_S", "QUEUED_TIMINGS", "QUEUE_ATTEMPTS",
+           "RETAKEN_CALLS", "bench_config", "device_ms", "in_turns", "kernel_ms", "queued_ms",
+           "rel_max", "rel_rows", "require_card"]
 
 # Calls of a timed function that kernel_ms made for profiles it took again
 # (each a call more than its caller asked for); a caller that counts the
 # launches of the timed function adds these.
 RETAKEN_CALLS = 0
-# Profiles a kernel_ms call takes before it raises.
+# Profiles a kernel_ms call takes before it times the calls by queued_ms.
 PROFILE_ATTEMPTS = 5
+# Seconds kernel_ms waits inside its first profile before the calls and
+# after them (three times as long at each profile taken again).
+PROFILE_PAD_S = 0.05
+# kernel_ms calls that every profile failed, timed by queued_ms instead.
+QUEUED_TIMINGS = 0
+# Readings queued_ms takes before it raises.
+QUEUE_ATTEMPTS = 3
+_SPIN_CYCLES_PER_MS = None
 
 # bench.py's uncapped training scene.
 SCENE = "open_box/n_6_size_20_20_5_height_1_density_400"
@@ -90,19 +99,25 @@ def kernel_ms(fn, device, reps: int, warmup: int = 2) -> float:
     between kernels, so a kernel that ends before the host has issued the
     next call reads its own time, not the host's issue rate.
 
-    In a long process the profiler has missed microsecond kernels near the
-    end of a profile (on an H100: some launches of the layout probes, the
-    one launch of a one-call profile), so the host waits a few milliseconds
-    inside the profile after the calls have finished, and each kernel
-    counts as its mean recorded duration times its launches per call (its
-    recorded launches over ``reps``, at least one). A profile that recorded
-    no kernel at all (on an H100 the profiler has also missed every kernel
-    of three profiles of 20 calls in a row) is taken again, up to
-    :data:`PROFILE_ATTEMPTS` in all, and then it raises: no other clock
-    stands in for the kernels' own durations. The calls of each profile
-    taken again are added to :data:`RETAKEN_CALLS`.
+    The profiler drops every record that its clock places outside the
+    profile's window (kineto's "Out-of-range" records). On an H100 its
+    device timestamps have stood tens of milliseconds off the host's, and
+    late in a long process 19 of a profile's 20 launches were dropped, or
+    all of them, which left the profile empty (twice a whole smoke run
+    failed so). So the host waits :data:`PROFILE_PAD_S` inside the profile
+    before the first call and again after the last. A profile in which a
+    kernel's recorded launches are not a multiple of ``reps`` (a launch
+    dropped), or that recorded no kernel, is taken again with waits three
+    times as long, up to :data:`PROFILE_ATTEMPTS` profiles in all. Each
+    kernel counts as its mean recorded duration times its launches per
+    call (its recorded launches over ``reps``, at least one), from the
+    last profile that recorded any kernel. If none did, the calls are
+    timed by :func:`queued_ms` instead, which also leaves out the host's
+    gaps, and the call is counted in :data:`QUEUED_TIMINGS`. The calls of
+    each profile taken again, and those of the queued timing, are added to
+    :data:`RETAKEN_CALLS`.
     """
-    global RETAKEN_CALLS
+    global RETAKEN_CALLS, QUEUED_TIMINGS
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -111,24 +126,102 @@ def kernel_ms(fn, device, reps: int, warmup: int = 2) -> float:
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    reading = None
     for attempt in range(PROFILE_ATTEMPTS):
+        pad = PROFILE_PAD_S * 3 ** attempt
         if attempt:
             RETAKEN_CALLS += reps
-            print("kernel_ms: a profile of %d calls recorded no kernel; taking it again"
-                  % reps, file=sys.stderr)
-            time.sleep(0.05)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-            time.sleep(0.005)
+            time.sleep(pad)
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and e.count > 0]
         if events:
-            return sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
-                       for e in events) / 1e3
-    raise RuntimeError("kernel_ms: %d profiles of %d calls recorded no kernel"
-                       % (PROFILE_ATTEMPTS, reps))
+            reading = sum(e.self_device_time_total / e.count * max(1, round(e.count / reps))
+                          for e in events) / 1e3
+            if all(e.count % reps == 0 for e in events):
+                return reading
+        if attempt + 1 < PROFILE_ATTEMPTS:
+            print("kernel_ms: a profile of %d calls, %.2f s before and after them, recorded %s; "
+                  "taking it again" % (reps, pad, ", ".join(
+                      "%d launches of %s" % (e.count, e.key[:48]) for e in events)
+                      or "no kernel"), file=sys.stderr)
+    if reading is not None:
+        print("kernel_ms: %d profiles of %d calls dropped launches; the last one's per-launch "
+              "means stand" % (PROFILE_ATTEMPTS, reps), file=sys.stderr)
+        return reading
+    print("kernel_ms: %d profiles of %d calls recorded no kernel; timing the calls queued "
+          "behind a spin kernel instead" % (PROFILE_ATTEMPTS, reps), file=sys.stderr)
+    QUEUED_TIMINGS += 1
+    ms, calls = _queued(fn, reps)
+    RETAKEN_CALLS += calls
+    return ms
+
+
+def _spin_cycles_per_ms() -> float:
+    """The card's clock cycles a millisecond of ``torch.cuda._sleep``,
+    measured once by CUDA events around a spin of 2^24 cycles."""
+    global _SPIN_CYCLES_PER_MS
+    if _SPIN_CYCLES_PER_MS is None:
+        cycles = 1 << 24
+        torch.cuda._sleep(1 << 10)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        end.synchronize()
+        _SPIN_CYCLES_PER_MS = cycles / start.elapsed_time(end)
+    return _SPIN_CYCLES_PER_MS
+
+
+def _queued(fn, reps: int) -> tuple:
+    """(mean device ms per call, calls made): :func:`queued_ms` after no
+    warm call."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    spin_ms = 2 * (time.perf_counter() - t0) * 1e3 + 1.0
+    calls = reps
+    for _ in range(QUEUE_ATTEMPTS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(spin_ms * _spin_cycles_per_ms()))
+        start.record()
+        for _ in range(reps):
+            fn()
+        covered = not start.query()
+        end.record()
+        end.synchronize()
+        calls += reps
+        if covered:
+            return start.elapsed_time(end) / reps, calls
+        spin_ms *= 4
+    raise RuntimeError("queued_ms: the host had not issued %d calls before a spin of %.1f ms "
+                       "ended, %d times" % (reps, spin_ms / 4, QUEUE_ATTEMPTS))
+
+
+def queued_ms(fn, device, reps: int, warmup: int = 2) -> float:
+    """Mean device ms per call of ``fn`` on the CUDA ``device`` with the
+    host ahead of the card: CUDA events around ``reps`` calls that the host
+    issued while a spin kernel (``torch.cuda._sleep``) still held the
+    stream, so the host's issue rate leaves no gap between the calls'
+    kernels and only the card's own launch gaps remain, unlike
+    :func:`device_ms`. The spin lasts twice the host's time for ``reps``
+    calls, plus 1 ms. If the card had already reached the start event when
+    the host had issued the last call, the reading is taken again with a
+    spin four times as long, up to :data:`QUEUE_ATTEMPTS` in all, and then
+    it raises (a ``fn`` that waits for the card cannot be queued)."""
+    if torch.device(device).type != "cuda":
+        raise ValueError("queued_ms times CUDA devices, got %s" % device)
+    for _ in range(warmup):
+        fn()
+    return _queued(fn, reps)[0]
 
 
 def in_turns(first, second, device, reps: int = 50, timer=None) -> tuple:

@@ -394,11 +394,14 @@ def _sequence_transposes(rec: dict, for_grad: bool, seconds: dict, device) -> tu
     if cw is not None and cw.exc_tg is None:
         rec["cellwin"] = cwin.with_exc_transpose(cw)
     if for_grad and rec["batches"] is not None:
-        m = rec["batches"].cloud.depth.numel()
-        if cw is None and isinstance(nn, torch.Tensor):
-            tg = build_transpose_graph(nn, m, rec["weights"])
+        gather = cw is None and isinstance(nn, torch.Tensor)
+        if gather or rec["off_neighbors"] is not None:
+            # The points' positions at establishment order the targets.
+            pos = global_cloud(rec["batches"]).get_points()
+        if gather:
+            tg = build_transpose_graph(nn, pos, rec["weights"])
         if rec["off_neighbors"] is not None:
-            otg = build_transpose_graph(rec["off_neighbors"], m, rec["off_weights"])
+            otg = build_transpose_graph(rec["off_neighbors"], pos, rec["off_weights"])
     _tick(seconds, "transpose", t, device)
     return tg, otg
 

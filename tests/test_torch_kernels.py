@@ -7,6 +7,7 @@ no JAX, so on a machine with a card and PyTorch alone they run as
 
 (``--noconftest``: the suite's conftest pins JAX to the CPU).
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -674,6 +675,101 @@ def test_device_ms_times_cuda_devices_only():
     with pytest.raises(ValueError, match="CUDA"):
         device_ms(lambda: calls.append(1), "cpu", reps=1)
     assert not calls
+
+
+@pytest.mark.parametrize("timer", ["kernel_ms", "queued_ms"])
+def test_profiler_timers_take_cuda_devices_only(timer):
+    """kernel_ms and its fallback, queued_ms, time CUDA devices only; a CPU
+    device raises before anything is called."""
+    calls = []
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(scripts, timer)(lambda: calls.append(1), "cpu", reps=1)
+    assert not calls
+
+
+@pytest.mark.parametrize("counts,ms,retakes", [([19, 20], 0.1, 1), ([0, 40], 0.2, 1),
+                                               ([19, 1, 21, 19, 39], 0.2, 4)])
+def test_kernel_ms_retakes_profiles_that_drop_launches(monkeypatch, counts, ms, retakes):
+    """A profile that recorded no kernel, or a kernel's launches short of a
+    multiple of the calls, is taken again with the waits around the calls
+    three times as long; the first whole profile's reading stands, else the
+    last one's per-launch mean; the retaken profiles' calls are counted.
+    On a faked profiler and card clock."""
+    from types import SimpleNamespace
+
+    import torch.profiler
+    from torch.autograd import DeviceType
+
+    recorded = iter(counts)
+
+    class Dropping:
+        def __init__(self, *args, **kwargs):
+            self.count = next(recorded)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return [SimpleNamespace(device_type=DeviceType.CUDA, count=self.count, key="k",
+                                    self_device_time_total=100.0 * self.count)]
+
+    waits, calls = [], []
+    monkeypatch.setattr(torch.profiler, "profile", Dropping)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *args: None)
+    monkeypatch.setattr(scripts.time, "sleep", waits.append)
+    retaken, queued = scripts.RETAKEN_CALLS, scripts.QUEUED_TIMINGS
+    got = scripts.kernel_ms(lambda: calls.append(1), "cuda", 20, warmup=1)
+    assert got == pytest.approx(ms)
+    assert scripts.RETAKEN_CALLS - retaken == 20 * retakes
+    assert scripts.QUEUED_TIMINGS == queued
+    assert len(calls) == 1 + 20 * (retakes + 1)
+    assert waits == pytest.approx([scripts.PROFILE_PAD_S * 3 ** a
+                                   for a in range(retakes + 1) for _ in range(2)])
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_ms_times_queued_calls_after_empty_profiles(cuda_device, monkeypatch):
+    """When every profile records no kernel, kernel_ms times the calls queued
+    behind a spin kernel: counted in QUEUED_TIMINGS, every call past the
+    warm and asked-for ones in RETAKEN_CALLS, and the reading within 10% of
+    the profiler's for a 2048-square matmul."""
+    import torch.profiler
+
+    a = torch.randn(2048, 2048, device=cuda_device)
+    calls = []
+
+    def fn():
+        calls.append(1)
+        return a @ a
+
+    profiled = scripts.kernel_ms(fn, cuda_device, 20)
+
+    class Empty:
+        def __init__(self, *args, **kwargs):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def key_averages(self):
+            return []
+
+    monkeypatch.setattr(torch.profiler, "profile", Empty)
+    monkeypatch.setattr(scripts, "PROFILE_ATTEMPTS", 2)
+    calls.clear()
+    queued, retaken = scripts.QUEUED_TIMINGS, scripts.RETAKEN_CALLS
+    ms = scripts.kernel_ms(fn, cuda_device, 20, warmup=1)
+    assert scripts.QUEUED_TIMINGS == queued + 1
+    assert scripts.RETAKEN_CALLS - retaken == len(calls) - 1 - 20
+    assert len(calls) >= 1 + 2 * 20 + 2 * 20
+    assert abs(ms - profiled) <= 0.1 * profiled, (ms, profiled)
+    assert abs(scripts.queued_ms(fn, cuda_device, 20) - profiled) <= 0.1 * profiled
 
 
 @pytest.mark.cuda
@@ -2098,21 +2194,28 @@ def test_transpose_wrappers_never_take_the_plain_path(monkeypatch):
     for name in ("launch_transpose_moments", "launch_transpose_gather"):
         monkeypatch.setattr(_kernels, name, fake_launch)
     pts, nn, w, m = _transpose_case("k32", "cpu")
-    tg = tfeat.build_transpose_graph(nn, m, w).to("meta")
+    tg = tfeat.build_transpose_graph(nn, pts, w).to("meta")
     with pytest.raises(RuntimeError, match="launched"):
         tfeat.transpose_moments(pts.to("meta"), tg, torch.zeros((nn.shape[0], 12), device="meta"))
     with pytest.raises(RuntimeError, match="launched"):
         tfeat.transpose_gather(torch.zeros(tuple(nn.shape) + (3,), device="meta"), tg)
     assert len(calls) == 2
     monkeypatch.undo()
-    before = (_kernels.TRANSPOSE_MOMENTS_LAUNCHES, _kernels.TRANSPOSE_GATHER_LAUNCHES)
-    tg = tfeat.build_transpose_graph(nn, m, w)
+    counts = ("TRANSPOSE_MOMENTS_LAUNCHES", "TRANSPOSE_GATHER_LAUNCHES",
+              "TRANSPOSE_MOMENTS_V1_LAUNCHES", "TRANSPOSE_GATHER_V1_LAUNCHES")
+    before = [getattr(_kernels, c) for c in counts]
+    tg = tfeat.build_transpose_graph(nn, pts, w)
+    csr = tfeat.point_csr(tg)
+    table, g = torch.zeros((nn.shape[0], 12)), torch.zeros((nn.numel(), 3))
     with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_transpose_moments(pts, tg.start, tg.pair, tg.w,
-                                          torch.zeros((nn.shape[0], 12)), tg.k)
+        _kernels.launch_transpose_moments(pts, tg, table)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_transpose_gather(torch.zeros((nn.numel(), 3)), tg.start, tg.pair)
-    assert (_kernels.TRANSPOSE_MOMENTS_LAUNCHES, _kernels.TRANSPOSE_GATHER_LAUNCHES) == before
+        _kernels.launch_transpose_gather(g, tg)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch_transpose_moments_v1(pts, csr.start, csr.pair, csr.w, table, csr.k)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        _kernels.launch_transpose_gather_v1(g, csr.start, csr.pair)
+    assert [getattr(_kernels, c) for c in counts] == before
 
 
 @pytest.mark.cuda
@@ -2122,7 +2225,7 @@ def test_cuda_transpose_moments_matches_plain(cuda_device, case):
     GRAD_REL_BAR of max |grad|; two launches bit-equal (no atomics); a point
     with no pairs exactly 0."""
     pts, nn, w, m = _transpose_case(case, cuda_device)
-    tg = tfeat.build_transpose_graph(nn, m, w)
+    tg = tfeat.build_transpose_graph(nn, pts, w)
     gen = torch.Generator(device=cuda_device).manual_seed(4)
     mean, comps, w_sum = tfeat.gather_moments(pts, nn, w)
     cot = (torch.randn(mean.shape, generator=gen, device=cuda_device),
@@ -2136,7 +2239,7 @@ def test_cuda_transpose_moments_matches_plain(cuda_device, case):
     assert torch.equal(got, again)
     ref = tfeat.transpose_moments_plain(pts.double(), tg.to(dtype=torch.float64),
                                         table.double())
-    deg = tg.start[1:] - tg.start[:-1]
+    deg = tg.in_degree()
     assert torch.equal(got[deg == 0], torch.zeros_like(got[deg == 0]))
     err = float((got.double() - ref).abs().max())
     assert err <= GRAD_REL_BAR * max(float(ref.abs().max()), 1e-30)
@@ -2150,8 +2253,8 @@ def test_cuda_transpose_moments_matches_plain(cuda_device, case):
 def test_cuda_transpose_gather_matches_plain(cuda_device, case, dim):
     """X5 against its plain version in float64, D = 1 and 3, within
     GRAD_REL_BAR of max |grad|; two launches bit-equal."""
-    _, nn, _, m = _transpose_case(case, cuda_device)
-    tg = tfeat.build_transpose_graph(nn, m)
+    pts, nn, _, m = _transpose_case(case, cuda_device)
+    tg = tfeat.build_transpose_graph(nn, pts)
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     g = torch.randn(tuple(nn.shape) + ((dim,) if dim == 3 else ()), generator=gen,
                     device=cuda_device)
@@ -2166,13 +2269,132 @@ def test_cuda_transpose_gather_matches_plain(cuda_device, case, dim):
     assert err <= GRAD_REL_BAR * max(float(ref.abs().max()), 1e-30)
 
 
+def _hub_tiles(tg) -> int:
+    """The tiles past the budget (X4 reads their rows from global memory)."""
+    t = tg.tiles
+    return int(((t.row_start[1:] - t.row_start[:-1]) > t.budget).sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [tfeat.TILE_ROWS, 64])
+@pytest.mark.parametrize("case", TRANSPOSE_CASES)
+def test_cuda_transpose_tiles_match_plain_and_first_version(cuda_device, case, budget,
+                                                           monkeypatch):
+    """X4 and X5 (D = 1 and 3) over cell-ordered tiles at the default budget
+    and at 64 rows (the hub's tile and others past it take the hub path)
+    against the float64 plain versions and against their first versions
+    (point order), within GRAD_REL_BAR of max |output|; bit-equal to the
+    first versions where no tile is a hub (the same sum order); two
+    launches bit-equal; each version's launches counted."""
+    pts, nn, w, m = _transpose_case(case, cuda_device)
+    monkeypatch.setattr(tfeat, "TILE_ROWS", budget)
+    tg = tfeat.build_transpose_graph(nn, pts, w)
+    csr = tfeat.point_csr(tg)
+    if case == "hub" and budget == 64:
+        assert _hub_tiles(tg) >= 1
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    mean, comps, w_sum = tfeat.gather_moments(pts, nn, w)
+    table = tfeat._cotangent_rows(mean, w_sum,
+                                  (torch.randn(mean.shape, generator=gen, device=cuda_device),
+                                   torch.randn(comps.shape, generator=gen, device=cuda_device)))
+    before = (_kernels.TRANSPOSE_MOMENTS_LAUNCHES, _kernels.TRANSPOSE_MOMENTS_V1_LAUNCHES,
+              _kernels.TRANSPOSE_GATHER_LAUNCHES, _kernels.TRANSPOSE_GATHER_V1_LAUNCHES)
+    runs = [(tfeat.transpose_moments(pts, tg, table), tfeat.transpose_moments(pts, tg, table),
+             tfeat.transpose_moments_v1(pts, csr, table),
+             tfeat.transpose_moments_plain(pts.double(), tg.to(dtype=torch.float64),
+                                           table.double()))]
+    for dim in (1, 3):
+        g = torch.randn(tuple(nn.shape) + ((3,) if dim == 3 else ()), generator=gen,
+                        device=cuda_device)
+        runs.append((tfeat.transpose_gather(g, tg), tfeat.transpose_gather(g, tg),
+                     tfeat.transpose_gather_v1(g, csr),
+                     tfeat.transpose_gather_plain(g.double(), tg)))
+    torch.cuda.synchronize()
+    assert (_kernels.TRANSPOSE_MOMENTS_LAUNCHES, _kernels.TRANSPOSE_MOMENTS_V1_LAUNCHES,
+            _kernels.TRANSPOSE_GATHER_LAUNCHES, _kernels.TRANSPOSE_GATHER_V1_LAUNCHES) == (
+        before[0] + 2, before[1] + 1, before[2] + 4, before[3] + 2)
+    for got, again, v1, ref in runs:
+        assert got.shape == ref.shape and torch.equal(got, again)
+        bar = GRAD_REL_BAR * max(float(ref.abs().max()), 1e-30)
+        assert float((got.double() - ref).abs().max()) <= bar
+        assert float((got.double() - v1.double()).abs().max()) <= bar
+    for got, _, v1, _ in runs[1:] if _hub_tiles(tg) else runs:
+        assert torch.equal(got, v1)
+
+
+@pytest.mark.cuda
+def test_cuda_transpose_without_tiles_raises(cuda_device):
+    """A TransposeGraph without its tiles (its cell-order CSR alone) raises
+    on CUDA tensors before any launch; the first versions still take its
+    point-order CSR."""
+    pts, nn, w, m = _transpose_case("k32", cuda_device)
+    tg = tfeat.build_transpose_graph(nn, pts, w)
+    bare = dataclasses.replace(tg, tiles=None)
+    table = torch.zeros((nn.shape[0], 12), device=cuda_device)
+    g = torch.zeros(tuple(nn.shape) + (3,), device=cuda_device)
+    before = (_kernels.TRANSPOSE_MOMENTS_LAUNCHES, _kernels.TRANSPOSE_GATHER_LAUNCHES)
+    with pytest.raises(ValueError, match="tiles"):
+        tfeat.transpose_moments(pts, bare, table)
+    with pytest.raises(ValueError, match="tiles"):
+        tfeat.transpose_gather(g, bare)
+    assert (_kernels.TRANSPOSE_MOMENTS_LAUNCHES, _kernels.TRANSPOSE_GATHER_LAUNCHES) == before
+    assert torch.equal(tfeat.transpose_gather_v1(g, tfeat.point_csr(bare)),
+                       tfeat.transpose_gather(g, tg))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [tfeat.TILE_ROWS - 1, tfeat.TILE_ROWS])
+def test_cuda_transpose_moments_tile_at_the_budget(cuda_device, rows):
+    """X4 on a graph whose largest tile within the budget stages ``rows``
+    rows (up to TILE_ROWS, 48 KB of shared memory) beside a hub tile in the
+    same launch: against the float64 plain version within GRAD_REL_BAR of
+    max |grad|, bit-equal to its first version (the hub's sum is another
+    tree, so it is held to the bar) and between two launches. The targets
+    0..127 (one block) are referenced by ``rows`` one-per-row pairs plus
+    a second neighbour each; target 200 by 1,100 rows of its own."""
+    hub_rows = 1100
+    rng = np.random.default_rng(12)
+    m = 256
+    nn = np.full((rows + hub_rows, 2), -1)
+    nn[:rows, 0] = np.arange(rows) % 128
+    nn[:rows, 1] = (7 * np.arange(rows) + 3) % 128
+    nn[rows:, 0] = 200
+    w = (nn >= 0) * rng.uniform(0.5, 1.5, nn.shape)
+    pts = torch.as_tensor(rng.uniform(-3, 3, (m, 3)) + np.array([400.0, -250.0, 30.0]),
+                          dtype=torch.float32, device=cuda_device)
+    nn = torch.as_tensor(nn, device=cuda_device)
+    w = torch.as_tensor(w, dtype=torch.float32, device=cuda_device)
+    # Positions on a line: the cell order is the index order.
+    line = torch.zeros((m, 3), dtype=torch.float64, device=cuda_device)
+    line[:, 0] = torch.arange(m, dtype=torch.float64, device=cuda_device)
+    tg = tfeat.build_transpose_graph(nn, line, w)
+    assert tg.tiles.rows_max == rows and _hub_tiles(tg) == 1
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    mean, comps, w_sum = tfeat.gather_moments(pts, nn, w)
+    table = tfeat._cotangent_rows(mean, w_sum,
+                                  (torch.randn(mean.shape, generator=gen, device=cuda_device),
+                                   torch.randn(comps.shape, generator=gen, device=cuda_device)))
+    got = tfeat.transpose_moments(pts, tg, table)
+    again = tfeat.transpose_moments(pts, tg, table)
+    v1 = tfeat.transpose_moments_v1(pts, tfeat.point_csr(tg), table)
+    torch.cuda.synchronize()
+    ref = tfeat.transpose_moments_plain(pts.double(), tg.to(dtype=torch.float64),
+                                        table.double())
+    bar = GRAD_REL_BAR * float(ref.abs().max())
+    assert torch.equal(got, again)
+    assert float((got.double() - ref).abs().max()) <= bar
+    assert float((got.double() - v1.double()).abs().max()) <= bar
+    keep = torch.arange(m, device=cuda_device) != 200
+    assert torch.equal(got[keep], v1[keep])
+
+
 @pytest.mark.cuda
 def test_cuda_moments_gradient_takes_x4(cuda_device):
     """neighborhood_moments on the card: P7 forward, X4 backward, once
     each; the gradient within GRAD_REL_BAR of the float64 plain path;
     without a transpose the gradient path raises."""
     pts, nn, w, m = _transpose_case("uncapped", cuda_device)
-    tg = tfeat.build_transpose_graph(nn, m, w)
+    tg = tfeat.build_transpose_graph(nn, pts, w)
     gw = torch.randn(nn.shape[0], generator=torch.Generator(device=cuda_device).manual_seed(6),
                      device=cuda_device, dtype=torch.float64)
 

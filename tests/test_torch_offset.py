@@ -236,7 +236,8 @@ def test_nn_scale_features_match_jax(query):
     (_, jf), jg = jax.jit(jax.value_and_grad(jfun, has_aux=True))(jnp.asarray(pts))
     tq = None if qr is None else torch.as_tensor(qr)
     tp = torch.tensor(pts, requires_grad=True)
-    tg = tfeat.build_transpose_graph(torch.as_tensor(nn_q), n, torch.as_tensor(w))
+    tg = tfeat.build_transpose_graph(torch.as_tensor(nn_q), torch.as_tensor(pts),
+                                     torch.as_tensor(w))
     tf = tfeat.neighborhood_features(tp, torch.as_tensor(nn_q), torch.as_tensor(w), scale=0.15,
                                      compute_normals=False, query_rows=tq, tg=tg)
     tf["eigvals"][:, 0].sum().backward()

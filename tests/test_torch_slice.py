@@ -267,6 +267,8 @@ def test_port_imports_no_jax():
             "depth_correction_tpu_torch.scripts.slab_cull, "
             "depth_correction_tpu_torch.scripts.exp_grid_slab_ab, "
             "depth_correction_tpu_torch.scripts.exp_window_variants, "
+            "depth_correction_tpu_torch.scripts.exp_transpose_variants, "
+            "depth_correction_tpu_torch.scripts.exp_profile_teardown, "
             "depth_correction_tpu_torch.eval, depth_correction_tpu_torch.train_and_eval, "
             "depth_correction_tpu_torch.parallel, depth_correction_tpu_torch.parallel.sharding, "
             "depth_correction_tpu_torch.parallel.cellwin_shard, "

@@ -48,6 +48,12 @@ def _ball_graph(pts, r, k_cap=None):
     return nn
 
 
+def _positions(m):
+    """(M, 3) float64 positions seeded in a 10 m box: the cell order of a
+    graph case's transpose."""
+    return torch.as_tensor(np.random.default_rng(3).uniform(-5, 5, (m, 3)))
+
+
 def _graph_case(case):
     """(neighbors, num_points, weights) of one CSR case."""
     rng = np.random.default_rng(5)
@@ -79,21 +85,22 @@ def test_csr_matches_jax_transpose(case):
     against ``build_transpose_graph_device`` (``build_transpose_graph``
     does not take them)."""
     nn, m, w = _graph_case(case)
-    tg = tfeat.build_transpose_graph(torch.as_tensor(nn), m, torch.as_tensor(w))
+    tg = tfeat.build_transpose_graph(torch.as_tensor(nn), _positions(m), torch.as_tensor(w))
+    csr = tfeat.point_csr(tg)
     build = (jfeat.build_transpose_graph_device if case == "out_of_range"
              else jfeat.build_transpose_graph)
     t_idx, t_slot, t_w = (np.asarray(a) for a in build(jnp.asarray(nn), m, jnp.asarray(w)))
-    start = tg.start.numpy()
-    pair = tg.pair.numpy().astype(np.int64)
+    start = csr.start.numpy()
+    pair = csr.pair.numpy().astype(np.int64)
     assert start.shape == (m + 1,) and start[0] == 0
-    assert tg.pair.dtype == torch.int32 and tg.start.dtype == torch.int32
+    assert csr.pair.dtype == torch.int32 and csr.start.dtype == torch.int32
     k = nn.shape[1]
     for j in range(m):
         run = pair[start[j]:start[j + 1]]
         deg = len(run)
         np.testing.assert_array_equal(run // k, t_idx[j, :deg])
         np.testing.assert_array_equal(run % k, t_slot[j, :deg])
-        np.testing.assert_array_equal(tg.w.numpy()[start[j]:start[j + 1]], t_w[j, :deg])
+        np.testing.assert_array_equal(csr.w.numpy()[start[j]:start[j + 1]], t_w[j, :deg])
         assert (t_idx[j, deg:] == -1).all()
     assert start[-1] == int(((nn >= 0) & (nn < m)).sum())
     if case == "in_degree_0":
@@ -143,7 +150,8 @@ def test_moments_vjp_matches_jax(case):
         return ((mean * torch.as_tensor(g_mean)).sum()
                 + sum((c * torch.as_tensor(gc)).sum() for c, gc in zip(comps, g_comps)))
 
-    tg = tfeat.build_transpose_graph(torch.as_tensor(nn), m, torch.as_tensor(w))
+    tg = tfeat.build_transpose_graph(torch.as_tensor(nn), torch.as_tensor(pts),
+                                     torch.as_tensor(w))
     p = torch.tensor(pts, requires_grad=True)
     mean, comps = tfeat.neighborhood_moments(p, torch.as_tensor(nn), torch.as_tensor(w), tg)
     objective(mean, comps).backward()
@@ -172,7 +180,8 @@ def test_one_neighbour_rows_contribute_nothing():
     pts = np.array([[3.0, 1.0, 2.0], [0.0, 0.0, 0.0], [1.0, 0.0, 0.0]]) + 1000.0
     nn = np.array([[0, -1], [1, 2]])
     w = (nn >= 0).astype(np.float64)
-    tg = tfeat.build_transpose_graph(torch.as_tensor(nn), 3, torch.as_tensor(w))
+    tg = tfeat.build_transpose_graph(torch.as_tensor(nn), torch.as_tensor(pts),
+                                     torch.as_tensor(w))
     p = torch.tensor(pts, requires_grad=True)
     mean, comps = tfeat.neighborhood_moments(p, torch.as_tensor(nn), torch.as_tensor(w), tg)
     (1e3 * comps[0][0] + 7.0 * comps[3][0] + 0.0 * mean.sum()).backward()
@@ -193,7 +202,7 @@ def test_gather_transposed_vjp_matches_jax(dim):
     out, vjp = jax.vjp(lambda v: jfeat.gather_neighbors_transposed(v, jnp.asarray(nn), t_idx,
                                                                    t_slot), jnp.asarray(values))
     (jg,) = vjp(jnp.asarray(g))
-    tg = tfeat.build_transpose_graph(torch.as_tensor(nn), m)
+    tg = tfeat.build_transpose_graph(torch.as_tensor(nn), _positions(m))
     assert tg.w is None
     v = torch.tensor(values, requires_grad=True)
     got = tfeat.gather_neighbors_transposed(v, torch.as_tensor(nn), tg)
@@ -227,7 +236,8 @@ def test_scaled_features_vjp_matches_jax(query):
         return f["eigvals"][:, 0].sum()
 
     jg = np.asarray(jax.grad(jfun)(jnp.asarray(pts)))
-    tg = tfeat.build_transpose_graph(torch.as_tensor(nn_q), n, torch.as_tensor(w))
+    tg = tfeat.build_transpose_graph(torch.as_tensor(nn_q), torch.as_tensor(pts),
+                                     torch.as_tensor(w))
     tp = torch.tensor(pts, requires_grad=True)
     f = tfeat.neighborhood_features(tp, torch.as_tensor(nn_q), torch.as_tensor(w), scale=0.15,
                                     compute_normals=False, tg=tg,
@@ -246,7 +256,7 @@ def test_gradient_path_without_transpose_raises():
         tfeat.neighborhood_moments(p, *args)
     with pytest.raises(ValueError, match="transpose"):
         tfeat.neighborhood_features(p, *args, scale=0.2, compute_normals=False)
-    pair_only = tfeat.build_transpose_graph(args[0], len(pts))
+    pair_only = tfeat.build_transpose_graph(args[0], torch.as_tensor(pts))
     with pytest.raises(ValueError, match="weights"):
         tfeat.neighborhood_moments(p, *args, tg=pair_only)
     with torch.no_grad():
