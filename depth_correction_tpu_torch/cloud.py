@@ -16,6 +16,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from .utils import trace
+
 __all__ = ["Cloud"]
 
 
@@ -128,12 +130,12 @@ class Cloud:
         """Cloud from (N, 3) points and optional viewpoints
         (reference: depth_cloud.py:592-638). Zero-depth points get a zero
         direction and stay valid (depth_cloud.py:626-627)."""
-        pts = torch.as_tensor(pts, dtype=dtype, device=device)
+        pts = trace.to_device(pts, dtype=dtype, device=device)
         n = pts.shape[0]
         if vps is None:
             vps = torch.zeros_like(pts)
         else:
-            vps = torch.as_tensor(vps, dtype=pts.dtype, device=pts.device)
+            vps = trace.to_device(vps, pts)
             vps = vps.expand(pts.shape)
         rays = pts - vps
         depth = torch.linalg.norm(rays, dim=-1)
@@ -142,9 +144,9 @@ class Cloud:
         if valid is None:
             valid = torch.ones(n, dtype=torch.bool, device=pts.device)
         else:
-            valid = torch.as_tensor(valid, dtype=torch.bool, device=pts.device)
+            valid = trace.to_device(valid, pts, dtype=torch.bool)
         if normals is not None:
-            normals = torch.as_tensor(normals, dtype=pts.dtype, device=pts.device)
+            normals = trace.to_device(normals, pts)
         cloud = Cloud(vps=vps, dirs=dirs, depth=depth, valid=valid,
                       normals=normals)
         if pad_to is not None and pad_to != n:

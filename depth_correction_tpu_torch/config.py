@@ -317,7 +317,10 @@ class Config(Configurable):
         # mesh_from_config); spatial_sort turns the cell-window engine off,
         # as in the JAX package, and leaves the rows in their order (the
         # Morton permutation is a TPU layout workaround); profile_dir takes
-        # a torch.profiler trace of iterations 2 to 6 (train.fit).
+        # a torch.profiler trace of iterations 2 to 6 (train.fit), with the
+        # program's spans (utils/trace.py), and writes beside it
+        # idle_by_span_it002-006.json: the device-idle seconds of the same
+        # profile by the span open on the host.
         self.mesh_shape = None  # e.g. {'data': 8}; None = single device
         self.dist_coordinator = None
         self.dist_num_processes = None

@@ -62,6 +62,7 @@ from .ops.grid_hash import (
 from .ops.knn import radius_neighbors
 from .ops.slabwin import slab_window_moments
 from .preproc import pad_size
+from .utils import trace
 
 __all__ = ["CloudFilter", "DepthCorrector", "correct_cloud"]
 
@@ -132,7 +133,7 @@ def _slab_layout(points, keep, nn_r: float):
     ids_pad, slot_of_orig, dims). The column bound is the scan's own column
     count (one host read), capped at ``NODE_X_COLS_MAX``."""
     cand = cell_candidates(points, keep, nn_r, NODE_N_CELLS_PAD)
-    x_cols = min(max(int(colpad_dims0_ideal(cand)), 1), NODE_X_COLS_MAX)
+    x_cols = min(max(int(trace.to_host(colpad_dims0_ideal(cand))), 1), NODE_X_COLS_MAX)
     (pts_pad_T, valid_pad, ids_pad, slot_of_orig, _, dims, _,
      _) = grid_sort_colpad_traced(points, keep, nn_r, NODE_N_CELLS_PAD, x_cols_pad=x_cols,
                                   candidates=cand)
@@ -232,18 +233,25 @@ class DepthCorrector:
         self.model = model if model is not None else load_model(cfg=cfg)
         self.max_age = max_age
         self.k = k or cfg.nn_max_neighbors or 32
+        self.scans = 0  # scans processed, the node.scan spans' ``scan``
 
     def process(self, scan: np.ndarray, stamp: Optional[float] = None):
         if stamp is not None and (time.time() - stamp) > self.max_age:
             return None  # stale scan dropped
+        self.scans += 1
+        with trace.span("node.scan", scan=self.scans):
+            return self._process(scan)
+
+    def _process(self, scan: np.ndarray):
         dtype, device = self.cfg.torch_dtype(), self.cfg.torch_device()
         if scan.dtype.names:
             cloud = Cloud.from_structured_array(scan, dtype=dtype, device=device)
         else:
             cloud = Cloud.from_points(scan, dtype=dtype, device=device)
         cloud = cloud.pad(pad_size(cloud.size))
-        outs = correct_cloud(self.model, cloud, self.cfg, k=self.k)
-        points, _, normals, mask, valid = (x.cpu().numpy() for x in outs)
+        with trace.span("node.correct"):
+            outs = correct_cloud(self.model, cloud, self.cfg, k=self.k)
+        points, _, normals, mask, valid = (trace.to_host(x).numpy() for x in outs)
         out = np.zeros(int(valid.sum()), dtype=[
             ("x", "f4"), ("y", "f4"), ("z", "f4"),
             ("normal_x", "f4"), ("normal_y", "f4"), ("normal_z", "f4"),

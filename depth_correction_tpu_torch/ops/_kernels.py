@@ -33,6 +33,8 @@ import time
 
 import torch
 
+from ..utils import trace
+
 __all__ = [
     "DOT_LAUNCHES",
     "DOT_V1_LAUNCHES",
@@ -346,8 +348,9 @@ def _launch_fwd(name, lead, pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr
 def launch_cellwin_fwd(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
                        r2: float) -> torch.Tensor:
     """K1 on CUDA float32 tensors -> raw (10, mq_pad) moments."""
-    return _launch_fwd("cellwin_fwd", (), pts_sorted, q_est, est_sorted, f_start, f_len,
-                       f_ctr, r2)
+    with trace.span("k1.cellwin_fwd"):
+        return _launch_fwd("cellwin_fwd", (), pts_sorted, q_est, est_sorted, f_start, f_len,
+                           f_ctr, r2)
 
 
 def launch_cellwin_fwd_v1(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
@@ -409,8 +412,9 @@ def _launch_bwd(name, pts_sorted, q_est, est_sorted, table9, b_start, b_len, b_c
 def launch_cellwin_bwd(pts_sorted, q_est, est_sorted, table9, b_start, b_len,
                        b_ctr, r2: float) -> torch.Tensor:
     """K2 on CUDA float32 tensors -> (m_pad, 3) gradient wrt pts_sorted."""
-    return _launch_bwd("cellwin_bwd", pts_sorted, q_est, est_sorted, table9, b_start, b_len,
-                       b_ctr, r2)
+    with trace.span("k2.cellwin_bwd"):
+        return _launch_bwd("cellwin_bwd", pts_sorted, q_est, est_sorted, table9, b_start,
+                           b_len, b_ctr, r2)
 
 
 def launch_cellwin_bwd_v1(pts_sorted, q_est, est_sorted, table9, b_start, b_len,
@@ -456,7 +460,8 @@ def launch_slab_window(pts_T, valid, lo, width, ctr, r2: float) -> torch.Tensor:
     :param ctr: (n / 128, 3) float32 tile centres.
     """
     global SLAB_LAUNCHES
-    out = _launch_slab("slab_window", pts_T, valid, lo, width, ctr, r2)
+    with trace.span("x1.slab"):
+        out = _launch_slab("slab_window", pts_T, valid, lo, width, ctr, r2)
     SLAB_LAUNCHES += 1
     return out
 
@@ -526,8 +531,9 @@ def launch_gather_moments(points, neighbors, weights, centred: bool = False):
     """
     global GATHER_LAUNCHES
     packed = neighbors.numel() >= GATHER_PACK_MIN_PAIRS
-    out = _launch_gather_moments("gather_moments_centred" if centred else "gather_moments",
-                                 points, neighbors, weights, packed)
+    with trace.span("p7.moments"):
+        out = _launch_gather_moments("gather_moments_centred" if centred else "gather_moments",
+                                     points, neighbors, weights, packed)
     GATHER_LAUNCHES += 1
     return out
 
@@ -739,8 +745,9 @@ def launch_grid_query(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dim
     if own_points and q_pts.shape[0] != pts_sorted_T.shape[-1]:
         raise ValueError("grid_query: own_points with %d queries and %d points"
                          % (q_pts.shape[0], pts_sorted_T.shape[-1]))
-    out = _launch_grid("grid_query", q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dims,
-                       cell, r2, k, cap, (order.data_ptr() if own_points else None,))
+    with trace.span("x2.grid"):
+        out = _launch_grid("grid_query", q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins,
+                           dims, cell, r2, k, cap, (order.data_ptr() if own_points else None,))
     GRID_LAUNCHES += 1
     return out
 
@@ -941,40 +948,42 @@ def launch_knn_brute(q_pts, q_valid, pts, p_valid, r2: float, k: int):
     :param r2: the squared radius as a float (``inf``: no radius).
     """
     global KNN_LAUNCHES
-    same = _same_rows(q_pts, pts)
-    q_pts, pts, k, idx, d2 = _knn_inputs(q_pts, q_valid, pts, p_valid, k, "knn_brute")
-    device = pts.device
-    n, nq = pts.shape[0], q_pts.shape[0]
-    if k > knn_tiles_max_k(device.index):
-        # Past the tiled body's shared memory: X3's warp-per-query body.
-        k_max = knn_max_k(device.index)
-        if k > k_max:
-            raise ValueError("knn_brute: k = %d does not fit: the lists of one warp hold at "
-                             "most k = %d in the card's shared memory per block" % (k, k_max))
-        out = _knn_v1_body(q_pts, q_valid, pts, p_valid, r2, k, idx, d2, "knn_brute")
+    with trace.span("x3.knn"):
+        same = _same_rows(q_pts, pts)
+        q_pts, pts, k, idx, d2 = _knn_inputs(q_pts, q_valid, pts, p_valid, k, "knn_brute")
+        device = pts.device
+        n, nq = pts.shape[0], q_pts.shape[0]
+        if k > knn_tiles_max_k(device.index):
+            # Past the tiled body's shared memory: X3's warp-per-query body.
+            k_max = knn_max_k(device.index)
+            if k > k_max:
+                raise ValueError("knn_brute: k = %d does not fit: the lists of one warp hold "
+                                 "at most k = %d in the card's shared memory per block"
+                                 % (k, k_max))
+            out = _knn_v1_body(q_pts, q_valid, pts, p_valid, r2, k, idx, d2, "knn_brute")
+            KNN_LAUNCHES += 1
+            return out
+        q_active = q_valid if k else None  # the counts count every query
+        cull = math.isfinite(r2) and n > 0 and nq > 0
+        # One cell order serves points and queries when they are the same rows
+        # and every row queries (counts, or a top-k without q_valid) or the
+        # active queries are the valid points: the main paths' calls.
+        share = cull and same and (q_active is None or _same_rows(q_active, p_valid))
+        lib = load()
+        scratch = torch.empty((lib.dc_knn_brute_scratch(nq, n, int(cull), int(share)),),
+                              dtype=torch.uint8, device=device)
+        with _on_device(device):
+            # The current stream's raw handle, read without building a Stream
+            # object as torch.cuda.current_stream does: a small search waits on
+            # the host's cost per call.
+            err = lib.dc_knn_brute(q_pts.data_ptr(), _ptr(q_active), nq, pts.data_ptr(),
+                                   p_valid.data_ptr(), n, float(r2),
+                                   math.sqrt(r2) if cull and r2 > 0 else 1.0, int(cull),
+                                   int(share), k, scratch.data_ptr(), idx.data_ptr(), _ptr(d2),
+                                   torch._C._cuda_getCurrentRawStream(device.index))
+        _check_launch(lib, err, "knn_brute (k %d)" % k)
         KNN_LAUNCHES += 1
-        return out
-    q_active = q_valid if k else None  # the counts count every query
-    cull = math.isfinite(r2) and n > 0 and nq > 0
-    # One cell order serves points and queries when they are the same rows
-    # and every row queries (counts, or a top-k without q_valid) or the
-    # active queries are the valid points: the main paths' calls.
-    share = cull and same and (q_active is None or _same_rows(q_active, p_valid))
-    lib = load()
-    scratch = torch.empty((lib.dc_knn_brute_scratch(nq, n, int(cull), int(share)),),
-                          dtype=torch.uint8, device=device)
-    with _on_device(device):
-        # The current stream's raw handle, read without building a Stream
-        # object as torch.cuda.current_stream does: a small search waits on
-        # the host's cost per call.
-        err = lib.dc_knn_brute(q_pts.data_ptr(), _ptr(q_active), nq, pts.data_ptr(),
-                               p_valid.data_ptr(), n, float(r2),
-                               math.sqrt(r2) if cull and r2 > 0 else 1.0, int(cull),
-                               int(share), k, scratch.data_ptr(), idx.data_ptr(), _ptr(d2),
-                               torch._C._cuda_getCurrentRawStream(device.index))
-    _check_launch(lib, err, "knn_brute (k %d)" % k)
-    KNN_LAUNCHES += 1
-    return idx if k == 0 else (d2, idx)
+        return idx if k == 0 else (d2, idx)
 
 
 def _knn_v1_body(q_pts, q_valid, pts, p_valid, r2: float, k: int, idx, d2, name: str):
@@ -1096,21 +1105,22 @@ def launch_transpose_moments(points, tg, table) -> torch.Tensor:
         the weight sum (3), on a 16-byte boundary.
     """
     global TRANSPOSE_MOMENTS_LAUNCHES
-    m = _check_tiles(tg, points.device)
-    if points.device.type != "cuda":
-        raise ValueError("the transpose kernels take CUDA tensors, got %s" % points.device)
-    t = tg.tiles
-    grad = _moments_args(points, tg.w, table, tg.pair.shape[0], m)
-    lib = load()
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream(points.device).cuda_stream
-        err = lib.dc_transpose_moments(
-            points.data_ptr(), m, t.num_tiles, tg.order.data_ptr(), tg.start.data_ptr(),
-            _ptr(tg.pair), _ptr(tg.w), _ptr(t.local), t.tile_start.data_ptr(),
-            t.row_start.data_ptr(), _ptr(t.rows), table.data_ptr(), int(tg.k), int(t.budget),
-            int(t.rows_max), grad.data_ptr(), stream)
-    _check_launch(lib, err, "transpose_moments (M %d, P %d, %d tiles)"
-                  % (m, tg.pair.shape[0], t.num_tiles))
+    with trace.span("x4.transpose_moments"):
+        m = _check_tiles(tg, points.device)
+        if points.device.type != "cuda":
+            raise ValueError("the transpose kernels take CUDA tensors, got %s" % points.device)
+        t = tg.tiles
+        grad = _moments_args(points, tg.w, table, tg.pair.shape[0], m)
+        lib = load()
+        with torch.cuda.device(points.device):
+            stream = torch.cuda.current_stream(points.device).cuda_stream
+            err = lib.dc_transpose_moments(
+                points.data_ptr(), m, t.num_tiles, tg.order.data_ptr(), tg.start.data_ptr(),
+                _ptr(tg.pair), _ptr(tg.w), _ptr(t.local), t.tile_start.data_ptr(),
+                t.row_start.data_ptr(), _ptr(t.rows), table.data_ptr(), int(tg.k),
+                int(t.budget), int(t.rows_max), grad.data_ptr(), stream)
+        _check_launch(lib, err, "transpose_moments (M %d, P %d, %d tiles)"
+                      % (m, tg.pair.shape[0], t.num_tiles))
     TRANSPOSE_MOMENTS_LAUNCHES += 1
     return grad
 
@@ -1151,15 +1161,17 @@ def launch_transpose_gather(g, tg) -> torch.Tensor:
     run in the cell order of ``tg`` (``ops.features.TransposeGraph`` with
     its tiles) -> (M, D)."""
     global TRANSPOSE_GATHER_LAUNCHES
-    m = _check_tiles(tg, g.device)
-    out = _gather_out(g, m)
-    lib = load()
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.dc_transpose_gather(_ptr(g), g.shape[1], m, tg.order.data_ptr(),
-                                      tg.start.data_ptr(), _ptr(tg.pair), out.data_ptr(), stream)
-    _check_launch(lib, err, "transpose_gather (M %d, P %d, D %d)"
-                  % (m, tg.pair.shape[0], g.shape[1]))
+    with trace.span("x5.transpose_gather"):
+        m = _check_tiles(tg, g.device)
+        out = _gather_out(g, m)
+        lib = load()
+        with torch.cuda.device(g.device):
+            stream = torch.cuda.current_stream(g.device).cuda_stream
+            err = lib.dc_transpose_gather(_ptr(g), g.shape[1], m, tg.order.data_ptr(),
+                                          tg.start.data_ptr(), _ptr(tg.pair), out.data_ptr(),
+                                          stream)
+        _check_launch(lib, err, "transpose_gather (M %d, P %d, D %d)"
+                      % (m, tg.pair.shape[0], g.shape[1]))
     TRANSPOSE_GATHER_LAUNCHES += 1
     return out
 

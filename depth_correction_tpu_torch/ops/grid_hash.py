@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from ..utils import trace
 
 __all__ = [
     "GRID_NN_MIN_POINTS",
@@ -100,9 +101,9 @@ def _first_true(mask: torch.Tensor) -> torch.Tensor:
 def colpad_dims0_ideal(candidates) -> torch.Tensor:
     """The major grid dim of the finest cell side whose grid fits the
     table, from :func:`cell_candidates`: the column count a scan's layout
-    needs."""
+    needs (the side's index read on the host)."""
     _, _, dims_c, count_ok = candidates
-    return dims_c[_first_true(count_ok)].amax()
+    return dims_c[int(trace.to_host(_first_true(count_ok)))].amax()
 
 
 def grid_sort_colpad_traced(points, valid, r: float, n_cells_pad: int,
@@ -132,7 +133,7 @@ def grid_sort_colpad_traced(points, valid, r: float, n_cells_pad: int,
         candidates = cell_candidates(points, valid, r, n_cells_pad)
     cells, mins_c, dims_c, count_ok = candidates
     feasible = count_ok & (dims_c.amax(1) <= x_cols_pad)
-    ji = _first_true(feasible)
+    ji = int(trace.to_host(_first_true(feasible)))
     cell, mins, dims = cells[ji], mins_c[ji], dims_c[ji]
     dims0_ideal = colpad_dims0_ideal(candidates)
 
@@ -341,7 +342,7 @@ def grid_sort_traced(points, valid, r: float, n_cells_pad: int, sort_axes=False)
     if valid is None:
         valid = torch.ones(n, dtype=torch.bool, device=dev)
     cells, mins_c, dims_c, count_ok = cell_candidates(points, valid, r, n_cells_pad)
-    ji = _first_true(count_ok)
+    ji = int(trace.to_host(_first_true(count_ok)))
     cell, mins, dims = cells[ji], mins_c[ji], dims_c[ji]
     c = torch.floor((points - mins) / cell).clamp(-1.0, _COORD_CLAMP).to(torch.int64)
     c = torch.minimum(c.clamp(min=0), dims[None] - 1)

@@ -11,6 +11,8 @@ from typing import Optional
 
 import torch
 
+from ..utils import trace
+
 __all__ = ["masked_mean", "masked_quantile", "masked_sum", "reduce_loss"]
 
 
@@ -42,7 +44,8 @@ def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], axis=None,
 def masked_quantile(x: torch.Tensor, mask: Optional[torch.Tensor], q: float):
     """Quantile of the unmasked subset of a 1-D tensor, by linear
     interpolation between order statistics (``torch.quantile`` semantics;
-    reference: loss.py:256-267). Masked entries sort to +inf."""
+    reference: loss.py:256-267). Masked entries sort to +inf. The two
+    order statistics' positions are read on the host (one counted sync)."""
     x = x.reshape(-1)
     valid = (torch.ones_like(x, dtype=torch.bool) if mask is None
              else mask.reshape(-1))
@@ -53,8 +56,8 @@ def masked_quantile(x: torch.Tensor, mask: Optional[torch.Tensor], q: float):
     hi = torch.ceil(pos).long()
     frac = pos - lo.to(x.dtype)
     last = x.shape[0] - 1
-    v_lo = xs[torch.clamp(lo, 0, last)]
-    v_hi = xs[torch.clamp(hi, 0, last)]
+    i_lo, i_hi = trace.to_host(torch.stack([lo, hi]).clamp(0, last)).tolist()
+    v_lo, v_hi = xs[i_lo], xs[i_hi]
     return v_lo * (1.0 - frac) + v_hi * frac
 
 

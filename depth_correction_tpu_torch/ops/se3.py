@@ -67,7 +67,7 @@ def xyz_axis_angle_to_matrix(x: torch.Tensor) -> torch.Tensor:
     R = axis_angle_to_matrix(x[..., 3:])
     top = torch.cat([R, x[..., :3, None]], -1)  # (..., 3, 4)
     bottom = torch.zeros(x.shape[:-1] + (1, 4), dtype=x.dtype, device=x.device)
-    bottom[..., 0, 3] = 1.0
+    bottom[..., 0, 3].fill_(1.0)  # a fill: storing a Python float copies it from the host
     return torch.cat([top, bottom], -2)
 
 

@@ -43,35 +43,41 @@ from .ops.knn import nearest_neighbors
 from .ops.reduce import masked_mean, masked_quantile
 from .ops.se3 import delta_transform, transform_points, xyz_axis_angle_to_matrix
 from .preproc import local_feature_cloud
+from .utils import trace
 from .utils.io import append
 
 __all__ = ["icp_align", "perturb_odometry", "slam_clouds", "slam_odometry", "slam_mapper",
            "eval_slam", "export_corrected_clouds", "run_external_slam"]
 
 
-def _icp_step(src_pts, src_valid, tgt_pts, tgt_normals, tgt_valid, inlier_ratio: float,
+def _icp_step(T, src_pts, src_valid, tgt_pts, tgt_normals, tgt_valid, inlier_ratio: float,
               plain: bool):
-    """One Gauss-Newton point-to-plane step (JAX package, slam_eval.py:48-71):
-    solve J^T W J dx = J^T W r for the 6-DoF twist (small-angle
-    linearisation) over the 1-NN correspondences gated at the
-    ``inlier_ratio`` quantile of their distances. Stays on the device: the
-    threshold, the weights and the solve are tensors (``solve_ex`` is
-    ``solve`` without the host check of its status)."""
-    dists, idx = nearest_neighbors(tgt_pts, src_pts, k=1, valid_points=tgt_valid, plain=plain)
-    d = dists[:, 0]
-    ok = (idx[:, 0] >= 0) & src_valid
-    thr = masked_quantile(d, ok, inlier_ratio)
-    w = (ok & (d <= thr)).to(src_pts.dtype)
-    i = torch.clamp(idx[:, 0], min=0).long()
-    q, n = tgt_pts[i], tgt_normals[i]
-    r = (n * (q - src_pts)).sum(-1)  # residual along the target normal
-    J = torch.cat([torch.linalg.cross(src_pts, n), n], -1)  # (N, 6)
-    Jw = J * w[:, None]
-    H = Jw.T @ J + 1e-9 * torch.eye(6, dtype=src_pts.dtype, device=src_pts.device)
-    dx = torch.linalg.solve_ex(H, Jw.T @ r)[0]
-    # [rot, trans] ordering in J => [trans, rot] for the 6-vector.
-    delta = xyz_axis_angle_to_matrix(torch.cat([dx[3:], dx[:3]]))
-    return delta, masked_mean(r.abs(), w > 0)
+    """One Gauss-Newton point-to-plane step (JAX package, slam_eval.py:48-71)
+    from the transform ``T`` that placed ``src_pts``: solve J^T W J dx =
+    J^T W r for the 6-DoF twist (small-angle linearisation) over the 1-NN
+    correspondences gated at the ``inlier_ratio`` quantile of their
+    distances, and return (delta @ T, the inlier error). Stays on the
+    device: the threshold, the weights and the solve are tensors
+    (``solve_ex`` is ``solve`` without the host check of its status)."""
+    with trace.span("icp.search"):
+        dists, idx = nearest_neighbors(tgt_pts, src_pts, k=1, valid_points=tgt_valid,
+                                       plain=plain)
+    with trace.span("icp.gate"):
+        d = dists[:, 0]
+        ok = (idx[:, 0] >= 0) & src_valid
+        thr = masked_quantile(d, ok, inlier_ratio)
+        w = (ok & (d <= thr)).to(src_pts.dtype)
+    with trace.span("icp.solve"):
+        i = torch.clamp(idx[:, 0], min=0).long()
+        q, n = tgt_pts[i], tgt_normals[i]
+        r = (n * (q - src_pts)).sum(-1)  # residual along the target normal
+        J = torch.cat([torch.linalg.cross(src_pts, n), n], -1)  # (N, 6)
+        Jw = J * w[:, None]
+        H = Jw.T @ J + 1e-9 * torch.eye(6, dtype=src_pts.dtype, device=src_pts.device)
+        dx = torch.linalg.solve_ex(H, Jw.T @ r)[0]
+        # [rot, trans] ordering in J => [trans, rot] for the 6-vector.
+        delta = xyz_axis_angle_to_matrix(torch.cat([dx[3:], dx[:3]]))
+        return delta @ T, masked_mean(r.abs(), w > 0)
 
 
 def icp_align(source: Cloud, target: Cloud, T0=None, n_iters: int = 10,
@@ -88,17 +94,16 @@ def icp_align(source: Cloud, target: Cloud, T0=None, n_iters: int = 10,
     dtype = torch.promote_types(source.depth.dtype, tgt_pts.dtype)
     device = tgt_pts.device
     T = (torch.eye(4, dtype=dtype, device=device) if T0 is None
-         else torch.as_tensor(np.asarray(T0) if not torch.is_tensor(T0) else T0,
-                              dtype=dtype, device=device))
+         else trace.to_device(T0 if torch.is_tensor(T0) else np.asarray(T0), dtype=dtype,
+                              device=device))
     if n_iters == 0:
         return T, torch.full((), float("inf"), dtype=dtype, device=device)
     src_pts = source.get_points().to(dtype)
     tgt_pts, tgt_normals = tgt_pts.to(dtype), target.normals.to(dtype)
     err = None
     for _ in range(n_iters):
-        delta, err = _icp_step(transform_points(T, src_pts), source.valid, tgt_pts,
-                               tgt_normals, target.valid, inlier_ratio, plain)
-        T = delta @ T
+        T, err = _icp_step(T, transform_points(T, src_pts), source.valid, tgt_pts,
+                           tgt_normals, target.valid, inlier_ratio, plain)
     return T, err
 
 
@@ -130,8 +135,7 @@ def perturb_odometry(poses: np.ndarray, cov_diag, seed: int = 135) -> np.ndarray
 def _posed(cloud: Cloud, T: np.ndarray) -> Cloud:
     """``cloud`` transformed by the host pose ``T`` (cast to its float type),
     with points."""
-    Tt = torch.as_tensor(np.asarray(T), dtype=cloud.depth.dtype, device=cloud.depth.device)
-    return cloud.transform(Tt).with_points()
+    return cloud.transform(trace.to_device(np.asarray(T), cloud.depth)).with_points()
 
 
 def slam_odometry(clouds: Sequence[Cloud], init_poses: np.ndarray, n_iters: int = 8,
@@ -145,10 +149,13 @@ def slam_odometry(clouds: Sequence[Cloud], init_poses: np.ndarray, n_iters: int 
     """
     est = [np.asarray(init_poses[0], np.float64)]
     for i in range(1, len(clouds)):
-        prior = est[-1] @ _increment(init_poses[i - 1], init_poses[i])
-        T, _ = icp_align(clouds[i], _posed(clouds[i - 1], est[-1]), T0=prior,
-                         n_iters=n_iters, inlier_ratio=inlier_ratio, plain=plain)
-        est.append(T.cpu().numpy().astype(np.float64))
+        with trace.span("slam.scan", scan=i):
+            with trace.span("slam.prior"):
+                prior = est[-1] @ _increment(init_poses[i - 1], init_poses[i])
+                target = _posed(clouds[i - 1], est[-1])
+            T, _ = icp_align(clouds[i], target, T0=prior, n_iters=n_iters,
+                             inlier_ratio=inlier_ratio, plain=plain)
+            est.append(trace.to_host(T).numpy().astype(np.float64))
     return np.stack(est)
 
 
@@ -187,28 +194,31 @@ def slam_mapper(clouds: Sequence[Cloud], init_poses: np.ndarray, n_iters: int = 
     def as_target(map_pts, map_normals, like):
         kw = {"dtype": like.dtype, "device": like.device}
         n = len(map_pts)
-        normals = torch.as_tensor(map_normals, **kw)
+        normals = trace.to_device(map_normals, like)
         return Cloud(vps=torch.zeros((n, 3), **kw), dirs=normals,
                      depth=torch.zeros(n, **kw),
                      valid=torch.ones(n, dtype=torch.bool, device=like.device),
-                     points=torch.as_tensor(map_pts, **kw), normals=normals)
+                     points=trace.to_device(map_pts, like), normals=normals)
 
     def scan_arrays(cloud, T):
         posed = _posed(cloud, T)
-        keep = posed.valid
-        return posed.points[keep].cpu().numpy(), posed.normals[keep].cpu().numpy()
+        keep = trace.to_host(posed.valid).numpy()
+        return (trace.to_host(posed.points).numpy()[keep],
+                trace.to_host(posed.normals).numpy()[keep])
 
     est = [np.asarray(init_poses[0], np.float64)]
     map_pts, map_normals = merge(np.zeros((0, 3)), np.zeros((0, 3)),
                                  *scan_arrays(clouds[0], est[0]), est[0][:3, 3])
     for i in range(1, len(clouds)):
-        prior = est[-1] @ _increment(init_poses[i - 1], init_poses[i])
-        target = as_target(map_pts, map_normals, clouds[i].depth)
-        T, _ = icp_align(clouds[i], target, T0=prior, n_iters=n_iters,
-                         inlier_ratio=inlier_ratio, plain=plain)
-        est.append(T.cpu().numpy().astype(np.float64))
-        map_pts, map_normals = merge(map_pts, map_normals, *scan_arrays(clouds[i], est[-1]),
-                                     est[-1][:3, 3])
+        with trace.span("slam.scan", scan=i):
+            with trace.span("slam.prior"):
+                prior = est[-1] @ _increment(init_poses[i - 1], init_poses[i])
+                target = as_target(map_pts, map_normals, clouds[i].depth)
+            T, _ = icp_align(clouds[i], target, T0=prior, n_iters=n_iters,
+                             inlier_ratio=inlier_ratio, plain=plain)
+            est.append(trace.to_host(T).numpy().astype(np.float64))
+            map_pts, map_normals = merge(map_pts, map_normals, *scan_arrays(clouds[i], est[-1]),
+                                         est[-1][:3, 3])
     return np.stack(est)
 
 

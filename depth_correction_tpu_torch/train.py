@@ -39,8 +39,10 @@ is not ported.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import io
+import json
 import os
 import sys
 import time
@@ -66,6 +68,7 @@ from .preproc import (
     pad_size,
     sequence_batch,
 )
+from .utils import trace
 from .utils.checkpoint import save_pytree
 
 __all__ = [
@@ -277,13 +280,19 @@ def _use_cellwin(cfg: Config, for_grad: bool) -> bool:
             and not cfg.spatial_sort)
 
 
-def _tick(seconds: dict, part: str, t0: float, device) -> float:
-    """Record the seconds of one prep part (after a device sync)."""
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t1 = time.perf_counter()
-    seconds[part] = seconds.get(part, 0.0) + (t1 - t0)
-    return t1
+@contextlib.contextmanager
+def _prep_part(seconds: dict, part: str, device):
+    """One part of prep: the span ``prep.<part>``, and its seconds (ending
+    in a device sync) added to ``seconds[part]`` unless the block sets the
+    yielded flag's ``[0]`` False (a prep cache lookup that missed)."""
+    keep = [True]
+    t0 = time.perf_counter()
+    with trace.span("prep." + part):
+        yield keep
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+    if keep[0]:
+        seconds[part] = seconds.get(part, 0.0) + (time.perf_counter() - t0)
 
 
 def _offset_graph(local_nns, n_dim: int, qrows, qvalid, cw_dev, dtype):
@@ -346,26 +355,25 @@ def prepare_sequences(datasets, cfg: Config, for_grad: bool = True, mesh=None) -
     cache_dir = cfg.prep_cache_dir
     transposes, off_transposes = [], []
     for ds in datasets:
-        t = time.perf_counter()
-        scans = [(scan, pose) for scan, pose in ds]
-        t = _tick(seconds, "load_scans", t, device)
+        with _prep_part(seconds, "load_scans", device):
+            scans = [(scan, pose) for scan, pose in ds]
         fp = rec = None
         if cache_dir:
             from .utils.prep_cache import load_record, sequence_fingerprint
 
-            fp = sequence_fingerprint(scans, cfg, for_grad, mesh=mesh is not None)
-            rec = load_record(cache_dir, fp, device)
+            with _prep_part(seconds, "cache_load", device) as hit:
+                fp = sequence_fingerprint(scans, cfg, for_grad, mesh=mesh is not None)
+                rec = load_record(cache_dir, fp, device)
+                hit[0] = rec is not None
             if rec is not None:
                 print("[prep] sequence reloaded from prep cache (%s)" % fp, file=sys.stderr)
-                _tick(seconds, "cache_load", t, device)
         if rec is None:
-            rec = _prepare_sequence(scans, cfg, use_cellwin, icp_mode, seconds, t, device, mesh)
+            rec = _prepare_sequence(scans, cfg, use_cellwin, icp_mode, seconds, device, mesh)
             if fp is not None:
                 from .utils.prep_cache import save_record
 
-                t = time.perf_counter()
-                save_record(cache_dir, fp, rec)
-                _tick(seconds, "cache_save", t, device)
+                with _prep_part(seconds, "cache_save", device):
+                    save_record(cache_dir, fp, rec)
         del scans
         tg, otg = _sequence_transposes(rec, for_grad and mesh is None, seconds, device)
         transposes.append(tg)
@@ -388,82 +396,78 @@ def _sequence_transposes(rec: dict, for_grad: bool, seconds: dict, device) -> tu
     (the cache does not store transposes)."""
     from .ops import cellwin as cwin
 
-    t = time.perf_counter()
     tg = otg = None
-    cw, nn = rec["cellwin"], rec["neighbors"]
-    if cw is not None and cw.exc_tg is None:
-        rec["cellwin"] = cwin.with_exc_transpose(cw)
-    if for_grad and rec["batches"] is not None:
-        gather = cw is None and isinstance(nn, torch.Tensor)
-        if gather or rec["off_neighbors"] is not None:
-            # The points' positions at establishment order the targets.
-            pos = global_cloud(rec["batches"]).get_points()
-        if gather:
-            tg = build_transpose_graph(nn, pos, rec["weights"])
-        if rec["off_neighbors"] is not None:
-            otg = build_transpose_graph(rec["off_neighbors"], pos, rec["off_weights"])
-    _tick(seconds, "transpose", t, device)
+    with _prep_part(seconds, "transpose", device):
+        cw, nn = rec["cellwin"], rec["neighbors"]
+        if cw is not None and cw.exc_tg is None:
+            rec["cellwin"] = cwin.with_exc_transpose(cw)
+        if for_grad and rec["batches"] is not None:
+            gather = cw is None and isinstance(nn, torch.Tensor)
+            if gather or rec["off_neighbors"] is not None:
+                # The points' positions at establishment order the targets.
+                pos = global_cloud(rec["batches"]).get_points()
+            if gather:
+                tg = build_transpose_graph(nn, pos, rec["weights"])
+            if rec["off_neighbors"] is not None:
+                otg = build_transpose_graph(rec["off_neighbors"], pos, rec["off_weights"])
     return tg, otg
 
 
 def _prepare_sequence(scans, cfg: Config, use_cellwin: bool, icp_mode: bool, seconds: dict,
-                      t: float, device, mesh=None) -> dict:
+                      device, mesh=None) -> dict:
     """One sequence's record of :data:`_RECORD_FIELDS` (the body of
     :func:`prepare_sequences`)."""
-    from .ops import cellwin as cwin
-
     from .cloud import Cloud
 
     rec = dict.fromkeys(_RECORD_FIELDS)
     common_pad = max((pad_size(len(s)) for s, _ in scans), default=0)
     plane_mode = cfg.nn_type == NeighborhoodType.plane and not icp_mode
     clouds, poses, local_nns = [], [], []
-    for scan, pose in scans:
-        if plane_mode:
-            # Plane mode consumes the raw clouds; the incidence angles come
-            # from the plane normals (JAX package, train.py:235-239;
-            # reference: train.py:98-101).
-            clouds.append(Cloud.from_structured_array(
-                scan, dtype=cfg.torch_dtype(), device=device).pad(common_pad))
+    with _prep_part(seconds, "local_features", device):
+        for scan, pose in scans:
+            if plane_mode:
+                # Plane mode consumes the raw clouds; the incidence angles
+                # come from the plane normals (JAX package, train.py:235-239;
+                # reference: train.py:98-101).
+                clouds.append(Cloud.from_structured_array(
+                    scan, dtype=cfg.torch_dtype(), device=device).pad(common_pad))
+                poses.append(np.asarray(pose))
+                continue
+            if cfg.loss_offset and not icp_mode:
+                fc, lnn, _ = local_feature_cloud(scan, cfg, pad_to=common_pad,
+                                                 return_neighbors=True)
+                local_nns.append(lnn)
+            else:
+                fc = local_feature_cloud(scan, cfg, pad_to=common_pad)
+            # The hot loop consumes source fields, incidence angles and the
+            # planar mask only; ICP also the per-scan normals.
+            clouds.append(fc.replace(points=None, mean=None, cov=None, eigvals=None,
+                                     eigvecs=None, trace=None, loss=None,
+                                     normals=fc.normals if icp_mode else None))
             poses.append(np.asarray(pose))
-            continue
-        if cfg.loss_offset and not icp_mode:
-            fc, lnn, _ = local_feature_cloud(scan, cfg, pad_to=common_pad,
-                                             return_neighbors=True)
-            local_nns.append(lnn)
-        else:
-            fc = local_feature_cloud(scan, cfg, pad_to=common_pad)
-        # The hot loop consumes source fields, incidence angles and the
-        # planar mask only; ICP also the per-scan normals.
-        clouds.append(fc.replace(points=None, mean=None, cov=None, eigvals=None,
-                                 eigvecs=None, trace=None, loss=None,
-                                 normals=fc.normals if icp_mode else None))
-        poses.append(np.asarray(pose))
-    batch = sequence_batch(clouds, np.stack(poses))
-    rec["batches"] = batch
-    t = _tick(seconds, "local_features", t, device)
+        batch = sequence_batch(clouds, np.stack(poses))
+        rec["batches"] = batch
 
     if icp_mode:
         from .loss import icp_pair_correspondences
 
         # Frozen correspondences of the posed, uncorrected points
         # (reference: train.py:179-210; JAX package, train.py:266-296).
-        posed = batch.cloud.transform(batch.poses)
-        idx, w = icp_pair_correspondences(
-            posed.to_points().detach().cpu().numpy(), batch.cloud.valid.cpu().numpy(),
-            float((cfg.loss_kwargs or {}).get("icp_inlier_ratio", 0.5)))
-        rec["icp_idx"] = torch.as_tensor(idx, dtype=torch.int64, device=device)
-        rec["icp_w"] = torch.as_tensor(w, device=device)
-        _tick(seconds, "icp_correspondences", t, device)
+        with _prep_part(seconds, "icp_correspondences", device):
+            posed = batch.cloud.transform(batch.poses)
+            idx, w = icp_pair_correspondences(
+                posed.to_points().detach().cpu().numpy(), batch.cloud.valid.cpu().numpy(),
+                float((cfg.loss_kwargs or {}).get("icp_inlier_ratio", 0.5)))
+            rec["icp_idx"] = torch.as_tensor(idx, dtype=torch.int64, device=device)
+            rec["icp_w"] = torch.as_tensor(w, device=device)
         return rec
 
-    gcloud = global_cloud(batch)
     if plane_mode:
         # The planes stand in for the neighbours, their valid flags for the
         # rows' mask (JAX package, train.py:298-310).
-        planes, _ = establish_neighborhoods(gcloud, cfg, mesh=mesh)
-        rec.update(neighbors=planes, masks=planes.valid)
-        _tick(seconds, "planes", t, device)
+        with _prep_part(seconds, "planes", device):
+            planes, _ = establish_neighborhoods(global_cloud(batch), cfg, mesh=mesh)
+            rec.update(neighbors=planes, masks=planes.valid)
         return rec
     est_cfg = cfg
     if use_cellwin:
@@ -472,11 +476,12 @@ def _prepare_sequence(scans, cfg: Config, use_cellwin: bool, icp_mode: bool, sec
         est_cfg = cfg.copy()
         est_cfg.nn_max_neighbors = None
         est_cfg.nn_symmetrize = False
-    nn, w = establish_neighborhoods(gcloud, est_cfg, mesh=mesh)
-    t = _tick(seconds, "global_neighbors", t, device)
-    feat = compute_neighborhood_features(gcloud, nn, w, cfg)
-    gmask = global_cloud_mask(feat, nn, w, cfg, mask=feat.mask)
-    t = _tick(seconds, "global_features", t, device)
+    with _prep_part(seconds, "global_neighbors", device):
+        gcloud = global_cloud(batch)
+        nn, w = establish_neighborhoods(gcloud, est_cfg, mesh=mesh)
+    with _prep_part(seconds, "global_features", device):
+        feat = compute_neighborhood_features(gcloud, nn, w, cfg)
+        gmask = global_cloud_mask(feat, nn, w, cfg, mask=feat.mask)
 
     # Query-row compaction: only rows that enter the loss keep their
     # neighborhoods; every point still serves as a neighbor.
@@ -491,44 +496,52 @@ def _prepare_sequence(scans, cfg: Config, use_cellwin: bool, icp_mode: bool, sec
 
     cw_dev = None
     if use_cellwin:
-        extra = {}
-        if cfg.cellwin_eps_rel is not None:
-            extra["eps_rel"] = float(cfg.cellwin_eps_rel)
-        if cfg.cellwin_max_exc_frac is not None:
-            extra["max_exc_frac"] = float(cfg.cellwin_max_exc_frac)
-        pts_np = gcloud.get_points().detach().cpu().to(torch.float64).numpy()
-        valid_np = gcloud.valid.cpu().numpy()
-        qrows_np, nn_np = qrows.cpu().numpy(), nn_c.cpu().numpy()
-        g = None
-        # Escalate the span budget once before declining.
-        for span_limit in (512, 1024):
-            g = cwin.build_cellwin_graph(
-                pts_np, valid_np, qrows_np, nn_np, float(cfg.nn_r),
-                row_cap=int(cfg.cellwin_row_cap),
-                pt_cap=int(cfg.cellwin_pt_cap),
-                span_limit=span_limit,
-                z_max=cfg.cellwin_z_max,
-                **extra,
-            )
-            if g is not None:
-                break
-        if g is not None:
-            cw_dev = cwin.graph_to_device(g, device)
-            print("[prep] cellwin graph: %d rows -> %d tiles x %d "
-                  "(span cap %d/%d), %d exception rows"
-                  % (g.n_rows, g.n_row_tiles, g.row_cap, g.span_cap,
-                     g.rspan_cap, g.n_exc), file=sys.stderr)
-        else:
-            rec["cellwin_notes"] = cwin.LAST_NOTE
-            print("[prep] cellwin build %s; using gather moments" % cwin.LAST_NOTE,
-                  file=sys.stderr)
-        t = _tick(seconds, "cellwin_build", t, device)
+        with _prep_part(seconds, "cellwin_build", device):
+            cw_dev = _cellwin_graph(rec, cfg, gcloud, qrows, nn_c, device)
     rec["cellwin"] = cw_dev
     if cfg.loss_offset:
-        rec["off_neighbors"], rec["off_weights"] = _offset_graph(
-            local_nns, batch.cloud.depth.shape[1], qrows, qvalid, cw_dev, w.dtype)
-        _tick(seconds, "offset_graph", t, device)
+        with _prep_part(seconds, "offset_graph", device):
+            rec["off_neighbors"], rec["off_weights"] = _offset_graph(
+                local_nns, batch.cloud.depth.shape[1], qrows, qvalid, cw_dev, w.dtype)
     return rec
+
+
+def _cellwin_graph(rec: dict, cfg: Config, gcloud, qrows, nn_c, device):
+    """The cell-window graph of the compacted rows on ``device``, or None
+    where the build declines (its note then in ``rec["cellwin_notes"]``)."""
+    from .ops import cellwin as cwin
+
+    extra = {}
+    if cfg.cellwin_eps_rel is not None:
+        extra["eps_rel"] = float(cfg.cellwin_eps_rel)
+    if cfg.cellwin_max_exc_frac is not None:
+        extra["max_exc_frac"] = float(cfg.cellwin_max_exc_frac)
+    pts_np = gcloud.get_points().detach().cpu().to(torch.float64).numpy()
+    valid_np = gcloud.valid.cpu().numpy()
+    qrows_np, nn_np = qrows.cpu().numpy(), nn_c.cpu().numpy()
+    g = None
+    # Escalate the span budget once before declining.
+    for span_limit in (512, 1024):
+        g = cwin.build_cellwin_graph(
+            pts_np, valid_np, qrows_np, nn_np, float(cfg.nn_r),
+            row_cap=int(cfg.cellwin_row_cap),
+            pt_cap=int(cfg.cellwin_pt_cap),
+            span_limit=span_limit,
+            z_max=cfg.cellwin_z_max,
+            **extra,
+        )
+        if g is not None:
+            break
+    if g is None:
+        rec["cellwin_notes"] = cwin.LAST_NOTE
+        print("[prep] cellwin build %s; using gather moments" % cwin.LAST_NOTE,
+              file=sys.stderr)
+        return None
+    print("[prep] cellwin graph: %d rows -> %d tiles x %d "
+          "(span cap %d/%d), %d exception rows"
+          % (g.n_rows, g.n_row_tiles, g.row_cap, g.span_cap,
+             g.rspan_cap, g.n_exc), file=sys.stderr)
+    return cwin.graph_to_device(g, device)
 
 
 def make_loss_fn(cfg: Config, loss_fun=None, plain: bool = False):
@@ -710,11 +723,17 @@ def _start_profile(device):
 
 
 def _stop_profile(prof, profile_dir: str, first: int, last: int) -> str:
-    """Stop ``prof`` and write its Chrome trace into ``profile_dir``."""
+    """Stop ``prof`` and write its Chrome trace into ``profile_dir``, and
+    beside it ``idle_by_span_it<first>-<last>.json``: the device-idle
+    seconds of the same profile by the program span open on the host
+    (``utils.trace.idle_by_span``)."""
     prof.stop()
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, "trace_it%03d-%03d.json" % (first, last))
     prof.export_chrome_trace(path)
+    with open(os.path.join(profile_dir, "idle_by_span_it%03d-%03d.json" % (first, last)),
+              "w") as f:
+        json.dump(trace.idle_by_span(prof.events()), f, indent=1)
     return path
 
 
@@ -880,70 +899,78 @@ def fit(cfg: Config, train_data: TrainData, callbacks: Optional[TrainCallbacks] 
     prof = None
     callbacks.train_inputs(it0, train_data)
     for it in range(it0, cfg.n_opt_iters):
-        callbacks.iteration_started(it)
         if cfg.profile_dir and it == 2 and writes:
             prof = _start_profile(device)
-        t0 = time.perf_counter()
-        opt.zero_grad(set_to_none=True)
-        loss = loss_fn(model, train_data, pose_deltas)
-        loss.backward()
-        if mesh is not None:
-            all_reduce_grads(trained, mesh)
-        if not cfg.optimize_model:
-            # The JAX package masks the model's gradients to zero
-            # (train.py:932-933): the optimizers then leave it where it is.
-            for p in params:
-                p.grad.zero_()
-        _mask_delta_grads(pose_deltas, cfg)
-        callbacks.train_loss(it, model, pose_deltas, loss)
-        val = loss
-        if val_opt is not None:
-            val_opt.zero_grad(set_to_none=True)
-            val = loss_fn(model, val_data, val_deltas)
-            # Gradients of the validation deltas alone: the model's stay
-            # the training loss's.
-            for d, g in zip(val_deltas, _grads_of(val, list(val_deltas), mesh)):
-                d.grad = g
-            _mask_delta_grads(val_deltas, cfg)
-            _opt_step(val_opt, val, val_loss_at)
-            callbacks.val_loss(it, model, None, val)
-        elif val_data is not None:
-            with torch.no_grad():
-                val = loss_fn(model, val_data,
-                              pose_deltas if mode == PoseCorrection.common else None)
-            callbacks.val_loss(it, model, None, val)
-        state = {"model": model_state(model)}
-        if pose_deltas is not None:
-            state["pose_deltas"] = tuple(d.detach().clone() for d in pose_deltas)
-            state["pose_grads"] = tuple(torch.zeros_like(d) if d.grad is None
-                                        else d.grad.detach().clone() for d in pose_deltas)
-        _opt_step(opt, loss, train_loss_at)
-        train_loss = float(loss.detach())  # waits for the step (same stream)
-        val_loss = float(val.detach())
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        row = (it, train_loss, val_loss, (time.perf_counter() - t0) * 1e3)
-        history.append(row)
-        if prof is not None and it >= min(6, cfg.n_opt_iters - 1):
-            _stop_profile(prof, cfg.profile_dir, 2, it)
-            prof = None
-        saved = bool(on_step(it, model, row, state)) if on_step is not None else False
-        if writes and (cfg.log_filters or it % max(cfg.plot_period, 1) == 0):
-            print("It. %03i: train loss: %.9f, val.: %.9f.%s"
-                  % (it, train_loss, val_loss, " saved" if saved else ""))
-        if writes and ckpt_dir and ((it + 1) % cfg.checkpoint_period == 0
-                                    or it == cfg.n_opt_iters - 1):
-            _save_checkpoint(ckpt_dir, it, {
-                "tensors": [t.detach().clone() for t in trained],
-                "opt": opt.state_dict(),
-                "val_deltas": None if val_deltas is None else [d.detach().clone()
-                                                               for d in val_deltas],
-                "val_opt": None if val_opt is None else val_opt.state_dict(),
-                "it": it,
-                "min_train_loss": float(best.get("train", np.inf)),
-                "min_val_loss": float(best.get("val", np.inf)),
-                "history": list(history),
-            })
+        with trace.span("fit.step", it=it):
+            callbacks.iteration_started(it)
+            t0 = time.perf_counter()
+            with trace.span("step.forward"):
+                opt.zero_grad(set_to_none=True)
+                loss = loss_fn(model, train_data, pose_deltas)
+            with trace.span("step.backward"):
+                loss.backward()
+                if mesh is not None:
+                    all_reduce_grads(trained, mesh)
+                if not cfg.optimize_model:
+                    # The JAX package masks the model's gradients to zero
+                    # (train.py:932-933): the optimizers then leave it where
+                    # it is.
+                    for p in params:
+                        p.grad.zero_()
+                _mask_delta_grads(pose_deltas, cfg)
+            callbacks.train_loss(it, model, pose_deltas, loss)
+            val = loss
+            if val_opt is not None:
+                with trace.span("step.val"):
+                    val_opt.zero_grad(set_to_none=True)
+                    val = loss_fn(model, val_data, val_deltas)
+                    # Gradients of the validation deltas alone: the model's
+                    # stay the training loss's.
+                    for d, g in zip(val_deltas, _grads_of(val, list(val_deltas), mesh)):
+                        d.grad = g
+                    _mask_delta_grads(val_deltas, cfg)
+                    _opt_step(val_opt, val, val_loss_at)
+                callbacks.val_loss(it, model, None, val)
+            elif val_data is not None:
+                with trace.span("step.val"), torch.no_grad():
+                    val = loss_fn(model, val_data,
+                                  pose_deltas if mode == PoseCorrection.common else None)
+                callbacks.val_loss(it, model, None, val)
+            state = {"model": model_state(model)}
+            if pose_deltas is not None:
+                state["pose_deltas"] = tuple(d.detach().clone() for d in pose_deltas)
+                state["pose_grads"] = tuple(torch.zeros_like(d) if d.grad is None
+                                            else d.grad.detach().clone() for d in pose_deltas)
+            with trace.span("step.optim"):
+                _opt_step(opt, loss, train_loss_at)
+            # The loss reads wait for the step (same stream).
+            train_loss = float(trace.to_host(loss.detach()))
+            val_loss = train_loss if val is loss else float(trace.to_host(val.detach()))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            row = (it, train_loss, val_loss, (time.perf_counter() - t0) * 1e3)
+            history.append(row)
+            if prof is not None and it >= min(6, cfg.n_opt_iters - 1):
+                _stop_profile(prof, cfg.profile_dir, 2, it)
+                prof = None
+            with trace.span("step.after"):
+                saved = bool(on_step(it, model, row, state)) if on_step is not None else False
+                if writes and (cfg.log_filters or it % max(cfg.plot_period, 1) == 0):
+                    print("It. %03i: train loss: %.9f, val.: %.9f.%s"
+                          % (it, train_loss, val_loss, " saved" if saved else ""))
+                if writes and ckpt_dir and ((it + 1) % cfg.checkpoint_period == 0
+                                            or it == cfg.n_opt_iters - 1):
+                    _save_checkpoint(ckpt_dir, it, {
+                        "tensors": [t.detach().clone() for t in trained],
+                        "opt": opt.state_dict(),
+                        "val_deltas": None if val_deltas is None else [d.detach().clone()
+                                                                       for d in val_deltas],
+                        "val_opt": None if val_opt is None else val_opt.state_dict(),
+                        "it": it,
+                        "min_train_loss": float(best.get("train", np.inf)),
+                        "min_val_loss": float(best.get("val", np.inf)),
+                        "history": list(history),
+                    })
     return model, history
 
 

@@ -75,7 +75,8 @@ def test_unported_optimizer_options_raise_by_name(optimizer, option):
 def test_fit_writes_a_trace_into_profile_dir(tmp_path):
     """With profile_dir, fit traces iterations 2 to min(6, n_opt_iters - 1)
     with torch.profiler (the JAX package's window) and writes a Chrome
-    trace there."""
+    trace there, with the program's spans, and the device-idle seconds by
+    span beside it (none on the CPU)."""
     cfg = TConfig()
     cfg.device = "cpu"
     cfg.float_type = "float64"
@@ -91,11 +92,15 @@ def test_fit_writes_a_trace_into_profile_dir(tmp_path):
     data = prepare_sequences([create_dataset(cfg.train_names[0], cfg)], cfg)
     _, history = fit(cfg, data)
     assert len(history) == 4
-    files = os.listdir(cfg.profile_dir)
-    assert files == ["trace_it002-003.json"], files
-    with open(os.path.join(cfg.profile_dir, files[0])) as f:
+    files = sorted(os.listdir(cfg.profile_dir))
+    assert files == ["idle_by_span_it002-003.json", "trace_it002-003.json"], files
+    with open(os.path.join(cfg.profile_dir, files[1])) as f:
         events = json.load(f)["traceEvents"]
     assert any(e.get("name", "").startswith("aten::") for e in events)
+    names = {e.get("name") for e in events}
+    assert {"fit.step", "step.forward", "step.backward", "step.optim", "copy.d2h"} <= names
+    with open(os.path.join(cfg.profile_dir, files[0])) as f:
+        assert json.load(f) == {}
 
 
 def test_wrappers_docstring_names_the_pose_wrappers():

@@ -277,7 +277,7 @@ def test_port_imports_no_jax():
             "depth_correction_tpu_torch.utils.checkpoint, depth_correction_tpu_torch.utils.io, "
             "depth_correction_tpu_torch.datasets.wrappers, "
             "depth_correction_tpu_torch.loss, depth_correction_tpu_torch.optim, "
-            "depth_correction_tpu_torch.utils.timing, "
+            "depth_correction_tpu_torch.utils.trace, "
             "depth_correction_tpu_torch.utils.prep_cache, "
             "depth_correction_tpu_torch.segmentation, depth_correction_tpu_torch.ops.covs, "
             "depth_correction_tpu_torch.ops.raycast, depth_correction_tpu_torch.utils.native, "
