@@ -208,11 +208,15 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    trained (features computed again, P7): the ground-truth poses perturbed
    (perturb_odometry, seeded, a few mm and mrad); slam_odometry and
    slam_mapper, 8 ICP iterations a scan, each run with the launch counts
-   zeroed: X3 exactly 8 launches a registered scan and no other kernel;
+   zeroed: X3 and X6 exactly 8 launches each a registered scan and no
+   other kernel;
    slam_odometry_ms_per_scan and slam_mapper_ms_per_scan, and one profiled
    registration of each (device-busy share); X3 in the mapper's last
    (largest) registration timed against its all-pairs bound, with the
-   map's size. Both pipelines again on the same clouds and priors in
+   map's size; X6 on that registration's first step against its plain
+   twin in float32 and float64 (the threshold bit for bit the float32
+   twin's, the inliers both twins', T within 2e-6 of the float64 twin's),
+   timed against its bound. Both pipelines again on the same clouds and priors in
    float64 on the plain path: every pose within 1e-4 m and 1e-5 rad, the
    share of first-iteration correspondences that differ printed; the
    mapper's mean translation error below the prior's. Then eval_slam_all
@@ -390,7 +394,7 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
 # below are the larger of bytes / HBM rate and the operations of each type
 # over that type's peak rate.
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"fp32": 67e12, "tf32": 495e12}
+PEAK_OPS_PER_S = {"fp32": 67e12, "tf32": 495e12, "fp64": 34e12}
 
 
 def bound(nbytes: float, ops: dict) -> tuple:
@@ -3279,6 +3283,7 @@ def phase_render(card: str):
 
 # Phases 16-17: SLAM evaluation and the analysis modules.
 SLAM_ITERS = 8
+SLAM_INLIER_RATIO = 0.8  # slam_odometry's and slam_mapper's default
 # Odometry noise of the prior (variances: rx ry rz in rad^2, tx ty tz in m^2):
 # about 2 mrad and 5 mm a scan.
 SLAM_ODOM_COV = [4e-6] * 3 + [2.5e-5] * 3
@@ -3330,6 +3335,83 @@ def x3_k1_entry(points, query, valid, card: str) -> dict:
     b = bound(n * 13 + q * 12 + q * 8, {"fp32": PAIR_OPS * q * nv})
     return {"points": n, "queries": q, "valid_points": nv, "ms": cuda_ms(call, reps=5, warmup=1),
             "kernel_ms": kernel_ms(call, DEVICE, 3), "bound_ms": b[0], "bound_by": b[1]}
+
+
+# X6's float operations an inlier: r (3 subtractions, 3 products, 2 sums)
+# and J's cross product (6 products, 3 subtractions) in float32; the 21 + 6
+# products and sums of H and g and the sum of |r| in float64.
+X6_F32_OPS, X6_F64_OPS = 17, 2 * 27 + 1
+
+
+def x6_entry(src, tgt, T0, card: str) -> dict:
+    """X6 on one registration's first step: X3's (d2, idx) of the source
+    placed by the prior in the target, then the step against its plain
+    twin on the same float32 inputs and in float64 (the threshold and the
+    inliers bit-equal to both; T within 2e-6 of the float64 twin, as the
+    card test asks), its events and profiler time, the float32 twin's, and
+    the bound: each row's d2, idx, validity and placed point and each
+    inlier's target point and normal once."""
+    import torch
+
+    from depth_correction_tpu_torch.ops import _kernels
+    from depth_correction_tpu_torch.ops.icp import icp_update, icp_update_plain
+    from depth_correction_tpu_torch.ops.knn import knn_d2
+    from depth_correction_tpu_torch.ops.reduce import masked_quantile
+    from depth_correction_tpu_torch.ops.se3 import transform_points
+
+    T = torch_tensor(T0, src.depth)
+    pts = transform_points(T, src.get_points())
+    tgt_pts = tgt.get_points()
+    d2, idx = knn_d2(tgt_pts, pts, k=1, valid_points=tgt.valid)
+    x = {"T": T, "d2": d2[:, 0].contiguous(), "idx": idx[:, 0].contiguous(), "src_pts": pts,
+         "src_valid": src.valid, "tgt_pts": tgt_pts, "tgt_normals": tgt.normals}
+    x64 = {k: (v.double() if v.is_floating_point() else v) for k, v in x.items()}
+    stats = torch.empty(_kernels.ICP_STATS, dtype=torch.float64, device=pts.device)
+    before = _kernels.ICP_SOLVE_LAUNCHES
+    T6, err6 = icp_update(*x.values(), SLAM_INLIER_RATIO, stats=stats)
+    launches = _kernels.ICP_SOLVE_LAUNCHES - before
+    T32, _ = icp_update_plain(*x.values(), SLAM_INLIER_RATIO)
+    T64, _ = icp_update_plain(*x64.values(), SLAM_INLIER_RATIO)
+    stats = stats.cpu()
+    ok = (x["idx"] >= 0) & x["src_valid"]
+    thr = {}
+    for name, d2_ in (("f32", x["d2"]), ("f64", x64["d2"])):
+        d = torch.sqrt(d2_)
+        t = masked_quantile(d, ok, SLAM_INLIER_RATIO)
+        thr[name] = (float(t), int((ok & (d <= t)).sum()))
+    gap64 = float((T6.double() - T64).abs().max())
+    gap32 = float((T6.double() - T32.double()).abs().max())
+    inliers = int(stats[28])
+    res = {"rows": int(pts.shape[0]), "targets": int(tgt_pts.shape[0]), "ok_rows": int(stats[29]),
+           "inliers": inliers, "thr": float(stats[30]), "thr_f32_twin": thr["f32"][0],
+           "inliers_f32_twin": thr["f32"][1], "thr_f64_twin": thr["f64"][0],
+           "inliers_f64_twin": thr["f64"][1], "T_gap_f64_twin": gap64, "T_gap_f32_twin": gap32,
+           "err": float(err6), "launches_one_step": launches}
+    # float32: the kernel's threshold is the float32 twin's bit for bit;
+    # the float64 twin's rounds the float32 value of the same order
+    # statistics, so its inliers are the same rows.
+    if not (res["thr"] == res["thr_f32_twin"] and inliers == res["inliers_f32_twin"]
+            and inliers == res["inliers_f64_twin"] and int(stats[29]) == int(ok.sum())
+            and launches == 1):
+        raise RuntimeError("X6 differs from its twins' gate: %s" % res)
+    if not gap64 <= 2e-6:
+        raise RuntimeError("X6's T is %.3e from the float64 twin's (2e-6 asked)" % gap64)
+
+    def call():
+        return icp_update(*x.values(), SLAM_INLIER_RATIO)
+
+    b = bound(pts.shape[0] * (4 + 4 + 1 + 12) + inliers * 24,
+              {"fp32": X6_F32_OPS * inliers, "fp64": X6_F64_OPS * inliers})
+    res.update(ms=cuda_ms(call, reps=20), kernel_ms=kernel_ms(call, DEVICE, 10),
+               plain_ms=cuda_ms(lambda: icp_update_plain(*x.values(), SLAM_INLIER_RATIO),
+                                reps=20),
+               bound_ms=b[0], bound_by=b[1])
+    log("slam: X6 on the mapper's last registration (%d rows, %d targets): %d inliers at "
+        "threshold %.9g (both twins' inliers equal); T %.3e from the float64 twin, %.3e from "
+        "the float32 twin; %.4f ms (kernel %.4f), plain %.4f ms, bound %.5f ms (%s) (%s)"
+        % (res["rows"], res["targets"], inliers, res["thr"], gap64, gap32, res["ms"],
+           res["kernel_ms"], res["plain_ms"], res["bound_ms"], res["bound_by"], card))
+    return res
 
 
 def first_iteration_differ(pairs, plain_pairs) -> float:
@@ -3389,8 +3471,8 @@ def run_slam(fn, clouds, odom, label: str, plain: bool = False) -> dict:
     finally:
         slam_eval.icp_align = align
     check_no_first_versions(label)
-    launches = {"knn": _kernels.KNN_LAUNCHES, "grid": _kernels.GRID_LAUNCHES,
-                "gather": _kernels.GATHER_LAUNCHES}
+    launches = {"knn": _kernels.KNN_LAUNCHES, "icp": _kernels.ICP_SOLVE_LAUNCHES,
+                "grid": _kernels.GRID_LAUNCHES, "gather": _kernels.GATHER_LAUNCHES}
     return {"est": est, "ms": ms, "launches": launches, "regs": regs}
 
 
@@ -3425,8 +3507,8 @@ def phase_slam(card: str, seq, cfg, model):
     for name, fn in (("odometry", slam_odometry), ("mapper", slam_mapper)):
         run = runs[name] = run_slam(fn, clouds, odom, "slam_%s" % name)
         want = SLAM_ITERS * (len(clouds) - 1)
-        if run["launches"] != {"knn": want, "grid": 0, "gather": 0}:
-            raise RuntimeError("slam_%s launched %s, not X3 %d times alone"
+        if run["launches"] != {"knn": want, "icp": want, "grid": 0, "gather": 0}:
+            raise RuntimeError("slam_%s launched %s, not X3 and X6 %d times each alone"
                                % (name, run["launches"], want))
         src, tgt, T0 = run["regs"][-1]
         profiles[name] = profile_calls(
@@ -3444,6 +3526,7 @@ def phase_slam(card: str, seq, cfg, model):
         "(kernel %.4f), all-pairs bound %.4f ms (%s) (%s)"
         % (last["points"], last["queries"], last["ms"], last["kernel_ms"], last["bound_ms"],
            last["bound_by"], card))
+    x6 = x6_entry(src, tgt, T0, card)
 
     # float64 on the plain path: the same clouds and priors.
     clouds64 = [c.to(dtype=torch.float64) for c in clouds]
@@ -3451,8 +3534,8 @@ def phase_slam(card: str, seq, cfg, model):
     for name, fn in (("odometry", slam_odometry), ("mapper", slam_mapper)):
         t1 = time.perf_counter()
         ref = run_slam(fn, clouds64, odom, "slam_%s float64" % name, plain=True)
-        if ref["launches"]["knn"]:
-            raise RuntimeError("the float64 plain run launched X3")
+        if ref["launches"]["knn"] or ref["launches"]["icp"]:
+            raise RuntimeError("the float64 plain run launched X3 or X6")
         dm, dr = pose_differences(runs[name]["est"], ref["est"])
         share = first_iteration_differ(runs[name]["regs"], ref["regs"])
         diffs[name] = {"m": dm, "rad": dr, "first_iter_differ": share,
@@ -3511,7 +3594,8 @@ def phase_slam(card: str, seq, cfg, model):
         shutil.rmtree(root, ignore_errors=True)
     return {"odometry_ms": runs["odometry"]["ms"], "mapper_ms": runs["mapper"]["ms"],
             "launches": sum(r["launches"]["knn"] for r in runs.values()),
-            "profiles": profiles, "last": last, "diffs": diffs, "prior_t": prior_t,
+            "x6_launches": sum(r["launches"]["icp"] for r in runs.values()),
+            "profiles": profiles, "last": last, "x6": x6, "diffs": diffs, "prior_t": prior_t,
             "mapper_t": mapper_t, "odometry_t": mean_errors(gt, runs["odometry"]["est"])[0],
             "e2e_s": e2e_s}
 
@@ -4729,6 +4813,16 @@ def main() -> int:
                     "shadow_dirs": dict(x3_summary(shadow), dropped=shadow["dropped"]),
                     "default_global": x3_summary(default["global"]),
                     "icp_pairs": icp["x3"]}},
+        # Phase 16: the mapper's last registration's first step.
+        {"name": "icp_solve (X6)", "route": "cuda",
+         "source": "depth_correction_tpu_torch/csrc/icp_solve.cu",
+         "replaces": "depth_correction_tpu/slam_eval.py:48",
+         "launches": slam["x6_launches"], "max_abs_err": slam["x6"]["T_gap_f64_twin"],
+         "ms": slam["x6"]["ms"], "kernel_ms": slam["x6"]["kernel_ms"],
+         "plain_ms": slam["x6"]["plain_ms"],
+         "bound": (slam["x6"]["bound_ms"], slam["x6"]["bound_by"]), "library_ms": None,
+         "inputs": {k: v for k, v in slam["x6"].items()
+                    if k not in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}},
     ] + [transpose_entry(tr, key, {"capped": capped["launches"][key],
                                    "default": default["launches"][key],
                                    "offset": offset["launches"][key],

@@ -18,7 +18,8 @@ and P8 count here (:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`,
 :data:`KNN_LAUNCHES`, :data:`GATHER_LAUNCHES`, :data:`KNOCKOUT_LAUNCHES`,
 :data:`DOT_LAUNCHES`, :data:`WINDOW_LAUNCHES`, :data:`LAYOUT_LAUNCHES`,
 :data:`GATHER_SUM_LAUNCHES`, :data:`GATHER_PROBE_LAUNCHES`, and the first
-versions' ``*_V1_LAUNCHES``), once per accepted launch.
+versions' ``*_V1_LAUNCHES``), once per accepted launch (X6 once per ICP
+step, at its second launch).
 """
 from __future__ import annotations
 
@@ -47,6 +48,8 @@ __all__ = [
     "GATHER_V1_LAUNCHES",
     "GRID_LAUNCHES",
     "GRID_V1_LAUNCHES",
+    "ICP_SOLVE_LAUNCHES",
+    "ICP_STATS",
     "KNN_LAUNCHES",
     "KNN_V1_LAUNCHES",
     "KNOCKOUT_LAUNCHES",
@@ -76,6 +79,8 @@ __all__ = [
     "launch_gather_sum_v1",
     "launch_grid_query",
     "launch_grid_query_v1",
+    "launch_icp_gate",
+    "launch_icp_solve",
     "launch_knn_brute",
     "launch_knn_brute_v1",
     "launch_layout_probe",
@@ -103,7 +108,7 @@ SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
                              "grid_query_v1.cu", "layout_probe.cu", "layout_probe_v1.cu",
                              "gather_probe.cu", "gather_probe_v1.cu", "knn_brute.cu", "knn_brute_v1.cu",
                              "gather_sum.cu", "gather_sum_v1.cu", "gather_moments_v1.cu",
-                             "transpose_gather.cu", "transpose_gather_v1.cu"))
+                             "transpose_gather.cu", "transpose_gather_v1.cu", "icp_solve.cu"))
 # Headers the sources include; they key the build like the sources.
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin_fwd.cuh", "tf32_mma.cuh", "wgmma_tf32.cuh"))
@@ -120,16 +125,17 @@ NVCC_FLAGS = (
 
 # Launches of X1 (slab-window moments), X2 (the grid radius search), X3
 # (the brute-force search), X4 / X5 (the gather engine's backward over a
-# transpose graph), P7 (gather moments), P1 (the cell-window
-# knockout), P2 (the moment product), P3-P5 (the moment product with
-# in-kernel operands), P6 (the layout probes), P7a (P7's gather-sum probe)
-# and P8 (the gather probes), counted where each kernel is launched and
-# nowhere else.
+# transpose graph), X6 (an ICP step's gate and normal equations), P7
+# (gather moments), P1 (the cell-window knockout), P2 (the moment product),
+# P3-P5 (the moment product with in-kernel operands), P6 (the layout
+# probes), P7a (P7's gather-sum probe) and P8 (the gather probes), counted
+# where each kernel is launched and nowhere else.
 SLAB_LAUNCHES = 0
 GRID_LAUNCHES = 0
 KNN_LAUNCHES = 0
 TRANSPOSE_MOMENTS_LAUNCHES = 0
 TRANSPOSE_GATHER_LAUNCHES = 0
+ICP_SOLVE_LAUNCHES = 0
 # The first versions of X1-X5, P2, P3-P5, P6, P7, P7a and P8, for the A/B only
 # (no path launches them).
 TRANSPOSE_MOMENTS_V1_LAUNCHES = 0
@@ -280,6 +286,13 @@ def load():
         lib.dc_transpose_moments_v1.restype = _I
         lib.dc_transpose_gather_v1.argtypes = [_P, _I, _I, _P, _P, _P, _P]
         lib.dc_transpose_gather_v1.restype = _I
+        lib.dc_icp_scratch.argtypes = [_I]
+        lib.dc_icp_scratch.restype = _L
+        lib.dc_icp_gate.argtypes = [_P, _P, _P, _I, _P, _P, _P]
+        lib.dc_icp_gate.restype = _I
+        lib.dc_icp_solve.argtypes = [_P, _P, _P, _P, _P, _I, _P, _P, _F, _P, _P, _P, _P, _P,
+                                     _P]
+        lib.dc_icp_solve.restype = _I
         lib.dc_cuda_error_string.argtypes = [_I]
         lib.dc_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -1196,8 +1209,105 @@ def launch_transpose_gather_v1(g, start, pair) -> torch.Tensor:
     return out
 
 
+ICP_STATS = 40  # the length of launch_icp_solve's stats
+
+
+def launch_icp_gate(d2, idx, src_valid):
+    """X6's first launch on CUDA tensors: each source row's sort key (its
+    squared distance where its nearest target exists and it is valid, +inf
+    else), each block's count of those rows into a fresh scratch, which
+    :func:`launch_icp_solve` takes after the caller has sorted the keys.
+    Reads nothing back.
+
+    :param d2, idx: (N,) float32 and int32, the search's squared distance
+        and index of each source row's nearest target (-1 at ``inf``: none).
+    :param src_valid: (N,) bool.
+    :return: (key (N,) float32, scratch (uint8)).
+    """
+    with trace.span("x6.icp_gate"):
+        device = d2.device
+        if device.type != "cuda":
+            raise ValueError("the ICP step kernel takes CUDA tensors, got %s" % device)
+        n = d2.numel()
+        _check(d2, "d2", torch.float32, (n,), device)
+        _check(idx, "idx", torch.int32, (n,), device)
+        _check(src_valid, "src_valid", torch.bool, (n,), device)
+        if n >= 1 << 31:
+            raise ValueError("icp_gate: %d source rows; the kernel takes fewer than 2^31" % n)
+        lib = load()
+        scratch = torch.empty((lib.dc_icp_scratch(n),), dtype=torch.uint8, device=device)
+        key = torch.empty((n,), dtype=torch.float32, device=device)
+        with _on_device(device):
+            stream = torch._C._cuda_getCurrentRawStream(device.index)
+            err = lib.dc_icp_gate(d2.data_ptr(), idx.data_ptr(), src_valid.data_ptr(), n,
+                                  key.data_ptr(), scratch.data_ptr(), stream)
+        _check_launch(lib, err, "icp_gate (N %d)" % n)
+    return key, scratch
+
+
+def launch_icp_solve(sorted_key, scratch, T, d2, idx, src_pts, src_valid, tgt_pts,
+                     tgt_normals, inlier_ratio: float, stats=None):
+    """X6's second launch on CUDA float32 tensors, after
+    :func:`launch_icp_gate` on the same rows and the sort of its keys: one
+    point-to-plane ICP step's threshold, normal equations, solve and
+    update, as ``ops/icp.py``'s ``icp_update_plain`` computes them, with
+    nothing read back to the host.
+
+    :param sorted_key: (N,) float32, the gate's keys sorted ascending.
+    :param scratch: the gate's scratch.
+    :param T: (4, 4) the transform that placed ``src_pts``.
+    :param d2, idx, src_valid: the gate's inputs.
+    :param src_pts: (N, 3) the placed source points.
+    :param tgt_pts, tgt_normals: (M, 3) the target's points and normals;
+        each index of ``idx`` that is not negative must lie in [0, M).
+    :param stats: None, or a (``ICP_STATS``,) float64 tensor the kernel
+        fills: H's upper triangle row by row (21, without the 1e-9), g (6),
+        sum |r|, the inliers, the ok rows, the threshold, dx (6).
+    :return: (delta @ T (4, 4) float32, the inliers' mean |r| () float32).
+    """
+    global ICP_SOLVE_LAUNCHES
+    with trace.span("x6.icp_solve"):
+        device = src_pts.device
+        if device.type != "cuda":
+            raise ValueError("the ICP step kernel takes CUDA tensors, got %s" % device)
+        n, m = src_pts.shape[0], tgt_pts.shape[0]
+        T, src_pts = T.contiguous(), src_pts.contiguous()
+        tgt_pts, tgt_normals = tgt_pts.contiguous(), tgt_normals.contiguous()
+        _check(sorted_key, "sorted_key", torch.float32, (n,), device)
+        _check(T, "T", torch.float32, (4, 4), device)
+        _check(d2, "d2", torch.float32, (n,), device)
+        _check(idx, "idx", torch.int32, (n,), device)
+        _check(src_pts, "src_pts", torch.float32, (n, 3), device)
+        _check(src_valid, "src_valid", torch.bool, (n,), device)
+        _check(tgt_pts, "tgt_pts", torch.float32, (m, 3), device)
+        _check(tgt_normals, "tgt_normals", torch.float32, (m, 3), device)
+        if stats is not None:
+            _check(stats, "stats", torch.float64, (ICP_STATS,), device)
+        if n >= 1 << 31 or m >= 1 << 31:
+            raise ValueError("icp_solve: %d source and %d target rows; the kernel takes fewer "
+                             "than 2^31" % (n, m))
+        if any(t.requires_grad for t in (T, src_pts, tgt_pts, tgt_normals)) and \
+                torch.is_grad_enabled():
+            raise RuntimeError("icp_solve is forward only: its inputs require grad")
+        lib = load()
+        _check(scratch, "scratch", torch.uint8, (lib.dc_icp_scratch(n),), device)
+        T_out = torch.empty((4, 4), dtype=torch.float32, device=device)
+        err_out = torch.empty((), dtype=torch.float32, device=device)
+        with _on_device(device):
+            stream = torch._C._cuda_getCurrentRawStream(device.index)
+            err = lib.dc_icp_solve(sorted_key.data_ptr(), d2.data_ptr(), idx.data_ptr(),
+                                   src_valid.data_ptr(), src_pts.data_ptr(), n,
+                                   tgt_pts.data_ptr(), tgt_normals.data_ptr(),
+                                   float(inlier_ratio), T.data_ptr(), scratch.data_ptr(),
+                                   T_out.data_ptr(), err_out.data_ptr(),
+                                   None if stats is None else stats.data_ptr(), stream)
+        _check_launch(lib, err, "icp_solve (N %d, M %d)" % (n, m))
+    ICP_SOLVE_LAUNCHES += 1
+    return T_out, err_out
+
+
 def reset_launch_counts() -> None:
-    """Zero the launch counts kept here (X1-X5, P2-P8, P7a and their first
+    """Zero the launch counts kept here (X1-X6, P2-P8, P7a and their first
     versions, P1)."""
     global TRANSPOSE_MOMENTS_LAUNCHES, TRANSPOSE_GATHER_LAUNCHES
     global SLAB_LAUNCHES, GRID_LAUNCHES, KNN_LAUNCHES, GATHER_LAUNCHES, KNOCKOUT_LAUNCHES
@@ -1205,7 +1315,7 @@ def reset_launch_counts() -> None:
     global GATHER_PROBE_LAUNCHES, KNN_V1_LAUNCHES, SLAB_V1_LAUNCHES, GRID_V1_LAUNCHES
     global DOT_V1_LAUNCHES, LAYOUT_V1_LAUNCHES, GATHER_V1_LAUNCHES, GATHER_SUM_V1_LAUNCHES
     global WINDOW_V1_LAUNCHES, GATHER_PROBE_V1_LAUNCHES
-    global TRANSPOSE_MOMENTS_V1_LAUNCHES, TRANSPOSE_GATHER_V1_LAUNCHES
+    global TRANSPOSE_MOMENTS_V1_LAUNCHES, TRANSPOSE_GATHER_V1_LAUNCHES, ICP_SOLVE_LAUNCHES
     SLAB_LAUNCHES = 0
     GRID_LAUNCHES = 0
     KNN_LAUNCHES = 0
@@ -1229,3 +1339,4 @@ def reset_launch_counts() -> None:
     TRANSPOSE_GATHER_LAUNCHES = 0
     TRANSPOSE_MOMENTS_V1_LAUNCHES = 0
     TRANSPOSE_GATHER_V1_LAUNCHES = 0
+    ICP_SOLVE_LAUNCHES = 0

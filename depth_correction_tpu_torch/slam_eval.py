@@ -10,7 +10,8 @@ scripts/robot_data:123-205). This module replaces it with:
   (:func:`slam_odometry`) or scan to a maintained voxel map
   (:func:`slam_mapper`), run over corrected clouds on
   ``cfg.torch_device()``; each iteration's 1-NN correspondences are kernel
-  X3 (k = 1, no radius) on the card,
+  X3 (k = 1, no radius) on the card, its gate and solve kernel X6, so an
+  alignment's iterations queue on the card with no host read between them,
 - odometry noise injection mirroring robot_data's perturbed odometry
   (scripts/robot_data:123-151),
 - CSV outputs with the reference schemas (``slam_eval_<slam>.csv``:
@@ -20,8 +21,8 @@ scripts/robot_data:123-205). This module replaces it with:
   and an export of corrected clouds and poses for parity runs elsewhere.
 
 The clouds of a run share one float type; poses are cast to it (float32 on
-the card, where X3 takes float32 only). ``plain=True`` takes X3's plain twin
-on any device and float type (the float64 reference runs).
+the card, where X3 and X6 take float32 only). ``plain=True`` takes X3's and
+X6's plain twins on any device and float type (the float64 reference runs).
 """
 from __future__ import annotations
 
@@ -39,9 +40,9 @@ from .cloud import Cloud
 from .config import SLAM, Config
 from .metrics import localization_errors
 from .models import load_model
-from .ops.knn import nearest_neighbors
-from .ops.reduce import masked_mean, masked_quantile
-from .ops.se3 import delta_transform, transform_points, xyz_axis_angle_to_matrix
+from .ops.icp import icp_update
+from .ops.knn import knn_d2
+from .ops.se3 import delta_transform, transform_points
 from .preproc import local_feature_cloud
 from .utils import trace
 from .utils.io import append
@@ -53,31 +54,15 @@ __all__ = ["icp_align", "perturb_odometry", "slam_clouds", "slam_odometry", "sla
 def _icp_step(T, src_pts, src_valid, tgt_pts, tgt_normals, tgt_valid, inlier_ratio: float,
               plain: bool):
     """One Gauss-Newton point-to-plane step (JAX package, slam_eval.py:48-71)
-    from the transform ``T`` that placed ``src_pts``: solve J^T W J dx =
-    J^T W r for the 6-DoF twist (small-angle linearisation) over the 1-NN
-    correspondences gated at the ``inlier_ratio`` quantile of their
-    distances, and return (delta @ T, the inlier error). Stays on the
-    device: the threshold, the weights and the solve are tensors
-    (``solve_ex`` is ``solve`` without the host check of its status)."""
+    from the transform ``T`` that placed ``src_pts``: the 1-NN search (X3),
+    then the gate at the ``inlier_ratio`` quantile of the distances and the
+    normal equations' solve for the 6-DoF twist (X6, ``ops/icp.py``);
+    returns (delta @ T, the inlier error). Stays on the device: on the card
+    nothing is read back to the host."""
     with trace.span("icp.search"):
-        dists, idx = nearest_neighbors(tgt_pts, src_pts, k=1, valid_points=tgt_valid,
-                                       plain=plain)
-    with trace.span("icp.gate"):
-        d = dists[:, 0]
-        ok = (idx[:, 0] >= 0) & src_valid
-        thr = masked_quantile(d, ok, inlier_ratio)
-        w = (ok & (d <= thr)).to(src_pts.dtype)
-    with trace.span("icp.solve"):
-        i = torch.clamp(idx[:, 0], min=0).long()
-        q, n = tgt_pts[i], tgt_normals[i]
-        r = (n * (q - src_pts)).sum(-1)  # residual along the target normal
-        J = torch.cat([torch.linalg.cross(src_pts, n), n], -1)  # (N, 6)
-        Jw = J * w[:, None]
-        H = Jw.T @ J + 1e-9 * torch.eye(6, dtype=src_pts.dtype, device=src_pts.device)
-        dx = torch.linalg.solve_ex(H, Jw.T @ r)[0]
-        # [rot, trans] ordering in J => [trans, rot] for the 6-vector.
-        delta = xyz_axis_angle_to_matrix(torch.cat([dx[3:], dx[:3]]))
-        return delta @ T, masked_mean(r.abs(), w > 0)
+        d2, idx = knn_d2(tgt_pts, src_pts, k=1, valid_points=tgt_valid, plain=plain)
+    return icp_update(T, d2[:, 0], idx[:, 0], src_pts, src_valid, tgt_pts, tgt_normals,
+                      inlier_ratio, plain=plain)
 
 
 def icp_align(source: Cloud, target: Cloud, T0=None, n_iters: int = 10,

@@ -19,7 +19,8 @@ copies are allowed under ``torch.cuda.set_sync_debug_mode``, so that a
 test can make every other synchronisation an error.
 
 Spans (``PERF.md`` lists the metric that reads each): ``slam.scan`` ⊃
-``slam.prior``, ``icp.search``, ``icp.gate``, ``icp.solve`` (SLAM);
+``slam.prior``, ``icp.search``, ``icp.gate``, ``icp.solve`` (SLAM; on the
+card the last two hold X6's launcher spans ``x6.icp_gate``, ``x6.icp_solve``);
 ``fit.step`` ⊃ ``step.forward``, ``step.backward``, ``step.val``,
 ``step.optim``, ``step.after`` (training); ``prep.<part>`` (prep);
 ``node.scan`` ⊃ ``node.correct`` (the online corrector); one span a kernel

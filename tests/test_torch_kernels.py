@@ -2089,16 +2089,283 @@ def test_cuda_icp_align_matches_float64_plain(cuda_device):
                                  (torch.float64, cuda_device, True)):
         src, tgt = (c.to(device=device, dtype=dtype) for c in clouds)
         tgt = tgt.transform(torch.as_tensor(p0, dtype=dtype, device=device)).with_points()
-        before = _kernels.KNN_LAUNCHES
+        before = (_kernels.KNN_LAUNCHES, _kernels.ICP_SOLVE_LAUNCHES)
         T, err = icp_align(src, tgt, T0=prior, n_iters=6, plain=plain)
         out[plain] = T.double().cpu()
-        assert _kernels.KNN_LAUNCHES - before == (0 if plain else 6)
+        assert _kernels.KNN_LAUNCHES - before[0] == (0 if plain else 6)
+        assert _kernels.ICP_SOLVE_LAUNCHES - before[1] == (0 if plain else 6)
         assert math.isfinite(float(err))
     # The angle by the quaternion: arccos of the trace would read the float32
     # rotation's departure from orthonormality as ~5e-4 rad.
     d = delta_transform(out[True], out[False])
     assert float(d[:3, 3].norm()) < 1e-4
     assert float(matrix_to_xyz_axis_angle(d)[3:].norm()) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# X6 (an ICP step's gate and normal equations).
+
+
+def _box_pair(n_scans: int = 2):
+    """A small open box's feature clouds (CPU, float64) and a noisy
+    odometry prior, as test_cuda_icp_align_matches_float64_plain registers
+    them."""
+    from depth_correction_tpu_torch.config import Config
+    from depth_correction_tpu_torch.datasets import create_dataset
+    from depth_correction_tpu_torch.preproc import local_feature_cloud
+    from depth_correction_tpu_torch.slam_eval import perturb_odometry
+
+    cfg = Config()
+    cfg.device = "cpu"
+    cfg.min_depth, cfg.max_depth, cfg.grid_res = 0.1, 30.0, 0.3
+    cfg.nn_r, cfg.nn_k, cfg.nn_backend = 0.6, 0, "scipy"
+    cfg.vp_dispersion_bounds, cfg.eigenvalue_ratio_bounds = [], []
+    cfg.min_valid_neighbors, cfg.depth_noise = 3, 0.005
+    cfg.depth_bias_model_kwargs = {"w": [0.0], "exponent": [4.0]}
+    scans = list(create_dataset("open_box/n_%d_size_10_10_5_height_1_density_60" % n_scans,
+                                cfg))
+    clouds = [local_feature_cloud(s, cfg) for s, _ in scans]
+    poses = np.stack([np.asarray(p) for _, p in scans])
+    return clouds, poses, perturb_odometry(poses, [1e-5] * 3 + [4e-3] * 3, seed=3)
+
+
+def _x6_inputs(device, case: str = "box"):
+    """X6's inputs on ``device`` in float32: scan 1 placed by its prior and
+    X3's 1-NN (d2, idx) in scan 0 posed at ground truth, then ``case``'s
+    change: ``no_inlier`` (no valid source row), ``ties`` (d2 rounded to
+    1e-3 m^2: many rows share the threshold's distance), ``one_row`` (one
+    valid source row), ``single_row`` (a one-row source), ``invalid_targets``
+    (every third target invalid), ``no_target`` (none valid)."""
+    from depth_correction_tpu_torch.ops.knn import knn_d2
+    from depth_correction_tpu_torch.ops.se3 import transform_points
+
+    clouds, poses, prior = _box_pair()
+    src, tgt = (c.to(device=device, dtype=torch.float32) for c in clouds)
+    tgt = tgt.transform(torch.as_tensor(poses[0], dtype=torch.float32,
+                                        device=device)).with_points()
+    T = torch.as_tensor(prior[1], dtype=torch.float32, device=device)
+    pts = transform_points(T, src.get_points())
+    valid, tvalid = src.valid.clone(), tgt.valid.clone()
+    if case == "invalid_targets":
+        tvalid[::3] = False
+    elif case == "no_target":
+        tvalid[:] = False
+    elif case == "single_row":
+        pts, valid = pts[:1].contiguous(), valid[:1].contiguous()
+    d2, idx = knn_d2(tgt.points, pts, k=1, valid_points=tvalid)
+    d2, idx = d2[:, 0].contiguous(), idx[:, 0].contiguous()
+    if case == "no_inlier":
+        valid[:] = False
+    elif case == "one_row":
+        valid[:] = False
+        valid[7] = True
+    elif case == "ties":
+        d2 = torch.round(d2 * 1e3) / 1e3
+    return {"T": T, "d2": d2, "idx": idx, "src_pts": pts, "src_valid": valid,
+            "tgt_pts": tgt.points, "tgt_normals": tgt.normals}
+
+
+def _x6_update_f64(stats, T):
+    """The update X6 makes from its own dx (stats[31:37]), in float64:
+    (delta @ T in float64, dx)."""
+    from depth_correction_tpu_torch.ops.se3 import xyz_axis_angle_to_matrix
+
+    dx = stats[31:37].double().cpu()
+    return xyz_axis_angle_to_matrix(torch.cat([dx[3:], dx[:3]])) @ T.double().cpu(), dx
+
+
+def _x6(x, q):
+    """One step of X6 through ``icp_update`` with its stats: (T, err, stats
+    on the CPU)."""
+    from depth_correction_tpu_torch.ops.icp import icp_update
+
+    stats = torch.empty(_kernels.ICP_STATS, dtype=torch.float64, device=x["T"].device)
+    T, err = icp_update(*x.values(), q, stats=stats)
+    return T, err, stats.cpu()
+
+
+def _upper(H):
+    rows, cols = torch.triu_indices(6, 6)
+    return H[rows, cols]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,q", [("box", 0.8), ("box", 1.0), ("ties", 0.8), ("one_row", 0.8),
+                                    ("single_row", 0.8), ("invalid_targets", 0.8)])
+def test_cuda_icp_solve_matches_plain(cuda_device, case, q):
+    """X6 against its plain twin on the same float32 inputs (and the twin in
+    float64 on them cast up), with every part of the step compared:
+
+    - the threshold: bit for bit masked_quantile's over sqrt(d2) and the
+      device pick's (test_torch_icp_step.inlier_threshold_plain): the same
+      sorted values and the same float32 operations, each rounded on its own;
+    - the ok rows and the inliers: equal (the same threshold and distances);
+    - H and g: X6 sums exact float64 products of float32 J and r; against
+      float64 sums of the twin's float32 J and r, within 1e-6 of the sums'
+      scale (sum |J_a J_b|, sum |J_a r|): the library's cross product and
+      sums may round a factor differently by an ulp (6e-8);
+    - dx and T: X6's dx within 1e-14 cond(H) (at least 1e-12) of a float64
+      solve of its own H and g (two backward-stable solves), and T within an
+      ulp of float32 of delta(dx) @ T in float64;
+    - T against the float64 twin within 2e-6 (X6 stores float32: half an
+      ulp at |T| < 16 m is 9.5e-7, and J is float32), and against the
+      float32 twin within 2e-5 (the twin's float32 sums carry ~1e-6 of H,
+      which dx inherits times H's conditioning), but where one valid row
+      makes H singular in float32: the 1e-9 of the twin's H + 1e-9 I is
+      lost in float32 and its solve is no answer;
+    - err: equal to X6's own float64 sum over its inliers, within 1e-5 of
+      the float32 twin's mean (a float32 sum) and 1e-6 of the float64 twin's.
+    """
+    from test_torch_icp_step import inlier_threshold_plain
+
+    from depth_correction_tpu_torch.ops.icp import icp_update_plain
+    from depth_correction_tpu_torch.ops.reduce import masked_quantile
+
+    x = _x6_inputs(cuda_device, case)
+    before = _kernels.ICP_SOLVE_LAUNCHES
+    T6, err6, stats = _x6(x, q)
+    assert _kernels.ICP_SOLVE_LAUNCHES - before == 1
+    d2, idx, valid = x["d2"], x["idx"], x["src_valid"]
+    ok = (idx >= 0) & valid
+    d = torch.sqrt(d2)
+    thr = masked_quantile(d, ok, q)
+    assert torch.equal(thr.cpu().view(torch.int32),
+                       torch.tensor(float(stats[30]), dtype=torch.float32).view(torch.int32))
+    assert torch.equal(inlier_threshold_plain(d2, ok, q).cpu(), thr.cpu())
+    w = ok & (d <= thr)
+    assert int(stats[29]) == int(ok.sum()) and int(stats[28]) == int(w.sum())
+    # The twin's float32 J and r, summed in float64.
+    i = torch.clamp(x["idx"], min=0).long()
+    qp, n = x["tgt_pts"][i], x["tgt_normals"][i]
+    r = (n * (qp - x["src_pts"])).sum(-1)
+    J = torch.cat([torch.linalg.cross(x["src_pts"], n), n], -1)
+    J64, r64, w64 = J.double().cpu(), r.double().cpu(), w.double().cpu()
+    H = (J64 * w64[:, None]).T @ J64
+    g = (J64 * w64[:, None]).T @ r64
+    h_scale = (J64.abs() * w64[:, None]).T @ J64.abs()
+    g_scale = (J64.abs() * w64[:, None]).T @ r64.abs()
+    assert bool(((stats[:21] - _upper(H)).abs() <= 1e-6 * _upper(h_scale) + 1e-30).all())
+    assert bool(((stats[21:27] - g).abs() <= 1e-6 * g_scale + 1e-30).all())
+    assert float(stats[27]) == pytest.approx(float((r64.abs() * w64).sum()), rel=1e-6)
+    A = torch.zeros(6, 6, dtype=torch.float64)
+    rows, cols = torch.triu_indices(6, 6)
+    A[rows, cols] = stats[:21]
+    A[cols, rows] = stats[:21]
+    want_dx = torch.linalg.solve(A + 1e-9 * torch.eye(6, dtype=torch.float64), stats[21:27])
+    want_T, dx = _x6_update_f64(stats, x["T"])
+    cond = float(torch.linalg.cond(A + 1e-9 * torch.eye(6, dtype=torch.float64)))
+    assert float((dx - want_dx).abs().max()) <= \
+        max(1e-14 * cond, 1e-12) * float(want_dx.abs().max()) + 1e-300
+    T6c = T6.cpu().double()
+    assert bool(((T6c - want_T).abs() <= want_T.abs() * 2.0 ** -23 + 1e-12).all())
+    assert float(err6) == np.float32(float(stats[27]) / max(float(stats[28]), 1.0))
+    # Against the twins.
+    x64 = {k: (v.double() if v.is_floating_point() else v) for k, v in x.items()}
+    T64, err64 = icp_update_plain(*x64.values(), q)
+    T32, err32 = icp_update_plain(*x.values(), q)
+    gap64 = float((T6c - T64.cpu()).abs().max())
+    gap32 = float((T6c - T32.cpu().double()).abs().max())
+    print("X6 %s q=%.1f: %d ok rows, %d inliers; T gap to the float64 twin %.3e, to the float32 "
+          "twin %.3e; err %.9g (twins %.9g, %.9g)" % (case, q, int(stats[29]), int(stats[28]),
+                                                       gap64, gap32, float(err6), float(err32),
+                                                       float(err64)))
+    assert gap64 <= 2e-6
+    if case not in ("one_row", "single_row"):
+        assert gap32 <= 2e-5
+    assert float(err6) == pytest.approx(float(err32), rel=1e-5)
+    assert float(err6) == pytest.approx(float(err64), rel=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["no_inlier", "no_target"])
+def test_cuda_icp_solve_without_inliers_leaves_T(cuda_device, case):
+    """No ok row (no valid source row, or no valid target): k = 0 gives the
+    threshold NaN, as masked_quantile does, so no row is an inlier; H is
+    1e-9 I and g 0, so dx is 0 and T comes back bit for bit, err 0."""
+    x = _x6_inputs(cuda_device, case)
+    T6, err6, stats = _x6(x, 0.8)
+    assert torch.equal(T6.view(torch.int32), x["T"].view(torch.int32))
+    assert float(err6) == 0.0
+    assert int(stats[29]) == 0 and int(stats[28]) == 0 and math.isnan(float(stats[30]))
+    assert bool((stats[:28] == 0).all()) and bool((stats[31:37] == 0).all())
+
+
+@pytest.mark.cuda
+def test_cuda_icp_solve_is_bit_equal_run_to_run(cuda_device):
+    """Fixed-order float64 sums (no float atomics): two launches on the same
+    inputs, with other work between them, give the same bits; so does the
+    step without stats (the SLAM path's)."""
+    from depth_correction_tpu_torch.ops.icp import icp_update
+
+    x = _x6_inputs(cuda_device)
+    a = _x6(x, 0.8)
+    torch.randn(1 << 20, device=cuda_device).sort()
+    b = _x6(x, 0.8)
+    c = icp_update(*x.values(), 0.8)
+    assert torch.equal(a[0].view(torch.int32), c[0].view(torch.int32))
+    assert torch.equal(a[1].view(torch.int32), c[1].view(torch.int32))
+    assert torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+    assert torch.equal(a[1].view(torch.int32), b[1].view(torch.int32))
+    assert torch.equal(a[2].view(torch.int64), b[2].view(torch.int64))
+
+
+@pytest.mark.cuda
+def test_cuda_icp_update_never_takes_the_plain_twin(cuda_device, monkeypatch):
+    """A CUDA float32 step launches X6; the twin is never called, and a
+    float64 step without ``plain`` raises instead of falling back."""
+    from depth_correction_tpu_torch.ops import icp as ticp
+
+    def refuse(*args, **kw):
+        raise AssertionError("took the plain twin")
+
+    x = _x6_inputs(cuda_device)
+    monkeypatch.setattr(ticp, "icp_update_plain", refuse)
+    before = _kernels.ICP_SOLVE_LAUNCHES
+    T, err = ticp.icp_update(*x.values(), 0.8)
+    assert _kernels.ICP_SOLVE_LAUNCHES - before == 1 and T.shape == (4, 4)
+    x64 = {k: (v.double() if v.is_floating_point() else v) for k, v in x.items()}
+    with pytest.raises(TypeError, match="float32"):
+        ticp.icp_update(*x64.values(), 0.8)
+
+
+@pytest.mark.cuda
+def test_cuda_icp_align_reads_nothing_back(cuda_device):
+    """A whole alignment of 8 iterations (X3 and X6 each step) runs between
+    T0's upload and T's read with every host sync an error, and gives the
+    result of the same call without the check."""
+    from depth_correction_tpu_torch.slam_eval import icp_align
+
+    clouds, poses, prior = _box_pair()
+    src, tgt = (c.to(device=cuda_device, dtype=torch.float32) for c in clouds)
+    tgt = tgt.transform(torch.as_tensor(poses[0], dtype=torch.float32,
+                                        device=cuda_device)).with_points()
+    T0 = torch.as_tensor(prior[1], dtype=torch.float32, device=cuda_device)
+    want = icp_align(src, tgt, T0=T0, n_iters=8)[0].cpu()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        T, err = icp_align(src, tgt, T0=T0, n_iters=8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(T.cpu(), want) and math.isfinite(float(err))
+
+
+@pytest.mark.cuda
+def test_cuda_slam_odometry_launches_x6_each_iteration(cuda_device):
+    """slam_odometry over S scans at n_iters: X3 and X6 each (S - 1) n_iters
+    launches; plain, neither."""
+    from depth_correction_tpu_torch.slam_eval import slam_odometry
+
+    clouds, _, prior = _box_pair(3)
+    clouds32 = [c.to(device=cuda_device, dtype=torch.float32) for c in clouds]
+    for n_iters in (8, 3):
+        before = (_kernels.KNN_LAUNCHES, _kernels.ICP_SOLVE_LAUNCHES)
+        slam_odometry(clouds32, prior, n_iters=n_iters)
+        assert (_kernels.KNN_LAUNCHES - before[0],
+                _kernels.ICP_SOLVE_LAUNCHES - before[1]) == (2 * n_iters, 2 * n_iters)
+    before = (_kernels.KNN_LAUNCHES, _kernels.ICP_SOLVE_LAUNCHES)
+    slam_odometry(clouds32, prior, n_iters=2, plain=True)
+    assert (_kernels.KNN_LAUNCHES, _kernels.ICP_SOLVE_LAUNCHES) == before
 
 
 @pytest.mark.cuda
