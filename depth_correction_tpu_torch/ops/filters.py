@@ -4,7 +4,9 @@ Mask-producing filters (reference: src/depth_correction/filters.py:8-309):
 filters AND boolean masks instead of shrinking tensors. The voxel-grid
 subsample, which genuinely reduces the point count, runs host-side in numpy
 during dataset preprocessing, with the same seeded generator as the JAX
-package, so both packages keep the same points.
+package, so both packages keep the same points. Its first-wins form on the
+device (:func:`grid_first_mask`, :func:`mask_indices`) is the SLAM mapper's
+merge.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ __all__ = [
     "filter_shadow_mask",
     "filter_valid_neighbors_mask",
     "global_cloud_mask",
+    "grid_first_mask",
+    "mask_indices",
     "within_bounds",
 ]
 
@@ -125,6 +129,52 @@ def filter_grid_indices(points: np.ndarray, grid_res: float, keep: str = "random
     new_cell = np.ones(len(k_sorted), dtype=bool)
     new_cell[1:] = np.any(k_sorted[1:] != k_sorted[:-1], axis=1)
     return np.sort(sort_idx[new_cell])
+
+
+# A voxel key packed into one int64: 21 bits an axis, each biased by 2^20.
+# The last value of an axis is left unused, so no packed key reaches
+# _NO_KEY, which marks rows that take no part.
+_KEY_BITS = 21
+_KEY_BIAS = 1 << (_KEY_BITS - 1)
+_NO_KEY = torch.iinfo(torch.int64).max
+
+
+def grid_first_mask(points: torch.Tensor, grid_res: float, valid: torch.Tensor):
+    """``filter_grid_indices(points[valid], grid_res, keep="first")`` on the
+    points' device, with no host read: a mask of the first valid row of
+    each voxel. The voxel is floor(p / grid_res) in float64 with a true
+    division (the host's voxels, bit for bit); the three keys are packed
+    into one int64 whose order is the host's lexicographic order, and one
+    stable sort groups the rows of a voxel in row order.
+
+    :return: (mask (N,) bool, a 0-d bool that is True where some valid
+        row's voxel lies outside the packed range, ±2^20 voxels an axis,
+        or is not finite; the mask then means nothing).
+    """
+    res = torch.full((), grid_res, dtype=torch.float64, device=points.device)
+    cell = torch.floor(points.to(torch.float64) / res)
+    ok = ((cell >= -_KEY_BIAS) & (cell < _KEY_BIAS - 1)).all(1)
+    c = torch.where(ok[:, None], cell, 0.0).to(torch.int64) + _KEY_BIAS
+    key = (c[:, 0] << (2 * _KEY_BITS)) | (c[:, 1] << _KEY_BITS) | c[:, 2]
+    key = torch.where(valid, key, _NO_KEY)
+    sorted_key, order = torch.sort(key, stable=True)
+    first = torch.ones_like(valid)
+    first[1:] = sorted_key[1:] != sorted_key[:-1]
+    first &= sorted_key != _NO_KEY
+    keep = torch.empty_like(first)
+    keep[order] = first
+    return keep, (valid & ~ok).any()
+
+
+def mask_indices(mask: torch.Tensor, count: int) -> torch.Tensor:
+    """``torch.nonzero(mask)[:, 0]`` given the mask's count (known on the
+    host), with no host read: each set row scattered to its rank, the
+    others to one spare slot past the end."""
+    rank = torch.cumsum(mask, 0) - 1
+    out = torch.empty(count + 1, dtype=torch.int64, device=mask.device)
+    out.scatter_(0, torch.where(mask, rank, count),
+                 torch.arange(mask.shape[0], device=mask.device))
+    return out[:count]
 
 
 def filter_valid_neighbors_mask(neighbors, weights, min_neighbors: int):

@@ -144,66 +144,91 @@ def slam_odometry(clouds: Sequence[Cloud], init_poses: np.ndarray, n_iters: int 
     return np.stack(est)
 
 
+def _map_target(pts: torch.Tensor, normals: torch.Tensor) -> Cloud:
+    """The map as an ICP target: a Cloud over its tensors, with no copy."""
+    n = pts.shape[0]
+    return Cloud(vps=pts.new_zeros((n, 3)), dirs=normals, depth=pts.new_zeros(n),
+                 valid=torch.ones(n, dtype=torch.bool, device=pts.device), points=pts,
+                 normals=normals)
+
+
 def slam_mapper(clouds: Sequence[Cloud], init_poses: np.ndarray, n_iters: int = 8,
                 inlier_ratio: float = 0.8, map_voxel: float = 0.1,
-                map_capacity: int = 1 << 19, plain: bool = False) -> np.ndarray:
+                map_capacity: int = 1 << 19, plain: bool = False, return_map: bool = False):
     """Scan-to-MAP ICP with a maintained voxel map, the role of the
     reference's external ``norlab_icp_mapper`` (launch/slam.launch:42-80):
     each scan registers against the accumulated downsampled map, then
-    merges into it on the host (first point in a voxel wins, like a
-    mapper's static map). Past ``map_capacity`` voxels the map keeps those
-    nearest the sensor, with a warning. The target is the map as it is, at
-    its own size.
+    merges into it (first point in a voxel wins, like a mapper's static
+    map; old map rows come before the scan's). Past ``map_capacity`` voxels
+    the map keeps those nearest the sensor's estimated position, with a
+    warning at every such merge. The target is the map as it is, at its own
+    size.
 
-    :return: (S, 4, 4) estimated world poses, float64.
+    The map lives on the clouds' device in their float type: the merge
+    (``ops/filters.grid_first_mask``: the voxels the host's
+    ``filter_grid_indices(keep="first")`` chooses, the kept rows in
+    ascending order), the eviction (float64 distances, ``topk``) and the
+    target are device tensors. A registered scan reads back one copy: T
+    and the merge's kept count together.
+
+    :return: (S, 4, 4) estimated world poses, float64; with ``return_map``
+        also the final map (points (M, 3), normals (M, 3)) on the device.
     """
-    from .ops.filters import filter_grid_indices
+    from .ops.filters import grid_first_mask, mask_indices
 
-    def merge(map_pts, map_normals, new_pts, new_normals, center):
-        pts = np.concatenate([map_pts, new_pts])
-        normals = np.concatenate([map_normals, new_normals])
-        keep = filter_grid_indices(pts, map_voxel, keep="first")
-        pts, normals = pts[keep], normals[keep]
-        if len(pts) > map_capacity:
-            # Voxel-level eviction, not truncation: keep the capacity voxels
-            # nearest the current sensor position (a maintained local map),
-            # so new nearby geometry always survives.
-            warnings.warn("slam_mapper map at capacity (%d voxels at %.2g m); "
-                          "evicting voxels farthest from the sensor"
-                          % (map_capacity, map_voxel))
-            d2 = np.sum((pts - np.asarray(center)[None]) ** 2, axis=1)
-            nearest = np.argpartition(d2, map_capacity - 1)[:map_capacity]
-            pts, normals = pts[nearest], normals[nearest]
-        return pts, normals
+    def merge(map_pts, map_normals, cloud, T, center):
+        """The map with ``cloud`` posed by the device pose ``T`` merged in,
+        and ``T`` read back (float64, 4 x 4)."""
+        with trace.span("map.merge"):
+            posed = cloud.transform(T).with_points()
+            pts = torch.cat([map_pts, posed.points])
+            normals = torch.cat([map_normals, posed.normals])
+            valid = torch.cat([posed.valid.new_ones(map_pts.shape[0]), posed.valid])
+            keep, bad = grid_first_mask(pts, map_voxel, valid)
+            counts = torch.stack([keep.sum(), bad.to(torch.int64)]).to(torch.float64)
+            host = trace.to_host(torch.cat([T.reshape(-1).to(torch.float64), counts]))
+            if host[17]:
+                raise ValueError("slam_mapper: a point's voxel at %g m lies beyond 2^20 "
+                                 "voxels of the origin, or is not finite" % map_voxel)
+            n = int(host[16])
+            rows = mask_indices(keep, n)
+            pts, normals = pts[rows], normals[rows]
+        with trace.span("map.evict"):
+            if n > map_capacity:
+                # Voxel-level eviction, not truncation: keep the capacity
+                # voxels nearest the current sensor position (a maintained
+                # local map), so new nearby geometry always survives.
+                warnings.warn("slam_mapper map at capacity (%d voxels at %.2g m); "
+                              "evicting voxels farthest from the sensor"
+                              % (map_capacity, map_voxel))
+                trace.count("map_evicted", n - map_capacity)
+                d = pts.to(torch.float64) - center
+                d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+                near = torch.topk(d2, map_capacity, largest=False, sorted=False).indices
+                rows = torch.sort(near).values
+                pts, normals = pts[rows], normals[rows]
+        return pts, normals, host[:16].numpy().reshape(4, 4)
 
-    def as_target(map_pts, map_normals, like):
-        kw = {"dtype": like.dtype, "device": like.device}
-        n = len(map_pts)
-        normals = trace.to_device(map_normals, like)
-        return Cloud(vps=torch.zeros((n, 3), **kw), dirs=normals,
-                     depth=torch.zeros(n, **kw),
-                     valid=torch.ones(n, dtype=torch.bool, device=like.device),
-                     points=trace.to_device(map_pts, like), normals=normals)
-
-    def scan_arrays(cloud, T):
-        posed = _posed(cloud, T)
-        keep = trace.to_host(posed.valid).numpy()
-        return (trace.to_host(posed.points).numpy()[keep],
-                trace.to_host(posed.normals).numpy()[keep])
-
+    like = clouds[0].depth
     est = [np.asarray(init_poses[0], np.float64)]
-    map_pts, map_normals = merge(np.zeros((0, 3)), np.zeros((0, 3)),
-                                 *scan_arrays(clouds[0], est[0]), est[0][:3, 3])
+    empty = like.new_zeros((0, 3))
+    map_pts, map_normals, _ = merge(
+        empty, empty, clouds[0], trace.to_device(est[0], like),
+        trace.to_device(est[0][:3, 3], dtype=torch.float64, device=like.device))
     for i in range(1, len(clouds)):
         with trace.span("slam.scan", scan=i):
             with trace.span("slam.prior"):
                 prior = est[-1] @ _increment(init_poses[i - 1], init_poses[i])
-                target = as_target(map_pts, map_normals, clouds[i].depth)
+            with trace.span("map.target"):
+                target = _map_target(map_pts, map_normals)
+                trace.count("map_voxels", map_pts.shape[0])
             T, _ = icp_align(clouds[i], target, T0=prior, n_iters=n_iters,
                              inlier_ratio=inlier_ratio, plain=plain)
-            est.append(trace.to_host(T).numpy().astype(np.float64))
-            map_pts, map_normals = merge(map_pts, map_normals, *scan_arrays(clouds[i], est[-1]),
-                                         est[-1][:3, 3])
+            map_pts, map_normals, T_host = merge(map_pts, map_normals, clouds[i], T,
+                                                 T[:3, 3].to(torch.float64))
+            est.append(T_host)
+    if return_map:
+        return np.stack(est), (map_pts, map_normals)
     return np.stack(est)
 
 

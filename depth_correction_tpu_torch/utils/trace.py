@@ -20,11 +20,17 @@ test can make every other synchronisation an error.
 
 Spans (``PERF.md`` lists the metric that reads each): ``slam.scan`` ⊃
 ``slam.prior``, ``icp.search``, ``icp.gate``, ``icp.solve`` (SLAM; on the
-card the last two hold X6's launcher spans ``x6.icp_gate``, ``x6.icp_solve``);
+card the last two hold X6's launcher spans ``x6.icp_gate``, ``x6.icp_solve``),
+and in the mapper ``map.target``, ``map.merge`` (⊃ the scan's one
+``copy.d2h``), ``map.evict``;
 ``fit.step`` ⊃ ``step.forward``, ``step.backward``, ``step.val``,
 ``step.optim``, ``step.after`` (training); ``prep.<part>`` (prep);
 ``node.scan`` ⊃ ``node.correct`` (the online corrector); one span a kernel
 launcher (``x3.knn``, ``x1.slab``, ...); ``copy.h2d``, ``copy.d2h``.
+
+Counts besides the syncs (:func:`count`, while tracing): ``map_voxels``, the
+mapper's map rows a registration, summed; ``map_evicted``, the rows its
+evictions dropped; ``dropped`` (below).
 """
 from __future__ import annotations
 
@@ -35,12 +41,12 @@ from collections import defaultdict
 import torch
 from torch.autograd import profiler as _profiler
 
-__all__ = ["COUNTS", "MAX_RECORDS", "idle_by_span", "records", "recording", "reset", "self_ms",
-           "span", "to_device", "to_host"]
+__all__ = ["COUNTS", "MAX_RECORDS", "count", "idle_by_span", "records", "recording", "reset",
+           "self_ms", "span", "to_device", "to_host"]
 
 # Records past this many are counted in COUNTS["dropped"], not kept.
 MAX_RECORDS = 1_000_000
-COUNTS = {"host_syncs": 0, "dropped": 0}
+COUNTS = {"host_syncs": 0, "dropped": 0, "map_voxels": 0, "map_evicted": 0}
 
 _RECORDS: list = []  # [name, start_ns, end_ns, parent, attrs]; end_ns None while open
 # The open spans' indices. One stack for the process: a backward's launches
@@ -80,6 +86,12 @@ class _Span:
         if self.fn is not None:
             self.fn.__exit__(*exc)
         return False
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to ``COUNTS[name]`` while tracing is on."""
+    if _RECORDING or _profiler._is_profiler_enabled:
+        COUNTS[name] += n
 
 
 def span(name: str, **attrs):

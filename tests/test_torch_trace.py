@@ -25,6 +25,8 @@ from depth_correction_tpu_torch.utils import trace
 
 SCENE = "open_box/n_4_size_6_6_3_height_1_density_50"
 SLAM_CHILDREN = {"slam.prior", "copy.h2d", "icp.search", "icp.gate", "icp.solve", "copy.d2h"}
+# The mapper's scan reads T back inside its merge, with the merge's count.
+MAPPER_CHILDREN = SLAM_CHILDREN - {"copy.d2h"} | {"map.target", "map.merge", "map.evict"}
 
 
 @pytest.fixture(autouse=True)
@@ -51,7 +53,9 @@ def test_off_records_nothing_and_shares_one_context():
     with a:
         trace.to_host(torch.ones(2))
         trace.to_device(np.ones(2), dtype=torch.float64, device="cpu")
-    assert trace.records() == [] and trace.COUNTS == {"host_syncs": 0, "dropped": 0}
+        trace.count("map_voxels", 5)
+    assert trace.records() == [] and trace.COUNTS == {"host_syncs": 0, "dropped": 0,
+                                                      "map_voxels": 0, "map_evicted": 0}
 
 
 def test_nesting_parents_and_self_time_on_a_fake_clock(monkeypatch):
@@ -163,7 +167,7 @@ def test_slam_records_a_scan_span_a_registration(box, pipeline):
     assert [recs[i][4] for i in scans] == [{"scan": s} for s in range(1, len(clouds))]
     for i in scans:
         kids = [r[0] for r in recs if r[3] == i]
-        assert set(kids) == SLAM_CHILDREN
+        assert set(kids) == (MAPPER_CHILDREN if pipeline == "slam_mapper" else SLAM_CHILDREN)
         for name in ("icp.search", "icp.gate", "icp.solve"):
             assert kids.count(name) == n_iters
     assert trace.COUNTS["host_syncs"] == 0  # CPU tensors: no copy crosses
