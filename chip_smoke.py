@@ -211,9 +211,13 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    zeroed: X3 and X6 exactly 8 launches each a registered scan and no
    other kernel;
    slam_odometry_ms_per_scan and slam_mapper_ms_per_scan, and one profiled
-   registration of each (device-busy share); X3 in the mapper's last
-   (largest) registration timed against its all-pairs bound, with the
-   map's size; X6 on that registration's first step against its plain
+   registration of each (device-busy share); X3 (its nearest search) in
+   the mapper's last (largest) registration and at a street-sized map
+   (benchmark/street.py's scan 24 against its scans 0-23 merged at 0.1 m,
+   ~115k against ~446k rows): events, device time, the plain twin's time
+   and the tiles its warps read (the kernel's tally) as a share of all,
+   against the all-pairs and bytes bounds, the keys bit for bit X3's first
+   version's; X6 on that registration's first step against its plain
    twin in float32 and float64 (the threshold bit for bit the float32
    twin's, the inliers both twins', T within 2e-6 of the float64 twin's),
    timed against its bound. Both pipelines again on the same clouds and priors in
@@ -3321,11 +3325,19 @@ def mean_errors(gt, est) -> tuple:
     return float(t.mean()), float(a.mean())
 
 
-def x3_k1_entry(points, query, valid, card: str) -> dict:
-    """X3 at k = 1 with no radius on one call's inputs: events and the
-    profiler's kernel time, against the all-pairs bound (every query against
-    every valid point)."""
-    from depth_correction_tpu_torch.ops import knn
+def x3_k1_entry(points, query, valid, card: str, first_version: bool = False) -> dict:
+    """X3 at k = 1 with no radius on one call's inputs (its nearest search):
+    events and the profiler's kernel time, the plain twin's events, and the
+    tiles each warp read (the kernel's tally) over all (warp, tile) pairs,
+    against the all-pairs bound (every query against every valid point)
+    and the bytes bound (points, queries and results once). With
+    ``first_version``, the keys are held bit for bit to X3's first version
+    (knn_brute_v1.cu), which is timed too."""
+    import math
+
+    import torch
+
+    from depth_correction_tpu_torch.ops import _kernels, knn
 
     def call():
         return knn.nearest_neighbors(points, query, 1, None, valid)
@@ -3333,8 +3345,56 @@ def x3_k1_entry(points, query, valid, card: str) -> dict:
     n, q = points.shape[0], query.shape[0]
     nv = int(valid.sum())
     b = bound(n * 13 + q * 12 + q * 8, {"fp32": PAIR_OPS * q * nv})
-    return {"points": n, "queries": q, "valid_points": nv, "ms": cuda_ms(call, reps=5, warmup=1),
-            "kernel_ms": kernel_ms(call, DEVICE, 3), "bound_ms": b[0], "bound_by": b[1]}
+    tally = torch.zeros(((q + 31) // 32,), dtype=torch.int32, device=points.device)
+    before = _kernels.KNN_NEAREST_LAUNCHES
+    d2, idx = _kernels.launch_knn_brute(query.contiguous(), None, points.contiguous(), valid,
+                                        math.inf, 1, tally=tally)
+    if _kernels.KNN_NEAREST_LAUNCHES != before + 1:
+        raise RuntimeError("X3 k = 1 did not take its nearest search")
+    n_tiles = -(-n // 128)
+    out = {"points": n, "queries": q, "valid_points": nv, "ms": cuda_ms(call, reps=5, warmup=1),
+           "kernel_ms": kernel_ms(call, DEVICE, 3), "bound_ms": b[0], "bound_by": b[1],
+           "bytes_bound_ms": (n * 13 + q * 12 + q * 8) / HBM_BYTES_PER_S * 1e3,
+           "tiles_per_warp": float(tally.double().mean()),
+           "pair_share": float(tally.double().sum()) / (tally.numel() * n_tiles),
+           "plain_ms": cuda_ms(lambda: knn.nearest_neighbors(points, query, 1, None, valid,
+                                                             plain=True), reps=1, warmup=0)}
+    if first_version:
+        v1_d2, v1_idx = knn.knn_brute_v1(points, query, 1, None, valid)
+        if not (torch.equal(idx, v1_idx) and torch.equal(d2.view(torch.int32),
+                                                         v1_d2.view(torch.int32))):
+            raise RuntimeError("X3's nearest search differs from its first version")
+        out["v1_ms"] = cuda_ms(lambda: knn.knn_brute_v1(points, query, 1, None, valid), reps=2,
+                               warmup=1)
+    return out
+
+
+def street_map_entry(card: str) -> dict:
+    """X3 k = 1 at a street-sized map: box_seq50's scan 24 (~115k queries)
+    against its scans 0-23 merged at 0.1 m voxels (the first point of a
+    voxel kept, ~446k rows: slam_mapper's map before it fills), in the
+    world frame at ground truth, from the benchmark's street."""
+    import numpy as np
+    import torch
+
+    from benchmark.street import street
+    from depth_correction_tpu_torch.ops.filters import grid_first_mask
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmark", "configs",
+                           "box_seq50.json")) as f:
+        scene = json.load(f)["scene"]
+    scans = street(scene, 2 ** 32 + 977, DEVICE, ids=range(25))
+
+    def world(scan):
+        xyz, T = scan
+        p = np.stack([xyz["x"], xyz["y"], xyz["z"]], 1) @ T[:3, :3].T + T[:3, 3]
+        return torch.as_tensor(p, dtype=torch.float32, device=DEVICE)
+
+    pts = torch.cat([world(x) for x in scans[:24]])
+    ones = torch.ones(len(pts), dtype=torch.bool, device=DEVICE)
+    keep, bad = grid_first_mask(pts, 0.1, ones)
+    pts = pts[keep].contiguous()
+    return x3_k1_entry(pts, world(scans[24]), ones[:len(pts)], card, first_version=True)
 
 
 # X6's float operations an inlier: r (3 subtractions, 3 products, 2 sums)
@@ -3521,11 +3581,16 @@ def phase_slam(card: str, seq, cfg, model):
     from depth_correction_tpu_torch.ops.se3 import transform_points
 
     last = x3_k1_entry(tgt.get_points(), transform_points(torch_tensor(T0, src.depth),
-                                                          src.get_points()), tgt.valid, card)
-    log("slam: the mapper's last registration: map of %d points, %d queries; X3 k = 1 %.4f ms "
-        "(kernel %.4f), all-pairs bound %.4f ms (%s) (%s)"
-        % (last["points"], last["queries"], last["ms"], last["kernel_ms"], last["bound_ms"],
-           last["bound_by"], card))
+                                                          src.get_points()), tgt.valid, card,
+                       first_version=True)
+    street = street_map_entry(card)
+    for label, e in (("the mapper's last registration", last), ("a street-sized map", street)):
+        log("slam: X3 k = 1 at %s: map of %d points, %d queries; %.4f ms (kernel %.4f; first "
+            "version %.4f; plain %.1f), all-pairs bound %.4f ms (%s), bytes bound %.4f ms; "
+            "%.2f tiles a warp, pair share %.5f (%s)"
+            % (label, e["points"], e["queries"], e["ms"], e["kernel_ms"], e["v1_ms"],
+               e["plain_ms"], e["bound_ms"], e["bound_by"], e["bytes_bound_ms"],
+               e["tiles_per_warp"], e["pair_share"], card))
     x6 = x6_entry(src, tgt, T0, card)
 
     # float64 on the plain path: the same clouds and priors.
@@ -3595,7 +3660,8 @@ def phase_slam(card: str, seq, cfg, model):
     return {"odometry_ms": runs["odometry"]["ms"], "mapper_ms": runs["mapper"]["ms"],
             "launches": sum(r["launches"]["knn"] for r in runs.values()),
             "x6_launches": sum(r["launches"]["icp"] for r in runs.values()),
-            "profiles": profiles, "last": last, "x6": x6, "diffs": diffs, "prior_t": prior_t,
+            "profiles": profiles, "last": last, "street": street, "x6": x6, "diffs": diffs,
+            "prior_t": prior_t,
             "mapper_t": mapper_t, "odometry_t": mean_errors(gt, runs["odometry"]["est"])[0],
             "e2e_s": e2e_s}
 
@@ -4808,7 +4874,8 @@ def main() -> int:
          "bound_all_pairs_ms": small["x3"]["bound_all_pairs"][0], "library_ms": None,
          "launches_default": default["launches"]["knn"],
          "launches_icp_eval": icp["x3_launches"], "launches_slam": slam["launches"],
-         "slam_mapper_last": slam["last"], "mapping_accuracy": analysis["x3_map"],
+         "slam_mapper_last": slam["last"], "slam_street_map": slam["street"],
+         "mapping_accuracy": analysis["x3_map"],
          "inputs": {"small_scan": x3_summary(small["x3"]),
                     "shadow_dirs": dict(x3_summary(shadow), dropped=shadow["dropped"]),
                     "default_global": x3_summary(default["global"]),

@@ -29,7 +29,8 @@
 // against every point; the redesign cuts both.
 //
 // Design, in launches on the caller's stream:
-// 1. Order (finite radius only; without one nothing is ordered or culled).
+// 1. Order (finite radius; step 4 orders the nearest search its own way;
+//    otherwise nothing is ordered or culled).
 //    knn_bounds_kernel takes the box of the rows keyed (a part per block),
 //    knn_keys_kernel gives each row the Morton key of its cell (side
 //    max(r, extent / 128), 7 bits an axis: with the invalid rows' key the
@@ -95,6 +96,59 @@
 //      the warp writes it out).
 //    - Counts add up the compares.
 //    The warp writes each query's row of the tables coalesced.
+// 4. The nearest search (k = 1, r2 = inf: SLAM's ICP, eval_icp, the ICP
+//    loss, mapping_accuracy) takes its bound from the data. Without a
+//    radius nothing bounds the top-k's search but the list's own last key,
+//    so the radius cull above has nothing to cull by; this body gives the
+//    same keys, min (d2, index) over the valid points, reading a few tiles.
+//    - Order: knn_bounds_kernel takes the valid points' box; the points
+//      and the queries are both keyed on that box's grid (side extent /
+//      128, no radius floor; a query outside the box falls in an edge
+//      cell), so a query's key says where it falls in the point order. An
+//      invalid row, or one with a NaN coordinate (no neighbour, and a query
+//      that finds none), takes kInvalidKey. One stable sort orders both
+//      sides, a query's key flagged above the key bits (one block up to
+//      kOrderMax rows, else CUB's device sort: one call's launches where
+//      two sorts took twice as many), and the sorted keys are kept: a
+//      tile's first key is the key of its first point.
+//    - Seed: each active query finds the tile where its key falls among
+//      the tiles' first keys (a binary search), and the warp reads the
+//      union of those tiles and one on either side of each (its queries are
+//      consecutive in the order, so mostly three or four tiles); each lane
+//      then holds its query's best key (d2, index) in registers. Seeding
+//      from the warp's median query alone left the lanes past a jump of
+//      the Morton curve with limits of metres, and their warps walked
+//      most of a street map's tiles.
+//    - Cull: the warp walks the tile boxes in rounds of kChunk tiles as
+//      step 3 does, with the largest limit (best d2) of its active lanes in
+//      place of r2 for the warp's box and each lane's own limit for the
+//      chunk ballot, both as they stand at the round's start (limits only
+//      fall). A tile or chunk is skipped only when its box distance is
+//      strictly greater than the limit, or when its box is empty: a point
+//      at exactly the limit with a lower index may still win. The seed's
+//      tiles (kept in shared memory, in the place of the top-k's lists)
+//      are not read again.
+//    - Sweeps: a query whose key falls past a jump of the Morton curve
+//      seeds from points metres away while its nearest point lies in the
+//      next cell, and one such limit made its warp read every chunk within
+//      metres (40-70 times a typical warp's work in SLAM's slowest calls,
+//      which took 0.8-1.0 ms against ~0.2). So a warp
+//      whose largest limit lies beyond kSweepCells cells walks in sweeps:
+//      the first caps each limit at kReachCells cells, each later one at
+//      kGrowth times the squared reach before it, the last (or the one that
+//      caps nothing) at the limit itself. Such a warp keeps a bitmap of the
+//      chunks it has read (global scratch, 4 bits a tile), and no chunk is
+//      read twice: its every query was tested on it. The cell side comes
+//      from the order's kernel. Other warps walk once, as above. The walk
+//      is compiled once (on a street map where no warp sweeps, the search
+//      took 0.219 ms with a second copy for the sweeps, 0.201 with one,
+//      0.177 with no sweeps; H100 80GB HBM3, 700 W); a lower cut a query
+//      in place of the bitmap read again the chunks one query's cap had
+//      reached for another.
+//    The box distance is at most the d2 of every pair it covers (step 3),
+//    so no key below a limit is ever skipped and the result is the
+//    all-pairs search's, bit for bit. An optional tally counts the tiles
+//    each warp read (tests and chip_smoke.py; no path passes one).
 // Shared memory per block: the ring of tiles and its mbarriers, the kept
 // list, the queries and (top-k) 33 * k keys. A k whose lists do not fit
 // (dc_knn_brute_max_k gives the limit, 839 on an H100) is refused here;
@@ -110,6 +164,7 @@
 
 #include <algorithm>
 #include <cstdint>
+#include <limits>
 #include <unordered_map>
 
 #include <cub/block/block_radix_sort.cuh>
@@ -133,6 +188,16 @@ constexpr int kOrderThreads = 512;  // threads of the one-block cell order
 constexpr int kOrderItems = 32;     // rows per thread there
 constexpr int kOrderMax = kOrderThreads * kOrderItems;  // rows one block orders (16,384)
 constexpr int kOrderRadixBits = 6;  // bits per pass of its sort (4 passes)
+constexpr int kSeedMax = 3 * 32;    // the nearest search's seed tiles, at most, per warp
+// The nearest search's sweeps, for a warp whose largest limit lies beyond
+// kSweepCells cells: the first reaches kReachCells cells (a squared reach
+// of kReachCells^2 cell sides squared), each later one kGrowth times the
+// squared reach of the one before, and sweep kSweeps - 1 takes every
+// query's own limit.
+constexpr float kSweepCells = 16.f;
+constexpr float kReachCells = 4.f;
+constexpr float kGrowth = 4.f;
+constexpr int kSweeps = 4;
 constexpr size_t kFixedSmem = kStages * kTile * sizeof(float4) +
                               kStages * sizeof(unsigned long long) + kChunk * sizeof(int) +
                               32 * sizeof(float4);
@@ -205,17 +270,29 @@ __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned pari
   } while (!done);
 }
 
+// The cell side over the box [lo, hi] (box[0..2], box[3..5]): max(side_r,
+// extent / 128), extent the box's largest side.
+__device__ __forceinline__ float grid_side(const float* box, float side_r) {
+  const float ext = fmaxf(fmaxf(__fsub_rn(box[3], box[0]), __fsub_rn(box[4], box[1])),
+                          __fsub_rn(box[5], box[2]));
+  return fmaxf(side_r, __fdiv_rn(ext, static_cast<float>(1 << kCellBits)));
+}
+
 // Row i's cell key over the box [lo, hi] (box[0..2], box[3..5]): the
 // Morton key of floor((x - lo) / side) per axis, clamped to [0, 127], with
 // side = max(side_r, extent / 128) (extent: the box's largest side);
-// kInvalidKey for a row that valid (or null: none) marks invalid.
+// kInvalidKey for a row that valid (or null: none) marks invalid and, for
+// the nearest search (NEAREST), for a row with a NaN coordinate.
+template <bool NEAREST = false>
 __device__ __forceinline__ unsigned cell_key(const float* __restrict__ pts,
                                              const unsigned char* __restrict__ valid, int i,
                                              const float* box, float side_r) {
   if (valid != nullptr && !valid[i]) return kInvalidKey;
-  const float ext = fmaxf(fmaxf(__fsub_rn(box[3], box[0]), __fsub_rn(box[4], box[1])),
-                          __fsub_rn(box[5], box[2]));
-  const float side = fmaxf(side_r, __fdiv_rn(ext, static_cast<float>(1 << kCellBits)));
+  if constexpr (NEAREST) {
+    if (isnan(pts[3ll * i]) || isnan(pts[3ll * i + 1]) || isnan(pts[3ll * i + 2]))
+      return kInvalidKey;
+  }
+  const float side = grid_side(box, side_r);
   unsigned key = 0;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -263,6 +340,17 @@ __global__ void __launch_bounds__(256) knn_bounds_kernel(const float* __restrict
   }
 }
 
+// The box of the nb blocks' parts (knn_bounds_kernel) into box[6], by the
+// first six threads (the caller syncs).
+__device__ __forceinline__ void parts_box(const float* __restrict__ part, int nb, float* box) {
+  if (threadIdx.x < 6) {
+    const int a = threadIdx.x;
+    float v = a < 3 ? pinf() : -pinf();
+    for (int j = 0; j < nb; ++j) v = a < 3 ? fminf(v, part[6 * j + a]) : fmaxf(v, part[6 * j + a]);
+    box[a] = v;
+  }
+}
+
 // Cell keys (cell_key) over the box of the nb blocks' parts; vals[i] = i.
 __global__ void __launch_bounds__(256) knn_keys_kernel(const float* __restrict__ pts,
                                                        const unsigned char* __restrict__ valid,
@@ -271,12 +359,7 @@ __global__ void __launch_bounds__(256) knn_keys_kernel(const float* __restrict__
                                                        unsigned* __restrict__ keys,
                                                        int* __restrict__ vals) {
   __shared__ float box[6];
-  if (threadIdx.x < 6) {
-    const int a = threadIdx.x;
-    float v = a < 3 ? pinf() : -pinf();
-    for (int j = 0; j < nb; ++j) v = a < 3 ? fminf(v, part[6 * j + a]) : fmaxf(v, part[6 * j + a]);
-    box[a] = v;
-  }
+  parts_box(part, nb, box);
   __syncthreads();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
@@ -344,6 +427,73 @@ __global__ void __launch_bounds__(kOrderThreads) knn_order_block_kernel(
   for (int j = 0; j < kOrderItems; ++j) {
     const int at = threadIdx.x * kOrderItems + j;
     if (at < n) order[at] = vals[j];
+  }
+}
+
+// The nearest search orders points and queries with one sort: row i of
+// the joined rows is point i (i < n) or query i - n, keyed on the points'
+// box, a query with kQueryFlag set. A stable sort then puts the points
+// first, in key order, then the queries, in key order: the orders that
+// two sorts would give, in one.
+constexpr unsigned kQueryFlag = 1u << kKeyBits;
+constexpr int kJoinedBits = kKeyBits + 1;
+
+__device__ __forceinline__ unsigned joined_key(const float* __restrict__ pts,
+                                               const unsigned char* __restrict__ p_valid, int n,
+                                               const float* __restrict__ q_pts,
+                                               const unsigned char* __restrict__ q_valid, int i,
+                                               const float* box) {
+  return i < n ? cell_key<true>(pts, p_valid, i, box, 0.f)
+               : kQueryFlag | cell_key<true>(q_pts, q_valid, i - n, box, 0.f);
+}
+
+// The joined keys of the n + nq rows and their values: the row's index on
+// its own side; block 0 writes the grid's cell side to *side.
+__global__ void __launch_bounds__(256) knn_nearest_keys_kernel(
+    const float* __restrict__ pts, const unsigned char* __restrict__ p_valid, int n,
+    const float* __restrict__ q_pts, const unsigned char* __restrict__ q_valid, int nq,
+    const float* __restrict__ part, int nb, unsigned* __restrict__ keys,
+    int* __restrict__ vals, float* __restrict__ side) {
+  __shared__ float box[6];
+  parts_box(part, nb, box);
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x == 0) *side = grid_side(box, 0.f);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n + nq) return;
+  vals[i] = i < n ? i : i - n;
+  keys[i] = joined_key(pts, p_valid, n, q_pts, q_valid, i, box);
+}
+
+// The joined order of n + nq <= kOrderMax rows in one block and one launch
+// (as knn_order_block_kernel): order[0, n) the points', order[n, n + nq)
+// the queries', the sorted keys and the cell side.
+__global__ void __launch_bounds__(kOrderThreads) knn_nearest_order_block_kernel(
+    const float* __restrict__ pts, const unsigned char* __restrict__ p_valid, int n,
+    const float* __restrict__ q_pts, const unsigned char* __restrict__ q_valid, int nq,
+    const float* __restrict__ part, int nb, int* __restrict__ order,
+    unsigned* __restrict__ keys_out, float* __restrict__ side) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ float box[6];
+  parts_box(part, nb, box);
+  __syncthreads();
+  if (threadIdx.x == 0) *side = grid_side(box, 0.f);
+  unsigned keys[kOrderItems];
+  int vals[kOrderItems];
+#pragma unroll
+  for (int j = 0; j < kOrderItems; ++j) {
+    const int i = threadIdx.x * kOrderItems + j;
+    vals[j] = i < n ? i : i - n;
+    keys[j] = i < n + nq ? joined_key(pts, p_valid, n, q_pts, q_valid, i, box)
+                         : (1u << kJoinedBits) - 1;
+  }
+  OrderSort(*reinterpret_cast<OrderSort::TempStorage*>(smem)).Sort(keys, vals, 0, kJoinedBits);
+#pragma unroll
+  for (int j = 0; j < kOrderItems; ++j) {
+    const int at = threadIdx.x * kOrderItems + j;
+    if (at < n + nq) {
+      order[at] = vals[j];
+      keys_out[at] = keys[j];
+    }
   }
 }
 
@@ -439,7 +589,49 @@ __device__ __forceinline__ void add_key(unsigned long long* list, int k, int& m,
   lim = __uint_as_float(static_cast<unsigned>(thr >> 32));
 }
 
-template <bool COUNTS>
+// The nearest search's seed (NEAREST): the tile where `key` falls among
+// the tiles' first keys (p_keys, the points' sorted keys, at every kTile-th
+// row): the last tile whose first key is at most key, or the first tile.
+__device__ __forceinline__ int seed_tile(const unsigned* __restrict__ p_keys, int n_tiles,
+                                         unsigned key) {
+  int lo = 0, hi = n_tiles;
+  while (hi - lo > 1) {
+    const int mid = (lo + hi) / 2;
+    if (p_keys[static_cast<size_t>(mid) * kTile] <= key)
+      lo = mid;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+// Whether tile t is among the n ascending seed tiles.
+__device__ __forceinline__ bool is_seed(const int* seeds, int n, int t) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (seeds[mid] < t)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo < n && seeds[lo] == t;
+}
+
+// Whether a box (lo, hi) holds a point: fminf / fmaxf leave NaN
+// coordinates out, so a chunk whose points are invalid or have a NaN
+// coordinate has an empty box along some axis, and none of its points can
+// be a neighbour.
+__device__ __forceinline__ bool has_points(const float4& lo, const float4& hi) {
+  return lo.x <= hi.x && lo.y <= hi.y && lo.z <= hi.z;
+}
+
+// NEAREST (k = 1, r2 = inf): the nearest search of design step 4. The
+// queries come in their order with their sorted keys (q_keys); p_keys are
+// the points' sorted keys; tally (or null) takes the tiles each warp read;
+// *side is the grid's cell side; done holds done_words words of scratch a
+// warp, for a sweeping warp's bitmap of the chunks it read.
+template <bool COUNTS, bool NEAREST = false>
 __global__ void __launch_bounds__(32) knn_tiles_kernel(
     const float* __restrict__ q_pts,            // (Q, 3)
     const unsigned char* __restrict__ q_valid,  // (Q,) bool, or null: every query active
@@ -450,7 +642,13 @@ __global__ void __launch_bounds__(32) knn_tiles_kernel(
     const float4* __restrict__ cboxes,          // (n_tiles * kChunks, 2) chunk boxes
     int n_tiles, float r2, int cull, int k,
     int* __restrict__ out_idx,                  // (Q, k), or (Q,) counts
-    float* __restrict__ out_d2) {               // (Q, k)
+    float* __restrict__ out_d2,                 // (Q, k)
+    const unsigned* __restrict__ q_keys = nullptr,  // NEAREST: (Q,) in the queries' order
+    const unsigned* __restrict__ p_keys = nullptr,  // NEAREST: (N,) in the points' order
+    int* __restrict__ tally = nullptr,              // NEAREST: (blocks,), or null
+    const float* __restrict__ side = nullptr,       // NEAREST: the cell side
+    unsigned* __restrict__ done = nullptr,          // NEAREST: (blocks, done_words)
+    int done_words = 0) {
   extern __shared__ __align__(128) unsigned char smem[];
   float4* buf = reinterpret_cast<float4*>(smem);
   unsigned long long* bar = reinterpret_cast<unsigned long long*>(buf + kStages * kTile);
@@ -460,16 +658,24 @@ __global__ void __launch_bounds__(32) knn_tiles_kernel(
   const int lane = threadIdx.x;
 
   // The lane's query: its original row (or -1 past the last), and its
-  // coordinates if it is active (NaN otherwise: it finds nothing).
+  // coordinates if it is active (NaN otherwise: it finds nothing). The
+  // nearest search's active queries are those with a valid key, a prefix
+  // of the warp.
   const long long slot = static_cast<long long>(blockIdx.x) * 32 + lane;
   int row = -1;
   bool act = false;
+  unsigned qkey = kInvalidKey;
   float qx = qnan(), qy = qnan(), qz = qnan();
   if (slot < nq) {
     const long long qi = q_order != nullptr ? q_order[slot] : slot;
     row = static_cast<int>(qi);
-    if (q_valid == nullptr || q_valid[qi]) {
-      act = true;
+    if constexpr (NEAREST) {
+      qkey = q_keys[slot] & kInvalidKey;  // without kQueryFlag
+      act = qkey != kInvalidKey;
+    } else {
+      act = q_valid == nullptr || q_valid[qi];
+    }
+    if (act) {
       qx = q_pts[3 * qi];
       qy = q_pts[3 * qi + 1];
       qz = q_pts[3 * qi + 2];
@@ -487,13 +693,15 @@ __global__ void __launch_bounds__(32) knn_tiles_kernel(
     }
   }
   // The queries for the chunk test; an inactive one at +inf, where every
-  // box is infinitely far.
+  // box is infinitely far. The nearest search keeps each query's limit in
+  // w (set at each round).
   qbuf[lane] = act ? make_float4(qx, qy, qz, 0.f) : make_float4(pinf(), pinf(), pinf(), 0.f);
 
   int count = 0;
   int m = 0;                       // keys held
   unsigned long long thr = ~0ull;  // the full list's last key (~0 until it is full)
   float lim = r2;                  // r2, then the full list's last d2
+  unsigned long long best = ~0ull;  // NEAREST: the lane's best key (~0: none yet)
   unsigned long long* list = lists + lane;  // element e at list[e * kListStride]
   if (lane == 0) {
     for (int b = 0; b < kStages; ++b) mbar_init(&bar[b]);
@@ -501,74 +709,12 @@ __global__ void __launch_bounds__(32) knn_tiles_kernel(
   }
   __syncwarp();
 
-  // A warp whose box is empty (no active query with numbers for
-  // coordinates) has no member in any tile.
-  const bool empty = !(lo[0] <= hi[0] && lo[1] <= hi[1] && lo[2] <= hi[2]);
-  const int tiles = cull && empty ? 0 : n_tiles;
   unsigned it = 0;  // tiles staged so far: buffer it % kStages, parity (it / kStages) & 1
-  for (int c0 = 0; c0 < tiles; c0 += kChunk) {
-    const int cn = min(kChunk, tiles - c0);
-    // Step 1: the warp's box against the tile boxes, 4 tiles a lane per
-    // pass (their loads in flight together); the tiles that pass, in order.
-    int nc = 0;
-    for (int t0 = 0; t0 < cn; t0 += 4 * 32) {
-      float4 blo[4], bhi[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int t = t0 + 32 * u + lane;
-        if (cull && t < cn) {
-          blo[u] = tboxes[2 * (c0 + t)];
-          bhi[u] = tboxes[2 * (c0 + t) + 1];
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int t = t0 + 32 * u + lane;
-        const bool keep = t < cn && (!cull || box_d2(lo, hi, blo[u], bhi[u]) <= r2);
-        const unsigned ballot = __ballot_sync(kFull, keep);
-        if (keep) kept[nc + __popc(ballot & ((1u << lane) - 1u))] = c0 + t;
-        nc += __popc(ballot);
-      }
-    }
-    __syncwarp();
-    // Step 2: each chunk of those tiles against every active query of the
-    // warp (lane i takes chunk i: 8 tiles a pass); a tile stays with the
-    // mask of its chunks that some query may reach. The list is rewritten
-    // in place: a pass writes entries below those it has read.
-    int nk = 0;
-    for (int i0 = 0; i0 < kChunks * nc; i0 += 32) {
-      const int i = i0 + lane;
-      const int j = i0 / kChunks + lane;  // lanes < 8: their candidate tile
-      const int tj = lane < 32 / kChunks && j < nc ? kept[j] : 0;
-      bool need = i < kChunks * nc && !cull;
-      if (cull && i < kChunks * nc) {
-        const size_t cb = static_cast<size_t>(kept[i / kChunks]) * kChunks + i % kChunks;
-        const float4 clo = cboxes[2 * cb];
-        const float4 chi = cboxes[2 * cb + 1];
-        // The warp's box first: a chunk far from it is far from every query.
-        if (box_d2(lo, hi, clo, chi) <= r2) {
-          for (int s = 0; s < 32 && !need; s += 4) {
-#pragma unroll
-            for (int u = 0; u < 4; ++u) {
-              const float4 q = qbuf[s + u];
-              const float qa[3] = {q.x, q.y, q.z};
-              need |= box_d2(qa, qa, clo, chi) <= r2;
-            }
-          }
-        }
-      }
-      const unsigned bits = __ballot_sync(kFull, need);
-      const unsigned mask = lane < 32 / kChunks ? (bits >> (kChunks * lane)) & 0xfu : 0u;
-      const bool has = lane < 32 / kChunks && j < nc && mask != 0;
-      const unsigned hb = __ballot_sync(kFull, has);
-      __syncwarp();  // every lane has read this pass's entries of kept[]
-      if (has) kept[nk + __popc(hb & ((1u << lane) - 1u))] = tj | static_cast<int>(mask << 24);
-      nk += __popc(hb);
-      __syncwarp();
-    }
-    if (nk == 0) continue;
-    // A ring of kStages tiles: the first kStages kept tiles go in flight
-    // now, and each buffer is refilled once the warp is done with it.
+  // The kept tiles kept[0, nk) (tile | chunk mask << 24) through the ring
+  // of kStages buffers: the first kStages go in flight now, and each buffer
+  // is refilled once the warp is done with it; every lane tests its query
+  // against each point of the masked chunks.
+  auto read_tiles = [&](int nk) {
     if (lane == 0) {
       for (int j = 0; j < min(kStages, nk); ++j) {
         const unsigned g = it + j;
@@ -600,10 +746,18 @@ __global__ void __launch_bounds__(32) knn_tiles_kernel(
               const int u = __ffs(hits) - 1;
               hits &= hits - 1;
               const float4 p = chunk[j0 + u];
-              add_key(list, k, m, thr, lim,
-                      (static_cast<unsigned long long>(
-                           __float_as_uint(pair_d2(qx, qy, qz, p))) << 32) |
-                          static_cast<unsigned long long>(__float_as_uint(p.w)));
+              const float d2 = pair_d2(qx, qy, qz, p);
+              const unsigned long long key =
+                  (static_cast<unsigned long long>(__float_as_uint(d2)) << 32) |
+                  static_cast<unsigned long long>(__float_as_uint(p.w));
+              if constexpr (NEAREST) {
+                if (key < best) {
+                  best = key;
+                  lim = d2;
+                }
+              } else {
+                add_key(list, k, m, thr, lim, key);
+              }
             }
           }
         }
@@ -615,10 +769,177 @@ __global__ void __launch_bounds__(32) knn_tiles_kernel(
                   kTile * sizeof(float4), &bar[b]);
       }
     }
+  };
+
+  // A warp whose box is empty (no active query with numbers for
+  // coordinates) has no member in any tile.
+  const bool empty = !(lo[0] <= hi[0] && lo[1] <= hi[1] && lo[2] <= hi[2]);
+  const int tiles = cull && empty ? 0 : n_tiles;
+  // NEAREST: the seed's tiles, ascending (seeds[0, ns)), and the tiles read.
+  int* seeds = reinterpret_cast<int*>(lists);
+  int ns = 0, staged = 0;
+  if constexpr (NEAREST) {
+    lim = pinf();
+    if (tiles > 0) {
+      // Lane l's tiles [b, e] are those of [t - 1, t + 1] past the lanes
+      // before it: their tiles ascend with their keys, so the tiles before
+      // lane l's end at lane l - 1's last.
+      const int t = act ? seed_tile(p_keys, n_tiles, qkey) : 0;
+      const int e = min(t + 1, n_tiles - 1);
+      const int before = __shfl_up_sync(kFull, e, 1);
+      const int b = max(t - 1, lane > 0 ? before + 1 : 0);
+      const int c = act ? max(e - b + 1, 0) : 0;
+      int at = c;  // inclusive sum over the lanes
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(kFull, at, off);
+        if (lane >= off) at += v;
+      }
+      ns = __shfl_sync(kFull, at, 31);
+      for (int j = 0; j < c; ++j) {
+        seeds[at - c + j] = b + j;
+        kept[at - c + j] = (b + j) | static_cast<int>(0xfu << 24);
+      }
+      __syncwarp();
+      read_tiles(ns);
+      staged = ns;
+    }
+  }
+  // NEAREST: whether the warp walks in sweeps, and then its bitmap of the
+  // chunks it has read (4 bits a tile; see below).
+  [[maybe_unused]] bool sweeps = false;
+  [[maybe_unused]] unsigned* read =
+      done != nullptr ? done + static_cast<size_t>(blockIdx.x) * done_words : nullptr;
+  // The walk: rounds of kChunk tiles, each query's limit capped at
+  // cap_reach (NEAREST; inf: no cap); a sweeping warp skips the chunks it
+  // read in an earlier sweep and marks those it reads.
+  auto walk = [&](float cap_reach) {
+    for (int c0 = 0; c0 < tiles; c0 += kChunk) {
+      const int cn = min(kChunk, tiles - c0);
+      // The bound of this round: r2, or (NEAREST) the largest cap of the
+      // warp's active queries, and each one's own cap in qbuf[].w.
+      float reach = r2;
+      if constexpr (NEAREST) {
+        const float cap = fminf(lim, cap_reach);
+        reach = act ? cap : -pinf();
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          reach = fmaxf(reach, __shfl_xor_sync(kFull, reach, off));
+        qbuf[lane].w = act ? cap : -pinf();
+        __syncwarp();
+      }
+      // Step 1: the warp's box against the tile boxes, 4 tiles a lane per
+      // pass (their loads in flight together); the tiles that pass, in order.
+      int nc = 0;
+      for (int t0 = 0; t0 < cn; t0 += 4 * 32) {
+        float4 blo[4], bhi[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int t = t0 + 32 * u + lane;
+          if (cull && t < cn) {
+            blo[u] = tboxes[2 * (c0 + t)];
+            bhi[u] = tboxes[2 * (c0 + t) + 1];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int t = t0 + 32 * u + lane;
+          const bool keep = t < cn && (!cull || box_d2(lo, hi, blo[u], bhi[u]) <= reach);
+          const unsigned ballot = __ballot_sync(kFull, keep);
+          if (keep) kept[nc + __popc(ballot & ((1u << lane) - 1u))] = c0 + t;
+          nc += __popc(ballot);
+        }
+      }
+      __syncwarp();
+      // Step 2: each chunk of those tiles against every active query of the
+      // warp (lane i takes chunk i: 8 tiles a pass); a tile stays with the
+      // mask of its chunks that some query may reach. The list is rewritten
+      // in place: a pass writes entries below those it has read.
+      int nk = 0;
+      for (int i0 = 0; i0 < kChunks * nc; i0 += 32) {
+        const int i = i0 + lane;
+        const int j = i0 / kChunks + lane;  // lanes < 8: their candidate tile
+        const int tj = lane < 32 / kChunks && j < nc ? kept[j] : 0;
+        bool need = i < kChunks * nc && !cull;
+        if (cull && i < kChunks * nc) {
+          const size_t cb = static_cast<size_t>(kept[i / kChunks]) * kChunks + i % kChunks;
+          const float4 clo = cboxes[2 * cb];
+          const float4 chi = cboxes[2 * cb + 1];
+          // A chunk a sweeping warp has read (every query tested on it) is
+          // not read again.
+          const bool fresh =
+              !NEAREST || !sweeps ||
+              !((__ldcg(read + (cb >> 5)) >> (cb & 31u)) & 1u);  // bit cb of the bitmap
+          // The warp's box first: a chunk far from it is far from every query.
+          if ((!NEAREST || (fresh && has_points(clo, chi))) &&
+              box_d2(lo, hi, clo, chi) <= reach) {
+            for (int s = 0; s < 32 && !need; s += 4) {
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                const float4 q = qbuf[s + u];
+                const float qa[3] = {q.x, q.y, q.z};
+                const float d = box_d2(qa, qa, clo, chi);
+                need |= d <= (NEAREST ? q.w : r2);
+              }
+            }
+          }
+        }
+        const unsigned bits = __ballot_sync(kFull, need);
+        const unsigned mask = lane < 32 / kChunks ? (bits >> (kChunks * lane)) & 0xfu : 0u;
+        const bool has = lane < 32 / kChunks && j < nc && mask != 0 &&
+                         (!NEAREST || !is_seed(seeds, ns, tj));
+        const unsigned hb = __ballot_sync(kFull, has);
+        __syncwarp();  // every lane has read this pass's entries of kept[]
+        if (has) kept[nk + __popc(hb & ((1u << lane) - 1u))] = tj | static_cast<int>(mask << 24);
+        if (NEAREST && sweeps && has) atomicOr(read + (tj >> 3), mask << ((tj & 7) << 2));
+        nk += __popc(hb);
+        __syncwarp();
+      }
+      if (nk == 0) continue;
+      read_tiles(nk);
+      staged += nk;
+    }
+  };
+  if constexpr (NEAREST) {
+    // The sweeps (design step 4). A warp whose limits all lie within
+    // kSweepCells cells walks once, at its limits. Else sweep w caps each
+    // query's limit at the squared reach of kReachCells cells times
+    // kGrowth^w, and a sweep that caps no limit, or sweep kSweeps - 1,
+    // takes the limits themselves and is the last; the warp's bitmap keeps
+    // any chunk from being read twice.
+    auto most = [&]() {
+      float m = act ? lim : -pinf();
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+      return m;
+    };
+    const float s2 = __fmul_rn(*side, *side);
+    float cap_reach = __fmul_rn(s2, kReachCells * kReachCells);
+    sweeps = tiles > 0 && __fmul_rn(s2, kSweepCells * kSweepCells) < most();
+    if (sweeps) {
+      for (int i = lane; i < done_words; i += 32) read[i] = 0u;
+      __syncwarp();
+    }
+    // One call of the walk, so that it is compiled once.
+    bool last = !sweeps;
+    for (int sweep = 0;; ++sweep) {
+      walk(last ? pinf() : cap_reach);
+      if (last) break;
+      cap_reach = __fmul_rn(cap_reach, kGrowth);
+      last = sweep + 1 == kSweeps - 1 || cap_reach >= most();
+    }
+  } else {
+    walk(pinf());
   }
 
   if constexpr (COUNTS) {
     if (row >= 0) out_idx[row] = count;
+  } else if constexpr (NEAREST) {
+    if (row >= 0) {
+      out_idx[row] = best == ~0ull ? -1 : static_cast<int>(static_cast<unsigned>(best));
+      out_d2[row] = best == ~0ull ? pinf() : __uint_as_float(static_cast<unsigned>(best >> 32));
+    }
+    if (tally != nullptr && lane == 0) tally[blockIdx.x] = staged;
   } else {
     // A list that did not fill is ordered now: a short one (up to
     // kSortByLane keys) by its lane, an insertion sort whose dependent
@@ -680,20 +1001,22 @@ int bounds_blocks(int n) { return n <= 0 ? 1 : std::min((n + 1023) / 1024, 64); 
 
 size_t align256(size_t b) { return (b + 255) & ~static_cast<size_t>(255); }
 
-// The radix sort's temporary storage for n keys (cached per device and n:
-// CUB's size query does host work the launcher would repeat every call).
-size_t sort_temp(int n) {
+// The radix sort's temporary storage for n keys of `bits` bits (cached per
+// device, n and bits: CUB's size query does host work the launcher would
+// repeat every call).
+size_t sort_temp(int n, int bits = kKeyBits) {
   thread_local std::unordered_map<long long, size_t> cache;
   int device = 0;
   cudaGetDevice(&device);
-  const long long key = (static_cast<long long>(device) << 32) | static_cast<unsigned>(n);
+  const long long key = (static_cast<long long>(device) << 40) |
+                        (static_cast<long long>(bits) << 32) | static_cast<unsigned>(n);
   const auto hit = cache.find(key);
   if (hit != cache.end()) return hit->second;
   size_t temp = 0;
   cub::DeviceRadixSort::SortPairs(nullptr, temp, static_cast<const unsigned*>(nullptr),
                                   static_cast<unsigned*>(nullptr),
                                   static_cast<const int*>(nullptr), static_cast<int*>(nullptr),
-                                  n, 0, kKeyBits);
+                                  n, 0, bits);
   cache.emplace(key, temp);
   return temp;
 }
@@ -748,28 +1071,88 @@ cudaError_t cell_order(const float* pts, const unsigned char* valid, int n, floa
                                          kKeyBits, st);
 }
 
-template <bool COUNTS>
+// Scratch of nearest_order over n joined rows: keys in, values in, and the
+// radix sort's temporary storage.
+size_t nearest_order_scratch(int n) {
+  if (n <= kOrderMax) return 0;
+  return 2 * align256(static_cast<size_t>(n) * sizeof(int)) +
+         align256(sort_temp(n, kJoinedBits));
+}
+
+// The nearest search's order: the valid points' box (part, nb parts of
+// knn_bounds_kernel), then order (n + nq,) and the sorted joined keys
+// (n + nq,), points first; rows with kInvalidKey (invalid, or a NaN
+// coordinate) last on their side, equal keys in index order.
+cudaError_t nearest_order(const float* pts, const unsigned char* p_valid, int n,
+                          const float* q_pts, const unsigned char* q_valid, int nq,
+                          const float* part, int nb, unsigned char* scratch, int* order,
+                          unsigned* keys, float* side, cudaStream_t st) {
+  const int rows = n + nq;
+  if (rows <= kOrderMax) {
+    constexpr int smem = static_cast<int>(sizeof(OrderSort::TempStorage));
+    thread_local std::unordered_map<int, bool> opted;
+    int device = 0;
+    cudaError_t err = cudaGetDevice(&device);
+    if (err == cudaSuccess && !opted[device]) {
+      err = cudaFuncSetAttribute(knn_nearest_order_block_kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      opted[device] = err == cudaSuccess;
+    }
+    if (err != cudaSuccess) return err;
+    knn_nearest_order_block_kernel<<<1, kOrderThreads, smem, st>>>(pts, p_valid, n, q_pts,
+                                                                   q_valid, nq, part, nb, order,
+                                                                   keys, side);
+    return cudaGetLastError();
+  }
+  unsigned* keys_in = reinterpret_cast<unsigned*>(scratch);
+  scratch += align256(static_cast<size_t>(rows) * sizeof(int));
+  int* vals = reinterpret_cast<int*>(scratch);
+  scratch += align256(static_cast<size_t>(rows) * sizeof(int));
+  knn_nearest_keys_kernel<<<(rows + 255) / 256, 256, 0, st>>>(pts, p_valid, n, q_pts, q_valid,
+                                                              nq, part, nb, keys_in, vals, side);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  size_t temp = sort_temp(rows, kJoinedBits);
+  return cub::DeviceRadixSort::SortPairs(scratch, temp, keys_in, keys, vals, order, rows, 0,
+                                         kJoinedBits, st);
+}
+
+template <bool COUNTS, bool NEAREST = false>
 cudaError_t launch_tiles(int blocks, size_t smem, cudaStream_t st, const float* qp,
                          const unsigned char* qv, const int* qo, int nq, const float4* p4,
                          const float4* tb, const float4* cb, int n_tiles, float r2, int cull,
-                         int k, int* oi, float* od) {
+                         int k, int* oi, float* od, const unsigned* q_keys = nullptr,
+                         const unsigned* p_keys = nullptr, int* tally = nullptr,
+                         const float* side = nullptr, unsigned* done = nullptr,
+                         int done_words = 0) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        knn_tiles_kernel<COUNTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        knn_tiles_kernel<COUNTS, NEAREST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  knn_tiles_kernel<COUNTS><<<blocks, 32, smem, st>>>(qp, qv, qo, nq, p4, tb, cb, n_tiles, r2,
-                                                     cull, k, oi, od);
+  knn_tiles_kernel<COUNTS, NEAREST><<<blocks, 32, smem, st>>>(
+      qp, qv, qo, nq, p4, tb, cb, n_tiles, r2, cull, k, oi, od, q_keys, p_keys, tally, side,
+      done, done_words);
   return cudaGetLastError();
 }
 
+// How dc_knn_brute culls: not at all, by the radius, or by each query's
+// nearest distance so far (k = 1, no radius).
+enum Cull { kNoCull = 0, kRadius = 1, kNearest = 2 };
+
 // The scratch layout of dc_knn_brute: packed points, tile and chunk boxes,
-// and with the cull the points' order (and the queries', unless shared)
-// and the larger of the two orders' own scratch.
+// and with the radius cull the points' order (and the queries', unless
+// shared) and the larger of the two orders' own scratch; the nearest
+// search's joined order and sorted keys, the points' bounds and the cell
+// side, the sweeping warps' bitmaps and its sort's scratch.
 struct Layout {
-  size_t pts4, tboxes, cboxes, p_order, q_order, order_scratch, total;
+  size_t pts4, tboxes, cboxes, p_order, q_order, p_keys, q_keys, part, done, order_scratch,
+      total;
 };
+
+// Words of a sweeping warp's bitmap of read chunks (4 bits a tile).
+int done_words(int n_tiles) { return (n_tiles + 7) / 8; }
 
 Layout layout(int nq, int n, int cull, int share) {
   const size_t n_tiles = (static_cast<size_t>(n) + kTile - 1) / kTile;
@@ -781,8 +1164,8 @@ Layout layout(int nq, int n, int cull, int share) {
   at += align256(n_tiles * 2 * sizeof(float4));
   l.cboxes = at;
   at += align256(n_tiles * kChunks * 2 * sizeof(float4));
-  l.p_order = l.q_order = l.order_scratch = at;
-  if (cull) {
+  l.p_order = l.q_order = l.p_keys = l.q_keys = l.part = l.done = l.order_scratch = at;
+  if (cull == kRadius) {
     l.p_order = at;
     at += align256(static_cast<size_t>(n) * sizeof(int));
     l.q_order = l.p_order;
@@ -792,6 +1175,22 @@ Layout layout(int nq, int n, int cull, int share) {
     }
     l.order_scratch = at;
     at += std::max(order_scratch(n), share ? size_t{0} : order_scratch(nq));
+  } else if (cull == kNearest) {
+    // The joined order and keys: the points' at [0, n), the queries' after.
+    const size_t rows = static_cast<size_t>(n) + static_cast<size_t>(nq);
+    l.p_order = at;
+    l.q_order = at + static_cast<size_t>(n) * sizeof(int);
+    at += align256(rows * sizeof(int));
+    l.p_keys = at;
+    l.q_keys = at + static_cast<size_t>(n) * sizeof(int);
+    at += align256(rows * sizeof(int));
+    l.part = at;
+    at += align256(6 * sizeof(float) * bounds_blocks(n) + sizeof(float));  // + the cell side
+    l.done = at;
+    at += align256(static_cast<size_t>((nq + 31) / 32) *
+                   done_words(static_cast<int>(n_tiles)) * sizeof(unsigned));
+    l.order_scratch = at;
+    at += nearest_order_scratch(n + nq);
   }
   l.total = at;
   return l;
@@ -839,20 +1238,26 @@ long long dc_knn_brute_scratch(int nq, int n, int cull, int share) {
 // k = 0: counts into out_idx (Q,) int32 for every query (q_valid must be
 // null); k > 0: the k nearest within r2 into out_idx (Q, k) int32 and
 // out_d2 (Q, k) float32 (q_valid may be null: every query is valid).
-// cull != 0 (a finite r2): the points and the queries are ordered by cell
+// cull 1 (a finite r2): the points and the queries are ordered by cell
 // (side_r the cell side, at least sqrt(r2)) and each warp reads only the
 // tiles and chunks within r2 of its queries; share != 0: the queries are
 // the points, and every row is a query (q_valid null) or the active
 // queries are the valid points (q_valid the points' validity), so one
-// order serves both. scratch holds
-// dc_knn_brute_scratch(nq, n, cull, share) bytes.
+// order serves both. cull 2 (k = 1, r2 = inf, share 0): the nearest search
+// of design step 4 (side_r unused); tally, if not null, takes (nq + 31) /
+// 32 int32, the tiles each warp of ordered queries read (null otherwise).
+// scratch holds dc_knn_brute_scratch(nq, n, cull, share) bytes.
 // Launches on the caller's stream, does not synchronise, and returns
 // cudaGetLastError() (cudaErrorInvalidValue for bad arguments or a k that
 // does not fit).
 int dc_knn_brute(const void* q_pts, const void* q_valid, int nq, const void* pts,
                  const void* p_valid, int n, float r2, float side_r, int cull, int share, int k,
-                 void* scratch, void* out_idx, void* out_d2, void* stream) {
-  if (nq < 0 || n < 0 || k < 0 || (k == 0 && q_valid != nullptr) || (cull && !(side_r > 0.f)))
+                 void* scratch, void* out_idx, void* out_d2, void* tally, void* stream) {
+  const bool nearest = cull == kNearest;
+  if (nq < 0 || n < 0 || k < 0 || (k == 0 && q_valid != nullptr) || cull < kNoCull ||
+      cull > kNearest || (cull == kRadius && !(side_r > 0.f)) ||
+      (nearest && (k != 1 || r2 != std::numeric_limits<float>::infinity() || share)) ||
+      (tally != nullptr && !nearest))
     return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -861,7 +1266,7 @@ int dc_knn_brute(const void* q_pts, const void* q_valid, int nq, const void* pts
   const int err = max_smem(&limit);
   if (err != 0) return err;
   if (smem > static_cast<size_t>(limit)) return static_cast<int>(cudaErrorInvalidValue);
-  cull = cull && n > 0;
+  if (n == 0) cull = kNoCull;
   const Layout l = layout(nq, n, cull, share);
   unsigned char* base = static_cast<unsigned char*>(scratch);
   const float* qp = static_cast<const float*>(q_pts);
@@ -870,8 +1275,26 @@ int dc_knn_brute(const void* q_pts, const void* q_valid, int nq, const void* pts
   const unsigned char* pv = static_cast<const unsigned char*>(p_valid);
   int* p_order = nullptr;
   int* q_order = nullptr;
+  unsigned* p_keys = nullptr;
+  unsigned* q_keys = nullptr;
+  float* side = nullptr;
   cudaError_t e = cudaSuccess;
-  if (cull) {
+  if (cull == kNearest) {
+    // Both sides keyed on the valid points' box.
+    p_order = reinterpret_cast<int*>(base + l.p_order);
+    q_order = reinterpret_cast<int*>(base + l.q_order);
+    p_keys = reinterpret_cast<unsigned*>(base + l.p_keys);
+    q_keys = reinterpret_cast<unsigned*>(base + l.q_keys);
+    float* part = reinterpret_cast<float*>(base + l.part);
+    const int nb = bounds_blocks(n);
+    side = part + 6 * nb;
+    knn_bounds_kernel<<<nb, 256, 0, st>>>(pp, pv, n, part);
+    e = cudaGetLastError();
+    if (e == cudaSuccess)
+      e = nearest_order(pp, pv, n, qp, qv, nq, part, nb, base + l.order_scratch, p_order, p_keys,
+                        side, st);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else if (cull == kRadius) {
     p_order = reinterpret_cast<int*>(base + l.p_order);
     q_order = reinterpret_cast<int*>(base + l.q_order);
     // A shared order keys the active queries: every row without q_valid,
@@ -893,10 +1316,18 @@ int dc_knn_brute(const void* q_pts, const void* q_valid, int nq, const void* pts
   int* oi = static_cast<int*>(out_idx);
   float* od = static_cast<float*>(out_d2);
   const int blocks = (nq + 31) / 32;
-  e = k == 0 ? launch_tiles<true>(blocks, smem, st, qp, nullptr, q_order, nq, p4, tb, cb,
-                                  n_tiles, r2, cull, 0, oi, nullptr)
-             : launch_tiles<false>(blocks, smem, st, qp, qv, q_order, nq, p4, tb, cb, n_tiles,
-                                   r2, cull, k, oi, od);
+  if (cull == kNearest)
+    e = launch_tiles<false, true>(blocks, kFixedSmem + kSeedMax * sizeof(int), st, qp, nullptr,
+                                  q_order, nq, p4, tb, cb, n_tiles, r2, 1, 1, oi, od, q_keys,
+                                  p_keys, static_cast<int*>(tally), side,
+                                  reinterpret_cast<unsigned*>(base + l.done),
+                                  done_words(n_tiles));
+  else if (k == 0)
+    e = launch_tiles<true>(blocks, smem, st, qp, nullptr, q_order, nq, p4, tb, cb, n_tiles, r2,
+                           cull, 0, oi, nullptr);
+  else
+    e = launch_tiles<false>(blocks, smem, st, qp, qv, q_order, nq, p4, tb, cb, n_tiles, r2, cull,
+                            k, oi, od);
   return static_cast<int>(e);
 }
 

@@ -19,7 +19,8 @@ and P8 count here (:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`,
 :data:`DOT_LAUNCHES`, :data:`WINDOW_LAUNCHES`, :data:`LAYOUT_LAUNCHES`,
 :data:`GATHER_SUM_LAUNCHES`, :data:`GATHER_PROBE_LAUNCHES`, and the first
 versions' ``*_V1_LAUNCHES``), once per accepted launch (X6 once per ICP
-step, at its second launch).
+step, at its second launch); :data:`KNN_NEAREST_LAUNCHES` counts the X3
+launches that took its nearest search (k = 1, no radius).
 """
 from __future__ import annotations
 
@@ -51,6 +52,7 @@ __all__ = [
     "ICP_SOLVE_LAUNCHES",
     "ICP_STATS",
     "KNN_LAUNCHES",
+    "KNN_NEAREST_LAUNCHES",
     "KNN_V1_LAUNCHES",
     "KNOCKOUT_LAUNCHES",
     "LAYOUT_LAUNCHES",
@@ -133,6 +135,9 @@ NVCC_FLAGS = (
 SLAB_LAUNCHES = 0
 GRID_LAUNCHES = 0
 KNN_LAUNCHES = 0
+# X3's launches that took its nearest search (k = 1, no radius: the bound
+# taken from the data), counted in KNN_LAUNCHES too.
+KNN_NEAREST_LAUNCHES = 0
 TRANSPOSE_MOMENTS_LAUNCHES = 0
 TRANSPOSE_GATHER_LAUNCHES = 0
 ICP_SOLVE_LAUNCHES = 0
@@ -263,7 +268,7 @@ def load():
             gsum.argtypes = [_P, _I, _P, _I, _I, _P, _P]
             gsum.restype = _I
         lib.dc_knn_brute.argtypes = [_P, _P, _I, _P, _P, _I, _F, _F, _I, _I, _I, _P, _P, _P,
-                                     _P]
+                                     _P, _P]
         lib.dc_knn_brute.restype = _I
         lib.dc_knn_brute_scratch.argtypes = [_I, _I, _I, _I]
         lib.dc_knn_brute_scratch.restype = _L
@@ -941,7 +946,7 @@ def _knn_inputs(q_pts, q_valid, pts, p_valid, k: int, name: str):
             torch.empty((nq, k), dtype=torch.float32, device=device))
 
 
-def launch_knn_brute(q_pts, q_valid, pts, p_valid, r2: float, k: int):
+def launch_knn_brute(q_pts, q_valid, pts, p_valid, r2: float, k: int, tally=None):
     """X3 on CUDA tensors: k = 0 -> counts (Q,) int32 of the valid points
     within r2 (every query counts); k > 0 -> (d2 (Q, k) float32, idx (Q, k)
     int32), the k nearest valid points within r2 by (d2, index), inf / -1
@@ -949,18 +954,26 @@ def launch_knn_brute(q_pts, q_valid, pts, p_valid, r2: float, k: int):
 
     With a finite r2 the points and the queries are ordered by cell (side
     at least sqrt(r2)) first and each warp of queries reads only the tiles
-    and chunks of points within r2 of its queries; the outputs do not
-    depend on the order. A k above :func:`knn_tiles_max_k` takes the
-    warp-per-query body of ``csrc/knn_brute_v1.cu`` (every query against
-    every point), one above :func:`knn_max_k` raises.
+    and chunks of points within r2 of its queries; at k = 1 with no radius
+    (the nearest search, counted in :data:`KNN_NEAREST_LAUNCHES`) both are
+    ordered on the points' grid and each warp reads the tiles around its
+    place in the point order, then those its queries' nearest distances so
+    far reach. The outputs do not depend on the order. A k above
+    :func:`knn_tiles_max_k` takes the warp-per-query body of
+    ``csrc/knn_brute_v1.cu`` (every query against every point), one above
+    :func:`knn_max_k` raises.
 
     :param q_pts: (Q, 3) float32 queries (any strides; copied contiguous).
     :param q_valid: (Q,) bool, or None (every query is valid).
     :param pts: (N, 3) float32 points (any strides; copied contiguous).
     :param p_valid: (N,) bool.
     :param r2: the squared radius as a float (``inf``: no radius).
+    :param tally: None, or for the nearest search alone a ((Q + 31) // 32,)
+        int32 CUDA tensor that takes the tiles of 128 points each warp of 32
+        queries (in the search's order) read; for tests and measurement, no
+        path passes one.
     """
-    global KNN_LAUNCHES
+    global KNN_LAUNCHES, KNN_NEAREST_LAUNCHES
     with trace.span("x3.knn"):
         same = _same_rows(q_pts, pts)
         q_pts, pts, k, idx, d2 = _knn_inputs(q_pts, q_valid, pts, p_valid, k, "knn_brute")
@@ -977,13 +990,20 @@ def launch_knn_brute(q_pts, q_valid, pts, p_valid, r2: float, k: int):
             KNN_LAUNCHES += 1
             return out
         q_active = q_valid if k else None  # the counts count every query
-        cull = math.isfinite(r2) and n > 0 and nq > 0
+        nearest = k == 1 and r2 == math.inf and n > 0 and nq > 0
+        if tally is not None:
+            if not nearest:
+                raise ValueError("knn_brute: a tally is taken by the nearest search alone "
+                                 "(k = 1, no radius, points and queries)")
+            _check(tally, "tally", torch.int32, ((nq + 31) // 32,), device)
+        # 0: no cull; 1: by the radius; 2: the nearest search.
+        cull = 2 if nearest else int(math.isfinite(r2) and n > 0 and nq > 0)
         # One cell order serves points and queries when they are the same rows
         # and every row queries (counts, or a top-k without q_valid) or the
-        # active queries are the valid points: the main paths' calls.
-        share = cull and same and (q_active is None or _same_rows(q_active, p_valid))
+        # active queries are the valid points: the main paths' radius calls.
+        share = cull == 1 and same and (q_active is None or _same_rows(q_active, p_valid))
         lib = load()
-        scratch = torch.empty((lib.dc_knn_brute_scratch(nq, n, int(cull), int(share)),),
+        scratch = torch.empty((lib.dc_knn_brute_scratch(nq, n, cull, int(share)),),
                               dtype=torch.uint8, device=device)
         with _on_device(device):
             # The current stream's raw handle, read without building a Stream
@@ -991,11 +1011,12 @@ def launch_knn_brute(q_pts, q_valid, pts, p_valid, r2: float, k: int):
             # the host's cost per call.
             err = lib.dc_knn_brute(q_pts.data_ptr(), _ptr(q_active), nq, pts.data_ptr(),
                                    p_valid.data_ptr(), n, float(r2),
-                                   math.sqrt(r2) if cull and r2 > 0 else 1.0, int(cull),
+                                   math.sqrt(r2) if cull == 1 and r2 > 0 else 1.0, cull,
                                    int(share), k, scratch.data_ptr(), idx.data_ptr(), _ptr(d2),
-                                   torch._C._cuda_getCurrentRawStream(device.index))
+                                   _ptr(tally), torch._C._cuda_getCurrentRawStream(device.index))
         _check_launch(lib, err, "knn_brute (k %d)" % k)
         KNN_LAUNCHES += 1
+        KNN_NEAREST_LAUNCHES += int(nearest)
         return idx if k == 0 else (d2, idx)
 
 
@@ -1310,7 +1331,8 @@ def reset_launch_counts() -> None:
     """Zero the launch counts kept here (X1-X6, P2-P8, P7a and their first
     versions, P1)."""
     global TRANSPOSE_MOMENTS_LAUNCHES, TRANSPOSE_GATHER_LAUNCHES
-    global SLAB_LAUNCHES, GRID_LAUNCHES, KNN_LAUNCHES, GATHER_LAUNCHES, KNOCKOUT_LAUNCHES
+    global SLAB_LAUNCHES, GRID_LAUNCHES, KNN_LAUNCHES, KNN_NEAREST_LAUNCHES, GATHER_LAUNCHES
+    global KNOCKOUT_LAUNCHES
     global DOT_LAUNCHES, WINDOW_LAUNCHES, LAYOUT_LAUNCHES, GATHER_SUM_LAUNCHES
     global GATHER_PROBE_LAUNCHES, KNN_V1_LAUNCHES, SLAB_V1_LAUNCHES, GRID_V1_LAUNCHES
     global DOT_V1_LAUNCHES, LAYOUT_V1_LAUNCHES, GATHER_V1_LAUNCHES, GATHER_SUM_V1_LAUNCHES
@@ -1319,6 +1341,7 @@ def reset_launch_counts() -> None:
     SLAB_LAUNCHES = 0
     GRID_LAUNCHES = 0
     KNN_LAUNCHES = 0
+    KNN_NEAREST_LAUNCHES = 0
     SLAB_V1_LAUNCHES = 0
     GRID_V1_LAUNCHES = 0
     KNN_V1_LAUNCHES = 0

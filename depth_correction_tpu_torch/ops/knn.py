@@ -14,9 +14,12 @@ both packages return the same neighbour sets. Missing neighbours are index
 
 On CUDA tensors the search is kernel X3 (``csrc/knn_brute.cu``: with a
 radius, points and queries ordered by cell and each warp of queries
-reading only the tiles of points within r of its box; a top-k past its
-shared memory takes the first version's warp-per-query body,
-``csrc/knn_brute_v1.cu``); on CPU tensors, or with ``plain=True`` on any
+reading only the tiles of points within r of its box; at k = 1 with no
+radius, both ordered on the points' grid and each warp reading the tiles
+around its queries' places in the point order, then those within each
+query's nearest distance so far; a top-k past its shared memory takes the
+first version's warp-per-query body, ``csrc/knn_brute_v1.cu``); on CPU
+tensors, or with ``plain=True`` on any
 device and dtype, its plain twins :func:`_knn_plain` and
 :func:`_counts_plain`: a running top-k over tiles of 2048 points per chunk
 of 8192 queries, the JAX package's loop. :func:`knn_brute_v1` runs X3's

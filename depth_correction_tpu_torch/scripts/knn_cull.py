@@ -11,14 +11,25 @@ chunk of :data:`CHUNK` points of the tiles that passed. It loads the tiles with 
 chunk left and tests its queries against the points of those chunks.
 :func:`cull_stats` counts that work: it is computed here from the inputs,
 not read from the kernel, which counts nothing.
+
+The nearest search (k = 1, no radius) takes its bound from the data
+(:func:`nearest_cull`): points and queries are keyed on the points' grid,
+each warp seeds its queries' limits from the tiles around each query's
+place in the point order and then culls, round after round of
+:data:`ROUND_TILES` tiles, with each query's nearest distance so far as
+its radius, in sweeps of a growing reach where a limit lies beyond
+:data:`SWEEP_CELLS` cells. :func:`nearest_cull_stats` gives the tiles a
+warp reads, which the kernel's optional tally counts too.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["BLOCK_Q", "CHUNK", "INVALID_KEY", "TILE", "box_d2_f32", "boxes", "cell_keys",
-           "cell_order", "cull_masks", "cull_stats", "d2_f32"]
+__all__ = ["BLOCK_Q", "CHUNK", "GROWTH", "INVALID_KEY", "REACH_CELLS", "ROUND_TILES",
+           "SWEEP_CELLS", "SWEEPS", "TILE", "box_d2_f32", "boxes", "cell_keys", "cell_order",
+           "cull_masks", "cull_stats", "d2_f32", "nearest_cull", "nearest_cull_stats",
+           "nearest_keys"]
 
 # The kernel's queries per block (one warp, one a lane), points per staged
 # tile (kTile) and per culled chunk.
@@ -29,6 +40,18 @@ CHUNK = 32
 # [0, 127] and keys stay below the invalid rows' key 2^22 - 1.
 CELL_BITS = 7
 INVALID_KEY = np.int64(2 ** (3 * CELL_BITS + 1) - 1)
+# Tiles whose boxes a warp tests per round (kChunk): the nearest search's
+# limits are taken again at the start of each round.
+ROUND_TILES = 512
+# The nearest search's sweeps (kSweepCells, kReachCells, kGrowth, kSweeps),
+# for a warp whose largest limit lies beyond SWEEP_CELLS cell sides: the
+# first caps each limit at a reach of REACH_CELLS cell sides, each later
+# one at GROWTH times the squared reach before it, sweep SWEEPS - 1 at the
+# limit.
+SWEEP_CELLS = 16
+REACH_CELLS = 4
+GROWTH = 4
+SWEEPS = 4
 
 
 def _host(x) -> np.ndarray:
@@ -61,6 +84,26 @@ def boxes(vals, real, size: int) -> tuple:
             np.fmax.reduce(hi, axis=1, initial=np.float32(-np.inf)))
 
 
+def _morton(p: np.ndarray, lo: np.ndarray, side: np.float32) -> np.ndarray:
+    """The Morton key of floor((p - lo) / side) clamped to [0, 127] per
+    axis, in float32 as cell_key computes it (fmax takes the number over a
+    NaN, so 0 / 0 falls in cell 0)."""
+    with np.errstate(invalid="ignore", over="ignore", divide="ignore"):
+        f = np.floor((p - lo) / side)
+    c = np.fmin(np.fmax(f, np.float32(0)), np.float32(2 ** CELL_BITS - 1)).astype(np.int64)
+    return _spread(c[:, 0]) | (_spread(c[:, 1]) << 1) | (_spread(c[:, 2]) << 2)
+
+
+def _grid(p: np.ndarray, v: np.ndarray, side_r) -> tuple:
+    """(lo (3,), side) float32: the valid points' box corner and the cell
+    side max(side_r, extent / 128), as grid_side computes it."""
+    lo, hi = boxes(p, v, max(len(p), 1))
+    lo, hi = lo[0], hi[0]
+    with np.errstate(invalid="ignore", over="ignore"):
+        ext = np.fmax(np.fmax(hi[0] - lo[0], hi[1] - lo[1]), hi[2] - lo[2])
+        return lo, np.fmax(np.float32(side_r), ext / np.float32(2 ** CELL_BITS))
+
+
 def cell_keys(points, valid, r: float) -> np.ndarray:
     """(N,) int64 keys as knn_keys_kernel makes them: over the box [lo, hi]
     of the valid rows, cells of side max(sqrt(r2), extent / 128) (float32,
@@ -69,17 +112,10 @@ def cell_keys(points, valid, r: float) -> np.ndarray:
     axis; invalid rows :data:`INVALID_KEY`."""
     p = _host(points).astype(np.float32).reshape(-1, 3)
     v = _host(valid).astype(bool)
-    lo, hi = boxes(p, v, max(len(p), 1))
-    lo, hi = lo[0], hi[0]
-    with np.errstate(invalid="ignore", over="ignore"):
-        ext = np.fmax(np.fmax(hi[0] - lo[0], hi[1] - lo[1]), hi[2] - lo[2])
-        r2 = np.float32(r) ** 2
-        side_r = np.float32(np.sqrt(np.float64(r2))) if r2 > 0 else np.float32(1)
-        side = np.fmax(side_r, ext / np.float32(2 ** CELL_BITS))
-        f = np.floor((p - lo) / side)
-    c = np.fmin(np.fmax(f, np.float32(0)), np.float32(2 ** CELL_BITS - 1)).astype(np.int64)
-    key = _spread(c[:, 0]) | (_spread(c[:, 1]) << 1) | (_spread(c[:, 2]) << 2)
-    return np.where(v, key, INVALID_KEY)
+    r2 = np.float32(r) ** 2
+    side_r = np.float32(np.sqrt(np.float64(r2))) if r2 > 0 else np.float32(1)
+    lo, side = _grid(p, v, side_r)
+    return np.where(v, _morton(p, lo, side), INVALID_KEY)
 
 
 def cell_order(points, valid, r: float) -> np.ndarray:
@@ -226,3 +262,167 @@ def cull_stats(points, valid, r: float, k: int = 0, query=None, q_valid=None,
         out.update(insertions=ins_total, max_insertions=ins_max)
     return out
 
+
+
+def nearest_keys(points, valid, query, q_valid=None) -> tuple:
+    """(point keys (N,), query keys (Q,)) int64, both on the points' grid:
+    the box of the valid points, cells of side extent / 128 (float32; no
+    radius floor), queries outside the box in the edge cells. A point or
+    query that is invalid or has a NaN coordinate (it can be no neighbour
+    and finds none) takes :data:`INVALID_KEY`."""
+    p = _host(points).astype(np.float32).reshape(-1, 3)
+    v = _host(valid).astype(bool)
+    q = _host(query).astype(np.float32).reshape(-1, 3)
+    qv = np.ones(len(q), bool) if q_valid is None else _host(q_valid).astype(bool)
+    lo, side = _grid(p, v, 0)
+    pk = np.where(v & ~np.isnan(p).any(1), _morton(p, lo, side), INVALID_KEY)
+    qk = np.where(qv & ~np.isnan(q).any(1), _morton(q, lo, side), INVALID_KEY)
+    return pk, qk
+
+
+def _seed_tiles(tile_keys: np.ndarray, keys: np.ndarray) -> np.ndarray:
+    """The tiles a warp seeds from, ascending: for each of its active
+    queries' ``keys`` the last tile whose first key is at most the key (the
+    first tile when there is none) and one tile on either side, within the
+    tiles."""
+    t = np.maximum(np.searchsorted(tile_keys, keys, side="right") - 1, 0)
+    near = (t[:, None] + np.arange(-1, 2)).ravel()
+    return np.unique(np.clip(near, 0, len(tile_keys) - 1))
+
+
+def nearest_cull(points, valid, query, q_valid=None) -> dict:
+    """The nearest search's cell order, seed and cull (the k = 1 body of
+    csrc/knn_brute.cu), run on the host in float32 with the kernel's keys
+    and operation order.
+
+    Each warp of :data:`BLOCK_Q` queries in cell order seeds its active
+    queries' keys (d2, point index) from the tiles :func:`_seed_tiles`
+    picks at their keys; then, per round of :data:`ROUND_TILES` tiles and
+    with the limits (each query's best d2) as they stand at the round's
+    start, it reads each other tile with a chunk that some query's cap
+    reaches (a float32 box distance at most the cap, the chunk's box not
+    empty) and tests all its queries against every point of those chunks.
+    A warp whose largest limit lies beyond :data:`SWEEP_CELLS` cell sides
+    does so in sweeps: while a limit passes the sweep's squared reach
+    (:data:`REACH_CELLS` cell sides, times :data:`GROWTH` a sweep) each
+    cap is the least of the limit and that reach; the sweep that caps
+    nothing, or the last, caps at the limits; and no chunk is read twice.
+    Other warps walk once, at their limits.
+
+    :return: {"d2" (Q,) float32, "idx" (Q,) int64 (-1 / inf where none),
+        "tiles_read" (warps,) int64 (the seed tiles and the tiles read after
+        them), "chunks_read" (warps,) int64 (after the seed), "tiles" (tiles
+        of the points), "seed_tiles" (warps,) int64 (0 for a warp without an
+        active query), "sweeps" (warps,) int64}.
+    """
+    p = _host(points).astype(np.float32).reshape(-1, 3)
+    v = _host(valid).astype(bool)
+    q = _host(query).astype(np.float32).reshape(-1, 3)
+    pk, qk = nearest_keys(p, v, q, q_valid)
+    po = np.argsort(pk, kind="stable")
+    qo = np.argsort(qk, kind="stable")
+    n, nq = len(p), len(q)
+    nt = -(-n // TILE)
+    nw = -(-nq // BLOCK_Q)
+    # The pack: points in cell order, NaN for an invalid one; the boxes over
+    # the valid ones (NaN coordinates left out).
+    pvs = v[po]
+    packed = np.where(pvs[:, None], p[po], np.float32(np.nan))
+    clo, chi = boxes(p[po], pvs, CHUNK)
+    tlo, thi = boxes(p[po], pvs, TILE)
+    tile_keys = pk[po][::TILE]
+    nonempty = (clo <= chi).all(1)
+    side = _grid(p, v, 0)[1]
+    first_reach = (side * side) * np.float32(REACH_CELLS * REACH_CELLS)
+    sweep_from = (side * side) * np.float32(SWEEP_CELLS * SWEEP_CELLS)
+    per = TILE // CHUNK
+    best = np.full(nq, np.iinfo(np.uint64).max, np.uint64)
+    tiles_read = np.zeros(nw, np.int64)
+    chunks_read = np.zeros(nw, np.int64)
+    seed_tiles = np.zeros(nw, np.int64)
+    sweeps = np.zeros(nw, np.int64)
+    inf = np.float32(np.inf)
+
+    def test(rows, cols):
+        """Every query of ``rows`` against the packed points ``cols``: the
+        least key of those with d2 at most inf (a NaN d2 is no candidate)."""
+        d2 = d2_f32(q[rows], packed[cols])
+        hit = d2 <= inf
+        keys = (d2.view(np.uint32).astype(np.uint64) << np.uint64(32)) \
+            | po[cols].astype(np.uint64)[None, :]
+        keys = np.where(hit, keys, np.iinfo(np.uint64).max)
+        best[rows] = np.minimum(best[rows], keys.min(1, initial=np.iinfo(np.uint64).max))
+
+    def limits(rows):
+        b = best[rows]
+        return np.where(b == np.iinfo(np.uint64).max, inf,
+                        (b >> np.uint64(32)).astype(np.uint32).view(np.float32))
+
+    for w in range(nw):
+        slots = np.arange(w * BLOCK_Q, min((w + 1) * BLOCK_Q, nq))
+        act = qk[qo[slots]] != INVALID_KEY
+        if nt == 0 or not act.any():
+            continue
+        rows = qo[slots[act]]
+        seeds = _seed_tiles(tile_keys, qk[rows])
+        cols = (seeds[:, None] * TILE + np.arange(TILE)).ravel()
+        test(rows, cols[cols < n])
+        tiles_read[w] = seed_tiles[w] = len(seeds)
+        wlo, whi = q[rows].min(0), q[rows].max(0)
+        reach = first_reach
+        sweeping = sweep_from < limits(rows).max()
+        read = np.zeros(len(clo), bool)  # a sweeping warp's chunks read
+        for sweep in range(SWEEPS):
+            sweeps[w] += 1
+            if sweep == 0:
+                last = not sweeping
+            else:
+                reach = reach * np.float32(GROWTH)
+                last = sweep == SWEEPS - 1 or reach >= limits(rows).max()
+            for c0 in range(0, nt, ROUND_TILES):
+                tiles = np.arange(c0, min(c0 + ROUND_TILES, nt))
+                tiles = tiles[~np.isin(tiles, seeds)]
+                cap = limits(rows) if last else np.minimum(limits(rows), reach)
+                # The warp's box at its largest cap first (as the kernel's
+                # first step): it keeps every tile with a chunk some query's
+                # own cap keeps, so it changes nothing but the time here.
+                far = box_d2_f32(wlo[None], whi[None], tlo[tiles], thi[tiles])[0]
+                tiles = tiles[far <= cap.max()]
+                chunks = (tiles[:, None] * per + np.arange(per)).ravel()
+                chunks = chunks[(chunks < len(clo))]
+                chunks = chunks[nonempty[chunks] & ~read[chunks]]
+                if not len(chunks):
+                    continue
+                d = box_d2_f32(q[rows], q[rows], clo[chunks], chi[chunks])
+                need = chunks[(d <= cap[:, None]).any(0)]
+                if not len(need):
+                    continue
+                read[need] = sweeping
+                tiles_read[w] += len(np.unique(need // per))
+                chunks_read[w] += len(need)
+                cols = (need[:, None] * CHUNK + np.arange(CHUNK)).ravel()
+                test(rows, cols[cols < n])
+            if last:
+                break
+    found = best != np.iinfo(np.uint64).max
+    d2 = np.where(found, (best >> np.uint64(32)).astype(np.uint32).view(np.float32), inf)
+    idx = np.where(found, (best & np.uint64(0xFFFFFFFF)).astype(np.int64), -1)
+    return {"d2": d2, "idx": idx, "tiles_read": tiles_read, "chunks_read": chunks_read,
+            "tiles": nt, "seed_tiles": seed_tiles, "sweeps": sweeps}
+
+
+def nearest_cull_stats(points, valid, query, q_valid=None) -> dict:
+    """The nearest search's work on one launch, from :func:`nearest_cull`.
+
+    :return: {"warps", "tiles", "tiles_read" (over the warps),
+        "tiles_per_warp" (the mean over warps with an active query),
+        "pair_share" (tiles read over warps x tiles: the share of all
+        (query, point) slots the warps test), "chunk_share"}.
+    """
+    out = nearest_cull(points, valid, query, q_valid)
+    nw, nt = len(out["tiles_read"]), out["tiles"]
+    busy = max(int((out["seed_tiles"] > 0).sum()), 1)
+    total = int(out["tiles_read"].sum())
+    return {"warps": nw, "tiles": nt, "tiles_read": total, "tiles_per_warp": total / busy,
+            "pair_share": total / max(nw * nt, 1),
+            "chunk_share": int(out["chunks_read"].sum()) / max(nw * nt * (TILE // CHUNK), 1)}

@@ -1816,13 +1816,15 @@ def _x3_three_ways(pts, q, k, r, valid, qv):
     bit, counts equal; each launches once. Returns X3's (d2, idx), counts."""
     from depth_correction_tpu_torch.ops import knn as tknn
 
-    before = (_kernels.KNN_LAUNCHES, _kernels.KNN_V1_LAUNCHES)
+    before = (_kernels.KNN_LAUNCHES, _kernels.KNN_V1_LAUNCHES, _kernels.KNN_NEAREST_LAUNCHES)
     d2, idx = tknn.knn_d2(pts, q, k, r, valid, qv)
     v1_d2, v1_idx = tknn.knn_brute_v1(pts, q, k, r, valid, qv)
     counts = tknn.neighbor_counts(pts, q, r, valid)
     v1_counts = tknn.knn_brute_v1(pts, q, 0, r, valid)
     torch.cuda.synchronize()
-    assert (_kernels.KNN_LAUNCHES, _kernels.KNN_V1_LAUNCHES) == (before[0] + 2, before[1] + 2)
+    # The nearest search takes k = 1 with no radius alone: these calls never.
+    assert (_kernels.KNN_LAUNCHES, _kernels.KNN_V1_LAUNCHES, _kernels.KNN_NEAREST_LAUNCHES) == (
+        before[0] + 2, before[1] + 2, before[2] + int(k == 1 and r is None))
     pd2, pidx = tknn.knn_d2(pts, q, k, r, valid, qv, plain=True)
     pcounts = tknn.neighbor_counts(pts, q, r, valid, plain=True)
     for other_d2, other_idx in ((pd2, pidx), (v1_d2, v1_idx)):
@@ -1925,6 +1927,136 @@ def test_cuda_knn_order_matches_the_host_model(cuda_device, n):
     np.testing.assert_array_equal(got, kc.cell_order(pts.cpu(), valid.cpu(), 0.25))
     got = _kernels._knn_cell_order(pts, None, math.sqrt(r2)).cpu().numpy()
     np.testing.assert_array_equal(got, kc.cell_order(pts.cpu(), np.ones(len(pts), bool), 0.25))
+
+
+def _nearest_three_ways(pts, valid, q, qv=None, model=True):
+    """X3's nearest search (k = 1, no radius) against its plain twin and its
+    first version (knn_brute_v1.cu) on the same float32 inputs: idx equal
+    and d2 bit for bit; one launch, counted as the nearest search. With
+    ``model``, the tiles each warp read (the kernel's tally) equal the host
+    model's (scripts/knn_cull.py:nearest_cull), and so do its keys. Returns
+    the tally's share of the (warp, tile) pairs."""
+    from depth_correction_tpu_torch.ops import knn as tknn
+    from depth_correction_tpu_torch.scripts import knn_cull as kc
+
+    tally = torch.full(((q.shape[0] + 31) // 32,), -1, dtype=torch.int32, device=q.device)
+    before = (_kernels.KNN_LAUNCHES, _kernels.KNN_NEAREST_LAUNCHES)
+    d2, idx = _kernels.launch_knn_brute(q, qv, pts, valid, math.inf, 1, tally=tally)
+    torch.cuda.synchronize()
+    assert (_kernels.KNN_LAUNCHES, _kernels.KNN_NEAREST_LAUNCHES) == (before[0] + 1,
+                                                                      before[1] + 1)
+    gd2, gidx = tknn.knn_d2(pts, q, 1, None, valid, qv)
+    v1_d2, v1_idx = tknn.knn_brute_v1(pts, q, 1, None, valid, qv)
+    pd2, pidx = tknn.knn_d2(pts, q, 1, None, valid, qv, plain=True)
+    for other_d2, other_idx in ((gd2, gidx), (pd2, pidx), (v1_d2, v1_idx)):
+        assert torch.equal(idx, other_idx)
+        assert bit_equal(d2, other_d2)
+    if model:
+        m = kc.nearest_cull(pts.cpu(), valid.cpu(), q.cpu(), None if qv is None else qv.cpu())
+        np.testing.assert_array_equal(tally.cpu().numpy(), m["tiles_read"])
+        np.testing.assert_array_equal(idx[:, 0].cpu().numpy(), m["idx"])
+    n_tiles = -(-pts.shape[0] // 128)
+    return float(tally.double().sum()) / (tally.numel() * n_tiles)
+
+
+def _world(scan):
+    """A benchmark scan (structured x, y, z in its sensor frame, pose) as
+    float32 world points on the card."""
+    s, T = scan
+    p = np.stack([s["x"], s["y"], s["z"]], 1) @ T[:3, :3].T + T[:3, 3]
+    return torch.as_tensor(p, dtype=torch.float32, device="cuda")
+
+
+def _merged_map(scans, capacity=1 << 19):
+    """The scans' world points merged at 0.1 m voxels, the first point of a
+    voxel kept (slam_mapper's merge, in one step), past ``capacity`` the
+    rows nearest the last scan's sensor."""
+    from depth_correction_tpu_torch.ops.filters import grid_first_mask
+
+    pts = torch.cat([_world(s) for s in scans])
+    keep, bad = grid_first_mask(pts, 0.1, torch.ones(len(pts), dtype=torch.bool,
+                                                     device=pts.device))
+    assert not bool(bad)
+    pts = pts[keep]
+    if len(pts) > capacity:
+        centre = torch.as_tensor(scans[-1][1][:3, 3], device=pts.device)
+        d2 = ((pts.double() - centre) ** 2).sum(1)
+        pts = pts[torch.sort(torch.topk(d2, capacity, largest=False).indices).values]
+    return pts.contiguous()
+
+
+def _cell_shape(shape):
+    """(points, queries) at a SLAM cell's search: ``odometry`` box_r25's scan
+    1 against scan 0 (~64k x ~62k), ``mapper`` its scan 5 against scans 0-4
+    merged (~61k against the map), ``street`` box_seq50's scan 24 against
+    scans 0-23 merged (~115k against ~446k rows), each in the world frame
+    at its ground truth, from the benchmark's scenes."""
+    import json
+    import os
+
+    from benchmark.scene import open_box
+    from benchmark.street import street
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs",
+                           "box_seq50.json" if shape == "street" else "box_r25.json")) as f:
+        scene = json.load(f)["scene"]
+    seed = 2 ** 32 + 977
+    if shape == "odometry":
+        s0, s1 = open_box(scene, seed, "cuda", ids=[0, 1])
+        return _world(s0), _world(s1)
+    if shape == "mapper":
+        scans = open_box(scene, seed, "cuda")
+        return _merged_map(scans[:5]), _world(scans[5])
+    scans = street(scene, seed, "cuda", ids=range(25))
+    return _merged_map(scans[:24]), _world(scans[24])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["odometry", "mapper", "street"])
+def test_cuda_knn_nearest_at_the_slam_shapes(cuda_device, shape):
+    """The nearest search at the SLAM cells' shapes: bit-equal to the plain
+    twin and the first version, the tally equal to the host model's, and
+    under 5% of the (warp, tile) pairs read (1% on the street map)."""
+    pts, q = _cell_shape(shape)
+    share = _nearest_three_ways(pts, torch.ones(len(pts), dtype=torch.bool, device=cuda_device), q)
+    assert share < (0.01 if shape == "street" else 0.05), share
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["empty_slab", "outliers", "duplicates", "equidistant_tiles",
+                                  "invalid_points_nan_queries", "single_valid_point",
+                                  "outside_the_box", "slam_padding"])
+def test_cuda_knn_nearest_adversarial(cuda_device, name):
+    """The host model's adversarial cases (tests/test_torch_knn_cull.py) on
+    the card: queries whose warps walk in sweeps, outliers, duplicates,
+    queries equidistant from points in two tiles, invalid points and NaN
+    queries, a single valid point, queries outside the points' box, SLAM's
+    padding rows."""
+    from test_torch_knn_cull import NEAREST_CASES
+
+    pts, valid, q, qv = NEAREST_CASES[name]()
+    dev = lambda a: None if a is None else torch.as_tensor(a, device=cuda_device)
+    _nearest_three_ways(dev(pts), dev(valid), dev(q), dev(qv))
+
+
+@pytest.mark.cuda
+def test_cuda_knn_nearest_below_one_block_and_tally_refused(cuda_device):
+    """Both orders of the nearest search (one block while points and
+    queries together are at most 16,384 rows, the device sort above), a
+    query set smaller than a warp; a tally is refused for any other search,
+    before any launch."""
+    pts, valid = _knn_inputs(cuda_device, seed=6, n=9000)
+    q, _ = _knn_inputs(cuda_device, seed=7, n=7385)
+    _nearest_three_ways(pts, valid, q[:7384].contiguous())
+    _nearest_three_ways(pts, valid, q)
+    _nearest_three_ways(pts, valid, q[:7].contiguous())
+    tally = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    before = _kernels.KNN_LAUNCHES
+    for r2, k in ((0.09, 1), (math.inf, 2), (0.09, 0)):
+        with pytest.raises(ValueError, match="tally"):
+            _kernels.launch_knn_brute(q[:7].contiguous(), None, pts, valid, r2, k, tally=tally)
+    assert _kernels.KNN_LAUNCHES == before
 
 
 @pytest.mark.cuda
@@ -2366,6 +2498,25 @@ def test_cuda_slam_odometry_launches_x6_each_iteration(cuda_device):
     before = (_kernels.KNN_LAUNCHES, _kernels.ICP_SOLVE_LAUNCHES)
     slam_odometry(clouds32, prior, n_iters=2, plain=True)
     assert (_kernels.KNN_LAUNCHES, _kernels.ICP_SOLVE_LAUNCHES) == before
+
+
+@pytest.mark.cuda
+def test_cuda_slam_takes_the_nearest_search(cuda_device):
+    """slam_odometry and slam_mapper over S scans at n_iters: every X3
+    launch is the nearest search, (S - 1) n_iters of them; plain, none."""
+    from depth_correction_tpu_torch.slam_eval import slam_mapper, slam_odometry
+
+    clouds, _, prior = _box_pair(3)
+    clouds32 = [c.to(device=cuda_device, dtype=torch.float32) for c in clouds]
+    for fn in (slam_odometry, slam_mapper):
+        for n_iters in (8, 3):
+            before = (_kernels.KNN_LAUNCHES, _kernels.KNN_NEAREST_LAUNCHES)
+            fn(clouds32, prior, n_iters=n_iters)
+            assert (_kernels.KNN_LAUNCHES - before[0],
+                    _kernels.KNN_NEAREST_LAUNCHES - before[1]) == (2 * n_iters, 2 * n_iters)
+        before = _kernels.KNN_NEAREST_LAUNCHES
+        fn(clouds32, prior, n_iters=2, plain=True)
+        assert _kernels.KNN_NEAREST_LAUNCHES == before
 
 
 @pytest.mark.cuda

@@ -238,3 +238,204 @@ def test_cell_order_then_plain_equals_unsorted_plain(name, k):
     gd, gi = _sorted_plain(pts, valid, q, qv, r, k)
     np.testing.assert_array_equal(gi, wi.numpy())
     np.testing.assert_array_equal(gd.view(np.int32), wd.numpy().view(np.int32))
+
+
+# The nearest search (k = 1, no radius): the host model of its order, seed
+# and cull (knn_cull.nearest_cull) against the all-pairs search.
+
+def _nearest_brute(pts, valid, q, q_valid=None):
+    """(d2 (Q,) float32, idx (Q,) int64): the least key (d2, index) over the
+    valid points whose float32 d2 is a number, by testing every pair; -1 /
+    inf where there is none or the query is invalid."""
+    d2 = kc.d2_f32(q, np.where(valid[:, None], pts, np.float32(np.nan)))
+    top = np.iinfo(np.uint64).max
+    keys = (d2.view(np.uint32).astype(np.uint64) << np.uint64(32)) \
+        | np.arange(len(pts), dtype=np.uint64)[None, :]
+    keys = np.where(d2 <= np.float32(np.inf), keys, top)
+    best = keys.min(1, initial=top)
+    if q_valid is not None:
+        best = np.where(q_valid, best, top)
+    found = best != top
+    return (np.where(found, (best >> np.uint64(32)).astype(np.uint32).view(np.float32),
+                     np.float32(np.inf)),
+            np.where(found, (best & np.uint64(0xFFFFFFFF)).astype(np.int64), -1))
+
+
+def _nearest_equidistant():
+    """Points on a 0.25 m grid (exact in float32) and queries at the
+    midpoints of grid neighbours, so each query has two points at the same
+    d2; many such pairs lie in different tiles of the cell order."""
+    rng = np.random.default_rng(11)
+    g = np.stack(np.meshgrid(np.arange(24), np.arange(24), np.arange(6), indexing="ij"),
+                 -1).reshape(-1, 3).astype(np.float32) * np.float32(0.25)
+    pts = g[rng.permutation(len(g))]
+    pick = pts[rng.integers(0, len(pts), 2500)]
+    axis = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 2500)] * np.float32(0.125)
+    return pts, np.ones(len(pts), bool), (pick + axis).astype(np.float32), None
+
+
+def _nearest_slam_padding():
+    """The rows a SLAM step searches: the target scan placed at its
+    estimate, its filtered rows and its zero padding invalid (the padding at
+    the scan's sensor), and every row of the next scan as a query, its
+    padding rows all at that scan's sensor position."""
+    pts, valid = _cloud(12, 3000, invalid=0.08)
+    pts[-200:] = np.float32([1.0, 2.0, 0.5])
+    valid[-200:] = False
+    q, _ = _cloud(13, 3000)
+    q = (q + np.float32([0.03, -0.02, 0.01])).astype(np.float32)
+    q[-300:] = np.float32([1.5, 2.0, 0.5])
+    return pts, valid, q, None
+
+
+def _nearest_invalid_nan():
+    pts, valid = _cloud(14, 2500, invalid=0.3)
+    q, _ = _cloud(15, 2000)
+    q[::9, 1] = np.nan
+    q[5::31] = np.nan
+    q_valid = np.random.default_rng(16).uniform(size=len(q)) > 0.2
+    return pts, valid, q, q_valid
+
+
+def _nearest_single_valid():
+    pts, _ = _cloud(17, 2000)
+    valid = np.zeros(len(pts), bool)
+    valid[1234] = True
+    q, _ = _cloud(18, 700)
+    return pts, valid, q, None
+
+
+def _nearest_outliers():
+    pts, valid = _cloud(19, 3000)
+    q, _ = _cloud(20, 2000)
+    rng = np.random.default_rng(21)
+    far = rng.choice(len(q), 300, replace=False)
+    q[far] = (q[far] * np.float32(40.0) + np.float32(1e3) * rng.standard_normal((300, 3))
+              ).astype(np.float32)
+    return pts, valid, q, None
+
+
+def _nearest_outside_box():
+    pts, valid = _cloud(22, 3000)
+    q, _ = _cloud(23, 2000)
+    q[:1000] += np.float32([9.0, 0.0, 0.0])
+    q[1000:1500] -= np.float32([0.0, 0.0, 4.0])
+    return pts, valid, q.astype(np.float32), None
+
+
+def _nearest_duplicates():
+    pts, valid = _cloud(24, 3000, dup=900, quantum=0.125)
+    q, _ = _cloud(25, 2500, quantum=0.0625)
+    return pts, valid, q, None
+
+
+def _nearest_empty_slab():
+    """A plane of points with an empty slab 3 m wide across its middle and
+    queries inside the slab: their nearest points lie beyond 16 cells, so
+    their warps walk in sweeps of a growing reach (some queries also fall
+    in the point order beside points metres from them)."""
+    rng = np.random.default_rng(27)
+    p = np.c_[rng.uniform(0, 10, (6000, 2)), 0.01 * rng.standard_normal(6000)]
+    p = p[np.abs(p[:, 0] - 5.0) > 1.5].astype(np.float32)
+    q = np.c_[rng.uniform(3.5, 6.5, 800), rng.uniform(0, 10, 800),
+              0.01 * rng.standard_normal(800)].astype(np.float32)
+    return p, np.ones(len(p), bool), q, None
+
+
+NEAREST_CASES = {
+    "empty_slab": _nearest_empty_slab,
+    "outliers": _nearest_outliers,
+    "duplicates": _nearest_duplicates,
+    "equidistant_tiles": _nearest_equidistant,
+    "invalid_points_nan_queries": _nearest_invalid_nan,
+    "single_valid_point": _nearest_single_valid,
+    "outside_the_box": _nearest_outside_box,
+    "slam_padding": _nearest_slam_padding,
+}
+
+
+@pytest.mark.parametrize("name", list(NEAREST_CASES))
+def test_nearest_cull_equals_all_pairs(name):
+    """The model's nearest keys equal the all-pairs search's and the plain
+    twin's (k = 1, no radius) bit for bit: the seed's limits and the cull by
+    them skip no point whose key is below a query's limit, ties go to the
+    lower index, and an invalid or NaN query finds nothing. The cull reads
+    fewer tiles than all."""
+    pts, valid, q, qv = NEAREST_CASES[name]()
+    got = kc.nearest_cull(pts, valid, q, qv)
+    want_d2, want_idx = _nearest_brute(pts, valid, q, qv)
+    np.testing.assert_array_equal(got["idx"], want_idx)
+    np.testing.assert_array_equal(got["d2"].view(np.int32), want_d2.view(np.int32))
+    pd2, pidx = tknn._knn_plain(torch.as_tensor(pts), torch.as_tensor(q), torch.as_tensor(valid),
+                                None if qv is None else torch.as_tensor(qv),
+                                torch.tensor(np.float32(np.inf)), 1)
+    np.testing.assert_array_equal(pidx[:, 0].numpy(), want_idx)
+    np.testing.assert_array_equal(pd2[:, 0].numpy().view(np.int32), want_d2.view(np.int32))
+    busy = got["seed_tiles"] > 0
+    assert (got["tiles_read"][~busy] == 0).all()
+    assert got["tiles_read"].sum() < busy.sum() * got["tiles"]
+    assert ((got["sweeps"] >= 1) == busy).all() and got["sweeps"].max() <= kc.SWEEPS
+    if name == "empty_slab":
+        assert (got["sweeps"] > 1).any()
+
+
+def test_nearest_cull_ties_span_tiles():
+    """The equidistant case holds what it is for: queries whose two nearest
+    points, at equal d2, lie in different tiles of the point order, where
+    the lower original index wins."""
+    pts, valid, q, _ = _nearest_equidistant()
+    d2 = kc.d2_f32(q, pts)
+    least = d2.min(1)
+    pk, _ = kc.nearest_keys(pts, valid, q)
+    pos = np.empty(len(pts), np.int64)
+    pos[np.argsort(pk, kind="stable")] = np.arange(len(pts))
+    spans = 0
+    for i in np.flatnonzero((d2 == least[:, None]).sum(1) >= 2):
+        tiles = np.unique(pos[np.flatnonzero(d2[i] == least[i])] // kc.TILE)
+        spans += len(tiles) >= 2
+    assert spans >= 50
+    got = kc.nearest_cull(pts, valid, q)
+    np.testing.assert_array_equal(got["idx"], np.argmax(d2 == least[:, None], axis=1))
+
+
+def test_nearest_keys_share_the_points_grid():
+    """Queries are keyed on the points' grid: a query at a point's place
+    takes its key, one outside the points' box falls in an edge cell, and an
+    invalid or NaN row takes the invalid key."""
+    pts, valid = _cloud(26, 500)
+    q = np.vstack([pts[:50], pts[:5] + np.float32(100.0), pts[:5] - np.float32(100.0),
+                   np.full((2, 3), np.nan, np.float32)]).astype(np.float32)
+    pk, qk = kc.nearest_keys(pts, valid, q)
+    np.testing.assert_array_equal(qk[:50], np.where(valid[:50], pk[:50], qk[:50]))
+    top = kc._spread(np.full(1, 127)) * 7
+    np.testing.assert_array_equal(qk[50:55], np.full(5, top[0]))
+    np.testing.assert_array_equal(qk[55:60], np.zeros(5))
+    assert (qk[60:] == kc.INVALID_KEY).all() and (pk[~valid] == kc.INVALID_KEY).all()
+    _, qk = kc.nearest_keys(pts, valid, q, np.zeros(len(q), bool))
+    assert (qk == kc.INVALID_KEY).all()
+
+
+def test_nearest_cull_reads_a_few_tiles_of_a_scan_pair():
+    """box_r25's first two scans in the world frame (the benchmark's scene
+    on the CPU, ~62k points and ~64k queries): the seeded cull reads under
+    5% of the (warp, tile) pairs, where the search without a bound reads
+    them all."""
+    import json
+    import os
+
+    from benchmark.scene import open_box
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "benchmark", "configs", "box_r25.json")) as f:
+        scene = json.load(f)["scene"]
+    (s0, T0), (s1, T1) = open_box(scene, 2 ** 33 + 12345, "cpu", ids=[0, 1])
+
+    def world(s, T):
+        p = np.stack([s["x"], s["y"], s["z"]], 1)
+        return (p @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+
+    pts, q = world(s0, T0), world(s1, T1)
+    stats = kc.nearest_cull_stats(pts, np.ones(len(pts), bool), q)
+    assert stats["tiles"] == -(-len(pts) // kc.TILE) and stats["warps"] == -(-len(q) // 32)
+    assert stats["pair_share"] < 0.05, stats
+    assert stats["tiles_per_warp"] >= 3
