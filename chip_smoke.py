@@ -7,11 +7,9 @@ Phases (any failure raises and the exit code is non-zero):
 
 1. build   — compile the CUDA kernels of depth_correction_tpu_torch/csrc.
 2. kernels — K1 (cell-window moments forward) and K2 (backward) against
-   their plain torch versions, float32 and float64, and against their
-   first versions (csrc/cellwin_v1.cu: bit for bit, K2 also with an
-   all-ones cotangent table), on a seeded synthetic graph at row_cap =
-   pt_cap = 128; the pair tests the warps' box cull keeps, counted on the
-   host, beside all of them.
+   their plain torch versions, float32 and float64, on a seeded synthetic
+   graph at row_cap = pt_cap = 128; the pair tests the warps' box cull
+   keeps, counted on the host, beside all of them.
 3. slice   — the uncapped min-eigenvalue training step at the JAX bench's
    configuration (bench.py:bench_config(uncapped=True)), scene
    open_box/n_6_size_20_20_5_height_1_density_400 (its scans generated
@@ -25,33 +23,27 @@ Phases (any failure raises and the exit code is non-zero):
    columns of its train_history.csv); X2, K1 and K2 must have
    launched, the loss at w=0 must match the float64 plain path within 1e-5
    relative, and K1/K2 are checked as in phase 2 and timed at the slice's
-   shapes, each in turns with its first version (v1, new, new, v1); the
-   profiled step is taken with the new kernels and with the first
-   versions.
+   shapes; one step is profiled.
 4. node    — the online corrector at the JAX bench's node workload
    (bench.py:build_node_scan: the raw 129,000-point scan of
    open_box/n_6_size_20_20_5_height_1_density_215, slab engine, float32)
    through DepthCorrector.process and correct_cloud; X1 must have launched
    and meet its bars against the float64 plain version on the node's own
-   sorted inputs, and equal its first version (csrc/slabwin_v1.cu) bit for
-   bit there; both are timed in turns (first version, redesign, redesign,
-   first version), with the share of pair tests the warps' cull keeps
-   (host model, scripts/slab_cull.py); the corrected points are held
+   sorted inputs; it is timed there, with the share of pair tests the
+   warps' cull keeps (host model, scripts/slab_cull.py); the corrected
+   points are held
    against the port's plain float64 node path; node_ms, node_e2e_ms and
    node_points are printed.
 5. small   — a scan of the same box below 65,536 padded points
    (density 100), routed to the brute engine (K = 32): X3 and P7 must have
    launched; node_ms is printed beside the 358.307 ms of the eager
    sort-based search that preceded X3; X3 is held against its plain twin
-   and its first version (csrc/knn_brute_v1.cu) on the node's own points
-   (top-k: index tables equal and d2 bit for bit; counts equal), both
-   versions are timed in turns in both modes (first version, redesign,
-   redesign, first version), with the search kernel's own time, the share
-   of pair tests the cull keeps (host model, scripts/knn_cull.py) and the
-   bounds of the kept and of all pair tests; P7 must meet its bars on the
-   node's own neighbour table, and is timed there in turns with its first
-   version (csrc/gather_moments_v1.cu; by events and by the profiler's
-   kernel durations; the largest |new - v1| of each output printed);
+   on the node's own points (top-k: index tables equal and d2 bit for bit;
+   counts equal) and timed in both modes, with the search kernel's own
+   time, the share of pair tests the cull keeps (host model,
+   scripts/knn_cull.py) and the bounds of the kept and of all pair tests;
+   P7 must meet its bars on the node's own neighbour table, and is timed
+   there (by events and by the profiler's kernel durations);
    then P7 and its plain version are timed at the shapes of
    scripts/exp_pallas_gather.py's stage 2 and held within 1e-5 relative.
 6. probes  — the port's probe scripts (depth_correction_tpu_torch/scripts),
@@ -60,54 +52,42 @@ Phases (any failure raises and the exit code is non-zero):
    from phase 3; `full` and `no_cull` must be bit-equal to K1, every mode
    meet its bars against its float64 plain version), P2 (exp_mosaic_dot_probe: the
    moment product in fp32 / tf32 / tf32x2 / tf32x3, torch.bmm timed beside
-   it; every variant against its first version, csrc/moment_dot_v1.cu,
-   within 1e-5 per row or bit-equal, both timed in turns by events and by
-   the profiler's kernel durations), P3-P5 (exp_mosaic_dot_probe2-4: the product with in-kernel
+   it), P3-P5 (exp_mosaic_dot_probe2-4: the product with in-kernel
    operands and K1's structural pieces), at the TPU scripts' seeds and
-   shapes. Every variant must be within 1e-5 (relative, per output row) of
-   its float32 plain version; fp32 and tf32x3 within 1e-5 of the float64
-   oracle; every P3-P5 variant against its first version
-   (csrc/moment_window_v1.cu) bit-equal or within 1e-5 per row, both timed
-   in turns by events and by the profiler's kernel durations; a table of
-   ms per variant is printed.
+   shapes, every variant timed by events and by the profiler's kernel
+   durations. Every variant must be within 1e-5 (relative, per output row)
+   of its float32 plain version; fp32 and tf32x3 within 1e-5 of the
+   float64 oracle; a table of ms per variant is printed.
 7. grid    — X2 (the grid radius search) against its plain twin on the
    card, on phase 3's global cloud and on its first scan: index tables
-   equal, distances within one float32 ulp, counts equal; against its
-   first version (csrc/grid_query_v1.cu): index tables, distances bit for
-   bit and counts equal; against scipy's float64 sets on the scan (a pair
-   may differ only within 1e-6 r of the radius); both versions timed in
-   turns at both sizes, top-k and counts. P7 on the global cloud's X2
-   table (prep's largest call) against its float64 plain version (the
-   node's bars) and its first version, in turns. X2 at the grid node's shapes (the
+   equal, distances within one float32 ulp, counts equal; against scipy's
+   float64 sets on the scan (a pair may differ only within 1e-6 r of the
+   radius); timed at both sizes, top-k and counts. P7 on the global
+   cloud's X2 table (prep's largest call) against its float64 plain
+   version (the node's bars), timed. X2 at the grid node's shapes (the
    traced 2^21-cell grid of phase 4's filtered scan; k = 32, the node's,
    and k = 16, below the scan's largest count, so the top-k cuts) against
-   its plain twin and its first version, as above, both timed in turns.
-   Then the node's grid
+   its plain twin, as above, and timed. Then the node's grid
    engine (X2 + P7, K = 32) on phase 4's scan, held within 1e-4 m of the
    float64 plain grid node, with node_ms and node_e2e_ms as phase 4
    measures them.
 8. probes  — P6 (exp_mosaic_probe: the seven layout probes), P8
    (exp_pallas_gather2: gather cases A-E, global and staged, B's staged
-   form on a cluster of 8 blocks; the script must not launch P8's first
-   version; every case and form bit-equal to the first version,
-   csrc/gather_probe_v1.cu, and B's global and cluster forms, the first
-   version, torch.gather and the global form on sorted indices timed in
-   turns by the profiler's kernel durations and by events) and P7's two
-   stages (exp_pallas_gather: P7a, the gather-sum probe, bit-equal to its
-   plain version; P7 at stage 2 within 1e-5), each script run with the
-   launch counts zeroed just before and read just after; every P6 and P8
-   form exact against its plain version, every P6 probe equal to its first
-   version (csrc/layout_probe_v1.cu) on both inputs and both timed in
-   turns by the profiler's kernel durations, torch.matmul beside dot_tlhs
+   form on a cluster of 8 blocks; B's global and cluster forms,
+   torch.gather and the global form on sorted indices timed in turns by
+   the profiler's kernel durations and by events) and P7's two stages
+   (exp_pallas_gather: P7a, the gather-sum probe, bit-equal to its plain
+   version; P7 at stage 2 within 1e-5), each script run with the launch
+   counts zeroed just before and read just after; every P6 and P8 form
+   exact against its plain version, every P6 probe on both inputs and
+   timed by the profiler's kernel durations, torch.matmul beside dot_tlhs
    and x.T.contiguous() beside transpose_f32; embedding_bag, one PyTorch
    call computing P7a's function, timed and held within 1e-6 of its plain
-   version; P7a bit-equal to its first version (csrc/gather_sum_v1.cu) and
-   both timed in turns, its device time printed beside embedding_bag's
-   (slower or not); P7 at stage 2's shapes against its first version in
-   turns.
+   version; P7a's device time printed beside embedding_bag's (slower or
+   not); P7 at stage 2's shapes timed.
 
 Every main path (phases 3-5, 7, 9-14, 16-17, 19) runs with all launch counts zeroed
-before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
+before it.
 9. capped  — the bench's capped row (bench.py:bench_config(uncapped=False):
    K = 32 with mutual trimming, the gather moments: P7 forward, X4
    backward over the transpose prep builds) on
@@ -119,8 +99,8 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    float_type, the data directory and shadow_angle_bounds set) on an open
    box written as ASL-laser CSV files into a temporary directory. X3 and
    P7 must have launched in prep. On one scan, X3's counts (which size
-   k_dir) and top-k over the view directions equal their plain twins and
-   X3's first version (timed and bounded as in phase 5), the shadow mask
+   k_dir) and top-k over the view directions equal their plain twins
+   (timed and bounded as in phase 5), the shadow mask
    drops some points and keeps others, and local_feature_cloud keeps as
    many. X3 on the global cloud at the establishment's r and a K sized by
    its counts, held and timed the same way (prep itself routes this cloud
@@ -192,7 +172,7 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    the gather path, P7 and X4 once a step, no K1 or K2), the step
    time, the loss at w=0 within 1e-5 of float64. Then with exception rows
    allowed up to 25% (the first pose's frame tilts the scene against the
-   cells): X2, X3 and P7 in prep, K1 and K2 each step, no first version;
+   cells): X2, X3 and P7 in prep, K1 and K2 each step;
    kitti360_step_ms, prep seconds, the loss at w=0 within 1e-5 of
    float64. Then nn_backend = native on phase 5's small scan: the
    library's build timed, its
@@ -216,9 +196,9 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    (benchmark/street.py's scan 24 against its scans 0-23 merged at 0.1 m,
    ~115k against ~446k rows): events, device time, the plain twin's time
    and the tiles its warps read (the kernel's tally) as a share of all,
-   against the all-pairs and bytes bounds, the keys bit for bit X3's first
-   version's; X6 on that registration's first step against its plain
-   twin in float32 and float64 (the threshold bit for bit the float32
+   against the all-pairs and bytes bounds, the distances and indices bit
+   for bit the plain twin's; X6 on that
+   registration's first step against its plain twin in float32 and float64 (the threshold bit for bit the float32
    twin's, the inliers both twins', T within 2e-6 of the float64 twin's),
    timed against its bound. Both pipelines again on the same clouds and priors in
    float64 on the plain path: every pose within 1e-4 m and 1e-5 rad, the
@@ -265,7 +245,7 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    part, scale_step_ms (median, spread), the f32 kernels' loss at w = 0
    within 1e-5 of the float64 plain path on the same graph, w against the
    injected -0.002, the peak device bytes, one profiled step; K1 and K2 on
-   the scale graph against their plain twins and first versions, timed
+   the scale graph against their plain twins, timed
    there. If the cell-window build declines at density 300 the run is the
    gather path (the JAX package's fallback) and K1 / K2 run on the
    largest neighbouring density whose build the builder accepts. (b)
@@ -284,15 +264,11 @@ before it, and fails if any first version (``*_V1_LAUNCHES``) launched.
    cotangents: each within 1e-4 of max |output| of its float64 plain
    version and two launches bit-equal; timed by CUDA events and by the
    profiler's kernel durations beside its plain version, its bound, and,
-   for X5, index_add_ (one PyTorch call computing its function); each
-   redesign (the tiles in cell order) against its first version
-   (csrc/transpose_gather_v1.cu, point order) in turns, v1, v2, v2, v1,
-   the first version (over features.point_csr) within the same bar; the
+   for X5, index_add_ (one PyTorch call computing its function); the
    tiles' pairs a row in cell order and in point order (the same graph
    built over features.index_order) and prep's transpose seconds (the
-   variants of scripts/exp_transpose_variants.py run alone); on the
-   capped graph the gather step in turns with
-   X4's first version substituted; the step's gradient in w within 1e-4
+   variants of scripts/exp_transpose_variants.py run alone); the step's
+   gradient in w within 1e-4
    of the float64 plain path's, and in the points X4 within 1e-4 of its
    float64 plain version inside the float32 step (the float32 step
    against the float64 plain path printed). Then the pairs a row of phase
@@ -312,20 +288,17 @@ count with them would overstate is printed.
 The last two lines of stdout are a JSON object with per-kernel numbers
 (time, plain time, launches, error, the bound and what sets it, the
 library call's time where one PyTorch call computes the same function;
-for K1 and K2 also their first versions' time `v1_ms`, both kernels'
-own durations by the profiler `kernel_ms` / `v1_kernel_ms`, the pair
-tests the box cull keeps `pairs_kept`, counted by the host model of the
-cull (scripts/cellwin_cull.py) and not read from the kernels, and the
-first versions' bound `bound_all_pairs_ms`, which charges every span pair
-test; for X1 the same, by scripts/slab_cull.py, and its first version's
-time `v1_ms`; for X2 its first version's time at each input; for X3 the
-same two bounds and its first version's time on each of its three inputs;
-for P2, P3-P5 and P6 their first versions' times `v1_ms`, both versions' kernel
-durations `kernel_ms` / `v1_kernel_ms` and per-variant times of both; for
-P7a and P7 the same three times, and for P7 per shape (the probe's, the
-small scan's node table, the global cloud's top-k table) with its bound
-and the largest |new - v1| `max_abs_err_v1`, and its launches in the
-slice's and the default config's prep; for
+for K1 and K2 also the kernels' own durations by the profiler
+`kernel_ms`, the pair tests the box cull keeps `pairs_kept`, counted by
+the host model of the cull (scripts/cellwin_cull.py) and not read from
+the kernels, and the bound `bound_all_pairs_ms`, which charges every span
+pair test; for X1 the same, by scripts/slab_cull.py; for X2 its time at
+each input; for X3 the same two bounds on each of its three inputs; for
+P2, P3-P5 and P6 the kernel durations `kernel_ms` and per-variant times;
+for P7a and P7 the kernel durations too, and for P7 per shape (the
+probe's, the small scan's node table, the global cloud's top-k table)
+with its bound, and its launches in the slice's and the default config's
+prep; for
 P2, P6, P7a and P8 the library call's device time by the profiler beside
 its events time; for X3 also eval_icp's k = 1 calls, ``inputs.icp_pairs``,
 and their count ``launches_icp_eval``) and {"ok": true, "device": {...}}. Before them, one line
@@ -335,7 +308,6 @@ Without a CUDA device the script fails before printing any result.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import statistics
@@ -529,11 +501,9 @@ def in_turns(first, second, reps: int = 50) -> tuple:
 
 
 def compare_kernels(pts_sorted, dev, seed: int, label: str, card: str = ""):
-    """K1/K2 against the plain versions (float32 and float64) and against
-    their first versions (bit for bit; K2 also with an all-ones cotangent
-    table) on the same float32 inputs; raises on a missed bar. Returns
-    per-kernel numbers, with times when ``card`` (the nvidia-smi line) is
-    given."""
+    """K1/K2 against the plain versions (float32 and float64) on the same
+    float32 inputs; raises on a missed bar. Returns per-kernel numbers, with
+    times when ``card`` (the nvidia-smi line) is given."""
     import numpy as np
     import torch
 
@@ -542,14 +512,6 @@ def compare_kernels(pts_sorted, dev, seed: int, label: str, card: str = ""):
 
     f_args = (dev.q_est, dev.est_sorted, dev.f_start, dev.f_len, dev.f_ctr, dev.r2)
     raw_k = cw.cellwin_fwd(pts_sorted, *f_args)
-    raw_v1 = cw.cellwin_fwd_v1(pts_sorted, *f_args)
-    torch.cuda.synchronize()
-    same = bit_equal(raw_k, raw_v1)
-    same9 = bit_equal(raw_k[9], raw_v1[9])
-    log("  %s K1 vs its first version: bit-equal %s (max %d ulp), member counts (row 9) equal %s"
-        % (label, same, _f32_ulps(raw_k, raw_v1), same9))
-    if not (same and same9):
-        raise RuntimeError("%s K1 differs from its first version" % label)
     raw_32 = cw.cellwin_fwd_plain(pts_sorted, *f_args)
     raw_64 = cw.cellwin_fwd_plain(pts_sorted.double(), *f_args)
     rows = (dev.row_map >= 0).clone()
@@ -571,16 +533,6 @@ def compare_kernels(pts_sorted, dev, seed: int, label: str, card: str = ""):
     table_32 = table_64.float().contiguous()
     b_args = (dev.b_start, dev.b_len, dev.b_ctr, dev.r2)
     grad_k = cw.cellwin_bwd(pts_sorted, dev.q_est, dev.est_sorted, table_32, *b_args)
-    grad_v1 = cw.cellwin_bwd_v1(pts_sorted, dev.q_est, dev.est_sorted, table_32, *b_args)
-    ones = torch.ones_like(table_32)
-    ones_k = cw.cellwin_bwd(pts_sorted, dev.q_est, dev.est_sorted, ones, *b_args)
-    ones_v1 = cw.cellwin_bwd_v1(pts_sorted, dev.q_est, dev.est_sorted, ones, *b_args)
-    torch.cuda.synchronize()
-    same, same1 = bit_equal(grad_k, grad_v1), bit_equal(ones_k, ones_v1)
-    log("  %s K2 vs its first version: bit-equal %s (max %d ulp); all-ones table bit-equal %s"
-        % (label, same, _f32_ulps(grad_k, grad_v1), same1))
-    if not (same and same1):
-        raise RuntimeError("%s K2 differs from its first version" % label)
     grad_32 = cw.cellwin_bwd_plain(pts_sorted, dev.q_est, dev.est_sorted, table_32, *b_args)
     grad_64 = cw.cellwin_bwd_plain(pts_sorted.double(), dev.q_est, dev.est_sorted,
                                    table_32.double(), *b_args)
@@ -595,29 +547,19 @@ def compare_kernels(pts_sorted, dev, seed: int, label: str, card: str = ""):
         raise RuntimeError("%s K2 misses its bar vs float64: %s" % (label, gres["f64"]))
     out = {"fwd_err": max(res["f64"]), "bwd_err": gres["f64"][0], "kept": pairs_kept(dev)}
     if card:
-        log("  %s K1 first version, new:" % label)
-        out["fwd_v1_ms"], out["fwd_ms"] = in_turns(
-            lambda: cw.cellwin_fwd_v1(pts_sorted, *f_args),
-            lambda: cw.cellwin_fwd(pts_sorted, *f_args))
-        out["fwd_plain_ms"] = cuda_ms(lambda: cw.cellwin_fwd_plain(pts_sorted, *f_args), reps=5)
         bargs = (pts_sorted, dev.q_est, dev.est_sorted, table_32) + b_args
-        log("  %s K2 first version, new:" % label)
-        out["bwd_v1_ms"], out["bwd_ms"] = in_turns(lambda: cw.cellwin_bwd_v1(*bargs),
-                                                   lambda: cw.cellwin_bwd(*bargs))
+        calls = {"fwd": lambda: cw.cellwin_fwd(pts_sorted, *f_args),
+                 "bwd": lambda: cw.cellwin_bwd(*bargs)}
+        for name, call in calls.items():
+            out[name + "_ms"] = cuda_ms(call, reps=50)
+            # The kernel's own duration (profiler).
+            out[name + "_kernel_ms"] = kernel_ms(call, DEVICE, reps=20)
+        out["fwd_plain_ms"] = cuda_ms(lambda: cw.cellwin_fwd_plain(pts_sorted, *f_args), reps=5)
         out["bwd_plain_ms"] = cuda_ms(lambda: cw.cellwin_bwd_plain(*bargs), reps=5)
-        # The kernels' own durations (profiler), in the same turns.
-        calls = {"fwd_v1": lambda: cw.cellwin_fwd_v1(pts_sorted, *f_args),
-                 "fwd": lambda: cw.cellwin_fwd(pts_sorted, *f_args),
-                 "bwd_v1": lambda: cw.cellwin_bwd_v1(*bargs), "bwd": lambda: cw.cellwin_bwd(*bargs)}
-        for name in ("fwd_v1", "fwd", "bwd", "bwd_v1"):
-            out[name + "_kernel_ms"] = kernel_ms(calls[name], DEVICE, reps=20)
-        log("  %s timing (float32): K1 %.4f ms (first version %.4f, %.2fx; kernel alone %.4f vs "
-            "%.4f) vs plain %.4f ms; K2 %.4f ms (first version %.4f, %.2fx; kernel alone %.4f vs "
-            "%.4f) vs plain %.4f ms (%s)"
-            % (label, out["fwd_ms"], out["fwd_v1_ms"], out["fwd_v1_ms"] / out["fwd_ms"],
-               out["fwd_kernel_ms"], out["fwd_v1_kernel_ms"], out["fwd_plain_ms"], out["bwd_ms"],
-               out["bwd_v1_ms"], out["bwd_v1_ms"] / out["bwd_ms"], out["bwd_kernel_ms"],
-               out["bwd_v1_kernel_ms"], out["bwd_plain_ms"], card))
+        log("  %s timing (float32): K1 %.4f ms (kernel alone %.4f) vs plain %.4f ms; K2 %.4f ms "
+            "(kernel alone %.4f) vs plain %.4f ms (%s)"
+            % (label, out["fwd_ms"], out["fwd_kernel_ms"], out["fwd_plain_ms"], out["bwd_ms"],
+               out["bwd_kernel_ms"], out["bwd_plain_ms"], card))
     return out
 
 
@@ -721,7 +663,6 @@ def phase_slice(card: str):
         raise RuntimeError("the cellwin build declined: the slice would not run the kernels")
     rec = Record(cfg)
     trained, history = train_logged(cfg, callbacks=rec, train_data=data)
-    check_no_first_versions("the slice's prep and train()")
     check_transposes("slice (exception rows)", cfg, data, STEPS)
     launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES, "grid": grid_launches,
                 "knn": knn_launches, "gather_prep": gather_launches}
@@ -763,9 +704,6 @@ def phase_slice(card: str):
         raise RuntimeError("loss at w=0 misses the 1e-5 bar: %.3e" % loss_rel)
 
     profile = profile_steps(cfg, data, card)
-    log("the same step with the first versions of K1 and K2 (csrc/cellwin_v1.cu):")
-    with first_versions():
-        profile_v1 = profile_steps(cfg, data, card)
 
     # Kernels at the slice's own shapes, on the step's inputs at w=0.
     ps = points_at_w0(data, graph, DEVICE)
@@ -774,24 +712,11 @@ def phase_slice(card: str):
     return {
         "launches": launches, "kernels": k, "step_ms": step_ms, "prep_s": prep_s,
         "loss_rel": loss_rel, "w_rel": w_rel, "profile": profile,
-        "profile_v1": profile_v1, "graph": graph, "ps": ps, "data": data, "cfg": cfg,
+        "graph": graph, "ps": ps, "data": data, "cfg": cfg,
         "seq": seq, "model": trained, "losses": [rec.loss[i] for i in sorted(rec.loss)],
         "w": [rec.w[i] for i in sorted(rec.w)],
     }
 
-
-@contextlib.contextmanager
-def first_versions():
-    """The training step's K1 and K2 swapped for their first versions (the
-    step calls the wrappers through ops/cellwin.py's module names)."""
-    from depth_correction_tpu_torch.ops import cellwin as cw
-
-    saved = cw.cellwin_fwd, cw.cellwin_bwd
-    cw.cellwin_fwd, cw.cellwin_bwd = cw.cellwin_fwd_v1, cw.cellwin_bwd_v1
-    try:
-        yield
-    finally:
-        cw.cellwin_fwd, cw.cellwin_bwd = saved
 
 
 def profile_steps(cfg, data, card: str, n: int = 3):
@@ -906,7 +831,6 @@ def drive_node(scan, cfg, card: str, label: str, batches: int, reps: int, e2e_re
     out = node.process(scan)
     outs = correct_cloud(model, cloud, cfg)
     torch.cuda.synchronize()
-    check_no_first_versions(label)
     launches = {"slab": _kernels.SLAB_LAUNCHES, "gather": _kernels.GATHER_LAUNCHES,
                 "grid": _kernels.GRID_LAUNCHES, "knn": _kernels.KNN_LAUNCHES}
     kept = int(outs[4].sum())
@@ -973,7 +897,7 @@ def phase_node(card: str):
 
     from depth_correction_tpu_torch.node import NODE_N_CELLS_PAD, _slab_layout
     from depth_correction_tpu_torch.ops import slabwin
-    from depth_correction_tpu_torch.scripts import exp_grid_slab_ab as ab
+    from depth_correction_tpu_torch.scripts import slab_cull
 
     cfg = node_config("slab")
     t0 = time.perf_counter()
@@ -1004,35 +928,31 @@ def phase_node(card: str):
     if not (err[0] <= MEAN_ABS_BAR and err[1] <= COMPS_ABS_BAR):
         raise RuntimeError("X1 misses its bars vs float64: %s" % (err,))
     res["x1_err"] = max(err)
-    # Against its first version (bit for bit), both timed in turns, with the
-    # pair tests the warps' cull keeps (host model, scripts/slab_cull.py).
-    x1 = ab.x1_ab(pts_T, valid, lo, width, ctr, r2)
-    log("X1 vs its first version (csrc/slabwin_v1.cu): bit-equal %s; turns (ms, first version "
-        "first): %s; host model: %d of %d pair tests kept (%.4f), %d box tests"
-        % (x1["equal"], ", ".join("%.4f" % v for v in x1["turns"]), x1["kept"], x1["all"],
-           x1["kept"] / x1["all"], x1["box"]))
-    if not x1["equal"]:
-        raise RuntimeError("X1 differs from its first version")
+    # The pair tests the warps' cull keeps (host model, scripts/slab_cull.py).
+    kept, all_pairs, box = slab_cull.cull_pair_tests(pts_T, valid, lo, width, ctr, r2)
+    log("X1 host model: %d of %d pair tests kept (%.4f), %d box tests"
+        % (kept, all_pairs, kept / all_pairs, box))
     # Bound: the pair tests the cull keeps and its box tests (PAIR_OPS and
     # BOX_OPS float ops), ~19 per member, an epilogue per row; all pairs:
-    # every row of a live tile tests every slot of its three spans, the
-    # first version's work. Bytes: positions, validity, span tables and
-    # centres read once, (10, n) written once.
+    # every row of a live tile tests every slot of its three spans. Bytes:
+    # positions, validity, span tables and centres read once, (10, n)
+    # written once.
     n, t = pts_T.shape[1], lo.shape[0]
     members = float(out[9][valid].sum())
     x1_bytes = n * (12 + 1 + 40) + t * 36
-    res["x1_bound"] = bound(x1_bytes, {"fp32": PAIR_OPS * x1["kept"] + BOX_OPS * x1["box"]
+    res["x1_bound"] = bound(x1_bytes, {"fp32": PAIR_OPS * kept + BOX_OPS * box
                                        + 19 * members + 30 * n})
-    res["x1_bound_all_pairs"] = bound(x1_bytes, {"fp32": PAIR_OPS * x1["all"] + 19 * members
+    res["x1_bound_all_pairs"] = bound(x1_bytes, {"fp32": PAIR_OPS * all_pairs + 19 * members
                                                  + 30 * n})
-    res["x1_ms"], res["x1_v1_ms"] = x1["ms"], x1["v1_ms"]
-    res["x1_kept"] = (x1["kept"], x1["all"], x1["box"])
+    res["x1_ms"] = cuda_ms(lambda: slabwin.slab_window_kernel(pts_T, valid, lo, width, ctr, r2),
+                           reps=50)
+    res["x1_kept"] = (kept, all_pairs, box)
     res["x1_plain_ms"] = cuda_ms(
         lambda: slabwin.slab_window_moments_plain(pts_T, valid, lo, width, ctr, r2), reps=3)
-    log("X1 timing (float32, node shapes): kernel %.4f ms, first version %.4f ms, plain %.4f "
-        "ms; bound %.4f ms (%s; all pairs %.4f) (%s)"
-        % (res["x1_ms"], res["x1_v1_ms"], res["x1_plain_ms"], res["x1_bound"][0],
-           res["x1_bound"][1], res["x1_bound_all_pairs"][0], card))
+    log("X1 timing (float32, node shapes): kernel %.4f ms, plain %.4f ms; bound %.4f ms (%s; "
+        "all pairs %.4f) (%s)"
+        % (res["x1_ms"], res["x1_plain_ms"], res["x1_bound"][0], res["x1_bound"][1],
+           res["x1_bound_all_pairs"][0], card))
     res["scan"] = scan
     return res
 
@@ -1082,7 +1002,7 @@ def phase_small(card: str):
     node_plain_ms = cuda_ms(lambda: features.gather_moments_plain(points, nn, w), reps=5)
     log("P7 timing (float32, node table): kernel %.4f ms vs plain %.4f ms (%s)"
         % (node_ms, node_plain_ms, card))
-    res["p7_node"] = p7_ab("small scan's node table", points, nn, w, card, reps=50)
+    res["p7_node"] = p7_timing("small scan's node table", points, nn, w, card, reps=50)
     res["native_inputs"] = points, keep, float(cfg.nn_r)  # phase 14's native KD-tree
 
     # The probe's stage-2 shapes (scripts/exp_pallas_gather.py:75-81).
@@ -1132,13 +1052,12 @@ def check_knn(label: str, points, valid, r: float, k: int, card: str,
     top-k's queries are the valid rows, or every row with ``every_row``, as
     the shadow filter's radius_neighbors call passes no valid_query; the
     counts' are every row), called as the path calls it, against its plain
-    twin and its first version (csrc/knn_brute_v1.cu) on the card, in both
-    modes: the top-k within r (index tables equal, d2 bit for bit) and the
-    counts (equal). Both versions timed in turns, the
-    search kernel's own time apart from the ordering's (profiler), and two
-    bounds: every pair test (the first version's work) and the pair and box
-    tests the cull keeps, counted by the host model scripts/knn_cull.py on
-    these inputs (the kernel counts nothing). Raises on a missed bar."""
+    twin on the card, in both modes: the top-k within r (index tables
+    equal, d2 bit for bit) and the counts (equal). Timed, the search
+    kernel's own time apart from the ordering's (profiler), and two bounds:
+    every pair test and the pair and box tests the cull keeps, counted by
+    the host model scripts/knn_cull.py on these inputs (the kernel counts
+    nothing). Raises on a missed bar."""
     import torch
 
     from depth_correction_tpu_torch.ops import knn
@@ -1148,25 +1067,17 @@ def check_knn(label: str, points, valid, r: float, k: int, card: str,
     args = (points, points, k, r, valid, q_valid)
     d2, idx = knn.knn_d2(*args)
     counts = knn.neighbor_counts(points, points, r, valid)
-    v1_d2, v1_idx = knn.knn_brute_v1(*args)
-    v1_counts = knn.knn_brute_v1(points, points, 0, r, valid)
     torch.cuda.synchronize()
     pd2, pidx = knn.knn_d2(*args, plain=True)
     pcounts = knn.neighbor_counts(points, points, r, valid, plain=True)
-    same = {"plain": (bool(torch.equal(idx, pidx)), bit_equal(d2, pd2),
-                      bool(torch.equal(counts, pcounts))),
-            "v1": (bool(torch.equal(idx, v1_idx)), bit_equal(d2, v1_d2),
-                   bool(torch.equal(counts, v1_counts)))}
+    same = (bool(torch.equal(idx, pidx)), bit_equal(d2, pd2), bool(torch.equal(counts, pcounts)))
     n, nv = points.shape[0], int(valid.sum())
     held = int((idx >= 0).sum())
     log("X3 %s: %d points (%d valid), k %d, r %g (largest count %d, %d pairs held); against "
-        "the plain twin / the first version: index tables equal %s / %s, d2 bit-equal %s / %s, "
-        "counts equal %s / %s"
-        % (label, n, nv, k, r, int(counts.max()), held, same["plain"][0], same["v1"][0],
-           same["plain"][1], same["v1"][1], same["plain"][2], same["v1"][2]))
-    if not all(same["plain"] + same["v1"]):
-        raise RuntimeError("X3 %s misses its bars against the plain twin or its first version"
-                           % label)
+        "the plain twin: index tables equal %s, d2 bit-equal %s, counts equal %s"
+        % (label, n, nv, k, r, int(counts.max()), held, *same))
+    if not all(same):
+        raise RuntimeError("X3 %s misses its bars against the plain twin" % label)
     t0 = time.perf_counter()
     cull = {"topk": knn_cull.cull_stats(points, valid, r, k, q_valid=q_valid),
             "counts": knn_cull.cull_stats(points, valid, r, 0)}
@@ -1185,13 +1096,8 @@ def check_knn(label: str, points, valid, r: float, k: int, card: str,
                            "counts (%d, %d)" % (label, cull["topk"]["members"],
                                                 cull["counts"]["members"], *members))
     res = {"err": 0.0, "k": k, "largest_count": int(counts.max()), "cull": cull}
-    log("  X3 %s top-%d, first version then the redesign:" % (label, k))
-    res["v1_ms"], res["ms"] = in_turns(lambda: knn.knn_brute_v1(*args),
-                                       lambda: knn.knn_d2(*args), reps=20)
-    log("  X3 %s counts, first version then the redesign:" % label)
-    res["counts_v1_ms"], res["counts_ms"] = in_turns(
-        lambda: knn.knn_brute_v1(points, points, 0, r, valid),
-        lambda: knn.neighbor_counts(points, points, r, valid), reps=20)
+    res["ms"] = cuda_ms(lambda: knn.knn_d2(*args), reps=20)
+    res["counts_ms"] = cuda_ms(lambda: knn.neighbor_counts(points, points, r, valid), reps=20)
     for mode, fn in (("", lambda: knn.knn_d2(*args)),
                      ("counts_", lambda: knn.neighbor_counts(points, points, r, valid))):
         names = kernels_by_name(fn)
@@ -1215,25 +1121,24 @@ def check_knn(label: str, points, valid, r: float, k: int, card: str,
                                       + BOX_OPS * cull["topk"]["box_tests"]})
     res["counts_bound"] = bound(counts_bytes, {"fp32": PAIR_OPS * cull["counts"]["kept_pairs"]
                                                + BOX_OPS * cull["counts"]["box_tests"]})
-    log("X3 %s timing (float32): top-%d %.4f ms (first version %.4f, %.2fx; search kernel "
-        "%.4f, ordering and packing %.4f; plain %.4f; bound %.4f kept pairs, %.4f all pairs), "
-        "counts %.4f ms (first version %.4f, %.2fx; search kernel %.4f, ordering and packing "
-        "%.4f; plain %.4f; bound %.4f kept pairs, %.4f all pairs) (%s)"
-        % (label, k, res["ms"], res["v1_ms"], res["v1_ms"] / res["ms"], res["tiles_ms"],
-           res["order_ms"], res["plain_ms"], res["bound"][0], res["bound_all_pairs"][0],
-           res["counts_ms"], res["counts_v1_ms"], res["counts_v1_ms"] / res["counts_ms"],
-           res["counts_tiles_ms"], res["counts_order_ms"], res["counts_plain_ms"],
-           res["counts_bound"][0], res["counts_bound_all_pairs"][0], card))
+    log("X3 %s timing (float32): top-%d %.4f ms (search kernel %.4f, ordering and packing "
+        "%.4f; plain %.4f; bound %.4f kept pairs, %.4f all pairs), counts %.4f ms (search "
+        "kernel %.4f, ordering and packing %.4f; plain %.4f; bound %.4f kept pairs, %.4f all "
+        "pairs) (%s)"
+        % (label, k, res["ms"], res["tiles_ms"], res["order_ms"], res["plain_ms"],
+           res["bound"][0], res["bound_all_pairs"][0], res["counts_ms"], res["counts_tiles_ms"],
+           res["counts_order_ms"], res["counts_plain_ms"], res["counts_bound"][0],
+           res["counts_bound_all_pairs"][0], card))
     return res
 
 
 def x3_summary(res: dict) -> dict:
     """X3's numbers on one input for the kernels line."""
     return {"k": res["k"], "largest_count": res["largest_count"], "ms": res["ms"],
-            "v1_ms": res["v1_ms"], "search_kernel_ms": res["tiles_ms"],
+            "search_kernel_ms": res["tiles_ms"],
             "order_ms": res["order_ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound"][0], "bound_all_pairs_ms": res["bound_all_pairs"][0],
-            "counts_ms": res["counts_ms"], "counts_v1_ms": res["counts_v1_ms"],
+            "counts_ms": res["counts_ms"],
             "counts_search_kernel_ms": res["counts_tiles_ms"],
             "counts_plain_ms": res["counts_plain_ms"],
             "counts_bound_ms": res["counts_bound"][0],
@@ -1286,8 +1191,8 @@ def phase_probes(card: str, graph, ps, kept: tuple):
 
     from depth_correction_tpu_torch.ops import cellwin as cw
     from depth_correction_tpu_torch.ops.cellwin_knockout import cellwin_knockout_plain
-    from depth_correction_tpu_torch.ops.moment_dot import moment_dot_plain
-    from depth_correction_tpu_torch.ops.moment_window import moment_window_plain
+    from depth_correction_tpu_torch.ops.moment_dot import moment_dot, moment_dot_plain
+    from depth_correction_tpu_torch.ops.moment_window import moment_window, moment_window_plain
     from depth_correction_tpu_torch.scripts import (
         exp_cellwin_knockout as p1, exp_mosaic_dot_probe as p2, exp_mosaic_dot_probe2 as p3,
         exp_mosaic_dot_probe3 as p4, exp_mosaic_dot_probe4 as p5,
@@ -1350,42 +1255,22 @@ def phase_probes(card: str, graph, ps, kept: tuple):
     log("  P2 torch.bmm (one call, the same %d products): fp32 %.4f ms, TF32 allowed %.4f ms; "
         "allow_tf32 back to %s" % (p2.T1, lib["fp32"], lib["tf32"],
                                    torch.backends.cuda.matmul.allow_tf32))
-    # The redesign against its first version (csrc/moment_dot_v1.cu), every
-    # variant, in turns (v1, new, new, v1) by CUDA events and by the
-    # profiler's kernel durations (the device time, as torch.bmm's beside).
-    ab2 = p2.first_version_ab(dev)
-    for v, x in ab2.items():
-        log("  P2 %-7s redesign %9.4f ms (kernel %9.4f), first version %9.4f ms (kernel %9.4f); "
-            "bit-equal to v1 %s, max |new - v1| %.3e, per row %.3e; kernel turns %s"
-            % (v, x["ms"], x["kernel_ms"], x["v1_ms"], x["v1_kernel_ms"], x["equal"],
-               x["max_abs"], x["rel_rows"], ", ".join("%.4f" % t for t in x["kernel_turns"])))
-        bar(x["equal"] or x["rel_rows"] <= PROBE_REL_BAR,
-            "P2 %s misses %.0e per row vs its first version: %.3e"
-            % (v, PROBE_REL_BAR, x["rel_rows"]))
     a, b, _ = p2.inputs(dev)
     e = r2["variants"]["tf32x3"]
-    head2 = ab2["tf32x3"]
-    log("  P2 device time (profiler): tf32x3 %.4f ms (first version %.4f), fp32 %.4f ms (first "
-        "version %.4f), torch.bmm fp32 %.4f ms (%s)"
-        % (head2["kernel_ms"], head2["v1_kernel_ms"], ab2["fp32"]["kernel_ms"],
-           ab2["fp32"]["v1_kernel_ms"], lib["fp32_device"], card))
+    k2 = kernel_ms(lambda: moment_dot(a, b, p2.T1, "tf32x3"), DEVICE, p2.STEPS)
+    log("  P2 device time (profiler): tf32x3 %.4f ms, torch.bmm fp32 %.4f ms (%s)"
+        % (k2, lib["fp32_device"], card))
     dot_bytes = a.numel() * 4 + b.numel() * 4 + e["out"].numel() * 4
     entries.append({
         "name": "moment_dot (P2)", "route": "cuda",
         "source": "depth_correction_tpu_torch/csrc/moment_dot.cu",
         "replaces": "scripts/exp_mosaic_dot_probe.py:50", "launches": n2,
-        "max_abs_err": e["abs64"], "ms": head2["ms"], "v1_ms": head2["v1_ms"],
-        "kernel_ms": head2["kernel_ms"], "v1_kernel_ms": head2["v1_kernel_ms"],
+        "max_abs_err": e["abs64"], "ms": e["ms"], "kernel_ms": k2,
         "plain_ms": cuda_ms(lambda: moment_dot_plain(a, b, p2.T1, "tf32x3"), reps=3, warmup=1),
         "bound": bound(dot_bytes, {"tf32": 3 * 2 * 16 * p2.NS * p2.S * p2.R * p2.T1}),
         "fp32_bound_ms": bound(dot_bytes, {"fp32": 2 * 16 * p2.NS * p2.S * p2.R * p2.T1})[0],
         "library_ms": lib["fp32"], "library_device_ms": lib["fp32_device"],
-        "variants": {v: x["ms"] for v, x in ab2.items()},
-        "v1_variants": {v: x["v1_ms"] for v, x in ab2.items()},
-        "kernel_variants": {v: x["kernel_ms"] for v, x in ab2.items()},
-        "v1_kernel_variants": {v: x["v1_kernel_ms"] for v, x in ab2.items()},
-        "v1_bit_equal": {v: x["equal"] for v, x in ab2.items()},
-        "v1_max_abs": {v: x["max_abs"] for v, x in ab2.items()}})
+        "variants": {v: x["ms"] for v, x in r2["variants"].items()}})
 
     # P3-P5: the product with in-kernel operands; headline variants
     # tf32x3, E_all and J_all.
@@ -1416,37 +1301,20 @@ def phase_probes(card: str, graph, ps, kept: tuple):
             if exact:
                 bar(e[key] <= PROBE_REL_BAR, "%s %s misses %.0e vs float64: %.3e"
                     % (label, v, PROBE_REL_BAR, e[key]))
-        # The redesign against its first version (csrc/moment_window_v1.cu),
-        # every variant, in turns (v1, new, new, v1) by CUDA events and by
-        # the profiler's kernel durations.
-        ab = mod.first_version_ab(dev)
-        for v, x in ab.items():
-            log("  %s %-18s redesign %9.4f ms (kernel %9.4f), first version %9.4f ms (kernel "
-                "%9.4f); bit-equal to v1 %s, max |new - v1| %.3e, per row %.3e; kernel turns %s"
-                % (label, v, x["ms"], x["kernel_ms"], x["v1_ms"], x["v1_kernel_ms"], x["equal"],
-                   x["max_abs"], x["rel_rows"], ", ".join("%.4f" % t for t in x["kernel_turns"])))
-            bar(x["equal"] or x["rel_rows"] <= PROBE_REL_BAR,
-                "%s %s misses %.0e per row vs its first version: %.3e"
-                % (label, v, PROBE_REL_BAR, x["rel_rows"]))
         hw, hq, hkw = head_args()
         prec = "tf32x3"
-        e, h = res["variants"][head], ab[head]
-        log("  %s device time (profiler): %s %.4f ms (first version %.4f) (%s)"
-            % (label, head, h["kernel_ms"], h["v1_kernel_ms"], card))
+        e = res["variants"][head]
+        k = kernel_ms(lambda: moment_window(hw, hq, p3.R2, prec=prec, **hkw), DEVICE, mod.STEPS)
+        log("  %s device time (profiler): %s %.4f ms (%s)" % (label, head, k, card))
         entries.append({
             "name": "moment_window (%s)" % label, "route": "cuda",
             "source": "depth_correction_tpu_torch/csrc/moment_window.cu",
-            "replaces": replaces, "launches": n, "max_abs_err": e["abs64"], "ms": h["ms"],
-            "v1_ms": h["v1_ms"], "kernel_ms": h["kernel_ms"], "v1_kernel_ms": h["v1_kernel_ms"],
+            "replaces": replaces, "launches": n, "max_abs_err": e["abs64"], "ms": e["ms"],
+            "kernel_ms": k,
             "plain_ms": cuda_ms(lambda: moment_window_plain(hw, hq, p3.R2, prec=prec, **hkw),
                                 reps=2, warmup=1),
             "bound": _window_bound(hw, hq, hkw, passes=3), "library_ms": None,
-            "variants": {v: x["ms"] for v, x in ab.items()},
-            "v1_variants": {v: x["v1_ms"] for v, x in ab.items()},
-            "kernel_variants": {v: x["kernel_ms"] for v, x in ab.items()},
-            "v1_kernel_variants": {v: x["v1_kernel_ms"] for v, x in ab.items()},
-            "v1_bit_equal": {v: x["equal"] for v, x in ab.items()},
-            "v1_max_abs": {v: x["max_abs"] for v, x in ab.items()}})
+            "variants": {v: x["ms"] for v, x in res["variants"].items()}})
 
     log("probe table (ms per call, %s):" % card)
     log("  %-26s %10s %10s %10s  %s" % ("kernel", "ms", "plain ms", "bound ms", "variants"))
@@ -1479,25 +1347,13 @@ def counted(fn, attr: str):
 
 def reset_all_launch_counts() -> None:
     """Zero every kernel's launch count (ops/_kernels.py and K1/K2's in
-    ops/cellwin.py), first versions included."""
+    ops/cellwin.py)."""
     from depth_correction_tpu_torch.ops import _kernels
     from depth_correction_tpu_torch.ops import cellwin as cw
 
     _kernels.reset_launch_counts()
     cw.reset_launch_counts()
 
-
-def check_no_first_versions(label: str) -> None:
-    """Raises if any first version (the A/B's ``*_V1_LAUNCHES``) launched
-    since the counts were last zeroed: no main path may reach one."""
-    from depth_correction_tpu_torch.ops import _kernels
-    from depth_correction_tpu_torch.ops import cellwin as cw
-
-    counts = {name: getattr(mod, name) for mod in (_kernels, cw) for name in dir(mod)
-              if name.endswith("_V1_LAUNCHES")}
-    if any(counts.values()):
-        raise RuntimeError("%s launched first versions: %s"
-                           % (label, {k: v for k, v in counts.items() if v}))
 
 
 def transpose_launches() -> dict:
@@ -1559,33 +1415,27 @@ def p7_bound(n_pts: int, mq: int, k: int) -> tuple:
     return bound(mq * k * 8 + n_pts * 12 + mq * 10 * 4, {"fp32": 22 * mq * k})
 
 
-def p7_ab(label: str, points, nn, w, card: str, reps: int = 20) -> dict:
-    """P7 against its first version (csrc/gather_moments_v1.cu) on the same
-    inputs, both timed in turns (v1, new, new, v1) by the profiler's kernel
-    durations and by events; with this shape's bound. Returns
-    scripts/exp_pallas_gather.moments_ab's dict with "bound"."""
-    import torch
+def p7_timing(label: str, points, nn, w, card: str, reps: int = 20) -> dict:
+    """P7 on one table timed by the profiler's kernel durations
+    (``kernel_ms``) and by events (``ms``), with this shape's ``bound``."""
+    from depth_correction_tpu_torch.ops import features
 
-    from depth_correction_tpu_torch.scripts import exp_pallas_gather as p7
+    def call():
+        return features.gather_moments(points, nn, w)
 
-    ab = p7.moments_ab(points, nn, w, torch.device(DEVICE), reps)
     n_pts = points.shape[0] if points.shape[1] == 3 else points.shape[1]
-    ab["bound"] = p7_bound(n_pts, nn.shape[0], nn.shape[1])
-    log("P7 vs its first version (%s: N %d, MQ %d, K %d): largest |new - v1| mean %.3e, comps "
-        "%.3e, w_sum %.3e; device %.4f ms, v1 %.4f (turns %s); events %.4f, v1 %.4f (turns %s); "
-        "bound %.4f ms (%s) (%s)"
-        % (label, n_pts, nn.shape[0], nn.shape[1], ab["diff_v1"]["mean"],
-           ab["diff_v1"]["comps"], ab["diff_v1"]["w_sum"], ab["kernel_ms"], ab["v1_kernel_ms"],
-           ", ".join("%.4f" % v for v in ab["kernel_turns"]), ab["ms"], ab["v1_ms"],
-           ", ".join("%.4f" % v for v in ab["turns"]), ab["bound"][0], ab["bound"][1], card))
-    return ab
+    res = {"kernel_ms": kernel_ms(call, DEVICE, reps), "ms": cuda_ms(call, reps=reps),
+           "bound": p7_bound(n_pts, nn.shape[0], nn.shape[1])}
+    log("P7 timing (%s: N %d, MQ %d, K %d): device %.4f ms, events %.4f ms; bound %.4f ms (%s) "
+        "(%s)" % (label, n_pts, nn.shape[0], nn.shape[1], res["kernel_ms"], res["ms"],
+                  res["bound"][0], res["bound"][1], card))
+    return res
 
 
-def p7_shape(ab: dict) -> dict:
-    """A P7 A/B result as the kernels line carries it per shape."""
-    return {"ms": ab["ms"], "v1_ms": ab["v1_ms"], "kernel_ms": ab["kernel_ms"],
-            "v1_kernel_ms": ab["v1_kernel_ms"], "bound_ms": ab["bound"][0],
-            "bound_by": ab["bound"][1], "max_abs_err_v1": max(ab["diff_v1"].values())}
+def p7_shape(res: dict) -> dict:
+    """P7's timing on one table as the kernels line carries it per shape."""
+    return {"ms": res["ms"], "kernel_ms": res["kernel_ms"], "bound_ms": res["bound"][0],
+            "bound_by": res["bound"][1]}
 
 
 def _f32_ulps(a, b) -> int:
@@ -1595,36 +1445,37 @@ def _f32_ulps(a, b) -> int:
     return int((a.view(torch.int32).long() - b.view(torch.int32).long()).abs().max())
 
 
-def check_x2_first_version(label: str, x2: dict) -> None:
-    """Logs X2 against its first version (ab.x2_ab's result); raises unless
-    index tables, distances (bit for bit) and counts are equal."""
-    log("X2 %s vs its first version (csrc/grid_query_v1.cu): equal %s; turns (ms, first "
-        "version first): top-%d %s, counts %s"
-        % (label, x2["equal"], x2["k"], ", ".join("%.4f" % v for v in x2["turns"]),
-           ", ".join("%.4f" % v for v in x2["counts_turns"])))
-    if not all(x2["equal"].values()):
-        raise RuntimeError("X2 %s differs from its first version: %s" % (label, x2["equal"]))
+def x2_query(points, valid, r: float, k: int, grid):
+    """X2 on ``points`` (every row queries, in the grid's slot order) over
+    the sorted ``grid`` (the first 7 fields of grid_hash._build_grid's):
+    a call of it, as the path makes it, at ``k`` (0: the counts)."""
+    import torch
+
+    from depth_correction_tpu_torch.ops import grid_hash as gh
+
+    pts_T, val_s, ids_s, order, mins, dims, cell = grid
+    r2 = torch.full((), r, dtype=torch.float32) ** 2
+    return lambda: gh.grid_query(points, valid, pts_T, val_s, ids_s, order, mins, dims, r2, k,
+                                 None, cell, own_points=True)
 
 
 def check_grid_query(label: str, points, valid, r: float, card: str) -> dict:
-    """X2 on ``points`` (all rows query) against its plain twin and its first
-    version on the card: top-k (k = the prep's suggest_k_max) and counts;
-    both versions timed in turns; its bound from the runs it reads. Raises
-    on a missed bar."""
+    """X2 on ``points`` (all rows query) against its plain twin on the card:
+    top-k (k = the prep's suggest_k_max) and counts, both timed; its bound
+    from the runs it reads. Raises on a missed bar."""
     import torch
 
     from depth_correction_tpu_torch.ops import grid_hash as gh
     from depth_correction_tpu_torch.ops.knn import suggest_k_max
-    from depth_correction_tpu_torch.scripts import exp_grid_slab_ab as ab
 
     k = suggest_k_max(points, r=r, valid_points=valid)
     grid, _ = gh._build_grid(points, valid, r, None, None)
     (pts_T, val_s, ids_s, order, mins, dims, cell, _) = grid
     r2 = torch.full((), r, dtype=torch.float32) ** 2
     args = (points, valid, pts_T, val_s, ids_s, order, mins, dims, r2)
-    x2 = ab.x2_ab(points, valid, r, k, grid=grid[:7])
-    check_x2_first_version(label, x2)
-    d, idx, counts = x2["d"], x2["idx"], x2["counts"]
+    topk, count = x2_query(points, valid, r, k, grid[:7]), x2_query(points, valid, r, 0, grid[:7])
+    d, idx = topk()
+    counts = count()
     # The plain twin's window: the JAX query's dense table and width.
     starts, width = gh._query_window(ids_s, int(dims.prod()))
     pd, pidx = gh._grid_query_plain(*args, k, width, cell, starts)
@@ -1651,17 +1502,15 @@ def check_grid_query(label: str, points, valid, r: float, card: str) -> dict:
         raise RuntimeError("X2 %s misses its bars against the plain twin" % label)
     n, nq = pts_T.shape[1], points.shape[0]
     res = {"k": k, "pairs": pairs, "members": members, "err": err, "idx": idx, "counts": counts,
-           "ms": x2["ms"], "v1_ms": x2["v1_ms"], "counts_ms": x2["counts_ms"],
-           "v1_counts_ms": x2["v1_counts_ms"],
+           "ms": cuda_ms(topk, reps=20), "counts_ms": cuda_ms(count, reps=20),
            "plain_ms": cuda_ms(lambda: gh._grid_query_plain(*args, k, width, cell, starts),
                                reps=1, warmup=1),
            # Bound: 8 float ops per pair test; queries, the sorted table
            # (positions, ids, order) and the (Q, k) outputs moved once.
            "bound": bound(nq * 13 + n * 20 + nq * k * 8, {"fp32": 8 * pairs})}
-    log("X2 %s timing (float32): top-%d %.4f ms (first version %.4f), counts %.4f ms (first "
-        "version %.4f), plain %.4f ms, bound %.4f ms (%s) (%s)"
-        % (label, k, res["ms"], res["v1_ms"], res["counts_ms"], res["v1_counts_ms"],
-           res["plain_ms"], res["bound"][0], res["bound"][1], card))
+    log("X2 %s timing (float32): top-%d %.4f ms, counts %.4f ms, plain %.4f ms, bound %.4f ms "
+        "(%s) (%s)" % (label, k, res["ms"], res["counts_ms"], res["plain_ms"], res["bound"][0],
+                       res["bound"][1], card))
     return res
 
 
@@ -1669,10 +1518,10 @@ def check_grid_node_neighbors(scan, ks, card: str) -> dict:
     """X2 at the grid node's shapes: the traced grid of 2^21 cells over the
     node scan's filtered float32 points, for each k of ``ks``, against the
     plain twin on the same grid, with the launch count zeroed just before
-    each kernel call, and against its first version (bit for bit), both
-    timed in turns on the node's grid. Raises on a missed bar or when no row
-    has more than the smallest k neighbours (the kernel's merge then drops
-    keys). Returns {k: {"over": rows with more than k, "ms", "v1_ms"}}."""
+    each kernel call, and timed on the node's grid. Raises on a missed bar
+    or when no row has more than the smallest k neighbours (the kernel's
+    merge then drops keys). Returns {k: {"over": rows with more than k,
+    "ms"}}."""
     import numpy as np
     import torch
 
@@ -1681,7 +1530,6 @@ def check_grid_node_neighbors(scan, ks, card: str) -> dict:
     from depth_correction_tpu_torch.ops import _kernels
     from depth_correction_tpu_torch.ops.grid_hash import grid_sort_traced
     from depth_correction_tpu_torch.preproc import pad_size
-    from depth_correction_tpu_torch.scripts import exp_grid_slab_ab as ab
 
     cfg = node_config("grid")
     r = float(cfg.nn_r)
@@ -1712,13 +1560,11 @@ def check_grid_node_neighbors(scan, ks, card: str) -> dict:
         if launches != 1 or not (same_idx and same_fin and 0 <= ulps <= 1):
             raise RuntimeError("X2 misses its bars against the plain twin at the grid node's "
                                "shapes (k %d)" % k)
-        x2 = ab.x2_ab(points, keep, r, k, grid=grid)
-        check_x2_first_version("grid node (k %d)" % k, x2)
-        if not bool(torch.equal(x2["idx"], idx)):
+        topk = x2_query(points, keep, r, k, grid)
+        if not bool(torch.equal(topk()[1], idx)):
             raise RuntimeError("X2 on the node's grid differs from the node's own call")
-        res[k] = {"over": over, "ms": x2["ms"], "v1_ms": x2["v1_ms"]}
-        log("X2 grid node timing (k %d): %.4f ms (first version %.4f) (%s)"
-            % (k, x2["ms"], x2["v1_ms"], card))
+        res[k] = {"over": over, "ms": cuda_ms(topk, reps=20)}
+        log("X2 grid node timing (k %d): %.4f ms (%s)" % (k, res[k]["ms"], card))
     if res[min(ks)]["over"] <= 0:
         raise RuntimeError("no row of the grid node has more than %d neighbours: the top-k "
                            "cut was not exercised" % min(ks))
@@ -1729,7 +1575,7 @@ def check_p7_global(g, idx, card: str) -> dict:
     """P7 at the largest call a main path makes: prep's global features on
     the slice's global cloud ``g`` with X2's top-k table ``idx`` (weight 1
     on every neighbour), held to the node's bars against the float64 plain
-    version on the valid rows, and against its first version in turns."""
+    version on the valid rows, and timed."""
     from depth_correction_tpu_torch.ops import features
 
     points = g.get_points().contiguous()
@@ -1743,7 +1589,7 @@ def check_p7_global(g, idx, card: str) -> dict:
         "comps max abs %.3e m^2" % (idx.shape[0], idx.shape[1], int(rows.sum()), err[0], err[1]))
     if not (err[0] <= MEAN_ABS_BAR and err[1] <= COMPS_ABS_BAR):
         raise RuntimeError("P7 misses its bars vs float64 on the global cloud: %s" % (err,))
-    return dict(p7_ab("global cloud, X2's top-%d" % idx.shape[1], points, idx, w, card),
+    return dict(p7_timing("global cloud, X2's top-%d" % idx.shape[1], points, idx, w, card),
                 err=max(err))
 
 
@@ -1789,8 +1635,7 @@ def phase_grid(card: str, data, cfg, scan):
 
 def phase_probes_p6_p8(card: str):
     """The P6, P8 and P7 scripts on the card; each script's launches are
-    counted alone; P7a and P7 (at the probe's shapes) against their first
-    versions in turns. Returns their kernels-line entries and P7's A/B at
+    counted alone. Returns their kernels-line entries and P7's timing at
     the probe's shapes."""
     import torch
 
@@ -1806,50 +1651,36 @@ def phase_probes_p6_p8(card: str):
     r6b, n6b = counted(lambda: p6.run(dev, reps=1, first=200.0), "LAYOUT_LAUNCHES")
     for name, e in r6["probes"].items():
         e2 = r6b["probes"][name]
-        log("  P6 %-22s %-4s (sum %.3e; x[0,0] = 200: %s, sum %.3e) %9.4f ms"
-            % (name, "OK" if e["err"] == 0 else "FAIL", e["sum"],
-               "OK" if e2["err"] == 0 else "FAIL", e2["sum"], e["ms"]))
-        if e["err"] != 0 or e2["err"] != 0:
-            failures.append("P6 %s differs from its plain version" % name)
-    # The redesign against its first version (csrc/layout_probe_v1.cu):
-    # equal on both inputs, and both timed in turns by the profiler's kernel
-    # durations (the device time; at these sizes the events time the host's
-    # issue rate) and by events, with torch.matmul beside dot_tlhs and
-    # x.T.contiguous() beside transpose_f32.
-    ab6 = p6.first_version_ab(dev)
-    for name, e in ab6.items():
+        # The profiler's kernel durations are the device time; at these
+        # sizes the events time the host's issue rate.
         lib = (", %s %.4f ms (events %.4f)" % (e["library"], e["library_kernel_ms"],
                                                e["library_ms"]) if "library" in e else "")
-        log("  P6 %-22s equal to v1 %s; kernel %.4f ms, v1 %.4f ms; events %.4f / %.4f%s"
-            % (name, e["equal"], e["kernel_ms"], e["v1_kernel_ms"], e["ms"], e["v1_ms"], lib))
-        if not e["equal"]:
-            failures.append("P6 %s differs from its first version" % name)
+        log("  P6 %-22s %-4s (sum %.3e; x[0,0] = 200: %s, sum %.3e) %9.4f ms (kernel %.4f)%s"
+            % (name, "OK" if e["err"] == 0 else "FAIL", e["sum"],
+               "OK" if e2["err"] == 0 else "FAIL", e2["sum"], e["ms"], e["kernel_ms"], lib))
+        if e["err"] != 0 or e2["err"] != 0:
+            failures.append("P6 %s differs from its plain version" % name)
     x = p6.inputs(dev)
     head = "dot_tlhs"
-    h6 = ab6[head]
-    log("  P6 device time (profiler): %s %.4f ms (first version %.4f), torch.matmul %.4f ms (%s)"
-        % (head, h6["kernel_ms"], h6["v1_kernel_ms"], h6["library_kernel_ms"], card))
+    h6 = r6["probes"][head]
+    log("  P6 device time (profiler): %s %.4f ms, torch.matmul %.4f ms (%s)"
+        % (head, h6["kernel_ms"], h6["library_kernel_ms"], card))
     entries = [{
         "name": "layout_probe (P6)", "route": "cuda",
         "source": "depth_correction_tpu_torch/csrc/layout_probe.cu",
         "replaces": "scripts/exp_mosaic_probe.py:37", "launches": n6 + n6b,
         "max_abs_err": max(max(e["err"] for e in r["probes"].values()) for r in (r6, r6b)),
-        "ms": h6["ms"], "v1_ms": h6["v1_ms"], "kernel_ms": h6["kernel_ms"],
-        "v1_kernel_ms": h6["v1_kernel_ms"],
+        "ms": h6["ms"], "kernel_ms": h6["kernel_ms"],
         "plain_ms": cuda_ms(lambda: layout_probe_plain(x, head), reps=20),
         # Bound: x read once and the (512, 128) output written once; three
         # TF32 passes of 2 x 512 x 128 x 8.
         "bound": bound(x.numel() * 4 + 4 * p6.S * 128, {"tf32": 3 * 2 * p6.S * 128 * 8}),
         "library_ms": h6["library_ms"], "library_device_ms": h6["library_kernel_ms"],
-        "variants": {n: e["ms"] for n, e in ab6.items()},
-        "v1_variants": {n: e["v1_ms"] for n, e in ab6.items()},
-        "kernel_variants": {n: e["kernel_ms"] for n, e in ab6.items()},
-        "v1_kernel_variants": {n: e["v1_kernel_ms"] for n, e in ab6.items()},
-        "transpose_library_device_ms": ab6["transpose_f32"]["library_kernel_ms"]}]
+        "variants": {n: e["ms"] for n, e in r6["probes"].items()},
+        "kernel_variants": {n: e["kernel_ms"] for n, e in r6["probes"].items()},
+        "transpose_library_device_ms": r6["probes"]["transpose_f32"]["library_kernel_ms"]}]
 
     r8, n8 = counted(lambda: p8.run(dev), "GATHER_PROBE_LAUNCHES")
-    if _kernels.GATHER_PROBE_V1_LAUNCHES:
-        failures.append("the P8 script launched P8's first version")
     for case, forms in r8["cases"].items():
         for form, e in forms.items():
             if e is None:
@@ -1860,31 +1691,26 @@ def phase_probes_p6_p8(card: str):
                 % (case, form, "OK" if e["err"] == 0 else "FAIL", e["err"], e["ms"]))
             if e["err"] != 0:
                 failures.append("P8 %s %s differs from its plain version" % (case, form))
-    # The redesign against its first version (csrc/gather_probe_v1.cu): bit
-    # for bit on every case and form, and B's forms, v1 and torch.gather
-    # timed in turns by the profiler's kernel durations and by events.
-    ab8 = p8.first_version_ab(dev)
-    for name in ab8["ms"]:
+    # B's forms and torch.gather timed in turns by the profiler's kernel
+    # durations and by events.
+    b8 = p8.b_turns(dev)
+    for name in b8["ms"]:
         log("  P8 B %-13s device %.4f ms (turns %s), events %.4f ms (%s)"
-            % (name, ab8["kernel_ms"][name],
-               ", ".join("%.4f" % v for v in ab8["kernel_turns"][name]), ab8["ms"][name], card))
-    log("  P8 bit-equal to its first version: %s"
-        % ", ".join("%s %s" % kv for kv in ab8["equal"].items()))
-    if not all(ab8["equal"].values()):
-        failures.append("P8 differs from its first version: %s" % ab8["equal"])
+            % (name, b8["kernel_ms"][name],
+               ", ".join("%.4f" % v for v in b8["kernel_turns"][name]), b8["ms"][name], card))
     xb, ib, axis = p8.inputs(dev)["B"]
-    k8 = ab8["kernel_ms"]
+    k8 = b8["kernel_ms"]
     entries.append({
         "name": "gather_probe (P8)", "route": "cuda",
         "source": "depth_correction_tpu_torch/csrc/gather_probe.cu",
         "replaces": "scripts/exp_pallas_gather2.py:35", "launches": n8,
         "max_abs_err": max(e["err"] for f in r8["cases"].values() for e in f.values() if e),
-        "ms": ab8["ms"]["global"], "kernel_ms": k8["global"], "v1_ms": ab8["ms"]["v1"],
-        "v1_kernel_ms": k8["v1"], "plain_ms": ab8["ms"]["torch_gather"],
+        "ms": b8["ms"]["global"], "kernel_ms": k8["global"],
+        "plain_ms": b8["ms"]["torch_gather"],
         # Bound (case B): x, the indices and the output moved once.
         "bound": bound(xb.numel() * 4 + ib.numel() * 8, {"fp32": 0}),
         # The plain version is one PyTorch call (torch.gather).
-        "library_ms": ab8["ms"]["torch_gather"], "library_device_ms": k8["torch_gather"],
+        "library_ms": b8["ms"]["torch_gather"], "library_device_ms": k8["torch_gather"],
         "cluster_kernel_ms": k8["cluster"], "sorted_kernel_ms": k8["global_sorted"],
         "variants": {"%s_%s" % (c, f): e["ms"] for c, fs in r8["cases"].items()
                      for f, e in fs.items() if e}})
@@ -1897,7 +1723,8 @@ def phase_probes_p6_p8(card: str):
         % ("OK" if pr["err"] == 0 else "FAIL", pr["err"], pr["rel64"], pr["ms"],
            pr["plain_ms"]))
     log("  P7 stage 2 (%d launches) rel err vs plain float32 %.3e, float64 %.3e %9.4f ms "
-        "(plain %.4f ms)" % (n7_moments, mo["err32"], mo["err64"], mo["ms"], mo["plain_ms"]))
+        "(device %.4f ms, plain %.4f ms)" % (n7_moments, mo["err32"], mo["err64"], mo["ms"],
+                                             mo["kernel_ms"], mo["plain_ms"]))
     if pr["err"] != 0:
         failures.append("P7a is not bit-equal to its plain version")
     if n7_moments <= 0 or not (mo["err32"] <= PROBE_REL_BAR and mo["err64"] <= PROBE_REL_BAR):
@@ -1909,20 +1736,11 @@ def phase_probes_p6_p8(card: str):
     if not lib7["rel"] <= 1e-6:
         failures.append("embedding_bag misses 1e-6 against P7a's plain version: %.3e"
                         % lib7["rel"])
-    # Both stages against their first versions, in turns.
-    ab7a = p7.probe_ab(dev, d7)
-    log("  P7a vs its first version (csrc/gather_sum_v1.cu): bit-equal %s; device %.4f ms, v1 "
-        "%.4f (turns %s); events %.4f, v1 %.4f (turns %s) (%s)"
-        % (ab7a["equal"], ab7a["kernel_ms"], ab7a["v1_kernel_ms"],
-           ", ".join("%.4f" % v for v in ab7a["kernel_turns"]), ab7a["ms"], ab7a["v1_ms"],
-           ", ".join("%.4f" % v for v in ab7a["turns"]), card))
     log("  P7a device %.4f ms against embedding_bag's %.4f ms: %s (%s)"
-        % (ab7a["kernel_ms"], lib7["kernel_ms"],
-           "at or below it" if ab7a["kernel_ms"] <= lib7["kernel_ms"] else
-           "SLOWER, %.2fx" % (ab7a["kernel_ms"] / lib7["kernel_ms"]), card))
-    if not ab7a["equal"]:
-        failures.append("P7a differs from its first version")
-    ab7 = p7_ab("probe's stage 2", *d7["moments"], card)
+        % (pr["kernel_ms"], lib7["kernel_ms"],
+           "at or below it" if pr["kernel_ms"] <= lib7["kernel_ms"] else
+           "SLOWER, %.2fx" % (pr["kernel_ms"] / lib7["kernel_ms"]), card))
+    stage2 = p7_timing("probe's stage 2", *d7["moments"], card)
     m7, t7, k7 = p7.PROBE_M, p7.PROBE_T, p7.PROBE_K
     entries.append({
         "name": "gather_sum (P7a)", "route": "cuda",
@@ -1932,13 +1750,12 @@ def phase_probes_p6_p8(card: str):
         # Bound: the table, the indices and the (3, T) output moved once;
         # one add per gathered value.
         "bound": bound(3 * m7 * 4 + t7 * k7 * 4 + 3 * t7 * 4, {"fp32": 3 * t7 * k7}),
-        "kernel_ms": ab7a["kernel_ms"], "v1_ms": ab7a["v1_ms"],
-        "v1_kernel_ms": ab7a["v1_kernel_ms"],
+        "kernel_ms": pr["kernel_ms"],
         "library_ms": lib7["ms"], "library_device_ms": lib7["kernel_ms"],
         "variants": {"stage2_moments": mo["ms"]}})
     if failures:
         raise RuntimeError("probe bars missed: " + "; ".join(failures))
-    return entries, ab7
+    return entries, stage2
 
 
 def phase_capped(card: str, seq):
@@ -1973,7 +1790,6 @@ def phase_capped(card: str, seq):
         raise RuntimeError("the capped prep did not run as the bench's: %s" % launches)
     _kernels.reset_launch_counts()
     _, history = train_logged(cfg, train_data=data)
-    check_no_first_versions("the capped row's prep and train()")
     x45 = check_transposes("capped", cfg, data, STEPS)
     losses = [h["train_loss"] for h in history]
     if not all(math.isfinite(v) for v in losses):
@@ -2123,7 +1939,7 @@ def check_global_knn(data, cfg, card: str) -> dict:
     (rounded up to 8, as suggest_k_max rounds). Prep routes this cloud to
     the grid search (X2), its padded size being at least
     GRID_NN_MIN_POINTS; here X3 runs on it directly and is held against its
-    twin and its first version (check_knn)."""
+    twin (check_knn)."""
     from depth_correction_tpu_torch import preproc
     from depth_correction_tpu_torch.ops import knn
     from depth_correction_tpu_torch.ops.grid_hash import GRID_NN_MIN_POINTS
@@ -2278,7 +2094,6 @@ def phase_default(card: str):
         t0 = time.perf_counter()
         data = prepare_sequences([ds], cfg)
         prep_s = time.perf_counter() - t0
-        check_no_first_versions("the default config's prep")
         launches = {"knn": _kernels.KNN_LAUNCHES, "grid": _kernels.GRID_LAUNCHES,
                     "gather": _kernels.GATHER_LAUNCHES}
         rows = int(data.masks[0].sum())
@@ -2298,7 +2113,6 @@ def phase_default(card: str):
             raise RuntimeError("the default masks kept no row")
         reset_all_launch_counts()
         model, history = train_logged(cfg, train_data=data)
-        check_no_first_versions("the default config's train()")
         launches.update(check_transposes("default", cfg, data, STEPS))
         losses = [h["train_loss"] for h in history]
         if not all(math.isfinite(v) for v in losses):
@@ -2380,7 +2194,6 @@ def phase_pose(card: str, data, cfg):
     deltas = leaves(cfg.torch_dtype())
     reset_all_launch_counts()
     _, history = fit(cfg, data, pose_deltas=deltas)
-    check_no_first_versions("the pose slice's fit()")
     launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES}
     check_transposes("pose (exception rows)", cfg, data, STEPS)
     final = deltas[0].detach().cpu().numpy()
@@ -2468,7 +2281,6 @@ def fit_counted(cfg, data, label: str):
 
     reset_all_launch_counts()
     _, history = fit(cfg, data)
-    check_no_first_versions(label)
     launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES, "grid": _kernels.GRID_LAUNCHES,
                 "knn": _kernels.KNN_LAUNCHES, "gather": _kernels.GATHER_LAUNCHES,
                 **transpose_launches()}
@@ -2511,7 +2323,6 @@ def prep_counted(cfg, seq, label: str):
     t0 = time.perf_counter()
     data = prepare_sequences([seq], cfg)
     seconds = time.perf_counter() - t0
-    check_no_first_versions(label)
     launches = {"grid": _kernels.GRID_LAUNCHES, "knn": _kernels.KNN_LAUNCHES,
                 "gather": _kernels.GATHER_LAUNCHES}
     log("%s prep: %.3f s (%s); launches X2 %d, X3 %d, P7 %d"
@@ -2653,7 +2464,6 @@ def phase_icp(card: str, seq):
         value, (seqs, poses) = eval_icp(ecfg, [seq], return_data=True)
     torch.cuda.synchronize()
     eval_ms = (time.perf_counter() - t0) * 1e3
-    check_no_first_versions("eval_icp")
     n_pairs = sum(len(s) - 1 for s in seqs)
     if len(calls) != n_pairs or any(c["launches"] != 1 for c in calls):
         raise RuntimeError("eval_icp's %d pairs made %d k = 1 calls, launches %s"
@@ -2800,7 +2610,6 @@ def phase_nn_scale(card: str, cfg, ds, base_p7: int):
     t0 = time.perf_counter()
     data = prepare_sequences([ds], cfg)
     prep_s = time.perf_counter() - t0
-    check_no_first_versions("the nn_scale prep")
     p7, x2, x3 = _kernels.GATHER_LAUNCHES, _kernels.GRID_LAUNCHES, _kernels.KNN_LAUNCHES
     history, launches = fit_counted(cfg, data, "the nn_scale fit()")
     loss_rel, loss64 = w0_rel(cfg, data, history[0][1])
@@ -3325,14 +3134,13 @@ def mean_errors(gt, est) -> tuple:
     return float(t.mean()), float(a.mean())
 
 
-def x3_k1_entry(points, query, valid, card: str, first_version: bool = False) -> dict:
+def x3_k1_entry(points, query, valid, card: str, held: bool = False) -> dict:
     """X3 at k = 1 with no radius on one call's inputs (its nearest search):
     events and the profiler's kernel time, the plain twin's events, and the
     tiles each warp read (the kernel's tally) over all (warp, tile) pairs,
     against the all-pairs bound (every query against every valid point)
-    and the bytes bound (points, queries and results once). With
-    ``first_version``, the keys are held bit for bit to X3's first version
-    (knn_brute_v1.cu), which is timed too."""
+    and the bytes bound (points, queries and results once). With ``held``,
+    the distances and indices are held bit for bit to the plain twin's."""
     import math
 
     import torch
@@ -3347,8 +3155,8 @@ def x3_k1_entry(points, query, valid, card: str, first_version: bool = False) ->
     b = bound(n * 13 + q * 12 + q * 8, {"fp32": PAIR_OPS * q * nv})
     tally = torch.zeros(((q + 31) // 32,), dtype=torch.int32, device=points.device)
     before = _kernels.KNN_NEAREST_LAUNCHES
-    d2, idx = _kernels.launch_knn_brute(query.contiguous(), None, points.contiguous(), valid,
-                                        math.inf, 1, tally=tally)
+    _kernels.launch_knn_brute(query.contiguous(), None, points.contiguous(), valid, math.inf, 1,
+                              tally=tally)
     if _kernels.KNN_NEAREST_LAUNCHES != before + 1:
         raise RuntimeError("X3 k = 1 did not take its nearest search")
     n_tiles = -(-n // 128)
@@ -3359,13 +3167,11 @@ def x3_k1_entry(points, query, valid, card: str, first_version: bool = False) ->
            "pair_share": float(tally.double().sum()) / (tally.numel() * n_tiles),
            "plain_ms": cuda_ms(lambda: knn.nearest_neighbors(points, query, 1, None, valid,
                                                              plain=True), reps=1, warmup=0)}
-    if first_version:
-        v1_d2, v1_idx = knn.knn_brute_v1(points, query, 1, None, valid)
-        if not (torch.equal(idx, v1_idx) and torch.equal(d2.view(torch.int32),
-                                                         v1_d2.view(torch.int32))):
-            raise RuntimeError("X3's nearest search differs from its first version")
-        out["v1_ms"] = cuda_ms(lambda: knn.knn_brute_v1(points, query, 1, None, valid), reps=2,
-                               warmup=1)
+    if held:
+        dist, nidx = call()
+        pdist, pidx = knn.nearest_neighbors(points, query, 1, None, valid, plain=True)
+        if not (torch.equal(nidx, pidx) and bit_equal(dist, pdist)):
+            raise RuntimeError("X3's nearest search differs from the plain twin")
     return out
 
 
@@ -3394,7 +3200,7 @@ def street_map_entry(card: str) -> dict:
     ones = torch.ones(len(pts), dtype=torch.bool, device=DEVICE)
     keep, bad = grid_first_mask(pts, 0.1, ones)
     pts = pts[keep].contiguous()
-    return x3_k1_entry(pts, world(scans[24]), ones[:len(pts)], card, first_version=True)
+    return x3_k1_entry(pts, world(scans[24]), ones[:len(pts)], card, held=True)
 
 
 # X6's float operations an inlier: r (3 subtractions, 3 products, 2 sums)
@@ -3530,7 +3336,6 @@ def run_slam(fn, clouds, odom, label: str, plain: bool = False) -> dict:
         ms = (time.perf_counter() - t0) * 1e3 / (len(clouds) - 1)
     finally:
         slam_eval.icp_align = align
-    check_no_first_versions(label)
     launches = {"knn": _kernels.KNN_LAUNCHES, "icp": _kernels.ICP_SOLVE_LAUNCHES,
                 "grid": _kernels.GRID_LAUNCHES, "gather": _kernels.GATHER_LAUNCHES}
     return {"est": est, "ms": ms, "launches": launches, "regs": regs}
@@ -3582,14 +3387,14 @@ def phase_slam(card: str, seq, cfg, model):
 
     last = x3_k1_entry(tgt.get_points(), transform_points(torch_tensor(T0, src.depth),
                                                           src.get_points()), tgt.valid, card,
-                       first_version=True)
+                       held=True)
     street = street_map_entry(card)
     for label, e in (("the mapper's last registration", last), ("a street-sized map", street)):
-        log("slam: X3 k = 1 at %s: map of %d points, %d queries; %.4f ms (kernel %.4f; first "
-            "version %.4f; plain %.1f), all-pairs bound %.4f ms (%s), bytes bound %.4f ms; "
+        log("slam: X3 k = 1 at %s: map of %d points, %d queries; %.4f ms (kernel %.4f; plain "
+            "%.1f), all-pairs bound %.4f ms (%s), bytes bound %.4f ms; "
             "%.2f tiles a warp, pair share %.5f (%s)"
-            % (label, e["points"], e["queries"], e["ms"], e["kernel_ms"], e["v1_ms"],
-               e["plain_ms"], e["bound_ms"], e["bound_by"], e["bytes_bound_ms"],
+            % (label, e["points"], e["queries"], e["ms"], e["kernel_ms"], e["plain_ms"],
+               e["bound_ms"], e["bound_by"], e["bytes_bound_ms"],
                e["tiles_per_warp"], e["pair_share"], card))
     x6 = x6_entry(src, tgt, T0, card)
 
@@ -3633,7 +3438,6 @@ def phase_slam(card: str, seq, cfg, model):
         t1 = time.perf_counter()
         results = eval_slam_all(ecfg)
         e2e_s = time.perf_counter() - t1
-        check_no_first_versions("eval_slam_all")
         rows = {}
         for slam in ecfg.eval_slams:
             with open(os.path.join(root, "slam_eval_%s_test.csv" % slam)) as f:
@@ -3690,7 +3494,6 @@ def phase_analysis(card: str, data, cfg):
     t0 = time.perf_counter()
     _, losses = sweep_weight(cfg, data, weights)
     landscape_ms = (time.perf_counter() - t0) * 1e3 / LANDSCAPE_WEIGHTS
-    check_no_first_versions("sweep_weight")
     launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES}
     if launches != {"fwd": LANDSCAPE_WEIGHTS, "bwd": 0}:
         raise RuntimeError("sweep_weight launched K1 %d and K2 %d times"
@@ -3740,7 +3543,6 @@ def phase_analysis(card: str, data, cfg):
     hist = joint_learning(jcfg, gt_map=gt_map, gt_positions=gt_xyz, metrics_every=2, data=data)
     torch.cuda.synchronize()
     joint_ms = (time.perf_counter() - t1) * 1e3 / JOINT_STEPS
-    check_no_first_versions("joint_learning")
     launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES}
     acc_rel = abs(hist.map_accuracy[0] - acc64) / abs(acc64)
     log("joint: %d steps, K1 %d and K2 %d launches; rows %s; the first probe's map accuracy "
@@ -3940,7 +3742,6 @@ def phase_multi_gpu(card: str, res: dict, seq):
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
     profile, turns = extra["profile"], extra["turns"]
-    check_no_first_versions("phase 18(a)")
     loss_rel, w_rel = max_rel_diff(losses, res["losses"]), max_rel_diff(ws, res["w"])
     log("18(a) one-rank NCCL group, %d Adam steps: losses %s (%s)" % (
         len(losses), ", ".join("%.9e" % v for v in losses), card))
@@ -4123,7 +3924,6 @@ def scale_run(card: str, scans, backend: str, density: float = 300.0) -> dict:
     run = tas.run_steps(cfg, data, SCALE_TIMED_STEPS)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
-    check_no_first_versions("train_at_scale (%s)" % backend)
     launches = {"fwd": cw.FWD_LAUNCHES, "bwd": cw.BWD_LAUNCHES, "grid": _kernels.GRID_LAUNCHES,
                 "gather": _kernels.GATHER_LAUNCHES, "knn": _kernels.KNN_LAUNCHES}
     tas.report_run(c, run, torch.device(DEVICE))
@@ -4164,7 +3964,7 @@ def scale_run(card: str, scans, backend: str, density: float = 300.0) -> dict:
 
 def scale_kernels(card: str, run: dict) -> dict:
     """K1 and K2 on the scale graph against their plain twins (float32 and
-    float64) and their first versions, timed there."""
+    float64), timed there."""
     import torch
 
     from depth_correction_tpu_torch.scripts.exp_cellwin_knockout import points_at_w0
@@ -4251,7 +4051,6 @@ def phase_bench_knn(card: str) -> dict:
     reset_all_launch_counts()
     rows = bench_knn.main(["--sizes", ",".join(str(n) for n in KNN_SIZES),
                            "--device", DEVICE])
-    check_no_first_versions("bench_knn")
     launches = {"grid": _kernels.GRID_LAUNCHES, "knn": _kernels.KNN_LAUNCHES}
     for r in rows:
         log("bench_knn N=%d: X2 %.3f ms, X3 %.3f ms, cKDTree %.1f ms, mean ball %.2f, largest %d%s "
@@ -4374,10 +4173,7 @@ def transpose_bounds(tg, mq: int) -> dict:
     starts; X4 also the tiles' starts and row lists, each pair's 2-byte
     local index and weight, a hub tile's pairs' int32 indices, the (mq, 12)
     row table and the (M, 3) points, and writes (M, 3); X5 each pair's
-    int32 index and 3 cotangent floats, and writes (M, 3). The first
-    versions (``x4_v1``, ``x5_v1``) read the point-order run starts and one
-    int32 pair index a pair; X4 also each pair's weight, the table and the
-    points."""
+    int32 index and 3 cotangent floats, and writes (M, 3)."""
     m, p = tg.num_points, int(tg.pair.shape[0])
     t = tg.tiles
     start = tg.start.long()
@@ -4386,14 +4182,11 @@ def transpose_bounds(tg, mq: int) -> dict:
     hub_pairs = int(tile_pairs[hub].sum())
     order_runs = m * 4 + (m + 1) * 4
     tiles = (t.num_tiles + 1) * 8 + int(t.rows.shape[0]) * 4
-    point_runs = (m + 1) * 4 + p * 4
     x4_fixed = mq * 48 + m * 24
     ops4, ops5 = {"fp32": X4_PAIR_OPS * p}, {"fp32": X5_PAIR_OPS * p}
     return {"pairs": p, "hub_pairs": hub_pairs,
             "x4": bound(order_runs + tiles + p * 6 + hub_pairs * 4 + x4_fixed, ops4),
-            "x4_v1": bound(point_runs + p * 4 + x4_fixed, ops4),
-            "x5": bound(order_runs + p * 16 + m * 12, ops5),
-            "x5_v1": bound(point_runs + p * 12 + m * 12, ops5)}
+            "x5": bound(order_runs + p * 16 + m * 12, ops5)}
 
 
 def step_gradients(cfg, data) -> dict:
@@ -4445,52 +4238,6 @@ def step_gradients(cfg, data) -> dict:
             "points_max": float(p64.abs().max())}
 
 
-STEP_TURN_STEPS = 10
-
-
-def step_turns(cfg, data) -> dict:
-    """The gather step (loss, backward through X4, Adam) on ``data`` timed
-    in turns with X4's first version and with the redesign (v1, v2, v2,
-    v1): each turn the host clock over STEP_TURN_STEPS steps ending in a
-    synchronisation, after one warm step. The first version is substituted
-    for the wrapper here, as step_gradients substitutes the plain version,
-    over each graph's point-order CSR (``features.point_csr``, made in the
-    warm step)."""
-    import torch
-
-    from depth_correction_tpu_torch.models import load_model
-    from depth_correction_tpu_torch.ops import features
-    from depth_correction_tpu_torch.train import make_loss_fn, make_optimizer
-
-    model = load_model(cfg=cfg)
-    loss_fn = make_loss_fn(cfg)
-    opt = make_optimizer(cfg, [model.w])
-    x4 = features.transpose_moments
-    csrs = {}
-
-    def x4_v1(points, tg, table):
-        if id(tg) not in csrs:
-            csrs[id(tg)] = (tg, features.point_csr(tg))
-        return features.transpose_moments_v1(points, csrs[id(tg)][1], table)
-
-    def turn(fn) -> float:
-        features.transpose_moments = fn
-        try:
-            for i in range(STEP_TURN_STEPS + 1):
-                if i == 1:
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                opt.zero_grad()
-                loss_fn(model, data).backward()
-                opt.step()
-            torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3 / STEP_TURN_STEPS
-        finally:
-            features.transpose_moments = x4
-
-    ms = [turn(x4_v1), turn(x4), turn(x4), turn(x4_v1)]
-    return {"v1_ms": (ms[0] + ms[3]) / 2, "ms": (ms[1] + ms[2]) / 2, "turns": ms}
-
 
 def transpose_kernels(card: str, cfg, data, label: str) -> dict:
     """X4 and X5 on ``data``'s gather graph and its prep-built transpose, at
@@ -4498,18 +4245,15 @@ def transpose_kernels(card: str, cfg, data, label: str) -> dict:
     |output|) and launched twice, bit-equal; timed by CUDA events and by
     the profiler's kernel durations beside the plain version (float32) and,
     for X5, ``index_add_`` (one PyTorch call computing its function), with
-    P7's two-pass form beside its single pass; the redesigns against their
-    first versions (over ``features.point_csr``) in turns; the tiles' pairs
-    a row in cell order and, for the same graph built in point order
-    (``features.index_order``), in point order; on the capped graph the
-    gather step in turns with X4's first version; the step's gradient
-    against the float64 plain path."""
+    P7's two-pass form beside its single pass; the tiles' pairs a row in
+    cell order and, for the same graph built in point order
+    (``features.index_order``), in point order; the step's gradient against
+    the float64 plain path."""
     import torch
 
     from depth_correction_tpu_torch import preproc
     from depth_correction_tpu_torch.models import ScaledPolynomial
     from depth_correction_tpu_torch.ops import features
-    from depth_correction_tpu_torch.scripts import first_version_turns
 
     nn, w, tg = data.neighbors[0], data.weights[0], data.transposes[0]
     if tg is None or data.cellwin[0] is not None:
@@ -4523,15 +4267,12 @@ def transpose_kernels(card: str, cfg, data, label: str) -> dict:
             mean, w_sum, (torch.randn(mean.shape, generator=gen, device=DEVICE),
                           torch.randn(comps.shape, generator=gen, device=DEVICE)))
         g = torch.randn(tuple(nn.shape) + (3,), generator=gen, device=DEVICE)
-        csr = features.point_csr(tg)
         x4 = features.transpose_moments(pts, tg, table)
         x4_again = features.transpose_moments(pts, tg, table)
-        x4_v1 = features.transpose_moments_v1(pts, csr, table)
         x4_ref = features.transpose_moments_plain(pts.double(), tg.to(dtype=torch.float64),
                                                   table.double())
         x5 = features.transpose_gather(g, tg)
         x5_again = features.transpose_gather(g, tg)
-        x5_v1 = features.transpose_gather_v1(g, csr)
         x5_ref = features.transpose_gather_plain(g.double(), tg)
         flat = nn.reshape(-1)
         real = (flat >= 0) & (flat < tg.num_points)
@@ -4544,15 +4285,10 @@ def transpose_kernels(card: str, cfg, data, label: str) -> dict:
         torch.cuda.synchronize()
         res = {"graph": {"rows": nn.shape[0], "k": nn.shape[1], "points": tg.num_points},
                **transpose_bounds(tg, nn.shape[0])}
-        for key, got, again, v1, ref in (("x4", x4, x4_again, x4_v1, x4_ref),
-                                         ("x5", x5, x5_again, x5_v1, x5_ref)):
-            scale = float(ref.abs().max())
+        for key, got, again, ref in (("x4", x4, x4_again, x4_ref), ("x5", x5, x5_again, x5_ref)):
             res[key + "_err"] = float((got.double() - ref).abs().max())
-            res[key + "_rel"] = res[key + "_err"] / scale
-            res[key + "_v1_err"] = float((v1.double() - ref).abs().max())
-            res[key + "_v1_rel"] = res[key + "_v1_err"] / scale
+            res[key + "_rel"] = res[key + "_err"] / float(ref.abs().max())
             res[key + "_repeat_equal"] = bool(torch.equal(got, again))
-            res[key + "_v1_equal"] = bool(torch.equal(got, v1))
         res["library_rel"] = float((lib_out.double() - x5_ref).abs().max()
                                    / x5_ref.abs().max())
         timed = {"x4": lambda: features.transpose_moments(pts, tg, table),
@@ -4565,24 +4301,11 @@ def transpose_kernels(card: str, cfg, data, label: str) -> dict:
         res["x4_plain_ms"] = cuda_ms(lambda: features.transpose_moments_plain(pts, tg, table), 3,
                                      warmup=1)
         res["x5_plain_ms"] = cuda_ms(lambda: features.transpose_gather_plain(g, tg), 3, warmup=1)
-        res["x4_turns"] = first_version_turns(
-            lambda: features.transpose_moments_v1(pts, csr, table),
-            lambda: features.transpose_moments(pts, tg, table), DEVICE, TRANSPOSE_REPS)
-        res["x5_turns"] = first_version_turns(lambda: features.transpose_gather_v1(g, csr),
-                                              lambda: features.transpose_gather(g, tg), DEVICE,
-                                              TRANSPOSE_REPS)
-        del csr
         flat_tg = features.transpose_in_order(nn, tg.num_points, w, features.index_order)
         res["pairs_per_row"] = {"point": flat_tg.pairs_per_row(), "cell": tg.pairs_per_row()}
         del flat_tg
-    for key in ("x4", "x5"):
-        turns = res[key + "_turns"]
-        res[key + "_v1_ms"], res[key + "_v1_kernel_ms"] = turns["v1_ms"], turns["v1_kernel_ms"]
-        res[key + "_turns_kernel_ms"] = turns["kernel_ms"]
     res["max_in_degree"] = int(tg.in_degree().max())
     res["prep_transpose_s"] = data.prep_seconds.get("transpose")
-    if label == "capped":
-        res["step_turns"] = step_turns(cfg, data)
     res["step"] = step_gradients(cfg, data)
     log("[20] %s graph: %d rows x K %d over %d points, %d transpose pairs (largest in-degree %d); "
         "%d tiles of at most %d targets, largest within the %d-row budget %d rows, %d pairs in "
@@ -4593,19 +4316,12 @@ def transpose_kernels(card: str, cfg, data, label: str) -> dict:
     log("[20] %s pairs a row of the tiles: point order %.3f, cell order (Morton, the build's) "
         "%.3f (%s)" % (label, res["pairs_per_row"]["point"], res["pairs_per_row"]["cell"], card))
     for key, name in (("x4", "X4 transpose_moments"), ("x5", "X5 transpose_gather")):
-        b, b1 = res[key], res[key + "_v1"]
-        t = res[key + "_turns"]
-        log("[20] %s %s: %.4f ms (events), %.4f ms (device); bound %.4f ms (%s), the first "
-            "version's %.4f ms; plain %.3f ms; max abs err %.3e (%.3e of max |output|), first "
-            "version %.3e; two launches bit-equal %s, bit-equal to the first version %s (%s)"
-            % (label, name, res[key + "_ms"], res[key + "_kernel_ms"], b[0], b[1], b1[0],
+        b = res[key]
+        log("[20] %s %s: %.4f ms (events), %.4f ms (device); bound %.4f ms (%s); plain %.3f "
+            "ms; max abs err %.3e (%.3e of max |output|); two launches bit-equal %s (%s)"
+            % (label, name, res[key + "_ms"], res[key + "_kernel_ms"], b[0], b[1],
                res[key + "_plain_ms"], res[key + "_err"], res[key + "_rel"],
-               res[key + "_v1_err"], res[key + "_repeat_equal"], res[key + "_v1_equal"], card))
-        log("[20] %s %s in turns (v1, v2, v2, v1): device %s ms, v1 %.4f, v2 %.4f; events %s, "
-            "v1 %.4f, v2 %.4f; index_add_ %.4f device, %.4f events (%s)"
-            % (label, name, ", ".join("%.4f" % v for v in t["kernel_turns"]),
-               t["v1_kernel_ms"], t["kernel_ms"], ", ".join("%.4f" % v for v in t["turns"]),
-               t["v1_ms"], t["ms"], res["library_kernel_ms"], res["library_ms"], card))
+               res[key + "_repeat_equal"], card))
     log("[20] %s index_add_ (X5's function): %.4f ms (events), %.4f ms (device); %.3e of max "
         "|output| (%s)" % (label, res["library_ms"], res["library_kernel_ms"], res["library_rel"],
                            card))
@@ -4613,12 +4329,6 @@ def transpose_kernels(card: str, cfg, data, label: str) -> dict:
         "(device); its single pass %.4f, %.4f (%s)"
         % (label, res["p7_centred_ms"], res["p7_centred_kernel_ms"], res["p7_ms"],
            res["p7_kernel_ms"], card))
-    if "step_turns" in res:
-        st = res["step_turns"]
-        log("[20] %s gather step in turns, X4's first version / the redesign: %.3f / %.3f ms "
-            "(%s; %d steps a turn, host clock) (%s)"
-            % (label, st["v1_ms"], st["ms"], ", ".join("%.3f" % v for v in st["turns"]),
-               STEP_TURN_STEPS, card))
     st = res["step"]
     log("[20] %s step gradient: w %.3e of the float64 plain path's (%.6e); in the points, X4 "
         "against its float64 plain version inside the float32 step %.3e of max |grad|, the "
@@ -4626,8 +4336,7 @@ def transpose_kernels(card: str, cfg, data, label: str) -> dict:
         % (label, st["w_rel"], st["w_grad"], st["points_rel"], st["points_rel_f64"],
            st["points_max"], card))
     for key in ("x4", "x5"):
-        if not (res[key + "_rel"] <= GRAD_REL_BAR and res[key + "_repeat_equal"]
-                and res[key + "_v1_rel"] <= GRAD_REL_BAR):
+        if not (res[key + "_rel"] <= GRAD_REL_BAR and res[key + "_repeat_equal"]):
             raise RuntimeError("%s: %s misses its bar or differs between launches: %s"
                                % (label, key, res))
     if not (st["points_rel"] <= GRAD_REL_BAR and st["w_rel"] <= GRAD_REL_BAR):
@@ -4638,9 +4347,7 @@ def transpose_kernels(card: str, cfg, data, label: str) -> dict:
 
 def transpose_entry(tr: dict, key: str, launches: dict) -> dict:
     """The kernels line's entry of X4 or X5: phase 20's numbers on the capped
-    graph (top level) and the scale graph (``scale``), the redesign's beside
-    its first version's (``v1_*``, in turns, with the first version's own
-    bound); ``launches`` from the capped row's 8 steps (X4) or phase 12d's
+    graph (top level) and the scale graph (``scale``); ``launches`` from the capped row's 8 steps (X4) or phase 12d's
     nn_scale run (X5), each main path's in ``launches_by_phase``."""
     names = {"x4": ("transpose_moments (X4)", "depth_correction_tpu/ops/features.py:604",
                     "capped"),
@@ -4651,11 +4358,8 @@ def transpose_entry(tr: dict, key: str, launches: dict) -> dict:
 
     def numbers(r):
         return {"ms": r[key + "_ms"], "kernel_ms": r[key + "_kernel_ms"],
-                "v1_ms": r[key + "_v1_ms"], "v1_kernel_ms": r[key + "_v1_kernel_ms"],
-                "turns_kernel_ms": r[key + "_turns_kernel_ms"],
                 "plain_ms": r[key + "_plain_ms"], "max_abs_err": r[key + "_err"],
-                "max_abs_err_v1": r[key + "_v1_err"], "bound_ms": r[key][0],
-                "bound_by": r[key][1], "v1_bound_ms": r[key + "_v1"][0],
+                "bound_ms": r[key][0], "bound_by": r[key][1],
                 "library_ms": r["library_ms"] if key == "x5" else None,
                 "library_kernel_ms": r["library_kernel_ms"] if key == "x5" else None,
                 "pairs": r["pairs"], "graph": r["graph"], "pairs_per_row": r["pairs_per_row"]}
@@ -4666,8 +4370,7 @@ def transpose_entry(tr: dict, key: str, launches: dict) -> dict:
                  "bound": c[key]}, **{k: v for k, v in numbers(c).items()
                                       if k not in ("bound_ms", "bound_by")},
                 scale=numbers(tr["scale"]), launches_by_phase=launches,
-                step_grad_rel={lbl: r["step"] for lbl, r in tr.items()},
-                step_turns=c.get("step_turns"))
+                step_grad_rel={lbl: r["step"] for lbl, r in tr.items()})
 
 
 def exception_locality(card: str, data) -> dict:
@@ -4715,10 +4418,9 @@ def main() -> int:
     phase_kernels()
     log("[phase 3] slice (bench configuration, %d Adam steps)" % STEPS)
     res = phase_slice(card)
-    log("median step: %.3f ms over steps 1..%d; prep %.1f s; device busy %.3f ms/step (first "
-        "versions of K1, K2: %.3f); total %.1f s (%s)"
-        % (res["step_ms"], STEPS - 1, res["prep_s"], res["profile"]["busy_ms"],
-           res["profile_v1"]["busy_ms"], time.perf_counter() - t0, card))
+    log("median step: %.3f ms over steps 1..%d; prep %.1f s; device busy %.3f ms/step; total "
+        "%.1f s (%s)" % (res["step_ms"], STEPS - 1, res["prep_s"], res["profile"]["busy_ms"],
+                         time.perf_counter() - t0, card))
     log("[phase 4] node (bench node scan, slab engine)")
     node = phase_node(card)
     log("[phase 5] node small scan (brute engine) and P7")
@@ -4808,8 +4510,7 @@ def main() -> int:
          "source": "depth_correction_tpu_torch/csrc/cellwin.cu",
          "replaces": "depth_correction_tpu/ops/cellwin.py:700",
          "launches": res["launches"]["fwd"], "max_abs_err": k["fwd_err"],
-         "ms": k["fwd_ms"], "v1_ms": k["fwd_v1_ms"], "kernel_ms": k["fwd_kernel_ms"],
-         "v1_kernel_ms": k["fwd_v1_kernel_ms"], "plain_ms": k["fwd_plain_ms"],
+         "ms": k["fwd_ms"], "kernel_ms": k["fwd_kernel_ms"], "plain_ms": k["fwd_plain_ms"],
          "bound": cellwin_fwd_bound(g, kept_f[0], members, kept_f[2]),
          "bound_all_pairs_ms": cellwin_fwd_bound(g, pairs, members)[0],
          "pairs_kept": kept_f[0], "library_ms": None},
@@ -4817,8 +4518,7 @@ def main() -> int:
          "source": "depth_correction_tpu_torch/csrc/cellwin.cu",
          "replaces": "depth_correction_tpu/ops/cellwin.py:837",
          "launches": res["launches"]["bwd"], "max_abs_err": k["bwd_err"],
-         "ms": k["bwd_ms"], "v1_ms": k["bwd_v1_ms"], "kernel_ms": k["bwd_kernel_ms"],
-         "v1_kernel_ms": k["bwd_v1_kernel_ms"], "plain_ms": k["bwd_plain_ms"],
+         "ms": k["bwd_ms"], "kernel_ms": k["bwd_kernel_ms"], "plain_ms": k["bwd_plain_ms"],
          "bound": cellwin_bwd_bound(g, kept_b[0], members, kept_b[2]),
          "bound_all_pairs_ms": cellwin_bwd_bound(g, kept_b[1], members)[0],
          "pairs_kept": kept_b[0], "library_ms": None},
@@ -4826,21 +4526,18 @@ def main() -> int:
          "source": "depth_correction_tpu_torch/csrc/slabwin.cu",
          "replaces": "depth_correction_tpu/ops/slabwin.py:53",
          "launches": node["launches"]["slab"], "max_abs_err": node["x1_err"],
-         "ms": node["x1_ms"], "v1_ms": node["x1_v1_ms"], "plain_ms": node["x1_plain_ms"],
+         "ms": node["x1_ms"], "plain_ms": node["x1_plain_ms"],
          "bound": node["x1_bound"], "bound_all_pairs_ms": node["x1_bound_all_pairs"][0],
          "pairs_kept": node["x1_kept"][0], "box_tests": node["x1_kept"][2],
          "kept_share": node["x1_kept"][0] / node["x1_kept"][1], "library_ms": None},
-        # Top-level times at the probe's shapes (a), from phase 8's turns;
-        # each shape's own in "shapes".
+        # Top-level times at the probe's shapes, from phase 8; each shape's
+        # own in "shapes".
         {"name": "gather_moments (P7)", "route": "cuda",
          "source": "depth_correction_tpu_torch/csrc/gather_moments.cu",
          "replaces": "scripts/exp_pallas_gather.py:83",
          "launches": small["launches"]["gather"], "max_abs_err": small["p7_err"],
-         "ms": p7_probe["ms"], "v1_ms": p7_probe["v1_ms"], "kernel_ms": p7_probe["kernel_ms"],
-         "v1_kernel_ms": p7_probe["v1_kernel_ms"], "plain_ms": small["p7_plain_ms"],
-         "bound": small["p7_bound"], "library_ms": None,
-         "max_abs_err_v1": max(p7_shape(ab)["max_abs_err_v1"]
-                               for ab in (p7_probe, small["p7_node"], grid["p7_global"])),
+         "ms": p7_probe["ms"], "kernel_ms": p7_probe["kernel_ms"],
+         "plain_ms": small["p7_plain_ms"], "bound": small["p7_bound"], "library_ms": None,
          "shapes": {"probe": p7_shape(p7_probe), "small_scan": p7_shape(small["p7_node"]),
                     "global_cloud": p7_shape(grid["p7_global"])},
          # P7's launches in prep: the slice's and the default config's.
@@ -4854,23 +4551,16 @@ def main() -> int:
          "source": "depth_correction_tpu_torch/csrc/grid_query.cu",
          "replaces": "depth_correction_tpu/ops/grid_hash.py:108",
          "launches": res["launches"]["grid"], "max_abs_err": grid["global"]["err"],
-         "ms": grid["global"]["ms"], "v1_ms": grid["global"]["v1_ms"],
-         "plain_ms": grid["global"]["plain_ms"], "bound": grid["global"]["bound"],
-         "library_ms": None,
+         "ms": grid["global"]["ms"], "plain_ms": grid["global"]["plain_ms"],
+         "bound": grid["global"]["bound"], "library_ms": None,
          "variants": dict({"global_counts": grid["global"]["counts_ms"],
-                           "v1_global_counts": grid["global"]["v1_counts_ms"],
-                           "scan": grid["scan"]["ms"], "v1_scan": grid["scan"]["v1_ms"],
-                           "scan_counts": grid["scan"]["counts_ms"],
-                           "v1_scan_counts": grid["scan"]["v1_counts_ms"]},
-                          **{"%snode_k%d" % (v, kk): e[key]
-                             for kk, e in grid["node_x2"].items()
-                             for v, key in (("", "ms"), ("v1_", "v1_ms"))})},
+                           "scan": grid["scan"]["ms"], "scan_counts": grid["scan"]["counts_ms"]},
+                          **{"node_k%d" % kk: e["ms"] for kk, e in grid["node_x2"].items()})},
         {"name": "knn_brute (X3)", "route": "cuda",
          "source": "depth_correction_tpu_torch/csrc/knn_brute.cu",
          "replaces": "depth_correction_tpu/ops/knn.py:51",
          "launches": small["launches"]["knn"], "max_abs_err": small["x3"]["err"],
-         "ms": small["x3"]["ms"], "v1_ms": small["x3"]["v1_ms"],
-         "plain_ms": small["x3"]["plain_ms"], "bound": small["x3"]["bound"],
+         "ms": small["x3"]["ms"], "plain_ms": small["x3"]["plain_ms"], "bound": small["x3"]["bound"],
          "bound_all_pairs_ms": small["x3"]["bound_all_pairs"][0], "library_ms": None,
          "launches_default": default["launches"]["knn"],
          "launches_icp_eval": icp["x3_launches"], "launches_slam": slam["launches"],
@@ -4918,7 +4608,7 @@ def main() -> int:
             en["launches_scale"] = {b: scale[b]["launches"][key] for b in ("gather", "cellwin")}
         if key in ("fwd", "bwd"):
             en["scale"] = {"graph": scale["kernels_graph"], "ms": sk[key + "_ms"],
-                           "v1_ms": sk[key + "_v1_ms"], "kernel_ms": sk[key + "_kernel_ms"],
+                           "kernel_ms": sk[key + "_kernel_ms"],
                            "plain_ms": sk[key + "_plain_ms"], "max_abs_err": sk[key + "_err"],
                            "bound_ms": sk[key + "_bound"][0], "bound_by": sk[key + "_bound"][1]}
         if key in ("grid", "knn"):
@@ -5020,7 +4710,6 @@ def main() -> int:
         **{"transpose_%s_%s" % (lbl, k): r["step"][v] for lbl, r in tr.items()
            for k, v in (("points_grad_rel_err", "points_rel"), ("w_grad_rel_err", "w_rel"),
                         ("points_grad_rel_err_f64", "points_rel_f64"))},
-        "transpose_capped_step_turns_ms": tr["capped"]["step_turns"],
         "transpose_exception_pairs_per_row": exc_locality,
         "offset_busy_share": offset["profile"]["busy_ms"] / offset["profile"]["wall_ms"],
         "capped_busy_share": capped["profile"]["busy_ms"] / capped["profile"]["wall_ms"],

@@ -5,8 +5,8 @@
 // K1 replaces the Pallas kernel depth_correction_tpu/ops/cellwin.py:
 // _fwd_kernel; K2 replaces depth_correction_tpu/ops/cellwin.py:_bwd_kernel.
 // Their plain torch versions are cellwin_fwd_plain / cellwin_bwd_plain in
-// depth_correction_tpu_torch/ops/cellwin.py; their first Hopper versions
-// stay in csrc/cellwin_v1.cu for an A/B on the card.
+// depth_correction_tpu_torch/ops/cellwin.py, which the card tests hold
+// them to.
 //
 // What bounds them on this card: per tile the work is (tile rows) x
 // (window entries) membership tests, ~10 float ops each plus 10 (K1) or 9
@@ -17,10 +17,9 @@
 // reads its tile's window, buffers in shared memory, packed, the entries
 // that survive a conservative test against the box of its real rows or
 // points, and walks only those (csrc/cellwin_fwd.cuh states the design,
-// why the test loses no member, and the numerics kept from the first
-// versions). There are no atomics: each output element is written by
-// exactly one thread, so the result is deterministic, like the TPU
-// kernels', and equal bit for bit to csrc/cellwin_v1.cu's.
+// why the test loses no member, and the numerics it keeps). There are no
+// atomics: each output element is written by exactly one thread, so the
+// result is deterministic, like the TPU kernels'.
 // No kernel allocates memory; the Python wrapper allocates the outputs.
 
 #include <cuda_runtime.h>

@@ -6,11 +6,10 @@
 // itself, so P1's `full` is bit-equal to K1 on the same inputs.
 //
 // K1 replaces the Pallas kernel depth_correction_tpu/ops/cellwin.py:
-// _fwd_kernel. Its first Hopper version (csrc/cellwin_v1.cu) gave a
-// block a row tile and made every thread test every staged window entry;
-// P1 found it bound by instruction issue, ~30 issued warp-instructions per
-// (warp, staged entry) step, and not by its loads (PERF.md). This body
-// issues fewer:
+// _fwd_kernel. A body in which every thread tests every staged window
+// entry is bound by instruction issue, ~30 issued warp-instructions per
+// (warp, staged entry) step, and not by its loads (P1, PERF.md §6). This
+// body issues fewer:
 // - Each warp culls its window. A lane tests one window entry against the
 //   axis-aligned box of the warp's REAL rows; a ballot gives the warp its
 //   kept entries, which the lanes write, packed and in ascending order, to
@@ -24,9 +23,7 @@
 //   read from device memory only when the entry is kept, and the walk reads
 //   it as one 16-byte and one 8-byte load (K2: three 16-byte loads).
 // - Warps work alone: a warp reads its own tile's window, with no block
-//   barrier, so a warp whose box keeps much does not hold back the others
-//   (the first version's block barriers made each tile wait for its
-//   slowest warp at every staged chunk).
+//   barrier, so a warp whose box keeps much does not hold back the others.
 // What bounds it now: issue per kept pair test and per member step, and
 // the latency between them (PERF.md §6 attributes K1's time with P1).
 //
@@ -45,10 +42,9 @@
 // within r of them, so they have no member to lose. A warp with no real
 // row reads nothing.
 //
-// Numerics kept from the first version (so the sums equal
-// csrc/cellwin_v1.cu's bit for bit: the culled entries fail every test,
-// and the kept ones are added in the same order, spans in order and
-// entries ascending):
+// Numerics (the culled entries fail every test, so the sums are those of
+// testing every entry; the kept ones are added in one fixed order, spans
+// in order and entries ascending):
 // - Membership d2 <= r2 in the difference form on tile-centred
 //   coordinates, d2 = fma(dz, dz, fma(dx, dx, dy * dy)): the sequence nvcc
 //   gives `dx * dx + dy * dy + dz * dz` (PTX mul, fma, fma; checked in the
@@ -107,7 +103,7 @@ constexpr int kBwdBuf = 64;
 constexpr float kRowPad = -1e15f;
 constexpr float kPointPad = 1e15f;
 
-// The membership distance, in the sequence the first versions compile to.
+// The membership distance, in the sequence nvcc gives dx*dx + dy*dy + dz*dz.
 __device__ __forceinline__ float d2_form(float dx, float dy, float dz) {
   return __fmaf_rn(dz, dz, __fmaf_rn(dx, dx, __fmul_rn(dy, dy)));
 }

@@ -1,8 +1,6 @@
 // Fused gather + weighted neighbourhood moments (P7) for Hopper (sm_90a),
 // with a plain C interface loaded through ctypes by
-// depth_correction_tpu_torch/ops/_kernels.py. Redesigned; the first version
-// (a warp a row, a separate pass for the shift, a 5-step butterfly) stays
-// in csrc/gather_moments_v1.cu for the A/B.
+// depth_correction_tpu_torch/ops/_kernels.py.
 //
 // Replaces the Pallas kernel scripts/exp_pallas_gather.py: moments_kernel,
 // which computes what depth_correction_tpu/ops/features.py:_moments_impl
@@ -37,8 +35,8 @@
 //   from one 32-byte sector; otherwise they are read with their own
 //   strides: (N, 3) rows (the node, prep) touch one sector or two, a
 //   (3, N) table three.
-// Sums differ from the first version's in order only (a lane sums its C
-// neighbours, then the butterfly), and the two layouts give the same bits.
+// Sums are taken in one fixed order (a lane sums its C neighbours, then
+// the butterfly), and the two layouts give the same bits.
 //
 // The centred entry (dc_gather_moments_centred, the gather engine's
 // differentiable forward) runs each row twice: the first pass as above,

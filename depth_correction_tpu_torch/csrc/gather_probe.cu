@@ -20,7 +20,7 @@
 //           loads.
 //   staged  the index space is what shared memory holds. Where x's row
 //           (axis 1), or all of x (axis 0), fits one block (227 KB), each
-//           block stages it and gathers there (the first version's body).
+//           block stages it and gathers there.
 //           Where a row does not fit one block but fits a cluster of 8
 //           (B's 512 KB row), the row is spread over the distributed shared
 //           memory of a thread-block cluster: block k of the cluster holds
@@ -29,11 +29,11 @@
 //           two blocks an SM: the clusters of a row each stage it again.
 //
 // Indices must lie in range. A gather moves values unchanged, so every form
-// equals the first version (csrc/gather_probe_v1.cu) and the plain torch
-// version (ops/gather_probe.py) bit for bit. What bounds it: the bytes
-// (indices read, outputs written, x read once); each case is small against
-// a launch's fixed cost except B (4 MB each way), whose random gathers also
-// read one 32-byte L2 sector for each 4-byte value.
+// equals the plain torch version (ops/gather_probe.py) bit for bit. What
+// bounds it: the bytes (indices read, outputs written, x read once); each
+// case is small against a launch's fixed cost except B (4 MB each way),
+// whose random gathers also read one 32-byte L2 sector for each 4-byte
+// value.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -120,7 +120,7 @@ gather_global(const float* __restrict__ x, const int* __restrict__ idx, int x_co
   }
 }
 
-// The staged form in one block (the first version's body). Axis 1: grid
+// The staged form in one block. Axis 1: grid
 // (ceil(i_cols / 256), i_rows), the block's row staged.
 __global__ void gather_rows_staged(const float* __restrict__ x, const int* __restrict__ idx,
                                    int x_cols, int i_cols, float* __restrict__ out) {

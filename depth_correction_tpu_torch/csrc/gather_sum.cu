@@ -1,7 +1,5 @@
 // P7's stage-1 probe (P7a) for Hopper (sm_90a), with a plain C interface
 // loaded through ctypes by depth_correction_tpu_torch/ops/_kernels.py.
-// Redesigned; the first version (each block staged the whole table in
-// shared memory) stays in csrc/gather_sum_v1.cu for the A/B.
 //
 // Replaces the Pallas probe scripts/exp_pallas_gather.py:main.probe_kernel
 // (:45, pallas_call :56), which asked whether Mosaic lowers a vector gather

@@ -28,8 +28,7 @@
 // Design (one warp per query): 18 lanes run the 9 columns' two binary
 // searches at once; lanes then stride each run, 32 candidates a step. Counts
 // add up ballots. For k > 0 the warp gathers its members' keys into a list
-// and sorts it once (csrc/grid_query_v1.cu sorted and merged at every step,
-// rewriting the whole list each time):
+// and sorts it once:
 // - While the list has room (m + nb <= k), a step's nb members are appended
 //   at m + their rank in the step's ballot: one store a member, no sort.
 // - The list is sorted once, when the query ends or at the first step that
@@ -41,12 +40,12 @@
 //   one key a lane; a full list takes a step's sorted members by a bitonic
 //   merge over shuffles (the batch reversed, the lane-wise minimum, then
 //   five half-cleaners). k > 32 keeps it in shared memory and merges by
-//   rank as the first version does.
+//   rank.
 // - When the queries are the grid's own points (prep, the grid node), warp
 //   w answers query order[w]: neighbouring warps then read the same column
 //   runs and ids. Each result lands in its query's own row.
 // The keys are distinct, so the k smallest in ascending order are one list
-// however they are gathered: the result equals the first version's bit for
+// however they are gathered: the result equals the plain version's bit for
 // bit (held by chip_smoke.py phase 7 and the card tests).
 //
 // What bounds it on this card: per query, ~9 x 2 binary searches over the

@@ -7,9 +7,8 @@
 // engine, the sizing of K in prep (suggest_k_max below 65,536 points),
 // scan establishment below 65,536 points and the shadow filter's search
 // over view directions. Their plain torch versions are _knn_plain and
-// _counts_plain in depth_correction_tpu_torch/ops/knn.py; the first version
-// of this kernel (one warp per query, every query against every point) is
-// kept in knn_brute_v1.cu for an A/B.
+// _counts_plain in depth_correction_tpu_torch/ops/knn.py. Its warp-per-query
+// body (every query against every point) is knn_warp.cu.
 //
 // What it computes, per query q:
 //   top-k (k > 0): the k smallest keys (d2, point index) over the valid
@@ -24,9 +23,9 @@
 //
 // What bounds it on this card: the pair tests, 8 float operations each.
 // Without FMA each is one instruction, so the instruction floor is about
-// twice the FLOP bound (which counts an FMA as two). The first version ran
-// ~15 instructions and 4 shared loads per pair test and tested every query
-// against every point; the redesign cuts both.
+// twice the FLOP bound (which counts an FMA as two). The warp-per-query
+// body (knn_warp.cu) runs ~15 instructions and 4 shared loads per pair
+// test and tests every query against every point; this body cuts both.
 //
 // Design, in launches on the caller's stream:
 // 1. Order (finite radius; step 4 orders the nearest search its own way;
@@ -153,7 +152,7 @@
 // list, the queries and (top-k) 33 * k keys. A k whose lists do not fit
 // (dc_knn_brute_max_k gives the limit, 839 on an H100) is refused here;
 // the launcher (ops/_kernels.py:launch_knn_brute) sends such a k to the
-// first version's warp-per-query body, knn_brute_v1.cu, which holds two
+// warp-per-query body, knn_warp.cu, which holds two
 // lists of k keys per warp and serves k up to about 13,680 on an H100.
 // Clusters sharing a tile
 // through distributed shared memory or TMA multicast are not used: with

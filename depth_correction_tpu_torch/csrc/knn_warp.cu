@@ -1,9 +1,8 @@
-// The first version of the brute-force neighbour search (X3), kept for an
-// A/B against the redesign in knn_brute.cu, which must equal it (index
-// tables, d2 bit for bit, counts), through ops/knn.knn_brute_v1. It is also
-// X3's body for a top-k past the redesign's shared memory (about k = 839 on
-// an H100; up to about 13,680 here, dc_knn_brute_v1_max_k): the launcher
-// ops/_kernels.py:launch_knn_brute routes such a k here. Plain C
+// The warp-per-query body of the brute-force neighbour search (X3): X3's
+// body for a top-k past the tiled body's shared memory in knn_brute.cu
+// (about k = 839 on an H100; up to about 13,680 here, dc_knn_warp_max_k).
+// The launcher ops/_kernels.py:launch_knn_brute routes such a k here; the
+// results equal the tiled body's (index tables, d2 bit for bit). Plain C
 // interface, loaded through ctypes by
 // depth_correction_tpu_torch/ops/_kernels.py.
 //
@@ -81,7 +80,7 @@ __device__ __forceinline__ unsigned long long warp_sort(unsigned long long key, 
 }
 
 template <bool COUNTS>
-__global__ void knn_brute_kernel(
+__global__ void knn_warp_kernel(
     const float* __restrict__ q_pts,            // (Q, 3)
     const unsigned char* __restrict__ q_valid,  // (Q,) bool, or null: all valid
     int nq,
@@ -205,7 +204,7 @@ extern "C" {
 // The largest k whose lists (one warp: two lists of k keys and the step's
 // 32) fit beside the staged tile in the card's shared memory per block
 // (into *out); returns a CUDA error code.
-int dc_knn_brute_v1_max_k(int* out) {
+int dc_knn_warp_max_k(int* out) {
   int device = 0, max_smem = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -222,9 +221,9 @@ int dc_knn_brute_v1_max_k(int* out) {
 // out_d2 (Q, k) float32 (q_valid may be null: every query is valid).
 // Launches on the caller's stream, does not synchronise, and returns
 // cudaGetLastError() (cudaErrorInvalidValue for bad arguments).
-int dc_knn_brute_v1(const void* q_pts, const void* q_valid, int nq, const void* pts,
-                 const void* p_valid, int n, float r2, int k, void* out_idx, void* out_d2,
-                 void* stream) {
+int dc_knn_warp(const void* q_pts, const void* q_valid, int nq, const void* pts,
+                const void* p_valid, int n, float r2, int k, void* out_idx, void* out_d2,
+                void* stream) {
   if (nq < 0 || n < 0 || k < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (nq == 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -237,7 +236,7 @@ int dc_knn_brute_v1(const void* q_pts, const void* q_valid, int nq, const void* 
   if (k == 0) {
     const int warps = kMaxWarps;
     const int blocks = (nq + warps - 1) / warps;
-    knn_brute_kernel<true><<<blocks, 32 * warps, tile_bytes, st>>>(
+    knn_warp_kernel<true><<<blocks, 32 * warps, tile_bytes, st>>>(
         qp, nullptr, nq, pp, pv, n, r2, 0, oi, nullptr);
     return static_cast<int>(cudaGetLastError());
   }
@@ -254,13 +253,13 @@ int dc_knn_brute_v1(const void* q_pts, const void* q_valid, int nq, const void* 
   const size_t smem = tile_bytes + warps * per_warp;
   if (smem > static_cast<size_t>(max_smem)) return static_cast<int>(cudaErrorInvalidValue);
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(knn_brute_kernel<false>,
+    err = cudaFuncSetAttribute(knn_warp_kernel<false>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (nq + warps - 1) / warps;
-  knn_brute_kernel<false><<<blocks, 32 * warps, smem, st>>>(
+  knn_warp_kernel<false><<<blocks, 32 * warps, smem, st>>>(
       qp, qv, nq, pp, pv, n, r2, k, oi, static_cast<float*>(out_d2));
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,8 +35,7 @@
 // each warp one 16 x 32 tile (32 row tiles x 4 column groups = 128
 // one-warp blocks): its A fragments come straight from global memory, with
 // no shared copy of x and no barrier, and its four n8 tiles are four
-// independent three-pass chains. csrc/layout_probe_v1.cu keeps the first
-// version (16 or 8 blocks of 4-byte stores) for the A/B.
+// independent three-pass chains.
 
 #include <cuda_runtime.h>
 

@@ -7,8 +7,7 @@
 // (16, S) float32 feature block and an (S, 128) right-hand side that is
 // exactly {0, 1} (the membership matrix of the cell-window kernels). Its
 // plain torch version is moment_dot_plain in
-// depth_correction_tpu_torch/ops/moment_dot.py; csrc/moment_dot_v1.cu keeps
-// the first version (one block of mma.sync warps per tile) for the A/B.
+// depth_correction_tpu_torch/ops/moment_dot.py.
 //
 // Precision variants (tf32_mma.cuh) and the TPU variants they stand for:
 //   fp32    float32 FMAs, no tensor cores          (TPU `highest`)

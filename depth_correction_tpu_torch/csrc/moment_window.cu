@@ -10,9 +10,7 @@
 // features (16, S) = [1, x, y, z, xx, yy, zz, xy, xz, yz, 0 x 6] and the
 // membership wm (S, 128) = [d2(est_k, q_n) <= r2] inside the span's
 // columns, and accumulates feats @ wm over NS spans. Its plain torch
-// version is moment_window_plain in ops/moment_window.py;
-// csrc/moment_window_v1.cu keeps the first version (one block of mma.sync
-// warps a tile, the whole span staged) for the A/B.
+// version is moment_window_plain in ops/moment_window.py.
 //
 // Precision variants as in csrc/moment_dot.cu (fp32, tf32, tf32x2,
 // tf32x3; the TPU probes' highest, default, split2_bits, split3_bits).

@@ -12,9 +12,7 @@
 // s = 0, 1, 2 (the tile's y-window inside the major slabs x-1, x, x+1; a
 // column-straddling tile has one whole-slab range and two empty ones).
 //
-// Design (K1's, csrc/cellwin_fwd.cuh; the first version, csrc/slabwin_v1.cu,
-// made every thread test every staged candidate, between two block
-// barriers per chunk of 128):
+// Design (K1's, csrc/cellwin_fwd.cuh):
 // - One block per 128-slot tile, four warps of 32 rows, one thread per row
 //   with its ten sums in registers. Warps work alone: each reads its own
 //   tile's three spans, with no block barrier, so a warp whose rows keep
@@ -40,9 +38,8 @@
 // rounding is monotone, so |fl(e - q)| >= fl(gap) for every q in the box;
 // fmul and fadd of non-negative values are monotone, so box_d2 <= d2 of
 // every valid row. An entry with box_d2 > r2 fails every valid row's test.
-// The kept entries are added in the first version's order (spans in order,
-// entries ascending) by the same expressions, so the output equals
-// csrc/slabwin_v1.cu's bit for bit.
+// The kept entries are added in one fixed order (spans in order, entries
+// ascending), so the output is, bit for bit, that of testing every entry.
 //
 // Numerics:
 // - Membership keeps the TPU engine's per-pair arithmetic: d = (x - ctr) -

@@ -1,7 +1,6 @@
 // X4 and X5: the gather engine's analytic backward over a transpose graph,
 // for Hopper (sm_90a), with a plain C interface loaded through ctypes by
-// depth_correction_tpu_torch/ops/_kernels.py. Second design (the first,
-// which walks the targets in point order, is transpose_gather_v1.cu).
+// depth_correction_tpu_torch/ops/_kernels.py.
 //
 // Replaces the JAX package's scatter-free backward passes, which gather
 // through a padded transpose of the frozen neighbourhoods
@@ -18,10 +17,10 @@
 // The plain torch versions are transpose_moments_plain and
 // transpose_gather_plain in depth_correction_tpu_torch/ops/features.py.
 //
-// What held the first design: in point order no two pairs of 32
-// consecutive targets share a row, so X4 read every pair's 48-byte table
-// row anew from L2 (two sectors a pair, ~0.5 GB of L2 traffic a launch
-// on the capped bench graph) and X5 read every pair's cotangent at a
+// Why the targets are not walked in point order: there no two pairs of 32
+// consecutive targets share a row, so X4 would read every pair's 48-byte
+// table row anew from L2 (two sectors a pair, ~0.5 GB of L2 traffic a
+// launch on the capped bench graph) and X5 every pair's cotangent at a
 // scattered address of an (Mq * K, D) array larger than L2, one sector a
 // pair from device memory.
 //
@@ -31,10 +30,10 @@
 // stream coalesced and a tile of consecutive targets reuses each row it
 // references several times (6-11 on the bench graphs). Reading a
 // point-order CSR through order instead would scatter every run's loads.
-// The graph holds this one CSR; the point-order one (the first design's)
-// is derived from it where it is needed (features.point_csr). The runs
-// keep their point-order sequence, so each target's sum is taken in the
-// first design's order: the same bits. Tiles: at most 128 consecutive
+// The graph holds this one CSR; the point-order one is derived from it
+// where it is needed (features.point_csr). The runs keep their
+// point-order sequence, so each target's sum is taken in that order
+// whichever CSR is walked. Tiles: at most 128 consecutive
 // targets (TILE_TARGETS) referencing at most `budget` distinct rows (the
 // builder halves a block until it fits; a lone target past the budget is
 // a hub tile), rows[row_start[b]:row_start[b + 1]] ascending, and each
@@ -48,8 +47,8 @@
 // coalesced) and its row from shared memory, and a butterfly of shuffles
 // within the eight lanes adds the partial sums in a fixed order; lane 0
 // writes grad[order[t]]. A hub tile's 256 threads stride its one run,
-// read the rows through pair / k from global memory (as the first design
-// does), and add their sums by a fixed tree. No atomics: every launch
+// read the rows through pair / k from global memory, and add their sums
+// by a fixed tree. No atomics: every launch
 // gives the same bits. X4 keeps the centred form S_i (x_j - mu_i): the
 // JAX form (sum w S) x_j + sum w (h - S mu) subtracts two terms of size
 // |S| |x| in global coordinates, which in float32 costs |x| / |x_j - mu_i|

@@ -10,15 +10,15 @@ reused. Nothing here runs at import: the CPU tests import every module.
 
 The launchers validate device, dtype, shape and contiguity before passing
 pointers, launch on the current stream, and raise when the C entry returns
-a CUDA error. Launch counts of K1/K2 (and of their first versions, kept
-for an A/B on the card) are kept by their callers in ``ops/cellwin.py``;
-X1, X2, X3, X4, X5, P2-P7, P7a (and their first versions) and the probes P1
-and P8 count here (:data:`SLAB_LAUNCHES`, :data:`GRID_LAUNCHES`,
-:data:`TRANSPOSE_MOMENTS_LAUNCHES`, :data:`TRANSPOSE_GATHER_LAUNCHES`,
-:data:`KNN_LAUNCHES`, :data:`GATHER_LAUNCHES`, :data:`KNOCKOUT_LAUNCHES`,
-:data:`DOT_LAUNCHES`, :data:`WINDOW_LAUNCHES`, :data:`LAYOUT_LAUNCHES`,
-:data:`GATHER_SUM_LAUNCHES`, :data:`GATHER_PROBE_LAUNCHES`, and the first
-versions' ``*_V1_LAUNCHES``), once per accepted launch (X6 once per ICP
+a CUDA error. Launch counts of K1/K2 are kept by their callers in
+``ops/cellwin.py``; X1-X6, P2-P7, P7a and the probes P1 and P8 count here
+(the ``*_LAUNCHES`` names of ``__all__``: :data:`SLAB_LAUNCHES`,
+:data:`GRID_LAUNCHES`, :data:`TRANSPOSE_MOMENTS_LAUNCHES`,
+:data:`TRANSPOSE_GATHER_LAUNCHES`, :data:`KNN_LAUNCHES`,
+:data:`GATHER_LAUNCHES`, :data:`KNOCKOUT_LAUNCHES`, :data:`DOT_LAUNCHES`,
+:data:`WINDOW_LAUNCHES`, :data:`LAYOUT_LAUNCHES`,
+:data:`GATHER_SUM_LAUNCHES`, :data:`GATHER_PROBE_LAUNCHES`,
+:data:`ICP_SOLVE_LAUNCHES`), once per accepted launch (X6 once per ICP
 step, at its second launch); :data:`KNN_NEAREST_LAUNCHES` counts the X3
 launches that took its nearest search (k = 1, no radius).
 """
@@ -39,78 +39,51 @@ from ..utils import trace
 
 __all__ = [
     "DOT_LAUNCHES",
-    "DOT_V1_LAUNCHES",
     "GATHER_LAUNCHES",
     "GATHER_PACK_MIN_PAIRS",
     "GATHER_PROBE_LAUNCHES",
-    "GATHER_PROBE_V1_LAUNCHES",
     "GATHER_SUM_LAUNCHES",
-    "GATHER_SUM_V1_LAUNCHES",
-    "GATHER_V1_LAUNCHES",
     "GRID_LAUNCHES",
-    "GRID_V1_LAUNCHES",
     "ICP_SOLVE_LAUNCHES",
     "ICP_STATS",
     "KNN_LAUNCHES",
     "KNN_NEAREST_LAUNCHES",
-    "KNN_V1_LAUNCHES",
     "KNOCKOUT_LAUNCHES",
     "LAYOUT_LAUNCHES",
-    "LAYOUT_V1_LAUNCHES",
     "SLAB_LAUNCHES",
-    "SLAB_V1_LAUNCHES",
     "TRANSPOSE_GATHER_LAUNCHES",
-    "TRANSPOSE_GATHER_V1_LAUNCHES",
     "TRANSPOSE_MOMENTS_LAUNCHES",
-    "TRANSPOSE_MOMENTS_V1_LAUNCHES",
     "WINDOW_LAUNCHES",
-    "WINDOW_V1_LAUNCHES",
     "build",
     "knn_max_k",
     "knn_tiles_max_k",
     "launch_cellwin_bwd",
-    "launch_cellwin_bwd_v1",
     "launch_cellwin_fwd",
-    "launch_cellwin_fwd_v1",
     "launch_cellwin_knockout",
     "launch_gather_moments",
-    "launch_gather_moments_v1",
     "launch_gather_probe",
-    "launch_gather_probe_v1",
     "launch_gather_sum",
-    "launch_gather_sum_v1",
     "launch_grid_query",
-    "launch_grid_query_v1",
     "launch_icp_gate",
     "launch_icp_solve",
     "launch_knn_brute",
-    "launch_knn_brute_v1",
     "launch_layout_probe",
-    "launch_layout_probe_v1",
     "launch_moment_dot",
-    "launch_moment_dot_v1",
     "launch_moment_window",
-    "launch_moment_window_v1",
     "launch_slab_window",
-    "launch_slab_window_v1",
     "launch_transpose_gather",
-    "launch_transpose_gather_v1",
     "launch_transpose_moments",
-    "launch_transpose_moments_v1",
     "load",
     "reset_launch_counts",
 ]
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", name)
-                for name in ("cellwin.cu", "cellwin_v1.cu", "gather_moments.cu", "slabwin.cu",
-                             "slabwin_v1.cu", "cellwin_knockout.cu", "moment_dot.cu",
-                             "moment_dot_v1.cu", "moment_window.cu", "moment_window_v1.cu",
-                             "grid_query.cu",
-                             "grid_query_v1.cu", "layout_probe.cu", "layout_probe_v1.cu",
-                             "gather_probe.cu", "gather_probe_v1.cu", "knn_brute.cu", "knn_brute_v1.cu",
-                             "gather_sum.cu", "gather_sum_v1.cu", "gather_moments_v1.cu",
-                             "transpose_gather.cu", "transpose_gather_v1.cu", "icp_solve.cu"))
+                for name in ("cellwin.cu", "gather_moments.cu", "slabwin.cu",
+                             "cellwin_knockout.cu", "moment_dot.cu", "moment_window.cu",
+                             "grid_query.cu", "layout_probe.cu", "gather_probe.cu",
+                             "knn_brute.cu", "knn_warp.cu", "gather_sum.cu",
+                             "transpose_gather.cu", "icp_solve.cu"))
 # Headers the sources include; they key the build like the sources.
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", name)
                 for name in ("cellwin_fwd.cuh", "tf32_mma.cuh", "wgmma_tf32.cuh"))
@@ -141,19 +114,6 @@ KNN_NEAREST_LAUNCHES = 0
 TRANSPOSE_MOMENTS_LAUNCHES = 0
 TRANSPOSE_GATHER_LAUNCHES = 0
 ICP_SOLVE_LAUNCHES = 0
-# The first versions of X1-X5, P2, P3-P5, P6, P7, P7a and P8, for the A/B only
-# (no path launches them).
-TRANSPOSE_MOMENTS_V1_LAUNCHES = 0
-TRANSPOSE_GATHER_V1_LAUNCHES = 0
-SLAB_V1_LAUNCHES = 0
-GRID_V1_LAUNCHES = 0
-KNN_V1_LAUNCHES = 0
-DOT_V1_LAUNCHES = 0
-WINDOW_V1_LAUNCHES = 0
-LAYOUT_V1_LAUNCHES = 0
-GATHER_V1_LAUNCHES = 0
-GATHER_SUM_V1_LAUNCHES = 0
-GATHER_PROBE_V1_LAUNCHES = 0
 GATHER_LAUNCHES = 0
 KNOCKOUT_LAUNCHES = 0
 DOT_LAUNCHES = 0
@@ -222,51 +182,33 @@ def load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build()["path"])
-        for suffix in ("", "_v1"):
-            fwd = getattr(lib, "dc_cellwin_fwd" + suffix)
-            fwd.argtypes = [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P]
-            fwd.restype = _I
-            bwd = getattr(lib, "dc_cellwin_bwd" + suffix)
-            bwd.argtypes = [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P]
-            bwd.restype = _I
-        for suffix in ("", "_v1"):
-            slab = getattr(lib, "dc_slab_window" + suffix)
-            slab.argtypes = [_P, _P, _I, _P, _P, _P, _I, _F, _P, _P]
-            slab.restype = _I
-            grid = getattr(lib, "dc_grid_query" + suffix)
-            # The redesign takes the warps' query order before the stream.
-            grid.argtypes = ([_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _F, _I, _L, _P, _P]
-                             + [_P] * (2 if suffix == "" else 1))
-            grid.restype = _I
-        # The redesign takes the packed table's scratch before the stream.
+        lib.dc_cellwin_fwd.argtypes = [_P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P, _P]
+        lib.dc_cellwin_fwd.restype = _I
+        lib.dc_cellwin_bwd.argtypes = [_P, _P, _I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _F, _P,
+                                       _P]
+        lib.dc_cellwin_bwd.restype = _I
+        lib.dc_slab_window.argtypes = [_P, _P, _I, _P, _P, _P, _I, _F, _P, _P]
+        lib.dc_slab_window.restype = _I
+        lib.dc_grid_query.argtypes = [_P, _P, _I, _P, _P, _P, _I, _P, _P, _P, _F, _I, _L, _P,
+                                      _P, _P, _P]
+        lib.dc_grid_query.restype = _I
         for entry in (lib.dc_gather_moments, lib.dc_gather_moments_centred):
             entry.argtypes = [_P, _L, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P]
             entry.restype = _I
-        lib.dc_gather_moments_v1.argtypes = [_P, _L, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P]
-        lib.dc_gather_moments_v1.restype = _I
         lib.dc_cellwin_knockout.argtypes = [_I, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I,
                                             _I, _F, _P, _P]
         lib.dc_cellwin_knockout.restype = _I
-        for suffix in ("", "_v1"):
-            dot = getattr(lib, "dc_moment_dot" + suffix)
-            dot.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P]
-            dot.restype = _I
-            layout = getattr(lib, "dc_layout_probe" + suffix)
-            layout.argtypes = [_I, _P, _P, _P]
-            layout.restype = _I
-        for suffix in ("", "_v1"):
-            window = getattr(lib, "dc_moment_window" + suffix)
-            window.argtypes = [_I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _F, _I, _P,
-                               _P]
-            window.restype = _I
-        for suffix in ("", "_v1"):
-            probe = getattr(lib, "dc_gather_probe" + suffix)
-            probe.argtypes = [_I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
-            probe.restype = _I
-        for suffix in ("", "_v1"):
-            gsum = getattr(lib, "dc_gather_sum" + suffix)
-            gsum.argtypes = [_P, _I, _P, _I, _I, _P, _P]
-            gsum.restype = _I
+        lib.dc_moment_dot.argtypes = [_I, _P, _P, _I, _I, _I, _P, _P]
+        lib.dc_moment_dot.restype = _I
+        lib.dc_layout_probe.argtypes = [_I, _P, _P, _P]
+        lib.dc_layout_probe.restype = _I
+        lib.dc_moment_window.argtypes = [_I, _I, _P, _I, _P, _I, _P, _P, _P, _I, _P, _I, _I, _F,
+                                         _I, _P, _P]
+        lib.dc_moment_window.restype = _I
+        lib.dc_gather_probe.argtypes = [_I, _I, _P, _P, _I, _I, _I, _I, _P, _P]
+        lib.dc_gather_probe.restype = _I
+        lib.dc_gather_sum.argtypes = [_P, _I, _P, _I, _I, _P, _P]
+        lib.dc_gather_sum.restype = _I
         lib.dc_knn_brute.argtypes = [_P, _P, _I, _P, _P, _I, _F, _F, _I, _I, _I, _P, _P, _P,
                                      _P, _P]
         lib.dc_knn_brute.restype = _I
@@ -276,21 +218,16 @@ def load():
         lib.dc_knn_order.restype = _I
         lib.dc_knn_order_scratch.argtypes = [_I]
         lib.dc_knn_order_scratch.restype = _L
-        lib.dc_knn_brute_v1.argtypes = [_P, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P]
-        lib.dc_knn_brute_v1.restype = _I
+        lib.dc_knn_warp.argtypes = [_P, _P, _I, _P, _P, _I, _F, _I, _P, _P, _P]
+        lib.dc_knn_warp.restype = _I
         lib.dc_knn_brute_max_k.argtypes = [_P]
         lib.dc_knn_brute_max_k.restype = _I
-        lib.dc_knn_brute_v1_max_k.argtypes = [_P]
-        lib.dc_knn_brute_v1_max_k.restype = _I
-        # The redesigns walk the tiles (the cell order and its CSR).
+        lib.dc_knn_warp_max_k.argtypes = [_P]
+        lib.dc_knn_warp_max_k.restype = _I
         lib.dc_transpose_moments.argtypes = [_P, _I, _I] + [_P] * 9 + [_I, _I, _I, _P, _P]
         lib.dc_transpose_moments.restype = _I
         lib.dc_transpose_gather.argtypes = [_P, _I, _I, _P, _P, _P, _P, _P]
         lib.dc_transpose_gather.restype = _I
-        lib.dc_transpose_moments_v1.argtypes = [_P, _I, _P, _P, _P, _P, _I, _P, _P]
-        lib.dc_transpose_moments_v1.restype = _I
-        lib.dc_transpose_gather_v1.argtypes = [_P, _I, _I, _P, _P, _P, _P]
-        lib.dc_transpose_gather_v1.restype = _I
         lib.dc_icp_scratch.argtypes = [_I]
         lib.dc_icp_scratch.restype = _L
         lib.dc_icp_gate.argtypes = [_P, _P, _P, _I, _P, _P, _P]
@@ -330,8 +267,8 @@ def _block_size(cap: int, name: str):
 
 def _launch_fwd(name, lead, pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
                 r2: float) -> torch.Tensor:
-    """K1 on CUDA float32 tensors through ``dc_<name>`` (K1 itself, its first
-    version, or a knockout mode of P1 with ``lead`` = (mode,)) -> (10, mq_pad)."""
+    """K1 on CUDA float32 tensors through ``dc_<name>`` (K1 itself, or a
+    knockout mode of P1 with ``lead`` = (mode,)) -> (10, mq_pad)."""
     device = pts_sorted.device
     if device.type != "cuda":
         raise ValueError("the cellwin kernels take CUDA tensors, got %s" % device)
@@ -371,13 +308,6 @@ def launch_cellwin_fwd(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
                            f_ctr, r2)
 
 
-def launch_cellwin_fwd_v1(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
-                          r2: float) -> torch.Tensor:
-    """K1's first version (``csrc/cellwin_v1.cu``), same inputs and output."""
-    return _launch_fwd("cellwin_fwd_v1", (), pts_sorted, q_est, est_sorted, f_start, f_len,
-                       f_ctr, r2)
-
-
 def launch_cellwin_knockout(mode_id: int, pts_sorted, q_est, est_sorted, f_start, f_len,
                             f_ctr, r2: float) -> torch.Tensor:
     """P1, K1 with knockout ``mode_id`` (the index into
@@ -390,83 +320,41 @@ def launch_cellwin_knockout(mode_id: int, pts_sorted, q_est, est_sorted, f_start
     return out
 
 
-def _launch_bwd(name, pts_sorted, q_est, est_sorted, table9, b_start, b_len, b_ctr,
-                r2: float) -> torch.Tensor:
-    """K2 on CUDA float32 tensors through ``dc_<name>`` (K2 itself or its
-    first version) -> (m_pad, 3) gradient wrt pts_sorted."""
-    device = pts_sorted.device
-    if device.type != "cuda":
-        raise ValueError("the cellwin kernels take CUDA tensors, got %s" % device)
-    m_pad = pts_sorted.shape[0]
-    mq_pad = q_est.shape[1]
-    t2, ns = b_start.shape
-    _check(pts_sorted, "pts_sorted", torch.float32, (m_pad, 3), device)
-    _check(est_sorted, "est_sorted", torch.float32, (est_sorted.shape[0], m_pad), device)
-    _check(q_est, "q_est", torch.float32, (q_est.shape[0], mq_pad), device)
-    _check(table9, "table9", torch.float32, (9, mq_pad), device)
-    _check(b_start, "b_start", torch.int32, (t2, ns), device)
-    _check(b_len, "b_len", torch.int32, (t2, ns), device)
-    _check(b_ctr, "b_ctr", torch.float32, (t2, 3), device)
-    if est_sorted.shape[0] < 3 or q_est.shape[0] < 3 or t2 == 0 or m_pad % t2:
-        raise ValueError("%s: inconsistent tables (est %s, q_est %s, %d tiles)"
-                         % (name, tuple(est_sorted.shape), tuple(q_est.shape), t2))
-    pt_cap = m_pad // t2
-    _block_size(pt_cap, "pt_cap")
-    out = torch.empty((m_pad, 3), dtype=torch.float32, device=device)
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, "dc_" + name)(
-            pts_sorted.data_ptr(), est_sorted.data_ptr(), m_pad,
-            q_est.data_ptr(), table9.data_ptr(), mq_pad, b_start.data_ptr(),
-            b_len.data_ptr(), b_ctr.data_ptr(), t2, ns, pt_cap, float(r2),
-            out.data_ptr(), stream)
-    # A table past the shared-memory limit (csrc/cellwin_fwd.cuh allow_smem)
-    # fails here with CUDA's invalid-argument error.
-    _check_launch(lib, err, "%s (%d tiles, %d mini-spans a tile)" % (name, t2, ns))
-    return out
-
-
 def launch_cellwin_bwd(pts_sorted, q_est, est_sorted, table9, b_start, b_len,
                        b_ctr, r2: float) -> torch.Tensor:
     """K2 on CUDA float32 tensors -> (m_pad, 3) gradient wrt pts_sorted."""
     with trace.span("k2.cellwin_bwd"):
-        return _launch_bwd("cellwin_bwd", pts_sorted, q_est, est_sorted, table9, b_start,
-                           b_len, b_ctr, r2)
-
-
-def launch_cellwin_bwd_v1(pts_sorted, q_est, est_sorted, table9, b_start, b_len,
-                          b_ctr, r2: float) -> torch.Tensor:
-    """K2's first version (``csrc/cellwin_v1.cu``), same inputs and output."""
-    return _launch_bwd("cellwin_bwd_v1", pts_sorted, q_est, est_sorted, table9, b_start, b_len,
-                       b_ctr, r2)
-
-
-def _launch_slab(name, pts_T, valid, lo, width, ctr, r2: float) -> torch.Tensor:
-    """One launch of ``dc_<name>`` (X1 or its first version)."""
-    device = pts_T.device
-    if device.type != "cuda":
-        raise ValueError("the slab-window kernel takes CUDA tensors, got %s" % device)
-    n = pts_T.shape[-1]
-    if n % 128:
-        raise ValueError("slab_window: %d slots is not a multiple of 128" % n)
-    t = n // 128
-    _check(pts_T, "pts_T", torch.float32, (3, n), device)
-    _check(valid, "valid", torch.bool, (n,), device)
-    _check(lo, "lo", torch.int32, (t, 3), device)
-    _check(width, "width", torch.int32, (t, 3), device)
-    _check(ctr, "ctr", torch.float32, (t, 3), device)
-    if pts_T.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError("slab_window is forward only: pts_T requires grad")
-    out = torch.empty((10, n), dtype=torch.float32, device=device)
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, "dc_" + name)(pts_T.data_ptr(), valid.data_ptr(), n, lo.data_ptr(),
-                                         width.data_ptr(), ctr.data_ptr(), t, float(r2),
-                                         out.data_ptr(), stream)
-    _check_launch(lib, err, name)
-    return out
+        device = pts_sorted.device
+        if device.type != "cuda":
+            raise ValueError("the cellwin kernels take CUDA tensors, got %s" % device)
+        m_pad = pts_sorted.shape[0]
+        mq_pad = q_est.shape[1]
+        t2, ns = b_start.shape
+        _check(pts_sorted, "pts_sorted", torch.float32, (m_pad, 3), device)
+        _check(est_sorted, "est_sorted", torch.float32, (est_sorted.shape[0], m_pad), device)
+        _check(q_est, "q_est", torch.float32, (q_est.shape[0], mq_pad), device)
+        _check(table9, "table9", torch.float32, (9, mq_pad), device)
+        _check(b_start, "b_start", torch.int32, (t2, ns), device)
+        _check(b_len, "b_len", torch.int32, (t2, ns), device)
+        _check(b_ctr, "b_ctr", torch.float32, (t2, 3), device)
+        if est_sorted.shape[0] < 3 or q_est.shape[0] < 3 or t2 == 0 or m_pad % t2:
+            raise ValueError("cellwin_bwd: inconsistent tables (est %s, q_est %s, %d tiles)"
+                             % (tuple(est_sorted.shape), tuple(q_est.shape), t2))
+        pt_cap = m_pad // t2
+        _block_size(pt_cap, "pt_cap")
+        out = torch.empty((m_pad, 3), dtype=torch.float32, device=device)
+        lib = load()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.dc_cellwin_bwd(
+                pts_sorted.data_ptr(), est_sorted.data_ptr(), m_pad,
+                q_est.data_ptr(), table9.data_ptr(), mq_pad, b_start.data_ptr(),
+                b_len.data_ptr(), b_ctr.data_ptr(), t2, ns, pt_cap, float(r2),
+                out.data_ptr(), stream)
+        # A table past the shared-memory limit (csrc/cellwin_fwd.cuh allow_smem)
+        # fails here with CUDA's invalid-argument error.
+        _check_launch(lib, err, "cellwin_bwd (%d tiles, %d mini-spans a tile)" % (t2, ns))
+        return out
 
 
 def launch_slab_window(pts_T, valid, lo, width, ctr, r2: float) -> torch.Tensor:
@@ -479,17 +367,29 @@ def launch_slab_window(pts_T, valid, lo, width, ctr, r2: float) -> torch.Tensor:
     """
     global SLAB_LAUNCHES
     with trace.span("x1.slab"):
-        out = _launch_slab("slab_window", pts_T, valid, lo, width, ctr, r2)
+        device = pts_T.device
+        if device.type != "cuda":
+            raise ValueError("the slab-window kernel takes CUDA tensors, got %s" % device)
+        n = pts_T.shape[-1]
+        if n % 128:
+            raise ValueError("slab_window: %d slots is not a multiple of 128" % n)
+        t = n // 128
+        _check(pts_T, "pts_T", torch.float32, (3, n), device)
+        _check(valid, "valid", torch.bool, (n,), device)
+        _check(lo, "lo", torch.int32, (t, 3), device)
+        _check(width, "width", torch.int32, (t, 3), device)
+        _check(ctr, "ctr", torch.float32, (t, 3), device)
+        if pts_T.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError("slab_window is forward only: pts_T requires grad")
+        out = torch.empty((10, n), dtype=torch.float32, device=device)
+        lib = load()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.dc_slab_window(pts_T.data_ptr(), valid.data_ptr(), n, lo.data_ptr(),
+                                     width.data_ptr(), ctr.data_ptr(), t, float(r2),
+                                     out.data_ptr(), stream)
+        _check_launch(lib, err, "slab_window")
     SLAB_LAUNCHES += 1
-    return out
-
-
-def launch_slab_window_v1(pts_T, valid, lo, width, ctr, r2: float) -> torch.Tensor:
-    """X1's first version (``csrc/slabwin_v1.cu``), same inputs and output as
-    :func:`launch_slab_window`; for the A/B only."""
-    global SLAB_V1_LAUNCHES
-    out = _launch_slab("slab_window_v1", pts_T, valid, lo, width, ctr, r2)
-    SLAB_V1_LAUNCHES += 1
     return out
 
 
@@ -498,42 +398,6 @@ def launch_slab_window_v1(pts_T, valid, lo, width, ctr, r2: float) -> torch.Tens
 # up to three, for one more launch, which a host-bound node scan would pay
 # without a gain.
 GATHER_PACK_MIN_PAIRS = 1 << 22
-
-
-def _launch_gather_moments(name: str, points, neighbors, weights, packed=None):
-    """One launch of ``dc_<name>`` (P7 or its first version). ``packed``,
-    the redesign's only: whether it packs the points into an (N, 4) scratch
-    table first (None: the first version's entry takes no scratch)."""
-    device = points.device
-    if device.type != "cuda":
-        raise ValueError("the gather-moments kernel takes CUDA tensors, got %s" % device)
-    if points.dtype != torch.float32:
-        raise TypeError("points has dtype %s, the kernel takes torch.float32" % points.dtype)
-    if points.dim() != 2 or 3 not in points.shape:
-        raise ValueError("points has shape %s, expected (N, 3) or (3, N)"
-                         % (tuple(points.shape),))
-    if points.shape[1] == 3:
-        n_pts, sp, sc = points.shape[0], points.stride(0), points.stride(1)
-    else:
-        n_pts, sp, sc = points.shape[1], points.stride(1), points.stride(0)
-    if points.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError("gather_moments is forward only: points requires grad")
-    mq, k = neighbors.shape
-    _check(neighbors, "neighbors", torch.int32, (mq, k), device)
-    _check(weights, "weights", torch.float32, (mq, k), device)
-    mean = torch.empty((3, mq), dtype=torch.float32, device=device)
-    comps = torch.empty((6, mq), dtype=torch.float32, device=device)
-    wsum = torch.empty((mq,), dtype=torch.float32, device=device)
-    extra = () if packed is None else (
-        _ptr(torch.empty((n_pts, 4), dtype=torch.float32, device=device) if packed else None),)
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, "dc_" + name)(points.data_ptr(), sp, sc, n_pts, neighbors.data_ptr(),
-                                         weights.data_ptr(), mq, k, mean.data_ptr(),
-                                         comps.data_ptr(), wsum.data_ptr(), *extra, stream)
-    _check_launch(lib, err, name)
-    return mean, comps, wsum
 
 
 def launch_gather_moments(points, neighbors, weights, centred: bool = False):
@@ -548,25 +412,53 @@ def launch_gather_moments(points, neighbors, weights, centred: bool = False):
         covariance summed about the mean, as the plain version sums it).
     """
     global GATHER_LAUNCHES
-    packed = neighbors.numel() >= GATHER_PACK_MIN_PAIRS
+    name = "gather_moments_centred" if centred else "gather_moments"
     with trace.span("p7.moments"):
-        out = _launch_gather_moments("gather_moments_centred" if centred else "gather_moments",
-                                     points, neighbors, weights, packed)
+        device = points.device
+        if device.type != "cuda":
+            raise ValueError("the gather-moments kernel takes CUDA tensors, got %s" % device)
+        if points.dtype != torch.float32:
+            raise TypeError("points has dtype %s, the kernel takes torch.float32"
+                            % points.dtype)
+        if points.dim() != 2 or 3 not in points.shape:
+            raise ValueError("points has shape %s, expected (N, 3) or (3, N)"
+                             % (tuple(points.shape),))
+        if points.shape[1] == 3:
+            n_pts, sp, sc = points.shape[0], points.stride(0), points.stride(1)
+        else:
+            n_pts, sp, sc = points.shape[1], points.stride(1), points.stride(0)
+        if points.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError("gather_moments is forward only: points requires grad")
+        mq, k = neighbors.shape
+        _check(neighbors, "neighbors", torch.int32, (mq, k), device)
+        _check(weights, "weights", torch.float32, (mq, k), device)
+        mean = torch.empty((3, mq), dtype=torch.float32, device=device)
+        comps = torch.empty((6, mq), dtype=torch.float32, device=device)
+        wsum = torch.empty((mq,), dtype=torch.float32, device=device)
+        packed = None
+        if neighbors.numel() >= GATHER_PACK_MIN_PAIRS:
+            packed = torch.empty((n_pts, 4), dtype=torch.float32, device=device)
+        lib = load()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = getattr(lib, "dc_" + name)(points.data_ptr(), sp, sc, n_pts,
+                                             neighbors.data_ptr(), weights.data_ptr(), mq, k,
+                                             mean.data_ptr(), comps.data_ptr(), wsum.data_ptr(),
+                                             _ptr(packed), stream)
+        _check_launch(lib, err, name)
     GATHER_LAUNCHES += 1
-    return out
+    return mean, comps, wsum
 
 
-def launch_gather_moments_v1(points, neighbors, weights):
-    """P7's first version (``csrc/gather_moments_v1.cu``), the arguments and
-    results of :func:`launch_gather_moments`; for the A/B only."""
-    global GATHER_V1_LAUNCHES
-    out = _launch_gather_moments("gather_moments_v1", points, neighbors, weights)
-    GATHER_V1_LAUNCHES += 1
-    return out
+def launch_moment_dot(prec_id: int, a, b, n_tiles: int) -> torch.Tensor:
+    """P2 on CUDA float32 tensors -> (16, 128 n_tiles): columns
+    [128 t, 128 t + 128) hold sum_s a[s] @ b[s] for every tile t.
 
-
-def _launch_dot(name: str, prec_id: int, a, b, n_tiles: int) -> torch.Tensor:
-    """One launch of ``dc_<name>`` (P2 or its first version)."""
+    :param prec_id: index into ``ops.moment_dot.PRECISIONS``.
+    :param a: (ns, 16, S) float32, S a multiple of 8.
+    :param b: (ns, S, 128) float32.
+    """
+    global DOT_LAUNCHES
     device = a.device
     if device.type != "cuda":
         raise ValueError("the moment-product kernel takes CUDA tensors, got %s" % device)
@@ -582,32 +474,10 @@ def _launch_dot(name: str, prec_id: int, a, b, n_tiles: int) -> torch.Tensor:
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, "dc_" + name)(int(prec_id), a.data_ptr(), b.data_ptr(), ns, s_len,
-                                         int(n_tiles), out.data_ptr(), stream)
-    _check_launch(lib, err, name)
-    return out
-
-
-def launch_moment_dot(prec_id: int, a, b, n_tiles: int) -> torch.Tensor:
-    """P2 on CUDA float32 tensors -> (16, 128 n_tiles): columns
-    [128 t, 128 t + 128) hold sum_s a[s] @ b[s] for every tile t.
-
-    :param prec_id: index into ``ops.moment_dot.PRECISIONS``.
-    :param a: (ns, 16, S) float32, S a multiple of 8.
-    :param b: (ns, S, 128) float32.
-    """
-    global DOT_LAUNCHES
-    out = _launch_dot("moment_dot", prec_id, a, b, n_tiles)
+        err = lib.dc_moment_dot(int(prec_id), a.data_ptr(), b.data_ptr(), ns, s_len,
+                                int(n_tiles), out.data_ptr(), stream)
+    _check_launch(lib, err, "moment_dot")
     DOT_LAUNCHES += 1
-    return out
-
-
-def launch_moment_dot_v1(prec_id: int, a, b, n_tiles: int) -> torch.Tensor:
-    """P2's first version (``csrc/moment_dot_v1.cu``), the arguments and
-    result of :func:`launch_moment_dot`; for the A/B only."""
-    global DOT_V1_LAUNCHES
-    out = _launch_dot("moment_dot_v1", prec_id, a, b, n_tiles)
-    DOT_V1_LAUNCHES += 1
     return out
 
 
@@ -617,9 +487,11 @@ def _ptr(t):
 
 def _launch_window(name, prec_id: int, flags: int, win, q, r2: float, n_tiles: int,
                    ns: int, s_len: int, lens, starts=None, leads=None, ctr=None, entry=None):
-    """One launch of ``dc_<name>`` (P3-P5 or their first version), or of the
-    C function ``entry`` with its signature; arguments as
+    """One launch of ``dc_<name>`` (P3-P5), or of the C function ``entry``
+    with its signature (a variant built by
+    ``scripts/exp_window_variants.py``); arguments as
     :func:`launch_moment_window`."""
+
     from .moment_window import FLAG_BITS
 
     device = win.device
@@ -682,23 +554,10 @@ def launch_moment_window(prec_id: int, flags: int, win, q, r2: float, n_tiles: i
     return out
 
 
-def launch_moment_window_v1(prec_id: int, flags: int, win, q, r2: float, n_tiles: int,
-                            ns: int, s_len: int, lens, starts=None, leads=None,
-                            ctr=None) -> torch.Tensor:
-    """P3-P5's first version (``csrc/moment_window_v1.cu``), the arguments
-    and result of :func:`launch_moment_window`; for the A/B only."""
-    global WINDOW_V1_LAUNCHES
-    out = _launch_window("moment_window_v1", prec_id, flags, win, q, r2, n_tiles, ns, s_len,
-                         lens, starts=starts, leads=leads, ctr=ctr)
-    WINDOW_V1_LAUNCHES += 1
-    return out
-
-
-def _launch_grid(name, q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dims, cell,
-                 r2, k: int, cap=None, q_order=()):
-    """One launch of ``dc_<name>`` (X2 or its first version): k = 0 -> counts
-    (Q,) int32; k > 0 -> (d (Q, k) float32, idx (Q, k) int32), -1 / inf
-    padded.
+def launch_grid_query(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dims, cell, r2,
+                      k: int, cap=None, own_points: bool = False):
+    """X2 on CUDA tensors: k = 0 -> counts (Q,) int32; k > 0 -> (d (Q, k)
+    float32, idx (Q, k) int32), -1 / inf padded.
 
     :param q_pts: (Q, 3) float32 queries (any strides; copied contiguous).
     :param q_valid: (Q,) bool.
@@ -708,52 +567,6 @@ def _launch_grid(name, q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, di
         side, as tensors on the card or host numbers (no host read).
     :param r2: float or 0-d tensor (read once on the host).
     :param cap: cut each column's run at ``cap`` slots; None reads it whole.
-    :param q_order: the redesign's warp order argument, (pointer or None,);
-        the first version takes none.
-    """
-    device = pts_sorted_T.device
-    if device.type != "cuda":
-        raise ValueError("the grid query kernel takes CUDA tensors, got %s" % device)
-    n = pts_sorted_T.shape[-1]
-    nq = q_pts.shape[0]
-    q_pts = q_pts.contiguous()
-    _check(q_pts, "q_pts", torch.float32, (nq, 3), device)
-    _check(q_valid, "q_valid", torch.bool, (nq,), device)
-    _check(pts_sorted_T, "pts_sorted_T", torch.float32, (3, n), device)
-    _check(ids_sorted, "ids_sorted", torch.int32, (n,), device)
-    _check(order, "order", torch.int32, (n,), device)
-    if n >= 1 << 28:
-        raise ValueError("grid_query: %d points, the kernel takes fewer than 2^28" % n)
-    if pts_sorted_T.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError("grid_query is forward only: pts_sorted_T requires grad")
-    k = int(k)
-    if k < 0:
-        raise ValueError("grid_query: k = %d" % k)
-    mins = torch.as_tensor(mins, dtype=torch.float32, device=device).reshape(3).contiguous()
-    dims = torch.as_tensor(dims, device=device).to(torch.int32).reshape(3).contiguous()
-    cell = torch.as_tensor(cell, dtype=torch.float32, device=device).reshape(1).contiguous()
-    if k == 0:
-        idx = torch.empty((nq,), dtype=torch.int32, device=device)
-        d = None
-    else:
-        idx = torch.empty((nq, k), dtype=torch.int32, device=device)
-        d = torch.empty((nq, k), dtype=torch.float32, device=device)
-    lib = load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, "dc_" + name)(
-            q_pts.data_ptr(), q_valid.data_ptr(), nq, pts_sorted_T.data_ptr(),
-            ids_sorted.data_ptr(), order.data_ptr(), n, mins.data_ptr(), dims.data_ptr(),
-            cell.data_ptr(), float(r2), k, -1 if cap is None else int(cap), idx.data_ptr(),
-            _ptr(d), *q_order, stream)
-    _check_launch(lib, err, name)
-    return idx if k == 0 else (d, idx)
-
-
-def launch_grid_query(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dims, cell, r2,
-                      k: int, cap=None, own_points: bool = False):
-    """X2 on CUDA tensors (the arguments and results of :func:`_launch_grid`).
-
     :param own_points: the queries are the grid's own points, q_pts[order]
         the columns of pts_sorted_T; the warps then take them in the grid's
         slot order, so that neighbouring warps read the same runs (each
@@ -764,26 +577,50 @@ def launch_grid_query(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dim
         raise ValueError("grid_query: own_points with %d queries and %d points"
                          % (q_pts.shape[0], pts_sorted_T.shape[-1]))
     with trace.span("x2.grid"):
-        out = _launch_grid("grid_query", q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins,
-                           dims, cell, r2, k, cap, (order.data_ptr() if own_points else None,))
+        device = pts_sorted_T.device
+        if device.type != "cuda":
+            raise ValueError("the grid query kernel takes CUDA tensors, got %s" % device)
+        n = pts_sorted_T.shape[-1]
+        nq = q_pts.shape[0]
+        q_pts = q_pts.contiguous()
+        _check(q_pts, "q_pts", torch.float32, (nq, 3), device)
+        _check(q_valid, "q_valid", torch.bool, (nq,), device)
+        _check(pts_sorted_T, "pts_sorted_T", torch.float32, (3, n), device)
+        _check(ids_sorted, "ids_sorted", torch.int32, (n,), device)
+        _check(order, "order", torch.int32, (n,), device)
+        if n >= 1 << 28:
+            raise ValueError("grid_query: %d points, the kernel takes fewer than 2^28" % n)
+        if pts_sorted_T.requires_grad and torch.is_grad_enabled():
+            raise RuntimeError("grid_query is forward only: pts_sorted_T requires grad")
+        k = int(k)
+        if k < 0:
+            raise ValueError("grid_query: k = %d" % k)
+        mins = torch.as_tensor(mins, dtype=torch.float32, device=device).reshape(3).contiguous()
+        dims = torch.as_tensor(dims, device=device).to(torch.int32).reshape(3).contiguous()
+        cell = torch.as_tensor(cell, dtype=torch.float32, device=device).reshape(1).contiguous()
+        if k == 0:
+            idx = torch.empty((nq,), dtype=torch.int32, device=device)
+            d = None
+        else:
+            idx = torch.empty((nq, k), dtype=torch.int32, device=device)
+            d = torch.empty((nq, k), dtype=torch.float32, device=device)
+        lib = load()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.dc_grid_query(
+                q_pts.data_ptr(), q_valid.data_ptr(), nq, pts_sorted_T.data_ptr(),
+                ids_sorted.data_ptr(), order.data_ptr(), n, mins.data_ptr(), dims.data_ptr(),
+                cell.data_ptr(), float(r2), k, -1 if cap is None else int(cap), idx.data_ptr(),
+                _ptr(d), order.data_ptr() if own_points else None, stream)
+        _check_launch(lib, err, "grid_query")
     GRID_LAUNCHES += 1
-    return out
+    return idx if k == 0 else (d, idx)
 
 
-def launch_grid_query_v1(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins, dims, cell, r2,
-                         k: int, cap=None):
-    """X2's first version (``csrc/grid_query_v1.cu``: queries in their own
-    order), the arguments and results of :func:`launch_grid_query` without
-    ``own_points``; for the A/B only."""
-    global GRID_V1_LAUNCHES
-    out = _launch_grid("grid_query_v1", q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins,
-                       dims, cell, r2, k, cap)
-    GRID_V1_LAUNCHES += 1
-    return out
-
-
-def _launch_layout(name: str, probe: int, x, out_shape) -> torch.Tensor:
-    """One launch of ``dc_<name>`` (P6 or its first version)."""
+def launch_layout_probe(probe: int, x, out_shape) -> torch.Tensor:
+    """P6 probe ``probe`` (the index into ``ops.layout_probe.PROBES``) on a
+    CUDA float32 x (8, 512) -> ``out_shape`` float32."""
+    global LAYOUT_LAUNCHES
     device = x.device
     if device.type != "cuda":
         raise ValueError("the layout probe kernels take CUDA tensors, got %s" % device)
@@ -792,31 +629,19 @@ def _launch_layout(name: str, probe: int, x, out_shape) -> torch.Tensor:
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, "dc_" + name)(int(probe), x.data_ptr(), out.data_ptr(), stream)
-    _check_launch(lib, err, name)
-    return out
-
-
-def launch_layout_probe(probe: int, x, out_shape) -> torch.Tensor:
-    """P6 probe ``probe`` (the index into ``ops.layout_probe.PROBES``) on a
-    CUDA float32 x (8, 512) -> ``out_shape`` float32."""
-    global LAYOUT_LAUNCHES
-    out = _launch_layout("layout_probe", probe, x, out_shape)
+        err = lib.dc_layout_probe(int(probe), x.data_ptr(), out.data_ptr(), stream)
+    _check_launch(lib, err, "layout_probe")
     LAYOUT_LAUNCHES += 1
     return out
 
 
-def launch_layout_probe_v1(probe: int, x, out_shape) -> torch.Tensor:
-    """P6's first version (``csrc/layout_probe_v1.cu``), the arguments and
-    result of :func:`launch_layout_probe`; for the A/B only."""
-    global LAYOUT_V1_LAUNCHES
-    out = _launch_layout("layout_probe_v1", probe, x, out_shape)
-    LAYOUT_V1_LAUNCHES += 1
-    return out
-
-
-def _launch_gather_probe(name: str, staged: bool, axis: int, x, idx) -> torch.Tensor:
-    """One launch of ``dc_<name>`` (P8 or its first version)."""
+def launch_gather_probe(staged: bool, axis: int, x, idx) -> torch.Tensor:
+    """P8 on CUDA tensors: x (rows, cols) float32, idx (i_rows, i_cols)
+    int32 in range -> take_along_axis(x, idx, axis) (i_rows, i_cols)
+    float32, from device memory or (``staged``) from shared memory: one
+    block's, or a cluster's of 8 blocks where an axis-1 row does not fit
+    one block."""
+    global GATHER_PROBE_LAUNCHES
     device = x.device
     if device.type != "cuda":
         raise ValueError("the gather probe kernels take CUDA tensors, got %s" % device)
@@ -828,32 +653,10 @@ def _launch_gather_probe(name: str, staged: bool, axis: int, x, idx) -> torch.Te
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, "dc_" + name)(int(bool(staged)), int(axis), x.data_ptr(),
-                                         idx.data_ptr(), x_rows, x_cols, i_rows, i_cols,
-                                         out.data_ptr(), stream)
-    _check_launch(lib, err, name)
-    return out
-
-
-def launch_gather_probe(staged: bool, axis: int, x, idx) -> torch.Tensor:
-    """P8 on CUDA tensors: x (rows, cols) float32, idx (i_rows, i_cols)
-    int32 in range -> take_along_axis(x, idx, axis) (i_rows, i_cols)
-    float32, from device memory or (``staged``) from shared memory: one
-    block's, or a cluster's of 8 blocks where an axis-1 row does not fit
-    one block."""
-    global GATHER_PROBE_LAUNCHES
-    out = _launch_gather_probe("gather_probe", staged, axis, x, idx)
+        err = lib.dc_gather_probe(int(bool(staged)), int(axis), x.data_ptr(), idx.data_ptr(),
+                                  x_rows, x_cols, i_rows, i_cols, out.data_ptr(), stream)
+    _check_launch(lib, err, "gather_probe")
     GATHER_PROBE_LAUNCHES += 1
-    return out
-
-
-def launch_gather_probe_v1(staged: bool, axis: int, x, idx) -> torch.Tensor:
-    """P8's first version (``csrc/gather_probe_v1.cu``: one output a
-    thread; no staged form past one block), the arguments and result of
-    :func:`launch_gather_probe`; for the A/B only."""
-    global GATHER_PROBE_V1_LAUNCHES
-    out = _launch_gather_probe("gather_probe_v1", staged, axis, x, idx)
-    GATHER_PROBE_V1_LAUNCHES += 1
     return out
 
 
@@ -881,9 +684,9 @@ def knn_tiles_max_k(device=None) -> int:
 
 def knn_max_k(device=None) -> int:
     """The largest k X3 takes on ``device`` (the current card by default):
-    that of the warp-per-query body (``csrc/knn_brute_v1.cu``), which
-    serves every k above :func:`knn_tiles_max_k`; about 13,680 on an H100."""
-    return _max_k("dc_knn_brute_v1_max_k", device)
+    that of the warp-per-query body (``csrc/knn_warp.cu``), which serves
+    every k above :func:`knn_tiles_max_k`; about 13,680 on an H100."""
+    return _max_k("dc_knn_warp_max_k", device)
 
 
 def _knn_cell_order(pts, active, side: float) -> torch.Tensor:
@@ -919,7 +722,7 @@ def _same_rows(a, b) -> bool:
                       and a.stride() == b.stride())
 
 
-def _knn_inputs(q_pts, q_valid, pts, p_valid, k: int, name: str):
+def _knn_inputs(q_pts, q_valid, pts, p_valid, k: int):
     """X3's inputs checked and made contiguous, and its outputs allocated:
     (q_pts, pts, k, idx, d2), d2 None for the counts (k = 0)."""
     device = pts.device
@@ -933,13 +736,13 @@ def _knn_inputs(q_pts, q_valid, pts, p_valid, k: int, name: str):
     if q_valid is not None:
         _check(q_valid, "q_valid", torch.bool, (nq,), device)
     if n >= 1 << 31 or nq >= 1 << 31:
-        raise ValueError("%s: %d points, %d queries; the kernel takes fewer than 2^31"
-                         % (name, n, nq))
+        raise ValueError("knn_brute: %d points, %d queries; the kernel takes fewer than 2^31"
+                         % (n, nq))
     if (pts.requires_grad or q_pts.requires_grad) and torch.is_grad_enabled():
-        raise RuntimeError("%s is forward only: its points require grad" % name)
+        raise RuntimeError("knn_brute is forward only: its points require grad")
     k = int(k)
     if k < 0:
-        raise ValueError("%s: k = %d" % (name, k))
+        raise ValueError("knn_brute: k = %d" % k)
     if k == 0:
         return q_pts, pts, k, torch.empty((nq,), dtype=torch.int32, device=device), None
     return (q_pts, pts, k, torch.empty((nq, k), dtype=torch.int32, device=device),
@@ -960,7 +763,7 @@ def launch_knn_brute(q_pts, q_valid, pts, p_valid, r2: float, k: int, tally=None
     place in the point order, then those its queries' nearest distances so
     far reach. The outputs do not depend on the order. A k above
     :func:`knn_tiles_max_k` takes the warp-per-query body of
-    ``csrc/knn_brute_v1.cu`` (every query against every point), one above
+    ``csrc/knn_warp.cu`` (every query against every point), one above
     :func:`knn_max_k` raises.
 
     :param q_pts: (Q, 3) float32 queries (any strides; copied contiguous).
@@ -976,7 +779,7 @@ def launch_knn_brute(q_pts, q_valid, pts, p_valid, r2: float, k: int, tally=None
     global KNN_LAUNCHES, KNN_NEAREST_LAUNCHES
     with trace.span("x3.knn"):
         same = _same_rows(q_pts, pts)
-        q_pts, pts, k, idx, d2 = _knn_inputs(q_pts, q_valid, pts, p_valid, k, "knn_brute")
+        q_pts, pts, k, idx, d2 = _knn_inputs(q_pts, q_valid, pts, p_valid, k)
         device = pts.device
         n, nq = pts.shape[0], q_pts.shape[0]
         if k > knn_tiles_max_k(device.index):
@@ -986,7 +789,7 @@ def launch_knn_brute(q_pts, q_valid, pts, p_valid, r2: float, k: int, tally=None
                 raise ValueError("knn_brute: k = %d does not fit: the lists of one warp hold "
                                  "at most k = %d in the card's shared memory per block"
                                  % (k, k_max))
-            out = _knn_v1_body(q_pts, q_valid, pts, p_valid, r2, k, idx, d2, "knn_brute")
+            out = _knn_warp_body(q_pts, q_valid, pts, p_valid, r2, k, idx, d2)
             KNN_LAUNCHES += 1
             return out
         q_active = q_valid if k else None  # the counts count every query
@@ -1020,34 +823,26 @@ def launch_knn_brute(q_pts, q_valid, pts, p_valid, r2: float, k: int, tally=None
         return idx if k == 0 else (d2, idx)
 
 
-def _knn_v1_body(q_pts, q_valid, pts, p_valid, r2: float, k: int, idx, d2, name: str):
-    """One launch of ``csrc/knn_brute_v1.cu`` on inputs checked by
+def _knn_warp_body(q_pts, q_valid, pts, p_valid, r2: float, k: int, idx, d2):
+    """One launch of ``csrc/knn_warp.cu`` on inputs checked by
     :func:`_knn_inputs` (``q_valid`` ignored for the counts)."""
     device = pts.device
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.dc_knn_brute_v1(q_pts.data_ptr(), _ptr(q_valid if k else None),
-                                  q_pts.shape[0], pts.data_ptr(), p_valid.data_ptr(),
-                                  pts.shape[0], float(r2), k, idx.data_ptr(), _ptr(d2), stream)
-    _check_launch(lib, err, "%s (k %d)" % (name, k))
+        err = lib.dc_knn_warp(q_pts.data_ptr(), _ptr(q_valid if k else None), q_pts.shape[0],
+                              pts.data_ptr(), p_valid.data_ptr(), pts.shape[0], float(r2), k,
+                              idx.data_ptr(), _ptr(d2), stream)
+    _check_launch(lib, err, "knn_warp (k %d)" % k)
     return idx if k == 0 else (d2, idx)
 
 
-def launch_knn_brute_v1(q_pts, q_valid, pts, p_valid, r2: float, k: int):
-    """X3's first version (``csrc/knn_brute_v1.cu``: one warp per query,
-    every query against every point), same inputs and outputs as
-    :func:`launch_knn_brute`, at any k up to :func:`knn_max_k`; for the A/B
-    only."""
-    global KNN_V1_LAUNCHES
-    q_pts, pts, k, idx, d2 = _knn_inputs(q_pts, q_valid, pts, p_valid, k, "knn_brute_v1")
-    out = _knn_v1_body(q_pts, q_valid, pts, p_valid, r2, k, idx, d2, "knn_brute_v1")
-    KNN_V1_LAUNCHES += 1
-    return out
-
-
-def _launch_gather_sum(name: str, pts_T, idx) -> torch.Tensor:
-    """One launch of ``dc_<name>`` (P7a or its first version)."""
+def launch_gather_sum(pts_T, idx) -> torch.Tensor:
+    """P7a on CUDA tensors: pts_T (3, M) float32, idx (T, K) int32 in
+    [0, M) -> (3, T) float32, out[c, t] = sum over k = 0..K-1, in that order,
+    of pts_T[c, idx[t, k]], gathered from the table where it lies (L2), any
+    M. The indices are not checked: one outside [0, M) is undefined input."""
+    global GATHER_SUM_LAUNCHES
     device = pts_T.device
     if device.type != "cuda":
         raise ValueError("the gather-sum probe kernel takes CUDA tensors, got %s" % device)
@@ -1059,52 +854,25 @@ def _launch_gather_sum(name: str, pts_T, idx) -> torch.Tensor:
     lib = load()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, "dc_" + name)(pts_T.data_ptr(), m, idx.data_ptr(), t, k,
-                                         out.data_ptr(), stream)
-    _check_launch(lib, err, "%s (M %d)" % (name, m))
-    return out
-
-
-def launch_gather_sum(pts_T, idx) -> torch.Tensor:
-    """P7a on CUDA tensors: pts_T (3, M) float32, idx (T, K) int32 in
-    [0, M) -> (3, T) float32, out[c, t] = sum over k = 0..K-1, in that order,
-    of pts_T[c, idx[t, k]], gathered from the table where it lies (L2), any
-    M. The indices are not checked: one outside [0, M) is undefined input."""
-    global GATHER_SUM_LAUNCHES
-    out = _launch_gather_sum("gather_sum", pts_T, idx)
+        err = lib.dc_gather_sum(pts_T.data_ptr(), m, idx.data_ptr(), t, k, out.data_ptr(),
+                                stream)
+    _check_launch(lib, err, "gather_sum (M %d)" % m)
     GATHER_SUM_LAUNCHES += 1
     return out
 
 
-def launch_gather_sum_v1(pts_T, idx) -> torch.Tensor:
-    """P7a's first version (``csrc/gather_sum_v1.cu``: each block stages the
-    table in shared memory, so a table past the card's opt-in limit fails
-    with CUDA's invalid-argument error), the arguments and result of
-    :func:`launch_gather_sum`; for the A/B only."""
-    global GATHER_SUM_V1_LAUNCHES
-    out = _launch_gather_sum("gather_sum_v1", pts_T, idx)
-    GATHER_SUM_V1_LAUNCHES += 1
-    return out
-
-
-def _check_csr(start, pair, device) -> int:
-    """A transpose graph's CSR (int32 ``start`` (M + 1,), ``pair`` (P,))
-    -> M."""
-    m = start.shape[0] - 1
-    _check(start, "start", torch.int32, (m + 1,), device)
-    _check(pair, "pair", torch.int32, (pair.shape[0],), device)
-    return m
-
-
 def _check_tiles(tg, device) -> int:
     """A transpose graph (``ops.features.TransposeGraph``): its cell-order
-    CSR and tiles -> M. A graph without tiles raises."""
+    CSR (int32 ``start`` (M + 1,), ``pair`` (P,)) and tiles -> M. A graph
+    without tiles raises."""
     if tg.tiles is None:
         raise ValueError("X4 and X5 walk a transpose's tiles, and this one has none: build it "
                          "with ops.features.build_transpose_graph")
     t = tg.tiles
-    m = _check_csr(tg.start, tg.pair, device)
+    m = tg.start.shape[0] - 1
     p, nt = tg.pair.shape[0], t.num_tiles
+    _check(tg.start, "start", torch.int32, (m + 1,), device)
+    _check(tg.pair, "pair", torch.int32, (p,), device)
     _check(tg.order, "order", torch.int32, (m,), device)
     _check(t.local, "local", torch.int16, (p,), device)
     _check(t.tile_start, "tile_start", torch.int32, (nt + 1,), device)
@@ -1113,18 +881,6 @@ def _check_tiles(tg, device) -> int:
     if not 0 <= t.rows_max <= t.budget:
         raise ValueError("tiles: rows_max %d outside 0..budget %d" % (t.rows_max, t.budget))
     return m
-
-
-def _moments_args(points, w, table, p: int, m: int):
-    device = points.device
-    if device.type != "cuda":
-        raise ValueError("the transpose kernels take CUDA tensors, got %s" % device)
-    _check(points, "points", torch.float32, (m, 3), device)
-    _check(w, "w", torch.float32, (p,), device)
-    _check(table, "table", torch.float32, (table.shape[0], 12), device)
-    if table.data_ptr() % 16:
-        raise ValueError("transpose_moments: the table must start on a 16-byte boundary")
-    return torch.empty((m, 3), dtype=torch.float32, device=device)
 
 
 def launch_transpose_moments(points, tg, table) -> torch.Tensor:
@@ -1140,14 +896,20 @@ def launch_transpose_moments(points, tg, table) -> torch.Tensor:
     """
     global TRANSPOSE_MOMENTS_LAUNCHES
     with trace.span("x4.transpose_moments"):
-        m = _check_tiles(tg, points.device)
-        if points.device.type != "cuda":
-            raise ValueError("the transpose kernels take CUDA tensors, got %s" % points.device)
+        device = points.device
+        m = _check_tiles(tg, device)
+        if device.type != "cuda":
+            raise ValueError("the transpose kernels take CUDA tensors, got %s" % device)
         t = tg.tiles
-        grad = _moments_args(points, tg.w, table, tg.pair.shape[0], m)
+        _check(points, "points", torch.float32, (m, 3), device)
+        _check(tg.w, "w", torch.float32, (tg.pair.shape[0],), device)
+        _check(table, "table", torch.float32, (table.shape[0], 12), device)
+        if table.data_ptr() % 16:
+            raise ValueError("transpose_moments: the table must start on a 16-byte boundary")
+        grad = torch.empty((m, 3), dtype=torch.float32, device=device)
         lib = load()
-        with torch.cuda.device(points.device):
-            stream = torch.cuda.current_stream(points.device).cuda_stream
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.dc_transpose_moments(
                 points.data_ptr(), m, t.num_tiles, tg.order.data_ptr(), tg.start.data_ptr(),
                 _ptr(tg.pair), _ptr(tg.w), _ptr(t.local), t.tile_start.data_ptr(),
@@ -1159,36 +921,6 @@ def launch_transpose_moments(points, tg, table) -> torch.Tensor:
     return grad
 
 
-def launch_transpose_moments_v1(points, start, pair, w, table, k: int) -> torch.Tensor:
-    """X4's first version (``csrc/transpose_gather_v1.cu``: the targets in
-    point order over the point-order CSR ``start`` / ``pair`` / ``w`` of
-    ``ops.features.point_csr``), the
-    result of :func:`launch_transpose_moments`; for the A/B only."""
-    global TRANSPOSE_MOMENTS_V1_LAUNCHES
-    if points.device.type != "cuda":
-        raise ValueError("the transpose kernels take CUDA tensors, got %s" % points.device)
-    m = _check_csr(start, pair, points.device)
-    grad = _moments_args(points, w, table, pair.shape[0], m)
-    lib = load()
-    with torch.cuda.device(points.device):
-        stream = torch.cuda.current_stream(points.device).cuda_stream
-        err = lib.dc_transpose_moments_v1(points.data_ptr(), m, start.data_ptr(), _ptr(pair),
-                                          _ptr(w), table.data_ptr(), int(k), grad.data_ptr(),
-                                          stream)
-    _check_launch(lib, err, "transpose_moments_v1 (M %d, P %d)" % (m, pair.shape[0]))
-    TRANSPOSE_MOMENTS_V1_LAUNCHES += 1
-    return grad
-
-
-def _gather_out(g, m: int):
-    if g.device.type != "cuda":
-        raise ValueError("the transpose kernels take CUDA tensors, got %s" % g.device)
-    if g.dim() != 2 or g.shape[1] not in (1, 3):
-        raise ValueError("g has shape %s, expected (slots, 1) or (slots, 3)" % (tuple(g.shape),))
-    _check(g, "g", torch.float32, tuple(g.shape), g.device)
-    return torch.empty((m, g.shape[1]), dtype=torch.float32, device=g.device)
-
-
 def launch_transpose_gather(g, tg) -> torch.Tensor:
     """X5 on CUDA float32 tensors: ``g`` (slots, D), D 1 or 3, the cotangent
     of a neighbour gather by slot ``i * K + k``, summed over each target's
@@ -1196,37 +928,24 @@ def launch_transpose_gather(g, tg) -> torch.Tensor:
     its tiles) -> (M, D)."""
     global TRANSPOSE_GATHER_LAUNCHES
     with trace.span("x5.transpose_gather"):
-        m = _check_tiles(tg, g.device)
-        out = _gather_out(g, m)
+        device = g.device
+        m = _check_tiles(tg, device)
+        if device.type != "cuda":
+            raise ValueError("the transpose kernels take CUDA tensors, got %s" % device)
+        if g.dim() != 2 or g.shape[1] not in (1, 3):
+            raise ValueError("g has shape %s, expected (slots, 1) or (slots, 3)"
+                             % (tuple(g.shape),))
+        _check(g, "g", torch.float32, tuple(g.shape), device)
+        out = torch.empty((m, g.shape[1]), dtype=torch.float32, device=device)
         lib = load()
-        with torch.cuda.device(g.device):
-            stream = torch.cuda.current_stream(g.device).cuda_stream
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
             err = lib.dc_transpose_gather(_ptr(g), g.shape[1], m, tg.order.data_ptr(),
                                           tg.start.data_ptr(), _ptr(tg.pair), out.data_ptr(),
                                           stream)
         _check_launch(lib, err, "transpose_gather (M %d, P %d, D %d)"
                       % (m, tg.pair.shape[0], g.shape[1]))
     TRANSPOSE_GATHER_LAUNCHES += 1
-    return out
-
-
-def launch_transpose_gather_v1(g, start, pair) -> torch.Tensor:
-    """X5's first version (``csrc/transpose_gather_v1.cu``: point order over
-    ``ops.features.point_csr``'s CSR), the result of :func:`launch_transpose_gather`;
-    for the A/B only."""
-    global TRANSPOSE_GATHER_V1_LAUNCHES
-    if g.device.type != "cuda":
-        raise ValueError("the transpose kernels take CUDA tensors, got %s" % g.device)
-    m = _check_csr(start, pair, g.device)
-    out = _gather_out(g, m)
-    lib = load()
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        err = lib.dc_transpose_gather_v1(_ptr(g), g.shape[1], m, start.data_ptr(), _ptr(pair),
-                                         out.data_ptr(), stream)
-    _check_launch(lib, err, "transpose_gather_v1 (M %d, P %d, D %d)"
-                  % (m, pair.shape[0], g.shape[1]))
-    TRANSPOSE_GATHER_V1_LAUNCHES += 1
     return out
 
 
@@ -1328,38 +1047,8 @@ def launch_icp_solve(sorted_key, scratch, T, d2, idx, src_pts, src_valid, tgt_pt
 
 
 def reset_launch_counts() -> None:
-    """Zero the launch counts kept here (X1-X6, P2-P8, P7a and their first
-    versions, P1)."""
-    global TRANSPOSE_MOMENTS_LAUNCHES, TRANSPOSE_GATHER_LAUNCHES
-    global SLAB_LAUNCHES, GRID_LAUNCHES, KNN_LAUNCHES, KNN_NEAREST_LAUNCHES, GATHER_LAUNCHES
-    global KNOCKOUT_LAUNCHES
-    global DOT_LAUNCHES, WINDOW_LAUNCHES, LAYOUT_LAUNCHES, GATHER_SUM_LAUNCHES
-    global GATHER_PROBE_LAUNCHES, KNN_V1_LAUNCHES, SLAB_V1_LAUNCHES, GRID_V1_LAUNCHES
-    global DOT_V1_LAUNCHES, LAYOUT_V1_LAUNCHES, GATHER_V1_LAUNCHES, GATHER_SUM_V1_LAUNCHES
-    global WINDOW_V1_LAUNCHES, GATHER_PROBE_V1_LAUNCHES
-    global TRANSPOSE_MOMENTS_V1_LAUNCHES, TRANSPOSE_GATHER_V1_LAUNCHES, ICP_SOLVE_LAUNCHES
-    SLAB_LAUNCHES = 0
-    GRID_LAUNCHES = 0
-    KNN_LAUNCHES = 0
-    KNN_NEAREST_LAUNCHES = 0
-    SLAB_V1_LAUNCHES = 0
-    GRID_V1_LAUNCHES = 0
-    KNN_V1_LAUNCHES = 0
-    DOT_V1_LAUNCHES = 0
-    WINDOW_V1_LAUNCHES = 0
-    LAYOUT_V1_LAUNCHES = 0
-    GATHER_V1_LAUNCHES = 0
-    GATHER_SUM_V1_LAUNCHES = 0
-    GATHER_SUM_LAUNCHES = 0
-    GATHER_LAUNCHES = 0
-    KNOCKOUT_LAUNCHES = 0
-    DOT_LAUNCHES = 0
-    WINDOW_LAUNCHES = 0
-    LAYOUT_LAUNCHES = 0
-    GATHER_PROBE_LAUNCHES = 0
-    GATHER_PROBE_V1_LAUNCHES = 0
-    TRANSPOSE_MOMENTS_LAUNCHES = 0
-    TRANSPOSE_GATHER_LAUNCHES = 0
-    TRANSPOSE_MOMENTS_V1_LAUNCHES = 0
-    TRANSPOSE_GATHER_V1_LAUNCHES = 0
-    ICP_SOLVE_LAUNCHES = 0
+    """Zero every launch count kept here (the ``*_LAUNCHES`` names of
+    ``__all__``)."""
+    for name in __all__:
+        if name.endswith("_LAUNCHES"):
+            globals()[name] = 0

@@ -27,9 +27,7 @@ cell-sorted ROW table, accumulating each referencing row's cotangent row
 Forward and backward are the hand-written CUDA kernels of
 ``csrc/cellwin.cu`` (built and bound by ``ops/_kernels.py``) on CUDA
 tensors, and their plain torch versions ``cellwin_fwd_plain`` /
-``cellwin_bwd_plain`` on CPU tensors. The kernels' first versions
-(``csrc/cellwin_v1.cu``, ``cellwin_fwd_v1`` / ``cellwin_bwd_v1``) compute
-the same function and stay for an A/B on the card; no path calls them.
+``cellwin_bwd_plain`` on CPU tensors.
 """
 from __future__ import annotations
 
@@ -46,19 +44,15 @@ from .features import TransposeGraph, _cotangent_table, build_transpose_graph, \
 
 __all__ = [
     "BWD_LAUNCHES",
-    "BWD_V1_LAUNCHES",
     "CellWinDevice",
     "CellWinGraph",
     "FWD_LAUNCHES",
-    "FWD_V1_LAUNCHES",
     "build_cellwin_graph",
     "cellwin_bwd",
     "cellwin_bwd_plain",
-    "cellwin_bwd_v1",
     "cellwin_features",
     "cellwin_fwd",
     "cellwin_fwd_plain",
-    "cellwin_fwd_v1",
     "cellwin_moments",
     "graph_to_device",
 ]
@@ -643,8 +637,6 @@ def build_cellwin_graph(
 # its kernel and nowhere else (the plain versions never count).
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
-FWD_V1_LAUNCHES = 0
-BWD_V1_LAUNCHES = 0
 
 # Elements of the largest (tiles, slots, window) intermediate the plain
 # versions materialize at once.
@@ -804,42 +796,12 @@ def cellwin_bwd(pts_sorted, q_est, est_sorted, table9, b_start, b_len,
     return out
 
 
-def cellwin_fwd_v1(pts_sorted, q_est, est_sorted, f_start, f_len, f_ctr,
-                   r2: float):
-    """K1's first version (``csrc/cellwin_v1.cu``), for an A/B against
-    :func:`cellwin_fwd` on the card; the same function, so CPU tensors take
-    :func:`cellwin_fwd_plain` too."""
-    global FWD_V1_LAUNCHES
-    if pts_sorted.device.type == "cpu":
-        return cellwin_fwd_plain(pts_sorted, q_est, est_sorted, f_start,
-                                 f_len, f_ctr, r2)
-    out = _kernels.launch_cellwin_fwd_v1(pts_sorted, q_est, est_sorted, f_start,
-                                         f_len, f_ctr, r2)
-    FWD_V1_LAUNCHES += 1
-    return out
-
-
-def cellwin_bwd_v1(pts_sorted, q_est, est_sorted, table9, b_start, b_len,
-                   b_ctr, r2: float):
-    """K2's first version (``csrc/cellwin_v1.cu``), for an A/B against
-    :func:`cellwin_bwd` on the card; CPU tensors take
-    :func:`cellwin_bwd_plain`."""
-    global BWD_V1_LAUNCHES
-    if pts_sorted.device.type == "cpu":
-        return cellwin_bwd_plain(pts_sorted, q_est, est_sorted, table9,
-                                 b_start, b_len, b_ctr, r2)
-    out = _kernels.launch_cellwin_bwd_v1(pts_sorted, q_est, est_sorted, table9,
-                                         b_start, b_len, b_ctr, r2)
-    BWD_V1_LAUNCHES += 1
-    return out
 
 
 def reset_launch_counts() -> None:
-    global FWD_LAUNCHES, BWD_LAUNCHES, FWD_V1_LAUNCHES, BWD_V1_LAUNCHES
+    global FWD_LAUNCHES, BWD_LAUNCHES
     FWD_LAUNCHES = 0
     BWD_LAUNCHES = 0
-    FWD_V1_LAUNCHES = 0
-    BWD_V1_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------------------

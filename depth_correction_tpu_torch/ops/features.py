@@ -17,9 +17,7 @@ tiles, built once in prep): the moments' analytic VJP
 ``nn_scale`` (:class:`GatherNeighborsTransposed`) kernel X5, both in
 ``csrc/transpose_gather.cu``, on CUDA tensors; their plain versions
 (:func:`transpose_moments_plain`, :func:`transpose_gather_plain`) on CPU
-tensors. :func:`transpose_moments_v1` and :func:`transpose_gather_v1`
-launch their first versions (``csrc/transpose_gather_v1.cu``), for the
-A/B on the card only. A gradient path without a transpose raises. The JAX
+tensors. A gradient path without a transpose raises. The JAX
 package's padded (M, Kt) tables and their bucketing by in-degree pad for
 the TPU's lanes and are not ported: the CSR holds the same pairs in the
 same order.
@@ -30,8 +28,6 @@ viewpoint and direction dispersions of the trainability masks) go through
 tensors, :func:`gather_moments_plain` on CPU tensors. The Gaussian
 re-weighting (``nn_scale``) takes two of them without a gradient: the mean,
 then the moments under the re-weighted weights.
-:func:`gather_moments_v1` launches P7's first version
-(``csrc/gather_moments_v1.cu``), for the A/B on the card only.
 """
 from __future__ import annotations
 
@@ -58,7 +54,6 @@ __all__ = [
     "dir_dispersion",
     "gather_moments",
     "gather_moments_plain",
-    "gather_moments_v1",
     "gather_neighbors",
     "gather_neighbors_transposed",
     "index_order",
@@ -70,11 +65,9 @@ __all__ = [
     "point_csr",
     "transpose_gather",
     "transpose_gather_plain",
-    "transpose_gather_v1",
     "transpose_in_order",
     "transpose_moments",
     "transpose_moments_plain",
-    "transpose_moments_v1",
     "vp_dispersion",
 ]
 
@@ -224,8 +217,8 @@ class TransposeGraph:
 
 class PointCSR(NamedTuple):
     """A transpose's pairs in point order: point j's run is
-    ``pair[start[j]:start[j + 1]]`` (weights ``w``), the layout of X4's and
-    X5's first versions and of the JAX package's tables."""
+    ``pair[start[j]:start[j + 1]]`` (weights ``w``), the layout of the JAX
+    package's tables."""
 
     start: torch.Tensor  # (M + 1,) int32
     pair: torch.Tensor  # (P,) int32
@@ -284,9 +277,9 @@ def cell_order(positions: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
 
 
 def index_order(active: torch.Tensor) -> torch.Tensor:
-    """(M,) int64: the ``active`` targets by index, then the others; the
-    first versions' walk, which :func:`transpose_in_order` takes to measure
-    what the cell order gains."""
+    """(M,) int64: the ``active`` targets by index, then the others: point
+    order, which :func:`transpose_in_order` takes to measure what the cell
+    order gains."""
     return torch.sort((~active).to(torch.int8), stable=True).indices
 
 
@@ -481,13 +474,6 @@ def transpose_moments(points, tg: TransposeGraph, table):
     return _kernels.launch_transpose_moments(points.contiguous(), tg, table.contiguous())
 
 
-def transpose_moments_v1(points, csr: PointCSR, table):
-    """X4's first version (point order) on CUDA tensors over
-    :func:`point_csr` of a transpose, the result of
-    :func:`transpose_moments`; for the A/B on the card only."""
-    return _kernels.launch_transpose_moments_v1(points.contiguous(), csr.start, csr.pair, csr.w,
-                                                table.contiguous(), csr.k)
-
 
 def transpose_gather_plain(g, tg: TransposeGraph):
     """Plain torch version of kernel X5, any device and dtype: the (Mq, K)
@@ -509,14 +495,6 @@ def transpose_gather(g, tg: TransposeGraph):
     out = _kernels.launch_transpose_gather(g.reshape(-1, d).contiguous(), tg)
     return out[:, 0] if g.dim() == 2 else out
 
-
-def transpose_gather_v1(g, csr: PointCSR):
-    """X5's first version (point order) on CUDA tensors over
-    :func:`point_csr` of a transpose, the result of
-    :func:`transpose_gather`; for the A/B on the card only."""
-    d = 1 if g.dim() == 2 else g.shape[-1]
-    out = _kernels.launch_transpose_gather_v1(g.reshape(-1, d).contiguous(), csr.start, csr.pair)
-    return out[:, 0] if g.dim() == 2 else out
 
 
 class GatherNeighborsTransposed(torch.autograd.Function):
@@ -620,12 +598,6 @@ def gather_moments(points, neighbors, weights, centred: bool = False):
     return _kernels.launch_gather_moments(points, neighbors.to(torch.int32).contiguous(),
                                           weights.to(points.dtype).contiguous(), centred)
 
-
-def gather_moments_v1(points, neighbors, weights):
-    """P7's first version on CUDA tensors, the arguments and results of
-    :func:`gather_moments`; it has no plain route, so a CPU tensor raises."""
-    return _kernels.launch_gather_moments_v1(points, neighbors.to(torch.int32).contiguous(),
-                                             weights.to(points.dtype).contiguous())
 
 
 class NeighborhoodMoments(torch.autograd.Function):

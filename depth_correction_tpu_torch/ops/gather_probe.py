@@ -8,9 +8,7 @@ staging the row (axis 1) or all of x (axis 0) in one block, or, for an
 axis-1 row too long for one block, spread over the shared memory of a
 cluster of :data:`CLUSTER_BLOCKS` blocks; it exists only where that fits
 (:func:`staged_blocks`). The kernels are ``csrc/gather_probe.cu``; on CPU
-tensors the wrapper runs :func:`gather_probe_plain`. :func:`gather_probe_v1`
-launches the first version (``csrc/gather_probe_v1.cu``, one output a
-thread, no cluster form), for the A/B on the card only.
+tensors the wrapper runs :func:`gather_probe_plain`.
 """
 from __future__ import annotations
 
@@ -19,7 +17,7 @@ import torch
 from . import _kernels
 
 __all__ = ["CLUSTER_BLOCKS", "FORMS", "STAGED_BYTES", "gather_probe", "gather_probe_plain",
-           "gather_probe_v1", "staged_blocks", "staged_fits"]
+           "staged_blocks", "staged_fits"]
 
 FORMS = ("global", "staged")
 # Shared memory one block may use on an H100 (the opt-in limit, 227 KB).
@@ -70,14 +68,3 @@ def gather_probe(x: torch.Tensor, idx: torch.Tensor, axis: int, form: str) -> to
     if x.dim() == 1:
         return _kernels.launch_gather_probe(form == "staged", 1, x[None], idx[None])[0]
     return _kernels.launch_gather_probe(form == "staged", axis, x, idx)
-
-
-def gather_probe_v1(x: torch.Tensor, idx: torch.Tensor, axis: int, form: str) -> torch.Tensor:
-    """P8's first version on CUDA tensors, the function of :func:`gather_probe`
-    where its staged table fits one block (it has no cluster form); it has
-    no plain route, so a CPU tensor raises."""
-    if form not in FORMS:
-        raise ValueError("unknown gather form %r (forms: %s)" % (form, ", ".join(FORMS)))
-    if x.dim() == 1:
-        return _kernels.launch_gather_probe_v1(form == "staged", 1, x[None], idx[None])[0]
-    return _kernels.launch_gather_probe_v1(form == "staged", axis, x, idx)

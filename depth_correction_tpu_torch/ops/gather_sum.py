@@ -5,9 +5,7 @@ probe_kernel``: a (3, M) table gathered by (T, K) int32 indices, each
 row's K columns summed into (3, T). The kernel is ``csrc/gather_sum.cu``
 (the table read where it lies, in L2); on CPU tensors the wrapper runs
 :func:`gather_sum_plain`, which adds in the kernel's order, so the two are
-equal bit for bit. :func:`gather_sum_v1` launches the first version
-(``csrc/gather_sum_v1.cu``, each block holds the table in shared memory),
-for the A/B on the card only.
+equal bit for bit.
 """
 from __future__ import annotations
 
@@ -15,7 +13,7 @@ import torch
 
 from . import _kernels
 
-__all__ = ["gather_sum", "gather_sum_plain", "gather_sum_v1"]
+__all__ = ["gather_sum", "gather_sum_plain"]
 
 
 def gather_sum_plain(pts_T: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -38,10 +36,3 @@ def gather_sum(pts_T: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if pts_T.device.type == "cpu":
         return gather_sum_plain(pts_T, idx)
     return _kernels.launch_gather_sum(pts_T, idx)
-
-
-def gather_sum_v1(pts_T: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """P7a's first version on CUDA tensors, the function of
-    :func:`gather_sum` for a table that fits one block's shared memory; it
-    has no plain route, so a CPU tensor raises."""
-    return _kernels.launch_gather_sum_v1(pts_T, idx)

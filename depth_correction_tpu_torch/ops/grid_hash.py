@@ -20,9 +20,7 @@ same tables:
   to its own length; on CPU tensors it runs :func:`_grid_query_chunk_plain`,
   the plain twin of the JAX package's ``_grid_query_chunk_impl``, windows
   and all. :func:`grid_radius_neighbors` and :func:`grid_neighbor_counts`
-  are the entry points; :func:`grid_query_v1` runs X2's first version
-  (``csrc/grid_query_v1.cu``) on CUDA tensors for an A/B, and no path
-  calls it;
+  are the entry points;
 - :func:`grid_sort_colpad_traced`, the column-aligned sort of the online
   corrector's slab engine (``ops/slabwin.py``): the longest grid axis
   major, every major-axis column's run starting at a multiple of 128
@@ -51,7 +49,6 @@ __all__ = [
     "grid_neighbor_counts",
     "grid_occupancy",
     "grid_query",
-    "grid_query_v1",
     "grid_radius_neighbors",
     "grid_radius_neighbors_sharded",
     "grid_sort_colpad_traced",
@@ -524,15 +521,6 @@ def grid_query(q_pts, q_valid, pts_sorted_T, valid_sorted, ids_sorted, order, mi
                                       dims, cell_size, r2, k, _kernel_cap(bucket_cap, cell_starts),
                                       own_points=own_points)
 
-
-def grid_query_v1(q_pts, q_valid, pts_sorted_T, valid_sorted, ids_sorted, order, mins, dims,
-                  r2, k: int, bucket_cap: Optional[int], cell_size, cell_starts=None):
-    """X2's first version on CUDA float32 tensors, for an A/B against the
-    redesign (the arguments and results of :func:`grid_query`, queries in
-    their own order); it has no plain route, so a CPU tensor is refused."""
-    return _kernels.launch_grid_query_v1(q_pts, q_valid, pts_sorted_T, ids_sorted, order, mins,
-                                         dims, cell_size, r2, k,
-                                         _kernel_cap(bucket_cap, cell_starts))
 
 
 def _run_chunks(grid, bucket_cap, points, query, valid_query, r: float, k: int):

@@ -18,12 +18,11 @@ reading only the tiles of points within r of its box; at k = 1 with no
 radius, both ordered on the points' grid and each warp reading the tiles
 around its queries' places in the point order, then those within each
 query's nearest distance so far; a top-k past its shared memory takes the
-first version's warp-per-query body, ``csrc/knn_brute_v1.cu``); on CPU
+warp-per-query body, ``csrc/knn_warp.cu``); on CPU
 tensors, or with ``plain=True`` on any
 device and dtype, its plain twins :func:`_knn_plain` and
 :func:`_counts_plain`: a running top-k over tiles of 2048 points per chunk
-of 8192 queries, the JAX package's loop. :func:`knn_brute_v1` runs X3's
-first version at any k for an A/B on the card; no path calls it.
+of 8192 queries, the JAX package's loop.
 """
 from __future__ import annotations
 
@@ -34,7 +33,7 @@ import torch
 
 from . import _kernels
 
-__all__ = ["knn_brute_v1", "knn_d2", "nearest_neighbors", "nearest_neighbors_sharded",
+__all__ = ["knn_d2", "nearest_neighbors", "nearest_neighbors_sharded",
            "neighbor_counts", "radius_neighbors", "suggest_k_max"]
 
 _TILE = 2048  # points per tile of the plain running top-k
@@ -161,15 +160,6 @@ def knn_d2(points, query=None, k: int = 1, r: Optional[float] = None, valid_poin
                           torch.tensor(r2, dtype=points.dtype, device=points.device), int(k))
     return _kernels.launch_knn_brute(query, valid_query, points, valid_points, r2, int(k))
 
-
-def knn_brute_v1(points, query=None, k: int = 1, r: Optional[float] = None,
-                 valid_points=None, valid_query=None):
-    """X3's first version on CUDA float32 tensors, for an A/B against the
-    redesign: k > 0 -> :func:`knn_d2`'s (d2, idx); k = 0 -> the counts of
-    :func:`neighbor_counts` (``valid_query`` is then ignored)."""
-    points, query, valid_points, r2 = _prepare(points, query, valid_points, r)
-    return _kernels.launch_knn_brute_v1(query, valid_query if k else None, points,
-                                        valid_points, r2, int(k))
 
 
 def _finish_knn(d2, idx, r, valid_query):

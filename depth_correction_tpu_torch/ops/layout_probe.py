@@ -3,9 +3,7 @@
 Counterpart of the Pallas probes ``scripts/exp_mosaic_probe.py:k_*``: seven
 tiny kernels over x (8, 512) float32, each writing a (512, 128) or (512, 8)
 layout of it. The kernels are ``csrc/layout_probe.cu``; on CPU tensors the
-wrapper runs :func:`layout_probe_plain`; :func:`layout_probe_v1` launches
-the first version (``csrc/layout_probe_v1.cu``), for the A/B on the card
-only. :data:`PROBES` lists them in the script's order (its ``k_`` names
+wrapper runs :func:`layout_probe_plain`. :data:`PROBES` lists them in the script's order (its ``k_`` names
 without the prefix) with their output shapes.
 """
 from __future__ import annotations
@@ -15,7 +13,7 @@ import torch
 from . import _kernels
 from .moment_dot import tf32_split
 
-__all__ = ["PROBES", "S", "R", "layout_probe", "layout_probe_plain", "layout_probe_v1"]
+__all__ = ["PROBES", "S", "R", "layout_probe", "layout_probe_plain"]
 
 S, R = 512, 128
 # name -> output shape, in the kernel's switch order.
@@ -64,9 +62,3 @@ def layout_probe(x: torch.Tensor, name: str) -> torch.Tensor:
     if x.device.type == "cpu":
         return layout_probe_plain(x, name)
     return _kernels.launch_layout_probe(probe, x, PROBES[name])
-
-
-def layout_probe_v1(x: torch.Tensor, name: str) -> torch.Tensor:
-    """P6's first version on a CUDA float32 x (8, 512), the function of
-    :func:`layout_probe`; it has no plain route, so a CPU tensor raises."""
-    return _kernels.launch_layout_probe_v1(_check_name(name), x, PROBES[name])

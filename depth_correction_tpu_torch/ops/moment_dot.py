@@ -4,8 +4,7 @@ Counterpart of the Pallas probe ``scripts/exp_mosaic_dot_probe.py``: on
 each of ``n_tiles`` grid steps, sum over spans s the product a[s] @ b[s] of
 (16, S) float32 features and an (S, 128) right-hand side that is exactly
 {0, 1}. The kernel is ``csrc/moment_dot.cu``; on CPU tensors the wrapper
-runs :func:`moment_dot_plain`. :func:`moment_dot_v1` launches the first
-version (``csrc/moment_dot_v1.cu``), for the A/B on the card only.
+runs :func:`moment_dot_plain`.
 
 Precisions (:data:`PRECISIONS`) and the TPU variants they stand for
 (:data:`TPU_VARIANTS`): ``fp32`` float32 FMAs without tensor cores
@@ -22,8 +21,8 @@ import torch
 
 from . import _kernels
 
-__all__ = ["PRECISIONS", "TPU_VARIANTS", "moment_dot", "moment_dot_plain", "moment_dot_v1",
-           "tf32_split", "tf32_trunc"]
+__all__ = ["PRECISIONS", "TPU_VARIANTS", "moment_dot", "moment_dot_plain", "tf32_split",
+           "tf32_trunc"]
 
 PRECISIONS = ("fp32", "tf32", "tf32x2", "tf32x3")
 TPU_VARIANTS = {"highest": "fp32", "default": "tf32", "split2_cast": "tf32x2",
@@ -92,9 +91,3 @@ def moment_dot(a, b, n_tiles: int, prec: str):
     if a.device.type == "cpu":
         return moment_dot_plain(a, b, n_tiles, prec)
     return _kernels.launch_moment_dot(prec_id, a, b, n_tiles)
-
-
-def moment_dot_v1(a, b, n_tiles: int, prec: str):
-    """P2's first version on CUDA float32 tensors, the function of
-    :func:`moment_dot`; it has no plain route, so a CPU tensor raises."""
-    return _kernels.launch_moment_dot_v1(_prec_id(prec), a, b, n_tiles)

@@ -11,9 +11,7 @@ x, y, z, establishment x, y, z) and a tile of 128 query columns q,
 
 and sum feats @ wm over the spans into a (16, 128) block per tile. The
 kernel is ``csrc/moment_window.cu``; on CPU tensors the wrapper runs
-:func:`moment_window_plain`. :func:`moment_window_v1` launches the first
-version (``csrc/moment_window_v1.cu``), for the A/B on the card only.
-Precisions as in ``ops/moment_dot.py``.
+:func:`moment_window_plain`. Precisions as in ``ops/moment_dot.py``.
 
 Switches (:data:`FLAG_BITS`), each a structural piece of K1 that the TPU
 probes added one at a time: ``len_table`` (span lengths from an
@@ -36,8 +34,8 @@ import torch
 from . import _kernels
 from .moment_dot import _prec_id, tf32_split
 
-__all__ = ["FLAG_BITS", "moment_window", "moment_window_plain", "moment_window_v1",
-           "span_bounds", "window_flags"]
+__all__ = ["FLAG_BITS", "moment_window", "moment_window_plain", "span_bounds",
+           "window_flags"]
 
 R = 128
 FLAG_BITS = {"len_table": 1, "staged": 2, "epilogue": 4, "per_tile_q": 8, "shift": 16,
@@ -145,25 +143,11 @@ def moment_window(win, q, r2: float, n_tiles: int, ns: int, s_len: int, lens, pr
     :param epilogue: apply the division epilogue to each column's sums.
     :return: (16, 128 n_tiles); tile t owns columns [128 t, 128 t + 128).
     """
-    args = (win, q, r2, n_tiles, ns, s_len, lens, prec)
-    kw = dict(starts=starts, leads=leads, ctr=ctr, per_tile_q=per_tile_q, epilogue=epilogue)
     if win.device.type == "cpu":
         _prec_id(prec)
-        return moment_window_plain(*args, **kw)
-    return _launch(_kernels.launch_moment_window, *args, **kw)
-
-
-def moment_window_v1(win, q, r2: float, n_tiles: int, ns: int, s_len: int, lens, prec: str,
-                     starts=None, leads=None, ctr=None, per_tile_q=False, epilogue=False):
-    """P3-P5's first version on CUDA float32 tensors, the function of
-    :func:`moment_window`; it has no plain route, so a CPU tensor raises."""
-    return _launch(_kernels.launch_moment_window_v1, win, q, r2, n_tiles, ns, s_len, lens,
-                   prec, starts=starts, leads=leads, ctr=ctr, per_tile_q=per_tile_q,
-                   epilogue=epilogue)
-
-
-def _launch(launcher, win, q, r2, n_tiles, ns, s_len, lens, prec, starts, leads, ctr,
-            per_tile_q, epilogue):
+        return moment_window_plain(win, q, r2, n_tiles, ns, s_len, lens, prec, starts=starts,
+                                   leads=leads, ctr=ctr, per_tile_q=per_tile_q,
+                                   epilogue=epilogue)
     flags = window_flags(lens, starts, leads, ctr, per_tile_q, epilogue)
-    return launcher(_prec_id(prec), flags, win, q, r2, n_tiles, ns, s_len, lens,
-                    starts=starts, leads=leads, ctr=ctr)
+    return _kernels.launch_moment_window(_prec_id(prec), flags, win, q, r2, n_tiles, ns, s_len,
+                                         lens, starts=starts, leads=leads, ctr=ctr)

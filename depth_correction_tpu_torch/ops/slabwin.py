@@ -12,8 +12,6 @@ finds the ranges with ``torch.searchsorted`` on the device;
 :func:`slab_window_kernel` computes every slot's within-r moments over
 them: kernel X1 (``csrc/slabwin.cu``) on CUDA tensors,
 :func:`slab_window_moments_plain` on CPU tensors.
-:func:`slab_window_kernel_v1` runs X1's first version
-(``csrc/slabwin_v1.cu``) on CUDA tensors for an A/B; no path calls it.
 
 No K cap and no static width: each span is read to its own length, so the
 TPU engine's ``w_slab``, its retry and its two width classes are gone.
@@ -28,7 +26,6 @@ __all__ = [
     "TILE",
     "slab_tile_spans",
     "slab_window_kernel",
-    "slab_window_kernel_v1",
     "slab_window_moments",
     "slab_window_moments_plain",
 ]
@@ -160,12 +157,6 @@ def slab_window_kernel(pts_T, valid, lo, width, ctr, r2: float) -> torch.Tensor:
         return slab_window_moments_plain(pts_T, valid, lo, width, ctr, r2)
     return _kernels.launch_slab_window(pts_T, valid, lo, width, ctr.to(pts_T.dtype), r2)
 
-
-def slab_window_kernel_v1(pts_T, valid, lo, width, ctr, r2: float) -> torch.Tensor:
-    """X1's first version on CUDA float32 tensors, for an A/B against the
-    redesign (same inputs and output as :func:`slab_window_kernel`); it has
-    no plain route, so a CPU tensor is refused."""
-    return _kernels.launch_slab_window_v1(pts_T, valid, lo, width, ctr.to(pts_T.dtype), r2)
 
 
 def slab_window_moments(pts_T, valid, ids_sorted, dims, r2: float, sentinel: int,

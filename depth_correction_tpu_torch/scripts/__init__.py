@@ -2,19 +2,20 @@
 script of the same name under ``scripts/``, and ``exp_grid_prep_diff``,
 which compares grid and scipy establishment of the bench slice (run them
 as ``python -m depth_correction_tpu_torch.scripts.<name>``), and what they
-share: the bench's training configuration, device timing and the error
-measures they report.
+share: the bench's training configuration and slice, device timing and
+the error measures they report.
 """
 from __future__ import annotations
 
 import sys
 import time
 
+import numpy as np
 import torch
 
 __all__ = ["PROFILE_ATTEMPTS", "PROFILE_PAD_S", "QUEUED_TIMINGS", "QUEUE_ATTEMPTS",
            "RETAKEN_CALLS", "bench_config", "device_ms", "in_turns", "kernel_ms", "queued_ms",
-           "rel_max", "rel_rows", "require_card"]
+           "rel_max", "rel_rows", "require_card", "slice_clouds"]
 
 # Calls of a timed function that kernel_ms made for profiles it took again
 # (each a call more than its caller asked for); a caller that counts the
@@ -65,6 +66,25 @@ def bench_config(device: str = "cuda", steps: int = 8, uncapped: bool = True):
     cfg.n_opt_iters = steps
     cfg.plot_period = 1
     return cfg
+
+
+def slice_clouds(device):
+    """The bench slice's global cloud and first scan as prep builds them
+    (filtered feature clouds, ground-truth poses): ((points, valid) of the
+    global cloud, (points, valid) of scan 0), float32 on ``device``."""
+    from ..datasets import create_dataset
+    from ..preproc import global_cloud, local_feature_cloud, pad_size, sequence_batch
+
+    cfg = bench_config(str(device))
+    ds = create_dataset(cfg.train_names[0], cfg)
+    scans = [(scan, pose) for scan, pose in ds]
+    pad = max(pad_size(len(s)) for s, _ in scans)
+    clouds = [local_feature_cloud(s, cfg, pad_to=pad) for s, _ in scans]
+    batch = sequence_batch(clouds, np.stack([np.asarray(p) for _, p in scans]))
+    g = global_cloud(batch)
+    scan0 = batch.cloud.map(lambda x: x[0])
+    return ((g.get_points().contiguous(), g.valid),
+            (scan0.to_points().contiguous(), scan0.valid), float(cfg.nn_r))
 
 
 def require_card() -> torch.device:
@@ -235,16 +255,6 @@ def in_turns(first, second, device, reps: int = 50, timer=None) -> tuple:
     b2 = timer(second, device, reps)
     a2 = timer(first, device, reps)
     return (a1 + a2) / 2, (b1 + b2) / 2, (a1, b1, b2, a2)
-
-
-def first_version_turns(old, new, device, reps: int) -> dict:
-    """A first version ``old`` and its redesign ``new`` timed in turns (old,
-    new, new, old) by the profiler's kernel durations and by CUDA events:
-    {"kernel_ms", "v1_kernel_ms", "kernel_turns", "ms", "v1_ms", "turns"}."""
-    v1_k, k, kturns = in_turns(old, new, device, reps, timer=kernel_ms)
-    v1_ms, ms, turns = in_turns(old, new, device, reps)
-    return {"kernel_ms": k, "v1_kernel_ms": v1_k, "kernel_turns": kturns, "ms": ms,
-            "v1_ms": v1_ms, "turns": turns}
 
 
 def rel_max(got, ref) -> float:

@@ -12,10 +12,8 @@ and called through ctypes; the package's kernels are not touched.
   probe's table and the small scan's node table), 48, 88 and 168 (radius
   tables on the small scan) and on the bench slice's global cloud with X2's
   top-k table (K 168).
-- P7, knockouts: the first version without its shift pass, its butterfly
-  or its point gathers; the redesign without its point gathers, its
-  butterfly or its shift search. The outputs are wrong; only the times
-  count.
+- P7, knockouts: the kernel without its point gathers, its butterfly or
+  its shift search. The outputs are wrong; only the times count.
 - P7, the pack: the redesign on every table with its points read in
   place and packed into (N, 4) rows first, whatever the call's size.
 - P7a: one thread a row (16-byte index loads, all of a chunk's gathers
@@ -45,21 +43,13 @@ RADII = {48: 0.3, 88: 0.4, 168: 0.55}
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _DISPATCH_END = "  }\n  return static_cast<int>(cudaGetLastError());"
 KNOCKOUTS = {
-    "v1_no_shift_pass": ("gather_moments_v1.cu", [
-        ("for (int base = 0; base < k; base += 32) {", "for (int base = 0; base < 0; base += 32) {")]),
-    "v1_no_butterfly": ("gather_moments_v1.cu", [
-        ("for (int off = 16; off > 0; off >>= 1) {", "for (int off = 16; off > 16; off >>= 1) {")]),
-    "v1_no_gathers": ("gather_moments_v1.cu", [
-        ("const float x = pts[i * sp] - sx;", "const float x = i * 1e-6f - sx;"),
-        ("const float y = pts[i * sp + sc] - sy;", "const float y = i * 2e-6f - sy;"),
-        ("const float z = pts[i * sp + 2 * sc] - sz;", "const float z = i * 3e-6f - sz;")]),
-    "new_no_gathers": ("gather_moments.cu", [
+    "no_gathers": ("gather_moments.cu", [
         ("if (ok[q]) load_point<kPacked>(pts, sp, sc, id[q], x[q], y[q], z[q]);",
          "if (ok[q]) { x[q] = id[q] * 1e-6f; y[q] = id[q] * 2e-6f; z[q] = id[q] * 3e-6f; }")]),
-    "new_no_butterfly": ("gather_moments.cu", [
+    "no_butterfly": ("gather_moments.cu", [
         ("    for (int off = G / 2; off > 0; off >>= 1) {\n#pragma unroll\n      for (int c",
          "    for (int off = G / 2; off > G; off >>= 1) {\n#pragma unroll\n      for (int c")]),
-    "new_no_shift_search": ("gather_moments.cu", [
+    "no_shift_search": ("gather_moments.cu", [
         ("if (__any_sync(kFull, !found)) {", "if (false) {")]),
 }
 # P7a with one thread a row, ROWS rows a block (the design the redesign
@@ -166,8 +156,7 @@ def build() -> dict:
         if name.startswith("p7a"):
             lib.dc_variant.argtypes = [_P, _I, _P, _I, _I, _P, _P]
         else:
-            lib.dc_variant.argtypes = ([_P, _L, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P]
-                                       + ([] if name.startswith("v1") else [_P]))
+            lib.dc_variant.argtypes = [_P, _L, _L, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P]
         lib.dc_variant.restype = _I
         libs[name] = lib
     return libs
@@ -186,13 +175,11 @@ def _moments_variant(lib, name: str, points, nn, w):
     mean = torch.empty((3, mq), device=dev)
     comps = torch.empty((6, mq), device=dev)
     wsum = torch.empty(mq, device=dev)
-    extra = ()
-    if not name.startswith("v1"):
-        scratch = (torch.empty((n_pts, 4), device=dev)
-                   if nn.numel() >= _kernels.GATHER_PACK_MIN_PAIRS else None)
-        extra = (None if scratch is None else scratch.data_ptr(),)
+    scratch = (torch.empty((n_pts, 4), device=dev)
+               if nn.numel() >= _kernels.GATHER_PACK_MIN_PAIRS else None)
     err = lib.dc_variant(points.data_ptr(), sp, sc, n_pts, nn.data_ptr(), w.data_ptr(), mq, k,
-                         mean.data_ptr(), comps.data_ptr(), wsum.data_ptr(), *extra,
+                         mean.data_ptr(), comps.data_ptr(), wsum.data_ptr(),
+                         None if scratch is None else scratch.data_ptr(),
                          torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError("variant %s: CUDA error %d" % (name, err))
@@ -226,7 +213,7 @@ def _tables(device) -> dict:
     from ..ops.grid_hash import grid_radius_neighbors
     from ..ops.knn import radius_neighbors, suggest_k_max
     from ..preproc import pad_size
-    from .exp_grid_slab_ab import slice_clouds
+    from . import slice_clouds
 
     cfg = bench_config(str(device))
     cfg.nn_backend = None
@@ -252,7 +239,7 @@ def run(device, reps: int = STEPS) -> dict:
     """Every variant against its base in turns.
 
     :return: {"p7a": {name: (base ms, variant ms)}, "groupings": {table:
-        {name: (v1 ms, variant ms)}}, "knockouts": {table: {name: (base ms,
+        {name: (base ms, variant ms)}}, "knockouts": {table: {name: (base ms,
         variant ms)}}, "pack": {table: (in place ms, packed ms)}}, device
         times by the profiler.
     """
@@ -283,26 +270,27 @@ def run(device, reps: int = STEPS) -> dict:
     for label, (points, nn, w) in tables.items():
         nn = nn.to(torch.int32).contiguous()
         k = nn.shape[1]
-        bases = {"v1": lambda: features.gather_moments_v1(points, nn, w),
-                 "new": lambda: features.gather_moments(points, nn, w)}
-        res["pack"][label] = in_turns(_pack(False, bases["new"]), _pack(True, bases["new"]),
-                                      device, reps, timer=kernel_ms)[:2]
+        def base(points=points, nn=nn, w=w):
+            return features.gather_moments(points, nn, w)
+
+        res["pack"][label] = in_turns(_pack(False, base), _pack(True, base), device, reps,
+                                      timer=kernel_ms)[:2]
         if "(N, 3)" not in label:  # the groupings once per table
             groups = res["groupings"].setdefault(label, {})
             for g, c in GROUPINGS[min((kk for kk in GROUPINGS if kk >= k),
                                       default=max(GROUPINGS))]:
                 name = "g%dc%d" % (g, c)
-                groups[name] = in_turns(bases["v1"], lambda name=name: _moments_variant(
+                groups[name] = in_turns(base, lambda name=name: _moments_variant(
                     libs[name], name, points, nn, w), device, reps, timer=kernel_ms)[:2]
         if "K 32" in label or "global" in label:
             kos = res["knockouts"].setdefault(label, {})
             for name in KNOCKOUTS:
-                kos[name] = in_turns(bases[name.split("_")[0]], lambda name=name: _moments_variant(
+                kos[name] = in_turns(base, lambda name=name: _moments_variant(
                     libs[name], name, points, nn, w), device, reps, timer=kernel_ms)[:2]
     return res
 
 
-def main(argv=None) -> int:
+def main() -> int:
     device = require_card()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60)
@@ -311,15 +299,14 @@ def main(argv=None) -> int:
     for name, (base, ms) in res["p7a"].items():
         print("P7a %-20s %.4f ms device (warp a row %.4f)" % (name, ms, base))
     for label, rows in res["groupings"].items():
-        for name, (v1, ms) in rows.items():
-            print("P7 %-22s lanes %-7s %.4f ms device (v1 %.4f)" % (label, name, ms, v1))
+        for name, (base, ms) in rows.items():
+            print("P7 %-22s lanes %-7s %.4f ms device (base %.4f)" % (label, name, ms, base))
     for label, (in_place, packed) in res["pack"].items():
         print("P7 %-22s read in place %.4f ms device, packed first %.4f" % (label, in_place,
                                                                            packed))
     for label, rows in res["knockouts"].items():
         for name, (base, ms) in rows.items():
-            print("P7 %-22s %-20s %.4f ms device (%s %.4f)"
-                  % (label, name, ms, name.split("_")[0], base))
+            print("P7 %-22s %-20s %.4f ms device (base %.4f)" % (label, name, ms, base))
     return 0
 
 

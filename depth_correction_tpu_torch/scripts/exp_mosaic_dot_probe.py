@@ -16,13 +16,9 @@ For each: ms per call (the T1 tiles), the error relative to max |oracle| of
 the float64 einsum oracle (as the TPU script reports it), and the error
 against the variant's own plain version in float32 and float64. With
 --library it also times one torch.bmm over the T1 tiles in float32 and
-with TF32 allowed (a yardstick; the port never calls it). With --ab it
-times the kernel against its first version (csrc/moment_dot_v1.cu) in
-turns (first version, redesign, redesign, first version), by CUDA events
-and by the profiler's kernel durations, and reports their largest
-difference.
+with TF32 allowed (a yardstick; the port never calls it).
 
-    python -m depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe [--library] [--ab]
+    python -m depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe [--library]
 """
 from __future__ import annotations
 
@@ -31,8 +27,8 @@ import sys
 import numpy as np
 import torch
 
-from ..ops.moment_dot import PRECISIONS, moment_dot, moment_dot_plain, moment_dot_v1
-from . import device_ms, in_turns, kernel_ms, rel_max, rel_rows, require_card
+from ..ops.moment_dot import PRECISIONS, moment_dot, moment_dot_plain
+from . import device_ms, kernel_ms, rel_max, rel_rows, require_card
 
 T1 = 512  # grid size (tiles)
 NS = 5  # dots per tile
@@ -102,35 +98,6 @@ def run(device, variants=PRECISIONS, reps: int = STEPS, library: bool = False) -
     return result
 
 
-def first_version_ab(device, variants=PRECISIONS, reps: int = STEPS) -> dict:
-    """Every variant against its first version at the TPU script's shapes,
-    timed in turns (v1, new, new, v1) by CUDA events and by the profiler's
-    kernel durations.
-
-    :return: {v: {"ms", "v1_ms", "kernel_ms", "v1_kernel_ms", "turns",
-        "kernel_turns", "equal", "max_abs", "rel_rows"}} with ``equal``
-        whether the two outputs are equal bit for bit, ``max_abs`` their
-        largest |new - v1| and ``rel_rows`` the same per row, relative.
-    """
-    a, b, _ = inputs(device)
-    res = {}
-    for v in variants:
-        def new(v=v):
-            return moment_dot(a, b, T1, v)
-
-        def old(v=v):
-            return moment_dot_v1(a, b, T1, v)
-
-        got, ref = new(), old()
-        v1_ms, ms, turns = in_turns(old, new, device, reps)
-        v1_kernel_ms, k_ms, kturns = in_turns(old, new, device, reps, timer=kernel_ms)
-        res[v] = {"ms": ms, "v1_ms": v1_ms, "kernel_ms": k_ms, "v1_kernel_ms": v1_kernel_ms,
-                  "turns": turns, "kernel_turns": kturns,
-                  "equal": bool(torch.equal(got.view(torch.int32), ref.view(torch.int32))),
-                  "max_abs": float((got - ref).abs().max()), "rel_rows": rel_rows(got, ref)}
-    return res
-
-
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     device = require_card()
@@ -141,12 +108,6 @@ def main(argv=None) -> int:
                                                   e["err64"]))
     for name, ms in res.get("library", {}).items():
         print("torch.bmm (%s) %8.4f ms/call" % (name, ms))
-    if "--ab" in argv:
-        for v, e in first_version_ab(device).items():
-            print("%-8s redesign %8.4f ms (kernel %8.4f), first version %8.4f ms (kernel %8.4f); "
-                  "bit-equal %s, max |new - v1| %.3e" % (v, e["ms"], e["kernel_ms"], e["v1_ms"],
-                                                        e["v1_kernel_ms"], e["equal"],
-                                                        e["max_abs"]))
     print(torch.cuda.get_device_name(device))
     return 0
 

@@ -14,10 +14,8 @@ hi + mid + lo, which recombine to the features exactly) is tf32.
 For each: ms per call, the error relative to max |oracle| (the float64
 plain version in fp32: the exact product of float64 features), and the
 error against the variant's own plain version in float32 and float64.
-With ``--ab``, every variant against the first version
-(csrc/moment_window_v1.cu) in turns (:func:`window_ab`).
 
-    python -m depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe2 [--ab]
+    python -m depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe2
 """
 from __future__ import annotations
 
@@ -27,8 +25,8 @@ import numpy as np
 import torch
 
 from ..ops.moment_dot import PRECISIONS
-from ..ops.moment_window import moment_window, moment_window_plain, moment_window_v1
-from . import device_ms, first_version_turns, rel_max, rel_rows, require_card
+from ..ops.moment_window import moment_window, moment_window_plain
+from . import device_ms, rel_max, rel_rows, require_card
 
 T1 = 512
 NS = 5
@@ -86,47 +84,6 @@ def run(device, variants=PRECISIONS, reps: int = STEPS) -> dict:
                          for v in variants}}
 
 
-def window_ab(cases: dict, device, reps: int = STEPS) -> dict:
-    """Each case against the first version (csrc/moment_window_v1.cu),
-    timed in turns (v1, new, new, v1) by CUDA events and by the profiler's
-    kernel durations.
-
-    :param cases: {name: (win, q, prec, keyword arguments of moment_window)}.
-    :return: {name: {"ms", "v1_ms", "kernel_ms", "v1_kernel_ms", "turns",
-        "kernel_turns", "equal", "max_abs", "rel_rows"}} with ``equal``
-        whether the two outputs are equal bit for bit, ``max_abs`` their
-        largest |new - v1| and ``rel_rows`` the same per row, relative.
-    """
-    res = {}
-    for name, (win, q, prec, kw) in cases.items():
-        def new(win=win, q=q, prec=prec, kw=kw):
-            return moment_window(win, q, R2, prec=prec, **kw)
-
-        def old(win=win, q=q, prec=prec, kw=kw):
-            return moment_window_v1(win, q, R2, prec=prec, **kw)
-
-        got, ref = new(), old()
-        res[name] = dict(first_version_turns(old, new, device, reps),
-                         equal=bool(torch.equal(got.view(torch.int32), ref.view(torch.int32))),
-                         max_abs=float((got - ref).abs().max()), rel_rows=rel_rows(got, ref))
-    return res
-
-
-def first_version_ab(device, variants=PRECISIONS, reps: int = STEPS) -> dict:
-    """Every precision against the first version at the TPU script's
-    shapes (:func:`window_ab`)."""
-    win, q, ln = inputs(device)
-    kw = dict(n_tiles=T1, ns=NS, s_len=S, lens=ln)
-    return window_ab({v: (win, q, v, kw) for v in variants}, device, reps)
-
-
-def print_ab(res: dict) -> None:
-    for v, e in res.items():
-        print("%-22s redesign %8.4f ms (kernel %8.4f), first version %8.4f ms (kernel %8.4f); "
-              "bit-equal %s, max |new - v1| %.3e" % (v, e["ms"], e["kernel_ms"], e["v1_ms"],
-                                                    e["v1_kernel_ms"], e["equal"], e["max_abs"]))
-
-
 def print_variants(res: dict, label: str) -> None:
     for v, e in res["variants"].items():
         extra = "%.2e vs oracle, " % e["oracle"] if "oracle" in e else ""
@@ -134,12 +91,9 @@ def print_variants(res: dict, label: str) -> None:
               % (v, e["ms"], label, extra, e["err32"], e["err64"]))
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+def main() -> int:
     device = require_card()
     print_variants(run(device), "%d tiles x %d spans" % (T1, NS))
-    if "--ab" in argv:
-        print_ab(first_version_ab(device))
     print(torch.cuda.get_device_name(device))
     return 0
 

@@ -17,10 +17,9 @@ csrc/moment_window.cu, added one at a time on top of P3's kernel:
 
 For each: ms per call and the error against its plain version in float32
 and float64 (the float64 one is the exact product: tf32x3 is exact for
-float32 features). With ``--ab``, every variant against the first version
-(csrc/moment_window_v1.cu) in turns (:func:`first_version_ab`).
+float32 features).
 
-    python -m depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe3 [--ab]
+    python -m depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe3
 """
 from __future__ import annotations
 
@@ -29,7 +28,7 @@ import sys
 import numpy as np
 import torch
 
-from .exp_mosaic_dot_probe2 import NS, R, S, print_ab, print_variants, window_ab, window_case
+from .exp_mosaic_dot_probe2 import NS, R, S, print_variants, window_case
 from . import require_card
 
 T1 = 512
@@ -76,23 +75,10 @@ def run(device, variants=VARIANTS, reps: int = STEPS) -> dict:
     return {"variants": res}
 
 
-def first_version_ab(device, variants=VARIANTS, reps: int = STEPS) -> dict:
-    """Every variant against the first version (csrc/moment_window_v1.cu)
-    in turns (exp_mosaic_dot_probe2.window_ab)."""
-    d = inputs(device)
-    cases = {}
-    for name in variants:
-        win, q, kw = variant_args(name, d)
-        cases[name] = (win, q, PREC, kw)
-    return window_ab(cases, device, reps)
 
-
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+def main() -> int:
     device = require_card()
     print_variants(run(device), "%d tiles x %d spans, %s" % (T1, NS, PREC))
-    if "--ab" in argv:
-        print_ab(first_version_ab(device))
     print(torch.cuda.get_device_name(device))
     return 0
 

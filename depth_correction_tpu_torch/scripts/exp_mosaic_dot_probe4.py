@@ -17,10 +17,8 @@ csrc/moment_window.cu:
 The data are drawn in the TPU script's order from one default_rng(0)
 (:153-166), so every variant sees the same numbers as there. For each: ms
 per call and the error against its plain version in float32 and float64.
-With ``--ab``, every variant against the first version
-(csrc/moment_window_v1.cu) in turns (:func:`first_version_ab`).
 
-    python -m depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe4 [--ab]
+    python -m depth_correction_tpu_torch.scripts.exp_mosaic_dot_probe4
 """
 from __future__ import annotations
 
@@ -29,7 +27,7 @@ import sys
 import numpy as np
 import torch
 
-from .exp_mosaic_dot_probe2 import R, S, print_ab, print_variants, window_ab, window_case
+from .exp_mosaic_dot_probe2 import R, S, print_variants, window_case
 from . import require_card
 
 T1 = 512
@@ -83,20 +81,10 @@ def run(device, variants=tuple(VARIANTS), reps: int = STEPS) -> dict:
                          for name in variants}}
 
 
-def first_version_ab(device, variants=tuple(VARIANTS), reps: int = STEPS) -> dict:
-    """Every variant against the first version (csrc/moment_window_v1.cu)
-    in turns (exp_mosaic_dot_probe2.window_ab)."""
-    cases = inputs(device, variants)
-    return window_ab({name: (win, q, PREC, kw) for name, (win, q, kw) in cases.items()},
-                     device, reps)
 
-
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+def main() -> int:
     device = require_card()
     print_variants(run(device), "%d tiles, %s" % (T1, PREC))
-    if "--ab" in argv:
-        print_ab(first_version_ab(device))
     print(torch.cuda.get_device_name(device))
     return 0
 

@@ -6,14 +6,12 @@ layouts Mosaic lowers. Here each probe is a CUDA kernel writing what the
 Pallas body writes (ops/layout_probe.py, csrc/layout_probe.cu), and the
 question is what each layout move costs on Hopper. For each probe: OK or
 the mismatch against its plain version, the output's sum (as the TPU
-script prints it) and ms per call. With --ab, every probe against its
-first version (csrc/layout_probe_v1.cu): equal on both inputs, and timed in
-turns (first version, redesign, redesign, first version) by the profiler's
-kernel durations and by CUDA events, with torch.matmul(x.T, ones) beside
-dot_tlhs and x.T.contiguous() beside transpose_f32 (yardsticks; the port
-never calls them).
+script prints it) and ms per call, by the profiler's kernel durations and
+by CUDA events, with torch.matmul(x.T, ones) beside dot_tlhs and
+x.T.contiguous() beside transpose_f32 (yardsticks; the port never calls
+them).
 
-    python -m depth_correction_tpu_torch.scripts.exp_mosaic_probe [--ab]
+    python -m depth_correction_tpu_torch.scripts.exp_mosaic_probe
 """
 from __future__ import annotations
 
@@ -21,8 +19,8 @@ import sys
 
 import torch
 
-from ..ops.layout_probe import PROBES, R, S, layout_probe, layout_probe_plain, layout_probe_v1
-from . import device_ms, in_turns, kernel_ms, require_card
+from ..ops.layout_probe import PROBES, R, S, layout_probe, layout_probe_plain
+from . import device_ms, kernel_ms, require_card
 
 STEPS = 50
 
@@ -37,12 +35,19 @@ def inputs(device, first=None):
 
 
 def run(device, reps: int = STEPS, first=None) -> dict:
-    """Time and check every probe on the script's input.
+    """Time and check every probe on the script's input, by CUDA events (at
+    this size they time the host's issue rate) and by the profiler's kernel
+    durations; one PyTorch call computing the same layout is timed beside
+    dot_tlhs (torch.matmul) and transpose_f32 (x.T.contiguous()).
 
-    :return: {"probes": {name: {"ms", "sum", "err", "out"}}} with ``err``
-        the largest |kernel - plain| (float32 on the same input).
+    :return: {"probes": {name: {"ms", "kernel_ms", "sum", "err", "out"[,
+        "library", "library_kernel_ms", "library_ms"]}}} with ``err`` the
+        largest |kernel - plain| (float32 on the same input).
     """
     x = inputs(device, first)
+    ones = torch.ones((8, R), dtype=x.dtype, device=device)
+    library = {"dot_tlhs": ("torch.matmul", lambda: torch.matmul(x.T, ones)),
+               "transpose_f32": ("x.T.contiguous", lambda: x.T.contiguous())}
     res = {}
     for name in PROBES:
         def call(name=name):
@@ -51,65 +56,27 @@ def run(device, reps: int = STEPS, first=None) -> dict:
         ms = device_ms(call, device, reps)
         out = call()
         err = float((out - layout_probe_plain(x, name)).abs().max())
-        res[name] = {"ms": ms, "sum": float(out.double().sum()), "err": err, "out": out}
-    return {"probes": res}
-
-
-def first_version_ab(device, reps: int = STEPS) -> dict:
-    """Every probe against its first version: whether the two are equal on
-    the script's input and with x[0, 0] = 200, and both timed in turns (v1,
-    new, new, v1) by the profiler's kernel durations and by CUDA events
-    (at this size the events time the host's issue rate); one PyTorch call
-    computing the same layout is timed beside dot_tlhs (torch.matmul) and
-    transpose_f32 (x.T.contiguous()).
-
-    :return: {name: {"equal", "kernel_ms", "v1_kernel_ms", "kernel_turns",
-        "ms", "v1_ms"[, "library", "library_kernel_ms", "library_ms"]}}
-    """
-    xs = [inputs(device), inputs(device, 200.0)]
-    x = xs[0]
-    ones = torch.ones((8, R), dtype=x.dtype, device=device)
-    library = {"dot_tlhs": ("torch.matmul", lambda: torch.matmul(x.T, ones)),
-               "transpose_f32": ("x.T.contiguous", lambda: x.T.contiguous())}
-    res = {}
-    for name in PROBES:
-        def new(name=name):
-            return layout_probe(x, name)
-
-        def old(name=name):
-            return layout_probe_v1(x, name)
-
-        equal = all(torch.equal(layout_probe(xi, name), layout_probe_v1(xi, name))
-                    for xi in xs)
-        v1_k, k, kturns = in_turns(old, new, device, reps, timer=kernel_ms)
-        v1_ms, ms, _ = in_turns(old, new, device, reps)
-        res[name] = {"equal": equal, "kernel_ms": k, "v1_kernel_ms": v1_k,
-                     "kernel_turns": kturns, "ms": ms, "v1_ms": v1_ms}
+        res[name] = {"ms": ms, "kernel_ms": kernel_ms(call, device, reps),
+                     "sum": float(out.double().sum()), "err": err, "out": out}
         if name in library:
             label, fn = library[name]
             if not torch.equal(fn(), layout_probe_plain(x, name)):
                 raise RuntimeError("%s does not compute %s" % (label, name))
             res[name].update(library=label, library_kernel_ms=kernel_ms(fn, device, reps),
                              library_ms=device_ms(fn, device, reps))
-    return res
+    return {"probes": res}
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+def main() -> int:
     device = require_card()
     res = run(device)
     for name, e in res["probes"].items():
-        print("%-4s %-22s (sum %.3e)  %8.4f ms/call  max err vs plain %.1e"
-              % ("OK" if e["err"] == 0 else "FAIL", name, e["sum"], e["ms"], e["err"]))
+        lib = ("; %s %.4f ms (events %.4f)" % (e["library"], e["library_kernel_ms"],
+                                              e["library_ms"]) if "library" in e else "")
+        print("%-4s %-22s (sum %.3e)  %8.4f ms/call (kernel %8.4f)  max err vs plain %.1e%s"
+              % ("OK" if e["err"] == 0 else "FAIL", name, e["sum"], e["ms"], e["kernel_ms"],
+                 e["err"], lib))
     ok = all(e["err"] == 0 for e in res["probes"].values())
-    if "--ab" in argv:
-        for name, e in first_version_ab(device).items():
-            ok = ok and e["equal"]
-            lib = ("; %s %.4f ms (events %.4f)" % (e["library"], e["library_kernel_ms"],
-                                                  e["library_ms"]) if "library" in e else "")
-            print("%-22s equal to v1 %s: kernel %8.4f ms, v1 %8.4f ms; events %8.4f / %8.4f%s"
-                  % (name, e["equal"], e["kernel_ms"], e["v1_kernel_ms"], e["ms"], e["v1_ms"],
-                     lib))
     print(torch.cuda.get_device_name(device))
     return 0 if ok else 1
 

@@ -16,11 +16,10 @@ loads x[idx] from device memory, ``staged`` stages the block's row (all of
 x for C) in shared memory first, where that fits one block's 227 KB; B's
 512 KB row does not, so B's staged form spreads the row over a cluster of
 8 blocks' shared memory. For each: ms per call and the error against the
-plain version (must be 0). With ``--ab``, every case and form against the
-first version (csrc/gather_probe_v1.cu; bit for bit), and B's forms, the
-first version and torch.gather timed in turns (:func:`first_version_ab`).
+plain version (must be 0). B's forms and torch.gather (the plain version,
+one PyTorch call) are also timed in turns (:func:`b_turns`).
 
-    python -m depth_correction_tpu_torch.scripts.exp_pallas_gather2 [--ab]
+    python -m depth_correction_tpu_torch.scripts.exp_pallas_gather2
 """
 from __future__ import annotations
 
@@ -29,8 +28,7 @@ import sys
 import numpy as np
 import torch
 
-from ..ops.gather_probe import (FORMS, gather_probe, gather_probe_plain, gather_probe_v1,
-                                staged_blocks, staged_fits)
+from ..ops.gather_probe import FORMS, gather_probe, gather_probe_plain, staged_fits
 from . import device_ms, kernel_ms, require_card
 
 STEPS = 50
@@ -80,42 +78,28 @@ def run(device, reps: int = STEPS) -> dict:
     return {"cases": res}
 
 
-def first_version_ab(device, reps: int = STEPS) -> dict:
-    """Every case and form against the first version, and B timed in turns.
+def b_turns(device, reps: int = STEPS) -> dict:
+    """Case B's forms and torch.gather timed in turns.
 
-    Each output must equal the first version's bit for bit (B's staged form,
-    which the first version lacks, its global form's). B's global form, its
-    cluster form, the first version's global form and torch.gather (the
-    plain version, one PyTorch call) are timed by the profiler's kernel
-    durations and by CUDA events in the order v1, global, cluster,
-    torch.gather, global_sorted, then back again; each reading is the mean
-    of its two. ``global_sorted`` is the global form on B's indices sorted
-    within each row: the same bytes, but neighbouring lanes read
-    neighbouring words, so its time without the random 32-byte sectors says
-    how much of B's time they take.
+    B's global form, its cluster form and torch.gather (the plain version,
+    one PyTorch call) are timed by the profiler's kernel durations and by
+    CUDA events in the order global, cluster, torch.gather, global_sorted,
+    then back again; each reading is the mean of its two. ``global_sorted``
+    is the global form on B's indices sorted within each row: the same
+    bytes, but neighbouring lanes read neighbouring words, so its time
+    without the random 32-byte sectors says how much of B's time they take.
 
-    :return: {"equal": {case_form: bool}, "kernel_ms" / "ms": {"v1",
-        "global", "cluster", "torch_gather": ms}, "kernel_turns" / "turns":
-        {name: (first, second)}}.
+    :return: {"kernel_ms" / "ms": {"global", "cluster", "torch_gather",
+        "global_sorted": ms}, "kernel_turns" / "turns": {name: (first,
+        second)}}.
     """
-    cases = inputs(device)
-    equal = {}
-    for name, (x, idx, axis) in cases.items():
-        for form in FORMS:
-            if not staged_fits(x, axis) and form == "staged":
-                continue
-            old_form = form if staged_blocks(x, axis) == 1 else "global"
-            new, old = gather_probe(x, idx, axis, form), gather_probe_v1(x, idx, axis, old_form)
-            equal["%s_%s" % (name, form)] = bool(torch.equal(new.view(torch.int32),
-                                                             old.view(torch.int32)))
-    xb, ib, axis = cases["B"]
+    xb, ib, axis = inputs(device)["B"]
     ib_sorted = torch.sort(ib, dim=1).values.contiguous()
-    calls = {"v1": lambda: gather_probe_v1(xb, ib, axis, "global"),
-             "global": lambda: gather_probe(xb, ib, axis, "global"),
+    calls = {"global": lambda: gather_probe(xb, ib, axis, "global"),
              "cluster": lambda: gather_probe(xb, ib, axis, "staged"),
              "torch_gather": lambda: gather_probe_plain(xb, ib, axis),
              "global_sorted": lambda: gather_probe(xb, ib_sorted, axis, "global")}
-    res = {"equal": equal}
+    res = {}
     for key, timer in (("kernel", kernel_ms), ("", device_ms)):
         turns = {n: [] for n in calls}
         for n in list(calls) + list(calls)[::-1]:
@@ -125,8 +109,7 @@ def first_version_ab(device, reps: int = STEPS) -> dict:
     return res
 
 
-def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
+def main() -> int:
     device = require_card()
     res = run(device)
     ok = True
@@ -139,15 +122,11 @@ def main(argv=None) -> int:
             ok &= e["err"] == 0
             print("%s %-7s %s  err %.1e  %8.4f ms/call"
                   % (name, form, "OK  " if e["err"] == 0 else "FAIL", e["err"], e["ms"]))
-    if "--ab" in argv:
-        ab = first_version_ab(device)
-        ok &= all(ab["equal"].values())
-        print("bit-equal to the first version: %s" % ", ".join(
-            "%s %s" % kv for kv in ab["equal"].items()))
-        for name in ab["ms"]:
-            print("B %-13s device %.4f ms (turns %s), events %.4f ms"
-                  % (name, ab["kernel_ms"][name],
-                     ", ".join("%.4f" % v for v in ab["kernel_turns"][name]), ab["ms"][name]))
+    turns = b_turns(device)
+    for name in turns["ms"]:
+        print("B %-13s device %.4f ms (turns %s), events %.4f ms"
+              % (name, turns["kernel_ms"][name],
+                 ", ".join("%.4f" % v for v in turns["kernel_turns"][name]), turns["ms"][name]))
     print(torch.cuda.get_device_name(device))
     return 0 if ok else 1
 

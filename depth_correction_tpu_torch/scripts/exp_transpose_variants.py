@@ -1,12 +1,11 @@
-"""X4 and X5 (``csrc/transpose_gather.cu``) against their first versions
-(``csrc/transpose_gather_v1.cu``) and against variants, on one CUDA card,
-each pair timed in turns (first, second, second, first) by the profiler's
-kernel durations and by CUDA events. Run alone; chip_smoke.py's phase 20
-times only the first versions and ``index_add_``.
+"""X4 and X5 (``csrc/transpose_gather.cu``) against variants, on one CUDA
+card, each pair timed in turns (first, second, second, first) by the
+profiler's kernel durations and by CUDA events. Run alone; chip_smoke.py's
+phase 20 times only the kernels themselves and ``index_add_``.
 
 - X4 in cell order without staging: the redesign's cell order and CSR,
   eight lanes a target, each pair's table row read from global memory
-  through L1 (``__ldg``, as the first version reads it), no tiles and no
+  through L1 (``__ldg``), no tiles and no
   shared memory. A copy compiled by ``nvcc`` beside the package's build
   (``_build/variants/``) and called through ctypes; the package's kernels
   are not touched. Its sums are taken in the same order: bit-equal.
@@ -216,9 +215,9 @@ def _graph_with_tiles(nn, w, positions, targets: int):
 
 def transpose_ab(points, nn, w, tg, table, g, positions, cell: float, sizes,
                  reps: int = REPS) -> dict:
-    """X4 and X5 on one graph: the first versions against the redesigns in
-    turns (each ``first_*`` the first version, ``second_*`` the redesign),
-    the X4 variant without staging against the redesign, the redesigns on
+    """X4 and X5 on one graph, in turns (each ``first_*`` the variant,
+    ``second_*`` the redesign): the X4 variant without staging against the
+    redesign, the redesigns on
     tiles of :data:`ALT_TILE_TARGETS` and each of ``sizes`` targets
     against the package's, ``index_add_``'s time and the pairs a row of
     three orders (:func:`pairs_per_row`, ``cell`` the lexicographic order's
@@ -228,19 +227,11 @@ def transpose_ab(points, nn, w, tg, table, g, positions, cell: float, sizes,
 
     device = points.device
     m = tg.num_points
-    csr = features.point_csr(tg)
     x4 = lambda: features.transpose_moments(points, tg, table)  # noqa: E731
     x5 = lambda: features.transpose_gather(g, tg)  # noqa: E731
     ref4, ref5 = x4(), x5()
-    res = {"x4_v1_equal": bool(torch.equal(features.transpose_moments_v1(points, csr, table),
-                                           ref4)),
-           "x5_v1_equal": bool(torch.equal(features.transpose_gather_v1(g, csr), ref5)),
-           "x4_unstaged_equal": bool(torch.equal(x4_unstaged(points, tg, table), ref4))}
-    res["x4_v1"] = _turns(lambda: features.transpose_moments_v1(points, csr, table), x4,
-                          device, reps)
-    res["x5_v1"] = _turns(lambda: features.transpose_gather_v1(g, csr), x5, device, reps)
+    res = {"x4_unstaged_equal": bool(torch.equal(x4_unstaged(points, tg, table), ref4))}
     res["x4_unstaged"] = _turns(lambda: x4_unstaged(points, tg, table), x4, device, reps)
-    del csr
     res["tiles"] = {}
     for size in (ALT_TILE_TARGETS, *sizes):
         tgs = _graph_with_tiles(nn, w, positions, size)
@@ -316,13 +307,9 @@ def main(argv=None) -> None:
         g = torch.randn(tuple(nn.shape) + (3,), generator=gen, device=device)
         res = transpose_ab(pts, nn, w, tg, table, g, pos, float(cfg.nn_r),
                            [int(v) for v in args.sweep.split(",") if v])
-    for key, label in (("x4_v1", "X4 first version / redesign"),
-                       ("x5_v1", "X5 first version / redesign"),
-                       ("x4_unstaged", "X4 without staging / redesign")):
-        r = res[key]
-        print("%s: %.4f / %.4f ms device, %.4f / %.4f events (%s)"
-              % (label, r["first_kernel_ms"], r["second_kernel_ms"], r["first_ms"],
-                 r["second_ms"], name))
+    r = res["x4_unstaged"]
+    print("X4 without staging / redesign: %.4f / %.4f ms device, %.4f / %.4f events (%s)"
+          % (r["first_kernel_ms"], r["second_kernel_ms"], r["first_ms"], r["second_ms"], name))
     for size, r in res["tiles"].items():
         print("tiles of %d targets (%d tiles, %.3f pairs a row) / the package's %d: X4 %.4f / "
               "%.4f ms device, X5 %.4f / %.4f; bit-equal %s, %s (%s)"

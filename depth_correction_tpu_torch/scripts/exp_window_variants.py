@@ -1,8 +1,7 @@
-"""Knockouts of the moment-window kernels P3-P5 (csrc/moment_window_v1.cu,
-the first version, and csrc/moment_window.cu, the redesign) on one CUDA
-card, each timed in turns against the kernel it varies (base, variant,
-variant, base) by the profiler's kernel durations, to find what holds each
-body. At P5's J_all (NS 15, every switch) and P3's tf32x3 (NS 5, no
+"""Knockouts of the moment-window kernel P3-P5 (csrc/moment_window.cu) on
+one CUDA card, each timed in turns against the kernel it varies (base,
+variant, variant, base) by the profiler's kernel durations, to find what
+holds its body. At P5's J_all (NS 15, every switch) and P3's tf32x3 (NS 5, no
 switch), the probes' own draws.
 
 Each variant is a copy of a committed source with a few lines replaced,
@@ -11,15 +10,12 @@ and called through ctypes with the launcher's own checks; the package's
 kernels are not touched. The outputs of a knockout are wrong; only the
 times count.
 
-- First version: without its pair test (membership a fixed pattern of the
-  column), without its TF32 splits (the raw feature bits in every pass),
-  without its mma passes (an integer sink keeps the tests and splits
-  alive), without its two staging barriers a span.
-- Redesign: without its pair test, without its wgmma passes (the same
-  sink), without its barrier a chunk, without its staging of the next
-  chunk (features, splits and stores, with the raw loads they use),
-  without the proxy fence after the staging, without the raw loads
-  (columns made up from their index).
+The knockouts: without its pair test (membership a fixed pattern of the
+column), without its wgmma passes (an integer sink keeps the tests and
+splits alive), without its barrier a chunk, without its staging of the
+next chunk (features, splits and stores, with the raw loads they use),
+without the proxy fence after the staging, without the raw loads (columns
+made up from their index).
 
     python -m depth_correction_tpu_torch.scripts.exp_window_variants
 """
@@ -37,51 +33,26 @@ from . import in_turns, kernel_ms, require_card
 STEPS = 20
 
 _SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-_V1_SINK = "  // The tile's (16, 128) sums into shared memory, then one column a thread."
 KNOCKOUTS = {
-    "v1_no_test": ("moment_window_v1.cu", [
-        ("d2_rn(eax - qr[j][0], eay - qr[j][1], eaz - qr[j][2]) <= r2 ? one : 0u;",
-         "((ka + j) & 1) ? one : 0u;"),
-        ("d2_rn(ebx - qr[j][0], eby - qr[j][1], ebz - qr[j][2]) <= r2 ? one : 0u;",
-         "((kb + j + g) & 1) ? one : 0u;")]),
-    "v1_no_split": ("moment_window_v1.cu", [
-        ('#include "tf32_mma.cuh"\n',
-         '#include "tf32_mma.cuh"\nnamespace {\ntemplate <int N>\n__device__ __forceinline__ '
-         'void raw_split(float x, uint32_t (&c)[3]) { c[0] = c[1] = c[2] = __float_as_uint(x); }'
-         '\n}  // namespace\n'),
-        ("tf32_split<N>(s_f[g * sp + ka], a0);", "raw_split<N>(s_f[g * sp + ka], a0);"),
-        ("tf32_split<N>(s_f[g * sp + kb], a2);", "raw_split<N>(s_f[g * sp + kb], a2);"),
-        ("tf32_split<N>(s_f[(g + 8) * sp + ka], a1);", "raw_split<N>(s_f[(g + 8) * sp + ka], a1);"),
-        ("tf32_split<N>(s_f[(g + 8) * sp + kb], a3);", "raw_split<N>(s_f[(g + 8) * sp + kb], a3);")]),
-    "v1_no_mma": ("moment_window_v1.cu", [
-        ("  float facc[kFeats];\n", "  float facc[kFeats];\n  uint32_t sink = 0;\n"),
-        ("            mma_tf32_m16n8k8(c_hi[j], a0[0], a1[0], a2[0], a3[0], b0, b1);\n"
-         "            if constexpr (N >= 2) mma_tf32_m16n8k8(c_lo[j], a0[1], a1[1], a2[1], a3[1], b0, b1);\n"
-         "            if constexpr (N >= 3) mma_tf32_m16n8k8(c_lo[j], a0[2], a1[2], a2[2], a3[2], b0, b1);\n",
-         "            sink ^= b0 ^ (b1 << j) ^ a0[N - 1] ^ a1[N - 1] ^ a2[N - 1] ^ a3[N - 1];\n"),
-        (_V1_SINK, "  acc[0][0] += __uint_as_float(sink & 0x3f800000u);\n" + _V1_SINK)]),
-    "v1_no_barriers": ("moment_window_v1.cu", [
-        ("    __syncthreads();  // the previous span has been read by every thread\n", ""),
-        ("    __syncthreads();\n\n    if constexpr (PREC == kFp32) {", "\n    if constexpr (PREC == kFp32) {")]),
-    "new_no_test": ("moment_window.cu", [
+    "no_test": ("moment_window.cu", [
         ('  asm("set.le.f32.f32 %0, %1, %2;" : "=f"(m) : "f"(d2_rn(e.x - qx, e.y - qy, e.z - qz)),\n'
          '      "f"(r2));\n',
          "  m = ((__float_as_uint(e.x) ^ __float_as_uint(qx)) & 0x800000u) ? 1.f : r2 * 0.f;\n")]),
-    "new_no_wgmma": ("moment_window.cu", [
+    "no_wgmma": ("moment_window.cu", [
         ("    if (kFull || (ks >= ks0 && ks < ks1)) issue_step<P>(d, fr[ks], desc0, ks, ks != ks0);",
          "    if (kFull || (ks >= ks0 && ks < ks1))\n"
          "      d[ks] = __uint_as_float(__float_as_uint(d[ks]) ^ fr[ks][0] ^ fr[ks][1] ^ fr[ks][2] ^\n"
          "                              fr[ks][3]);")]),
-    "new_no_barrier": ("moment_window.cu", [
+    "no_barrier": ("moment_window.cu", [
         ("      __syncthreads();  // chunk c staged; every product of chunk c - 1 done\n", "")]),
-    "new_no_staging": ("moment_window.cu", [
+    "no_staging": ("moment_window.cu", [
         ("        store_stage<P>(smem + ((c + 1) % kStages) * Stage<P>::kFloats, raw, cx, cy, cz, tid);\n"
          "        fence_proxy_async();\n", "")]),
-    "new_no_fence": ("moment_window.cu", [
+    "no_fence": ("moment_window.cu", [
         ("        store_stage<P>(smem + ((c + 1) % kStages) * Stage<P>::kFloats, raw, cx, cy, cz, tid);\n"
          "        fence_proxy_async();\n",
          "        store_stage<P>(smem + ((c + 1) % kStages) * Stage<P>::kFloats, raw, cx, cy, cz, tid);\n")]),
-    "new_no_loads": ("moment_window.cu", [
+    "no_loads": ("moment_window.cu", [
         ("    for (int i = 0; i < 3; ++i) r.x[i] = __ldg(src + i * rs);",
          "    for (int i = 0; i < 3; ++i) r.x[i] = (k + i) * 1e-3f + rs * 1e-9f;"),
         ("      for (int i = 0; i < 3; ++i) r.e[i] = __ldg(src + (3 + i) * rs);",
@@ -171,19 +142,19 @@ def run(device, reps: int = STEPS) -> dict:
     :return: {case: {variant: (base ms, variant ms, equal to the base)}},
         device times by the profiler.
     """
-    from ..ops.moment_window import moment_window, moment_window_v1
+    from ..ops.moment_window import moment_window
     from .exp_mosaic_dot_probe2 import R2
 
     entries = build()
     res = {}
     for case in CASES:
         win, q, prec, kw = _case(device, case)
-        bases = {"v1": lambda: moment_window_v1(win, q, R2, prec=prec, **kw),
-                 "new": lambda: moment_window(win, q, R2, prec=prec, **kw)}
+
+        def base():
+            return moment_window(win, q, R2, prec=prec, **kw)
+
         rows = res.setdefault(case, {})
         for name, entry in entries.items():
-            base = bases[name.split("_")[0]]
-
             def variant(entry=entry):
                 return _call(entry, win, q, prec, kw)
 
@@ -192,15 +163,15 @@ def run(device, reps: int = STEPS) -> dict:
     return res
 
 
-def main(argv=None) -> int:
+def main() -> int:
     device = require_card()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60)
     print(card.stdout.strip().splitlines()[0])
     for case, rows in run(device).items():
         for name, (base, ms, same) in rows.items():
-            print("%-7s %-22s %.4f ms device (%s %.4f); output equal to the base: %s"
-                  % (case, name, ms, name.split("_")[0], base, same))
+            print("%-7s %-22s %.4f ms device (base %.4f); output equal to the base: %s"
+                  % (case, name, ms, base, same))
     return 0
 
 

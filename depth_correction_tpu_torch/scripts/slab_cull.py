@@ -83,8 +83,8 @@ def cull_pair_tests(pts_T, valid, lo, width, ctr, r2: float) -> tuple:
     """(pair tests X1's warps make after the cull, all pair tests, box
     tests): a warp with a valid row tests each entry it keeps against each
     of its 32 rows and makes one box test per valid entry of its tile's
-    spans; without the cull (the first version) every row of a live tile
-    tests every entry of its spans."""
+    spans; without the cull every row of a live tile tests every entry of
+    its spans."""
     width_all = np.maximum(_host(width).astype(np.int64), 0)
     kept_tests = box_tests = all_pairs = 0
     for tiles, _, qv, _, ev, kept in cull_windows(pts_T, valid, lo, width, ctr, r2):

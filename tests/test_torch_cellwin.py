@@ -78,18 +78,12 @@ def test_forward_plain_matches_jax(n, r, seed, cap):
     sel = row_map >= 0
     sel_raw = sel.copy()
     sel_raw[gt.exc_slots] = False  # raw kernel rows: exception rows not merged
-    # K1's first version takes the same plain version on CPU tensors.
-    raw_v1 = tcw.cellwin_fwd_v1(ps, dev.q_est, dev.est_sorted, dev.f_start,
-                                dev.f_len, dev.f_ctr, dev.r2).numpy()
-    for got in (raw, raw_v1):
-        np.testing.assert_allclose(got[0:3][:, sel_raw], jmean[:, sel_raw],
-                                   rtol=1e-9, atol=1e-10)
-        # atol: the JAX kernel sums about the tile centre, and its
-        # cancellation leaves up to ~1e-9 m^2 where the row-centred sums
-        # give 0 on a plane.
-        for k in range(6):
-            np.testing.assert_allclose(got[3 + k][sel_raw], jcomps[k][sel_raw],
-                                       rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(raw[0:3][:, sel_raw], jmean[:, sel_raw], rtol=1e-9, atol=1e-10)
+    # atol: the JAX kernel sums about the tile centre, and its cancellation
+    # leaves up to ~1e-9 m^2 where the row-centred sums give 0 on a plane.
+    for k in range(6):
+        np.testing.assert_allclose(raw[3 + k][sel_raw], jcomps[k][sel_raw], rtol=1e-9,
+                                   atol=1e-9)
     # The public op, exception rows merged, on every valid row.
     mean, comps = tcw.cellwin_moments(ps, dev)
     np.testing.assert_allclose(mean.numpy()[:, sel], jmean[:, sel], rtol=1e-9, atol=1e-10)
@@ -106,7 +100,7 @@ def _objective_weights(row_map, seed):
 
 
 @pytest.mark.parametrize("case", ["random", "exception_rows"])
-def test_gradient_matches_jax(case, monkeypatch):
+def test_gradient_matches_jax(case):
     if case == "random":
         pts, qrows, nn = scene(1500, 0.35, 1)
         r, cap = 0.35, 64
@@ -128,17 +122,13 @@ def test_gradient_matches_jax(case, monkeypatch):
     jv, jg = jax.value_and_grad(f_jax)(jnp.asarray(pts))
 
     tdev = tcw.graph_to_device(gt)
-    for first_versions in (False, True):
-        if first_versions:  # K1 and K2's first versions: the plain versions on CPU tensors
-            monkeypatch.setattr(tcw, "cellwin_fwd", tcw.cellwin_fwd_v1)
-            monkeypatch.setattr(tcw, "cellwin_bwd", tcw.cellwin_bwd_v1)
-        p = torch.tensor(pts, requires_grad=True)
-        mean, comps = tcw.cellwin_moments(t_permute_rows(p, tdev.perm, tdev.inv), tdev)
-        tv = (torch.as_tensor(wg) * (comps[0] + 0.7 * comps[3] + 0.3 * comps[5]
-                                     + 0.11 * mean[1])).sum()
-        tv.backward()
-        np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=1e-9)
-        np.testing.assert_allclose(p.grad.numpy(), np.asarray(jg), rtol=1e-7, atol=1e-8)
+    p = torch.tensor(pts, requires_grad=True)
+    mean, comps = tcw.cellwin_moments(t_permute_rows(p, tdev.perm, tdev.inv), tdev)
+    tv = (torch.as_tensor(wg) * (comps[0] + 0.7 * comps[3] + 0.3 * comps[5]
+                                 + 0.11 * mean[1])).sum()
+    tv.backward()
+    np.testing.assert_allclose(float(tv.detach()), float(jv), rtol=1e-9)
+    np.testing.assert_allclose(p.grad.numpy(), np.asarray(jg), rtol=1e-7, atol=1e-8)
 
 
 def test_exception_rows_match_jax():

@@ -8,7 +8,10 @@ no JAX, so on a machine with a card and PyTorch alone they run as
 (``--noconftest``: the suite's conftest pins JAX to the CPU).
 """
 import dataclasses
+import inspect
 import math
+import os
+import re
 
 import numpy as np
 import pytest
@@ -80,42 +83,16 @@ def test_cuda_tensors_never_take_the_plain_path(monkeypatch):
         calls.append(args)
         raise RuntimeError("launched")
 
-    for name in ("launch_cellwin_fwd", "launch_cellwin_fwd_v1", "launch_cellwin_bwd_v1"):
+    for name in ("launch_cellwin_fwd", "launch_cellwin_bwd"):
         monkeypatch.setattr(_kernels, name, fake_launch)
-    before = (tcw.FWD_LAUNCHES, tcw.FWD_V1_LAUNCHES, tcw.BWD_V1_LAUNCHES)
+    before = (tcw.FWD_LAUNCHES, tcw.BWD_LAUNCHES)
     table = torch.zeros(9, dev.q_est.shape[1])
     for fn, args in ((tcw.cellwin_fwd, (dev.f_start, dev.f_len, dev.f_ctr)),
-                     (tcw.cellwin_fwd_v1, (dev.f_start, dev.f_len, dev.f_ctr)),
-                     (tcw.cellwin_bwd_v1, (table, dev.b_start, dev.b_len, dev.b_ctr))):
+                     (tcw.cellwin_bwd, (table, dev.b_start, dev.b_len, dev.b_ctr))):
         with pytest.raises(RuntimeError, match="launched"):
             fn(ps.to("meta"), dev.q_est, dev.est_sorted, *args, dev.r2)
-    assert len(calls) == 3
-    assert (tcw.FWD_LAUNCHES, tcw.FWD_V1_LAUNCHES, tcw.BWD_V1_LAUNCHES) == before
-    # The launchers refuse anything but CUDA tensors.
-    monkeypatch.undo()
-    for launch in (_kernels.launch_cellwin_bwd, _kernels.launch_cellwin_bwd_v1):
-        with pytest.raises(ValueError, match="CUDA tensors"):
-            launch(ps, dev.q_est, dev.est_sorted, table, dev.b_start, dev.b_len, dev.b_ctr,
-                   dev.r2)
-
-
-def test_first_versions_take_the_plain_path_on_cpu(monkeypatch):
-    """The first versions of K1 and K2 compute the kernels' function, so on
-    CPU tensors they run the same plain versions, uncounted."""
-    pts, g = _slice_graph(1500, 0.35, 1, 64)
-    dev = tcw.graph_to_device(g)
-    ps = permute_rows(torch.as_tensor(pts), dev.perm, dev.inv)
-    for name in ("launch_cellwin_fwd_v1", "launch_cellwin_bwd_v1"):
-        monkeypatch.setattr(_kernels, name, None)  # a launch would raise
-    before = (tcw.FWD_V1_LAUNCHES, tcw.BWD_V1_LAUNCHES)
-    f_args = (dev.q_est, dev.est_sorted, dev.f_start, dev.f_len, dev.f_ctr, dev.r2)
-    raw = tcw.cellwin_fwd_v1(ps, *f_args)
-    assert torch.equal(raw, tcw.cellwin_fwd_plain(ps, *f_args))
-    table = torch.randn((9, raw.shape[1]), generator=torch.Generator().manual_seed(0),
-                        dtype=torch.float64)
-    b_args = (dev.q_est, dev.est_sorted, table, dev.b_start, dev.b_len, dev.b_ctr, dev.r2)
-    assert torch.equal(tcw.cellwin_bwd_v1(ps, *b_args), tcw.cellwin_bwd_plain(ps, *b_args))
-    assert (tcw.FWD_V1_LAUNCHES, tcw.BWD_V1_LAUNCHES) == before
+    assert len(calls) == 2
+    assert (tcw.FWD_LAUNCHES, tcw.BWD_LAUNCHES) == before
 
 
 @pytest.fixture
@@ -277,47 +254,42 @@ def test_box_cull_keeps_every_member(case_id):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case_id", range(len(WINDOW_CASES) + 2))
-def test_cuda_kernels_match_first_versions(cuda_device, case_id):
-    """The redesigned K1 and K2 equal their first versions bit for bit (K2
-    also with an all-ones cotangent table), and K1's member counts equal the
-    float32 plain version's: on the lattice cases (ties at d2 == r2, partial
-    and padded warps, long and empty spans) and on two seeded graphs."""
-    if case_id < len(WINDOW_CASES):
-        side, cap, counts = WINDOW_CASES[case_id]
-        case = {k: (v.to(cuda_device) if isinstance(v, torch.Tensor) else v)
-                for k, v in window_case(side, cap, counts).items()}
-        cases = [(side, case)]
-    else:
-        n, r, seed, cap = [(6000, 0.35, 0, 128), (3000, 0.4, 2, 64)][case_id - len(WINDOW_CASES)]
-        pts, g = _slice_graph(n, r, seed, cap)
-        dev = tcw.graph_to_device(g, cuda_device)
-        ps = torch.as_tensor(pts, dtype=torch.float32, device=cuda_device)[dev.perm].contiguous()
-        table = torch.randn((9, dev.q_est.shape[1]), generator=torch.Generator().manual_seed(seed))
-        base = dict(pts_sorted=ps, q_est=dev.q_est, est_sorted=dev.est_sorted, r2=dev.r2)
-        cases = [("fwd", dict(base, f_start=dev.f_start, f_len=dev.f_len, f_ctr=dev.f_ctr)),
-                 ("bwd", dict(base, table9=table.to(cuda_device), b_start=dev.b_start,
-                              b_len=dev.b_len, b_ctr=dev.b_ctr))]
-    bits = lambda x: x.view(torch.int32)
-    for side, case in cases:
-        names = (["pts_sorted", "q_est", "est_sorted"]
-                 + (["f_start", "f_len", "f_ctr"] if side == "fwd" else
-                    ["table9", "b_start", "b_len", "b_ctr"]) + ["r2"])
-        args = [case[k] for k in names]
-        if side == "fwd":
-            new, v1 = tcw.cellwin_fwd(*args), tcw.cellwin_fwd_v1(*args)
-            assert torch.equal(bits(new), bits(v1))
-            plain = tcw.cellwin_fwd_plain(*args)
-            assert torch.equal(new[9], plain[9])
-            continue
-        new, v1 = tcw.cellwin_bwd(*args), tcw.cellwin_bwd_v1(*args)
-        assert torch.equal(bits(new), bits(v1))
-        ones = list(args)
-        ones[3] = torch.ones_like(args[3])
-        assert torch.equal(bits(tcw.cellwin_bwd(*ones)), bits(tcw.cellwin_bwd_v1(*ones)))
-        args[0], args[3] = args[0].double(), args[3].double()
-        ref = tcw.cellwin_bwd_plain(*args)
-        assert float((new.double() - ref).abs().max()) <= GRAD_REL_BAR * float(ref.abs().max())
+@pytest.mark.parametrize("case_id", range(len(WINDOW_CASES)))
+def test_cuda_kernels_match_plain_on_window_cases(cuda_device, case_id):
+    """K1 and K2 on the lattice cases (ties at d2 == r2, partial and padded
+    warps, long and empty spans) against their plain versions: K1's member
+    counts equal the float32 plain version's and its moments meet the
+    float64 bars of test_cuda_kernels_match_plain on every column; K2, with
+    the case's cotangent table and with an all-ones table, within
+    GRAD_REL_BAR of max |grad| of the float64 plain version."""
+    side, cap, counts = WINDOW_CASES[case_id]
+    case = {k: (v.to(cuda_device) if isinstance(v, torch.Tensor) else v)
+            for k, v in window_case(side, cap, counts).items()}
+    names = (["pts_sorted", "q_est", "est_sorted"]
+             + (["f_start", "f_len", "f_ctr"] if side == "fwd" else
+                ["table9", "b_start", "b_len", "b_ctr"]) + ["r2"])
+    args = [case[k] for k in names]
+    _hold_window_case(side, args)
+    if side == "bwd":
+        args[3] = torch.ones_like(args[3])
+        _hold_window_case(side, args)
+
+
+def _hold_window_case(side: str, args: list) -> None:
+    """K1 or K2 on the wrapper's arguments ``args`` against the plain
+    versions, at the bars of test_cuda_kernels_match_plain."""
+    if side == "fwd":
+        got = tcw.cellwin_fwd(*args)
+        assert torch.equal(got[9], tcw.cellwin_fwd_plain(*args)[9])
+        ref = tcw.cellwin_fwd_plain(args[0].double(), *args[1:])
+        d = (got.double() - ref).abs()
+        assert float(d[0:3].max()) <= MEAN_ABS_BAR and float(d[3:9].max()) <= COMPS_ABS_BAR
+        return
+    got = tcw.cellwin_bwd(*args)
+    wide = list(args)
+    wide[0], wide[3] = args[0].double(), args[3].double()
+    ref = tcw.cellwin_bwd_plain(*wide)
+    assert float((got.double() - ref).abs().max()) <= GRAD_REL_BAR * float(ref.abs().max())
 
 
 @pytest.mark.cuda
@@ -325,8 +297,8 @@ def test_cuda_kernels_match_first_versions(cuda_device, case_id):
 def test_cuda_kernels_take_wide_span_tables(cuda_device, side):
     """A span table of 3,000 mini-spans a tile (empty past the lattice
     case's six) needs more than the default 48 KB of dynamic shared memory
-    per block; the redesigned kernels opt in and still equal their first
-    versions bit for bit."""
+    per block; the kernels opt in and still meet their plain versions'
+    bars."""
     case = window_case(side, 128, (1, 31, 33, 127))
     keys = ("f_start", "f_len") if side == "fwd" else ("b_start", "b_len")
     for k in keys:
@@ -338,10 +310,7 @@ def test_cuda_kernels_take_wide_span_tables(cuda_device, side):
     names = (["pts_sorted", "q_est", "est_sorted"]
              + (["f_start", "f_len", "f_ctr"] if side == "fwd" else
                 ["table9", "b_start", "b_len", "b_ctr"]) + ["r2"])
-    args = [case[k] for k in names]
-    new, v1 = ((tcw.cellwin_fwd(*args), tcw.cellwin_fwd_v1(*args)) if side == "fwd" else
-               (tcw.cellwin_bwd(*args), tcw.cellwin_bwd_v1(*args)))
-    assert torch.equal(new.view(torch.int32), v1.view(torch.int32))
+    _hold_window_case(side, [case[k] for k in names])
 
 
 @pytest.mark.cuda
@@ -376,16 +345,14 @@ def test_cuda_wrappers_refuse_float64(cuda_device):
     pts, g = _slice_graph(1500, 0.35, 1, 64)
     dev = tcw.graph_to_device(g, cuda_device)
     ps = torch.as_tensor(pts, dtype=torch.float64, device=cuda_device)[dev.perm].contiguous()
-    before = (tcw.FWD_LAUNCHES, tcw.FWD_V1_LAUNCHES, tcw.BWD_LAUNCHES, tcw.BWD_V1_LAUNCHES)
-    for fwd in (tcw.cellwin_fwd, tcw.cellwin_fwd_v1):
-        with pytest.raises(TypeError, match="dtype"):
-            fwd(ps, dev.q_est, dev.est_sorted, dev.f_start, dev.f_len, dev.f_ctr, dev.r2)
+    before = (tcw.FWD_LAUNCHES, tcw.BWD_LAUNCHES)
+    with pytest.raises(TypeError, match="dtype"):
+        tcw.cellwin_fwd(ps, dev.q_est, dev.est_sorted, dev.f_start, dev.f_len, dev.f_ctr, dev.r2)
     table = torch.zeros((9, dev.q_est.shape[1]), dtype=torch.float64, device=cuda_device)
-    for bwd in (tcw.cellwin_bwd, tcw.cellwin_bwd_v1):
-        with pytest.raises(TypeError, match="dtype"):
-            bwd(ps, dev.q_est, dev.est_sorted, table, dev.b_start, dev.b_len, dev.b_ctr, dev.r2)
-    assert (tcw.FWD_LAUNCHES, tcw.FWD_V1_LAUNCHES, tcw.BWD_LAUNCHES,
-            tcw.BWD_V1_LAUNCHES) == before
+    with pytest.raises(TypeError, match="dtype"):
+        tcw.cellwin_bwd(ps, dev.q_est, dev.est_sorted, table, dev.b_start, dev.b_len, dev.b_ctr,
+                        dev.r2)
+    assert (tcw.FWD_LAUNCHES, tcw.BWD_LAUNCHES) == before
 
 
 # ---------------------------------------------------------------------------
@@ -397,7 +364,7 @@ N_CELLS = 1 << 21
 
 def test_node_wrappers_never_take_the_plain_path(monkeypatch):
     """Non-CPU tensors go to the X1 / P7 launchers, never to the plain
-    versions; the launchers refuse CPU tensors."""
+    versions."""
     calls = []
 
     def fake_launch(*args):
@@ -415,17 +382,6 @@ def test_node_wrappers_never_take_the_plain_path(monkeypatch):
         tfeat.gather_moments(pts.T, torch.zeros((4, 8), dtype=torch.int32, device="meta"),
                              torch.zeros((4, 8), device="meta"))
     assert len(calls) == 2
-    monkeypatch.undo()
-    before = (_kernels.SLAB_LAUNCHES, _kernels.GATHER_LAUNCHES)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_slab_window(torch.zeros((3, 128)), torch.zeros(128, dtype=torch.bool),
-                                    torch.zeros((1, 3), dtype=torch.int32),
-                                    torch.zeros((1, 3), dtype=torch.int32),
-                                    torch.zeros((1, 3)), 0.01)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_gather_moments(torch.zeros((8, 3)), torch.zeros((4, 2), dtype=torch.int32),
-                                       torch.zeros((4, 2)))
-    assert (_kernels.SLAB_LAUNCHES, _kernels.GATHER_LAUNCHES) == before
 
 
 def _slab_inputs(device, seed=0, n=16384, r=0.25):
@@ -441,22 +397,6 @@ def _slab_inputs(device, seed=0, n=16384, r=0.25):
                                                                 x_cols_pad=64)
     lo, width, ctr, _ = tslab.slab_tile_spans(pts_T, val, ids, dims, N_CELLS)
     return pts_T, val, lo, width, ctr
-
-
-@pytest.mark.cuda
-def test_cuda_slab_window_matches_plain(cuda_device):
-    pts_T, val, lo, width, ctr = _slab_inputs(cuda_device)
-    before = _kernels.SLAB_LAUNCHES
-    out = tslab.slab_window_kernel(pts_T, val, lo, width, ctr, 0.0625)
-    torch.cuda.synchronize()
-    assert _kernels.SLAB_LAUNCHES == before + 1
-    # Same f32 membership as the plain version (no fused multiply-add).
-    p32 = tslab.slab_window_moments_plain(pts_T, val, lo, width, ctr, 0.0625)
-    assert torch.equal(out[9], p32[9])
-    p64 = tslab.slab_window_moments_plain(pts_T.double(), val, lo, width, ctr.double(), 0.0625)
-    d = (out.double() - p64)[:, val].abs()
-    assert float(d[0:3].max()) <= MEAN_ABS_BAR and float(d[3:9].max()) <= COMPS_ABS_BAR
-    assert float(p64[9][val].min()) >= 1.0  # every valid row is its own member
 
 
 def _straddle_inputs(device, seed=3, n=16000):
@@ -478,7 +418,7 @@ def _straddle_inputs(device, seed=3, n=16000):
 
 
 def _slab_case(case, device):
-    """X1's A/B inputs: the noisy plane and volume (with all-padding tiles at
+    """X1's cases: the noisy plane and volume (with all-padding tiles at
     the tail), tiles straddling columns, whole tiles and warps dropped, and
     wide spans (r = 1: spans of thousands of entries)."""
     if case == "plane_volume":
@@ -505,19 +445,21 @@ def _slab_case(case, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["plane_volume", "straddle", "dropped_tiles_and_warps",
                                   "wide_spans"])
-def test_cuda_slab_window_matches_first_version(cuda_device, case):
-    """X1 equals its first version (csrc/slabwin_v1.cu) bit for bit, every
-    slot and every output row, and meets the float64 bars."""
+def test_cuda_slab_window_matches_plain(cuda_device, case):
+    """X1 on every case of :func:`_slab_case`: one launch, the member
+    counts of the float32 plain version (the same membership, no fused
+    multiply-add), and the float64 bars on every valid slot."""
     pts_T, val, lo, width, ctr, r2 = _slab_case(case, cuda_device)
-    before = (_kernels.SLAB_LAUNCHES, _kernels.SLAB_V1_LAUNCHES)
+    before = _kernels.SLAB_LAUNCHES
     out = tslab.slab_window_kernel(pts_T, val, lo, width, ctr, r2)
-    ref = tslab.slab_window_kernel_v1(pts_T, val, lo, width, ctr, r2)
     torch.cuda.synchronize()
-    assert (_kernels.SLAB_LAUNCHES, _kernels.SLAB_V1_LAUNCHES) == (before[0] + 1, before[1] + 1)
-    assert bit_equal(out, ref)
+    assert _kernels.SLAB_LAUNCHES == before + 1
+    p32 = tslab.slab_window_moments_plain(pts_T, val, lo, width, ctr, r2)
+    assert torch.equal(out[9], p32[9])
     p64 = tslab.slab_window_moments_plain(pts_T.double(), val, lo, width, ctr.double(), r2)
     d = (out.double() - p64)[:, val].abs()
     assert float(d[0:3].max()) <= MEAN_ABS_BAR and float(d[3:9].max()) <= COMPS_ABS_BAR
+    assert float(p64[9][val].min()) >= 1.0  # every valid row is its own member
     if case == "wide_spans":
         assert int(width.sum(1).max()) > 1000
 
@@ -616,10 +558,10 @@ def test_cuda_node_wrappers_refuse_float64_and_grad(cuda_device):
 
 def test_probe_wrappers_never_take_the_plain_path(monkeypatch):
     """Non-CPU tensors go to the P1-P5 launchers, never to the plain
-    versions; the launchers refuse CPU tensors and count nothing then."""
+    versions."""
     from depth_correction_tpu_torch.ops.cellwin_knockout import cellwin_knockout
     from depth_correction_tpu_torch.ops.moment_dot import moment_dot
-    from depth_correction_tpu_torch.ops.moment_window import moment_window, moment_window_v1
+    from depth_correction_tpu_torch.ops.moment_window import moment_window
 
     calls = []
 
@@ -645,25 +587,6 @@ def test_probe_wrappers_never_take_the_plain_path(monkeypatch):
         cellwin_knockout(meta, meta.T, meta.T, tab, tab, meta, 0.1, "dot1")
     with pytest.raises(ValueError, match="precision"):
         moment_dot(meta, meta, 1, "bf16")
-    monkeypatch.undo()
-    before = (_kernels.KNOCKOUT_LAUNCHES, _kernels.DOT_LAUNCHES, _kernels.WINDOW_LAUNCHES,
-              _kernels.WINDOW_V1_LAUNCHES)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_moment_dot(3, torch.zeros((5, 16, 64)), torch.zeros((5, 64, 128)), 2)
-    for launch in (_kernels.launch_moment_window, _kernels.launch_moment_window_v1):
-        with pytest.raises(ValueError, match="CUDA tensors"):
-            launch(3, 0, torch.zeros((5, 8, 64)), torch.zeros((8, 128)), 0.0625, 2, 5, 64, 27)
-    # The first version has no plain route: a CPU tensor raises.
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        moment_window_v1(torch.zeros((5, 8, 64)), torch.zeros((8, 128)), 0.0625, 2, 5, 64, 27,
-                         "tf32")
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_cellwin_knockout(0, torch.zeros((128, 3)), torch.zeros((3, 128)),
-                                         torch.zeros((3, 128)), torch.zeros((1, 2), dtype=torch.int32),
-                                         torch.zeros((1, 2), dtype=torch.int32),
-                                         torch.zeros((1, 3)), 0.1)
-    assert (_kernels.KNOCKOUT_LAUNCHES, _kernels.DOT_LAUNCHES, _kernels.WINDOW_LAUNCHES,
-            _kernels.WINDOW_V1_LAUNCHES) == before
 
 
 def test_device_ms_times_cuda_devices_only():
@@ -822,8 +745,9 @@ def test_cuda_moment_dot_matches_plain(cuda_device, monkeypatch):
 @pytest.mark.parametrize("probe", ["exp_mosaic_dot_probe2", "exp_mosaic_dot_probe3",
                                    "exp_mosaic_dot_probe4"])
 def test_cuda_moment_window_matches_plain(cuda_device, monkeypatch, probe):
-    """P3-P5 at their shapes, 16 tiles: every variant within 1e-5 of its
-    float32 plain version per row."""
+    """P3-P5 at their probes' draws, 16 tiles: every variant within 1e-5
+    per row of its float32 plain version and, without the epilogue (P3's
+    precisions, P4's A-C), of its float64 plain version."""
     import importlib
 
     mod = importlib.import_module("depth_correction_tpu_torch.scripts." + probe)
@@ -831,8 +755,17 @@ def test_cuda_moment_window_matches_plain(cuda_device, monkeypatch, probe):
     before = _kernels.WINDOW_LAUNCHES
     res = mod.run(cuda_device, reps=1)
     assert _kernels.WINDOW_LAUNCHES == before + 4 * len(res["variants"])
+    if probe == "exp_mosaic_dot_probe2":
+        kws = {v: {} for v in res["variants"]}
+    elif probe == "exp_mosaic_dot_probe3":
+        draws = mod.inputs(cuda_device)
+        kws = {v: mod.variant_args(v, draws)[2] for v in res["variants"]}
+    else:
+        kws = {v: c[2] for v, c in mod.inputs(cuda_device, tuple(res["variants"])).items()}
     for v, e in res["variants"].items():
         assert e["err32"] <= 1e-5, (v, e["err32"])
+        if not kws[v].get("epilogue"):
+            assert e["err64"] <= 1e-5, (v, e["err64"])
 
 
 @pytest.mark.cuda
@@ -883,50 +816,18 @@ def test_cuda_probe_wrappers_refuse(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# P2 and P6 against their first versions (csrc/moment_dot_v1.cu,
-# csrc/layout_probe_v1.cu), which only the A/B launches.
+# P2's and P6's wrappers and P2 at its edge shapes.
 
 P2_PRECS = ("fp32", "tf32", "tf32x2", "tf32x3")
 P6_PROBES = ("reshape_f32", "iota_col", "iota_col_full", "bool_reshape", "dot_tlhs",
              "transpose_f32", "broadcast_row_to_col")
 
 
-def _v1_counts():
-    return (_kernels.DOT_LAUNCHES, _kernels.DOT_V1_LAUNCHES, _kernels.LAYOUT_LAUNCHES,
-            _kernels.LAYOUT_V1_LAUNCHES)
-
-
-@pytest.mark.parametrize("device", ["cpu", "meta"])
-@pytest.mark.parametrize("kernel", ["moment_dot", "layout_probe"])
-def test_p2_p6_first_versions_take_cuda_tensors_only(device, kernel):
-    """P2's and P6's first versions have no plain route: their launchers and
-    wrappers refuse CPU and meta tensors, and nothing is counted."""
-    from depth_correction_tpu_torch.ops.layout_probe import layout_probe_v1
-    from depth_correction_tpu_torch.ops.moment_dot import moment_dot_v1
-
-    before = _v1_counts()
-    if kernel == "moment_dot":
-        a = torch.zeros((5, 16, 64), device=device)
-        b = torch.zeros((5, 64, 128), device=device)
-        with pytest.raises(ValueError, match="CUDA tensors"):
-            _kernels.launch_moment_dot_v1(3, a, b, 2)
-        with pytest.raises(ValueError, match="CUDA tensors"):
-            moment_dot_v1(a, b, 2, "tf32x3")
-    else:
-        x = torch.zeros((8, 512), device=device)
-        with pytest.raises(ValueError, match="CUDA tensors"):
-            _kernels.launch_layout_probe_v1(4, x, (512, 128))
-        with pytest.raises(ValueError, match="CUDA tensors"):
-            layout_probe_v1(x, "dot_tlhs")
-    assert _v1_counts() == before
-
-
 @pytest.mark.parametrize("name", [("moment_dot", p) for p in P2_PRECS]
                          + [("layout_probe", p) for p in P6_PROBES])
 def test_p2_p6_wrappers_send_cuda_tensors_to_the_redesign(monkeypatch, name):
-    """Non-CPU tensors go from moment_dot / layout_probe to the redesign's
-    launcher with the variant's index, never to the first version's launcher
-    or to the plain twin."""
+    """Non-CPU tensors go from moment_dot / layout_probe to the kernel's
+    launcher with the variant's index, never to the plain twin."""
     from depth_correction_tpu_torch.ops import layout_probe as tlayout
     from depth_correction_tpu_torch.ops import moment_dot as tdot
 
@@ -941,7 +842,6 @@ def test_p2_p6_wrappers_send_cuda_tensors_to_the_redesign(monkeypatch, name):
         raise AssertionError("took another route")
 
     monkeypatch.setattr(_kernels, "launch_" + kernel, fake_launch)
-    monkeypatch.setattr(_kernels, "launch_%s_v1" % kernel, refuse)
     monkeypatch.setattr(tdot, "moment_dot_plain", refuse)
     monkeypatch.setattr(tlayout, "layout_probe_plain", refuse)
     with pytest.raises(RuntimeError, match="launched"):
@@ -959,9 +859,9 @@ def test_p2_p6_wrappers_send_cuda_tensors_to_the_redesign(monkeypatch, name):
 
 @pytest.mark.parametrize("prec", P2_PRECS)
 def test_window_wrapper_sends_cuda_tensors_to_the_redesign(monkeypatch, prec):
-    """Non-CPU tensors go from moment_window to the redesign's launcher with
-    the precision's index and the switches' bits, never to the first
-    version's launcher or to the plain twin."""
+    """Non-CPU tensors go from moment_window to the kernel's launcher with
+    the precision's index and the switches' bits, never to the plain
+    twin."""
     from depth_correction_tpu_torch.ops import moment_window as twin
 
     calls = []
@@ -974,7 +874,6 @@ def test_window_wrapper_sends_cuda_tensors_to_the_redesign(monkeypatch, prec):
         raise AssertionError("took another route")
 
     monkeypatch.setattr(_kernels, "launch_moment_window", fake_launch)
-    monkeypatch.setattr(_kernels, "launch_moment_window_v1", refuse)
     monkeypatch.setattr(twin, "moment_window_plain", refuse)
     lens = torch.zeros((2, 5), dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError, match="launched"):
@@ -1000,104 +899,50 @@ def _p2_inputs(device, ns, s_len, seed=0):
 @pytest.mark.parametrize("n_tiles", [1, 3, 513])
 @pytest.mark.parametrize("s_len", [8, 72, 640])
 @pytest.mark.parametrize("ns", [1, 5])
-def test_cuda_moment_dot_matches_plain_and_first_version(cuda_device, ns, s_len, n_tiles):
-    """P2's redesign at the edge shapes (one span, a chunk of 8 k, a ragged
-    last chunk, a ragged last block of tiles): every variant within 1e-5 per
-    row of its float32 plain twin and of the first version; fp32 and tf32x3
-    within 1e-5 of the float64 product; fp32 equal to the first version bit
-    for bit (the same FMAs in the same order); every tile's slot the same."""
-    from depth_correction_tpu_torch.ops.moment_dot import (
-        moment_dot, moment_dot_plain, moment_dot_v1,
-    )
+def test_cuda_moment_dot_edge_shapes(cuda_device, ns, s_len, n_tiles):
+    """P2 at the edge shapes (one span, a chunk of 8 k, a ragged last
+    chunk, a ragged last block of tiles): every variant within 1e-5 per row
+    of its float32 plain twin; fp32 and tf32x3 within 1e-5 of the float64
+    product; every tile's slot the same; one launch a variant."""
+    from depth_correction_tpu_torch.ops.moment_dot import moment_dot, moment_dot_plain
     from depth_correction_tpu_torch.scripts import rel_max, rel_rows
 
     a, b = _p2_inputs(cuda_device, ns, s_len)
     oracle = moment_dot_plain(a.double(), b.double(), 1, "fp32")
-    before = _v1_counts()
+    before = _kernels.DOT_LAUNCHES
     for prec in P2_PRECS:
         got = moment_dot(a, b, n_tiles, prec)
-        v1 = moment_dot_v1(a, b, n_tiles, prec)
         torch.cuda.synchronize()
         assert got.shape == (16, 128 * n_tiles)
         tiles = got.reshape(16, n_tiles, 128)
         assert torch.equal(tiles, tiles[:, :1].expand_as(tiles)), prec
         first = got[:, :128]
         assert rel_rows(first, moment_dot_plain(a, b, 1, prec)) <= 1e-5, prec
-        assert rel_rows(first, v1[:, :128]) <= 1e-5, prec
         if prec in ("fp32", "tf32x3"):
             assert rel_max(first, oracle) <= 1e-5, prec
-        if prec == "fp32":
-            assert torch.equal(got, v1)
-    assert _v1_counts() == (before[0] + 4, before[1] + 4, before[2], before[3])
+    assert _kernels.DOT_LAUNCHES == before + len(P2_PRECS)
 
 
-# P3-P5's redesign against its first version (csrc/moment_window_v1.cu):
-# (probe script, variant) for every variant the probes run.
-WINDOW_VARIANTS = ([("exp_mosaic_dot_probe2", v) for v in P2_PRECS]
-                   + [("exp_mosaic_dot_probe3", v) for v in ("A_baseline", "B_scalar_prefetch",
-                                                             "C_any_dma", "D_epilogue", "E_all")]
-                   + [("exp_mosaic_dot_probe4", v) for v in ("E_base(ns5)", "F_moving_blocks",
-                                                             "G_ctr_broadcast", "H_lead_masks",
-                                                             "I_ns15", "J_all")])
-# Bar of the redesign against the first version when not bit-equal, and of
-# both against the plain versions (chip_smoke.py's PROBE_REL_BAR).
+# Bar of P3-P5 against the plain versions (chip_smoke.py's PROBE_REL_BAR).
 PROBE_REL_BAR = 1e-5
 
 
-def _window_case(device, probe: str, variant: str, monkeypatch):
-    """(win, q, prec, keyword arguments) of a probe variant at 16 tiles."""
-    import importlib
-
-    mod = importlib.import_module("depth_correction_tpu_torch.scripts." + probe)
-    monkeypatch.setattr(mod, "T1", 16)
-    if probe == "exp_mosaic_dot_probe2":
-        win, q, ln = mod.inputs(device)
-        return win, q, variant, dict(n_tiles=16, ns=mod.NS, s_len=mod.S, lens=ln)
-    if probe == "exp_mosaic_dot_probe3":
-        win, q, kw = mod.variant_args(variant, mod.inputs(device))
-        return win, q, mod.PREC, kw
-    win, q, kw = mod.inputs(device, (variant,))[variant]
-    return win, q, mod.PREC, kw
-
-
 def _check_window(win, q, prec, kw, exact: bool):
-    """The redesign against the first version (bit-equal, or within the bar
-    per row) and against the plain version in float32, and in float64 when
-    ``exact`` (no epilogue); returns (redesign, first version)."""
-    from depth_correction_tpu_torch.ops.moment_window import (
-        moment_window, moment_window_plain, moment_window_v1,
-    )
+    """P3-P5 against the plain version in float32, and in float64 when
+    ``exact`` (no epilogue), per row within PROBE_REL_BAR."""
+    from depth_correction_tpu_torch.ops.moment_window import moment_window, moment_window_plain
     from depth_correction_tpu_torch.scripts import rel_rows
 
     r2 = 0.0625
     got = moment_window(win, q, r2, prec=prec, **kw)
-    v1 = moment_window_v1(win, q, r2, prec=prec, **kw)
     torch.cuda.synchronize()
     label = (prec, {k: v for k, v in kw.items() if not isinstance(v, torch.Tensor)})
     assert torch.isfinite(got).all(), label
-    if not torch.equal(got.view(torch.int32), v1.view(torch.int32)):
-        assert rel_rows(got, v1) <= PROBE_REL_BAR, label
     assert rel_rows(got, moment_window_plain(win, q, r2, prec=prec, **kw)) <= PROBE_REL_BAR, label
     if exact:
         wide = dict(kw, ctr=kw["ctr"].double()) if "ctr" in kw else kw
         ref64 = moment_window_plain(win.double(), q.double(), r2, prec=prec, **wide)
         assert rel_rows(got, ref64) <= PROBE_REL_BAR, label
-    return got, v1
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("probe,variant", WINDOW_VARIANTS)
-def test_cuda_moment_window_matches_first_version(cuda_device, monkeypatch, probe, variant):
-    """Every P3-P5 variant at its probe's draws (16 tiles): the redesign
-    bit-equal to the first version (or within 1e-5 per row), within 1e-5
-    per row of its float32 plain version and, without the epilogue, of its
-    float64 plain version; each launch counted once, on its own counter."""
-    win, q, prec, kw = _window_case(cuda_device, probe, variant, monkeypatch)
-    before = (_kernels.WINDOW_LAUNCHES, _kernels.WINDOW_V1_LAUNCHES)
-    got, v1 = _check_window(win, q, prec, kw, exact=not kw.get("epilogue"))
-    assert (_kernels.WINDOW_LAUNCHES, _kernels.WINDOW_V1_LAUNCHES) == (before[0] + 1,
-                                                                       before[1] + 1)
-    assert torch.equal(got.view(torch.int32), v1.view(torch.int32)), (probe, variant)
 
 
 @pytest.mark.cuda
@@ -1105,8 +950,7 @@ def test_cuda_moment_window_matches_first_version(cuda_device, monkeypatch, prob
 @pytest.mark.parametrize("s_len", [64, 72, 640])
 @pytest.mark.parametrize("ns", [1, 5, 15])
 def test_cuda_moment_window_edge_shapes(cuda_device, ns, s_len, n_tiles):
-    """The redesign against the first version and the plain versions at the
-    edge shapes: span lengths that are not a multiple of 8 and empty spans,
+    """P3-P5 against the plain versions at the edge shapes: span lengths that are not a multiple of 8 and empty spans,
     leads > 0 with lead + len past S, starts before the table and past its
     end; every switch (J's set), the staged length table without the
     epilogue (C's set), and every precision on per-span windows with one
@@ -1129,8 +973,7 @@ def test_cuda_moment_window_edge_shapes(cuda_device, ns, s_len, n_tiles):
                           device=cuda_device)
     j_kw = dict(n_tiles=n_tiles, ns=ns, s_len=s_len, lens=t(lens), starts=t(starts),
                 leads=t(leads), ctr=ctr, per_tile_q=True, epilogue=True)
-    got, v1 = _check_window(big, q, "tf32x3", j_kw, exact=False)
-    assert torch.equal(got.view(torch.int32), v1.view(torch.int32))
+    _check_window(big, q, "tf32x3", j_kw, exact=False)
     q0 = q[:, :128].contiguous()  # every tile's q without per_tile_q
     c_kw = dict(n_tiles=n_tiles, ns=ns, s_len=s_len, lens=t(lens), starts=t(starts))
     _check_window(big, q0, "tf32x3", c_kw, exact=True)
@@ -1142,48 +985,13 @@ def test_cuda_moment_window_edge_shapes(cuda_device, ns, s_len, n_tiles):
             _check_window(win, q0, prec, kw, exact=prec in ("fp32", "tf32x3"))
 
 
-@pytest.mark.cuda
-def test_cuda_moment_window_first_version_counts_its_launches(cuda_device):
-    """moment_window_v1 launches the first version on CUDA tensors and
-    counts each launch on WINDOW_V1_LAUNCHES alone."""
-    from depth_correction_tpu_torch.ops.moment_window import moment_window_v1
-
-    win = torch.zeros((5, 8, 64), device=cuda_device)
-    q = torch.zeros((8, 128), device=cuda_device)
-    before = (_kernels.WINDOW_LAUNCHES, _kernels.WINDOW_V1_LAUNCHES)
-    for _ in range(3):
-        out = moment_window_v1(win, q, 0.0625, 2, 5, 64, 27, "tf32")
-    torch.cuda.synchronize()
-    assert out.shape == (16, 256)
-    assert (_kernels.WINDOW_LAUNCHES, _kernels.WINDOW_V1_LAUNCHES) == (before[0], before[1] + 3)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("first", [None, 200.0])
-def test_cuda_layout_probes_match_first_version(cuda_device, first):
-    """Every P6 probe of the redesign equals the first version and the plain
-    twin exactly, on the script's input and with x[0, 0] = 200."""
-    from depth_correction_tpu_torch.ops.layout_probe import (
-        layout_probe, layout_probe_plain, layout_probe_v1,
-    )
-    from depth_correction_tpu_torch.scripts.exp_mosaic_probe import inputs
-
-    x = inputs(cuda_device, first)
-    before = _v1_counts()
-    for name in P6_PROBES:
-        got = layout_probe(x, name)
-        assert torch.equal(got, layout_probe_v1(x, name)), name
-        assert torch.equal(got, layout_probe_plain(x, name)), name
-    assert _v1_counts() == (before[0], before[1], before[2] + 7, before[3] + 7)
-
-
 # ---------------------------------------------------------------------------
 # X2 (the grid radius search), P6 (layout probes) and P8 (gather probes).
 
 
 def test_grid_wrappers_never_take_the_plain_path(monkeypatch):
     """Non-CPU tensors go to the X2 / P6 / P8 launchers, never to the plain
-    versions; the launchers refuse CPU tensors and count nothing then."""
+    versions."""
     from depth_correction_tpu_torch.ops import grid_hash as tgrid
     from depth_correction_tpu_torch.ops.gather_probe import gather_probe
     from depth_correction_tpu_torch.ops.layout_probe import layout_probe
@@ -1212,20 +1020,6 @@ def test_grid_wrappers_never_take_the_plain_path(monkeypatch):
         layout_probe(torch.zeros((8, 512)), "k_dot")
     with pytest.raises(ValueError, match="form"):
         gather_probe(torch.zeros(8), torch.zeros(8, dtype=torch.int32), 1, "vmem")
-    monkeypatch.undo()
-    before = (_kernels.GRID_LAUNCHES, _kernels.LAYOUT_LAUNCHES, _kernels.GATHER_PROBE_LAUNCHES)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_grid_query(torch.zeros((4, 3)), torch.ones(4, dtype=torch.bool),
-                                   torch.zeros((3, 8)), torch.zeros(8, dtype=torch.int32),
-                                   torch.zeros(8, dtype=torch.int32), [0.0] * 3, [1, 1, 1],
-                                   1.0, 0.1, 4)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_layout_probe(0, torch.zeros((8, 512)), (512, 128))
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_gather_probe(False, 1, torch.zeros((8, 256)),
-                                     torch.zeros((8, 256), dtype=torch.int32))
-    assert (_kernels.GRID_LAUNCHES, _kernels.LAYOUT_LAUNCHES,
-            _kernels.GATHER_PROBE_LAUNCHES) == before
 
 
 def _grid_inputs(device, seed=0, n=20000, dup=0):
@@ -1343,7 +1137,7 @@ def test_cuda_grid_query_on_cell_faces(cuda_device, k):
 
 
 def _x2_case(case, device):
-    """X2's A/B inputs -> (queries, their validity, grid, window, k, bucket
+    """X2's cases -> (queries, their validity, grid, window, k, bucket
     cap): the noisy plane and volume (largest count ~60) at k below and
     above every count, duplicated points (ties in d2), the cell-face lattice,
     an undersized bucket_cap and a separate query set."""
@@ -1376,31 +1170,29 @@ X2_CASES = ([("plane_volume", k) for k in (0, 1, 16, 32, 33, 168)]
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", X2_CASES)
-def test_cuda_grid_query_matches_first_version(cuda_device, case):
-    """X2 equals its first version (csrc/grid_query_v1.cu) bit for bit
-    (index tables, distances, counts) and its plain twin (index tables,
-    distances within one float32 ulp, counts)."""
+def test_cuda_grid_query_cases_match_plain(cuda_device, case):
+    """X2 on every case of :func:`_x2_case` against its plain twin: index
+    tables equal, distances within one float32 ulp, counts equal; one
+    launch."""
     from depth_correction_tpu_torch.ops import grid_hash as tgrid
 
     q, qv, grid, width, k, cap = _x2_case(case, cuda_device)
     (pts_T, val_s, ids_s, order, mins, dims, cell, starts) = grid
     args = (q, qv, pts_T, val_s, ids_s, order, mins, dims,
             torch.full((), 0.3, dtype=torch.float32) ** 2, k)
-    before = (_kernels.GRID_LAUNCHES, _kernels.GRID_V1_LAUNCHES)
+    before = _kernels.GRID_LAUNCHES
     # The queries are the grid's own points except in the query-set cases:
-    # the redesign then takes them in the grid's slot order.
+    # the kernel then takes them in the grid's slot order.
     got = tgrid.grid_query(*args, cap, cell, starts, own_points=case[0] != "query_set")
-    ref = tgrid.grid_query_v1(*args, cap, cell, starts)
     torch.cuda.synchronize()
-    assert (_kernels.GRID_LAUNCHES, _kernels.GRID_V1_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert _kernels.GRID_LAUNCHES == before + 1
     want = tgrid._grid_query_plain(*args, width if cap is None else cap, cell, starts)
     counts = tgrid._grid_query_plain(*args[:-1], 0, width if cap is None else cap, cell, starts)
     if k == 0:
-        assert torch.equal(got, ref) and torch.equal(got, want)
+        assert torch.equal(got, want)
         return
     if cap is None:  # the cases cut (k below the largest count) or do not
         assert (int(counts.max()) > k) == (k < 168 or case[0] == "dense")
-    assert torch.equal(got[1], ref[1]) and bit_equal(got[0], ref[0])
     assert torch.equal(got[1], want[1])
     fin = torch.isfinite(want[0])
     assert torch.equal(fin, torch.isfinite(got[0]))
@@ -1446,44 +1238,8 @@ def test_cuda_gather_probes_match_plain(cuda_device):
         gather_probe(x, torch.zeros((1, 4), dtype=torch.int32, device=cuda_device), 1, "staged")
 
 
-def test_gather_probe_v1_refuses_cpu_tensors():
-    """P8's first version has no plain route: CPU tensors raise in its
-    launcher, and nothing is counted."""
-    from depth_correction_tpu_torch.ops.gather_probe import gather_probe_v1
-
-    before = (_kernels.GATHER_PROBE_LAUNCHES, _kernels.GATHER_PROBE_V1_LAUNCHES)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        gather_probe_v1(torch.zeros((8, 256)), torch.zeros((8, 256), dtype=torch.int32), 1,
-                        "global")
-    with pytest.raises(ValueError, match="form"):
-        gather_probe_v1(torch.zeros(8), torch.zeros(8, dtype=torch.int32), 1, "vmem")
-    assert (_kernels.GATHER_PROBE_LAUNCHES, _kernels.GATHER_PROBE_V1_LAUNCHES) == before
-
-
 def _p8_equal(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", ["A", "B", "C", "D", "E"])
-@pytest.mark.parametrize("form", ["global", "staged"])
-def test_cuda_gather_probe_equals_first_version(cuda_device, case, form):
-    """P8's redesign equals its first version (csrc/gather_probe_v1.cu) and
-    the plain version bit for bit on the script's cases; B's staged (cluster)
-    form, which the first version lacks, equals its global form. Each
-    launch counts on its own counter."""
-    from depth_correction_tpu_torch.ops.gather_probe import (gather_probe, gather_probe_plain,
-                                                             gather_probe_v1, staged_blocks)
-    from depth_correction_tpu_torch.scripts import exp_pallas_gather2 as p8
-
-    x, idx, axis = p8.inputs(cuda_device)[case]
-    before = (_kernels.GATHER_PROBE_LAUNCHES, _kernels.GATHER_PROBE_V1_LAUNCHES)
-    got = gather_probe(x, idx, axis, form)
-    old = gather_probe_v1(x, idx, axis, form if staged_blocks(x, axis) == 1 else "global")
-    assert (_kernels.GATHER_PROBE_LAUNCHES, _kernels.GATHER_PROBE_V1_LAUNCHES) == (
-        before[0] + 1, before[1] + 1)
-    assert _p8_equal(got, old)
-    assert _p8_equal(got.cpu(), gather_probe_plain(x.cpu(), idx.cpu(), axis))
 
 
 # (x shape, idx shape, axis): i_cols not a multiple of 4, 8 or 256, a single
@@ -1501,12 +1257,10 @@ P8_EDGE_SHAPES = [
 @pytest.mark.parametrize("x_shape,i_shape,axis", P8_EDGE_SHAPES)
 @pytest.mark.parametrize("form", ["global", "staged"])
 def test_cuda_gather_probe_edge_shapes(cuda_device, x_shape, i_shape, axis, form):
-    """Edge shapes with indices at 0 and at the last column (row) of x: the
-    redesign equals the plain version and the first version bit for bit
-    (the first version's global form where it has no staged one), and a
-    view off 16-byte alignment takes the scalar loads to the same bits."""
-    from depth_correction_tpu_torch.ops.gather_probe import (gather_probe, gather_probe_plain,
-                                                             gather_probe_v1, staged_blocks)
+    """Edge shapes with indices at 0 and at the last column (row) of x: P8
+    equals the plain version bit for bit, and a view off 16-byte alignment
+    takes the scalar loads to the same bits."""
+    from depth_correction_tpu_torch.ops.gather_probe import gather_probe, gather_probe_plain
 
     g = torch.Generator().manual_seed(sum(x_shape) + sum(i_shape) + axis)
     x = torch.randn(x_shape, generator=g)
@@ -1520,8 +1274,6 @@ def test_cuda_gather_probe_edge_shapes(cuda_device, x_shape, i_shape, axis, form
     xd, id_ = x.to(cuda_device), idx.to(cuda_device)
     got = gather_probe(xd, id_, axis, form)
     assert _p8_equal(got.cpu(), want)
-    old = gather_probe_v1(xd, id_, axis, form if staged_blocks(xd, axis) == 1 else "global")
-    assert _p8_equal(got, old)
     # The same values one float past a 16-byte boundary.
     xs = torch.empty(x.numel() + 1, device=cuda_device)[1:].view(x_shape)
     xs.copy_(xd)
@@ -1536,12 +1288,9 @@ def test_cuda_gather_probe_edge_shapes(cuda_device, x_shape, i_shape, axis, form
 
 def test_knn_and_gather_sum_wrappers_never_take_the_plain_path(monkeypatch):
     """Non-CPU tensors go to the X3 / P7a launchers, never to the plain
-    twins (``plain=True`` asks for the twin explicitly); P7's and P7a's
-    first versions go to their own launchers, never to the plain twins; the
-    launchers refuse CPU tensors and count nothing then."""
+    twins (``plain=True`` asks for the twin explicitly)."""
     from depth_correction_tpu_torch.ops import gather_sum as tgsum
     from depth_correction_tpu_torch.ops import knn as tknn
-    from depth_correction_tpu_torch.ops.gather_sum import gather_sum
 
     calls = []
 
@@ -1552,20 +1301,9 @@ def test_knn_and_gather_sum_wrappers_never_take_the_plain_path(monkeypatch):
     def refuse(*args, **kw):
         raise AssertionError("took the plain twin")
 
-    for name in ("launch_knn_brute", "launch_gather_sum", "launch_gather_sum_v1",
-                 "launch_gather_moments_v1"):
+    for name in ("launch_knn_brute", "launch_gather_sum"):
         monkeypatch.setattr(_kernels, name, fake_launch)
     monkeypatch.setattr(tgsum, "gather_sum_plain", refuse)
-    monkeypatch.setattr(tfeat, "gather_moments_plain", refuse)
-    with pytest.raises(RuntimeError, match="launched"):
-        tgsum.gather_sum_v1(torch.zeros((3, 64), device="meta"),
-                            torch.zeros((4, 8), dtype=torch.int32, device="meta"))
-    with pytest.raises(RuntimeError, match="launched"):
-        tfeat.gather_moments_v1(torch.zeros((64, 3), device="meta"),
-                                torch.zeros((4, 8), dtype=torch.int32, device="meta"),
-                                torch.zeros((4, 8), device="meta"))
-    assert len(calls) == 2
-    calls.clear()
     pts = torch.zeros((64, 3), device="meta")
     valid = torch.zeros(64, dtype=torch.bool, device="meta")
     with pytest.raises(RuntimeError, match="launched"):
@@ -1575,53 +1313,27 @@ def test_knn_and_gather_sum_wrappers_never_take_the_plain_path(monkeypatch):
     with pytest.raises(RuntimeError, match="launched"):
         tknn.neighbor_counts(pts, r=0.1, valid_points=valid)
     with pytest.raises(RuntimeError, match="launched"):
-        gather_sum(torch.zeros((3, 64), device="meta"),
-                   torch.zeros((4, 8), dtype=torch.int32, device="meta"))
+        tgsum.gather_sum(torch.zeros((3, 64), device="meta"),
+                         torch.zeros((4, 8), dtype=torch.int32, device="meta"))
     assert len(calls) == 4
-    monkeypatch.undo()
-    before = (_kernels.KNN_LAUNCHES, _kernels.GATHER_SUM_LAUNCHES,
-              _kernels.GATHER_SUM_V1_LAUNCHES, _kernels.GATHER_V1_LAUNCHES)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_knn_brute(torch.zeros((4, 3)), None, torch.zeros((8, 3)),
-                                  torch.ones(8, dtype=torch.bool), 0.01, 4)
-    idx = torch.zeros((2, 4), dtype=torch.int32)
-    for launch in (_kernels.launch_gather_sum, _kernels.launch_gather_sum_v1,
-                   tgsum.gather_sum_v1):
-        with pytest.raises(ValueError, match="CUDA tensors"):
-            launch(torch.zeros((3, 8)), idx)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        tfeat.gather_moments_v1(torch.zeros((8, 3)), idx, torch.ones((2, 4)))
-    assert (_kernels.KNN_LAUNCHES, _kernels.GATHER_SUM_LAUNCHES,
-            _kernels.GATHER_SUM_V1_LAUNCHES, _kernels.GATHER_V1_LAUNCHES) == before
 
 
-# The first versions kept for the A/B, and the C entries each defines.
-V1_ENTRIES = {
-    "cellwin_v1.cu": ("dc_cellwin_fwd_v1", "dc_cellwin_bwd_v1"),
-    "slabwin_v1.cu": ("dc_slab_window_v1",),
-    "grid_query_v1.cu": ("dc_grid_query_v1",),
-    "knn_brute_v1.cu": ("dc_knn_brute_v1", "dc_knn_brute_v1_max_k"),
-    "moment_dot_v1.cu": ("dc_moment_dot_v1",),
-    "moment_window_v1.cu": ("dc_moment_window_v1",),
-    "layout_probe_v1.cu": ("dc_layout_probe_v1",),
-    "gather_sum_v1.cu": ("dc_gather_sum_v1",),
-    "gather_moments_v1.cu": ("dc_gather_moments_v1",),
-}
+# A C entry defined in a source (at the start of its line).
+C_ENTRY = re.compile(r"^(?:int|long long|const char\*) (dc_\w+)\(", re.M)
 
 
-@pytest.mark.parametrize("name", sorted(V1_ENTRIES))
-def test_sources_build_each_first_version_beside_its_redesign(name):
-    """Every first version is compiled into the library beside its redesign
-    (``_kernels.SOURCES``), defines the renamed C entries that ``load``
-    binds, and leaves the redesign's entries to the redesign's source."""
-    import os
-
-    names = [os.path.basename(p) for p in _kernels.SOURCES]
-    assert name in names and name.replace("_v1.cu", ".cu") in names
-    src = open(os.path.join(os.path.dirname(_kernels.SOURCES[0]), name)).read()
-    for entry in V1_ENTRIES[name]:
-        assert "int %s(" % entry in src
-        assert "int %s(" % entry.replace("_v1", "") not in src
+@pytest.mark.parametrize("source", [os.path.basename(p) for p in _kernels.SOURCES])
+def test_each_source_defines_only_bound_entries(source):
+    """Every C entry a compiled source (``_kernels.SOURCES``) defines is
+    bound by ``load``, no other source defines it, and every entry ``load``
+    binds is defined in one of them."""
+    defined = {os.path.basename(p): set(C_ENTRY.findall(open(p).read()))
+               for p in _kernels.SOURCES}
+    bound = set(re.findall(r"lib\.(dc_\w+)", inspect.getsource(_kernels.load)))
+    assert defined[source] and defined[source] <= bound
+    for other, entries in defined.items():
+        assert other == source or not entries & defined[source], other
+    assert bound == set().union(*defined.values())
 
 
 def test_gather_variants_apply_to_the_sources():
@@ -1642,98 +1354,95 @@ def test_gather_variants_apply_to_the_sources():
 
 def test_window_variants_apply_to_the_sources():
     """scripts/exp_window_variants.py builds its knockouts by replacing
-    lines of the committed P3-P5 sources: every replacement still finds its
-    line (``sources`` raises otherwise), each renames its source's entry,
-    and every knockout of the redesign leaves its wgmma chain or its pair
-    test out as it says."""
-    import os
-
+    lines of the committed P3-P5 source: every replacement still finds its
+    line (``sources`` raises otherwise), each renames the source's entry,
+    and the knockouts leave the pair test, the wgmma chain and the barrier
+    out as they say."""
     from depth_correction_tpu_torch.scripts import exp_window_variants as wv
 
     src = wv.sources()
     assert sorted(src) == sorted(wv.KNOCKOUTS)
     for name, (fname, _) in wv.KNOCKOUTS.items():
-        assert src[name][1] == "dc_" + fname[:-3]
-        assert name.startswith("v1_") == (fname == "moment_window_v1.cu")
-    assert "set.le.f32.f32" not in src["new_no_test"][0]
-    assert "mma_tf32_m16n8k8(c_hi" not in src["v1_no_mma"][0]
-    v1 = open(os.path.join(os.path.dirname(_kernels.SOURCES[0]), "moment_window_v1.cu")).read()
-    assert src["v1_no_barriers"][0].count("__syncthreads") == v1.count("__syncthreads") - 2
+        assert fname == "moment_window.cu" and src[name][1] == "dc_moment_window"
+    assert "set.le.f32.f32" not in src["no_test"][0]
+    assert "issue_step<P>(d, fr[ks]" not in src["no_wgmma"][0]
+    full = open(os.path.join(os.path.dirname(_kernels.SOURCES[0]), "moment_window.cu")).read()
+    assert src["no_barrier"][0].count("__syncthreads") == full.count("__syncthreads") - 1
 
 
-def test_reset_zeroes_the_window_first_version_count(monkeypatch):
-    """reset_launch_counts zeroes P3-P5's first-version count with the
-    rest."""
-    monkeypatch.setattr(_kernels, "WINDOW_V1_LAUNCHES", 4)
+def test_reset_zeroes_every_launch_count(monkeypatch):
+    """Every launch count kept in ops/_kernels.py (each module-level
+    ``*_LAUNCHES``) is in its ``__all__``, and one reset_launch_counts
+    zeroes them all."""
+    names = [n for n in vars(_kernels) if n.endswith("_LAUNCHES")]
+    assert names and set(names) <= set(_kernels.__all__)
+    for name in names:
+        monkeypatch.setattr(_kernels, name, 5)
     _kernels.reset_launch_counts()
-    assert _kernels.WINDOW_V1_LAUNCHES == 0
+    assert [getattr(_kernels, n) for n in names] == [0] * len(names)
 
 
-def test_reset_zeroes_the_gather_first_versions_counts(monkeypatch):
-    """reset_launch_counts zeroes P7's and P7a's first-version counts with
-    the rest."""
-    monkeypatch.setattr(_kernels, "GATHER_V1_LAUNCHES", 3)
-    monkeypatch.setattr(_kernels, "GATHER_SUM_V1_LAUNCHES", 2)
-    _kernels.reset_launch_counts()
-    assert (_kernels.GATHER_V1_LAUNCHES, _kernels.GATHER_SUM_V1_LAUNCHES) == (0, 0)
+def _launch_counts() -> tuple:
+    """Every kernel's launch count: ops/_kernels.py's and K1 / K2's."""
+    return tuple(getattr(_kernels, n) for n in _kernels.__all__ if n.endswith("_LAUNCHES")) + (
+        tcw.FWD_LAUNCHES, tcw.BWD_LAUNCHES)
+
+
+def _launcher_args(name: str, device) -> tuple:
+    """Arguments of the raw launcher ``name`` on ``device``: small tensors
+    of the shapes and dtypes it takes."""
+    def f32(*shape):
+        return torch.zeros(shape, device=device)
+
+    def i32(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=device)
+
+    def b(*shape):
+        return torch.ones(shape, dtype=torch.bool, device=device)
+
+    if name in ("launch_transpose_moments", "launch_transpose_gather"):
+        pts, nn, w, _ = _transpose_case("k32", "cpu")
+        tg = tfeat.build_transpose_graph(nn, pts, w).to(device)
+        if name == "launch_transpose_moments":
+            return pts.to(device), tg, f32(nn.shape[0], 12)
+        return f32(nn.numel(), 3), tg
+    spans = (i32(1, 2), i32(1, 2), f32(1, 3))
+    return {
+        "launch_cellwin_fwd": (f32(128, 3), f32(3, 128), f32(3, 128)) + spans + (0.1,),
+        "launch_cellwin_knockout": (0, f32(128, 3), f32(3, 128), f32(3, 128)) + spans + (0.1,),
+        "launch_cellwin_bwd": (f32(128, 3), f32(3, 128), f32(3, 128), f32(9, 128)) + spans
+        + (0.1,),
+        "launch_slab_window": (f32(3, 128), b(128), i32(1, 3), i32(1, 3), f32(1, 3), 0.01),
+        "launch_gather_moments": (f32(8, 3), i32(4, 2), f32(4, 2)),
+        "launch_moment_dot": (3, f32(5, 16, 64), f32(5, 64, 128), 2),
+        "launch_moment_window": (3, 0, f32(5, 8, 64), f32(8, 128), 0.0625, 2, 5, 64, 27),
+        "launch_grid_query": (f32(4, 3), b(4), f32(3, 8), i32(8), i32(8), [0.0] * 3, [1, 1, 1],
+                              1.0, 0.1, 4),
+        "launch_layout_probe": (0, f32(8, 512), (512, 128)),
+        "launch_gather_probe": (False, 1, f32(8, 256), i32(8, 256)),
+        "launch_knn_brute": (f32(4, 3), None, f32(8, 3), b(8), 0.01, 4),
+        "launch_gather_sum": (f32(3, 8), i32(2, 4)),
+        "launch_icp_gate": (f32(8), i32(8), b(8)),
+        "launch_icp_solve": (f32(8), torch.zeros(64, dtype=torch.uint8, device=device),
+                             f32(4, 4), f32(8), i32(8), f32(8, 3), b(8), f32(16, 3), f32(16, 3),
+                             0.8),
+    }[name]
 
 
 @pytest.mark.parametrize("device", ["cpu", "meta"])
-@pytest.mark.parametrize("kernel", ["gather_sum", "gather_moments"])
-def test_gather_first_versions_take_cuda_tensors_only(device, kernel):
-    """P7's and P7a's first versions have no plain route: their launchers
-    and wrappers refuse CPU and meta tensors, and nothing is counted."""
-    from depth_correction_tpu_torch.ops.gather_sum import gather_sum_v1
+@pytest.mark.parametrize("launcher", sorted(n for n in _kernels.__all__
+                                            if n.startswith("launch_")))
+def test_launchers_take_cuda_tensors_only(monkeypatch, launcher, device):
+    """Every kernel's raw launcher refuses CPU and meta tensors before the
+    library is loaded, and counts nothing."""
+    def no_library():
+        raise AssertionError("the library was loaded")
 
-    before = (_kernels.GATHER_SUM_V1_LAUNCHES, _kernels.GATHER_V1_LAUNCHES)
-    idx = torch.zeros((4, 8), dtype=torch.int32, device=device)
-    if kernel == "gather_sum":
-        pts = torch.zeros((3, 64), device=device)
-        for fn in (_kernels.launch_gather_sum_v1, gather_sum_v1):
-            with pytest.raises(ValueError, match="CUDA tensors"):
-                fn(pts, idx)
-    else:
-        pts, w = torch.zeros((64, 3), device=device), torch.ones((4, 8), device=device)
-        for fn in (_kernels.launch_gather_moments_v1, tfeat.gather_moments_v1):
-            with pytest.raises(ValueError, match="CUDA tensors"):
-                fn(pts, idx, w)
-    assert (_kernels.GATHER_SUM_V1_LAUNCHES, _kernels.GATHER_V1_LAUNCHES) == before
-
-
-def test_knn_first_version_takes_cuda_tensors_only():
-    """X3's first version is reached only through knn_brute_v1 (the A/B):
-    it has no plain route, so a CPU tensor is refused and nothing counts."""
-    from depth_correction_tpu_torch.ops import knn as tknn
-
-    before = (_kernels.KNN_LAUNCHES, _kernels.KNN_V1_LAUNCHES)
-    pts = torch.zeros((8, 3))
-    for k in (4, 0):
-        with pytest.raises(ValueError, match="CUDA tensors"):
-            tknn.knn_brute_v1(pts, pts, k, 0.1, torch.ones(8, dtype=torch.bool))
-    assert (_kernels.KNN_LAUNCHES, _kernels.KNN_V1_LAUNCHES) == before
-
-
-def test_slab_and_grid_first_versions_take_cuda_tensors_only():
-    """X1's and X2's first versions are reached only through
-    slab_window_kernel_v1 / grid_query_v1 (the A/B): they have no plain
-    route, so CPU tensors are refused and nothing counts."""
-    from depth_correction_tpu_torch.ops import grid_hash as tgrid
-
-    before = (_kernels.SLAB_LAUNCHES, _kernels.SLAB_V1_LAUNCHES, _kernels.GRID_LAUNCHES,
-              _kernels.GRID_V1_LAUNCHES)
-    spans = torch.zeros((1, 3), dtype=torch.int32)
+    monkeypatch.setattr(_kernels, "load", no_library)
+    before = _launch_counts()
     with pytest.raises(ValueError, match="CUDA tensors"):
-        tslab.slab_window_kernel_v1(torch.zeros((3, 128)), torch.ones(128, dtype=torch.bool),
-                                    spans, spans, torch.zeros((1, 3)), 0.01)
-    pts = torch.zeros((8, 3))
-    i32 = torch.zeros(8, dtype=torch.int32)
-    for k in (4, 0):
-        with pytest.raises(ValueError, match="CUDA tensors"):
-            tgrid.grid_query_v1(pts, torch.ones(8, dtype=torch.bool), pts.T.contiguous(), None,
-                                i32, i32, torch.zeros(3), torch.ones(3, dtype=torch.int64), 0.01,
-                                k, None, 0.1)
-    assert (_kernels.SLAB_LAUNCHES, _kernels.SLAB_V1_LAUNCHES, _kernels.GRID_LAUNCHES,
-            _kernels.GRID_V1_LAUNCHES) == before
+        getattr(_kernels, launcher)(*_launcher_args(launcher, device))
+    assert _launch_counts() == before
 
 
 def _knn_inputs(device, seed=0, n=20000, dup=0, quantum=0.0):
@@ -1810,27 +1519,24 @@ def test_cuda_knn_k1_no_radius_matches_plain(cuda_device, dup, quantum):
     assert bit_equal(d2_rows(idx), d2_rows(pidx))
 
 
-def _x3_three_ways(pts, q, k, r, valid, qv):
-    """The redesigned X3, its first version (knn_brute_v1.cu) and the plain
-    twin on the same float32 inputs: top-k index tables equal, d2 bit for
-    bit, counts equal; each launches once. Returns X3's (d2, idx), counts."""
+def _x3_against_twin(pts, q, k, r, valid, qv):
+    """X3 against its plain twin on the same float32 inputs: top-k index
+    tables equal, d2 bit for bit, counts equal; each launches once. Returns
+    X3's (d2, idx), counts."""
     from depth_correction_tpu_torch.ops import knn as tknn
 
-    before = (_kernels.KNN_LAUNCHES, _kernels.KNN_V1_LAUNCHES, _kernels.KNN_NEAREST_LAUNCHES)
+    before = (_kernels.KNN_LAUNCHES, _kernels.KNN_NEAREST_LAUNCHES)
     d2, idx = tknn.knn_d2(pts, q, k, r, valid, qv)
-    v1_d2, v1_idx = tknn.knn_brute_v1(pts, q, k, r, valid, qv)
     counts = tknn.neighbor_counts(pts, q, r, valid)
-    v1_counts = tknn.knn_brute_v1(pts, q, 0, r, valid)
     torch.cuda.synchronize()
     # The nearest search takes k = 1 with no radius alone: these calls never.
-    assert (_kernels.KNN_LAUNCHES, _kernels.KNN_V1_LAUNCHES, _kernels.KNN_NEAREST_LAUNCHES) == (
-        before[0] + 2, before[1] + 2, before[2] + int(k == 1 and r is None))
+    assert (_kernels.KNN_LAUNCHES, _kernels.KNN_NEAREST_LAUNCHES) == (
+        before[0] + 2, before[1] + int(k == 1 and r is None))
     pd2, pidx = tknn.knn_d2(pts, q, k, r, valid, qv, plain=True)
     pcounts = tknn.neighbor_counts(pts, q, r, valid, plain=True)
-    for other_d2, other_idx in ((pd2, pidx), (v1_d2, v1_idx)):
-        assert torch.equal(idx, other_idx)
-        assert bit_equal(d2, other_d2)
-    assert torch.equal(counts, pcounts) and torch.equal(counts, v1_counts)
+    assert torch.equal(idx, pidx)
+    assert bit_equal(d2, pd2)
+    assert torch.equal(counts, pcounts)
     if qv is not None:
         assert int((idx[~qv] >= 0).sum()) == 0
     return (d2, idx), counts
@@ -1856,9 +1562,9 @@ X3_CASES = {
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", list(X3_CASES))
-def test_cuda_knn_redesign_matches_twin_and_first_version(cuda_device, case):
+def test_cuda_knn_redesign_matches_twin(cuda_device, case):
     """The redesigned X3 (cell order, tile cull, one query per lane)
-    against its plain twin and its first version: k from 1 to 200, no
+    against its plain twin: k from 1 to 200, no
     radius, self-search (the main paths' calls, which reuse the points'
     order for the queries: with the valid points as the queries, and with
     every row querying as the shadow filter's top-k does), input already in
@@ -1883,7 +1589,7 @@ def test_cuda_knn_redesign_matches_twin_and_first_version(cuda_device, case):
         qv = torch.zeros_like(qv)
     if c.get("every_row"):
         qv = None
-    (_, idx), counts = _x3_three_ways(pts, q, c["k"], c["r"], valid, qv)
+    (_, idx), counts = _x3_against_twin(pts, q, c["k"], c["r"], valid, qv)
     if c.get("no_valid_points"):
         assert int(counts.sum()) == 0 and int((idx >= 0).sum()) == 0
     elif not c.get("no_valid_queries"):
@@ -1893,23 +1599,47 @@ def test_cuda_knn_redesign_matches_twin_and_first_version(cuda_device, case):
 @pytest.mark.cuda
 def test_cuda_knn_fewest_queries_per_block_and_the_limit(cuda_device):
     """The largest k whose lists fit one warp of 32 queries (one per lane)
-    in the tiled body runs and equals its twin and first version; one more
-    takes the warp-per-query body, still X3, and equals them too, as does
-    the largest k of that body; one more than that is refused with the k
-    and the limit, before any launch."""
-    from depth_correction_tpu_torch.ops import knn as tknn
-
+    in the tiled body runs and equals its twin, as does the largest k of
+    the warp-per-query body."""
     k_tiles, k_max = _kernels.knn_tiles_max_k(), _kernels.knn_max_k()
     assert 200 < k_tiles < k_max
     pts, valid = _knn_inputs(cuda_device, seed=4, n=2500)
     q, qv = pts[::2].contiguous(), valid[::2].contiguous()
-    for k in (k_tiles, k_tiles + 1):
-        _x3_three_ways(pts, q, k, 1.0, valid, qv)
-    _x3_three_ways(pts, q[:64].contiguous(), k_max, None, valid, qv[:64].contiguous())
+    _x3_against_twin(pts, q, k_tiles, 1.0, valid, qv)
+    _x3_against_twin(pts, q[:64].contiguous(), k_max, None, valid, qv[:64].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [1.0, None], ids=["radius", "no_radius"])
+def test_cuda_knn_large_k_takes_the_warp_body(cuda_device, monkeypatch, r):
+    """launch_knn_brute at one k past the tiled body's limit takes the
+    warp-per-query body (csrc/knn_warp.cu), with a radius and without one,
+    and equals the plain twin on a few thousand points; one k past that
+    body's limit is refused with the k and the limit, before any launch."""
+    from depth_correction_tpu_torch.ops import knn as tknn
+
+    k_tiles, k_max = _kernels.knn_tiles_max_k(), _kernels.knn_max_k()
+    pts, valid = _knn_inputs(cuda_device, seed=8, n=3000)
+    q, qv = pts[::2].contiguous(), valid[::2].contiguous()
+    warp_calls = []
+    warp_body = _kernels._knn_warp_body
+
+    def spy(*args):
+        warp_calls.append(args[5])
+        return warp_body(*args)
+
+    monkeypatch.setattr(_kernels, "_knn_warp_body", spy)
+    r2 = math.inf if r is None else float(torch.tensor(r, dtype=torch.float32) ** 2)
     before = _kernels.KNN_LAUNCHES
+    d2, idx = _kernels.launch_knn_brute(q, qv, pts, valid, r2, k_tiles + 1)
+    torch.cuda.synchronize()
+    assert warp_calls == [k_tiles + 1] and _kernels.KNN_LAUNCHES == before + 1
+    pd2, pidx = tknn.knn_d2(pts, q, k_tiles + 1, r, valid, qv, plain=True)
+    assert torch.equal(idx, pidx) and bit_equal(d2, pd2)
+    assert int((idx >= 0).sum()) > 0
     with pytest.raises(ValueError, match="k = %d does not fit.*k = %d" % (k_max + 1, k_max)):
-        tknn.knn_d2(pts, pts, k_max + 1, 1.0, valid, valid)
-    assert _kernels.KNN_LAUNCHES == before
+        _kernels.launch_knn_brute(q, qv, pts, valid, r2, k_max + 1)
+    assert warp_calls == [k_tiles + 1] and _kernels.KNN_LAUNCHES == before + 1
 
 
 @pytest.mark.cuda
@@ -1929,13 +1659,13 @@ def test_cuda_knn_order_matches_the_host_model(cuda_device, n):
     np.testing.assert_array_equal(got, kc.cell_order(pts.cpu(), np.ones(len(pts), bool), 0.25))
 
 
-def _nearest_three_ways(pts, valid, q, qv=None, model=True):
-    """X3's nearest search (k = 1, no radius) against its plain twin and its
-    first version (knn_brute_v1.cu) on the same float32 inputs: idx equal
-    and d2 bit for bit; one launch, counted as the nearest search. With
-    ``model``, the tiles each warp read (the kernel's tally) equal the host
-    model's (scripts/knn_cull.py:nearest_cull), and so do its keys. Returns
-    the tally's share of the (warp, tile) pairs."""
+def _nearest_against_twin(pts, valid, q, qv=None, model=True):
+    """X3's nearest search (k = 1, no radius) against the generic call and
+    the plain twin on the same float32 inputs: idx equal and d2 bit for bit;
+    one launch, counted as the nearest search. With ``model``, the tiles
+    each warp read (the kernel's tally) equal the host model's
+    (scripts/knn_cull.py:nearest_cull), and so do its keys. Returns the
+    tally's share of the (warp, tile) pairs."""
     from depth_correction_tpu_torch.ops import knn as tknn
     from depth_correction_tpu_torch.scripts import knn_cull as kc
 
@@ -1946,9 +1676,8 @@ def _nearest_three_ways(pts, valid, q, qv=None, model=True):
     assert (_kernels.KNN_LAUNCHES, _kernels.KNN_NEAREST_LAUNCHES) == (before[0] + 1,
                                                                       before[1] + 1)
     gd2, gidx = tknn.knn_d2(pts, q, 1, None, valid, qv)
-    v1_d2, v1_idx = tknn.knn_brute_v1(pts, q, 1, None, valid, qv)
     pd2, pidx = tknn.knn_d2(pts, q, 1, None, valid, qv, plain=True)
-    for other_d2, other_idx in ((gd2, gidx), (pd2, pidx), (v1_d2, v1_idx)):
+    for other_d2, other_idx in ((gd2, gidx), (pd2, pidx)):
         assert torch.equal(idx, other_idx)
         assert bit_equal(d2, other_d2)
     if model:
@@ -2016,10 +1745,10 @@ def _cell_shape(shape):
 @pytest.mark.parametrize("shape", ["odometry", "mapper", "street"])
 def test_cuda_knn_nearest_at_the_slam_shapes(cuda_device, shape):
     """The nearest search at the SLAM cells' shapes: bit-equal to the plain
-    twin and the first version, the tally equal to the host model's, and
+    twin, the tally equal to the host model's, and
     under 5% of the (warp, tile) pairs read (1% on the street map)."""
     pts, q = _cell_shape(shape)
-    share = _nearest_three_ways(pts, torch.ones(len(pts), dtype=torch.bool, device=cuda_device), q)
+    share = _nearest_against_twin(pts, torch.ones(len(pts), dtype=torch.bool, device=cuda_device), q)
     assert share < (0.01 if shape == "street" else 0.05), share
 
 
@@ -2037,7 +1766,7 @@ def test_cuda_knn_nearest_adversarial(cuda_device, name):
 
     pts, valid, q, qv = NEAREST_CASES[name]()
     dev = lambda a: None if a is None else torch.as_tensor(a, device=cuda_device)
-    _nearest_three_ways(dev(pts), dev(valid), dev(q), dev(qv))
+    _nearest_against_twin(dev(pts), dev(valid), dev(q), dev(qv))
 
 
 @pytest.mark.cuda
@@ -2048,9 +1777,9 @@ def test_cuda_knn_nearest_below_one_block_and_tally_refused(cuda_device):
     before any launch."""
     pts, valid = _knn_inputs(cuda_device, seed=6, n=9000)
     q, _ = _knn_inputs(cuda_device, seed=7, n=7385)
-    _nearest_three_ways(pts, valid, q[:7384].contiguous())
-    _nearest_three_ways(pts, valid, q)
-    _nearest_three_ways(pts, valid, q[:7].contiguous())
+    _nearest_against_twin(pts, valid, q[:7384].contiguous())
+    _nearest_against_twin(pts, valid, q)
+    _nearest_against_twin(pts, valid, q[:7].contiguous())
     tally = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     before = _kernels.KNN_LAUNCHES
     for r2, k in ((0.09, 1), (math.inf, 2), (0.09, 0)):
@@ -2078,42 +1807,35 @@ def test_cuda_gather_sum_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 5, 32, 33, 100])
-def test_cuda_gather_sum_matches_plain_and_first_version(cuda_device, k):
-    """P7a's redesign bit-equal to its plain twin and to its first version
-    at K below, at and past one warp's 32 indices (K 33 and 100 take two
-    and four rounds of 32, the last one partial), with T not a multiple of
-    either block (1000 rows); one launch of each, counted by its own
-    counter."""
-    from depth_correction_tpu_torch.ops.gather_sum import gather_sum, gather_sum_plain, gather_sum_v1
+def test_cuda_gather_sum_matches_plain_at_any_k(cuda_device, k):
+    """P7a bit-equal to its plain twin at K below, at and past one warp's
+    32 indices (K 33 and 100 take two and four rounds of 32, the last one
+    partial), with T not a multiple of either block (1000 rows); one
+    launch."""
+    from depth_correction_tpu_torch.ops.gather_sum import gather_sum, gather_sum_plain
 
     rng = np.random.default_rng(k)
     m, t = 16384, 1000
     pts = torch.as_tensor(rng.normal(size=(3, m)), dtype=torch.float32, device=cuda_device)
     idx = torch.as_tensor(rng.integers(0, m, (t, k)), dtype=torch.int32, device=cuda_device)
-    before = (_kernels.GATHER_SUM_LAUNCHES, _kernels.GATHER_SUM_V1_LAUNCHES)
-    got, old = gather_sum(pts, idx), gather_sum_v1(pts, idx)
+    before = _kernels.GATHER_SUM_LAUNCHES
+    got = gather_sum(pts, idx)
     torch.cuda.synchronize()
-    assert (_kernels.GATHER_SUM_LAUNCHES, _kernels.GATHER_SUM_V1_LAUNCHES) == (before[0] + 1,
-                                                                              before[1] + 1)
+    assert _kernels.GATHER_SUM_LAUNCHES == before + 1
     assert bit_equal(got, gather_sum_plain(pts, idx))
-    assert bit_equal(got, old)
 
 
 @pytest.mark.cuda
 def test_cuda_gather_sum_takes_a_table_past_shared_memory(cuda_device):
-    """A (3, 100,000) table (1.2 MB) is past any block's shared memory: the
-    first version refuses it and counts nothing; the redesign, which stages
-    nothing, takes it and equals the plain twin bit for bit."""
-    from depth_correction_tpu_torch.ops.gather_sum import gather_sum, gather_sum_plain, gather_sum_v1
+    """A (3, 100,000) table (1.2 MB) is past any block's shared memory: P7a,
+    which stages nothing, takes it and equals the plain twin bit for
+    bit."""
+    from depth_correction_tpu_torch.ops.gather_sum import gather_sum, gather_sum_plain
 
     rng = np.random.default_rng(11)
     m = 100_000
     pts = torch.as_tensor(rng.normal(size=(3, m)), dtype=torch.float32, device=cuda_device)
     idx = torch.as_tensor(rng.integers(0, m, (777, 32)), dtype=torch.int32, device=cuda_device)
-    before = _kernels.GATHER_SUM_V1_LAUNCHES
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        gather_sum_v1(pts, idx)
-    assert _kernels.GATHER_SUM_V1_LAUNCHES == before
     got = gather_sum(pts, idx)
     torch.cuda.synchronize()
     assert bit_equal(got, gather_sum_plain(pts, idx))
@@ -2148,44 +1870,31 @@ def _p7_cases(k, n=20000, mq=3000, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("pack", [False, True])
 @pytest.mark.parametrize("k", [1, 8, 32, 33, 88, 168])
-def test_cuda_gather_moments_matches_first_version(cuda_device, monkeypatch, k, pack):
-    """P7's redesign at every lane grouping (K 1-32, 33-64, 65-128, > 128),
-    its points read in place or packed into (N, 4) rows first: both layouts
-    bit-equal; within 1e-5 of max |output| of its first version and of the
-    float64 plain twin; rows with no contributor as the first version has
-    them (mean 0, comps 0, w_sum 1e-12); one launch each, counted by its
-    own counter."""
+def test_cuda_gather_moments_lane_groupings_match_plain(cuda_device, monkeypatch, k, pack):
+    """P7 at every lane grouping (K 1-32, 33-64, 65-128, > 128), its points
+    read in place or packed into (N, 4) rows first: both layouts bit-equal;
+    within 1e-5 of max |output| of the float64 plain twin, the rows whose
+    first contributor sits past slot 31 (past the first pass at K 168)
+    included; rows with no contributor at mean 0, comps 0, w_sum 1e-12; one
+    launch each."""
     monkeypatch.setattr(_kernels, "GATHER_PACK_MIN_PAIRS", 0 if pack else 1 << 62)
     pts, idx, w = _p7_cases(k)
     pts = torch.as_tensor(pts, dtype=torch.float32, device=cuda_device)
     idx = torch.as_tensor(idx, dtype=torch.int32, device=cuda_device)
     w = torch.as_tensor(w, dtype=torch.float32, device=cuda_device)
-    before = (_kernels.GATHER_LAUNCHES, _kernels.GATHER_V1_LAUNCHES)
+    before = _kernels.GATHER_LAUNCHES
     got = tfeat.gather_moments(pts, idx, w)
     got_3n = tfeat.gather_moments(pts.T.contiguous(), idx, w)  # (3, N)
-    old = tfeat.gather_moments_v1(pts, idx, w)
     torch.cuda.synchronize()
-    assert (_kernels.GATHER_LAUNCHES, _kernels.GATHER_V1_LAUNCHES) == (before[0] + 2,
-                                                                      before[1] + 1)
+    assert _kernels.GATHER_LAUNCHES == before + 2
     for a, b in zip(got, got_3n):
         assert bit_equal(a, b)
     ref = tfeat.gather_moments_plain(pts.double(), idx, w.double())
-    for g, o, r in zip(got, old, ref):
-        scale = float(r.abs().max())
-        assert float((g.double() - r).abs().max()) <= 1e-5 * scale
-        assert float((g - o).abs().max()) <= 1e-5 * scale
+    for g, r in zip(got, ref):
+        assert float((g.double() - r).abs().max()) <= 1e-5 * float(r.abs().max())
     none = slice(0, 20)
     assert not bool(got[0][:, none].any()) and not bool(got[1][:, none].any())
     assert bool((got[2][none] == 1e-12).all())
-    for g, o in zip(got, old):
-        assert bit_equal(g[..., none], o[..., none])
-    # Rows with one or two contributors sum the same bits in any order, so
-    # they equal the first version's bit for bit only with the same shift:
-    # the first contributor, past slot 31 for K > 32, in the second pass
-    # at K 168.
-    late = slice(20, 60)
-    for g, o in zip(got, old):
-        assert bit_equal(g[..., late], o[..., late])
 
 
 def bit_equal(a, b) -> bool:
@@ -2602,7 +2311,7 @@ TRANSPOSE_CASES = ["empty", "in_degree_0", "hub", "k32", "uncapped"]
 
 def test_transpose_wrappers_never_take_the_plain_path(monkeypatch):
     """Non-CPU tensors go to the X4 / X5 launchers, never to the plain
-    versions; the launchers refuse CPU tensors and count nothing then."""
+    versions."""
     calls = []
 
     def fake_launch(*args, **kw):
@@ -2618,22 +2327,6 @@ def test_transpose_wrappers_never_take_the_plain_path(monkeypatch):
     with pytest.raises(RuntimeError, match="launched"):
         tfeat.transpose_gather(torch.zeros(tuple(nn.shape) + (3,), device="meta"), tg)
     assert len(calls) == 2
-    monkeypatch.undo()
-    counts = ("TRANSPOSE_MOMENTS_LAUNCHES", "TRANSPOSE_GATHER_LAUNCHES",
-              "TRANSPOSE_MOMENTS_V1_LAUNCHES", "TRANSPOSE_GATHER_V1_LAUNCHES")
-    before = [getattr(_kernels, c) for c in counts]
-    tg = tfeat.build_transpose_graph(nn, pts, w)
-    csr = tfeat.point_csr(tg)
-    table, g = torch.zeros((nn.shape[0], 12)), torch.zeros((nn.numel(), 3))
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_transpose_moments(pts, tg, table)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_transpose_gather(g, tg)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_transpose_moments_v1(pts, csr.start, csr.pair, csr.w, table, csr.k)
-    with pytest.raises(ValueError, match="CUDA tensors"):
-        _kernels.launch_transpose_gather_v1(g, csr.start, csr.pair)
-    assert [getattr(_kernels, c) for c in counts] == before
 
 
 @pytest.mark.cuda
@@ -2696,18 +2389,14 @@ def _hub_tiles(tg) -> int:
 @pytest.mark.cuda
 @pytest.mark.parametrize("budget", [tfeat.TILE_ROWS, 64])
 @pytest.mark.parametrize("case", TRANSPOSE_CASES)
-def test_cuda_transpose_tiles_match_plain_and_first_version(cuda_device, case, budget,
-                                                           monkeypatch):
+def test_cuda_transpose_tiles_match_plain(cuda_device, case, budget, monkeypatch):
     """X4 and X5 (D = 1 and 3) over cell-ordered tiles at the default budget
     and at 64 rows (the hub's tile and others past it take the hub path)
-    against the float64 plain versions and against their first versions
-    (point order), within GRAD_REL_BAR of max |output|; bit-equal to the
-    first versions where no tile is a hub (the same sum order); two
-    launches bit-equal; each version's launches counted."""
+    against the float64 plain versions, within GRAD_REL_BAR of max
+    |output|; two launches bit-equal; the launches counted."""
     pts, nn, w, m = _transpose_case(case, cuda_device)
     monkeypatch.setattr(tfeat, "TILE_ROWS", budget)
     tg = tfeat.build_transpose_graph(nn, pts, w)
-    csr = tfeat.point_csr(tg)
     if case == "hub" and budget == 64:
         assert _hub_tiles(tg) >= 1
     gen = torch.Generator(device=cuda_device).manual_seed(7)
@@ -2715,36 +2404,28 @@ def test_cuda_transpose_tiles_match_plain_and_first_version(cuda_device, case, b
     table = tfeat._cotangent_rows(mean, w_sum,
                                   (torch.randn(mean.shape, generator=gen, device=cuda_device),
                                    torch.randn(comps.shape, generator=gen, device=cuda_device)))
-    before = (_kernels.TRANSPOSE_MOMENTS_LAUNCHES, _kernels.TRANSPOSE_MOMENTS_V1_LAUNCHES,
-              _kernels.TRANSPOSE_GATHER_LAUNCHES, _kernels.TRANSPOSE_GATHER_V1_LAUNCHES)
+    before = (_kernels.TRANSPOSE_MOMENTS_LAUNCHES, _kernels.TRANSPOSE_GATHER_LAUNCHES)
     runs = [(tfeat.transpose_moments(pts, tg, table), tfeat.transpose_moments(pts, tg, table),
-             tfeat.transpose_moments_v1(pts, csr, table),
              tfeat.transpose_moments_plain(pts.double(), tg.to(dtype=torch.float64),
                                            table.double()))]
     for dim in (1, 3):
         g = torch.randn(tuple(nn.shape) + ((3,) if dim == 3 else ()), generator=gen,
                         device=cuda_device)
         runs.append((tfeat.transpose_gather(g, tg), tfeat.transpose_gather(g, tg),
-                     tfeat.transpose_gather_v1(g, csr),
                      tfeat.transpose_gather_plain(g.double(), tg)))
     torch.cuda.synchronize()
-    assert (_kernels.TRANSPOSE_MOMENTS_LAUNCHES, _kernels.TRANSPOSE_MOMENTS_V1_LAUNCHES,
-            _kernels.TRANSPOSE_GATHER_LAUNCHES, _kernels.TRANSPOSE_GATHER_V1_LAUNCHES) == (
-        before[0] + 2, before[1] + 1, before[2] + 4, before[3] + 2)
-    for got, again, v1, ref in runs:
+    assert (_kernels.TRANSPOSE_MOMENTS_LAUNCHES, _kernels.TRANSPOSE_GATHER_LAUNCHES) == (
+        before[0] + 2, before[1] + 4)
+    for got, again, ref in runs:
         assert got.shape == ref.shape and torch.equal(got, again)
         bar = GRAD_REL_BAR * max(float(ref.abs().max()), 1e-30)
         assert float((got.double() - ref).abs().max()) <= bar
-        assert float((got.double() - v1.double()).abs().max()) <= bar
-    for got, _, v1, _ in runs[1:] if _hub_tiles(tg) else runs:
-        assert torch.equal(got, v1)
 
 
 @pytest.mark.cuda
 def test_cuda_transpose_without_tiles_raises(cuda_device):
     """A TransposeGraph without its tiles (its cell-order CSR alone) raises
-    on CUDA tensors before any launch; the first versions still take its
-    point-order CSR."""
+    on CUDA tensors before any launch."""
     pts, nn, w, m = _transpose_case("k32", cuda_device)
     tg = tfeat.build_transpose_graph(nn, pts, w)
     bare = dataclasses.replace(tg, tiles=None)
@@ -2756,8 +2437,6 @@ def test_cuda_transpose_without_tiles_raises(cuda_device):
     with pytest.raises(ValueError, match="tiles"):
         tfeat.transpose_gather(g, bare)
     assert (_kernels.TRANSPOSE_MOMENTS_LAUNCHES, _kernels.TRANSPOSE_GATHER_LAUNCHES) == before
-    assert torch.equal(tfeat.transpose_gather_v1(g, tfeat.point_csr(bare)),
-                       tfeat.transpose_gather(g, tg))
 
 
 @pytest.mark.cuda
@@ -2766,8 +2445,7 @@ def test_cuda_transpose_moments_tile_at_the_budget(cuda_device, rows):
     """X4 on a graph whose largest tile within the budget stages ``rows``
     rows (up to TILE_ROWS, 48 KB of shared memory) beside a hub tile in the
     same launch: against the float64 plain version within GRAD_REL_BAR of
-    max |grad|, bit-equal to its first version (the hub's sum is another
-    tree, so it is held to the bar) and between two launches. The targets
+    max |grad|, and bit-equal between two launches. The targets
     0..127 (one block) are referenced by ``rows`` one-per-row pairs plus
     a second neighbour each; target 200 by 1,100 rows of its own."""
     hub_rows = 1100
@@ -2794,16 +2472,12 @@ def test_cuda_transpose_moments_tile_at_the_budget(cuda_device, rows):
                                    torch.randn(comps.shape, generator=gen, device=cuda_device)))
     got = tfeat.transpose_moments(pts, tg, table)
     again = tfeat.transpose_moments(pts, tg, table)
-    v1 = tfeat.transpose_moments_v1(pts, tfeat.point_csr(tg), table)
     torch.cuda.synchronize()
     ref = tfeat.transpose_moments_plain(pts.double(), tg.to(dtype=torch.float64),
                                         table.double())
     bar = GRAD_REL_BAR * float(ref.abs().max())
     assert torch.equal(got, again)
     assert float((got.double() - ref).abs().max()) <= bar
-    assert float((got.double() - v1.double()).abs().max()) <= bar
-    keep = torch.arange(m, device=cuda_device) != 200
-    assert torch.equal(got[keep], v1[keep])
 
 
 @pytest.mark.cuda

@@ -5,7 +5,7 @@ kernel X2's neighbour-list policy (``csrc/grid_query.cu``), on the CPU.
 X1: the cull keeps every member on seeded slab layouts, on entries at
 exactly d2 = r2 (and one float32 ulp outside) from a corner row of a
 warp's box, and when a warp's rows are all padding; it keeps at most the
-first version's pair tests. X2: appending while the list has room, sorting
+pair tests made without it. X2: appending while the list has room, sorting
 once at the end or at the first overflow (runs of 32, then merges by
 rank) and merging after it gives the stable sort of the members truncated
 to k, for k below and above the count; the warp sorts, the merges and the
@@ -57,7 +57,7 @@ def _members_kept(pts_T, valid, lo, width, ctr, r2):
                                       (3, 11904, 0.2)])
 def test_cull_keeps_every_member_on_seeded_layouts(seed, n, r):
     """Every member of the plain version (its w_sum, float32) is kept, and
-    the cull drops some of the first version's pair tests."""
+    the cull drops some of the pair tests made without it."""
     pts_T, val, lo, width, ctr = _seeded_layout(seed, n, r)
     members = _members_kept(pts_T, val, lo, width, ctr, r * r)
     plain = tslab.slab_window_moments_plain(pts_T, val, lo, width, ctr, r * r)

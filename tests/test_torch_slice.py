@@ -265,7 +265,6 @@ def test_port_imports_no_jax():
             "depth_correction_tpu_torch.scripts.exp_pallas_gather, "
             "depth_correction_tpu_torch.scripts.knn_cull, "
             "depth_correction_tpu_torch.scripts.slab_cull, "
-            "depth_correction_tpu_torch.scripts.exp_grid_slab_ab, "
             "depth_correction_tpu_torch.scripts.exp_window_variants, "
             "depth_correction_tpu_torch.scripts.exp_transpose_variants, "
             "depth_correction_tpu_torch.scripts.exp_profile_teardown, "
